@@ -1,0 +1,142 @@
+"""Typed configuration for splice_tpu_torch.
+
+The port's own copy of splice_tpu/config.py: the same flat YAML key set
+(reference conf/default/config.yaml) and the same CLI > YAML > default
+precedence. Knobs that only mean something to XLA or a TPU mesh are gone;
+knobs for parts not yet ported are refused by validate() instead of being
+silently ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+import pathlib
+from typing import Any, Optional
+
+import yaml
+
+
+@dataclasses.dataclass
+class Config:
+    # --- reference-parity keys (conf/default/config.yaml) ---
+    seed: int = -1                      # -1 -> random seed
+    dataroot: str = "./datasets/splicing/cows"
+    direction: str = "AtoB"             # AtoB | BtoA
+    A_resize: int = -1                  # shorter-side resize of A, -1 = off
+    B_resize: int = -1
+    use_augmentations: bool = True
+
+    global_A_crops_n_crops: int = 1
+    global_A_crops_min_cover: float = 0.95
+    global_B_crops_n_crops: int = 1
+    global_B_crops_min_cover: float = 0.95
+
+    init_type: str = "xavier"           # only xavier is ported
+    init_gain: float = 0.02
+
+    lambda_global_cls: float = 10.0
+    lambda_global_ssim: float = 1.0
+    lambda_global_identity: float = 1.0
+    entire_A_every: int = 75
+    lambda_entire_cls: float = 10.0
+    lambda_entire_ssim: float = 1.0
+
+    dino_model_name: str = "dino_vitb8"
+    dino_global_patch_size: int = 224   # loss-side resize target
+
+    cls_warmup: int = 1
+    n_epochs: int = 10000
+    scheduler_policy: str = "none"      # only "none" is ported
+
+    optimizer: str = "adam"             # only adam is ported
+    optimizer_beta1: float = 0.0
+    optimizer_beta2: float = 0.99
+    lr: float = 2e-3
+
+    log_images_freq: int = 10
+
+    # --- port knobs ---
+    # Frozen-ViT weights: a .npz written by splice_tpu's save_vit_params, or
+    # a DINO torch state dict (.pth/.pt). None -> seeded random init.
+    vit_weights: Optional[str] = None
+    vit_compute_dtype: str = "bfloat16"
+    generator_compute_dtype: str = "bfloat16"
+    crop_canvas: int = 0                # 0 -> min(H, W) rounded down to 32
+    antialias: bool = True
+    dino_global_max_size: int = 480
+    device: str = "cuda"
+
+    def validate(self) -> "Config":
+        checks = {
+            "direction": ("AtoB", "BtoA"),
+            "init_type": ("xavier",),
+            "scheduler_policy": ("none",),
+            "optimizer": ("adam",),
+            "vit_compute_dtype": ("bfloat16", "float32"),
+            "generator_compute_dtype": ("bfloat16", "float32"),
+        }
+        for name, allowed in checks.items():
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name}={getattr(self, name)!r} is not "
+                                 f"supported by the port; one of {allowed}")
+        if self.global_A_crops_n_crops < 1 or self.global_B_crops_n_crops < 1:
+            raise ValueError("crop counts must be >= 1")
+        for cover in (self.global_A_crops_min_cover,
+                      self.global_B_crops_min_cover):
+            if not 0.0 < cover <= 1.0:
+                raise ValueError(f"min_cover {cover} outside (0, 1]")
+        return self
+
+
+_FIELDS = {f.name: f for f in dataclasses.fields(Config)}
+
+
+def _coerce(name: str, value: Any) -> Any:
+    f = _FIELDS[name]
+    t = str(f.type)
+    if value is None:
+        if "Optional" not in t:
+            raise ValueError(f"config key {name!r} is null but has "
+                             f"non-optional type {t}")
+        return None
+    if t == "int":
+        return int(value)
+    if t == "float":
+        return float(value)
+    if t == "bool":
+        if isinstance(value, str):
+            return value.lower() in ("1", "true", "yes", "on")
+        return bool(value)
+    if t == "str":
+        return str(value)
+    return value
+
+
+def load_config(path: Optional[str] = None,
+                overrides: Optional[dict] = None) -> Config:
+    """Build a Config from (optional) YAML + (optional) override dict."""
+    data: dict = {}
+    if path is not None:
+        with open(path) as f:
+            data.update(yaml.safe_load(f) or {})
+    if overrides:
+        data.update({k: v for k, v in overrides.items() if v is not None})
+    unknown = set(data) - set(_FIELDS)
+    if unknown:
+        raise ValueError(f"unknown config keys: {sorted(unknown)}")
+    return Config(**{k: _coerce(k, v) for k, v in data.items()}).validate()
+
+
+def add_cli_args(parser) -> None:
+    """Register every config field as a --flag (CLI > YAML > default)."""
+    for f in dataclasses.fields(Config):
+        parser.add_argument(f"--{f.name}", type=str, default=None)
+
+
+def config_from_cli(args, config_path: Optional[str] = None) -> Config:
+    overrides = {f.name: getattr(args, f.name, None)
+                 for f in dataclasses.fields(Config)}
+    path = config_path
+    default = pathlib.Path("conf/default/config.yaml")
+    if path is None and default.exists():
+        path = str(default)
+    return load_config(path, overrides)

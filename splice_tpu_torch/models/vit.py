@@ -1,0 +1,186 @@
+"""DINO Vision Transformer with feature taps (port of splice_tpu/models/vit.py).
+
+Parameters are a plain nested dict with the reference's names and layouts
+(dense kernels [in, out], the patch-embed kernel HWIO [P, P, 3, D]), so a
+parameter tree moves between the two packages as numpy arrays unchanged
+(models/weights.py). The patch-embed conv and the dense layers are torch
+ops (XLA in the reference); attention is ops.attention.attention_from_qkv,
+which is kernels K1/K2 on CUDA tensors.
+
+The frozen weights carry requires_grad=False, so autograd computes only the
+input cotangent. There is no remat: an 80 GB card holds the activations.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from splice_tpu_torch.ops.attention import attention_from_qkv
+
+
+@dataclasses.dataclass(frozen=True)
+class VitConfig:
+    patch_size: int = 8
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    ln_eps: float = 1e-6
+    img_size: int = 224                 # grid the stored pos_embed was made at
+    interpolate_offset: float = 0.1     # DINO's +0.1 pos-embed grid offset
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    @property
+    def base_grid(self) -> int:
+        return self.img_size // self.patch_size
+
+
+# DINO models. The DINOv2 variants (layer scale, registers) are not ported.
+VIT_CONFIGS: Dict[str, VitConfig] = {
+    "dino_vitb8": VitConfig(patch_size=8, embed_dim=768, depth=12, num_heads=12),
+    "dino_vits8": VitConfig(patch_size=8, embed_dim=384, depth=12, num_heads=6),
+    "dino_vitb16": VitConfig(patch_size=16, embed_dim=768, depth=12, num_heads=12),
+    "dino_vits16": VitConfig(patch_size=16, embed_dim=384, depth=12, num_heads=6),
+}
+
+
+def get_vit_config(model_name: str) -> VitConfig:
+    if model_name not in VIT_CONFIGS:
+        raise ValueError(f"unknown ViT model {model_name!r}; "
+                         f"known: {sorted(VIT_CONFIGS)}")
+    return VIT_CONFIGS[model_name]
+
+
+def cast_params_for_compute(params: Dict[str, Any], dtype: torch.dtype
+                            ) -> Dict[str, Any]:
+    """Store the large frozen weights (patch embed, attention, MLP) in the
+    compute dtype; LayerNorm affines, pos_embed and cls stay fp32."""
+    out = dict(params)
+    cast = {k: v.to(dtype) for k, v in params["patch_embed"].items()}
+    out["patch_embed"] = cast
+    out["blocks"] = [
+        {**blk,
+         "attn": {n: {k: v.to(dtype) for k, v in d.items()}
+                  for n, d in blk["attn"].items()},
+         "mlp": {n: {k: v.to(dtype) for k, v in d.items()}
+                 for n, d in blk["mlp"].items()}}
+        for blk in params["blocks"]]
+    return out
+
+
+def _dense(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    y = torch.matmul(x, p["kernel"].to(x.dtype))
+    return y + p["bias"].to(y.dtype)
+
+
+def _layer_norm(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                eps: float) -> torch.Tensor:
+    """LayerNorm in fp32, result in x's dtype."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), p["scale"].float(),
+                     p["bias"].float(), eps)
+    return y.to(x.dtype)
+
+
+def _bicubic_resize_matrix(in_size: int, out_size: int, scale: float,
+                           a: float = -0.75) -> np.ndarray:
+    """[out, in] weights of torch's bicubic upsampling (a=-0.75, half-pixel
+    centers, replicate borders) at DINO's scale_factor convention."""
+    def k(x):
+        x = abs(x)
+        if x <= 1.0:
+            return (a + 2.0) * x ** 3 - (a + 3.0) * x ** 2 + 1.0
+        if x < 2.0:
+            return a * x ** 3 - 5.0 * a * x ** 2 + 8.0 * a * x - 4.0 * a
+        return 0.0
+
+    W = np.zeros((out_size, in_size), np.float64)
+    for i in range(out_size):
+        s = (i + 0.5) / scale - 0.5
+        i0 = int(np.floor(s))
+        t = s - i0
+        for m, wgt in zip(range(i0 - 1, i0 + 3),
+                          (k(1.0 + t), k(t), k(1.0 - t), k(2.0 - t))):
+            W[i, min(max(m, 0), in_size - 1)] += wgt
+    return W.astype(np.float32)
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, cfg: VitConfig,
+                          gh: int, gw: int) -> torch.Tensor:
+    """Bicubic pos-embed interpolation to a (gh, gw) grid with DINO's +0.1
+    offset (scale (g + 0.1) / g0). Returns [1, 1 + gh*gw, D]."""
+    g0 = cfg.base_grid
+    if (gh, gw) == (g0, g0):
+        return pos_embed
+    prefix, patch = pos_embed[:, :1], pos_embed[:, 1:]
+    D = pos_embed.shape[-1]
+    patch = patch.reshape(g0, g0, D).float()
+    dev = pos_embed.device
+    wy = torch.from_numpy(_bicubic_resize_matrix(
+        g0, gh, (gh + cfg.interpolate_offset) / g0)).to(dev, patch.dtype)
+    wx = torch.from_numpy(_bicubic_resize_matrix(
+        g0, gw, (gw + cfg.interpolate_offset) / g0)).to(dev, patch.dtype)
+    out = torch.einsum("oi,iwd->owd", wy, patch)
+    out = torch.einsum("oj,hjd->hod", wx, out)
+    out = out.reshape(1, gh * gw, D).to(pos_embed.dtype)
+    return torch.cat([prefix, out], dim=1)
+
+
+def _block(x: torch.Tensor, bp: Dict[str, Any], cfg: VitConfig,
+           want: Sequence[str]):
+    """One pre-LN block. Returns (x_out, taps)."""
+    taps = {}
+    h = _layer_norm(x, bp["norm1"], cfg.ln_eps)
+    qkv = _dense(h, bp["attn"]["qkv"])
+    if "qkv" in want:
+        taps["qkv"] = qkv
+    o = attention_from_qkv(qkv, cfg.num_heads, cfg.head_dim ** -0.5)
+    o = _dense(o, bp["attn"]["proj"])
+    x = x + o
+    h = _layer_norm(x, bp["norm2"], cfg.ln_eps)
+    h = F.gelu(_dense(h, bp["mlp"]["fc1"]), approximate="none")
+    x = x + _dense(h, bp["mlp"]["fc2"])
+    if "block" in want:
+        taps["block"] = x
+    return x, taps
+
+
+def vit_forward(params: Dict[str, Any], images: torch.Tensor, cfg: VitConfig,
+                taps: Dict[str, Sequence[int]],
+                compute_dtype: torch.dtype = torch.float32,
+                final_norm: bool = False) -> Dict[str, Dict[int, torch.Tensor]]:
+    """Run the ViT on [B, H, W, 3] ImageNet-normalised images and return the
+    requested taps, e.g. {"qkv": [11], "block": [11]}: "qkv" is the fused
+    [B, N, 3D] projection, "block" the [B, N, D] block output (pre final
+    norm). final_norm adds {"final": {-1: LN(x)}}."""
+    B, H, W, _ = images.shape
+    P = cfg.patch_size
+    gh, gw = H // P, W // P
+    x = F.conv2d(images.permute(0, 3, 1, 2).to(compute_dtype),
+                 params["patch_embed"]["kernel"].permute(3, 2, 0, 1)
+                 .to(compute_dtype), stride=P)
+    x = x + params["patch_embed"]["bias"].to(compute_dtype)[:, None, None]
+    x = x.flatten(2).transpose(1, 2)                       # [B, gh*gw, D]
+    cls = params["cls_token"].to(compute_dtype).expand(B, 1, cfg.embed_dim)
+    x = torch.cat([cls, x], dim=1)
+    x = x + interpolate_pos_embed(params["pos_embed"], cfg, gh, gw
+                                  ).to(compute_dtype)
+    max_layer = max((max(v) for v in taps.values() if len(v)),
+                    default=cfg.depth - 1)
+    if final_norm:
+        max_layer = cfg.depth - 1
+    out: Dict[str, Dict[int, torch.Tensor]] = {k: {} for k in taps}
+    for i in range(max_layer + 1):
+        want = tuple(k for k, layers in taps.items() if i in layers)
+        x, btaps = _block(x, params["blocks"][i], cfg, want)
+        for k, v in btaps.items():
+            out[k][i] = v
+    if final_norm:
+        out["final"] = {-1: _layer_norm(x, params["norm"], cfg.ln_eps)}
+    return out
