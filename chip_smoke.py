@@ -6,17 +6,26 @@
 Phases, each fatal on failure:
   1. build the hand-written CUDA kernels from splice_tpu_torch/csrc;
   2. hold every kernel against its plain PyTorch version at the shapes the
-     training step gives it (and at small edge-case shapes), and time
+     training paths give it (and at small edge-case shapes), and time
      kernel, plain version and a PyTorch library call that computes the
      same function (the yardstick only);
   3. run one regular and one entire-A step at a small size on the card
      (fp32, through the kernels) and on the CPU (plain path) from the same
-     parameters and draws, and compare loss and gradient;
+     parameters and draws, and compare loss and gradient, for
+     generator_conv auto, fused and pallas;
   4. the main path: train_pair on the cows pair at full width (896 canvas,
      dino_vitb8 with seeded random weights, 224 loss resolution, bf16) for
-     12 steps including entire-A steps; every loss finite, every kernel
-     launched;
-  5. where the time goes: torch.profiler over three more regular steps.
+     12 steps including entire-A steps; every loss finite, every kernel of
+     the path launched;
+  5. where the time goes: torch.profiler over three more regular steps;
+  6. the other paths at the same width, a few steps each including an
+     entire-A step, each with its kernels launched and a profile:
+     the 480-px loss resolution (3601 and 2701 tokens: split-tensor
+     attention K5/K6), generator_conv=fused (K3'/K4' with the BatchNorm
+     prologue) and generator_conv=pallas (every conv on K3/K4, stride 2 at
+     k = 2);
+  7. the step time of generator_conv auto, fused and pallas at 224,
+     measured in turns.
 Prints the kernels' numbers as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -33,6 +42,10 @@ import time
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 MAIN_STEPS = 12
+# (generator_conv, loss resolution, steps) of the other paths; step 0 is an
+# entire-A step and warms up, the rest are regular
+PATHS = (("480", "auto", 480, 3), ("fused", "fused", 224, 6),
+         ("pallas", "pallas", 224, 6))
 
 
 def fail(msg: str) -> None:
@@ -90,6 +103,20 @@ RTOL = {"bfloat16": (1.6e-2, "bf16 output rounding, up to 4 ulps at the "
                      "largest value, plus another fp32 summation order"),
         "float32": (1e-4, "fp32 sums over up to 10^4 terms in another "
                     "order")}
+DW_WHY = "fp32 output; fp32 sums over 10^5-10^6 pixels in another order"
+
+
+def timed(kernel, plain, library, nbytes, flops, dtype_name, tag, shape):
+    """Times of kernel, plain version and library yardstick, with the
+    bound from this call's bytes and operations; printed."""
+    d = dict(ms=time_ms(kernel), plain_ms=time_ms(plain),
+             library_ms=time_ms(library), nbytes=nbytes, flops=flops,
+             dtype=dtype_name, shape=shape)
+    b, by = bound_ms(nbytes, flops, dtype_name)
+    print(f"  time {tag} {shape}: kernel {d['ms']:.4f} ms, plain "
+          f"{d['plain_ms']:.4f} ms, library {d['library_ms']:.4f} ms, "
+          f"bound {b:.4f} ms ({by})")
+    return d
 
 
 def check_attention(torch, attn, rows):
@@ -119,28 +146,74 @@ def check_attention(torch, attn, rows):
             q, k, v = [t.contiguous() for t in attn._split_heads(qkv, H)]
             gh = g.reshape(B, N, H, dh).permute(0, 2, 1, 3).contiguous()
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            fwd = dict(
-                ms=time_ms(lambda: attn.attn_qkv_fwd_cuda(qkv, H, scale)),
-                plain_ms=time_ms(
-                    lambda: attn.attention_qkv_plain(qkv, H, scale)),
-                library_ms=time_ms(lambda: sdpa(q, k, v, scale=scale)),
-                nbytes=4 * B * N * D * isz, flops=4 * B * H * N * N * dh)
+            main["attn_qkv_fwd"] = timed(
+                lambda: attn.attn_qkv_fwd_cuda(qkv, H, scale),
+                lambda: attn.attention_qkv_plain(qkv, H, scale),
+                lambda: sdpa(q, k, v, scale=scale),
+                4 * B * N * D * isz, 4 * B * H * N * N * dh, dtype_name,
+                "K1", tag)
             qr, kr, vr = [t.detach().requires_grad_(True) for t in (q, k, v)]
             o = sdpa(qr, kr, vr, scale=scale)
-            bwd = dict(
-                ms=time_ms(lambda: attn.attn_qkv_bwd_cuda(qkv, g, H, scale)),
-                plain_ms=time_ms(
-                    lambda: attn.attention_qkv_bwd_plain(qkv, g, H, scale)),
-                library_ms=time_ms(lambda: torch.autograd.grad(
-                    o, (qr, kr, vr), gh, retain_graph=True)),
-                nbytes=7 * B * N * D * isz, flops=10 * B * H * N * N * dh)
-            main["attn_qkv_fwd"] = dict(fwd, shape=tag, dtype=dtype_name)
-            main["attn_qkv_bwd"] = dict(bwd, shape=tag, dtype=dtype_name)
+            main["attn_qkv_bwd"] = timed(
+                lambda: attn.attn_qkv_bwd_cuda(qkv, g, H, scale),
+                lambda: attn.attention_qkv_bwd_plain(qkv, g, H, scale),
+                lambda: torch.autograd.grad(o, (qr, kr, vr), gh,
+                                            retain_graph=True),
+                7 * B * N * D * isz, 10 * B * H * N * N * dh, dtype_name,
+                "K2", tag)
     for name in errs:
         rows[name].update(main[name], max_abs_err=errs[name])
 
 
+def check_split_attention(torch, attn, rows):
+    """K5/K6 at the 480-px path's shapes: [2,12,3601,64] (two square
+    crops) and [1,12,2701,64] (the entire A image)."""
+    H, dh, scale = 12, 64, 0.125
+    gen = torch.Generator().manual_seed(4)
+    dt, dtype_name = torch.bfloat16, "bfloat16"
+    rtol, why = RTOL[dtype_name]
+    errs = {"attn_fwd": 0.0, "attn_bwd": 0.0}
+    for B, N in ((2, 3601), (1, 2701)):
+        q, k, v, g = (torch.randn(B, H, N, dh, generator=gen).to("cuda", dt)
+                      for _ in range(4))
+        tag = f"[{B},{H},{N},{dh}] {dtype_name}"
+        errs["attn_fwd"] = max(errs["attn_fwd"], compare(
+            f"K5 attn_fwd {tag}", attn.attn_fwd_cuda(q, k, v, scale),
+            attn.attention_plain(q, k, v, scale), rtol, why))
+        got = attn.attn_bwd_cuda(q, k, v, g, scale)
+        want = attn.attention_bwd_plain(q, k, v, g, scale)
+        for part, a, b in zip(("dq", "dk", "dv"), got, want):
+            errs["attn_bwd"] = max(errs["attn_bwd"], compare(
+                f"K6 attn_bwd {part} {tag}", a, b, rtol, why))
+        del got, want
+        if N != 3601:
+            continue
+        isz = q.element_size()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        rows["attn_fwd"].update(timed(
+            lambda: attn.attn_fwd_cuda(q, k, v, scale),
+            lambda: attn.attention_plain(q, k, v, scale),
+            lambda: sdpa(q, k, v, scale=scale),
+            4 * B * H * N * dh * isz, 4 * B * H * N * N * dh, dtype_name,
+            "K5", tag))
+        qr, kr, vr = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = sdpa(qr, kr, vr, scale=scale)
+        rows["attn_bwd"].update(timed(
+            lambda: attn.attn_bwd_cuda(q, k, v, g, scale),
+            lambda: attn.attention_bwd_plain(q, k, v, g, scale),
+            lambda: torch.autograd.grad(o, (qr, kr, vr), g,
+                                        retain_graph=True),
+            7 * B * H * N * dh * isz, 10 * B * H * N * N * dh, dtype_name,
+            "K6", tag))
+        del o, qr, kr, vr
+    for name in errs:
+        rows[name]["max_abs_err"] = errs[name]
+
+
 def check_conv(torch, conv, rows):
+    """K3 (forward and dx) and K4 at the two sites the auto rule sends to
+    them, as the main path calls them: the input unpadded with an implicit
+    1-pixel zero border."""
     F = torch.nn.functional
     dt, dtype_name = torch.bfloat16, "bfloat16"
     rtol, why = RTOL[dtype_name]
@@ -148,60 +221,158 @@ def check_conv(torch, conv, rows):
     errs = {"conv_valid": 0.0, "conv_dw": 0.0}
     for site, (cin, cout, hw) in enumerate(((36, 16, 896), (68, 32, 448))):
         B, k = 2, 3
-        xp = torch.randn(B, cin, hw + 2, hw + 2, generator=gen).to("cuda", dt)
+        x = torch.randn(B, cin, hw, hw, generator=gen).to("cuda", dt)
         w = (0.1 * torch.randn(k, k, cin, cout, generator=gen)).to("cuda", dt)
         g = torch.randn(B, cout, hw, hw, generator=gen).to("cuda", dt)
         w_flip = torch.flip(w, dims=(0, 1)).transpose(2, 3).contiguous()
-        tag = f"site {site} [{B},{cin},{hw + 2},{hw + 2}]->[{B},{cout},{hw},{hw}]"
+        tag = f"site {site} [{B},{cin},{hw},{hw}]->[{B},{cout},{hw},{hw}] pad 1"
         errs["conv_valid"] = max(errs["conv_valid"], compare(
-            f"K3 conv_valid fwd {tag}", conv.conv_valid_cuda(xp, w),
-            conv.conv_valid_plain(xp, w), rtol, why))
+            f"K3 conv_valid fwd {tag}", conv.conv_valid_cuda(x, w, 1),
+            conv.conv_valid_plain(x, w, 1), rtol, why))
         errs["conv_valid"] = max(errs["conv_valid"], compare(
-            f"K3 conv_valid dx {tag}", conv.conv_valid_cuda(g, w_flip, 2),
-            conv.conv_valid_plain(g, w_flip, 2), rtol, why))
+            f"K3 conv_valid dx {tag}", conv.conv_valid_cuda(g, w_flip, 1),
+            conv.conv_valid_plain(g, w_flip, 1), rtol, why))
         errs["conv_dw"] = max(errs["conv_dw"], compare(
-            f"K4 conv_dw {tag}", conv.conv_dw_cuda(xp, g, k),
-            conv.conv_dw_plain(xp, g, k), RTOL["float32"][0],
-            "fp32 output; fp32 sums over 10^5-10^6 pixels in another order"))
-        isz = xp.element_size()
+            f"K4 conv_dw {tag}", conv.conv_dw_cuda(x, g, k, 1),
+            conv.conv_dw_plain(F.pad(x, (1, 1, 1, 1)), g, k),
+            RTOL["float32"][0], DW_WHY))
+        isz = x.element_size()
         flops = 2 * B * hw * hw * cout * cin * k * k
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
         wf_oihw = w_flip.permute(3, 2, 0, 1).contiguous()
-        t = dict(
-            fwd=dict(ms=time_ms(lambda: conv.conv_valid_cuda(xp, w)),
-                     plain_ms=time_ms(lambda: conv.conv_valid_plain(xp, w)),
-                     library_ms=time_ms(lambda: F.conv2d(xp, w_oihw)),
-                     nbytes=(xp.numel() + g.numel() + w.numel()) * isz,
-                     flops=flops),
-            dx=dict(ms=time_ms(lambda: conv.conv_valid_cuda(g, w_flip, 2)),
-                    plain_ms=time_ms(
-                        lambda: conv.conv_valid_plain(g, w_flip, 2)),
-                    library_ms=time_ms(
-                        lambda: F.conv2d(g, wf_oihw, padding=2)),
-                    nbytes=(xp.numel() + g.numel() + w.numel()) * isz,
-                    flops=flops),
-            dw=dict(ms=time_ms(lambda: conv.conv_dw_cuda(xp, g, k)),
-                    plain_ms=time_ms(lambda: conv.conv_dw_plain(xp, g, k)),
-                    library_ms=time_ms(lambda: torch.nn.grad.conv2d_weight(
-                        xp, w_oihw.shape, g)),
-                    nbytes=(xp.numel() + g.numel()) * isz + w.numel() * 4,
-                    flops=flops))
-        for part, d in t.items():
-            b, by = bound_ms(d["nbytes"], d["flops"], dtype_name)
-            print(f"  time {part} {tag}: kernel {d['ms']:.4f} ms, plain "
-                  f"{d['plain_ms']:.4f} ms, library {d['library_ms']:.4f} "
-                  f"ms, bound {b:.4f} ms ({by})")
+        nbytes = (x.numel() + g.numel() + w.numel()) * isz
+        fwd = timed(lambda: conv.conv_valid_cuda(x, w, 1),
+                    lambda: conv.conv_valid_plain(x, w, 1),
+                    lambda: F.conv2d(x, w_oihw, padding=1), nbytes, flops,
+                    dtype_name, "K3 fwd", tag)
+        timed(lambda: conv.conv_valid_cuda(g, w_flip, 1),
+              lambda: conv.conv_valid_plain(g, w_flip, 1),
+              lambda: F.conv2d(g, wf_oihw, padding=1), nbytes, flops,
+              dtype_name, "K3 dx", tag)
+        dw = timed(lambda: conv.conv_dw_cuda(x, g, k, 1),
+                   lambda: conv.conv_dw_plain(F.pad(x, (1, 1, 1, 1)), g, k),
+                   lambda: torch.nn.grad.conv2d_weight(x, w_oihw.shape, g,
+                                                       padding=1),
+                   (x.numel() + g.numel()) * isz + w.numel() * 4, flops,
+                   dtype_name, "K4", tag)
         if site == 0:
-            rows["conv_valid"].update(t["fwd"], shape=f"fwd {tag}",
-                                      dtype=dtype_name)
-            rows["conv_dw"].update(t["dw"], shape=tag, dtype=dtype_name)
+            rows["conv_valid"].update(fwd, shape=f"fwd {tag}")
+            rows["conv_dw"].update(dw)
+    for name in errs:
+        rows[name]["max_abs_err"] = errs[name]
+
+
+# The generator_conv=fused sites of the 896 canvas that take the prologue
+# kernels: (name, Cin, Cout, input width, k, negslope).
+FUSED_SITES = (("down_conv2 s0", 16, 16, 448, 3, 0.2),
+               ("skip_conv s1", 16, 4, 448, 1, 0.2),
+               ("up_conv s1", 68, 32, 448, 3, 1.0),
+               ("up1x1 s1", 32, 32, 448, 1, 0.2),
+               ("up_conv s0", 36, 16, 896, 3, 1.0),
+               ("up1x1 s0", 16, 16, 896, 1, 0.2),
+               ("out_conv", 16, 3, 896, 1, 0.2))
+
+
+def check_conv_pro(torch, conv, rows):
+    """K3'/K4' pro at the seven fused sites, two BatchNorm stacks (G = 2
+    rows of scale/shift). The library yardsticks (F.conv2d,
+    conv2d_weight) run on the already-normalised input: they exclude the
+    prologue."""
+    F = torch.nn.functional
+    dt, dtype_name = torch.bfloat16, "bfloat16"
+    rtol, why = RTOL[dtype_name]
+    gen = torch.Generator().manual_seed(5)
+    errs = {"conv_valid_pro": 0.0, "conv_dw_pro": 0.0}
+    for name, cin, cout, hw, k, ns in FUSED_SITES:
+        B, pad = 2, (k - 1) // 2
+        x = torch.randn(B, cin, hw, hw, generator=gen).to("cuda", dt)
+        w = (0.1 * torch.randn(k, k, cin, cout, generator=gen)).to("cuda", dt)
+        g = torch.randn(B, cout, hw, hw, generator=gen).to("cuda", dt)
+        sc = (0.5 + torch.rand(2, cin, generator=gen)).cuda()
+        sh = torch.randn(2, cin, generator=gen).cuda()
+        tag = f"{name} [{B},{cin},{hw},{hw}]->[{B},{cout},{hw},{hw}] k={k} ns={ns}"
+        errs["conv_valid_pro"] = max(errs["conv_valid_pro"], compare(
+            f"K3' pro {tag}", conv.conv_valid_pro_cuda(x, w, sc, sh, ns, pad),
+            conv.conv_valid_pro_plain(x, w, sc, sh, ns, pad), rtol, why))
+        errs["conv_dw_pro"] = max(errs["conv_dw_pro"], compare(
+            f"K4' pro {tag}", conv.conv_dw_pro_cuda(x, g, k, sc, sh, ns, pad),
+            conv.conv_dw_pro_plain(x, g, k, sc, sh, ns, pad),
+            RTOL["float32"][0], DW_WHY))
+        isz = x.element_size()
+        flops = 2 * B * hw * hw * cout * cin * k * k + 3 * x.numel()
+        z = conv.prologue_plain(x, sc, sh, ns)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        fwd = timed(lambda: conv.conv_valid_pro_cuda(x, w, sc, sh, ns, pad),
+                    lambda: conv.conv_valid_pro_plain(x, w, sc, sh, ns, pad),
+                    lambda: F.conv2d(z, w_oihw, padding=pad),
+                    (x.numel() + g.numel() + w.numel()) * isz, flops,
+                    dtype_name, "K3' pro", tag)
+        dw = timed(lambda: conv.conv_dw_pro_cuda(x, g, k, sc, sh, ns, pad),
+                   lambda: conv.conv_dw_pro_plain(x, g, k, sc, sh, ns, pad),
+                   lambda: torch.nn.grad.conv2d_weight(z, w_oihw.shape, g,
+                                                       padding=pad),
+                   (x.numel() + g.numel()) * isz + w.numel() * 4, flops,
+                   dtype_name, "K4' pro", tag)
+        if name == "up_conv s0":
+            rows["conv_valid_pro"].update(fwd)
+            rows["conv_dw_pro"].update(dw)
+    for name in errs:
+        rows[name]["max_abs_err"] = errs[name]
+
+
+def check_conv_s2d(torch, conv, rows):
+    """K3/K4 at k = 2 on stride-2 sites of generator_conv=pallas: the stem
+    (down_conv1 of scale 0, 3 -> 16 channels from the 896 canvas: a
+    [2,12,449,449] phase image) and down_conv1 of scale 1."""
+    F = torch.nn.functional
+    dt, dtype_name = torch.bfloat16, "bfloat16"
+    rtol, why = RTOL[dtype_name]
+    gen = torch.Generator().manual_seed(6)
+    errs = {"conv_valid_s2d": 0.0, "conv_dw_s2d": 0.0}
+    for name, cin, cout, hw in (("stem s0", 3, 16, 896),
+                                ("down_conv1 s1", 16, 32, 448)):
+        B, ho = 2, hw // 2
+        x = torch.randn(B, cin, hw, hw, generator=gen).to("cuda", dt)
+        w = (0.1 * torch.randn(3, 3, cin, cout, generator=gen)).to("cuda", dt)
+        wk = conv.s2d_kernel(w).contiguous()
+        g = torch.randn(B, cout, ho, ho, generator=gen).to("cuda", dt)
+        tag = (f"{name} [{B},{cin},{hw},{hw}] (phase image "
+               f"[{B},{4 * cin},{ho + 1},{ho + 1}])->[{B},{cout},{ho},{ho}]")
+        errs["conv_valid_s2d"] = max(errs["conv_valid_s2d"], compare(
+            f"K3 s2d {tag}", conv.conv_valid_s2d_cuda(x, wk, 1, (ho, ho)),
+            conv.conv_valid_pro_plain(x, wk, None, None, 1.0, 1, 2, (ho, ho)),
+            rtol, why))
+        errs["conv_dw_s2d"] = max(errs["conv_dw_s2d"], compare(
+            f"K4 s2d {tag}", conv.conv_dw_s2d_cuda(x, g, 2, 1),
+            conv.conv_dw_pro_plain(x, g, 2, None, None, 1.0, 1, 2),
+            RTOL["float32"][0], DW_WHY))
+        isz = x.element_size()
+        flops = 2 * B * ho * ho * cout * cin * 9      # the 9 real taps
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        fwd = timed(lambda: conv.conv_valid_s2d_cuda(x, wk, 1, (ho, ho)),
+                    lambda: conv.conv_valid_pro_plain(x, wk, None, None, 1.0,
+                                                      1, 2, (ho, ho)),
+                    lambda: F.conv2d(x, w_oihw, stride=2, padding=1),
+                    (x.numel() + g.numel() + w.numel()) * isz, flops,
+                    dtype_name, "K3 s2d", tag)
+        dw = timed(lambda: conv.conv_dw_s2d_cuda(x, g, 2, 1),
+                   lambda: conv.conv_dw_pro_plain(x, g, 2, None, None, 1.0, 1,
+                                                  2),
+                   lambda: torch.nn.grad.conv2d_weight(
+                       x, w_oihw.shape, g, stride=2, padding=1),
+                   (x.numel() + g.numel()) * isz + w.numel() * 4, flops,
+                   dtype_name, "K4 s2d", tag)
+        if name == "stem s0":
+            rows["conv_valid_s2d"].update(fwd)
+            rows["conv_dw_s2d"].update(dw)
     for name in errs:
         rows[name]["max_abs_err"] = errs[name]
 
 
 def check_edge_cases(torch, attn, conv):
-    """Small shapes off the main path: key masking (n_valid), N a multiple
-    of the tiles, k = 1, fp32 convs, Cout over two channel chunks."""
+    """Small shapes off the main paths: key masking (n_valid), N a multiple
+    of the tiles, k = 1, fp32, Cout over two channel chunks, G = 2 rows,
+    a scale near 0, odd sizes at stride 2."""
     gen = torch.Generator().manual_seed(3)
 
     def rnd(*shape, dt, scale=1.0):
@@ -220,6 +391,15 @@ def check_edge_cases(torch, attn, conv):
                     attn.attn_qkv_bwd_cuda(qkv, g, 12, 0.125, n_valid),
                     attn.attention_qkv_bwd_plain(qkv, g, 12, 0.125, n_valid),
                     rtol, why)
+            q, k, v, gs = (rnd(2, 3, N, 64, dt=dt) for _ in range(4))
+            tag = f"[2,3,{N},64] n_valid={n_valid} {dtype_name}"
+            compare(f"K5 {tag}", attn.attn_fwd_cuda(q, k, v, 0.125, n_valid),
+                    attn.attention_plain(q, k, v, 0.125, n_valid), rtol, why)
+            for part, a, b in zip(
+                    ("dq", "dk", "dv"),
+                    attn.attn_bwd_cuda(q, k, v, gs, 0.125, n_valid),
+                    attn.attention_bwd_plain(q, k, v, gs, 0.125, n_valid)):
+                compare(f"K6 {part} {tag}", a, b, rtol, why)
         for k, cout in ((1, 8), (3, 40)):
             x = rnd(2, 20, 34 + k - 1, 130 + k - 1, dt=dt)
             w = rnd(k, k, 20, cout, dt=dt, scale=0.2)
@@ -233,11 +413,44 @@ def check_edge_cases(torch, attn, conv):
             compare(f"K4 {tag}", conv.conv_dw_cuda(x, g, k),
                     conv.conv_dw_plain(x, g, k), RTOL["float32"][0],
                     "fp32 output; fp32 sums in another order")
+            # the prologue, two stacks, one scale near 0 and one negative
+            sc = (0.5 + torch.rand(2, 20, generator=gen)).cuda()
+            sc[0, 3], sc[1, 5] = 1e-13, -0.7
+            sh = torch.randn(2, 20, generator=gen).cuda()
+            xs = rnd(2, 20, 33, 129, dt=dt)
+            for stride in (1, 2):
+                pad = (k - 1) // 2
+                ho = (33 + 2 * pad - k) // stride + 1
+                wo = (129 + 2 * pad - k) // stride + 1
+                wk = w if stride == 1 else conv.s2d_kernel(w).contiguous()
+                kk = wk.shape[0]
+                gk = rnd(2, cout, ho, wo, dt=dt)
+                tag = (f"[2,20,33,129] k={k} stride={stride} Cout={cout} G=2 "
+                       f"{dtype_name}")
+                compare(f"K3' pro {tag}", conv.conv_valid_pro_cuda(
+                    xs, wk, sc, sh, 0.2, pad, stride, (ho, wo)),
+                    conv.conv_valid_pro_plain(xs, wk, sc, sh, 0.2, pad,
+                                              stride, (ho, wo)), rtol, why)
+                compare(f"K4' pro {tag}", conv.conv_dw_pro_cuda(
+                    xs, gk, kk, sc, sh, 0.2, pad, stride),
+                    conv.conv_dw_pro_plain(xs, gk, kk, sc, sh, 0.2, pad,
+                                           stride), RTOL["float32"][0],
+                    "fp32 output; fp32 sums in another order")
+                if stride == 2:
+                    compare(f"K3 s2d {tag}", conv.conv_valid_s2d_cuda(
+                        xs, wk, pad, (ho, wo)), conv.conv_valid_pro_plain(
+                        xs, wk, None, None, 1.0, pad, 2, (ho, wo)), rtol, why)
+                    compare(f"K4 s2d {tag}", conv.conv_dw_s2d_cuda(
+                        xs, gk, kk, pad), conv.conv_dw_pro_plain(
+                        xs, gk, kk, None, None, 1.0, pad, 2),
+                        RTOL["float32"][0],
+                        "fp32 output; fp32 sums in another order")
 
 
 def check_small_step(torch):
     """One regular and one entire-A step's loss and gradient at a small
-    size, fp32: the card (kernels K1-K4) against the CPU (plain path)."""
+    size, fp32: the card (kernels) against the CPU (plain path), for each
+    generator_conv that routes through kernels."""
     from splice_tpu_torch.config import load_config
     from splice_tpu_torch.data import load_pair
     from splice_tpu_torch.losses import lambdas_for_step
@@ -247,47 +460,53 @@ def check_small_step(torch):
     from splice_tpu_torch.trainer import SpliceTrainer, sample_step_draws
     from splice_tpu_torch.utils.tree import tree_map
 
-    cfg = load_config(None, dict(
-        dataroot="datasets/splicing/cows", A_resize=448, B_resize=448,
-        seed=3, vit_compute_dtype="float32",
-        generator_compute_dtype="float32", dino_global_patch_size=64,
-        entire_A_every=2))
     vcfg = vit_lib.VitConfig(patch_size=8, embed_dim=128, depth=2,
                              num_heads=2, img_size=32)
     vparams = init_vit_params(vcfg, seed=5, device="cpu")
-    results = {}
-    for dev in ("cuda", "cpu"):
-        pair = load_pair(cfg, device=torch.device(dev))
-        ext = ext_lib.VitExtractor(
-            params=tree_map(lambda t: t.to(dev), vparams), cfg=vcfg,
-            model_name="small")
-        tr = SpliceTrainer(cfg, pair, ext, seed=3)
-        gen = torch.Generator().manual_seed(11)
-        out = []
-        for step, entire in ((1, False), (2, True)):
-            draws = sample_step_draws(cfg, pair, gen)
-            total, _ = tr.loss(draws, lambdas_for_step(cfg, step), entire)
-            (grad,) = torch.autograd.grad(total, tr.flat)
-            out.append((total.item(), grad.cpu()))
-        results[dev] = out
-    # Gradient tolerance: this gradient is ill-conditioned in fp32 itself.
-    # On the CPU the fp32 gradient of this step differs from a float64
-    # evaluation of the same code by 1.2e-3 relative L2 (8e-4 x max|grad|),
-    # mostly in the first convs' weight gradients, and the card's differs
-    # from the CPU's by as much with the conv kernels on or every conv on
-    # cuDNN alike. A kernel fault gives errors of order max|grad|.
-    for (lc, gc), (lp, gp), what in zip(results["cuda"], results["cpu"],
-                                        ("regular", "entire-A")):
-        rel = abs(lc - lp) / abs(lp)
-        gerr = (gc - gp).abs().max().item()
-        gtol = 5e-3 * gp.abs().max().item()
-        grel = ((gc - gp).norm() / gp.norm()).item()
-        print(f"  small {what} step (448 canvas, fp32): loss card {lc:.6f} "
-              f"cpu {lp:.6f} rel {rel:.2e} (tol 1e-4); grad max_abs_err "
-              f"{gerr:.3e} (tol {gtol:.3e} = 5e-3 x max|grad|), relative L2 "
-              f"{grel:.2e} (tol 5e-3)")
-        if not (rel <= 1e-4 and gerr <= gtol and grel <= 5e-3):
-            fail(f"small {what} step: card and CPU disagree")
+    for mode in ("auto", "fused", "pallas"):
+        cfg = load_config(None, dict(
+            dataroot="datasets/splicing/cows", A_resize=448, B_resize=448,
+            seed=3, vit_compute_dtype="float32",
+            generator_compute_dtype="float32", dino_global_patch_size=64,
+            entire_A_every=2, generator_conv=mode))
+        results = {}
+        for dev in ("cuda", "cpu"):
+            pair = load_pair(cfg, device=torch.device(dev))
+            ext = ext_lib.VitExtractor(
+                params=tree_map(lambda t: t.to(dev), vparams), cfg=vcfg,
+                model_name="small")
+            tr = SpliceTrainer(cfg, pair, ext, seed=3)
+            gen = torch.Generator().manual_seed(11)
+            out = []
+            for step, entire in ((1, False), (2, True)):
+                draws = sample_step_draws(cfg, pair, gen)
+                total, _ = tr.loss(draws, lambdas_for_step(cfg, step), entire)
+                (grad,) = torch.autograd.grad(total, tr.flat)
+                out.append((total.item(), grad.cpu()))
+            results[dev] = out
+        # Gradient tolerance: this gradient is ill-conditioned in fp32
+        # itself. On the CPU the fp32 gradient of this step differs from a
+        # float64 evaluation of the same code by 1.2e-3 relative L2 (8e-4 x
+        # max|grad|), mostly in the first convs' weight gradients, and the
+        # card's differs from the CPU's by as much with the conv kernels on
+        # or every conv on cuDNN alike. A kernel fault gives errors of order
+        # max|grad|.
+        for (lc, gc), (lp, gp), what in zip(results["cuda"], results["cpu"],
+                                            ("regular", "entire-A")):
+            rel = abs(lc - lp) / abs(lp)
+            gerr = (gc - gp).abs().max().item()
+            gtol = 5e-3 * gp.abs().max().item()
+            grel = ((gc - gp).norm() / gp.norm()).item()
+            print(f"  small {what} step, generator_conv={mode} (448 canvas, "
+                  f"fp32): loss card {lc:.6f} cpu {lp:.6f} rel {rel:.2e} "
+                  f"(tol 1e-4); grad max_abs_err {gerr:.3e} (tol {gtol:.3e} "
+                  f"= 5e-3 x max|grad|), relative L2 {grel:.2e} (tol 5e-3)")
+            if not (rel <= 1e-4 and gerr <= gtol and grel <= 5e-3):
+                fail(f"small {what} step ({mode}): card and CPU disagree")
+
+
+# Kernel names (substrings) of the port's own kernels in a profile.
+OUR_KERNELS = ("attn_fwd_kernel", "attn_bwd_", "conv_fwd_kernel", "conv_dw_")
 
 
 def profile_steps(torch, trainer, cfg, n: int = 3) -> None:
@@ -320,14 +539,72 @@ def profile_steps(torch, trainer, cfg, n: int = 3) -> None:
     rows = [(dev_us(e) / 1e3 / n, e.key) for e in prof.key_averages()
             if e.device_type == kernel and dev_us(e) > 0]
     busy = sum(t for t, _ in rows)
-    names = ("attn_fwd_kernel", "attn_bwd_", "conv_fwd_kernel", "conv_dw_")
-    ours = sum(t for t, k in rows if any(s in k for s in names))
+    ours = sum(t for t, k in rows if any(s in k for s in OUR_KERNELS))
+    n_launch = sum(e.count for e in prof.key_averages()
+                   if e.device_type == kernel and dev_us(e) > 0) / n
     print(f"  per regular step: wall {wall_ms:.2f} ms (no profiler), kernels "
           f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}% of wall; "
-          f"{len(rows)} kernel names), the port's four kernels "
-          f"{ours:.2f} ms ({100 * ours / busy:.1f}% of kernel time)")
+          f"{n_launch:.0f} launches of {len(rows)} kernel names), the "
+          f"port's kernels {ours:.2f} ms ({100 * ours / busy:.1f}% of "
+          f"kernel time)")
     for t, k in sorted(rows, reverse=True)[:15]:
         print(f"    {t:8.3f} ms  {100 * t / busy:5.1f}%  {k[:90]}")
+
+
+def steps_in_turns(torch, runs, n: int = 3, rounds: int = 3) -> None:
+    """Host-clock wall time per regular step of each (label, trainer,
+    cfg) in `runs`, measured in turns (a b c c b a, `rounds` times, n steps
+    a turn) after one untimed step each: the host's noise falls on every
+    mode alike."""
+    from splice_tpu_torch.losses import lambdas_for_step
+    from splice_tpu_torch.trainer import sample_step_draws
+    gen = torch.Generator().manual_seed(2)
+    lam = lambdas_for_step(runs[0][2], 5)
+    times = {label: [] for label, *_ in runs}
+    order = list(runs) + list(reversed(runs))
+    for r in range(rounds + 1):
+        for label, trainer, cfg in order if r else runs:
+            draws = [sample_step_draws(cfg, trainer.pair, gen)
+                     for _ in range(n if r else 1)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for d in draws:
+                trainer.step(d, lam, False)
+            torch.cuda.synchronize()
+            if r:
+                times[label].append((time.perf_counter() - t0) * 1e3 / n)
+    for label, ts in times.items():
+        ts = sorted(ts)
+        print(f"  generator_conv={label}: median "
+              f"{ts[len(ts) // 2]:.2f} ms per regular step over "
+              f"{len(ts)} turns of {n} (sorted: "
+              + ", ".join(f"{t:.2f}" for t in ts) + ")")
+
+
+def run_path(torch, name, cfg, n_steps, kernels, need, **kw):
+    """train_pair with every launch count set to 0 just before and read
+    just after; fails on a non-finite loss or output, or when a kernel in
+    `need` was launched no time. Returns (result, launches)."""
+    from splice_tpu_torch.trainer import train_pair
+    for fn, *_ in kernels.values():
+        fn.launches = 0
+    res = train_pair(cfg, n_steps=n_steps, **kw)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, (fn, *_) in kernels.items()}
+    for i, (l, s) in enumerate(zip(res["losses"], res["step_seconds"])):
+        print(f"  step {i:2d} {s * 1e3:9.2f} ms "
+              + " ".join(f"{k}={v:.5f}" for k, v in l.items()))
+    for i, l in enumerate(res["losses"]):
+        if not all(math.isfinite(v) for v in l.values()):
+            fail(f"{name}: non-finite loss at step {i}: {l}")
+    out = res["output"]
+    if tuple(out.shape) != (900, 1200, 3) or not torch.isfinite(out).all():
+        fail(f"{name}: bad output image {tuple(out.shape)}")
+    print(f"  launches in the {name} path: {launches}")
+    missing = [k for k in need if launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the {name} path: {missing}")
+    return res, launches
 
 
 def main() -> int:
@@ -358,26 +635,42 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
+    # name -> (wrapper, route, source, the TPU kernel it replaces, the path
+    # whose launches the JSON line reports)
+    att, cnv = ("splice_tpu_torch/csrc/attention.cu",
+                "splice_tpu_torch/csrc/conv.cu")
     kernels = {
-        "attn_qkv_fwd": (attn.attn_qkv_fwd_cuda, "cuda",
-                         "splice_tpu_torch/csrc/attention.cu",
-                         "splice_tpu/ops/attention.py:361"),
-        "attn_qkv_bwd": (attn.attn_qkv_bwd_cuda, "cuda",
-                         "splice_tpu_torch/csrc/attention.cu",
-                         "splice_tpu/ops/attention.py:447"),
-        "conv_valid": (conv.conv_valid_cuda, "cuda",
-                       "splice_tpu_torch/csrc/conv.cu",
-                       "splice_tpu/ops/conv_pallas.py:157"),
-        "conv_dw": (conv.conv_dw_cuda, "cuda",
-                    "splice_tpu_torch/csrc/conv.cu",
-                    "splice_tpu/ops/conv_pallas.py:401"),
+        "attn_qkv_fwd": (attn.attn_qkv_fwd_cuda, "cuda", att,
+                         "splice_tpu/ops/attention.py:361", "main"),
+        "attn_qkv_bwd": (attn.attn_qkv_bwd_cuda, "cuda", att,
+                         "splice_tpu/ops/attention.py:447", "main"),
+        "conv_valid": (conv.conv_valid_cuda, "cuda", cnv,
+                       "splice_tpu/ops/conv_pallas.py:157", "main"),
+        "conv_dw": (conv.conv_dw_cuda, "cuda", cnv,
+                    "splice_tpu/ops/conv_pallas.py:401", "main"),
+        "attn_fwd": (attn.attn_fwd_cuda, "cuda", att,
+                     "splice_tpu/ops/attention.py:103", "480"),
+        "attn_bwd": (attn.attn_bwd_cuda, "cuda", att,
+                     "splice_tpu/ops/attention.py:191", "480"),
+        "conv_valid_pro": (conv.conv_valid_pro_cuda, "cuda", cnv,
+                           "splice_tpu/ops/conv_pallas.py:157", "fused"),
+        "conv_dw_pro": (conv.conv_dw_pro_cuda, "cuda", cnv,
+                        "splice_tpu/ops/conv_pallas.py:401", "fused"),
+        "conv_valid_s2d": (conv.conv_valid_s2d_cuda, "cuda", cnv,
+                           "splice_tpu/ops/conv_pallas.py:157", "pallas"),
+        "conv_dw_s2d": (conv.conv_dw_s2d_cuda, "cuda", cnv,
+                        "splice_tpu/ops/conv_pallas.py:401", "pallas"),
     }
     rows = {name: {} for name in kernels}
 
     print("phase 2: kernels against their plain versions")
     check_attention(torch, attn, rows)
+    check_split_attention(torch, attn, rows)
     check_conv(torch, conv, rows)
+    check_conv_pro(torch, conv, rows)
+    check_conv_s2d(torch, conv, rows)
     check_edge_cases(torch, attn, conv)
+    torch.cuda.empty_cache()
     for name, r in rows.items():
         b, by = bound_ms(r["nbytes"], r["flops"], r["dtype"])
         r.update(bound_ms=b, bound_by=by)
@@ -390,45 +683,62 @@ def main() -> int:
 
     print(f"phase 4: main path, {MAIN_STEPS} steps on the cows pair")
     from splice_tpu_torch.config import load_config
-    from splice_tpu_torch.trainer import train_pair
-    cfg = load_config(None, dict(dataroot="datasets/splicing/cows", seed=0,
-                                 entire_A_every=10, log_images_freq=1000))
-    for fn, *_ in kernels.values():
-        fn.launches = 0
-    res = train_pair(cfg, n_steps=MAIN_STEPS)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, (fn, *_) in kernels.items()}
-    for i, (l, s) in enumerate(zip(res["losses"], res["step_seconds"])):
-        print(f"  step {i:2d} {s * 1e3:9.2f} ms "
-              + " ".join(f"{k}={v:.5f}" for k, v in l.items()))
-    for i, l in enumerate(res["losses"]):
-        if not all(math.isfinite(v) for v in l.values()):
-            fail(f"non-finite loss at step {i}: {l}")
-    out = res["output"]
-    if tuple(out.shape) != (900, 1200, 3) or not torch.isfinite(out).all():
-        fail(f"bad output image {tuple(out.shape)}")
+    base = dict(dataroot="datasets/splicing/cows", seed=0,
+                entire_A_every=10, log_images_freq=1000)
+    cfg = load_config(None, base)
+    torch.cuda.reset_peak_memory_stats()
+    res, main_launches = run_path(
+        torch, "main", cfg, MAIN_STEPS, kernels,
+        ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid", "conv_dw"))
+    launches = {"main": main_launches}
     regular = [s for i, s in enumerate(res["step_seconds"])
                if i >= 2 and i % cfg.entire_A_every != 0]
     print(f"  steps/s after warm-up (regular steps 2..{MAIN_STEPS - 1}): "
           f"{len(regular) / sum(regular):.3f}; entire-A step 10: "
           f"{res['step_seconds'][10] * 1e3:.1f} ms; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"  launches in the main path: {launches}")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        fail(f"kernels never launched on the main path: {missing}")
 
     print("phase 5: where the time goes")
     profile_steps(torch, res["trainer"], cfg)
 
+    shared = dict(pair=res["trainer"].pair, extractor=res["trainer"].extractor)
+    need = {"480": ("attn_fwd", "attn_bwd", "conv_valid", "conv_dw"),
+            "fused": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
+                      "conv_valid_pro", "conv_dw_pro"),
+            "pallas": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
+                       "conv_dw", "conv_valid_s2d", "conv_dw_s2d")}
+    turns = [("auto", res["trainer"], cfg)]
+    for i, (path, mode, res_px, n) in enumerate(PATHS):
+        print(f"phase 6.{i + 1}: the {path} path (generator_conv={mode}, "
+              f"{res_px}-px loss resolution), {n} steps")
+        pcfg = load_config(None, dict(base, generator_conv=mode,
+                                      dino_global_patch_size=res_px))
+        torch.cuda.reset_peak_memory_stats()
+        pres, launches[path] = run_path(torch, path, pcfg, n, kernels,
+                                        need[path], **shared)
+        secs = pres["step_seconds"]
+        print(f"  steps/s (regular steps 1..{n - 1}): "
+              f"{(n - 1) / sum(secs[1:]):.3f}; entire-A step 0 (warm-up): "
+              f"{secs[0] * 1e3:.1f} ms; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_steps(torch, pres["trainer"], pcfg, 2 if res_px > 224 else 3)
+        if res_px == 224:
+            turns.append((mode, pres["trainer"], pcfg))
+        del pres
+        torch.cuda.empty_cache()
+
+    print("phase 7: generator_conv " + ", ".join(t[0] for t in turns)
+          + " at 224, in turns")
+    steps_in_turns(torch, turns)
+
     line = []
-    for name, (fn, route, source, replaces) in kernels.items():
+    for name, (fn, route, source, replaces, path) in kernels.items():
         r = rows[name]
         line.append({"name": name, "route": route, "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"],
+                     "replaces": replaces, "launches": launches[path][name],
+                     "path": path, "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "shape": r["shape"]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -14,6 +14,9 @@ from typing import Any, Optional
 
 import yaml
 
+# generator_conv values (the reference's, splice_tpu/config.py:81-85).
+GENERATOR_CONVS = ("auto", "xla", "pallas", "fused")
+
 
 @dataclasses.dataclass
 class Config:
@@ -63,6 +66,11 @@ class Config:
     crop_canvas: int = 0                # 0 -> min(H, W) rounded down to 32
     antialias: bool = True
     dino_global_max_size: int = 480
+    # How the generator's convs run (the reference's key and values):
+    # auto = the per-site kernel rule, xla = F.conv2d everywhere, pallas =
+    # the conv kernels everywhere, fused = BatchNorm apply + activation in
+    # the conv kernels' input prologue (models/unet.skip_apply_chw).
+    generator_conv: str = "auto"
     device: str = "cuda"
 
     def validate(self) -> "Config":
@@ -73,6 +81,7 @@ class Config:
             "optimizer": ("adam",),
             "vit_compute_dtype": ("bfloat16", "float32"),
             "generator_compute_dtype": ("bfloat16", "float32"),
+            "generator_conv": GENERATOR_CONVS,
         }
         for name, allowed in checks.items():
             if getattr(self, name) not in allowed:

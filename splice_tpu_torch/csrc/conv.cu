@@ -1,35 +1,55 @@
-// Small-channel k x k stride-1 convolution in [B, C, H, W] layout.
+// Small-channel k x k convolution in [B, C, H, W] layout.
 //
-// K3 conv_valid_fwd replaces splice_tpu/ops/conv_pallas.py _make_conv_kernel
-// (:157, plain VALID form, launched by _conv_fwd_impl :276 via
-// conv_valid_chw :707 / pallas_conv_chw :1007). It also computes the input
-// gradient: the wrapper passes the cotangent with an implicit (k-1) zero
-// border and the flipped, io-swapped kernel (_conv_bwd :719-729).
-// K4 conv_dw replaces _make_dw_kernel (:401, launched by _dw_impl :630):
-// dw[dy,dx,ci,co] = sum over b,y,x of xp[b,ci,y+dy,x+dx] * g[b,co,y,x].
+// Both kernels read their input through one mapping (Src below) that turns
+// the source tensor x [B, Cin, H, W] into the "virtual input" V of a VALID
+// stride-1 conv:
+//   * an implicit zero border of `pad` around x (no padded copy);
+//   * stride 2 as the space-to-depth phase image: V has 4*Cin channels,
+//     channel (py*2 + px)*Cin + ci at (i, j) is x[ci, 2i + py, 2j + px]
+//     (border coordinates), so a stride-2 k x k conv is the stride-1
+//     ceil(k/2) conv of V with the taps scattered into a
+//     [k2, k2, 4*Cin, Cout] kernel (splice_tpu/ops/conv_pallas.py
+//     :1034-1060), and V is never written to device memory;
+//   * an optional prologue z = leaky_ns(x*scale + shift) in fp32, rounded
+//     to x's type, with one row of scale/shift per BatchNorm stack (batch b
+//     uses row b / (B / groups)); ns = 1 is the affine alone. The border
+//     holds zeros of z (the prologue applies to x only), which is what the
+//     reference's pre-image padding v = -shift/scale approximates
+//     (conv_pallas.py:959-975).
+//
+// K3 conv_valid_fwd replaces _make_conv_kernel (:157, launched by
+// _conv_fwd_impl :276): the plain VALID form (conv_valid_chw :707), its
+// has_pro form (conv_pro_valid_chw :852) and the k2 = 2 space-to-depth
+// form of pallas_conv_chw / pallas_conv_bn_act_chw. It also computes the
+// input gradient: the wrapper passes the cotangent with an implicit border
+// and the flipped, io-swapped kernel (_conv_bwd :719-729, _convp_bwd
+// :873-896).
+// K4 conv_dw replaces _make_dw_kernel (:401, launched by _dw_impl :630),
+// with and without the prologue (recomputed on the read, as the TPU kernel
+// does) and at k in {1, 2, 3}:
+// dw[dy,dx,c,co] = sum over b,y,x of V[b,c,y+dy,x+dx] * g[b,co,y,x].
 //
 // What is kept from the TPU kernels: each input element is read from device
 // memory once per output-channel chunk and each output written once; the
+// normalised tensor z and the phase image are never materialised; the
 // k*k*Cin contraction accumulates in fp32; outputs are in the input type
 // (dw in fp32). The bias stays outside, as in the reference.
 //
-// What bounds it on the H100: at the main-path sites (Cin 36/68, Cout
-// 16/32, 896x896 and 448x448 outputs, bf16) a call moves 80-170 MB and does
-// 16-17 GFLOP, so at the tensor cores' rate the bound is the memory
-// traffic (about 25-50 us). This first version does the multiply-adds in
-// fp32 on the CUDA cores, so it is bound by arithmetic instead; PERF.md
-// records the gap and the tensor-core (implicit-GEMM wgmma) version is
-// later work.
+// What bounds it on the H100: at the generator's sites (Cin 3-136, Cout
+// 3-128, outputs up to 896x896, bf16) a call moves 10-170 MB and does up to
+// 17 GFLOP, so at the tensor cores' rate the bound is the memory traffic.
+// This first version does the multiply-adds in fp32 on the CUDA cores, so
+// it is bound by arithmetic instead; PERF.md records the gap and the
+// tensor-core (implicit-GEMM wgmma) version is later work.
 //
 // K3 design: a block owns an 8 x 32 tile of output pixels (one per thread)
 // and a chunk of COB output channels (fp32 accumulators in registers). It
-// walks Cin in chunks of 8: the input tile with its (k-1) halo and the
-// weights of the chunk go to shared memory, zero-filled past the edges, so
-// any height and width work (898, 1202, ...) and the implicit border of the
-// dx pass costs no padded copy.
+// walks the virtual channels in chunks of 8: the input tile with its (k-1)
+// halo and the weights of the chunk go to shared memory through the
+// mapping, so any height and width work (898, 1202, ...).
 // K4 design: the TPU kernel reduced B*H*W pixels into one accumulator over a
 // sequential grid. Here pass 1 splits the pixels into row chunks; a block
-// owns (row chunk, Cin chunk, Cout chunk), each thread one (ci, co) pair
+// owns (row chunk, Cin chunk, Cout chunk), each thread one (c, co) pair
 // with its k*k tap sums, and writes its partial sums to an fp32 scratch
 // [chunks, k*k*Cin*Cout]. Pass 2 adds the chunks in a fixed order: no
 // atomics, so a seeded run repeats bit for bit.
@@ -53,18 +73,54 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
+// How the virtual input V maps onto the source tensor x.
+struct Src {
+  int cin, H, W;          // source channels, height, width
+  int pad;                // implicit zero border, in source coordinates
+  int stride;             // 1, or 2 = space-to-depth phases (4*cin channels)
+  const float* scale;     // [groups, cin] prologue, or nullptr
+  const float* shift;
+  int per_group;          // batch items per scale/shift row
+  float negslope;         // 1 = affine only
+};
+
+// V[b, c, vy, vx] for c < stride*stride*cin.
+template <typename T>
+__device__ __forceinline__ float load_v(const T* __restrict__ x,
+                                        const Src& s, int b, int c, int vy,
+                                        int vx) {
+  int ci = c, py = 0, px = 0;
+  if (s.stride == 2) {
+    const int ph = c / s.cin;
+    ci = c - ph * s.cin;
+    py = ph >> 1;
+    px = ph & 1;
+  }
+  const int r = s.stride * vy + py - s.pad, col = s.stride * vx + px - s.pad;
+  if (r < 0 || r >= s.H || col < 0 || col >= s.W) return 0.f;
+  float v = to_f<T>(x[(((size_t)b * s.cin + ci) * s.H + r) * s.W + col]);
+  if (s.scale != nullptr) {
+    const int row = (b / s.per_group) * s.cin + ci;
+    // two roundings, no fma: the plain version's x*scale + shift
+    float z = __fadd_rn(__fmul_rn(v, s.scale[row]), s.shift[row]);
+    if (s.negslope != 1.f) z = z >= 0.f ? z : z * s.negslope;
+    v = to_f<T>(from_f<T>(z));
+  }
+  return v;
+}
+
 // ---------------------------------------------------------------------------
-// K3: y[b,co,oy,ox] = sum_{ci,dy,dx} x[b,ci,oy+dy-pad,ox+dx-pad] w[dy,dx,ci,co]
+// K3: y[b,co,oy,ox] = sum_{c,dy,dx} V[b,c,oy+dy,ox+dx] w[dy,dx,c,co]
 // ---------------------------------------------------------------------------
 constexpr int TW = 32;   // output tile width (one warp per row)
 constexpr int TH = 8;    // output tile height
-constexpr int CB = 8;    // input channels per smem chunk
+constexpr int CB = 8;    // virtual input channels per smem chunk
 
 template <typename T, int COB>
 __global__ void __launch_bounds__(NT)
 conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                T* __restrict__ y, int Cin, int Hin, int Win, int Cout,
-                int Ho, int Wo, int k, int pad, int n_co) {
+                T* __restrict__ y, Src src, int Cin, int Cout, int Ho,
+                int Wo, int k, int n_co) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int kk = k * k;
@@ -85,12 +141,8 @@ conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
     __syncthreads();
     for (int i = threadIdx.x; i < CB * IH * IW; i += NT) {
       const int c = i / (IH * IW), rem = i % (IH * IW);
-      const int ci = c0 + c;
-      const int iy = y0 + rem / IW - pad, ix = x0 + rem % IW - pad;
-      float v = 0.f;
-      if (ci < Cin && iy >= 0 && iy < Hin && ix >= 0 && ix < Win)
-        v = to_f<T>(x[(((size_t)b * Cin + ci) * Hin + iy) * Win + ix]);
-      xs[i] = v;
+      xs[i] = c0 + c < Cin
+          ? load_v(x, src, b, c0 + c, y0 + rem / IW, x0 + rem % IW) : 0.f;
     }
     for (int i = threadIdx.x; i < CB * kk * COB; i += NT) {
       const int c = i / (kk * COB), rem = i % (kk * COB);
@@ -129,10 +181,10 @@ conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 template <typename T, int COB>
-int launch_fwd_cob(const void* x, const void* w, void* y, int B, int Cin,
-                   int Hin, int Win, int Cout, int k, int pad,
+int launch_fwd_cob(const void* x, const void* w, void* y, const Src& src,
+                   int B, int Cout, int Ho, int Wo, int k,
                    cudaStream_t stream) {
-  const int Ho = Hin + 2 * pad - k + 1, Wo = Win + 2 * pad - k + 1;
+  const int Cin = src.stride * src.stride * src.cin;
   const int n_co = (Cout + COB - 1) / COB;
   const size_t smem =
       sizeof(float) * (CB * k * k * COB + CB * (TH + k - 1) * (TW + k - 1));
@@ -145,22 +197,22 @@ int launch_fwd_cob(const void* x, const void* w, void* y, int B, int Cin,
   dim3 grid((Wo + TW - 1) / TW, (Ho + TH - 1) / TH, B * n_co);
   conv_fwd_kernel<T, COB><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      Cin, Hin, Win, Cout, Ho, Wo, k, pad, n_co);
+      src, Cin, Cout, Ho, Wo, k, n_co);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_fwd(const void* x, const void* w, void* y, int B, int Cin, int Hin,
-               int Win, int Cout, int k, int pad, cudaStream_t stream) {
+int launch_fwd(const void* x, const void* w, void* y, const Src& src, int B,
+               int Cout, int Ho, int Wo, int k, cudaStream_t stream) {
   if (Cout <= 8)
-    return launch_fwd_cob<T, 8>(x, w, y, B, Cin, Hin, Win, Cout, k, pad, stream);
+    return launch_fwd_cob<T, 8>(x, w, y, src, B, Cout, Ho, Wo, k, stream);
   if (Cout <= 16)
-    return launch_fwd_cob<T, 16>(x, w, y, B, Cin, Hin, Win, Cout, k, pad, stream);
-  return launch_fwd_cob<T, 32>(x, w, y, B, Cin, Hin, Win, Cout, k, pad, stream);
+    return launch_fwd_cob<T, 16>(x, w, y, src, B, Cout, Ho, Wo, k, stream);
+  return launch_fwd_cob<T, 32>(x, w, y, src, B, Cout, Ho, Wo, k, stream);
 }
 
 // ---------------------------------------------------------------------------
-// K4 pass 1: partial[chunk][t][ci][co] over the chunk's output rows
+// K4 pass 1: partial[chunk][t][c][co] over the chunk's output rows
 // ---------------------------------------------------------------------------
 constexpr int DR = 4;    // output rows per smem tile
 constexpr int DW = 32;   // output columns per smem tile
@@ -168,7 +220,7 @@ constexpr int DW = 32;   // output columns per smem tile
 template <typename T, int K>
 __global__ void __launch_bounds__(NT)
 conv_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                       float* __restrict__ partial, int Cin, int Hp, int Wp,
+                       float* __restrict__ partial, Src src, int Cin,
                        int Cout, int Ho, int Wo, int rows_per_chunk,
                        int chunks_per_image, int cib, int cob) {
   extern __shared__ float4 smem4[];
@@ -194,11 +246,9 @@ conv_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
       __syncthreads();
       for (int i = threadIdx.x; i < cib * XH * XW; i += NT) {
         const int c = i / (XH * XW), rem = i % (XH * XW);
-        const int ci = ci0 + c, iy = ty0 + rem / XW, ix = tx0 + rem % XW;
-        float v = 0.f;
-        if (ci < Cin && iy < Hp && ix < Wp)
-          v = to_f<T>(x[(((size_t)b * Cin + ci) * Hp + iy) * Wp + ix]);
-        xs[i] = v;
+        xs[i] = ci0 + c < Cin
+            ? load_v(x, src, b, ci0 + c, ty0 + rem / XW, tx0 + rem % XW)
+            : 0.f;
       }
       for (int i = threadIdx.x; i < cob * DR * DW; i += NT) {
         const int o = i / (DR * DW), p = i % (DR * DW);
@@ -244,9 +294,9 @@ conv_dw_reduce_kernel(const float* __restrict__ partial,
 
 template <typename T, int K>
 int launch_dw_k(const void* x, const void* g, float* partial, float* dw,
-                int B, int Cin, int Hp, int Wp, int Cout, int rows_per_chunk,
-                cudaStream_t stream) {
-  const int Ho = Hp - K + 1, Wo = Wp - K + 1;
+                const Src& src, int B, int Cout, int Ho, int Wo,
+                int rows_per_chunk, cudaStream_t stream) {
+  const int Cin = src.stride * src.stride * src.cin;
   const int cob = Cout <= 8 ? 8 : (Cout <= 16 ? 16 : 32);
   const int cib = NT / cob;
   const int chunks_per_image = (Ho + rows_per_chunk - 1) / rows_per_chunk;
@@ -261,8 +311,8 @@ int launch_dw_k(const void* x, const void* g, float* partial, float* dw,
   }
   dim3 grid(n_chunks, (Cin + cib - 1) / cib, (Cout + cob - 1) / cob);
   conv_dw_partial_kernel<T, K><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), partial, Cin, Hp,
-      Wp, Cout, Ho, Wo, rows_per_chunk, chunks_per_image, cib, cob);
+      static_cast<const T*>(x), static_cast<const T*>(g), partial, src, Cin,
+      Cout, Ho, Wo, rows_per_chunk, chunks_per_image, cib, cob);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const int n_out = K * K * Cin * Cout;
@@ -272,41 +322,59 @@ int launch_dw_k(const void* x, const void* g, float* partial, float* dw,
 }
 
 template <typename T>
-int launch_dw(const void* x, const void* g, float* partial, float* dw, int B,
-              int Cin, int Hp, int Wp, int Cout, int k, int rows_per_chunk,
-              cudaStream_t stream) {
+int launch_dw(const void* x, const void* g, float* partial, float* dw,
+              const Src& src, int B, int Cout, int Ho, int Wo, int k,
+              int rows_per_chunk, cudaStream_t stream) {
   switch (k) {
-    case 1: return launch_dw_k<T, 1>(x, g, partial, dw, B, Cin, Hp, Wp, Cout,
+    case 1: return launch_dw_k<T, 1>(x, g, partial, dw, src, B, Cout, Ho, Wo,
                                      rows_per_chunk, stream);
-    case 3: return launch_dw_k<T, 3>(x, g, partial, dw, B, Cin, Hp, Wp, Cout,
+    case 2: return launch_dw_k<T, 2>(x, g, partial, dw, src, B, Cout, Ho, Wo,
+                                     rows_per_chunk, stream);
+    case 3: return launch_dw_k<T, 3>(x, g, partial, dw, src, B, Cout, Ho, Wo,
                                      rows_per_chunk, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. x [B,Cin,Hin,Win]; w [k,k,Cin,Cout] in
-// x's type; y [B,Cout,Hin+2pad-k+1,Win+2pad-k+1]; pad = implicit zero border.
-extern "C" int conv_valid_fwd(const void* x, const void* w, void* y, int B,
-                              int Cin, int Hin, int Win, int Cout, int k,
-                              int pad, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1
-      ? launch_fwd<__nv_bfloat16>(x, w, y, B, Cin, Hin, Win, Cout, k, pad, s)
-      : launch_fwd<float>(x, w, y, B, Cin, Hin, Win, Cout, k, pad, s);
+Src make_src(const float* scale, const float* shift, int B, int Cin, int H,
+             int W, int pad, int stride, int groups, float negslope) {
+  return {Cin, H, W, pad, stride, scale, shift, B / groups, negslope};
 }
 
-// x [B,Cin,Hp,Wp] (pre-padded), g [B,Cout,Hp-k+1,Wp-k+1] in x's type;
-// partial: fp32 scratch [B*ceil(Ho/rows_per_chunk), k*k*Cin*Cout];
-// dw: fp32 [k,k,Cin,Cout]. k in {1, 3}.
-extern "C" int conv_dw(const void* x, const void* g, float* partial,
-                       float* dw, int B, int Cin, int Hp, int Wp, int Cout,
-                       int k, int rows_per_chunk, int dtype, void* stream) {
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. x [B,Cin,H,W]; scale/shift: fp32
+// [groups, Cin] or null (no prologue); stride 1 or 2; w [k,k,s*s*Cin,Cout]
+// in x's type; y [B,Cout,Ho,Wo] with Ho + k - 1 <= (H + 2pad) / stride
+// rounded up, and likewise Wo.
+extern "C" int conv_valid_fwd(const void* x, const void* w, void* y,
+                              const float* scale, const float* shift, int B,
+                              int Cin, int H, int W, int Cout, int Ho, int Wo,
+                              int k, int pad, int stride, int groups,
+                              float negslope, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Src src = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
+                           negslope);
   return dtype == 1
-      ? launch_dw<__nv_bfloat16>(x, g, partial, dw, B, Cin, Hp, Wp, Cout, k,
+      ? launch_fwd<__nv_bfloat16>(x, w, y, src, B, Cout, Ho, Wo, k, s)
+      : launch_fwd<float>(x, w, y, src, B, Cout, Ho, Wo, k, s);
+}
+
+// x, scale, shift, pad, stride, groups, negslope: as conv_valid_fwd.
+// g [B,Cout,Ho,Wo] in x's type; partial: fp32 scratch
+// [B*ceil(Ho/rows_per_chunk), k*k*s*s*Cin*Cout]; dw: fp32
+// [k,k,s*s*Cin,Cout]. k in {1, 2, 3}.
+extern "C" int conv_dw(const void* x, const void* g, float* partial,
+                       float* dw, const float* scale, const float* shift,
+                       int B, int Cin, int H, int W, int Cout, int Ho, int Wo,
+                       int k, int pad, int stride, int groups, float negslope,
+                       int rows_per_chunk, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Src src = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
+                           negslope);
+  return dtype == 1
+      ? launch_dw<__nv_bfloat16>(x, g, partial, dw, src, B, Cout, Ho, Wo, k,
                                  rows_per_chunk, s)
-      : launch_dw<float>(x, g, partial, dw, B, Cin, Hp, Wp, Cout, k,
+      : launch_dw<float>(x, g, partial, dw, src, B, Cout, Ho, Wo, k,
                          rows_per_chunk, s);
 }

@@ -10,7 +10,10 @@ element for element.
 BatchNorm is train-mode with no running statistics (the reference never
 evaluates the generator in eval mode). `groups` splits the batch into
 stacks that keep their own statistics: the trainer runs the A and B crop
-stacks as one batch of 2 with BN per stack.
+stacks as one batch of 2 with BN per stack (the reference's vmap over
+stacks).
+
+skip_apply_chw runs the reference's four generator_conv modes; see there.
 """
 from __future__ import annotations
 
@@ -22,12 +25,20 @@ import torch
 import torch.nn.functional as F
 
 from splice_tpu_torch import resolve_device
-from splice_tpu_torch.ops.conv import kernel_conv_chw
+from splice_tpu_torch.config import GENERATOR_CONVS
+from splice_tpu_torch.ops.conv import (kernel_conv_bn_act_chw,
+                                        kernel_conv_chw, split_stacks)
 from splice_tpu_torch.utils.tree import tree_map
 
-# Per-site dispatch: stride-1 k>=3 convs at least this wide with Cin > 16 go to
-# the hand-written conv kernel (the reference's PALLAS_MIN_WIDTH rule).
+# The "auto" per-site rule: stride-1 k>=3 convs at least this wide with
+# Cin > 16 go to the hand-written conv kernel (the reference's
+# PALLAS_MIN_WIDTH rule); "fused" routes a BatchNorm consumer to the
+# prologue kernel from this operating width on (stride 2 halves it).
 KERNEL_MIN_WIDTH = 448
+# Test hook (the reference's, splice_tpu/models/unet.py:243): route every
+# site of generator_conv="fused" on CPU tensors as the card routes its wide
+# sites, so the plain versions of the prologue kernels run there.
+FORCE_FUSED_KERNELS_ON_CPU = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,21 +112,54 @@ def upsample2x_chw(x: torch.Tensor, method: str) -> torch.Tensor:
                          align_corners=False)
 
 
+def _affine(mean, ex2, p, eps):
+    var = torch.clamp(ex2 - torch.square(mean), min=0.0)
+    inv = torch.rsqrt(var + eps) * p["scale"].float()
+    return inv, p["bias"].float() - mean * inv
+
+
+def bn_affine_chw(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                  groups: int = 1, eps: float = 1e-5
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train-mode BatchNorm of each of `groups` equal batch slices as fp32
+    (scale, shift) rows [groups, C]: single-pass statistics (mean and
+    E[x^2] over B, H, W of the slice)."""
+    xs = split_stacks(x, groups)
+    mean = xs.mean(dim=(1, 3, 4), dtype=torch.float32)
+    ex2 = torch.square(xs.float()).mean(dim=(1, 3, 4))
+    return _affine(mean, ex2, p, eps)
+
+
+def bn_affine_from_sums(s1: torch.Tensor, s2: torch.Tensor, count: int,
+                        p: Dict[str, torch.Tensor], eps: float = 1e-5
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bn_affine_chw from per-stack fp32 sums of x and x^2 over `count`
+    pixels each (the reference's :420-434)."""
+    return _affine(s1 / count, s2 / count, p, eps)
+
+
+def channel_sums(x: torch.Tensor, groups: int = 1
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-stack, per-channel fp32 (sum, sum of squares) [groups, C]."""
+    xs = split_stacks(x.float(), groups)
+    return xs.sum(dim=(1, 3, 4)), torch.square(xs).sum(dim=(1, 3, 4))
+
+
+def apply_affine(x: torch.Tensor, scale: torch.Tensor,
+                 shift: torch.Tensor) -> torch.Tensor:
+    """x * scale + shift with one [C] row per batch stack, in x's dtype."""
+    xs = split_stacks(x, scale.shape[0])
+    y = xs * scale.to(x.dtype)[:, None, :, None, None] \
+        + shift.to(x.dtype)[:, None, :, None, None]
+    return y.reshape(x.shape)
+
+
 def batch_norm_chw(x: torch.Tensor, p: Dict[str, torch.Tensor],
                    groups: int = 1, eps: float = 1e-5) -> torch.Tensor:
     """Train-mode BatchNorm over (B, H, W) of each of `groups` equal batch
-    slices: single-pass fp32 statistics (mean and E[x^2]), then one affine
-    pass in x's dtype."""
-    B, C, H, W = x.shape
-    xs = x.reshape(groups, B // groups, C, H, W)
-    mean = xs.mean(dim=(1, 3, 4), dtype=torch.float32)             # [G, C]
-    ex2 = torch.square(xs.float()).mean(dim=(1, 3, 4))
-    var = torch.clamp(ex2 - torch.square(mean), min=0.0)
-    inv = torch.rsqrt(var + eps) * p["scale"].float()
-    shift = p["bias"].float() - mean * inv
-    y = xs * inv.to(x.dtype)[:, None, :, None, None] \
-        + shift.to(x.dtype)[:, None, :, None, None]
-    return y.reshape(B, C, H, W)
+    slices: single-pass fp32 statistics, then one affine pass in x's
+    dtype."""
+    return apply_affine(x, *bn_affine_chw(x, p, groups, eps))
 
 
 def _center_crop_cat(branches: List[torch.Tensor]) -> torch.Tensor:
@@ -128,55 +172,156 @@ def _center_crop_cat(branches: List[torch.Tensor]) -> torch.Tensor:
     return torch.cat(out, dim=1)
 
 
-def skip_apply_chw(params: Dict[str, Any], cfg: SkipConfig,
-                   x_nhwc: torch.Tensor, compute_dtype=None,
-                   groups: int = 1) -> torch.Tensor:
-    """Generator forward: [B, H, W, Cin] in [0, 1] -> [B, H', W', Cout]
-    fp32, computed in CHW.
+def _auto_conv(x: torch.Tensor, p: Dict[str, torch.Tensor], stride: int,
+               pad: str, use_kernel: bool) -> torch.Tensor:
+    """The reference's per-site dispatch (splice_tpu/models/unet.py:650-667):
+    stride-1 k>=3 convs at least KERNEL_MIN_WIDTH wide with Cin > 16 go to
+    kernel_conv_chw, every other conv to conv2d_chw."""
+    k = p["kernel"].shape[0]
+    if (use_kernel and stride == 1 and k >= 3
+            and x.shape[3] >= KERNEL_MIN_WIDTH and x.shape[1] > 16):
+        return kernel_conv_chw(x, p, 1, pad)
+    return conv2d_chw(x, p, stride, pad)
 
-    Convs follow the reference's per-site dispatch
-    (splice_tpu/models/unet.py:650-667): on CUDA tensors, stride-1 k>=3
-    convs at least KERNEL_MIN_WIDTH wide with Cin > 16 go to
-    kernel_conv_chw (kernels K3/K4); every other conv, and every conv of a
-    CPU tensor, is conv2d_chw.
-    groups: batch stacks with their own BatchNorm statistics."""
-    use_kernel = x_nhwc.is_cuda
 
-    def conv_fn(x, p, stride=1):
-        k = p["kernel"].shape[0]
-        if (use_kernel and stride == 1 and k >= 3
-                and x.shape[3] >= KERNEL_MIN_WIDTH and x.shape[1] > 16):
-            return kernel_conv_chw(x, p, cfg.pad)
-        return conv2d_chw(x, p, stride, cfg.pad)
-
-    def bn(x, p):
-        return batch_norm_chw(x, p, groups)
-
-    x = x_nhwc.permute(0, 3, 1, 2)
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
-    n = cfg.n_scales
+def _forward(params, cfg: SkipConfig, x: torch.Tensor, groups: int,
+             conv_fn) -> torch.Tensor:
+    """The skip U-Net with every BatchNorm applied where it stands; returns
+    the out_conv output."""
+    def bn(t, p):
+        return batch_norm_chw(t, p, groups)
 
     def scale_fn(i: int, xin: torch.Tensor) -> torch.Tensor:
         sp = params["scales"][i]
         branches = []
         if cfg.channels_skip[i]:
-            s = conv_fn(xin, sp["skip_conv"])
+            s = conv_fn(xin, sp["skip_conv"], 1)
             branches.append(act(bn(s, sp["skip_bn"]), cfg.act_fun))
         d = conv_fn(xin, sp["down_conv1"], 2)
         d = act(bn(d, sp["down_bn1"]), cfg.act_fun)
-        d = conv_fn(d, sp["down_conv2"])
+        d = conv_fn(d, sp["down_conv2"], 1)
         d = act(bn(d, sp["down_bn2"]), cfg.act_fun)
-        inner = scale_fn(i + 1, d) if i < n - 1 else d
+        inner = scale_fn(i + 1, d) if i < cfg.n_scales - 1 else d
         branches.append(upsample2x_chw(inner, cfg.upsample_mode))
         y = bn(_center_crop_cat(branches), sp["post_bn"])
-        y = act(bn(conv_fn(y, sp["up_conv"]), sp["up_bn"]), cfg.act_fun)
+        y = act(bn(conv_fn(y, sp["up_conv"], 1), sp["up_bn"]), cfg.act_fun)
         if cfg.need1x1_up:
-            y = act(bn(conv_fn(y, sp["up1x1_conv"]), sp["up1x1_bn"]),
+            y = act(bn(conv_fn(y, sp["up1x1_conv"], 1), sp["up1x1_bn"]),
                     cfg.act_fun)
         return y
 
-    y = conv_fn(scale_fn(0, x), params["out_conv"]).float()
+    return conv_fn(scale_fn(0, x), params["out_conv"], 1)
+
+
+def _fused_forward(params, cfg: SkipConfig, x: torch.Tensor, groups: int,
+                   use_kernels: bool) -> torch.Tensor:
+    """Port of _skip_apply_chw_fused (splice_tpu/models/unet.py:476-617):
+    deferred BatchNorm. Every conv consumes its producer's RAW output plus
+    the BN (scale, shift) rows, and where the site is wide enough
+    (fuse_worthwhile) the normalise + activate runs in the conv kernel's
+    input read (kernel_conv_bn_act_chw: K3'/K4' pro) and the normalised
+    tensor is never stored. Elsewhere the pending BN is materialised and
+    the conv takes the auto rule. post_bn's statistics come from per-branch
+    sums. All statistics are per stack ([groups, C]). Returns the out_conv
+    output."""
+    negslope = {"LeakyReLU": 0.2, "none": 1.0}[cfg.act_fun]
+
+    def fuse_worthwhile(t, stride):
+        hw = t.shape[3] // (2 if stride == 2 else 1)
+        return use_kernels and (hw >= KERNEL_MIN_WIDTH
+                                or FORCE_FUSED_KERNELS_ON_CPU)
+
+    def conv_plain(t, p, stride):
+        return _auto_conv(t, p, stride, cfg.pad, use_kernels)
+
+    def materialize(src):
+        if not isinstance(src, tuple):
+            return src
+        raw, sc, sh = src
+        return act(apply_affine(raw, sc, sh), cfg.act_fun)
+
+    def pend(raw, bn_p):
+        return (raw, *bn_affine_chw(raw, bn_p, groups))
+
+    def conv_from(src, p, stride):
+        """src: raw tensor, or (raw, scale, shift) pending BN + act."""
+        if isinstance(src, tuple):
+            raw, sc, sh = src
+            if fuse_worthwhile(raw, stride):
+                return kernel_conv_bn_act_chw(raw, p, sc, sh, stride,
+                                              cfg.pad, negslope)
+            return conv_plain(materialize(src), p, stride)
+        return conv_plain(src, p, stride)
+
+    def scale_fn(i: int, xin):
+        """xin: raw tensor or pending; returns a pending (raw, sc, sh)."""
+        sp = params["scales"][i]
+        branches = []
+        if cfg.channels_skip[i]:
+            s_raw = conv_from(xin, sp["skip_conv"], 1)
+            branches.append(materialize(pend(s_raw, sp["skip_bn"])))
+        d1 = pend(conv_from(xin, sp["down_conv1"], 2), sp["down_bn1"])
+        d2 = pend(conv_from(d1, sp["down_conv2"], 1), sp["down_bn2"])
+        inner = scale_fn(i + 1, d2) if i < cfg.n_scales - 1 else d2
+        branches.append(upsample2x_chw(materialize(inner),
+                                       cfg.upsample_mode))
+        y = _center_crop_cat(branches)
+        # post_bn has no activation: an affine-only prologue (negslope 1)
+        # into the up conv. Its statistics are channel sums (the
+        # reference's per-branch sums, concatenated, are the same numbers).
+        count = y.shape[0] // groups * y.shape[2] * y.shape[3]
+        pb_sc, pb_sh = bn_affine_from_sums(*channel_sums(y, groups), count,
+                                           sp["post_bn"])
+        if fuse_worthwhile(y, 1):
+            y1 = kernel_conv_bn_act_chw(y, sp["up_conv"], pb_sc, pb_sh, 1,
+                                        cfg.pad, 1.0)
+        else:
+            y1 = conv_plain(apply_affine(y, pb_sc, pb_sh), sp["up_conv"], 1)
+        y1p = pend(y1, sp["up_bn"])
+        if not cfg.need1x1_up:
+            return y1p
+        return pend(conv_from(y1p, sp["up1x1_conv"], 1), sp["up1x1_bn"])
+
+    return conv_from(scale_fn(0, x), params["out_conv"], 1)
+
+
+def skip_apply_chw(params: Dict[str, Any], cfg: SkipConfig,
+                   x_nhwc: torch.Tensor, compute_dtype=None,
+                   groups: int = 1, conv_impl: str = "auto") -> torch.Tensor:
+    """Generator forward: [B, H, W, Cin] in [0, 1] -> [B, H', W', Cout]
+    fp32, computed in CHW. groups: batch stacks with their own BatchNorm
+    statistics.
+
+    conv_impl (the config's generator_conv), as in the reference
+    (splice_tpu/models/unet.py:620-669):
+      * "auto": the per-site rule (_auto_conv) on CUDA tensors; every conv
+        of a CPU tensor is conv2d_chw;
+      * "xla": every conv is conv2d_chw (F.conv2d; XLA's conv in the
+        reference);
+      * "pallas": every conv is kernel_conv_chw (K3/K4; stride 2 through
+        their space-to-depth forms, 1x1 at k = 1);
+      * "fused": deferred BatchNorm through the prologue kernels
+        (_fused_forward). The reference falls back to "auto" for
+        activations the prologue lacks; SkipConfig admits only
+        LeakyReLU and none, which it has.
+    On CPU tensors the kernel routes run their plain versions."""
+    if conv_impl not in GENERATOR_CONVS:
+        raise ValueError(f"conv_impl {conv_impl!r}; one of {GENERATOR_CONVS}")
+    x = x_nhwc.permute(0, 3, 1, 2)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    if conv_impl == "fused":
+        y = _fused_forward(params, cfg, x, groups,
+                           x.is_cuda or FORCE_FUSED_KERNELS_ON_CPU)
+    else:
+        def conv_fn(t, p, stride):
+            if conv_impl == "xla":
+                return conv2d_chw(t, p, stride, cfg.pad)
+            if conv_impl == "pallas":
+                return kernel_conv_chw(t, p, stride, cfg.pad)
+            return _auto_conv(t, p, stride, cfg.pad, t.is_cuda)
+        y = _forward(params, cfg, x, groups, conv_fn)
+    y = y.float()
     if cfg.need_sigmoid:
         y = torch.sigmoid(y)
     elif cfg.need_tanh:

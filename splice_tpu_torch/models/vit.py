@@ -5,7 +5,8 @@ Parameters are a plain nested dict with the reference's names and layouts
 parameter tree moves between the two packages as numpy arrays unchanged
 (models/weights.py). The patch-embed conv and the dense layers are torch
 ops (XLA in the reference); attention is ops.attention.attention_from_qkv,
-which is kernels K1/K2 on CUDA tensors.
+routed as the reference routes it: kernels K1/K2 on the fused qkv up to
+2048 tokens, K5/K6 on split heads above (the 480-px loss resolution).
 
 The frozen weights carry requires_grad=False, so autograd computes only the
 input cotangent. There is no remat: an 80 GB card holds the activations.

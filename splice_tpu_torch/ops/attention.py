@@ -1,14 +1,29 @@
-"""Multi-head attention read straight from the fused qkv projection.
+"""Multi-head softmax attention for the frozen ViT.
 
-Port of splice_tpu/ops/attention.py:79-101,584-660. qkv is [B, N, 3D] laid
-out q | k | v with heads contiguous inside each section; the output is the
-head-concatenated [B, N, D] the proj dense consumes.
+Port of splice_tpu/ops/attention.py:79-321,584-690. Two routes, chosen as
+the reference chooses them (attention_from_qkv):
 
-On CUDA tensors the forward is kernel K1 and the backward kernel K2
-(csrc/attention.cu, replacing the TPU kernels _attn_qkv_kernel and
-_attn_qkv_bwd_kernel). On CPU tensors the same two functions run their plain
-PyTorch versions below, which repeat the kernels' arithmetic. A CUDA tensor
-launches the kernel or raises; there is no fallback.
+  * fused qkv: qkv is [B, N, 3D] laid out q | k | v with heads contiguous
+    inside each section; the output is the head-concatenated [B, N, D] the
+    proj dense consumes. Forward kernel K1, backward K2 (replacing
+    _attn_qkv_kernel and _attn_qkv_bwd_kernel). Taken while
+    qkv_attention_supported, i.e. up to the reference's _QKV_MAX_N_PAD;
+  * split tensors: above that cap (the 480-px loss resolution: 3601 tokens
+    per square crop, 2701 for the entire A image) the heads are split into
+    [B, H, N, dh] q, k, v and multi_head_attention runs forward kernel K5
+    and backward K6 (replacing _attn_kernel and _attn_bwd_kernel).
+
+All four kernels are in csrc/attention.cu. On CPU tensors the same
+functions run their plain PyTorch versions below, which repeat the
+kernels' arithmetic. A CUDA tensor launches the kernel or raises; there is
+no fallback.
+
+Deviation from the reference, by design: above _MAX_N_PAD the reference
+leaves K5 for XLA attention, because its kernel keeps a whole head's K/V in
+VMEM. K5 is flash-style and has no length cap, so the port runs it at every
+N (pallas_attention_supported mirrors the reference's predicate and routes
+nothing). The reference's bf16-only gate (_kernel_dtype_ok) is a Mosaic
+VMEM budget and is not carried over: the kernels take fp32 too.
 """
 from __future__ import annotations
 
@@ -19,6 +34,9 @@ import torch
 from splice_tpu_torch.ops import _build
 
 HEAD_DIM = 64
+# The reference's routing constants (splice_tpu/ops/attention.py:45,607).
+_QKV_MAX_N_PAD = 2048
+_MAX_N_PAD = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -50,35 +68,51 @@ def _probs(q, k, scale: float, n_valid: int):
     return e, e.sum(dim=-1, keepdim=True)
 
 
+def attention_plain(q, k, v, scale: float, n_valid: int = 0) -> torch.Tensor:
+    """K5's plain version on [B, H, N, dh] q, k, v: fp32 logits and
+    softmax, p rounded to v's type before the PV product, the division
+    after it; output in q's type."""
+    e, denom = _probs(q, k, scale, n_valid)
+    o = torch.einsum("bhqk,bhkd->bhqd", e.to(v.dtype).float(), v.float())
+    return (o / denom).to(q.dtype)
+
+
+def attention_bwd_plain(q, k, v, g, scale: float, n_valid: int = 0):
+    """K6's plain version: recompute p; dp = g v^T; dl = p (dp - sum p dp),
+    cast to the input type before the dq and dk products; (dq, dk, dv) in
+    the inputs' type."""
+    dt = q.dtype
+    gf = g.float()
+    e, denom = _probs(q, k, scale, n_valid)
+    p = e / denom
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, v.float())
+    dl = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dl_c = dl.to(dt).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", dl_c, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", dl_c, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(v.dtype).float(), gf)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
 def attention_qkv_plain(qkv: torch.Tensor, num_heads: int, scale: float,
                         n_valid: int = 0) -> torch.Tensor:
-    """Forward: fp32 logits and softmax, p rounded to the input type before
-    the PV product, the division after it; output in the input type."""
-    q, k, v = _split_heads(qkv, num_heads)
-    e, denom = _probs(q, k, scale, n_valid)
-    o = torch.einsum("bhqk,bhkd->bhqd", e.to(qkv.dtype).float(), v.float())
-    return _merge_heads(o / denom).to(qkv.dtype)
+    """K1's plain version: K5's arithmetic on the heads of the fused
+    [B, N, 3D] qkv; [B, N, D] output in the input type."""
+    return _merge_heads(attention_plain(*_split_heads(qkv, num_heads),
+                                        scale, n_valid))
 
 
 def attention_qkv_bwd_plain(qkv: torch.Tensor, g: torch.Tensor,
                             num_heads: int, scale: float,
                             n_valid: int = 0) -> torch.Tensor:
-    """Backward from qkv alone: recompute p; dp = g v^T; dl = p (dp - sum
-    p dp), cast to the input type before the dq and dk products; one
-    [B, N, 3D] cotangent in the input type."""
-    dt = qkv.dtype
+    """K2's plain version: K6's arithmetic from qkv alone; one [B, N, 3D]
+    cotangent in the input type."""
     q, k, v = _split_heads(qkv, num_heads)
     B, H, N, dh = q.shape
-    gh = g.reshape(B, N, H, dh).permute(0, 2, 1, 3).float()
-    e, denom = _probs(q, k, scale, n_valid)
-    p = e / denom
-    dp = torch.einsum("bhqd,bhkd->bhqk", gh, v.float())
-    dl = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
-    dl_c = dl.to(dt).float()
-    dq = torch.einsum("bhqk,bhkd->bhqd", dl_c, k.float()) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", dl_c, q.float()) * scale
-    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dt).float(), gh)
-    return torch.cat([_merge_heads(t) for t in (dq, dk, dv)], dim=-1).to(dt)
+    gh = g.to(qkv.dtype).reshape(B, N, H, dh).permute(0, 2, 1, 3)
+    return torch.cat([_merge_heads(t) for t in
+                      attention_bwd_plain(q, k, v, gh, scale, n_valid)],
+                     dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +177,67 @@ def attn_qkv_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
 attn_qkv_bwd_cuda.launches = 0
 
 
+def _split_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 n_valid: int):
+    B, H, N, dh = q.shape
+    if dh != HEAD_DIM or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"attention kernels need [B, H, N, {HEAD_DIM}] q, "
+                         f"k, v of one shape; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    valid = n_valid if 0 < n_valid <= N else N
+    return B, H, N, valid
+
+
+def attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, n_valid: int = 0) -> torch.Tensor:
+    """K5 on the card: [B, H, N, 64] q, k, v -> [B, H, N, 64]."""
+    dtype = _build.check_cuda_tensors("attn_fwd", q, k, v)
+    B, H, N, valid = _split_shape(q, k, v, n_valid)
+    out = torch.empty_like(q)
+    fn = _build.library("attention").attn_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                N, H, valid, float(scale), dtype, _build.stream_ptr(q.device))
+    _build.check(status, "attn_fwd")
+    attn_fwd_cuda.launches += 1
+    return out
+
+
+attn_fwd_cuda.launches = 0
+
+
+def attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  g: torch.Tensor, scale: float, n_valid: int = 0):
+    """K6 on the card: (q, k, v, g), each [B, H, N, 64] -> (dq, dk, dv) in
+    the inputs' type. Three launches (row statistics, dk/dv, dq) counted as
+    one call."""
+    g = g.to(q.dtype).contiguous()
+    dtype = _build.check_cuda_tensors("attn_bwd", q, k, v, g)
+    B, H, N, valid = _split_shape(q, k, v, n_valid)
+    if g.shape != q.shape:
+        raise ValueError(f"attn_bwd: cotangent {tuple(g.shape)} vs "
+                         f"{tuple(q.shape)}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lse = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = _build.library("attention").attn_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), B, N, H, valid, float(scale), dtype,
+                _build.stream_ptr(q.device))
+    _build.check(status, "attn_bwd")
+    attn_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+attn_bwd_cuda.launches = 0
+
+
 def attn_qkv_fwd(qkv, num_heads: int, scale: float, n_valid: int = 0):
     """K1 for a CUDA tensor, its plain version for a CPU tensor."""
     if qkv.is_cuda:
@@ -155,6 +250,20 @@ def attn_qkv_bwd(qkv, g, num_heads: int, scale: float, n_valid: int = 0):
     if qkv.is_cuda:
         return attn_qkv_bwd_cuda(qkv, g, num_heads, scale, n_valid)
     return attention_qkv_bwd_plain(qkv, g, num_heads, scale, n_valid)
+
+
+def attn_fwd(q, k, v, scale: float, n_valid: int = 0):
+    """K5 for CUDA tensors, its plain version for CPU tensors."""
+    if q.is_cuda:
+        return attn_fwd_cuda(q, k, v, scale, n_valid)
+    return attention_plain(q, k, v, scale, n_valid)
+
+
+def attn_bwd(q, k, v, g, scale: float, n_valid: int = 0):
+    """K6 for CUDA tensors, its plain version for CPU tensors."""
+    if q.is_cuda:
+        return attn_bwd_cuda(q, k, v, g, scale, n_valid)
+    return attention_bwd_plain(q, k, v, g, scale, n_valid)
 
 
 class AttnQKV(torch.autograd.Function):
@@ -174,7 +283,53 @@ class AttnQKV(torch.autograd.Function):
         return attn_qkv_bwd(qkv, g, *ctx.cfg), None, None, None
 
 
+class AttnSplit(torch.autograd.Function):
+    """Attention on [B, H, N, dh] tensors; saves only q, k, v for the
+    backward, as the reference's custom VJP does (:307-321)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, n_valid: int):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = (scale, n_valid)
+        return attn_fwd(q, k, v, scale, n_valid)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*attn_bwd(q, k, v, g.contiguous(), *ctx.cfg), None, None)
+
+
+def qkv_attention_supported(qkv: torch.Tensor, num_heads: int) -> bool:
+    """The reference's gate for the fused-qkv kernels (:628-635): two dh=64
+    heads per 128 columns and N, padded to 8, at most _QKV_MAX_N_PAD."""
+    B, N, threeD = qkv.shape
+    D = threeD // 3
+    if D % num_heads or D // num_heads != HEAD_DIM or D % 128:
+        return False
+    return -(-N // 8) * 8 <= _QKV_MAX_N_PAD
+
+
+def pallas_attention_supported(q: torch.Tensor) -> bool:
+    """The reference's gate for its split-tensor kernels (:663-669). The
+    port routes nothing by it: K5 has no length cap (module docstring)."""
+    dh, N = q.shape[3], q.shape[2]
+    return dh % 64 == 0 and -(-N // 128) * 128 <= _MAX_N_PAD
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float, n_valid: int = 0) -> torch.Tensor:
+    """Softmax attention over [B, H, N, dh] tensors (differentiable): K5/K6
+    on CUDA tensors at every N."""
+    return AttnSplit.apply(q, k, v, float(scale), int(n_valid))
+
+
 def attention_from_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
                        n_valid: int = 0) -> torch.Tensor:
-    """[B, N, 3D] -> [B, N, D] softmax attention (differentiable)."""
-    return AttnQKV.apply(qkv, num_heads, float(scale), int(n_valid))
+    """[B, N, 3D] -> [B, N, D] softmax attention (differentiable), routed
+    as the reference routes it (:638-660): the fused-qkv kernels K1/K2 up
+    to the cap, above it split heads, K5/K6, merged heads."""
+    if qkv_attention_supported(qkv, num_heads):
+        return AttnQKV.apply(qkv, num_heads, float(scale), int(n_valid))
+    q, k, v = _split_heads(qkv, num_heads)
+    return _merge_heads(multi_head_attention(q, k, v, scale, n_valid))

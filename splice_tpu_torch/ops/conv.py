@@ -1,15 +1,38 @@
-"""Small-channel stride-1 convolution in [B, C, H, W] layout.
+"""Small-channel convolution in [B, C, H, W] layout.
 
 Port of splice_tpu/ops/conv_pallas.py:706-732 (conv_valid_chw and its
-custom VJP) and :1007-1065 (pallas_conv_chw, stride 1). On CUDA tensors the
-VALID conv and its input gradient are kernel K3 and the weight gradient is
-kernel K4 (csrc/conv.cu, replacing _make_conv_kernel and _make_dw_kernel).
-On CPU tensors the same functions run their plain PyTorch versions below.
-A CUDA tensor launches the kernel or raises; there is no fallback.
+custom VJP), :851-899 (conv_pro_valid_chw: the deferred-BatchNorm
+prologue), :902-1004 (pallas_conv_bn_act_chw, VALID branch) and
+:1007-1065 (pallas_conv_chw). On CUDA tensors the convolution and its input
+gradient are kernel K3 and the weight gradient is kernel K4 (csrc/conv.cu,
+replacing _make_conv_kernel and _make_dw_kernel), in three forms each:
+
+  * plain: a VALID conv with an implicit zero border (conv_valid_cuda,
+    conv_dw_cuda);
+  * pro: the input read applies z = leaky_ns(x*scale + shift), one row of
+    scale/shift per BatchNorm stack, with an implicit zero border of z
+    (conv_valid_pro_cuda, conv_dw_pro_cuda);
+  * s2d: a stride-2 conv as the stride-1 ceil(k/2) conv of the
+    space-to-depth phase image, which the kernels read straight from x
+    (conv_valid_s2d_cuda, conv_dw_s2d_cuda).
+A stride-2 conv with a prologue is the pro form at stride 2. One autograd
+Function, ConvValidPro, carries all of them.
+
+On CPU tensors the same functions run their plain PyTorch versions below,
+which materialise what the kernels' input read sees (virtual_input_plain)
+and repeat their arithmetic. A CUDA tensor launches the kernel or raises;
+there is no fallback.
+
+The zero border under a prologue holds zeros of z. The reference gets them
+by padding x with the prologue's pre-image v = -shift/scale (conv_pallas.py
+:959-975), which is exact up to rounding; the kernels here zero the border
+after the prologue instead, which is what that padding means, and needs no
+guard for a scale near 0.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,29 +81,158 @@ def conv_dw_plain(xp: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
         for dy in range(k)])
 
 
+def split_stacks(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """[B, ...] -> [groups, B // groups, ...]: the batch's BatchNorm
+    stacks."""
+    return t.reshape(groups, t.shape[0] // groups, *t.shape[1:])
+
+
+def _rows(v: torch.Tensor) -> torch.Tensor:
+    """[G, C] scale/shift rows -> [G, 1, C, 1, 1] against split_stacks."""
+    return v[:, None, :, None, None]
+
+
+def prologue_plain(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                   negslope: float) -> torch.Tensor:
+    """z = leaky_ns(x*scale + shift) in fp32, rounded to x's type; batch
+    stack i (of scale.shape[0]) uses row i of scale/shift."""
+    xs = split_stacks(x, scale.shape[0]).float()
+    z = xs * _rows(scale) + _rows(shift)
+    if negslope != 1.0:
+        z = torch.where(z >= 0, z, z * negslope)
+    return z.reshape(x.shape).to(x.dtype)
+
+
+def virtual_input_plain(x: torch.Tensor, k: int, out_hw: Tuple[int, int],
+                        pad: int = 0, stride: int = 1,
+                        scale: Optional[torch.Tensor] = None,
+                        shift: Optional[torch.Tensor] = None,
+                        negslope: float = 1.0) -> torch.Tensor:
+    """The input the kernels' read sees, materialised: the prologue (if
+    scale is given), a zero border of `pad` around it, and for stride 2 the
+    space-to-depth phase image (channel (py*2 + px)*Cin + ci at (i, j) is
+    the bordered z at (2i + py, 2j + px)); sized for a VALID k x k conv
+    with out_hw outputs."""
+    if scale is not None:
+        x = prologue_plain(x, scale, shift, negslope)
+    hv, wv = out_hw[0] + k - 1, out_hw[1] + k - 1
+    H, W = x.shape[2], x.shape[3]
+    # negative pads crop what the conv never reads
+    x = F.pad(x, (pad, stride * wv - W - pad, pad, stride * hv - H - pad))
+    if stride == 2:
+        B, C = x.shape[:2]
+        x = x.reshape(B, C, hv, 2, wv, 2).permute(0, 3, 5, 1, 2, 4) \
+            .reshape(B, 4 * C, hv, wv)
+    return x
+
+
+def conv_valid_pro_plain(x, w, scale, shift, negslope: float = 1.0,
+                         pad: int = 0, stride: int = 1,
+                         out_hw: Optional[Tuple[int, int]] = None):
+    """K3's pro and s2d forms, plain: the VALID conv of the virtual
+    input."""
+    k = w.shape[0]
+    out_hw = out_hw or _out_hw(x, k, pad)
+    return conv_valid_plain(virtual_input_plain(
+        x, k, out_hw, pad, stride, scale, shift, negslope), w)
+
+
+def conv_dw_pro_plain(x, g, k: int, scale, shift, negslope: float = 1.0,
+                      pad: int = 0, stride: int = 1):
+    """K4's pro and s2d forms, plain: dw over the virtual input."""
+    return conv_dw_plain(virtual_input_plain(
+        x, k, tuple(g.shape[2:]), pad, stride, scale, shift, negslope), g, k)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def conv_valid_cuda(x: torch.Tensor, w: torch.Tensor,
-                    pad: int = 0) -> torch.Tensor:
-    """K3 on the card. w must already be in x's type."""
+def _out_hw(x: torch.Tensor, k: int, pad: int) -> Tuple[int, int]:
+    """Output size of a stride-1 VALID k x k conv with a `pad` border."""
+    return x.shape[2] + 2 * pad - k + 1, x.shape[3] + 2 * pad - k + 1
+
+
+def _prologue_args(x, scale, shift):
+    """Pointers and group count of the optional prologue; raises unless
+    scale/shift are contiguous fp32 [G, Cin] on x's device, G | B."""
+    if scale is None:
+        return None, None, 1
+    G, cin = scale.shape
+    if shift.shape != scale.shape or cin != x.shape[1] or x.shape[0] % G:
+        raise ValueError(f"conv prologue: scale {tuple(scale.shape)}, shift "
+                         f"{tuple(shift.shape)} vs input {tuple(x.shape)}")
+    for t in (scale, shift):
+        if (t.dtype != torch.float32 or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError("conv prologue: scale/shift must be contiguous "
+                             "fp32 on the input's device")
+    return scale.data_ptr(), shift.data_ptr(), G
+
+
+def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name):
+    """K3 over the virtual input of x (see csrc/conv.cu). w must already be
+    in x's type."""
     x, w = x.contiguous(), w.contiguous()
-    dtype = _build.check_cuda_tensors("conv_valid", x, w)
+    dtype = _build.check_cuda_tensors(name, x, w)
     B, cin, h, wd = x.shape
     k, k2, wcin, cout = w.shape
-    if k != k2 or wcin != cin:
-        raise ValueError(f"conv_valid: kernel {tuple(w.shape)} vs input "
-                         f"{tuple(x.shape)}")
-    ho, wo = h + 2 * pad - k + 1, wd + 2 * pad - k + 1
+    if k != k2 or wcin != stride * stride * cin or stride not in (1, 2):
+        raise ValueError(f"{name}: kernel {tuple(w.shape)} vs input "
+                         f"{tuple(x.shape)}, stride {stride}")
+    ho, wo = out_hw
+    sp, tp, G = _prologue_args(x, scale, shift)
     y = torch.empty(B, cout, ho, wo, dtype=x.dtype, device=x.device)
     fn = _build.library("conv").conv_valid_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
-    status = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, cin, h, wd,
-                cout, k, pad, dtype, _build.stream_ptr(x.device))
-    _build.check(status, "conv_valid")
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    status = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), sp, tp, B, cin, h,
+                wd, cout, ho, wo, k, pad, stride, G, float(negslope), dtype,
+                _build.stream_ptr(x.device))
+    _build.check(status, name)
+    return y
+
+
+def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name):
+    """K4 over the virtual input of x: fp32 [k, k, s*s*Cin, Cout]; g must
+    be in x's type."""
+    x, g = x.contiguous(), g.contiguous()
+    dtype = _build.check_cuda_tensors(name, x, g)
+    if k not in (1, 2, 3):
+        raise ValueError(f"{name}: kernel is built for k in (1, 2, 3), "
+                         f"got {k}")
+    B, cin, h, wd = x.shape
+    cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
+    if g.shape[0] != B or stride not in (1, 2):
+        raise ValueError(f"{name}: cotangent {tuple(g.shape)} vs input "
+                         f"{tuple(x.shape)}, stride {stride}")
+    sp, tp, G = _prologue_args(x, scale, shift)
+    cv = stride * stride * cin
+    rows = -(-B * ho // _DW_CHUNKS)
+    rows = -(-rows // _DW_ROW_TILE) * _DW_ROW_TILE
+    n_chunks = B * -(-ho // rows)
+    partial = torch.empty(n_chunks, k * k * cv * cout, dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty(k, k, cv, cout, dtype=torch.float32, device=x.device)
+    fn = _build.library("conv").conv_dw
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    status = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                dw.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, pad,
+                stride, G, float(negslope), rows, dtype,
+                _build.stream_ptr(x.device))
+    _build.check(status, name)
+    return dw
+
+
+def conv_valid_cuda(x: torch.Tensor, w: torch.Tensor,
+                    pad: int = 0) -> torch.Tensor:
+    """K3 on the card: VALID stride-1 conv with an implicit zero border.
+    w must already be in x's type."""
+    y = _launch_fwd(x, w, _out_hw(x, w.shape[0], pad), pad, 1, None, None,
+                    1.0, "conv_valid")
     conv_valid_cuda.launches += 1
     return y
 
@@ -88,31 +240,39 @@ def conv_valid_cuda(x: torch.Tensor, w: torch.Tensor,
 conv_valid_cuda.launches = 0
 
 
-def conv_dw_cuda(xp: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+def conv_valid_pro_cuda(x: torch.Tensor, w: torch.Tensor,
+                        scale: torch.Tensor, shift: torch.Tensor,
+                        negslope: float = 1.0, pad: int = 0, stride: int = 1,
+                        out_hw: Optional[Tuple[int, int]] = None
+                        ) -> torch.Tensor:
+    """K3' pro on the card: the conv of leaky_ns(x*scale + shift) with a
+    zero border of z; stride 2 takes the space-to-depth kernel."""
+    y = _launch_fwd(x, w, out_hw or _out_hw(x, w.shape[0], pad), pad,
+                    stride, scale, shift, negslope, "conv_valid_pro")
+    conv_valid_pro_cuda.launches += 1
+    return y
+
+
+conv_valid_pro_cuda.launches = 0
+
+
+def conv_valid_s2d_cuda(x: torch.Tensor, w: torch.Tensor, pad: int,
+                        out_hw: Tuple[int, int]) -> torch.Tensor:
+    """K3 at k2 on the card: the stride-2 conv of x (zero border `pad`) as
+    the VALID conv of its phase image with the [k2, k2, 4Cin, Cout]
+    kernel w."""
+    y = _launch_fwd(x, w, out_hw, pad, 2, None, None, 1.0, "conv_valid_s2d")
+    conv_valid_s2d_cuda.launches += 1
+    return y
+
+
+conv_valid_s2d_cuda.launches = 0
+
+
+def conv_dw_cuda(xp: torch.Tensor, g: torch.Tensor, k: int,
+                 pad: int = 0) -> torch.Tensor:
     """K4 on the card: fp32 [k, k, Cin, Cout]; g must be in xp's type."""
-    xp, g = xp.contiguous(), g.contiguous()
-    dtype = _build.check_cuda_tensors("conv_dw", xp, g)
-    if k not in (1, 3):
-        raise ValueError(f"conv_dw kernel is built for k in (1, 3), got {k}")
-    B, cin, hp, wp = xp.shape
-    cout, ho = g.shape[1], g.shape[2]
-    if g.shape != (B, cout, hp - k + 1, wp - k + 1):
-        raise ValueError(f"conv_dw: cotangent {tuple(g.shape)} vs input "
-                         f"{tuple(xp.shape)}, k={k}")
-    rows = -(-B * ho // _DW_CHUNKS)
-    rows = -(-rows // _DW_ROW_TILE) * _DW_ROW_TILE
-    n_chunks = B * -(-ho // rows)
-    partial = torch.empty(n_chunks, k * k * cin * cout, dtype=torch.float32,
-                          device=xp.device)
-    dw = torch.empty(k, k, cin, cout, dtype=torch.float32, device=xp.device)
-    fn = _build.library("conv").conv_dw
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
-    status = fn(xp.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                dw.data_ptr(), B, cin, hp, wp, cout, k, rows, dtype,
-                _build.stream_ptr(xp.device))
-    _build.check(status, "conv_dw")
+    dw = _launch_dw(xp, g, k, pad, 1, None, None, 1.0, "conv_dw")
     conv_dw_cuda.launches += 1
     return dw
 
@@ -120,61 +280,207 @@ def conv_dw_cuda(xp: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
 conv_dw_cuda.launches = 0
 
 
-def conv_valid(x, w, pad: int = 0):
-    """K3 for a CUDA tensor, its plain version for a CPU tensor."""
-    if x.is_cuda:
-        return conv_valid_cuda(x, w.to(x.dtype), pad)
-    return conv_valid_plain(x, w.to(x.dtype), pad)
+def conv_dw_pro_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
+                     scale: torch.Tensor, shift: torch.Tensor,
+                     negslope: float = 1.0, pad: int = 0,
+                     stride: int = 1) -> torch.Tensor:
+    """K4' pro on the card: dw of the pro conv, the prologue recomputed on
+    the read."""
+    dw = _launch_dw(x, g, k, pad, stride, scale, shift, negslope,
+                    "conv_dw_pro")
+    conv_dw_pro_cuda.launches += 1
+    return dw
 
 
-def conv_dw(xp, g, k: int):
-    """K4 for a CUDA tensor, its plain version for a CPU tensor."""
-    if xp.is_cuda:
-        return conv_dw_cuda(xp, g.to(xp.dtype), k)
-    return conv_dw_plain(xp, g.to(xp.dtype), k)
+conv_dw_pro_cuda.launches = 0
 
 
-class ConvValid(torch.autograd.Function):
-    """VALID conv whose backward is K3 (dx) and K4 (dw), as the reference's
-    custom VJP (splice_tpu/ops/conv_pallas.py:715-732)."""
+def conv_dw_s2d_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
+                     pad: int) -> torch.Tensor:
+    """K4 at k2 on the card: dw [k2, k2, 4Cin, Cout] of the s2d conv."""
+    dw = _launch_dw(x, g, k, pad, 2, None, None, 1.0, "conv_dw_s2d")
+    conv_dw_s2d_cuda.launches += 1
+    return dw
+
+
+conv_dw_s2d_cuda.launches = 0
+
+
+def conv_forward(x, w, scale=None, shift=None, negslope: float = 1.0,
+                 pad: int = 0, stride: int = 1,
+                 out_hw: Optional[Tuple[int, int]] = None):
+    """K3 for a CUDA tensor, in the form the arguments ask for (pro when
+    scale is given, else s2d at stride 2, else plain); the plain version
+    for a CPU tensor."""
+    w = w.to(x.dtype)
+    out_hw = out_hw or _out_hw(x, w.shape[0], pad)
+    if not x.is_cuda:
+        return conv_valid_pro_plain(x, w, scale, shift, negslope, pad,
+                                    stride, out_hw)
+    if scale is not None:
+        return conv_valid_pro_cuda(x, w, scale, shift, negslope, pad, stride,
+                                   out_hw)
+    if stride == 2:
+        return conv_valid_s2d_cuda(x, w, pad, out_hw)
+    return conv_valid_cuda(x, w, pad)
+
+
+def conv_weight_grad(x, g, k: int, scale=None, shift=None,
+                     negslope: float = 1.0, pad: int = 0, stride: int = 1):
+    """K4 for a CUDA tensor, in the form of conv_forward; the plain version
+    for a CPU tensor. fp32 [k, k, s*s*Cin, Cout]."""
+    g = g.to(x.dtype)
+    if not x.is_cuda:
+        return conv_dw_pro_plain(x, g, k, scale, shift, negslope, pad, stride)
+    if scale is not None:
+        return conv_dw_pro_cuda(x, g, k, scale, shift, negslope, pad, stride)
+    if stride == 2:
+        return conv_dw_s2d_cuda(x, g, k, pad)
+    return conv_dw_cuda(x, g, k, pad)
+
+
+def _from_phases(dv: torch.Tensor, x_shape, pad: int) -> torch.Tensor:
+    """Gradient w.r.t. the phase image [B, 4C, hv, wv] -> w.r.t. the source
+    x [B, C, H, W] under a zero border `pad` (the inverse of
+    virtual_input_plain's space-to-depth)."""
+    B, c4, hv, wv = dv.shape
+    C = c4 // 4
+    d = dv.reshape(B, 2, 2, C, hv, wv).permute(0, 3, 4, 1, 5, 2) \
+        .reshape(B, C, 2 * hv, 2 * wv)
+    H, W = x_shape[2], x_shape[3]
+    return F.pad(d, (-pad, W + pad - 2 * wv, -pad, H + pad - 2 * hv))
+
+
+def _prologue_bwd(x, dz, scale, shift, negslope: float):
+    """Chain rule through z = leaky_ns(x*scale + shift), in torch ops as the
+    reference computes it outside its kernels (:882-893): (dx, dscale,
+    dshift), the last two per stack."""
+    G = scale.shape[0]
+    x32, dz32 = split_stacks(x, G).float(), split_stacks(dz, G).float()
+    sc = _rows(scale.float())
+    if negslope != 1.0:
+        u = x32 * sc + _rows(shift.float())
+        du = torch.where(u >= 0, dz32, dz32 * negslope)
+    else:
+        du = dz32
+    dx = (du * sc).reshape(x.shape).to(x.dtype)
+    dscale = (du * x32).sum(dim=(1, 3, 4)).to(scale.dtype)
+    dshift = du.sum(dim=(1, 3, 4)).to(shift.dtype)
+    return dx, dscale, dshift
+
+
+class ConvValidPro(torch.autograd.Function):
+    """The conv of z = leaky_ns(x*scale + shift) with a zero border `pad`
+    of z, at stride 1 or as the space-to-depth stride-2 conv (w is then the
+    [k2, k2, 4Cin, Cout] phase kernel); scale None means z = x, the plain
+    conv (conv_valid_chw :706-732). The backward mirrors _convp_bwd
+    (conv_pallas.py:873-896): dz from plain K3 with the flipped kernel, the
+    prologue's chain rule in torch ops, dw from K4 with the prologue
+    recomputed on the read. z is never stored."""
 
     @staticmethod
-    def forward(ctx, xp, w):
-        ctx.save_for_backward(xp, w)
-        return conv_valid(xp, w.to(xp.dtype))
+    def forward(ctx, x, w, scale, shift, pad: int, stride: int,
+                out_hw: Tuple[int, int], negslope: float):
+        x = x.contiguous()
+        ctx.save_for_backward(x, w, scale, shift)
+        ctx.cfg = (pad, stride, negslope)
+        return conv_forward(x, w, scale, shift, negslope, pad, stride, out_hw)
 
     @staticmethod
     def backward(ctx, g):
-        xp, w = ctx.saved_tensors
+        x, w, scale, shift = ctx.saved_tensors
+        pad, stride, negslope = ctx.cfg
         k = w.shape[0]
-        g = g.to(xp.dtype)
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            # full correlation of g with the flipped, io-swapped kernel
+        g = g.to(x.dtype).contiguous()
+        dx = dw = dscale = dshift = None
+        if any(ctx.needs_input_grad[i] for i in (0, 2, 3)):
             w_flip = torch.flip(w, dims=(0, 1)).transpose(2, 3)
-            dx = conv_valid(g, w_flip.to(xp.dtype), pad=k - 1)
+            if stride == 1:
+                # the (k-1-pad) border lands dz on x's own pixels
+                dz = conv_forward(g, w_flip, pad=k - 1 - pad)
+            else:
+                dz = _from_phases(conv_forward(g, w_flip, pad=k - 1),
+                                  x.shape, pad)
+            if scale is None:
+                dx = dz
+            else:
+                dx, dscale, dshift = _prologue_bwd(x, dz, scale, shift,
+                                                   negslope)
         if ctx.needs_input_grad[1]:
-            dw = conv_dw(xp, g, k).to(w.dtype)
-        return dx, dw
+            dw = conv_weight_grad(x, g, k, scale, shift, negslope, pad,
+                                  stride).to(w.dtype)
+        return dx, dw, dscale, dshift, None, None, None, None
 
 
 def conv_valid_chw(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """VALID k x k stride-1 conv on pre-padded [B, Cin, Hp, Wp] with
     w [k, k, Cin, Cout] -> [B, Cout, Hp-k+1, Wp-k+1] (differentiable)."""
-    return ConvValid.apply(xp, w)
+    return ConvValidPro.apply(xp, w, None, None, 0, 1,
+                              _out_hw(xp, w.shape[0], 0), 1.0)
 
 
-def kernel_conv_chw(x: torch.Tensor, p: dict,
-                    pad: str = "zero") -> torch.Tensor:
-    """Stride-1 counterpart of pallas_conv_chw: torch (k-1)//2 zero or
-    reflection padding, the VALID conv, then the bias (added outside the
-    kernel, as the reference does)."""
-    w = p["kernel"]
-    to_pad = (w.shape[0] - 1) // 2
-    if to_pad > 0:
-        mode = "reflect" if pad == "reflection" else "constant"
-        x = F.pad(x, (to_pad, to_pad, to_pad, to_pad), mode=mode)
-    out = conv_valid_chw(x, w)
+def s2d_kernel(w: torch.Tensor) -> torch.Tensor:
+    """[k, k, Cin, Cout] -> the [k2, k2, 4Cin, Cout] phase kernel, k2 =
+    ceil(k/2): tap (dy, dx) lands at (dy//2, dx//2) of phase (dy%2, dx%2);
+    unused taps are exactly zero (conv_pallas.py:1054-1059)."""
+    k, _, cin, cout = w.shape
+    k2 = (k + 1) // 2
+    e = 2 * k2 - k
+    wp = F.pad(w, (0, 0, 0, 0, 0, e, 0, e))
+    return wp.reshape(k2, 2, k2, 2, cin, cout).permute(0, 2, 1, 3, 4, 5) \
+        .reshape(k2, k2, 4 * cin, cout)
+
+
+def _as_rows(v: torch.Tensor) -> torch.Tensor:
+    """Prologue vector [C] (one stack) or [G, C] -> fp32 [G, C]."""
+    v = v.float()
+    return (v[None] if v.dim() == 1 else v).contiguous()
+
+
+def _conv_any(x, w, pad: str, stride: int, scale, shift,
+              negslope: float) -> torch.Tensor:
+    """torch (k-1)//2 padding (zero: the kernels' implicit border), then
+    ConvValidPro at stride 1 or 2."""
+    k = w.shape[0]
+    to_pad = (k - 1) // 2
+    if to_pad and pad == "reflection":
+        # reflection commutes with the per-channel prologue
+        x = F.pad(x, (to_pad, to_pad, to_pad, to_pad), mode="reflect")
+        to_pad = 0
+    if stride == 1:
+        return ConvValidPro.apply(x, w, scale, shift, to_pad, 1,
+                                  _out_hw(x, k, to_pad), negslope)
+    if stride != 2:
+        raise NotImplementedError(f"stride {stride}")
+    ho = (x.shape[2] + 2 * to_pad - k) // 2 + 1
+    wo = (x.shape[3] + 2 * to_pad - k) // 2 + 1
+    return ConvValidPro.apply(x, s2d_kernel(w), scale, shift, to_pad, 2,
+                              (ho, wo), negslope)
+
+
+def _add_bias(out: torch.Tensor, p: dict) -> torch.Tensor:
     if "bias" in p:
         out = out + p["bias"].to(out.dtype)[:, None, None]
     return out
+
+
+def kernel_conv_chw(x: torch.Tensor, p: dict, stride: int = 1,
+                    pad: str = "zero") -> torch.Tensor:
+    """Counterpart of pallas_conv_chw: torch (k-1)//2 zero or reflection
+    padding, the conv (stride 2 as space-to-depth), then the bias (added
+    outside the kernel, as the reference does)."""
+    return _add_bias(_conv_any(x, p["kernel"], pad, stride, None, None, 1.0),
+                     p)
+
+
+def kernel_conv_bn_act_chw(x: torch.Tensor, p: dict, scale: torch.Tensor,
+                           shift: torch.Tensor, stride: int = 1,
+                           pad: str = "zero",
+                           negslope: float = 0.2) -> torch.Tensor:
+    """Counterpart of pallas_conv_bn_act_chw (VALID branch):
+    conv(leaky_ns(x*scale + shift)) + bias with the padding and stride of
+    kernel_conv_chw. scale/shift: [C], or [G, C] for G BatchNorm stacks of
+    B/G batch items each."""
+    out = _conv_any(x, p["kernel"], pad, stride, _as_rows(scale),
+                    _as_rows(shift), negslope)
+    return _add_bias(out, p)

@@ -3,8 +3,9 @@
     python -m splice_tpu_torch.train --dataroot datasets/splicing/cows \
         --n_epochs 2000
 
-Every config key is a flag (CLI > --config YAML > defaults). Runs on CUDA
-unless --device cpu is given.
+Every config key is a flag (CLI > --config YAML > defaults), e.g.
+--dino_global_patch_size 480 (the long-sequence loss resolution) or
+--generator_conv fused. Runs on CUDA unless --device cpu is given.
 """
 from __future__ import annotations
 

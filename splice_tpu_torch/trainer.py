@@ -102,7 +102,7 @@ class SpliceTrainer:
     def generate(self, params, x_nhwc: torch.Tensor,
                  groups: int = 1) -> torch.Tensor:
         return unet.skip_apply_chw(params, self.gcfg, x_nhwc, self.gdt,
-                                   groups)
+                                   groups, self.cfg.generator_conv)
 
     def transform(self, x: torch.Tensor) -> torch.Tensor:
         """Loss-side preprocessing (reference losses.py:17-24)."""

@@ -2,8 +2,9 @@
 
 The JAX side runs conv_valid_chw / pallas_conv_chw: on the CPU that is the
 Pallas conv kernel (_make_conv_kernel, also for dx) and the weight-gradient
-kernel (_make_dw_kernel) in interpret mode. The torch side runs ConvValid on
-CPU tensors, i.e. the plain versions of kernels K3 and K4. fp32 throughout;
+kernel (_make_dw_kernel) in interpret mode. The torch side runs ConvValidPro
+(no prologue) on CPU tensors, i.e. the plain versions of kernels K3 and K4.
+fp32 throughout;
 tolerances rtol 1e-5 for outputs and 1e-4 for gradients, each with an atol
 of 1e-5 for entries near zero (sums of up to 4,420 products of O(1)
 values).
@@ -61,7 +62,8 @@ def test_kernel_conv_chw_matches_pallas_conv_chw(pad):
         1, pad)
     tout = tconv.kernel_conv_chw(
         torch.from_numpy(x),
-        {"kernel": torch.from_numpy(w), "bias": torch.from_numpy(b)}, pad)
+        {"kernel": torch.from_numpy(w), "bias": torch.from_numpy(b)},
+        pad=pad)
     assert tout.shape == jout.shape == (2, COUT, H, W)
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=1e-5,
                                atol=1e-5)

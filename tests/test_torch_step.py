@@ -71,9 +71,20 @@ def setup():
     return A, B, jvp, np.asarray(jflat), unravel
 
 
+_JAX_STEPS = {}
+
+
 def _jax_step(setup, draws, lam, entire):
     """Loss, gradient and the parameters after one optax.adam update, by
-    the JAX package's public functions in the trainer's order."""
+    the JAX package's public functions in the trainer's order (computed
+    once per step kind: the fused cases reuse them)."""
+    key = (entire, tuple(sorted(lam.items())))
+    if key not in _JAX_STEPS:
+        _JAX_STEPS[key] = _jax_step_uncached(setup, draws, lam, entire)
+    return _JAX_STEPS[key]
+
+
+def _jax_step_uncached(setup, draws, lam, entire):
     A, B, jvp, jflat, unravel = setup
     ext = jext.VitExtractor(params=jvp, cfg=jvit.VitConfig(**TINY_VIT))
     gcfg = junet.SkipConfig(**TINY_UNET)
@@ -119,9 +130,22 @@ def _port_trainer(setup, cfg):
                                   init_flat=torch.from_numpy(jflat))
 
 
-@pytest.mark.parametrize("step_idx,entire", [(1, False), (0, True)])
-def test_one_step_matches_jax_composition(setup, step_idx, entire):
-    cfg = _cfg(entire_A_every=75)
+@pytest.mark.parametrize("step_idx,entire,conv", [
+    pytest.param(1, False, "auto", id="1-False"),
+    pytest.param(0, True, "auto", id="0-True"),
+    pytest.param(1, False, "fused", id="1-False-fused"),
+    pytest.param(0, True, "fused", id="0-True-fused")])
+def test_one_step_matches_jax_composition(setup, step_idx, entire, conv,
+                                          monkeypatch):
+    """conv "fused": generator_conv="fused" in the port, its test hook
+    routing every BatchNorm consumer through the prologue kernels' plain
+    versions (the routes the card takes at its wide sites), against the
+    same JAX composition: deferring the BatchNorm apply changes the
+    generator's function by rounding only. The fused generator itself
+    meets the reference's conv_impl="fused" and its kernels in
+    tests/test_torch_generator_modes.py."""
+    monkeypatch.setattr(tunet, "FORCE_FUSED_KERNELS_ON_CPU", True)
+    cfg = _cfg(entire_A_every=75, generator_conv=conv)
     draws = ttrainer.StepDraws(structure=None, flip_B=False,
                                crops_A=(67.0, [2.0], [11.0]),
                                crops_B=(72.0, [5.0], [0.0]))
