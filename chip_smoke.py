@@ -12,7 +12,8 @@ Phases, each fatal on failure:
   3. run one regular and one entire-A step at a small size on the card
      (fp32, through the kernels) and on the CPU (plain path) from the same
      parameters and draws, and compare loss and gradient, for
-     generator_conv auto, fused and pallas;
+     generator_conv auto, fused and pallas, and fused and pallas with the
+     SAME-border route on (ops.conv.SAME_BORDER_KERNELS);
   4. the main path: train_pair on the cows pair at full width (896 canvas,
      dino_vitb8 with seeded random weights, 224 loss resolution, bf16) for
      12 steps including entire-A steps; every loss finite, every kernel of
@@ -22,16 +23,24 @@ Phases, each fatal on failure:
      entire-A step, each with its kernels launched and a profile:
      the 480-px loss resolution (3601 and 2701 tokens: split-tensor
      attention K5/K6), generator_conv=fused (K3'/K4' with the BatchNorm
-     prologue) and generator_conv=pallas (every conv on K3/K4, stride 2 at
-     k = 2);
-  7. the step time of generator_conv auto, fused and pallas at 224,
-     measured in turns.
+     prologue), generator_conv=pallas (every conv on K3/K4, stride 2 at
+     k = 2), and fused and pallas with the SAME-border route on (K3'' SAME,
+     K3''' in-kernel BatchNorm statistics, K7 cotangent-tapped dw), plus a
+     few fused SAME steps of a generator with 3x3 skip convs, the one
+     configuration whose fused sites reach K3'' SAME with a prologue and
+     without statistics;
+  7. the step time of generator_conv auto, fused and pallas, fused and
+     pallas with the SAME route, and fused with the SAME route but
+     ops.conv.DW_TAP_ON_N off (K4 for the dw that K7 takes otherwise: an
+     ablation of the reference's routing on this card), at 224, measured
+     in turns.
 Prints the kernels' numbers as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -42,10 +51,13 @@ import time
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 MAIN_STEPS = 12
-# (generator_conv, loss resolution, steps) of the other paths; step 0 is an
-# entire-A step and warms up, the rest are regular
-PATHS = (("480", "auto", 480, 3), ("fused", "fused", 224, 6),
-         ("pallas", "pallas", 224, 6))
+# (name, generator_conv, loss resolution, steps, SAME route) of the other
+# paths; step 0 is an entire-A step and warms up, the rest are regular
+PATHS = (("480", "auto", 480, 3, False), ("fused", "fused", 224, 6, False),
+         ("pallas", "pallas", 224, 6, False),
+         ("fused_same", "fused", 224, 6, True),
+         ("pallas_same", "pallas", 224, 6, True))
+SKIP3_STEPS = 3       # the fused SAME steps of the 3x3-skip generator
 
 
 def fail(msg: str) -> None:
@@ -369,6 +381,185 @@ def check_conv_s2d(torch, conv, rows):
         rows[name]["max_abs_err"] = errs[name]
 
 
+@contextlib.contextmanager
+def same_border(on: bool, tap_on_n: bool = True):
+    """ops.conv.SAME_BORDER_KERNELS set to `on` and DW_TAP_ON_N to
+    `tap_on_n` inside the block, both restored after it, whatever happens
+    there."""
+    from splice_tpu_torch.ops import conv
+    old = conv.SAME_BORDER_KERNELS, conv.DW_TAP_ON_N
+    conv.SAME_BORDER_KERNELS, conv.DW_TAP_ON_N = on, tap_on_n
+    try:
+        yield
+    finally:
+        conv.SAME_BORDER_KERNELS, conv.DW_TAP_ON_N = old
+
+
+def check_bitwise(torch, name, first, second) -> None:
+    """Two calls on the same input must agree bit for bit."""
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail(f"{name}: two calls on the same input differ")
+    print(f"  {name}: two calls bitwise equal")
+
+
+def check_stats(torch, conv, name, got, x, w, sc, sh, ns, rtol, why):
+    """K3''' (out, s1, s2) against its plain version; the sums also against
+    float64 sums of the kernel's own output. Returns the largest error."""
+    out, s1, s2 = got
+    p_out, p1, p2 = conv.conv_same_pro_stats_plain(x, w, sc, sh, ns)
+    err = compare(f"K3''' out {name}", out, p_out, rtol, why)
+    why_s = ("fp32 sums over up to 8e5 outputs per stack in another order; "
+             "outputs that round to the other bf16 neighbour")
+    err_s = max(compare(f"K3''' s1 {name}", s1, p1, RTOL["float32"][0], why_s),
+                compare(f"K3''' s2 {name}", s2, p2, RTOL["float32"][0], why_s))
+    o64 = conv.split_stacks(out, sc.shape[0]).double()
+    compare(f"K3''' s1 {name} vs float64 sums of its own output", s1,
+            o64.sum(dim=(1, 3, 4)), RTOL["float32"][0], "fp32 sums")
+    compare(f"K3''' s2 {name} vs float64 sums of its own output", s2,
+            o64.square().sum(dim=(1, 3, 4)), RTOL["float32"][0], "fp32 sums")
+    return max(err, err_s)
+
+
+# The sites the SAME route gives K3''/K3''' (fused: with the prologue and
+# the statistics) and, where _gtap_better says so, K7: (name, Cin, Cout,
+# width, negslope of the fused prologue, K7).
+SAME_SITES = (("down_conv2 s0", 16, 16, 448, 0.2, False),
+              ("up_conv s0", 36, 16, 896, 1.0, True),
+              ("up_conv s1", 68, 32, 448, 1.0, True))
+
+
+def check_conv_same(torch, conv, rows):
+    """K3'' SAME (plain and pro), K3''' and K7 at the SAME route's sites,
+    two BatchNorm stacks; K3''' and K7 twice on the same input. Times at
+    up_conv s0; the library yardsticks run on the normalised input (they
+    exclude the prologue): F.conv2d, F.conv2d plus the two per-stack sums
+    of its output for K3''', conv2d_weight for K7 (K4's time at the site
+    beside it: the same function contracted the other way round)."""
+    F = torch.nn.functional
+    dt, dtype_name = torch.bfloat16, "bfloat16"
+    rtol, why = RTOL[dtype_name]
+    gen = torch.Generator().manual_seed(7)
+    errs = {"conv_same": 0.0, "conv_same_pro": 0.0,
+            "conv_same_pro_stats": 0.0, "conv_dw_gtap": 0.0}
+    for name, cin, cout, hw, ns, gtap in SAME_SITES:
+        B, k = 2, 3
+        x = torch.randn(B, cin, hw, hw, generator=gen).to("cuda", dt)
+        w = (0.1 * torch.randn(k, k, cin, cout, generator=gen)).to("cuda", dt)
+        g = torch.randn(B, cout, hw, hw, generator=gen).to("cuda", dt)
+        sc = (0.5 + torch.rand(2, cin, generator=gen)).cuda()
+        sh = torch.randn(2, cin, generator=gen).cuda()
+        tag = f"{name} [{B},{cin},{hw},{hw}]->[{B},{cout},{hw},{hw}] ns={ns}"
+        errs["conv_same"] = max(errs["conv_same"], compare(
+            f"K3'' SAME {tag}", conv.conv_same_cuda(x, w),
+            conv.conv_same_plain(x, w), rtol, why))
+        errs["conv_same_pro"] = max(errs["conv_same_pro"], compare(
+            f"K3'' SAME pro {tag}", conv.conv_same_pro_cuda(x, w, sc, sh, ns),
+            conv.conv_same_plain(x, w, sc, sh, ns), rtol, why))
+        st = conv.conv_same_pro_stats_cuda(x, w, sc, sh, ns)
+        errs["conv_same_pro_stats"] = max(
+            errs["conv_same_pro_stats"],
+            check_stats(torch, conv, tag, st, x, w, sc, sh, ns, rtol, why))
+        check_bitwise(torch, f"K3''' {tag}", st,
+                      conv.conv_same_pro_stats_cuda(x, w, sc, sh, ns))
+        del st
+        if gtap:
+            for pro in (False, True):
+                a = (sc, sh, ns) if pro else (None, None, 1.0)
+                ptag = f"{tag}{' pro' if pro else ''}"
+                dw = conv.conv_dw_gtap_cuda(x, g, k, *a, 1)
+                errs["conv_dw_gtap"] = max(errs["conv_dw_gtap"], compare(
+                    f"K7 {ptag}", dw, conv.conv_dw_gtap_plain(x, g, k, *a, 1),
+                    RTOL["float32"][0], DW_WHY))
+                check_bitwise(torch, f"K7 {ptag}", (dw,),
+                              (conv.conv_dw_gtap_cuda(x, g, k, *a, 1),))
+        if name != "up_conv s0":
+            continue
+        isz = x.element_size()
+        flops = 2 * B * hw * hw * cout * cin * k * k
+        nbytes = (x.numel() + g.numel() + w.numel()) * isz
+        z = conv.prologue_plain(x, sc, sh, ns)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+
+        def conv_and_sums():
+            y = F.conv2d(z, w_oihw, padding=1).float().view(2, 1, cout, hw, hw)
+            return y.sum(dim=(1, 3, 4)), y.square().sum(dim=(1, 3, 4))
+
+        rows["conv_same"].update(timed(
+            lambda: conv.conv_same_cuda(x, w),
+            lambda: conv.conv_same_plain(x, w),
+            lambda: F.conv2d(x, w_oihw, padding=1), nbytes, flops,
+            dtype_name, "K3'' SAME", tag))
+        rows["conv_same_pro"].update(timed(
+            lambda: conv.conv_same_pro_cuda(x, w, sc, sh, ns),
+            lambda: conv.conv_same_plain(x, w, sc, sh, ns),
+            lambda: F.conv2d(z, w_oihw, padding=1), nbytes,
+            flops + 3 * x.numel(), dtype_name, "K3'' SAME pro", tag))
+        rows["conv_same_pro_stats"].update(timed(
+            lambda: conv.conv_same_pro_stats_cuda(x, w, sc, sh, ns),
+            lambda: conv.conv_same_pro_stats_plain(x, w, sc, sh, ns),
+            conv_and_sums, nbytes + 2 * 2 * cout * 4,
+            flops + 3 * x.numel() + 3 * g.numel(), dtype_name,
+            "K3''' (library: F.conv2d plus the two sums)", tag))
+        rows["conv_dw_gtap"].update(timed(
+            lambda: conv.conv_dw_gtap_cuda(x, g, k, None, None, 1.0, 1),
+            lambda: conv.conv_dw_gtap_plain(x, g, k, None, None, 1.0, 1),
+            lambda: torch.nn.grad.conv2d_weight(x, w_oihw.shape, g,
+                                                padding=1),
+            (x.numel() + g.numel()) * isz + w.numel() * 4, flops, dtype_name,
+            "K7", tag))
+        k4 = time_ms(lambda: conv.conv_dw_cuda(x, g, k, 1))
+        rows["conv_dw_gtap"]["k4_ms"] = k4
+        print(f"  time K4 at the same site (the x-tapped order): {k4:.4f} ms")
+    for name in errs:
+        rows[name]["max_abs_err"] = errs[name]
+
+
+def check_same_edge_cases(torch, conv):
+    """The SAME route off its paths' shapes: W = 37, Cout over two channel
+    chunks, H < k, two stacks with a scale of 1e-13 and a negative one
+    under the statistics, VALID-mode K7 (border 0 on a padded input) at
+    k = 3 and 2; bf16 and fp32."""
+    gen = torch.Generator().manual_seed(8)
+
+    def rnd(*shape, dt, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to("cuda", dt)
+
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        rtol, why = RTOL[dtype_name]
+        for h in (9, 2):
+            x = rnd(2, 20, h, 37, dt=dt)
+            w = rnd(3, 3, 20, 40, dt=dt, scale=0.2)
+            g = rnd(2, 40, h, 37, dt=dt)
+            sc = (0.5 + torch.rand(2, 20, generator=gen)).cuda()
+            sc[0, 3], sc[1, 5] = 1e-13, -0.7
+            sh = torch.randn(2, 20, generator=gen).cuda()
+            tag = f"[2,20,{h},37]->[2,40,{h},37] G=2 {dtype_name}"
+            compare(f"K3'' SAME {tag}", conv.conv_same_cuda(x, w),
+                    conv.conv_same_plain(x, w), rtol, why)
+            compare(f"K3'' SAME pro {tag}",
+                    conv.conv_same_pro_cuda(x, w, sc, sh, 0.2),
+                    conv.conv_same_plain(x, w, sc, sh, 0.2), rtol, why)
+            check_stats(torch, conv, tag,
+                        conv.conv_same_pro_stats_cuda(x, w, sc, sh, 0.2),
+                        x, w, sc, sh, 0.2, rtol, why)
+            for a in ((None, None, 1.0), (sc, sh, 0.2)):
+                compare(f"K7 SAME {tag}{'' if a[0] is None else ' pro'}",
+                        conv.conv_dw_gtap_cuda(x, g, 3, *a, 1),
+                        conv.conv_dw_gtap_plain(x, g, 3, *a, 1),
+                        RTOL["float32"][0], DW_WHY)
+        for k in (3, 2):
+            xp = rnd(2, 20, 11, 39, dt=dt)
+            g = rnd(2, 40, 12 - k, 40 - k, dt=dt)
+            tag = f"VALID k={k} [2,20,11,39] {dtype_name}"
+            compare(f"K7 {tag}", conv.conv_dw_gtap_cuda(xp, g, k),
+                    conv.conv_dw_gtap_plain(xp, g, k), RTOL["float32"][0],
+                    DW_WHY)
+            compare(f"K7 {tag} against K4", conv.conv_dw_gtap_cuda(xp, g, k),
+                    conv.conv_dw_cuda(xp, g, k), RTOL["float32"][0], DW_WHY)
+
+
 def check_edge_cases(torch, attn, conv):
     """Small shapes off the main paths: key masking (n_valid), N a multiple
     of the tiles, k = 1, fp32, Cout over two channel chunks, G = 2 rows,
@@ -463,27 +654,33 @@ def check_small_step(torch):
     vcfg = vit_lib.VitConfig(patch_size=8, embed_dim=128, depth=2,
                              num_heads=2, img_size=32)
     vparams = init_vit_params(vcfg, seed=5, device="cpu")
-    for mode in ("auto", "fused", "pallas"):
+
+    def losses_and_grads(cfg, dev):
+        pair = load_pair(cfg, device=torch.device(dev))
+        ext = ext_lib.VitExtractor(
+            params=tree_map(lambda t: t.to(dev), vparams), cfg=vcfg,
+            model_name="small")
+        tr = SpliceTrainer(cfg, pair, ext, seed=3)
+        gen = torch.Generator().manual_seed(11)
+        out = []
+        for step, entire in ((1, False), (2, True)):
+            draws = sample_step_draws(cfg, pair, gen)
+            total, _ = tr.loss(draws, lambdas_for_step(cfg, step), entire)
+            (grad,) = torch.autograd.grad(total, tr.flat)
+            out.append((total.item(), grad.cpu()))
+        return out
+
+    for mode, same in (("auto", False), ("fused", False), ("pallas", False),
+                       ("fused", True), ("pallas", True)):
+        label = mode + (" with the SAME route" if same else "")
         cfg = load_config(None, dict(
             dataroot="datasets/splicing/cows", A_resize=448, B_resize=448,
             seed=3, vit_compute_dtype="float32",
             generator_compute_dtype="float32", dino_global_patch_size=64,
             entire_A_every=2, generator_conv=mode))
-        results = {}
-        for dev in ("cuda", "cpu"):
-            pair = load_pair(cfg, device=torch.device(dev))
-            ext = ext_lib.VitExtractor(
-                params=tree_map(lambda t: t.to(dev), vparams), cfg=vcfg,
-                model_name="small")
-            tr = SpliceTrainer(cfg, pair, ext, seed=3)
-            gen = torch.Generator().manual_seed(11)
-            out = []
-            for step, entire in ((1, False), (2, True)):
-                draws = sample_step_draws(cfg, pair, gen)
-                total, _ = tr.loss(draws, lambdas_for_step(cfg, step), entire)
-                (grad,) = torch.autograd.grad(total, tr.flat)
-                out.append((total.item(), grad.cpu()))
-            results[dev] = out
+        with same_border(same):
+            results = {dev: losses_and_grads(cfg, dev)
+                       for dev in ("cuda", "cpu")}
         # Gradient tolerance: this gradient is ill-conditioned in fp32
         # itself. On the CPU the fp32 gradient of this step differs from a
         # float64 evaluation of the same code by 1.2e-3 relative L2 (8e-4 x
@@ -497,16 +694,17 @@ def check_small_step(torch):
             gerr = (gc - gp).abs().max().item()
             gtol = 5e-3 * gp.abs().max().item()
             grel = ((gc - gp).norm() / gp.norm()).item()
-            print(f"  small {what} step, generator_conv={mode} (448 canvas, "
+            print(f"  small {what} step, generator_conv={label} (448 canvas, "
                   f"fp32): loss card {lc:.6f} cpu {lp:.6f} rel {rel:.2e} "
                   f"(tol 1e-4); grad max_abs_err {gerr:.3e} (tol {gtol:.3e} "
                   f"= 5e-3 x max|grad|), relative L2 {grel:.2e} (tol 5e-3)")
             if not (rel <= 1e-4 and gerr <= gtol and grel <= 5e-3):
-                fail(f"small {what} step ({mode}): card and CPU disagree")
+                fail(f"small {what} step ({label}): card and CPU disagree")
 
 
 # Kernel names (substrings) of the port's own kernels in a profile.
-OUR_KERNELS = ("attn_fwd_kernel", "attn_bwd_", "conv_fwd_kernel", "conv_dw_")
+OUR_KERNELS = ("attn_fwd_kernel", "attn_bwd_", "conv_fwd_kernel", "conv_dw_",
+               "conv_stats_")
 
 
 def profile_steps(torch, trainer, cfg, n: int = 3) -> None:
@@ -551,60 +749,112 @@ def profile_steps(torch, trainer, cfg, n: int = 3) -> None:
         print(f"    {t:8.3f} ms  {100 * t / busy:5.1f}%  {k[:90]}")
 
 
-def steps_in_turns(torch, runs, n: int = 3, rounds: int = 3) -> None:
+def steps_in_turns(torch, runs, n: int = 3, rounds: int = 3) -> dict:
     """Host-clock wall time per regular step of each (label, trainer,
-    cfg) in `runs`, measured in turns (a b c c b a, `rounds` times, n steps
-    a turn) after one untimed step each: the host's noise falls on every
-    mode alike."""
+    cfg, SAME route, DW_TAP_ON_N) in `runs`, measured in turns (a b c c b
+    a, `rounds` times, n steps a turn) after one untimed step each: the
+    host's noise falls on every mode alike. Returns each label's K7
+    launches in its timed turns."""
     from splice_tpu_torch.losses import lambdas_for_step
+    from splice_tpu_torch.ops import conv
     from splice_tpu_torch.trainer import sample_step_draws
     gen = torch.Generator().manual_seed(2)
     lam = lambdas_for_step(runs[0][2], 5)
     times = {label: [] for label, *_ in runs}
+    k7 = dict.fromkeys(times, 0)
     order = list(runs) + list(reversed(runs))
     for r in range(rounds + 1):
-        for label, trainer, cfg in order if r else runs:
+        for label, trainer, cfg, same, tap_on_n in order if r else runs:
             draws = [sample_step_draws(cfg, trainer.pair, gen)
                      for _ in range(n if r else 1)]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for d in draws:
-                trainer.step(d, lam, False)
-            torch.cuda.synchronize()
+            conv.conv_dw_gtap_cuda.launches = 0
+            with same_border(same, tap_on_n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for d in draws:
+                    trainer.step(d, lam, False)
+                torch.cuda.synchronize()
             if r:
                 times[label].append((time.perf_counter() - t0) * 1e3 / n)
+                k7[label] += conv.conv_dw_gtap_cuda.launches
     for label, ts in times.items():
         ts = sorted(ts)
-        print(f"  generator_conv={label}: median "
+        print(f"  {label}: median "
               f"{ts[len(ts) // 2]:.2f} ms per regular step over "
               f"{len(ts)} turns of {n} (sorted: "
-              + ", ".join(f"{t:.2f}" for t in ts) + ")")
+              + ", ".join(f"{t:.2f}" for t in ts) + f"); K7 launches "
+              f"{k7[label]}")
+    return k7
 
 
-def run_path(torch, name, cfg, n_steps, kernels, need, **kw):
-    """train_pair with every launch count set to 0 just before and read
-    just after; fails on a non-finite loss or output, or when a kernel in
-    `need` was launched no time. Returns (result, launches)."""
+def read_launches(torch, kernels, name, need):
+    """The launch counts since they were set to 0; fails when a kernel in
+    `need` was launched no time on the path `name`."""
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, (fn, *_) in kernels.items()}
+    print(f"  launches in the {name} path: {launches}")
+    missing = [k for k in need if launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the {name} path: {missing}")
+    return launches
+
+
+def check_output(torch, name, out):
+    if tuple(out.shape) != (900, 1200, 3) or not torch.isfinite(out).all():
+        fail(f"{name}: bad output image {tuple(out.shape)}")
+
+
+def run_path(torch, name, cfg, n_steps, kernels, need, same=False, **kw):
+    """train_pair (with the SAME route if `same`) with every launch count
+    set to 0 just before and read just after; fails on a non-finite loss or
+    output, or when a kernel in `need` was launched no time. Returns
+    (result, launches)."""
     from splice_tpu_torch.trainer import train_pair
     for fn, *_ in kernels.values():
         fn.launches = 0
-    res = train_pair(cfg, n_steps=n_steps, **kw)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, (fn, *_) in kernels.items()}
+    with same_border(same):
+        res = train_pair(cfg, n_steps=n_steps, **kw)
+    launches = read_launches(torch, kernels, name, need)
     for i, (l, s) in enumerate(zip(res["losses"], res["step_seconds"])):
         print(f"  step {i:2d} {s * 1e3:9.2f} ms "
               + " ".join(f"{k}={v:.5f}" for k, v in l.items()))
     for i, l in enumerate(res["losses"]):
         if not all(math.isfinite(v) for v in l.values()):
             fail(f"{name}: non-finite loss at step {i}: {l}")
-    out = res["output"]
-    if tuple(out.shape) != (900, 1200, 3) or not torch.isfinite(out).all():
-        fail(f"{name}: bad output image {tuple(out.shape)}")
-    print(f"  launches in the {name} path: {launches}")
-    missing = [k for k in need if launches[k] == 0]
-    if missing:
-        fail(f"kernels never launched on the {name} path: {missing}")
+    check_output(torch, name, res["output"])
     return res, launches
+
+
+def run_skip3(torch, cfg, pair, extractor, kernels, need):
+    """SKIP3_STEPS fused steps (step 0 entire-A) with the SAME route of a
+    generator with 3x3 skip convs (SkipConfig(filter_skip_size=3), which
+    SpliceTrainer takes as the reference's build_program does), the counts
+    set to 0 just before and read just after. Its scale-1 skip conv reads
+    a pending BatchNorm at width 448 and feeds no statistics: the fused
+    site that reaches K3'' SAME with a prologue alone, which no site of the
+    default generator does (its down_conv2 and up_conv take K3''')."""
+    from splice_tpu_torch.losses import is_entire_step, lambdas_for_step
+    from splice_tpu_torch.models.unet import SkipConfig
+    from splice_tpu_torch.trainer import SpliceTrainer, sample_step_draws
+    for fn, *_ in kernels.values():
+        fn.launches = 0
+    gen = torch.Generator().manual_seed(0)
+    with same_border(True):
+        tr = SpliceTrainer(cfg, pair, extractor,
+                           gcfg=SkipConfig(filter_skip_size=3), seed=0)
+        for i in range(SKIP3_STEPS):
+            t0 = time.perf_counter()
+            parts = tr.step(sample_step_draws(cfg, pair, gen),
+                            lambdas_for_step(cfg, i), is_entire_step(cfg, i))
+            loss = {k: float(v.item()) for k, v in parts.items()}
+            print(f"  step {i:2d} {(time.perf_counter() - t0) * 1e3:9.2f} ms "
+                  + " ".join(f"{k}={v:.5f}" for k, v in loss.items()))
+            if not all(math.isfinite(v) for v in loss.values()):
+                fail(f"fused_same_skip3: non-finite loss at step {i}: {loss}")
+        out = tr.render()
+    launches = read_launches(torch, kernels, "fused_same_skip3", need)
+    check_output(torch, "fused_same_skip3", out)
+    return launches
 
 
 def main() -> int:
@@ -660,6 +910,16 @@ def main() -> int:
                            "splice_tpu/ops/conv_pallas.py:157", "pallas"),
         "conv_dw_s2d": (conv.conv_dw_s2d_cuda, "cuda", cnv,
                         "splice_tpu/ops/conv_pallas.py:401", "pallas"),
+        "conv_same": (conv.conv_same_cuda, "cuda", cnv,
+                      "splice_tpu/ops/conv_pallas.py:736", "pallas_same"),
+        "conv_same_pro": (conv.conv_same_pro_cuda, "cuda", cnv,
+                          "splice_tpu/ops/conv_pallas.py:770",
+                          "fused_same_skip3"),
+        "conv_same_pro_stats": (conv.conv_same_pro_stats_cuda, "cuda", cnv,
+                                "splice_tpu/ops/conv_pallas.py:817",
+                                "fused_same"),
+        "conv_dw_gtap": (conv.conv_dw_gtap_cuda, "cuda", cnv,
+                         "splice_tpu/ops/conv_pallas.py:455", "pallas_same"),
     }
     rows = {name: {} for name in kernels}
 
@@ -670,6 +930,9 @@ def main() -> int:
     check_conv_pro(torch, conv, rows)
     check_conv_s2d(torch, conv, rows)
     check_edge_cases(torch, attn, conv)
+    torch.cuda.empty_cache()
+    check_conv_same(torch, conv, rows)
+    check_same_edge_cases(torch, conv)
     torch.cuda.empty_cache()
     for name, r in rows.items():
         b, by = bound_ms(r["nbytes"], r["flops"], r["dtype"])
@@ -706,30 +969,62 @@ def main() -> int:
             "fused": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
                       "conv_valid_pro", "conv_dw_pro"),
             "pallas": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
-                       "conv_dw", "conv_valid_s2d", "conv_dw_s2d")}
-    turns = [("auto", res["trainer"], cfg)]
-    for i, (path, mode, res_px, n) in enumerate(PATHS):
-        print(f"phase 6.{i + 1}: the {path} path (generator_conv={mode}, "
-              f"{res_px}-px loss resolution), {n} steps")
+                       "conv_dw", "conv_valid_s2d", "conv_dw_s2d"),
+            # the reference's routes with SAME_BORDER_KERNELS on: K3''' at
+            # down_conv2 s0 and up_conv s0/s1, their dz by K3'' SAME, dw by
+            # K7 at up_conv s0/s1 and by K4 at down_conv2 (a tie in
+            # _gtap_better)
+            "fused_same": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
+                           "conv_valid_pro", "conv_dw_pro", "conv_same",
+                           "conv_same_pro_stats", "conv_dw_gtap"),
+            "pallas_same": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
+                            "conv_dw", "conv_valid_s2d", "conv_dw_s2d",
+                            "conv_same", "conv_dw_gtap"),
+            "fused_same_skip3": ("conv_same_pro", "conv_same_pro_stats",
+                                 "conv_dw_gtap")}
+    turns = [("auto", res["trainer"], cfg, False, True)]
+    for i, (path, mode, res_px, n, same) in enumerate(PATHS):
+        print(f"phase 6.{i + 1}: the {path} path (generator_conv={mode}"
+              f"{', SAME route' if same else ''}, {res_px}-px loss "
+              f"resolution), {n} steps")
         pcfg = load_config(None, dict(base, generator_conv=mode,
                                       dino_global_patch_size=res_px))
         torch.cuda.reset_peak_memory_stats()
         pres, launches[path] = run_path(torch, path, pcfg, n, kernels,
-                                        need[path], **shared)
+                                        need[path], same, **shared)
         secs = pres["step_seconds"]
         print(f"  steps/s (regular steps 1..{n - 1}): "
               f"{(n - 1) / sum(secs[1:]):.3f}; entire-A step 0 (warm-up): "
               f"{secs[0] * 1e3:.1f} ms; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_steps(torch, pres["trainer"], pcfg, 2 if res_px > 224 else 3)
+        with same_border(same):
+            profile_steps(torch, pres["trainer"], pcfg,
+                          2 if res_px > 224 else 3)
         if res_px == 224:
-            turns.append((mode, pres["trainer"], pcfg))
+            turns.append((path, pres["trainer"], pcfg, same, True))
+        if path == "fused_same":
+            # the same trainer with the reference's DW_TAP_ON_N off: K4
+            # takes up_conv s0/s1's dw instead of K7
+            print("  the same steps with DW_TAP_ON_N off (K4 for K7's dw):")
+            with same_border(True, False):
+                profile_steps(torch, pres["trainer"], pcfg)
+            turns.append(("fused_same_tap_off", pres["trainer"], pcfg, True,
+                          False))
         del pres
         torch.cuda.empty_cache()
+        if path == "fused_same":
+            print(f"phase 6.{i + 1}b: the fused_same_skip3 path (fused, SAME "
+                  f"route, 3x3 skip convs), {SKIP3_STEPS} steps")
+            launches["fused_same_skip3"] = run_skip3(
+                torch, pcfg, shared["pair"], shared["extractor"], kernels,
+                need["fused_same_skip3"])
+            torch.cuda.empty_cache()
 
     print("phase 7: generator_conv " + ", ".join(t[0] for t in turns)
           + " at 224, in turns")
-    steps_in_turns(torch, turns)
+    k7 = steps_in_turns(torch, turns)
+    if k7["fused_same_tap_off"] or not k7["fused_same"]:
+        fail(f"DW_TAP_ON_N did not route K7 as it says: {k7}")
 
     line = []
     for name, (fn, route, source, replaces, path) in kernels.items():

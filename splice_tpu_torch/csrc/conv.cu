@@ -29,6 +29,33 @@
 // does) and at k in {1, 2, 3}:
 // dw[dy,dx,c,co] = sum over b,y,x of V[b,c,y+dy,x+dx] * g[b,co,y,x].
 //
+// The SAME-border forms (the reference's SAME_BORDER_KERNELS route) are
+// these kernels with the border (k-1)/2 of an odd k:
+// K3'' conv_same_chw :736 / conv_same_pro_chw :770, and K4's same=True
+// form (_dw_impl :663-666). The reference pre-pads rows (with the
+// prologue's pre-image under a prologue) and masks columns in the kernel;
+// here the border is V's implicit zero in both directions.
+// K3''' replaces the stats_ho form of _make_conv_kernel (:223-246,
+// conv_same_pro_stats_chw :817): K3 with an optional epilogue that adds up
+// each output value after its cast to the output type, and its square, per
+// channel and BatchNorm stack. The TPU kernel carried one accumulator
+// across its sequential grid; here each block writes its tile's sums to
+// scratch and conv_stats_reduce_kernel adds the tiles of each stack in a
+// fixed order (no atomics: a seeded run repeats bit for bit).
+// K7 conv_dw_gtap replaces _make_dw_kernel_gtap (:455, launched by
+// _dw_gtap_impl :522): the same dw contracted the other way round, by
+// tapping the cotangent instead of the input,
+//   dw[K-1-dy', K-1-dx', c, co] = sum over b,r,c' of V[b,c,r,c'] *
+//                                 g[b,co, r-(K-1)+dy', c'-(K-1)+dx'],
+// over V's rows and columns, with g zero outside its extent (the
+// reference's top/left pad of g by K-1, :549-560). V's implicit border
+// makes the reference's two modes one formula: SAME is the border (K-1)/2
+// on x, VALID the border 0 on a fully padded x. Output [Cin, K*K*Cout],
+// tap-major; the wrapper reverses the taps (:611-612). The reference chose
+// this order for fewer MXU passes (_gtap_better); on CUDA cores it is the
+// same count of multiply-adds as K4 and the routing only follows the
+// reference.
+//
 // What is kept from the TPU kernels: each input element is read from device
 // memory once per output-channel chunk and each output written once; the
 // normalised tensor z and the phase image are never materialised; the
@@ -53,6 +80,12 @@
 // with its k*k tap sums, and writes its partial sums to an fp32 scratch
 // [chunks, k*k*Cin*Cout]. Pass 2 adds the chunks in a fixed order: no
 // atomics, so a seeded run repeats bit for bit.
+// K7 design: as K4, but the chunks split V's rows, the input tile has no
+// halo and the cotangent tile carries it (K-1 rows above, K-1 columns to
+// the left); each thread owns one ci and the K*K (tap, co) accumulators of
+// its co, so one value of z feeds K*K multiply-adds from shared memory.
+// It reuses K4's pass 2. Bound like K3/K4: fp32 CUDA-core arithmetic, far
+// above the bytes it must move.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,8 +152,8 @@ constexpr int CB = 8;    // virtual input channels per smem chunk
 template <typename T, int COB>
 __global__ void __launch_bounds__(NT)
 conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                T* __restrict__ y, Src src, int Cin, int Cout, int Ho,
-                int Wo, int k, int n_co) {
+                T* __restrict__ y, float* __restrict__ st_part, Src src,
+                int Cin, int Cout, int Ho, int Wo, int k, int n_co) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int kk = k * k;
@@ -172,18 +205,69 @@ conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
     }
   }
   const int oy = y0 + ty, ox = x0 + tx;
-  if (oy < Ho && ox < Wo) {
+  const bool valid = oy < Ho && ox < Wo;
+  if (valid) {
 #pragma unroll
     for (int c = 0; c < COB; ++c)
       if (co0 + c < Cout)
         y[(((size_t)b * Cout + co0 + c) * Ho + oy) * Wo + ox] = from_f<T>(acc[c]);
   }
+  if (st_part == nullptr) return;
+  // K3''' epilogue: this tile's (sum, sum of squares) of the stored (cast)
+  // outputs, per channel: warp shuffles, then the 8 warps in order.
+  __syncthreads();                        // smem is free again
+  float* red = smem;                      // [NT/32][2][COB]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int c = 0; c < COB; ++c) {
+    const float v = valid ? to_f<T>(from_f<T>(acc[c])) : 0.f;
+    float s = v, q = v * v;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      q += __shfl_xor_sync(0xffffffffu, q, o);
+    }
+    if (lane == 0) {
+      red[(warp * 2 + 0) * COB + c] = s;
+      red[(warp * 2 + 1) * COB + c] = q;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * COB) {
+    const int which = threadIdx.x / COB, c = threadIdx.x % COB;
+    float t = 0.f;
+    for (int i = 0; i < NT / 32; ++i) t += red[(i * 2 + which) * COB + c];
+    const size_t tile = ((size_t)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    if (co0 + c < Cout) st_part[(tile * 2 + which) * Cout + co0 + c] = t;
+  }
+}
+
+// K3''' pass 2: stats[g][which][co] = sum of the tiles of stack g (its
+// images' tiles are contiguous in st_part), in a fixed order: each thread
+// a strided run, then a tree over the block.
+__global__ void __launch_bounds__(NT)
+conv_stats_reduce_kernel(const float* __restrict__ st_part,
+                         float* __restrict__ stats, int tiles_per_group,
+                         int Cout) {
+  __shared__ float red[NT];
+  const int o = blockIdx.x;               // (g * 2 + which) * Cout + co
+  const int g = o / (2 * Cout);
+  const float* p = st_part + (size_t)g * tiles_per_group * 2 * Cout + o % (2 * Cout);
+  float s = 0.f;
+  for (int t = threadIdx.x; t < tiles_per_group; t += NT) s += p[(size_t)t * 2 * Cout];
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int h = NT / 2; h > 0; h >>= 1) {
+    if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) stats[o] = red[0];
 }
 
 template <typename T, int COB>
-int launch_fwd_cob(const void* x, const void* w, void* y, const Src& src,
-                   int B, int Cout, int Ho, int Wo, int k,
-                   cudaStream_t stream) {
+int launch_fwd_cob(const void* x, const void* w, void* y, float* st_part,
+                   float* stats, const Src& src, int B, int Cout, int Ho,
+                   int Wo, int k, cudaStream_t stream) {
   const int Cin = src.stride * src.stride * src.cin;
   const int n_co = (Cout + COB - 1) / COB;
   const size_t smem =
@@ -197,18 +281,27 @@ int launch_fwd_cob(const void* x, const void* w, void* y, const Src& src,
   dim3 grid((Wo + TW - 1) / TW, (Ho + TH - 1) / TH, B * n_co);
   conv_fwd_kernel<T, COB><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      src, Cin, Cout, Ho, Wo, k, n_co);
+      st_part, src, Cin, Cout, Ho, Wo, k, n_co);
+  int err = (int)cudaGetLastError();
+  if (err || st_part == nullptr) return err;
+  const int groups = B / src.per_group;
+  conv_stats_reduce_kernel<<<groups * 2 * Cout, NT, 0, stream>>>(
+      st_part, stats, src.per_group * grid.x * grid.y, Cout);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_fwd(const void* x, const void* w, void* y, const Src& src, int B,
-               int Cout, int Ho, int Wo, int k, cudaStream_t stream) {
+int launch_fwd(const void* x, const void* w, void* y, float* st_part,
+               float* stats, const Src& src, int B, int Cout, int Ho, int Wo,
+               int k, cudaStream_t stream) {
   if (Cout <= 8)
-    return launch_fwd_cob<T, 8>(x, w, y, src, B, Cout, Ho, Wo, k, stream);
+    return launch_fwd_cob<T, 8>(x, w, y, st_part, stats, src, B, Cout, Ho,
+                                Wo, k, stream);
   if (Cout <= 16)
-    return launch_fwd_cob<T, 16>(x, w, y, src, B, Cout, Ho, Wo, k, stream);
-  return launch_fwd_cob<T, 32>(x, w, y, src, B, Cout, Ho, Wo, k, stream);
+    return launch_fwd_cob<T, 16>(x, w, y, st_part, stats, src, B, Cout, Ho,
+                                 Wo, k, stream);
+  return launch_fwd_cob<T, 32>(x, w, y, st_part, stats, src, B, Cout, Ho, Wo,
+                               k, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -336,6 +429,114 @@ int launch_dw(const void* x, const void* g, float* partial, float* dw,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K7 pass 1: the cotangent-tapped weight gradient.
+// partial[chunk][ci][t'][co], t' = dy'*K + dx', over the chunk's rows r of V:
+//   sum over r, c of V[b,ci,r,c] * g[b,co, r-(K-1)+dy', c-(K-1)+dx']
+// (g zero outside [0,Ho) x [0,Wo)); term t' is dw's tap (K-1-dy', K-1-dx').
+// ---------------------------------------------------------------------------
+template <typename T, int K>
+__global__ void __launch_bounds__(NT)
+conv_dw_gtap_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                    float* __restrict__ partial, Src src, int Cin, int Cout,
+                    int Ho, int Wo, int rows_per_chunk, int chunks_per_image,
+                    int cib, int cob) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int GH = DR + K - 1, GW = DW + K - 1;
+  constexpr int GS = (GH * GW) | 1;       // odd stride: distinct banks
+  float* zs = smem;                       // [cib][DR*DW]
+  float* gs = smem + cib * DR * DW;       // [cob][GS], rows GH x GW
+  const int Hv = Ho + K - 1, Wv = Wo + K - 1;
+
+  const int chunk = blockIdx.x;
+  const int b = chunk / chunks_per_image;
+  const int r0 = (chunk % chunks_per_image) * rows_per_chunk;
+  const int r1 = min(r0 + rows_per_chunk, Hv);
+  const int ci0 = blockIdx.y * cib, co0 = blockIdx.z * cob;
+  const int col = threadIdx.x % cob, cil = threadIdx.x / cob;
+
+  float acc[K * K];
+#pragma unroll
+  for (int t = 0; t < K * K; ++t) acc[t] = 0.f;
+
+  for (int ty0 = r0; ty0 < r1; ty0 += DR) {
+    for (int tx0 = 0; tx0 < Wv; tx0 += DW) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < cib * DR * DW; i += NT) {
+        const int c = i / (DR * DW), p = i % (DR * DW);
+        const int r = ty0 + p / DW, cc = tx0 + p % DW;
+        // rows past r1 belong to the next chunk and must not count here
+        zs[i] = (ci0 + c < Cin && r < r1 && cc < Wv)
+            ? load_v(x, src, b, ci0 + c, r, cc) : 0.f;
+      }
+      for (int i = threadIdx.x; i < cob * GH * GW; i += NT) {
+        const int o = i / (GH * GW), rem = i % (GH * GW);
+        const int co = co0 + o;
+        const int gr = ty0 - (K - 1) + rem / GW, gc = tx0 - (K - 1) + rem % GW;
+        float v = 0.f;
+        if (co < Cout && gr >= 0 && gr < Ho && gc >= 0 && gc < Wo)
+          v = to_f<T>(g[(((size_t)b * Cout + co) * Ho + gr) * Wo + gc]);
+        gs[o * GS + rem] = v;
+      }
+      __syncthreads();
+      const float* zc = zs + cil * DR * DW;
+      const float* gt = gs + col * GS;
+      for (int p = 0; p < DR * DW; ++p) {
+        const int r = p / DW, c = p % DW;
+        const float zv = zc[p];
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx)
+            acc[dy * K + dx] = fmaf(zv, gt[(r + dy) * GW + c + dx], acc[dy * K + dx]);
+      }
+    }
+  }
+  const int ci = ci0 + cil, co = co0 + col;
+  if (ci < Cin && co < Cout) {
+    float* out = partial + (size_t)chunk * Cin * K * K * Cout;
+#pragma unroll
+    for (int t = 0; t < K * K; ++t) out[((size_t)ci * K * K + t) * Cout + co] = acc[t];
+  }
+}
+
+template <typename T, int K>
+int launch_dw_gtap_k(const void* x, const void* g, float* partial, float* dw,
+                     const Src& src, int B, int Cout, int Ho, int Wo,
+                     int rows_per_chunk, cudaStream_t stream) {
+  const int Cin = src.cin;
+  const int cob = Cout <= 8 ? 8 : (Cout <= 16 ? 16 : 32);
+  const int cib = NT / cob;
+  const int chunks_per_image = (Ho + K - 1 + rows_per_chunk - 1) / rows_per_chunk;
+  const int n_chunks = B * chunks_per_image;
+  constexpr int GS = ((DR + K - 1) * (DW + K - 1)) | 1;
+  const size_t smem = sizeof(float) * (cib * DR * DW + cob * GS);
+  dim3 grid(n_chunks, (Cin + cib - 1) / cib, (Cout + cob - 1) / cob);
+  conv_dw_gtap_kernel<T, K><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), partial, src, Cin,
+      Cout, Ho, Wo, rows_per_chunk, chunks_per_image, cib, cob);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int n_out = K * K * Cin * Cout;
+  conv_dw_reduce_kernel<<<(n_out + NT - 1) / NT, NT, 0, stream>>>(
+      partial, dw, n_out, n_chunks);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dw_gtap(const void* x, const void* g, float* partial, float* dw,
+                   const Src& src, int B, int Cout, int Ho, int Wo, int k,
+                   int rows_per_chunk, cudaStream_t stream) {
+  switch (k) {
+    case 2: return launch_dw_gtap_k<T, 2>(x, g, partial, dw, src, B, Cout, Ho,
+                                          Wo, rows_per_chunk, stream);
+    case 3: return launch_dw_gtap_k<T, 3>(x, g, partial, dw, src, B, Cout, Ho,
+                                          Wo, rows_per_chunk, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 Src make_src(const float* scale, const float* shift, int B, int Cin, int H,
              int W, int pad, int stride, int groups, float negslope) {
   return {Cin, H, W, pad, stride, scale, shift, B / groups, negslope};
@@ -343,21 +544,53 @@ Src make_src(const float* scale, const float* shift, int B, int Cin, int H,
 
 }  // namespace
 
+// The rows of K3''' scratch (one per output tile) that conv_valid_fwd
+// needs for a [B, Cout, Ho, Wo] output.
+extern "C" int conv_stats_scratch_tiles(int B, int Ho, int Wo) {
+  return B * ((Ho + TH - 1) / TH) * ((Wo + TW - 1) / TW);
+}
+
 // dtype: 0 = float32, 1 = bfloat16. x [B,Cin,H,W]; scale/shift: fp32
 // [groups, Cin] or null (no prologue); stride 1 or 2; w [k,k,s*s*Cin,Cout]
 // in x's type; y [B,Cout,Ho,Wo] with Ho + k - 1 <= (H + 2pad) / stride
-// rounded up, and likewise Wo.
+// rounded up, and likewise Wo. st_part/stats: null, or (K3''') fp32
+// scratch [conv_stats_scratch_tiles(B, Ho, Wo), 2, Cout] and the output
+// [groups, 2, Cout]: per BatchNorm stack the sum and the sum of squares of
+// y.
 extern "C" int conv_valid_fwd(const void* x, const void* w, void* y,
                               const float* scale, const float* shift, int B,
                               int Cin, int H, int W, int Cout, int Ho, int Wo,
                               int k, int pad, int stride, int groups,
-                              float negslope, int dtype, void* stream) {
+                              float negslope, float* st_part, float* stats,
+                              int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Src src = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
                            negslope);
   return dtype == 1
-      ? launch_fwd<__nv_bfloat16>(x, w, y, src, B, Cout, Ho, Wo, k, s)
-      : launch_fwd<float>(x, w, y, src, B, Cout, Ho, Wo, k, s);
+      ? launch_fwd<__nv_bfloat16>(x, w, y, st_part, stats, src, B, Cout, Ho,
+                                  Wo, k, s)
+      : launch_fwd<float>(x, w, y, st_part, stats, src, B, Cout, Ho, Wo, k,
+                          s);
+}
+
+// K7. x, scale, shift, pad, groups, negslope: as conv_valid_fwd at stride
+// 1; g [B,Cout,Ho,Wo] in x's type; partial: fp32 scratch
+// [B*ceil((Ho+k-1)/rows_per_chunk), Cin*k*k*Cout]; dw: fp32 [Cin, k*k*Cout]
+// with tap t' = dy'*k + dx' holding dw's tap (k-1-dy', k-1-dx') (the
+// caller reverses). k in {2, 3}.
+extern "C" int conv_dw_gtap(const void* x, const void* g, float* partial,
+                            float* dw, const float* scale, const float* shift,
+                            int B, int Cin, int H, int W, int Cout, int Ho,
+                            int Wo, int k, int pad, int groups, float negslope,
+                            int rows_per_chunk, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Src src = make_src(scale, shift, B, Cin, H, W, pad, 1, groups,
+                           negslope);
+  return dtype == 1
+      ? launch_dw_gtap<__nv_bfloat16>(x, g, partial, dw, src, B, Cout, Ho, Wo,
+                                      k, rows_per_chunk, s)
+      : launch_dw_gtap<float>(x, g, partial, dw, src, B, Cout, Ho, Wo, k,
+                              rows_per_chunk, s);
 }
 
 // x, scale, shift, pad, stride, groups, negslope: as conv_valid_fwd.

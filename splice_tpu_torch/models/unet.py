@@ -26,8 +26,10 @@ import torch.nn.functional as F
 
 from splice_tpu_torch import resolve_device
 from splice_tpu_torch.config import GENERATOR_CONVS
+from splice_tpu_torch.ops import conv as conv_ops
 from splice_tpu_torch.ops.conv import (kernel_conv_bn_act_chw,
-                                        kernel_conv_chw, split_stacks)
+                                        kernel_conv_chw, split_stacks,
+                                        stack_sums, wide)
 from splice_tpu_torch.utils.tree import tree_map
 
 # The "auto" per-site rule: stride-1 k>=3 convs at least this wide with
@@ -114,19 +116,20 @@ def upsample2x_chw(x: torch.Tensor, method: str) -> torch.Tensor:
 
 def _affine(mean, ex2, p, eps):
     var = torch.clamp(ex2 - torch.square(mean), min=0.0)
-    inv = torch.rsqrt(var + eps) * p["scale"].float()
-    return inv, p["bias"].float() - mean * inv
+    inv = torch.rsqrt(var + eps) * wide(p["scale"])
+    return inv, wide(p["bias"]) - mean * inv
 
 
 def bn_affine_chw(x: torch.Tensor, p: Dict[str, torch.Tensor],
                   groups: int = 1, eps: float = 1e-5
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Train-mode BatchNorm of each of `groups` equal batch slices as fp32
-    (scale, shift) rows [groups, C]: single-pass statistics (mean and
-    E[x^2] over B, H, W of the slice)."""
+    (float64 for float64 x) (scale, shift) rows [groups, C]: single-pass
+    statistics (mean and E[x^2] over B, H, W of the slice)."""
     xs = split_stacks(x, groups)
-    mean = xs.mean(dim=(1, 3, 4), dtype=torch.float32)
-    ex2 = torch.square(xs.float()).mean(dim=(1, 3, 4))
+    mean = xs.mean(dim=(1, 3, 4), dtype=torch.promote_types(x.dtype,
+                                                            torch.float32))
+    ex2 = torch.square(wide(xs)).mean(dim=(1, 3, 4))
     return _affine(mean, ex2, p, eps)
 
 
@@ -136,13 +139,6 @@ def bn_affine_from_sums(s1: torch.Tensor, s2: torch.Tensor, count: int,
     """bn_affine_chw from per-stack fp32 sums of x and x^2 over `count`
     pixels each (the reference's :420-434)."""
     return _affine(s1 / count, s2 / count, p, eps)
-
-
-def channel_sums(x: torch.Tensor, groups: int = 1
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-stack, per-channel fp32 (sum, sum of squares) [groups, C]."""
-    xs = split_stacks(x.float(), groups)
-    return xs.sum(dim=(1, 3, 4)), torch.square(xs).sum(dim=(1, 3, 4))
 
 
 def apply_affine(x: torch.Tensor, scale: torch.Tensor,
@@ -222,8 +218,11 @@ def _fused_forward(params, cfg: SkipConfig, x: torch.Tensor, groups: int,
     input read (kernel_conv_bn_act_chw: K3'/K4' pro) and the normalised
     tensor is never stored. Elsewhere the pending BN is materialised and
     the conv takes the auto rule. post_bn's statistics come from per-branch
-    sums. All statistics are per stack ([groups, C]). Returns the out_conv
-    output."""
+    sums. All statistics are per stack ([groups, C]). With
+    conv_ops.SAME_BORDER_KERNELS on (read at call time), the fused 3x3
+    stride-1 sites that feed a BatchNorm (down_conv2, up_conv) take their
+    statistics from the conv itself (K3''', pend_conv and :588-600).
+    Returns the out_conv output."""
     negslope = {"LeakyReLU": 0.2, "none": 1.0}[cfg.act_fun]
 
     def fuse_worthwhile(t, stride):
@@ -253,6 +252,29 @@ def _fused_forward(params, cfg: SkipConfig, x: torch.Tensor, groups: int,
             return conv_plain(materialize(src), p, stride)
         return conv_plain(src, p, stride)
 
+    def same_stats(k):
+        return (k > 1 and cfg.pad != "reflection"
+                and conv_ops.SAME_BORDER_KERNELS)
+
+    def pend_with_stats(src, p, bn_p, ns):
+        """The fused SAME conv of a pending src, its BatchNorm pending from
+        the kernel's own per-stack sums over (B/G)*H*W pixels each."""
+        raw, sc, sh = src
+        out, s1, s2 = kernel_conv_bn_act_chw(raw, p, sc, sh, 1, cfg.pad, ns,
+                                             True)
+        count = out.shape[0] // groups * out.shape[2] * out.shape[3]
+        return (out, *bn_affine_from_sums(s1, s2, count, bn_p))
+
+    def pend_conv(src, p, stride, bn_p):
+        """Port of pend_conv (:536-552): conv then a pending BN, the
+        statistics from the conv where the site takes the fused SAME
+        kernel."""
+        if (isinstance(src, tuple) and stride == 1
+                and same_stats(p["kernel"].shape[0])
+                and fuse_worthwhile(src[0], stride)):
+            return pend_with_stats(src, p, bn_p, negslope)
+        return pend(conv_from(src, p, stride), bn_p)
+
     def scale_fn(i: int, xin):
         """xin: raw tensor or pending; returns a pending (raw, sc, sh)."""
         sp = params["scales"][i]
@@ -261,7 +283,7 @@ def _fused_forward(params, cfg: SkipConfig, x: torch.Tensor, groups: int,
             s_raw = conv_from(xin, sp["skip_conv"], 1)
             branches.append(materialize(pend(s_raw, sp["skip_bn"])))
         d1 = pend(conv_from(xin, sp["down_conv1"], 2), sp["down_bn1"])
-        d2 = pend(conv_from(d1, sp["down_conv2"], 1), sp["down_bn2"])
+        d2 = pend_conv(d1, sp["down_conv2"], 1, sp["down_bn2"])
         inner = scale_fn(i + 1, d2) if i < cfg.n_scales - 1 else d2
         branches.append(upsample2x_chw(materialize(inner),
                                        cfg.upsample_mode))
@@ -270,14 +292,17 @@ def _fused_forward(params, cfg: SkipConfig, x: torch.Tensor, groups: int,
         # into the up conv. Its statistics are channel sums (the
         # reference's per-branch sums, concatenated, are the same numbers).
         count = y.shape[0] // groups * y.shape[2] * y.shape[3]
-        pb_sc, pb_sh = bn_affine_from_sums(*channel_sums(y, groups), count,
+        pb_sc, pb_sh = bn_affine_from_sums(*stack_sums(y, groups), count,
                                            sp["post_bn"])
-        if fuse_worthwhile(y, 1):
-            y1 = kernel_conv_bn_act_chw(y, sp["up_conv"], pb_sc, pb_sh, 1,
-                                        cfg.pad, 1.0)
+        if not fuse_worthwhile(y, 1):
+            y1p = pend(conv_plain(apply_affine(y, pb_sc, pb_sh),
+                                  sp["up_conv"], 1), sp["up_bn"])
+        elif same_stats(sp["up_conv"]["kernel"].shape[0]):
+            y1p = pend_with_stats((y, pb_sc, pb_sh), sp["up_conv"],
+                                  sp["up_bn"], 1.0)
         else:
-            y1 = conv_plain(apply_affine(y, pb_sc, pb_sh), sp["up_conv"], 1)
-        y1p = pend(y1, sp["up_bn"])
+            y1p = pend(kernel_conv_bn_act_chw(y, sp["up_conv"], pb_sc, pb_sh,
+                                              1, cfg.pad, 1.0), sp["up_bn"])
         if not cfg.need1x1_up:
             return y1p
         return pend(conv_from(y1p, sp["up1x1_conv"], 1), sp["up1x1_bn"])

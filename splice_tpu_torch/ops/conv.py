@@ -18,10 +18,27 @@ replacing _make_conv_kernel and _make_dw_kernel), in three forms each:
 A stride-2 conv with a prologue is the pro form at stride 2. One autograd
 Function, ConvValidPro, carries all of them.
 
+With the reference's SAME_BORDER_KERNELS on (below), stride-1 zero-border
+convs of odd k > 1 take the SAME route instead (ConvValidPro with `same`:
+conv_same_chw :735-766, conv_same_pro_chw :769-813, conv_same_pro_stats_chw
+:816-848):
+  * K3'' SAME: K3 with the border (k-1)//2, plain or pro (conv_same_cuda,
+    conv_same_pro_cuda). The reference pre-pads rows (under a prologue with
+    its pre-image v = -shift/scale, :931-937) and masks columns inside its
+    kernel; here the border is K3's implicit zero of z in both directions,
+    exact where the reference's v rows are exact up to rounding;
+  * K3''' stats: the pro form that also returns each BatchNorm stack's fp32
+    sum and sum of squares of the cast output (conv_same_pro_stats_cuda);
+  * the weight gradient as the reference routes it (_dw_impl :647): K7, the
+    cotangent-tapped form (conv_dw_gtap_cuda, replacing
+    _make_dw_kernel_gtap :455), where DW_TAP_ON_N and _gtap_better say so,
+    else K4 with the border.
+
 On CPU tensors the same functions run their plain PyTorch versions below,
 which materialise what the kernels' input read sees (virtual_input_plain)
-and repeat their arithmetic. A CUDA tensor launches the kernel or raises;
-there is no fallback.
+and repeat their arithmetic (fp32 accumulation; a float64 input stays
+float64, so the CPU checks can run a whole generator in float64). A CUDA
+tensor launches the kernel or raises; there is no fallback.
 
 The zero border under a prologue holds zeros of z. The reference gets them
 by padding x with the prologue's pre-image v = -shift/scale (conv_pallas.py
@@ -44,6 +61,29 @@ from splice_tpu_torch.ops import _build
 _DW_CHUNKS = 256
 _DW_ROW_TILE = 4          # rows per shared-memory tile in K4 (csrc DR)
 
+# The reference's module constants (conv_pallas.py:41, :627), read at call
+# time through this module. SAME_BORDER_KERNELS routes stride-1 zero-border
+# convs of odd k > 1 through the SAME-border forms; DW_TAP_ON_N lets their
+# weight gradient take K7 where _gtap_better says so (chip_smoke's phase 7
+# also times the fused SAME route with it off: K4 at those sites).
+SAME_BORDER_KERNELS = False
+DW_TAP_ON_N = True
+
+
+def _gtap_better(k: int, cin: int, cout: int) -> bool:
+    """Pick the dw form with fewer MXU output-tile passes (ties keep the
+    x-tapped form — it skips the z lane mask and has the larger install
+    base)."""
+    xtap = -(-(k * k * cin) // 128) * -(-cout // 128)
+    gtap = -(-cin // 128) * -(-(k * k * cout) // 128)
+    return gtap < xtap
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """t in the plain versions' accumulation type: fp32, or float64 for a
+    float64 t."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path; the card's comparison)
@@ -59,7 +99,7 @@ def conv_valid_plain(x: torch.Tensor, w: torch.Tensor,
     if pad:
         x = F.pad(x, (pad, pad, pad, pad))
     ho, wo = x.shape[2] - k + 1, x.shape[3] - k + 1
-    xf, wf = x.float(), w.float()
+    xf, wf = wide(x), wide(w)
     out = None
     for dy in range(k):
         for dx in range(k):
@@ -73,7 +113,7 @@ def conv_dw_plain(xp: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     """dw[dy, dx, ci, co] = sum_{b,y,x} xp[b,ci,y+dy,x+dx] g[b,co,y,x] in
     fp32 -> [k, k, Cin, Cout] fp32."""
     ho, wo = g.shape[2], g.shape[3]
-    xf, gf = xp.float(), g.float()
+    xf, gf = wide(xp), wide(g)
     return torch.stack([
         torch.stack([torch.einsum("bihw,bohw->io",
                                   xf[:, :, dy:dy + ho, dx:dx + wo], gf)
@@ -96,7 +136,7 @@ def prologue_plain(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                    negslope: float) -> torch.Tensor:
     """z = leaky_ns(x*scale + shift) in fp32, rounded to x's type; batch
     stack i (of scale.shape[0]) uses row i of scale/shift."""
-    xs = split_stacks(x, scale.shape[0]).float()
+    xs = wide(split_stacks(x, scale.shape[0]))
     z = xs * _rows(scale) + _rows(shift)
     if negslope != 1.0:
         z = torch.where(z >= 0, z, z * negslope)
@@ -144,6 +184,51 @@ def conv_dw_pro_plain(x, g, k: int, scale, shift, negslope: float = 1.0,
         x, k, tuple(g.shape[2:]), pad, stride, scale, shift, negslope), g, k)
 
 
+def conv_same_plain(x, w, scale=None, shift=None, negslope: float = 1.0):
+    """K3'' plain: the SAME conv of an odd k (zero border (k-1)//2 of z),
+    with the prologue when scale is given."""
+    return conv_valid_pro_plain(x, w, scale, shift, negslope,
+                                (w.shape[0] - 1) // 2)
+
+
+def stack_sums(y: torch.Tensor, groups: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-stack, per-channel fp32 (sum, sum of squares) [groups, C]."""
+    ys = wide(split_stacks(y, groups))
+    return ys.sum(dim=(1, 3, 4)), torch.square(ys).sum(dim=(1, 3, 4))
+
+
+def conv_same_pro_stats_plain(x, w, scale, shift, negslope: float = 1.0):
+    """K3''' plain: the SAME pro conv, then the fp32 sums of its cast output
+    per stack: (out, s1 [G, Cout], s2 [G, Cout])."""
+    out = conv_same_plain(x, w, scale, shift, negslope)
+    return (out, *stack_sums(out, scale.shape[0]))
+
+
+def _reverse_taps(dwt: torch.Tensor, k: int) -> torch.Tensor:
+    """[Cin, k*k*Cout] tapped at (dy', dx') -> [k, k, Cin, Cout] with
+    dy = k-1-dy', dx = k-1-dx' (conv_pallas.py:611-612)."""
+    return dwt.reshape(dwt.shape[0], k, k, -1).permute(1, 2, 0, 3) \
+        .flip((0, 1))
+
+
+def conv_dw_gtap_plain(x, g, k: int, scale=None, shift=None,
+                       negslope: float = 1.0, pad: int = 0):
+    """K7 plain: the virtual input z [B, Cin, Ho+k-1, Wo+k-1] contracted
+    with each tap (dy', dx') of the cotangent, g[.., r-(k-1)+dy',
+    c-(k-1)+dx'] (zero outside g), into [Cin, k*k*Cout], then the tap
+    reversal -> fp32 [k, k, Cin, Cout]. pad (k-1)//2 is the reference's
+    SAME mode, pad 0 on a padded x its VALID mode."""
+    z = wide(virtual_input_plain(x, k, tuple(g.shape[2:]), pad, 1, scale,
+                                 shift, negslope))
+    hv, wv = z.shape[2], z.shape[3]
+    gp = F.pad(wide(g), (k - 1, k - 1, k - 1, k - 1))
+    taps = [torch.einsum("bihw,bohw->io", z,
+                         gp[:, :, dy:dy + hv, dx:dx + wv])
+            for dy in range(k) for dx in range(k)]
+    return _reverse_taps(torch.stack(taps, 1).reshape(z.shape[1], -1), k)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -170,9 +255,11 @@ def _prologue_args(x, scale, shift):
     return scale.data_ptr(), shift.data_ptr(), G
 
 
-def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name):
+def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name,
+                want_stats: bool = False):
     """K3 over the virtual input of x (see csrc/conv.cu). w must already be
-    in x's type."""
+    in x's type. want_stats (K3''', needs the prologue): also the fp32
+    [G, 2, Cout] per-stack sums of y and y^2."""
     x, w = x.contiguous(), w.contiguous()
     dtype = _build.check_cuda_tensors(name, x, w)
     B, cin, h, wd = x.shape
@@ -183,15 +270,27 @@ def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name):
     ho, wo = out_hw
     sp, tp, G = _prologue_args(x, scale, shift)
     y = torch.empty(B, cout, ho, wo, dtype=x.dtype, device=x.device)
-    fn = _build.library("conv").conv_valid_fwd
+    st_part = stats = None
+    lib = _build.library("conv")
+    if want_stats:
+        if scale is None:
+            raise ValueError(f"{name}: the statistics need the prologue")
+        lib.conv_stats_scratch_tiles.argtypes = [ctypes.c_int] * 3
+        st_part = torch.empty(lib.conv_stats_scratch_tiles(B, ho, wo), 2,
+                              cout, dtype=torch.float32, device=x.device)
+        stats = torch.empty(G, 2, cout, dtype=torch.float32, device=x.device)
+    fn = lib.conv_valid_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_float] + [ctypes.c_void_p] * 2 \
+        + [ctypes.c_int, ctypes.c_void_p]
     status = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), sp, tp, B, cin, h,
-                wd, cout, ho, wo, k, pad, stride, G, float(negslope), dtype,
+                wd, cout, ho, wo, k, pad, stride, G, float(negslope),
+                st_part.data_ptr() if want_stats else None,
+                stats.data_ptr() if want_stats else None, dtype,
                 _build.stream_ptr(x.device))
     _build.check(status, name)
-    return y
+    return (y, stats) if want_stats else y
 
 
 def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name):
@@ -225,6 +324,103 @@ def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name):
                 _build.stream_ptr(x.device))
     _build.check(status, name)
     return dw
+
+
+def _launch_dw_gtap(x, g, k, pad, scale, shift, negslope, name):
+    """K7 over the virtual input of x at stride 1: fp32 [k, k, Cin, Cout];
+    g must be in x's type."""
+    x, g = x.contiguous(), g.contiguous()
+    dtype = _build.check_cuda_tensors(name, x, g)
+    if k not in (2, 3):
+        raise ValueError(f"{name}: kernel is built for k in (2, 3), got {k}")
+    B, cin, h, wd = x.shape
+    cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
+    if g.shape[0] != B:
+        raise ValueError(f"{name}: cotangent {tuple(g.shape)} vs input "
+                         f"{tuple(x.shape)}")
+    sp, tp, G = _prologue_args(x, scale, shift)
+    hv = ho + k - 1                       # K7 splits V's rows into chunks
+    rows = -(-B * hv // _DW_CHUNKS)
+    rows = -(-rows // _DW_ROW_TILE) * _DW_ROW_TILE
+    n_chunks = B * -(-hv // rows)
+    partial = torch.empty(n_chunks, cin * k * k * cout, dtype=torch.float32,
+                          device=x.device)
+    dwt = torch.empty(cin, k * k * cout, dtype=torch.float32, device=x.device)
+    fn = _build.library("conv").conv_dw_gtap
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    status = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                dwt.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, pad,
+                G, float(negslope), rows, dtype, _build.stream_ptr(x.device))
+    _build.check(status, name)
+    return _reverse_taps(dwt, k)
+
+
+def _same_pad(w: torch.Tensor, name: str) -> int:
+    """The SAME border (k-1)//2 of w's odd k > 1; raises otherwise."""
+    k = w.shape[0]
+    if k % 2 == 0 or k < 3:
+        raise ValueError(f"{name}: SAME needs an odd k > 1, got {k}")
+    return (k - 1) // 2
+
+
+def conv_same_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K3'' SAME on the card: the conv with the zero border (k-1)//2. w must
+    already be in x's type."""
+    pad = _same_pad(w, "conv_same")
+    y = _launch_fwd(x, w, _out_hw(x, w.shape[0], pad), pad, 1, None, None,
+                    1.0, "conv_same")
+    conv_same_cuda.launches += 1
+    return y
+
+
+conv_same_cuda.launches = 0
+
+
+def conv_same_pro_cuda(x: torch.Tensor, w: torch.Tensor,
+                       scale: torch.Tensor, shift: torch.Tensor,
+                       negslope: float = 1.0) -> torch.Tensor:
+    """K3'' SAME pro on the card: the SAME conv of leaky_ns(x*scale +
+    shift)."""
+    pad = _same_pad(w, "conv_same_pro")
+    y = _launch_fwd(x, w, _out_hw(x, w.shape[0], pad), pad, 1, scale, shift,
+                    negslope, "conv_same_pro")
+    conv_same_pro_cuda.launches += 1
+    return y
+
+
+conv_same_pro_cuda.launches = 0
+
+
+def conv_same_pro_stats_cuda(x: torch.Tensor, w: torch.Tensor,
+                             scale: torch.Tensor, shift: torch.Tensor,
+                             negslope: float = 1.0):
+    """K3''' on the card: (out, s1, s2) of conv_same_pro_cuda, s1/s2 the
+    fp32 [G, Cout] sums of the cast output and its square per stack."""
+    pad = _same_pad(w, "conv_same_pro_stats")
+    y, st = _launch_fwd(x, w, _out_hw(x, w.shape[0], pad), pad, 1, scale,
+                        shift, negslope, "conv_same_pro_stats", True)
+    conv_same_pro_stats_cuda.launches += 1
+    return y, st[:, 0], st[:, 1]
+
+
+conv_same_pro_stats_cuda.launches = 0
+
+
+def conv_dw_gtap_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
+                      scale: Optional[torch.Tensor] = None,
+                      shift: Optional[torch.Tensor] = None,
+                      negslope: float = 1.0, pad: int = 0) -> torch.Tensor:
+    """K7 on the card: fp32 [k, k, Cin, Cout] by tapping the cotangent; pad
+    (k-1)//2 is SAME, pad 0 on a padded x VALID. g must be in x's type."""
+    dw = _launch_dw_gtap(x, g, k, pad, scale, shift, negslope,
+                         "conv_dw_gtap")
+    conv_dw_gtap_cuda.launches += 1
+    return dw
+
+
+conv_dw_gtap_cuda.launches = 0
 
 
 def conv_valid_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -308,15 +504,24 @@ conv_dw_s2d_cuda.launches = 0
 
 def conv_forward(x, w, scale=None, shift=None, negslope: float = 1.0,
                  pad: int = 0, stride: int = 1,
-                 out_hw: Optional[Tuple[int, int]] = None):
-    """K3 for a CUDA tensor, in the form the arguments ask for (pro when
-    scale is given, else s2d at stride 2, else plain); the plain version
-    for a CPU tensor."""
+                 out_hw: Optional[Tuple[int, int]] = None, same: bool = False,
+                 want_stats: bool = False):
+    """K3 for a CUDA tensor, in the form the arguments ask for: with `same`
+    (stride 1, pad (k-1)//2) K3'' SAME, pro when scale is given, K3''' with
+    want_stats (then (out, s1, s2)); else pro when scale is given, s2d at
+    stride 2, plain. The plain version for a CPU tensor."""
     w = w.to(x.dtype)
     out_hw = out_hw or _out_hw(x, w.shape[0], pad)
     if not x.is_cuda:
-        return conv_valid_pro_plain(x, w, scale, shift, negslope, pad,
-                                    stride, out_hw)
+        out = conv_valid_pro_plain(x, w, scale, shift, negslope, pad, stride,
+                                   out_hw)
+        return (out, *stack_sums(out, scale.shape[0])) if want_stats else out
+    if same:
+        if want_stats:
+            return conv_same_pro_stats_cuda(x, w, scale, shift, negslope)
+        if scale is not None:
+            return conv_same_pro_cuda(x, w, scale, shift, negslope)
+        return conv_same_cuda(x, w)
     if scale is not None:
         return conv_valid_pro_cuda(x, w, scale, shift, negslope, pad, stride,
                                    out_hw)
@@ -326,12 +531,20 @@ def conv_forward(x, w, scale=None, shift=None, negslope: float = 1.0,
 
 
 def conv_weight_grad(x, g, k: int, scale=None, shift=None,
-                     negslope: float = 1.0, pad: int = 0, stride: int = 1):
-    """K4 for a CUDA tensor, in the form of conv_forward; the plain version
-    for a CPU tensor. fp32 [k, k, s*s*Cin, Cout]."""
+                     negslope: float = 1.0, pad: int = 0, stride: int = 1,
+                     same: bool = False):
+    """K4 for a CUDA tensor, in the form of conv_forward; with `same`, K7
+    where the reference's _dw_impl (:647) routes it: DW_TAP_ON_N and
+    _gtap_better(k, Cin, Cout). The plain version for a CPU tensor. fp32
+    [k, k, s*s*Cin, Cout]."""
     g = g.to(x.dtype)
+    gtap = same and DW_TAP_ON_N and _gtap_better(k, x.shape[1], g.shape[1])
     if not x.is_cuda:
+        if gtap:
+            return conv_dw_gtap_plain(x, g, k, scale, shift, negslope, pad)
         return conv_dw_pro_plain(x, g, k, scale, shift, negslope, pad, stride)
+    if gtap:
+        return conv_dw_gtap_cuda(x, g, k, scale, shift, negslope, pad)
     if scale is not None:
         return conv_dw_pro_cuda(x, g, k, scale, shift, negslope, pad, stride)
     if stride == 2:
@@ -356,10 +569,10 @@ def _prologue_bwd(x, dz, scale, shift, negslope: float):
     reference computes it outside its kernels (:882-893): (dx, dscale,
     dshift), the last two per stack."""
     G = scale.shape[0]
-    x32, dz32 = split_stacks(x, G).float(), split_stacks(dz, G).float()
-    sc = _rows(scale.float())
+    x32, dz32 = wide(split_stacks(x, G)), wide(split_stacks(dz, G))
+    sc = _rows(wide(scale))
     if negslope != 1.0:
-        u = x32 * sc + _rows(shift.float())
+        u = x32 * sc + _rows(wide(shift))
         du = torch.where(u >= 0, dz32, dz32 * negslope)
     else:
         du = dz32
@@ -373,23 +586,39 @@ class ConvValidPro(torch.autograd.Function):
     """The conv of z = leaky_ns(x*scale + shift) with a zero border `pad`
     of z, at stride 1 or as the space-to-depth stride-2 conv (w is then the
     [k2, k2, 4Cin, Cout] phase kernel); scale None means z = x, the plain
-    conv (conv_valid_chw :706-732). The backward mirrors _convp_bwd
-    (conv_pallas.py:873-896): dz from plain K3 with the flipped kernel, the
-    prologue's chain rule in torch ops, dw from K4 with the prologue
-    recomputed on the read. z is never stored."""
+    conv (conv_valid_chw :706-732). `same` (stride 1, odd k, pad (k-1)//2)
+    takes the SAME route's kernels (conv_same_chw :735-766,
+    conv_same_pro_chw :769-813); with want_stats it returns (out, s1, s2),
+    the per-stack sums of out and out^2 (conv_same_pro_stats_chw
+    :816-848). The backward mirrors _convp_bwd (conv_pallas.py:873-896):
+    the statistics' cotangents folded into g as :834-844 does (d s1/d out =
+    1, d s2/d out = 2 out, in fp32, cast to g's type), dz from K3 in the
+    forward's form with the flipped kernel, the prologue's chain rule in
+    torch ops, dw from K4 (with `same`, K7 where the reference routes it)
+    with the prologue recomputed on the read. z is never stored."""
 
     @staticmethod
     def forward(ctx, x, w, scale, shift, pad: int, stride: int,
-                out_hw: Tuple[int, int], negslope: float):
+                out_hw: Tuple[int, int], negslope: float, same: bool,
+                want_stats: bool):
         x = x.contiguous()
-        ctx.save_for_backward(x, w, scale, shift)
-        ctx.cfg = (pad, stride, negslope)
-        return conv_forward(x, w, scale, shift, negslope, pad, stride, out_hw)
+        res = conv_forward(x, w, scale, shift, negslope, pad, stride, out_hw,
+                           same, want_stats)
+        ctx.save_for_backward(x, w, scale, shift,
+                              res[0] if want_stats else None)
+        ctx.cfg = (pad, stride, negslope, same, want_stats)
+        return res
 
     @staticmethod
-    def backward(ctx, g):
-        x, w, scale, shift = ctx.saved_tensors
-        pad, stride, negslope = ctx.cfg
+    def backward(ctx, g, *g_stats):
+        x, w, scale, shift, out = ctx.saved_tensors
+        pad, stride, negslope, same, want_stats = ctx.cfg
+        if want_stats:
+            g_s1, g_s2 = g_stats
+            G = scale.shape[0]
+            gf = split_stacks(wide(g), G) + _rows(g_s1) \
+                + 2.0 * split_stacks(wide(out), G) * _rows(g_s2)
+            g = gf.reshape(g.shape).to(g.dtype)
         k = w.shape[0]
         g = g.to(x.dtype).contiguous()
         dx = dw = dscale = dshift = None
@@ -397,7 +626,7 @@ class ConvValidPro(torch.autograd.Function):
             w_flip = torch.flip(w, dims=(0, 1)).transpose(2, 3)
             if stride == 1:
                 # the (k-1-pad) border lands dz on x's own pixels
-                dz = conv_forward(g, w_flip, pad=k - 1 - pad)
+                dz = conv_forward(g, w_flip, pad=k - 1 - pad, same=same)
             else:
                 dz = _from_phases(conv_forward(g, w_flip, pad=k - 1),
                                   x.shape, pad)
@@ -408,15 +637,15 @@ class ConvValidPro(torch.autograd.Function):
                                                    negslope)
         if ctx.needs_input_grad[1]:
             dw = conv_weight_grad(x, g, k, scale, shift, negslope, pad,
-                                  stride).to(w.dtype)
-        return dx, dw, dscale, dshift, None, None, None, None
+                                  stride, same).to(w.dtype)
+        return dx, dw, dscale, dshift, None, None, None, None, None, None
 
 
 def conv_valid_chw(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """VALID k x k stride-1 conv on pre-padded [B, Cin, Hp, Wp] with
     w [k, k, Cin, Cout] -> [B, Cout, Hp-k+1, Wp-k+1] (differentiable)."""
     return ConvValidPro.apply(xp, w, None, None, 0, 1,
-                              _out_hw(xp, w.shape[0], 0), 1.0)
+                              _out_hw(xp, w.shape[0], 0), 1.0, False, False)
 
 
 def s2d_kernel(w: torch.Tensor) -> torch.Tensor:
@@ -433,29 +662,42 @@ def s2d_kernel(w: torch.Tensor) -> torch.Tensor:
 
 def _as_rows(v: torch.Tensor) -> torch.Tensor:
     """Prologue vector [C] (one stack) or [G, C] -> fp32 [G, C]."""
-    v = v.float()
+    v = wide(v)
     return (v[None] if v.dim() == 1 else v).contiguous()
 
 
-def _conv_any(x, w, pad: str, stride: int, scale, shift,
-              negslope: float) -> torch.Tensor:
+def _same_route(k: int, stride: int, pad: str) -> bool:
+    """The reference's SAME branch (conv_pallas.py:924-925, :1019-1020):
+    SAME_BORDER_KERNELS on, stride 1, zero padding, odd k > 1."""
+    return (SAME_BORDER_KERNELS and stride == 1 and pad != "reflection"
+            and k > 1 and k % 2 == 1)
+
+
+def _conv_any(x, w, pad: str, stride: int, scale, shift, negslope: float,
+              want_stats: bool = False):
     """torch (k-1)//2 padding (zero: the kernels' implicit border), then
-    ConvValidPro at stride 1 or 2."""
+    ConvValidPro at stride 1 or 2; the SAME route where _same_route says
+    so, with the statistics if want_stats (only there)."""
     k = w.shape[0]
     to_pad = (k - 1) // 2
+    if _same_route(k, stride, pad):
+        return ConvValidPro.apply(x, w, scale, shift, to_pad, 1,
+                                  _out_hw(x, k, to_pad), negslope, True,
+                                  want_stats)
     if to_pad and pad == "reflection":
         # reflection commutes with the per-channel prologue
         x = F.pad(x, (to_pad, to_pad, to_pad, to_pad), mode="reflect")
         to_pad = 0
     if stride == 1:
         return ConvValidPro.apply(x, w, scale, shift, to_pad, 1,
-                                  _out_hw(x, k, to_pad), negslope)
+                                  _out_hw(x, k, to_pad), negslope, False,
+                                  False)
     if stride != 2:
         raise NotImplementedError(f"stride {stride}")
     ho = (x.shape[2] + 2 * to_pad - k) // 2 + 1
     wo = (x.shape[3] + 2 * to_pad - k) // 2 + 1
     return ConvValidPro.apply(x, s2d_kernel(w), scale, shift, to_pad, 2,
-                              (ho, wo), negslope)
+                              (ho, wo), negslope, False, False)
 
 
 def _add_bias(out: torch.Tensor, p: dict) -> torch.Tensor:
@@ -467,20 +709,36 @@ def _add_bias(out: torch.Tensor, p: dict) -> torch.Tensor:
 def kernel_conv_chw(x: torch.Tensor, p: dict, stride: int = 1,
                     pad: str = "zero") -> torch.Tensor:
     """Counterpart of pallas_conv_chw: torch (k-1)//2 zero or reflection
-    padding, the conv (stride 2 as space-to-depth), then the bias (added
-    outside the kernel, as the reference does)."""
+    padding, the conv (stride 2 as space-to-depth; the SAME route where
+    _same_route says so), then the bias (added outside the kernel, as the
+    reference does)."""
     return _add_bias(_conv_any(x, p["kernel"], pad, stride, None, None, 1.0),
                      p)
 
 
 def kernel_conv_bn_act_chw(x: torch.Tensor, p: dict, scale: torch.Tensor,
                            shift: torch.Tensor, stride: int = 1,
-                           pad: str = "zero",
-                           negslope: float = 0.2) -> torch.Tensor:
-    """Counterpart of pallas_conv_bn_act_chw (VALID branch):
-    conv(leaky_ns(x*scale + shift)) + bias with the padding and stride of
-    kernel_conv_chw. scale/shift: [C], or [G, C] for G BatchNorm stacks of
-    B/G batch items each."""
-    out = _conv_any(x, p["kernel"], pad, stride, _as_rows(scale),
-                    _as_rows(shift), negslope)
-    return _add_bias(out, p)
+                           pad: str = "zero", negslope: float = 0.2,
+                           want_stats: bool = False):
+    """Counterpart of pallas_conv_bn_act_chw: conv(leaky_ns(x*scale +
+    shift)) + bias with the padding and stride of kernel_conv_chw.
+    scale/shift: [C], or [G, C] for G BatchNorm stacks of B/G batch items
+    each. want_stats: return (out, s1, s2), each stack's fp32 sums of out
+    and out^2 [G, Cout] (the consumer BatchNorm's statistics): from K3'''
+    on the SAME route, with the bias shifted in algebraically (:941-947),
+    else a reduction of out."""
+    sc, sh = _as_rows(scale), _as_rows(shift)
+    if want_stats and _same_route(p["kernel"].shape[0], stride, pad):
+        out, s1, s2 = _conv_any(x, p["kernel"], pad, stride, sc, sh,
+                                negslope, True)
+        if "bias" in p:
+            b32 = wide(p["bias"])
+            n = out.shape[0] // sc.shape[0] * out.shape[2] * out.shape[3]
+            s2 = s2 + 2.0 * b32 * s1 + n * torch.square(b32)
+            s1 = s1 + n * b32
+        return _add_bias(out, p), s1, s2
+    out = _add_bias(_conv_any(x, p["kernel"], pad, stride, sc, sh, negslope),
+                    p)
+    if want_stats:
+        return (out, *stack_sums(out, sc.shape[0]))
+    return out

@@ -112,13 +112,12 @@ def test_s2d_kernel_scatters_taps_and_zeros_the_rest():
     assert int((wk == 0).sum()) == wk.numel() - w.numel()
 
 
-@pytest.mark.parametrize("mode", ["fused", "xla"])
-def test_generator_mode_matches_jax_two_stacks(mode, monkeypatch):
-    monkeypatch.setattr(junet, "FORCE_FUSED_KERNELS_ON_CPU", True)
-    monkeypatch.setattr(tunet, "FORCE_FUSED_KERNELS_ON_CPU", True)
+def _generator_case(seed):
+    """The tiny generator's params (numpy tree), input and loss weights for
+    one seed."""
     p = junet.init_skip_params(jax.random.PRNGKey(1),
                                junet.SkipConfig(**TINY_UNET))
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
     # BatchNorm affines and the output bias perturbed so a dropped term
     # shows (tests/test_torch_unet.py)
     p = jax.tree_util.tree_map_with_path(
@@ -127,8 +126,42 @@ def test_generator_mode_matches_jax_two_stacks(mode, monkeypatch):
         if (path[-2].key.endswith("bn") or path[-2].key == "out_conv")
         and path[-1].key in ("scale", "bias") else np.asarray(a), p)
     x = rng.random((2, 1, 40, 36, 3)).astype(np.float32)
-    jcfg, tcfg = junet.SkipConfig(**TINY_UNET), tunet.SkipConfig(**TINY_UNET)
     w = rng.standard_normal((2, 1, 40, 36, 3)).astype(np.float32)
+    return p, x, w
+
+
+def _set_modes(mode, monkeypatch):
+    """Both packages' FORCE_FUSED_KERNELS_ON_CPU on, and with a "-same"
+    mode both SAME_BORDER_KERNELS; returns the generator_conv value."""
+    monkeypatch.setattr(junet, "FORCE_FUSED_KERNELS_ON_CPU", True)
+    monkeypatch.setattr(tunet, "FORCE_FUSED_KERNELS_ON_CPU", True)
+    if mode.endswith("-same"):
+        monkeypatch.setattr(conv_pallas, "SAME_BORDER_KERNELS", True)
+        monkeypatch.setattr(tconv, "SAME_BORDER_KERNELS", True)
+    return mode.removesuffix("-same")
+
+
+@pytest.mark.parametrize("mode", ["fused", "xla", "fused-same",
+                                  "pallas-same"])
+def test_generator_mode_matches_jax_two_stacks(mode, monkeypatch):
+    """"-same": both packages' SAME_BORDER_KERNELS on. For fused that adds
+    the in-kernel statistics (down_conv2, up_conv), and K7 takes dw at
+    up_conv s1 (18 -> 8), where _gtap_better routes it. JAX's pallas mode
+    runs XLA's conv on the CPU, while the port's runs the SAME route's
+    plain versions.
+
+    pallas-same draws from seed 2. At seed 1 one LeakyReLU input (scale
+    0's up1x1 output) lies 6e-8 from 0, and fp32 rounding puts it on
+    either side depending on the convs' summation order: the port's pallas
+    mode (SAME on or off) and its xla mode then take different sides of the
+    activation's kink, and their flat gradients differ by 0.56 (max 83).
+    test_fp32_pallas_and_xla_split_only_at_a_leaky_kink shows that flip,
+    and test_generator_modes_agree_in_float64 runs seed 1 in float64, where
+    the modes agree to rounding."""
+    seed = 2 if mode == "pallas-same" else 1
+    mode = _set_modes(mode, monkeypatch)
+    p, x, w = _generator_case(seed)
+    jcfg, tcfg = junet.SkipConfig(**TINY_UNET), tunet.SkipConfig(**TINY_UNET)
 
     def jf(params):
         outs = jax.vmap(lambda xs: junet.skip_apply_chw(
@@ -149,6 +182,63 @@ def test_generator_mode_matches_jax_two_stacks(mode, monkeypatch):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(tflat.grad.numpy(), jflat_g, rtol=1e-4,
                                atol=1e-4 * np.abs(jflat_g).max())
+
+
+def _float64_grad(mode, p, x, w):
+    """The port's generator in float64 on the CPU (two stacks): the flat
+    gradient of sum(out * w), in ravel_pytree order."""
+    leaves = tree_map(lambda a: torch.from_numpy(a).double()
+                      .requires_grad_(True), p)
+    out = tunet.skip_apply_chw(
+        leaves, tunet.SkipConfig(**TINY_UNET),
+        torch.from_numpy(x.reshape(2, 40, 36, 3)).double(), groups=2,
+        conv_impl=mode)
+    grads = torch.autograd.grad(
+        (out * torch.from_numpy(w.reshape(out.shape))).sum(),
+        [t for _, t in tunet._leaves(leaves)])
+    return torch.cat([g.reshape(-1) for g in grads]).numpy()
+
+
+@pytest.mark.parametrize("mode", ["pallas", "pallas-same", "fused-same"])
+def test_generator_modes_agree_in_float64(mode, monkeypatch):
+    """Seed 1, where the fp32 pallas modes and xla sit on opposite sides of
+    a LeakyReLU kink (test_generator_mode_matches_jax_two_stacks): in
+    float64 the port's kernel routes (their plain versions, which keep
+    float64) agree with its xla mode (F.conv2d). Tolerance 1e-9 x the
+    largest entry: float64 rounding (1e-16) through a gradient whose fp32
+    form amplifies rounding by up to 1e4; seen: 2e-13 on a max of 83."""
+    p, x, w = _generator_case(1)
+    ref = _float64_grad("xla", p, x, w)
+    got = _float64_grad(_set_modes(mode, monkeypatch), p, x, w)
+    assert got.dtype == np.float64
+    np.testing.assert_allclose(got, ref, rtol=1e-9,
+                               atol=1e-9 * np.abs(ref).max())
+
+
+def test_fp32_pallas_and_xla_split_only_at_a_leaky_kink(monkeypatch):
+    """The cause of the seed-1 fp32 gap between the port's pallas and xla
+    modes: every activation input agrees to fp32 rounding (rtol and atol
+    1e-5 on values of O(1)), and exactly one LeakyReLU input, within 1e-6
+    of 0, has its sign flipped."""
+    p, x, _ = _generator_case(1)
+    monkeypatch.setattr(tunet, "FORCE_FUSED_KERNELS_ON_CPU", True)
+    act = tunet.act
+
+    def inputs(mode):
+        seen = []
+        monkeypatch.setattr(tunet, "act", lambda t, f: seen.append(
+            t.detach().double()) or act(t, f))
+        tunet.skip_apply_chw(tree_map(torch.from_numpy, p),
+                             tunet.SkipConfig(**TINY_UNET),
+                             torch.from_numpy(x.reshape(2, 40, 36, 3)),
+                             groups=2, conv_impl=mode)
+        return seen
+
+    flips = []
+    for a, b in zip(inputs("xla"), inputs("pallas"), strict=True):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+        flips += [float(v) for v in a[(a >= 0) != (b >= 0)]]
+    assert len(flips) == 1 and abs(flips[0]) < 1e-6
 
 
 def test_fused_mode_launches_prologue_wrappers_only_through_routes(
