@@ -4,11 +4,14 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build the hand-written CUDA kernels from splice_tpu_torch/csrc;
+  1. build the hand-written CUDA kernels from splice_tpu_torch/csrc; the
+     bf16 K5/K6 kernels must hold tensor-core instructions (cuobjdump);
   2. hold every kernel against its plain PyTorch version at the shapes the
-     training paths give it (and at small edge-case shapes), and time
-     kernel, plain version and a PyTorch library call that computes the
-     same function (the yardstick only);
+     training paths give it (and at small edge-case shapes; K5/K6 in bf16
+     also at N under a tile, one past a tile, B*H = 1 and more seeds, and
+     K6 twice on one input, bitwise equal), and time kernel, plain version
+     and a PyTorch library call that computes the same function (the
+     yardstick only);
   3. run one regular and one entire-A step at a small size on the card
      (fp32, through the kernels) and on the CPU (plain path) from the same
      parameters and draws, and compare loss and gradient, for
@@ -22,8 +25,9 @@ Phases, each fatal on failure:
   6. the other paths at the same width, a few steps each including an
      entire-A step, each with its kernels launched and a profile:
      the 480-px loss resolution (3601 and 2701 tokens: split-tensor
-     attention K5/K6), generator_conv=fused (K3'/K4' with the BatchNorm
-     prologue), generator_conv=pallas (every conv on K3/K4, stride 2 at
+     attention K5/K6, every launch on the tensor cores),
+     generator_conv=fused (K3'/K4' with the BatchNorm prologue),
+     generator_conv=pallas (every conv on K3/K4, stride 2 at
      k = 2), and fused and pallas with the SAME-border route on (K3'' SAME,
      K3''' in-kernel BatchNorm statistics, K7 cotangent-tapped dw), plus a
      few fused SAME steps of a generator with 3x3 skip convs, the one
@@ -125,7 +129,8 @@ def timed(kernel, plain, library, nbytes, flops, dtype_name, tag, shape):
              library_ms=time_ms(library), nbytes=nbytes, flops=flops,
              dtype=dtype_name, shape=shape)
     b, by = bound_ms(nbytes, flops, dtype_name)
-    print(f"  time {tag} {shape}: kernel {d['ms']:.4f} ms, plain "
+    print(f"  time {tag} {shape}: kernel {d['ms']:.4f} ms "
+          f"({flops / d['ms'] / 1e9:.1f} TFLOP/s), plain "
           f"{d['plain_ms']:.4f} ms, library {d['library_ms']:.4f} ms, "
           f"bound {b:.4f} ms ({by})")
     return d
@@ -178,8 +183,9 @@ def check_attention(torch, attn, rows):
 
 
 def check_split_attention(torch, attn, rows):
-    """K5/K6 at the 480-px path's shapes: [2,12,3601,64] (two square
-    crops) and [1,12,2701,64] (the entire A image)."""
+    """K5/K6 (bf16: the tensor-core kernels) at the 480-px path's shapes:
+    [2,12,3601,64] (two square crops) and [1,12,2701,64] (the entire A
+    image); K6 twice on one input, bitwise equal."""
     H, dh, scale = 12, 64, 0.125
     gen = torch.Generator().manual_seed(4)
     dt, dtype_name = torch.bfloat16, "bfloat16"
@@ -197,6 +203,8 @@ def check_split_attention(torch, attn, rows):
         for part, a, b in zip(("dq", "dk", "dv"), got, want):
             errs["attn_bwd"] = max(errs["attn_bwd"], compare(
                 f"K6 attn_bwd {part} {tag}", a, b, rtol, why))
+        check_bitwise(torch, f"K6 {tag}", got,
+                      attn.attn_bwd_cuda(q, k, v, g, scale))
         del got, want
         if N != 3601:
             continue
@@ -220,6 +228,59 @@ def check_split_attention(torch, attn, rows):
         del o, qr, kr, vr
     for name in errs:
         rows[name]["max_abs_err"] = errs[name]
+
+
+# (B, H, N, n_valid, seed) of the tensor-core K5/K6's edge cases: N under
+# one 64-row box, one past a block of 128 and of 256 rows, B*H = 1 with
+# masked keys (key blocks wholly past n_valid: zero dk, dv without a loop),
+# and two more seeds at the 480 path's N = 3601
+SPLIT_EDGES = ((1, 2, 17, 0, 20), (2, 3, 129, 0, 21), (2, 3, 257, 0, 22),
+               (1, 1, 300, 211, 23), (2, 12, 3601, 0, 24),
+               (2, 12, 3601, 0, 25))
+
+
+def check_split_edge_cases(torch, attn):
+    """The bf16 (tensor-core) K5/K6 at SPLIT_EDGES against their plain
+    versions; masked keys get exactly zero dk and dv."""
+    rtol, why = RTOL["bfloat16"]
+    for B, H, N, n_valid, seed in SPLIT_EDGES:
+        gen = torch.Generator().manual_seed(seed)
+        q, k, v, g = (torch.randn(B, H, N, 64, generator=gen).to(
+            "cuda", torch.bfloat16) for _ in range(4))
+        tag = f"[{B},{H},{N},64] n_valid={n_valid} seed {seed} bfloat16"
+        compare(f"K5 {tag}", attn.attn_fwd_cuda(q, k, v, 0.125, n_valid),
+                attn.attention_plain(q, k, v, 0.125, n_valid), rtol, why)
+        got = attn.attn_bwd_cuda(q, k, v, g, 0.125, n_valid)
+        for part, a, b in zip(("dq", "dk", "dv"), got,
+                              attn.attention_bwd_plain(q, k, v, g, 0.125,
+                                                       n_valid)):
+            compare(f"K6 {part} {tag}", a, b, rtol, why)
+        if n_valid and not all(bool((t[:, :, n_valid:] == 0).all())
+                               for t in got[1:]):
+            fail(f"K6 {tag}: masked keys with nonzero dk or dv")
+
+
+def check_tensor_cores(build):
+    """cuobjdump -sass of the built attention library: each bf16 K5/K6
+    kernel must hold tensor-core instructions (HGMMA: wgmma; HMMA:
+    mma.sync). Prints the counts of every kernel in the library."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(build._target("attention"))],
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += "HMMA" in line
+    tc = [f for f in counts if "_tc" in f]
+    for f, (hg, hm) in counts.items():
+        print(f"  sass attention {f}: HGMMA {hg}, HMMA {hm}")
+    if len(tc) != 4 or not all(sum(counts[f]) for f in tc):
+        fail(f"the bf16 K5/K6 kernels lack tensor-core instructions: {counts}")
 
 
 def check_conv(torch, conv, rows):
@@ -804,14 +865,20 @@ def check_output(torch, name, out):
         fail(f"{name}: bad output image {tuple(out.shape)}")
 
 
+def zero_counts(kernels) -> None:
+    for fn, *_ in kernels.values():
+        fn.launches = 0
+        if hasattr(fn, "tc_launches"):
+            fn.tc_launches = 0
+
+
 def run_path(torch, name, cfg, n_steps, kernels, need, same=False, **kw):
     """train_pair (with the SAME route if `same`) with every launch count
     set to 0 just before and read just after; fails on a non-finite loss or
     output, or when a kernel in `need` was launched no time. Returns
     (result, launches)."""
     from splice_tpu_torch.trainer import train_pair
-    for fn, *_ in kernels.values():
-        fn.launches = 0
+    zero_counts(kernels)
     with same_border(same):
         res = train_pair(cfg, n_steps=n_steps, **kw)
     launches = read_launches(torch, kernels, name, need)
@@ -836,8 +903,7 @@ def run_skip3(torch, cfg, pair, extractor, kernels, need):
     from splice_tpu_torch.losses import is_entire_step, lambdas_for_step
     from splice_tpu_torch.models.unet import SkipConfig
     from splice_tpu_torch.trainer import SpliceTrainer, sample_step_draws
-    for fn, *_ in kernels.values():
-        fn.launches = 0
+    zero_counts(kernels)
     gen = torch.Generator().manual_seed(0)
     with same_border(True):
         tr = SpliceTrainer(cfg, pair, extractor,
@@ -882,8 +948,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     for name in _build.SOURCES:
         for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    check_tensor_cores(_build)
 
     # name -> (wrapper, route, source, the TPU kernel it replaces, the path
     # whose launches the JSON line reports)
@@ -930,6 +997,7 @@ def main() -> int:
     check_conv_pro(torch, conv, rows)
     check_conv_s2d(torch, conv, rows)
     check_edge_cases(torch, attn, conv)
+    check_split_edge_cases(torch, attn)
     torch.cuda.empty_cache()
     check_conv_same(torch, conv, rows)
     check_same_edge_cases(torch, conv)
@@ -992,6 +1060,13 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         pres, launches[path] = run_path(torch, path, pcfg, n, kernels,
                                         need[path], same, **shared)
+        if path == "480":
+            # every K5/K6 launch of the path on the tensor cores
+            tc = {k: kernels[k][0].tc_launches for k in ("attn_fwd",
+                                                         "attn_bwd")}
+            print(f"  tensor-core launches in the 480 path: {tc}")
+            if any(n != launches[path][k] for k, n in tc.items()):
+                fail(f"480 path: K5/K6 launches off the tensor cores: {tc}")
         secs = pres["step_seconds"]
         print(f"  steps/s (regular steps 1..{n - 1}): "
               f"{(n - 1) / sum(secs[1:]):.3f}; entire-A step 0 (warm-up): "
@@ -1030,6 +1105,8 @@ def main() -> int:
     for name, (fn, route, source, replaces, path) in kernels.items():
         r = rows[name]
         line.append({"name": name, "route": route, "source": source,
+                     "cores": "tensor core" if name in ("attn_fwd", "attn_bwd")
+                     else "cuda core",
                      "replaces": replaces, "launches": launches[path][name],
                      "path": path, "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"],

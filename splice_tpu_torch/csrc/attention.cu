@@ -1,5 +1,5 @@
-// Multi-head softmax attention, head dim 64, in two layouts that share one
-// set of kernel templates through element strides:
+// Multi-head softmax attention, head dim 64, in two layouts (the CUDA-core
+// templates read both through element strides):
 //   * fused qkv: q, k and v are column sections of one [B, N, 3D] tensor
 //     (heads contiguous inside each section); the output and the cotangent
 //     g are the head-concatenated [B, N, D];
@@ -26,26 +26,36 @@
 // What bounds it on the H100: the work is 4*B*H*N^2*64 flops forward and
 // about 2.5x that backward; the traffic is the inputs and outputs once
 // (under 20 MB at N = 785, about 90 MB at N = 3601), so the bound is
-// arithmetic at every N the model runs. This first version does the
-// arithmetic in fp32 on the CUDA cores from shared-memory tiles (simple and
-// exact for both bf16 and fp32 inputs); the tensor-core (wgmma) version is
-// later work, and PERF.md records the gap.
+// arithmetic at every N the model runs: the tensor cores' 989 TFLOP/s for
+// bf16, 67 TFLOP/s of fp32 on the CUDA cores.
 //
-// Design: the forward is flash-style, one block per (q tile, head, batch)
-// with an online softmax over key tiles, so any N works (the TPU kernels
-// kept a whole head's K/V in VMEM and so capped N; these have no cap) and
-// the ragged edge is masked. The TPU backward carried dk/dv in scratch
-// across a sequential q grid; GPU blocks run in no order, so the backward
-// is three launches:
+// Two sets of kernels, routed by dtype in attn_fwd / attn_bwd:
+//   * bf16 split tensors (K5/K6, the 480-px path) run on the tensor cores
+//     (namespace tc): wgmma products from TMA-loaded, 128-byte-swizzled
+//     shared-memory tiles, fp32 accumulators and softmax in registers, p and
+//     dl rounded to bf16 in registers as the A operand of the next product;
+//   * fp32 inputs, and the fused-qkv layout of K1/K2, run the CUDA-core
+//     templates: fp32 multiply-adds from shared-memory tiles (the tensor
+//     cores would round fp32 to TF32).
+//
+// Design, both sets: the forward is flash-style, one block per (q tile,
+// head, batch) with an online softmax over key tiles, so any N works (the
+// TPU kernels kept a whole head's K/V in VMEM and so capped N; these have
+// no cap) and the ragged edge is masked. The TPU backward carried dk/dv in
+// scratch across a sequential q grid; GPU blocks run in no order, so the
+// backward is three launches:
 //   1. per (q tile): recompute the forward to get each row's logsumexp and
 //      delta = sum_d g*o (= sum_k p*dp), fp32 scratch [B, H, N];
 //   2. per (k tile): loop over all q tiles, accumulate dk and dv in
 //      registers (fp32) and write them once;
 //   3. per (q tile): loop over key tiles, accumulate dq.
-// Each C entry returns cudaGetLastError() after its launches.
+// Each C entry returns cudaGetLastError() after its launches (or
+// cudaErrorInvalidValue when a tensor map cannot be made).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -436,6 +446,648 @@ Operands<T> split_operands(const void* q, const void* k, const void* v,
           static_cast<const T*>(v), s, s};
 }
 
+// ---------------------------------------------------------------------------
+// bf16 split attention on the tensor cores (K5 attn_fwd, K6 attn_bwd)
+// ---------------------------------------------------------------------------
+// Every block has two consumer warpgroups (warps 0-7), each owning a 64-row
+// slice of the block's 128 rows, and one producer warp (warp 8) whose lane 0
+// issues TMA copies. An operand is a [B*H, N, 64] bf16 tensor read through a
+// 3-D tensor map in boxes of 64 rows x 128 bytes, 128-byte swizzled; rows
+// past N arrive as zeros. The block's own 128 rows of one or two operands
+// are loaded once ("resident"); the rows it loops over stream through a
+// two-stage ring guarded by full (TMA bytes landed) and empty (all eight
+// consumer warps done) mbarriers.
+namespace tc {
+
+constexpr int ROWS = 64;               // rows of a box and of a warpgroup tile
+constexpr int BOX = ROWS * DH * 2;     // bytes of one box
+constexpr int THREADS = 288;           // 2 consumer warpgroups, 1 producer warp
+constexpr int PRODUCER_WARP = 8;
+constexpr float LOG2E = 1.4426950408889634f;
+// dynamic shared memory: 10 boxes forward, 8 backward, plus 1 KB to align
+constexpr int FWD_SMEM = 10 * BOX + 1024;
+constexpr int BWD_SMEM = 8 * BOX + 1024;
+
+struct Maps {
+  CUtensorMap q, k, v, g;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Rows [row, row + 64) of head bh of `map` into the box at dst.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(0), "r"(row), "r"(bh)
+      : "memory");
+}
+
+// wgmma descriptor of a tile of 128-byte rows as TMA's 128-byte swizzle
+// leaves it (8-row groups 1024 bytes apart, tile 1024-byte aligned). Read
+// K-major, a k16 step advances it by 32 bytes (+2); read MN-major (trans-b),
+// by 16 rows (+128). Both byte offsets are 1024: K-major reads neither of
+// them but SBO, and an MN-major B of 64 columns (one swizzle atom) reads
+// only the one between 8-row groups.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return ((smem_addr(tile) & 0x3FFFFu) >> 4) | (64ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keeps the compiler from moving accesses of a wgmma accumulator across
+// the asynchronous product's issue and wait.
+template <int n>
+__device__ __forceinline__ void pin(float (&d)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+// (descriptors a, b); acc = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a,
+                                          uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory
+// (descriptors a, b); acc = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t a,
+                                          uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major in shared
+// memory (descriptor b, trans-b set).
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A wgmma accumulator of a 64 x (4 * n) tile: thread (warp w, lane l) of the
+// warpgroup holds row 16w + l/4 in d[4j], d[4j+1] and that row + 8 in
+// d[4j+2], d[4j+3], at columns 8j + 2(l%4) and + 1. Rounded to bf16 and
+// sliced by 16 columns, it is the register A operand of the next product
+// (the layout of mma.sync's A fragment, per warp).
+template <int n>
+__device__ __forceinline__ void to_a(const float (&d)[n],
+                                     uint32_t (&a)[n / 8][4]) {
+#pragma unroll
+  for (int t = 0; t < n / 8; ++t) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[t][i] = pack_bf16(d[8 * t + 2 * i], d[8 * t + 2 * i + 1]);
+  }
+}
+
+// A consumer thread's place: warpgroup wg; it holds rows r and r + 8 of
+// its warpgroup's 64-row tile and, in each 8-column block j, the columns
+// 8j + c and 8j + c + 1.
+struct Place {
+  int wg, r, c, lane;
+};
+__device__ __forceinline__ Place place() {
+  const int t = threadIdx.x & 127, lane = threadIdx.x & 31;
+  return {static_cast<int>(threadIdx.x >> 7), 16 * (t >> 5) + (lane >> 2),
+          2 * (lane & 3), lane};
+}
+
+// Rows row0 + r and row0 + r + 8 of a 64 x 64 accumulator times mul, as
+// bf16, into the rows below n of `out` (a head's [N, 64] rows).
+__device__ __forceinline__ void store_rows(const float (&d)[32],
+                                           __nv_bfloat16* out, int row0,
+                                           const Place& p, int n, float mul) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + p.r + 8 * h;
+    if (row >= n) continue;
+    uint32_t* o = reinterpret_cast<uint32_t*>(out + (size_t)row * DH + p.c);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      o[4 * j] = pack_bf16(d[4 * j + 2 * h] * mul, d[4 * j + 2 * h + 1] * mul);
+  }
+}
+
+// bars: resident, full[2], empty[2]. Returns the 1024-aligned dynamic
+// shared memory.
+__device__ __forceinline__ uint8_t* setup(uint8_t* raw, uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    mbar_init(&bars[2], 1);
+    mbar_init(&bars[3], 8);
+    mbar_init(&bars[4], 8);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  return raw + ((1024u - (smem_addr(raw) & 1023u)) & 1023u);
+}
+
+// The producer (one thread): rows [row0, row0 + 128) of ra (and rb) into
+// res once; then, for i < n, `boxes` boxes of rows from i * boxes * 64 of
+// sa and of sb into ring stage i % 2, once its previous tile is released.
+__device__ __forceinline__ void produce(
+    const CUtensorMap* ra, const CUtensorMap* rb, uint8_t* res, int row0,
+    const CUtensorMap* sa, const CUtensorMap* sb, uint8_t* ring, int boxes,
+    int n, int bh, uint64_t* bars) {
+  mbar_arrive_tx(&bars[0], (rb ? 4 : 2) * BOX);
+  tma_load(res, ra, &bars[0], row0, bh);
+  tma_load(res + BOX, ra, &bars[0], row0 + ROWS, bh);
+  if (rb) {
+    tma_load(res + 2 * BOX, rb, &bars[0], row0, bh);
+    tma_load(res + 3 * BOX, rb, &bars[0], row0 + ROWS, bh);
+  }
+  for (int i = 0; i < n; ++i) {
+    const int s = i & 1;
+    if (i >= 2) mbar_wait(&bars[3 + s], ((i >> 1) - 1) & 1);
+    uint8_t* st = ring + s * 2 * boxes * BOX;
+    mbar_arrive_tx(&bars[1 + s], 2 * boxes * BOX);
+    for (int j = 0; j < boxes; ++j) {
+      const int row = (i * boxes + j) * ROWS;
+      tma_load(st + j * BOX, sa, &bars[1 + s], row, bh);
+      tma_load(st + (boxes + j) * BOX, sb, &bars[1 + s], row, bh);
+    }
+  }
+}
+
+// Forward (STATS = false): out = softmax(q k^T * scale) v for 128 q rows,
+// over key tiles of 128 (S on m64n128k16, P V on m64n64k16 with P from
+// registers), online softmax in the log2 domain. STATS = true (the
+// backward's first pass): lse (natural log) and delta = g . o per row
+// instead of out; g is read from global memory.
+template <bool STATS>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_fwd_kernel_tc(const __grid_constant__ Maps maps,
+                   const __nv_bfloat16* __restrict__ g,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   float* __restrict__ delta, int N, int H, int valid,
+                   float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[5];
+  uint8_t* sm = setup(smem_raw, bars);
+  const int bh = blockIdx.z * H + blockIdx.y, q0 = blockIdx.x * 2 * ROWS;
+  const int n_kt = (valid + 2 * ROWS - 1) / (2 * ROWS);
+  if (threadIdx.x / 32 == PRODUCER_WARP) {
+    if (threadIdx.x % 32 == 0)
+      produce(&maps.q, nullptr, sm, q0, &maps.k, &maps.v, sm + 2 * BOX, 2,
+              n_kt, bh, bars);
+    return;
+  }
+  const Place p = place();
+  const float sl = scale * LOG2E;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  const uint64_t dq = sw128_desc(sm + p.wg * BOX);
+  mbar_wait(&bars[0], 0);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt & 1;
+    const uint8_t* st = sm + (2 + 4 * s) * BOX;   // K: 2 boxes, then V: 2
+    mbar_wait(&bars[1 + s], (kt >> 1) & 1);
+    float sc[64];
+    const uint64_t dk = sw128_desc(st);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss128(sc, dq + 2 * kk, dk + 2 * kk, kk);
+    wg_commit();
+    wg_wait();
+    pin(sc);
+
+    // keys >= valid get -inf (TMA's zero rows would give logit 0); every
+    // tile holds a valid key, so each row's max is finite
+    const int k0 = kt * 2 * ROWS;
+    if (k0 + 2 * ROWS > valid) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if (k0 + 8 * (i / 4) + p.c + (i & 1) >= valid) sc[i] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mn = fmaxf(m[h], quad_max(mx[h]) * sl);
+      alpha[h] = ex2(m[h] - mn);
+      m[h] = mn;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int h = (i >> 1) & 1;
+      sc[i] = ex2(fmaf(sc[i], sl, -m[h]));
+      l[h] += sc[i];   // this thread's part of the row sum, unrounded p
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+    uint32_t pa[8][4];
+    to_a(sc, pa);      // p rounded to bf16 before P V
+    const uint64_t dv = sw128_desc(st + 2 * BOX);
+    pin(o);
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 8; ++t) wgmma_rs64(o, pa[t], dv + 128 * t);
+    wg_commit();
+    wg_wait();
+    pin(o);
+    if (p.lane == 0) mbar_arrive(&bars[3 + s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = quad_sum(l[h]);
+  const int row0 = q0 + p.wg * ROWS;
+  if (!STATS) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = o[i] / l[(i >> 1) & 1];
+    store_rows(o, out + (size_t)bh * N * DH, row0, p, N, 1.f);
+    return;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + p.r + 8 * h;
+    float part = 0.f;
+    if (row < N) {
+      const __nv_bfloat162* gr = reinterpret_cast<const __nv_bfloat162*>(
+          g + ((size_t)bh * N + row) * DH + p.c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 gv = __bfloat1622float2(gr[4 * j]);
+        part += gv.x * (o[4 * j + 2 * h] / l[h]) +
+                gv.y * (o[4 * j + 2 * h + 1] / l[h]);
+      }
+    }
+    part = quad_sum(part);   // all lanes take part in the shuffle
+    if (row < N && (p.lane & 3) == 0) {
+      const size_t idx = (size_t)bh * N + row;
+      lse[idx] = (m[h] + log2f(l[h])) / LOG2E;
+      delta[idx] = part;
+    }
+  }
+}
+
+// Backward, dk and dv for 128 keys, looping over q tiles of 64: per tile
+// S^T = K Q^T and dP^T = V g^T (m64n64k16, both operands in shared
+// memory), P^T = exp(S^T scale - lse), dL^T = P^T (dP^T - delta), then
+// dV += bf16(P^T) g and dK += bf16(dL^T) Q with g and Q read MN-major.
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bwd_dkdv_tc_kernel(const __grid_constant__ Maps maps,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk_out,
+                        __nv_bfloat16* __restrict__ dv_out, int N, int H,
+                        int valid, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[5];
+  uint8_t* sm = setup(smem_raw, bars);
+  const int bh = blockIdx.z * H + blockIdx.y, k0 = blockIdx.x * 2 * ROWS;
+  // key tiles past n_valid: no loop, exactly zero dk and dv
+  const int n_qt = k0 < valid ? (N + ROWS - 1) / ROWS : 0;
+  if (threadIdx.x / 32 == PRODUCER_WARP) {
+    if (threadIdx.x % 32 == 0 && n_qt)
+      produce(&maps.k, &maps.v, sm, k0, &maps.q, &maps.g, sm + 4 * BOX, 1,
+              n_qt, bh, bars);
+    return;
+  }
+  const Place p = place();
+  const float sl = scale * LOG2E;
+  const int kr = k0 + p.wg * ROWS + p.r;   // this thread's keys kr, kr + 8
+  const bool key_ok[2] = {kr < valid, kr + 8 < valid};
+  const float* lse_bh = lse + (size_t)bh * N;
+  const float* del_bh = delta + (size_t)bh * N;
+  const uint64_t dkd = sw128_desc(sm + p.wg * BOX);
+  const uint64_t dvd = sw128_desc(sm + (2 + p.wg) * BOX);
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  if (n_qt) mbar_wait(&bars[0], 0);
+
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int s = qt & 1;
+    const uint8_t* st = sm + (4 + 2 * s) * BOX;   // Q box, then g box
+    mbar_wait(&bars[1 + s], (qt >> 1) & 1);
+    const uint64_t dqd = sw128_desc(st), dgd = sw128_desc(st + BOX);
+    float sc[32], dp[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss64(sc, dkd + 2 * kk, dqd + 2 * kk, kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss64(dp, dvd + 2 * kk, dgd + 2 * kk, kk);
+    wg_commit();
+    // the columns' statistics, loaded while the products run
+    const int qc = qt * ROWS + p.c;
+    float L[16], D[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int q = qc + 8 * (i / 2) + (i & 1);
+      L[i] = q < N ? lse_bh[q] * LOG2E : 0.f;
+      D[i] = q < N ? del_bh[q] : 0.f;
+    }
+    wg_wait();
+    pin(sc);
+    pin(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = i / 4, e = i & 1, h = (i >> 1) & 1;
+      const bool ok = key_ok[h] && qc + 8 * j + e < N;
+      const float pr = ok ? ex2(fmaf(sc[i], sl, -L[2 * j + e])) : 0.f;
+      dp[i] = pr * (dp[i] - D[2 * j + e]);
+      sc[i] = pr;
+    }
+    uint32_t pa[4][4], da[4][4];
+    to_a(sc, pa);
+    to_a(dp, da);
+    pin(dv);
+    pin(dk);
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t) wgmma_rs64(dv, pa[t], dgd + 128 * t);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) wgmma_rs64(dk, da[t], dqd + 128 * t);
+    wg_commit();
+    wg_wait();
+    pin(dv);
+    pin(dk);
+    if (p.lane == 0) mbar_arrive(&bars[3 + s]);
+  }
+  const int row0 = k0 + p.wg * ROWS;
+  store_rows(dk, dk_out + (size_t)bh * N * DH, row0, p, N, scale);
+  store_rows(dv, dv_out + (size_t)bh * N * DH, row0, p, N, 1.f);
+}
+
+// Backward, dq for 128 q rows, looping over key tiles of 64: S = Q K^T and
+// dP = g V^T, dL = P (dP - delta), dQ += bf16(dL) K with K read MN-major.
+// A pass of its own, so no atomics: K6 repeats bitwise.
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bwd_dq_tc_kernel(const __grid_constant__ Maps maps,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dq_out, int N, int H,
+                      int valid, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[5];
+  uint8_t* sm = setup(smem_raw, bars);
+  const int bh = blockIdx.z * H + blockIdx.y, q0 = blockIdx.x * 2 * ROWS;
+  const int n_kt = (valid + ROWS - 1) / ROWS;
+  if (threadIdx.x / 32 == PRODUCER_WARP) {
+    if (threadIdx.x % 32 == 0)
+      produce(&maps.q, &maps.g, sm, q0, &maps.k, &maps.v, sm + 4 * BOX, 1,
+              n_kt, bh, bars);
+    return;
+  }
+  const Place p = place();
+  const float sl = scale * LOG2E;
+  const int qr = q0 + p.wg * ROWS + p.r;   // this thread's rows qr, qr + 8
+  bool q_ok[2];
+  float L[2], D[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    q_ok[h] = qr + 8 * h < N;
+    const size_t idx = (size_t)bh * N + (q_ok[h] ? qr + 8 * h : 0);
+    L[h] = lse[idx] * LOG2E;
+    D[h] = delta[idx];
+  }
+  const uint64_t dqd = sw128_desc(sm + p.wg * BOX);
+  const uint64_t dgd = sw128_desc(sm + (2 + p.wg) * BOX);
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  mbar_wait(&bars[0], 0);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt & 1;
+    const uint8_t* st = sm + (4 + 2 * s) * BOX;   // K box, then V box
+    mbar_wait(&bars[1 + s], (kt >> 1) & 1);
+    const uint64_t dkd = sw128_desc(st), dvd = sw128_desc(st + BOX);
+    float sc[32], dp[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss64(sc, dqd + 2 * kk, dkd + 2 * kk, kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss64(dp, dgd + 2 * kk, dvd + 2 * kk, kk);
+    wg_commit();
+    wg_wait();
+    pin(sc);
+    pin(dp);
+    const int kc = kt * ROWS + p.c;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const bool ok = q_ok[h] && kc + 8 * (i / 4) + (i & 1) < valid;
+      const float pr = ok ? ex2(fmaf(sc[i], sl, -L[h])) : 0.f;
+      dp[i] = pr * (dp[i] - D[h]);
+    }
+    uint32_t da[4][4];
+    to_a(dp, da);
+    pin(dq);
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t) wgmma_rs64(dq, da[t], dkd + 128 * t);
+    wg_commit();
+    wg_wait();
+    pin(dq);
+    if (p.lane == 0) mbar_arrive(&bars[3 + s]);
+  }
+  store_rows(dq, dq_out + (size_t)bh * N * DH, q0 + p.wg * ROWS, p, N, scale);
+}
+
+// cuTensorMapEncodeTiled from the driver the process has loaded (no link
+// against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A [BH, N, 64] bf16 tensor as a 3-D map of 64 x 64 boxes, 128-byte
+// swizzled; rows past N read as zeros.
+bool head_map(CUtensorMap* map, const void* base, int BH, int N) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {DH, (cuuint64_t)N, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {DH * 2, (cuuint64_t)N * DH * 2};
+  const cuuint32_t box[3] = {DH, ROWS, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool make_maps(Maps* maps, const void* q, const void* k, const void* v,
+               const void* g, int BH, int N) {
+  return head_map(&maps->q, q, BH, N) && head_map(&maps->k, k, BH, N) &&
+         head_map(&maps->v, v, BH, N) && head_map(&maps->g, g, BH, N);
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int smem, dim3 grid, cudaStream_t stream,
+           Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, THREADS, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+int fwd(const void* q, const void* k, const void* v, void* out, int B, int N,
+        int H, int valid, float scale, cudaStream_t stream) {
+  Maps maps;
+  if (!make_maps(&maps, q, k, v, q, B * H, N))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + 2 * ROWS - 1) / (2 * ROWS), H, B);
+  return launch(attn_fwd_kernel_tc<false>, FWD_SMEM, grid, stream, maps,
+                (const __nv_bfloat16*)nullptr, static_cast<__nv_bfloat16*>(out),
+                (float*)nullptr, (float*)nullptr, N, H, valid, scale);
+}
+
+int bwd(const void* q, const void* k, const void* v, const void* g, void* dq,
+        void* dk, void* dv, float* lse, float* delta, int B, int N, int H,
+        int valid, float scale, cudaStream_t stream) {
+  Maps maps;
+  if (!make_maps(&maps, q, k, v, g, B * H, N))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + 2 * ROWS - 1) / (2 * ROWS), H, B);
+  int err = launch(attn_fwd_kernel_tc<true>, FWD_SMEM, grid, stream, maps,
+                   static_cast<const __nv_bfloat16*>(g),
+                   (__nv_bfloat16*)nullptr, lse, delta, N, H, valid, scale);
+  if (err) return err;
+  err = launch(attn_bwd_dkdv_tc_kernel, BWD_SMEM, grid, stream, maps,
+               (const float*)lse, (const float*)delta,
+               static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+               N, H, valid, scale);
+  if (err) return err;
+  return launch(attn_bwd_dq_tc_kernel, BWD_SMEM, grid, stream, maps,
+                (const float*)lse, (const float*)delta,
+                static_cast<__nv_bfloat16*>(dq), N, H, valid, scale);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. n_valid in [1, N].
@@ -467,28 +1119,29 @@ extern "C" int attn_qkv_bwd(const void* qkv, const void* g, void* dqkv,
                     lse, delta, B, N, H, n_valid, scale, s);
 }
 
-// q, k, v, out: [B, H, N, 64] contiguous.
+// q, k, v, out: [B, H, N, 64] contiguous. bf16 runs on the tensor cores,
+// fp32 on the CUDA cores.
 extern "C" int attn_fwd(const void* q, const void* k, const void* v,
                         void* out, int B, int N, int H, int n_valid,
                         float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1
-      ? launch_fwd(split_operands<__nv_bfloat16>(q, k, v, N, H), out, B, N,
-                   H, n_valid, scale, s)
+      ? tc::fwd(q, k, v, out, B, N, H, n_valid, scale, s)
       : launch_fwd(split_operands<float>(q, k, v, N, H), out, B, N, H,
                    n_valid, scale, s);
 }
 
 // q, k, v, g, dq, dk, dv: [B, H, N, 64] contiguous, the gradients fully
-// written; lse, delta: fp32 scratch of B*H*N each.
+// written; lse, delta: fp32 scratch of B*H*N each. bf16 runs on the tensor
+// cores, fp32 on the CUDA cores.
 extern "C" int attn_bwd(const void* q, const void* k, const void* v,
                         const void* g, void* dq, void* dk, void* dv,
                         float* lse, float* delta, int B, int N, int H,
                         int n_valid, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1
-      ? launch_bwd(split_operands<__nv_bfloat16>(q, k, v, N, H), g, dq, dk,
-                   dv, lse, delta, B, N, H, n_valid, scale, s)
+      ? tc::bwd(q, k, v, g, dq, dk, dv, lse, delta, B, N, H, n_valid, scale,
+                s)
       : launch_bwd(split_operands<float>(q, k, v, N, H), g, dq, dk, dv, lse,
                    delta, B, N, H, n_valid, scale, s);
 }

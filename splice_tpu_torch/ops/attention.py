@@ -13,10 +13,11 @@ the reference chooses them (attention_from_qkv):
     [B, H, N, dh] q, k, v and multi_head_attention runs forward kernel K5
     and backward K6 (replacing _attn_kernel and _attn_bwd_kernel).
 
-All four kernels are in csrc/attention.cu. On CPU tensors the same
-functions run their plain PyTorch versions below, which repeat the
-kernels' arithmetic. A CUDA tensor launches the kernel or raises; there is
-no fallback.
+All four kernels are in csrc/attention.cu. K5/K6 run bf16 on the tensor
+cores and fp32 on the CUDA cores (a route by dtype, not a fallback); K1/K2
+run both types on the CUDA cores. On CPU tensors the same functions run
+their plain PyTorch versions below, which repeat the kernels' arithmetic.
+A CUDA tensor launches the kernel or raises; there is no fallback.
 
 Deviation from the reference, by design: above _MAX_N_PAD the reference
 leaves K5 for XLA attention, because its kernel keeps a whole head's K/V in
@@ -190,9 +191,11 @@ def _split_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float, n_valid: int = 0) -> torch.Tensor:
-    """K5 on the card: [B, H, N, 64] q, k, v -> [B, H, N, 64]."""
-    dtype = _build.check_cuda_tensors("attn_fwd", q, k, v)
+    """K5 on the card: [B, H, N, 64] q, k, v -> [B, H, N, 64]. bf16 runs
+    the tensor-core kernel (also counted in tc_launches), fp32 the
+    CUDA-core one (the tensor cores would round fp32 to TF32)."""
     B, H, N, valid = _split_shape(q, k, v, n_valid)
+    dtype = _build.check_cuda_tensors("attn_fwd", q, k, v)
     out = torch.empty_like(q)
     fn = _build.library("attention").attn_fwd
     fn.restype = ctypes.c_int
@@ -202,23 +205,27 @@ def attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 N, H, valid, float(scale), dtype, _build.stream_ptr(q.device))
     _build.check(status, "attn_fwd")
     attn_fwd_cuda.launches += 1
+    if dtype == _build.DTYPES["bfloat16"]:
+        attn_fwd_cuda.tc_launches += 1
     return out
 
 
 attn_fwd_cuda.launches = 0
+attn_fwd_cuda.tc_launches = 0
 
 
 def attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   g: torch.Tensor, scale: float, n_valid: int = 0):
     """K6 on the card: (q, k, v, g), each [B, H, N, 64] -> (dq, dk, dv) in
     the inputs' type. Three launches (row statistics, dk/dv, dq) counted as
-    one call."""
-    g = g.to(q.dtype).contiguous()
-    dtype = _build.check_cuda_tensors("attn_bwd", q, k, v, g)
+    one call; bf16 on the tensor cores (also counted in tc_launches), fp32
+    on the CUDA cores."""
     B, H, N, valid = _split_shape(q, k, v, n_valid)
     if g.shape != q.shape:
         raise ValueError(f"attn_bwd: cotangent {tuple(g.shape)} vs "
                          f"{tuple(q.shape)}")
+    g = g.to(q.dtype).contiguous()
+    dtype = _build.check_cuda_tensors("attn_bwd", q, k, v, g)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lse = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
@@ -232,10 +239,13 @@ def attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 _build.stream_ptr(q.device))
     _build.check(status, "attn_bwd")
     attn_bwd_cuda.launches += 1
+    if dtype == _build.DTYPES["bfloat16"]:
+        attn_bwd_cuda.tc_launches += 1
     return dq, dk, dv
 
 
 attn_bwd_cuda.launches = 0
+attn_bwd_cuda.tc_launches = 0
 
 
 def attn_qkv_fwd(qkv, num_heads: int, scale: float, n_valid: int = 0):

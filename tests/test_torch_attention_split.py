@@ -53,6 +53,39 @@ def test_split_attention_value_and_grads_match_pallas(N, n_valid):
         assert np.all(tv.grad.numpy()[:, :, n_valid:] == 0.0)
 
 
+@pytest.mark.parametrize("N,n_valid", [(64, 40), (200, 0)])
+def test_split_attention_bf16_matches_pallas(N, n_valid):
+    """bf16, the type the card's tensor-core K5/K6 take: the plain versions
+    round where the reference's kernels round (p before the PV product, dl
+    before the dq and dk products). Tolerances: 8e-3 x max|ref| for the
+    output, 4e-3 x max|ref| for the gradients (two and one bf16 ulps at the
+    largest value: both sides round fp32 sums taken in another order)."""
+    rng = np.random.default_rng(N + n_valid + 1)
+    q, k, v, g = (rng.standard_normal((2, 2, N, 64)).astype(np.float32)
+                  for _ in range(4))
+    jq, jk, jv, jg = (jnp.asarray(t, dtype=jnp.bfloat16) for t in (q, k, v, g))
+    out, vjp = jax.vjp(lambda a, b, c: jattn._pallas_attention(
+        a, b, c, SCALE, n_valid), jq, jk, jv)
+    jgrads = vjp(jg)
+
+    tq, tk, tv = (torch.from_numpy(t).to(torch.bfloat16).requires_grad_(True)
+                  for t in (q, k, v))
+    tout = tattn.multi_head_attention(tq, tk, tv, SCALE, n_valid)
+    tout.backward(torch.from_numpy(g).to(torch.bfloat16))
+    pairs = [("out", tout.detach(), out, 8e-3)] + [
+        (f"d{name}", t.grad, j, 4e-3) for name, t, j in zip("qkv", (tq, tk, tv),
+                                                         jgrads)]
+    for name, t, j, rtol in pairs:
+        assert t.dtype == torch.bfloat16, name
+        ref = np.asarray(j.astype(jnp.float32))
+        np.testing.assert_allclose(t.float().numpy(), ref, rtol=0,
+                                   atol=rtol * np.abs(ref).max(),
+                                   err_msg=name)
+    if n_valid:
+        assert np.all(tk.grad.float().numpy()[:, :, n_valid:] == 0.0)
+        assert np.all(tv.grad.float().numpy()[:, :, n_valid:] == 0.0)
+
+
 def test_plain_split_backward_matches_autograd_of_plain_forward():
     """attention_bwd_plain (K6's plain version) is the derivative of
     attention_plain (K5's) in fp32."""
@@ -131,3 +164,23 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tattn.attn_fwd_cuda(q, q, q, SCALE)
     with pytest.raises(ValueError):
         tattn.attn_bwd_cuda(q, q, q, q, SCALE)
+
+
+@pytest.mark.parametrize("shape,wrong", [
+    ((1, 2, 16, 48), None),                    # head dim 48
+    ((1, 2, 16, 64), (1, 2, 17, 64)),          # k, v one row longer
+    ((1, 2, 16, 64), (1, 3, 16, 64)),          # another head count
+])
+def test_cuda_wrappers_refuse_other_shapes(shape, wrong):
+    """The split kernels take [B, H, N, 64] q, k, v (and g) of one shape;
+    the wrappers refuse anything else before they touch a device."""
+    q = torch.zeros(shape, dtype=torch.bfloat16)
+    kv = torch.zeros(wrong or shape, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="of one shape"):
+        tattn.attn_fwd_cuda(q, kv, kv, SCALE)
+    with pytest.raises(ValueError, match="of one shape"):
+        tattn.attn_bwd_cuda(q, kv, kv, q, SCALE)
+    if wrong is None:
+        return
+    with pytest.raises(ValueError, match="cotangent"):
+        tattn.attn_bwd_cuda(q, q, q, kv, SCALE)
