@@ -4,14 +4,16 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build the hand-written CUDA kernels from splice_tpu_torch/csrc; the
-     bf16 K5/K6 kernels must hold tensor-core instructions (cuobjdump);
+  1. build the hand-written CUDA kernels from splice_tpu_torch/csrc; every
+     tensor-core kernel (the bf16 route of K1/K2 and K5/K6) must hold
+     wgmma instructions (cuobjdump);
   2. hold every kernel against its plain PyTorch version at the shapes the
-     training paths give it (and at small edge-case shapes; K5/K6 in bf16
-     also at N under a tile, one past a tile, B*H = 1 and more seeds, and
-     K6 twice on one input, bitwise equal), and time kernel, plain version
-     and a PyTorch library call that computes the same function (the
-     yardstick only);
+     training paths give it (and at small edge-case shapes; the bf16
+     attention kernels also at N under a tile, one past a tile, B = 1 and
+     2, 6 and 12 heads, masked key blocks and more seeds; K2 and K6 twice
+     on one input, bitwise equal), and time kernel, plain version and a
+     PyTorch library call that computes the same function (the yardstick
+     only); the attention kernels beside their previous kernels' times;
   3. run one regular and one entire-A step at a small size on the card
      (fp32, through the kernels) and on the CPU (plain path) from the same
      parameters and draws, and compare loss and gradient, for
@@ -20,12 +22,13 @@ Phases, each fatal on failure:
   4. the main path: train_pair on the cows pair at full width (896 canvas,
      dino_vitb8 with seeded random weights, 224 loss resolution, bf16) for
      12 steps including entire-A steps; every loss finite, every kernel of
-     the path launched;
+     the path launched, every K1/K2 launch on the tensor cores;
   5. where the time goes: torch.profiler over three more regular steps;
   6. the other paths at the same width, a few steps each including an
      entire-A step, each with its kernels launched and a profile:
      the 480-px loss resolution (3601 and 2701 tokens: split-tensor
-     attention K5/K6, every launch on the tensor cores),
+     attention K5/K6, every launch on the tensor cores; on the 224 paths
+     every K1/K2 launch),
      generator_conv=fused (K3'/K4' with the BatchNorm prologue),
      generator_conv=pallas (every conv on K3/K4, stride 2 at
      k = 2), and fused and pallas with the SAME-border route on (K3'' SAME,
@@ -55,6 +58,11 @@ import time
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 MAIN_STEPS = 12
+# the times PERF.md records at the same shapes for the attention kernels
+# this design replaced, printed beside this run's
+PREVIOUS_MS = {"attn_qkv_fwd": 0.4028, "attn_qkv_bwd": 1.6666,
+          "attn_fwd": 0.2454, "attn_bwd": 1.1383}
+ATTENTION = ("attn_qkv_fwd", "attn_qkv_bwd", "attn_fwd", "attn_bwd")
 # (name, generator_conv, loss resolution, steps, SAME route) of the other
 # paths; step 0 is an entire-A step and warms up, the rest are regular
 PATHS = (("480", "auto", 480, 3, False), ("fused", "fused", 224, 6, False),
@@ -70,17 +78,27 @@ def fail(msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2, repeats: int = 5) -> float:
-    """Median over `repeats` of the mean time of `iters` back-to-back
-    calls, by CUDA events. The plain versions launch many small kernels,
-    so a single batch is at the mercy of the shared host."""
+    """Median over `repeats` of the mean device time of `iters`
+    back-to-back calls, by CUDA events. Before each batch the stream
+    sleeps until the host has queued every call of it, so the time is the
+    device's alone even where a call's host work (the wrapper, ctypes)
+    outlasts its kernels, as it does for K1 at 785 tokens."""
     import torch
+    queue_s = []                  # host time per call, the first allocates
     for _ in range(warmup):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
+        queue_s.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
+    # spin cycles at up to 2 GHz (the H100's SM clock peaks at 1.98), at
+    # most 0.1 s
+    cycles = int(2e9 * min(2 * min(queue_s) * iters + 2e-4, 0.1))
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(iters):
             fn()
@@ -157,7 +175,16 @@ def check_attention(torch, attn, rows):
             d_p = attn.attention_qkv_bwd_plain(qkv, g, H, scale)
             errs["attn_qkv_bwd"] = max(errs["attn_qkv_bwd"], compare(
                 f"K2 attn_qkv_bwd {tag}", d_k, d_p, rtol, why))
-            if (B, N, dtype_name) != (2, 785, "bfloat16"):
+            if dtype_name != "bfloat16":
+                continue
+            check_bitwise(torch, f"K2 {tag}", (d_k,),
+                          (attn.attn_qkv_bwd_cuda(qkv, g, H, scale),))
+            if (B, N) != (2, 785):
+                fl = 4 * B * H * N * N * dh
+                time_kernel("K1", lambda: attn.attn_qkv_fwd_cuda(
+                    qkv, H, scale), fl, tag)
+                time_kernel("K2", lambda: attn.attn_qkv_bwd_cuda(
+                    qkv, g, H, scale), 2.5 * fl, tag)
                 continue
             isz = qkv.element_size()
             q, k, v = [t.contiguous() for t in attn._split_heads(qkv, H)]
@@ -180,6 +207,20 @@ def check_attention(torch, attn, rows):
                 "K2", tag)
     for name in errs:
         rows[name].update(main[name], max_abs_err=errs[name])
+        print_beside_previous(name, rows[name])
+
+
+def time_kernel(kid, call, flops, tag):
+    """An attention kernel timed alone at a shape `timed` leaves out,
+    with TFLOP/s."""
+    ms = time_ms(call)
+    print(f"  time {kid} {tag}: kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s)")
+
+
+def print_beside_previous(name, row):
+    print(f"  {name} {row['shape']}: {row['ms']:.4f} ms this run, "
+          f"{PREVIOUS_MS[name]:.4f} ms for the previous kernels (PERF.md)")
 
 
 def check_split_attention(torch, attn, rows):
@@ -207,6 +248,11 @@ def check_split_attention(torch, attn, rows):
                       attn.attn_bwd_cuda(q, k, v, g, scale))
         del got, want
         if N != 3601:
+            fl = 4 * B * H * N * N * dh
+            time_kernel("K5", lambda: attn.attn_fwd_cuda(q, k, v, scale), fl,
+                        tag)
+            time_kernel("K6", lambda: attn.attn_bwd_cuda(q, k, v, g, scale),
+                        2.5 * fl, tag)
             continue
         isz = q.element_size()
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -228,6 +274,7 @@ def check_split_attention(torch, attn, rows):
         del o, qr, kr, vr
     for name in errs:
         rows[name]["max_abs_err"] = errs[name]
+        print_beside_previous(name, rows[name])
 
 
 # (B, H, N, n_valid, seed) of the tensor-core K5/K6's edge cases: N under
@@ -260,10 +307,44 @@ def check_split_edge_cases(torch, attn):
             fail(f"K6 {tag}: masked keys with nonzero dk or dv")
 
 
+# (B, H, N, n_valid, seed) of the tensor-core K1/K2's edge cases: N under
+# one 64-row box, one past a block of 128 and of 256 rows; B = 1 and 2;
+# ViT-S's 6 heads (D = 384) and ViT-B's 12; masked keys, with key blocks
+# wholly past n_valid in the last case
+QKV_EDGES = ((1, 6, 17, 0, 30), (2, 12, 129, 0, 31), (2, 6, 257, 0, 32),
+             (1, 12, 100, 77, 33), (2, 6, 300, 100, 34))
+
+
+def check_qkv_edge_cases(torch, attn):
+    """The bf16 (tensor-core) K1/K2 at QKV_EDGES against their plain
+    versions, dq, dk and dv compared apart; masked keys get exactly zero dk
+    and dv."""
+    rtol, why = RTOL["bfloat16"]
+    for B, H, N, n_valid, seed in QKV_EDGES:
+        gen = torch.Generator().manual_seed(seed)
+        D = 64 * H
+        qkv = torch.randn(B, N, 3 * D, generator=gen).to("cuda",
+                                                          torch.bfloat16)
+        g = torch.randn(B, N, D, generator=gen).to("cuda", torch.bfloat16)
+        tag = f"[{B},{N},{3 * D}] H={H} n_valid={n_valid} seed {seed} bfloat16"
+        compare(f"K1 {tag}", attn.attn_qkv_fwd_cuda(qkv, H, 0.125, n_valid),
+                attn.attention_qkv_plain(qkv, H, 0.125, n_valid), rtol, why)
+        got = attn.attn_qkv_bwd_cuda(qkv, g, H, 0.125, n_valid)
+        want = attn.attention_qkv_bwd_plain(qkv, g, H, 0.125, n_valid)
+        for i, part in enumerate(("dq", "dk", "dv")):
+            sl = slice(i * D, (i + 1) * D)
+            compare(f"K2 {part} {tag}", got[..., sl], want[..., sl], rtol,
+                    why)
+        if n_valid and not bool((got[:, n_valid:, D:] == 0).all()):
+            fail(f"K2 {tag}: masked keys with nonzero dk or dv")
+
+
 def check_tensor_cores(build):
-    """cuobjdump -sass of the built attention library: each bf16 K5/K6
-    kernel must hold tensor-core instructions (HGMMA: wgmma; HMMA:
-    mma.sync). Prints the counts of every kernel in the library."""
+    """cuobjdump -sass of the built attention library: every tensor-core
+    kernel (a name with "_tc": the bf16 route of K1/K2 and K5/K6) must
+    hold HGMMA (wgmma) instructions, and there must be such kernels.
+    Prints the HGMMA and HMMA (mma.sync) counts of every kernel in the
+    library."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass",
                            str(build._target("attention"))],
@@ -279,8 +360,8 @@ def check_tensor_cores(build):
     tc = [f for f in counts if "_tc" in f]
     for f, (hg, hm) in counts.items():
         print(f"  sass attention {f}: HGMMA {hg}, HMMA {hm}")
-    if len(tc) != 4 or not all(sum(counts[f]) for f in tc):
-        fail(f"the bf16 K5/K6 kernels lack tensor-core instructions: {counts}")
+    if not tc or not all(counts[f][0] for f in tc):
+        fail(f"tensor-core kernels missing or without HGMMA: {counts}")
 
 
 def check_conv(torch, conv, rows):
@@ -808,6 +889,11 @@ def profile_steps(torch, trainer, cfg, n: int = 3) -> None:
           f"kernel time)")
     for t, k in sorted(rows, reverse=True)[:15]:
         print(f"    {t:8.3f} ms  {100 * t / busy:5.1f}%  {k[:90]}")
+    print("  the port's kernels per regular step:")
+    for e in sorted(prof.key_averages(), key=dev_us, reverse=True):
+        if e.device_type == kernel and any(s in e.key for s in OUR_KERNELS):
+            print(f"    {dev_us(e) / 1e3 / n:8.3f} ms  {e.count / n:5.1f} "
+                  f"launches  {e.key[:90]}")
 
 
 def steps_in_turns(torch, runs, n: int = 3, rounds: int = 3) -> dict:
@@ -872,6 +958,18 @@ def zero_counts(kernels) -> None:
             fn.tc_launches = 0
 
 
+def check_tc_launches(kernels, launches, name):
+    """Every launch of the path's attention kernels (K1/K2, or K5/K6 on
+    the 480 path) on the tensor cores: fails otherwise, or when the path
+    launched none."""
+    names = [k for k in ATTENTION if launches[k]]
+    tc = {k: kernels[k][0].tc_launches for k in names}
+    print(f"  tensor-core launches in the {name} path: {tc}")
+    if not names or any(n != launches[k] for k, n in tc.items()):
+        fail(f"{name} path: attention launches off the tensor cores: {tc} "
+             f"of {launches}")
+
+
 def run_path(torch, name, cfg, n_steps, kernels, need, same=False, **kw):
     """train_pair (with the SAME route if `same`) with every launch count
     set to 0 just before and read just after; fails on a non-finite loss or
@@ -882,6 +980,7 @@ def run_path(torch, name, cfg, n_steps, kernels, need, same=False, **kw):
     with same_border(same):
         res = train_pair(cfg, n_steps=n_steps, **kw)
     launches = read_launches(torch, kernels, name, need)
+    check_tc_launches(kernels, launches, name)
     for i, (l, s) in enumerate(zip(res["losses"], res["step_seconds"])):
         print(f"  step {i:2d} {s * 1e3:9.2f} ms "
               + " ".join(f"{k}={v:.5f}" for k, v in l.items()))
@@ -919,6 +1018,7 @@ def run_skip3(torch, cfg, pair, extractor, kernels, need):
                 fail(f"fused_same_skip3: non-finite loss at step {i}: {loss}")
         out = tr.render()
     launches = read_launches(torch, kernels, "fused_same_skip3", need)
+    check_tc_launches(kernels, launches, "fused_same_skip3")
     check_output(torch, "fused_same_skip3", out)
     return launches
 
@@ -998,6 +1098,7 @@ def main() -> int:
     check_conv_s2d(torch, conv, rows)
     check_edge_cases(torch, attn, conv)
     check_split_edge_cases(torch, attn)
+    check_qkv_edge_cases(torch, attn)
     torch.cuda.empty_cache()
     check_conv_same(torch, conv, rows)
     check_same_edge_cases(torch, conv)
@@ -1060,13 +1161,6 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         pres, launches[path] = run_path(torch, path, pcfg, n, kernels,
                                         need[path], same, **shared)
-        if path == "480":
-            # every K5/K6 launch of the path on the tensor cores
-            tc = {k: kernels[k][0].tc_launches for k in ("attn_fwd",
-                                                         "attn_bwd")}
-            print(f"  tensor-core launches in the 480 path: {tc}")
-            if any(n != launches[path][k] for k, n in tc.items()):
-                fail(f"480 path: K5/K6 launches off the tensor cores: {tc}")
         secs = pres["step_seconds"]
         print(f"  steps/s (regular steps 1..{n - 1}): "
               f"{(n - 1) / sum(secs[1:]):.3f}; entire-A step 0 (warm-up): "
@@ -1105,7 +1199,7 @@ def main() -> int:
     for name, (fn, route, source, replaces, path) in kernels.items():
         r = rows[name]
         line.append({"name": name, "route": route, "source": source,
-                     "cores": "tensor core" if name in ("attn_fwd", "attn_bwd")
+                     "cores": "tensor core" if name in ATTENTION
                      else "cuda core",
                      "replaces": replaces, "launches": launches[path][name],
                      "path": path, "max_abs_err": r["max_abs_err"],

@@ -1,5 +1,5 @@
-// Multi-head softmax attention, head dim 64, in two layouts (the CUDA-core
-// templates read both through element strides):
+// Multi-head softmax attention, head dim 64, in two layouts (both sets of
+// kernels read both through element strides):
 //   * fused qkv: q, k and v are column sections of one [B, N, 3D] tensor
 //     (heads contiguous inside each section); the output and the cotangent
 //     g are the head-concatenated [B, N, D];
@@ -29,14 +29,16 @@
 // arithmetic at every N the model runs: the tensor cores' 989 TFLOP/s for
 // bf16, 67 TFLOP/s of fp32 on the CUDA cores.
 //
-// Two sets of kernels, routed by dtype in attn_fwd / attn_bwd:
-//   * bf16 split tensors (K5/K6, the 480-px path) run on the tensor cores
-//     (namespace tc): wgmma products from TMA-loaded, 128-byte-swizzled
-//     shared-memory tiles, fp32 accumulators and softmax in registers, p and
-//     dl rounded to bf16 in registers as the A operand of the next product;
-//   * fp32 inputs, and the fused-qkv layout of K1/K2, run the CUDA-core
-//     templates: fp32 multiply-adds from shared-memory tiles (the tensor
-//     cores would round fp32 to TF32).
+// Two sets of kernels, routed by dtype in every C entry:
+//   * bf16, both layouts (K1/K2 on the 224-px paths, K5/K6 on the 480-px
+//     path), runs on the tensor cores (namespace tc): wgmma products from
+//     TMA-loaded, 128-byte-swizzled shared-memory tiles, fp32 accumulators
+//     and softmax in registers, p and dl rounded to bf16 in registers as
+//     the A operand of the next product. The layout is data: a 4-D tensor
+//     map per operand with the view's strides, so fused qkv is read in
+//     place, with no copy into split heads;
+//   * fp32, both layouts, runs the CUDA-core templates: fp32 multiply-adds
+//     from shared-memory tiles (the tensor cores would round fp32 to TF32).
 //
 // Design, both sets: the forward is flash-style, one block per (q tile,
 // head, batch) with an online softmax over key tiles, so any N works (the
@@ -447,26 +449,42 @@ Operands<T> split_operands(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 split attention on the tensor cores (K5 attn_fwd, K6 attn_bwd)
+// bf16 attention on the tensor cores: K1 attn_qkv_fwd and K5 attn_fwd, K2
+// attn_qkv_bwd and K6 attn_bwd
 // ---------------------------------------------------------------------------
-// Every block has two consumer warpgroups (warps 0-7), each owning a 64-row
-// slice of the block's 128 rows, and one producer warp (warp 8) whose lane 0
-// issues TMA copies. An operand is a [B*H, N, 64] bf16 tensor read through a
-// 3-D tensor map in boxes of 64 rows x 128 bytes, 128-byte swizzled; rows
-// past N arrive as zeros. The block's own 128 rows of one or two operands
-// are loaded once ("resident"); the rows it loops over stream through a
-// two-stage ring guarded by full (TMA bytes landed) and empty (all eight
-// consumer warps done) mbarriers.
+// One set of kernels serves both layouts; the layout is data. Each operand
+// (q, k, v, g) is read through a 4-D tensor map {64, N, H, B} with the
+// byte strides of its view (row, head, batch): {128, 128 N, 128 H N} for a
+// split [B, H, N, 64] tensor; {6D, 128, 6ND} for a section of fused qkv
+// (its base at column 0, D or 2D); {2D, 128, 2ND} for the [B, N, D]
+// cotangent g. Boxes are 64 rows x 128 bytes, 128-byte swizzled, so they
+// land in shared memory alike for both layouts; rows past N arrive as
+// zeros. The outputs (out; dq, dk, dv) and the statistics pass's read of g
+// are plain global accesses through the element strides of Operands.
+//
+// A block owns 64 rows: one consumer warpgroup (warps 0-3) and one
+// producer warp (warp 4) whose lane 0 issues TMA copies. The block's own
+// rows of one or two operands are loaded once ("resident"); the rows it
+// loops over stream through a two-stage ring guarded by full (TMA bytes
+// landed) and empty (every consumer warp done) mbarriers. Two blocks fit
+// an SM. Against a 128-row form (two consumer warpgroups, one block per
+// SM) this form measured faster or level at every shape of the paths (785
+// and 1037 tokens fused, 3601 and 2701 split; PERF.md, §6).
 namespace tc {
 
-constexpr int ROWS = 64;               // rows of a box and of a warpgroup tile
+constexpr int ROWS = 64;               // rows of a box and of a block
 constexpr int BOX = ROWS * DH * 2;     // bytes of one box
-constexpr int THREADS = 288;           // 2 consumer warpgroups, 1 producer warp
-constexpr int PRODUCER_WARP = 8;
 constexpr float LOG2E = 1.4426950408889634f;
-// dynamic shared memory: 10 boxes forward, 8 backward, plus 1 KB to align
-constexpr int FWD_SMEM = 10 * BOX + 1024;
-constexpr int BWD_SMEM = 8 * BOX + 1024;
+constexpr int THREADS = 160;
+constexpr int PRODUCER_WARP = 4;
+// ptxas caps registers at 168 so that two blocks fit an SM (three warps of
+// the two blocks share one of the SM's four 16K-register quarters)
+constexpr int MIN_BLOCKS = 2;
+// dynamic shared memory, plus 1 KB to align. Forward: the resident q box,
+// two stages of 128 keys (2 K boxes, 2 V boxes). Backward: 2 resident
+// boxes, two stages of one box of each streamed operand.
+constexpr int FWD_SMEM = 9 * BOX + 1024;
+constexpr int BWD_SMEM = 6 * BOX + 1024;
 
 struct Maps {
   CUtensorMap q, k, v, g;
@@ -500,14 +518,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// Rows [row, row + 64) of head bh of `map` into the box at dst.
+// Rows [row, row + 64) of head h of batch b of `map` into the box at dst.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int row, int bh) {
+                                         uint64_t* bar, int row, int h,
+                                         int b) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_addr(bar)), "r"(0), "r"(row), "r"(bh)
+         "r"(smem_addr(bar)), "r"(0), "r"(row), "r"(h), "r"(b)
       : "memory");
 }
 
@@ -645,63 +664,61 @@ __device__ __forceinline__ void to_a(const float (&d)[n],
   }
 }
 
-// A consumer thread's place: warpgroup wg; it holds rows r and r + 8 of
-// its warpgroup's 64-row tile and, in each 8-column block j, the columns
-// 8j + c and 8j + c + 1.
+// A consumer thread's place: it holds rows r and r + 8 of the block's
+// 64-row tile and, in each 8-column block j, the columns 8j + c and
+// 8j + c + 1.
 struct Place {
-  int wg, r, c, lane;
+  int r, c, lane;
 };
 __device__ __forceinline__ Place place() {
-  const int t = threadIdx.x & 127, lane = threadIdx.x & 31;
-  return {static_cast<int>(threadIdx.x >> 7), 16 * (t >> 5) + (lane >> 2),
-          2 * (lane & 3), lane};
+  const int lane = threadIdx.x & 31;
+  return {16 * (threadIdx.x >> 5) + (lane >> 2), 2 * (lane & 3), lane};
 }
 
 // Rows row0 + r and row0 + r + 8 of a 64 x 64 accumulator times mul, as
-// bf16, into the rows below n of `out` (a head's [N, 64] rows).
+// bf16, into the rows below n of `out` (one head's rows, `stride` elements
+// apart).
 __device__ __forceinline__ void store_rows(const float (&d)[32],
-                                           __nv_bfloat16* out, int row0,
+                                           __nv_bfloat16* out,
+                                           long long stride, int row0,
                                            const Place& p, int n, float mul) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + p.r + 8 * h;
     if (row >= n) continue;
-    uint32_t* o = reinterpret_cast<uint32_t*>(out + (size_t)row * DH + p.c);
+    uint32_t* o = reinterpret_cast<uint32_t*>(out + row * stride + p.c);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       o[4 * j] = pack_bf16(d[4 * j + 2 * h] * mul, d[4 * j + 2 * h + 1] * mul);
   }
 }
 
-// bars: resident, full[2], empty[2]. Returns the 1024-aligned dynamic
-// shared memory.
+// bars: resident, full[2], empty[2] (one arrival per consumer warp).
+// Returns the 1024-aligned dynamic shared memory.
 __device__ __forceinline__ uint8_t* setup(uint8_t* raw, uint64_t* bars) {
   if (threadIdx.x == 0) {
     mbar_init(&bars[0], 1);
     mbar_init(&bars[1], 1);
     mbar_init(&bars[2], 1);
-    mbar_init(&bars[3], 8);
-    mbar_init(&bars[4], 8);
+    mbar_init(&bars[3], 4);
+    mbar_init(&bars[4], 4);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   return raw + ((1024u - (smem_addr(raw) & 1023u)) & 1023u);
 }
 
-// The producer (one thread): rows [row0, row0 + 128) of ra (and rb) into
+// The producer (one thread): rows [row0, row0 + 64) of ra (and rb) into
 // res once; then, for i < n, `boxes` boxes of rows from i * boxes * 64 of
 // sa and of sb into ring stage i % 2, once its previous tile is released.
+// All of head h of batch b.
 __device__ __forceinline__ void produce(
     const CUtensorMap* ra, const CUtensorMap* rb, uint8_t* res, int row0,
     const CUtensorMap* sa, const CUtensorMap* sb, uint8_t* ring, int boxes,
-    int n, int bh, uint64_t* bars) {
-  mbar_arrive_tx(&bars[0], (rb ? 4 : 2) * BOX);
-  tma_load(res, ra, &bars[0], row0, bh);
-  tma_load(res + BOX, ra, &bars[0], row0 + ROWS, bh);
-  if (rb) {
-    tma_load(res + 2 * BOX, rb, &bars[0], row0, bh);
-    tma_load(res + 3 * BOX, rb, &bars[0], row0 + ROWS, bh);
-  }
+    int n, int h, int b, uint64_t* bars) {
+  mbar_arrive_tx(&bars[0], (rb ? 2 : 1) * BOX);
+  tma_load(res, ra, &bars[0], row0, h, b);
+  if (rb) tma_load(res + BOX, rb, &bars[0], row0, h, b);
   for (int i = 0; i < n; ++i) {
     const int s = i & 1;
     if (i >= 2) mbar_wait(&bars[3 + s], ((i >> 1) - 1) & 1);
@@ -709,20 +726,20 @@ __device__ __forceinline__ void produce(
     mbar_arrive_tx(&bars[1 + s], 2 * boxes * BOX);
     for (int j = 0; j < boxes; ++j) {
       const int row = (i * boxes + j) * ROWS;
-      tma_load(st + j * BOX, sa, &bars[1 + s], row, bh);
-      tma_load(st + (boxes + j) * BOX, sb, &bars[1 + s], row, bh);
+      tma_load(st + j * BOX, sa, &bars[1 + s], row, h, b);
+      tma_load(st + (boxes + j) * BOX, sb, &bars[1 + s], row, h, b);
     }
   }
 }
 
-// Forward (STATS = false): out = softmax(q k^T * scale) v for 128 q rows,
+// Forward (STATS = false): out = softmax(q k^T * scale) v for 64 q rows,
 // over key tiles of 128 (S on m64n128k16, P V on m64n64k16 with P from
 // registers), online softmax in the log2 domain. STATS = true (the
 // backward's first pass): lse (natural log) and delta = g . o per row
-// instead of out; g is read from global memory.
+// instead of out; g is read from global memory. out and g: strides os.
 template <bool STATS>
-__global__ void __launch_bounds__(THREADS, 1)
-attn_fwd_kernel_tc(const __grid_constant__ Maps maps,
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+attn_fwd_kernel_tc(const __grid_constant__ Maps maps, Strides os,
                    const __nv_bfloat16* __restrict__ g,
                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                    float* __restrict__ delta, int N, int H, int valid,
@@ -730,12 +747,12 @@ attn_fwd_kernel_tc(const __grid_constant__ Maps maps,
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[5];
   uint8_t* sm = setup(smem_raw, bars);
-  const int bh = blockIdx.z * H + blockIdx.y, q0 = blockIdx.x * 2 * ROWS;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ROWS;
   const int n_kt = (valid + 2 * ROWS - 1) / (2 * ROWS);
   if (threadIdx.x / 32 == PRODUCER_WARP) {
     if (threadIdx.x % 32 == 0)
-      produce(&maps.q, nullptr, sm, q0, &maps.k, &maps.v, sm + 2 * BOX, 2,
-              n_kt, bh, bars);
+      produce(&maps.q, nullptr, sm, q0, &maps.k, &maps.v, sm + BOX, 2, n_kt,
+              h, b, bars);
     return;
   }
   const Place p = place();
@@ -743,12 +760,12 @@ attn_fwd_kernel_tc(const __grid_constant__ Maps maps,
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  const uint64_t dq = sw128_desc(sm + p.wg * BOX);
+  const uint64_t dq = sw128_desc(sm);
   mbar_wait(&bars[0], 0);
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = kt & 1;
-    const uint8_t* st = sm + (2 + 4 * s) * BOX;   // K: 2 boxes, then V: 2
+    const uint8_t* st = sm + (1 + 4 * s) * BOX;   // K: 2 boxes, then V: 2
     mbar_wait(&bars[1 + s], (kt >> 1) & 1);
     float sc[64];
     const uint64_t dk = sw128_desc(st);
@@ -774,17 +791,17 @@ attn_fwd_kernel_tc(const __grid_constant__ Maps maps,
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
     float alpha[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float mn = fmaxf(m[h], quad_max(mx[h]) * sl);
-      alpha[h] = ex2(m[h] - mn);
-      m[h] = mn;
-      l[h] *= alpha[h];
+    for (int e = 0; e < 2; ++e) {
+      const float mn = fmaxf(m[e], quad_max(mx[e]) * sl);
+      alpha[e] = ex2(m[e] - mn);
+      m[e] = mn;
+      l[e] *= alpha[e];
     }
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
-      const int h = (i >> 1) & 1;
-      sc[i] = ex2(fmaf(sc[i], sl, -m[h]));
-      l[h] += sc[i];   // this thread's part of the row sum, unrounded p
+      const int e = (i >> 1) & 1;
+      sc[i] = ex2(fmaf(sc[i], sl, -m[e]));
+      l[e] += sc[i];   // this thread's part of the row sum, unrounded p
     }
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
@@ -802,43 +819,43 @@ attn_fwd_kernel_tc(const __grid_constant__ Maps maps,
   }
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) l[h] = quad_sum(l[h]);
-  const int row0 = q0 + p.wg * ROWS;
+  for (int e = 0; e < 2; ++e) l[e] = quad_sum(l[e]);
   if (!STATS) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] = o[i] / l[(i >> 1) & 1];
-    store_rows(o, out + (size_t)bh * N * DH, row0, p, N, 1.f);
+    store_rows(o, out + os.at(b, h, 0), os.sr, q0, p, N, 1.f);
     return;
   }
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + p.r + 8 * h;
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + p.r + 8 * e;
     float part = 0.f;
     if (row < N) {
       const __nv_bfloat162* gr = reinterpret_cast<const __nv_bfloat162*>(
-          g + ((size_t)bh * N + row) * DH + p.c);
+          g + os.at(b, h, row) + p.c);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float2 gv = __bfloat1622float2(gr[4 * j]);
-        part += gv.x * (o[4 * j + 2 * h] / l[h]) +
-                gv.y * (o[4 * j + 2 * h + 1] / l[h]);
+        part += gv.x * (o[4 * j + 2 * e] / l[e]) +
+                gv.y * (o[4 * j + 2 * e + 1] / l[e]);
       }
     }
     part = quad_sum(part);   // all lanes take part in the shuffle
     if (row < N && (p.lane & 3) == 0) {
-      const size_t idx = (size_t)bh * N + row;
-      lse[idx] = (m[h] + log2f(l[h])) / LOG2E;
+      const size_t idx = ((size_t)b * H + h) * N + row;
+      lse[idx] = (m[e] + log2f(l[e])) / LOG2E;
       delta[idx] = part;
     }
   }
 }
 
-// Backward, dk and dv for 128 keys, looping over q tiles of 64: per tile
+// Backward, dk and dv for 64 keys, looping over q tiles of 64: per tile
 // S^T = K Q^T and dP^T = V g^T (m64n64k16, both operands in shared
 // memory), P^T = exp(S^T scale - lse), dL^T = P^T (dP^T - delta), then
 // dV += bf16(P^T) g and dK += bf16(dL^T) Q with g and Q read MN-major.
-__global__ void __launch_bounds__(THREADS, 1)
-attn_bwd_dkdv_tc_kernel(const __grid_constant__ Maps maps,
+// dk and dv: strides in.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+attn_bwd_dkdv_tc_kernel(const __grid_constant__ Maps maps, Strides in,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dk_out,
@@ -847,23 +864,22 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ Maps maps,
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[5];
   uint8_t* sm = setup(smem_raw, bars);
-  const int bh = blockIdx.z * H + blockIdx.y, k0 = blockIdx.x * 2 * ROWS;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * ROWS;
   // key tiles past n_valid: no loop, exactly zero dk and dv
   const int n_qt = k0 < valid ? (N + ROWS - 1) / ROWS : 0;
   if (threadIdx.x / 32 == PRODUCER_WARP) {
     if (threadIdx.x % 32 == 0 && n_qt)
-      produce(&maps.k, &maps.v, sm, k0, &maps.q, &maps.g, sm + 4 * BOX, 1,
-              n_qt, bh, bars);
+      produce(&maps.k, &maps.v, sm, k0, &maps.q, &maps.g, sm + 2 * BOX, 1,
+              n_qt, h, b, bars);
     return;
   }
   const Place p = place();
   const float sl = scale * LOG2E;
-  const int kr = k0 + p.wg * ROWS + p.r;   // this thread's keys kr, kr + 8
+  const int kr = k0 + p.r;   // this thread's keys kr, kr + 8
   const bool key_ok[2] = {kr < valid, kr + 8 < valid};
-  const float* lse_bh = lse + (size_t)bh * N;
-  const float* del_bh = delta + (size_t)bh * N;
-  const uint64_t dkd = sw128_desc(sm + p.wg * BOX);
-  const uint64_t dvd = sw128_desc(sm + (2 + p.wg) * BOX);
+  const float* lse_bh = lse + ((size_t)b * H + h) * N;
+  const float* del_bh = delta + ((size_t)b * H + h) * N;
+  const uint64_t dkd = sw128_desc(sm), dvd = sw128_desc(sm + BOX);
   float dk[32], dv[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
@@ -871,7 +887,7 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ Maps maps,
 
   for (int qt = 0; qt < n_qt; ++qt) {
     const int s = qt & 1;
-    const uint8_t* st = sm + (4 + 2 * s) * BOX;   // Q box, then g box
+    const uint8_t* st = sm + (2 + 2 * s) * BOX;   // Q box, then g box
     mbar_wait(&bars[1 + s], (qt >> 1) & 1);
     const uint64_t dqd = sw128_desc(st), dgd = sw128_desc(st + BOX);
     float sc[32], dp[32];
@@ -897,8 +913,8 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ Maps maps,
     pin(dp);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const int j = i / 4, e = i & 1, h = (i >> 1) & 1;
-      const bool ok = key_ok[h] && qc + 8 * j + e < N;
+      const int j = i / 4, e = i & 1, r = (i >> 1) & 1;
+      const bool ok = key_ok[r] && qc + 8 * j + e < N;
       const float pr = ok ? ex2(fmaf(sc[i], sl, -L[2 * j + e])) : 0.f;
       dp[i] = pr * (dp[i] - D[2 * j + e]);
       sc[i] = pr;
@@ -919,16 +935,16 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ Maps maps,
     pin(dk);
     if (p.lane == 0) mbar_arrive(&bars[3 + s]);
   }
-  const int row0 = k0 + p.wg * ROWS;
-  store_rows(dk, dk_out + (size_t)bh * N * DH, row0, p, N, scale);
-  store_rows(dv, dv_out + (size_t)bh * N * DH, row0, p, N, 1.f);
+  store_rows(dk, dk_out + in.at(b, h, 0), in.sr, k0, p, N, scale);
+  store_rows(dv, dv_out + in.at(b, h, 0), in.sr, k0, p, N, 1.f);
 }
 
-// Backward, dq for 128 q rows, looping over key tiles of 64: S = Q K^T and
-// dP = g V^T, dL = P (dP - delta), dQ += bf16(dL) K with K read MN-major.
-// A pass of its own, so no atomics: K6 repeats bitwise.
-__global__ void __launch_bounds__(THREADS, 1)
-attn_bwd_dq_tc_kernel(const __grid_constant__ Maps maps,
+// Backward, dq for 64 q rows, looping over key tiles of 64: S = Q K^T
+// and dP = g V^T, dL = P (dP - delta), dQ += bf16(dL) K with K read
+// MN-major. A pass of its own, so no atomics: K2 and K6 repeat bitwise.
+// dq: strides in.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+attn_bwd_dq_tc_kernel(const __grid_constant__ Maps maps, Strides in,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       __nv_bfloat16* __restrict__ dq_out, int N, int H,
@@ -936,28 +952,27 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ Maps maps,
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[5];
   uint8_t* sm = setup(smem_raw, bars);
-  const int bh = blockIdx.z * H + blockIdx.y, q0 = blockIdx.x * 2 * ROWS;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ROWS;
   const int n_kt = (valid + ROWS - 1) / ROWS;
   if (threadIdx.x / 32 == PRODUCER_WARP) {
     if (threadIdx.x % 32 == 0)
-      produce(&maps.q, &maps.g, sm, q0, &maps.k, &maps.v, sm + 4 * BOX, 1,
-              n_kt, bh, bars);
+      produce(&maps.q, &maps.g, sm, q0, &maps.k, &maps.v, sm + 2 * BOX, 1,
+              n_kt, h, b, bars);
     return;
   }
   const Place p = place();
   const float sl = scale * LOG2E;
-  const int qr = q0 + p.wg * ROWS + p.r;   // this thread's rows qr, qr + 8
+  const int qr = q0 + p.r;   // this thread's rows qr, qr + 8
   bool q_ok[2];
   float L[2], D[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    q_ok[h] = qr + 8 * h < N;
-    const size_t idx = (size_t)bh * N + (q_ok[h] ? qr + 8 * h : 0);
-    L[h] = lse[idx] * LOG2E;
-    D[h] = delta[idx];
+  for (int e = 0; e < 2; ++e) {
+    q_ok[e] = qr + 8 * e < N;
+    const size_t idx = ((size_t)b * H + h) * N + (q_ok[e] ? qr + 8 * e : 0);
+    L[e] = lse[idx] * LOG2E;
+    D[e] = delta[idx];
   }
-  const uint64_t dqd = sw128_desc(sm + p.wg * BOX);
-  const uint64_t dgd = sw128_desc(sm + (2 + p.wg) * BOX);
+  const uint64_t dqd = sw128_desc(sm), dgd = sw128_desc(sm + BOX);
   float dq[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dq[i] = 0.f;
@@ -965,7 +980,7 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ Maps maps,
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = kt & 1;
-    const uint8_t* st = sm + (4 + 2 * s) * BOX;   // K box, then V box
+    const uint8_t* st = sm + (2 + 2 * s) * BOX;   // K box, then V box
     mbar_wait(&bars[1 + s], (kt >> 1) & 1);
     const uint64_t dkd = sw128_desc(st), dvd = sw128_desc(st + BOX);
     float sc[32], dp[32];
@@ -983,10 +998,10 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ Maps maps,
     const int kc = kt * ROWS + p.c;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const int h = (i >> 1) & 1;
-      const bool ok = q_ok[h] && kc + 8 * (i / 4) + (i & 1) < valid;
-      const float pr = ok ? ex2(fmaf(sc[i], sl, -L[h])) : 0.f;
-      dp[i] = pr * (dp[i] - D[h]);
+      const int e = (i >> 1) & 1;
+      const bool ok = q_ok[e] && kc + 8 * (i / 4) + (i & 1) < valid;
+      const float pr = ok ? ex2(fmaf(sc[i], sl, -L[e])) : 0.f;
+      dp[i] = pr * (dp[i] - D[e]);
     }
     uint32_t da[4][4];
     to_a(dp, da);
@@ -999,7 +1014,7 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ Maps maps,
     pin(dq);
     if (p.lane == 0) mbar_arrive(&bars[3 + s]);
   }
-  store_rows(dq, dq_out + (size_t)bh * N * DH, q0 + p.wg * ROWS, p, N, scale);
+  store_rows(dq, dq_out + in.at(b, h, 0), in.sr, q0, p, N, scale);
 }
 
 // cuTensorMapEncodeTiled from the driver the process has loaded (no link
@@ -1022,67 +1037,84 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A [BH, N, 64] bf16 tensor as a 3-D map of 64 x 64 boxes, 128-byte
-// swizzled; rows past N read as zeros.
-bool head_map(CUtensorMap* map, const void* base, int BH, int N) {
+// One operand view (element strides s, base at its section) as a 4-D map
+// {64, N, H, B} of 64 x 64 boxes, 128-byte swizzled; rows past N read as
+// zeros. TMA refuses a base that is not 16-byte aligned or a stride that
+// is not a multiple of 16 bytes: then this returns false.
+bool head_map(CUtensorMap* map, const void* base, const Strides& s, int B,
+              int H, int N) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
-  const cuuint64_t dims[3] = {DH, (cuuint64_t)N, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {DH * 2, (cuuint64_t)N * DH * 2};
-  const cuuint32_t box[3] = {DH, ROWS, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  const cuuint64_t dims[4] = {DH, (cuuint64_t)N, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s.sr * 2, (cuuint64_t)s.sh * 2,
+                                 (cuuint64_t)s.sb * 2};
+  const cuuint32_t box[4] = {DH, ROWS, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-bool make_maps(Maps* maps, const void* q, const void* k, const void* v,
-               const void* g, int BH, int N) {
-  return head_map(&maps->q, q, BH, N) && head_map(&maps->k, k, BH, N) &&
-         head_map(&maps->v, v, BH, N) && head_map(&maps->g, g, BH, N);
+using Op = Operands<__nv_bfloat16>;
+
+// q, k, v through op.in; g (the backward's cotangent) through op.os. The
+// forward loads no g, and its map repeats q's.
+bool make_maps(Maps* maps, const Op& op, const void* g, int B, int H,
+               int N) {
+  if (!head_map(&maps->q, op.q, op.in, B, H, N) ||
+      !head_map(&maps->k, op.k, op.in, B, H, N) ||
+      !head_map(&maps->v, op.v, op.in, B, H, N))
+    return false;
+  if (!g) {
+    maps->g = maps->q;
+    return true;
+  }
+  return head_map(&maps->g, g, op.os, B, H, N);
 }
 
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int smem, dim3 grid, cudaStream_t stream,
-           Args... args) {
+int launch(Kernel kernel, int threads, int smem, dim3 grid,
+           cudaStream_t stream, Args... args) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, THREADS, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
-int fwd(const void* q, const void* k, const void* v, void* out, int B, int N,
-        int H, int valid, float scale, cudaStream_t stream) {
+int fwd(const Op& op, void* out, int B, int N, int H, int valid, float scale,
+        cudaStream_t stream) {
   Maps maps;
-  if (!make_maps(&maps, q, k, v, q, B * H, N))
+  if (!make_maps(&maps, op, nullptr, B, H, N))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + 2 * ROWS - 1) / (2 * ROWS), H, B);
-  return launch(attn_fwd_kernel_tc<false>, FWD_SMEM, grid, stream, maps,
-                (const __nv_bfloat16*)nullptr, static_cast<__nv_bfloat16*>(out),
-                (float*)nullptr, (float*)nullptr, N, H, valid, scale);
+  const dim3 grid((N + ROWS - 1) / ROWS, H, B);
+  return launch(attn_fwd_kernel_tc<false>, THREADS, FWD_SMEM, grid, stream,
+                maps, op.os, (const __nv_bfloat16*)nullptr,
+                static_cast<__nv_bfloat16*>(out), (float*)nullptr,
+                (float*)nullptr, N, H, valid, scale);
 }
 
-int bwd(const void* q, const void* k, const void* v, const void* g, void* dq,
-        void* dk, void* dv, float* lse, float* delta, int B, int N, int H,
-        int valid, float scale, cudaStream_t stream) {
+// dq, dk, dv share the layout of q, k, v (op.in); g that of the output.
+int bwd(const Op& op, const void* g, void* dq, void* dk, void* dv,
+        float* lse, float* delta, int B, int N, int H, int valid,
+        float scale, cudaStream_t stream) {
   Maps maps;
-  if (!make_maps(&maps, q, k, v, g, B * H, N))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + 2 * ROWS - 1) / (2 * ROWS), H, B);
-  int err = launch(attn_fwd_kernel_tc<true>, FWD_SMEM, grid, stream, maps,
-                   static_cast<const __nv_bfloat16*>(g),
+  if (!make_maps(&maps, op, g, B, H, N)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + ROWS - 1) / ROWS, H, B);
+  int err = launch(attn_fwd_kernel_tc<true>, THREADS, FWD_SMEM, grid, stream,
+                   maps, op.os, static_cast<const __nv_bfloat16*>(g),
                    (__nv_bfloat16*)nullptr, lse, delta, N, H, valid, scale);
   if (err) return err;
-  err = launch(attn_bwd_dkdv_tc_kernel, BWD_SMEM, grid, stream, maps,
-               (const float*)lse, (const float*)delta,
-               static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-               N, H, valid, scale);
+  err = launch(attn_bwd_dkdv_tc_kernel, THREADS, BWD_SMEM, grid, stream, maps,
+               op.in, (const float*)lse, (const float*)delta,
+               static_cast<__nv_bfloat16*>(dk),
+               static_cast<__nv_bfloat16*>(dv), N, H, valid, scale);
   if (err) return err;
-  return launch(attn_bwd_dq_tc_kernel, BWD_SMEM, grid, stream, maps,
-                (const float*)lse, (const float*)delta,
+  return launch(attn_bwd_dq_tc_kernel, THREADS, BWD_SMEM, grid, stream, maps,
+                op.in, (const float*)lse, (const float*)delta,
                 static_cast<__nv_bfloat16*>(dq), N, H, valid, scale);
 }
 
@@ -1090,19 +1122,23 @@ int bwd(const void* q, const void* k, const void* v, const void* g, void* dq,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. n_valid in [1, N].
+// dtype: 0 = float32, 1 = bfloat16; bf16 runs on the tensor cores, fp32 on
+// the CUDA cores. n_valid in [1, N].
+
+// qkv: [B, N, 3D] contiguous; out: [B, N, D].
 extern "C" int attn_qkv_fwd(const void* qkv, void* out, int B, int N, int H,
                             int n_valid, float scale, int dtype,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1
-      ? launch_fwd(fused_operands<__nv_bfloat16>(qkv, N, H), out, B, N, H,
-                   n_valid, scale, s)
+      ? tc::fwd(fused_operands<__nv_bfloat16>(qkv, N, H), out, B, N, H,
+                n_valid, scale, s)
       : launch_fwd(fused_operands<float>(qkv, N, H), out, B, N, H, n_valid,
                    scale, s);
 }
 
-// lse, delta: fp32 scratch of B*H*N each. dqkv: [B, N, 3D], fully written.
+// g: [B, N, D]; dqkv: [B, N, 3D], fully written; lse, delta: fp32 scratch
+// of B*H*N each.
 extern "C" int attn_qkv_bwd(const void* qkv, const void* g, void* dqkv,
                             float* lse, float* delta, int B, int N, int H,
                             int n_valid, float scale, int dtype,
@@ -1111,37 +1147,37 @@ extern "C" int attn_qkv_bwd(const void* qkv, const void* g, void* dqkv,
   const size_t D = (size_t)H * DH;
   if (dtype == 1) {
     __nv_bfloat16* d = static_cast<__nv_bfloat16*>(dqkv);
-    return launch_bwd(fused_operands<__nv_bfloat16>(qkv, N, H), g, d, d + D,
-                      d + 2 * D, lse, delta, B, N, H, n_valid, scale, s);
+    return tc::bwd(fused_operands<__nv_bfloat16>(qkv, N, H), g, d, d + D,
+                   d + 2 * D, lse, delta, B, N, H, n_valid, scale, s);
   }
   float* d = static_cast<float*>(dqkv);
   return launch_bwd(fused_operands<float>(qkv, N, H), g, d, d + D, d + 2 * D,
                     lse, delta, B, N, H, n_valid, scale, s);
 }
 
-// q, k, v, out: [B, H, N, 64] contiguous. bf16 runs on the tensor cores,
-// fp32 on the CUDA cores.
+// q, k, v, out: [B, H, N, 64] contiguous.
 extern "C" int attn_fwd(const void* q, const void* k, const void* v,
                         void* out, int B, int N, int H, int n_valid,
                         float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1
-      ? tc::fwd(q, k, v, out, B, N, H, n_valid, scale, s)
+      ? tc::fwd(split_operands<__nv_bfloat16>(q, k, v, N, H), out, B, N, H,
+                n_valid, scale, s)
       : launch_fwd(split_operands<float>(q, k, v, N, H), out, B, N, H,
                    n_valid, scale, s);
 }
 
 // q, k, v, g, dq, dk, dv: [B, H, N, 64] contiguous, the gradients fully
-// written; lse, delta: fp32 scratch of B*H*N each. bf16 runs on the tensor
-// cores, fp32 on the CUDA cores.
+// written; lse, delta: fp32 scratch of B*H*N each.
 extern "C" int attn_bwd(const void* q, const void* k, const void* v,
                         const void* g, void* dq, void* dk, void* dv,
                         float* lse, float* delta, int B, int N, int H,
-                        int n_valid, float scale, int dtype, void* stream) {
+                        int n_valid, float scale, int dtype,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1
-      ? tc::bwd(q, k, v, g, dq, dk, dv, lse, delta, B, N, H, n_valid, scale,
-                s)
+      ? tc::bwd(split_operands<__nv_bfloat16>(q, k, v, N, H), g, dq, dk, dv,
+                lse, delta, B, N, H, n_valid, scale, s)
       : launch_bwd(split_operands<float>(q, k, v, N, H), g, dq, dk, dv, lse,
                    delta, B, N, H, n_valid, scale, s);
 }

@@ -83,3 +83,64 @@ def test_cpu_tensors_never_reach_the_kernel_wrappers():
     assert tattn.attn_qkv_fwd_cuda.launches == before
     with pytest.raises(ValueError):
         tattn.attn_qkv_fwd_cuda(torch.from_numpy(qkv), HEADS, SCALE)
+
+
+@pytest.mark.parametrize("N,n_valid", [(64, 40), (200, 0)])
+def test_qkv_attention_bf16_matches_pallas(N, n_valid):
+    """bf16, the type the card's tensor-core K1/K2 take: the plain versions
+    round where the reference's fused-qkv kernels round (p before the PV
+    product, dl before the dq and dk products). Tolerances: 8e-3 x max|ref|
+    for the output, 4e-3 x max|ref| for the gradient (two and one bf16
+    ulps at the largest value: both sides round fp32 sums taken in another
+    order)."""
+    qkv, g = _inputs(2, N, seed=N + n_valid + 1)
+    jq, jg = (jnp.asarray(t, dtype=jnp.bfloat16) for t in (qkv, g))
+    out, vjp = jax.vjp(lambda x: jattn.attention_from_qkv(
+        x, HEADS, SCALE, use_pallas=True, n_valid=n_valid), jq)
+    (jd,) = vjp(jg)
+    assert jattn.qkv_attention_supported(jq, HEADS)
+
+    x = torch.from_numpy(qkv).to(torch.bfloat16).requires_grad_(True)
+    tout = tattn.attention_from_qkv(x, HEADS, SCALE, n_valid=n_valid)
+    tout.backward(torch.from_numpy(g).to(torch.bfloat16))
+    for name, t, j, rtol in (("out", tout.detach(), out, 8e-3),
+                             ("dqkv", x.grad, jd, 4e-3)):
+        assert t.dtype == torch.bfloat16, name
+        ref = np.asarray(j.astype(jnp.float32))
+        np.testing.assert_allclose(t.float().numpy(), ref, rtol=0,
+                                   atol=rtol * np.abs(ref).max(),
+                                   err_msg=name)
+    if n_valid:   # masked keys and values take no part
+        assert np.all(x.grad.float().numpy()[:, n_valid:, D:] == 0.0)
+
+
+def _view(shape, offset=0):
+    """A contiguous bf16 tensor of `shape` starting `offset` elements into
+    its storage, as a slice of a larger buffer is."""
+    base = torch.zeros(int(np.prod(shape)) + offset, dtype=torch.bfloat16)
+    return base[offset:].view(*shape)
+
+
+@pytest.mark.parametrize("what,view", [
+    ("2-byte offset", lambda: _view((2, 16, 3 * D), offset=1)),
+    ("8-byte offset", lambda: _view((2, 16, 3 * D), offset=4)),
+    ("split heads at a 6-byte offset", lambda: _view((2, 2, 16, 64),
+                                                      offset=3)),
+])
+def test_tma_check_refuses_views_the_tensor_cores_cannot_read(what, view):
+    """TMA reads and writes 16-byte aligned tensors; check_tma_operands
+    refuses a contiguous tensor at any other address before a launch (the
+    wrappers never copy one)."""
+    t = view()
+    assert t.is_contiguous(), what
+    with pytest.raises(ValueError, match="16-byte"):
+        tattn.check_tma_operands("attn_qkv_fwd", t)
+
+
+def test_tma_check_takes_the_paths_tensors():
+    """Whole tensors and 16-byte-aligned slices of the layouts the kernels
+    take pass: fused qkv, its cotangent, split heads, a batch of qkv."""
+    qkv = _view((2, 16, 3 * D))
+    batch = _view((3, 16, 3 * D), offset=16 * 3 * D)
+    tattn.check_tma_operands("attn_qkv_fwd", qkv, qkv[1:], batch,
+                             _view((2, 16, D)), _view((2, 2, 16, 64)))
