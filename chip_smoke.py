@@ -4,16 +4,22 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build the hand-written CUDA kernels from splice_tpu_torch/csrc; every
-     tensor-core kernel (the bf16 route of K1/K2 and K5/K6) must hold
-     wgmma instructions (cuobjdump);
+  1. build the hand-written CUDA kernels from splice_tpu_torch/csrc and
+     print each kernel's registers and spills; every tensor-core kernel
+     must hold tensor-core instructions (cuobjdump): wgmma (HGMMA) in the
+     bf16 route of K1/K2 and K5/K6, mma.sync (HMMA) in the bf16 route of
+     K4 and K7, and neither in the fp32 weight-gradient kernels;
   2. hold every kernel against its plain PyTorch version at the shapes the
      training paths give it (and at small edge-case shapes; the bf16
      attention kernels also at N under a tile, one past a tile, B = 1 and
-     2, 6 and 12 heads, masked key blocks and more seeds; K2 and K6 twice
-     on one input, bitwise equal), and time kernel, plain version and a
-     PyTorch library call that computes the same function (the yardstick
-     only); the attention kernels beside their previous kernels' times;
+     2, 6 and 12 heads, masked key blocks and more seeds; the bf16 weight
+     gradients at W = 37, H < k, odd stride-2 sizes, Cin 3 and 136, Cout
+     3 and 128, k = 1, 2, 3, two BatchNorm stacks with a scale of 1e-13,
+     VALID K7 and the entire-A generator's B = 1 shapes from 900 x 1200;
+     K2, K6, K4 in each form and K7 twice on one input, bitwise equal),
+     and time kernel, plain version and a PyTorch library call that
+     computes the same function (the yardstick only); the redesigned
+     kernels beside their previous kernels' times;
   3. run one regular and one entire-A step at a small size on the card
      (fp32, through the kernels) and on the CPU (plain path) from the same
      parameters and draws, and compare loss and gradient, for
@@ -35,7 +41,8 @@ Phases, each fatal on failure:
      K3''' in-kernel BatchNorm statistics, K7 cotangent-tapped dw), plus a
      few fused SAME steps of a generator with 3x3 skip convs, the one
      configuration whose fused sites reach K3'' SAME with a prologue and
-     without statistics;
+     without statistics; on every path every bf16 attention and weight-
+     gradient launch counts in its wrapper's tc_launches;
   7. the step time of generator_conv auto, fused and pallas, fused and
      pallas with the SAME route, and fused with the SAME route but
      ops.conv.DW_TAP_ON_N off (K4 for the dw that K7 takes otherwise: an
@@ -58,11 +65,16 @@ import time
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 MAIN_STEPS = 12
-# the times PERF.md records at the same shapes for the attention kernels
-# this design replaced, printed beside this run's
+# the times PERF.md records at the same shapes for the kernels that the
+# tensor-core designs replaced (bf16 on the CUDA cores), printed beside
+# this run's
 PREVIOUS_MS = {"attn_qkv_fwd": 0.4028, "attn_qkv_bwd": 1.6666,
-          "attn_fwd": 0.2454, "attn_bwd": 1.1383}
+               "attn_fwd": 0.2454, "attn_bwd": 1.1383, "conv_dw": 1.9185,
+               "conv_dw_pro": 2.1197, "conv_dw_s2d": 0.1504,
+               "conv_dw_gtap": 2.1107}
 ATTENTION = ("attn_qkv_fwd", "attn_qkv_bwd", "attn_fwd", "attn_bwd")
+# the weight-gradient wrappers: bf16 on the tensor cores, fp32 not
+DW = ("conv_dw", "conv_dw_pro", "conv_dw_s2d", "conv_dw_gtap")
 # (name, generator_conv, loss resolution, steps, SAME route) of the other
 # paths; step 0 is an entire-A step and warms up, the rest are regular
 PATHS = (("480", "auto", 480, 3, False), ("fused", "fused", 224, 6, False),
@@ -339,15 +351,11 @@ def check_qkv_edge_cases(torch, attn):
             fail(f"K2 {tag}: masked keys with nonzero dk or dv")
 
 
-def check_tensor_cores(build):
-    """cuobjdump -sass of the built attention library: every tensor-core
-    kernel (a name with "_tc": the bf16 route of K1/K2 and K5/K6) must
-    hold HGMMA (wgmma) instructions, and there must be such kernels.
-    Prints the HGMMA and HMMA (mma.sync) counts of every kernel in the
-    library."""
+def sass_counts(build, lib):
+    """{kernel: [HGMMA, HMMA]} instruction counts of the built library
+    `lib` (cuobjdump -sass), printed."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass",
-                           str(build._target("attention"))],
+    sass = subprocess.run([cuobjdump, "-sass", str(build._target(lib))],
                           capture_output=True, text=True, timeout=300).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
@@ -357,11 +365,42 @@ def check_tensor_cores(build):
         elif fn is not None:
             counts[fn][0] += "HGMMA" in line
             counts[fn][1] += "HMMA" in line
-    tc = [f for f in counts if "_tc" in f]
     for f, (hg, hm) in counts.items():
-        print(f"  sass attention {f}: HGMMA {hg}, HMMA {hm}")
-    if not tc or not all(counts[f][0] for f in tc):
-        fail(f"tensor-core kernels missing or without HGMMA: {counts}")
+        print(f"  sass {lib} {f}: HGMMA {hg}, HMMA {hm}")
+    return counts
+
+
+def check_tensor_cores(build):
+    """Every tensor-core kernel (a name with "_tc") must hold its
+    instructions: HGMMA (wgmma) in the attention library's (the bf16 route
+    of K1/K2 and K5/K6), HMMA (mma.sync) in the conv library's (the bf16
+    route of K4 and K7); each library must have such kernels, and the
+    fp32 weight-gradient kernels (K4's and K7's CUDA-core passes) hold
+    neither."""
+    att = sass_counts(build, "attention")
+    tc = [f for f in att if "_tc" in f]
+    if not tc or not all(att[f][0] for f in tc):
+        fail(f"attention tensor-core kernels missing or without HGMMA: {att}")
+    cnv = sass_counts(build, "conv")
+    tc = [f for f in cnv if "_tc" in f]
+    if not tc or not all(cnv[f][1] for f in tc):
+        fail(f"conv tensor-core kernels missing or without HMMA: {cnv}")
+    fp32_dw = [f for f in cnv if "conv_dw_partial" in f
+               or "conv_dw_gtap_kernel" in f or "conv_dw_reduce" in f]
+    if not fp32_dw or any(sum(cnv[f]) for f in fp32_dw):
+        fail(f"fp32 weight-gradient kernels missing or on the tensor cores: "
+             f"{ {f: cnv[f] for f in fp32_dw} }")
+
+
+def print_ptxas(build):
+    """Registers, stack and spills of every kernel, from the build logs."""
+    for name in build.SOURCES:
+        fn = None
+        for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif fn and ("spill" in line or "registers" in line):
+                print(f"  ptxas {name} {fn}: {line.split(':', 1)[-1].strip()}")
 
 
 def check_conv(torch, conv, rows):
@@ -386,10 +425,13 @@ def check_conv(torch, conv, rows):
         errs["conv_valid"] = max(errs["conv_valid"], compare(
             f"K3 conv_valid dx {tag}", conv.conv_valid_cuda(g, w_flip, 1),
             conv.conv_valid_plain(g, w_flip, 1), rtol, why))
+        dw = conv.conv_dw_cuda(x, g, k, 1)
         errs["conv_dw"] = max(errs["conv_dw"], compare(
-            f"K4 conv_dw {tag}", conv.conv_dw_cuda(x, g, k, 1),
+            f"K4 conv_dw {tag}", dw,
             conv.conv_dw_plain(F.pad(x, (1, 1, 1, 1)), g, k),
             RTOL["float32"][0], DW_WHY))
+        check_bitwise(torch, f"K4 {tag}", (dw,),
+                      (conv.conv_dw_cuda(x, g, k, 1),))
         isz = x.element_size()
         flops = 2 * B * hw * hw * cout * cin * k * k
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
@@ -448,10 +490,13 @@ def check_conv_pro(torch, conv, rows):
         errs["conv_valid_pro"] = max(errs["conv_valid_pro"], compare(
             f"K3' pro {tag}", conv.conv_valid_pro_cuda(x, w, sc, sh, ns, pad),
             conv.conv_valid_pro_plain(x, w, sc, sh, ns, pad), rtol, why))
+        dw = conv.conv_dw_pro_cuda(x, g, k, sc, sh, ns, pad)
         errs["conv_dw_pro"] = max(errs["conv_dw_pro"], compare(
-            f"K4' pro {tag}", conv.conv_dw_pro_cuda(x, g, k, sc, sh, ns, pad),
+            f"K4' pro {tag}", dw,
             conv.conv_dw_pro_plain(x, g, k, sc, sh, ns, pad),
             RTOL["float32"][0], DW_WHY))
+        check_bitwise(torch, f"K4' pro {tag}", (dw,),
+                      (conv.conv_dw_pro_cuda(x, g, k, sc, sh, ns, pad),))
         isz = x.element_size()
         flops = 2 * B * hw * hw * cout * cin * k * k + 3 * x.numel()
         z = conv.prologue_plain(x, sc, sh, ns)
@@ -496,10 +541,13 @@ def check_conv_s2d(torch, conv, rows):
             f"K3 s2d {tag}", conv.conv_valid_s2d_cuda(x, wk, 1, (ho, ho)),
             conv.conv_valid_pro_plain(x, wk, None, None, 1.0, 1, 2, (ho, ho)),
             rtol, why))
+        dw = conv.conv_dw_s2d_cuda(x, g, 2, 1)
         errs["conv_dw_s2d"] = max(errs["conv_dw_s2d"], compare(
-            f"K4 s2d {tag}", conv.conv_dw_s2d_cuda(x, g, 2, 1),
+            f"K4 s2d {tag}", dw,
             conv.conv_dw_pro_plain(x, g, 2, None, None, 1.0, 1, 2),
             RTOL["float32"][0], DW_WHY))
+        check_bitwise(torch, f"K4 s2d {tag}", (dw,),
+                      (conv.conv_dw_s2d_cuda(x, g, 2, 1),))
         isz = x.element_size()
         flops = 2 * B * ho * ho * cout * cin * 9      # the 9 real taps
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
@@ -605,6 +653,22 @@ def check_conv_same(torch, conv, rows):
         check_bitwise(torch, f"K3''' {tag}", st,
                       conv.conv_same_pro_stats_cuda(x, w, sc, sh, ns))
         del st
+        if not gtap:
+            # K4's SAME form: the dw that _gtap_better leaves with K4
+            for pro in (False, True):
+                ptag = f"{tag}{' pro' if pro else ''}"
+
+                def k4_same():
+                    if pro:
+                        return conv.conv_dw_pro_cuda(x, g, k, sc, sh, ns, 1)
+                    return conv.conv_dw_cuda(x, g, k, 1)
+
+                dw = k4_same()
+                compare(f"K4 SAME form {ptag}", dw, conv.conv_dw_pro_plain(
+                    x, g, k, *((sc, sh, ns) if pro else (None, None, 1.0)),
+                    1), RTOL["float32"][0], DW_WHY)
+                check_bitwise(torch, f"K4 SAME form {ptag}", (dw,),
+                              (k4_same(),))
         if gtap:
             for pro in (False, True):
                 a = (sc, sh, ns) if pro else (None, None, 1.0)
@@ -700,6 +764,84 @@ def check_same_edge_cases(torch, conv):
                     DW_WHY)
             compare(f"K7 {tag} against K4", conv.conv_dw_gtap_cuda(xp, g, k),
                     conv.conv_dw_cuda(xp, g, k), RTOL["float32"][0], DW_WHY)
+
+
+# bf16 (tensor-core) K4/K7 edge cases: (label, B, Cin, Cout, H, W, k, pad,
+# stride, BatchNorm stacks, K7). W = 37 and H < k; Cout 3 (out_conv) and
+# 128, Cin 3 and 136; k = 1, 2, 3; stride 2 at odd sizes; two stacks; VALID
+# K7 (border 0) at k = 2 and 3; the entire-A generator at B = 1 from the
+# 900 x 1200 image: widths 1200, 600 and its deeper odd ones (75), heights
+# 900 and 113.
+DW_EDGES = (
+    ("W=37", 2, 20, 40, 9, 37, 3, 1, 1, 0, False),
+    ("H<k", 2, 20, 40, 2, 37, 3, 1, 1, 2, False),
+    ("out_conv", 2, 16, 3, 33, 37, 1, 0, 1, 2, False),
+    ("Cin 136 Cout 128", 2, 136, 128, 14, 14, 3, 1, 1, 2, False),
+    ("Cin 3", 2, 3, 16, 20, 37, 3, 1, 1, 0, False),
+    ("k=2 VALID", 2, 20, 24, 11, 39, 2, 0, 1, 2, False),
+    ("s2d odd", 2, 3, 16, 13, 37, 3, 1, 2, 0, False),
+    ("s2d odd pro", 2, 16, 32, 19, 75, 3, 1, 2, 2, False),
+    ("K7 SAME W=37", 2, 20, 40, 9, 37, 3, 1, 1, 2, True),
+    ("K7 SAME H<k", 2, 20, 40, 2, 37, 3, 1, 1, 0, True),
+    ("K7 VALID k=3", 2, 20, 40, 11, 39, 3, 0, 1, 2, True),
+    ("K7 VALID k=2", 2, 20, 40, 11, 39, 2, 0, 1, 0, True),
+    ("entire-A up_conv s0", 1, 36, 16, 900, 1200, 3, 1, 1, 1, False),
+    ("entire-A up_conv s1", 1, 68, 32, 450, 600, 3, 1, 1, 1, False),
+    ("entire-A up_conv s4", 1, 132, 128, 57, 75, 3, 1, 1, 1, False),
+    ("entire-A stem", 1, 3, 16, 900, 1200, 3, 1, 2, 0, False),
+    ("entire-A down_conv1 s3", 1, 64, 128, 113, 150, 3, 1, 2, 1, False),
+    ("entire-A K7 up_conv s0", 1, 36, 16, 900, 1200, 3, 1, 1, 1, True),
+)
+
+
+def tc_dw_launches(conv) -> int:
+    """Tensor-core launches of the weight-gradient wrappers so far."""
+    return sum(getattr(conv, f"{name}_cuda").tc_launches for name in DW)
+
+
+def check_dw_tc_edge_cases(torch, conv):
+    """The bf16 weight-gradient kernels at DW_EDGES against their plain
+    versions (fp32 sums: 1e-4 x max|plain|), every launch on the tensor
+    cores; stride 2 as the k2 phase-image dw, a scale of 1e-13 and a
+    negative one in the first stack."""
+    gen = torch.Generator().manual_seed(9)
+    rtol = RTOL["float32"][0]
+    for label, B, cin, cout, h, w, k, pad, stride, G, gtap in DW_EDGES:
+        x = torch.randn(B, cin, h, w, generator=gen).to("cuda", torch.bfloat16)
+        ho = (h + 2 * pad - k) // stride + 1
+        wo = (w + 2 * pad - k) // stride + 1
+        kk = (k + 1) // 2 if stride == 2 else k
+        g = torch.randn(B, cout, ho, wo, generator=gen).to("cuda",
+                                                           torch.bfloat16)
+        a = (None, None, 1.0)
+        if G:
+            sc = (0.5 + torch.rand(G, cin, generator=gen)).cuda()
+            sc[0, 0] = 1e-13
+            sc[0, cin - 1] = -0.7
+            a = (sc, torch.randn(G, cin, generator=gen).cuda(), 0.2)
+        tag = (f"{label} [{B},{cin},{h},{w}]->[{B},{cout},{ho},{wo}] k={k} "
+               f"pad={pad} stride={stride} G={G} bfloat16")
+        tc = tc_dw_launches(conv)
+        if gtap:
+            got = conv.conv_dw_gtap_cuda(x, g, k, *a, pad)
+            want = conv.conv_dw_gtap_plain(x, g, k, *a, pad)
+            name = "K7"
+        elif G:
+            got = conv.conv_dw_pro_cuda(x, g, kk, *a, pad, stride)
+            want = conv.conv_dw_pro_plain(x, g, kk, *a, pad, stride)
+            name = "K4' pro"
+        elif stride == 2:
+            got = conv.conv_dw_s2d_cuda(x, g, kk, pad)
+            want = conv.conv_dw_pro_plain(x, g, kk, *a, pad, 2)
+            name = "K4 s2d"
+        else:
+            got = conv.conv_dw_cuda(x, g, kk, pad)
+            want = conv.conv_dw_pro_plain(x, g, kk, *a, pad)
+            name = "K4"
+        compare(f"{name} {tag}", got, want, rtol, DW_WHY)
+        if tc_dw_launches(conv) != tc + 1:
+            fail(f"{name} {tag}: the bf16 launch was not on the tensor cores")
+        del x, g, got, want
 
 
 def check_edge_cases(torch, attn, conv):
@@ -960,14 +1102,16 @@ def zero_counts(kernels) -> None:
 
 def check_tc_launches(kernels, launches, name):
     """Every launch of the path's attention kernels (K1/K2, or K5/K6 on
-    the 480 path) on the tensor cores: fails otherwise, or when the path
-    launched none."""
-    names = [k for k in ATTENTION if launches[k]]
+    the 480 path) and of its weight-gradient kernels (K4 in each form, K7;
+    every path runs a bf16 generator) on the tensor cores: fails
+    otherwise, or when the path launched no attention kernel."""
+    att = [k for k in ATTENTION if launches.get(k)]
+    names = att + [k for k in DW if launches.get(k)]
     tc = {k: kernels[k][0].tc_launches for k in names}
     print(f"  tensor-core launches in the {name} path: {tc}")
-    if not names or any(n != launches[k] for k, n in tc.items()):
-        fail(f"{name} path: attention launches off the tensor cores: {tc} "
-             f"of {launches}")
+    if not att or any(n != launches[k] for k, n in tc.items()):
+        fail(f"{name} path: attention or weight-gradient launches off the "
+             f"tensor cores: {tc} of {launches}")
 
 
 def run_path(torch, name, cfg, n_steps, kernels, need, same=False, **kw):
@@ -1046,10 +1190,7 @@ def main() -> int:
     _build.build_all()
     print(f"  built and loaded {', '.join(_build.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s")
-    for name in _build.SOURCES:
-        for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "wgmma" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    print_ptxas(_build)
     check_tensor_cores(_build)
 
     # name -> (wrapper, route, source, the TPU kernel it replaces, the path
@@ -1102,6 +1243,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_conv_same(torch, conv, rows)
     check_same_edge_cases(torch, conv)
+    check_dw_tc_edge_cases(torch, conv)
     torch.cuda.empty_cache()
     for name, r in rows.items():
         b, by = bound_ms(r["nbytes"], r["flops"], r["dtype"])
@@ -1109,6 +1251,8 @@ def main() -> int:
         print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
               f"bound {b:.4f} ms ({by})")
+        if name in DW:
+            print_beside_previous(name, r)
 
     print("phase 3: small step, card against CPU")
     check_small_step(torch)
@@ -1199,7 +1343,7 @@ def main() -> int:
     for name, (fn, route, source, replaces, path) in kernels.items():
         r = rows[name]
         line.append({"name": name, "route": route, "source": source,
-                     "cores": "tensor core" if name in ATTENTION
+                     "cores": "tensor core" if name in ATTENTION + DW
                      else "cuda core",
                      "replaces": replaces, "launches": launches[path][name],
                      "path": path, "max_abs_err": r["max_abs_err"],

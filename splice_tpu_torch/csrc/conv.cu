@@ -64,28 +64,29 @@
 //
 // What bounds it on the H100: at the generator's sites (Cin 3-136, Cout
 // 3-128, outputs up to 896x896, bf16) a call moves 10-170 MB and does up to
-// 17 GFLOP, so at the tensor cores' rate the bound is the memory traffic.
-// This first version does the multiply-adds in fp32 on the CUDA cores, so
-// it is bound by arithmetic instead; PERF.md records the gap and the
-// tensor-core (implicit-GEMM wgmma) version is later work.
+// 17 GFLOP: about 100 flop per byte, under the bf16 tensor cores' ridge of
+// about 295, so on the tensor cores the bound is the memory traffic, on
+// the CUDA cores the arithmetic. K3 (both types) and the fp32 K4/K7 do the
+// multiply-adds in fp32 on the CUDA cores; PERF.md records the gap.
 //
 // K3 design: a block owns an 8 x 32 tile of output pixels (one per thread)
 // and a chunk of COB output channels (fp32 accumulators in registers). It
 // walks the virtual channels in chunks of 8: the input tile with its (k-1)
 // halo and the weights of the chunk go to shared memory through the
 // mapping, so any height and width work (898, 1202, ...).
-// K4 design: the TPU kernel reduced B*H*W pixels into one accumulator over a
-// sequential grid. Here pass 1 splits the pixels into row chunks; a block
-// owns (row chunk, Cin chunk, Cout chunk), each thread one (c, co) pair
-// with its k*k tap sums, and writes its partial sums to an fp32 scratch
-// [chunks, k*k*Cin*Cout]. Pass 2 adds the chunks in a fixed order: no
-// atomics, so a seeded run repeats bit for bit.
-// K7 design: as K4, but the chunks split V's rows, the input tile has no
-// halo and the cotangent tile carries it (K-1 rows above, K-1 columns to
+// fp32 K4 design: the TPU kernel reduced B*H*W pixels into one accumulator
+// over a sequential grid. Here pass 1 splits the pixels into row chunks; a
+// block owns (row chunk, Cin chunk, Cout chunk), each thread one (c, co)
+// pair with its k*k tap sums, and writes its partial sums to an fp32
+// scratch [chunks, k*k*Cin*Cout]. Pass 2 adds the chunks in a fixed order:
+// no atomics, so a seeded run repeats bit for bit.
+// fp32 K7 design: as K4, but the chunks split V's rows, the input tile has
+// no halo and the cotangent tile carries it (K-1 rows above, K-1 columns to
 // the left); each thread owns one ci and the K*K (tap, co) accumulators of
 // its co, so one value of z feeds K*K multiply-adds from shared memory.
-// It reuses K4's pass 2. Bound like K3/K4: fp32 CUDA-core arithmetic, far
-// above the bytes it must move.
+// It reuses K4's pass 2.
+// bf16 K4 and K7 (namespace dwtc) run on the tensor cores: one implicit
+// GEMM serves both, described above conv_dw_tc_kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -542,6 +543,552 @@ Src make_src(const float* scale, const float* shift, int B, int Cin, int H,
   return {Cin, H, W, pad, stride, scale, shift, B / groups, negslope};
 }
 
+// ---------------------------------------------------------------------------
+// bf16 K4 and K7 on the tensor cores: one implicit GEMM for both.
+//
+// Both contract a tap-shifted operand S with an unshifted one U over the
+// pixels p of U's extent [Hp, Wp]:
+//   D[(t, s), u] = sum_p S[s, p + (dy, dx)] * U[u, p],  t = dy*K + dx,
+// M = K*K*Cs rows (tap-major), N = Cu columns, the pixels the contraction.
+//   * K4: S = V (x through Src: border, prologue, phases), Cs = s*s*Cin;
+//     U = g, Cu = Cout, [Hp, Wp] = [Ho, Wo]. D is dw [k, k, Cs, Cout].
+//   * K7: S = g read with a border of K-1 (zero outside g), Cs = Cout; U = V
+//     (through Src), Cu = Cin, [Hp, Wp] = [Ho+K-1, Wo+K-1]. D[(t', co), ci]
+//     is dw_t[ci, t'*Cout + co]: the reduce transposes.
+// Layout of the work: mma.sync m16n8k16 (bf16 in, fp32 accumulators in
+// registers). The work is memory-bound (about 100 flop per byte against
+// the tensor cores' ridge of about 295), so mma.sync's rate is enough, and
+// its A fragment can be built in registers: two consecutive pixels of one
+// row of S, a 32-bit word at any element offset. For an odd offset (odd
+// dx, or an odd column origin) the word is cut from two aligned shared-
+// memory words by one byte permute (__byte_perm, prmt); a dy shift is a
+// whole row. No descriptor or ldmatrix needs the 16-byte alignment that a
+// one-element shift breaks. Putting Cout on M instead would waste 75% of
+// each 64-row wgmma at Cout = 16.
+// A block owns a strip (rows x cols pixels of one image), cb channels of S
+// (all K*K taps: M = K*K*cb rows) and 8*NB channels of U. It walks the strip
+// in stages of TR x TC pixels: S's tile with its (K-1) halo and U's tile
+// go to shared memory as bf16 through Src, then every warp runs its
+// mma.sync steps on the stage. A tile starts up to 7 columns left of its
+// stage, so that its source rows are read as aligned 16-byte vectors by
+// cp.async (zero-filled outside x; the prologue is then applied in shared
+// memory, to x's own pixels only). Where that cannot be (stride 2's phase
+// images, a width not a multiple of 8, an unaligned tensor) each warp
+// reads 4 lines of up to 96 pixels element by element through Src before
+// it converts and stores them. The warps split M (wm groups of units:
+// K m16 tiles, one per tap column dx, whose A fragments share one window
+// of each row of S; see conv_dw_tc_kernel) and the stage's pixel rows
+// (8 / wm groups); each strip's block adds its row groups' sums in order through shared memory
+// and writes one fp32 partial [M, N] (no atomics); conv_dw_sum_kernel adds
+// the strips' partials in a fixed order, so a seeded run repeats bit for
+// bit. U is zero past the strip's rows and past Wp, so a ragged last k16
+// step adds zeros (rows past a strip's end belong to the next strip). The
+// grid is sized by the wrapper (ops/conv.py dw_tc_tiling) to about two
+// waves of blocks.
+// ---------------------------------------------------------------------------
+namespace dwtc {
+
+using bf16 = __nv_bfloat16;
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int TR = 8;      // pixel rows of a stage (ops/conv.py DW_TC_ROWS)
+constexpr int TC = 64;     // pixel columns of a stage (DW_TC_COLS)
+constexpr int ACC = 16;    // m16n8 accumulator tiles a warp holds (DW_TC_ACC)
+constexpr int LINES = 4;   // lines a warp loads before it stores them
+constexpr int SLACK = 16;  // elements after S's tile: odd reads past its end
+
+// Elements of one channel's plane of rows x cols: a word count of 4 mod 8,
+// so that 8 consecutive channels start in 8 distinct groups of 4 banks
+// (ops/conv.py dw_tc_plane).
+__host__ __device__ __forceinline__ int plane_elems(int rows, int cols) {
+  int w = (rows * cols + 1) / 2;
+  w += ((4 - w) % 8 + 8) % 8;
+  return 2 * w;
+}
+
+// Row stride of both tiles: a tile starts up to 7 columns left of the
+// stage (its first source column a multiple of 8, for 16-byte loads), and
+// S adds a halo of K-1 <= 2, so TC + 16 columns hold every read
+// (ops/conv.py DW_TC_TILE_COLS).
+constexpr int SC = TC + 16;
+
+// How far left of the stage a tile starts: its first source column
+// vx0 - pad then falls on a multiple of 8 (stride 1; the phase images of
+// stride 2 are read element by element from the stage itself).
+__host__ __device__ __forceinline__ int lead(const Src& s) {
+  return s.stride == 1 ? ((-s.pad) % 8 + 8) % 8 : 0;
+}
+
+// Units (16 rows of S times the K taps dx) a warp holds for NB n8 tiles:
+// at most ACC accumulator tiles, and at most 2 (the shared memory holds
+// at most 75 channels of S, under 16 units: 8 warp groups of 2 take them)
+// (ops/conv.py dw_tc_units_per_warp).
+__host__ __device__ constexpr int units_per_warp(int k, int nb) {
+  return ACC / (k * nb) < 2 ? ACC / (k * nb) : 2;
+}
+
+// Lines (channel, row) of x read through s into dst[c][row][col] (plane
+// and row strides in elements): nch channels from c0, nrows rows from vy0,
+// ncols (<= 96) columns from vx0, in s's V coordinates; zero where s says
+// and at rows >= ylim or columns >= xlim. The prologue and its bf16
+// rounding are load_v's.
+template <int NROWS>
+__device__ __forceinline__ void stage(const bf16* __restrict__ x,
+                                      const Src& s, int b, int c0, int nch,
+                                      int vy0, int vx0, int ncols, int plane,
+                                      int rs, int ylim, int xlim, bf16* dst,
+                                      int warp, int lane) {
+  const int nlines = nch * NROWS;
+  for (int l0 = warp * LINES; l0 < nlines; l0 += WARPS * LINES) {
+    bf16 raw[LINES][3];
+    float sc[LINES], sh[LINES];
+    bool ok[LINES][3];
+#pragma unroll
+    for (int u = 0; u < LINES; ++u) {
+      const int line = l0 + u;
+      const int c = line / NROWS, ly = line - c * NROWS;
+      int ci = c0 + c, py = 0, px = 0;
+      if (s.stride == 2) {
+        const int ph = ci / s.cin;
+        ci -= ph * s.cin;
+        py = ph >> 1;
+        px = ph & 1;
+      }
+      const int vy = vy0 + ly;
+      const int r = s.stride * vy + py - s.pad;
+      const bool row_ok = line < nlines && vy < ylim && r >= 0 && r < s.H;
+      const size_t base = row_ok ? (((size_t)b * s.cin + ci) * s.H + r) * s.W : 0;
+      sc[u] = 1.f;
+      sh[u] = 0.f;
+      if (s.scale != nullptr && row_ok) {
+        const int row = (b / s.per_group) * s.cin + ci;
+        sc[u] = s.scale[row];
+        sh[u] = s.shift[row];
+      }
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const int j = lane + 32 * m, vx = vx0 + j;
+        const int col = s.stride * vx + px - s.pad;
+        ok[u][m] = row_ok && j < ncols && vx < xlim && col >= 0 && col < s.W;
+        raw[u][m] = ok[u][m] ? x[base + col] : __float2bfloat16(0.f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < LINES; ++u) {
+      const int line = l0 + u;
+      if (line >= nlines) break;
+      const int c = line / NROWS, ly = line - c * NROWS;
+      bf16* d = dst + c * plane + ly * rs;
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const int j = lane + 32 * m;
+        if (j >= ncols) break;
+        bf16 v = raw[u][m];
+        if (ok[u][m] && s.scale != nullptr) {
+          // two roundings, no fma: the plain version's x*scale + shift
+          float z = __fadd_rn(__fmul_rn(__bfloat162float(v), sc[u]), sh[u]);
+          if (s.negslope != 1.f) z = z >= 0.f ? z : z * s.negslope;
+          v = __float2bfloat16(z);
+        }
+        d[j] = v;
+      }
+    }
+  }
+}
+
+// z of one bf16 pair (a 32-bit word) through the prologue, element j
+// kept where keep >> j & 1, else 0.
+__device__ __forceinline__ uint32_t pro_pair(uint32_t w, const Src& s,
+                                             float sc, float sh, int keep) {
+  float v[2] = {__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u)};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (s.scale != nullptr) {
+      // two roundings, no fma: the plain version's x*scale + shift
+      v[j] = __fadd_rn(__fmul_rn(v[j], sc), sh);
+      if (s.negslope != 1.f && !(v[j] >= 0.f)) v[j] *= s.negslope;
+    }
+    if (!(keep >> j & 1)) v[j] = 0.f;
+  }
+  __nv_bfloat162 p = __floats2bfloat162_rn(v[0], v[1]);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// stage() by 16-byte asynchronous copies (cp.async, zero-filled where the
+// vector is outside x, past ylim or from xlim on): 8 columns from vx0 + 8v
+// for v < SC / 8. Needs stride 1, W a multiple of 8, x 16-byte aligned
+// and vx0 - s.pad a multiple of 8 (a vector then lies wholly inside or
+// outside x's columns). The caller commits and waits, then runs
+// fix_async where the prologue or a vector across xlim needs it.
+template <int NROWS>
+__device__ __forceinline__ void stage_async(const bf16* __restrict__ x,
+                                            const Src& s, int b, int c0,
+                                            int nch, int vy0, int vx0,
+                                            int plane, int ylim, int xlim,
+                                            bf16* dst) {
+  constexpr int NV = SC / 8;
+  const int items = nch * NROWS * NV;
+  for (int it = threadIdx.x; it < items; it += THREADS) {
+    const int line = it / NV, v = it - line * NV;
+    const int c = line / NROWS, ly = line - c * NROWS;
+    const int vy = vy0 + ly, r = vy - s.pad, col = vx0 + 8 * v - s.pad;
+    const bool ok = vy < ylim && vx0 + 8 * v < xlim && r >= 0 && r < s.H &&
+                    col >= 0 && col < s.W;
+    const bf16* src =
+        ok ? x + (((size_t)b * s.cin + c0 + c) * s.H + r) * s.W + col : x;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(smem_addr(dst + c * plane + ly * SC + 8 * v)),
+                    "l"(src), "r"(ok ? 16 : 0) : "memory");
+  }
+}
+
+// After stage_async has landed: the prologue on the vectors read from x,
+// and zeros from xlim on.
+template <int NROWS>
+__device__ __forceinline__ void fix_async(const Src& s, int b, int c0,
+                                          int nch, int vy0, int vx0,
+                                          int plane, int ylim, int xlim,
+                                          bf16* dst) {
+  constexpr int NV = SC / 8;
+  const int items = nch * NROWS * NV;
+  for (int it = threadIdx.x; it < items; it += THREADS) {
+    const int line = it / NV, v = it - line * NV;
+    const int c = line / NROWS, ly = line - c * NROWS;
+    const int vy = vy0 + ly, r = vy - s.pad, col = vx0 + 8 * v - s.pad;
+    const int room = xlim - (vx0 + 8 * v);       // columns before xlim
+    if (!(vy < ylim && room > 0 && r >= 0 && r < s.H && col >= 0 &&
+          col < s.W) ||
+        (s.scale == nullptr && room >= 8))
+      continue;
+    float sc = 1.f, sh = 0.f;
+    if (s.scale != nullptr) {
+      const int row = (b / s.per_group) * s.cin + c0 + c;
+      sc = s.scale[row];
+      sh = s.shift[row];
+    }
+    uint4* p = reinterpret_cast<uint4*>(dst + c * plane + ly * SC + 8 * v);
+    uint4 w = *p;
+    w.x = pro_pair(w.x, s, sc, sh, (room > 0) | (room > 1) << 1);
+    w.y = pro_pair(w.y, s, sc, sh, (room > 2) | (room > 3) << 1);
+    w.z = pro_pair(w.z, s, sc, sh, (room > 4) | (room > 5) << 1);
+    w.w = pro_pair(w.w, s, sc, sh, (room > 6) | (room > 7) << 1);
+    *p = w;
+  }
+}
+
+// D[16 x 8] += A[16 x 16] B[16 x 8], bf16 in, fp32 accumulators.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// dw[i] = sum over the slices of partial[slice][i], in a fixed order: a
+// block of 32 outputs and blockDim.y warps, warp w adding slices w, w +
+// blockDim.y, ... (128-byte rows), then warp 0 the warps' sums in order.
+// TRANS (K7): partial is [m][n] and dw [n][m], n < n_cols.
+template <bool TRANS>
+__global__ void __launch_bounds__(1024)
+conv_dw_sum_kernel(const float* __restrict__ partial, float* __restrict__ dw,
+                   int n_out, int n_slices, int n_cols) {
+  __shared__ float red[32][33];
+  const int lane = threadIdx.x, w = threadIdx.y, nw = blockDim.y;
+  const int i = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (i < n_out)
+    for (int c = w; c < n_slices; c += nw) s += partial[(size_t)c * n_out + i];
+  red[w][lane] = s;
+  __syncthreads();
+  if (w != 0 || i >= n_out) return;
+  float t = 0.f;
+  for (int j = 0; j < nw; ++j) t += red[j][lane];
+  dw[TRANS ? (i % n_cols) * (n_out / n_cols) + i / n_cols : i] = t;
+}
+
+// The A fragments of K m16 tiles (dx = 0..K-1) from one window of S: a
+// lane's row at word w (its element pair at 2w + PAR + dx, one row of S
+// for all K taps dx), the low 8 pixels of the k16 step at w and the high 8
+// at w + 4. An odd element offset is cut out of two words by the permute.
+template <int K, int PAR>
+__device__ __forceinline__ void cut_window(const uint32_t* sw, int w, int h,
+                                           uint32_t (&a)[K][4]) {
+  constexpr int NW = (PAR + K + 2) / 2;   // words the K pairs span
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    uint32_t win[NW];
+#pragma unroll
+    for (int i = 0; i < NW; ++i) win[i] = sw[w + 4 * hi + i];
+#pragma unroll
+    for (int dx = 0; dx < K; ++dx) {
+      const int o = PAR + dx;
+      a[dx][h + 2 * hi] = (o & 1) ? __byte_perm(win[o >> 1], win[(o >> 1) + 1],
+                                                0x5432u)
+                                  : win[o >> 1];
+    }
+  }
+}
+
+// Output row of D for S-row sr (dy = sr / nch, channel c) at tap column dx.
+__device__ __forceinline__ int d_row(int sr, int dx, int nch, int K, int Cs,
+                                     int ch0) {
+  const int dy = sr / nch, c = sr - dy * nch;
+  return (dy * K + dx) * Cs + ch0 + c;
+}
+
+// partial[strip][(t * Cs + s) * Cu + u]: this block's M x N tile of D over
+// its strip (see above). M is walked in units: 16 rows of S (dy-major
+// (dy, c) pairs of the block's nch channels) times the K taps dx, i.e. K
+// m16 tiles whose A fragments come from one window of each row (the K
+// horizontal taps share their shared-memory loads). Warp group wmi owns
+// units wmi, wmi + wm, ... (at most UPW); the 8 / wm row groups split a
+// stage's pixel rows. Grid: (strips, ceil(Cs / cb), ceil(Cu / (8 * NB))).
+template <int K, int NB>
+__global__ void __launch_bounds__(THREADS, 2)
+conv_dw_tc_kernel(const bf16* __restrict__ sx, Src ss,
+                  const bf16* __restrict__ ux, Src us,
+                  float* __restrict__ partial, int Cs, int Cu, int Hp, int Wp,
+                  int rows, int cols, int strips_y, int strips_x, int cb,
+                  int wm, int s_vec, int u_vec) {
+  constexpr int UPW = units_per_warp(K, NB);
+  constexpr int SR = TR + K - 1;
+  const int splane = plane_elems(SR, SC);
+  const int uplane = plane_elems(TR, SC);
+  extern __shared__ float4 smem4[];
+  bf16* s_tile = reinterpret_cast<bf16*>(smem4);       // [cb][splane]
+  bf16* u_tile = s_tile + cb * splane + SLACK;         // [8 NB][uplane]
+  const uint32_t* sw = reinterpret_cast<const uint32_t*>(s_tile);
+  const uint32_t* uw = reinterpret_cast<const uint32_t*>(u_tile);
+
+  const int per_image = strips_y * strips_x;
+  const int b = blockIdx.x / per_image;
+  const int sy = blockIdx.x % per_image / strips_x;
+  const int sxi = blockIdx.x % strips_x;
+  const int r0 = sy * rows, r1 = min(r0 + rows, Hp);
+  const int q0 = sxi * cols, q1 = min(q0 + cols, Wp);
+  const int ch0 = blockIdx.y * cb, nch = min(cb, Cs - ch0);
+  const int n0 = blockIdx.z * 8 * NB, nu = min(8 * NB, Cu - n0);
+  const int srows = K * nch, units = (srows + 15) / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wmi = warp % wm, wk = warp / wm, nwk = WARPS / wm;
+  const int gid = lane >> 2, q = lane & 3;
+  const int s_lead = lead(ss), u_lead = lead(us);
+  const int par = s_lead & 1;            // of every window's first element
+
+  // The word of the window of S-rows gid and gid + 8 of each unit of this
+  // warp in a stage's S tile (rows past srows read row 0: discarded).
+  int aw[UPW][2];
+#pragma unroll
+  for (int i = 0; i < UPW; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int sr = (i * wm + wmi) * 16 + gid + 8 * h;
+      int off = par;
+      if (sr < srows) {
+        const int dy = sr / nch, c = sr - dy * nch;
+        off = c * splane + dy * SC + s_lead;
+      }
+      aw[i][h] = off >> 1;
+    }
+  }
+  // B's column gid of each n8 tile, likewise (one parity for all: the
+  // permute only where U's tile starts an odd number of columns early)
+  const int ub = (gid * uplane + u_lead) >> 1;
+  float acc[UPW][K][NB][4];
+#pragma unroll
+  for (int i = 0; i < UPW; ++i)
+#pragma unroll
+    for (int dx = 0; dx < K; ++dx)
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][dx][j][e] = 0.f;
+
+  for (int y0 = r0; y0 < r1; y0 += TR) {
+    for (int x0 = q0; x0 < q1; x0 += TC) {
+      __syncthreads();
+      if (s_vec)
+        stage_async<SR>(sx, ss, b, ch0, nch, y0, x0 - s_lead, splane,
+                        0x7fffffff, 0x7fffffff, s_tile);
+      else
+        stage<SR>(sx, ss, b, ch0, nch, y0, x0 - s_lead, s_lead + TC + K - 1,
+                  splane, SC, 0x7fffffff, 0x7fffffff, s_tile, warp, lane);
+      if (u_vec)
+        stage_async<TR>(ux, us, b, n0, nu, y0, x0 - u_lead, uplane, r1, q1,
+                        u_tile);
+      else
+        stage<TR>(ux, us, b, n0, nu, y0, x0 - u_lead, u_lead + TC, uplane,
+                  SC, r1, q1, u_tile, warp, lane);
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+      __syncthreads();
+      const bool s_fix = s_vec && ss.scale != nullptr;
+      const bool u_fix = u_vec && (us.scale != nullptr ||
+                                   (q1 - x0 + u_lead) % 8 != 0);
+      if (s_fix)
+        fix_async<SR>(ss, b, ch0, nch, y0, x0 - s_lead, splane, 0x7fffffff,
+                      0x7fffffff, s_tile);
+      if (u_fix)
+        fix_async<TR>(us, b, n0, nu, y0, x0 - u_lead, uplane, r1, q1, u_tile);
+      if (s_fix || u_fix) __syncthreads();
+      for (int ry = wk; ry < TR && y0 + ry < r1; ry += nwk) {
+#pragma unroll
+        for (int kx = 0; kx < TC / 16; ++kx) {
+          if (x0 + 16 * kx >= q1) break;
+          const int e = (ry * SC + 16 * kx + 2 * q) >> 1;
+          uint32_t bf[NB][2];
+#pragma unroll
+          for (int j = 0; j < NB; ++j) {
+            const int w = ub + j * 4 * uplane + e;
+            if (u_lead & 1) {
+              bf[j][0] = __byte_perm(uw[w], uw[w + 1], 0x5432u);
+              bf[j][1] = __byte_perm(uw[w + 4], uw[w + 5], 0x5432u);
+            } else {
+              bf[j][0] = uw[w];
+              bf[j][1] = uw[w + 4];
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < UPW; ++i) {
+            if (i * wm + wmi >= units) break;
+            uint32_t a[K][4];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (par)
+                cut_window<K, 1>(sw, aw[i][h] + e, h, a);
+              else
+                cut_window<K, 0>(sw, aw[i][h] + e, h, a);
+            }
+#pragma unroll
+            for (int dx = 0; dx < K; ++dx)
+#pragma unroll
+              for (int j = 0; j < NB; ++j)
+                mma16816(acc[i][dx][j], a[dx], bf[j][0], bf[j][1]);
+          }
+        }
+      }
+    }
+  }
+
+  // this strip's partial: the row groups' sums added in order (through
+  // shared memory) where there are several, else each warp's own
+  float* out = partial + (size_t)blockIdx.x * K * K * Cs * Cu;
+  const int mr = wm * UPW * K * 16;      // rows of the tile the warps hold
+  float* red = reinterpret_cast<float*>(smem4);   // [nwk][mr][8 NB]
+  if (nwk > 1) __syncthreads();          // the last stage is read
+#pragma unroll
+  for (int i = 0; i < UPW; ++i) {
+#pragma unroll
+    for (int dx = 0; dx < K; ++dx) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int unit = i * wm + wmi, sr = unit * 16 + gid + 8 * h;
+        const int lr = (unit * K + dx) * 16 + gid + 8 * h;
+        float* orow = out + (size_t)d_row(sr, dx, nch, K, Cs, ch0) * Cu + n0;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int u = j * 8 + 2 * q + e;
+            if (nwk > 1)
+              red[(wk * mr + lr) * 8 * NB + u] = acc[i][dx][j][2 * h + e];
+            else if (sr < srows && u < nu)
+              orow[u] = acc[i][dx][j][2 * h + e];
+          }
+        }
+      }
+    }
+  }
+  if (nwk == 1) return;
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < K * srows * nu; idx += THREADS) {
+    const int m = idx / nu, u = idx - m * nu;  // m = dx * srows + sr
+    const int dx = m / srows, sr = m - dx * srows;
+    const int lr = ((sr >> 4) * K + dx) * 16 + (sr & 15);
+    float v = 0.f;
+    for (int w = 0; w < nwk; ++w) v += red[(w * mr + lr) * 8 * NB + u];
+    out[(size_t)d_row(sr, dx, nch, K, Cs, ch0) * Cu + n0 + u] = v;
+  }
+}
+
+// Whether stage_async can read operand x through s.
+inline int vec_ok(const bf16* x, const Src& s) {
+  return s.stride == 1 && s.W % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+template <int K, int NB>
+int launch_kn(const bf16* sx, const Src& ss, const bf16* ux, const Src& us,
+              float* partial, float* dw, int B, int Cs, int Cu, int Hp,
+              int Wp, int rows, int cols, int cb, int wm, bool trans,
+              cudaStream_t stream) {
+  if constexpr (K * NB > ACC) {
+    return (int)cudaErrorInvalidValue;    // a unit's tiles exceed ACC
+  } else {
+    const int units = (K * min(cb, Cs) + 15) / 16;
+    if ((wm != 1 && wm != 2 && wm != 4 && wm != 8) || cb < 1 ||
+        units > wm * units_per_warp(K, NB) || rows < TR || rows % TR ||
+        cols < TC || cols % TC)
+      return (int)cudaErrorInvalidValue;
+    const int strips_y = (Hp + rows - 1) / rows;
+    const int strips_x = (Wp + cols - 1) / cols;
+    const size_t stage_bytes = sizeof(bf16) *
+        ((size_t)cb * plane_elems(TR + K - 1, SC) + SLACK +
+         8 * NB * plane_elems(TR, SC));
+    // the row groups' sums [8 / wm][wm * UPW * K * 16][8 NB] reuse the
+    // stage's shared memory
+    const size_t red_bytes = wm == WARPS ? 0
+        : sizeof(float) * WARPS * units_per_warp(K, NB) * K * 16 * 8 * NB;
+    const size_t smem = stage_bytes > red_bytes ? stage_bytes : red_bytes;
+    cudaError_t e = cudaFuncSetAttribute(
+        conv_dw_tc_kernel<K, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(B * strips_y * strips_x, (Cs + cb - 1) / cb,
+                    (Cu + 8 * NB - 1) / (8 * NB));
+    conv_dw_tc_kernel<K, NB><<<grid, THREADS, smem, stream>>>(
+        sx, ss, ux, us, partial, Cs, Cu, Hp, Wp, rows, cols, strips_y,
+        strips_x, cb, wm, vec_ok(sx, ss), vec_ok(ux, us));
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+    const int n_out = K * K * Cs * Cu;
+    const int n_slices = (int)grid.x;
+    const dim3 rblock(32, n_slices < 32 ? n_slices : 32);
+    const int rgrid = (n_out + 31) / 32;
+    if (trans)
+      conv_dw_sum_kernel<true><<<rgrid, rblock, 0, stream>>>(
+          partial, dw, n_out, n_slices, Cu);
+    else
+      conv_dw_sum_kernel<false><<<rgrid, rblock, 0, stream>>>(
+          partial, dw, n_out, n_slices, Cu);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <int K>
+int launch_k(const bf16* sx, const Src& ss, const bf16* ux, const Src& us,
+             float* partial, float* dw, int B, int Cs, int Cu, int Hp, int Wp,
+             int rows, int cols, int cb, int bn, int wm, bool trans,
+             cudaStream_t stream) {
+#define DWTC_NB(nb)                                                        \
+  case 8 * nb:                                                             \
+    return launch_kn<K, nb>(sx, ss, ux, us, partial, dw, B, Cs, Cu, Hp, Wp, \
+                            rows, cols, cb, wm, trans, stream);
+  switch (bn) {
+    DWTC_NB(1) DWTC_NB(2) DWTC_NB(3) DWTC_NB(4)
+    DWTC_NB(5) DWTC_NB(6) DWTC_NB(7) DWTC_NB(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DWTC_NB
+}
+
+}  // namespace dwtc
+
 }  // namespace
 
 // The rows of K3''' scratch (one per output tile) that conv_valid_fwd
@@ -573,41 +1120,77 @@ extern "C" int conv_valid_fwd(const void* x, const void* w, void* y,
                           s);
 }
 
-// K7. x, scale, shift, pad, groups, negslope: as conv_valid_fwd at stride
-// 1; g [B,Cout,Ho,Wo] in x's type; partial: fp32 scratch
-// [B*ceil((Ho+k-1)/rows_per_chunk), Cin*k*k*Cout]; dw: fp32 [Cin, k*k*Cout]
-// with tap t' = dy'*k + dx' holding dw's tap (k-1-dy', k-1-dx') (the
-// caller reverses). k in {2, 3}.
+// fp32 K7 (the CUDA cores). x, scale, shift, pad, groups, negslope: as
+// conv_valid_fwd at stride 1; x and g [B,Cout,Ho,Wo] fp32; partial: fp32
+// scratch [B*ceil((Ho+k-1)/rows_per_chunk), Cin*k*k*Cout]; dw: fp32
+// [Cin, k*k*Cout] with tap t' = dy'*k + dx' holding dw's tap (k-1-dy',
+// k-1-dx') (the caller reverses). k in {2, 3}.
 extern "C" int conv_dw_gtap(const void* x, const void* g, float* partial,
                             float* dw, const float* scale, const float* shift,
                             int B, int Cin, int H, int W, int Cout, int Ho,
                             int Wo, int k, int pad, int groups, float negslope,
-                            int rows_per_chunk, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                            int rows_per_chunk, void* stream) {
   const Src src = make_src(scale, shift, B, Cin, H, W, pad, 1, groups,
                            negslope);
-  return dtype == 1
-      ? launch_dw_gtap<__nv_bfloat16>(x, g, partial, dw, src, B, Cout, Ho, Wo,
-                                      k, rows_per_chunk, s)
-      : launch_dw_gtap<float>(x, g, partial, dw, src, B, Cout, Ho, Wo, k,
-                              rows_per_chunk, s);
+  return launch_dw_gtap<float>(x, g, partial, dw, src, B, Cout, Ho, Wo, k,
+                               rows_per_chunk,
+                               static_cast<cudaStream_t>(stream));
 }
 
-// x, scale, shift, pad, stride, groups, negslope: as conv_valid_fwd.
-// g [B,Cout,Ho,Wo] in x's type; partial: fp32 scratch
-// [B*ceil(Ho/rows_per_chunk), k*k*s*s*Cin*Cout]; dw: fp32
+// fp32 K4 (the CUDA cores). x, scale, shift, pad, stride, groups,
+// negslope: as conv_valid_fwd, x fp32; g [B,Cout,Ho,Wo] fp32; partial: fp32
+// scratch [B*ceil(Ho/rows_per_chunk), k*k*s*s*Cin*Cout]; dw: fp32
 // [k,k,s*s*Cin,Cout]. k in {1, 2, 3}.
 extern "C" int conv_dw(const void* x, const void* g, float* partial,
                        float* dw, const float* scale, const float* shift,
                        int B, int Cin, int H, int W, int Cout, int Ho, int Wo,
                        int k, int pad, int stride, int groups, float negslope,
-                       int rows_per_chunk, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                       int rows_per_chunk, void* stream) {
   const Src src = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
                            negslope);
-  return dtype == 1
-      ? launch_dw<__nv_bfloat16>(x, g, partial, dw, src, B, Cout, Ho, Wo, k,
-                                 rows_per_chunk, s)
-      : launch_dw<float>(x, g, partial, dw, src, B, Cout, Ho, Wo, k,
-                         rows_per_chunk, s);
+  return launch_dw<float>(x, g, partial, dw, src, B, Cout, Ho, Wo, k,
+                          rows_per_chunk, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 K4 (gtap = 0: dw [k,k,s*s*Cin,Cout], as conv_dw) and K7 (gtap = 1,
+// stride 1, k in {2, 3}: dw [Cin, k*k*Cout], as conv_dw_gtap) on the tensor
+// cores. x, g, scale, shift, pad, stride, groups, negslope: as conv_dw,
+// x and g bf16. The tiling comes from ops/conv.py dw_tc_tiling: strips of
+// rows x cols pixels of the contraction's extent (Ho x Wo for K4, (Ho+k-1)
+// x (Wo+k-1) for K7), cb channels of the tapped operand and bn in {8, 16,
+// ..., 64} of the other per block, wm warps along M. partial: fp32 scratch
+// [B*ceil(Hp/rows)*ceil(Wp/cols), k*k*Cs*Cu].
+extern "C" int conv_dw_tc(const void* x, const void* g, float* partial,
+                          float* dw, const float* scale, const float* shift,
+                          int B, int Cin, int H, int W, int Cout, int Ho,
+                          int Wo, int k, int pad, int stride, int groups,
+                          float negslope, int gtap, int rows, int cols, int cb,
+                          int bn, int wm, void* stream) {
+  using dwtc::bf16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Src xs = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
+                          negslope);
+  // g through the same mapping: no prologue, zero outside its extent, and
+  // for K7 the border k-1 of the tapped cotangent
+  const Src gs = make_src(nullptr, nullptr, B, Cout, Ho, Wo,
+                          gtap ? k - 1 : 0, 1, 1, 1.f);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gb = static_cast<const bf16*>(g);
+  if (gtap && (stride != 1 || k < 2)) return (int)cudaErrorInvalidValue;
+  const int Cs = gtap ? Cout : stride * stride * Cin;
+  const int Cu = gtap ? Cin : Cout;
+  const int Hp = gtap ? Ho + k - 1 : Ho, Wp = gtap ? Wo + k - 1 : Wo;
+  const bf16* sx = gtap ? gb : xb;
+  const bf16* ux = gtap ? xb : gb;
+  const Src& ss = gtap ? gs : xs;
+  const Src& us = gtap ? xs : gs;
+  switch (k) {
+    case 1: return dwtc::launch_k<1>(sx, ss, ux, us, partial, dw, B, Cs, Cu,
+                                     Hp, Wp, rows, cols, cb, bn, wm, gtap, st);
+    case 2: return dwtc::launch_k<2>(sx, ss, ux, us, partial, dw, B, Cs, Cu,
+                                     Hp, Wp, rows, cols, cb, bn, wm, gtap, st);
+    case 3: return dwtc::launch_k<3>(sx, ss, ux, us, partial, dw, B, Cs, Cu,
+                                     Hp, Wp, rows, cols, cb, bn, wm, gtap, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -34,6 +34,11 @@ conv_same_chw :735-766, conv_same_pro_chw :769-813, conv_same_pro_stats_chw
     _make_dw_kernel_gtap :455), where DW_TAP_ON_N and _gtap_better say so,
     else K4 with the border.
 
+The weight gradients K4 and K7 route by dtype: bf16 runs on the tensor
+cores (one implicit-GEMM kernel for both, csrc/conv.cu conv_dw_tc, tiled by
+dw_tc_tiling below; counted in each wrapper's tc_launches), fp32 on the
+CUDA cores (conv_dw, conv_dw_gtap), whose fp32 sums the 1e-4 gates need.
+
 On CPU tensors the same functions run their plain PyTorch versions below,
 which materialise what the kernels' input read sees (virtual_input_plain)
 and repeat their arithmetic (fp32 accumulation; a float64 input stays
@@ -49,17 +54,29 @@ guard for a scale near 0.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from splice_tpu_torch.ops import _build
 
-# K4 splits the output rows of all images into about this many chunks
-# (pass 1), then adds the chunks' partial sums in order (pass 2).
+# fp32 K4/K7 split the rows of all images into about this many chunks
+# (pass 1), then add the chunks' partial sums in order (pass 2).
 _DW_CHUNKS = 256
 _DW_ROW_TILE = 4          # rows per shared-memory tile in K4 (csrc DR)
+
+# bf16 K4/K7 on the tensor cores (csrc/conv.cu, namespace dwtc): a block
+# walks a strip of pixels in stages of DW_TC_ROWS x DW_TC_COLS, its warps
+# holding at most DW_TC_ACC m16n8 accumulator tiles each; the grid aims at
+# DW_TC_BLOCKS blocks (about two waves at two blocks on each of 132 SMs).
+DW_TC_ROWS = 8            # csrc TR
+DW_TC_COLS = 64           # csrc TC
+DW_TC_WARPS = 8           # csrc WARPS
+DW_TC_ACC = 16            # csrc ACC
+DW_TC_TILE_COLS = DW_TC_COLS + 16   # row stride of both tiles (csrc SC)
+DW_TC_S_BYTES = 96 * 1024  # shared memory for the tapped operand's tile
+DW_TC_BLOCKS = 528
 
 # The reference's module constants (conv_pallas.py:41, :627), read at call
 # time through this module. SAME_BORDER_KERNELS routes stride-1 zero-border
@@ -293,9 +310,105 @@ def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name,
     return (y, stats) if want_stats else y
 
 
+class DwTiling(NamedTuple):
+    """The bf16 dw kernel's work split (csrc conv_dw_tc): strips of rows x
+    cols pixels, cb channels of the tapped operand (all k*k taps) and bn of
+    the other per block, wm warps along M and 8 // wm along a stage's pixel
+    rows; slices = strips, the partial sums the fixed-order reduce adds."""
+    rows: int
+    cols: int
+    cb: int
+    bn: int
+    wm: int
+    slices: int
+
+
+def dw_tc_plane(rows: int, cols: int) -> int:
+    """Elements of one channel's rows x cols plane in shared memory: a word
+    count of 4 mod 8, so 8 consecutive channels start in distinct banks
+    (csrc plane_elems)."""
+    w = (rows * cols + 1) // 2
+    w += (4 - w) % 8
+    return 2 * w
+
+
+def dw_tc_lead(pad: int, stride: int) -> int:
+    """Columns a tile starts left of its stage, so that its first source
+    column is a multiple of 8 at stride 1 (csrc lead)."""
+    return -pad % 8 if stride == 1 else 0
+
+
+def dw_tc_units_per_warp(k: int, bn: int) -> int:
+    """Units (16 rows of the tapped operand times its k tap columns: k m16
+    tiles) a warp holds beside bn // 8 n8 tiles, at most 2 (csrc
+    units_per_warp)."""
+    return min(2, DW_TC_ACC // (k * (bn // 8)))
+
+
+def dw_tc_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
+                 wp: int) -> DwTiling:
+    """How conv_dw_tc splits dw[(t, s), u] = sum_p S[s, p + tap t] U[u, p]
+    over the pixels p of [batch, hp, wp]: M = k*k*cs, N = cu. Chunks of U's
+    channels as wide as a unit's k x bn // 8 tiles allow (at most 64),
+    evened out to multiples of 8; chunks of S's channels as large as the
+    warps' accumulators and the shared memory allow, evened out; warp groups
+    along M: one per unit, up to 8; strips of whole stages, full-width where
+    the grid still reaches about DW_TC_BLOCKS blocks, else split along
+    the columns."""
+    n_chunks = -(-cu // (8 * min(8, DW_TC_ACC // k)))
+    bn = 8 * -(-cu // (8 * n_chunks))
+    upw = dw_tc_units_per_warp(k, bn)
+    plane_bytes = 2 * dw_tc_plane(DW_TC_ROWS + k - 1, DW_TC_TILE_COLS)
+    cb = min(cs, 16 * DW_TC_WARPS * upw // k, DW_TC_S_BYTES // plane_bytes)
+    m_chunks = -(-cs // cb)
+    cb = -(-cs // m_chunks)
+    units = -(-k * cb // 16)
+    wm = 1
+    while wm < min(DW_TC_WARPS, units):
+        wm *= 2
+    sy, sx = -(-hp // DW_TC_ROWS), -(-wp // DW_TC_COLS)
+    per_chunk = max(1, DW_TC_BLOCKS // (m_chunks * n_chunks))
+    spb = max(1, -(-batch * sy * sx // per_chunk))      # stages per block
+    if spb >= sx:
+        rows, cols = DW_TC_ROWS * (spb // sx), DW_TC_COLS * sx
+    else:
+        rows = DW_TC_ROWS
+        cols = DW_TC_COLS * -(-sx // -(-sx // spb))
+    slices = batch * -(-hp // rows) * -(-wp // cols)
+    return DwTiling(rows, cols, cb, bn, wm, slices)
+
+
+def _launch_dw_tc(x, g, k, pad, stride, scale, shift, negslope, gtap, name):
+    """bf16 K4 (gtap False: fp32 [k, k, s*s*Cin, Cout]) or K7 (gtap True,
+    stride 1: fp32 [Cin, k*k*Cout], taps not yet reversed) on the tensor
+    cores."""
+    B, cin, h, wd = x.shape
+    cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
+    sp, tp, G = _prologue_args(x, scale, shift)
+    if gtap:
+        cs, cu, hp, wp = cout, cin, ho + k - 1, wo + k - 1
+    else:
+        cs, cu, hp, wp = stride * stride * cin, cout, ho, wo
+    t = dw_tc_tiling(k, cs, cu, B, hp, wp)
+    partial = torch.empty(t.slices, k * k * cs * cu, dtype=torch.float32,
+                          device=x.device)
+    shape = (cin, k * k * cout) if gtap else (k, k, cs, cout)
+    dw = torch.empty(shape, dtype=torch.float32, device=x.device)
+    fn = _build.library("conv").conv_dw_tc
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
+        + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    status = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                dw.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, pad,
+                stride, G, float(negslope), int(gtap), t.rows, t.cols, t.cb,
+                t.bn, t.wm, _build.stream_ptr(x.device))
+    _build.check(status, name)
+    return dw
+
+
 def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name):
     """K4 over the virtual input of x: fp32 [k, k, s*s*Cin, Cout]; g must
-    be in x's type."""
+    be in x's type. bf16 on the tensor cores, fp32 on the CUDA cores."""
     x, g = x.contiguous(), g.contiguous()
     dtype = _build.check_cuda_tensors(name, x, g)
     if k not in (1, 2, 3):
@@ -306,6 +419,9 @@ def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name):
     if g.shape[0] != B or stride not in (1, 2):
         raise ValueError(f"{name}: cotangent {tuple(g.shape)} vs input "
                          f"{tuple(x.shape)}, stride {stride}")
+    if dtype == _build.DTYPES["bfloat16"]:
+        return _launch_dw_tc(x, g, k, pad, stride, scale, shift, negslope,
+                             False, name)
     sp, tp, G = _prologue_args(x, scale, shift)
     cv = stride * stride * cin
     rows = -(-B * ho // _DW_CHUNKS)
@@ -317,18 +433,18 @@ def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name):
     fn = _build.library("conv").conv_dw
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     status = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
                 dw.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, pad,
-                stride, G, float(negslope), rows, dtype,
-                _build.stream_ptr(x.device))
+                stride, G, float(negslope), rows, _build.stream_ptr(x.device))
     _build.check(status, name)
     return dw
 
 
 def _launch_dw_gtap(x, g, k, pad, scale, shift, negslope, name):
     """K7 over the virtual input of x at stride 1: fp32 [k, k, Cin, Cout];
-    g must be in x's type."""
+    g must be in x's type. bf16 on the tensor cores, fp32 on the CUDA
+    cores."""
     x, g = x.contiguous(), g.contiguous()
     dtype = _build.check_cuda_tensors(name, x, g)
     if k not in (2, 3):
@@ -338,6 +454,9 @@ def _launch_dw_gtap(x, g, k, pad, scale, shift, negslope, name):
     if g.shape[0] != B:
         raise ValueError(f"{name}: cotangent {tuple(g.shape)} vs input "
                          f"{tuple(x.shape)}")
+    if dtype == _build.DTYPES["bfloat16"]:
+        return _reverse_taps(_launch_dw_tc(x, g, k, pad, 1, scale, shift,
+                                           negslope, True, name), k)
     sp, tp, G = _prologue_args(x, scale, shift)
     hv = ho + k - 1                       # K7 splits V's rows into chunks
     rows = -(-B * hv // _DW_CHUNKS)
@@ -349,10 +468,10 @@ def _launch_dw_gtap(x, g, k, pad, scale, shift, negslope, name):
     fn = _build.library("conv").conv_dw_gtap
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     status = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
                 dwt.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, pad,
-                G, float(negslope), rows, dtype, _build.stream_ptr(x.device))
+                G, float(negslope), rows, _build.stream_ptr(x.device))
     _build.check(status, name)
     return _reverse_taps(dwt, k)
 
@@ -413,14 +532,18 @@ def conv_dw_gtap_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
                       shift: Optional[torch.Tensor] = None,
                       negslope: float = 1.0, pad: int = 0) -> torch.Tensor:
     """K7 on the card: fp32 [k, k, Cin, Cout] by tapping the cotangent; pad
-    (k-1)//2 is SAME, pad 0 on a padded x VALID. g must be in x's type."""
+    (k-1)//2 is SAME, pad 0 on a padded x VALID. g must be in x's type.
+    bf16 launches run on the tensor cores and also count in
+    tc_launches."""
     dw = _launch_dw_gtap(x, g, k, pad, scale, shift, negslope,
                          "conv_dw_gtap")
     conv_dw_gtap_cuda.launches += 1
+    conv_dw_gtap_cuda.tc_launches += x.dtype == torch.bfloat16
     return dw
 
 
 conv_dw_gtap_cuda.launches = 0
+conv_dw_gtap_cuda.tc_launches = 0
 
 
 def conv_valid_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -467,13 +590,17 @@ conv_valid_s2d_cuda.launches = 0
 
 def conv_dw_cuda(xp: torch.Tensor, g: torch.Tensor, k: int,
                  pad: int = 0) -> torch.Tensor:
-    """K4 on the card: fp32 [k, k, Cin, Cout]; g must be in xp's type."""
+    """K4 on the card: fp32 [k, k, Cin, Cout]; g must be in xp's type.
+    bf16 launches run on the tensor cores and also count in
+    tc_launches."""
     dw = _launch_dw(xp, g, k, pad, 1, None, None, 1.0, "conv_dw")
     conv_dw_cuda.launches += 1
+    conv_dw_cuda.tc_launches += xp.dtype == torch.bfloat16
     return dw
 
 
 conv_dw_cuda.launches = 0
+conv_dw_cuda.tc_launches = 0
 
 
 def conv_dw_pro_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
@@ -481,25 +608,30 @@ def conv_dw_pro_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
                      negslope: float = 1.0, pad: int = 0,
                      stride: int = 1) -> torch.Tensor:
     """K4' pro on the card: dw of the pro conv, the prologue recomputed on
-    the read."""
+    the read (bf16 on the tensor cores, also counted in tc_launches)."""
     dw = _launch_dw(x, g, k, pad, stride, scale, shift, negslope,
                     "conv_dw_pro")
     conv_dw_pro_cuda.launches += 1
+    conv_dw_pro_cuda.tc_launches += x.dtype == torch.bfloat16
     return dw
 
 
 conv_dw_pro_cuda.launches = 0
+conv_dw_pro_cuda.tc_launches = 0
 
 
 def conv_dw_s2d_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
                      pad: int) -> torch.Tensor:
-    """K4 at k2 on the card: dw [k2, k2, 4Cin, Cout] of the s2d conv."""
+    """K4 at k2 on the card: dw [k2, k2, 4Cin, Cout] of the s2d conv (bf16
+    on the tensor cores, also counted in tc_launches)."""
     dw = _launch_dw(x, g, k, pad, 2, None, None, 1.0, "conv_dw_s2d")
     conv_dw_s2d_cuda.launches += 1
+    conv_dw_s2d_cuda.tc_launches += x.dtype == torch.bfloat16
     return dw
 
 
 conv_dw_s2d_cuda.launches = 0
+conv_dw_s2d_cuda.tc_launches = 0
 
 
 def conv_forward(x, w, scale=None, shift=None, negslope: float = 1.0,
