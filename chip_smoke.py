@@ -8,15 +8,18 @@ Phases, each fatal on failure:
      print each kernel's registers and spills; every tensor-core kernel
      must hold tensor-core instructions (cuobjdump): wgmma (HGMMA) in the
      bf16 route of K1/K2 and K5/K6, mma.sync (HMMA) in the bf16 route of
-     K4 and K7, and neither in the fp32 weight-gradient kernels;
+     K3 (every form) and of K4 and K7, and neither in the fp32 conv
+     kernels;
   2. hold every kernel against its plain PyTorch version at the shapes the
      training paths give it (and at small edge-case shapes; the bf16
      attention kernels also at N under a tile, one past a tile, B = 1 and
      2, 6 and 12 heads, masked key blocks and more seeds; the bf16 weight
-     gradients at W = 37, H < k, odd stride-2 sizes, Cin 3 and 136, Cout
-     3 and 128, k = 1, 2, 3, two BatchNorm stacks with a scale of 1e-13,
-     VALID K7 and the entire-A generator's B = 1 shapes from 900 x 1200;
-     K2, K6, K4 in each form and K7 twice on one input, bitwise equal),
+     gradients and every bf16 K3 form at W = 37, H < k, odd stride-2
+     sizes, Cin 3 and 136, Cout 3, 36, 68 and 128, k = 1, 2, 3, two
+     BatchNorm stacks with a scale of 1e-13, VALID K7, K3''' at ragged
+     sizes and the entire-A generator's B = 1 shapes from 900 x 1200; K2,
+     K6, K3 in each form (the input gradient too), K4 in each form and K7
+     twice on one input, bitwise equal),
      and time kernel, plain version and a PyTorch library call that
      computes the same function (the yardstick only); the redesigned
      kernels beside their previous kernels' times;
@@ -41,8 +44,9 @@ Phases, each fatal on failure:
      K3''' in-kernel BatchNorm statistics, K7 cotangent-tapped dw), plus a
      few fused SAME steps of a generator with 3x3 skip convs, the one
      configuration whose fused sites reach K3'' SAME with a prologue and
-     without statistics; on every path every bf16 attention and weight-
-     gradient launch counts in its wrapper's tc_launches;
+     without statistics; on every path every bf16 attention and conv
+     launch (K3 in each form, K4, K7) counts in its wrapper's
+     tc_launches;
   7. the step time of generator_conv auto, fused and pallas, fused and
      pallas with the SAME route, and fused with the SAME route but
      ops.conv.DW_TAP_ON_N off (K4 for the dw that K7 takes otherwise: an
@@ -71,10 +75,16 @@ MAIN_STEPS = 12
 PREVIOUS_MS = {"attn_qkv_fwd": 0.4028, "attn_qkv_bwd": 1.6666,
                "attn_fwd": 0.2454, "attn_bwd": 1.1383, "conv_dw": 1.9185,
                "conv_dw_pro": 2.1197, "conv_dw_s2d": 0.1504,
-               "conv_dw_gtap": 2.1107}
+               "conv_dw_gtap": 2.1107, "conv_valid": 1.0272,
+               "conv_valid_pro": 1.1573, "conv_valid_s2d": 0.0732,
+               "conv_same": 1.0288, "conv_same_pro": 1.1580,
+               "conv_same_pro_stats": 1.1905}
 ATTENTION = ("attn_qkv_fwd", "attn_qkv_bwd", "attn_fwd", "attn_bwd")
-# the weight-gradient wrappers: bf16 on the tensor cores, fp32 not
+# the conv wrappers, bf16 on the tensor cores, fp32 not: the weight
+# gradients (K4 in each form, K7) and K3 in each form
 DW = ("conv_dw", "conv_dw_pro", "conv_dw_s2d", "conv_dw_gtap")
+K3 = ("conv_valid", "conv_valid_pro", "conv_valid_s2d", "conv_same",
+      "conv_same_pro", "conv_same_pro_stats")
 # (name, generator_conv, loss resolution, steps, SAME route) of the other
 # paths; step 0 is an entire-A step and warms up, the rest are regular
 PATHS = (("480", "auto", 480, 3, False), ("fused", "fused", 224, 6, False),
@@ -374,22 +384,28 @@ def check_tensor_cores(build):
     """Every tensor-core kernel (a name with "_tc") must hold its
     instructions: HGMMA (wgmma) in the attention library's (the bf16 route
     of K1/K2 and K5/K6), HMMA (mma.sync) in the conv library's (the bf16
-    route of K4 and K7); each library must have such kernels, and the
-    fp32 weight-gradient kernels (K4's and K7's CUDA-core passes) hold
-    neither."""
+    route of K3 and of K4/K7); each library must have such kernels, the
+    conv library a forward one (conv_fwd_tc_kernel) and a weight-gradient
+    one, and the fp32 conv kernels (K3's, K4's and K7's CUDA-core kernels)
+    hold neither."""
     att = sass_counts(build, "attention")
     tc = [f for f in att if "_tc" in f]
     if not tc or not all(att[f][0] for f in tc):
         fail(f"attention tensor-core kernels missing or without HGMMA: {att}")
     cnv = sass_counts(build, "conv")
     tc = [f for f in cnv if "_tc" in f]
-    if not tc or not all(cnv[f][1] for f in tc):
+    if (not any("conv_fwd_tc_kernel" in f for f in tc)
+            or not any("conv_dw_tc_kernel" in f for f in tc)
+            or not all(cnv[f][1] for f in tc)):
         fail(f"conv tensor-core kernels missing or without HMMA: {cnv}")
-    fp32_dw = [f for f in cnv if "conv_dw_partial" in f
-               or "conv_dw_gtap_kernel" in f or "conv_dw_reduce" in f]
-    if not fp32_dw or any(sum(cnv[f]) for f in fp32_dw):
-        fail(f"fp32 weight-gradient kernels missing or on the tensor cores: "
-             f"{ {f: cnv[f] for f in fp32_dw} }")
+    fp32 = [f for f in cnv if "conv_dw_partial" in f
+            or "conv_dw_gtap_kernel" in f or "conv_dw_reduce" in f
+            or "conv_fwd_kernel" in f]
+    if (not any("conv_fwd_kernel" in f for f in fp32)
+            or not any("conv_dw_partial" in f for f in fp32)
+            or any(sum(cnv[f]) for f in fp32)):
+        fail(f"fp32 conv kernels missing or on the tensor cores: "
+             f"{ {f: cnv[f] for f in fp32} }")
 
 
 def print_ptxas(build):
@@ -406,7 +422,7 @@ def print_ptxas(build):
 def check_conv(torch, conv, rows):
     """K3 (forward and dx) and K4 at the two sites the auto rule sends to
     them, as the main path calls them: the input unpadded with an implicit
-    1-pixel zero border."""
+    1-pixel zero border; each twice on one input, bitwise."""
     F = torch.nn.functional
     dt, dtype_name = torch.bfloat16, "bfloat16"
     rtol, why = RTOL[dtype_name]
@@ -419,12 +435,14 @@ def check_conv(torch, conv, rows):
         g = torch.randn(B, cout, hw, hw, generator=gen).to("cuda", dt)
         w_flip = torch.flip(w, dims=(0, 1)).transpose(2, 3).contiguous()
         tag = f"site {site} [{B},{cin},{hw},{hw}]->[{B},{cout},{hw},{hw}] pad 1"
-        errs["conv_valid"] = max(errs["conv_valid"], compare(
-            f"K3 conv_valid fwd {tag}", conv.conv_valid_cuda(x, w, 1),
-            conv.conv_valid_plain(x, w, 1), rtol, why))
-        errs["conv_valid"] = max(errs["conv_valid"], compare(
-            f"K3 conv_valid dx {tag}", conv.conv_valid_cuda(g, w_flip, 1),
-            conv.conv_valid_plain(g, w_flip, 1), rtol, why))
+        for part, a, b in (("fwd", x, w), ("dx", g, w_flip)):
+            y = conv.conv_valid_cuda(a, b, 1)
+            errs["conv_valid"] = max(errs["conv_valid"], compare(
+                f"K3 conv_valid {part} {tag}", y,
+                conv.conv_valid_plain(a, b, 1), rtol, why))
+            check_bitwise(torch, f"K3 conv_valid {part} {tag}", (y,),
+                          (conv.conv_valid_cuda(a, b, 1),))
+            del y
         dw = conv.conv_dw_cuda(x, g, k, 1)
         errs["conv_dw"] = max(errs["conv_dw"], compare(
             f"K4 conv_dw {tag}", dw,
@@ -487,9 +505,13 @@ def check_conv_pro(torch, conv, rows):
         sc = (0.5 + torch.rand(2, cin, generator=gen)).cuda()
         sh = torch.randn(2, cin, generator=gen).cuda()
         tag = f"{name} [{B},{cin},{hw},{hw}]->[{B},{cout},{hw},{hw}] k={k} ns={ns}"
+        y = conv.conv_valid_pro_cuda(x, w, sc, sh, ns, pad)
         errs["conv_valid_pro"] = max(errs["conv_valid_pro"], compare(
-            f"K3' pro {tag}", conv.conv_valid_pro_cuda(x, w, sc, sh, ns, pad),
+            f"K3' pro {tag}", y,
             conv.conv_valid_pro_plain(x, w, sc, sh, ns, pad), rtol, why))
+        check_bitwise(torch, f"K3' pro {tag}", (y,),
+                      (conv.conv_valid_pro_cuda(x, w, sc, sh, ns, pad),))
+        del y
         dw = conv.conv_dw_pro_cuda(x, g, k, sc, sh, ns, pad)
         errs["conv_dw_pro"] = max(errs["conv_dw_pro"], compare(
             f"K4' pro {tag}", dw,
@@ -537,10 +559,22 @@ def check_conv_s2d(torch, conv, rows):
         g = torch.randn(B, cout, ho, ho, generator=gen).to("cuda", dt)
         tag = (f"{name} [{B},{cin},{hw},{hw}] (phase image "
                f"[{B},{4 * cin},{ho + 1},{ho + 1}])->[{B},{cout},{ho},{ho}]")
+        y = conv.conv_valid_s2d_cuda(x, wk, 1, (ho, ho))
         errs["conv_valid_s2d"] = max(errs["conv_valid_s2d"], compare(
-            f"K3 s2d {tag}", conv.conv_valid_s2d_cuda(x, wk, 1, (ho, ho)),
+            f"K3 s2d {tag}", y,
             conv.conv_valid_pro_plain(x, wk, None, None, 1.0, 1, 2, (ho, ho)),
             rtol, why))
+        check_bitwise(torch, f"K3 s2d {tag}", (y,),
+                      (conv.conv_valid_s2d_cuda(x, wk, 1, (ho, ho)),))
+        # its input gradient: the flipped phase kernel over g (border
+        # k2 - 1), as ConvValidPro.backward calls it
+        wk_flip = torch.flip(wk, dims=(0, 1)).transpose(2, 3).contiguous()
+        y = conv.conv_valid_cuda(g, wk_flip, 1)
+        compare(f"K3 s2d dx {tag}", y, conv.conv_valid_plain(g, wk_flip, 1),
+                rtol, why)
+        check_bitwise(torch, f"K3 s2d dx {tag}", (y,),
+                      (conv.conv_valid_cuda(g, wk_flip, 1),))
+        del y
         dw = conv.conv_dw_s2d_cuda(x, g, 2, 1)
         errs["conv_dw_s2d"] = max(errs["conv_dw_s2d"], compare(
             f"K4 s2d {tag}", dw,
@@ -620,8 +654,9 @@ SAME_SITES = (("down_conv2 s0", 16, 16, 448, 0.2, False),
 
 
 def check_conv_same(torch, conv, rows):
-    """K3'' SAME (plain and pro), K3''' and K7 at the SAME route's sites,
-    two BatchNorm stacks; K3''' and K7 twice on the same input. Times at
+    """K3'' SAME (plain, pro and its input gradient), K3''' and K7 at the
+    SAME route's sites, two BatchNorm stacks; each twice on the same
+    input, bitwise. Times at
     up_conv s0; the library yardsticks run on the normalised input (they
     exclude the prologue): F.conv2d, F.conv2d plus the two per-stack sums
     of its output for K3''', conv2d_weight for K7 (K4's time at the site
@@ -640,12 +675,21 @@ def check_conv_same(torch, conv, rows):
         sc = (0.5 + torch.rand(2, cin, generator=gen)).cuda()
         sh = torch.randn(2, cin, generator=gen).cuda()
         tag = f"{name} [{B},{cin},{hw},{hw}]->[{B},{cout},{hw},{hw}] ns={ns}"
-        errs["conv_same"] = max(errs["conv_same"], compare(
-            f"K3'' SAME {tag}", conv.conv_same_cuda(x, w),
-            conv.conv_same_plain(x, w), rtol, why))
+        w_flip = torch.flip(w, dims=(0, 1)).transpose(2, 3).contiguous()
+        for part, a, b in (("", x, w), (" dx", g, w_flip)):
+            y = conv.conv_same_cuda(a, b)
+            errs["conv_same"] = max(errs["conv_same"], compare(
+                f"K3'' SAME{part} {tag}", y, conv.conv_same_plain(a, b),
+                rtol, why))
+            check_bitwise(torch, f"K3'' SAME{part} {tag}", (y,),
+                          (conv.conv_same_cuda(a, b),))
+        y = conv.conv_same_pro_cuda(x, w, sc, sh, ns)
         errs["conv_same_pro"] = max(errs["conv_same_pro"], compare(
-            f"K3'' SAME pro {tag}", conv.conv_same_pro_cuda(x, w, sc, sh, ns),
+            f"K3'' SAME pro {tag}", y,
             conv.conv_same_plain(x, w, sc, sh, ns), rtol, why))
+        check_bitwise(torch, f"K3'' SAME pro {tag}", (y,),
+                      (conv.conv_same_pro_cuda(x, w, sc, sh, ns),))
+        del y
         st = conv.conv_same_pro_stats_cuda(x, w, sc, sh, ns)
         errs["conv_same_pro_stats"] = max(
             errs["conv_same_pro_stats"],
@@ -844,6 +888,88 @@ def check_dw_tc_edge_cases(torch, conv):
         del x, g, got, want
 
 
+# bf16 (tensor-core) K3 edge cases: (label, form, B, Cin, Cout, H, W, k,
+# pad, stride, BatchNorm stacks). Forms: valid (conv_valid), same, pro
+# (conv_valid_pro, at stride 1 or 2), same_pro, s2d, stats (K3''').
+# W = 37 and H < k; Cin 3 and 136; Cout 3 (out_conv), 36 (the input
+# gradient at up_conv s0), 68 (at up_conv s1) and 128 (two output-channel
+# chunks); k = 1, 2, 3; stride 2 at odd sizes with and without the
+# prologue; two stacks (a scale of 1e-13 and a negative one); K3''' at
+# ragged sizes; the entire-A generator at B = 1 from the 900 x 1200 image:
+# widths 1200, 600, 150 and 75, heights 900 and 113, with the input
+# gradients of up_conv s0/s1.
+K3_EDGES = (
+    ("W=37", "valid", 2, 20, 40, 9, 37, 3, 1, 1, 0),
+    ("H<k", "same_pro", 2, 20, 40, 2, 37, 3, 1, 1, 2),
+    ("out_conv", "pro", 2, 16, 3, 33, 37, 1, 0, 1, 2),
+    ("Cin 136 Cout 128", "pro", 2, 136, 128, 14, 14, 3, 1, 1, 2),
+    ("Cin 3", "same", 2, 3, 16, 20, 37, 3, 1, 1, 0),
+    ("Cout 36", "valid", 2, 16, 36, 19, 70, 3, 1, 1, 0),
+    ("Cout 68", "same", 2, 32, 68, 19, 75, 3, 1, 1, 0),
+    ("k=2 VALID", "valid", 2, 20, 24, 11, 39, 2, 0, 1, 0),
+    ("s2d odd", "s2d", 2, 3, 16, 13, 37, 3, 1, 2, 0),
+    ("s2d odd pro", "pro", 2, 16, 32, 19, 75, 3, 1, 2, 2),
+    ("K3''' W=37", "stats", 2, 20, 40, 9, 37, 3, 1, 1, 2),
+    ("K3''' H<k", "stats", 2, 20, 16, 2, 70, 3, 1, 1, 2),
+    ("K3''' Cout 128", "stats", 2, 36, 128, 11, 21, 3, 1, 1, 2),
+    ("entire-A up_conv s0", "valid", 1, 36, 16, 900, 1200, 3, 1, 1, 0),
+    ("entire-A up_conv s0 dx", "valid", 1, 16, 36, 900, 1200, 3, 1, 1, 0),
+    ("entire-A up_conv s1", "stats", 1, 68, 32, 450, 600, 3, 1, 1, 1),
+    ("entire-A up_conv s1 dx", "same", 1, 32, 68, 450, 600, 3, 1, 1, 0),
+    ("entire-A up_conv s4", "pro", 1, 132, 128, 57, 75, 3, 1, 1, 1),
+    ("entire-A stem", "s2d", 1, 3, 16, 900, 1200, 3, 1, 2, 0),
+    ("entire-A down_conv1 s3", "pro", 1, 64, 128, 113, 150, 3, 1, 2, 1),
+)
+
+
+def tc_k3_launches(conv) -> int:
+    """Tensor-core launches of the K3 wrappers so far."""
+    return sum(getattr(conv, f"{name}_cuda").tc_launches for name in K3)
+
+
+def check_k3_tc_edge_cases(torch, conv):
+    """The bf16 K3 forms at K3_EDGES against their plain versions (bf16:
+    1.6e-2 x max|plain|; K3''' sums 1e-4), every launch on the tensor
+    cores; stride 2 through the k2 phase kernel."""
+    gen = torch.Generator().manual_seed(10)
+    rtol, why = RTOL["bfloat16"]
+    for label, form, B, cin, cout, h, w, k, pad, stride, G in K3_EDGES:
+        x = torch.randn(B, cin, h, w, generator=gen).to("cuda", torch.bfloat16)
+        wt = 0.1 * torch.randn(k, k, cin, cout, generator=gen)
+        if stride == 2:
+            wt = conv.s2d_kernel(wt)
+        wt = wt.contiguous().to("cuda", torch.bfloat16)
+        ho = (h + 2 * pad - k) // stride + 1
+        wo = (w + 2 * pad - k) // stride + 1
+        a = (None, None, 1.0)
+        if G:
+            sc = (0.5 + torch.rand(G, cin, generator=gen)).cuda()
+            sc[0, 0] = 1e-13
+            sc[G - 1, cin - 1] = -0.7
+            a = (sc, torch.randn(G, cin, generator=gen).cuda(), 0.2)
+        tag = (f"{label} [{B},{cin},{h},{w}]->[{B},{cout},{ho},{wo}] k={k} "
+               f"pad={pad} stride={stride} G={G} {form} bfloat16")
+        want = conv.conv_valid_pro_plain(x, wt, *a, pad, stride, (ho, wo))
+        tc = tc_k3_launches(conv)
+        if form == "stats":
+            check_stats(torch, conv, tag,
+                        conv.conv_same_pro_stats_cuda(x, wt, *a), x, wt,
+                        *a, rtol, why)
+        else:
+            got = {"valid": lambda: conv.conv_valid_cuda(x, wt, pad),
+                   "same": lambda: conv.conv_same_cuda(x, wt),
+                   "pro": lambda: conv.conv_valid_pro_cuda(
+                       x, wt, *a, pad, stride, (ho, wo)),
+                   "same_pro": lambda: conv.conv_same_pro_cuda(x, wt, *a),
+                   "s2d": lambda: conv.conv_valid_s2d_cuda(
+                       x, wt, pad, (ho, wo))}[form]()
+            compare(f"K3 {tag}", got, want, rtol, why)
+            del got
+        if tc_k3_launches(conv) != tc + 1:
+            fail(f"K3 {tag}: the bf16 launch was not on the tensor cores")
+        del x, want
+
+
 def check_edge_cases(torch, attn, conv):
     """Small shapes off the main paths: key masking (n_valid), N a multiple
     of the tiles, k = 1, fp32, Cout over two channel chunks, G = 2 rows,
@@ -987,8 +1113,8 @@ def check_small_step(torch):
 
 
 # Kernel names (substrings) of the port's own kernels in a profile.
-OUR_KERNELS = ("attn_fwd_kernel", "attn_bwd_", "conv_fwd_kernel", "conv_dw_",
-               "conv_stats_")
+OUR_KERNELS = ("attn_fwd_kernel", "attn_bwd_", "conv_fwd_kernel",
+               "conv_fwd_tc", "conv_dw_", "conv_stats_")
 
 
 def profile_steps(torch, trainer, cfg, n: int = 3) -> None:
@@ -1029,6 +1155,10 @@ def profile_steps(torch, trainer, cfg, n: int = 3) -> None:
           f"{n_launch:.0f} launches of {len(rows)} kernel names), the "
           f"port's kernels {ours:.2f} ms ({100 * ours / busy:.1f}% of "
           f"kernel time)")
+    k3 = sum(t for t, k in rows if "conv_fwd" in k or "conv_stats_" in k)
+    dw = sum(t for t, k in rows if "conv_dw_" in k)
+    print(f"  K3 kernels (every form, the statistics reduce) {k3:.3f} ms, dw "
+          f"kernels (K4, K7 and their sums) {dw:.3f} ms per regular step")
     for t, k in sorted(rows, reverse=True)[:15]:
         print(f"    {t:8.3f} ms  {100 * t / busy:5.1f}%  {k[:90]}")
     print("  the port's kernels per regular step:")
@@ -1102,16 +1232,16 @@ def zero_counts(kernels) -> None:
 
 def check_tc_launches(kernels, launches, name):
     """Every launch of the path's attention kernels (K1/K2, or K5/K6 on
-    the 480 path) and of its weight-gradient kernels (K4 in each form, K7;
-    every path runs a bf16 generator) on the tensor cores: fails
+    the 480 path) and of its conv kernels (K3 in each form, K4 in each
+    form, K7; every path runs a bf16 generator) on the tensor cores: fails
     otherwise, or when the path launched no attention kernel."""
     att = [k for k in ATTENTION if launches.get(k)]
-    names = att + [k for k in DW if launches.get(k)]
+    names = att + [k for k in DW + K3 if launches.get(k)]
     tc = {k: kernels[k][0].tc_launches for k in names}
     print(f"  tensor-core launches in the {name} path: {tc}")
     if not att or any(n != launches[k] for k, n in tc.items()):
-        fail(f"{name} path: attention or weight-gradient launches off the "
-             f"tensor cores: {tc} of {launches}")
+        fail(f"{name} path: attention or conv launches off the tensor "
+             f"cores: {tc} of {launches}")
 
 
 def run_path(torch, name, cfg, n_steps, kernels, need, same=False, **kw):
@@ -1244,6 +1374,7 @@ def main() -> int:
     check_conv_same(torch, conv, rows)
     check_same_edge_cases(torch, conv)
     check_dw_tc_edge_cases(torch, conv)
+    check_k3_tc_edge_cases(torch, conv)
     torch.cuda.empty_cache()
     for name, r in rows.items():
         b, by = bound_ms(r["nbytes"], r["flops"], r["dtype"])
@@ -1251,7 +1382,7 @@ def main() -> int:
         print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
               f"bound {b:.4f} ms ({by})")
-        if name in DW:
+        if name in DW + K3:
             print_beside_previous(name, r)
 
     print("phase 3: small step, card against CPU")
@@ -1343,8 +1474,7 @@ def main() -> int:
     for name, (fn, route, source, replaces, path) in kernels.items():
         r = rows[name]
         line.append({"name": name, "route": route, "source": source,
-                     "cores": "tensor core" if name in ATTENTION + DW
-                     else "cuda core",
+                     "cores": "tensor core",
                      "replaces": replaces, "launches": launches[path][name],
                      "path": path, "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -1,6 +1,6 @@
 // Small-channel k x k convolution in [B, C, H, W] layout.
 //
-// Both kernels read their input through one mapping (Src below) that turns
+// Every kernel reads its input through one mapping (Src below) that turns
 // the source tensor x [B, Cin, H, W] into the "virtual input" V of a VALID
 // stride-1 conv:
 //   * an implicit zero border of `pad` around x (no padded copy);
@@ -17,14 +17,16 @@
 //     reference's pre-image padding v = -shift/scale approximates
 //     (conv_pallas.py:959-975).
 //
-// K3 conv_valid_fwd replaces _make_conv_kernel (:157, launched by
+// K3 (conv_fwd_tc in bf16, conv_valid_fwd in fp32) replaces
+// _make_conv_kernel (:157, launched by
 // _conv_fwd_impl :276): the plain VALID form (conv_valid_chw :707), its
 // has_pro form (conv_pro_valid_chw :852) and the k2 = 2 space-to-depth
 // form of pallas_conv_chw / pallas_conv_bn_act_chw. It also computes the
 // input gradient: the wrapper passes the cotangent with an implicit border
 // and the flipped, io-swapped kernel (_conv_bwd :719-729, _convp_bwd
 // :873-896).
-// K4 conv_dw replaces _make_dw_kernel (:401, launched by _dw_impl :630),
+// K4 (conv_dw_tc in bf16, conv_dw in fp32) replaces _make_dw_kernel
+// (:401, launched by _dw_impl :630),
 // with and without the prologue (recomputed on the read, as the TPU kernel
 // does) and at k in {1, 2, 3}:
 // dw[dy,dx,c,co] = sum over b,y,x of V[b,c,y+dy,x+dx] * g[b,co,y,x].
@@ -42,7 +44,8 @@
 // across its sequential grid; here each block writes its tile's sums to
 // scratch and conv_stats_reduce_kernel adds the tiles of each stack in a
 // fixed order (no atomics: a seeded run repeats bit for bit).
-// K7 conv_dw_gtap replaces _make_dw_kernel_gtap (:455, launched by
+// K7 (conv_dw_tc in bf16, conv_dw_gtap in fp32) replaces
+// _make_dw_kernel_gtap (:455, launched by
 // _dw_gtap_impl :522): the same dw contracted the other way round, by
 // tapping the cotangent instead of the input,
 //   dw[K-1-dy', K-1-dx', c, co] = sum over b,r,c' of V[b,c,r,c'] *
@@ -52,28 +55,32 @@
 // makes the reference's two modes one formula: SAME is the border (K-1)/2
 // on x, VALID the border 0 on a fully padded x. Output [Cin, K*K*Cout],
 // tap-major; the wrapper reverses the taps (:611-612). The reference chose
-// this order for fewer MXU passes (_gtap_better); on CUDA cores it is the
-// same count of multiply-adds as K4 and the routing only follows the
+// this order for fewer MXU passes (_gtap_better); here it is the same
+// count of multiply-adds as K4 and the routing only follows the
 // reference.
 //
-// What is kept from the TPU kernels: each input element is read from device
-// memory once per output-channel chunk and each output written once; the
-// normalised tensor z and the phase image are never materialised; the
-// k*k*Cin contraction accumulates in fp32; outputs are in the input type
-// (dw in fp32). The bias stays outside, as in the reference.
+// What is kept from the TPU kernels: the normalised tensor z and the phase
+// image are never materialised; the k*k*Cin contraction accumulates in
+// fp32; outputs are in the input type (dw in fp32). The bias stays
+// outside, as in the reference.
 //
 // What bounds it on the H100: at the generator's sites (Cin 3-136, Cout
 // 3-128, outputs up to 896x896, bf16) a call moves 10-170 MB and does up to
 // 17 GFLOP: about 100 flop per byte, under the bf16 tensor cores' ridge of
 // about 295, so on the tensor cores the bound is the memory traffic, on
-// the CUDA cores the arithmetic. K3 (both types) and the fp32 K4/K7 do the
-// multiply-adds in fp32 on the CUDA cores; PERF.md records the gap.
+// the CUDA cores the arithmetic. Two routes, chosen by dtype:
+//   * bf16 runs on the tensor cores (mma.sync): K3 in every form through
+//     conv_fwd_tc (namespace fwdtc), K4 and K7 through conv_dw_tc
+//     (namespace dwtc). Both stage x through Src into the same bf16
+//     shared-memory tiles; each is described above its kernel.
+//   * fp32 runs on the CUDA cores in full fp32 (the 1e-4 gates of the
+//     fp32 steps need it, not TF32): conv_valid_fwd, conv_dw, conv_dw_gtap.
 //
-// K3 design: a block owns an 8 x 32 tile of output pixels (one per thread)
-// and a chunk of COB output channels (fp32 accumulators in registers). It
-// walks the virtual channels in chunks of 8: the input tile with its (k-1)
-// halo and the weights of the chunk go to shared memory through the
-// mapping, so any height and width work (898, 1202, ...).
+// fp32 K3 design: a block owns an 8 x 32 tile of output pixels (one per
+// thread) and a chunk of COB output channels (fp32 accumulators in
+// registers). It walks the virtual channels in chunks of 8: the input tile
+// with its (k-1) halo and the weights of the chunk go to shared memory
+// through the mapping, so any height and width work (898, 1202, ...).
 // fp32 K4 design: the TPU kernel reduced B*H*W pixels into one accumulator
 // over a sequential grid. Here pass 1 splits the pixels into row chunks; a
 // block owns (row chunk, Cin chunk, Cout chunk), each thread one (c, co)
@@ -85,8 +92,6 @@
 // the left); each thread owns one ci and the K*K (tap, co) accumulators of
 // its co, so one value of z feeds K*K multiply-adds from shared memory.
 // It reuses K4's pass 2.
-// bf16 K4 and K7 (namespace dwtc) run on the tensor cores: one implicit
-// GEMM serves both, described above conv_dw_tc_kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,14 +103,8 @@ constexpr int NT = 256;
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // How the virtual input V maps onto the source tensor x.
 struct Src {
@@ -144,16 +143,16 @@ __device__ __forceinline__ float load_v(const T* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// K3: y[b,co,oy,ox] = sum_{c,dy,dx} V[b,c,oy+dy,ox+dx] w[dy,dx,c,co]
+// fp32 K3: y[b,co,oy,ox] = sum_{c,dy,dx} V[b,c,oy+dy,ox+dx] w[dy,dx,c,co]
 // ---------------------------------------------------------------------------
 constexpr int TW = 32;   // output tile width (one warp per row)
 constexpr int TH = 8;    // output tile height
 constexpr int CB = 8;    // virtual input channels per smem chunk
 
-template <typename T, int COB>
+template <int COB>
 __global__ void __launch_bounds__(NT)
-conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                T* __restrict__ y, float* __restrict__ st_part, Src src,
+conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                float* __restrict__ y, float* __restrict__ st_part, Src src,
                 int Cin, int Cout, int Ho, int Wo, int k, int n_co) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -182,7 +181,7 @@ conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int c = i / (kk * COB), rem = i % (kk * COB);
       const int t = rem / COB, co = co0 + rem % COB, ci = c0 + c;
       ws[i] = (ci < Cin && co < Cout)
-          ? to_f<T>(w[((size_t)t * Cin + ci) * Cout + co]) : 0.f;
+          ? w[((size_t)t * Cin + ci) * Cout + co] : 0.f;
     }
     __syncthreads();
     const int cmax = min(CB, Cin - c0);
@@ -211,17 +210,17 @@ conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int c = 0; c < COB; ++c)
       if (co0 + c < Cout)
-        y[(((size_t)b * Cout + co0 + c) * Ho + oy) * Wo + ox] = from_f<T>(acc[c]);
+        y[(((size_t)b * Cout + co0 + c) * Ho + oy) * Wo + ox] = acc[c];
   }
   if (st_part == nullptr) return;
-  // K3''' epilogue: this tile's (sum, sum of squares) of the stored (cast)
+  // K3''' epilogue: this tile's (sum, sum of squares) of the stored
   // outputs, per channel: warp shuffles, then the 8 warps in order.
   __syncthreads();                        // smem is free again
   float* red = smem;                      // [NT/32][2][COB]
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 #pragma unroll
   for (int c = 0; c < COB; ++c) {
-    const float v = valid ? to_f<T>(from_f<T>(acc[c])) : 0.f;
+    const float v = valid ? acc[c] : 0.f;
     float s = v, q = v * v;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
@@ -265,7 +264,7 @@ conv_stats_reduce_kernel(const float* __restrict__ st_part,
   if (threadIdx.x == 0) stats[o] = red[0];
 }
 
-template <typename T, int COB>
+template <int COB>
 int launch_fwd_cob(const void* x, const void* w, void* y, float* st_part,
                    float* stats, const Src& src, int B, int Cout, int Ho,
                    int Wo, int k, cudaStream_t stream) {
@@ -275,13 +274,14 @@ int launch_fwd_cob(const void* x, const void* w, void* y, float* st_part,
       sizeof(float) * (CB * k * k * COB + CB * (TH + k - 1) * (TW + k - 1));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        conv_fwd_kernel<T, COB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        conv_fwd_kernel<COB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((Wo + TW - 1) / TW, (Ho + TH - 1) / TH, B * n_co);
-  conv_fwd_kernel<T, COB><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
+  conv_fwd_kernel<COB><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(y),
       st_part, src, Cin, Cout, Ho, Wo, k, n_co);
   int err = (int)cudaGetLastError();
   if (err || st_part == nullptr) return err;
@@ -291,18 +291,17 @@ int launch_fwd_cob(const void* x, const void* w, void* y, float* st_part,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_fwd(const void* x, const void* w, void* y, float* st_part,
                float* stats, const Src& src, int B, int Cout, int Ho, int Wo,
                int k, cudaStream_t stream) {
   if (Cout <= 8)
-    return launch_fwd_cob<T, 8>(x, w, y, st_part, stats, src, B, Cout, Ho,
-                                Wo, k, stream);
+    return launch_fwd_cob<8>(x, w, y, st_part, stats, src, B, Cout, Ho, Wo,
+                             k, stream);
   if (Cout <= 16)
-    return launch_fwd_cob<T, 16>(x, w, y, st_part, stats, src, B, Cout, Ho,
-                                 Wo, k, stream);
-  return launch_fwd_cob<T, 32>(x, w, y, st_part, stats, src, B, Cout, Ho, Wo,
-                               k, stream);
+    return launch_fwd_cob<16>(x, w, y, st_part, stats, src, B, Cout, Ho, Wo,
+                              k, stream);
+  return launch_fwd_cob<32>(x, w, y, st_part, stats, src, B, Cout, Ho, Wo, k,
+                            stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -600,7 +599,7 @@ constexpr int SLACK = 16;  // elements after S's tile: odd reads past its end
 // Elements of one channel's plane of rows x cols: a word count of 4 mod 8,
 // so that 8 consecutive channels start in 8 distinct groups of 4 banks
 // (ops/conv.py dw_tc_plane).
-__host__ __device__ __forceinline__ int plane_elems(int rows, int cols) {
+__host__ __device__ constexpr int plane_elems(int rows, int cols) {
   int w = (rows * cols + 1) / 2;
   w += ((4 - w) % 8 + 8) % 8;
   return 2 * w;
@@ -720,17 +719,18 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 // stage() by 16-byte asynchronous copies (cp.async, zero-filled where the
 // vector is outside x, past ylim or from xlim on): 8 columns from vx0 + 8v
-// for v < SC / 8. Needs stride 1, W a multiple of 8, x 16-byte aligned
-// and vx0 - s.pad a multiple of 8 (a vector then lies wholly inside or
-// outside x's columns). The caller commits and waits, then runs
-// fix_async where the prologue or a vector across xlim needs it.
-template <int NROWS>
+// for v < RS / 8, RS the tile's row stride. Needs stride 1, W a multiple
+// of 8, x 16-byte aligned and vx0 - s.pad a multiple of 8 (a vector then
+// lies wholly inside or outside x's columns). The caller commits and
+// waits, then runs fix_async where the prologue or a vector across xlim
+// needs it.
+template <int NROWS, int RS = SC>
 __device__ __forceinline__ void stage_async(const bf16* __restrict__ x,
                                             const Src& s, int b, int c0,
                                             int nch, int vy0, int vx0,
                                             int plane, int ylim, int xlim,
                                             bf16* dst) {
-  constexpr int NV = SC / 8;
+  constexpr int NV = RS / 8;
   const int items = nch * NROWS * NV;
   for (int it = threadIdx.x; it < items; it += THREADS) {
     const int line = it / NV, v = it - line * NV;
@@ -741,19 +741,19 @@ __device__ __forceinline__ void stage_async(const bf16* __restrict__ x,
     const bf16* src =
         ok ? x + (((size_t)b * s.cin + c0 + c) * s.H + r) * s.W + col : x;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-                 :: "r"(smem_addr(dst + c * plane + ly * SC + 8 * v)),
+                 :: "r"(smem_addr(dst + c * plane + ly * RS + 8 * v)),
                     "l"(src), "r"(ok ? 16 : 0) : "memory");
   }
 }
 
 // After stage_async has landed: the prologue on the vectors read from x,
 // and zeros from xlim on.
-template <int NROWS>
+template <int NROWS, int RS = SC>
 __device__ __forceinline__ void fix_async(const Src& s, int b, int c0,
                                           int nch, int vy0, int vx0,
                                           int plane, int ylim, int xlim,
                                           bf16* dst) {
-  constexpr int NV = SC / 8;
+  constexpr int NV = RS / 8;
   const int items = nch * NROWS * NV;
   for (int it = threadIdx.x; it < items; it += THREADS) {
     const int line = it / NV, v = it - line * NV;
@@ -770,7 +770,7 @@ __device__ __forceinline__ void fix_async(const Src& s, int b, int c0,
       sc = s.scale[row];
       sh = s.shift[row];
     }
-    uint4* p = reinterpret_cast<uint4*>(dst + c * plane + ly * SC + 8 * v);
+    uint4* p = reinterpret_cast<uint4*>(dst + c * plane + ly * RS + 8 * v);
     uint4 w = *p;
     w.x = pro_pair(w.x, s, sc, sh, (room > 0) | (room > 1) << 1);
     w.y = pro_pair(w.y, s, sc, sh, (room > 2) | (room > 3) << 1);
@@ -1089,19 +1089,384 @@ int launch_k(const bf16* sx, const Src& ss, const bf16* ux, const Src& us,
 
 }  // namespace dwtc
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// bf16 K3 on the tensor cores: every form (plain, pro, SAME, s2d, K3''' and
+// the input gradient) as one implicit GEMM,
+//   y[co, p] = sum over (t, c) of w[t, c, co] * V[c, p + (dy, dx)],
+// M = Cout (16 * MT rows a block), N = the pixels, the contraction over
+// (tap t = dy*K + dx, channel c of V). mma.sync m16n8k16, fp32
+// accumulators in registers, y stored in bf16.
+// Layout (a) of the two that fit the CHW tile: Cout on M, pixels on N.
+//   * A = the weights, staged once per block (per channel chunk when V's
+//     channels take several) as [co][t][c] with an odd count of 16-byte
+//     units per row: ldmatrix.x4 reads each 16 x 16 fragment aligned and
+//     without bank conflicts.
+//   * B = V's pairs {V[c], V[c+1]} at one pixel: two 16-bit loads from
+//     two channel planes of the same staged tile that K4 uses (dwtc's
+//     stage/stage_async/fix_async: the halo, the lead, the prologue on x's
+//     own pixels, the phase images of stride 2). A tap shift is only an
+//     element offset of a 16-bit load, so no shift breaks an alignment.
+//     The plane stride (4 mod 8 words) puts the four lane groups q of one
+//     load in distinct banks.
+//   * The accumulators hold two adjacent pixels of one channel: y is
+//     stored as 32-bit words (pairs of bf16) where Wo is even.
+// Why not (b), pixels on M: it needs a transpose of every staged element
+// into a pixel-major tile (a scatter with bank conflicts) and an epilogue
+// through shared memory for CHW stores; (a) wastes M where Cout is not a
+// multiple of 16 (Cout 3, 36, 68: 81%, 25%, 15%) and pays four 16-bit
+// loads per n8 fragment, against the same staging as K4.
+// What bounds it: at [2,36,896,896]->16 the call moves 167 MB (0.05 ms at
+// 3.35 TB/s) for 16.6 GFLOP (0.017 ms at the bf16 tensor rate); the
+// staging's halo reads about 1.25 x 1.25 of the input (mostly from L2),
+// and the B loads (one 16-bit load per wavefront) are the busiest
+// shared-memory traffic.
+// Work: a block owns a strip of rows x cols output pixels of one image and
+// MT m16 tiles of Cout (all of Cout up to 80; wider outputs split into
+// evened chunks); it walks the strip in stages of TR x 8*NB pixels, warp w
+// owning stage row w (NB n8 tiles, all MT m16 tiles: at most 16
+// accumulator tiles). Each stage walks V's channels in chunks of cb (a
+// multiple of 16, padded with zero planes), staging the tile with its K-1
+// halo; the (stage, chunk) units run as a two-buffer pipeline, the next
+// unit's 16-byte copies in flight during this one's products (staging, not
+// the products, took most of the time before). The weights stay resident
+// where they fit beside the two buffers. The K3''' epilogue adds each
+// stage's bf16-rounded outputs and their squares per channel across the
+// lanes q, then into the warp's own shared-memory slot; the 8 warps'
+// slots are added in order into the strip's row of st_part (no atomics);
+// conv_stats_reduce_kernel adds the strips of a stack. The tiling comes
+// from ops/conv.py fwd_tc_tiling (about two waves of blocks).
+// ---------------------------------------------------------------------------
+namespace fwdtc {
 
-// The rows of K3''' scratch (one per output tile) that conv_valid_fwd
-// needs for a [B, Cout, Ho, Wo] output.
-extern "C" int conv_stats_scratch_tiles(int B, int Ho, int Wo) {
-  return B * ((Ho + TH - 1) / TH) * ((Wo + TW - 1) / TW);
+using dwtc::bf16;
+using dwtc::THREADS;
+constexpr int TR = 8;        // output rows of a stage, one per warp (ops/conv.py FWD_TC_ROWS)
+constexpr int BIG = 1 << 30;   // no row or column limit (ylim, xlim)
+
+// n8 tiles of a warp beside MT m16 tiles: at most 16 accumulator tiles
+// and 8 n8 tiles (ops/conv.py fwd_tc_nb).
+__host__ __device__ constexpr int nb_of(int mt) {
+  return 16 / mt < 8 ? 16 / mt : 8;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. x [B,Cin,H,W]; scale/shift: fp32
-// [groups, Cin] or null (no prologue); stride 1 or 2; w [k,k,s*s*Cin,Cout]
-// in x's type; y [B,Cout,Ho,Wo] with Ho + k - 1 <= (H + 2pad) / stride
-// rounded up, and likewise Wo. st_part/stats: null, or (K3''') fp32
-// scratch [conv_stats_scratch_tiles(B, Ho, Wo), 2, Cout] and the output
+// Row stride of V's tile: a stage's 8*NB columns, the lead (<= 7) and the
+// halo (<= 2) in whole 16-byte vectors (ops/conv.py fwd_tc_tile_cols).
+__host__ __device__ constexpr int tile_cols(int mt) { return 8 * nb_of(mt) + 16; }
+
+// Row stride of the weight tile [co][t][c] for cb channels: an odd count
+// of 16-byte units (cb is a multiple of 16).
+__host__ __device__ constexpr int w_stride(int k, int cb) { return k * k * cb + 8; }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// The weights of channels [c0, c0 + cb) and output channels [co0, co0 +
+// mrows) into dst[co][t * cb + c]; zero past Cv and past Cout.
+template <int K>
+__device__ __forceinline__ void stage_w(const bf16* __restrict__ w, bf16* dst,
+                                        int mrows, int co0, int Cout, int Cv,
+                                        int c0, int cb) {
+  const int ws = w_stride(K, cb), n = mrows * K * K * cb;
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const int co = i % mrows, rest = i / mrows;   // co fastest: coalesced
+    const int c = rest % cb, t = rest / cb;
+    bf16 v = __float2bfloat16(0.f);
+    if (co0 + co < Cout && c0 + c < Cv)
+      v = w[((size_t)t * Cv + c0 + c) * Cout + co0 + co];
+    dst[co * ws + t * cb + c] = v;
+  }
+}
+
+// Grid: (B * strips_y * strips_x, ceil(Cout / (16 * MT))). wcb: V's
+// channels per tap in the weight tile: all of them (a multiple of 16 >= Cv,
+// staged once) or cb (staged with each chunk). vec: x can be staged by
+// 16-byte copies (dwtc::vec_ok); vec_out: y takes 32-bit stores.
+template <int K, int MT>
+__global__ void __launch_bounds__(THREADS, 2)
+conv_fwd_tc_kernel(const bf16* __restrict__ x, Src src,
+                   const bf16* __restrict__ w, bf16* __restrict__ y,
+                   float* __restrict__ st_part, int Cv, int Cout, int Ho,
+                   int Wo, int rows, int cols, int strips_y, int strips_x,
+                   int cb, int wcb, int vec, int vec_out) {
+  constexpr int NB = nb_of(MT), TCW = 8 * NB, RS = tile_cols(MT);
+  constexpr int SR = TR + K - 1, MROWS = 16 * MT;
+  // compile-time plane stride: the B loads take immediate offsets
+  constexpr int plane = dwtc::plane_elems(SR, RS);
+  const int ws = w_stride(K, wcb);
+  extern __shared__ float4 smem4[];
+  const int vbuf = (cb * plane + 7) & ~7;     // elements of a V buffer
+  bf16* v_tile = reinterpret_cast<bf16*>(smem4);   // 2 x [cb][plane]
+  bf16* w_tile = v_tile + 2 * vbuf;                 // [MROWS][ws]
+  // K3''': [8 warps][sum, squares][MROWS], each warp's own rows
+  float* red = reinterpret_cast<float*>(w_tile + MROWS * ws);
+
+  const int per_image = strips_y * strips_x;
+  const int b = blockIdx.x / per_image;
+  const int sy = blockIdx.x % per_image / strips_x;
+  const int sxi = blockIdx.x % strips_x;
+  const int r0 = sy * rows, r1 = min(r0 + rows, Ho);
+  const int q0 = sxi * cols, q1 = min(q0 + cols, Wo);
+  const int co0 = blockIdx.y * MROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, q = lane & 3;
+  const int lead = dwtc::lead(src);
+  const bool w_once = wcb >= Cv;
+
+  // ldmatrix: lane l gives row (l & 7) + (l & 8) and column 8 * (l >> 4)
+  // of the 16 x 16 fragment (matrices a0..a3 in mma's order); m16 tile i
+  // is 16 * ws elements further
+  const uint32_t a_lane = dwtc::smem_addr(
+      w_tile + ((lane & 7) + (lane & 8)) * ws + ((lane >> 4) << 3));
+  const uint32_t a_tile = 2 * 16 * ws;     // bytes
+  // B: this lane's element (channel 2q, tap (0, 0), column gid of n8
+  // tile 0, stage row `warp`) in a V buffer
+  const int b_lane = 2 * q * plane + warp * RS + lead + gid;
+
+  if (st_part != nullptr)
+    for (int i = threadIdx.x; i < (THREADS / 32) * 2 * MROWS; i += THREADS)
+      red[i] = 0.f;
+  if (w_once) stage_w<K>(w, w_tile, MROWS, co0, Cout, Cv, 0, wcb);
+
+  // The block's units of work, (stage, chunk of V's channels) stage-major,
+  // run as a pipeline over two V buffers: unit u + 1's 16-byte copies are
+  // in flight while unit u's products run. (The element-wise path stages
+  // each unit in its turn.)
+  const int n_cc = (Cv + cb - 1) / cb;
+  const int sx_n = (q1 - q0 + TCW - 1) / TCW;
+  const int units = (r1 - r0 + TR - 1) / TR * sx_n * n_cc;
+  const auto stage_unit = [&](int u) {
+    const int s = u / n_cc, c0 = (u - s * n_cc) * cb;
+    const int y0 = r0 + TR * (s / sx_n), x0 = q0 + TCW * (s % sx_n);
+    bf16* dst = v_tile + (u & 1) * vbuf;
+    if (vec)
+      dwtc::stage_async<SR, RS>(x, src, b, c0, min(cb, Cv - c0), y0,
+                                x0 - lead, plane, BIG, BIG, dst);
+    else
+      dwtc::stage<SR>(x, src, b, c0, min(cb, Cv - c0), y0, x0 - lead,
+                      lead + TCW + K - 1, plane, RS, BIG, BIG, dst, warp,
+                      lane);
+  };
+  if (vec) {
+    stage_unit(0);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+  float acc[MT][NB][4];
+  for (int u = 0; u < units; ++u) {
+    const int s = u / n_cc, ci = u - s * n_cc, c0 = ci * cb;
+    const int y0 = r0 + TR * (s / sx_n), x0 = q0 + TCW * (s % sx_n);
+    const int nch = min(cb, Cv - c0), nchp = (nch + 15) & ~15;
+    bf16* buf = v_tile + (u & 1) * vbuf;
+    if (vec) {
+      if (u + 1 < units) stage_unit(u + 1);
+      // every group but the newest (unit u + 1's) has landed
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;" ::: "memory");
+    } else {
+      stage_unit(u);
+    }
+    if (!w_once) stage_w<K>(w, w_tile, MROWS, co0, Cout, Cv, c0, wcb);
+    for (int i = threadIdx.x; i < (nchp - nch) * plane; i += THREADS)
+      buf[nch * plane + i] = __float2bfloat16(0.f);
+    __syncthreads();
+    if (vec && src.scale != nullptr) {
+      dwtc::fix_async<SR, RS>(src, b, c0, nch, y0, x0 - lead, plane, BIG,
+                              BIG, buf);
+      __syncthreads();
+    }
+    if (ci == 0) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+    const int oy = y0 + warp;
+    if (oy < r1) {                        // rows past the strip: no work
+      // tap-major, the 16-channel steps inside: each tap's addresses
+      // live only through its loop
+      const unsigned short* vu =
+          reinterpret_cast<const unsigned short*>(buf) + b_lane;
+      const uint32_t a_chunk = a_lane + 2 * (w_once ? c0 : 0);
+#pragma unroll
+      for (int dy = 0; dy < K; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx) {
+          const unsigned short* vt = vu + dy * RS + dx;
+          const uint32_t at = a_chunk + 2 * (dy * K + dx) * wcb;
+          for (int c16 = 0; c16 < nchp; c16 += 16) {
+            const unsigned short* vp = vt + c16 * plane;
+            const uint32_t ap = at + 2 * c16;
+            if constexpr (4 * MT <= 2 * NB) {
+              // the A fragments first (fewer registers than B's)
+              uint32_t a[MT][4];
+#pragma unroll
+              for (int i = 0; i < MT; ++i) ldmatrix_x4(a[i], ap + i * a_tile);
+#pragma unroll
+              for (int j = 0; j < NB; ++j) {
+                const unsigned short* p = vp + 8 * j;
+                const uint32_t b0 = p[0] | (uint32_t)p[plane] << 16;
+                const uint32_t b1 = p[8 * plane] | (uint32_t)p[9 * plane] << 16;
+#pragma unroll
+                for (int i = 0; i < MT; ++i)
+                  dwtc::mma16816(acc[i][j], a[i], b0, b1);
+              }
+            } else {
+              uint32_t bf[NB][2];
+#pragma unroll
+              for (int j = 0; j < NB; ++j) {
+                const unsigned short* p = vp + 8 * j;
+                bf[j][0] = p[0] | (uint32_t)p[plane] << 16;
+                bf[j][1] = p[8 * plane] | (uint32_t)p[9 * plane] << 16;
+              }
+#pragma unroll
+              for (int i = 0; i < MT; ++i) {
+                uint32_t a[4];
+                ldmatrix_x4(a, ap + i * a_tile);
+#pragma unroll
+                for (int j = 0; j < NB; ++j)
+                  dwtc::mma16816(acc[i][j], a, bf[j][0], bf[j][1]);
+              }
+            }
+          }
+        }
+      }
+    }
+    if (ci == n_cc - 1 && oy < r1) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int co = co0 + 16 * i + gid + 8 * h;
+          float s1 = 0.f, s2 = 0.f;       // this stage's K3''' sums
+          if (co < Cout) {
+            bf16* yrow = y + (((size_t)b * Cout + co) * Ho + oy) * Wo;
+#pragma unroll
+            for (int j = 0; j < NB; ++j) {
+              const int ox = x0 + 8 * j + 2 * q;
+              const __nv_bfloat162 v = __floats2bfloat162_rn(
+                  acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+              const bool ok0 = ox < q1, ok1 = ox + 1 < q1;
+              if (vec_out && ok1) {
+                *reinterpret_cast<__nv_bfloat162*>(yrow + ox) = v;
+              } else {
+                if (ok0) yrow[ox] = v.x;
+                if (ok1) yrow[ox + 1] = v.y;
+              }
+              // the sums of the stored (bf16-rounded) values
+              const float f0 = ok0 ? __bfloat162float(v.x) : 0.f;
+              const float f1 = ok1 ? __bfloat162float(v.y) : 0.f;
+              s1 += f0 + f1;
+              s2 += f0 * f0 + f1 * f1;
+            }
+          }
+          if (st_part == nullptr) continue;
+          // the four lanes q of the row, then into this warp's slot
+          s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+          s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
+          s2 += __shfl_xor_sync(0xffffffffu, s2, 2);
+          if (q == 0) {
+            const int r = 16 * i + gid + 8 * h;
+            red[(warp * 2 + 0) * MROWS + r] += s1;
+            red[(warp * 2 + 1) * MROWS + r] += s2;
+          }
+        }
+      }
+    }
+    __syncthreads();     // this buffer (and a chunk's weights) is read
+  }
+  if (st_part == nullptr) return;
+  // K3''': the strip's sums per channel, the 8 warps' slots in order
+  __syncthreads();
+  if (threadIdx.x < 2 * MROWS) {
+    const int which = threadIdx.x / MROWS, c = threadIdx.x % MROWS;
+    float t = 0.f;
+    for (int i = 0; i < THREADS / 32; ++i) t += red[(i * 2 + which) * MROWS + c];
+    if (co0 + c < Cout)
+      st_part[((size_t)blockIdx.x * 2 + which) * Cout + co0 + c] = t;
+  }
+}
+
+// Shared memory of a block: two buffers of V's chunk, the weight tile, the
+// K3''' slots (ops/conv.py fwd_tc_smem).
+__host__ __forceinline__ size_t smem_bytes(int k, int mt, int cb, int wcb) {
+  const size_t v = (size_t)cb * dwtc::plane_elems(TR + k - 1, tile_cols(mt));
+  return sizeof(bf16) * (2 * ((v + 7) & ~(size_t)7) + (size_t)16 * mt * w_stride(k, wcb)) +
+         sizeof(float) * (THREADS / 32) * 2 * 16 * mt;
+}
+
+template <int K, int MT>
+int launch_km(const bf16* x, const Src& src, const bf16* w, bf16* y,
+              float* st_part, float* stats, int B, int Cout, int Ho, int Wo,
+              int rows, int cols, int cb, int wcb, cudaStream_t stream) {
+  constexpr int TCW = 8 * nb_of(MT);
+  const int Cv = src.stride * src.stride * src.cin;
+  if (rows < TR || rows % TR || cols < TCW || cols % TCW || cb < 16 ||
+      cb % 16 || (wcb != cb && wcb < Cv) || wcb % 16)
+    return (int)cudaErrorInvalidValue;
+  const int strips_y = (Ho + rows - 1) / rows;
+  const int strips_x = (Wo + cols - 1) / cols;
+  const size_t smem = smem_bytes(K, MT, cb, wcb);
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_fwd_tc_kernel<K, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * strips_y * strips_x, (Cout + 16 * MT - 1) / (16 * MT));
+  const int vec_out = Wo % 2 == 0 && reinterpret_cast<uintptr_t>(y) % 4 == 0;
+  conv_fwd_tc_kernel<K, MT><<<grid, THREADS, smem, stream>>>(
+      x, src, w, y, st_part, Cv, Cout, Ho, Wo, rows, cols, strips_y,
+      strips_x, cb, wcb, dwtc::vec_ok(x, src), vec_out);
+  int err = (int)cudaGetLastError();
+  if (err || st_part == nullptr) return err;
+  const int groups = B / src.per_group;
+  conv_stats_reduce_kernel<<<groups * 2 * Cout, NT, 0, stream>>>(
+      st_part, stats, src.per_group * strips_y * strips_x, Cout);
+  return (int)cudaGetLastError();
+}
+
+// mt: m16 tiles of Cout a block holds, 1 to 5 (ops/conv.py FWD_TC_MT).
+template <int K>
+int launch_k(const bf16* x, const Src& src, const bf16* w, bf16* y,
+             float* st_part, float* stats, int B, int Cout, int Ho, int Wo,
+             int rows, int cols, int cb, int wcb, int mt,
+             cudaStream_t stream) {
+  switch (mt) {
+    case 1: return launch_km<K, 1>(x, src, w, y, st_part, stats, B, Cout, Ho,
+                                   Wo, rows, cols, cb, wcb, stream);
+    case 2: return launch_km<K, 2>(x, src, w, y, st_part, stats, B, Cout, Ho,
+                                   Wo, rows, cols, cb, wcb, stream);
+    case 3: return launch_km<K, 3>(x, src, w, y, st_part, stats, B, Cout, Ho,
+                                   Wo, rows, cols, cb, wcb, stream);
+    case 4: return launch_km<K, 4>(x, src, w, y, st_part, stats, B, Cout, Ho,
+                                   Wo, rows, cols, cb, wcb, stream);
+    case 5: return launch_km<K, 5>(x, src, w, y, st_part, stats, B, Cout, Ho,
+                                   Wo, rows, cols, cb, wcb, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace fwdtc
+
+}  // namespace
+
+// The rows of K3''' scratch (one per output tile) that a [B, Cout, Ho, Wo]
+// output needs: dtype 0 (fp32, conv_valid_fwd) tiles of TH x TW, dtype 1
+// (bf16, conv_fwd_tc) strips of rows x cols; an image's tiles are
+// contiguous.
+extern "C" int conv_stats_scratch_tiles(int B, int Ho, int Wo, int dtype,
+                                        int rows, int cols) {
+  if (dtype == 0) rows = TH, cols = TW;
+  return B * ((Ho + rows - 1) / rows) * ((Wo + cols - 1) / cols);
+}
+
+// fp32 K3 (the CUDA cores). x [B,Cin,H,W]; scale/shift: fp32 [groups, Cin]
+// or null (no prologue); stride 1 or 2; w [k,k,s*s*Cin,Cout]; y
+// [B,Cout,Ho,Wo] with Ho + k - 1 <= (H + 2pad) / stride rounded up, and
+// likewise Wo; all fp32. st_part/stats: null, or (K3''') fp32 scratch
+// [conv_stats_scratch_tiles(B, Ho, Wo, 0, 0, 0), 2, Cout] and the output
 // [groups, 2, Cout]: per BatchNorm stack the sum and the sum of squares of
 // y.
 extern "C" int conv_valid_fwd(const void* x, const void* w, void* y,
@@ -1109,15 +1474,47 @@ extern "C" int conv_valid_fwd(const void* x, const void* w, void* y,
                               int Cin, int H, int W, int Cout, int Ho, int Wo,
                               int k, int pad, int stride, int groups,
                               float negslope, float* st_part, float* stats,
-                              int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                              void* stream) {
   const Src src = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
                            negslope);
-  return dtype == 1
-      ? launch_fwd<__nv_bfloat16>(x, w, y, st_part, stats, src, B, Cout, Ho,
-                                  Wo, k, s)
-      : launch_fwd<float>(x, w, y, st_part, stats, src, B, Cout, Ho, Wo, k,
-                          s);
+  return launch_fwd(x, w, y, st_part, stats, src, B, Cout, Ho, Wo, k,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// bf16 K3 on the tensor cores: as conv_valid_fwd, with x, w and y bf16 and
+// k in {1, 2, 3}. The tiling comes from ops/conv.py fwd_tc_tiling: strips
+// of rows x cols output pixels (rows a multiple of 8, cols of 8 *
+// fwd_tc_nb(mt)), cb (a multiple of 16) channels of V per shared-memory
+// chunk, wcb channels per tap in the weight tile (cb, or a multiple of 16
+// >= s*s*Cin: all of them, staged once), mt in [1, 5] m16 tiles of Cout
+// per block. st_part:
+// [conv_stats_scratch_tiles(B, Ho, Wo, 1, rows, cols), 2, Cout].
+extern "C" int conv_fwd_tc(const void* x, const void* w, void* y,
+                           const float* scale, const float* shift, int B,
+                           int Cin, int H, int W, int Cout, int Ho, int Wo,
+                           int k, int pad, int stride, int groups,
+                           float negslope, float* st_part, float* stats,
+                           int rows, int cols, int cb, int wcb, int mt,
+                           void* stream) {
+  using fwdtc::bf16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Src src = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
+                           negslope);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  bf16* yb = static_cast<bf16*>(y);
+  switch (k) {
+    case 1: return fwdtc::launch_k<1>(xb, src, wb, yb, st_part, stats, B,
+                                      Cout, Ho, Wo, rows, cols, cb, wcb, mt,
+                                      st);
+    case 2: return fwdtc::launch_k<2>(xb, src, wb, yb, st_part, stats, B,
+                                      Cout, Ho, Wo, rows, cols, cb, wcb, mt,
+                                      st);
+    case 3: return fwdtc::launch_k<3>(xb, src, wb, yb, st_part, stats, B,
+                                      Cout, Ho, Wo, rows, cols, cb, wcb, mt,
+                                      st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // fp32 K7 (the CUDA cores). x, scale, shift, pad, groups, negslope: as

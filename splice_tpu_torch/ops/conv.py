@@ -34,10 +34,13 @@ conv_same_chw :735-766, conv_same_pro_chw :769-813, conv_same_pro_stats_chw
     _make_dw_kernel_gtap :455), where DW_TAP_ON_N and _gtap_better say so,
     else K4 with the border.
 
-The weight gradients K4 and K7 route by dtype: bf16 runs on the tensor
-cores (one implicit-GEMM kernel for both, csrc/conv.cu conv_dw_tc, tiled by
-dw_tc_tiling below; counted in each wrapper's tc_launches), fp32 on the
-CUDA cores (conv_dw, conv_dw_gtap), whose fp32 sums the 1e-4 gates need.
+Every kernel routes by dtype. bf16 runs on the tensor cores (mma.sync):
+K3 in every form, the input gradient included, through one implicit-GEMM
+kernel (csrc/conv.cu conv_fwd_tc, tiled by fwd_tc_tiling below), K4 and
+K7 through another (conv_dw_tc, tiled by dw_tc_tiling); each wrapper
+counts its bf16 launches in tc_launches. fp32 runs on the CUDA cores
+(conv_valid_fwd, conv_dw, conv_dw_gtap) in full fp32, which the 1e-4 gates
+of the fp32 steps need.
 
 On CPU tensors the same functions run their plain PyTorch versions below,
 which materialise what the kernels' input read sees (virtual_input_plain)
@@ -77,6 +80,17 @@ DW_TC_ACC = 16            # csrc ACC
 DW_TC_TILE_COLS = DW_TC_COLS + 16   # row stride of both tiles (csrc SC)
 DW_TC_S_BYTES = 96 * 1024  # shared memory for the tapped operand's tile
 DW_TC_BLOCKS = 528
+
+# bf16 K3 on the tensor cores (csrc/conv.cu, namespace fwdtc): a block
+# holds up to FWD_TC_MT m16 tiles of Cout (wider outputs split into evened
+# chunks) and walks a strip of output pixels in stages of FWD_TC_ROWS rows
+# (one per warp) x 8 * fwd_tc_nb(mt) columns, staging V's channels in
+# chunks that fit FWD_TC_SMEM with the weights (two blocks per SM); the
+# grid aims at FWD_TC_BLOCKS blocks, as the dw kernel's.
+FWD_TC_ROWS = 8           # csrc fwdtc::TR
+FWD_TC_MT = 5             # csrc fwdtc::launch_k's cases
+FWD_TC_SMEM = 110 * 1024
+FWD_TC_BLOCKS = 528
 
 # The reference's module constants (conv_pallas.py:41, :627), read at call
 # time through this module. SAME_BORDER_KERNELS routes stride-1 zero-border
@@ -274,9 +288,10 @@ def _prologue_args(x, scale, shift):
 
 def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name,
                 want_stats: bool = False):
-    """K3 over the virtual input of x (see csrc/conv.cu). w must already be
-    in x's type. want_stats (K3''', needs the prologue): also the fp32
-    [G, 2, Cout] per-stack sums of y and y^2."""
+    """K3 over the virtual input of x (see csrc/conv.cu): bf16 on the
+    tensor cores (conv_fwd_tc), fp32 on the CUDA cores (conv_valid_fwd). w
+    must already be in x's type. want_stats (K3''', needs the prologue):
+    also the fp32 [G, 2, Cout] per-stack sums of y and y^2."""
     x, w = x.contiguous(), w.contiguous()
     dtype = _build.check_cuda_tensors(name, x, w)
     B, cin, h, wd = x.shape
@@ -284,30 +299,119 @@ def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name,
     if k != k2 or wcin != stride * stride * cin or stride not in (1, 2):
         raise ValueError(f"{name}: kernel {tuple(w.shape)} vs input "
                          f"{tuple(x.shape)}, stride {stride}")
+    tc = dtype == _build.DTYPES["bfloat16"]
+    if tc and k not in (1, 2, 3):
+        raise ValueError(f"{name}: the bf16 kernel is built for k in "
+                         f"(1, 2, 3), got {k}")
     ho, wo = out_hw
     sp, tp, G = _prologue_args(x, scale, shift)
     y = torch.empty(B, cout, ho, wo, dtype=x.dtype, device=x.device)
+    t = fwd_tc_tiling(k, wcin, cout, B, ho, wo) if tc else None
     st_part = stats = None
     lib = _build.library("conv")
     if want_stats:
         if scale is None:
             raise ValueError(f"{name}: the statistics need the prologue")
-        lib.conv_stats_scratch_tiles.argtypes = [ctypes.c_int] * 3
-        st_part = torch.empty(lib.conv_stats_scratch_tiles(B, ho, wo), 2,
-                              cout, dtype=torch.float32, device=x.device)
+        lib.conv_stats_scratch_tiles.argtypes = [ctypes.c_int] * 6
+        tiles = lib.conv_stats_scratch_tiles(
+            B, ho, wo, dtype, *((t.rows, t.cols) if tc else (0, 0)))
+        st_part = torch.empty(tiles, 2, cout, dtype=torch.float32,
+                              device=x.device)
         stats = torch.empty(G, 2, cout, dtype=torch.float32, device=x.device)
-    fn = lib.conv_valid_fwd
+    args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), sp, tp, B, cin, h, wd,
+            cout, ho, wo, k, pad, stride, G, float(negslope),
+            st_part.data_ptr() if want_stats else None,
+            stats.data_ptr() if want_stats else None)
+    argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 \
+        + [ctypes.c_float] + [ctypes.c_void_p] * 2
+    if tc:
+        fn = lib.conv_fwd_tc
+        fn.argtypes = argtypes + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        args += (t.rows, t.cols, t.cb, t.wcb, t.mt)
+    else:
+        fn = lib.conv_valid_fwd
+        fn.argtypes = argtypes + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 \
-        + [ctypes.c_float] + [ctypes.c_void_p] * 2 \
-        + [ctypes.c_int, ctypes.c_void_p]
-    status = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), sp, tp, B, cin, h,
-                wd, cout, ho, wo, k, pad, stride, G, float(negslope),
-                st_part.data_ptr() if want_stats else None,
-                stats.data_ptr() if want_stats else None, dtype,
-                _build.stream_ptr(x.device))
-    _build.check(status, name)
+    _build.check(fn(*args, _build.stream_ptr(x.device)), name)
     return (y, stats) if want_stats else y
+
+
+class FwdTiling(NamedTuple):
+    """The bf16 K3 kernel's work split (csrc conv_fwd_tc): strips of rows x
+    cols output pixels per block, cb channels of V per shared-memory chunk
+    (a multiple of 16), wcb channels per tap in the weight tile (all of V's,
+    rounded up to 16 and staged once per block, or cb, staged with each
+    chunk), mt m16 tiles (16 * mt output channels) per block; tiles = the
+    strips, the K3''' scratch rows."""
+    rows: int
+    cols: int
+    cb: int
+    wcb: int
+    mt: int
+    tiles: int
+
+
+def fwd_tc_nb(mt: int) -> int:
+    """n8 tiles (8 output columns each) a warp holds beside mt m16 tiles:
+    at most 16 accumulator tiles, at most 8 (csrc nb_of)."""
+    return min(8, 16 // mt)
+
+
+def fwd_tc_tile_cols(mt: int) -> int:
+    """Row stride of V's tile: a stage's 8 * nb columns, the lead (<= 7)
+    and the halo (<= 2) in whole 16-byte vectors (csrc tile_cols)."""
+    return 8 * fwd_tc_nb(mt) + 16
+
+
+def fwd_tc_w_stride(k: int, wcb: int) -> int:
+    """Row stride of the weight tile [co][tap][c]: an odd count of 16-byte
+    units, for conflict-free ldmatrix (csrc w_stride)."""
+    return k * k * wcb + 8
+
+
+def fwd_tc_smem(k: int, cb: int, wcb: int, mt: int) -> int:
+    """Bytes of a block's shared memory: two buffers of V's chunk, the
+    weight tile and the K3''' slots of its 8 warps (csrc smem_bytes)."""
+    v = cb * dw_tc_plane(FWD_TC_ROWS + k - 1, fwd_tc_tile_cols(mt))
+    return 2 * (2 * -(-v // 8) * 8 + 16 * mt * fwd_tc_w_stride(k, wcb)) \
+        + 4 * 8 * 2 * 16 * mt
+
+
+def fwd_tc_tiling(k: int, cv: int, cout: int, batch: int, ho: int,
+                  wo: int) -> FwdTiling:
+    """How conv_fwd_tc splits y[co, p] = sum_(t, c) w[t, c, co] V[c, p + t]
+    over [batch, ho, wo] outputs, cv channels of V: Cout in as few evened
+    chunks of at most FWD_TC_MT m16 tiles as it takes; V's channels in as
+    few evened chunks of a multiple of 16 as FWD_TC_SMEM allows, with every
+    channel's weights resident where they fit beside a chunk, else staged
+    with each chunk; strips of whole stages, full-width where the grid
+    still reaches about FWD_TC_BLOCKS blocks, else split along the
+    columns."""
+    n_co = -(-cout // (16 * FWD_TC_MT))
+    mt = -(-(-(-cout // n_co)) // 16)
+    n_co = -(-cout // (16 * mt))
+    c_all = 16 * -(-cv // 16)
+    chunks = range(c_all, 0, -16)
+    # the widest chunk beside every channel's weights, else beside its own
+    cb = next((c for c in chunks
+               if fwd_tc_smem(k, c, c_all, mt) <= FWD_TC_SMEM), 0)
+    resident = cb > 0
+    if not resident:
+        cb = next(c for c in chunks if fwd_tc_smem(k, c, c, mt) <= FWD_TC_SMEM)
+    n_cc = -(-cv // cb)
+    cb = 16 * -(-(-(-cv // n_cc)) // 16)
+    wcb = c_all if resident else cb
+    tcw = 8 * fwd_tc_nb(mt)
+    sy, sx = -(-ho // FWD_TC_ROWS), -(-wo // tcw)
+    per_chunk = max(1, FWD_TC_BLOCKS // n_co)
+    spb = max(1, -(-batch * sy * sx // per_chunk))      # stages per block
+    if spb >= sx:
+        rows, cols = FWD_TC_ROWS * (spb // sx), tcw * sx
+    else:
+        rows = FWD_TC_ROWS
+        cols = tcw * -(-sx // -(-sx // spb))
+    tiles = batch * -(-ho // rows) * -(-wo // cols)
+    return FwdTiling(rows, cols, cb, wcb, mt, tiles)
 
 
 class DwTiling(NamedTuple):
@@ -486,15 +590,18 @@ def _same_pad(w: torch.Tensor, name: str) -> int:
 
 def conv_same_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K3'' SAME on the card: the conv with the zero border (k-1)//2. w must
-    already be in x's type."""
+    already be in x's type. bf16 launches run on the tensor cores and also
+    count in tc_launches (as in every K3 wrapper below)."""
     pad = _same_pad(w, "conv_same")
     y = _launch_fwd(x, w, _out_hw(x, w.shape[0], pad), pad, 1, None, None,
                     1.0, "conv_same")
     conv_same_cuda.launches += 1
+    conv_same_cuda.tc_launches += x.dtype == torch.bfloat16
     return y
 
 
 conv_same_cuda.launches = 0
+conv_same_cuda.tc_launches = 0
 
 
 def conv_same_pro_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -506,10 +613,12 @@ def conv_same_pro_cuda(x: torch.Tensor, w: torch.Tensor,
     y = _launch_fwd(x, w, _out_hw(x, w.shape[0], pad), pad, 1, scale, shift,
                     negslope, "conv_same_pro")
     conv_same_pro_cuda.launches += 1
+    conv_same_pro_cuda.tc_launches += x.dtype == torch.bfloat16
     return y
 
 
 conv_same_pro_cuda.launches = 0
+conv_same_pro_cuda.tc_launches = 0
 
 
 def conv_same_pro_stats_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -521,10 +630,12 @@ def conv_same_pro_stats_cuda(x: torch.Tensor, w: torch.Tensor,
     y, st = _launch_fwd(x, w, _out_hw(x, w.shape[0], pad), pad, 1, scale,
                         shift, negslope, "conv_same_pro_stats", True)
     conv_same_pro_stats_cuda.launches += 1
+    conv_same_pro_stats_cuda.tc_launches += x.dtype == torch.bfloat16
     return y, st[:, 0], st[:, 1]
 
 
 conv_same_pro_stats_cuda.launches = 0
+conv_same_pro_stats_cuda.tc_launches = 0
 
 
 def conv_dw_gtap_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
@@ -549,14 +660,17 @@ conv_dw_gtap_cuda.tc_launches = 0
 def conv_valid_cuda(x: torch.Tensor, w: torch.Tensor,
                     pad: int = 0) -> torch.Tensor:
     """K3 on the card: VALID stride-1 conv with an implicit zero border.
-    w must already be in x's type."""
+    w must already be in x's type. bf16 launches run on the tensor cores
+    and also count in tc_launches."""
     y = _launch_fwd(x, w, _out_hw(x, w.shape[0], pad), pad, 1, None, None,
                     1.0, "conv_valid")
     conv_valid_cuda.launches += 1
+    conv_valid_cuda.tc_launches += x.dtype == torch.bfloat16
     return y
 
 
 conv_valid_cuda.launches = 0
+conv_valid_cuda.tc_launches = 0
 
 
 def conv_valid_pro_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -569,10 +683,12 @@ def conv_valid_pro_cuda(x: torch.Tensor, w: torch.Tensor,
     y = _launch_fwd(x, w, out_hw or _out_hw(x, w.shape[0], pad), pad,
                     stride, scale, shift, negslope, "conv_valid_pro")
     conv_valid_pro_cuda.launches += 1
+    conv_valid_pro_cuda.tc_launches += x.dtype == torch.bfloat16
     return y
 
 
 conv_valid_pro_cuda.launches = 0
+conv_valid_pro_cuda.tc_launches = 0
 
 
 def conv_valid_s2d_cuda(x: torch.Tensor, w: torch.Tensor, pad: int,
@@ -582,10 +698,12 @@ def conv_valid_s2d_cuda(x: torch.Tensor, w: torch.Tensor, pad: int,
     kernel w."""
     y = _launch_fwd(x, w, out_hw, pad, 2, None, None, 1.0, "conv_valid_s2d")
     conv_valid_s2d_cuda.launches += 1
+    conv_valid_s2d_cuda.tc_launches += x.dtype == torch.bfloat16
     return y
 
 
 conv_valid_s2d_cuda.launches = 0
+conv_valid_s2d_cuda.tc_launches = 0
 
 
 def conv_dw_cuda(xp: torch.Tensor, g: torch.Tensor, k: int,
