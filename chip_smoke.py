@@ -27,14 +27,33 @@ Phases, each fatal on failure:
      (fp32, through the kernels) and on the CPU (plain path) from the same
      parameters and draws, and compare loss and gradient, for
      generator_conv auto, fused and pallas, and fused and pallas with the
-     SAME-border route on (ops.conv.SAME_BORDER_KERNELS);
+     SAME-border route on (ops.conv.SAME_BORDER_KERNELS); then, at that
+     size, the captured graphs against eager steps (as in phase 4b);
   4. the main path: train_pair on the cows pair at full width (896 canvas,
      dino_vitb8 with seeded random weights, 224 loss resolution, bf16) for
-     12 steps including entire-A steps; every loss finite, every kernel of
-     the path launched, every K1/K2 launch on the tensor cores;
-  5. where the time goes: torch.profiler over three more regular steps;
+     12 steps including entire-A steps, in chunks through
+     trainer.SpliceProgram: each step class one captured CUDA graph,
+     replayed; every loss finite, every kernel of the path launched inside
+     the graphs, every K1/K2 launch on the tensor cores. Launches are
+     counted on the card: each wrapper counts its calls, and a call
+     recorded in a graph at capture launches once per replay, so the
+     count is eager launches plus recorded calls x replays;
+  4b. replay against eager at full width: from one cloned state (flat
+     parameters and Adam's state), the same draws as an entire-A step,
+     three regular steps and another entire-A step, eagerly twice (their
+     spread: F.interpolate's bilinear backward adds with atomics) and
+     through the program; per-step losses and the parameter update must
+     agree within REPLAY_MULT x the eager spread plus a floor; then each
+     step replayed from the eager run's state before it must give its
+     losses within the floor. Then one chunk is queued under
+     torch.cuda.set_sync_debug_mode("error"): no host synchronisation
+     inside a chunk;
+  5. where the time goes: the wall of a chunk of graph replays beside the
+     eager step's, the device's span by CUDA events, and torch.profiler
+     over three more replays (kernels inside the graphs, graph launches);
   6. the other paths at the same width, a few steps each including an
-     entire-A step, each with its kernels launched and a profile:
+     entire-A step, through the program, each with its kernels launched
+     inside its graphs and a profile of replays:
      the 480-px loss resolution (3601 and 2701 tokens: split-tensor
      attention K5/K6, every launch on the tensor cores; on the 224 paths
      every K1/K2 launch),
@@ -47,11 +66,11 @@ Phases, each fatal on failure:
      without statistics; on every path every bf16 attention and conv
      launch (K3 in each form, K4, K7) counts in its wrapper's
      tc_launches;
-  7. the step time of generator_conv auto, fused and pallas, fused and
-     pallas with the SAME route, and fused with the SAME route but
-     ops.conv.DW_TAP_ON_N off (K4 for the dw that K7 takes otherwise: an
-     ablation of the reference's routing on this card), at 224, measured
-     in turns.
+  7. the eager step time (SpliceTrainer.step, no graphs) of
+     generator_conv auto, fused and pallas, fused and pallas with the SAME
+     route, and fused with the SAME route but ops.conv.DW_TAP_ON_N off (K4
+     for the dw that K7 takes otherwise: an ablation of the reference's
+     routing on this card), at 224, measured in turns.
 Prints the kernels' numbers as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -86,12 +105,17 @@ DW = ("conv_dw", "conv_dw_pro", "conv_dw_s2d", "conv_dw_gtap")
 K3 = ("conv_valid", "conv_valid_pro", "conv_valid_s2d", "conv_same",
       "conv_same_pro", "conv_same_pro_stats")
 # (name, generator_conv, loss resolution, steps, SAME route) of the other
-# paths; step 0 is an entire-A step and warms up, the rest are regular
-PATHS = (("480", "auto", 480, 3, False), ("fused", "fused", 224, 6, False),
+# paths; step 0 is an entire-A step, the rest are regular: step 1 runs
+# eagerly before the regular graph's capture, the later ones replay it
+PATHS = (("480", "auto", 480, 4, False), ("fused", "fused", 224, 6, False),
          ("pallas", "pallas", 224, 6, False),
          ("fused_same", "fused", 224, 6, True),
          ("pallas_same", "pallas", 224, 6, True))
 SKIP3_STEPS = 3       # the fused SAME steps of the 3x3-skip generator
+# replay against eager (phases 3 and 4b): the graphs' losses and update
+# may differ from an eager run's by REPLAY_MULT x the spread of two eager
+# runs plus a floor (relative)
+REPLAY_MULT, REPLAY_LOSS_FLOOR, REPLAY_UPDATE_FLOOR = 4.0, 1e-4, 1e-3
 
 
 def fail(msg: str) -> None:
@@ -1048,28 +1072,39 @@ def check_edge_cases(torch, attn, conv):
                         "fp32 output; fp32 sums in another order")
 
 
+def small_setup(torch, dev, mode="auto"):
+    """Phase 3's small fp32 configuration on `dev`: (cfg, pair, extractor),
+    a 448 canvas and a two-block ViT of width 128 at 64 px."""
+    from splice_tpu_torch.config import load_config
+    from splice_tpu_torch.data import load_pair
+    from splice_tpu_torch.models import extractor as ext_lib
+    from splice_tpu_torch.models import vit as vit_lib
+    from splice_tpu_torch.models.weights import init_vit_params
+    from splice_tpu_torch.utils.tree import tree_map
+    vcfg = vit_lib.VitConfig(patch_size=8, embed_dim=128, depth=2,
+                             num_heads=2, img_size=32)
+    vparams = init_vit_params(vcfg, seed=5, device="cpu")
+    cfg = load_config(None, dict(
+        dataroot="datasets/splicing/cows", A_resize=448, B_resize=448,
+        seed=3, vit_compute_dtype="float32",
+        generator_compute_dtype="float32", dino_global_patch_size=64,
+        entire_A_every=2, generator_conv=mode))
+    pair = load_pair(cfg, device=torch.device(dev))
+    ext = ext_lib.VitExtractor(
+        params=tree_map(lambda t: t.to(dev), vparams), cfg=vcfg,
+        model_name="small")
+    return cfg, pair, ext
+
+
 def check_small_step(torch):
     """One regular and one entire-A step's loss and gradient at a small
     size, fp32: the card (kernels) against the CPU (plain path), for each
     generator_conv that routes through kernels."""
-    from splice_tpu_torch.config import load_config
-    from splice_tpu_torch.data import load_pair
     from splice_tpu_torch.losses import lambdas_for_step
-    from splice_tpu_torch.models import extractor as ext_lib
-    from splice_tpu_torch.models import vit as vit_lib
-    from splice_tpu_torch.models.weights import init_vit_params
     from splice_tpu_torch.trainer import SpliceTrainer, sample_step_draws
-    from splice_tpu_torch.utils.tree import tree_map
 
-    vcfg = vit_lib.VitConfig(patch_size=8, embed_dim=128, depth=2,
-                             num_heads=2, img_size=32)
-    vparams = init_vit_params(vcfg, seed=5, device="cpu")
-
-    def losses_and_grads(cfg, dev):
-        pair = load_pair(cfg, device=torch.device(dev))
-        ext = ext_lib.VitExtractor(
-            params=tree_map(lambda t: t.to(dev), vparams), cfg=vcfg,
-            model_name="small")
+    def losses_and_grads(mode, dev):
+        cfg, pair, ext = small_setup(torch, dev, mode)
         tr = SpliceTrainer(cfg, pair, ext, seed=3)
         gen = torch.Generator().manual_seed(11)
         out = []
@@ -1083,13 +1118,8 @@ def check_small_step(torch):
     for mode, same in (("auto", False), ("fused", False), ("pallas", False),
                        ("fused", True), ("pallas", True)):
         label = mode + (" with the SAME route" if same else "")
-        cfg = load_config(None, dict(
-            dataroot="datasets/splicing/cows", A_resize=448, B_resize=448,
-            seed=3, vit_compute_dtype="float32",
-            generator_compute_dtype="float32", dino_global_patch_size=64,
-            entire_A_every=2, generator_conv=mode))
         with same_border(same):
-            results = {dev: losses_and_grads(cfg, dev)
+            results = {dev: losses_and_grads(mode, dev)
                        for dev in ("cuda", "cpu")}
         # Gradient tolerance: this gradient is ill-conditioned in fp32
         # itself. On the CPU the fp32 gradient of this step differs from a
@@ -1112,57 +1142,221 @@ def check_small_step(torch):
                 fail(f"small {what} step ({label}): card and CPU disagree")
 
 
+def check_replay(torch, label, cfg, pair, extractor):
+    """The captured graphs against eager steps from one state: a trainer
+    takes one eager entire-A step (so Adam holds moments), and three
+    clones of its flat parameters and Adam state run the same rows (an
+    entire-A step, three regular steps, another entire-A step): two
+    eagerly, one through SpliceProgram (the first step of each class
+    eager, then its capture; the rest replays). Fails unless the program's
+    per-step losses and parameter update agree with the first eager run's
+    within REPLAY_MULT x the two eager runs' spread plus a floor. Then
+    every step again as a replay from the state the first eager run had
+    before it (copied in place into the graphs' parameters and Adam
+    state): its losses, a forward pass from one state, must agree with
+    that run's within REPLAY_LOSS_FLOOR. Returns the program."""
+    import copy
+    import numpy as np
+    from splice_tpu_torch.losses import lambdas_for_step
+    from splice_tpu_torch.trainer import (LOSS_KEYS, SpliceProgram,
+                                          SpliceTrainer, fetch_scalars,
+                                          lambdas_vec, pack_row,
+                                          sample_step_draws)
+    gen = torch.Generator().manual_seed(21)
+    base = SpliceTrainer(cfg, pair, extractor, seed=0)
+    base.step(sample_step_draws(cfg, pair, gen), lambdas_for_step(cfg, 0),
+              True)
+    plan = ((True, 0, 1), (False, 5, 3), (True, 0, 1))  # entire, lam step, n
+    chunks = [(entire, np.stack([
+        pack_row(lambdas_vec(cfg, lam), sample_step_draws(cfg, pair, gen))
+        for _ in range(n)])) for entire, lam, n in plan]
+    flat0 = base.flat.detach().clone()
+
+    def clone():
+        t = SpliceTrainer(cfg, pair, extractor, seed=0)
+        with torch.no_grad():
+            t.flat.copy_(base.flat)
+        t.opt.load_state_dict(copy.deepcopy(base.opt.state_dict()))
+        return t
+
+    def state(t):
+        return [t.flat.detach()] + list(t.opt.state[t.flat].values())
+
+    def eager(before=None):
+        t, seq = clone(), []
+        for entire, rows in chunks:
+            for r in torch.from_numpy(rows).cuda():
+                if before is not None:
+                    before.append([v.clone() for v in state(t)])
+                parts = t.step(r, None, entire)
+                seq.append([fetch_scalars(
+                    {k: parts[k] for k in LOSS_KEYS})[k] for k in LOSS_KEYS])
+        return np.array(seq), t.flat.detach() - flat0
+
+    before = []
+    (l1, d1), (l2, d2) = eager(before), eager()
+    program = SpliceProgram(clone(), 3)
+    lr = np.concatenate([program.run(rows, entire)
+                         for entire, rows in chunks])
+    dr = program.trainer.flat.detach() - flat0
+    same = []
+    steps = [(entire, row) for entire, rows in chunks for row in rows]
+    for (entire, row), snap in zip(steps, before):
+        with torch.no_grad():
+            for dst, src in zip(state(program.trainer), snap):
+                dst.copy_(src)
+        same.append(program.run(row[None], entire)[0])
+
+    def rel_loss(a, b):
+        return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-6)).max())
+
+    def rel_upd(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    spread = (rel_loss(l2, l1), rel_upd(d2, d1))
+    err = (rel_loss(lr, l1), rel_upd(dr, d1), rel_loss(np.array(same), l1))
+    tol = (REPLAY_MULT * spread[0] + REPLAY_LOSS_FLOOR,
+           REPLAY_MULT * spread[1] + REPLAY_UPDATE_FLOOR)
+    replays = {k: c.replays for k, c in program.graphs.items()}
+    print(f"  {label}: eager against eager: losses {spread[0]:.3e} "
+          f"(largest relative), update {spread[1]:.3e} (relative L2); "
+          f"graphs against eager: losses {err[0]:.3e} (tol {tol[0]:.3e} = "
+          f"{REPLAY_MULT:g} x spread + {REPLAY_LOSS_FLOOR:g}), update "
+          f"{err[1]:.3e} (tol {tol[1]:.3e} = {REPLAY_MULT:g} x spread + "
+          f"{REPLAY_UPDATE_FLOOR:g}); largest parameter difference "
+          f"{(dr - d1).abs().max().item():.3e}; each step replayed from the "
+          f"eager run's state before it: losses {err[2]:.3e} (tol "
+          f"{REPLAY_LOSS_FLOOR:g}); replays {replays}")
+    if sorted(replays.values()) != [3, 5]:
+        fail(f"{label}: the graphs were not replayed as planned: {replays}")
+    if not (np.isfinite(lr).all() and err[0] <= tol[0] and err[1] <= tol[1]
+            and err[2] <= REPLAY_LOSS_FLOOR):
+        fail(f"{label}: the captured graphs disagree with eager steps")
+    return program
+
+
+def check_sync_free(torch, program, cfg):
+    """One regular chunk queued (draws copied, counter reset, replays)
+    under torch.cuda.set_sync_debug_mode("error"): fails if anything in it
+    waits for the device."""
+    import numpy as np
+    from splice_tpu_torch.trainer import (lambdas_vec, pack_row,
+                                          sample_step_draws)
+    gen = torch.Generator().manual_seed(22)
+    rows = np.stack([pack_row(lambdas_vec(cfg, 5), sample_step_draws(
+        cfg, program.trainer.pair, gen)) for _ in range(3)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        n = program.dispatch(rows, False)
+    except RuntimeError as e:
+        fail(f"a chunk synchronised with the device while queued: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    seq = program.fetch(n)
+    print(f"  a chunk of {n} regular steps queued under sync debug mode "
+          f"'error': no synchronisation; its one read: losses "
+          f"{', '.join(f'{v:.5f}' for v in seq[:, -1])}")
+    if not np.isfinite(seq).all():
+        fail("the sync-free chunk gave non-finite losses")
+
+
 # Kernel names (substrings) of the port's own kernels in a profile.
 OUR_KERNELS = ("attn_fwd_kernel", "attn_bwd_", "conv_fwd_kernel",
                "conv_fwd_tc", "conv_dw_", "conv_stats_")
 
 
-def profile_steps(torch, trainer, cfg, n: int = 3) -> None:
-    """Device time by kernel over n regular steps (torch.profiler)."""
+def regular_rows(torch, cfg, pair, n: int, seed: int):
+    """n packed rows of regular steps (lambdas of step 5) from a seed."""
+    import numpy as np
+    from splice_tpu_torch.trainer import (lambdas_vec, pack_row,
+                                          sample_step_draws)
+    gen = torch.Generator().manual_seed(seed)
+    return np.stack([pack_row(lambdas_vec(cfg, 5),
+                              sample_step_draws(cfg, pair, gen))
+                     for _ in range(n)])
+
+
+def profile_steps(torch, program, cfg, n: int = 3) -> None:
+    """Per regular step, through `program` (its regular graph captured
+    first if this route has none): the host-clock wall of a chunk of
+    replays as long as the path's longest (its draws, its copy and its one
+    read included; the median of three chunks), beside the wall of n eager
+    steps
+    (SpliceTrainer.step, which the parent ran); the device's span over
+    the chunk by CUDA events; then torch.profiler over a chunk of n
+    replays: kernel time by name inside the graphs, and graph launches."""
     from torch.profiler import ProfilerActivity, profile
-    from splice_tpu_torch.losses import lambdas_for_step
-    from splice_tpu_torch.trainer import sample_step_draws
-    gen = torch.Generator().manual_seed(1)
-    draws = [sample_step_draws(cfg, trainer.pair, gen) for _ in range(n)]
-    lam = lambdas_for_step(cfg, 5)
-    # wall time without the profiler (which slows the host), then kernel
-    # times with it, over the same steps
+    trainer = program.trainer
+    program.run(regular_rows(torch, cfg, trainer.pair, 1, 0), False)
+    n_wall = program.rows.shape[0]
+    rows = regular_rows(torch, cfg, trainer.pair, n_wall, 1)
+    rows_dev = torch.from_numpy(rows[:n]).cuda()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for d in draws:
-        trainer.step(d, lam, False)
+    for r in rows_dev:
+        trainer.step(r, None, False)
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    eager_ms = (time.perf_counter() - t0) * 1e3 / n
+    walls, spans = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        k = program.dispatch(rows, False)
+        end.record()
+        program.fetch(k)
+        walls.append((time.perf_counter() - t0) * 1e3 / k)
+        spans.append(start.elapsed_time(end) / k)
+    wall_ms, span_ms = sorted(walls)[1], sorted(spans)[1]
+    replays = sum(c.replays for c in program.graphs.values())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for d in draws:
-            trainer.step(d, lam, False)
+        program.run(rows[:n], False)
         torch.cuda.synchronize()
+    if sum(c.replays for c in program.graphs.values()) != replays + n:
+        fail("the profiled chunk did not replay one graph per step")
 
     def dev_us(e):
         return getattr(e, "device_time_total",
                        getattr(e, "cuda_time_total", 0.0))
 
     kernel = torch.autograd.DeviceType.CUDA
-    rows = [(dev_us(e) / 1e3 / n, e.key) for e in prof.key_averages()
-            if e.device_type == kernel and dev_us(e) > 0]
-    busy = sum(t for t, _ in rows)
-    ours = sum(t for t, k in rows if any(s in k for s in OUR_KERNELS))
-    n_launch = sum(e.count for e in prof.key_averages()
+    events = prof.key_averages()
+    rows_k = [(dev_us(e) / 1e3 / n, e.key) for e in events
+              if e.device_type == kernel and dev_us(e) > 0]
+    graph_launches = sum(e.count for e in events
+                         if e.key == "cudaGraphLaunch") / n
+    busy = sum(t for t, _ in rows_k)
+    print(f"  per regular step: graph replays {wall_ms:.2f} ms wall "
+          f"({1e3 / wall_ms:.3f} steps/s; chunks of {n_wall}, median of 3: "
+          + ", ".join(f"{w:.2f}" for w in walls) + f"), eager step "
+          f"{eager_ms:.2f} ms ({1e3 / eager_ms:.3f} steps/s); the device's "
+          f"span over the chunk (CUDA events) {span_ms:.2f} ms a step; "
+          f"{graph_launches:.1f} graph launches (cudaGraphLaunch) a step")
+    if not rows_k:
+        print("  torch.profiler attributed no kernel time inside the "
+              f"graphs; busy share from the CUDA events' span: "
+              f"{100 * span_ms / wall_ms:.1f}% of wall")
+        return
+    ours = sum(t for t, k in rows_k if any(s in k for s in OUR_KERNELS))
+    n_launch = sum(e.count for e in events
                    if e.device_type == kernel and dev_us(e) > 0) / n
-    print(f"  per regular step: wall {wall_ms:.2f} ms (no profiler), kernels "
-          f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}% of wall; "
-          f"{n_launch:.0f} launches of {len(rows)} kernel names), the "
-          f"port's kernels {ours:.2f} ms ({100 * ours / busy:.1f}% of "
+    print(f"  kernels inside the graphs {busy:.2f} ms a step "
+          f"({100 * busy / wall_ms:.1f}% of the replays' wall; "
+          f"{n_launch:.0f} kernel launches of {len(rows_k)} kernel names), "
+          f"the port's kernels {ours:.2f} ms ({100 * ours / busy:.1f}% of "
           f"kernel time)")
-    k3 = sum(t for t, k in rows if "conv_fwd" in k or "conv_stats_" in k)
-    dw = sum(t for t, k in rows if "conv_dw_" in k)
+    k3 = sum(t for t, k in rows_k if "conv_fwd" in k or "conv_stats_" in k)
+    dw = sum(t for t, k in rows_k if "conv_dw_" in k)
     print(f"  K3 kernels (every form, the statistics reduce) {k3:.3f} ms, dw "
           f"kernels (K4, K7 and their sums) {dw:.3f} ms per regular step")
-    for t, k in sorted(rows, reverse=True)[:15]:
+    for t, k in sorted(rows_k, reverse=True)[:15]:
         print(f"    {t:8.3f} ms  {100 * t / busy:5.1f}%  {k[:90]}")
     print("  the port's kernels per regular step:")
-    for e in sorted(prof.key_averages(), key=dev_us, reverse=True):
+    for e in sorted(events, key=dev_us, reverse=True):
         if e.device_type == kernel and any(s in e.key for s in OUR_KERNELS):
             print(f"    {dev_us(e) / 1e3 / n:8.3f} ms  {e.count / n:5.1f} "
                   f"launches  {e.key[:90]}")
@@ -1206,16 +1400,33 @@ def steps_in_turns(torch, runs, n: int = 3, rounds: int = 3) -> dict:
     return k7
 
 
-def read_launches(torch, kernels, name, need):
-    """The launch counts since they were set to 0; fails when a kernel in
-    `need` was launched no time on the path `name`."""
+def read_launches(torch, kernels, name, need, programs):
+    """The launches on the card since the counts were set to 0, and the
+    tensor-core ones: each wrapper's count (its eager launches, and one
+    per call recorded in a graph at capture, which launches nothing) less
+    the captures' records plus records x replays. Fails when a kernel in
+    `need` was launched no time on the path `name`, or never inside its
+    graphs. Returns (launches, tensor-core launches)."""
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, (fn, *_) in kernels.items()}
-    print(f"  launches in the {name} path: {launches}")
-    missing = [k for k in need if launches[k] == 0]
+    launches, tc, in_graphs = {}, {}, {}
+    for k, (fn, *_) in kernels.items():
+        rec = [(c.launches.get(f"{k}_cuda", (0, 0)), c.replays)
+               for p in programs for c in p.graphs.values()]
+        launches[k] = fn.launches + sum(n * (r - 1) for (n, _), r in rec)
+        tc[k] = (getattr(fn, "tc_launches", 0)
+                 + sum(t * (r - 1) for (_, t), r in rec))
+        in_graphs[k] = sum(n * r for (n, _), r in rec)
+    graphs = {key: (c.replays, sum(n for n, _ in c.launches.values()))
+              for p in programs for key, c in p.graphs.items()}
+    print(f"  launches in the {name} path (eager + recorded x replays): "
+          f"{launches}; inside graph replays: {in_graphs}; graphs "
+          f"(entire, SAME route, DW_TAP_ON_N): (replays, the port's "
+          f"wrapper calls recorded) {graphs}")
+    missing = [k for k in need if launches[k] == 0 or in_graphs[k] == 0]
     if missing:
-        fail(f"kernels never launched on the {name} path: {missing}")
-    return launches
+        fail(f"kernels never launched inside the {name} path's graphs: "
+             f"{missing}")
+    return launches, tc
 
 
 def check_output(torch, name, out):
@@ -1230,31 +1441,39 @@ def zero_counts(kernels) -> None:
             fn.tc_launches = 0
 
 
-def check_tc_launches(kernels, launches, name):
+def check_tc_launches(launches, tc, name):
     """Every launch of the path's attention kernels (K1/K2, or K5/K6 on
     the 480 path) and of its conv kernels (K3 in each form, K4 in each
-    form, K7; every path runs a bf16 generator) on the tensor cores: fails
-    otherwise, or when the path launched no attention kernel."""
+    form, K7; every path runs a bf16 generator) on the tensor cores, the
+    graphs' replays included: fails otherwise, or when the path launched
+    no attention kernel."""
     att = [k for k in ATTENTION if launches.get(k)]
     names = att + [k for k in DW + K3 if launches.get(k)]
-    tc = {k: kernels[k][0].tc_launches for k in names}
-    print(f"  tensor-core launches in the {name} path: {tc}")
-    if not att or any(n != launches[k] for k, n in tc.items()):
+    tcs = {k: tc[k] for k in names}
+    print(f"  tensor-core launches in the {name} path: {tcs}")
+    if not att or any(n != launches[k] for k, n in tcs.items()):
         fail(f"{name} path: attention or conv launches off the tensor "
-             f"cores: {tc} of {launches}")
+             f"cores: {tcs} of {launches}")
 
 
 def run_path(torch, name, cfg, n_steps, kernels, need, same=False, **kw):
     """train_pair (with the SAME route if `same`) with every launch count
     set to 0 just before and read just after; fails on a non-finite loss or
-    output, or when a kernel in `need` was launched no time. Returns
-    (result, launches)."""
+    output, or when a kernel in `need` was launched no time inside the
+    path's graphs. Prints each chunk and the peak memory, the graphs'
+    pools included. Returns (result, launches)."""
     from splice_tpu_torch.trainer import train_pair
     zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
     with same_border(same):
         res = train_pair(cfg, n_steps=n_steps, **kw)
-    launches = read_launches(torch, kernels, name, need)
-    check_tc_launches(kernels, launches, name)
+    launches, tc = read_launches(torch, kernels, name, need,
+                                 [res["program"]])
+    check_tc_launches(launches, tc, name)
+    print(f"  chunks {res['chunks']}; {res['steps_per_sec']:.3f} steps/s "
+          f"over the run (captures included); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the "
+          f"graphs' pools included)")
     for i, (l, s) in enumerate(zip(res["losses"], res["step_seconds"])):
         print(f"  step {i:2d} {s * 1e3:9.2f} ms "
               + " ".join(f"{k}={v:.5f}" for k, v in l.items()))
@@ -1268,31 +1487,43 @@ def run_path(torch, name, cfg, n_steps, kernels, need, same=False, **kw):
 def run_skip3(torch, cfg, pair, extractor, kernels, need):
     """SKIP3_STEPS fused steps (step 0 entire-A) with the SAME route of a
     generator with 3x3 skip convs (SkipConfig(filter_skip_size=3), which
-    SpliceTrainer takes as the reference's build_program does), the counts
-    set to 0 just before and read just after. Its scale-1 skip conv reads
-    a pending BatchNorm at width 448 and feeds no statistics: the fused
-    site that reaches K3'' SAME with a prologue alone, which no site of the
-    default generator does (its down_conv2 and up_conv take K3''')."""
-    from splice_tpu_torch.losses import is_entire_step, lambdas_for_step
+    SpliceTrainer takes as the reference's build_program does), through a
+    SpliceProgram in train_pair's chunks, the counts set to 0 just before
+    and read just after. Its scale-1 skip conv reads a pending BatchNorm at
+    width 448 and feeds no statistics: the fused site that reaches K3''
+    SAME with a prologue alone, which no site of the default generator
+    does (its down_conv2 and up_conv take K3''')."""
+    import numpy as np
     from splice_tpu_torch.models.unet import SkipConfig
-    from splice_tpu_torch.trainer import SpliceTrainer, sample_step_draws
+    from splice_tpu_torch.trainer import (LOSS_KEYS, SpliceProgram,
+                                          SpliceTrainer, chunk_plan,
+                                          lambdas_vec, pack_row,
+                                          sample_step_draws)
     zero_counts(kernels)
     gen = torch.Generator().manual_seed(0)
     with same_border(True):
         tr = SpliceTrainer(cfg, pair, extractor,
                            gcfg=SkipConfig(filter_skip_size=3), seed=0)
-        for i in range(SKIP3_STEPS):
+        plan = chunk_plan(cfg, SKIP3_STEPS)
+        program = SpliceProgram(tr, max(n for _, n, _ in plan))
+        for start, n, entire in plan:
             t0 = time.perf_counter()
-            parts = tr.step(sample_step_draws(cfg, pair, gen),
-                            lambdas_for_step(cfg, i), is_entire_step(cfg, i))
-            loss = {k: float(v.item()) for k, v in parts.items()}
-            print(f"  step {i:2d} {(time.perf_counter() - t0) * 1e3:9.2f} ms "
-                  + " ".join(f"{k}={v:.5f}" for k, v in loss.items()))
-            if not all(math.isfinite(v) for v in loss.values()):
-                fail(f"fused_same_skip3: non-finite loss at step {i}: {loss}")
+            rows = np.stack([pack_row(lambdas_vec(cfg, i),
+                                      sample_step_draws(cfg, pair, gen))
+                             for i in range(start, start + n)])
+            seq = program.run(rows, entire)      # the chunk's one read
+            ms = (time.perf_counter() - t0) * 1e3 / n
+            for i, vals in enumerate(seq, start):
+                loss = dict(zip(LOSS_KEYS, map(float, vals)))
+                print(f"  step {i:2d} {ms:9.2f} ms "
+                      + " ".join(f"{k}={v:.5f}" for k, v in loss.items()))
+                if not all(math.isfinite(v) for v in loss.values()):
+                    fail(f"fused_same_skip3: non-finite loss at step {i}: "
+                         f"{loss}")
         out = tr.render()
-    launches = read_launches(torch, kernels, "fused_same_skip3", need)
-    check_tc_launches(kernels, launches, "fused_same_skip3")
+    launches, tc = read_launches(torch, kernels, "fused_same_skip3", need,
+                                 [program])
+    check_tc_launches(launches, tc, "fused_same_skip3")
     check_output(torch, "fused_same_skip3", out)
     return launches
 
@@ -1387,28 +1618,49 @@ def main() -> int:
 
     print("phase 3: small step, card against CPU")
     check_small_step(torch)
+    print("  graphs against eager at this size (fp32, generator_conv=auto):")
+    check_replay(torch, "small fp32", *small_setup(torch, "cuda"))
+    torch.cuda.empty_cache()
 
     print(f"phase 4: main path, {MAIN_STEPS} steps on the cows pair")
     from splice_tpu_torch.config import load_config
     base = dict(dataroot="datasets/splicing/cows", seed=0,
                 entire_A_every=10, log_images_freq=1000)
     cfg = load_config(None, base)
-    torch.cuda.reset_peak_memory_stats()
     res, main_launches = run_path(
         torch, "main", cfg, MAIN_STEPS, kernels,
         ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid", "conv_dw"))
     launches = {"main": main_launches}
-    regular = [s for i, s in enumerate(res["step_seconds"])
-               if i >= 2 and i % cfg.entire_A_every != 0]
-    print(f"  steps/s after warm-up (regular steps 2..{MAIN_STEPS - 1}): "
-          f"{len(regular) / sum(regular):.3f}; entire-A step 10: "
-          f"{res['step_seconds'][10] * 1e3:.1f} ms; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    secs = res["step_seconds"]
+    print(f"  replays alone: entire-A step 10 {secs[10] * 1e3:.1f} ms, "
+          f"regular step 11 {secs[11] * 1e3:.1f} ms (phase 5 times a "
+          f"chunk of regular replays)")
+    shared = dict(pair=res["trainer"].pair, extractor=res["trainer"].extractor)
+
+    print("phase 4b: graphs against eager at full width (bf16, main path), "
+          "and a chunk without synchronisation")
+    program = check_replay(torch, "full width", cfg, **shared)
+    check_sync_free(torch, program, cfg)
+    del program
+    torch.cuda.empty_cache()
 
     print("phase 5: where the time goes")
-    profile_steps(torch, res["trainer"], cfg)
+    from splice_tpu_torch.trainer import unpack_row
+    profile_steps(torch, res["program"], cfg)
+    main_trainer = res["trainer"]
+    _, draws = unpack_row(cfg, torch.from_numpy(
+        regular_rows(torch, cfg, main_trainer.pair, 1, 3)[0]).cuda())
+    aug_graph = torch.cuda.CUDAGraph()   # sample_inputs ran eagerly above
+    with torch.cuda.graph(aug_graph):
+        main_trainer.sample_inputs(draws)
+    aug = time_ms(aug_graph.replay)
+    print(f"  augmentation and crops (sample_inputs as one graph: flip, "
+          f"jitter at every position, blur, both crop stacks) {aug:.3f} ms "
+          f"of device time a step")
+    del aug_graph
+    del res
+    torch.cuda.empty_cache()
 
-    shared = dict(pair=res["trainer"].pair, extractor=res["trainer"].extractor)
     need = {"480": ("attn_fwd", "attn_bwd", "conv_valid", "conv_dw"),
             "fused": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
                       "conv_valid_pro", "conv_dw_pro"),
@@ -1426,23 +1678,17 @@ def main() -> int:
                             "conv_same", "conv_dw_gtap"),
             "fused_same_skip3": ("conv_same_pro", "conv_same_pro_stats",
                                  "conv_dw_gtap")}
-    turns = [("auto", res["trainer"], cfg, False, True)]
+    turns = [("auto", main_trainer, cfg, False, True)]
     for i, (path, mode, res_px, n, same) in enumerate(PATHS):
         print(f"phase 6.{i + 1}: the {path} path (generator_conv={mode}"
               f"{', SAME route' if same else ''}, {res_px}-px loss "
               f"resolution), {n} steps")
         pcfg = load_config(None, dict(base, generator_conv=mode,
                                       dino_global_patch_size=res_px))
-        torch.cuda.reset_peak_memory_stats()
         pres, launches[path] = run_path(torch, path, pcfg, n, kernels,
                                         need[path], same, **shared)
-        secs = pres["step_seconds"]
-        print(f"  steps/s (regular steps 1..{n - 1}): "
-              f"{(n - 1) / sum(secs[1:]):.3f}; entire-A step 0 (warm-up): "
-              f"{secs[0] * 1e3:.1f} ms; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         with same_border(same):
-            profile_steps(torch, pres["trainer"], pcfg,
+            profile_steps(torch, pres["program"], pcfg,
                           2 if res_px > 224 else 3)
         if res_px == 224:
             turns.append((path, pres["trainer"], pcfg, same, True))
@@ -1451,7 +1697,7 @@ def main() -> int:
             # takes up_conv s0/s1's dw instead of K7
             print("  the same steps with DW_TAP_ON_N off (K4 for K7's dw):")
             with same_border(True, False):
-                profile_steps(torch, pres["trainer"], pcfg)
+                profile_steps(torch, pres["program"], pcfg)
             turns.append(("fused_same_tap_off", pres["trainer"], pcfg, True,
                           False))
         del pres
@@ -1465,7 +1711,7 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     print("phase 7: generator_conv " + ", ".join(t[0] for t in turns)
-          + " at 224, in turns")
+          + " at 224, in turns (eager steps: SpliceTrainer.step, no graphs)")
     k7 = steps_in_turns(torch, turns)
     if k7["fused_same_tap_off"] or not k7["fused_same"]:
         fail(f"DW_TAP_ON_N did not route K7 as it says: {k7}")

@@ -12,19 +12,20 @@ batched forward with gradients; the targets in one forward under no_grad.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from splice_tpu_torch.models import extractor as ext
 
-_LOSS_LAMBDA = {
-    "loss_global_cls": "lambda_global_cls",
-    "loss_global_ssim": "lambda_global_ssim",
-    "loss_global_id_B": "lambda_global_identity",
-    "loss_entire_cls": "lambda_entire_cls",
-    "loss_entire_ssim": "lambda_entire_ssim",
-}
+# The loss terms and their lambdas, in the reference's order
+# (splice_tpu/trainer.py:219-224): the order of a step's lambda vector.
+LOSS_NAMES = ("loss_global_cls", "loss_global_ssim", "loss_global_id_B",
+              "loss_entire_cls", "loss_entire_ssim")
+LAMBDA_ORDER = ("lambda_global_cls", "lambda_global_ssim",
+                "lambda_global_identity", "lambda_entire_cls",
+                "lambda_entire_ssim")
+_LOSS_LAMBDA = dict(zip(LOSS_NAMES, LAMBDA_ORDER))
 
 
 def lambdas_for_step(cfg, step: int) -> Dict[str, float]:
@@ -126,9 +127,16 @@ def entire_losses_fused(extractor: ext.VitExtractor,
 
 
 def weighted_total(losses: Dict[str, torch.Tensor],
-                   lambdas: Dict[str, float]) -> torch.Tensor:
-    """Sum of lambda-weighted loss terms."""
+                   lambdas: Union[Dict[str, float], torch.Tensor]
+                   ) -> torch.Tensor:
+    """Sum of lambda-weighted loss terms. lambdas: floats by name, or a [5]
+    tensor in LAMBDA_ORDER (device data, so that one captured step serves
+    every step of the schedule)."""
     total = 0.0
     for name, value in losses.items():
-        total = total + lambdas.get(_LOSS_LAMBDA[name], 0.0) * value
+        if isinstance(lambdas, torch.Tensor):
+            lam = lambdas[LOSS_NAMES.index(name)]
+        else:
+            lam = lambdas.get(_LOSS_LAMBDA[name], 0.0)
+        total = total + lam * value
     return total

@@ -14,6 +14,7 @@ input cotangent. There is no remat: an 80 GB card holds the activations.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Sequence
 
 import numpy as np
@@ -112,6 +113,15 @@ def _bicubic_resize_matrix(in_size: int, out_size: int, scale: float,
     return W.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_matrix_on(in_size: int, out_size: int, scale: float,
+                      device) -> torch.Tensor:
+    """_bicubic_resize_matrix as a float32 tensor on `device`, made once (a
+    captured training step may not copy from the host)."""
+    return torch.from_numpy(_bicubic_resize_matrix(in_size, out_size,
+                                                   scale)).to(device)
+
+
 def interpolate_pos_embed(pos_embed: torch.Tensor, cfg: VitConfig,
                           gh: int, gw: int) -> torch.Tensor:
     """Bicubic pos-embed interpolation to a (gh, gw) grid with DINO's +0.1
@@ -123,10 +133,8 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, cfg: VitConfig,
     D = pos_embed.shape[-1]
     patch = patch.reshape(g0, g0, D).float()
     dev = pos_embed.device
-    wy = torch.from_numpy(_bicubic_resize_matrix(
-        g0, gh, (gh + cfg.interpolate_offset) / g0)).to(dev, patch.dtype)
-    wx = torch.from_numpy(_bicubic_resize_matrix(
-        g0, gw, (gw + cfg.interpolate_offset) / g0)).to(dev, patch.dtype)
+    wy = _resize_matrix_on(g0, gh, (gh + cfg.interpolate_offset) / g0, dev)
+    wx = _resize_matrix_on(g0, gw, (gw + cfg.interpolate_offset) / g0, dev)
     out = torch.einsum("oi,iwd->owd", wy, patch)
     out = torch.einsum("oj,hjd->hod", wx, out)
     out = out.reshape(1, gh * gw, D).to(pos_embed.dtype)

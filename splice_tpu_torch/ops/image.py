@@ -3,7 +3,12 @@
 Images are [..., H, W, C] float tensors in [0, 1], as in the reference.
 Every random draw is an explicit argument: the trainer draws them from a
 torch.Generator (sample_* helpers below), and the tests hand the same
-numbers to both packages.
+numbers to both packages. The draws are data, as in the reference: a coin,
+a factor, the jitter order or a crop window may be a Python value or a
+float32 tensor on the image's device, and every coin is a torch.where (the
+reference's jnp.where and lax.switch), so one captured CUDA graph of the
+step serves every draw. Inside the step nothing here copies a host value
+to the device: the constants are made once per device (_const).
 
 jax.image.resize / scale_and_translate have no torch counterpart (torch's
 antialiased bilinear uses another kernel support and border rule), so the
@@ -12,12 +17,29 @@ applies them as matmuls.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import functools
+from typing import Tuple
 
 import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+@functools.lru_cache(maxsize=None)
+def _const(values: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """A constant tensor, made once per (values, dtype, device) and never
+    written: a captured graph may not copy from the host, so the step reads
+    constants made before its capture."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def _data(value, device) -> torch.Tensor:
+    """A draw as float32 data on `device`: a tensor passes through; a Python
+    value (callers outside the step) is copied there once."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.tensor(value, dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -43,15 +65,33 @@ def triangle_weights(in_size: int, out_size: int, scale, translation,
     """[in, out] float32 weights of jax.image's linear (triangle) kernel for
     output = scale * input + translation with half-pixel centers.
 
-    scale/translation may be Python floats or 0-d float32 tensors (the crop
-    draws). The arithmetic follows jax.image.scale.compute_weight_mat step
-    by step in float32, so both packages sample the same points."""
-    f32 = torch.float32
+    scale/translation may be Python floats (weights made once per device and
+    sizes, then reused) or 0-d float32 tensors (the crop draws). The
+    arithmetic follows jax.image.scale.compute_weight_mat step by step in
+    float32, so both packages sample the same points."""
     if isinstance(scale, torch.Tensor):
-        inv_scale = 1.0 / scale.to(f32)
-    else:   # a Python scale: JAX takes its inverse in double precision
-        inv_scale = torch.tensor(1.0 / scale, dtype=f32, device=device)
-    translation = torch.as_tensor(translation, dtype=f32, device=device)
+        return _weights(in_size, out_size, 1.0 / scale.to(torch.float32),
+                        translation, antialias, device)
+    return _static_weights(in_size, out_size, float(scale),
+                           float(translation), antialias, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _static_weights(in_size: int, out_size: int, scale: float,
+                    translation: float, antialias: bool,
+                    device) -> torch.Tensor:
+    # a Python scale: JAX takes its inverse in double precision
+    f32 = torch.float32
+    return _weights(in_size, out_size,
+                    torch.tensor(1.0 / scale, dtype=f32, device=device),
+                    torch.tensor(translation, dtype=f32, device=device),
+                    antialias, device)
+
+
+def _weights(in_size: int, out_size: int, inv_scale: torch.Tensor,
+             translation: torch.Tensor, antialias: bool,
+             device) -> torch.Tensor:
+    f32 = torch.float32
     kernel_scale = torch.clamp(inv_scale, min=1.0) if antialias else 1.0
     sample_f = ((torch.arange(out_size, dtype=f32, device=device) + 0.5)
                 * inv_scale - translation * inv_scale - 0.5)
@@ -100,8 +140,8 @@ def dino_global_resize(img: torch.Tensor, size: int = 224,
 
 
 def imagenet_normalize(img: torch.Tensor) -> torch.Tensor:
-    mean = torch.tensor(IMAGENET_MEAN, dtype=img.dtype, device=img.device)
-    std = torch.tensor(IMAGENET_STD, dtype=img.dtype, device=img.device)
+    mean = _const(IMAGENET_MEAN, img.dtype, img.device)
+    std = _const(IMAGENET_STD, img.dtype, img.device)
     return (img - mean) / std
 
 
@@ -113,17 +153,19 @@ def crop_and_resize(img: torch.Tensor, top, left, size, canvas: int,
                     antialias: bool = True) -> torch.Tensor:
     """Window [top:top+size, left:left+size] of [H, W, C] -> [canvas,
     canvas, C], bilinear, over an edge pad of 2 so windows at the image
-    border never read zeros (splice_tpu/ops/image.py:73-109)."""
+    border never read zeros (splice_tpu/ops/image.py:73-109). top, left and
+    size: 0-d float32 tensors on img's device (the step's draws), or Python
+    numbers."""
     pad = 2
     chw = img.permute(2, 0, 1)[None]
     imgp = torch.nn.functional.pad(chw, (pad, pad, pad, pad),
                                    mode="replicate")[0].permute(1, 2, 0)
     dev = img.device
-    size = torch.as_tensor(size, dtype=torch.float32, device=dev)
+    if not isinstance(size, torch.Tensor):
+        top, left, size = _data((top, left, size), dev)
     scale = canvas / size
-    ty = -(torch.as_tensor(top, dtype=torch.float32, device=dev) + pad) * scale
-    tx = -(torch.as_tensor(left, dtype=torch.float32, device=dev) + pad) \
-        * scale
+    ty = -(top + pad) * scale
+    tx = -(left + pad) * scale
     wy = triangle_weights(imgp.shape[0], canvas, scale, ty, antialias, dev)
     wx = triangle_weights(imgp.shape[1], canvas, scale, tx, antialias, dev)
     return _apply_hw(imgp, wy, wx)
@@ -144,26 +186,33 @@ def sample_crop_draws(h: int, w: int, n_crops: int, min_cover: float,
     return side, tops, lefts
 
 
-def global_crops(img: torch.Tensor, side: float, tops: Sequence[float],
-                 lefts: Sequence[float], canvas: int,
+def global_crops(img: torch.Tensor, side, tops, lefts, canvas: int,
                  antialias: bool = True) -> torch.Tensor:
-    """[H, W, C] -> [n_crops, canvas, canvas, C]; all crops share `side`."""
-    return torch.stack([crop_and_resize(img, t, l, side, canvas, antialias)
-                        for t, l in zip(tops, lefts)])
+    """[H, W, C] -> [n_crops, canvas, canvas, C]; all crops share `side`.
+    side: a 0-d tensor, tops and lefts [n_crops] tensors on img's device (the
+    step's draws), or Python numbers and sequences."""
+    if not isinstance(side, torch.Tensor):
+        win = _data((side, *tops, *lefts), img.device)
+        side, tops, lefts = win[0], win[1:1 + len(tops)], win[1 + len(tops):]
+    return torch.stack([crop_and_resize(img, tops[i], lefts[i], side, canvas,
+                                        antialias)
+                        for i in range(tops.shape[0])])
 
 
 # ---------------------------------------------------------------------------
 # Augmentations (reference data/transforms.py:30-41)
 # ---------------------------------------------------------------------------
 
-def random_hflip(img: torch.Tensor, flip: bool) -> torch.Tensor:
-    """RandomHorizontalFlip on [H, W, C] with the coin given."""
-    return torch.flip(img, dims=(1,)) if flip else img
+def random_hflip(img: torch.Tensor, flip) -> torch.Tensor:
+    """RandomHorizontalFlip on [H, W, C] with its coin given (a bool or a
+    0-d tensor, nonzero flips): torch.where, as the reference's jnp.where
+    (splice_tpu/ops/image.py:147)."""
+    return torch.where(_data(flip, img.device) != 0,
+                       torch.flip(img, dims=(1,)), img)
 
 
 def _rgb_to_grayscale(img: torch.Tensor) -> torch.Tensor:
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=img.dtype,
-                     device=img.device)
+    w = _const((0.299, 0.587, 0.114), img.dtype, img.device)
     return (img * w).sum(dim=-1, keepdim=True)
 
 
@@ -243,21 +292,33 @@ def sample_jitter_draws(gen: torch.Generator, brightness: float = 0.4,
     return factors, order
 
 
-def color_jitter(img: torch.Tensor, factors: Sequence[float],
-                 order: Sequence[int]) -> torch.Tensor:
+def color_jitter(img: torch.Tensor, factors, order) -> torch.Tensor:
     """torchvision ColorJitter with its draws given: factors (fb, fc, fs, fh)
-    and the four ops applied in `order` (0 brightness, 1 contrast,
-    2 saturation, 3 hue)."""
-    ops = (adjust_brightness, adjust_contrast, adjust_saturation, adjust_hue)
-    for op in order:
-        img = ops[op](img, factors[op])
+    and the op applied at each of the four positions, `order` (0
+    brightness, 1 contrast, 2 saturation, 3 hue); Python values or float32
+    tensors.
+
+    As data, like the reference's lax.switch inside a fori_loop
+    (splice_tpu/ops/image.py:223-230): every position computes both
+    candidates and selects one. Brightness, contrast and saturation are one
+    op, clamp((x - ref) * f + ref) with ref 0, the grayscale mean and the
+    grayscale (each adjust_* above to the bit); hue is the other."""
+    f, order = _data(factors, img.device), _data(order, img.device)
+    for pos in range(4):
+        op = order[pos]
+        gray = _rgb_to_grayscale(img)
+        ref = torch.where(op == 0, 0.0, torch.where(op == 1, gray.mean(),
+                                                    gray))
+        fac = torch.where(op == 0, f[0], torch.where(op == 1, f[1], f[2]))
+        blend = torch.clamp((img - ref) * fac + ref, 0.0, 1.0)
+        img = torch.where(op == 3, adjust_hue(img, f[3]), blend)
     return img
 
 
 def gaussian_blur3(img: torch.Tensor, sigma) -> torch.Tensor:
     """GaussianBlur(kernel_size=3) on [H, W, C], reflect padding, fp32."""
-    x = torch.tensor([-1.0, 0.0, 1.0], dtype=torch.float32, device=img.device)
-    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=img.device)
+    x = _const((-1.0, 0.0, 1.0), torch.float32, img.device)
+    sigma = _data(sigma, img.device)
     k1 = torch.exp(-(x ** 2) / (2.0 * sigma ** 2))
     k1 = k1 / k1.sum()
     f = img.to(torch.float32)
@@ -273,21 +334,22 @@ def gaussian_blur3(img: torch.Tensor, sigma) -> torch.Tensor:
     return tap3(tap3(f, 0), 1).to(img.dtype)
 
 
-def structure_augment(img: torch.Tensor, flip: bool, jitter_on: bool,
-                      jitter_factors: Sequence[float],
-                      jitter_order: Sequence[int], blur_on: bool,
-                      sigma: float) -> torch.Tensor:
+def structure_augment(img: torch.Tensor, flip, jitter_on, jitter_factors,
+                      jitter_order, blur_on, sigma) -> torch.Tensor:
     """HFlip(0.5) -> ColorJitter(0.4,0.4,0.2,0.1)@0.5 -> GaussianBlur(3)@0.2
-    with every coin and factor given."""
+    with every coin and factor given (Python values or float32 tensors). The
+    jitter and blur are computed on every call and selected by their coins:
+    the reference's static_ctrl=False form
+    (splice_tpu/ops/image.py:283-305)."""
+    dev = img.device
     img = random_hflip(img, flip)
-    if jitter_on:
-        img = color_jitter(img, jitter_factors, jitter_order)
-    if blur_on:
-        img = gaussian_blur3(img, sigma)
-    return img
+    img = torch.where(_data(jitter_on, dev) != 0,
+                      color_jitter(img, jitter_factors, jitter_order), img)
+    return torch.where(_data(blur_on, dev) != 0, gaussian_blur3(img, sigma),
+                       img)
 
 
-def texture_augment(img: torch.Tensor, flip: bool) -> torch.Tensor:
+def texture_augment(img: torch.Tensor, flip) -> torch.Tensor:
     """dino_texture_transforms: HFlip(0.5)."""
     return random_hflip(img, flip)
 

@@ -25,8 +25,8 @@ def main(argv=None) -> None:
     res = train_pair(cfg)
     last = res["losses"][-1] if res["losses"] else {}
     n = len(res["step_seconds"])
-    rate = n / sum(res["step_seconds"]) if n else 0.0
-    print(f"done: {n} steps, {rate:.2f} steps/s, last loss "
+    print(f"done: {n} steps in chunks {res['chunks']}, "
+          f"{res['steps_per_sec']:.2f} steps/s, last loss "
           f"{last.get('loss', float('nan')):.4f}, output "
           f"{res['output_path']}")
 
