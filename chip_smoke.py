@@ -27,7 +27,9 @@ Phases, each fatal on failure:
      (fp32, through the kernels) and on the CPU (plain path) from the same
      parameters and draws, and compare loss and gradient, for
      generator_conv auto, fused and pallas, and fused and pallas with the
-     SAME-border route on (ops.conv.SAME_BORDER_KERNELS); then, at that
+     SAME-border route on (ops.conv.SAME_BORDER_KERNELS); RMSprop and SGD
+     (the port's own optimizers) from that size's parameters and
+     gradient, three updates on the card against the CPU; then, at that
      size, the captured graphs against eager steps (as in phase 4b);
   4. the main path: train_pair on the cows pair at full width (896 canvas,
      dino_vitb8 with seeded random weights, 224 loss resolution, bf16) for
@@ -70,7 +72,25 @@ Phases, each fatal on failure:
      generator_conv auto, fused and pallas, fused and pallas with the SAME
      route, and fused with the SAME route but ops.conv.DW_TAP_ON_N off (K4
      for the dw that K7 takes otherwise: an ablation of the reference's
-     routing on this card), at 224, measured in turns.
+     routing on this card), at 224, measured in turns;
+  8. a run as a user runs it: train_pair on the main path for 300 steps
+     at the reference's defaults (log_images_freq 10, entire_A_every 75,
+     cls_warmup 1), the cosine schedule over the 300 steps, metrics_path
+     and a checkpoint every 100 steps in a temporary directory. Gates:
+     every step's lr bit for bit the reference's float32 schedule and the
+     one the optimizer read; every loss finite; output.png [900, 1200, 3]
+     and the run's last uint8 frame; 30 metrics records with the losses,
+     lr and steps/s, the device memory on every tenth; checkpoints at
+     100, 200 and 300; a second train_pair resumed from the checkpoint at
+     200 draws rows bitwise equal to the run's 200-299 and its first
+     losses bitwise equal to the run's step 200; one chunk and its log
+     boundary queued under torch.cuda.set_sync_debug_mode("error"), the
+     saver's and the logger's workers finishing inside the window; and
+     RMSprop and SGD, four steps each at a linear schedule through the
+     graphs, a replayed step's update against the optimizer's formula.
+     Prints the sustained steps/s (renders, saves and checkpoints
+     included), the replayed step's, the seconds at log boundaries and
+     which PNG encoder ran.
 Prints the kernels' numbers as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -1142,6 +1162,64 @@ def check_small_step(torch):
                 fail(f"small {what} step ({label}): card and CPU disagree")
 
 
+def optimizer_tol(p0, updates):
+    """Per-parameter tolerance of an optimizer's result: 1e-6 of the
+    operands each parameter has summed, |p0| + |update 1| + ... (the
+    card's rsqrtf is within 2 ulps, and a parameter that an update nearly
+    cancels shows an ulp of the update at more than 1e-6 of its own size;
+    the same rule holds the optimizers against optax on the CPU,
+    tests/test_torch_run.py)."""
+    return 1e-6 * (p0.abs() + sum(u.abs() for u in updates))
+
+
+def check_small_optimizers(torch):
+    """RMSprop (optax's: eps inside the square root) and SGD, the port's
+    own capturable optimizers, on the card against the CPU: from phase 3's
+    small fp32 parameters, three updates with that size's regular-step
+    gradient (taken on the CPU and scaled by 1, -0.5 and 2, so that both
+    devices apply the same gradients and RMSprop's second moment moves) at
+    a linear schedule's first three lrs."""
+    import dataclasses
+    from splice_tpu_torch.losses import lambdas_for_step
+    from splice_tpu_torch.trainer import (SpliceTrainer, device_lr,
+                                          make_optimizer, sample_step_draws)
+    cfg, pair, ext = small_setup(torch, "cpu")
+    tr = SpliceTrainer(cfg, pair, ext, seed=3)
+    draws = sample_step_draws(cfg, pair, torch.Generator().manual_seed(11))
+    total, _ = tr.loss(draws, lambdas_for_step(cfg, 1), False)
+    (grad,) = torch.autograd.grad(total, tr.flat)
+    for name in ("rmsprop", "sgd"):
+        ocfg = dataclasses.replace(cfg, optimizer=name,
+                                   scheduler_policy="linear")
+        lrs = [float(device_lr(ocfg, i)) for i in range(3)]
+        after = {}
+        for dev in ("cuda", "cpu"):
+            p = tr.flat.detach().to(dev).clone().requires_grad_(True)
+            lr = torch.zeros((), device=dev)
+            opt = make_optimizer(ocfg, [p], lr)
+            seq = []
+            for scale, step_lr in zip((1.0, -0.5, 2.0), lrs):
+                p.grad = grad.to(dev) * scale
+                lr.fill_(step_lr)
+                opt.step()
+                seq.append(p.detach().cpu().clone())
+            after[dev] = seq
+        p0 = tr.flat.detach()
+        prev, ups, worst = p0, [], 0.0
+        for card, cpu in zip(after["cuda"], after["cpu"]):
+            ups.append(cpu - prev)
+            prev = cpu
+            err = (card - cpu).abs()
+            ratio = (err / optimizer_tol(p0, ups).clamp_min(1e-30)).max()
+            worst = max(worst, ratio.item())
+        print(f"  {name}: three updates on the card against the CPU (lrs "
+              + ", ".join(f"{v:.6g}" for v in lrs) + f"): largest error "
+              f"{worst:.3f} of its tolerance (1e-6 x |p0| + |updates|); "
+              f"largest update {max(u.abs().max().item() for u in ups):.3e}")
+        if not worst <= 1.0:
+            fail(f"{name}: the card's updates disagree with the CPU's")
+
+
 def check_replay(torch, label, cfg, pair, extractor):
     """The captured graphs against eager steps from one state: a trainer
     takes one eager entire-A step (so Adam holds moments), and three
@@ -1155,7 +1233,6 @@ def check_replay(torch, label, cfg, pair, extractor):
     before it (copied in place into the graphs' parameters and Adam
     state): its losses, a forward pass from one state, must agree with
     that run's within REPLAY_LOSS_FLOOR. Returns the program."""
-    import copy
     import numpy as np
     from splice_tpu_torch.losses import lambdas_for_step
     from splice_tpu_torch.trainer import (LOSS_KEYS, SpliceProgram,
@@ -1168,15 +1245,14 @@ def check_replay(torch, label, cfg, pair, extractor):
               True)
     plan = ((True, 0, 1), (False, 5, 3), (True, 0, 1))  # entire, lam step, n
     chunks = [(entire, np.stack([
-        pack_row(lambdas_vec(cfg, lam), sample_step_draws(cfg, pair, gen))
+        pack_row(lambdas_vec(cfg, lam), cfg.lr,
+                 sample_step_draws(cfg, pair, gen))
         for _ in range(n)])) for entire, lam, n in plan]
     flat0 = base.flat.detach().clone()
 
     def clone():
         t = SpliceTrainer(cfg, pair, extractor, seed=0)
-        with torch.no_grad():
-            t.flat.copy_(base.flat)
-        t.opt.load_state_dict(copy.deepcopy(base.opt.state_dict()))
+        t.load_state_dict(base.state_dict())
         return t
 
     def state(t):
@@ -1243,7 +1319,7 @@ def check_sync_free(torch, program, cfg):
     from splice_tpu_torch.trainer import (lambdas_vec, pack_row,
                                           sample_step_draws)
     gen = torch.Generator().manual_seed(22)
-    rows = np.stack([pack_row(lambdas_vec(cfg, 5), sample_step_draws(
+    rows = np.stack([pack_row(lambdas_vec(cfg, 5), cfg.lr, sample_step_draws(
         cfg, program.trainer.pair, gen)) for _ in range(3)])
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1272,7 +1348,7 @@ def regular_rows(torch, cfg, pair, n: int, seed: int):
     from splice_tpu_torch.trainer import (lambdas_vec, pack_row,
                                           sample_step_draws)
     gen = torch.Generator().manual_seed(seed)
-    return np.stack([pack_row(lambdas_vec(cfg, 5),
+    return np.stack([pack_row(lambdas_vec(cfg, 5), cfg.lr,
                               sample_step_draws(cfg, pair, gen))
                      for _ in range(n)])
 
@@ -1508,7 +1584,7 @@ def run_skip3(torch, cfg, pair, extractor, kernels, need):
         program = SpliceProgram(tr, max(n for _, n, _ in plan))
         for start, n, entire in plan:
             t0 = time.perf_counter()
-            rows = np.stack([pack_row(lambdas_vec(cfg, i),
+            rows = np.stack([pack_row(lambdas_vec(cfg, i), cfg.lr,
                                       sample_step_draws(cfg, pair, gen))
                              for i in range(start, start + n)])
             seq = program.run(rows, entire)      # the chunk's one read
@@ -1526,6 +1602,290 @@ def run_skip3(torch, cfg, pair, extractor, kernels, need):
     check_tc_launches(launches, tc, "fused_same_skip3")
     check_output(torch, "fused_same_skip3", out)
     return launches
+
+
+RUN_STEPS = 300       # phase 8's run, at the reference's defaults
+RUN_CKPT = 100
+RUN_RESUME = 200      # the checkpoint the resumed run starts from
+OPT_STEPS = 4         # each of RMSprop and SGD: E0, then 1 eager, 2 replays
+
+
+def run_config(**kw):
+    from splice_tpu_torch.config import load_config
+    return load_config(None, dict(dataroot="datasets/splicing/cows", seed=0,
+                                  n_epochs=RUN_STEPS, **kw))
+
+
+def check_lr_column(cfg, rows, trainer, label):
+    """Each step's lr in the rows, bit for bit device_lr's (the reference's
+    device_lr_fn as XLA compiles it, held bitwise against it on the CPU
+    by tests/test_torch_run.py), within float32 rounding of the schedule's
+    float64 form (Scheduler.lr_for_step: 2^-22 x the base lr), and the lr
+    tensor that the optimizer reads holding the last row's."""
+    import numpy as np
+    from splice_tpu_torch.trainer import LR_COLUMN, Scheduler, device_lr
+    got = np.ascontiguousarray(rows[:, LR_COLUMN])
+    want = np.array([device_lr(cfg, i) for i in range(len(got))], np.float32)
+    sched = Scheduler(cfg)
+    f64 = np.array([sched.lr_for_step(i) for i in range(len(got))])
+    off = int((got.view(np.int32) != want.view(np.int32)).sum())
+    dev64 = float(np.abs(got - f64).max())
+    linked = all(g["lr"] is trainer.lr for g in trainer.opt.param_groups)
+    last = trainer.lr.item()
+    print(f"  {label}: lr of {len(got)} steps ({cfg.scheduler_policy}) from "
+          f"{got[0]:.6g} to {got[-1]:.6g}: {off} rows off device_lr; "
+          f"largest distance from the float64 schedule {dev64:.3e} (tol "
+          f"{2 ** -22 * cfg.lr:.3e}); the optimizer reads the trainer's lr "
+          f"tensor: {linked}, holding {last!r} (the last row's "
+          f"{float(got[-1])!r})")
+    if off or dev64 > 2 ** -22 * cfg.lr or not linked or last != got[-1]:
+        fail(f"{label}: the steps' learning rates are not the schedule's")
+
+
+def check_metrics(path, res, n_steps, freq):
+    """One record per log boundary (step labels freq-1, 2 freq-1, ...),
+    each with the loss terms (the run's own losses of that step), lr and
+    steps_per_sec; the device memory on every tenth."""
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r["step"] for r in recs]
+    keys = {"t", "lr", "steps_per_sec", *res["losses"][0]}
+    memory = [r["step"] for r in recs if "hbm_in_use_mib" in r]
+    same = all({k: r[k] for k in res["losses"][0]}
+               == res["losses"][r["step"] - res["first_step"]] for r in recs)
+    print(f"  metrics: {len(recs)} records, steps {steps[0]}..{steps[-1]}, "
+          f"memory on steps {memory} ({recs[-1].get('hbm_in_use_mib')} MiB "
+          f"in use, {recs[-1].get('hbm_peak_mib')} peak, "
+          f"{recs[-1].get('hbm_limit_mib')} on the card); the records' "
+          f"losses are the run's: {same}")
+    first = res["first_step"]
+    want = list(range(first + freq - 1, n_steps, freq))
+    if (steps != want or not all(keys <= set(r) for r in recs) or not same
+            or memory != [s for s in want if (s + 1) // freq % 10 == 0]):
+        fail(f"the metrics records are not the run's: {recs[:2]}")
+
+
+def check_boundary_sync_free(torch, res, tmp):
+    """One chunk and its log boundary, as train_pair queues them (the
+    chunk, its losses' pinned copy and event, the uint8 render handed to
+    an AsyncImageSaver, the last losses to a MetricsLogger), under
+    torch.cuda.set_sync_debug_mode("error"); the workers finish inside the
+    window (close() drains both). They make no call that the mode checks:
+    each waits on its copy's CUDA event (cudaEventSynchronize, which the
+    mode does not watch) and then reads pinned host memory, and a worker
+    error would be counted. Fails on a synchronisation or a worker
+    error."""
+    import numpy as np
+    from PIL import Image
+    from splice_tpu_torch.trainer import LOSS_KEYS
+    from splice_tpu_torch.utils.io import AsyncImageSaver
+    from splice_tpu_torch.utils.metrics import MetricsLogger
+    program, trainer = res["program"], res["trainer"]
+    cfg = trainer.cfg
+    rows = regular_rows(torch, cfg, trainer.pair, 10, 23)
+    png, jsonl = os.path.join(tmp, "sync.png"), os.path.join(tmp, "sync.jsonl")
+    saver, logger = AsyncImageSaver(), MetricsLogger(jsonl)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        n = program.dispatch(rows, False)
+        read = program.fetch_async(n)
+        out = trainer.render_u8()
+        saver.save(out, png)
+        logger.log_async(n - 1, dict(zip(LOSS_KEYS, program.loss_seq[n - 1])),
+                         {"lr": cfg.lr, "steps_per_sec": 0.0},
+                         with_memory=True)
+        seq = read.wait().numpy()
+        saver.close()
+        logger.close()
+    except RuntimeError as e:
+        fail(f"a chunk or its log boundary synchronised with the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with open(jsonl) as f:
+        (rec,) = [json.loads(line) for line in f]
+    img = np.asarray(Image.open(png))
+    print(f"  a chunk of {n} regular steps and its log boundary (render_u8, "
+          f"the pinned copies and their events, the saver, log_async with "
+          f"memory), the workers finished, under sync debug mode 'error': "
+          f"no synchronisation; worker errors: saver {saver.errors}, logger "
+          f"{logger.errors}; png {img.shape}, record loss {rec['loss']} "
+          f"(the chunk's read: {float(seq[-1, -1])})")
+    if (saver.errors or logger.errors or img.shape != tuple(out.shape)
+            or rec["loss"] != float(seq[-1, -1])
+            or not np.isfinite(seq).all()):
+        fail("the sync-free log boundary lost or corrupted its outputs")
+
+
+def check_optimizer_in_graphs(torch, name, shared, tmp, kernels):
+    """OPT_STEPS steps of `name` at a linear schedule through train_pair's
+    graphs on the main path (an entire-A step, then the regular graph:
+    one eager step, its capture, replays), then one more replayed step
+    whose update is recomputed from the parameters, the optimizer state
+    and the gradient (flat.grad, which the graph rewrites) the replay
+    had: within optimizer_tol (the same ops on the same card: expected
+    bitwise)."""
+    import numpy as np
+    from splice_tpu_torch.trainer import LR_COLUMN, device_lr, train_pair
+    cfg = run_config(optimizer=name, scheduler_policy="linear",
+                     log_images_freq=1000)
+    zero_counts(kernels)
+    res = train_pair(cfg, n_steps=OPT_STEPS, dataroot=tmp, **shared)
+    read_launches(torch, kernels, name, ("attn_qkv_fwd", "attn_qkv_bwd",
+                                         "conv_valid", "conv_dw"),
+                  [res["program"]])
+    tr, program = res["trainer"], res["program"]
+    check_lr_column(cfg, res["rows"], tr, f"{name} run")
+    rows = regular_rows(torch, cfg, tr.pair, 1, 24)
+    rows[:, LR_COLUMN] = device_lr(cfg, OPT_STEPS)
+    p0 = tr.flat.detach().clone()
+    st0 = {k: v.clone() for k, v in tr.opt.state[tr.flat].items()}
+    replays = sum(c.replays for c in program.graphs.values())
+    program.run(rows, False)
+    if sum(c.replays for c in program.graphs.values()) != replays + 1:
+        fail(f"{name}: the step did not replay the regular graph")
+    g = tr.flat.grad
+    lr = torch.tensor(float(rows[0, LR_COLUMN]), device=g.device)
+    if name == "rmsprop":
+        keep = float(np.float32(1.0) - np.float32(0.99))
+        nu = st0["nu"].mul(0.99).add_(g * g * keep)
+        want = p0 - lr * (g * torch.rsqrt(nu + 1e-8))
+    else:
+        want = p0 - lr * g
+    err = (tr.flat.detach() - want).abs()
+    ratio = (err / optimizer_tol(p0, [want - p0]).clamp_min(1e-30)).max()
+    losses = np.array([list(l.values()) for l in res["losses"]])
+    print(f"  {name}: {OPT_STEPS} steps in chunks {res['chunks']}, losses "
+          + ", ".join(f"{v:.5f}" for v in losses[:, -1]) + "; a replayed "
+          f"step's update against the formula on the replay's gradient: "
+          f"largest error {err.max().item():.3e} ({ratio.item():.3f} of "
+          f"its tolerance), largest update {(want - p0).abs().max().item():.3e}")
+    if not (np.isfinite(losses).all() and ratio.item() <= 1.0):
+        fail(f"{name}: the captured graph's update is not the optimizer's")
+
+
+def check_run(torch, kernels, shared):
+    """Phase 8: train_pair as a user runs it on the main path (cows, 896
+    canvas, dino_vitb8 seeded, 224, bf16) for RUN_STEPS steps at the
+    reference's defaults (log_images_freq 10, entire_A_every 75,
+    cls_warmup 1) with the cosine schedule over RUN_STEPS, metrics_path and
+    checkpoints every RUN_CKPT steps in a temporary directory; then a run
+    resumed from the checkpoint at RUN_RESUME, the sync-free boundary, and
+    RMSprop and SGD through the graphs."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from PIL import Image
+    from splice_tpu_torch.trainer import train_pair
+    from splice_tpu_torch.utils import pngio
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_run_")
+    try:
+        ck, metrics = os.path.join(tmp, "ck"), os.path.join(tmp, "m.jsonl")
+        cfg = run_config(scheduler_policy="cosine", checkpoint_every=RUN_CKPT,
+                         checkpoint_dir=ck, metrics_path=metrics)
+        zero_counts(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_pair(cfg, dataroot=tmp, **shared)
+        wall = time.perf_counter() - t0
+        launches, tc = read_launches(
+            torch, kernels, "run", ("attn_qkv_fwd", "attn_qkv_bwd",
+                                    "conv_valid", "conv_dw"),
+            [res["program"]])
+        check_tc_launches(launches, tc, "run")
+        check_lr_column(cfg, res["rows"], res["trainer"], "run")
+        losses = np.array([list(l.values()) for l in res["losses"]])
+        secs = np.array(res["step_seconds"])
+        bound = np.array(res["boundary_seconds"])
+        program = res["program"]
+        rows = regular_rows(torch, cfg, res["trainer"].pair, 10, 25)
+        replay = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            program.run(rows, False)
+            replay.append((time.perf_counter() - t1) * 1e3 / len(rows))
+        replay_ms = sorted(replay)[1]
+        # the boundary's render on an idle device, for its own host time
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res["trainer"].render_u8()
+        render_host = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        render_all = time.perf_counter() - t1
+        steady_ms = 1e3 * secs[10:].mean()
+        print(f"  {len(losses)} steps in {len(res['chunks'])} chunks, "
+              f"{wall:.1f} s in train_pair (the model and pair built before "
+              f"it); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print(f"  sustained {res['steps_per_sec']:.3f} steps/s over the run "
+              f"(renders, saves, metrics and checkpoints included; the "
+              f"first chunks' eager steps and captures too); "
+              f"{(len(secs) - 10) / secs[10:].sum():.3f} steps/s over steps "
+              f"10-{len(secs) - 1}; replayed step {replay_ms:.2f} ms "
+              f"({1e3 / replay_ms:.3f} steps/s; chunks of 10, median of 3: "
+              + ", ".join(f"{v:.2f}" for v in replay) + ")")
+        print(f"  steps 10-{len(secs) - 1}: {steady_ms:.2f} ms a step "
+              f"against the replayed {replay_ms:.2f}: log boundaries and "
+              f"checkpoints add {steady_ms - replay_ms:.2f} ms a step")
+        print(f"  log boundaries: {len(bound)}, {bound.sum():.3f} s of the "
+              f"loop's host time in all ({1e3 * bound.mean():.2f} ms each, "
+              f"largest {1e3 * bound.max():.2f}: render_u8 queued behind "
+              f"the chunk just queued, the frame's copy, log_async); "
+              f"render_u8 on an idle device {1e3 * render_host:.2f} ms of "
+              f"host time, {1e3 * render_all:.2f} ms to its end; PNG "
+              f"encoder: {pngio.encoder()}")
+        for i in sorted({0, 1, 9, 10, 75, RUN_RESUME - 1, RUN_RESUME,
+                         RUN_STEPS - 1} & set(range(len(secs)))):
+            print(f"  step {i:3d} {secs[i] * 1e3:9.2f} ms "
+                  + " ".join(f"{k}={v:.5f}"
+                             for k, v in res["losses"][i].items()))
+        if len(losses) != RUN_STEPS or not np.isfinite(losses).all():
+            fail("the run's losses are not all finite")
+        check_output(torch, "run", res["output"])
+        png = np.asarray(Image.open(os.path.join(tmp, "out", "output.png")))
+        print(f"  output.png {png.shape}, equal to the run's last uint8 "
+              f"frame: {np.array_equal(png, res['output_u8'].cpu().numpy())}")
+        if not np.array_equal(png, res["output_u8"].cpu().numpy()):
+            fail("output.png is not the run's last frame")
+        check_metrics(metrics, res, RUN_STEPS, cfg.log_images_freq)
+        saved = sorted(os.listdir(ck))
+        print(f"  checkpoints: {saved}")
+        if saved != [f"ckpt_{s}.pt" for s in range(RUN_STEPS - 2 * RUN_CKPT,
+                                                   RUN_STEPS + 1, RUN_CKPT)]:
+            fail(f"checkpoints missing: {saved}")
+
+        resume = os.path.join(tmp, "resume")
+        os.makedirs(resume)
+        shutil.copy(os.path.join(ck, f"ckpt_{RUN_RESUME}.pt"), resume)
+        rcfg = run_config(scheduler_policy="cosine", resume_from=resume,
+                          checkpoint_every=RUN_CKPT,
+                          checkpoint_dir=os.path.join(tmp, "ck2"),
+                          metrics_path=os.path.join(tmp, "m2.jsonl"))
+        rres = train_pair(rcfg, dataroot=os.path.join(tmp, "r"), **shared)
+        same_rows = np.array_equal(rres["rows"].view(np.int32),
+                                   res["rows"][RUN_RESUME:].view(np.int32))
+        first = (rres["losses"][0], res["losses"][RUN_RESUME])
+        print(f"  resumed from step {rres['first_step']}: "
+              f"{len(rres['losses'])} steps in chunks {rres['chunks']}; rows "
+              f"bitwise equal to the run's {RUN_RESUME}-{RUN_STEPS - 1}: "
+              f"{same_rows}; step {RUN_RESUME}: resumed "
+              + " ".join(f"{v!r}" for v in first[0].values()) + ", run "
+              + " ".join(f"{v!r}" for v in first[1].values()))
+        if (rres["first_step"] != RUN_RESUME or not same_rows
+                or first[0] != first[1]):
+            fail("the resumed run is not the uninterrupted run's")
+        del rres
+
+        check_boundary_sync_free(torch, res, tmp)
+        del res, program
+        torch.cuda.empty_cache()
+        for name in ("rmsprop", "sgd"):
+            check_optimizer_in_graphs(torch, name, shared,
+                                      os.path.join(tmp, name), kernels)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -1618,6 +1978,7 @@ def main() -> int:
 
     print("phase 3: small step, card against CPU")
     check_small_step(torch)
+    check_small_optimizers(torch)
     print("  graphs against eager at this size (fp32, generator_conv=auto):")
     check_replay(torch, "small fp32", *small_setup(torch, "cuda"))
     torch.cuda.empty_cache()
@@ -1715,6 +2076,12 @@ def main() -> int:
     k7 = steps_in_turns(torch, turns)
     if k7["fused_same_tap_off"] or not k7["fused_same"]:
         fail(f"DW_TAP_ON_N did not route K7 as it says: {k7}")
+    del turns, main_trainer
+    torch.cuda.empty_cache()
+
+    print(f"phase 8: a run as a user runs it: train_pair on the main path, "
+          f"{RUN_STEPS} steps, cosine, checkpoints, metrics")
+    check_run(torch, kernels, shared)
 
     line = []
     for name, (fn, route, source, replaces, path) in kernels.items():

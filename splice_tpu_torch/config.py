@@ -16,6 +16,11 @@ import yaml
 
 # generator_conv values (the reference's, splice_tpu/config.py:81-85).
 GENERATOR_CONVS = ("auto", "xla", "pallas", "fused")
+# the reference's values of init_type, scheduler_policy and optimizer
+# (splice_tpu/config.py:150-154)
+INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
+SCHEDULER_POLICIES = ("linear", "step", "plateau", "cosine", "none")
+OPTIMIZERS = ("adam", "rmsprop", "sgd")
 
 
 @dataclasses.dataclass
@@ -33,7 +38,7 @@ class Config:
     global_B_crops_n_crops: int = 1
     global_B_crops_min_cover: float = 0.95
 
-    init_type: str = "xavier"           # only xavier is ported
+    init_type: str = "xavier"           # normal | xavier | kaiming | orthogonal
     init_gain: float = 0.02
 
     lambda_global_cls: float = 10.0
@@ -48,14 +53,32 @@ class Config:
 
     cls_warmup: int = 1
     n_epochs: int = 10000
-    scheduler_policy: str = "none"      # only "none" is ported
+    scheduler_policy: str = "none"      # linear | step | plateau | cosine | none
+    scheduler_n_epochs_decay: int = 8
+    scheduler_lr_decay_iters: int = 300
 
-    optimizer: str = "adam"             # only adam is ported
+    optimizer: str = "adam"             # adam | rmsprop | sgd
     optimizer_beta1: float = 0.0
     optimizer_beta2: float = 0.99
     lr: float = 2e-3
 
     log_images_freq: int = 10
+
+    # --- the reference's run keys (splice_tpu/config.py:106-125) ---
+    # Checkpoint every checkpoint_every steps into checkpoint_dir (0 or no
+    # directory: off); resume_from: a checkpoint directory to continue
+    # from (its latest step).
+    checkpoint_every: int = 0
+    checkpoint_dir: Optional[str] = None
+    resume_from: Optional[str] = None
+    # With max_restarts > 0 (and checkpointing on) the CLI runs the
+    # training in a child process and relaunches it from the latest
+    # checkpoint after a crash, up to this many times.
+    max_restarts: int = 0
+    # Raise after crossing this step on the first attempt only (tests the
+    # relaunch); -1 = off.
+    fault_inject_step: int = -1
+    metrics_path: Optional[str] = None  # None -> <dataroot>/out/metrics.jsonl
 
     # --- port knobs ---
     # Frozen-ViT weights: a .npz written by splice_tpu's save_vit_params, or
@@ -76,9 +99,9 @@ class Config:
     def validate(self) -> "Config":
         checks = {
             "direction": ("AtoB", "BtoA"),
-            "init_type": ("xavier",),
-            "scheduler_policy": ("none",),
-            "optimizer": ("adam",),
+            "init_type": INIT_TYPES,
+            "scheduler_policy": SCHEDULER_POLICIES,
+            "optimizer": OPTIMIZERS,
             "vit_compute_dtype": ("bfloat16", "float32"),
             "generator_compute_dtype": ("bfloat16", "float32"),
             "generator_conv": GENERATOR_CONVS,

@@ -358,18 +358,50 @@ def skip_apply_chw(params: Dict[str, Any], cfg: SkipConfig,
 # Init (reference networks.py:24-53 semantics) and the flat vector
 # ---------------------------------------------------------------------------
 
+def _conv_kernel(shape: Tuple[int, int, int, int], init_type: str,
+                 gain: float, gen: torch.Generator) -> torch.Tensor:
+    """A [kh, kw, cin, cout] conv kernel by the reference's rule
+    (splice_tpu/models/unet.py:717-751, torch's init semantics)."""
+    kh, kw, cin, cout = shape
+    fan_in, fan_out = cin * kh * kw, cout * kh * kw
+    if init_type == "normal":
+        return gain * torch.randn(shape, generator=gen)
+    if init_type == "xavier":
+        std = gain * float(np.sqrt(2.0 / (fan_in + fan_out)))
+        return std * torch.randn(shape, generator=gen)
+    if init_type == "kaiming":
+        return float(np.sqrt(2.0 / fan_in)) * torch.randn(shape,
+                                                          generator=gen)
+    if init_type == "orthogonal":
+        # torch.nn.init.orthogonal_: rows = cout, cols = fan_in; a wide
+        # matrix (cout < fan_in) orthogonalises its transpose, so the
+        # reduced QR always has enough columns (the 1x1 skip conv, cin 3
+        # and cout 4, is tall). Signs from the diagonal of R.
+        rows, cols = cout, fan_in
+        q, r = torch.linalg.qr(torch.randn((max(rows, cols), min(rows, cols)),
+                                           generator=gen))
+        q = q * torch.sign(torch.diagonal(r))
+        mat = q if rows >= cols else q.T                  # [cout, fan_in]
+        # torch fills weight.view(cout, cin * kh * kw)
+        return gain * mat.reshape(cout, cin, kh, kw).permute(2, 3, 1, 0)
+    raise ValueError(f"init_type {init_type!r}")
+
+
 def init_skip_params(cfg: SkipConfig, init_gain: float = 0.02,
-                     seed: int = 0, device=None) -> Dict[str, Any]:
-    """Seeded xavier init: conv kernels N(0, gain^2 * 2 / (fan_in +
-    fan_out)), conv biases 0, BN scale N(1, gain^2), BN bias 0. Drawn on
-    the CPU so a seed gives the same weights on every device; then moved
-    to `device` (default CUDA)."""
+                     seed: int = 0, device=None,
+                     init_type: str = "xavier") -> Dict[str, Any]:
+    """Seeded init (reference networks.py:24-53 semantics): conv kernels by
+    `init_type` (normal N(0, gain^2); xavier N(0, gain^2 * 2 / (fan_in +
+    fan_out)); kaiming N(0, 2 / fan_in); orthogonal, scaled by gain), conv
+    biases 0, BN scale N(1, gain^2), BN bias 0. Drawn on the CPU so a seed
+    gives the same weights on every device; then moved to `device`
+    (default CUDA)."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
 
     def conv(k, cin, cout):
-        std = init_gain * float(np.sqrt(2.0 / ((cin + cout) * k * k)))
-        p = {"kernel": std * torch.randn((k, k, cin, cout), generator=gen)}
+        p = {"kernel": _conv_kernel((k, k, cin, cout), init_type, init_gain,
+                                    gen).contiguous()}
         if cfg.need_bias:
             p["bias"] = torch.zeros(cout)
         return p

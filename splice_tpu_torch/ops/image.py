@@ -363,3 +363,14 @@ def sample_structure_draws(gen: torch.Generator) -> dict:
     sigma = 0.1 + torch.rand((), generator=gen).item() * (2.0 - 0.1)
     return dict(flip=flip, jitter_on=jitter_on, jitter_factors=factors,
                 jitter_order=order, blur_on=blur_on, sigma=sigma)
+
+
+# ---------------------------------------------------------------------------
+# Output conversion (reference util/util.py:42-59)
+# ---------------------------------------------------------------------------
+
+def tensor2im(img: torch.Tensor) -> torch.Tensor:
+    """[H, W, C] float in [0, 1] -> uint8 HWC on the image's device
+    (splice_tpu/ops/image.py:316): clipped, scaled by 255 and truncated.
+    The image leaves the device as uint8, a quarter of its float bytes."""
+    return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)

@@ -1,35 +1,46 @@
-"""Training loop (port of splice_tpu/trainer.py:46-68,219-430,525-800).
+"""Training loop (port of splice_tpu/trainer.py:46-213,219-430,525-830).
 
 One step: augmentation and global crops on the device -> the skip U-Net over
 the A and B crop stacks as one batch of 2 (BatchNorm per stack) -> loss-side
 resize and ImageNet normalisation -> the frozen ViT (generated batch with
 gradients, targets without) -> the splice losses (plus the entire-image
-losses on every entire_A_every-th step) -> Adam over one flat fp32
-parameter vector.
+losses on every entire_A_every-th step) -> the optimizer (Adam, RMSprop or
+SGD) over one flat fp32 parameter vector, at the step's learning rate.
 
 The host draws each step's random numbers from a torch.Generator and packs
-them, with the step's lambdas, into one float32 row: the step reads its
-draws and lambdas as device data and branches on none of them. train_pair
+them, with the step's lambdas and learning rate, into one float32 row: the
+step reads them as device data and branches on none of them. train_pair
 cuts the run into chunks where the host must step in (boundaries_after, as
 the reference's) and dispatches each through SpliceProgram: on CUDA the
 regular step and the entire-A step are each one captured CUDA graph (the
 reference's scanned chunk and jitted entire step), replayed with no host
 read inside a chunk, and the chunk's losses come back in one copy. On the
 CPU the program runs the same loop eagerly.
+
+Around the chunks train_pair runs the reference's run: the scheduler, the
+output PNG and the metrics JSONL from worker threads, checkpoints and
+resume. Its loop queues chunk k+1 before it reads chunk k's losses, and
+nothing at a log boundary waits for the device.
 """
 from __future__ import annotations
 
+import copy
+import ctypes
+import ctypes.util
 import dataclasses
+import functools
+import math
 import os
+import pathlib
 import time
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from splice_tpu_torch import losses as losses_lib
 from splice_tpu_torch import resolve_device
-from splice_tpu_torch.config import Config
+from splice_tpu_torch.config import Config, load_config
 from splice_tpu_torch.data import ImagePair, load_pair
 from splice_tpu_torch.models import extractor as ext_lib
 from splice_tpu_torch.models import unet, vit as vit_lib
@@ -37,21 +48,183 @@ from splice_tpu_torch.models.weights import load_or_init_vit_params
 from splice_tpu_torch.ops import attention as attn_ops
 from splice_tpu_torch.ops import conv as conv_ops
 from splice_tpu_torch.ops import image as img_ops
-from splice_tpu_torch.utils.io import save_image
-from splice_tpu_torch.utils.metrics import StepTimer, fetch_stacked
+from splice_tpu_torch.utils.checkpoint import Checkpointer
+from splice_tpu_torch.utils.io import AsyncImageSaver
+from splice_tpu_torch.utils.metrics import (HostCopy, MetricsLogger,
+                                            StepTimer, fetch_stacked)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def make_optimizer(cfg: Config, params: List[torch.Tensor]
-                   ) -> torch.optim.Optimizer:
-    """Adam with the reference's settings (torch's update equals
-    optax.adam's: eps added after the bias-corrected square root). On CUDA
-    it keeps its step count on the device (capturable), so that a captured
-    graph holds the update; eager steps there use the same form."""
-    return torch.optim.Adam(params, lr=cfg.lr, eps=1e-8,
-                            betas=(cfg.optimizer_beta1, cfg.optimizer_beta2),
-                            capturable=params[0].is_cuda)
+class RMSprop(torch.optim.Optimizer):
+    """optax.rmsprop(decay, eps) (optax 0.2.6 scale_by_rms, eps inside the
+    square root, nu from 0): nu = (1 - decay) g^2 + decay nu, then
+    p -= lr * (g * rsqrt(nu + eps)). torch.optim.RMSprop divides by
+    sqrt(nu) + eps instead. lr is a 0-d tensor, read on the device, and
+    every op stays on the device: a captured graph holds the update."""
+
+    def __init__(self, params, lr: torch.Tensor, decay: float = 0.99,
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            decay = group["decay"]
+            # 1 - decay in float32, as optax's injected hyperparameter has it
+            keep = float(np.float32(1.0) - np.float32(decay))
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                nu = state["nu"]
+                nu.mul_(decay).add_(g * g * keep)
+                p.sub_(group["lr"] * (g * torch.rsqrt(nu + group["eps"])))
+
+
+class SGD(torch.optim.Optimizer):
+    """optax.sgd: p -= lr * g, with lr a 0-d tensor read on the device
+    (torch.optim.SGD reads a tensor lr on the host)."""
+
+    def __init__(self, params, lr: torch.Tensor):
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.sub_(group["lr"] * p.grad)
+
+
+def make_optimizer(cfg: Config, params: List[torch.Tensor],
+                   lr: torch.Tensor) -> torch.optim.Optimizer:
+    """The reference's optimizers (splice_tpu/trainer.py:46-60) at the
+    learning rate `lr`, a 0-d float32 tensor on the parameters' device
+    that each step sets from its row. Adam: torch's update equals
+    optax.adam's (eps added after the bias-corrected square root); on CUDA
+    it keeps its step count on the device (capturable, eager steps there
+    too), so that a captured graph holds the update."""
+    if cfg.optimizer == "adam":
+        return torch.optim.Adam(params, lr=lr, eps=1e-8,
+                                betas=(cfg.optimizer_beta1,
+                                       cfg.optimizer_beta2),
+                                capturable=params[0].is_cuda)
+    if cfg.optimizer == "rmsprop":
+        return RMSprop(params, lr, decay=0.99, eps=1e-8)
+    if cfg.optimizer == "sgd":
+        return SGD(params, lr)
+    raise ValueError(cfg.optimizer)
+
+
+# torch ReduceLROnPlateau's default patience; also caps a chunk under the
+# plateau policy (boundaries_after).
+PLATEAU_PATIENCE = 5
+
+
+class Scheduler:
+    """Host-side lr schedule, torch parity (splice_tpu/trainer.py:63-125).
+
+    lr_for_step(i), 0-based, is the torch scheduler's value in effect
+    during step i (schedulers step once per epoch after the optimizer)."""
+
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        self.policy = cfg.scheduler_policy
+        self.base_lr = cfg.lr
+        # plateau (ReduceLROnPlateau: factor 0.2, relative threshold 0.01,
+        # patience PLATEAU_PATIENCE)
+        self._plateau_factor = 1.0
+        self._best = math.inf
+        self._bad_epochs = 0
+
+    def observe(self, loss: float) -> None:
+        if self.policy != "plateau":
+            return
+        if loss < self._best * (1.0 - 0.01):
+            self._best = loss
+            self._bad_epochs = 0
+        else:
+            self._bad_epochs += 1
+            if self._bad_epochs > PLATEAU_PATIENCE:
+                self._plateau_factor *= 0.2
+                self._bad_epochs = 0
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Only plateau carries state; the other policies are closed-form
+        in the step index."""
+        return {"plateau_factor": self._plateau_factor, "best": self._best,
+                "bad_epochs": self._bad_epochs}
+
+    def load_state_dict(self, d: Dict[str, Any]) -> None:
+        self._plateau_factor = float(d["plateau_factor"])
+        self._best = float(d["best"])
+        self._bad_epochs = int(d["bad_epochs"])
+
+    def lr_for_step(self, i: int) -> float:
+        c = self.cfg
+        if self.policy == "none":
+            return self.base_lr
+        if self.policy == "linear":
+            return self.base_lr * max(
+                0.0, 1.0 - max(0, i) / float(c.scheduler_n_epochs_decay + 1))
+        if self.policy == "step":
+            return self.base_lr * (0.5 ** (i // c.scheduler_lr_decay_iters))
+        if self.policy == "cosine":
+            return self.base_lr * 0.5 * (1.0 + math.cos(
+                math.pi * i / c.n_epochs))
+        if self.policy == "plateau":
+            return self.base_lr * self._plateau_factor
+        raise ValueError(self.policy)
+
+
+@functools.lru_cache(maxsize=None)
+def _cosf() -> Callable[[float], float]:
+    """The C library's float32 cosine (what XLA's CPU backend calls)."""
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    lib.cosf.restype, lib.cosf.argtypes = ctypes.c_float, [ctypes.c_float]
+    return lib.cosf
+
+
+def device_lr(cfg: Config, i: int) -> np.float32:
+    """The lr of step i under linear, step or cosine, bit for bit as the
+    reference computes it in its step (device_lr_fn,
+    splice_tpu/trainer.py:185-213) on XLA's CPU backend: its float32
+    operations in the order XLA compiles them. There, and here: a division
+    by a constant is a product with its float32 reciprocal (the cosine's
+    pi is folded into that constant); 1 - x * r is one fused multiply-add
+    (one rounding: exact in float64, then rounded); the cosine is the C
+    library's cosf; a subnormal result is flushed to zero. A backend that
+    folds, contracts or computes the cosine otherwise (the reference on a
+    TPU) can round differently at any of these four places; in the cosine
+    near the end of the schedule, where 1 + cos cancels, an ulp of the
+    cosine is many ulps of the lr."""
+    f = np.float32
+    if cfg.scheduler_policy == "linear":
+        r = f(1.0) / f(cfg.scheduler_n_epochs_decay + 1)
+        v = f(cfg.lr) * max(f(0.0), f(1.0 - float(f(max(i, 0))) * float(r)))
+    elif cfg.scheduler_policy == "step":
+        v = f(cfg.lr) * np.power(f(0.5), f(i // cfg.scheduler_lr_decay_iters))
+    elif cfg.scheduler_policy == "cosine":
+        arg = f(i) * f(f(math.pi) * (f(1.0) / f(cfg.n_epochs)))
+        v = f(cfg.lr * 0.5) * (f(1.0) + f(_cosf()(float(arg))))
+    else:
+        raise ValueError(f"{cfg.scheduler_policy!r} has no closed form")
+    return f(0.0) if abs(v) < np.finfo(np.float32).tiny else f(v)
+
+
+def chunk_lrs(cfg: Config, sched: Scheduler, start: int,
+              n: int) -> List[np.float32]:
+    """The lr of each step of the chunk start..start+n-1: device_lr's
+    per step under linear, step and cosine; under none and plateau the
+    scheduler's value at the chunk's first step for all of them (the
+    reference sets it once per dispatch)."""
+    if cfg.scheduler_policy in ("none", "plateau"):
+        return [np.float32(sched.lr_for_step(start))] * n
+    return [device_lr(cfg, i) for i in range(start, start + n)]
 
 
 @dataclasses.dataclass
@@ -79,15 +252,17 @@ def sample_step_draws(cfg: Config, pair: ImagePair,
     return StepDraws(structure, flip_B, crops_A, crops_B)
 
 
-# A step's row: its lambdas (LAMBDA_ORDER), then its draws: the structure
-# coins and factors (flip, jitter_on, fb, fc, fs, fh, the jitter order,
-# blur_on, sigma), flip_B, then each crop stack's side, tops and lefts.
+# A step's row: its lambdas (LAMBDA_ORDER), its lr (LR_COLUMN), then its
+# draws: the structure coins and factors (flip, jitter_on, fb, fc, fs, fh,
+# the jitter order, blur_on, sigma), flip_B, then each crop stack's side,
+# tops and lefts.
 N_LAMBDAS = len(losses_lib.LAMBDA_ORDER)
+LR_COLUMN = N_LAMBDAS
 _STRUCTURE = 12
 
 
 def row_width(cfg: Config) -> int:
-    return (N_LAMBDAS + _STRUCTURE + 1 + 2
+    return (N_LAMBDAS + 1 + _STRUCTURE + 1 + 2
             + 2 * (cfg.global_A_crops_n_crops + cfg.global_B_crops_n_crops))
 
 
@@ -101,21 +276,24 @@ def lambdas_array(lam: Dict[str, float]) -> np.ndarray:
                       np.float32)
 
 
-def pack_row(lam: np.ndarray, draws: StepDraws) -> np.ndarray:
-    """One step's lambdas and draws as a float32 row (row_width values)."""
+def pack_row(lam: np.ndarray, lr: float, draws: StepDraws) -> np.ndarray:
+    """One step's lambdas, lr and draws as a float32 row (row_width
+    values)."""
     st = draws.structure
     structure = ([st["flip"], st["jitter_on"], *st["jitter_factors"],
                   *st["jitter_order"], st["blur_on"], st["sigma"]]
                  if st is not None else [0.0] * _STRUCTURE)
     crops = [v for side, tops, lefts in (draws.crops_A, draws.crops_B)
              for v in (side, *tops, *lefts)]
-    return np.asarray([*lam, *structure, draws.flip_B, *crops], np.float32)
+    return np.asarray([*lam, lr, *structure, draws.flip_B, *crops],
+                      np.float32)
 
 
 def unpack_row(cfg: Config, row: torch.Tensor
                ) -> Tuple[torch.Tensor, StepDraws]:
-    """(lambdas [5], draws as views of the row) of a packed row."""
-    lam, d = row[:N_LAMBDAS], row[N_LAMBDAS:]
+    """(lambdas [5], draws), views of a packed row (its lr is
+    row[LR_COLUMN])."""
+    lam, d = row[:N_LAMBDAS], row[LR_COLUMN + 1:]
     structure = None
     if cfg.use_augmentations:
         structure = dict(flip=d[0], jitter_on=d[1], jitter_factors=d[2:6],
@@ -144,7 +322,8 @@ def make_extractor_from_config(cfg: Config, device=None,
 
 
 class SpliceTrainer:
-    """The generator's flat parameter vector, its optimizer, and the step."""
+    """The generator's flat parameter vector, its optimizer and learning
+    rate, and the step."""
 
     def __init__(self, cfg: Config, pair: ImagePair,
                  extractor: ext_lib.VitExtractor,
@@ -153,13 +332,17 @@ class SpliceTrainer:
         self.cfg, self.pair, self.extractor = cfg, pair, extractor
         self.gcfg = gcfg or unet.SkipConfig()
         self.gdt = _DTYPES[cfg.generator_compute_dtype]
+        dev = pair.A.device
         tree = unet.init_skip_params(self.gcfg, cfg.init_gain, seed=seed,
-                                     device=pair.A.device)
+                                     device=dev, init_type=cfg.init_type)
         flat, self.spec = unet.flatten_params(tree)
         if init_flat is not None:
-            flat = init_flat.to(device=pair.A.device, dtype=torch.float32)
+            flat = init_flat.to(device=dev, dtype=torch.float32)
         self.flat = flat.detach().clone().requires_grad_(True)
-        self.opt = make_optimizer(cfg, [self.flat])
+        # the optimizer's lr: written from the step's row before each
+        # update, so one captured graph serves every step of a schedule
+        self.lr = torch.tensor(cfg.lr, dtype=torch.float32, device=dev)
+        self.opt = make_optimizer(cfg, [self.flat], self.lr)
 
     def params(self) -> Dict[str, Any]:
         return unet.unflatten_params(self.flat, self.spec)
@@ -179,12 +362,12 @@ class SpliceTrainer:
     def as_row(self, draws: Union[StepDraws, torch.Tensor],
                lam: Union[Dict[str, float], torch.Tensor]) -> torch.Tensor:
         """The packed row of a step. Eager callers hand Python draws and a
-        dict of lambdas (one copy to the device here); the program hands
-        rows it already holds there."""
+        dict of lambdas (one copy to the device here; the step's lr is
+        cfg.lr); the program hands rows it already holds there."""
         if isinstance(draws, torch.Tensor):
             return draws
-        return torch.from_numpy(pack_row(lambdas_array(lam), draws)).to(
-            self.flat.device)
+        return torch.from_numpy(pack_row(lambdas_array(lam), self.cfg.lr,
+                                         draws)).to(self.flat.device)
 
     def sample_inputs(self, draws: StepDraws):
         A, B = self.pair.A, self.pair.B
@@ -232,10 +415,12 @@ class SpliceTrainer:
         """One optimisation step; returns the detached loss terms (a regular
         step's entire terms as zeros, as the reference's) and "loss", the
         total. The one definition of a step: SpliceProgram runs it eagerly
-        and captures it."""
-        total, parts = self.loss(draws, lam, entire)
+        and captures it. The update runs at the row's lr."""
+        row = self.as_row(draws, lam)
+        total, parts = self.loss(row, None, entire)
         self.opt.zero_grad(set_to_none=True)
         total.backward()
+        self.lr.copy_(row[LR_COLUMN])
         self.opt.step()
         out = {k: v.detach() for k, v in parts.items()}
         zero = torch.zeros((), device=total.device)
@@ -249,6 +434,32 @@ class SpliceTrainer:
         """Full-image generator output [H, W, 3] in [0, 1]."""
         return torch.clamp(self.generate(self.params(),
                                          self.pair.A[None])[0], 0.0, 1.0)
+
+    def render_u8(self) -> torch.Tensor:
+        """render as uint8 [H, W, 3] on the device
+        (splice_tpu/trainer.py:488): a quarter of the bytes to copy off."""
+        return img_ops.tensor2im(self.render())
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The flat parameters and the optimizer's per-parameter state (on
+        CUDA Adam's step count is a device tensor)."""
+        return {"flat": self.flat.detach(),
+                "opt": self.opt.state_dict()["state"]}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore state_dict() in place into flat, and the optimizer's
+        state under this trainer's own hyperparameters. Do this before a
+        SpliceProgram captures: a graph reads the parameters and the
+        optimizer's state by address."""
+        with torch.no_grad():
+            self.flat.copy_(state["flat"])
+        self.opt.load_state_dict({
+            "state": copy.deepcopy(state["opt"]),   # never shared
+            "param_groups": self.opt.state_dict()["param_groups"]})
+        # load_state_dict copies the groups: the optimizer must read the lr
+        # tensor that each step writes
+        for group in self.opt.param_groups:
+            group["lr"] = self.lr
 
 
 # the columns of a program's losses
@@ -287,7 +498,8 @@ class SpliceProgram:
     i's pack_row, and returns their [n, 6] losses in LOSS_KEYS order: the
     reference's loss_seq, read in one copy. run(rows, False) is the
     reference's step_chunk (step_regular: one row), run(row, True) its
-    step_entire (one row). dispatch and fetch are its two halves.
+    step_entire (one row). dispatch and fetch are its two halves;
+    fetch_async issues the read without waiting.
 
     On CUDA each step class is one captured graph of SpliceTrainer.step,
     keyed also by the conv route that the capture reads
@@ -337,6 +549,12 @@ class SpliceProgram:
         """The last dispatch's [n, 6] losses: one device-to-host copy."""
         return self.loss_seq[:n].cpu().numpy()
 
+    def fetch_async(self, n: int) -> HostCopy:
+        """The last dispatch's [n, 6] losses on their way to the host,
+        queued behind it and ahead of the next dispatch (which writes
+        loss_seq again): nothing waits until the HostCopy is read."""
+        return HostCopy(self.loss_seq[:n])
+
     def run(self, rows: np.ndarray, entire: bool) -> np.ndarray:
         return self.fetch(self.dispatch(rows, entire))
 
@@ -370,27 +588,40 @@ class SpliceProgram:
             for k in after if after[k] != before[k]})
 
 
+def checkpointing(cfg: Config) -> bool:
+    return cfg.checkpoint_every > 0 and bool(cfg.checkpoint_dir)
+
+
 def boundaries_after(cfg: Config, i: int, total_steps: int) -> int:
     """Next step index (exclusive) where the host must step in after step
-    i (splice_tpu/trainer.py:644-676), from the candidates whose keys the
-    port has: the run's end, the next entire-A step, the log boundary and
-    the lambda-warmup switch. (The reference's checkpoint, profile and
-    plateau candidates come with their keys.)"""
+    i (splice_tpu/trainer.py:644-676): the run's end, the next entire-A
+    step, the log boundary, the checkpoint boundary, the lambda-warmup
+    switch, and under plateau the chunk cap. (The reference's profile
+    marks come with the profile keys.)"""
     cands = [total_steps]
     if cfg.lambda_entire_ssim > 0 or cfg.lambda_entire_cls > 0:
         cands.append(((i // cfg.entire_A_every) + 1) * cfg.entire_A_every)
     # a step index log_images_freq*k - 1 must END a chunk
     k = (i + 1 + cfg.log_images_freq - 1) // cfg.log_images_freq
     cands.append(k * cfg.log_images_freq)
+    if checkpointing(cfg):
+        k = (i + 1 + cfg.checkpoint_every - 1) // cfg.checkpoint_every
+        cands.append(k * cfg.checkpoint_every)
     if i < cfg.cls_warmup:
         cands.append(cfg.cls_warmup)
+    if cfg.scheduler_policy == "plateau":
+        # the lr of a dispatch follows the losses before it: a cut lands
+        # within one patience window
+        cands.append(i + PLATEAU_PATIENCE + 1)
     return min(c for c in cands if c > i)
 
 
-def chunk_plan(cfg: Config, total_steps: int) -> List[Tuple[int, int, bool]]:
-    """(first step, steps, entire) of each dispatch of a run, in order: an
-    entire-A step alone, else the regular steps up to boundaries_after."""
-    plan, i = [], 0
+def chunk_plan(cfg: Config, total_steps: int,
+               start: int = 0) -> List[Tuple[int, int, bool]]:
+    """(first step, steps, entire) of each dispatch of a run from step
+    `start` (a resumed run's first step), in order: an entire-A step
+    alone, else the regular steps up to boundaries_after."""
+    plan, i = [], start
     while i < total_steps:
         if losses_lib.is_entire_step(cfg, i):
             plan.append((i, 1, True))
@@ -408,23 +639,60 @@ def resolve_seed(cfg: Config) -> int:
     return cfg.seed
 
 
+def run_state(trainer: SpliceTrainer, sched: Scheduler,
+              gen: torch.Generator) -> Dict[str, Any]:
+    """What a checkpoint holds: the trainer's state, the scheduler's
+    (plateau's), and the host generator's. The port draws every step from
+    one sequential generator (the reference folds the step index into its
+    key), so a resumed run draws what the uninterrupted run would only
+    from the generator's saved state."""
+    return {**trainer.state_dict(), "sched": sched.state_dict(),
+            "gen": gen.get_state()}
+
+
+def load_run_state(state: Dict[str, Any], trainer: SpliceTrainer,
+                   sched: Scheduler, gen: torch.Generator) -> None:
+    trainer.load_state_dict(state)
+    sched.load_state_dict(state["sched"])
+    gen.set_state(state["gen"])
+
+
 def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
                dataroot: Optional[str] = None,
                pair: Optional[ImagePair] = None,
-               extractor: Optional[ext_lib.VitExtractor] = None
+               extractor: Optional[ext_lib.VitExtractor] = None,
+               callback: Optional[Callable[[torch.Tensor], None]] = None
                ) -> Dict[str, Any]:
-    """Optimise one pair for n_steps (default cfg.n_epochs) steps on
+    """Optimise one pair to step n_steps (default cfg.n_epochs) on
     `device` (default cfg.device, i.e. CUDA), in the chunks of chunk_plan,
-    each dispatched through a SpliceProgram (captured graphs on CUDA).
-    Writes <dataroot>/out/output.png at every log_images_freq-th step and
-    at the end.
+    each dispatched through a SpliceProgram (captured graphs on CUDA);
+    from the latest checkpoint in cfg.resume_from if there is one.
 
-    Returns the per-step losses (every term and the total, from each
-    chunk's one read) and wall seconds, the output image, the trainer and
-    the program, the chunk sizes and steps_per_sec. A chunk's wall time
-    (its draws, its dispatch and its loss read, which waits for the device)
-    is divided evenly over its steps; steps_per_sec is the loop's sustained
-    rate, the renders and saves at log boundaries included."""
+    At every log_images_freq-th step and at the end (the reference's loop,
+    splice_tpu/trainer.py:700-800): the output rendered to uint8 on the
+    device and handed to an AsyncImageSaver for <dataroot>/out/output.png
+    (must-write at the end), the chunk's last losses with the lr and
+    steps/s to a MetricsLogger (cfg.metrics_path, default
+    <dataroot>/out/metrics.jsonl; the device memory every tenth time),
+    then callback(the uint8 frame). Both workers wait on their own copy's
+    event: the boundary queues work and waits for nothing. With cfg.checkpoint_every and cfg.checkpoint_dir, a
+    checkpoint every checkpoint_every steps; a save waits for the device
+    once.
+
+    On CUDA the loop queues each chunk, then reads the one before it, so
+    the device always holds queued work while the host reads losses and
+    draws the next rows. It reads each chunk before it queues the next
+    under plateau, where the next chunk's lr follows this one's losses
+    (the reference's one read per chunk), and on the CPU, where a
+    dispatch computes its chunk and nothing overlaps.
+
+    Returns the per-step losses (every term and the total) and seconds
+    (a chunk's seconds: from the previous chunk's read to its own, over
+    its steps), steps_per_sec (the sustained rate of this call's steps,
+    log boundaries included), the host seconds of each log boundary's
+    queueing, the rows dispatched, the output image (float and the last
+    uint8 frame), the trainer, the program, the chunk sizes and the
+    first step."""
     dev = resolve_device(device if device is not None else cfg.device)
     seed = resolve_seed(cfg)
     print(f"running with seed: {seed}.")
@@ -435,27 +703,109 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
         extractor = make_extractor_from_config(cfg, dev)
     trainer = SpliceTrainer(cfg, pair, extractor, seed=seed)
     gen = torch.Generator().manual_seed(seed)
+    sched = Scheduler(cfg)
+    first = 0
+    if cfg.resume_from:
+        rck = Checkpointer(cfg.resume_from)
+        step0 = rck.latest_step()
+        if step0 is not None:
+            load_run_state(rck.restore(step0), trainer, sched, gen)
+            first = step0
+            print(f"resumed from {cfg.resume_from} at step {step0}")
+    ckpt = Checkpointer(cfg.checkpoint_dir) if checkpointing(cfg) else None
     total_steps = n_steps if n_steps is not None else cfg.n_epochs
-    plan = chunk_plan(cfg, total_steps)
+    plan = chunk_plan(cfg, total_steps, first)
     program = SpliceProgram(trainer, max((n for _, n, _ in plan), default=1))
+    saver = AsyncImageSaver()
+    logger = MetricsLogger(
+        cfg.metrics_path or os.path.join(root, "out", "metrics.jsonl"))
     out_png = os.path.join(root, "out", "output.png")
+    freq = cfg.log_images_freq
+    read_now = cfg.scheduler_policy == "plateau" or not program.graphed
     losses: List[Dict[str, float]] = []
     step_seconds: List[float] = []
+    boundary_seconds: List[float] = []
+    all_rows: List[np.ndarray] = []
+    pending: List[Tuple[int, HostCopy]] = []
+    out_u8 = None
     timer = StepTimer()
-    for start, n, entire in plan:
-        t0 = time.perf_counter()
-        rows = np.stack([pack_row(lambdas_vec(cfg, i),
-                                  sample_step_draws(cfg, pair, gen))
-                         for i in range(start, start + n)])
-        seq = program.run(rows, entire)
-        step_seconds += [(time.perf_counter() - t0) / n] * n
-        timer.tick(n)
-        losses += [dict(zip(LOSS_KEYS, map(float, r))) for r in seq]
-        if (start + n) % cfg.log_images_freq == 0 and start + n < total_steps:
-            save_image(trainer.render(), out_png)
-    output = trainer.render()
-    save_image(output, out_png)
+
+    def read_chunks(keep: int) -> None:
+        """Read the dispatched chunks, oldest first (each read waits for
+        its chunk), until `keep` are left unread."""
+        while len(pending) > keep:
+            n, read = pending.pop(0)
+            seq = read.wait().numpy()
+            step_seconds.extend([timer.tick(n) / n] * n)
+            losses.extend(dict(zip(LOSS_KEYS, map(float, r))) for r in seq)
+            for r in seq:
+                sched.observe(float(r[-1]))
+
+    try:
+        for start, n, entire in plan:
+            lrs = chunk_lrs(cfg, sched, start, n)
+            rows = np.stack([pack_row(lambdas_vec(cfg, i), lr,
+                                      sample_step_draws(cfg, pair, gen))
+                             for i, lr in zip(range(start, start + n), lrs)])
+            program.dispatch(rows, entire)
+            all_rows.append(rows)
+            pending.append((n, program.fetch_async(n)))
+            step = start + n
+            if (0 <= cfg.fault_inject_step < step
+                    and os.environ.get("SPLICE_RESTART_ATTEMPT", "0") == "0"):
+                # first attempt only: the relaunch resumes and runs through
+                raise RuntimeError(
+                    f"injected fault after step {cfg.fault_inject_step}")
+            if read_now:
+                read_chunks(0)
+            if step % freq == 0 or step >= total_steps:
+                t0 = time.perf_counter()
+                out_u8 = trainer.render_u8()
+                saver.save(out_u8, out_png, must_write=step >= total_steps)
+                # the chunk's last losses, still on the device
+                logger.log_async(
+                    step - 1, dict(zip(LOSS_KEYS, program.loss_seq[n - 1])),
+                    {"lr": sched.lr_for_step(step - 1),
+                     "steps_per_sec": timer.rate()},
+                    with_memory=(step // freq) % 10 == 0)
+                if callback is not None:
+                    callback(out_u8)
+                boundary_seconds.append(time.perf_counter() - t0)
+            if ckpt is not None and step % cfg.checkpoint_every == 0:
+                ckpt.save(step, run_state(trainer, sched, gen))
+            read_chunks(1)     # the chunk before this one
+        read_chunks(0)
+        if out_u8 is None:
+            # no step to run (a resumed run already complete): the output
+            # still lands
+            out_u8 = trainer.render_u8()
+            saver.save(out_u8, out_png, must_write=True)
+        output = trainer.render()
+    finally:
+        saver.close()
+        logger.close()
+        if ckpt is not None:
+            ckpt.wait()
     return {"losses": losses, "step_seconds": step_seconds,
             "steps_per_sec": timer.rate(), "chunks": [n for _, n, _ in plan],
-            "output": output, "trainer": trainer, "program": program,
-            "seed": seed, "output_path": out_png}
+            "boundary_seconds": boundary_seconds,
+            "rows": (np.concatenate(all_rows) if all_rows
+                     else np.zeros((0, row_width(cfg)), np.float32)),
+            "output": output, "output_u8": out_u8, "trainer": trainer,
+            "program": program, "seed": seed, "first_step": first,
+            "output_path": out_png}
+
+
+def train_model(dataroot: Optional[str] = None,
+                callback: Optional[Callable[[torch.Tensor], None]] = None,
+                cfg: Optional[Config] = None) -> Dict[str, Any]:
+    """Reference-parity entry point (splice_tpu/trainer.py:819-830): the
+    config at conf/default/config.yaml if present (else the defaults),
+    `dataroot` over it, then train_pair; callback(uint8 frame on the
+    device) at every log boundary."""
+    if cfg is None:
+        default = pathlib.Path("conf/default/config.yaml")
+        cfg = load_config(str(default) if default.exists() else None)
+    if dataroot is not None:
+        cfg = dataclasses.replace(cfg, dataroot=dataroot)
+    return train_pair(cfg, callback=callback)

@@ -10,7 +10,9 @@ steps.
     Python order, each coin a Python if), every coin combination and every
     jitter order: bitwise;
   * lambdas_vec and the vector-weighted total against the dict form;
-  * the chunk plan against the reference's boundaries_after walk;
+  * the chunk plan against the reference's boundaries_after walk (with
+    the checkpoint and plateau candidates, and from a resumed run's first
+    step);
   * train_pair's chunk loop on the CPU against eager SpliceTrainer.step
     calls: per-step losses and final parameters, bitwise.
 """
@@ -145,7 +147,7 @@ def test_lambdas_vec_and_vector_total_match_dict_form(step):
 # (config, steps, the plan): the walk of the reference's boundaries_after
 # (splice_tpu/trainer.py:644-676) and its loop (:707-731), which runs an
 # entire-A step alone and the regular steps up to the next boundary, for
-# configs without checkpoint, profile or plateau keys, written out by hand.
+# configs without profile keys, written out by hand.
 PLANS = [
     (dict(entire_A_every=10, log_images_freq=1000, cls_warmup=1), 12,
      [(0, 1, True), (1, 9, False), (10, 1, True), (11, 1, False)]),
@@ -160,12 +162,41 @@ PLANS = [
     (dict(entire_A_every=5, log_images_freq=3, cls_warmup=1,
           lambda_entire_ssim=0.0, lambda_entire_cls=0.0), 8,
      [(0, 1, False), (1, 2, False), (3, 3, False), (6, 2, False)]),
+    # the checkpoint boundary, a multiple of checkpoint_every
+    (dict(log_images_freq=10, checkpoint_every=4, checkpoint_dir="ck"), 13,
+     [(0, 1, True), (1, 3, False), (4, 4, False), (8, 2, False),
+      (10, 2, False), (12, 1, False)]),
+    # checkpoint_every without a directory: no checkpoint, no boundary
+    (dict(log_images_freq=10, checkpoint_every=4), 12,
+     [(0, 1, True), (1, 9, False), (10, 2, False)]),
+    # plateau caps a chunk at PLATEAU_PATIENCE + 1 steps
+    (dict(log_images_freq=10, scheduler_policy="plateau"), 16,
+     [(0, 1, True), (1, 6, False), (7, 3, False), (10, 6, False)]),
 ]
 
 
 @pytest.mark.parametrize("kw,steps,plan", PLANS)
 def test_chunk_plan_matches_reference_walk(kw, steps, plan):
     assert ttrainer.chunk_plan(TConfig(**kw), steps) == plan
+
+
+# (config, first step, steps, the plan) of a resumed run: the reference's
+# loop from step_idx = start_epoch - 1, written out by hand.
+RESUMED_PLANS = [
+    (dict(log_images_freq=10, checkpoint_every=4, checkpoint_dir="ck"), 6,
+     13, [(6, 2, False), (8, 2, False), (10, 2, False), (12, 1, False)]),
+    (dict(entire_A_every=10, log_images_freq=1000), 10, 12,
+     [(10, 1, True), (11, 1, False)]),
+    (dict(checkpoint_every=100, checkpoint_dir="ck"), 200, 300,
+     [(200, 10, False), (210, 10, False), (220, 5, False), (225, 1, True),
+      (226, 4, False)] + [(i, 10, False) for i in range(230, 300, 10)]),
+    (dict(), 12, 12, []),
+]
+
+
+@pytest.mark.parametrize("kw,start,steps,plan", RESUMED_PLANS)
+def test_chunk_plan_from_a_first_step(kw, start, steps, plan):
+    assert ttrainer.chunk_plan(TConfig(**kw), steps, start) == plan
 
 
 TINY_VIT = dict(patch_size=8, embed_dim=128, depth=2, num_heads=2,

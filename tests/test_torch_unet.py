@@ -29,6 +29,7 @@ from jax.flatten_util import ravel_pytree
 
 from splice_tpu.models import unet as junet
 from splice_tpu_torch.config import Config as TConfig
+from splice_tpu_torch.config import load_config
 from splice_tpu_torch.models import unet as tunet
 from splice_tpu_torch.utils.tree import tree_map
 
@@ -128,4 +129,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tunet.SkipConfig(act_fun="Swish")
     with pytest.raises(ValueError):
-        TConfig(scheduler_policy="linear").validate()
+        TConfig(generator_conv="nhwc").validate()
+    with pytest.raises(ValueError):       # the multi-pair keys
+        load_config(None, {"n_pairs": 2})
