@@ -90,7 +90,21 @@ Phases, each fatal on failure:
      graphs, a replayed step's update against the optimizer's formula.
      Prints the sustained steps/s (renders, saves and checkpoints
      included), the replayed step's, the seconds at log boundaries and
-     which PNG encoder ran.
+     which PNG encoder ran;
+  9. the DINOv2 backbones at full width: train_pair with dinov2_vitl14
+     (24 layers, D 1024, 16 heads, patch 14, layer scale; 257 tokens a
+     crop, 337 for the entire A) for 12 steps and dinov2_vitb14_reg (4
+     register tokens; 261 tokens a crop) for 4, each with phase 4's gates,
+     phase 4b's graphs against eager, and a profile of replays;
+  10. video: train_video over a 3-frame clip made from the cows pair
+     (identical frames), 20 + 2 x 10 steps: frames 1 and 2 capture
+     nothing and replay frame 0's graphs, each starts bitwise from the
+     previous frame's final parameters with a zeroed optimizer state and
+     frame 0's first draws; three [900, 1200, 3] frame PNGs; each frame's
+     steps/s.
+Phase 2 also holds K1/K2 at the DINOv2 paths' shapes (DINOV2_QKV) and at
+16 heads (QKV_EDGES), and phase 3 runs a small fp32 DINOv2 (layer scale,
+registers) on the card against the CPU.
 Prints the kernels' numbers as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -378,7 +392,15 @@ def check_split_edge_cases(torch, attn):
 # ViT-S's 6 heads (D = 384) and ViT-B's 12; masked keys, with key blocks
 # wholly past n_valid in the last case
 QKV_EDGES = ((1, 6, 17, 0, 30), (2, 12, 129, 0, 31), (2, 6, 257, 0, 32),
-             (1, 12, 100, 77, 33), (2, 6, 300, 100, 34))
+             (1, 12, 100, 77, 33), (2, 6, 300, 100, 34),
+             # ViT-L/14's 16 heads (D = 1024): one row past a 64-row box,
+             # and masked keys with key blocks wholly past n_valid
+             (1, 16, 65, 0, 35), (2, 16, 257, 100, 36))
+# The DINOv2 paths' fused-qkv shapes (B, H, N): ViT-L/14's two 224 crops
+# (16 x 16 patches and CLS), its entire A (900 x 1200 resized to 224 x 298:
+# 16 x 21 patches), dinov2_vitb14_reg's crops (CLS, 4 registers, 256
+# patches)
+DINOV2_QKV = ((2, 16, 257), (1, 16, 337), (2, 12, 261))
 
 
 def check_qkv_edge_cases(torch, attn):
@@ -403,6 +425,54 @@ def check_qkv_edge_cases(torch, attn):
                     why)
         if n_valid and not bool((got[:, n_valid:, D:] == 0).all()):
             fail(f"K2 {tag}: masked keys with nonzero dk or dv")
+
+
+def check_dinov2_attention(torch, attn):
+    """The bf16 (tensor-core) K1/K2 at DINOV2_QKV against their plain
+    versions, each twice on one input (bitwise equal), timed beside its
+    plain version and SDPA (forward; backward by autograd) with the bound
+    of its bytes and operations. Returns {(kernel, shape): times}."""
+    rtol, why = RTOL["bfloat16"]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for B, H, N in DINOV2_QKV:
+        gen = torch.Generator().manual_seed(40 + N)
+        D, dh, scale = 64 * H, 64, 0.125
+        qkv = torch.randn(B, N, 3 * D, generator=gen).to("cuda",
+                                                          torch.bfloat16)
+        g = torch.randn(B, N, D, generator=gen).to("cuda", torch.bfloat16)
+        tag = f"[{B},{N},{3 * D}] H={H} bfloat16"
+        o = attn.attn_qkv_fwd_cuda(qkv, H, scale)
+        compare(f"K1 {tag}", o, attn.attention_qkv_plain(qkv, H, scale),
+                rtol, why)
+        check_bitwise(torch, f"K1 {tag}", (o,),
+                      (attn.attn_qkv_fwd_cuda(qkv, H, scale),))
+        d = attn.attn_qkv_bwd_cuda(qkv, g, H, scale)
+        want = attn.attention_qkv_bwd_plain(qkv, g, H, scale)
+        for i, part in enumerate(("dq", "dk", "dv")):
+            sl = slice(i * D, (i + 1) * D)
+            compare(f"K2 {part} {tag}", d[..., sl], want[..., sl], rtol, why)
+        check_bitwise(torch, f"K2 {tag}", (d,),
+                      (attn.attn_qkv_bwd_cuda(qkv, g, H, scale),))
+        isz = qkv.element_size()
+        q, k, v = [t.contiguous() for t in attn._split_heads(qkv, H)]
+        gh = g.reshape(B, N, H, dh).permute(0, 2, 1, 3).contiguous()
+        fl = 4 * B * H * N * N * dh
+        out[("K1", tag)] = timed(
+            lambda: attn.attn_qkv_fwd_cuda(qkv, H, scale),
+            lambda: attn.attention_qkv_plain(qkv, H, scale),
+            lambda: sdpa(q, k, v, scale=scale),
+            4 * B * N * D * isz, fl, "bfloat16", "K1", tag)
+        qr, kr, vr = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        ro = sdpa(qr, kr, vr, scale=scale)
+        out[("K2", tag)] = timed(
+            lambda: attn.attn_qkv_bwd_cuda(qkv, g, H, scale),
+            lambda: attn.attention_qkv_bwd_plain(qkv, g, H, scale),
+            lambda: torch.autograd.grad(ro, (qr, kr, vr), gh,
+                                        retain_graph=True),
+            7 * B * N * D * isz, 2.5 * fl, "bfloat16", "K2", tag)
+        del ro, qr, kr, vr
+    return out
 
 
 def sass_counts(build, lib):
@@ -1092,22 +1162,38 @@ def check_edge_cases(torch, attn, conv):
                         "fp32 output; fp32 sums in another order")
 
 
-def small_setup(torch, dev, mode="auto"):
+def small_setup(torch, dev, mode="auto", dinov2=False):
     """Phase 3's small fp32 configuration on `dev`: (cfg, pair, extractor),
-    a 448 canvas and a two-block ViT of width 128 at 64 px."""
+    a 448 canvas and a two-block ViT of width 128: at 64 px, patch 8; or,
+    with `dinov2`, a DINOv2 (patch 14, pos_embed made at 56 px, 4 register
+    tokens, layer scale drawn in [0.5, 1.5] so that it matters) at 70 px:
+    5 x 5 patches for the crops and 5 x 6 for the entire A, both
+    interpolated."""
     from splice_tpu_torch.config import load_config
     from splice_tpu_torch.data import load_pair
     from splice_tpu_torch.models import extractor as ext_lib
     from splice_tpu_torch.models import vit as vit_lib
     from splice_tpu_torch.models.weights import init_vit_params
     from splice_tpu_torch.utils.tree import tree_map
-    vcfg = vit_lib.VitConfig(patch_size=8, embed_dim=128, depth=2,
-                             num_heads=2, img_size=32)
+    if dinov2:
+        vcfg = vit_lib.VitConfig(patch_size=14, embed_dim=128, depth=2,
+                                 num_heads=2, img_size=56,
+                                 interpolate_offset=0.0,
+                                 layerscale_init=1e-5, num_register_tokens=4)
+    else:
+        vcfg = vit_lib.VitConfig(patch_size=8, embed_dim=128, depth=2,
+                                 num_heads=2, img_size=32)
     vparams = init_vit_params(vcfg, seed=5, device="cpu")
+    if dinov2:
+        gen = torch.Generator().manual_seed(6)
+        for blk in vparams["blocks"]:
+            for k in ("ls1", "ls2"):
+                blk[k] = 0.5 + torch.rand(128, generator=gen)
     cfg = load_config(None, dict(
         dataroot="datasets/splicing/cows", A_resize=448, B_resize=448,
         seed=3, vit_compute_dtype="float32",
-        generator_compute_dtype="float32", dino_global_patch_size=64,
+        generator_compute_dtype="float32",
+        dino_global_patch_size=70 if dinov2 else 64,
         entire_A_every=2, generator_conv=mode))
     pair = load_pair(cfg, device=torch.device(dev))
     ext = ext_lib.VitExtractor(
@@ -1119,12 +1205,13 @@ def small_setup(torch, dev, mode="auto"):
 def check_small_step(torch):
     """One regular and one entire-A step's loss and gradient at a small
     size, fp32: the card (kernels) against the CPU (plain path), for each
-    generator_conv that routes through kernels."""
+    generator_conv that routes through kernels, and for a small DINOv2
+    (layer scale, registers) at generator_conv=auto."""
     from splice_tpu_torch.losses import lambdas_for_step
     from splice_tpu_torch.trainer import SpliceTrainer, sample_step_draws
 
-    def losses_and_grads(mode, dev):
-        cfg, pair, ext = small_setup(torch, dev, mode)
+    def losses_and_grads(mode, dev, dinov2):
+        cfg, pair, ext = small_setup(torch, dev, mode, dinov2)
         tr = SpliceTrainer(cfg, pair, ext, seed=3)
         gen = torch.Generator().manual_seed(11)
         out = []
@@ -1135,11 +1222,16 @@ def check_small_step(torch):
             out.append((total.item(), grad.cpu()))
         return out
 
-    for mode, same in (("auto", False), ("fused", False), ("pallas", False),
-                       ("fused", True), ("pallas", True)):
-        label = mode + (" with the SAME route" if same else "")
+    for mode, same, dinov2 in (("auto", False, False),
+                               ("fused", False, False),
+                               ("pallas", False, False),
+                               ("fused", True, False), ("pallas", True, False),
+                               ("auto", False, True)):
+        label = (mode + (" with the SAME route" if same else "")
+                 + (", DINOv2 ViT (layer scale, 4 registers)" if dinov2
+                    else ""))
         with same_border(same):
-            results = {dev: losses_and_grads(mode, dev)
+            results = {dev: losses_and_grads(mode, dev, dinov2)
                        for dev in ("cuda", "cpu")}
         # Gradient tolerance: this gradient is ill-conditioned in fp32
         # itself. On the CPU the fp32 gradient of this step differs from a
@@ -1361,7 +1453,8 @@ def profile_steps(torch, program, cfg, n: int = 3) -> None:
     steps
     (SpliceTrainer.step, which the parent ran); the device's span over
     the chunk by CUDA events; then torch.profiler over a chunk of n
-    replays: kernel time by name inside the graphs, and graph launches."""
+    replays: kernel time by name inside the graphs, and graph launches.
+    Returns the replays' wall ms per step."""
     from torch.profiler import ProfilerActivity, profile
     trainer = program.trainer
     program.run(regular_rows(torch, cfg, trainer.pair, 1, 0), False)
@@ -1416,7 +1509,7 @@ def profile_steps(torch, program, cfg, n: int = 3) -> None:
         print("  torch.profiler attributed no kernel time inside the "
               f"graphs; busy share from the CUDA events' span: "
               f"{100 * span_ms / wall_ms:.1f}% of wall")
-        return
+        return wall_ms
     ours = sum(t for t, k in rows_k if any(s in k for s in OUR_KERNELS))
     n_launch = sum(e.count for e in events
                    if e.device_type == kernel and dev_us(e) > 0) / n
@@ -1436,6 +1529,7 @@ def profile_steps(torch, program, cfg, n: int = 3) -> None:
         if e.device_type == kernel and any(s in e.key for s in OUR_KERNELS):
             print(f"    {dev_us(e) / 1e3 / n:8.3f} ms  {e.count / n:5.1f} "
                   f"launches  {e.key[:90]}")
+    return wall_ms
 
 
 def steps_in_turns(torch, runs, n: int = 3, rounds: int = 3) -> dict:
@@ -1888,6 +1982,146 @@ def check_run(torch, kernels, shared):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The DINOv2 paths (phase 9): (name, model, steps). Step 0 and 10 are
+# entire-A steps; step 1 runs eagerly before the regular graph's capture.
+DINOV2_PATHS = (("vitl14", "dinov2_vitl14", MAIN_STEPS),
+                ("vitb14_reg", "dinov2_vitb14_reg", 4))
+VIDEO_STEPS = (20, 10)   # the first frame's steps, each later frame's
+
+
+def run_dinov2(torch, kernels, base, pair):
+    """Phase 9: train_pair with each of DINOV2_PATHS at full width (896
+    canvas, 224 loss resolution, bf16, seeded weights) through the
+    program, with run_path's gates (every K1/K2 launch on the tensor cores,
+    K1/K2 and the main convs launched inside the graphs, finite losses and
+    output); the graphs against eager steps (phase 4b's gate); a profile of
+    replays. Returns each path's launches and replayed ms."""
+    from splice_tpu_torch.config import load_config
+    from splice_tpu_torch.models.vit import get_vit_config
+    out = {}
+    for name, model, n in DINOV2_PATHS:
+        print(f"phase 9: the {name} path ({model}, 224-px loss resolution, "
+              f"896 canvas), {n} steps")
+        cfg = load_config(None, dict(base, dino_model_name=model))
+        vcfg = get_vit_config(model)
+        print(f"  {vcfg.depth} layers, D {vcfg.embed_dim}, "
+              f"{vcfg.num_heads} heads, patch {vcfg.patch_size}, "
+              f"{vcfg.num_register_tokens} registers, layer scale "
+              f"{vcfg.layerscale_init}")
+        res, launches = run_path(
+            torch, name, cfg, n, kernels,
+            ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid", "conv_dw"),
+            pair=pair)
+        ext = res["trainer"].extractor
+        ms = profile_steps(torch, res["program"], cfg)
+        del res
+        torch.cuda.empty_cache()
+        program = check_replay(torch, name, cfg, pair, ext)
+        del program, ext
+        torch.cuda.empty_cache()
+        out[name] = (launches, ms)
+    return out
+
+
+def run_video(torch, kernels, main_ms):
+    """Phase 10: train_video over a 3-frame clip made from the cows pair as
+    bench_configs.config_d makes it (identical frames; seed 0,
+    log_images_freq 10), VIDEO_STEPS steps, the counts set to 0 just
+    before and read just after. Gates: frames 1 and 2 capture nothing (the
+    program's captures and graphs as after frame 0) and run on frame 0's
+    program; each warm frame starts from the previous frame's final flat,
+    bitwise, with the optimizer's moments and step at zero, and its first
+    row equal to frame 0's (the draws restart); three <frame>_out.png of
+    [900, 1200, 3]; every loss finite; every kernel of the main path
+    launched inside the graphs, every K1/K2 and conv launch on the tensor
+    cores. Prints each frame's steps/s; the last is the steady rate."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from PIL import Image
+    from splice_tpu_torch.config import load_config
+    from splice_tpu_torch.video import train_video
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_video_")
+    try:
+        cows = "datasets/splicing/cows"
+        os.makedirs(os.path.join(tmp, "A"))
+        os.makedirs(os.path.join(tmp, "B"))
+        src_a = sorted(os.listdir(os.path.join(cows, "A")))[0]
+        src_b = sorted(os.listdir(os.path.join(cows, "B")))[0]
+        ext = os.path.splitext(src_a)[1]
+        for i in range(3):
+            shutil.copy(os.path.join(cows, "A", src_a),
+                        os.path.join(tmp, "A", f"frame_{i:03d}{ext}"))
+        shutil.copy(os.path.join(cows, "B", src_b), os.path.join(tmp, "B"))
+        cfg = load_config(None, dict(dataroot=tmp, seed=0, video_mode=True,
+                                     log_images_freq=10))
+        frames = []
+
+        def on_frame(idx, res):
+            p = res["program"]
+            frames.append(dict(
+                program=p, captures=p.captures, graphs=len(p.graphs),
+                start=res["start_state"], flat=res["flat"],
+                row0=res["rows"][0], rate=res["steps_per_sec"],
+                losses=np.array([list(l.values()) for l in res["losses"]])))
+
+        zero_counts(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train_video(cfg, *VIDEO_STEPS, on_frame=on_frame)
+        wall = time.perf_counter() - t0
+        program = frames[0]["program"]
+        launches, tc = read_launches(
+            torch, kernels, "video", ("attn_qkv_fwd", "attn_qkv_bwd",
+                                      "conv_valid", "conv_dw"), [program])
+        check_tc_launches(launches, tc, "video")
+        print(f"  {len(frames)} frames in {wall:.1f} s (the extractor and "
+              f"B built inside); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"replays {[c.replays for c in program.graphs.values()]}")
+        for i, f in enumerate(frames):
+            opt = {k: v for k, v in f["start"].items() if k != "flat"}
+            checks = dict(
+                same_program=f["program"] is program,
+                captures=(f["captures"], f["graphs"]),
+                finite=bool(np.isfinite(f["losses"]).all()))
+            if i:
+                prev = frames[i - 1]
+                checks.update(
+                    start_is_previous_flat=bool(torch.equal(
+                        f["start"]["flat"], prev["flat"])),
+                    fresh_optimizer=sorted(opt) == ["exp_avg", "exp_avg_sq",
+                                                    "step"]
+                    and not any(bool(v.any()) for v in opt.values()),
+                    first_row_is_frame0s=bool(np.array_equal(
+                        f["row0"].view(np.int32),
+                        frames[0]["row0"].view(np.int32))))
+            print(f"  frame {i}: {out['frames'][i]['steps']} steps, "
+                  f"{f['rate']:.3f} steps/s"
+                  + (" (the steady rate)" if i == len(frames) - 1 else "")
+                  + f"; last loss {f['losses'][-1, -1]:.5f}; {checks}")
+            if not (checks["same_program"] and checks["finite"]
+                    and checks["captures"] == (frames[0]["captures"],
+                                               frames[0]["graphs"])
+                    and all(checks.get(k, True) for k in (
+                        "start_is_previous_flat", "fresh_optimizer",
+                        "first_row_is_frame0s"))):
+                fail(f"video frame {i}: {checks}")
+        steady = frames[-1]["rate"]
+        print(f"  steady frame {steady:.3f} steps/s against the main path's "
+              f"replayed {1e3 / main_ms:.3f} ({main_ms:.2f} ms a step, phase "
+              f"5): {steady * main_ms / 1e3:.3f} of it")
+        for i in range(3):
+            path = os.path.join(tmp, "out", f"frame_{i:03d}_out.png")
+            shape = np.asarray(Image.open(path)).shape
+            if shape != (900, 1200, 3):
+                fail(f"{path}: shape {shape}")
+        print("  frame_000_out.png .. frame_002_out.png: [900, 1200, 3]")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1961,6 +2195,7 @@ def main() -> int:
     check_edge_cases(torch, attn, conv)
     check_split_edge_cases(torch, attn)
     check_qkv_edge_cases(torch, attn)
+    check_dinov2_attention(torch, attn)
     torch.cuda.empty_cache()
     check_conv_same(torch, conv, rows)
     check_same_edge_cases(torch, conv)
@@ -2007,7 +2242,7 @@ def main() -> int:
 
     print("phase 5: where the time goes")
     from splice_tpu_torch.trainer import unpack_row
-    profile_steps(torch, res["program"], cfg)
+    main_ms = profile_steps(torch, res["program"], cfg)
     main_trainer = res["trainer"]
     _, draws = unpack_row(cfg, torch.from_numpy(
         regular_rows(torch, cfg, main_trainer.pair, 1, 3)[0]).cuda())
@@ -2082,6 +2317,16 @@ def main() -> int:
     print(f"phase 8: a run as a user runs it: train_pair on the main path, "
           f"{RUN_STEPS} steps, cosine, checkpoints, metrics")
     check_run(torch, kernels, shared)
+    torch.cuda.empty_cache()
+
+    dinov2 = run_dinov2(torch, kernels, base, shared["pair"])
+    for name, (dl, ms) in dinov2.items():
+        print(f"  {name}: replayed step {ms:.2f} ms against the main path's "
+              f"{main_ms:.2f}; K1/K2 launches {dl['attn_qkv_fwd']}/"
+              f"{dl['attn_qkv_bwd']}")
+    print(f"phase 10: video, 3 frames of {VIDEO_STEPS[0]} + 2 x "
+          f"{VIDEO_STEPS[1]} steps warm-started, one set of graphs")
+    run_video(torch, kernels, main_ms)
 
     line = []
     for name, (fn, route, source, replaces, path) in kernels.items():

@@ -79,6 +79,12 @@ class Config:
     # relaunch); -1 = off.
     fault_inject_step: int = -1
     metrics_path: Optional[str] = None  # None -> <dataroot>/out/metrics.jsonl
+    # Video mode (splice_tpu/config.py:133-138): <dataroot>/A holds the
+    # frames in name order, B the appearance image; each frame after the
+    # first starts from the previous frame's parameters. Warm frames render
+    # and log once, at their end, unless video_log_frames_only is off.
+    video_mode: bool = False
+    video_log_frames_only: bool = True
 
     # --- port knobs ---
     # Frozen-ViT weights: a .npz written by splice_tpu's save_vit_params, or

@@ -1,4 +1,5 @@
-"""Single-image-pair data layer (port of splice_tpu/data.py:22-107).
+"""Image-pair data layer (port of splice_tpu/data.py:22-131): one pair, or
+the frames of a video against one appearance image.
 
 The host decodes the two images once, applies the optional shorter-side
 resize and the direction swap, picks the shared crop canvas, and puts both
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,12 +36,18 @@ def load_image(path: str, shorter_side: Optional[int] = None) -> np.ndarray:
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tif", ".tiff")
 
 
-def first_image_in(dir_path: str) -> str:
-    """First image file (sorted), skipping hidden files and non-images."""
-    names = sorted(
+def image_names(dir_path: str) -> list:
+    """The image files of a directory in name order, hidden files and
+    non-images skipped."""
+    return sorted(
         n for n in os.listdir(dir_path)
         if not n.startswith(".") and n.lower().endswith(_IMAGE_EXTS)
         and os.path.isfile(os.path.join(dir_path, n)))
+
+
+def first_image_in(dir_path: str) -> str:
+    """First image file (sorted), skipping hidden files and non-images."""
+    names = image_names(dir_path)
     if not names:
         raise FileNotFoundError(f"no images in {dir_path}")
     return os.path.join(dir_path, names[0])
@@ -73,6 +80,20 @@ class ImagePair:
     def b_hw(self) -> Tuple[int, int]:
         return self.B.shape[0], self.B.shape[1]
 
+    @property
+    def geometry(self) -> Tuple:
+        """What a step captured for one pair fixes: the images' shapes and
+        the canvases."""
+        return (tuple(self.A.shape), tuple(self.B.shape), self.canvas_A,
+                self.canvas_B)
+
+    def to(self, device) -> "ImagePair":
+        """The pair with both images on `device` (from pinned host memory
+        without a wait)."""
+        return dataclasses.replace(
+            self, A=self.A.to(device, non_blocking=True),
+            B=self.B.to(device, non_blocking=True))
+
 
 def load_pair(cfg, dataroot: Optional[str] = None,
               device: Optional[torch.device] = None) -> ImagePair:
@@ -91,3 +112,35 @@ def load_pair(cfg, dataroot: Optional[str] = None,
     return ImagePair(A=torch.from_numpy(a_np).to(device),
                      B=torch.from_numpy(b_np).to(device),
                      canvas_A=canvas, canvas_B=canvas)
+
+
+def load_video_frames(cfg, dataroot: Optional[str] = None,
+                      device: Optional[torch.device] = None
+                      ) -> Iterator[Tuple[str, ImagePair]]:
+    """Video mode (splice_tpu/data.py:110-131): every image of <root>/A, in
+    name order, is a frame against the one appearance image of <root>/B.
+    B is decoded and put on `device` (default cfg.device, i.e. CUDA) once,
+    here; each frame's canvas is unified with B's as load_pair does.
+    Returns an iterator of (frame name, pair) whose A stays on the host
+    (in pinned memory when the device is CUDA): it decodes, and may run
+    on a loader thread, without touching the device; pair.to(device) puts
+    A there."""
+    device = resolve_device(device if device is not None else cfg.device)
+    root = dataroot or cfg.dataroot
+    b_np = load_image(first_image_in(os.path.join(root, "B")), cfg.B_resize)
+    B = torch.from_numpy(b_np).to(device)
+    cb = crop_canvas_size(b_np.shape[0], b_np.shape[1], cfg.crop_canvas)
+    a_dir = os.path.join(root, "A")
+    names = image_names(a_dir)
+
+    def frames():
+        for name in names:
+            a_np = load_image(os.path.join(a_dir, name), cfg.A_resize)
+            A = torch.from_numpy(a_np)
+            if device.type == "cuda":
+                A = A.pin_memory()
+            canvas = min(crop_canvas_size(a_np.shape[0], a_np.shape[1],
+                                          cfg.crop_canvas), cb)
+            yield name, ImagePair(A=A, B=B, canvas_A=canvas, canvas_B=canvas)
+
+    return frames()

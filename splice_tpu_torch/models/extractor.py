@@ -1,15 +1,19 @@
 """Feature extraction over the ViT (port of splice_tpu/models/extractor.py
-:18-164): the key self-similarity and the extractor object the losses
-call."""
+:18-164): the key self-similarity, the extractor object the losses call,
+and the reference's accessors (geometry, every block's features, qkv,
+attention probabilities, keys, their self-similarity, the CLS token), each
+one forward that returns only the tap it asks for."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from splice_tpu_torch import resolve_device
 from splice_tpu_torch.models import vit as vit_lib
 from splice_tpu_torch.models.vit import VitConfig
+from splice_tpu_torch.models.weights import init_vit_params
 
 
 def attn_cosine_sim(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -60,3 +64,70 @@ class VitExtractor:
         return vit_lib.vit_forward(self.params, images, self.cfg, taps,
                                    compute_dtype=self.compute_dtype,
                                    final_norm=final_norm)
+
+    # -- geometry (splice_tpu/models/extractor.py:105-130); NHWC shapes --
+    def get_patch_size(self) -> int:
+        return self.cfg.patch_size
+
+    def get_width_patch_num(self, input_shape) -> int:
+        return input_shape[-2] // self.cfg.patch_size
+
+    def get_height_patch_num(self, input_shape) -> int:
+        return input_shape[-3] // self.cfg.patch_size
+
+    def get_patch_num(self, input_shape) -> int:
+        """CLS and the patches, as the reference counts them (a _reg
+        model's tokens hold its registers too)."""
+        return 1 + (self.get_height_patch_num(input_shape)
+                    * self.get_width_patch_num(input_shape))
+
+    def get_head_num(self) -> int:
+        return self.cfg.num_heads
+
+    def get_embedding_dim(self) -> int:
+        return self.cfg.embed_dim
+
+    # -- feature accessors (:81-87, :132-163) --
+    def _every_block(self, images, kind: str) -> List[torch.Tensor]:
+        out = self.run(images, {kind: tuple(range(self.cfg.depth))})
+        return [out[kind][i] for i in range(self.cfg.depth)]
+
+    def get_feature_from_input(self, images) -> List[torch.Tensor]:
+        """Every block's output (pre final norm), [B, N, D] each."""
+        return self._every_block(images, "block")
+
+    def get_qkv_feature_from_input(self, images) -> List[torch.Tensor]:
+        return self._every_block(images, "qkv")
+
+    def get_attn_feature_from_input(self, images) -> List[torch.Tensor]:
+        """Every block's fp32 attention probabilities, [B, H, N, N] each."""
+        return self._every_block(images, "attn_probs")
+
+    def get_keys_from_input(self, images, layer_num: int) -> torch.Tensor:
+        """Keys of one layer, [B, H, N, dh] (the reference's [H, N, dh]
+        with the batch axis kept)."""
+        out = self.run(images, {"qkv": (layer_num,)})
+        return keys_from_qkv(out["qkv"][layer_num], self.cfg.num_heads)
+
+    def get_keys_self_sim_from_input(self, images,
+                                     layer_num: int) -> torch.Tensor:
+        """[B, N, N]: every token, registers included."""
+        return keys_self_sim(self.get_keys_from_input(images, layer_num))
+
+    def get_cls_token_from_input(self, images) -> torch.Tensor:
+        """The last block's CLS token, [B, D]."""
+        last = self.cfg.depth - 1
+        return self.run(images, {"block": (last,)})["block"][last][:, 0, :]
+
+
+def make_extractor(model_name: str, params: Optional[Dict[str, Any]] = None,
+                   seed: int = 0,
+                   compute_dtype: torch.dtype = torch.float32,
+                   device=None) -> VitExtractor:
+    """The reference's make_extractor (:154-164): `params`, or the seeded
+    random init on `device` (default CUDA)."""
+    cfg = vit_lib.get_vit_config(model_name)
+    if params is None:
+        params = init_vit_params(cfg, seed, resolve_device(device))
+    return VitExtractor(params=params, cfg=cfg, model_name=model_name,
+                        compute_dtype=compute_dtype)

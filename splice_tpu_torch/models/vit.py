@@ -1,4 +1,5 @@
-"""DINO Vision Transformer with feature taps (port of splice_tpu/models/vit.py).
+"""DINO and DINOv2 Vision Transformers with feature taps (port of
+splice_tpu/models/vit.py).
 
 Parameters are a plain nested dict with the reference's names and layouts
 (dense kernels [in, out], the patch-embed kernel HWIO [P, P, 3, D]), so a
@@ -6,7 +7,15 @@ parameter tree moves between the two packages as numpy arrays unchanged
 (models/weights.py). The patch-embed conv and the dense layers are torch
 ops (XLA in the reference); attention is ops.attention.attention_from_qkv,
 routed as the reference routes it: kernels K1/K2 on the fused qkv up to
-2048 tokens, K5/K6 on split heads above (the 480-px loss resolution).
+2048 tokens, K5/K6 on split heads above (the 480-px loss resolution). A
+block tapped for "attn_probs" builds its fp32 probabilities explicitly and
+takes its output from them, as the reference's does, and launches no
+attention kernel.
+
+DINOv2 (dinov2_vit{b,l}14[_reg]) adds layer scale (ls1, ls2: per-channel
+factors on each residual branch) and, in the _reg variants, four register
+tokens inserted between CLS and the patches after the position-embedding
+add, with no position embedding of their own.
 
 The frozen weights carry requires_grad=False, so autograd computes only the
 input cotangent. There is no remat: an 80 GB card holds the activations.
@@ -15,13 +24,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from splice_tpu_torch.ops.attention import attention_from_qkv
+from splice_tpu_torch.ops.attention import _split_heads, attention_from_qkv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +43,8 @@ class VitConfig:
     ln_eps: float = 1e-6
     img_size: int = 224                 # grid the stored pos_embed was made at
     interpolate_offset: float = 0.1     # DINO's +0.1 pos-embed grid offset
+    layerscale_init: Optional[float] = None   # DINOv2: 1e-5; DINO: None
+    num_register_tokens: int = 0              # the DINOv2 _reg variants: 4
 
     @property
     def head_dim(self) -> int:
@@ -44,12 +55,26 @@ class VitConfig:
         return self.img_size // self.patch_size
 
 
-# DINO models. The DINOv2 variants (layer scale, registers) are not ported.
+def _dinov2(embed_dim: int, depth: int, num_heads: int,
+            registers: int = 0) -> VitConfig:
+    """A DINOv2 model: patch 14, pos_embed made at 518 px (base grid 37),
+    no interpolation offset, layer scale."""
+    return VitConfig(patch_size=14, embed_dim=embed_dim, depth=depth,
+                     num_heads=num_heads, img_size=518,
+                     interpolate_offset=0.0, layerscale_init=1e-5,
+                     num_register_tokens=registers)
+
+
+# The reference's models (splice_tpu/models/vit.py:59-83).
 VIT_CONFIGS: Dict[str, VitConfig] = {
     "dino_vitb8": VitConfig(patch_size=8, embed_dim=768, depth=12, num_heads=12),
     "dino_vits8": VitConfig(patch_size=8, embed_dim=384, depth=12, num_heads=6),
     "dino_vitb16": VitConfig(patch_size=16, embed_dim=768, depth=12, num_heads=12),
     "dino_vits16": VitConfig(patch_size=16, embed_dim=384, depth=12, num_heads=6),
+    "dinov2_vitb14": _dinov2(768, 12, 12),
+    "dinov2_vitl14": _dinov2(1024, 24, 16),
+    "dinov2_vitb14_reg": _dinov2(768, 12, 12, registers=4),
+    "dinov2_vitl14_reg": _dinov2(1024, 24, 16, registers=4),
 }
 
 
@@ -63,7 +88,8 @@ def get_vit_config(model_name: str) -> VitConfig:
 def cast_params_for_compute(params: Dict[str, Any], dtype: torch.dtype
                             ) -> Dict[str, Any]:
     """Store the large frozen weights (patch embed, attention, MLP) in the
-    compute dtype; LayerNorm affines, pos_embed and cls stay fp32."""
+    compute dtype; LayerNorm affines, pos_embed, cls, the register tokens
+    and layer scale stay fp32."""
     out = dict(params)
     cast = {k: v.to(dtype) for k, v in params["patch_embed"].items()}
     out["patch_embed"] = cast
@@ -124,8 +150,9 @@ def _resize_matrix_on(in_size: int, out_size: int, scale: float,
 
 def interpolate_pos_embed(pos_embed: torch.Tensor, cfg: VitConfig,
                           gh: int, gw: int) -> torch.Tensor:
-    """Bicubic pos-embed interpolation to a (gh, gw) grid with DINO's +0.1
-    offset (scale (g + 0.1) / g0). Returns [1, 1 + gh*gw, D]."""
+    """Bicubic pos-embed interpolation to a (gh, gw) grid with the model's
+    grid offset (scale (g + offset) / g0: DINO's 0.1, DINOv2's 0). pos_embed
+    covers CLS and the patches only. Returns [1, 1 + gh*gw, D]."""
     g0 = cfg.base_grid
     if (gh, gw) == (g0, g0):
         return pos_embed
@@ -143,18 +170,36 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, cfg: VitConfig,
 
 def _block(x: torch.Tensor, bp: Dict[str, Any], cfg: VitConfig,
            want: Sequence[str]):
-    """One pre-LN block. Returns (x_out, taps)."""
+    """One pre-LN block, with layer scale where bp has ls1/ls2 (cast to the
+    activation's dtype at use). Returns (x_out, taps)."""
     taps = {}
     h = _layer_norm(x, bp["norm1"], cfg.ln_eps)
     qkv = _dense(h, bp["attn"]["qkv"])
     if "qkv" in want:
         taps["qkv"] = qkv
-    o = attention_from_qkv(qkv, cfg.num_heads, cfg.head_dim ** -0.5)
+    scale = cfg.head_dim ** -0.5
+    if "attn_probs" in want:
+        # the reference's slow path (:400-425): fp32 probabilities, and the
+        # block's output from them, not from the kernel
+        q, k, v = (t.float() for t in _split_heads(qkv, cfg.num_heads))
+        probs = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1)
+        taps["attn_probs"] = probs
+        o = (probs @ v).to(x.dtype)
+        o = o.permute(0, 2, 1, 3).reshape(*x.shape[:2], -1)
+    else:
+        o = attention_from_qkv(qkv, cfg.num_heads, scale)
     o = _dense(o, bp["attn"]["proj"])
+    if "attn_out" in want:
+        taps["attn_out"] = o
+    if "ls1" in bp:
+        o = o * bp["ls1"].to(o.dtype)
     x = x + o
     h = _layer_norm(x, bp["norm2"], cfg.ln_eps)
     h = F.gelu(_dense(h, bp["mlp"]["fc1"]), approximate="none")
-    x = x + _dense(h, bp["mlp"]["fc2"])
+    h = _dense(h, bp["mlp"]["fc2"])
+    if "ls2" in bp:
+        h = h * bp["ls2"].to(h.dtype)
+    x = x + h
     if "block" in want:
         taps["block"] = x
     return x, taps
@@ -167,7 +212,10 @@ def vit_forward(params: Dict[str, Any], images: torch.Tensor, cfg: VitConfig,
     """Run the ViT on [B, H, W, 3] ImageNet-normalised images and return the
     requested taps, e.g. {"qkv": [11], "block": [11]}: "qkv" is the fused
     [B, N, 3D] projection, "block" the [B, N, D] block output (pre final
-    norm). final_norm adds {"final": {-1: LN(x)}}."""
+    norm), "attn_out" the [B, N, D] attention branch after proj (before
+    layer scale), "attn_probs" the fp32 [B, H, N, N] probabilities.
+    final_norm adds {"final": {-1: LN(x)}}. N counts CLS, the register
+    tokens and the patches, in that order."""
     B, H, W, _ = images.shape
     P = cfg.patch_size
     gh, gw = H // P, W // P
@@ -180,6 +228,11 @@ def vit_forward(params: Dict[str, Any], images: torch.Tensor, cfg: VitConfig,
     x = torch.cat([cls, x], dim=1)
     x = x + interpolate_pos_embed(params["pos_embed"], cfg, gh, gw
                                   ).to(compute_dtype)
+    if cfg.num_register_tokens:
+        # after the pos-add, between CLS and the patches (:508-515)
+        reg = params["register_tokens"].to(compute_dtype).expand(
+            B, cfg.num_register_tokens, cfg.embed_dim)
+        x = torch.cat([x[:, :1], reg, x[:, 1:]], dim=1)
     max_layer = max((max(v) for v in taps.values() if len(v)),
                     default=cfg.depth - 1)
     if final_norm:

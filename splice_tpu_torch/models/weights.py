@@ -3,9 +3,13 @@
 Four sources of one parameter tree (the reference's names and layouts):
   * vit_params_from_numpy: the JAX package's tree as numpy arrays;
   * load_vit_npz: the .npz that splice_tpu's save_vit_params writes
-    (flat keys "blocks.3.attn.qkv.kernel", ...);
-  * port_dino_state_dict: a facebookresearch/dino torch state dict;
+    (flat keys "blocks.3.attn.qkv.kernel", ...), which save_vit_params
+    here writes too;
+  * port_dino_state_dict: a facebookresearch/dino or dinov2 torch state
+    dict;
   * init_vit_params: seeded random init when no weights are given.
+DINOv2 trees carry blocks.{i}.ls1/ls2 (layer scale) and, in the _reg
+variants, register_tokens [1, R, D].
 """
 from __future__ import annotations
 
@@ -16,7 +20,8 @@ import numpy as np
 import torch
 
 from splice_tpu_torch import resolve_device
-from splice_tpu_torch.models.vit import VitConfig, get_vit_config
+from splice_tpu_torch.models.vit import (VIT_CONFIGS, VitConfig,
+                                         get_vit_config)
 from splice_tpu_torch.utils.tree import tree_map
 
 
@@ -48,10 +53,54 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
     return root
 
 
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """The reference's _flatten: dotted keys, a list entry's index as a
+    path element."""
+    flat: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            flat.update(_flatten(v, name + "."))
+        elif isinstance(v, list):
+            for i, item in enumerate(v):
+                flat.update(_flatten(item, f"{name}.{i}."))
+        else:
+            flat[name] = (v.detach().cpu().numpy()
+                          if isinstance(v, torch.Tensor) else np.asarray(v))
+    return flat
+
+
+def save_vit_params(path: str, params: Dict[str, Any],
+                    model_name: str) -> int:
+    """Write the tree as splice_tpu's save_vit_params does (flat keys and
+    __model_name__), so that either package reads it. Returns the number
+    of parameters written."""
+    flat = _flatten(params)
+    n = sum(v.size for v in flat.values())
+    flat["__model_name__"] = np.asarray(model_name)
+    np.savez(path, **flat)
+    return n
+
+
+def _check_registers(has_registers: bool, cfg: VitConfig, what: str) -> None:
+    """The reference's refusal of a checkpoint whose register tokens do not
+    match the model (splice_tpu/models/weights.py:56-64,128-134): running a
+    ViT on a token layout it was not trained on would go unnoticed."""
+    if has_registers != bool(cfg.num_register_tokens):
+        raise ValueError(
+            f"register-token mismatch: {what} "
+            f"{'has' if has_registers else 'lacks'} register_tokens but "
+            f"the model expects {cfg.num_register_tokens}; use the matching "
+            "model name (e.g. dinov2_vitb14_reg for a with-registers "
+            "checkpoint)")
+
+
 def load_vit_npz(path: str, model_name: Optional[str] = None,
                  device=None) -> Dict[str, Any]:
-    """Read a ViT .npz written by splice_tpu.models.weights.save_vit_params
-    onto `device` (default CUDA)."""
+    """Read a ViT .npz written by save_vit_params (either package's) onto
+    `device` (default CUDA). The model (model_name, else the one stored)
+    must match the file's register tokens, where it is a registered
+    model."""
     device = resolve_device(device)
     with np.load(path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files}
@@ -59,16 +108,19 @@ def load_vit_npz(path: str, model_name: Optional[str] = None,
         else None
     if model_name and stored and model_name != stored:
         raise ValueError(f"checkpoint is for {stored}, requested {model_name}")
-    if "register_tokens" in flat or any(".ls1" in k for k in flat):
-        raise ValueError("DINOv2 checkpoints (registers, layer scale) are "
-                         "not ported yet")
+    name = model_name or stored
+    if name in VIT_CONFIGS:
+        _check_registers("register_tokens" in flat, get_vit_config(name),
+                         f"checkpoint {path!r}")
     return vit_params_from_numpy(_unflatten(flat), device)
 
 
 def port_dino_state_dict(state: Mapping[str, Any], cfg: VitConfig,
                          device=None) -> Dict[str, Any]:
-    """facebookresearch/dino state dict -> parameter tree: Linear [out, in]
-    -> [in, out], patch-embed conv [D, 3, p, p] -> HWIO [p, p, 3, D]. On
+    """facebookresearch/dino or dinov2 state dict -> parameter tree: Linear
+    [out, in] -> [in, out], patch-embed conv [D, 3, p, p] -> HWIO [p, p, 3,
+    D]; dinov2's blocks.{i}.ls{1,2}.gamma -> ls1/ls2 (cfg.layerscale_init
+    where a layer-scale model's dict has none) and register_tokens. On
     `device` (default CUDA)."""
     device = resolve_device(device)
     s = {k: (v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor)
@@ -90,25 +142,38 @@ def port_dino_state_dict(state: Mapping[str, Any], cfg: VitConfig,
         "norm": ln("norm"),
         "blocks": [],
     }
+    _check_registers("register_tokens" in s, cfg, "the state dict")
+    if "register_tokens" in s:
+        tree["register_tokens"] = s["register_tokens"]
     for i in range(cfg.depth):
         p = f"blocks.{i}"
-        tree["blocks"].append({
+        blk = {
             "norm1": ln(f"{p}.norm1"),
             "attn": {"qkv": linear(f"{p}.attn.qkv"),
                      "proj": linear(f"{p}.attn.proj")},
             "norm2": ln(f"{p}.norm2"),
             "mlp": {"fc1": linear(f"{p}.mlp.fc1"),
                     "fc2": linear(f"{p}.mlp.fc2")},
-        })
+        }
+        if f"{p}.ls1.gamma" in s:
+            blk["ls1"] = s[f"{p}.ls1.gamma"]
+            blk["ls2"] = s[f"{p}.ls2.gamma"]
+        elif cfg.layerscale_init is not None:
+            blk["ls1"] = np.full(cfg.embed_dim, cfg.layerscale_init,
+                                 np.float32)
+            blk["ls2"] = np.full(cfg.embed_dim, cfg.layerscale_init,
+                                 np.float32)
+        tree["blocks"].append(blk)
     return vit_params_from_numpy(tree, device)
 
 
 def init_vit_params(cfg: VitConfig, seed: int = 0,
                     device=None) -> Dict[str, Any]:
     """Seeded random init: weights ~ 0.02 * N(0,1) truncated at +-2 std,
-    biases 0, LayerNorm (1, 0). Drawn on the CPU from a torch.Generator so a
-    seed gives the same weights on every device; then moved to `device`
-    (default CUDA)."""
+    biases 0, LayerNorm (1, 0); layer scale at cfg.layerscale_init and the
+    register tokens drawn as weights, where the model has them. Drawn on
+    the CPU from a torch.Generator so a seed gives the same weights on every
+    device; then moved to `device` (default CUDA)."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     D, P = cfg.embed_dim, cfg.patch_size
@@ -140,6 +205,12 @@ def init_vit_params(cfg: VitConfig, seed: int = 0,
                     "fc2": {"kernel": tn(Hm, D), "bias": zeros(D)}},
         } for _ in range(cfg.depth)],
     }
+    if cfg.layerscale_init is not None:
+        for blk in tree["blocks"]:
+            blk["ls1"] = torch.full((D,), cfg.layerscale_init)
+            blk["ls2"] = torch.full((D,), cfg.layerscale_init)
+    if cfg.num_register_tokens:
+        tree["register_tokens"] = tn(1, cfg.num_register_tokens, D)
     return tree_map(lambda t: t.to(device), tree)
 
 

@@ -10,7 +10,9 @@ Runs on CUDA unless --device cpu is given. --checkpoint_every N
 --checkpoint_dir D saves the run every N steps; --resume_from D continues
 from the latest checkpoint in D; with --max_restarts R as well, the run
 goes in a child process that is relaunched from the latest checkpoint
-after a crash, up to R times.
+after a crash, up to R times. --video_mode true optimises the frames of
+<dataroot>/A in turn against <dataroot>/B, each warm-started from the one
+before (splice_tpu_torch.video.train_video).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import sys
 
 from splice_tpu_torch.config import Config, add_cli_args, config_from_cli
 from splice_tpu_torch.trainer import train_pair
+from splice_tpu_torch.video import train_video
 
 # the package's parent directory, so that a child imports this package
 _ROOT = str(pathlib.Path(__file__).resolve().parents[1])
@@ -70,6 +73,9 @@ def main(argv=None) -> None:
     cfg = config_from_cli(args, args.config)
     if cfg.max_restarts > 0 and not os.environ.get("_SPLICE_ELASTIC_CHILD"):
         raise SystemExit(run_with_restarts(cfg, argv))
+    if cfg.video_mode:
+        train_video(cfg)
+        return
     res = train_pair(cfg)
     last = res["losses"][-1] if res["losses"] else {}
     n = len(res["step_seconds"])

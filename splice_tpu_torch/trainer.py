@@ -347,6 +347,40 @@ class SpliceTrainer:
     def params(self) -> Dict[str, Any]:
         return unet.unflatten_params(self.flat, self.spec)
 
+    def restart(self, pair: ImagePair, init_flat: Optional[torch.Tensor],
+                seed: int = 0) -> None:
+        """Start a new optimisation in place (video mode's next frame): the
+        pair's images copied into this trainer's, flat set to init_flat (or
+        a fresh init from `seed`), the optimizer's state zeroed, which is a
+        fresh state (the reference's init_state: tx.init). A captured step
+        reads all of these by address, so none is rebound. The pair must
+        have this trainer's geometry."""
+        if pair.geometry != self.pair.geometry:
+            raise ValueError(f"pair geometry {pair.geometry} differs from "
+                             f"the trainer's {self.pair.geometry}")
+        if init_flat is None:
+            tree = unet.init_skip_params(self.gcfg, self.cfg.init_gain,
+                                         seed=seed, device=self.flat.device,
+                                         init_type=self.cfg.init_type)
+            init_flat = unet.flatten_params(tree)[0]
+        with torch.no_grad():
+            for dst, src in ((self.pair.A, pair.A), (self.pair.B, pair.B),
+                             (self.flat, init_flat)):
+                if src is not dst:
+                    dst.copy_(src, non_blocking=True)
+            for state in self.opt.state.values():
+                for v in state.values():
+                    if isinstance(v, torch.Tensor):
+                        v.zero_()
+
+    def snapshot(self) -> Dict[str, torch.Tensor]:
+        """Copies of flat and of the optimizer's state tensors (by name)."""
+        out = {"flat": self.flat.detach().clone()}
+        for state in self.opt.state.values():
+            out.update({k: v.clone() for k, v in state.items()
+                        if isinstance(v, torch.Tensor)})
+        return out
+
     def generate(self, params, x_nhwc: torch.Tensor,
                  groups: int = 1) -> torch.Tensor:
         return unet.skip_apply_chw(params, self.gcfg, x_nhwc, self.gdt,
@@ -521,6 +555,7 @@ class SpliceProgram:
         self.loss_seq = torch.zeros(capacity, len(LOSS_KEYS), device=dev)
         self.counter = torch.zeros(1, dtype=torch.long, device=dev)
         self.graphs: Dict[Tuple[bool, bool, bool], CapturedStep] = {}
+        self.captures = 0
         self._pool = None
 
     def _body(self, entire: bool) -> None:
@@ -582,6 +617,7 @@ class SpliceProgram:
         with torch.cuda.graph(graph, pool=self._pool):
             self._body(entire)
         self._pool = graph.pool()
+        self.captures += 1
         after = launch_counts()
         return CapturedStep(graph, {
             k: (after[k][0] - before[k][0], after[k][1] - before[k][1])
@@ -616,11 +652,12 @@ def boundaries_after(cfg: Config, i: int, total_steps: int) -> int:
     return min(c for c in cands if c > i)
 
 
-def chunk_plan(cfg: Config, total_steps: int,
-               start: int = 0) -> List[Tuple[int, int, bool]]:
+def chunk_plan(cfg: Config, total_steps: int, start: int = 0,
+               cap: Optional[int] = None) -> List[Tuple[int, int, bool]]:
     """(first step, steps, entire) of each dispatch of a run from step
     `start` (a resumed run's first step), in order: an entire-A step
-    alone, else the regular steps up to boundaries_after."""
+    alone, else the regular steps up to boundaries_after, and at most
+    `cap` of them (a program built for shorter chunks)."""
     plan, i = [], start
     while i < total_steps:
         if losses_lib.is_entire_step(cfg, i):
@@ -628,6 +665,8 @@ def chunk_plan(cfg: Config, total_steps: int,
             i += 1
         else:
             end = boundaries_after(cfg, i, total_steps)
+            if cap is not None:
+                end = min(end, i + cap)
             plan.append((i, end - i, False))
             i = end
     return plan
@@ -661,8 +700,12 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
                dataroot: Optional[str] = None,
                pair: Optional[ImagePair] = None,
                extractor: Optional[ext_lib.VitExtractor] = None,
-               callback: Optional[Callable[[torch.Tensor], None]] = None
-               ) -> Dict[str, Any]:
+               callback: Optional[Callable[[torch.Tensor], None]] = None,
+               init_params: Union[torch.Tensor, Dict[str, Any], None] = None,
+               program: Optional[SpliceProgram] = None,
+               saver: Optional[AsyncImageSaver] = None,
+               logger: Optional[MetricsLogger] = None,
+               want_output: bool = True) -> Dict[str, Any]:
     """Optimise one pair to step n_steps (default cfg.n_epochs) on
     `device` (default cfg.device, i.e. CUDA), in the chunks of chunk_plan,
     each dispatched through a SpliceProgram (captured graphs on CUDA);
@@ -686,26 +729,52 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
     (the reference's one read per chunk), and on the CPU, where a
     dispatch computes its chunk and nothing overlaps.
 
+    Video mode's arguments (splice_tpu/trainer.py:559-620): init_params
+    (a flat vector or a parameter tree) warm-starts the generator, with a
+    fresh optimizer state, and skips resume_from. `program`, the result's
+    program of an earlier call on a pair of the same geometry, is reused:
+    its trainer restarts in place (SpliceTrainer.restart), so on CUDA its
+    captured graphs replay and nothing is captured again; a chunk longer
+    than the program's rows is cut. `extractor` is then the program's.
+    `saver` and `logger` are shared and left open. want_output=False skips
+    the final float render and the final output.png (the uint8 frame is
+    still returned).
+
     Returns the per-step losses (every term and the total) and seconds
     (a chunk's seconds: from the previous chunk's read to its own, over
     its steps), steps_per_sec (the sustained rate of this call's steps,
     log boundaries included), the host seconds of each log boundary's
     queueing, the rows dispatched, the output image (float and the last
-    uint8 frame), the trainer, the program, the chunk sizes and the
-    first step."""
+    uint8 frame; output None without want_output), the trainer, the
+    program, the chunk sizes, the first step, the final flat parameters
+    (a copy) and, from before the first step, a snapshot of flat and the
+    optimizer's state (start_state)."""
     dev = resolve_device(device if device is not None else cfg.device)
     seed = resolve_seed(cfg)
     print(f"running with seed: {seed}.")
     root = dataroot or cfg.dataroot
     if pair is None:
         pair = load_pair(cfg, root, dev)
-    if extractor is None:
-        extractor = make_extractor_from_config(cfg, dev)
-    trainer = SpliceTrainer(cfg, pair, extractor, seed=seed)
+    init_flat = init_params
+    if isinstance(init_params, dict):
+        init_flat = unet.flatten_params(init_params)[0]
+    if program is not None:
+        if init_params is None and cfg.resume_from:
+            # a restore replaces the optimizer's state tensors, which the
+            # program's graphs read by address
+            raise ValueError("resume_from with a reused program")
+        trainer = program.trainer
+        trainer.restart(pair, init_flat, seed)
+    else:
+        if extractor is None:
+            extractor = make_extractor_from_config(cfg, dev)
+        trainer = SpliceTrainer(cfg, pair, extractor, init_flat=init_flat,
+                                seed=seed)
+    pair = trainer.pair
     gen = torch.Generator().manual_seed(seed)
     sched = Scheduler(cfg)
     first = 0
-    if cfg.resume_from:
+    if init_params is None and cfg.resume_from:
         rck = Checkpointer(cfg.resume_from)
         step0 = rck.latest_step()
         if step0 is not None:
@@ -714,11 +783,19 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
             print(f"resumed from {cfg.resume_from} at step {step0}")
     ckpt = Checkpointer(cfg.checkpoint_dir) if checkpointing(cfg) else None
     total_steps = n_steps if n_steps is not None else cfg.n_epochs
-    plan = chunk_plan(cfg, total_steps, first)
-    program = SpliceProgram(trainer, max((n for _, n, _ in plan), default=1))
-    saver = AsyncImageSaver()
-    logger = MetricsLogger(
-        cfg.metrics_path or os.path.join(root, "out", "metrics.jsonl"))
+    if program is None:
+        plan = chunk_plan(cfg, total_steps, first)
+        program = SpliceProgram(trainer,
+                                max((n for _, n, _ in plan), default=1))
+    else:
+        plan = chunk_plan(cfg, total_steps, first, program.rows.shape[0])
+    start_state = trainer.snapshot()
+    own_saver, own_logger = saver is None, logger is None
+    if own_saver:
+        saver = AsyncImageSaver()
+    if own_logger:
+        logger = MetricsLogger(
+            cfg.metrics_path or os.path.join(root, "out", "metrics.jsonl"))
     out_png = os.path.join(root, "out", "output.png")
     freq = cfg.log_images_freq
     read_now = cfg.scheduler_policy == "plateau" or not program.graphed
@@ -761,7 +838,9 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
             if step % freq == 0 or step >= total_steps:
                 t0 = time.perf_counter()
                 out_u8 = trainer.render_u8()
-                saver.save(out_u8, out_png, must_write=step >= total_steps)
+                if want_output or step < total_steps:
+                    saver.save(out_u8, out_png,
+                               must_write=step >= total_steps)
                 # the chunk's last losses, still on the device
                 logger.log_async(
                     step - 1, dict(zip(LOSS_KEYS, program.loss_seq[n - 1])),
@@ -779,11 +858,14 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
             # no step to run (a resumed run already complete): the output
             # still lands
             out_u8 = trainer.render_u8()
-            saver.save(out_u8, out_png, must_write=True)
-        output = trainer.render()
+            if want_output:
+                saver.save(out_u8, out_png, must_write=True)
+        output = trainer.render() if want_output else None
     finally:
-        saver.close()
-        logger.close()
+        if own_saver:
+            saver.close()
+        if own_logger:
+            logger.close()
         if ckpt is not None:
             ckpt.wait()
     return {"losses": losses, "step_seconds": step_seconds,
@@ -793,7 +875,8 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
                      else np.zeros((0, row_width(cfg)), np.float32)),
             "output": output, "output_u8": out_u8, "trainer": trainer,
             "program": program, "seed": seed, "first_step": first,
-            "output_path": out_png}
+            "output_path": out_png, "flat": trainer.flat.detach().clone(),
+            "start_state": start_state}
 
 
 def train_model(dataroot: Optional[str] = None,

@@ -85,23 +85,30 @@ def test_cpu_tensors_never_reach_the_kernel_wrappers():
         tattn.attn_qkv_fwd_cuda(torch.from_numpy(qkv), HEADS, SCALE)
 
 
-@pytest.mark.parametrize("N,n_valid", [(64, 40), (200, 0)])
-def test_qkv_attention_bf16_matches_pallas(N, n_valid):
+@pytest.mark.parametrize("N,n_valid,heads", [
+    pytest.param(64, 40, HEADS, id="64-40"),
+    pytest.param(200, 0, HEADS, id="200-0"),
+    pytest.param(65, 0, 16, id="65-0-16heads")])
+def test_qkv_attention_bf16_matches_pallas(N, n_valid, heads):
     """bf16, the type the card's tensor-core K1/K2 take: the plain versions
     round where the reference's fused-qkv kernels round (p before the PV
     product, dl before the dq and dk products). Tolerances: 8e-3 x max|ref|
     for the output, 4e-3 x max|ref| for the gradient (two and one bf16
     ulps at the largest value: both sides round fp32 sums taken in another
-    order)."""
-    qkv, g = _inputs(2, N, seed=N + n_valid + 1)
+    order). 16 heads is ViT-L/14's width (D = 1024), at one row past a
+    64-row tile."""
+    width = heads * 64
+    rng = np.random.default_rng(N + n_valid + 1)
+    qkv = rng.standard_normal((2, N, 3 * width)).astype(np.float32)
+    g = rng.standard_normal((2, N, width)).astype(np.float32)
     jq, jg = (jnp.asarray(t, dtype=jnp.bfloat16) for t in (qkv, g))
     out, vjp = jax.vjp(lambda x: jattn.attention_from_qkv(
-        x, HEADS, SCALE, use_pallas=True, n_valid=n_valid), jq)
+        x, heads, SCALE, use_pallas=True, n_valid=n_valid), jq)
     (jd,) = vjp(jg)
-    assert jattn.qkv_attention_supported(jq, HEADS)
+    assert jattn.qkv_attention_supported(jq, heads)
 
     x = torch.from_numpy(qkv).to(torch.bfloat16).requires_grad_(True)
-    tout = tattn.attention_from_qkv(x, HEADS, SCALE, n_valid=n_valid)
+    tout = tattn.attention_from_qkv(x, heads, SCALE, n_valid=n_valid)
     tout.backward(torch.from_numpy(g).to(torch.bfloat16))
     for name, t, j, rtol in (("out", tout.detach(), out, 8e-3),
                              ("dqkv", x.grad, jd, 4e-3)):
@@ -111,7 +118,7 @@ def test_qkv_attention_bf16_matches_pallas(N, n_valid):
                                    atol=rtol * np.abs(ref).max(),
                                    err_msg=name)
     if n_valid:   # masked keys and values take no part
-        assert np.all(x.grad.float().numpy()[:, n_valid:, D:] == 0.0)
+        assert np.all(x.grad.float().numpy()[:, n_valid:, width:] == 0.0)
 
 
 def _view(shape, offset=0):
