@@ -101,10 +101,31 @@ Phases, each fatal on failure:
      nothing and replay frame 0's graphs, each starts bitwise from the
      previous frame's final parameters with a zeroed optimizer state and
      frame 0's first draws; three [900, 1200, 3] frame PNGs; each frame's
-     steps/s.
-Phase 2 also holds K1/K2 at the DINOv2 paths' shapes (DINOV2_QKV) and at
-16 heads (QKV_EDGES), and phase 3 runs a small fp32 DINOv2 (layer scale,
-registers) on the card against the CPU.
+     steps/s;
+  11. several pairs in one step (bench_configs.config_c on one card):
+     parallel.pair_parallel.train_pairs on [cows, apples2oranges] x 4 at
+     image_hw 224 (dino_vitb8 with seeded weights, bf16, generator_conv
+     auto) for 12 steps including the entire-A step at 0, each step class
+     one captured graph over the 8 pairs. Gates: every pair's losses
+     finite; 8 output.png of [224, 224, 3] and 8 metrics.jsonl; K1/K2
+     launched inside the graphs, every launch on the tensor cores; the
+     graphs against eager steps from one cloned state (phase 4b's rule)
+     and one chunk under the sync debug mode. Prints the replayed 8-pair
+     step and pair-steps/s (replayed and train_pairs' sustained), the
+     busy share, launches and the port's kernels' ms per step, peak
+     memory and the top device operations. Then 4 steps of two pairs
+     under generator_conv pallas (at 224) and fused (at 448: at a 224
+     canvas fused routes no conv to the kernels), each with its K3/K4
+     forms launched inside the pair loop's graphs on the tensor cores.
+Phase 2 also holds K1/K2 at the DINOv2 paths' shapes (DINOV2_QKV), at
+config c's batch of 16 (PAIRS_QKV; every launch on the tensor cores, in
+the JSON line as path config_c) and at 16 heads (QKV_EDGES), and phase 3
+runs a small fp32 DINOv2 (layer scale, registers) on the card against the
+CPU, two pairs' regular and entire-A steps (MultiPairTrainer) on the card
+against the CPU for generator_conv auto, fused and pallas (phase 3's
+tolerances, or 1.25 x the input's fp32 conditioning measured beside them
+where that is larger), and the two pairs' captured graphs against eager
+steps.
 Prints the kernels' numbers as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -401,6 +422,9 @@ QKV_EDGES = ((1, 6, 17, 0, 30), (2, 12, 129, 0, 31), (2, 6, 257, 0, 32),
 # 16 x 21 patches), dinov2_vitb14_reg's crops (CLS, 4 registers, 256
 # patches)
 DINOV2_QKV = ((2, 16, 257), (1, 16, 337), (2, 12, 261))
+# Config c's fused-qkv shape (B, H, N): eight pairs' generated crops (or
+# their targets) through ViT-B/8 at 785 tokens in one batch of 16
+PAIRS_QKV = ((16, 12, 785),)
 
 
 def check_qkv_edge_cases(torch, attn):
@@ -427,15 +451,18 @@ def check_qkv_edge_cases(torch, attn):
             fail(f"K2 {tag}: masked keys with nonzero dk or dv")
 
 
-def check_dinov2_attention(torch, attn):
-    """The bf16 (tensor-core) K1/K2 at DINOV2_QKV against their plain
-    versions, each twice on one input (bitwise equal), timed beside its
-    plain version and SDPA (forward; backward by autograd) with the bound
-    of its bytes and operations. Returns {(kernel, shape): times}."""
+def check_qkv_shapes(torch, attn, shapes):
+    """The bf16 (tensor-core) K1/K2 at `shapes` against their plain
+    versions, each twice on one input (bitwise equal), every launch on the
+    tensor cores, timed beside its plain version and SDPA (forward;
+    backward by autograd) with the bound of its bytes and operations.
+    Returns {(kernel, shape): times and max_abs_err}."""
     rtol, why = RTOL["bfloat16"]
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd, bwd = attn.attn_qkv_fwd_cuda, attn.attn_qkv_bwd_cuda
+    counts = [(f.launches, f.tc_launches) for f in (fwd, bwd)]
     out = {}
-    for B, H, N in DINOV2_QKV:
+    for B, H, N in shapes:
         gen = torch.Generator().manual_seed(40 + N)
         D, dh, scale = 64 * H, 64, 0.125
         qkv = torch.randn(B, N, 3 * D, generator=gen).to("cuda",
@@ -443,35 +470,45 @@ def check_dinov2_attention(torch, attn):
         g = torch.randn(B, N, D, generator=gen).to("cuda", torch.bfloat16)
         tag = f"[{B},{N},{3 * D}] H={H} bfloat16"
         o = attn.attn_qkv_fwd_cuda(qkv, H, scale)
-        compare(f"K1 {tag}", o, attn.attention_qkv_plain(qkv, H, scale),
-                rtol, why)
+        err1 = compare(f"K1 {tag}", o, attn.attention_qkv_plain(
+            qkv, H, scale), rtol, why)
         check_bitwise(torch, f"K1 {tag}", (o,),
                       (attn.attn_qkv_fwd_cuda(qkv, H, scale),))
         d = attn.attn_qkv_bwd_cuda(qkv, g, H, scale)
         want = attn.attention_qkv_bwd_plain(qkv, g, H, scale)
+        err2 = 0.0
         for i, part in enumerate(("dq", "dk", "dv")):
             sl = slice(i * D, (i + 1) * D)
-            compare(f"K2 {part} {tag}", d[..., sl], want[..., sl], rtol, why)
+            err2 = max(err2, compare(f"K2 {part} {tag}", d[..., sl],
+                                     want[..., sl], rtol, why))
         check_bitwise(torch, f"K2 {tag}", (d,),
                       (attn.attn_qkv_bwd_cuda(qkv, g, H, scale),))
+        del want
         isz = qkv.element_size()
         q, k, v = [t.contiguous() for t in attn._split_heads(qkv, H)]
         gh = g.reshape(B, N, H, dh).permute(0, 2, 1, 3).contiguous()
         fl = 4 * B * H * N * N * dh
-        out[("K1", tag)] = timed(
+        out[("K1", tag)] = dict(timed(
             lambda: attn.attn_qkv_fwd_cuda(qkv, H, scale),
             lambda: attn.attention_qkv_plain(qkv, H, scale),
             lambda: sdpa(q, k, v, scale=scale),
-            4 * B * N * D * isz, fl, "bfloat16", "K1", tag)
+            4 * B * N * D * isz, fl, "bfloat16", "K1", tag),
+            max_abs_err=err1)
         qr, kr, vr = [t.detach().requires_grad_(True) for t in (q, k, v)]
         ro = sdpa(qr, kr, vr, scale=scale)
-        out[("K2", tag)] = timed(
+        out[("K2", tag)] = dict(timed(
             lambda: attn.attn_qkv_bwd_cuda(qkv, g, H, scale),
             lambda: attn.attention_qkv_bwd_plain(qkv, g, H, scale),
             lambda: torch.autograd.grad(ro, (qr, kr, vr), gh,
                                         retain_graph=True),
-            7 * B * N * D * isz, 2.5 * fl, "bfloat16", "K2", tag)
+            7 * B * N * D * isz, 2.5 * fl, "bfloat16", "K2", tag),
+            max_abs_err=err2)
         del ro, qr, kr, vr
+        torch.cuda.empty_cache()
+    calls = [(f.launches - n, f.tc_launches - t)
+             for f, (n, t) in zip((fwd, bwd), counts)]
+    if any(n != t for n, t in calls):
+        fail(f"K1/K2 launches off the tensor cores at {shapes}: {calls}")
     return out
 
 
@@ -1254,6 +1291,88 @@ def check_small_step(torch):
                 fail(f"small {what} step ({label}): card and CPU disagree")
 
 
+PAIR_ROOTS = ("datasets/splicing/cows", "datasets/splicing/apples2oranges")
+
+
+def pairs_setup(torch, dev, mode="auto"):
+    """Phase 3's small fp32 configuration over two pairs on `dev`: (cfg,
+    pairs, extractor), the cows and apples2oranges pairs loaded as the
+    multi-pair trainer loads them (load_pair_batch) at 448 x 448, a 448
+    canvas, the two-block ViT of width 128."""
+    from splice_tpu_torch.data import ImagePair
+    from splice_tpu_torch.parallel.pair_parallel import load_pair_batch
+    cfg, _, ext = small_setup(torch, dev, mode)
+    batch = load_pair_batch(cfg, PAIR_ROOTS, 448, dev)
+    return cfg, [ImagePair(A=a, B=b, canvas_A=448, canvas_B=448)
+                 for a, b in zip(batch["A"], batch["B"])], ext
+
+
+def check_small_pairs_step(torch):
+    """One regular and one entire-A step of two pairs (MultiPairTrainer)
+    at phase 3's small size, fp32: each pair's loss and gradient on the
+    card (kernels) against the CPU (plain path), from the same parameters
+    and draws, for generator_conv auto, fused and pallas. Tolerances:
+    check_small_step's (loss 1e-4 relative; gradient 5e-3 x max|grad| and
+    5e-3 relative L2), or 1.25 x this input's fp32 conditioning where that
+    is larger: the largest gap, over both steps and pairs, between two
+    evaluations that share no kernel of the port, cuDNN on the card
+    against the CPU (generator_conv=xla on both) and the CPU's fp32 convs
+    against its float64 plain convs (xla against pallas on the CPU). The
+    cows and apples2oranges pairs centre-cropped to 448 x 448 take this
+    gradient's fp32 rounding up to 8e-3 x max|grad| in either (phase 3's
+    own input: 1e-3); a kernel fault gives errors of order max|grad|."""
+    from splice_tpu_torch.parallel.pair_parallel import MultiPairTrainer
+
+    def losses_and_grads(mode, dev):
+        cfg, pairs, ext = pairs_setup(torch, dev, mode)
+        tr = MultiPairTrainer(cfg, pairs, ext, seeds=[3, 4])
+        gen = torch.Generator().manual_seed(12)
+        out = []
+        for step, entire in ((1, False), (2, True)):
+            rows = torch.from_numpy(packed_rows(cfg, pairs, step, gen,
+                                                1)[0]).to(dev)
+            total, _ = tr.loss(rows, entire)
+            grads = torch.autograd.grad(total.sum(),
+                                        [t.flat for t in tr.trainers])
+            out.append((total.detach().cpu(),
+                        [g.detach().cpu().double() for g in grads]))
+        return out
+
+    def errors(a, b):
+        """[(step, pair, loss rel, grad max err / max|grad|, grad rel L2)]
+        of a against b."""
+        return [(what, p, abs(la[p] - lb[p]).item() / abs(lb[p]).item(),
+                 (ga - gb).abs().max().item() / gb.abs().max().item(),
+                 ((ga - gb).norm() / gb.norm()).item())
+                for (la, gas), (lb, gbs), what in zip(a, b, ("regular",
+                                                             "entire-A"))
+                for p, (ga, gb) in enumerate(zip(gas, gbs))]
+
+    res = {(mode, dev): losses_and_grads(mode, dev)
+           for mode in ("xla", "auto", "fused", "pallas")
+           for dev in ("cuda", "cpu")}
+    cond = (errors(res["xla", "cuda"], res["xla", "cpu"])
+            + errors(res["xla", "cpu"], res["pallas", "cpu"]))
+    cmax = max(c[3] for c in cond)
+    cl2 = max(c[4] for c in cond)
+    gtol, ltol = max(5e-3, 1.25 * cmax), max(5e-3, 1.25 * cl2)
+    print(f"  two pairs (cows, apples2oranges at 448 x 448), fp32 "
+          f"conditioning: cuDNN on the card against the CPU, and the CPU's "
+          f"fp32 convs against its float64 ones, up to {cmax:.2e} x "
+          f"max|grad| and {cl2:.2e} relative L2: gradient tolerance "
+          f"{gtol:.2e} x max|grad|, {ltol:.2e} relative L2")
+    for mode in ("auto", "fused", "pallas"):
+        for what, p, rel, gmax, grel in errors(res[mode, "cuda"],
+                                               res[mode, "cpu"]):
+            print(f"  two pairs, small {what} step, pair {p}, "
+                  f"generator_conv={mode} (448 canvas, fp32), card against "
+                  f"CPU: loss rel {rel:.2e} (tol 1e-4); grad max_abs_err "
+                  f"{gmax:.2e} x max|grad|, relative L2 {grel:.2e}")
+            if not (rel <= 1e-4 and gmax <= gtol and grel <= ltol):
+                fail(f"two pairs, small {what} step ({mode}), pair {p}: "
+                     f"card and CPU disagree")
+
+
 def optimizer_tol(p0, updates):
     """Per-parameter tolerance of an optimizer's result: 1e-6 of the
     operands each parameter has summed, |p0| + |update 1| + ... (the
@@ -1312,43 +1431,74 @@ def check_small_optimizers(torch):
             fail(f"{name}: the card's updates disagree with the CPU's")
 
 
-def check_replay(torch, label, cfg, pair, extractor):
-    """The captured graphs against eager steps from one state: a trainer
-    takes one eager entire-A step (so Adam holds moments), and three
-    clones of its flat parameters and Adam state run the same rows (an
-    entire-A step, three regular steps, another entire-A step): two
-    eagerly, one through SpliceProgram (the first step of each class
-    eager, then its capture; the rest replays). Fails unless the program's
-    per-step losses and parameter update agree with the first eager run's
-    within REPLAY_MULT x the two eager runs' spread plus a floor. Then
-    every step again as a replay from the state the first eager run had
-    before it (copied in place into the graphs' parameters and Adam
-    state): its losses, a forward pass from one state, must agree with
-    that run's within REPLAY_LOSS_FLOOR. Returns the program."""
+def trainers_of(trainer):
+    """The SpliceTrainers of a trainer: itself, or a MultiPairTrainer's."""
+    return getattr(trainer, "trainers", [trainer])
+
+
+def pairs_of(trainer):
+    """A trainer's pair, or a MultiPairTrainer's list of pairs."""
+    if hasattr(trainer, "trainers"):
+        return [t.pair for t in trainer.trainers]
+    return trainer.pair
+
+
+def packed_rows(cfg, pairs, lam_step: int, gen, n: int):
+    """n packed rows with the lambdas of step lam_step, the lr cfg.lr and
+    draws from `gen`: [n, row_width] for one pair, [n, P, row_width] for a
+    list of P pairs (each step draws for pair 0, then pair 1, ...)."""
     import numpy as np
-    from splice_tpu_torch.losses import lambdas_for_step
-    from splice_tpu_torch.trainer import (LOSS_KEYS, SpliceProgram,
-                                          SpliceTrainer, fetch_scalars,
-                                          lambdas_vec, pack_row,
+    from splice_tpu_torch.trainer import (lambdas_vec, pack_row,
                                           sample_step_draws)
+
+    def row(pair):
+        return pack_row(lambdas_vec(cfg, lam_step), cfg.lr,
+                        sample_step_draws(cfg, pair, gen))
+    if isinstance(pairs, list):
+        return np.stack([np.stack([row(p) for p in pairs])
+                         for _ in range(n)])
+    return np.stack([row(pairs) for _ in range(n)])
+
+
+def check_replay(torch, label, cfg, make, pairs, spread_runs: int = 1):
+    """The captured graphs against eager steps from one state: a trainer
+    from make() (a SpliceTrainer over `pairs`, one pair, or a
+    MultiPairTrainer over a list of pairs) takes one eager entire-A step
+    (so Adam holds moments), and three clones of its flat parameters and
+    Adam state run the same rows (an entire-A step, three regular steps,
+    another entire-A step): 1 + spread_runs eagerly, one through
+    SpliceProgram (the first step of each class eager, then its capture;
+    the rest replays). Fails unless the program's per-step losses (every
+    pair's) and parameter update agree with the first eager run's within
+    REPLAY_MULT x the eager runs' spread (the largest distance of another
+    eager run from the first) plus a floor. Then every step again as a
+    replay from the state the first eager run had before it (copied in
+    place into the graphs' parameters and Adam state): its losses, a
+    forward pass from one state, must agree with that run's within
+    REPLAY_LOSS_FLOOR. Returns the program."""
+    import numpy as np
+    from splice_tpu_torch.trainer import LOSS_KEYS, SpliceProgram
     gen = torch.Generator().manual_seed(21)
-    base = SpliceTrainer(cfg, pair, extractor, seed=0)
-    base.step(sample_step_draws(cfg, pair, gen), lambdas_for_step(cfg, 0),
-              True)
+    base = make()
+    base.step(torch.from_numpy(packed_rows(cfg, pairs, 0, gen, 1)[0]).cuda(),
+              None, True)
     plan = ((True, 0, 1), (False, 5, 3), (True, 0, 1))  # entire, lam step, n
-    chunks = [(entire, np.stack([
-        pack_row(lambdas_vec(cfg, lam), cfg.lr,
-                 sample_step_draws(cfg, pair, gen))
-        for _ in range(n)])) for entire, lam, n in plan]
-    flat0 = base.flat.detach().clone()
+    chunks = [(entire, packed_rows(cfg, pairs, lam, gen, n))
+              for entire, lam, n in plan]
+
+    def flat_of(t):
+        return torch.cat([tr.flat.detach() for tr in trainers_of(t)])
+
+    flat0 = flat_of(base).clone()
 
     def clone():
-        t = SpliceTrainer(cfg, pair, extractor, seed=0)
+        t = make()
         t.load_state_dict(base.state_dict())
         return t
 
     def state(t):
-        return [t.flat.detach()] + list(t.opt.state[t.flat].values())
+        return [v for tr in trainers_of(t)
+                for v in (tr.flat.detach(), *tr.opt.state[tr.flat].values())]
 
     def eager(before=None):
         t, seq = clone(), []
@@ -1357,16 +1507,17 @@ def check_replay(torch, label, cfg, pair, extractor):
                 if before is not None:
                     before.append([v.clone() for v in state(t)])
                 parts = t.step(r, None, entire)
-                seq.append([fetch_scalars(
-                    {k: parts[k] for k in LOSS_KEYS})[k] for k in LOSS_KEYS])
-        return np.array(seq), t.flat.detach() - flat0
+                seq.append(torch.stack([parts[k] for k in LOSS_KEYS],
+                                       dim=-1).cpu().numpy())
+        return np.array(seq), flat_of(t) - flat0
 
     before = []
-    (l1, d1), (l2, d2) = eager(before), eager()
+    l1, d1 = eager(before)
+    others = [eager() for _ in range(spread_runs)]
     program = SpliceProgram(clone(), 3)
     lr = np.concatenate([program.run(rows, entire)
                          for entire, rows in chunks])
-    dr = program.trainer.flat.detach() - flat0
+    dr = flat_of(program.trainer) - flat0
     same = []
     steps = [(entire, row) for entire, rows in chunks for row in rows]
     for (entire, row), snap in zip(steps, before):
@@ -1381,12 +1532,15 @@ def check_replay(torch, label, cfg, pair, extractor):
     def rel_upd(a, b):
         return ((a - b).norm() / b.norm()).item()
 
-    spread = (rel_loss(l2, l1), rel_upd(d2, d1))
+    spread = (max(rel_loss(l2, l1) for l2, _ in others),
+              max(rel_upd(d2, d1) for _, d2 in others))
     err = (rel_loss(lr, l1), rel_upd(dr, d1), rel_loss(np.array(same), l1))
     tol = (REPLAY_MULT * spread[0] + REPLAY_LOSS_FLOOR,
            REPLAY_MULT * spread[1] + REPLAY_UPDATE_FLOOR)
     replays = {k: c.replays for k, c in program.graphs.items()}
-    print(f"  {label}: eager against eager: losses {spread[0]:.3e} "
+    print(f"  {label}: eager against eager ({spread_runs} run"
+          f"{'s' if spread_runs > 1 else ''} against the first): losses "
+          f"{spread[0]:.3e} "
           f"(largest relative), update {spread[1]:.3e} (relative L2); "
           f"graphs against eager: losses {err[0]:.3e} (tol {tol[0]:.3e} = "
           f"{REPLAY_MULT:g} x spread + {REPLAY_LOSS_FLOOR:g}), update "
@@ -1403,16 +1557,18 @@ def check_replay(torch, label, cfg, pair, extractor):
     return program
 
 
+def one_pair(cfg, pair, extractor):
+    """check_replay's trainer factory over one pair."""
+    from splice_tpu_torch.trainer import SpliceTrainer
+    return lambda: SpliceTrainer(cfg, pair, extractor, seed=0)
+
+
 def check_sync_free(torch, program, cfg):
     """One regular chunk queued (draws copied, counter reset, replays)
     under torch.cuda.set_sync_debug_mode("error"): fails if anything in it
     waits for the device."""
     import numpy as np
-    from splice_tpu_torch.trainer import (lambdas_vec, pack_row,
-                                          sample_step_draws)
-    gen = torch.Generator().manual_seed(22)
-    rows = np.stack([pack_row(lambdas_vec(cfg, 5), cfg.lr, sample_step_draws(
-        cfg, program.trainer.pair, gen)) for _ in range(3)])
+    rows = regular_rows(torch, cfg, pairs_of(program.trainer), 3, 22)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1424,7 +1580,7 @@ def check_sync_free(torch, program, cfg):
     seq = program.fetch(n)
     print(f"  a chunk of {n} regular steps queued under sync debug mode "
           f"'error': no synchronisation; its one read: losses "
-          f"{', '.join(f'{v:.5f}' for v in seq[:, -1])}")
+          f"{', '.join(f'{v:.5f}' for v in seq[..., -1].ravel())}")
     if not np.isfinite(seq).all():
         fail("the sync-free chunk gave non-finite losses")
 
@@ -1434,15 +1590,10 @@ OUR_KERNELS = ("attn_fwd_kernel", "attn_bwd_", "conv_fwd_kernel",
                "conv_fwd_tc", "conv_dw_", "conv_stats_")
 
 
-def regular_rows(torch, cfg, pair, n: int, seed: int):
-    """n packed rows of regular steps (lambdas of step 5) from a seed."""
-    import numpy as np
-    from splice_tpu_torch.trainer import (lambdas_vec, pack_row,
-                                          sample_step_draws)
-    gen = torch.Generator().manual_seed(seed)
-    return np.stack([pack_row(lambdas_vec(cfg, 5), cfg.lr,
-                              sample_step_draws(cfg, pair, gen))
-                     for _ in range(n)])
+def regular_rows(torch, cfg, pairs, n: int, seed: int):
+    """n packed rows of regular steps (lambdas of step 5) from a seed, for
+    one pair or a list of pairs (packed_rows)."""
+    return packed_rows(cfg, pairs, 5, torch.Generator().manual_seed(seed), n)
 
 
 def profile_steps(torch, program, cfg, n: int = 3) -> None:
@@ -1457,9 +1608,9 @@ def profile_steps(torch, program, cfg, n: int = 3) -> None:
     Returns the replays' wall ms per step."""
     from torch.profiler import ProfilerActivity, profile
     trainer = program.trainer
-    program.run(regular_rows(torch, cfg, trainer.pair, 1, 0), False)
+    program.run(regular_rows(torch, cfg, pairs_of(trainer), 1, 0), False)
     n_wall = program.rows.shape[0]
-    rows = regular_rows(torch, cfg, trainer.pair, n_wall, 1)
+    rows = regular_rows(torch, cfg, pairs_of(trainer), n_wall, 1)
     rows_dev = torch.from_numpy(rows[:n]).cuda()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2016,7 +2167,8 @@ def run_dinov2(torch, kernels, base, pair):
         ms = profile_steps(torch, res["program"], cfg)
         del res
         torch.cuda.empty_cache()
-        program = check_replay(torch, name, cfg, pair, ext)
+        program = check_replay(torch, name, cfg, one_pair(cfg, pair, ext),
+                               pair)
         del program, ext
         torch.cuda.empty_cache()
         out[name] = (launches, ms)
@@ -2122,37 +2274,136 @@ def run_video(torch, kernels, main_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
-    t_start = time.perf_counter()
-    from splice_tpu_torch.ops import _build
-    from splice_tpu_torch.ops import attention as attn
-    from splice_tpu_torch.ops import conv
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"card: {smi}")
+CONFIG_C_STEPS = 12      # phase 11: step 0 entire-A, the rest regular
+PAIR_MODE_STEPS = 4      # the P = 2 pallas and fused runs
+# (generator_conv, image_hw, kernels that must launch inside the graphs):
+# at a 224 canvas fused routes no conv to the kernels (the reference's
+# rule: a site fuses at 448 or more wide), so its P = 2 run is at 448
+PAIR_MODES = (("pallas", 224, ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
+                               "conv_dw", "conv_valid_s2d", "conv_dw_s2d")),
+              ("fused", 448, ("attn_qkv_fwd", "attn_qkv_bwd",
+                              "conv_valid_pro", "conv_dw_pro")))
 
-    print("phase 1: build")
-    t0 = time.perf_counter()
-    _build.build_all()
-    print(f"  built and loaded {', '.join(_build.SOURCES)} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    print_ptxas(_build)
-    check_tensor_cores(_build)
 
-    # name -> (wrapper, route, source, the TPU kernel it replaces, the path
-    # whose launches the JSON line reports)
+def copy_pairs(tmp, n: int):
+    """n dataroots under tmp, pair i a copy of PAIR_ROOTS[i % 2]'s A and B
+    (each pair writes its own out/)."""
+    import shutil
+    roots = []
+    for i in range(n):
+        src = PAIR_ROOTS[i % 2]
+        dst = os.path.join(tmp, f"pair{i}_{os.path.basename(src)}")
+        for sub in ("A", "B"):
+            shutil.copytree(os.path.join(src, sub), os.path.join(dst, sub))
+        roots.append(dst)
+    return roots
+
+
+def run_pairs(torch, name, cfg, roots, image_hw, n_steps, kernels, need,
+              extractor):
+    """train_pairs with every launch count set to 0 just before and read
+    just after; fails on a non-finite loss, a missing or misshapen output
+    or metrics file, or when a kernel in `need` was launched no time
+    inside the graphs or off the tensor cores. Returns (result, launches,
+    peak GiB)."""
+    import json as json_lib
+    import numpy as np
+    from PIL import Image
+    from splice_tpu_torch.parallel.pair_parallel import train_pairs
+    zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    res = train_pairs(cfg, roots, image_hw, n_steps, extractor=extractor)
+    launches, tc = read_launches(torch, kernels, name, need,
+                                 [res["program"]])
+    check_tc_launches(launches, tc, name)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  chunks {res['chunks']}; {res['pair_steps_per_sec']:.3f} "
+          f"pair-steps/s ({res['steps_per_sec']:.3f} steps/s) over the run, "
+          f"captures, renders and saves included; peak memory {peak:.2f} "
+          f"GiB (the graphs' pools included)")
+    seq = res["loss_seq"]
+    for i, l in enumerate(seq[:, :, -1]):
+        print(f"  step {i:2d} loss by pair " + " ".join(f"{v:.5f}" for v in l))
+    if seq.shape[:2] != (n_steps, len(roots)) or not np.isfinite(seq).all():
+        fail(f"{name}: losses {seq.shape}, finite {np.isfinite(seq).all()}")
+    for root in roots:
+        png = np.asarray(Image.open(os.path.join(root, "out", "output.png")))
+        with open(os.path.join(root, "out", "metrics.jsonl")) as f:
+            recs = [json_lib.loads(line) for line in f]
+        if png.shape != (image_hw, image_hw, 3) or not recs or not all(
+                "loss" in r and "lr" in r and "steps_per_sec" in r
+                for r in recs):
+            fail(f"{name}: {root}: output {png.shape}, {len(recs)} records")
+    print(f"  {len(roots)} output.png of [{image_hw}, {image_hw}, 3] and "
+          f"{len(roots)} metrics.jsonl (records at steps "
+          f"{[r['step'] for r in recs]})")
+    return res, launches, peak
+
+
+def run_config_c(torch, kernels, extractor, main_ms):
+    """Phase 11: bench_configs.config_c on one card: train_pairs on [cows,
+    apples2oranges] x 4 at image_hw 224 (the reference's keys: seed 3,
+    n_pairs 8, dino_vitb8 with seeded weights, bf16, generator_conv auto,
+    log_images_freq 10, entire_A_every 75), CONFIG_C_STEPS steps, with
+    run_pairs' gates (every K1/K2 launch inside the graphs and on the
+    tensor cores); the replayed step and the device's share (profile);
+    the graphs against eager steps from one cloned state (phase 4b's
+    rule) and one chunk under the sync debug mode. Then PAIR_MODE_STEPS
+    steps of two pairs under each of PAIR_MODES: K3/K4 in their forms
+    inside the pair loop, on the tensor cores. Returns the launches by
+    path."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from splice_tpu_torch.config import load_config
+    from splice_tpu_torch.parallel.pair_parallel import MultiPairTrainer
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pairs_")
+    launches = {}
+    try:
+        roots = copy_pairs(tmp, 8)
+        cfg = load_config(None, dict(seed=3, n_pairs=8))
+        res, launches["config_c"], _ = run_pairs(
+            torch, "config_c", cfg, roots, 224, CONFIG_C_STEPS, kernels,
+            ("attn_qkv_fwd", "attn_qkv_bwd"), extractor)
+        replayed = {k: c.replays for k, c in res["program"].graphs.items()}
+        rate = res["pair_steps_per_sec"]
+        print(f"  graphs (entire, SAME route, DW_TAP_ON_N): replays "
+              f"{replayed}")
+        ms = profile_steps(torch, res["program"], cfg)
+        print(f"  config c: a replayed 8-pair step {ms:.2f} ms, "
+              f"{8e3 / ms:.3f} pair-steps/s replayed, {rate:.3f} sustained "
+              f"by train_pairs; the main path's 1-pair step {main_ms:.2f} "
+              f"ms ({1e3 / main_ms:.3f} pair-steps/s)")
+        pairs = [t.pair for t in res["trainer"].trainers]
+        del res
+        torch.cuda.empty_cache()
+        program = check_replay(
+            torch, "config c", cfg,
+            lambda: MultiPairTrainer(cfg, pairs, extractor,
+                                     seeds=list(range(8))), pairs)
+        check_sync_free(torch, program, cfg)
+        del program, pairs
+        torch.cuda.empty_cache()
+        for mode, hw, need in PAIR_MODES:
+            print(f"phase 11b: two pairs, generator_conv={mode}, image_hw "
+                  f"{hw}, {PAIR_MODE_STEPS} steps")
+            pres, launches[f"pairs_{mode}"], _ = run_pairs(
+                torch, f"pairs_{mode}", dataclasses.replace(
+                    cfg, generator_conv=mode, n_pairs=2),
+                roots[:2], hw, PAIR_MODE_STEPS, kernels, need, extractor)
+            del pres
+            torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def kernel_table(attn, conv):
+    """name -> (wrapper, route, source, the TPU kernel it replaces, the
+    path whose launches the JSON line reports)."""
     att, cnv = ("splice_tpu_torch/csrc/attention.cu",
                 "splice_tpu_torch/csrc/conv.cu")
-    kernels = {
+    return {
         "attn_qkv_fwd": (attn.attn_qkv_fwd_cuda, "cuda", att,
                          "splice_tpu/ops/attention.py:361", "main"),
         "attn_qkv_bwd": (attn.attn_qkv_bwd_cuda, "cuda", att,
@@ -2184,6 +2435,35 @@ def main() -> int:
         "conv_dw_gtap": (conv.conv_dw_gtap_cuda, "cuda", cnv,
                          "splice_tpu/ops/conv_pallas.py:455", "pallas_same"),
     }
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    from splice_tpu_torch.ops import _build
+    from splice_tpu_torch.ops import attention as attn
+    from splice_tpu_torch.ops import conv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"card: {smi}")
+
+    print("phase 1: build")
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"  built and loaded {', '.join(_build.SOURCES)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print_ptxas(_build)
+    check_tensor_cores(_build)
+
+    kernels = kernel_table(attn, conv)
     rows = {name: {} for name in kernels}
 
     print("phase 2: kernels against their plain versions")
@@ -2195,7 +2475,8 @@ def main() -> int:
     check_edge_cases(torch, attn, conv)
     check_split_edge_cases(torch, attn)
     check_qkv_edge_cases(torch, attn)
-    check_dinov2_attention(torch, attn)
+    check_qkv_shapes(torch, attn, DINOV2_QKV)
+    pair_rows = check_qkv_shapes(torch, attn, PAIRS_QKV)
     torch.cuda.empty_cache()
     check_conv_same(torch, conv, rows)
     check_same_edge_cases(torch, conv)
@@ -2214,8 +2495,19 @@ def main() -> int:
     print("phase 3: small step, card against CPU")
     check_small_step(torch)
     check_small_optimizers(torch)
+    check_small_pairs_step(torch)
     print("  graphs against eager at this size (fp32, generator_conv=auto):")
-    check_replay(torch, "small fp32", *small_setup(torch, "cuda"))
+    scfg, spair, sext = small_setup(torch, "cuda")
+    check_replay(torch, "small fp32", scfg, one_pair(scfg, spair, sext), spair)
+    from splice_tpu_torch.parallel.pair_parallel import MultiPairTrainer
+    pcfg, ppairs, pext = pairs_setup(torch, "cuda")
+    # two pairs' terms over five fp32 steps: the bilinear backward's
+    # atomics make one eager run's distance from another vary 5x from call
+    # to call (2.4e-3 to 1.2e-2 in the losses), so five runs measure it
+    check_replay(torch, "small fp32, two pairs", pcfg,
+                 lambda: MultiPairTrainer(pcfg, ppairs, pext, seeds=[0, 1]),
+                 ppairs, spread_runs=5)
+    del scfg, spair, sext, pcfg, ppairs, pext
     torch.cuda.empty_cache()
 
     print(f"phase 4: main path, {MAIN_STEPS} steps on the cows pair")
@@ -2235,7 +2527,9 @@ def main() -> int:
 
     print("phase 4b: graphs against eager at full width (bf16, main path), "
           "and a chunk without synchronisation")
-    program = check_replay(torch, "full width", cfg, **shared)
+    program = check_replay(torch, "full width", cfg,
+                           one_pair(cfg, shared["pair"],
+                                    shared["extractor"]), shared["pair"])
     check_sync_free(torch, program, cfg)
     del program
     torch.cuda.empty_cache()
@@ -2327,6 +2621,10 @@ def main() -> int:
     print(f"phase 10: video, 3 frames of {VIDEO_STEPS[0]} + 2 x "
           f"{VIDEO_STEPS[1]} steps warm-started, one set of graphs")
     run_video(torch, kernels, main_ms)
+    print(f"phase 11: config c, 8 pairs ([cows, apples2oranges] x 4) at "
+          f"224 in one step, {CONFIG_C_STEPS} steps")
+    launches.update(run_config_c(torch, kernels, shared["extractor"],
+                                 main_ms))
 
     line = []
     for name, (fn, route, source, replaces, path) in kernels.items():
@@ -2337,6 +2635,17 @@ def main() -> int:
                      "path": path, "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"], "shape": r["shape"]})
+    for (kid, tag), r in pair_rows.items():
+        name = {"K1": "attn_qkv_fwd", "K2": "attn_qkv_bwd"}[kid]
+        fn, route, source, replaces, _ = kernels[name]
+        b, by = bound_ms(r["nbytes"], r["flops"], r["dtype"])
+        line.append({"name": name, "route": route, "source": source,
+                     "cores": "tensor core", "replaces": replaces,
+                     "launches": launches["config_c"][name],
+                     "path": "config_c", "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": b, "bound_by": by,
                      "library_ms": r["library_ms"], "shape": r["shape"]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

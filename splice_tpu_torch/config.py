@@ -85,6 +85,14 @@ class Config:
     # and log once, at their end, unless video_log_frames_only is off.
     video_mode: bool = False
     video_log_frames_only: bool = True
+    # Multi-pair training (splice_tpu/config.py:126-130): a comma-separated
+    # dataroot trains its pairs together in one step
+    # (parallel.pair_parallel.train_pairs). mesh_dp shards the pairs over
+    # devices and mesh_tp the ViT; the port runs one device and raises
+    # where the clamped mesh would need more (parallel.mesh).
+    n_pairs: int = 1
+    mesh_dp: int = 1
+    mesh_tp: int = 1
 
     # --- port knobs ---
     # Frozen-ViT weights: a .npz written by splice_tpu's save_vit_params, or

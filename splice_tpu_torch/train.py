@@ -12,7 +12,12 @@ from the latest checkpoint in D; with --max_restarts R as well, the run
 goes in a child process that is relaunched from the latest checkpoint
 after a crash, up to R times. --video_mode true optimises the frames of
 <dataroot>/A in turn against <dataroot>/B, each warm-started from the one
-before (splice_tpu_torch.video.train_video).
+before (splice_tpu_torch.video.train_video). A comma-separated --dataroot
+trains its pairs together, several pairs in one step at 224 x 224
+(splice_tpu_torch.parallel.pair_parallel.train_pairs):
+
+    python -m splice_tpu_torch.train \
+        --dataroot datasets/splicing/cows,datasets/splicing/apples2oranges
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import subprocess
 import sys
 
 from splice_tpu_torch.config import Config, add_cli_args, config_from_cli
+from splice_tpu_torch.parallel.pair_parallel import train_pairs
 from splice_tpu_torch.trainer import train_pair
 from splice_tpu_torch.video import train_video
 
@@ -75,6 +81,12 @@ def main(argv=None) -> None:
         raise SystemExit(run_with_restarts(cfg, argv))
     if cfg.video_mode:
         train_video(cfg)
+        return
+    if "," in cfg.dataroot:
+        roots = [r.strip() for r in cfg.dataroot.split(",") if r.strip()]
+        res = train_pairs(cfg, roots)
+        print(f"{res['pair_steps_per_sec']:.2f} pair-steps/s over "
+              f"{len(roots)} pairs; outputs {', '.join(res['output_paths'])}")
         return
     res = train_pair(cfg)
     last = res["losses"][-1] if res["losses"] else {}

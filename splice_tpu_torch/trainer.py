@@ -181,6 +181,59 @@ class Scheduler:
         raise ValueError(self.policy)
 
 
+class MultiPairScheduler:
+    """Scheduler over P pairs (splice_tpu/trainer.py:128-182): the
+    closed-form policies give every pair the same lr; plateau keeps its
+    (factor, best, bad epochs) per pair, so a pair that stalls cuts its own
+    lr only."""
+
+    def __init__(self, cfg: Config, n_pairs: int):
+        self.policy = cfg.scheduler_policy
+        self.base_lr = cfg.lr
+        self.n_pairs = n_pairs
+        self._scalar = Scheduler(cfg)
+        self._factor = np.ones(n_pairs)
+        self._best = np.full(n_pairs, np.inf)
+        self._bad = np.zeros(n_pairs, np.int64)
+
+    def observe(self, losses) -> None:
+        """One step's per-pair losses [P]: Scheduler.observe's rule,
+        elementwise."""
+        if self.policy != "plateau":
+            return
+        losses = np.asarray(losses, np.float64)
+        improved = losses < self._best * (1.0 - 0.01)
+        self._best = np.where(improved, losses, self._best)
+        bad = np.where(improved, 0, self._bad + 1)
+        cut = bad > PLATEAU_PATIENCE
+        self._factor = np.where(cut, self._factor * 0.2, self._factor)
+        self._bad = np.where(cut, 0, bad)
+
+    def lr_for_step(self, i: int) -> np.ndarray:
+        """The per-pair lr [P] in effect during step i."""
+        if self.policy == "plateau":
+            return self.base_lr * self._factor
+        return np.full(self.n_pairs, self._scalar.lr_for_step(i))
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Plateau's state per pair, as lists (a checkpoint holds no numpy
+        arrays)."""
+        return {"plateau_factor": self._factor.tolist(),
+                "best": self._best.tolist(),
+                "bad_epochs": self._bad.tolist()}
+
+    def load_state_dict(self, d: Dict[str, Any]) -> None:
+        factor = np.asarray(d["plateau_factor"], np.float64)
+        if factor.shape != (self.n_pairs,):
+            # else a checkpoint of another pair count loads and fails later
+            raise ValueError(
+                f"scheduler checkpoint holds {factor.shape} plateau state "
+                f"but this run trains {self.n_pairs} pairs")
+        self._factor = factor.copy()
+        self._best = np.asarray(d["best"], np.float64).copy()
+        self._bad = np.asarray(d["bad_epochs"], np.int64).copy()
+
+
 @functools.lru_cache(maxsize=None)
 def _cosf() -> Callable[[float], float]:
     """The C library's float32 cosine (what XLA's CPU backend calls)."""
@@ -216,12 +269,13 @@ def device_lr(cfg: Config, i: int) -> np.float32:
     return f(0.0) if abs(v) < np.finfo(np.float32).tiny else f(v)
 
 
-def chunk_lrs(cfg: Config, sched: Scheduler, start: int,
-              n: int) -> List[np.float32]:
+def chunk_lrs(cfg: Config, sched: Union[Scheduler, MultiPairScheduler],
+              start: int, n: int) -> List[Any]:
     """The lr of each step of the chunk start..start+n-1: device_lr's
     per step under linear, step and cosine; under none and plateau the
     scheduler's value at the chunk's first step for all of them (the
-    reference sets it once per dispatch)."""
+    reference sets it once per dispatch): float32, a [P] vector from a
+    MultiPairScheduler."""
     if cfg.scheduler_policy in ("none", "plateau"):
         return [np.float32(sched.lr_for_step(start))] * n
     return [device_lr(cfg, i) for i in range(start, start + n)]
@@ -343,6 +397,12 @@ class SpliceTrainer:
         # update, so one captured graph serves every step of a schedule
         self.lr = torch.tensor(cfg.lr, dtype=torch.float32, device=dev)
         self.opt = make_optimizer(cfg, [self.flat], self.lr)
+        # the shape of the packed row of one step (SpliceProgram)
+        self.row_shape = (row_width(cfg),)
+
+    @property
+    def device(self) -> torch.device:
+        return self.flat.device
 
     def params(self) -> Dict[str, Any]:
         return unet.unflatten_params(self.flat, self.spec)
@@ -526,10 +586,13 @@ class CapturedStep:
 
 class SpliceProgram:
     """The reference's chunked step dispatch for one trainer
-    (splice_tpu/trainer.py:227-240,361-430: step_chunk, step_entire).
+    (splice_tpu/trainer.py:227-240,361-430: step_chunk, step_entire), and
+    over a parallel.pair_parallel.MultiPairTrainer its multi-pair program
+    (splice_tpu/parallel/pair_parallel.py:54-249).
 
     run(rows, entire) runs len(rows) steps of one class, row i being step
-    i's pack_row, and returns their [n, 6] losses in LOSS_KEYS order: the
+    i's pack_row (over P pairs, [P, row_width]: each pair's), and returns
+    their [n, 6] losses in LOSS_KEYS order ([n, P, 6] over P pairs): the
     reference's loss_seq, read in one copy. run(rows, False) is the
     reference's step_chunk (step_regular: one row), run(row, True) its
     step_entire (one row). dispatch and fetch are its two halves;
@@ -548,11 +611,13 @@ class SpliceProgram:
     the CPU the same body runs eagerly.
     """
 
-    def __init__(self, trainer: SpliceTrainer, capacity: int):
-        dev = trainer.flat.device
+    def __init__(self, trainer, capacity: int):
+        dev = trainer.device
         self.trainer, self.graphed = trainer, dev.type == "cuda"
-        self.rows = torch.zeros(capacity, row_width(trainer.cfg), device=dev)
-        self.loss_seq = torch.zeros(capacity, len(LOSS_KEYS), device=dev)
+        shape = trainer.row_shape
+        self.rows = torch.zeros(capacity, *shape, device=dev)
+        self.loss_seq = torch.zeros(capacity, *shape[:-1], len(LOSS_KEYS),
+                                    device=dev)
         self.counter = torch.zeros(1, dtype=torch.long, device=dev)
         self.graphs: Dict[Tuple[bool, bool, bool], CapturedStep] = {}
         self.captures = 0
@@ -561,7 +626,7 @@ class SpliceProgram:
     def _body(self, entire: bool) -> None:
         row = self.rows.index_select(0, self.counter)[0]
         parts = self.trainer.step(row, None, entire)
-        vals = torch.stack([parts[k] for k in LOSS_KEYS])
+        vals = torch.stack([parts[k] for k in LOSS_KEYS], dim=-1)
         self.loss_seq.index_copy_(0, self.counter, vals[None])
         self.counter += 1
 
@@ -581,11 +646,13 @@ class SpliceProgram:
         return n
 
     def fetch(self, n: int) -> np.ndarray:
-        """The last dispatch's [n, 6] losses: one device-to-host copy."""
-        return self.loss_seq[:n].cpu().numpy()
+        """The last dispatch's [n, 6] ([n, P, 6]) losses: one
+        device-to-host copy (a copy on the CPU too: the next dispatch
+        writes loss_seq again)."""
+        return self.loss_seq[:n].to("cpu", copy=True).numpy()
 
     def fetch_async(self, n: int) -> HostCopy:
-        """The last dispatch's [n, 6] losses on their way to the host,
+        """The last dispatch's losses on their way to the host,
         queued behind it and ahead of the next dispatch (which writes
         loss_seq again): nothing waits until the HostCopy is read."""
         return HostCopy(self.loss_seq[:n])

@@ -25,8 +25,9 @@ from splice_tpu_torch.utils.metrics import MetricsLogger
 
 def _prefetch(it: Iterable, depth: int = 1) -> Iterator:
     """Iterate `it` one item ahead on a thread (the next frame's decode
-    beside this frame's optimisation); an error in the thread is raised
-    here. The thread touches only the host."""
+    beside this frame's optimisation); whatever the thread raises, an
+    exit or an interrupt too, is raised here (else the consumer would wait
+    on the queue forever). The thread touches only the host."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     end = object()
 
@@ -35,7 +36,7 @@ def _prefetch(it: Iterable, depth: int = 1) -> Iterator:
             for item in it:
                 q.put(item)
             q.put(end)
-        except Exception as e:     # handed to the consumer, raised there
+        except BaseException as e:   # handed to the consumer, raised there
             q.put(e)
 
     threading.Thread(target=worker, daemon=True).start()
@@ -43,7 +44,7 @@ def _prefetch(it: Iterable, depth: int = 1) -> Iterator:
         item = q.get()
         if item is end:
             return
-        if isinstance(item, Exception):
+        if isinstance(item, BaseException):
             raise item
         yield item
 

@@ -41,6 +41,7 @@ from splice_tpu_torch.models import unet as tunet
 from splice_tpu_torch.models import vit as tvit
 from splice_tpu_torch.models import weights as tweights
 from splice_tpu_torch.models.weights import vit_params_from_numpy
+from splice_tpu_torch.parallel.pair_parallel import train_pairs
 
 TINY_VIT = dict(patch_size=8, embed_dim=128, depth=2, num_heads=2,
                 img_size=32)
@@ -221,6 +222,8 @@ def test_entry_points_default_to_cuda():
         resolve_device()
     with pytest.raises(RuntimeError):
         ttrainer.train_pair(load_config(None, {}), n_steps=1)
+    with pytest.raises(RuntimeError):
+        train_pairs(load_config(None, {}), ["a", "b"], n_steps=1)
     assert resolve_device("cpu").type == "cpu"
     assert dataclasses.asdict(load_config(None, {}))["device"] == "cuda"
 

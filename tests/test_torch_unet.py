@@ -130,5 +130,5 @@ def test_unported_options_raise():
         tunet.SkipConfig(act_fun="Swish")
     with pytest.raises(ValueError):
         TConfig(generator_conv="nhwc").validate()
-    with pytest.raises(ValueError):       # the multi-pair keys
-        load_config(None, {"n_pairs": 2})
+    with pytest.raises(ValueError):       # a key unported by design
+        load_config(None, {"remat_vit": True})

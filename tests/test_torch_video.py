@@ -15,6 +15,7 @@ rounded in another order).
 import os
 import pathlib
 import shutil
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +26,7 @@ from jax.flatten_util import ravel_pytree
 from PIL import Image
 
 from splice_tpu import losses as jlosses
+from splice_tpu import video as jvideo
 from splice_tpu.data import load_video_frames as j_load_video_frames
 from splice_tpu.models import extractor as jext
 from splice_tpu.models import unet as junet
@@ -32,6 +34,7 @@ from splice_tpu.models import vit as jvit
 from splice_tpu.ops import image as jimg
 from splice_tpu_torch import train as ttrain
 from splice_tpu_torch import trainer as ttrainer
+from splice_tpu_torch import video as tvideo
 from splice_tpu_torch.config import load_config
 from splice_tpu_torch.data import load_video_frames
 from splice_tpu_torch.utils.tree import tree_map
@@ -83,6 +86,33 @@ def test_cli_dispatches_video_mode(monkeypatch):
                  "--device", "cpu"])
     assert len(calls) == 1 and calls[0].video_mode
     assert calls[0].dataroot == "clip" and calls[0].video_log_frames_only
+
+
+@pytest.mark.parametrize("prefetch", [jvideo._prefetch, tvideo._prefetch],
+                         ids=["reference", "port"])
+def test_prefetch_raises_what_the_loader_raises(prefetch):
+    """A loader that exits (SystemExit, not an Exception) after one frame:
+    the consumer gets the frame, then the SystemExit, within seconds (the
+    loader's thread must hand it over, or the consumer waits forever)."""
+    def frames():
+        yield 1
+        raise SystemExit(3)
+
+    got = []
+
+    def consume():
+        try:
+            for item in prefetch(frames()):
+                got.append(item)
+        except SystemExit as e:
+            got.append(e)
+
+    t = threading.Thread(target=consume, daemon=True)
+    t.start()
+    t.join(timeout=5)
+    assert not t.is_alive(), "the consumer still waits on the loader"
+    assert got[0] == 1 and isinstance(got[1], SystemExit)
+    assert got[1].code == 3
 
 
 @pytest.fixture(scope="module")
