@@ -117,15 +117,37 @@ Phases, each fatal on failure:
      under generator_conv pallas (at 224) and fused (at 448: at a 224
      canvas fused routes no conv to the kernels), each with its K3/K4
      forms launched inside the pair loop's graphs on the tensor cores.
+  12. the inversion tool (tools.inversion.invert) on limes at resize 224
+     (224 x 281; dino_vitb8 with seeded weights, the 6-scale inversion net
+     of 7x7/5x5/3x3 filters with reflection padding, bf16), feature cls,
+     61 steps at log_freq 20 (chunks 1, 20, 20, 20), with the default
+     generator_layout nhwc (cuDNN) and with chw + generator_conv pallas
+     (K3/K4 at k = 7, 5 and the phase kernels' k2 = 4, 3). Gates: the
+     logged steps 0, 20, 40, 60 and every loss finite; the PNG [224, 281,
+     3]; the ViT's input (224, 281); K1/K2 and, on chw + pallas, K3 and K4
+     at k = 4, 5 and 7 launched inside the graph, every bf16 launch on the
+     tensor cores; the graph against eager steps from one state (phase
+     4b's rule, at noise magnitude 0); then feature keys for 5 steps, an
+     fp32 run (K1/K2 on the CUDA cores), evaluate's LPIPS (seeded AlexNet)
+     of the output on the card against the CPU, and the main path with
+     generator_layout nhwc for 4 steps through the program, its replayed
+     regular step profiled beside main's. Prints
+     iterations/s replayed and sustained, kernel ms per step and peak
+     memory for each layout.
 Phase 2 also holds K1/K2 at the DINOv2 paths' shapes (DINOV2_QKV), at
 config c's batch of 16 (PAIRS_QKV; every launch on the tensor cores, in
-the JSON line as path config_c) and at 16 heads (QKV_EDGES), and phase 3
-runs a small fp32 DINOv2 (layer scale, registers) on the card against the
-CPU, two pairs' regular and entire-A steps (MultiPairTrainer) on the card
-against the CPU for generator_conv auto, fused and pallas (phase 3's
-tolerances, or 1.25 x the input's fp32 conditioning measured beside them
-where that is larger), and the two pairs' captured graphs against eager
-steps.
+the JSON line as path config_c), at the inversion's [1, 981, 2304] in bf16
+and fp32 (INVERSION_QKV) and at 16 heads (QKV_EDGES), and K3 (plain, pro,
+the input gradient) and K4 (plain, pro) in bf16 and fp32 at the inversion
+net's sites (INV_SITES), timed in bf16 against F.conv2d and cuDNN's
+gradients. Phase 3 runs a small fp32 DINOv2 (layer scale, registers) on
+the card against the CPU, two pairs' regular and entire-A steps
+(MultiPairTrainer) on the card against the CPU for generator_conv auto,
+fused and pallas (phase 3's tolerances, or 1.25 x the input's fp32
+conditioning measured beside them where that is larger), a small step of
+the NHWC generator (lanczos2, Swish) and a small inversion step (nhwc and
+chw + pallas, the inversion net at 128 x 160) on the card against the CPU,
+and the two pairs' captured graphs against eager steps.
 Prints the kernels' numbers as one JSON line, the card's name and power
 limit, and last {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -425,6 +447,10 @@ DINOV2_QKV = ((2, 16, 257), (1, 16, 337), (2, 12, 261))
 # Config c's fused-qkv shape (B, H, N): eight pairs' generated crops (or
 # their targets) through ViT-B/8 at 785 tokens in one batch of 16
 PAIRS_QKV = ((16, 12, 785),)
+# The inversion's fused-qkv shape (B, H, N): limes at resize 224 is 224 x
+# 281, 28 x 35 patches of 8 and CLS through ViT-B/8 (bf16 by default, fp32
+# one flag away)
+INVERSION_QKV = ((1, 12, 981),)
 
 
 def check_qkv_edge_cases(torch, attn):
@@ -451,13 +477,15 @@ def check_qkv_edge_cases(torch, attn):
             fail(f"K2 {tag}: masked keys with nonzero dk or dv")
 
 
-def check_qkv_shapes(torch, attn, shapes):
-    """The bf16 (tensor-core) K1/K2 at `shapes` against their plain
-    versions, each twice on one input (bitwise equal), every launch on the
-    tensor cores, timed beside its plain version and SDPA (forward;
-    backward by autograd) with the bound of its bytes and operations.
-    Returns {(kernel, shape): times and max_abs_err}."""
-    rtol, why = RTOL["bfloat16"]
+def check_qkv_shapes(torch, attn, shapes, dtype_name="bfloat16"):
+    """K1/K2 at `shapes` against their plain versions, each twice on one
+    input (bitwise equal), timed beside its plain version and SDPA
+    (forward; backward by autograd) with the bound of its bytes and
+    operations; in bf16 every launch on the tensor cores (fp32 runs the
+    CUDA-core kernels). Returns {(kernel, shape): times and
+    max_abs_err}."""
+    rtol, why = RTOL[dtype_name]
+    dt = getattr(torch, dtype_name)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fwd, bwd = attn.attn_qkv_fwd_cuda, attn.attn_qkv_bwd_cuda
     counts = [(f.launches, f.tc_launches) for f in (fwd, bwd)]
@@ -465,10 +493,9 @@ def check_qkv_shapes(torch, attn, shapes):
     for B, H, N in shapes:
         gen = torch.Generator().manual_seed(40 + N)
         D, dh, scale = 64 * H, 64, 0.125
-        qkv = torch.randn(B, N, 3 * D, generator=gen).to("cuda",
-                                                          torch.bfloat16)
-        g = torch.randn(B, N, D, generator=gen).to("cuda", torch.bfloat16)
-        tag = f"[{B},{N},{3 * D}] H={H} bfloat16"
+        qkv = torch.randn(B, N, 3 * D, generator=gen).to("cuda", dt)
+        g = torch.randn(B, N, D, generator=gen).to("cuda", dt)
+        tag = f"[{B},{N},{3 * D}] H={H} {dtype_name}"
         o = attn.attn_qkv_fwd_cuda(qkv, H, scale)
         err1 = compare(f"K1 {tag}", o, attn.attention_qkv_plain(
             qkv, H, scale), rtol, why)
@@ -492,7 +519,7 @@ def check_qkv_shapes(torch, attn, shapes):
             lambda: attn.attn_qkv_fwd_cuda(qkv, H, scale),
             lambda: attn.attention_qkv_plain(qkv, H, scale),
             lambda: sdpa(q, k, v, scale=scale),
-            4 * B * N * D * isz, fl, "bfloat16", "K1", tag),
+            4 * B * N * D * isz, fl, dtype_name, "K1", tag),
             max_abs_err=err1)
         qr, kr, vr = [t.detach().requires_grad_(True) for t in (q, k, v)]
         ro = sdpa(qr, kr, vr, scale=scale)
@@ -501,13 +528,13 @@ def check_qkv_shapes(torch, attn, shapes):
             lambda: attn.attention_qkv_bwd_plain(qkv, g, H, scale),
             lambda: torch.autograd.grad(ro, (qr, kr, vr), gh,
                                         retain_graph=True),
-            7 * B * N * D * isz, 2.5 * fl, "bfloat16", "K2", tag),
+            7 * B * N * D * isz, 2.5 * fl, dtype_name, "K2", tag),
             max_abs_err=err2)
         del ro, qr, kr, vr
         torch.cuda.empty_cache()
     calls = [(f.launches - n, f.tc_launches - t)
              for f, (n, t) in zip((fwd, bwd), counts)]
-    if any(n != t for n, t in calls):
+    if dtype_name == "bfloat16" and any(n != t for n, t in calls):
         fail(f"K1/K2 launches off the tensor cores at {shapes}: {calls}")
     return out
 
@@ -754,6 +781,125 @@ def check_conv_s2d(torch, conv, rows):
             rows["conv_dw_s2d"].update(dw)
     for name in errs:
         rows[name]["max_abs_err"] = errs[name]
+
+
+# The inversion net's K3/K4 sites on limes at resize 224 (224 x 281;
+# generator_layout chw, generator_conv pallas): (name, Cin, Cout, H, W of
+# the reflection-padded input, k, stride). Reflection padding is a copy
+# outside the kernels (F.pad), so every site is a VALID conv: stride 1 at
+# k = 7 and 5, stride 2 as the phase image's k2 = 4 and 3.
+INV_SITES = (("up_conv s0", 36, 16, 230, 287, 7, 1),
+             ("down_conv2 s0", 16, 16, 118, 147, 7, 1),
+             ("up_conv s2", 132, 64, 60, 75, 5, 1),
+             ("down_conv2 s2", 64, 64, 32, 40, 5, 1),
+             ("down_conv1 s0", 32, 16, 230, 287, 7, 2),
+             ("down_conv1 s1", 16, 32, 118, 147, 7, 2),
+             ("down_conv1 s2", 32, 64, 60, 75, 5, 2),
+             ("down_conv1 s3", 64, 128, 32, 40, 5, 2))
+# the sites whose bf16 times stand in the JSON line for (wrapper, k)
+INV_ROWS = {("conv_valid", 7): "up_conv s0", ("conv_valid", 5): "up_conv s2",
+            ("conv_valid_s2d", 4): "down_conv1 s0",
+            ("conv_valid_s2d", 3): "down_conv1 s2",
+            ("conv_dw", 7): "up_conv s0", ("conv_dw", 5): "up_conv s2",
+            ("conv_dw_s2d", 4): "down_conv1 s0",
+            ("conv_dw_s2d", 3): "down_conv1 s2"}
+
+
+def check_conv_inversion(torch, conv):
+    """K3 (plain, pro and the input gradient) and K4 (plain and pro) at
+    the inversion net's sites (INV_SITES: k = 7, 5 and the stride-2 phase
+    kernels' k2 = 4, 3), bf16 (tensor cores) and fp32, each twice on one
+    input (bitwise), and the bf16 forms timed against F.conv2d,
+    conv2d_input and conv2d_weight. Returns {(wrapper, k): row} for
+    INV_ROWS, max_abs_err the largest over that wrapper's sites at that
+    k."""
+    F = torch.nn.functional
+    gen = torch.Generator().manual_seed(12)
+    rows, errs = {}, {}
+
+    def note(key, err):
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    for name, cin, cout, H, W, k, stride in INV_SITES:
+        ho, wo = (H - k) // stride + 1, (W - k) // stride + 1
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            rtol, why = RTOL[dtype_name]
+            x = torch.randn(1, cin, H, W, generator=gen).to("cuda", dt)
+            w = (0.1 * torch.randn(k, k, cin, cout, generator=gen)).to(
+                "cuda", dt)
+            g = torch.randn(1, cout, ho, wo, generator=gen).to("cuda", dt)
+            sc = (0.5 + torch.rand(1, cin, generator=gen)).cuda()
+            sh = torch.randn(1, cin, generator=gen).cuda()
+            wk = conv.s2d_kernel(w).contiguous() if stride == 2 else w
+            kk = wk.shape[0]
+            wk_flip = torch.flip(wk, dims=(0, 1)).transpose(2, 3).contiguous()
+            fwd_name = "conv_valid_s2d" if stride == 2 else "conv_valid"
+            dw_name = "conv_dw_s2d" if stride == 2 else "conv_dw"
+            tag = (f"{name} [1,{cin},{H},{W}]->[1,{cout},{ho},{wo}] k={k}"
+                   f"{f' (phase kernel k2={kk})' if stride == 2 else ''} "
+                   f"{dtype_name}")
+            calls = (
+                ("K3", fwd_name, lambda: (
+                    conv.conv_valid_s2d_cuda(x, wk, 0, (ho, wo))
+                    if stride == 2 else conv.conv_valid_cuda(x, wk)),
+                 lambda: conv.conv_valid_pro_plain(
+                     x, wk, None, None, 1.0, 0, stride, (ho, wo)), rtol, why),
+                ("K3' pro", "conv_valid_pro", lambda: conv.conv_valid_pro_cuda(
+                    x, wk, sc, sh, 0.2, 0, stride, (ho, wo)),
+                 lambda: conv.conv_valid_pro_plain(
+                     x, wk, sc, sh, 0.2, 0, stride, (ho, wo)), rtol, why),
+                ("K3 dx", "conv_valid", lambda: conv.conv_valid_cuda(
+                    g, wk_flip, kk - 1),
+                 lambda: conv.conv_valid_plain(g, wk_flip, kk - 1), rtol,
+                 why),
+                ("K4", dw_name, lambda: (
+                    conv.conv_dw_s2d_cuda(x, g, kk, 0) if stride == 2
+                    else conv.conv_dw_cuda(x, g, kk)),
+                 lambda: conv.conv_dw_pro_plain(x, g, kk, None, None, 1.0, 0,
+                                                stride),
+                 RTOL["float32"][0], DW_WHY),
+                ("K4' pro", "conv_dw_pro", lambda: conv.conv_dw_pro_cuda(
+                    x, g, kk, sc, sh, 0.2, 0, stride),
+                 lambda: conv.conv_dw_pro_plain(x, g, kk, sc, sh, 0.2, 0,
+                                                stride),
+                 RTOL["float32"][0], DW_WHY))
+            for kid, wrapper, kernel, plain, tol, reason in calls:
+                got = kernel()
+                note((wrapper, kk), compare(f"{kid} {wrapper} {tag}", got,
+                                            plain(), tol, reason))
+                check_bitwise(torch, f"{kid} {wrapper} {tag}", (got,),
+                              (kernel(),))
+                del got
+            if dtype_name != "bfloat16":
+                continue
+            isz = x.element_size()
+            flops = 2 * ho * wo * cout * cin * k * k       # the real taps
+            w_oihw = w.permute(3, 2, 0, 1).contiguous()
+            nbytes = (x.numel() + g.numel() + w.numel()) * isz
+            fwd = timed(calls[0][2], calls[0][3],
+                        lambda: F.conv2d(x, w_oihw, stride=stride), nbytes,
+                        flops, dtype_name, "K3", tag)
+            timed(calls[2][2], calls[2][3],
+                  lambda: torch.nn.grad.conv2d_input(x.shape, w_oihw, g,
+                                                     stride=stride),
+                  nbytes, flops, dtype_name, "K3 dx", tag)
+            dw = timed(calls[3][2], calls[3][3],
+                       lambda: torch.nn.grad.conv2d_weight(
+                           x, w_oihw.shape, g, stride=stride),
+                       (x.numel() + g.numel()) * isz + w.numel() * 4, flops,
+                       dtype_name, "K4", tag)
+            for (wrapper, kr), site in INV_ROWS.items():
+                if site == name and kr == kk:
+                    rows[(wrapper, kr)] = dict(
+                        fwd if wrapper.startswith("conv_valid") else dw,
+                        shape=tag)
+        torch.cuda.empty_cache()
+    for key, row in rows.items():
+        row["max_abs_err"] = errs[key]
+        b, by = bound_ms(row["nbytes"], row["flops"], row["dtype"])
+        row.update(bound_ms=b, bound_by=by)
+    return rows
 
 
 @contextlib.contextmanager
@@ -1289,6 +1435,120 @@ def check_small_step(torch):
                   f"= 5e-3 x max|grad|), relative L2 {grel:.2e} (tol 5e-3)")
             if not (rel <= 1e-4 and gerr <= gtol and grel <= 5e-3):
                 fail(f"small {what} step ({label}): card and CPU disagree")
+
+
+def check_small_nhwc_step(torch):
+    """check_small_step's regular and entire-A steps with the NHWC
+    generator (generator_layout nhwc: every conv F.conv2d on the
+    channels_last view) of lanczos2 downsampling and Swish: the card
+    (cuDNN, TF32 off) against the CPU, check_small_step's tolerances."""
+    import dataclasses
+    from splice_tpu_torch.losses import lambdas_for_step
+    from splice_tpu_torch.models import unet
+    from splice_tpu_torch.trainer import SpliceTrainer, sample_step_draws
+    gcfg = unet.SkipConfig(downsample_mode="lanczos2", act_fun="Swish")
+    results = {}
+    for dev in ("cuda", "cpu"):
+        cfg, pair, ext = small_setup(torch, dev)
+        cfg = dataclasses.replace(cfg, generator_layout="nhwc")
+        tr = SpliceTrainer(cfg, pair, ext, gcfg, seed=3)
+        gen = torch.Generator().manual_seed(11)
+        results[dev] = []
+        for step, entire in ((1, False), (2, True)):
+            draws = sample_step_draws(cfg, pair, gen)
+            total, _ = tr.loss(draws, lambdas_for_step(cfg, step), entire)
+            (grad,) = torch.autograd.grad(total, tr.flat)
+            results[dev].append((total.item(), grad.cpu()))
+    for (lc, gc), (lp, gp), what in zip(results["cuda"], results["cpu"],
+                                        ("regular", "entire-A")):
+        rel = abs(lc - lp) / abs(lp)
+        gerr = (gc - gp).abs().max().item() / gp.abs().max().item()
+        grel = ((gc - gp).norm() / gp.norm()).item()
+        print(f"  small {what} step, generator_layout=nhwc, lanczos2, Swish "
+              f"(448 canvas, fp32): loss card {lc:.6f} cpu {lp:.6f} rel "
+              f"{rel:.2e} (tol 1e-4); grad max_abs_err {gerr:.2e} x "
+              f"max|grad| (tol 5e-3), relative L2 {grel:.2e} (tol 5e-3)")
+        if not (rel <= 1e-4 and gerr <= 5e-3 and grel <= 5e-3):
+            fail(f"small nhwc {what} step: card and CPU disagree")
+
+
+def check_small_inversion_step(torch):
+    """One inversion iteration's loss and parameter gradient
+    (tools.inversion.step_loss, feature cls, noise magnitude 2, the noise
+    passed in) at fp32 with the inversion net (7x7/5x5/3x3, reflection) at
+    128 x 160 and a two-block ViT of width 128, on the card for
+    generator_layout nhwc (cuDNN) and chw + pallas (K3/K4 at k = 7, 5, 4,
+    3 on the CUDA cores), each against the CPU's float64 evaluation (the
+    two layouts agree there to 1e-13). This gradient is ill-conditioned in
+    fp32 itself: the CPU's fp32 evaluations lie 1.4e-3 (chw) and 3.0e-3
+    (nhwc) from float64 in max error over max|grad| (3.9e-3 and 5.1e-3 at
+    160 x 192). Tolerances: loss 1e-4 relative; gradient max(5e-3, 2 x the
+    CPU's fp32 distance from float64, the larger layout's) in max error
+    over max|grad| and in relative L2. A kernel fault gives errors of
+    order max|grad|."""
+    from splice_tpu_torch.models import extractor as ext_lib
+    from splice_tpu_torch.models import unet, vit as vit_lib
+    from splice_tpu_torch.models.weights import init_vit_params
+    from splice_tpu_torch.tools import inversion as inv
+    from splice_tpu_torch.utils.tree import tree_map
+    vcfg = vit_lib.VitConfig(patch_size=8, embed_dim=128, depth=2,
+                             num_heads=2, img_size=32)
+    vparams = init_vit_params(vcfg, seed=5, device="cpu")
+    gcfg = unet.inversion_skip_config(8)
+    tree = unet.init_skip_params(gcfg, seed=7, device="cpu")
+    gen = torch.Generator().manual_seed(8)
+    H, W = 128, 160
+    base = torch.randn(1, H, W, 8, generator=gen)
+    noise = torch.randn(1, H, W, 8, generator=gen)
+    target = torch.rand(1, H, W, 3, generator=gen)
+
+    def loss_and_grad(layout, dev, dt):
+        ext = ext_lib.VitExtractor(
+            params=tree_map(lambda t: t.to(dev, dt), vparams), cfg=vcfg,
+            compute_dtype=dt)
+        if layout == "chw":
+            def g_apply(p, x):
+                return unet.skip_apply_chw(p, gcfg, x, conv_impl="pallas")
+        else:
+            def g_apply(p, x):
+                return unet.skip_apply(p, gcfg, x)
+        flat, spec = unet.flatten_params(tree)
+        flat = flat.to(dev, dt).requires_grad_(True)
+        with torch.no_grad():
+            ref = inv.extract(ext, target.to(dev, dt), "cls", 1)
+        loss = inv.step_loss(g_apply, unet.unflatten_params(flat, spec), ext,
+                             ref, base.to(dev, dt), noise.to(dev, dt), 2.0,
+                             "cls", 1)
+        (grad,) = torch.autograd.grad(loss, flat)
+        return loss.item(), grad.cpu().double()
+
+    def gaps(a, b):
+        (la, ga), (lb, gb) = a, b
+        return (abs(la - lb) / abs(lb),
+                (ga - gb).abs().max().item() / gb.abs().max().item(),
+                ((ga - gb).norm() / gb.norm()).item())
+
+    f32, f64 = torch.float32, torch.float64
+    truth = loss_and_grad("chw", "cpu", f64)
+    cpu = {lay: gaps(loss_and_grad(lay, "cpu", f32), truth)
+           for lay in ("nhwc", "chw")}
+    gtol = max(5e-3, 2 * max(c[1] for c in cpu.values()))
+    ltol = max(5e-3, 2 * max(c[2] for c in cpu.values()))
+    print(f"  small inversion step (inversion net at {H} x {W}, fp32): the "
+          f"CPU's fp32 against its float64, nhwc {cpu['nhwc'][1]:.2e} / "
+          f"{cpu['nhwc'][2]:.2e}, chw {cpu['chw'][1]:.2e} / "
+          f"{cpu['chw'][2]:.2e} (max error over max|grad| / relative L2): "
+          f"tolerance {gtol:.2e} / {ltol:.2e}")
+    for lay in ("nhwc", "chw"):
+        card = loss_and_grad(lay, "cuda", f32)
+        rel, gmax, grel = gaps(card, truth)
+        route = " + pallas (K3/K4 at k = 7, 5, 4, 3)" if lay == "chw" else ""
+        print(f"  small inversion step, {lay}{route}"
+              f", the card against float64: loss {card[0]:.6f} against "
+              f"{truth[0]:.6f}, rel {rel:.2e} (tol 1e-4); grad {gmax:.2e} x "
+              f"max|grad|, relative L2 {grel:.2e}")
+        if not (rel <= 1e-4 and gmax <= gtol and grel <= ltol):
+            fail(f"small inversion step ({lay}): the card disagrees")
 
 
 PAIR_ROOTS = ("datasets/splicing/cows", "datasets/splicing/apples2oranges")
@@ -2398,6 +2658,291 @@ def run_config_c(torch, kernels, extractor, main_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+INV_ITERS, INV_LOG = 61, 20    # phase 12: steps 0..60, logs at 0, 20, 40, 60
+LIMES = "datasets/feature_visualization/limes.jpeg"
+
+
+@contextlib.contextmanager
+def k_recorder(conv):
+    """Count the conv kernels' launches by (wrapper, k), split into eager
+    calls and calls recorded while a graph is captured: the wrappers count
+    calls, not k, and the inversion's gate is on k. Yields the two
+    Counters."""
+    from collections import Counter
+    import torch
+    eager, captured = Counter(), Counter()
+    fwd, dw = conv._launch_fwd, conv._launch_dw
+
+    def tally(name, k):
+        cap = torch.cuda.is_current_stream_capturing()
+        (captured if cap else eager)[(name, k)] += 1
+
+    def rec_fwd(x, w, *a, **kw):
+        tally(a[6] if len(a) > 6 else kw["name"], w.shape[0])
+        return fwd(x, w, *a, **kw)
+
+    def rec_dw(x, g, k, *a, **kw):
+        tally(a[5] if len(a) > 5 else kw["name"], k)
+        return dw(x, g, k, *a, **kw)
+
+    conv._launch_fwd, conv._launch_dw = rec_fwd, rec_dw
+    try:
+        yield eager, captured
+    finally:
+        conv._launch_fwd, conv._launch_dw = fwd, dw
+
+
+def lpips_weights(seed):
+    """Seeded AlexNet and LPIPS-head weights in evaluate's npz layout."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shapes = {"conv1": (64, 3, 11, 11), "conv2": (192, 64, 5, 5),
+              "conv3": (384, 192, 3, 3), "conv4": (256, 384, 3, 3),
+              "conv5": (256, 256, 3, 3)}
+    w = {}
+    for i, (name, sh) in enumerate(shapes.items()):
+        w[f"{name}_w"] = (rng.standard_normal(sh)
+                          / np.sqrt(sh[1] * sh[2] * sh[3])).astype(np.float32)
+        w[f"{name}_b"] = (0.1 * rng.standard_normal(sh[0])).astype(np.float32)
+        w[f"lin{i + 1}_w"] = rng.random((1, sh[0])).astype(np.float32)
+    return w
+
+
+def profile_inversion(torch, program, n: int = 3):
+    """Kernel ms per replayed inversion step (torch.profiler over n
+    replays): every device kernel, and the port's own."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    rows = np.full((n, 1), 0.5, np.float32)
+    program.run(rows, False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        program.run(rows, False)
+        torch.cuda.synchronize()
+    total = ours = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        total += t
+        if any(k in e.key for k in OUR_KERNELS):
+            ours += t
+    return total / n / 1e3, ours / n / 1e3
+
+
+def check_inversion_replay(torch, step):
+    """The inversion's graph against eager steps from one state (phase
+    4b's rule): three clones of the step's flat parameters, each with a
+    fresh Adam, run four steps at noise magnitude 0 (so the noise each
+    draws adds exactly 0), twice eagerly and once through SpliceProgram
+    (one eager step, the capture, three replays); the program's losses
+    and parameter update against the first eager run's, within
+    REPLAY_MULT x the eager runs' spread plus the floors. Adam's first
+    steps move each parameter by about lr whatever the gradient's size,
+    so a gradient entry near 0 whose sign the bilinear backward's atomics
+    flip moves the run: that spread is wide. Then each step replayed from
+    the state the first eager run had before it (flat and Adam's state
+    copied in place) must give that run's loss within
+    REPLAY_LOSS_FLOOR."""
+    import numpy as np
+    from splice_tpu_torch.tools.inversion import InversionStep
+    from splice_tpu_torch.trainer import SpliceProgram
+    flat0 = step.flat.detach().clone()
+
+    def clone():
+        s = InversionStep(step.g_apply, step.params(), step.extractor,
+                          step.ref, step.base_noise, step.feature,
+                          step.layer, 0.01, torch.Generator())
+        with torch.no_grad():
+            s.flat.copy_(flat0)
+        return s
+
+    def state(s):
+        return [s.flat.detach(), *s.opt.state[s.flat].values()]
+
+    rows = np.zeros((4, 1), np.float32)
+
+    def eager(before=None):
+        s, losses = clone(), []
+        for r in rows:
+            if before is not None and s.opt.state:
+                before.append([v.clone() for v in state(s)])
+            losses.append(s.step(torch.from_numpy(r).cuda())["loss"].item())
+        return np.array(losses), s.flat.detach() - flat0
+
+    before = []
+    l1, d1 = eager(before)
+    l2, d2 = eager()
+    program = SpliceProgram(clone(), 4)
+    lp = program.run(rows, False)[:, 0]
+    dp = program.trainer.flat.detach() - flat0
+    same = []
+    for snap, want in zip(before, l1[1:]):
+        with torch.no_grad():
+            for dst, src in zip(state(program.trainer), snap):
+                dst.copy_(src)
+        same.append(abs(program.run(rows[:1], False)[0, 0] - want)
+                    / abs(want))
+    rel = float(np.max(np.abs(lp - l1) / np.maximum(np.abs(l1), 1e-12)))
+    spread = float(np.max(np.abs(l2 - l1) / np.maximum(np.abs(l1), 1e-12)))
+    upd = ((dp - d1).norm() / d1.norm()).item()
+    uspread = ((d2 - d1).norm() / d1.norm()).item()
+    tol = (REPLAY_MULT * spread + REPLAY_LOSS_FLOOR,
+           REPLAY_MULT * uspread + REPLAY_UPDATE_FLOOR)
+    print(f"  graph against eager (4 steps at magnitude 0): eager spread "
+          f"losses {spread:.3e}, update {uspread:.3e}; graph losses "
+          f"{rel:.3e} (tol {tol[0]:.3e}), update {upd:.3e} (tol "
+          f"{tol[1]:.3e}); steps 1-3 replayed from the eager run's state: "
+          f"losses {max(same):.3e} (tol {REPLAY_LOSS_FLOOR:g}); replays "
+          f"{[c.replays for c in program.graphs.values()]}")
+    if not (np.isfinite(lp).all() and rel <= tol[0] and upd <= tol[1]
+            and len(same) == 3 and max(same) <= REPLAY_LOSS_FLOOR):
+        fail("the inversion's captured graph disagrees with eager steps")
+
+
+def run_inversion(torch, conv, kernels, inv_rows):
+    """Phase 12: tools.inversion.invert on limes at resize 224 (224 x 281)
+    at full width (dino_vitb8, seeded weights; the inversion net; bf16),
+    feature cls, INV_ITERS steps at log_freq INV_LOG, with the default nhwc
+    layout and with chw + pallas; then feature keys for a few steps, and
+    evaluate's metrics of the output on the card against the CPU. Fills
+    inv_rows' launches (per wrapper and k, chw + pallas) and returns the
+    paths' launches."""
+    import tempfile
+    import numpy as np
+    from PIL import Image
+    from splice_tpu_torch.data import load_image
+    from splice_tpu_torch.tools import evaluate, inversion as inv
+    need = {"nhwc": ("attn_qkv_fwd", "attn_qkv_bwd"),
+            "chw_pallas": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
+                           "conv_valid_s2d", "conv_dw", "conv_dw_s2d")}
+    out_launches = {}
+    tmp = tempfile.mkdtemp(prefix="inversion_")
+    png = None
+    for label, layout, mode in (("nhwc", "nhwc", "auto"),
+                                ("chw_pallas", "chw", "pallas")):
+        zero_counts(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        logs = []
+        png = os.path.join(tmp, f"inv_{label}.png")
+        with k_recorder(conv) as (eager, captured):
+            res = inv.invert(LIMES, png, n_iter=INV_ITERS, log_freq=INV_LOG,
+                             generator_layout=layout, generator_conv=mode,
+                             callback=lambda i, l, o: logs.append((i, l)))
+        program = res["program"]
+        launches, tc = read_launches(torch, kernels, f"inversion {label}",
+                                     need[label], [program])
+        check_tc_launches(launches, tc, f"inversion {label}")
+        out_launches[f"inversion_{label}"] = launches
+        replays = sum(c.replays for c in program.graphs.values())
+        by_k = {key: eager[key] + captured[key] * replays
+                for key in set(eager) | set(captured)}
+        print(f"  {label}: chunks {res['chunks']}, logged "
+              f"{[(i, round(l, 6)) for i, l in logs]}, final loss "
+              f"{res['loss']:.6f}, ViT input {res['dino_input_hw']}; conv "
+              f"launches by (wrapper, k): {dict(sorted(by_k.items()))}, "
+              f"recorded in the graph {dict(sorted(captured.items()))}")
+        img = np.asarray(Image.open(png))
+        if ([i for i, _ in logs] != list(range(0, INV_ITERS, INV_LOG))
+                or not all(math.isfinite(l) for _, l in logs)
+                or not math.isfinite(res["loss"])):
+            fail(f"inversion {label}: bad log steps or losses {logs}")
+        if img.shape != (224, 281, 3) or res["dino_input_hw"] != (224, 281):
+            fail(f"inversion {label}: PNG {img.shape}, ViT input "
+                 f"{res['dino_input_hw']}")
+        if label == "chw_pallas":
+            for name in ("conv_valid", "conv_valid_s2d", "conv_dw",
+                         "conv_dw_s2d"):
+                if sum(n for (w, _), n in by_k.items()
+                       if w == name) != launches[name]:
+                    fail(f"{name}: launches by k {by_k} do not add up to "
+                         f"{launches[name]}")
+            for k in (4, 5, 7):
+                k3 = [w for w in ("conv_valid", "conv_valid_s2d")
+                      if captured[(w, k)]]
+                k4 = [w for w in ("conv_dw", "conv_dw_s2d")
+                      if captured[(w, k)]]
+                if not k3 or not k4:
+                    fail(f"chw + pallas: K3/K4 at k = {k} not launched "
+                         f"inside the graph: {dict(captured)}")
+            for key, row in inv_rows.items():
+                row["launches"] = by_k.get(key, 0)
+                if not row["launches"]:
+                    fail(f"{key} never launched on the chw + pallas path")
+        rows = np.full((INV_LOG, 1), 0.5, np.float32)
+        program.run(rows[:1], False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        program.run(rows, False)
+        ms = (time.perf_counter() - t0) / INV_LOG * 1e3
+        dev_ms, our_ms = profile_inversion(torch, program)
+        print(f"  {label}: {1e3 / ms:.2f} iterations/s replayed ({ms:.3f} "
+              f"ms a step, a chunk of {INV_LOG} with its one read), "
+              f"{INV_ITERS / res['wall_time']:.2f} iterations/s sustained "
+              f"over the run ({res['wall_time']:.2f} s: the first step "
+              f"eager, the capture, {len(res['chunks'])} chunks, "
+              f"{INV_ITERS // INV_LOG + 1} renders); kernels "
+              f"{dev_ms:.3f} ms a step, the port's own {our_ms:.3f} ms; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB")
+        check_inversion_replay(torch, res["step"])
+        del res, program
+        torch.cuda.empty_cache()
+    logs = []
+    res = inv.invert(LIMES, os.path.join(tmp, "inv_keys.png"),
+                     feature="keys", n_iter=5, log_freq=2,
+                     callback=lambda i, l, o: logs.append((i, l)))
+    print(f"  feature keys, 5 steps (nhwc): logged {logs}, final loss "
+          f"{res['loss']:.6f}")
+    if [i for i, _ in logs] != [0, 2, 4] or not all(
+            math.isfinite(l) for _, l in logs):
+        fail(f"inversion keys: bad log steps or losses {logs}")
+    del res
+    out = evaluate.load01(png)
+    ref = load_image(LIMES, 224).astype(np.float64)
+    w = lpips_weights(3)
+    card = evaluate.lpips(out, ref, w)
+    cpu = evaluate.lpips(out, ref, w, device="cpu")
+    rel = abs(card - cpu) / abs(cpu)
+    print(f"  evaluate on the chw + pallas output against limes: psnr "
+          f"{evaluate.psnr(out, ref):.3f} dB, ssim "
+          f"{evaluate.ssim(out, ref):.4f} (numpy on the host, as in the "
+          f"reference); lpips (seeded "
+          f"AlexNet) card {card:.6f}, CPU {cpu:.6f}, rel {rel:.2e} (tol "
+          f"1e-4: fp32 convs, TF32 off, in another order)")
+    if not (math.isfinite(card) and rel <= 1e-4):
+        fail("lpips on the card disagrees with the CPU")
+    return out_launches
+
+
+def run_inversion_fp32(torch, kernels):
+    """invert at compute_dtype float32 (generator and ViT), nhwc, three
+    steps: K1/K2 launched inside the graph on the CUDA cores (fp32 keeps
+    the port's fp32 kernels; no tc launch). Returns the launches."""
+    import tempfile
+    import numpy as np
+    from splice_tpu_torch.tools import inversion as inv
+    zero_counts(kernels)
+    res = inv.invert(LIMES, os.path.join(tempfile.mkdtemp(), "inv32.png"),
+                     n_iter=3, log_freq=2, compute_dtype="float32")
+    launches, tc = read_launches(torch, kernels, "inversion fp32",
+                                 ("attn_qkv_fwd", "attn_qkv_bwd"),
+                                 [res["program"]])
+    rows = np.full((2, 1), 0.5, np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        res["program"].run(rows, False)
+    ms = (time.perf_counter() - t0) / 10 * 1e3
+    print(f"  final loss {res['loss']:.6f}; {1e3 / ms:.2f} iterations/s "
+          f"replayed ({ms:.3f} ms a step, chunks of 2); tensor-core "
+          f"launches { {k: tc[k] for k in ATTENTION} }")
+    if not math.isfinite(res["loss"]) or any(tc[k] for k in ATTENTION):
+        fail("fp32 inversion: non-finite loss or bf16 attention launches")
+    return launches
+
+
 def kernel_table(attn, conv):
     """name -> (wrapper, route, source, the TPU kernel it replaces, the
     path whose launches the JSON line reports)."""
@@ -2477,7 +3022,15 @@ def main() -> int:
     check_qkv_edge_cases(torch, attn)
     check_qkv_shapes(torch, attn, DINOV2_QKV)
     pair_rows = check_qkv_shapes(torch, attn, PAIRS_QKV)
+    inv_qkv = {dt: check_qkv_shapes(torch, attn, INVERSION_QKV, dt)
+               for dt in ("bfloat16", "float32")}
     torch.cuda.empty_cache()
+    inv_rows = check_conv_inversion(torch, conv)
+    for (name, k), r in sorted(inv_rows.items()):
+        print(f"  inversion {name} k={k} {r['shape']}: kernel {r['ms']:.4f}"
+              f" ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
     check_conv_same(torch, conv, rows)
     check_same_edge_cases(torch, conv)
     check_dw_tc_edge_cases(torch, conv)
@@ -2496,6 +3049,8 @@ def main() -> int:
     check_small_step(torch)
     check_small_optimizers(torch)
     check_small_pairs_step(torch)
+    check_small_nhwc_step(torch)
+    check_small_inversion_step(torch)
     print("  graphs against eager at this size (fp32, generator_conv=auto):")
     scfg, spair, sext = small_setup(torch, "cuda")
     check_replay(torch, "small fp32", scfg, one_pair(scfg, spair, sext), spair)
@@ -2625,6 +3180,23 @@ def main() -> int:
           f"224 in one step, {CONFIG_C_STEPS} steps")
     launches.update(run_config_c(torch, kernels, shared["extractor"],
                                  main_ms))
+    torch.cuda.empty_cache()
+    print(f"phase 12: the inversion tool on limes at 224 x 281, full width "
+          f"(dino_vitb8, seeded), {INV_ITERS} steps at log_freq {INV_LOG}, "
+          f"nhwc and chw + pallas")
+    launches.update(run_inversion(torch, conv, kernels, inv_rows))
+    print("  fp32 (compute_dtype float32, nhwc), 3 steps: K1/K2 on the CUDA "
+          "cores at the inversion shape")
+    launches["inversion_fp32"] = run_inversion_fp32(torch, kernels)
+    print("  the main path with generator_layout=nhwc, 4 steps")
+    ncfg = load_config(None, dict(base, generator_layout="nhwc"))
+    nres, launches["main_nhwc"] = run_path(
+        torch, "main_nhwc", ncfg, 4, kernels,
+        ("attn_qkv_fwd", "attn_qkv_bwd"), **shared)
+    nhwc_ms = profile_steps(torch, nres["program"], ncfg)
+    print(f"  main with generator_layout=nhwc: replayed regular step "
+          f"{nhwc_ms:.2f} ms against chw's {main_ms:.2f}")
+    del nres
 
     line = []
     for name, (fn, route, source, replaces, path) in kernels.items():
@@ -2647,6 +3219,31 @@ def main() -> int:
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": b, "bound_by": by,
                      "library_ms": r["library_ms"], "shape": r["shape"]})
+    for (name, k), r in sorted(inv_rows.items()):
+        fn, route, source, replaces, _ = kernels[name]
+        line.append({"name": name, "route": route, "source": source,
+                     "cores": "tensor core", "replaces": replaces, "k": k,
+                     "launches": r["launches"],
+                     "path": "inversion_chw_pallas",
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"], "shape": r["shape"]})
+    for dt, path in (("bfloat16", "inversion_nhwc"),
+                     ("float32", "inversion_fp32")):
+        for (kid, tag), r in inv_qkv[dt].items():
+            name = {"K1": "attn_qkv_fwd", "K2": "attn_qkv_bwd"}[kid]
+            fn, route, source, replaces, _ = kernels[name]
+            b, by = bound_ms(r["nbytes"], r["flops"], r["dtype"])
+            line.append({"name": name, "route": route, "source": source,
+                         "cores": ("tensor core" if dt == "bfloat16"
+                                   else "CUDA core"),
+                         "replaces": replaces,
+                         "launches": launches[path][name], "path": path,
+                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                         "plain_ms": r["plain_ms"], "bound_ms": b,
+                         "bound_by": by, "library_ms": r["library_ms"],
+                         "shape": r["shape"]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)

@@ -16,6 +16,7 @@ import yaml
 
 # generator_conv values (the reference's, splice_tpu/config.py:81-85).
 GENERATOR_CONVS = ("auto", "xla", "pallas", "fused")
+GENERATOR_LAYOUTS = ("chw", "nhwc")
 # the reference's values of init_type, scheduler_policy and optimizer
 # (splice_tpu/config.py:150-154)
 INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
@@ -108,6 +109,11 @@ class Config:
     # the conv kernels everywhere, fused = BatchNorm apply + activation in
     # the conv kernels' input prologue (models/unet.skip_apply_chw).
     generator_conv: str = "auto"
+    # The generator's layout (the reference's key, splice_tpu/config.py:80):
+    # chw = models/unet.skip_apply_chw, routed by generator_conv; nhwc =
+    # models/unet.skip_apply, every conv F.conv2d on the channels_last
+    # view (XLA's conv in the reference).
+    generator_layout: str = "chw"
     device: str = "cuda"
 
     def validate(self) -> "Config":
@@ -119,6 +125,7 @@ class Config:
             "vit_compute_dtype": ("bfloat16", "float32"),
             "generator_compute_dtype": ("bfloat16", "float32"),
             "generator_conv": GENERATOR_CONVS,
+            "generator_layout": GENERATOR_LAYOUTS,
         }
         for name, allowed in checks.items():
             if getattr(self, name) not in allowed:

@@ -28,7 +28,9 @@
 // K4 (conv_dw_tc in bf16, conv_dw in fp32) replaces _make_dw_kernel
 // (:401, launched by _dw_impl :630),
 // with and without the prologue (recomputed on the read, as the TPU kernel
-// does) and at k in {1, 2, 3}:
+// does) and at k in {1, 2, 3, 4, 5, 7} (the training net's 3x3 and 1x1,
+// its stride-2 k2 = 2; the inversion net's 7x7 and 5x5 and their k2 = 4
+// and 3):
 // dw[dy,dx,c,co] = sum over b,y,x of V[b,c,y+dy,x+dx] * g[b,co,y,x].
 //
 // The SAME-border forms (the reference's SAME_BORDER_KERNELS route) are
@@ -425,6 +427,12 @@ int launch_dw(const void* x, const void* g, float* partial, float* dw,
                                      rows_per_chunk, stream);
     case 3: return launch_dw_k<T, 3>(x, g, partial, dw, src, B, Cout, Ho, Wo,
                                      rows_per_chunk, stream);
+    case 4: return launch_dw_k<T, 4>(x, g, partial, dw, src, B, Cout, Ho, Wo,
+                                     rows_per_chunk, stream);
+    case 5: return launch_dw_k<T, 5>(x, g, partial, dw, src, B, Cout, Ho, Wo,
+                                     rows_per_chunk, stream);
+    case 7: return launch_dw_k<T, 7>(x, g, partial, dw, src, B, Cout, Ho, Wo,
+                                     rows_per_chunk, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -607,7 +615,7 @@ __host__ __device__ constexpr int plane_elems(int rows, int cols) {
 
 // Row stride of both tiles: a tile starts up to 7 columns left of the
 // stage (its first source column a multiple of 8, for 16-byte loads), and
-// S adds a halo of K-1 <= 2, so TC + 16 columns hold every read
+// S adds a halo of K-1 <= 6, so TC + 16 columns hold every read
 // (ops/conv.py DW_TC_TILE_COLS).
 constexpr int SC = TC + 16;
 
@@ -1150,7 +1158,7 @@ __host__ __device__ constexpr int nb_of(int mt) {
 }
 
 // Row stride of V's tile: a stage's 8*NB columns, the lead (<= 7) and the
-// halo (<= 2) in whole 16-byte vectors (ops/conv.py fwd_tc_tile_cols).
+// halo (<= 6) in whole 16-byte vectors (ops/conv.py fwd_tc_tile_cols).
 __host__ __device__ constexpr int tile_cols(int mt) { return 8 * nb_of(mt) + 16; }
 
 // Row stride of the weight tile [co][t][c] for cb channels: an odd count
@@ -1482,7 +1490,8 @@ extern "C" int conv_valid_fwd(const void* x, const void* w, void* y,
 }
 
 // bf16 K3 on the tensor cores: as conv_valid_fwd, with x, w and y bf16 and
-// k in {1, 2, 3}. The tiling comes from ops/conv.py fwd_tc_tiling: strips
+// k in {1, 2, 3, 4, 5, 7}. The tiling comes from ops/conv.py fwd_tc_tiling
+// (fewer m16 tiles where a k = 7 weight tile would not fit): strips
 // of rows x cols output pixels (rows a multiple of 8, cols of 8 *
 // fwd_tc_nb(mt)), cb (a multiple of 16) channels of V per shared-memory
 // chunk, wcb channels per tap in the weight tile (cb, or a multiple of 16
@@ -1513,6 +1522,15 @@ extern "C" int conv_fwd_tc(const void* x, const void* w, void* y,
     case 3: return fwdtc::launch_k<3>(xb, src, wb, yb, st_part, stats, B,
                                       Cout, Ho, Wo, rows, cols, cb, wcb, mt,
                                       st);
+    case 4: return fwdtc::launch_k<4>(xb, src, wb, yb, st_part, stats, B,
+                                      Cout, Ho, Wo, rows, cols, cb, wcb, mt,
+                                      st);
+    case 5: return fwdtc::launch_k<5>(xb, src, wb, yb, st_part, stats, B,
+                                      Cout, Ho, Wo, rows, cols, cb, wcb, mt,
+                                      st);
+    case 7: return fwdtc::launch_k<7>(xb, src, wb, yb, st_part, stats, B,
+                                      Cout, Ho, Wo, rows, cols, cb, wcb, mt,
+                                      st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1537,7 +1555,7 @@ extern "C" int conv_dw_gtap(const void* x, const void* g, float* partial,
 // fp32 K4 (the CUDA cores). x, scale, shift, pad, stride, groups,
 // negslope: as conv_valid_fwd, x fp32; g [B,Cout,Ho,Wo] fp32; partial: fp32
 // scratch [B*ceil(Ho/rows_per_chunk), k*k*s*s*Cin*Cout]; dw: fp32
-// [k,k,s*s*Cin,Cout]. k in {1, 2, 3}.
+// [k,k,s*s*Cin,Cout]. k in {1, 2, 3, 4, 5, 7}.
 extern "C" int conv_dw(const void* x, const void* g, float* partial,
                        float* dw, const float* scale, const float* shift,
                        int B, int Cin, int H, int W, int Cout, int Ho, int Wo,
@@ -1587,6 +1605,12 @@ extern "C" int conv_dw_tc(const void* x, const void* g, float* partial,
     case 2: return dwtc::launch_k<2>(sx, ss, ux, us, partial, dw, B, Cs, Cu,
                                      Hp, Wp, rows, cols, cb, bn, wm, gtap, st);
     case 3: return dwtc::launch_k<3>(sx, ss, ux, us, partial, dw, B, Cs, Cu,
+                                     Hp, Wp, rows, cols, cb, bn, wm, gtap, st);
+    case 4: return dwtc::launch_k<4>(sx, ss, ux, us, partial, dw, B, Cs, Cu,
+                                     Hp, Wp, rows, cols, cb, bn, wm, gtap, st);
+    case 5: return dwtc::launch_k<5>(sx, ss, ux, us, partial, dw, B, Cs, Cu,
+                                     Hp, Wp, rows, cols, cb, bn, wm, gtap, st);
+    case 7: return dwtc::launch_k<7>(sx, ss, ux, us, partial, dw, B, Cs, Cu,
                                      Hp, Wp, rows, cols, cb, bn, wm, gtap, st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -1,4 +1,4 @@
-"""Splice losses (port of splice_tpu/losses.py:45-210).
+"""Splice losses (port of splice_tpu/losses.py).
 
   * structure: MSE between layer-11 key self-similarity Grams of the
     generated image and of the structure input;
@@ -9,6 +9,8 @@
 Per-crop reduction is the SUM of per-crop MSEs (the reference accumulates
 `loss += mse` over crops). Generated images go through the ViT in one
 batched forward with gradients; the targets in one forward under no_grad.
+LossG is the reference's class surface over the same losses, for tools and
+tests.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from splice_tpu_torch.models import extractor as ext
+from splice_tpu_torch.ops import image as img_ops
 
 # The loss terms and their lambdas, in the reference's order
 # (splice_tpu/trainer.py:219-224): the order of a step's lambda vector.
@@ -61,6 +64,26 @@ def per_pair_mse_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def per_crop_mse_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Sum over the leading (crop) axis of per-crop MSEs, in fp32."""
     return per_pair_mse_sum(a[None], b[None])[0]
+
+
+def structure_loss(gen_keys: torch.Tensor,
+                   tgt_keys: torch.Tensor) -> torch.Tensor:
+    """Key self-similarity Gram MSE (splice_tpu/losses.py:94-99); keys [n,
+    H, T, dh], the target side detached."""
+    return per_crop_mse_sum(ext.keys_self_sim(gen_keys),
+                            ext.keys_self_sim(tgt_keys.detach()))
+
+
+def appearance_loss(gen_cls: torch.Tensor,
+                    tgt_cls: torch.Tensor) -> torch.Tensor:
+    """CLS-token MSE (:102-104); cls [n, D]."""
+    return per_crop_mse_sum(gen_cls, tgt_cls.detach())
+
+
+def identity_loss(gen_keys: torch.Tensor,
+                  tgt_keys: torch.Tensor) -> torch.Tensor:
+    """Raw keys MSE of G(B) against B (:107-110)."""
+    return per_crop_mse_sum(gen_keys, tgt_keys.detach())
 
 
 def _features(extractor: ext.VitExtractor, images: torch.Tensor,
@@ -169,3 +192,69 @@ def weighted_total(losses: Dict[str, torch.Tensor],
             lam = lambdas.get(_LOSS_LAMBDA[name], 0.0)
         total = total + lam * value
     return total
+
+
+class LossG:
+    """The reference's LossG (splice_tpu/losses.py:217-292): __call__(
+    outputs, inputs) takes its dicts (outputs x_global, x_entire,
+    y_global; inputs A, A_global, B_global, step; NHWC) and returns the
+    same loss keys and "loss", each term only where its lambda of the step
+    is positive. A crop stack runs through the ViT as one batch."""
+
+    def __init__(self, cfg, extractor: ext.VitExtractor):
+        self.cfg = cfg
+        self.extractor = extractor
+        self.ssim_layer = extractor.cfg.depth - 1
+        self.lambdas = lambdas_for_step(cfg, 0)
+
+    def update_lambda_config(self, step: int) -> None:
+        """The reference's schedule update: refreshes `lambdas` (__call__
+        computes them from the step anyway)."""
+        self.lambdas = lambdas_for_step(self.cfg, step)
+
+    def _transform(self, x: torch.Tensor) -> torch.Tensor:
+        y = img_ops.dino_global_resize(x, self.cfg.dino_global_patch_size,
+                                       self.cfg.dino_global_max_size,
+                                       self.cfg.antialias)
+        return img_ops.imagenet_normalize(y)
+
+    def _keys(self, x: torch.Tensor) -> torch.Tensor:
+        return self.extractor.get_keys_from_input(self._transform(x),
+                                                  self.ssim_layer)
+
+    def calculate_global_ssim_loss(self, outputs, inputs) -> torch.Tensor:
+        return structure_loss(self._keys(outputs), self._keys(inputs))
+
+    def calculate_crop_cls_loss(self, outputs, inputs) -> torch.Tensor:
+        # the reference zips the two crop stacks: the longer is cut to the
+        # shorter
+        nm = min(outputs.shape[0], inputs.shape[0])
+        get = self.extractor.get_cls_token_from_input
+        return appearance_loss(get(self._transform(outputs[:nm])),
+                               get(self._transform(inputs[:nm])))
+
+    def calculate_global_id_loss(self, outputs, inputs) -> torch.Tensor:
+        return identity_loss(self._keys(outputs), self._keys(inputs))
+
+    def __call__(self, outputs: Dict[str, torch.Tensor],
+                 inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        lam = lambdas_for_step(self.cfg, int(inputs["step"]))
+        losses: Dict[str, torch.Tensor] = {}
+        if lam["lambda_global_ssim"] > 0:
+            losses["loss_global_ssim"] = self.calculate_global_ssim_loss(
+                outputs["x_global"], inputs["A_global"])
+        if lam["lambda_entire_ssim"] > 0:
+            losses["loss_entire_ssim"] = self.calculate_global_ssim_loss(
+                outputs["x_entire"], inputs["A"])
+        if lam["lambda_entire_cls"] > 0:
+            # one x_entire zipped against the B crops: the first crop only
+            losses["loss_entire_cls"] = self.calculate_crop_cls_loss(
+                outputs["x_entire"][:1], inputs["B_global"][:1])
+        if lam["lambda_global_cls"] > 0:
+            losses["loss_global_cls"] = self.calculate_crop_cls_loss(
+                outputs["x_global"], inputs["B_global"])
+        if lam["lambda_global_identity"] > 0:
+            losses["loss_global_id_B"] = self.calculate_global_id_loss(
+                outputs["y_global"], inputs["B_global"])
+        losses["loss"] = weighted_total(dict(losses), lam)
+        return losses

@@ -1,5 +1,5 @@
-"""DIP-style skip U-Net generator in [B, C, H, W] (port of
-splice_tpu/models/unet.py:29-63,82-135,297-475,620-805).
+"""DIP-style skip U-Net generator (port of splice_tpu/models/unet.py),
+computed in [B, C, H, W] (skip_apply_chw) or in NHWC (skip_apply).
 
 Parameters are a nested dict with the reference's names and layouts (conv
 kernels [kh, kw, Cin, Cout]). flatten_params orders the leaves exactly as
@@ -14,10 +14,16 @@ stacks as one batch of 2 with BN per stack (the reference's vmap over
 stacks).
 
 skip_apply_chw runs the reference's four generator_conv modes; see there.
+skip_apply is the reference's NHWC route (its generator_layout "nhwc"): the
+downsamplers avg, max, lanczos2 and lanczos3, BatchNorm in the deviation
+form, every conv F.conv2d on the channels_last view of the NHWC tensor (XLA's
+conv in the reference). In torch NHWC is a memory format: a [B, H, W, C]
+tensor permuted to NCHW is channels_last, and the conv reads it in place.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
@@ -43,10 +49,13 @@ KERNEL_MIN_WIDTH = 448
 FORCE_FUSED_KERNELS_ON_CPU = False
 
 
+ACT_FUNS = ("LeakyReLU", "Swish", "ELU", "none")
+DOWNSAMPLE_MODES = ("stride", "avg", "max", "lanczos2", "lanczos3")
+
+
 @dataclasses.dataclass(frozen=True)
 class SkipConfig:
-    """The reference skip() signature, restricted to what the port runs:
-    stride downsampling, LeakyReLU or no activation."""
+    """The reference skip() signature (splice_tpu/models/unet.py:29-62)."""
     num_input_channels: int = 3
     num_output_channels: int = 3
     channels_down: Tuple[int, ...] = (16, 32, 64, 128, 128)
@@ -60,15 +69,19 @@ class SkipConfig:
     need_bias: bool = True
     pad: str = "zero"                 # zero | reflection
     upsample_mode: str = "bilinear"   # bilinear | nearest
-    act_fun: str = "LeakyReLU"        # LeakyReLU | none
+    downsample_mode: str = "stride"   # stride | avg | max | lanczos2/3
+    act_fun: str = "LeakyReLU"        # LeakyReLU | Swish | ELU | none
     need1x1_up: bool = True
 
     def __post_init__(self):
         if not (len(self.channels_down) == len(self.channels_up)
                 == len(self.channels_skip)):
             raise ValueError("channel lists differ in length")
-        if self.act_fun not in ("LeakyReLU", "none"):
-            raise NotImplementedError(f"act_fun {self.act_fun!r} not ported")
+        if self.act_fun not in ACT_FUNS:
+            raise ValueError(f"act_fun {self.act_fun!r}; one of {ACT_FUNS}")
+        if self.downsample_mode not in DOWNSAMPLE_MODES:
+            raise ValueError(f"downsample_mode {self.downsample_mode!r}; one "
+                             f"of {DOWNSAMPLE_MODES}")
 
     @property
     def n_scales(self) -> int:
@@ -83,12 +96,34 @@ class SkipConfig:
         return f[i] if isinstance(f, (tuple, list)) else f
 
 
+def inversion_skip_config(input_depth: int = 32) -> SkipConfig:
+    """The inversion tool's 6-scale net: 7x7, 7x7, 5x5, 5x5, 3x3, 3x3
+    filters with reflection padding (splice_tpu/models/unet.py:67-75)."""
+    return SkipConfig(
+        num_input_channels=input_depth,
+        channels_down=(16, 32, 64, 128, 128, 128),
+        channels_up=(16, 32, 64, 128, 128, 128),
+        channels_skip=(4, 4, 4, 4, 4, 4),
+        filter_size_down=(7, 7, 5, 5, 3, 3),
+        filter_size_up=(7, 7, 5, 5, 3, 3),
+        pad="reflection")
+
+
 # ---------------------------------------------------------------------------
 # Building blocks
 # ---------------------------------------------------------------------------
 
 def act(x: torch.Tensor, act_fun: str) -> torch.Tensor:
-    return F.leaky_relu(x, 0.2) if act_fun == "LeakyReLU" else x
+    """The reference's activations (splice_tpu/models/unet.py:82-92)."""
+    if act_fun == "LeakyReLU":
+        return F.leaky_relu(x, 0.2)
+    if act_fun == "Swish":
+        return x * torch.sigmoid(x)
+    if act_fun == "ELU":
+        return F.elu(x)
+    if act_fun == "none":
+        return x
+    raise ValueError(act_fun)
 
 
 def conv2d_chw(x: torch.Tensor, p: Dict[str, torch.Tensor], stride: int = 1,
@@ -326,12 +361,17 @@ def skip_apply_chw(params: Dict[str, Any], cfg: SkipConfig,
       * "pallas": every conv is kernel_conv_chw (K3/K4; stride 2 through
         their space-to-depth forms, 1x1 at k = 1);
       * "fused": deferred BatchNorm through the prologue kernels
-        (_fused_forward). The reference falls back to "auto" for
-        activations the prologue lacks; SkipConfig admits only
-        LeakyReLU and none, which it has.
-    On CPU tensors the kernel routes run their plain versions."""
+        (_fused_forward); with an activation the prologue lacks (Swish,
+        ELU) "auto", as the reference degrades it (:636-642).
+    On CPU tensors the kernel routes run their plain versions. A
+    downsample_mode other than "stride" takes the NHWC route (skip_apply),
+    as the reference's does (:634-635)."""
     if conv_impl not in GENERATOR_CONVS:
         raise ValueError(f"conv_impl {conv_impl!r}; one of {GENERATOR_CONVS}")
+    if cfg.downsample_mode != "stride":
+        return skip_apply(params, cfg, x_nhwc, compute_dtype, groups)
+    if conv_impl == "fused" and cfg.act_fun not in ("LeakyReLU", "none"):
+        conv_impl = "auto"
     x = x_nhwc.permute(0, 3, 1, 2)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
@@ -352,6 +392,184 @@ def skip_apply_chw(params: Dict[str, Any], cfg: SkipConfig,
     elif cfg.need_tanh:
         y = torch.tanh(y)
     return y.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# The NHWC route (splice_tpu/models/unet.py:95-235, 806-856)
+# ---------------------------------------------------------------------------
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> the NCHW view (channels_last for a contiguous x)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def batch_norm(x: torch.Tensor, p: Dict[str, torch.Tensor], groups: int = 1,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Train-mode BatchNorm of NHWC x over (B, H, W) of each of `groups`
+    equal batch slices, in the reference's deviation form (:95-112): the
+    mean in fp32, then the mean of (x - mean)^2 with the difference in x's
+    type, and one affine pass in x's type."""
+    xs = split_stacks(x, groups)                      # [G, B/G, H, W, C]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    mean = xs.mean(dim=(1, 2, 3), dtype=acc)          # [G, C]
+    dev = xs - mean.to(x.dtype)[:, None, None, None]
+    var = torch.square(dev).mean(dim=(1, 2, 3), dtype=acc)
+    inv = torch.rsqrt(var + eps) * wide(p["scale"])
+    shift = wide(p["bias"]) - mean * inv
+    y = xs * inv.to(x.dtype)[:, None, None, None] \
+        + shift.to(x.dtype)[:, None, None, None]
+    return y.reshape(x.shape)
+
+
+def conv2d(x: torch.Tensor, p: Dict[str, torch.Tensor], stride: int = 1,
+           pad: str = "zero") -> torch.Tensor:
+    """The NHWC conv (:115-135): torch (k-1)//2 zero or reflection padding,
+    F.conv2d on the channels_last view, the bias added after. x [B, H, W,
+    Cin], kernel [kh, kw, Cin, Cout] -> [B, H', W', Cout]."""
+    w = p["kernel"]
+    to_pad = (w.shape[0] - 1) // 2
+    xc = _nchw(x)
+    if pad == "reflection" and to_pad > 0:
+        xc = F.pad(xc, (to_pad,) * 4, mode="reflect")
+        to_pad = 0
+    y = F.conv2d(xc, w.permute(3, 2, 0, 1).to(x.dtype), stride=stride,
+                 padding=to_pad)
+    y = _nhwc(y)
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype)
+    return y
+
+
+def _downsampler_kernel(kernel_type: str, factor: int) -> np.ndarray:
+    """The analytic box, lanczos (phase 0.5, even size 2 * support *
+    factor) and gauss kernels (:138-178; reference downsampler.py:73-135),
+    float64, normalised to sum 1."""
+    if kernel_type == "box":
+        return np.ones((factor, factor), np.float64) / factor ** 2
+    if kernel_type.startswith("lanczos"):
+        support = int(kernel_type[-1])
+        kernel_width = 2 * support * factor + 1
+        ksize = kernel_width - 1
+        k = np.zeros((ksize, ksize), np.float64)
+        center = (kernel_width + 1.0) / 2.0
+        for i in range(1, ksize + 1):
+            for j in range(1, ksize + 1):
+                val = 1.0
+                for d in (abs(i + 0.5 - center) / factor,
+                          abs(j + 0.5 - center) / factor):
+                    if d == 0:
+                        continue
+                    if d < support:
+                        val *= (support * np.sin(np.pi * d)
+                                * np.sin(np.pi * d / support)
+                                / (np.pi ** 2 * d ** 2))
+                    else:
+                        val = 0.0
+                k[i - 1, j - 1] = val
+        return k / k.sum()
+    if kernel_type == "gauss":
+        sigma = 0.5
+        ksize = int(np.ceil(sigma * 4)) * 2 + 1
+        ax = np.arange(ksize) - ksize // 2
+        g = np.exp(-(ax ** 2) / (2 * sigma ** 2))
+        k = np.outer(g, g)
+        return k / k.sum()
+    raise ValueError(kernel_type)
+
+
+def downsample(x: torch.Tensor, mode: str, factor: int = 2) -> torch.Tensor:
+    """The non-stride downsamplers of NHWC x (:181-205): avg and max over
+    factor x factor windows, lanczos2/3 as a depthwise stride-factor conv
+    after an edge (replication) pad; any other mode raises."""
+    xc = _nchw(x)
+    if mode == "avg":
+        return _nhwc(F.avg_pool2d(xc, factor, factor))
+    if mode == "max":
+        return _nhwc(F.max_pool2d(xc, factor, factor))
+    if mode in ("lanczos2", "lanczos3"):
+        kern = _depthwise_kernel(mode, factor, x.shape[-1], x.dtype, x.device)
+        ks = kern.shape[-1]
+        pad = (ks - factor) // 2 + (ks - factor) % 2
+        xp = F.pad(xc, (pad,) * 4, mode="replicate")
+        return _nhwc(F.conv2d(xp, kern, stride=factor, groups=x.shape[-1]))
+    raise ValueError(mode)
+
+
+@functools.lru_cache(maxsize=None)
+def _depthwise_kernel(mode: str, factor: int, c: int, dtype: torch.dtype,
+                      device) -> torch.Tensor:
+    """_downsampler_kernel as the [c, 1, ks, ks] weight of a depthwise
+    conv, made once per device (a captured step may not copy from the
+    host)."""
+    k = torch.from_numpy(_downsampler_kernel(mode, factor)).to(dtype)
+    return k.expand(c, 1, *k.shape).contiguous().to(device)
+
+
+def gen_noise(x: torch.Tensor, dim2: int,
+              generator: torch.Generator) -> torch.Tensor:
+    """GenNoise (:208-212): a standard normal [B, H, W, dim2] in x's type
+    and on x's device, drawn from `generator` (on its own device)."""
+    b, h, w, _ = x.shape
+    return torch.randn((b, h, w, dim2), generator=generator,
+                       device=generator.device, dtype=x.dtype).to(x.device)
+
+
+def upsample2(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """x2 upsample of NHWC x (:215-220), half-pixel centres."""
+    return _nhwc(upsample2x_chw(_nchw(x), mode))
+
+
+def concat_crop(xs: List[torch.Tensor]) -> torch.Tensor:
+    """Concatenate NHWC branches along channels after centre-cropping each
+    to the smallest height and width (:223-235)."""
+    return _nhwc(_center_crop_cat([_nchw(t) for t in xs]))
+
+
+def skip_apply(params: Dict[str, Any], cfg: SkipConfig, x: torch.Tensor,
+               compute_dtype=None, groups: int = 1) -> torch.Tensor:
+    """The reference's NHWC generator (:806-856): [B, H, W, Cin] in [0, 1]
+    -> [B, H', W', Cout] fp32. groups: batch stacks with their own
+    BatchNorm statistics (the reference's vmap over stacks)."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+
+    def bn(t, p):
+        return batch_norm(t, p, groups)
+
+    def scale_fn(i: int, xin: torch.Tensor) -> torch.Tensor:
+        sp = params["scales"][i]
+        branches = []
+        if cfg.channels_skip[i]:
+            s = conv2d(xin, sp["skip_conv"], 1, cfg.pad)
+            branches.append(act(bn(s, sp["skip_bn"]), cfg.act_fun))
+        if cfg.downsample_mode == "stride":
+            d = conv2d(xin, sp["down_conv1"], 2, cfg.pad)
+        else:
+            d = downsample(conv2d(xin, sp["down_conv1"], 1, cfg.pad),
+                           cfg.downsample_mode, 2)
+        d = act(bn(d, sp["down_bn1"]), cfg.act_fun)
+        d = act(bn(conv2d(d, sp["down_conv2"], 1, cfg.pad), sp["down_bn2"]),
+                cfg.act_fun)
+        inner = scale_fn(i + 1, d) if i < cfg.n_scales - 1 else d
+        branches.append(upsample2(inner, cfg.upsample_mode))
+        y = bn(concat_crop(branches), sp["post_bn"])
+        y = act(bn(conv2d(y, sp["up_conv"], 1, cfg.pad), sp["up_bn"]),
+                cfg.act_fun)
+        if cfg.need1x1_up:
+            y = act(bn(conv2d(y, sp["up1x1_conv"], 1, cfg.pad),
+                       sp["up1x1_bn"]), cfg.act_fun)
+        return y
+
+    y = conv2d(scale_fn(0, x), params["out_conv"], 1, cfg.pad).float()
+    if cfg.need_sigmoid:
+        y = torch.sigmoid(y)
+    elif cfg.need_tanh:
+        y = torch.tanh(y)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,12 @@ PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("attention", "conv")
+# --split-compile=0: the device optimiser runs on every core (the conv
+# library's 60-odd template instances took 116 s on one, 47 s split, on the
+# H100 machine's 8 cores)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 # dtype codes of the C entry points
 DTYPES = {"float32": 0, "bfloat16": 1}

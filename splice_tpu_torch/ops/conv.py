@@ -81,9 +81,15 @@ DW_TC_TILE_COLS = DW_TC_COLS + 16   # row stride of both tiles (csrc SC)
 DW_TC_S_BYTES = 96 * 1024  # shared memory for the tapped operand's tile
 DW_TC_BLOCKS = 528
 
+# The k of every kernel but K7 (csrc/conv.cu's cases): the training net's
+# 3x3 and 1x1 and its stride-2 k2 = 2, the inversion net's 7x7 and 5x5
+# (splice_tpu/models/unet.py:67-75) and their k2 = 4 and 3.
+KERNEL_KS = (1, 2, 3, 4, 5, 7)
+
 # bf16 K3 on the tensor cores (csrc/conv.cu, namespace fwdtc): a block
 # holds up to FWD_TC_MT m16 tiles of Cout (wider outputs split into evened
-# chunks) and walks a strip of output pixels in stages of FWD_TC_ROWS rows
+# chunks; fewer tiles where a k = 7 weight tile would not fit) and walks a
+# strip of output pixels in stages of FWD_TC_ROWS rows
 # (one per warp) x 8 * fwd_tc_nb(mt) columns, staging V's channels in
 # chunks that fit FWD_TC_SMEM with the weights (two blocks per SM); the
 # grid aims at FWD_TC_BLOCKS blocks, as the dw kernel's.
@@ -300,9 +306,9 @@ def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name,
         raise ValueError(f"{name}: kernel {tuple(w.shape)} vs input "
                          f"{tuple(x.shape)}, stride {stride}")
     tc = dtype == _build.DTYPES["bfloat16"]
-    if tc and k not in (1, 2, 3):
+    if tc and k not in KERNEL_KS:
         raise ValueError(f"{name}: the bf16 kernel is built for k in "
-                         f"(1, 2, 3), got {k}")
+                         f"{KERNEL_KS}, got {k}")
     ho, wo = out_hw
     sp, tp, G = _prologue_args(x, scale, shift)
     y = torch.empty(B, cout, ho, wo, dtype=x.dtype, device=x.device)
@@ -381,23 +387,33 @@ def fwd_tc_tiling(k: int, cv: int, cout: int, batch: int, ho: int,
                   wo: int) -> FwdTiling:
     """How conv_fwd_tc splits y[co, p] = sum_(t, c) w[t, c, co] V[c, p + t]
     over [batch, ho, wo] outputs, cv channels of V: Cout in as few evened
-    chunks of at most FWD_TC_MT m16 tiles as it takes; V's channels in as
+    chunks of at most FWD_TC_MT m16 tiles as it takes, of fewer tiles where
+    a 16-channel chunk beside its weights would not fit FWD_TC_SMEM (at k =
+    7 the weight tile of 49 taps allows one m16 tile); V's channels in as
     few evened chunks of a multiple of 16 as FWD_TC_SMEM allows, with every
     channel's weights resident where they fit beside a chunk, else staged
     with each chunk; strips of whole stages, full-width where the grid
     still reaches about FWD_TC_BLOCKS blocks, else split along the
     columns."""
-    n_co = -(-cout // (16 * FWD_TC_MT))
-    mt = -(-(-(-cout // n_co)) // 16)
-    n_co = -(-cout // (16 * mt))
     c_all = 16 * -(-cv // 16)
     chunks = range(c_all, 0, -16)
-    # the widest chunk beside every channel's weights, else beside its own
-    cb = next((c for c in chunks
-               if fwd_tc_smem(k, c, c_all, mt) <= FWD_TC_SMEM), 0)
-    resident = cb > 0
-    if not resident:
-        cb = next(c for c in chunks if fwd_tc_smem(k, c, c, mt) <= FWD_TC_SMEM)
+    for cap in range(FWD_TC_MT, 0, -1):
+        n_co = -(-cout // (16 * cap))
+        mt = -(-(-(-cout // n_co)) // 16)
+        n_co = -(-cout // (16 * mt))
+        # the widest chunk beside every channel's weights, else beside its
+        # own
+        cb = next((c for c in chunks
+                   if fwd_tc_smem(k, c, c_all, mt) <= FWD_TC_SMEM), 0)
+        resident = cb > 0
+        if not resident:
+            cb = next((c for c in chunks
+                       if fwd_tc_smem(k, c, c, mt) <= FWD_TC_SMEM), 0)
+        if cb:
+            break
+    else:
+        raise ValueError(f"fwd_tc_tiling: no tiling of k = {k} fits "
+                         f"{FWD_TC_SMEM} bytes")
     n_cc = -(-cv // cb)
     cb = 16 * -(-(-(-cv // n_cc)) // 16)
     wcb = c_all if resident else cb
@@ -515,8 +531,8 @@ def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name):
     be in x's type. bf16 on the tensor cores, fp32 on the CUDA cores."""
     x, g = x.contiguous(), g.contiguous()
     dtype = _build.check_cuda_tensors(name, x, g)
-    if k not in (1, 2, 3):
-        raise ValueError(f"{name}: kernel is built for k in (1, 2, 3), "
+    if k not in KERNEL_KS:
+        raise ValueError(f"{name}: kernel is built for k in {KERNEL_KS}, "
                          f"got {k}")
     B, cin, h, wd = x.shape
     cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]

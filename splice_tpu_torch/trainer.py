@@ -443,6 +443,12 @@ class SpliceTrainer:
 
     def generate(self, params, x_nhwc: torch.Tensor,
                  groups: int = 1) -> torch.Tensor:
+        """The generator by cfg.generator_layout, as the reference routes
+        it (splice_tpu/trainer.py:262-266): the CHW route under
+        cfg.generator_conv, or the NHWC route."""
+        if self.cfg.generator_layout == "nhwc":
+            return unet.skip_apply(params, self.gcfg, x_nhwc, self.gdt,
+                                   groups)
         return unet.skip_apply_chw(params, self.gcfg, x_nhwc, self.gdt,
                                    groups, self.cfg.generator_conv)
 
@@ -615,8 +621,10 @@ class SpliceProgram:
         dev = trainer.device
         self.trainer, self.graphed = trainer, dev.type == "cuda"
         shape = trainer.row_shape
+        # the step's loss columns (tools.inversion's step has one)
+        self.keys = getattr(trainer, "loss_keys", LOSS_KEYS)
         self.rows = torch.zeros(capacity, *shape, device=dev)
-        self.loss_seq = torch.zeros(capacity, *shape[:-1], len(LOSS_KEYS),
+        self.loss_seq = torch.zeros(capacity, *shape[:-1], len(self.keys),
                                     device=dev)
         self.counter = torch.zeros(1, dtype=torch.long, device=dev)
         self.graphs: Dict[Tuple[bool, bool, bool], CapturedStep] = {}
@@ -626,7 +634,7 @@ class SpliceProgram:
     def _body(self, entire: bool) -> None:
         row = self.rows.index_select(0, self.counter)[0]
         parts = self.trainer.step(row, None, entire)
-        vals = torch.stack([parts[k] for k in LOSS_KEYS], dim=-1)
+        vals = torch.stack([parts[k] for k in self.keys], dim=-1)
         self.loss_seq.index_copy_(0, self.counter, vals[None])
         self.counter += 1
 

@@ -195,7 +195,10 @@ def _check(got, want):
 # the phase image at odd sizes, several channel chunks of either operand
 # (Cin 48 -> 2 chunks of S; Cout 72 -> 2 of U), and strips of several
 # stages (the last column: ops.conv.DW_TC_BLOCKS, here 3 where the
-# wrapper's grid would give each strip a single stage at these sizes)
+# wrapper's grid would give each strip a single stage at these sizes); the
+# inversion net's k = 7 and 5 (VALID, and H < k with the prologue) and
+# their stride-2 phase images (k2 = 4 and 3; Cin 36 -> 144 channels of S
+# in chunks)
 K4_CASES = (
     (3, 1, 1, 5, 6, 11, 37, 0, 1.0, conv.DW_TC_BLOCKS),
     (3, 1, 1, 5, 6, 2, 37, 0, 1.0, conv.DW_TC_BLOCKS),
@@ -206,6 +209,10 @@ K4_CASES = (
     (1, 0, 1, 5, 72, 4, 19, 2, 1.0, conv.DW_TC_BLOCKS),
     (3, 1, 2, 3, 5, 13, 37, 0, 1.0, conv.DW_TC_BLOCKS),
     (3, 1, 2, 4, 6, 19, 75, 2, 0.2, 3),
+    (7, 0, 1, 5, 6, 12, 37, 0, 1.0, conv.DW_TC_BLOCKS),
+    (5, 2, 1, 6, 5, 4, 39, 2, 0.2, 3),
+    (7, 3, 2, 4, 6, 15, 39, 0, 1.0, conv.DW_TC_BLOCKS),
+    (5, 2, 2, 36, 16, 11, 29, 0, 1.0, conv.DW_TC_BLOCKS),
 )
 
 
@@ -258,6 +265,12 @@ PATH_CALLS = (
     (2, 512, 128, 28, 28), (3, 132, 128, 56, 56), (3, 16, 36, 898, 898),
     (3, 32, 68, 450, 450), (3, 36, 16, 900, 1200), (2, 12, 16, 450, 600),
     (3, 136, 128, 57, 75),
+    # the inversion net on limes at 224 x 281: k = 7 and 5, and the phase
+    # images' k2 = 4 and 3
+    (7, 36, 16, 224, 281), (7, 16, 16, 112, 141), (7, 68, 32, 112, 141),
+    (7, 32, 32, 56, 71), (5, 132, 64, 56, 71), (5, 64, 64, 28, 36),
+    (5, 132, 128, 28, 36), (5, 128, 128, 14, 18), (4, 128, 16, 112, 141),
+    (4, 64, 32, 56, 71), (3, 128, 64, 28, 36), (3, 256, 128, 14, 18),
 )
 
 

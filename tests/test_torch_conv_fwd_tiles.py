@@ -241,7 +241,9 @@ def _check(got, want):
 # sizes; two stacks with a scale of 1e-13 and a negative one, with and
 # without the K3''' sums; strips of several stages (the last column:
 # ops.conv.FWD_TC_BLOCKS, here 3 where the wrapper's grid would give each
-# strip a single stage at these sizes)
+# strip a single stage at these sizes); the inversion net's k = 7 and 5
+# (VALID on a reflection-padded input, one m16 tile a block at k = 7, H <
+# k) and their stride-2 phase kernels k2 = 4 and 3, and k = 4 itself
 B_ALL = conv.FWD_TC_BLOCKS
 FWD_CASES = (
     (3, 1, 1, 36, 16, 11, 37, 0, 1.0, False, B_ALL),
@@ -257,6 +259,12 @@ FWD_CASES = (
     (3, 1, 1, 8, 128, 5, 21, 2, 0.2, True, B_ALL),
     (3, 1, 2, 3, 16, 13, 37, 0, 1.0, False, B_ALL),
     (3, 1, 2, 4, 6, 19, 75, 2, 0.2, False, 3),
+    (7, 0, 1, 16, 16, 13, 37, 0, 1.0, False, B_ALL),
+    (7, 3, 1, 5, 36, 4, 37, 0, 1.0, False, B_ALL),
+    (5, 2, 1, 36, 68, 6, 21, 2, 0.2, True, B_ALL),
+    (4, 0, 1, 8, 5, 9, 39, 0, 1.0, False, B_ALL),
+    (7, 3, 2, 6, 16, 15, 39, 0, 1.0, False, 3),
+    (5, 2, 2, 4, 6, 13, 37, 2, 0.2, False, B_ALL),
 )
 
 
@@ -293,6 +301,9 @@ GRAD_CASES = (
     (3, 1, 1, 68, 32, 5, 21),
     (1, 0, 1, 16, 3, 9, 75),
     (3, 1, 2, 4, 6, 13, 37),
+    (7, 0, 1, 16, 16, 13, 37),
+    (7, 3, 2, 4, 6, 15, 37),
+    (5, 0, 2, 8, 16, 11, 29),
 )
 
 
@@ -328,15 +339,30 @@ PATH_CALLS = (
     (3, 128, 132, 2, 56, 56), (3, 36, 16, 1, 900, 1200),
     (2, 12, 16, 1, 450, 600), (3, 132, 128, 1, 57, 75),
     (3, 132, 64, 1, 113, 150),
+    # the inversion net on limes at 224 x 281 (B = 1; generator_conv
+    # pallas): k = 7 and 5 forward and input gradient, the phase kernels
+    # k2 = 4 and 3 and their input gradients
+    (7, 36, 16, 1, 224, 281), (7, 16, 36, 1, 230, 287),
+    (7, 16, 16, 1, 112, 141), (7, 16, 16, 1, 118, 147),
+    (7, 68, 32, 1, 112, 141), (7, 32, 68, 1, 118, 147),
+    (7, 32, 32, 1, 56, 71), (5, 132, 64, 1, 56, 71),
+    (5, 64, 132, 1, 60, 75), (5, 64, 64, 1, 28, 36),
+    (5, 132, 128, 1, 28, 36), (5, 128, 132, 1, 32, 40),
+    (4, 128, 16, 1, 112, 141), (4, 64, 32, 1, 56, 71),
+    (4, 32, 64, 1, 59, 74), (4, 16, 128, 1, 115, 144),
+    (3, 128, 64, 1, 28, 36), (3, 64, 128, 1, 30, 38),
+    (3, 256, 128, 1, 14, 18), (3, 128, 256, 1, 16, 20),
 )
 
 
 @pytest.mark.parametrize("k,cv,cout,batch,ho,wo", PATH_CALLS)
 def test_fwd_tiling_fits_the_kernel(k, cv, cout, batch, ho, wo):
     """The tiling's chunks fit the shared memory (two blocks per SM) and
-    the warps' accumulators; Cout up to 80 stays in one block; strips are
-    whole stages and cover the output; the grid reaches one block per SM
-    where the output allows it."""
+    the warps' accumulators; Cout is split into as few chunks as fit (up to
+    80 in one block at k <= 5; at k = 7 a chunk of 16 channels beside its
+    49 taps' weights leaves room for one m16 tile); strips are whole stages
+    and cover the output; the grid reaches one block per SM where the
+    output allows it."""
     t = conv.fwd_tc_tiling(k, cv, cout, batch, ho, wo)
     nb = conv.fwd_tc_nb(t.mt)
     assert 1 <= t.mt <= conv.FWD_TC_MT and t.mt * nb <= 16
@@ -345,7 +371,13 @@ def test_fwd_tiling_fits_the_kernel(k, cv, cout, batch, ho, wo):
     assert t.wcb % 16 == 0 and (t.wcb >= cv or t.wcb == t.cb)
     assert 2 * (conv.FWD_TC_SMEM + 1024) <= 228 * 1024
     n_co = -(-cout // (16 * t.mt))
-    assert n_co == 1 or cout > 16 * conv.FWD_TC_MT
+    if n_co > 1:
+        # one chunk fewer needs more m16 tiles than a block holds, or than
+        # its shared memory holds beside a 16-channel chunk's weights
+        mt_fewer = -(-(-(-cout // (n_co - 1))) // 16)
+        assert (mt_fewer > conv.FWD_TC_MT or conv.fwd_tc_smem(
+            k, 16, 16, mt_fewer) > conv.FWD_TC_SMEM)
+    assert k == 7 or n_co == 1 or cout > 16 * conv.FWD_TC_MT
     assert t.rows % TR == 0 and t.cols % (8 * nb) == 0
     strips = batch * -(-ho // t.rows) * -(-wo // t.cols)
     assert t.tiles == strips

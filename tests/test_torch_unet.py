@@ -126,8 +126,8 @@ def test_per_stack_batch_norm_differs_from_joint():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tunet.SkipConfig(act_fun="Swish")
+    with pytest.raises(ValueError):       # a key unported by design
+        load_config(None, {"compile_cache_dir": "/tmp/cache"})
     with pytest.raises(ValueError):
         TConfig(generator_conv="nhwc").validate()
     with pytest.raises(ValueError):       # a key unported by design
