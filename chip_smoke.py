@@ -72,7 +72,7 @@ Phases, each fatal on failure:
      generator_conv auto, fused and pallas, fused and pallas with the SAME
      route, and fused with the SAME route but ops.conv.DW_TAP_ON_N off (K4
      for the dw that K7 takes otherwise: an ablation of the reference's
-     routing on this card), at 224, measured in turns;
+     routing on this card), at 224, measured in turns (two rounds);
   8. a run as a user runs it: train_pair on the main path for 300 steps
      at the reference's defaults (log_images_freq 10, entire_A_every 75,
      cls_warmup 1), the cosine schedule over the 300 steps, metrics_path
@@ -134,7 +134,27 @@ Phases, each fatal on failure:
      regular step profiled beside main's. Prints
      iterations/s replayed and sustained, kernel ms per step and peak
      memory for each layout.
-Phase 2 also holds K1/K2 at the DINOv2 paths' shapes (DINOV2_QKV), at
+  13. the mesh (parallel.mesh, models.vit's tensor-parallel block):
+     train_pairs over config c's eight pairs at dp = 2 x tp = 2 over
+     [cuda:0] * 4 (two groups of four pairs, each group's ViT over two
+     ranks of 6 heads, each group one captured graph per step class),
+     MESH_STEPS steps. Gates: the rows equal phase 11's and every pair's
+     losses agree with phase 11's dp = tp = 1 run within the larger of
+     bf16's tolerance and 2 x the eager spreads phases 4b and 11
+     measured; K1/K2 launched inside both groups' graphs on the tensor
+     cores, every launch at 6 heads. Prints pair-steps/s (informational:
+     the four ranks share one card). Then train_pairs with mesh_dp 2 on
+     two pairs checkpoints and a dp = 1 run resumes from it with every
+     pair's parameters and Adam state equal; and ViT-B/8 at tp = 4 (3
+     heads a rank: K5/K6) against tp = 1, taps and input gradient;
+  14. observability and ablations: the main path with profile_dir (an
+     18-step run tracing steps 12-16): the trace's K1 kernels are exactly
+     5 x the K1 calls of the regular graph, and tools/trace_agg.py reads
+     it; the main path with use_pallas_attention=false (SDPA): no K1, K2,
+     K5 or K6 launch, its replayed step beside main's; tools/ablate.py at
+     the default and with xlaattn.
+Phase 2 also holds K1/K2 at the mesh's tp = 2 shape (MESH_QKV) and K5/K6
+at its tp = 4 shape (MESH_SPLIT). Phase 2 also holds K1/K2 at the DINOv2 paths' shapes (DINOV2_QKV), at
 config c's batch of 16 (PAIRS_QKV; every launch on the tensor cores, in
 the JSON line as path config_c), at the inversion's [1, 981, 2304] in bf16
 and fp32 (INVERSION_QKV) and at 16 heads (QKV_EDGES), and K3 (plain, pro,
@@ -149,7 +169,9 @@ the NHWC generator (lanczos2, Swish) and a small inversion step (nhwc and
 chw + pallas, the inversion net at 128 x 160) on the card against the CPU,
 and the two pairs' captured graphs against eager steps.
 Prints the kernels' numbers as one JSON line, the card's name and power
-limit, and last {"ok": true, "device": {...}}. Without a CUDA device, or
+limit, and last {"ok": true, "device": {...}}. With `--mesh-cards 4` (a
+machine with four cards) it builds the kernels and runs phase 13 alone
+over cuda:0..3, against a dp = tp = 1 run of the same steps on cuda:0. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -193,6 +215,11 @@ SKIP3_STEPS = 3       # the fused SAME steps of the 3x3-skip generator
 # may differ from an eager run's by REPLAY_MULT x the spread of two eager
 # runs plus a floor (relative)
 REPLAY_MULT, REPLAY_LOSS_FLOOR, REPLAY_UPDATE_FLOOR = 4.0, 1e-4, 1e-3
+
+
+def mark(t_start: float) -> None:
+    """The seconds since the start, printed before each phase."""
+    print(f"[{time.perf_counter() - t_start:.1f} s]")
 
 
 def fail(msg: str) -> None:
@@ -451,6 +478,64 @@ PAIRS_QKV = ((16, 12, 785),)
 # 281, 28 x 35 patches of 8 and CLS through ViT-B/8 (bf16 by default, fp32
 # one flag away)
 INVERSION_QKV = ((1, 12, 981),)
+
+
+# The mesh phase's tensor-parallel attention shapes. K1/K2 (B, H, N): a
+# dp = 2 group of config c's pairs (4 pairs, one generated crop each of A
+# and B: a batch of 8) through ViT-B/8 at tp = 2, 6 heads a rank (local D
+# 384). K5/K6 (B, H, N, dh): the same batch at tp = 4, 3 heads a rank:
+# local D 192 fails the fused-qkv gate (D % 128), so the heads are split.
+MESH_QKV = ((8, 6, 785),)
+MESH_SPLIT = ((8, 3, 785, 64),)
+
+
+def check_split_shapes(torch, attn, shapes):
+    """K5/K6 (bf16) at `shapes` against their plain versions, K6 twice on
+    one input (bitwise equal), timed beside the plain versions and SDPA
+    with the bound of its bytes and operations, every launch on the tensor
+    cores. Returns {(kernel, shape): times and max_abs_err}."""
+    rtol, why = RTOL["bfloat16"]
+    dt, dtype_name, scale = torch.bfloat16, "bfloat16", 0.125
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fns = (attn.attn_fwd_cuda, attn.attn_bwd_cuda)
+    counts = [(f.launches, f.tc_launches) for f in fns]
+    out = {}
+    for B, H, N, dh in shapes:
+        gen = torch.Generator().manual_seed(50 + N)
+        q, k, v, g = (torch.randn(B, H, N, dh, generator=gen).to("cuda", dt)
+                      for _ in range(4))
+        tag = f"[{B},{H},{N},{dh}] {dtype_name}"
+        err5 = compare(f"K5 {tag}", attn.attn_fwd_cuda(q, k, v, scale),
+                       attn.attention_plain(q, k, v, scale), rtol, why)
+        got = attn.attn_bwd_cuda(q, k, v, g, scale)
+        want = attn.attention_bwd_plain(q, k, v, g, scale)
+        err6 = max(compare(f"K6 {part} {tag}", a, b, rtol, why)
+                   for part, a, b in zip(("dq", "dk", "dv"), got, want))
+        check_bitwise(torch, f"K6 {tag}", got,
+                      attn.attn_bwd_cuda(q, k, v, g, scale))
+        del got, want
+        isz, fl = q.element_size(), 4 * B * H * N * N * dh
+        out[("K5", tag)] = dict(timed(
+            lambda: attn.attn_fwd_cuda(q, k, v, scale),
+            lambda: attn.attention_plain(q, k, v, scale),
+            lambda: sdpa(q, k, v, scale=scale),
+            4 * B * H * N * dh * isz, fl, dtype_name, "K5", tag),
+            max_abs_err=err5)
+        qr, kr, vr = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = sdpa(qr, kr, vr, scale=scale)
+        out[("K6", tag)] = dict(timed(
+            lambda: attn.attn_bwd_cuda(q, k, v, g, scale),
+            lambda: attn.attention_bwd_plain(q, k, v, g, scale),
+            lambda: torch.autograd.grad(o, (qr, kr, vr), g,
+                                        retain_graph=True),
+            7 * B * H * N * dh * isz, 2.5 * fl, dtype_name, "K6", tag),
+            max_abs_err=err6)
+        del o, qr, kr, vr
+    calls = [(f.launches - n, f.tc_launches - t)
+             for f, (n, t) in zip(fns, counts)]
+    if any(n != t for n, t in calls):
+        fail(f"K5/K6 launches off the tensor cores at {shapes}: {calls}")
+    return out
 
 
 def check_qkv_edge_cases(torch, attn):
@@ -1720,6 +1805,11 @@ def packed_rows(cfg, pairs, lam_step: int, gen, n: int):
     return np.stack([row(pairs) for _ in range(n)])
 
 
+# the eager-against-eager spread (losses, update) that check_replay
+# measured, by label
+SPREADS = {}
+
+
 def check_replay(torch, label, cfg, make, pairs, spread_runs: int = 1):
     """The captured graphs against eager steps from one state: a trainer
     from make() (a SpliceTrainer over `pairs`, one pair, or a
@@ -1794,6 +1884,7 @@ def check_replay(torch, label, cfg, make, pairs, spread_runs: int = 1):
 
     spread = (max(rel_loss(l2, l1) for l2, _ in others),
               max(rel_upd(d2, d1) for _, d2 in others))
+    SPREADS[label] = spread
     err = (rel_loss(lr, l1), rel_upd(dr, d1), rel_loss(np.array(same), l1))
     tol = (REPLAY_MULT * spread[0] + REPLAY_LOSS_FLOOR,
            REPLAY_MULT * spread[1] + REPLAY_UPDATE_FLOOR)
@@ -2611,7 +2702,8 @@ def run_config_c(torch, kernels, extractor, main_ms):
     rule) and one chunk under the sync debug mode. Then PAIR_MODE_STEPS
     steps of two pairs under each of PAIR_MODES: K3/K4 in their forms
     inside the pair loop, on the tensor cores. Returns the launches by
-    path."""
+    path, and config c's first MESH_STEPS rows and losses and its
+    pair-steps/s (phase 13 holds the mesh against them)."""
     import dataclasses
     import shutil
     import tempfile
@@ -2625,11 +2717,15 @@ def run_config_c(torch, kernels, extractor, main_ms):
         res, launches["config_c"], _ = run_pairs(
             torch, "config_c", cfg, roots, 224, CONFIG_C_STEPS, kernels,
             ("attn_qkv_fwd", "attn_qkv_bwd"), extractor)
+        first = {"rows": res["rows"][:MESH_STEPS],
+                 "loss_seq": res["loss_seq"][:MESH_STEPS],
+                 "pair_steps_per_sec": res["pair_steps_per_sec"]}
         replayed = {k: c.replays for k, c in res["program"].graphs.items()}
         rate = res["pair_steps_per_sec"]
         print(f"  graphs (entire, SAME route, DW_TAP_ON_N): replays "
               f"{replayed}")
         ms = profile_steps(torch, res["program"], cfg)
+        first["replay_ms"] = ms
         print(f"  config c: a replayed 8-pair step {ms:.2f} ms, "
               f"{8e3 / ms:.3f} pair-steps/s replayed, {rate:.3f} sustained "
               f"by train_pairs; the main path's 1-pair step {main_ms:.2f} "
@@ -2653,7 +2749,7 @@ def run_config_c(torch, kernels, extractor, main_ms):
                 roots[:2], hw, PAIR_MODE_STEPS, kernels, need, extractor)
             del pres
             torch.cuda.empty_cache()
-        return launches
+        return launches, first
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2731,20 +2827,30 @@ def profile_inversion(torch, program, n: int = 3):
     return total / n / 1e3, ours / n / 1e3
 
 
+# eager runs whose largest distance from the first measures the
+# inversion's eager spread (phase 12): its losses after four Adam steps
+# lie 4-16% apart from run to run and one other run's distance varies 4x
+# from call to call on the H100, as phase 3's two-pair check found
+INV_SPREAD_RUNS = 5
+
+
 def check_inversion_replay(torch, step):
     """The inversion's graph against eager steps from one state (phase
-    4b's rule): three clones of the step's flat parameters, each with a
-    fresh Adam, run four steps at noise magnitude 0 (so the noise each
-    draws adds exactly 0), twice eagerly and once through SpliceProgram
-    (one eager step, the capture, three replays); the program's losses
-    and parameter update against the first eager run's, within
-    REPLAY_MULT x the eager runs' spread plus the floors. Adam's first
-    steps move each parameter by about lr whatever the gradient's size,
-    so a gradient entry near 0 whose sign the bilinear backward's atomics
-    flip moves the run: that spread is wide. Then each step replayed from
-    the state the first eager run had before it (flat and Adam's state
-    copied in place) must give that run's loss within
-    REPLAY_LOSS_FLOOR."""
+    4b's rule): clones of the step's flat parameters, each with a fresh
+    Adam, run four steps at noise magnitude 0 (so the noise each draws
+    adds exactly 0), 1 + INV_SPREAD_RUNS times eagerly and once through
+    SpliceProgram (one eager step, the capture, three replays); the
+    program's losses and parameter update against the first eager run's,
+    within REPLAY_MULT x the eager runs' spread (the largest distance of
+    another eager run from the first) plus the floors. Adam's first steps
+    move each parameter by about lr whatever the gradient's size, so a
+    gradient entry near 0 whose sign the bilinear backward's atomics flip
+    moves the run: that spread is wide. Then each step replayed from the
+    state the first eager run had before it (flat and Adam's state copied
+    in place) must give that run's loss within REPLAY_LOSS_FLOOR, and its
+    gradient within REPLAY_MULT x the distance of two more eager steps
+    from that same state to that run's gradient, plus
+    REPLAY_UPDATE_FLOOR (relative L2)."""
     import numpy as np
     from splice_tpu_torch.tools.inversion import InversionStep
     from splice_tpu_torch.trainer import SpliceProgram
@@ -2764,40 +2870,66 @@ def check_inversion_replay(torch, step):
     rows = np.zeros((4, 1), np.float32)
 
     def eager(before=None):
-        s, losses = clone(), []
+        s, losses, grads = clone(), [], []
         for r in rows:
             if before is not None and s.opt.state:
                 before.append([v.clone() for v in state(s)])
             losses.append(s.step(torch.from_numpy(r).cuda())["loss"].item())
-        return np.array(losses), s.flat.detach() - flat0
+            grads.append(s.flat.grad.detach().clone())
+        return np.array(losses), s.flat.detach() - flat0, grads
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def eager_grad_from(snap):
+        """An eager step's gradient from a snapshot of flat and Adam's
+        state (a first step gives the clone its Adam state)."""
+        s = clone()
+        s.step(torch.zeros(1, device="cuda"))
+        with torch.no_grad():
+            for dst, src in zip(state(s), snap):
+                dst.copy_(src)
+        s.step(torch.zeros(1, device="cuda"))
+        return s.flat.grad.detach().clone()
 
     before = []
-    l1, d1 = eager(before)
-    l2, d2 = eager()
+    l1, d1, g1 = eager(before)
+    others = [eager() for _ in range(INV_SPREAD_RUNS)]
     program = SpliceProgram(clone(), 4)
     lp = program.run(rows, False)[:, 0]
     dp = program.trainer.flat.detach() - flat0
-    same = []
-    for snap, want in zip(before, l1[1:]):
+    same, gsame, geager = [], [], []
+    for snap, want, gwant in zip(before, l1[1:], g1[1:]):
         with torch.no_grad():
             for dst, src in zip(state(program.trainer), snap):
                 dst.copy_(src)
         same.append(abs(program.run(rows[:1], False)[0, 0] - want)
                     / abs(want))
+        gsame.append(rel_l2(program.trainer.flat.grad, gwant))
+        geager += [rel_l2(eager_grad_from(snap), gwant) for _ in range(2)]
     rel = float(np.max(np.abs(lp - l1) / np.maximum(np.abs(l1), 1e-12)))
-    spread = float(np.max(np.abs(l2 - l1) / np.maximum(np.abs(l1), 1e-12)))
-    upd = ((dp - d1).norm() / d1.norm()).item()
-    uspread = ((d2 - d1).norm() / d1.norm()).item()
+    spread = max(float(np.max(np.abs(l2 - l1) / np.maximum(np.abs(l1),
+                                                           1e-12)))
+                 for l2, _, _ in others)
+    upd = rel_l2(dp, d1)
+    uspread = max(rel_l2(d2, d1) for _, d2, _ in others)
+    gspread = max(geager)
     tol = (REPLAY_MULT * spread + REPLAY_LOSS_FLOOR,
-           REPLAY_MULT * uspread + REPLAY_UPDATE_FLOOR)
+           REPLAY_MULT * uspread + REPLAY_UPDATE_FLOOR,
+           REPLAY_MULT * gspread + REPLAY_UPDATE_FLOOR)
     print(f"  graph against eager (4 steps at magnitude 0): eager spread "
-          f"losses {spread:.3e}, update {uspread:.3e}; graph losses "
-          f"{rel:.3e} (tol {tol[0]:.3e}), update {upd:.3e} (tol "
-          f"{tol[1]:.3e}); steps 1-3 replayed from the eager run's state: "
-          f"losses {max(same):.3e} (tol {REPLAY_LOSS_FLOOR:g}); replays "
+          f"({INV_SPREAD_RUNS} runs against the first) losses {spread:.3e}, "
+          f"update {uspread:.3e}; graph losses {rel:.3e} (tol "
+          f"{tol[0]:.3e}), update {upd:.3e} (tol {tol[1]:.3e}); steps 1-3 "
+          f"replayed from the eager run's state: losses {max(same):.3e} "
+          f"(tol {REPLAY_LOSS_FLOOR:g}), gradient {max(gsame):.3e} "
+          f"(relative L2; tol {tol[2]:.3e} = {REPLAY_MULT:g} x two eager "
+          f"steps' distance from the same states {gspread:.3e} + "
+          f"{REPLAY_UPDATE_FLOOR:g}); replays "
           f"{[c.replays for c in program.graphs.values()]}")
     if not (np.isfinite(lp).all() and rel <= tol[0] and upd <= tol[1]
-            and len(same) == 3 and max(same) <= REPLAY_LOSS_FLOOR):
+            and len(same) == 3 and max(same) <= REPLAY_LOSS_FLOOR
+            and max(gsame) <= tol[2]):
         fail("the inversion's captured graph disagrees with eager steps")
 
 
@@ -2943,6 +3075,334 @@ def run_inversion_fp32(torch, kernels):
     return launches
 
 
+MESH_STEPS = 3     # phase 13: step 0 entire-A, steps 1-2 regular
+MESH_CKPT_PAIRS = 2
+
+
+@contextlib.contextmanager
+def head_recorder(attn):
+    """Count the attention kernels' launches by (wrapper, heads), split
+    into eager calls and calls recorded while a graph is captured (the
+    wrappers count calls, not heads; the mesh phase's gate is on the
+    heads a tensor-parallel rank holds). Yields the two Counters."""
+    from collections import Counter
+    import torch
+    eager, captured = Counter(), Counter()
+    # the dispatchers the autograd Functions call (each calls its counted
+    # _cuda wrapper on a CUDA tensor)
+    names = ("attn_qkv_fwd", "attn_qkv_bwd", "attn_fwd", "attn_bwd")
+    saved = {n: getattr(attn, n) for n in names}
+
+    def wrap(name, fn):
+        def rec(*a, **kw):
+            heads = a[1] if name == "attn_qkv_fwd" else (
+                a[2] if name == "attn_qkv_bwd" else a[0].shape[1])
+            cap = torch.cuda.is_current_stream_capturing()
+            (captured if cap else eager)[(name, heads)] += 1
+            return fn(*a, **kw)
+        return rec
+
+    for n, fn in saved.items():
+        setattr(attn, n, wrap(n, fn))
+    try:
+        yield eager, captured
+    finally:
+        for n, fn in saved.items():
+            setattr(attn, n, fn)
+
+
+def check_tp4_vit(torch, attn, extractor, devices=None):
+    """ViT-B/8 (the main path's bf16 weights) at tp = 4 over `devices`
+    (default [cuda:0] * 4) on a batch of 8 at 224 against tp = 1: the
+    block and qkv taps of layer 11 and the input gradient of a seeded
+    weighted sum of them. bf16 rounds each rank's row-parallel partial
+    sum before the add, 24 times on the way to layer 11, so the gate is
+    relative to bf16's own error: tp = 4's distance from tp = 1 (relative
+    L2) at most twice tp = 1's distance from the same forward in fp32.
+    Every attention launch at 3 heads on K5/K6 (local D 192 fails the
+    fused-qkv gate). Returns the K5/K6 launches."""
+    from splice_tpu_torch.models import vit as vit_lib
+    from splice_tpu_torch.parallel import mesh as mesh_lib
+    from splice_tpu_torch.utils.tree import tree_map
+    cfg = extractor.cfg
+    mesh = mesh_lib.make_mesh(1, 4, devices or ["cuda:0"] * 4)
+    ranks = mesh_lib.shard_vit_params(mesh_lib.manual_tp_permute_vit_params(
+        extractor.params, cfg, 4), mesh)[0]
+    gen = torch.Generator().manual_seed(31)
+    img = torch.randn(8, 224, 224, 3, generator=gen).cuda()
+    N, D = 785, cfg.embed_dim
+    w = {"qkv": torch.randn(8, N, 3 * D, generator=gen).cuda(),
+         "block": torch.randn(8, N, D, generator=gen).cuda()}
+    taps = {k: (11,) for k in w}
+    runs = {}
+    for name, params, devs, dt in (
+            ("fp32", tree_map(lambda t: t.float(), extractor.params), None,
+             torch.float32),
+            ("tp1", extractor.params, None, torch.bfloat16),
+            ("tp4", ranks, mesh.devices[0], torch.bfloat16)):
+        x = img.clone().requires_grad_(True)
+        with head_recorder(attn) as (eager, _):
+            out = vit_lib.vit_forward(params, x, cfg, taps, dt,
+                                      devices=devs)
+            sum((out[k][11].float() * w[k]).sum() for k in w).backward()
+        runs[name] = ({**{k: out[k][11].float() for k in w}, "grad": x.grad},
+                      dict(eager))
+    heads = runs["tp4"][1]
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    ok = True
+    for k in ("qkv", "block", "grad"):
+        d41 = rel(runs["tp4"][0][k], runs["tp1"][0][k])
+        d1 = rel(runs["tp1"][0][k], runs["fp32"][0][k])
+        d4 = rel(runs["tp4"][0][k], runs["fp32"][0][k])
+        ok &= d41 <= 2 * d1
+        print(f"  tp=4 ViT-B/8 {k} [8,224,224,3] bf16 (relative L2): tp=4 "
+              f"from tp=1 {d41:.3e} (tol {2 * d1:.3e} = 2 x tp=1 from "
+              f"fp32); tp=4 from fp32 {d4:.3e}")
+    print(f"  tp=4 attention launches by (wrapper, heads): {heads}")
+    if not ok:
+        fail("the tp = 4 ViT is further from tp = 1 than bf16's rounding")
+    if set(h for _, h in heads) != {3} or not heads.get(("attn_fwd", 3)):
+        fail(f"tp=4 did not run K5/K6 at 3 heads: {heads}")
+    return {"attn_fwd": heads[("attn_fwd", 3)],
+            "attn_bwd": heads.get(("attn_bwd", 3), 0)}
+
+
+def run_mesh(torch, attn, kernels, extractor, first, devices=None):
+    """Phase 13: config c's eight pairs at dp = 2 x tp = 2 over [cuda:0] *
+    4 (train_pairs with a make_mesh mesh: two groups of four pairs, each
+    group's ViT over two tensor-parallel ranks), MESH_STEPS steps. Gates:
+    the rows equal phase 11's; every pair's losses within the tolerance
+    of phase 11's dp = tp = 1 run (the larger of bf16's and 2 x the eager
+    spreads phases 4b and 11 measured); K1/K2 launched inside both
+    groups' graphs, on the tensor cores, every launch at 6 heads. Prints
+    pair-steps/s (informational: four ranks share one card). Then
+    train_pairs over two pairs with mesh_dp 2 (a dp = 2 mesh on [cuda:0]
+    * 2) checkpoints, and a run at dp = 1 resumed from it holds every
+    pair's parameters and Adam state, equal; and the tp = 4 ViT
+    (check_tp4_vit). `devices`, four distinct cards, runs the same over
+    them (--mesh-cards): each tp group then steps eagerly, so K1/K2 are
+    held to launches, not graph replays. Returns the launches by path."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    from splice_tpu_torch.config import load_config
+    from splice_tpu_torch.parallel import mesh as mesh_lib
+    from splice_tpu_torch.parallel.pair_parallel import train_pairs
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    launches = {}
+    try:
+        roots = copy_pairs(tmp, 8)
+        cfg = load_config(None, dict(seed=3, n_pairs=8, mesh_dp=2,
+                                     mesh_tp=2))
+        devices = devices or ["cuda:0"] * 4
+        mesh = mesh_lib.make_mesh(2, 2, devices)
+        graphed = devices[0] == devices[1]
+        zero_counts(kernels)
+        with head_recorder(attn) as (eager, captured):
+            res = train_pairs(cfg, roots, 224, MESH_STEPS,
+                              extractor=extractor, mesh=mesh)
+        launches["mesh"], tc = read_launches(
+            torch, kernels, "mesh",
+            ("attn_qkv_fwd", "attn_qkv_bwd") if graphed else (),
+            res["programs"])
+        check_tc_launches(launches["mesh"], tc, "mesh")
+        heads = {k for k in (*eager, *captured)}
+        print(f"  mesh {res['mesh'].shape}, groups of "
+              f"{[t.n_pairs for t in res['trainers']]} pairs, graphed "
+              f"{[p.graphed for p in res['programs']]}; attention calls by "
+              f"(wrapper, heads): eager {dict(eager)}, recorded in graphs "
+              f"{dict(captured)}; chunks {res['chunks']}; "
+              f"{res['pair_steps_per_sec']:.3f} pair-steps/s over the run "
+              f"(informational: four ranks share one card; phase 11's "
+              f"dp = tp = 1 run {first['pair_steps_per_sec']:.3f} over "
+              f"its {CONFIG_C_STEPS} steps)")
+        if heads != {("attn_qkv_fwd", 6), ("attn_qkv_bwd", 6)} or any(
+                p.graphed != graphed for p in res["programs"]):
+            fail(f"mesh: K1/K2 not at 6 heads, or graphs not as the "
+                 f"devices allow: {heads}")
+        ms = mesh_replay_ms(torch, cfg, res)
+        print(f"  a replayed 8-pair step over the mesh {ms:.2f} ms "
+              f"({8e3 / ms:.3f} pair-steps/s; informational: four ranks "
+              f"share one card), phase 11's dp = tp = 1 step "
+              f"{first['replay_ms']:.2f} ms ({8e3 / first['replay_ms']:.3f})")
+        if not np.array_equal(res["rows"], first["rows"]):
+            fail("mesh: the rows differ from config c's at dp = tp = 1")
+        seq, ref = res["loss_seq"][..., -1], first["loss_seq"][..., -1]
+        rel = np.abs(seq - ref) / np.abs(ref)
+        spread = max((SPREADS[k][0] for k in ("full width", "config c")
+                      if k in SPREADS), default=0.0)
+        tol = max(RTOL["bfloat16"][0], 2 * spread)
+        for i in range(MESH_STEPS):
+            print(f"  step {i} total by pair, mesh: "
+                  + " ".join(f"{v:.5f}" for v in seq[i]) + "; dp = tp = 1: "
+                  + " ".join(f"{v:.5f}" for v in ref[i])
+                  + f"; largest relative difference {rel[i].max():.3e}")
+        print(f"  tolerance {tol:.3e} = max(bf16's {RTOL['bfloat16'][0]:g}, "
+              f"2 x the eager spread {spread:.3e} of phases 4b and 11)")
+        if not (np.isfinite(seq).all() and rel.max() <= tol):
+            fail(f"mesh: per-pair losses differ from dp = tp = 1 by "
+                 f"{rel.max():.3e} > {tol:.3e}")
+        del res
+        torch.cuda.empty_cache()
+
+        ck = os.path.join(tmp, "ck")
+        ccfg = dataclasses.replace(cfg, n_pairs=MESH_CKPT_PAIRS, mesh_tp=1,
+                                   checkpoint_every=2, checkpoint_dir=ck)
+        dp2 = train_pairs(ccfg, roots[:MESH_CKPT_PAIRS], 224, 2,
+                          extractor=extractor,
+                          mesh=mesh_lib.make_mesh(2, 1, devices[::2]))
+        back = train_pairs(dataclasses.replace(
+            ccfg, mesh_dp=1, checkpoint_every=0, resume_from=ck),
+            roots[:MESH_CKPT_PAIRS], 224, 2, extractor=extractor)
+
+        def states(r):
+            """Every pair's flat and Adam state, on the host (the two
+            runs' groups may sit on different cards)."""
+            return [(t.flat.detach().cpu(),
+                     {k: v.cpu() for k, v in
+                      t.opt.state_dict()["state"][0].items()})
+                    for mp in r["trainers"] for t in mp.trainers]
+
+        same = all(torch.equal(fa, fb) and all(
+            torch.equal(sa[k], v) for k, v in sb.items())
+            for (fa, sa), (fb, sb) in zip(states(back), states(dp2)))
+        print(f"  mesh_dp=2 ({dp2['mesh'].shape}) checkpointed at step 2; "
+              f"resumed at {back['mesh'].shape}: first step "
+              f"{back['first_step']}, every pair's flat and Adam state "
+              f"equal: {same}")
+        if not same or back["first_step"] != 2 or back["mesh"].dp != 1:
+            fail("mesh: a dp = 2 checkpoint did not resume at dp = 1")
+        del dp2, back
+        torch.cuda.empty_cache()
+        launches["mesh_tp4"] = check_tp4_vit(torch, attn, extractor,
+                                             devices)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_replay_ms(torch, cfg, res, rounds: int = 5) -> float:
+    """Host-clock ms per replayed regular 8-pair step over the mesh: every
+    dp group's chunk (as long as its program holds) queued, `rounds`
+    times, then one read of each group; the median of three. First, where
+    every group replays graphs, one chunk on every group queued under the
+    sync debug mode: fails if the host waits for the device before the
+    last group's replay."""
+    from splice_tpu_torch.parallel import mesh as mesh_lib
+    progs = res["programs"]
+    groups = mesh_lib.dp_sharding(res["mesh"], 8)
+    pairs = [t.pair for mp in res["trainers"] for t in mp.trainers]
+    n = progs[0].rows.shape[0]
+    rows = regular_rows(torch, cfg, pairs, n * rounds, 7)
+    if all(p.graphed for p in progs):
+        # every group's chunk queued with no host synchronisation: the
+        # host reaches the last group's replay before any group's read
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for p, ids in zip(progs, groups):
+                p.dispatch(rows[:n, ids.start:ids.stop], False)
+        except RuntimeError as e:
+            fail(f"mesh: queueing the groups' chunks synchronised: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        print(f"  one chunk of {n} steps queued on each of {len(progs)} dp "
+              f"groups under sync debug mode 'error': no synchronisation")
+    walls = []
+    for _ in range(3):
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        for r in range(rounds):
+            for p, ids in zip(progs, groups):
+                p.dispatch(rows[r * n:(r + 1) * n, ids.start:ids.stop],
+                           False)
+        for p in progs:
+            p.fetch(n)
+        walls.append((time.perf_counter() - t0) * 1e3 / (n * rounds))
+    return sorted(walls)[1]
+
+
+ABLATE_CHUNKS = 3      # phase 14's ablate runs (the tool's default: 20)
+
+
+def run_observability(torch, kernels, base, shared, main_ms):
+    """Phase 14: the main path with profile_dir (a window of 5 replayed
+    regular steps, 12-16, in an 18-step run): the trace exists, and its
+    K1 kernels are exactly 5 x the K1 calls the regular graph records, so
+    the trace holds exactly the window's steps; tools/trace_agg.py on it.
+    The main path with use_pallas_attention=false for MAIN_STEPS steps:
+    no K1, K2, K5 or K6 launch, K3/K4 inside the graphs, the replayed
+    regular step beside main's. tools/ablate.py at the default and with
+    xlaattn (ABLATE_CHUNKS chunks of 10). Returns the xlaattn path's
+    launches."""
+    import dataclasses
+    import json as json_lib
+    import tempfile
+    from splice_tpu_torch.config import load_config
+    from splice_tpu_torch.tools import ablate, trace_agg
+    from splice_tpu_torch.trainer import train_pair
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    start, n = 12, 5
+    cfg = load_config(None, dict(base, profile_dir=tmp,
+                                 profile_start_step=start,
+                                 profile_n_steps=n))
+    res = train_pair(cfg, n_steps=18, **shared)
+    path = res["trace_path"]
+    if not path or not os.path.exists(path):
+        fail(f"profile_dir: no trace ({path})")
+    with open(path) as f:
+        events = trace_agg.device_events(json_lib.load(f))
+    regular = [c for (entire, *_), c in res["program"].graphs.items()
+               if not entire][0]
+    per_step = regular.launches["attn_qkv_fwd_cuda"][0]
+    k1 = sum("attn_fwd_kernel_tc<false>" in e["name"] for e in events)
+    print(f"  chunks {res['chunks']}; trace {os.path.basename(path)} "
+          f"({os.path.getsize(path) / 2**20:.1f} MiB): {len(events)} device "
+          f"events, K1 kernels {k1} = {n} steps x {per_step} recorded in "
+          f"the regular graph: {k1 == n * per_step}")
+    if k1 != n * per_step or any(e.get("cat") == "cpu_op" for e in events):
+        names = sorted({e["name"][:60] for e in events if "attn" in e["name"]})
+        fail(f"the trace does not hold exactly {n} steps: {k1} K1 kernels, "
+             f"attention kernels {names}")
+    print(f"  tools/trace_agg.py {tmp} {n}:")
+    trace_agg.main([tmp, str(n)])
+    del res
+    torch.cuda.empty_cache()
+
+    xcfg = load_config(None, dict(base, use_pallas_attention=False))
+    zero_counts(kernels)
+    # the shared extractor is the main path's; this one takes the flag
+    xres = train_pair(xcfg, n_steps=MAIN_STEPS, pair=shared["pair"],
+                      extractor=dataclasses.replace(shared["extractor"],
+                                                    use_pallas=False))
+    launches, _ = read_launches(torch, kernels, "xlaattn",
+                                ("conv_valid", "conv_dw"), [xres["program"]])
+    if any(launches[k] for k in ATTENTION):
+        fail(f"use_pallas_attention=false launched attention kernels: "
+             f"{launches}")
+    xms = profile_steps(torch, xres["program"], xcfg)
+    print(f"  use_pallas_attention=false (SDPA): replayed regular step "
+          f"{xms:.2f} ms against main's {main_ms:.2f} (K1/K2); K1/K2/K5/K6 "
+          f"launches 0")
+    del xres
+    torch.cuda.empty_cache()
+    for modes in ((), ("xlaattn",)):
+        r = ablate.run(modes, chunks=ABLATE_CHUNKS)
+        print(f"  tools/ablate.py {' '.join(modes)} ({ABLATE_CHUNKS} chunks "
+              f"of {ablate.CHUNK}): mode={r['label']}: "
+              f"{r['steps_per_sec']:.2f} steps/s  loss={r['loss']:.4f}")
+        if not math.isfinite(r["loss"]):
+            fail(f"ablate {modes}: non-finite loss")
+        del r
+        torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_table(attn, conv):
     """name -> (wrapper, route, source, the TPU kernel it replaces, the
     path whose launches the JSON line reports)."""
@@ -2982,11 +3442,45 @@ def kernel_table(attn, conv):
     }
 
 
+def mesh_across_cards(torch, attn, conv, n: int) -> None:
+    """--mesh-cards n: phase 13 alone over cuda:0..3 (n = 4 cards), held
+    against a dp = tp = 1 run of the same steps on cuda:0."""
+    from splice_tpu_torch.config import load_config
+    from splice_tpu_torch.parallel import mesh as mesh_lib
+    from splice_tpu_torch.parallel.pair_parallel import train_pairs
+    from splice_tpu_torch.trainer import make_extractor_from_config
+    import shutil
+    import tempfile
+    if n != 4 or torch.cuda.device_count() < n:
+        fail(f"--mesh-cards {n}: needs 4, sees {torch.cuda.device_count()}")
+    kernels = kernel_table(attn, conv)
+    cfg = load_config(None, dict(seed=3, n_pairs=8))
+    extractor = make_extractor_from_config(cfg, "cuda:0")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ref_")
+    try:
+        res = train_pairs(cfg, copy_pairs(tmp, 8), 224, MESH_STEPS,
+                          extractor=extractor,
+                          mesh=mesh_lib.make_mesh(1, 1, ["cuda:0"]))
+        first = {"rows": res["rows"], "loss_seq": res["loss_seq"],
+                 "pair_steps_per_sec": res["pair_steps_per_sec"],
+                 "replay_ms": mesh_replay_ms(torch, cfg, res)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del res
+    print(f"phase 13 over {n} cards: "
+          f"{[torch.cuda.get_device_name(i) for i in range(n)]}")
+    run_mesh(torch, attn, kernels, extractor, first,
+             [f"cuda:{i}" for i in range(n)])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    cards = 0
+    if sys.argv[1:2] == ["--mesh-cards"]:
+        cards = int(sys.argv[2])
     t_start = time.perf_counter()
     from splice_tpu_torch.ops import _build
     from splice_tpu_torch.ops import attention as attn
@@ -3000,6 +3494,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"card: {smi}")
 
+    mark(t_start)
     print("phase 1: build")
     t0 = time.perf_counter()
     _build.build_all()
@@ -3007,10 +3502,18 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     print_ptxas(_build)
     check_tensor_cores(_build)
+    if cards:
+        mesh_across_cards(torch, attn, conv, cards)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     kernels = kernel_table(attn, conv)
     rows = {name: {} for name in kernels}
 
+    mark(t_start)
     print("phase 2: kernels against their plain versions")
     check_attention(torch, attn, rows)
     check_split_attention(torch, attn, rows)
@@ -3022,6 +3525,8 @@ def main() -> int:
     check_qkv_edge_cases(torch, attn)
     check_qkv_shapes(torch, attn, DINOV2_QKV)
     pair_rows = check_qkv_shapes(torch, attn, PAIRS_QKV)
+    mesh_rows = {**check_qkv_shapes(torch, attn, MESH_QKV),
+                 **check_split_shapes(torch, attn, MESH_SPLIT)}
     inv_qkv = {dt: check_qkv_shapes(torch, attn, INVERSION_QKV, dt)
                for dt in ("bfloat16", "float32")}
     torch.cuda.empty_cache()
@@ -3045,6 +3550,7 @@ def main() -> int:
         if name in DW + K3:
             print_beside_previous(name, r)
 
+    mark(t_start)
     print("phase 3: small step, card against CPU")
     check_small_step(torch)
     check_small_optimizers(torch)
@@ -3053,7 +3559,11 @@ def main() -> int:
     check_small_inversion_step(torch)
     print("  graphs against eager at this size (fp32, generator_conv=auto):")
     scfg, spair, sext = small_setup(torch, "cuda")
-    check_replay(torch, "small fp32", scfg, one_pair(scfg, spair, sext), spair)
+    # five eager runs measure the spread, as for two pairs below: after
+    # five fp32 Adam steps one eager run's distance from another varied
+    # 0.6e-2 to 1.3e-2 between calls, and the graphs' 0.1e-2 to 4.6e-2
+    check_replay(torch, "small fp32", scfg, one_pair(scfg, spair, sext), spair,
+                 spread_runs=5)
     from splice_tpu_torch.parallel.pair_parallel import MultiPairTrainer
     pcfg, ppairs, pext = pairs_setup(torch, "cuda")
     # two pairs' terms over five fp32 steps: the bilinear backward's
@@ -3065,6 +3575,7 @@ def main() -> int:
     del scfg, spair, sext, pcfg, ppairs, pext
     torch.cuda.empty_cache()
 
+    mark(t_start)
     print(f"phase 4: main path, {MAIN_STEPS} steps on the cows pair")
     from splice_tpu_torch.config import load_config
     base = dict(dataroot="datasets/splicing/cows", seed=0,
@@ -3080,6 +3591,7 @@ def main() -> int:
           f"chunk of regular replays)")
     shared = dict(pair=res["trainer"].pair, extractor=res["trainer"].extractor)
 
+    mark(t_start)
     print("phase 4b: graphs against eager at full width (bf16, main path), "
           "and a chunk without synchronisation")
     program = check_replay(torch, "full width", cfg,
@@ -3089,6 +3601,7 @@ def main() -> int:
     del program
     torch.cuda.empty_cache()
 
+    mark(t_start)
     print("phase 5: where the time goes")
     from splice_tpu_torch.trainer import unpack_row
     main_ms = profile_steps(torch, res["program"], cfg)
@@ -3155,32 +3668,39 @@ def main() -> int:
                 need["fused_same_skip3"])
             torch.cuda.empty_cache()
 
+    mark(t_start)
     print("phase 7: generator_conv " + ", ".join(t[0] for t in turns)
           + " at 224, in turns (eager steps: SpliceTrainer.step, no graphs)")
-    k7 = steps_in_turns(torch, turns)
+    k7 = steps_in_turns(torch, turns, rounds=2)
     if k7["fused_same_tap_off"] or not k7["fused_same"]:
         fail(f"DW_TAP_ON_N did not route K7 as it says: {k7}")
     del turns, main_trainer
     torch.cuda.empty_cache()
 
+    mark(t_start)
     print(f"phase 8: a run as a user runs it: train_pair on the main path, "
           f"{RUN_STEPS} steps, cosine, checkpoints, metrics")
     check_run(torch, kernels, shared)
     torch.cuda.empty_cache()
 
+    mark(t_start)
     dinov2 = run_dinov2(torch, kernels, base, shared["pair"])
     for name, (dl, ms) in dinov2.items():
         print(f"  {name}: replayed step {ms:.2f} ms against the main path's "
               f"{main_ms:.2f}; K1/K2 launches {dl['attn_qkv_fwd']}/"
               f"{dl['attn_qkv_bwd']}")
+    mark(t_start)
     print(f"phase 10: video, 3 frames of {VIDEO_STEPS[0]} + 2 x "
           f"{VIDEO_STEPS[1]} steps warm-started, one set of graphs")
     run_video(torch, kernels, main_ms)
+    mark(t_start)
     print(f"phase 11: config c, 8 pairs ([cows, apples2oranges] x 4) at "
           f"224 in one step, {CONFIG_C_STEPS} steps")
-    launches.update(run_config_c(torch, kernels, shared["extractor"],
-                                 main_ms))
+    c_launches, c_first = run_config_c(torch, kernels, shared["extractor"],
+                                       main_ms)
+    launches.update(c_launches)
     torch.cuda.empty_cache()
+    mark(t_start)
     print(f"phase 12: the inversion tool on limes at 224 x 281, full width "
           f"(dino_vitb8, seeded), {INV_ITERS} steps at log_freq {INV_LOG}, "
           f"nhwc and chw + pallas")
@@ -3197,6 +3717,21 @@ def main() -> int:
     print(f"  main with generator_layout=nhwc: replayed regular step "
           f"{nhwc_ms:.2f} ms against chw's {main_ms:.2f}")
     del nres
+    torch.cuda.empty_cache()
+    mark(t_start)
+    print(f"phase 13: the mesh, "
+          f"config c's 8 pairs at dp = 2 x tp = 2 over [cuda:0] * 4, "
+          f"{MESH_STEPS} steps; a mesh_dp=2 checkpoint resumed at dp = 1; "
+          f"the tp = 4 ViT")
+    launches.update(run_mesh(torch, attn, kernels, shared["extractor"],
+                             c_first))
+    torch.cuda.empty_cache()
+    mark(t_start)
+    print(f"phase 14: observability "
+          f"and ablations: a profile window, use_pallas_attention=false, "
+          f"tools/ablate.py, tools/trace_agg.py")
+    launches["xlaattn"] = run_observability(torch, kernels, base, shared,
+                                            main_ms)
 
     line = []
     for name, (fn, route, source, replaces, path) in kernels.items():
@@ -3219,6 +3754,19 @@ def main() -> int:
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": b, "bound_by": by,
                      "library_ms": r["library_ms"], "shape": r["shape"]})
+    for (kid, tag), r in mesh_rows.items():
+        name = {"K1": "attn_qkv_fwd", "K2": "attn_qkv_bwd", "K5": "attn_fwd",
+                "K6": "attn_bwd"}[kid]
+        path = "mesh" if kid in ("K1", "K2") else "mesh_tp4"
+        fn, route, source, replaces, _ = kernels[name]
+        b, by = bound_ms(r["nbytes"], r["flops"], r["dtype"])
+        line.append({"name": name, "route": route, "source": source,
+                     "cores": "tensor core", "replaces": replaces,
+                     "launches": launches[path][name], "path": path,
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": b,
+                     "bound_by": by, "library_ms": r["library_ms"],
+                     "shape": r["shape"]})
     for (name, k), r in sorted(inv_rows.items()):
         fn, route, source, replaces, _ = kernels[name]
         line.append({"name": name, "route": route, "source": source,

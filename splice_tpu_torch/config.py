@@ -89,11 +89,21 @@ class Config:
     # Multi-pair training (splice_tpu/config.py:126-130): a comma-separated
     # dataroot trains its pairs together in one step
     # (parallel.pair_parallel.train_pairs). mesh_dp shards the pairs over
-    # devices and mesh_tp the ViT; the port runs one device and raises
-    # where the clamped mesh would need more (parallel.mesh).
+    # devices, mesh_tp the ViT's heads and MLP hidden (parallel.mesh),
+    # clamped to the devices a run sees.
     n_pairs: int = 1
-    mesh_dp: int = 1
-    mesh_tp: int = 1
+    mesh_dp: int = 1                    # data-parallel axis size (pairs)
+    mesh_tp: int = 1                    # tensor-parallel axis size (ViT heads)
+    # The port's attention kernels inside the ViT (splice_tpu/config.py:87);
+    # false is the reference's XLA ablation: SDPA on CUDA, the plain
+    # attention on the CPU.
+    use_pallas_attention: bool = True
+    # Profiling (splice_tpu/config.py:139-144): a torch.profiler device
+    # trace of steps [profile_start_step, profile_start_step +
+    # profile_n_steps) into profile_dir (utils.profiling).
+    profile_dir: Optional[str] = None
+    profile_start_step: int = 20
+    profile_n_steps: int = 5
 
     # --- port knobs ---
     # Frozen-ViT weights: a .npz written by splice_tpu's save_vit_params, or

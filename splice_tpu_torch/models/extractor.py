@@ -53,17 +53,26 @@ def keys_self_sim(keys: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 @dataclasses.dataclass
 class VitExtractor:
     """Frozen ViT parameters + config; run() returns the requested taps of
-    one batched forward on [B, H, W, 3] normalised images."""
-    params: Dict[str, Any]
+    one batched forward on [B, H, W, 3] normalised images. use_pallas is
+    the reference's extractor flag (:87): False runs attention without the
+    port's kernels. With tp_devices, params is one tree per
+    tensor-parallel rank on these devices (parallel.mesh.shard_vit_params)
+    and the images and taps live on tp_devices[0] (the reference's
+    tp_manual, :89-93)."""
+    params: Any
     cfg: VitConfig
     model_name: str = "dino_vitb8"
     compute_dtype: torch.dtype = torch.float32
+    use_pallas: bool = True
+    tp_devices: Optional[Tuple[torch.device, ...]] = None
 
     def run(self, images: torch.Tensor, taps: Dict[str, Sequence[int]],
             final_norm: bool = False) -> Dict[str, Dict[int, torch.Tensor]]:
         return vit_lib.vit_forward(self.params, images, self.cfg, taps,
                                    compute_dtype=self.compute_dtype,
-                                   final_norm=final_norm)
+                                   final_norm=final_norm,
+                                   use_pallas=self.use_pallas,
+                                   devices=self.tp_devices)
 
     # -- geometry (splice_tpu/models/extractor.py:105-130); NHWC shapes --
     def get_patch_size(self) -> int:
@@ -123,11 +132,11 @@ class VitExtractor:
 def make_extractor(model_name: str, params: Optional[Dict[str, Any]] = None,
                    seed: int = 0,
                    compute_dtype: torch.dtype = torch.float32,
-                   device=None) -> VitExtractor:
+                   device=None, use_pallas: bool = True) -> VitExtractor:
     """The reference's make_extractor (:154-164): `params`, or the seeded
     random init on `device` (default CUDA)."""
     cfg = vit_lib.get_vit_config(model_name)
     if params is None:
         params = init_vit_params(cfg, seed, resolve_device(device))
     return VitExtractor(params=params, cfg=cfg, model_name=model_name,
-                        compute_dtype=compute_dtype)
+                        compute_dtype=compute_dtype, use_pallas=use_pallas)

@@ -19,12 +19,19 @@ add, with no position embedding of their own.
 
 The frozen weights carry requires_grad=False, so autograd computes only the
 input cotangent. There is no remat: an 80 GB card holds the activations.
+
+Tensor parallelism (the reference's manual tp, :222-466): vit_forward takes
+one parameter tree per rank (parallel.mesh.shard_vit_params) and their
+devices; each block runs a rank's heads and MLP slice on its device and
+adds the row-parallel partial sums on the first. use_pallas=False runs
+attention without the port's kernels (the reference's XLA ablation).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -168,54 +175,135 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, cfg: VitConfig,
     return torch.cat([prefix, out], dim=1)
 
 
-def _block(x: torch.Tensor, bp: Dict[str, Any], cfg: VitConfig,
-           want: Sequence[str]):
-    """One pre-LN block, with layer scale where bp has ls1/ls2 (cast to the
-    activation's dtype at use). Returns (x_out, taps)."""
+def _attend(qkv: torch.Tensor, num_heads: int, head_dim: int,
+            want_probs: bool, use_pallas: bool, dtype: torch.dtype):
+    """Attention over qkv's heads: (o [B, N, heads * dh], the fp32
+    probabilities or None). With want_probs, the reference's slow path
+    (:400-425): fp32 probabilities, and the output from them, not from the
+    kernel."""
+    scale = head_dim ** -0.5
+    if not want_probs:
+        return attention_from_qkv(qkv, num_heads, scale,
+                                  use_pallas=use_pallas), None
+    q, k, v = (t.float() for t in _split_heads(qkv, num_heads))
+    probs = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1)
+    o = (probs @ v).to(dtype)
+    return o.permute(0, 2, 1, 3).reshape(*qkv.shape[:2], -1), probs
+
+
+def _to_ranks(t: torch.Tensor, devs: Sequence[torch.device]):
+    """t on each tensor-parallel rank's device (no copy where it is
+    there already)."""
+    return [t.to(d) for d in devs]
+
+
+def _tp_allcat(ts: Sequence[torch.Tensor], home: torch.device,
+               dim: int) -> torch.Tensor:
+    """The ranks' slices concatenated along dim on `home` (the reference's
+    _tp_allcat, :233-249)."""
+    if len(ts) == 1:
+        return ts[0]
+    return torch.cat([t.to(home) for t in ts], dim=dim)
+
+
+def _tp_gather_qkv(qkvs: Sequence[torch.Tensor], cfg: VitConfig,
+                   home: torch.device) -> torch.Tensor:
+    """The full [B, N, 3D] qkv tap from the ranks' [q_l | k_l | v_l]
+    slices (the reference's _tp_gather_qkv, :252-269): [B, N, 3, H/tp,
+    dh] concatenated over the heads gives the reference's q | k | v
+    layout."""
+    if len(qkvs) == 1:
+        return qkvs[0]
+    B, N, _ = qkvs[0].shape
+    parts = [q.reshape(B, N, 3, -1, cfg.head_dim) for q in qkvs]
+    return _tp_allcat(parts, home, 3).reshape(B, N, 3 * cfg.embed_dim)
+
+
+def _dense_rowparallel(xs: Sequence[torch.Tensor],
+                       ps: Sequence[Dict[str, torch.Tensor]],
+                       home: torch.device) -> torch.Tensor:
+    """A dense whose input dim is split over the ranks (the reference's
+    _dense_rowparallel, :222-230): each rank's partial product, summed on
+    `home` in rank order, then the bias once. One rank is _dense."""
+    y = None
+    for x, p in zip(xs, ps):
+        part = torch.matmul(x, p["kernel"].to(x.dtype)).to(home)
+        y = part if y is None else y + part
+    return y + ps[0]["bias"].to(y.dtype)
+
+
+def _block(x: torch.Tensor, bps: Sequence[Dict[str, Any]], cfg: VitConfig,
+           want: Sequence[str], use_pallas: bool = True,
+           devs: Optional[Sequence[torch.device]] = None):
+    """One pre-LN block, with layer scale where the params have ls1/ls2
+    (cast to the activation's dtype at use). Returns (x_out, taps).
+
+    bps holds one parameter tree per tensor-parallel rank and devs their
+    devices (the reference's tp_manual branches, :356-466): rank r holds
+    H/tp heads of qkv and a 1/tp slice of fc1 (column-parallel), the
+    matching rows of proj and fc2 (row-parallel), everything else whole
+    (parallel.mesh.shard_vit_params). x and the taps live on devs[0]; each
+    rank computes its heads' attention and its slice of the MLP, and the
+    row-parallel partial sums meet on devs[0]. One rank is the plain
+    block."""
+    devs = devs or [x.device]
+    home, bp0, tp = devs[0], bps[0], len(bps)
     taps = {}
-    h = _layer_norm(x, bp["norm1"], cfg.ln_eps)
-    qkv = _dense(h, bp["attn"]["qkv"])
+    hs = _to_ranks(_layer_norm(x, bp0["norm1"], cfg.ln_eps), devs)
+    qkvs = [_dense(h, bp["attn"]["qkv"]) for h, bp in zip(hs, bps)]
     if "qkv" in want:
-        taps["qkv"] = qkv
-    scale = cfg.head_dim ** -0.5
+        taps["qkv"] = _tp_gather_qkv(qkvs, cfg, home)
+    outs = []
+    for qkv, d in zip(qkvs, devs):
+        # the attention kernels launch on the current device's context
+        with torch.cuda.device(d) if tp > 1 and d.type == "cuda" \
+                else contextlib.nullcontext():
+            outs.append(_attend(qkv, cfg.num_heads // tp, cfg.head_dim,
+                                "attn_probs" in want, use_pallas, x.dtype))
     if "attn_probs" in want:
-        # the reference's slow path (:400-425): fp32 probabilities, and the
-        # block's output from them, not from the kernel
-        q, k, v = (t.float() for t in _split_heads(qkv, cfg.num_heads))
-        probs = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1)
-        taps["attn_probs"] = probs
-        o = (probs @ v).to(x.dtype)
-        o = o.permute(0, 2, 1, 3).reshape(*x.shape[:2], -1)
-    else:
-        o = attention_from_qkv(qkv, cfg.num_heads, scale)
-    o = _dense(o, bp["attn"]["proj"])
+        taps["attn_probs"] = _tp_allcat([p for _, p in outs], home, 1)
+    o = _dense_rowparallel([o for o, _ in outs],
+                           [bp["attn"]["proj"] for bp in bps], home)
     if "attn_out" in want:
         taps["attn_out"] = o
-    if "ls1" in bp:
-        o = o * bp["ls1"].to(o.dtype)
+    if "ls1" in bp0:
+        o = o * bp0["ls1"].to(o.dtype)
     x = x + o
-    h = _layer_norm(x, bp["norm2"], cfg.ln_eps)
-    h = F.gelu(_dense(h, bp["mlp"]["fc1"]), approximate="none")
-    h = _dense(h, bp["mlp"]["fc2"])
-    if "ls2" in bp:
-        h = h * bp["ls2"].to(h.dtype)
+    hs = _to_ranks(_layer_norm(x, bp0["norm2"], cfg.ln_eps), devs)
+    hs = [F.gelu(_dense(h, bp["mlp"]["fc1"]), approximate="none")
+          for h, bp in zip(hs, bps)]
+    h = _dense_rowparallel(hs, [bp["mlp"]["fc2"] for bp in bps], home)
+    if "ls2" in bp0:
+        h = h * bp0["ls2"].to(h.dtype)
     x = x + h
     if "block" in want:
         taps["block"] = x
     return x, taps
 
 
-def vit_forward(params: Dict[str, Any], images: torch.Tensor, cfg: VitConfig,
+def vit_forward(params: Union[Dict[str, Any], Sequence[Dict[str, Any]]],
+                images: torch.Tensor, cfg: VitConfig,
                 taps: Dict[str, Sequence[int]],
                 compute_dtype: torch.dtype = torch.float32,
-                final_norm: bool = False) -> Dict[str, Dict[int, torch.Tensor]]:
+                final_norm: bool = False, use_pallas: bool = True,
+                devices: Optional[Sequence[torch.device]] = None
+                ) -> Dict[str, Dict[int, torch.Tensor]]:
     """Run the ViT on [B, H, W, 3] ImageNet-normalised images and return the
     requested taps, e.g. {"qkv": [11], "block": [11]}: "qkv" is the fused
     [B, N, 3D] projection, "block" the [B, N, D] block output (pre final
     norm), "attn_out" the [B, N, D] attention branch after proj (before
     layer scale), "attn_probs" the fp32 [B, H, N, N] probabilities.
     final_norm adds {"final": {-1: LN(x)}}. N counts CLS, the register
-    tokens and the patches, in that order."""
+    tokens and the patches, in that order. use_pallas=False runs attention
+    without the port's kernels (ops.attention.library_attention).
+
+    Tensor parallelism (the reference's tp_manual, :469-): `params` is a
+    list of per-rank trees (parallel.mesh.shard_vit_params) and `devices`
+    their devices; the images and the taps are on devices[0]. Gradients
+    flow back through the copies between devices by autograd."""
+    ranks = list(params) if isinstance(params, (list, tuple)) else [params]
+    devs = list(devices) if devices else [images.device]
+    params = ranks[0]
     B, H, W, _ = images.shape
     P = cfg.patch_size
     gh, gw = H // P, W // P
@@ -240,7 +328,8 @@ def vit_forward(params: Dict[str, Any], images: torch.Tensor, cfg: VitConfig,
     out: Dict[str, Dict[int, torch.Tensor]] = {k: {} for k in taps}
     for i in range(max_layer + 1):
         want = tuple(k for k, layers in taps.items() if i in layers)
-        x, btaps = _block(x, params["blocks"][i], cfg, want)
+        x, btaps = _block(x, [r["blocks"][i] for r in ranks], cfg, want,
+                          use_pallas, devs)
         for k, v in btaps.items():
             out[k][i] = v
     if final_norm:

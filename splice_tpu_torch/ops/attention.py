@@ -21,6 +21,12 @@ arithmetic. A CUDA tensor launches the kernel or raises; there is no
 fallback: a bf16 tensor at an address that the tensor-core kernels' TMA
 copies cannot use (check_tma_operands) is refused, not copied.
 
+use_pallas=False (the config key use_pallas_attention, the reference's XLA
+ablation) takes neither kernel pair: both routes go through
+library_attention, PyTorch's scaled_dot_product_attention on CUDA tensors
+and the reference's XLA arithmetic (xla_attention_plain) on CPU tensors.
+It is a user's switch, off by default, not a fallback.
+
 Deviation from the reference, by design: above _MAX_N_PAD the reference
 leaves K5 for XLA attention, because its kernel keeps a whole head's K/V in
 VMEM. K5 is flash-style and has no length cap, so the port runs it at every
@@ -357,19 +363,50 @@ def pallas_attention_supported(q: torch.Tensor) -> bool:
     return dh % 64 == 0 and -(-N // 128) * 128 <= _MAX_N_PAD
 
 
+def xla_attention_plain(q, k, v, scale: float,
+                        n_valid: int = 0) -> torch.Tensor:
+    """The reference's _xla_attention (:79-96) on [B, H, N, dh], by
+    autograd: fp32 logits and softmax, the probabilities in v's type for
+    the PV product (fp32 accumulation), the output in q's type."""
+    e, denom = _probs(q, k, scale, n_valid)
+    p = (e / denom).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(q.dtype)
+
+
+def library_attention(q, k, v, scale: float,
+                      n_valid: int = 0) -> torch.Tensor:
+    """Attention without the port's kernels (use_pallas_attention=False,
+    the reference's XLA route): PyTorch's scaled_dot_product_attention on
+    CUDA tensors, xla_attention_plain on CPU tensors."""
+    if not q.is_cuda:
+        return xla_attention_plain(q, k, v, scale, n_valid)
+    mask = None
+    N = k.shape[2]
+    if 0 < n_valid < N:
+        mask = torch.arange(N, device=q.device) < n_valid
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale)
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         scale: float, n_valid: int = 0) -> torch.Tensor:
+                         scale: float, n_valid: int = 0,
+                         use_pallas: bool = True) -> torch.Tensor:
     """Softmax attention over [B, H, N, dh] tensors (differentiable): K5/K6
-    on CUDA tensors at every N."""
+    on CUDA tensors at every N; library_attention without use_pallas."""
+    if not use_pallas:
+        return library_attention(q, k, v, scale, n_valid)
     return AttnSplit.apply(q, k, v, float(scale), int(n_valid))
 
 
 def attention_from_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
-                       n_valid: int = 0) -> torch.Tensor:
+                       n_valid: int = 0,
+                       use_pallas: bool = True) -> torch.Tensor:
     """[B, N, 3D] -> [B, N, D] softmax attention (differentiable), routed
     as the reference routes it (:638-660): the fused-qkv kernels K1/K2 up
-    to the cap, above it split heads, K5/K6, merged heads."""
-    if qkv_attention_supported(qkv, num_heads):
+    to the cap, above it split heads, K5/K6, merged heads; without
+    use_pallas, split heads through library_attention."""
+    if use_pallas and qkv_attention_supported(qkv, num_heads):
         return AttnQKV.apply(qkv, num_heads, float(scale), int(n_valid))
     q, k, v = _split_heads(qkv, num_heads)
-    return _merge_heads(multi_head_attention(q, k, v, scale, n_valid))
+    return _merge_heads(multi_head_attention(q, k, v, scale, n_valid,
+                                             use_pallas))

@@ -18,11 +18,20 @@ the reference's multi-pair program), and a chunk's losses come back as one
 plan, per-pair outputs and metrics, the per-pair scheduler, checkpoints and
 resume.
 
-The reference also shards the pairs over devices (dp) and the ViT over a
-tensor-parallel axis (tp); the port runs one device (parallel.mesh).
+Over a ("dp", "tp") mesh (parallel.mesh; the reference's
+build_multi_pair_program, :54-249) dp splits the P pairs into dp groups of
+P/dp, each a MultiPairTrainer with its own SpliceProgram on its group's
+first device; the frozen ViT is replicated over dp and, with tp > 1,
+sharded over the group's tp devices (models.vit's tensor-parallel block).
+Each pair draws from its own generator, keyed by its global id, so a
+pair's steps do not depend on dp. The loop queues every group's chunk
+before it reads any group's losses. A group on one card (tp = 1, or tp
+ranks that share one card) replays captured graphs; a tensor-parallel
+group across distinct cards steps eagerly.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -120,6 +129,12 @@ class MultiPairTrainer:
         return self.trainers[0].device
 
     @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        """Every device the step runs on: the ViT's tensor-parallel ranks',
+        or the pairs' one."""
+        return self.extractor.tp_devices or (self.device,)
+
+    @property
     def n_pairs(self) -> int:
         return len(self.trainers)
 
@@ -203,53 +218,99 @@ class MultiPairTrainer:
             t.load_state_dict(s)
 
 
+def _group_extractors(extractor: ext_lib.VitExtractor, mesh: mesh_lib.Mesh
+                      ) -> List[ext_lib.VitExtractor]:
+    """Each dp group's ViT: replicated over dp (groups on the same devices
+    share its tensors); with tp > 1, the reference's manual-tp layout
+    sharded over the group's devices (:85-94)."""
+    params = extractor.params
+    if mesh.tp > 1:
+        params = mesh_lib.manual_tp_permute_vit_params(params, extractor.cfg,
+                                                       mesh.tp)
+    ranks = mesh_lib.shard_vit_params(params, mesh)
+    if mesh.tp == 1:
+        return [dataclasses.replace(extractor, params=r[0]) for r in ranks]
+    return [dataclasses.replace(extractor, params=r, tp_devices=devs)
+            for r, devs in zip(ranks, mesh.devices)]
+
+
+class _Gather:
+    """The dp groups' HostCopy reads as one [n, P, ...] tensor."""
+
+    def __init__(self, reads: Sequence[HostCopy]):
+        self.reads = reads
+
+    def wait(self) -> torch.Tensor:
+        return torch.cat([r.wait() for r in self.reads], dim=1)
+
+
 def train_pairs(cfg: Config, dataroots: Sequence[str], image_hw: int = 224,
                 n_steps: Optional[int] = None, device=None,
-                extractor: Optional[ext_lib.VitExtractor] = None
-                ) -> Dict[str, Any]:
+                extractor: Optional[ext_lib.VitExtractor] = None,
+                mesh: Optional[mesh_lib.Mesh] = None) -> Dict[str, Any]:
     """Optimise the pairs of `dataroots` together to step n_steps (default
     cfg.n_epochs) on `device` (default cfg.device, i.e. CUDA), each pair
     at image_hw x image_hw (load_pair_batch), in the chunks of
     trainer.chunk_plan (the reference's multi-pair boundaries: entire-A
     steps, the cls warm-up, logs, checkpoints, plateau's patience + 1),
-    each dispatched through a SpliceProgram over a MultiPairTrainer:
-    captured graphs on CUDA. The mesh (cfg.mesh_dp, cfg.mesh_tp) is
-    clamped as the reference clamps it and must come to one device.
-    `extractor`, the frozen ViT, defaults to cfg's on the device.
+    each dispatched through a SpliceProgram over a MultiPairTrainer per
+    dp group: captured graphs on one card. `mesh` (parallel.mesh.make_mesh)
+    lays the pairs and the ViT out over devices; without it the mesh is
+    cfg.mesh_dp x cfg.mesh_tp clamped as the reference clamps it to the
+    devices `device` sees, over cuda:0..n-1 (one device: `device`).
+    `extractor`, the frozen ViT, defaults to cfg's on the first device.
 
     At every log_images_freq-th step and at the end, per pair: its output
     to <dataroot>/out/output.png through one AsyncImageSaver (must-write
     at the end) and its last losses, lr and steps/s to
     <dataroot>/out/metrics.jsonl. With cfg.checkpoint_every and
     cfg.checkpoint_dir, a checkpoint every checkpoint_every steps (every
-    pair's state, the scheduler's, every pair's draw generator); with
-    cfg.resume_from, the run continues from its latest checkpoint (a run
-    already complete still writes the outputs). On CUDA the loop queues a
-    chunk before it reads the one before it, except under plateau, where
-    the next chunk's lrs follow this one's losses.
+    pair's state in global pair order whatever dp is, the scheduler's,
+    every pair's draw generator); with cfg.resume_from, the run continues
+    from its latest checkpoint (a checkpoint of any dp; a run already
+    complete still writes the outputs). On CUDA the loop queues a chunk
+    before it reads the one before it, except under plateau, where the
+    next chunk's lrs follow this one's losses.
 
     Returns steps_per_sec and pair_steps_per_sec (this call's steps over
     its wall time, captures and boundaries included), wall_time, losses
     (the last step's terms, [P] each), loss_seq ([steps, P, 6] in
-    LOSS_KEYS order), outputs ([P, H, W, 3] in [0, 1]), the rows
-    dispatched ([steps, P, row_width]), the chunk sizes, the first step,
-    the trainer and the program."""
+    LOSS_KEYS order), outputs ([P, H, W, 3] in [0, 1], on the first
+    device), the rows dispatched ([steps, P, row_width]), the chunk
+    sizes, the first step, the mesh, each dp group's trainer and program
+    (trainers, programs) and the first group's (trainer, program)."""
     dev = resolve_device(device if device is not None else cfg.device)
     n_pairs = len(dataroots)
-    mesh_lib.resolve_mesh(cfg, n_pairs, mesh_lib.visible_devices(dev))
+    if mesh is None:
+        dp, tp = mesh_lib.resolve_mesh(cfg, n_pairs,
+                                       mesh_lib.visible_devices(dev))
+        mesh = mesh_lib.make_mesh(dp, tp, [dev] if dp * tp == 1 else None)
+    groups = mesh_lib.dp_sharding(mesh, n_pairs)
+    home = mesh.devices[0][0]
     seed = resolve_seed(cfg)
-    print(f"running {n_pairs} pairs with seed: {seed}.")
-    batch = load_pair_batch(cfg, dataroots, image_hw, dev)
+    print(f"running {n_pairs} pairs with seed: {seed}"
+          + (f" on a dp={mesh.dp} x tp={mesh.tp} mesh"
+             if mesh.dp * mesh.tp > 1 else "") + ".")
+    batch = load_pair_batch(cfg, dataroots, image_hw, home)
     canvas = crop_canvas_size(image_hw, image_hw, cfg.crop_canvas)
     pairs = [ImagePair(A=a, B=b, canvas_A=canvas, canvas_B=canvas)
              for a, b in zip(batch["A"], batch["B"])]
     if extractor is None:
-        extractor = make_extractor_from_config(cfg, dev)
+        extractor = make_extractor_from_config(cfg, home)
     seeds = [pair_seeds(seed, i) for i in range(n_pairs)]
-    trainer = MultiPairTrainer(cfg, pairs, extractor,
-                               seeds=[s for s, _ in seeds])
+    trainers = [MultiPairTrainer(
+        cfg, [pairs[i].to(devs[0]) for i in ids], ext,
+        seeds=[seeds[i][0] for i in ids])
+        for ids, devs, ext in zip(groups, mesh.devices,
+                                  _group_extractors(extractor, mesh))]
     gens = [torch.Generator().manual_seed(s) for _, s in seeds]
     sched = MultiPairScheduler(cfg, n_pairs)
+
+    def load_state(state: Dict[str, Any]) -> None:
+        """Every pair's state (global order) into its group's trainer."""
+        for t, ids in zip(trainers, groups):
+            t.load_state_dict({"pairs": [state["pairs"][i] for i in ids]})
+
     first = 0
     if cfg.resume_from:
         rck = Checkpointer(cfg.resume_from)
@@ -257,7 +318,7 @@ def train_pairs(cfg: Config, dataroots: Sequence[str], image_hw: int = 224,
         if step0 is not None:
             state = rck.restore(step0)
             sched.load_state_dict(state["sched"])
-            trainer.load_state_dict(state)
+            load_state(state)
             for g, s in zip(gens, state["gens"]):
                 g.set_state(s)
             first = step0
@@ -266,16 +327,20 @@ def train_pairs(cfg: Config, dataroots: Sequence[str], image_hw: int = 224,
     ckpt = Checkpointer(cfg.checkpoint_dir) if checkpointing(cfg) else None
     total_steps = n_steps if n_steps is not None else cfg.n_epochs
     plan = chunk_plan(cfg, total_steps, first)
-    program = SpliceProgram(trainer, max((n for _, n, _ in plan), default=1))
+    capacity = max((n for _, n, _ in plan), default=1)
+    programs = [SpliceProgram(t, capacity) for t in trainers]
+    # pair p is pair j of group g
+    where = [(g, j) for g, ids in enumerate(groups) for j in range(len(ids))]
     saver = AsyncImageSaver()
     loggers = [MetricsLogger(os.path.join(r, "out", "metrics.jsonl"))
                for r in dataroots]
     out_pngs = [os.path.join(r, "out", "output.png") for r in dataroots]
     freq = cfg.log_images_freq
-    read_now = cfg.scheduler_policy == "plateau" or not program.graphed
+    read_now = (cfg.scheduler_policy == "plateau"
+                or not all(p.graphed for p in programs))
     seqs: List[np.ndarray] = []
     all_rows: List[np.ndarray] = []
-    pending: List[Tuple[int, HostCopy]] = []
+    pending: List[Tuple[int, Any]] = []
     timer = StepTimer()
 
     def read_chunks(keep: int) -> None:
@@ -290,9 +355,10 @@ def train_pairs(cfg: Config, dataroots: Sequence[str], image_hw: int = 224,
                 sched.observe(r[:, -1])
 
     def save_outputs(final: bool) -> None:
-        out_u8 = trainer.render_u8()
+        outs = [t.render_u8() for t in trainers]
         for p, path in enumerate(out_pngs):
-            saver.save(out_u8[p], path, must_write=final)
+            g, j = where[p]
+            saver.save(outs[g][j], path, must_write=final)
 
     t0 = time.perf_counter()
     try:
@@ -304,9 +370,12 @@ def train_pairs(cfg: Config, dataroots: Sequence[str], image_hw: int = 224,
                           for pair, gen, lr_p in zip(
                               pairs, gens, np.broadcast_to(lr, n_pairs))])
                 for i, lr in zip(range(start, start + n), lrs)])
-            program.dispatch(rows, entire)
+            # every group's chunk is queued before any group is read
+            for prog, ids in zip(programs, groups):
+                prog.dispatch(rows[:, ids.start:ids.stop], entire)
             all_rows.append(rows)
-            pending.append((n, program.fetch_async(n)))
+            pending.append((n, _Gather([prog.fetch_async(n)
+                                        for prog in programs])))
             step = start + n
             if read_now:
                 read_chunks(0)
@@ -314,16 +383,19 @@ def train_pairs(cfg: Config, dataroots: Sequence[str], image_hw: int = 224,
                 save_outputs(final=step >= total_steps)
                 lr_now = sched.lr_for_step(step - 1)
                 for p, logger in enumerate(loggers):
+                    g, j = where[p]
                     logger.log_async(
                         step - 1,
-                        dict(zip(LOSS_KEYS, program.loss_seq[n - 1, p])),
+                        dict(zip(LOSS_KEYS, programs[g].loss_seq[n - 1, j])),
                         {"lr": float(lr_now[p]),
                          "steps_per_sec": timer.rate()},
                         with_memory=(step // freq) % 10 == 0)
             if ckpt is not None and step % cfg.checkpoint_every == 0:
-                ckpt.save(step, {**trainer.state_dict(),
-                                 "sched": sched.state_dict(),
-                                 "gens": [g.get_state() for g in gens]})
+                ckpt.save(step, {
+                    "pairs": [s for t in trainers
+                              for s in t.state_dict()["pairs"]],
+                    "sched": sched.state_dict(),
+                    "gens": [g.get_state() for g in gens]})
             read_chunks(1)
         read_chunks(0)
         wall = time.perf_counter() - t0
@@ -331,7 +403,7 @@ def train_pairs(cfg: Config, dataroots: Sequence[str], image_hw: int = 224,
             # no step to run (a resumed run already complete): the outputs
             # still land
             save_outputs(final=True)
-        outputs = trainer.render()
+        outputs = torch.cat([t.render().to(home) for t in trainers])
     finally:
         saver.close()
         for logger in loggers:
@@ -350,4 +422,6 @@ def train_pairs(cfg: Config, dataroots: Sequence[str], image_hw: int = 224,
             "rows": (np.concatenate(all_rows) if all_rows else np.zeros(
                 (0, n_pairs, row_width(cfg)), np.float32)),
             "chunks": [n for _, n, _ in plan], "first_step": first,
-            "output_paths": out_pngs, "trainer": trainer, "program": program}
+            "output_paths": out_pngs, "mesh": mesh, "trainers": trainers,
+            "programs": programs, "trainer": trainers[0],
+            "program": programs[0]}

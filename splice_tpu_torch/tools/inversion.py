@@ -151,19 +151,19 @@ def invert(image_path: str, save_path: str, feature: str = "cls",
     callback(step, loss, image [H, W, 3] on the device) is called; at the
     end the noise-free render is saved. compute_dtype: the generator's and
     the ViT's; generator_layout "nhwc" (skip_apply) or "chw"
-    (skip_apply_chw under generator_conv). The attention always runs the
-    port's kernels on CUDA (use_pallas_attention=False, the reference's XLA
-    ablation, is not ported). Returns the last loss, the wall time, the
+    (skip_apply_chw under generator_conv). use_pallas_attention: the
+    port's attention kernels (None: on CUDA, as the reference's None means
+    Pallas off the CPU, :65-66); False is the reference's XLA ablation
+    (ops.attention.library_attention). Returns the last loss, the wall time, the
     parameter tree, the ViT's input size, and the chunk sizes, the
     program and the step."""
     if feature not in FEATURES:
         raise ValueError(f"feature {feature!r}; one of {FEATURES}")
-    if use_pallas_attention is False:
-        raise NotImplementedError("use_pallas_attention=False (attention "
-                                  "without the port's kernels) is not ported")
     if generator_layout not in ("nhwc", "chw"):
         raise ValueError(f"generator_layout {generator_layout!r}")
     dev = resolve_device(device)
+    if use_pallas_attention is None:
+        use_pallas_attention = dev.type == "cuda"
     dt = _DTYPES[compute_dtype]
     img = load_image(image_path, resize)
     target = torch.from_numpy(img)[None].to(dev)
@@ -174,7 +174,8 @@ def invert(image_path: str, save_path: str, feature: str = "cls",
         load_or_init_vit_params(dino_model_name, vit_weights, device=dev), dt)
     extractor = ext_lib.VitExtractor(params=vparams, cfg=vcfg,
                                      model_name=dino_model_name,
-                                     compute_dtype=dt)
+                                     compute_dtype=dt,
+                                     use_pallas=use_pallas_attention)
     gcfg = unet.inversion_skip_config(input_depth)
 
     def g_apply(p, x):

@@ -19,11 +19,13 @@ CPU the program runs the same loop eagerly.
 
 Around the chunks train_pair runs the reference's run: the scheduler, the
 output PNG and the metrics JSONL from worker threads, checkpoints and
-resume. Its loop queues chunk k+1 before it reads chunk k's losses, and
-nothing at a log boundary waits for the device.
+resume, and with profile_dir a device trace of profile_n_steps steps
+(utils.profiling.TraceWindow). Its loop queues chunk k+1 before it reads
+chunk k's losses, and nothing at a log boundary waits for the device.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import ctypes.util
@@ -52,6 +54,7 @@ from splice_tpu_torch.utils.checkpoint import Checkpointer
 from splice_tpu_torch.utils.io import AsyncImageSaver
 from splice_tpu_torch.utils.metrics import (HostCopy, MetricsLogger,
                                             StepTimer, fetch_stacked)
+from splice_tpu_torch.utils.profiling import TraceWindow
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -372,7 +375,8 @@ def make_extractor_from_config(cfg: Config, device=None,
     params = vit_lib.cast_params_for_compute(params, dtype)
     return ext_lib.VitExtractor(params=params, cfg=vcfg,
                                 model_name=cfg.dino_model_name,
-                                compute_dtype=dtype)
+                                compute_dtype=dtype,
+                                use_pallas=cfg.use_pallas_attention)
 
 
 class SpliceTrainer:
@@ -614,12 +618,19 @@ class SpliceProgram:
     capture runs no kernel), then the key is captured and every later step
     replays. The graphs share one memory pool, as they never run together.
     A capture that fails raises: on the card there is no eager fallback. On
-    the CPU the same body runs eagerly.
+    the CPU the same body runs eagerly, and so does a trainer whose step
+    spans several distinct cards (its `devices`: a tensor-parallel ViT),
+    since a graph is captured on one device's stream.
     """
 
     def __init__(self, trainer, capacity: int):
         dev = trainer.device
-        self.trainer, self.graphed = trainer, dev.type == "cuda"
+        # a trainer across several devices (a tensor-parallel ViT over
+        # distinct cards) steps eagerly: a graph is captured on one
+        # device's stream
+        devices = {str(d) for d in getattr(trainer, "devices", (dev,))}
+        self.trainer = trainer
+        self.graphed = dev.type == "cuda" and len(devices) == 1
         shape = trainer.row_shape
         # the step's loss columns (tools.inversion's step has one)
         self.keys = getattr(trainer, "loss_keys", LOSS_KEYS)
@@ -647,10 +658,11 @@ class SpliceProgram:
         host = torch.from_numpy(np.ascontiguousarray(rows, np.float32))
         if self.graphed:
             host = host.pin_memory()
-        self.rows[:n].copy_(host, non_blocking=self.graphed)
-        self.counter.zero_()
-        for _ in range(n):
-            self._step(entire)
+        with _on_device(self.rows.device):
+            self.rows[:n].copy_(host, non_blocking=self.graphed)
+            self.counter.zero_()
+            for _ in range(n):
+                self._step(entire)
         return n
 
     def fetch(self, n: int) -> np.ndarray:
@@ -699,6 +711,14 @@ class SpliceProgram:
             for k in after if after[k] != before[k]})
 
 
+def _on_device(dev: torch.device):
+    """The CUDA device context of dev (its current stream: the one a
+    capture and a replay use), or nothing on the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
 def checkpointing(cfg: Config) -> bool:
     return cfg.checkpoint_every > 0 and bool(cfg.checkpoint_dir)
 
@@ -707,8 +727,8 @@ def boundaries_after(cfg: Config, i: int, total_steps: int) -> int:
     """Next step index (exclusive) where the host must step in after step
     i (splice_tpu/trainer.py:644-676): the run's end, the next entire-A
     step, the log boundary, the checkpoint boundary, the lambda-warmup
-    switch, and under plateau the chunk cap. (The reference's profile
-    marks come with the profile keys.)"""
+    switch, the profile window's marks, and under plateau the chunk
+    cap."""
     cands = [total_steps]
     if cfg.lambda_entire_ssim > 0 or cfg.lambda_entire_cls > 0:
         cands.append(((i // cfg.entire_A_every) + 1) * cfg.entire_A_every)
@@ -720,6 +740,9 @@ def boundaries_after(cfg: Config, i: int, total_steps: int) -> int:
         cands.append(k * cfg.checkpoint_every)
     if i < cfg.cls_warmup:
         cands.append(cfg.cls_warmup)
+    if cfg.profile_dir:
+        cands += [cfg.profile_start_step,
+                  cfg.profile_start_step + cfg.profile_n_steps]
     if cfg.scheduler_policy == "plateau":
         # the lr of a dispatch follows the losses before it: a cut lands
         # within one patience window
@@ -795,7 +818,9 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
     then callback(the uint8 frame). Both workers wait on their own copy's
     event: the boundary queues work and waits for nothing. With cfg.checkpoint_every and cfg.checkpoint_dir, a
     checkpoint every checkpoint_every steps; a save waits for the device
-    once.
+    once. With cfg.profile_dir, a device trace of steps
+    [profile_start_step, profile_start_step + profile_n_steps) into it
+    (TraceWindow: the device drains at both marks, and only there).
 
     On CUDA the loop queues each chunk, then reads the one before it, so
     the device always holds queued work while the host reads losses and
@@ -822,8 +847,9 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
     queueing, the rows dispatched, the output image (float and the last
     uint8 frame; output None without want_output), the trainer, the
     program, the chunk sizes, the first step, the final flat parameters
-    (a copy) and, from before the first step, a snapshot of flat and the
-    optimizer's state (start_state)."""
+    (a copy), from before the first step, a snapshot of flat and the
+    optimizer's state (start_state), and the trace's path (trace_path,
+    None without one)."""
     dev = resolve_device(device if device is not None else cfg.device)
     seed = resolve_seed(cfg)
     print(f"running with seed: {seed}.")
@@ -881,6 +907,9 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
     pending: List[Tuple[int, HostCopy]] = []
     out_u8 = None
     timer = StepTimer()
+    window = (TraceWindow(cfg.profile_dir, cfg.profile_start_step,
+                          cfg.profile_n_steps, dev)
+              if cfg.profile_dir else None)
 
     def read_chunks(keep: int) -> None:
         """Read the dispatched chunks, oldest first (each read waits for
@@ -899,6 +928,8 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
             rows = np.stack([pack_row(lambdas_vec(cfg, i), lr,
                                       sample_step_draws(cfg, pair, gen))
                              for i, lr in zip(range(start, start + n), lrs)])
+            if window is not None:
+                window.at(start)
             program.dispatch(rows, entire)
             all_rows.append(rows)
             pending.append((n, program.fetch_async(n)))
@@ -937,6 +968,8 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
                 saver.save(out_u8, out_png, must_write=True)
         output = trainer.render() if want_output else None
     finally:
+        if window is not None:
+            window.close()
         if own_saver:
             saver.close()
         if own_logger:
@@ -951,7 +984,8 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
             "output": output, "output_u8": out_u8, "trainer": trainer,
             "program": program, "seed": seed, "first_step": first,
             "output_path": out_png, "flat": trainer.flat.detach().clone(),
-            "start_state": start_state}
+            "start_state": start_state,
+            "trace_path": window.path if window is not None else None}
 
 
 def train_model(dataroot: Optional[str] = None,

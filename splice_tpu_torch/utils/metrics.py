@@ -26,19 +26,20 @@ import torch
 
 class HostCopy:
     """A tensor on its way to the host. On CUDA: a non-blocking copy into
-    pinned memory and the event recorded after it on the current stream
-    (neither synchronises); wait() blocks on that event alone. On the CPU:
-    a clone, taken now (the source may be written again before the
-    read)."""
+    pinned memory and the event recorded after it on the current stream of
+    the tensor's device (neither synchronises); wait() blocks on that
+    event alone. On the CPU: a clone, taken now (the source may be written
+    again before the read)."""
 
     def __init__(self, t: torch.Tensor):
         t = t.detach()
         self.event = None
         if t.is_cuda:
             self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
+            with torch.cuda.device(t.device):   # t's stream, t's event
+                self.host.copy_(t, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record()
         else:
             self.host = t.clone()
 

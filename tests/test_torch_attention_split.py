@@ -29,6 +29,17 @@ SCALE = 64 ** -0.5
 TINY = dict(patch_size=8, embed_dim=128, depth=2, num_heads=2, img_size=32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch work: pytest-xdist runs
+    six workers, and a torch thread pool in each oversubscribes the host
+    (tests/test_torch_pairs.py's fixture)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("N,n_valid", [(64, 0), (64, 40), (200, 0),
                                        (200, 151)])
 def test_split_attention_value_and_grads_match_pallas(N, n_valid):

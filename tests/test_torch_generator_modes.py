@@ -36,6 +36,17 @@ TINY_UNET = dict(channels_down=(8, 8, 16), channels_up=(8, 8, 16),
                  channels_skip=(2, 2, 2))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch work: pytest-xdist runs
+    six workers, and a torch thread pool in each oversubscribes the host
+    (tests/test_torch_pairs.py's fixture)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, rtol, what=""):
     want = np.asarray(want)
     np.testing.assert_allclose(got, want, rtol=rtol,

@@ -30,6 +30,17 @@ from splice_tpu_torch.utils import pngio
 from splice_tpu_torch.utils.metrics import HostCopy, MetricsLogger
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch work: pytest-xdist runs
+    six workers, and a torch thread pool in each oversubscribes the host
+    (tests/test_torch_pairs.py's fixture)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def fast_switching():
     old = sys.getswitchinterval()

@@ -25,6 +25,17 @@ from splice_tpu_torch.utils.tree import tree_map
 SMALL = dict(channels_down=(8, 8), channels_up=(8, 8), channels_skip=(2, 2))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch work: pytest-xdist runs
+    six workers, and a torch thread pool in each oversubscribes the host
+    (tests/test_torch_pairs.py's fixture)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _params(jcfg, seed):
     """The reference's init with the BatchNorm affines and the output
     conv's bias perturbed, so a dropped term shows."""

@@ -23,7 +23,9 @@ loss resolution, fp32, P = 2 on a 1-device mesh.
   * train_pairs on the CPU: outputs, metrics, the chunk loop against eager
     steps and a resumed run against the uninterrupted one (bitwise), the
     plateau cut on the stalled pair only;
-  * the mesh clamp, and the CLI's comma-separated dataroot.
+  * the mesh clamp (dp and tp above 1 survive it since the mesh is
+    ported; tests/test_torch_mesh.py runs them), and the CLI's
+    comma-separated dataroot.
 """
 import concurrent.futures
 import dataclasses
@@ -489,17 +491,13 @@ def test_train_pairs_plateau_cuts_the_stalled_pair(run):
     (1, 1, 8, 1, (1, 1)),
     (8, 1, 8, 1, (1, 1)),          # dp clamped to the one device
     (4, 2, 8, 1, (1, 1)),          # tp to 1, then dp to 1
-    (8, 1, 2, 4, NotImplementedError),   # dp 2 survives
-    (4, 1, 6, 4, NotImplementedError),   # dp 4 -> 3, a divisor of 6
-    (1, 2, 8, 2, NotImplementedError),   # tp 2 survives
+    (8, 1, 2, 4, (2, 1)),          # dp 2 survives
+    (4, 1, 6, 4, (3, 1)),          # dp 4 -> 3, a divisor of 6
+    (1, 2, 8, 2, (1, 2)),          # tp 2 survives
 ])
 def test_mesh_clamp(dp, tp, pairs, devices, want, capsys):
     cfg = _cfg(mesh_dp=dp, mesh_tp=tp)
-    if want is NotImplementedError:
-        with pytest.raises(NotImplementedError, match="A10"):
-            tmesh.resolve_mesh(cfg, pairs, devices)
-    else:
-        assert tmesh.resolve_mesh(cfg, pairs, devices) == want
+    assert tmesh.resolve_mesh(cfg, pairs, devices) == want
     out = capsys.readouterr().out
     if tp > devices:
         assert f"mesh tp={tp} exceeds {devices} visible device(s)" in out

@@ -15,15 +15,12 @@ keys, resume and the elastic relaunch.
     fan_in;
   * ops.image.tensor2im against splice_tpu.ops.image.tensor2im: bitwise;
   * every config key both packages have: the same default;
-  * resume: 6 steps with checkpoint_every 3 against 3 steps, then a run
-    resumed from the checkpoint at step 3: losses, rows and parameters
-    bitwise equal (CPU);
+  * resume: in tests/test_torch_run_resume.py;
   * train_model's callback and the metrics records;
   * the elastic relaunch: a CLI run with max_restarts 1 whose first
     attempt raises at fault_inject_step, in child processes, finishes.
 """
 import dataclasses
-import json
 import math
 import os
 
@@ -50,6 +47,24 @@ from splice_tpu_torch.models import unet as tunet
 from splice_tpu_torch.models import vit as tvit
 from splice_tpu_torch.models.weights import init_vit_params
 from splice_tpu_torch.ops import image as timg
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch work, in this process
+    and in the relaunch test's child processes: pytest-xdist runs six
+    workers, and a torch thread pool in each oversubscribes the host
+    (tests/test_torch_pairs.py's fixture)."""
+    n = torch.get_num_threads()
+    env = os.environ.get("OMP_NUM_THREADS")
+    torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    torch.set_num_threads(n)
+    if env is None:
+        del os.environ["OMP_NUM_THREADS"]
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
 
 # the reference's defaults, and a run of 300 steps whose schedules all
 # change inside steps 0-400
@@ -216,46 +231,6 @@ def tiny():
     ext = text.VitExtractor(
         params=init_vit_params(vcfg, seed=4, device="cpu"), cfg=vcfg)
     return pair, ext
-
-
-def _run_cfg(**kw):
-    return load_config(None, dict(
-        vit_compute_dtype="float32", generator_compute_dtype="float32",
-        dino_global_patch_size=32, device="cpu", seed=5, entire_A_every=4,
-        log_images_freq=2, cls_warmup=1, n_epochs=6, **kw))
-
-
-# (optimizer, policy): Adam's moments and step count, and plateau's state
-# ride in the checkpoint
-@pytest.mark.parametrize("optimizer,policy", [("adam", "cosine"),
-                                              ("rmsprop", "plateau")])
-def test_resume_matches_uninterrupted_run(tiny, tmp_path, optimizer,
-                                          policy):
-    pair, ext = tiny
-
-    def run(root, steps, **kw):
-        cfg = _run_cfg(optimizer=optimizer, scheduler_policy=policy,
-                       checkpoint_every=3, **kw)
-        return ttrainer.train_pair(cfg, steps, dataroot=str(root),
-                                   pair=pair, extractor=ext)
-
-    whole = run(tmp_path / "a", 6, checkpoint_dir=str(tmp_path / "ca"))
-    first = run(tmp_path / "b", 3, checkpoint_dir=str(tmp_path / "cb"))
-    assert sorted(os.listdir(tmp_path / "cb")) == ["ckpt_3.pt"]
-    rest = run(tmp_path / "b", 6, resume_from=str(tmp_path / "cb"))
-    assert rest["first_step"] == 3 and len(rest["losses"]) == 3
-    assert first["losses"] + rest["losses"] == whole["losses"]
-    np.testing.assert_array_equal(
-        np.concatenate([first["rows"], rest["rows"]]), whole["rows"])
-    assert torch.equal(rest["trainer"].flat, whole["trainer"].flat)
-    assert torch.equal(rest["output_u8"], whole["output_u8"])
-    assert sorted(os.listdir(tmp_path / "ca")) == ["ckpt_3.pt", "ckpt_6.pt"]
-    recs = [json.loads(line) for line in
-            (tmp_path / "a" / "out" / "metrics.jsonl").read_text().splitlines()]
-    assert [r["step"] for r in recs] == [1, 3, 5]
-    assert recs[-1]["loss"] == whole["losses"][-1]["loss"]
-    for r in recs:
-        assert set(r) >= {"t", "lr", "steps_per_sec", *ttrainer.LOSS_KEYS}
 
 
 def test_train_model_calls_back_with_uint8_frames(tiny, tmp_path):

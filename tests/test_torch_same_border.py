@@ -32,6 +32,17 @@ from splice_tpu_torch.ops import conv as tconv
 B, H = 2, 9
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch work: pytest-xdist runs
+    six workers, and a torch thread pool in each oversubscribes the host
+    (tests/test_torch_pairs.py's fixture)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, what=""):
     want = np.asarray(want)
     np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4,

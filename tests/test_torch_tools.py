@@ -46,6 +46,17 @@ ONE_SCALE = dict(channels_down=(4,), channels_up=(4,), channels_skip=(2,),
 LIMES = "datasets/feature_visualization/limes.jpeg"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch work: pytest-xdist runs
+    six workers, and a torch thread pool in each oversubscribes the host
+    (tests/test_torch_pairs.py's fixture)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def extractors():
     jp = jax.tree.map(np.asarray, jvit.init_vit_params(

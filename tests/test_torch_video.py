@@ -43,6 +43,17 @@ from splice_tpu_torch.video import train_video
 SRC = pathlib.Path("datasets/splicing/cows")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch work: pytest-xdist runs
+    six workers, and a torch thread pool in each oversubscribes the host
+    (tests/test_torch_pairs.py's fixture)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _clip(root: pathlib.Path) -> None:
     """Two identical frames of the cows A against the cows B."""
     (root / "A").mkdir(parents=True)

@@ -33,6 +33,17 @@ TAPS = {"qkv": (0, 1), "block": (0, 1), "attn_out": (0, 1),
         "attn_probs": (1,)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch work: pytest-xdist runs
+    six workers, and a torch thread pool in each oversubscribes the host
+    (tests/test_torch_pairs.py's fixture)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(registers):
     return (jvit.VitConfig(**TINY, num_register_tokens=registers),
             tvit.VitConfig(**TINY, num_register_tokens=registers))
