@@ -7,9 +7,9 @@ Phases, each fatal on failure:
   1. build the hand-written CUDA kernels from splice_tpu_torch/csrc and
      print each kernel's registers and spills; every tensor-core kernel
      must hold tensor-core instructions (cuobjdump): wgmma (HGMMA) in the
-     bf16 route of K1/K2 and K5/K6, mma.sync (HMMA) in the bf16 route of
-     K3 (every form) and of K4 and K7, and neither in the fp32 conv
-     kernels;
+     bf16 route of K1/K2 and K5/K6 and in the probe kernel P1, mma.sync
+     (HMMA) in the bf16 route of K3 (every form) and of K4 and K7, and
+     neither in the fp32 conv kernels;
   2. hold every kernel against its plain PyTorch version at the shapes the
      training paths give it (and at small edge-case shapes; the bf16
      attention kernels also at N under a tile, one past a tile, B = 1 and
@@ -22,7 +22,12 @@ Phases, each fatal on failure:
      twice on one input, bitwise equal),
      and time kernel, plain version and a PyTorch library call that
      computes the same function (the yardstick only); the redesigned
-     kernels beside their previous kernels' times;
+     kernels beside their previous kernels' times; P1 (the probe kernel,
+     ops.probe.mma_repeat) at the reference probe's shapes ([768, K] x
+     [K, 768], K = 64, 128, 256; [768, 768] x [768, W], W = 64, 128, K
+     streamed) at 64 reps and at m = 64, k = 16, 1 rep, on seeded random
+     inputs, at output tiles of 64 and 128 columns, bitwise twice; then
+     P1's path, tools/mma_k_probe.py (the probe's experiments, printed);
   3. run one regular and one entire-A step at a small size on the card
      (fp32, through the kernels) and on the CPU (plain path) from the same
      parameters and draws, and compare loss and gradient, for
@@ -152,7 +157,19 @@ Phases, each fatal on failure:
      5 x the K1 calls of the regular graph, and tools/trace_agg.py reads
      it; the main path with use_pallas_attention=false (SDPA): no K1, K2,
      K5 or K6 launch, its replayed step beside main's; tools/ablate.py at
-     the default and with xlaattn.
+     the default and with xlaattn;
+  15. the notebook: Splice_tpu_torch.ipynb's code cells in order in one
+     namespace on a copy of the cows pair, NOTEBOOK_STEPS steps at full
+     width (no OVERRIDES: dino_vitb8 seeded, 224, bf16; IPython.display a
+     stand-in that records what it receives where IPython is missing).
+     Gates: every log boundary's frame reached show_result as a host
+     uint8 [H, W, 3], output.png and structure_pca.png, the run on CUDA;
+  16. the acceptance run: python -m splice_tpu_torch.tools.accept from a
+     seeded dino_vitb8 .pth in DINO's key layout and seeded LPIPS weights
+     on copies of both pairs, ACCEPT_STEPS steps each: exit 0, both pairs
+     trained, no reference output and the artifact named; then score_pair
+     of an output against itself with LPIPS on the card (inf, 1, 0, a
+     pass). Prints each pair's train_wall_s.
 Phase 2 also holds K1/K2 at the mesh's tp = 2 shape (MESH_QKV) and K5/K6
 at its tp = 4 shape (MESH_SPLIT). Phase 2 also holds K1/K2 at the DINOv2 paths' shapes (DINOV2_QKV), at
 config c's batch of 16 (PAIRS_QKV; every launch on the tensor cores, in
@@ -650,7 +667,8 @@ def check_tensor_cores(build):
     route of K3 and of K4/K7); each library must have such kernels, the
     conv library a forward one (conv_fwd_tc_kernel) and a weight-gradient
     one, and the fp32 conv kernels (K3's, K4's and K7's CUDA-core kernels)
-    hold neither."""
+    hold neither; and HGMMA in each of P1's four instances (the probe
+    library: 64 and 128 columns, resident and streamed)."""
     att = sass_counts(build, "attention")
     tc = [f for f in att if "_tc" in f]
     if not tc or not all(att[f][0] for f in tc):
@@ -669,6 +687,15 @@ def check_tensor_cores(build):
             or any(sum(cnv[f]) for f in fp32)):
         fail(f"fp32 conv kernels missing or on the tensor cores: "
              f"{ {f: cnv[f] for f in fp32} }")
+    prb = sass_counts(build, "probe")
+    p1 = [f for f in prb if "mma_repeat_kernel" in f]
+    if len(p1) != 4 or not all(prb[f][0] for f in p1):
+        fail(f"P1's four instances missing or without HGMMA: {prb}")
+    # ptxas says so where it had to wait on each wgmma (the probe would
+    # then time a serialised pipeline)
+    for line in (build.BUILD_DIR / "probe.log").read_text().splitlines():
+        if "wgmma" in line.lower():
+            print(f"  ptxas probe: {line.strip()}")
 
 
 def print_ptxas(build):
@@ -3403,7 +3430,238 @@ def run_observability(torch, kernels, base, shared, main_ms):
     return launches
 
 
-def kernel_table(attn, conv):
+# P1 (the probe kernel) in phase 2: (m, k, n, reps). The reference probe's
+# shapes at its 64 reps (K 64/128/256 resident; K 768 through the ring),
+# then both routes at 1 and 2 reps, where a missing rep or a wrong chunk
+# of the ring is a large share of the output and fails the tolerance
+# (at 64 reps it is about 1/64), then the smallest edge case; each at
+# every output tile that divides n
+PROBE_SHAPES = ((768, 64, 768, 64), (768, 128, 768, 64),
+                (768, 256, 768, 64), (768, 768, 64, 64),
+                (768, 768, 128, 64), (768, 768, 64, 1), (768, 768, 128, 2),
+                (768, 256, 768, 1), (64, 16, 64, 1), (64, 16, 128, 1))
+PROBE_TIMED = (768, 128, 768, 64)    # the PERF.md row: t128 at n_tile 128
+
+
+def check_probe(torch, probe, rows):
+    """P1 (ops.probe.mma_repeat) against mma_repeat_plain at PROBE_SHAPES
+    on seeded random bf16 inputs (ones would hide a layout error), at
+    output tiles of 64 and 128 columns, each twice on one input bitwise;
+    timed at PROBE_TIMED beside the plain version and the library's one
+    call of the same function: torch.matmul of A repeated reps times
+    along K by B repeated reps times along K (an fp32-accumulated sum of
+    the reps products, rounded to bf16 once; the repeats are built before
+    timing). torch.matmul of one product is timed too, under
+    one_product_ms."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rtol, why = RTOL["bfloat16"]
+    for m, k, n, reps in PROBE_SHAPES:
+        a = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+        b = torch.randn(k, n, generator=gen, device="cuda").bfloat16()
+        ref = probe.mma_repeat_plain(a, b, reps)
+        route = "streamed" if k > probe.RESIDENT_K else "resident"
+        for nt in probe.N_TILES:
+            if n % nt:
+                continue
+            tag = (f"P1 mma_repeat [{m},{k}]x[{k},{n}] reps {reps} n_tile "
+                   f"{nt} ({route})")
+            got = probe.mma_repeat(a, b, reps, nt)
+            err = compare(tag, got, ref, rtol, why)
+            check_bitwise(torch, tag, (got,), (probe.mma_repeat(a, b, reps,
+                                                                nt),))
+            if (m, k, n, reps) == PROBE_TIMED and nt == 128:
+                ar, br = a.repeat(1, reps), b.repeat(reps, 1)
+                rows["mma_repeat"].update(timed(
+                    lambda: probe.mma_repeat(a, b, reps, nt),
+                    lambda: probe.mma_repeat_plain(a, b, reps),
+                    lambda: torch.matmul(ar, br),
+                    (m * k + k * n + m * n) * 2, 2.0 * m * n * k * reps,
+                    "bfloat16", "P1", f"[{m},{k}]x[{k},{n}] reps {reps} "
+                    f"n_tile {nt}"), max_abs_err=err,
+                    library="torch.matmul(A.repeat(1, reps), "
+                    "B.repeat(reps, 1))",
+                    one_product_ms=time_ms(lambda: torch.matmul(a, b)))
+                print(f"  torch.matmul of one product: "
+                      f"{rows['mma_repeat']['one_product_ms']:.4f} ms")
+                del ar, br
+        del a, b, ref
+
+
+def run_probe_tool(torch, probe):
+    """P1's path: tools/mma_k_probe.py's experiments (the reference probe's
+    shapes, reps and iterations), the launch count set to 0 just before and
+    read just after. Prints its lines and its JSON."""
+    from splice_tpu_torch.tools import mma_k_probe
+    probe.mma_repeat.launches = 0
+    res = mma_k_probe.run()
+    n = probe.mma_repeat.launches
+    mma_k_probe.report(res)
+    print(f"  probe tool: {n} P1 launches; {json.dumps(res)}")
+    if n == 0:
+        fail("the probe tool launched no P1")
+    return {"mma_repeat": n}
+
+
+NOTEBOOK = "Splice_tpu_torch.ipynb"
+NOTEBOOK_STEPS = 20      # phase 15 (a user runs 2000)
+ACCEPT_STEPS = 100       # phase 16 (a user runs 2000)
+
+
+def display_stand_in():
+    """IPython.display where IPython is not installed: a module whose
+    display records what it receives and whose clear_output does nothing
+    (it stands in for the screen, not for the device)."""
+    import types
+    shown = []
+    mod = types.ModuleType("IPython.display")
+    mod.display = lambda *objs, **kw: shown.extend(objs)
+    mod.clear_output = lambda wait=False: None
+    pkg = types.ModuleType("IPython")
+    pkg.display = mod
+    sys.modules["IPython"], sys.modules["IPython.display"] = pkg, mod
+    return shown
+
+
+def run_notebook(torch):
+    """Phase 15: the notebook's code cells in order in one namespace on a
+    temporary copy of the cows pair (DATAROOT rewritten as
+    tests/test_notebook.py rewrites it), N_STEPS = NOTEBOOK_STEPS and no
+    OVERRIDES: full width on CUDA. Gates: every log boundary's frame
+    reached show_result as a host uint8 [H, W, 3] that np.asarray took
+    (the callback is wrapped to record it), output.png and
+    structure_pca.png exist, the run was on CUDA."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from splice_tpu_torch import trainer as trainer_mod
+    try:
+        import IPython.display  # noqa: F401
+        shown = None
+    except ImportError:
+        shown = display_stand_in()
+    with open(NOTEBOOK) as f:
+        cells = json.load(f)["cells"]
+    code = ["".join(c["source"]) for c in cells if c["cell_type"] == "code"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nb_")
+    root = os.path.join(tmp, "cows")
+    for sub in ("A", "B"):
+        shutil.copytree(os.path.join(PAIR_ROOTS[0], sub),
+                        os.path.join(root, sub))
+    if "'datasets/splicing/cows'" not in code[1] or \
+            "OVERRIDES = {}" not in code[2]:
+        fail("the notebook's DATAROOT or OVERRIDES hook moved")
+    code[1] = code[1].replace("'datasets/splicing/cows'", repr(root))
+    code[2] = (f"VIT_WEIGHTS = None\nN_STEPS = {NOTEBOOK_STEPS}\n"
+               f"OVERRIDES = {{}}\n")
+    frames = []
+    train_pair = trainer_mod.train_pair
+
+    def recording(cfg, callback=None, **kw):
+        def cb(out):
+            frames.append((type(out).__name__, str(out.device), out.dtype,
+                           tuple(out.shape)))
+            callback(out)
+        return train_pair(cfg, callback=cb, **kw)
+
+    ns = {"__name__": "__main__"}
+    t0 = time.perf_counter()
+    trainer_mod.train_pair = recording
+    try:
+        for i, src in enumerate(code):
+            t = time.perf_counter()
+            exec(compile(src, f"{NOTEBOOK} code cell {i}", "exec"), ns)
+            print(f"  code cell {i}: {time.perf_counter() - t:.1f} s")
+    finally:
+        trainer_mod.train_pair = train_pair
+        wall = time.perf_counter() - t0
+    out_png = os.path.join(root, "out", "output.png")
+    pca_png = os.path.join(root, "out", "structure_pca.png")
+    res = ns["result"]
+    print(f"  the notebook on the card: {wall:.1f} s ({NOTEBOOK_STEPS} "
+          f"steps, {res['steps_per_sec']:.3f} steps/s, device "
+          f"{ns['cfg'].device}, {ns['cfg'].dino_model_name}); frames at the "
+          f"callback: {frames}; "
+          + ("IPython's display" if shown is None
+             else f"stand-in display received {len(shown)} images"))
+    n_bound = NOTEBOOK_STEPS // ns["cfg"].log_images_freq
+    if (len(frames) != n_bound
+            or any(f[:3] != ("Tensor", "cpu", torch.uint8) or len(f[3]) != 3
+                   or f[3][2] != 3 for f in frames)):
+        fail(f"notebook: show_result did not get {n_bound} host uint8 "
+             f"[H, W, 3] frames: {frames}")
+    last = np.asarray(res["output_u8"].cpu())
+    if not (os.path.exists(out_png) and os.path.exists(pca_png)):
+        fail(f"notebook: {out_png} or {pca_png} missing")
+    if ns["cfg"].device != "cuda" or not res["trainer"].flat.is_cuda:
+        fail("notebook: the run was not on CUDA")
+    print(f"  output.png {np.asarray(ns['Image'].open(out_png)).shape}, "
+          f"last frame {last.shape}, structure_pca.png "
+          f"{np.asarray(ns['Image'].open(pca_png)).shape}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return wall
+
+
+def run_accept(torch):
+    """Phase 16: python -m splice_tpu_torch.tools.accept from a seeded
+    dino_vitb8 state dict in DINO's key layout (.pth) and seeded LPIPS
+    weights, on temporary copies of both pairs for ACCEPT_STEPS steps each
+    at the defaults (full width, CUDA). Gates: exit 0, both pairs trained,
+    no reference output and the artifact named; then score_pair of the
+    cows output against itself on the card: PSNR inf, SSIM 1, LPIPS <=
+    1e-6 and its verdict a pass. Prints each pair's train_wall_s."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from splice_tpu_torch.tools import accept
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import golden_vit    # the tests' seeded DINO-layout state dict
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_accept_")
+    ckpt = os.path.join(tmp, "dino_vitb8.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in golden_vit.make_state(
+        seed=0, dim=768).items()}, ckpt)
+    lp = os.path.join(tmp, "lpips.npz")
+    np.savez(lp, **lpips_weights(3))
+    root = os.path.join(tmp, "ds")
+    for src in PAIR_ROOTS:
+        for sub in ("A", "B"):
+            shutil.copytree(os.path.join(src, sub), os.path.join(
+                root, os.path.basename(src), sub))
+    out = os.path.join(tmp, "accept_torch.json")
+    cmd = [sys.executable, "-m", "splice_tpu_torch.tools.accept",
+           "--checkpoint", ckpt, "--lpips_weights", lp, "--n_epochs",
+           str(ACCEPT_STEPS), "--datasets_root", root, "--out", out,
+           "--vit_npz", os.path.join(tmp, "vit.npz")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    print(f"  accept: exit {proc.returncode} in {wall:.1f} s; stdout tail: "
+          f"{proc.stdout[-1500:]}")
+    if proc.returncode != 0:
+        fail(f"accept exited {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(out) as f:
+        report = json.load(f)
+    pairs = report["pairs"]
+    if (sorted(pairs) != sorted(accept.PAIRS) or report["pass"] is not None
+            or any(not e.get("trained") or e.get("ref_available") is not False
+                   or "ref/output.png" not in e.get("blocking_artifact", "")
+                   for e in pairs.values())):
+        fail(f"accept: unexpected report {report}")
+    for name, e in pairs.items():
+        print(f"  {name}: train_wall_s {e['train_wall_s']} ({ACCEPT_STEPS} "
+              f"steps in a process of its own, start and captures "
+              f"included)")
+    cows = pairs["cows"]["output"]
+    same = accept.score_pair(cows, cows, lp, "cuda")
+    print(f"  score_pair(cows output, itself, LPIPS on cuda): {same}")
+    if not (same["psnr"] == float("inf") and same["ssim"] == 1.0
+            and same["lpips"] <= 1e-6 and same["lpips_pass"] is True):
+        fail(f"score_pair of an image against itself: {same}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return wall, {n: e["train_wall_s"] for n, e in pairs.items()}
+
+
+def kernel_table(attn, conv, probe):
     """name -> (wrapper, route, source, the TPU kernel it replaces, the
     path whose launches the JSON line reports)."""
     att, cnv = ("splice_tpu_torch/csrc/attention.cu",
@@ -3439,10 +3697,13 @@ def kernel_table(attn, conv):
                                 "fused_same"),
         "conv_dw_gtap": (conv.conv_dw_gtap_cuda, "cuda", cnv,
                          "splice_tpu/ops/conv_pallas.py:455", "pallas_same"),
+        "mma_repeat": (probe.mma_repeat, "cuda",
+                       "splice_tpu_torch/csrc/probe.cu",
+                       "scripts/mxu_k_probe.py:24", "probe_tool"),
     }
 
 
-def mesh_across_cards(torch, attn, conv, n: int) -> None:
+def mesh_across_cards(torch, attn, conv, probe, n: int) -> None:
     """--mesh-cards n: phase 13 alone over cuda:0..3 (n = 4 cards), held
     against a dp = tp = 1 run of the same steps on cuda:0."""
     from splice_tpu_torch.config import load_config
@@ -3453,7 +3714,7 @@ def mesh_across_cards(torch, attn, conv, n: int) -> None:
     import tempfile
     if n != 4 or torch.cuda.device_count() < n:
         fail(f"--mesh-cards {n}: needs 4, sees {torch.cuda.device_count()}")
-    kernels = kernel_table(attn, conv)
+    kernels = kernel_table(attn, conv, probe)
     cfg = load_config(None, dict(seed=3, n_pairs=8))
     extractor = make_extractor_from_config(cfg, "cuda:0")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ref_")
@@ -3485,6 +3746,7 @@ def main() -> int:
     from splice_tpu_torch.ops import _build
     from splice_tpu_torch.ops import attention as attn
     from splice_tpu_torch.ops import conv
+    from splice_tpu_torch.ops import probe
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -3503,14 +3765,14 @@ def main() -> int:
     print_ptxas(_build)
     check_tensor_cores(_build)
     if cards:
-        mesh_across_cards(torch, attn, conv, cards)
+        mesh_across_cards(torch, attn, conv, probe, cards)
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
 
-    kernels = kernel_table(attn, conv)
+    kernels = kernel_table(attn, conv, probe)
     rows = {name: {} for name in kernels}
 
     mark(t_start)
@@ -3540,6 +3802,7 @@ def main() -> int:
     check_same_edge_cases(torch, conv)
     check_dw_tc_edge_cases(torch, conv)
     check_k3_tc_edge_cases(torch, conv)
+    check_probe(torch, probe, rows)
     torch.cuda.empty_cache()
     for name, r in rows.items():
         b, by = bound_ms(r["nbytes"], r["flops"], r["dtype"])
@@ -3549,6 +3812,9 @@ def main() -> int:
               f"bound {b:.4f} ms ({by})")
         if name in DW + K3:
             print_beside_previous(name, r)
+
+    print("  P1's path: the probe tool (tools/mma_k_probe.py)")
+    launches = {"probe_tool": run_probe_tool(torch, probe)}
 
     mark(t_start)
     print("phase 3: small step, card against CPU")
@@ -3584,7 +3850,7 @@ def main() -> int:
     res, main_launches = run_path(
         torch, "main", cfg, MAIN_STEPS, kernels,
         ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid", "conv_dw"))
-    launches = {"main": main_launches}
+    launches["main"] = main_launches
     secs = res["step_seconds"]
     print(f"  replays alone: entire-A step 10 {secs[10] * 1e3:.1f} ms, "
           f"regular step 11 {secs[11] * 1e3:.1f} ms (phase 5 times a "
@@ -3732,6 +3998,20 @@ def main() -> int:
           f"tools/ablate.py, tools/trace_agg.py")
     launches["xlaattn"] = run_observability(torch, kernels, base, shared,
                                             main_ms)
+    del shared
+    torch.cuda.empty_cache()
+    mark(t_start)
+    print(f"phase 15: the notebook ({NOTEBOOK}) on the card, "
+          f"{NOTEBOOK_STEPS} steps at full width")
+    nb_wall = run_notebook(torch)
+    torch.cuda.empty_cache()
+    mark(t_start)
+    print(f"phase 16: the acceptance run (python -m "
+          f"splice_tpu_torch.tools.accept), both pairs, {ACCEPT_STEPS} steps "
+          f"each")
+    acc_wall, acc_pairs = run_accept(torch)
+    print(f"  walls: notebook {nb_wall:.1f} s, acceptance {acc_wall:.1f} s "
+          f"(pairs {acc_pairs})")
 
     line = []
     for name, (fn, route, source, replaces, path) in kernels.items():
@@ -3742,7 +4022,9 @@ def main() -> int:
                      "path": path, "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"], "shape": r["shape"]})
+                     "library_ms": r["library_ms"], "shape": r["shape"],
+                     **{key: r[key] for key in ("library", "one_product_ms")
+                        if key in r}})
     for (kid, tag), r in pair_rows.items():
         name = {"K1": "attn_qkv_fwd", "K2": "attn_qkv_bwd"}[kid]
         fn, route, source, replaces, _ = kernels[name]

@@ -21,7 +21,7 @@ from typing import Dict
 PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("attention", "conv")
+SOURCES = ("attention", "conv", "probe")
 # --split-compile=0: the device optimiser runs on every core (the conv
 # library's 60-odd template instances took 116 s on one, 47 s split, on the
 # H100 machine's 8 cores)
@@ -90,7 +90,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library `name` ("attention" or "conv")."""
+    """The loaded kernel library `name` (one of SOURCES)."""
     return build_all()[name]
 
 

@@ -35,6 +35,7 @@ from splice_tpu_torch.models.weights import load_or_init_vit_params
 from splice_tpu_torch.ops import image as img_ops
 from splice_tpu_torch.trainer import _DTYPES, SpliceProgram
 from splice_tpu_torch.utils.io import AsyncImageSaver, save_image
+from splice_tpu_torch.utils.metrics import HostCopy
 
 FEATURES = ("cls", "keys")
 
@@ -148,7 +149,8 @@ def invert(image_path: str, save_path: str, feature: str = "cls",
     """The reference's invert (:29-204) on `device` (default CUDA):
     n_iter steps in chunks that end after every step index 0 mod log_freq;
     at each such step the render is saved (asynchronously) to save_path and
-    callback(step, loss, image [H, W, 3] on the device) is called; at the
+    callback(step, loss, image) is called, the image a float CPU tensor
+    [H, W, 3] in [0, 1] (the reference hands it a host array); at the
     end the noise-free render is saved. compute_dtype: the generator's and
     the ViT's; generator_layout "nhwc" (skip_apply) or "chw"
     (skip_apply_chw under generator_conv). use_pallas_attention: the
@@ -220,7 +222,7 @@ def invert(image_path: str, save_path: str, feature: str = "cls",
                 out = step.render(mag_at(last))
                 saver.save(img_ops.tensor2im(out), save_path)
                 if callback is not None:
-                    callback(last, loss, out)
+                    callback(last, loss, HostCopy(out).wait())
         out = step.render(0.0)
     finally:
         saver.close()

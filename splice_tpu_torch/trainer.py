@@ -815,10 +815,13 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
     (must-write at the end), the chunk's last losses with the lr and
     steps/s to a MetricsLogger (cfg.metrics_path, default
     <dataroot>/out/metrics.jsonl; the device memory every tenth time),
-    then callback(the uint8 frame). Both workers wait on their own copy's
-    event: the boundary queues work and waits for nothing. With cfg.checkpoint_every and cfg.checkpoint_dir, a
-    checkpoint every checkpoint_every steps; a save waits for the device
-    once. With cfg.profile_dir, a device trace of steps
+    then callback(the uint8 frame as a CPU tensor [H, W, 3], which
+    np.asarray takes, as the reference hands it a host array). Both
+    workers wait on their own copy's event: without a callback the
+    boundary queues work and waits for nothing; with one it waits for the
+    frame's copy to the host. With cfg.checkpoint_every and
+    cfg.checkpoint_dir, a checkpoint every checkpoint_every steps; a save
+    waits for the device once. With cfg.profile_dir, a device trace of steps
     [profile_start_step, profile_start_step + profile_n_steps) into it
     (TraceWindow: the device drains at both marks, and only there).
 
@@ -954,7 +957,7 @@ def train_pair(cfg: Config, n_steps: Optional[int] = None, device=None,
                      "steps_per_sec": timer.rate()},
                     with_memory=(step // freq) % 10 == 0)
                 if callback is not None:
-                    callback(out_u8)
+                    callback(HostCopy(out_u8).wait())
                 boundary_seconds.append(time.perf_counter() - t0)
             if ckpt is not None and step % cfg.checkpoint_every == 0:
                 ckpt.save(step, run_state(trainer, sched, gen))
@@ -993,8 +996,8 @@ def train_model(dataroot: Optional[str] = None,
                 cfg: Optional[Config] = None) -> Dict[str, Any]:
     """Reference-parity entry point (splice_tpu/trainer.py:819-830): the
     config at conf/default/config.yaml if present (else the defaults),
-    `dataroot` over it, then train_pair; callback(uint8 frame on the
-    device) at every log boundary."""
+    `dataroot` over it, then train_pair; callback(the uint8 frame, a CPU
+    tensor [H, W, 3]) at every log boundary."""
     if cfg is None:
         default = pathlib.Path("conf/default/config.yaml")
         cfg = load_config(str(default) if default.exists() else None)

@@ -47,6 +47,7 @@ from splice_tpu_torch.models import unet as tunet
 from splice_tpu_torch.models import vit as tvit
 from splice_tpu_torch.models.weights import init_vit_params
 from splice_tpu_torch.ops import image as timg
+from splice_tpu_torch.utils.io import AsyncImageSaver
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
@@ -250,6 +251,40 @@ def test_train_model_calls_back_with_uint8_frames(tiny, tmp_path):
     assert torch.equal(frames[-1], timg.tensor2im(res["output"]))
     saved = np.asarray(Image.open(tmp_path / "out" / "output.png"))
     np.testing.assert_array_equal(saved, frames[-1].numpy())
+
+
+def test_callback_frame_is_the_host_png(tiny, tmp_path):
+    """The callback's frame at each log boundary is a CPU uint8 [H, W, 3]
+    tensor that np.asarray takes (the notebook's show_result), equal to
+    the PNG written at that boundary. On the CPU a device frame would
+    convert too; on CUDA only the host copy does."""
+    pair, ext = tiny
+    cfg = load_config(None, dict(
+        vit_compute_dtype="float32", generator_compute_dtype="float32",
+        dino_global_patch_size=32, device="cpu", seed=2, n_epochs=5,
+        log_images_freq=2))
+    saver = AsyncImageSaver()
+    seen = []
+
+    def callback(frame):
+        saver.flush()      # this boundary's PNG is on disk
+        png = np.asarray(Image.open(tmp_path / "out" / "output.png"))
+        seen.append((frame.device.type, frame.dtype, np.asarray(frame),
+                     png))
+
+    try:
+        res = ttrainer.train_pair(cfg, dataroot=str(tmp_path), pair=pair,
+                                  extractor=ext, callback=callback,
+                                  saver=saver)
+    finally:
+        saver.close()
+    assert len(seen) == 3 and res["chunks"] == [1, 1, 2, 1]
+    for dev, dtype, arr, png in seen:
+        assert (dev, dtype, arr.dtype) == ("cpu", torch.uint8, np.uint8)
+        assert arr.shape == (*res["output_u8"].shape[:2], 3)
+        np.testing.assert_array_equal(arr, png)
+    np.testing.assert_array_equal(seen[-1][2], res["output_u8"].numpy())
+    assert not np.array_equal(seen[0][2], seen[-1][2])
 
 
 def test_elastic_relaunch_finishes(tmp_path, capfd, monkeypatch):

@@ -318,7 +318,7 @@ def test_invert_end_to_end_log_indices(tmp_path, monkeypatch):
         tres = tinv.invert(LIMES, str(tmp_path / "t.png"), **args,
                            device="cpu",
                            callback=lambda i, l, o: logs["t"].append(
-                               (i, l, tuple(o.shape))))
+                               (i, l, (o.device.type, *o.shape))))
         steps = []
         long = tinv.invert(LIMES, str(tmp_path / "t10.png"),
                            **dict(args, n_iter=10, log_freq=4,
@@ -328,7 +328,10 @@ def test_invert_end_to_end_log_indices(tmp_path, monkeypatch):
     finally:
         del jvit.VIT_CONFIGS["_inv_tiny"], tvit.VIT_CONFIGS["_inv_tiny"]
     assert [i for i, _, _ in logs["t"]] == logs["j"] == [0, 2]
-    assert all(np.isfinite(l) and s == (48, 60, 3) for _, l, s in logs["t"])
+    # the image reaches the callback on the host (the reference hands it a
+    # host array)
+    assert all(np.isfinite(l) and s == ("cpu", 48, 60, 3)
+               for _, l, s in logs["t"])
     assert tres["chunks"] == [1, 2] and np.isfinite(tres["loss"])
     assert tres["dino_input_hw"] == jres["dino_input_hw"] == (224, 280)
     from PIL import Image
