@@ -7,7 +7,8 @@ Phases, each fatal on failure:
   1. build the hand-written CUDA kernels from splice_tpu_torch/csrc and
      print each kernel's registers and spills; every tensor-core kernel
      must hold tensor-core instructions (cuobjdump): wgmma (HGMMA) in the
-     bf16 route of K1/K2 and K5/K6 and in the probe kernel P1, mma.sync
+     bf16 route of K1/K2 and K5/K6 and in the probe kernel P1, TF32
+     mma.sync (HMMA ... TF32) in their fp32 route (split TF32), mma.sync
      (HMMA) in the bf16 route of K3 (every form) and of K4 and K7, and
      neither in the fp32 conv kernels;
   2. hold every kernel against its plain PyTorch version at the shapes the
@@ -133,12 +134,18 @@ Phases, each fatal on failure:
      at k = 4, 5 and 7 launched inside the graph, every bf16 launch on the
      tensor cores; the graph against eager steps from one state (phase
      4b's rule, at noise magnitude 0); then feature keys for 5 steps, an
-     fp32 run (K1/K2 on the CUDA cores), evaluate's LPIPS (seeded AlexNet)
+     fp32 run (K1/K2 in split TF32), evaluate's LPIPS (seeded AlexNet)
      of the output on the card against the CPU, and the main path with
      generator_layout nhwc for 4 steps through the program, its replayed
      regular step profiled beside main's. Prints
      iterations/s replayed and sustained, kernel ms per step and peak
      memory for each layout.
+  12b. main_fp32: the main path with vit_compute_dtype and
+     generator_compute_dtype float32, MAIN_FP32_STEPS steps through the
+     program, phase 4's gates, every K1/K2 launch on the tensor cores
+     (split TF32) and every conv launch (fp32 K3/K4 at the two auto
+     sites) on the CUDA cores; its replayed step, kernel ms, launches,
+     busy share and the fp32 attention's ms a step;
   13. the mesh (parallel.mesh, models.vit's tensor-parallel block):
      train_pairs over config c's eight pairs at dp = 2 x tp = 2 over
      [cuda:0] * 4 (two groups of four pairs, each group's ViT over two
@@ -170,12 +177,18 @@ Phases, each fatal on failure:
      trained, no reference output and the artifact named; then score_pair
      of an output against itself with LPIPS on the card (inf, 1, 0, a
      pass). Prints each pair's train_wall_s.
-Phase 2 also holds K1/K2 at the mesh's tp = 2 shape (MESH_QKV) and K5/K6
-at its tp = 4 shape (MESH_SPLIT). Phase 2 also holds K1/K2 at the DINOv2 paths' shapes (DINOV2_QKV), at
+Phase 2 also holds the fp32 (split-TF32) K1/K2 at FP32_QKV and K5/K6 at
+FP32_SPLIT against their plain fp32 versions (matmul TF32 off), bitwise
+run to run, every launch on the tensor cores, timed beside SDPA in fp32;
+K7 at k = 5 and 7 (GTAP_SITES, bf16 and fp32); and fp32 K3/K4 at the two
+auto sites against F.conv2d and conv2d_weight with cuDNN's TF32 off.
+Phase 2 also holds K1/K2 at the mesh's tp = 2 shape
+(MESH_QKV) and K5/K6 at its tp = 4 shape (MESH_SPLIT). Phase 2 also holds
+K1/K2 at the DINOv2 paths' shapes (DINOV2_QKV), at
 config c's batch of 16 (PAIRS_QKV; every launch on the tensor cores, in
 the JSON line as path config_c), at the inversion's [1, 981, 2304] in bf16
-and fp32 (INVERSION_QKV) and at 16 heads (QKV_EDGES), and K3 (plain, pro,
-the input gradient) and K4 (plain, pro) in bf16 and fp32 at the inversion
+(INVERSION_QKV; fp32 in FP32_QKV) and at 16 heads (QKV_EDGES), and K3
+(plain, pro, the input gradient) and K4 (plain, pro) in bf16 and fp32 at the inversion
 net's sites (INV_SITES), timed in bf16 against F.conv2d and cuDNN's
 gradients. Phase 3 runs a small fp32 DINOv2 (layer scale, registers) on
 the card against the CPU, two pairs' regular and entire-A steps
@@ -201,7 +214,10 @@ import subprocess
 import sys
 import time
 
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
+# H100 SXM, dense. fp32: the least time fp32-accurate products take on this
+# card is as three TF32 products (split TF32: hi*lo + lo*hi + hi*hi) at
+# 495 TFLOP/s, faster than the CUDA cores' 67 TFLOP/s of plain fp32
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 MAIN_STEPS = 12
 # the times PERF.md records at the same shapes for the kernels that the
@@ -322,56 +338,55 @@ def timed(kernel, plain, library, nbytes, flops, dtype_name, tag, shape):
 
 
 def check_attention(torch, attn, rows):
+    """bf16 K1/K2 at the main path's shapes, timed at [2, 785] (the fp32
+    forms: FP32_QKV)."""
     H, dh, scale = 12, 64, 0.125
     D = H * dh
     g_cpu = torch.Generator().manual_seed(1)
     errs = {"attn_qkv_fwd": 0.0, "attn_qkv_bwd": 0.0}
     main = {}
-    for dtype_name in ("bfloat16", "float32"):
-        dt = getattr(torch, dtype_name)
-        rtol, why = RTOL[dtype_name]
-        for B, N in ((2, 785), (1, 1037)):
-            qkv = torch.randn(B, N, 3 * D, generator=g_cpu).to("cuda", dt)
-            g = torch.randn(B, N, D, generator=g_cpu).to("cuda", dt)
-            tag = f"[{B},{N},{3 * D}] {dtype_name}"
-            out_k = attn.attn_qkv_fwd_cuda(qkv, H, scale)
-            out_p = attn.attention_qkv_plain(qkv, H, scale)
-            errs["attn_qkv_fwd"] = max(errs["attn_qkv_fwd"], compare(
-                f"K1 attn_qkv_fwd {tag}", out_k, out_p, rtol, why))
-            d_k = attn.attn_qkv_bwd_cuda(qkv, g, H, scale)
-            d_p = attn.attention_qkv_bwd_plain(qkv, g, H, scale)
-            errs["attn_qkv_bwd"] = max(errs["attn_qkv_bwd"], compare(
-                f"K2 attn_qkv_bwd {tag}", d_k, d_p, rtol, why))
-            if dtype_name != "bfloat16":
-                continue
-            check_bitwise(torch, f"K2 {tag}", (d_k,),
-                          (attn.attn_qkv_bwd_cuda(qkv, g, H, scale),))
-            if (B, N) != (2, 785):
-                fl = 4 * B * H * N * N * dh
-                time_kernel("K1", lambda: attn.attn_qkv_fwd_cuda(
-                    qkv, H, scale), fl, tag)
-                time_kernel("K2", lambda: attn.attn_qkv_bwd_cuda(
-                    qkv, g, H, scale), 2.5 * fl, tag)
-                continue
-            isz = qkv.element_size()
-            q, k, v = [t.contiguous() for t in attn._split_heads(qkv, H)]
-            gh = g.reshape(B, N, H, dh).permute(0, 2, 1, 3).contiguous()
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            main["attn_qkv_fwd"] = timed(
-                lambda: attn.attn_qkv_fwd_cuda(qkv, H, scale),
-                lambda: attn.attention_qkv_plain(qkv, H, scale),
-                lambda: sdpa(q, k, v, scale=scale),
-                4 * B * N * D * isz, 4 * B * H * N * N * dh, dtype_name,
-                "K1", tag)
-            qr, kr, vr = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            o = sdpa(qr, kr, vr, scale=scale)
-            main["attn_qkv_bwd"] = timed(
-                lambda: attn.attn_qkv_bwd_cuda(qkv, g, H, scale),
-                lambda: attn.attention_qkv_bwd_plain(qkv, g, H, scale),
-                lambda: torch.autograd.grad(o, (qr, kr, vr), gh,
-                                            retain_graph=True),
-                7 * B * N * D * isz, 10 * B * H * N * N * dh, dtype_name,
-                "K2", tag)
+    dt, dtype_name = torch.bfloat16, "bfloat16"
+    rtol, why = RTOL[dtype_name]
+    for B, N in ((2, 785), (1, 1037)):
+        qkv = torch.randn(B, N, 3 * D, generator=g_cpu).to("cuda", dt)
+        g = torch.randn(B, N, D, generator=g_cpu).to("cuda", dt)
+        tag = f"[{B},{N},{3 * D}] {dtype_name}"
+        out_k = attn.attn_qkv_fwd_cuda(qkv, H, scale)
+        out_p = attn.attention_qkv_plain(qkv, H, scale)
+        errs["attn_qkv_fwd"] = max(errs["attn_qkv_fwd"], compare(
+            f"K1 attn_qkv_fwd {tag}", out_k, out_p, rtol, why))
+        d_k = attn.attn_qkv_bwd_cuda(qkv, g, H, scale)
+        d_p = attn.attention_qkv_bwd_plain(qkv, g, H, scale)
+        errs["attn_qkv_bwd"] = max(errs["attn_qkv_bwd"], compare(
+            f"K2 attn_qkv_bwd {tag}", d_k, d_p, rtol, why))
+        check_bitwise(torch, f"K2 {tag}", (d_k,),
+                      (attn.attn_qkv_bwd_cuda(qkv, g, H, scale),))
+        if (B, N) != (2, 785):
+            fl = 4 * B * H * N * N * dh
+            time_kernel("K1", lambda: attn.attn_qkv_fwd_cuda(
+                qkv, H, scale), fl, tag)
+            time_kernel("K2", lambda: attn.attn_qkv_bwd_cuda(
+                qkv, g, H, scale), 2.5 * fl, tag)
+            continue
+        isz = qkv.element_size()
+        q, k, v = [t.contiguous() for t in attn._split_heads(qkv, H)]
+        gh = g.reshape(B, N, H, dh).permute(0, 2, 1, 3).contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        main["attn_qkv_fwd"] = timed(
+            lambda: attn.attn_qkv_fwd_cuda(qkv, H, scale),
+            lambda: attn.attention_qkv_plain(qkv, H, scale),
+            lambda: sdpa(q, k, v, scale=scale),
+            4 * B * N * D * isz, 4 * B * H * N * N * dh, dtype_name,
+            "K1", tag)
+        qr, kr, vr = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = sdpa(qr, kr, vr, scale=scale)
+        main["attn_qkv_bwd"] = timed(
+            lambda: attn.attn_qkv_bwd_cuda(qkv, g, H, scale),
+            lambda: attn.attention_qkv_bwd_plain(qkv, g, H, scale),
+            lambda: torch.autograd.grad(o, (qr, kr, vr), gh,
+                                        retain_graph=True),
+            7 * B * N * D * isz, 10 * B * H * N * N * dh, dtype_name,
+            "K2", tag)
     for name in errs:
         rows[name].update(main[name], max_abs_err=errs[name])
         print_beside_previous(name, rows[name])
@@ -497,6 +512,13 @@ PAIRS_QKV = ((16, 12, 785),)
 INVERSION_QKV = ((1, 12, 981),)
 
 
+# The fp32 attention shapes (B, H, N): main_fp32's two crops and its
+# entire A (vit_compute_dtype float32 at the 224 loss resolution), the
+# fp32 inversion's limes; K5/K6 (B, H, N, dh) at the 480 path's crops
+FP32_QKV = ((2, 12, 785), (1, 12, 1037), (1, 12, 981))
+FP32_SPLIT = ((2, 12, 3601, 64),)
+
+
 # The mesh phase's tensor-parallel attention shapes. K1/K2 (B, H, N): a
 # dp = 2 group of config c's pairs (4 pairs, one generated crop each of A
 # and B: a batch of 8) through ViT-B/8 at tp = 2, 6 heads a rank (local D
@@ -506,13 +528,13 @@ MESH_QKV = ((8, 6, 785),)
 MESH_SPLIT = ((8, 3, 785, 64),)
 
 
-def check_split_shapes(torch, attn, shapes):
-    """K5/K6 (bf16) at `shapes` against their plain versions, K6 twice on
-    one input (bitwise equal), timed beside the plain versions and SDPA
-    with the bound of its bytes and operations, every launch on the tensor
+def check_split_shapes(torch, attn, shapes, dtype_name="bfloat16"):
+    """K5/K6 at `shapes` against their plain versions, each twice on one
+    input (bitwise equal), timed beside the plain versions and SDPA with
+    the bound of its bytes and operations, every launch on the tensor
     cores. Returns {(kernel, shape): times and max_abs_err}."""
-    rtol, why = RTOL["bfloat16"]
-    dt, dtype_name, scale = torch.bfloat16, "bfloat16", 0.125
+    rtol, why = RTOL[dtype_name]
+    dt, scale = getattr(torch, dtype_name), 0.125
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fns = (attn.attn_fwd_cuda, attn.attn_bwd_cuda)
     counts = [(f.launches, f.tc_launches) for f in fns]
@@ -522,8 +544,12 @@ def check_split_shapes(torch, attn, shapes):
         q, k, v, g = (torch.randn(B, H, N, dh, generator=gen).to("cuda", dt)
                       for _ in range(4))
         tag = f"[{B},{H},{N},{dh}] {dtype_name}"
-        err5 = compare(f"K5 {tag}", attn.attn_fwd_cuda(q, k, v, scale),
-                       attn.attention_plain(q, k, v, scale), rtol, why)
+        o = attn.attn_fwd_cuda(q, k, v, scale)
+        err5 = compare(f"K5 {tag}", o, attn.attention_plain(q, k, v, scale),
+                       rtol, why)
+        check_bitwise(torch, f"K5 {tag}", (o,),
+                      (attn.attn_fwd_cuda(q, k, v, scale),))
+        del o
         got = attn.attn_bwd_cuda(q, k, v, g, scale)
         want = attn.attention_bwd_plain(q, k, v, g, scale)
         err6 = max(compare(f"K6 {part} {tag}", a, b, rtol, why)
@@ -583,8 +609,8 @@ def check_qkv_shapes(torch, attn, shapes, dtype_name="bfloat16"):
     """K1/K2 at `shapes` against their plain versions, each twice on one
     input (bitwise equal), timed beside its plain version and SDPA
     (forward; backward by autograd) with the bound of its bytes and
-    operations; in bf16 every launch on the tensor cores (fp32 runs the
-    CUDA-core kernels). Returns {(kernel, shape): times and
+    operations; every launch on the tensor cores, fp32's too (the
+    split-TF32 kernels). Returns {(kernel, shape): times and
     max_abs_err}."""
     rtol, why = RTOL[dtype_name]
     dt = getattr(torch, dtype_name)
@@ -636,14 +662,14 @@ def check_qkv_shapes(torch, attn, shapes, dtype_name="bfloat16"):
         torch.cuda.empty_cache()
     calls = [(f.launches - n, f.tc_launches - t)
              for f, (n, t) in zip((fwd, bwd), counts)]
-    if dtype_name == "bfloat16" and any(n != t for n, t in calls):
+    if any(n != t for n, t in calls):
         fail(f"K1/K2 launches off the tensor cores at {shapes}: {calls}")
     return out
 
 
 def sass_counts(build, lib):
-    """{kernel: [HGMMA, HMMA]} instruction counts of the built library
-    `lib` (cuobjdump -sass), printed."""
+    """{kernel: [HGMMA, HMMA, TF32 MMA]} instruction counts of the built
+    library `lib` (cuobjdump -sass), printed."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(build._target(lib))],
                           capture_output=True, text=True, timeout=300).stdout
@@ -651,12 +677,13 @@ def sass_counts(build, lib):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = [0, 0]
+            counts[fn] = [0, 0, 0]
         elif fn is not None:
             counts[fn][0] += "HGMMA" in line
             counts[fn][1] += "HMMA" in line
-    for f, (hg, hm) in counts.items():
-        print(f"  sass {lib} {f}: HGMMA {hg}, HMMA {hm}")
+            counts[fn][2] += "MMA" in line and "TF32" in line
+    for f, (hg, hm, tf) in counts.items():
+        print(f"  sass {lib} {f}: HGMMA {hg}, HMMA {hm}, of them TF32 {tf}")
     return counts
 
 
@@ -664,7 +691,9 @@ def check_tensor_cores(build):
     """Every tensor-core kernel (a name with "_tc") must hold its
     instructions: HGMMA (wgmma) in the attention library's (the bf16 route
     of K1/K2 and K5/K6), HMMA (mma.sync) in the conv library's (the bf16
-    route of K3 and of K4/K7); each library must have such kernels, the
+    route of K3 and of K4/K7); the fp32 route of K1/K2 and K5/K6 (the four
+    split-TF32 kernels, "tf32" in their names) TF32 HMMA; each library
+    must have such kernels, the
     conv library a forward one (conv_fwd_tc_kernel) and a weight-gradient
     one, and the fp32 conv kernels (K3's, K4's and K7's CUDA-core kernels)
     hold neither; and HGMMA in each of P1's four instances (the probe
@@ -673,6 +702,10 @@ def check_tensor_cores(build):
     tc = [f for f in att if "_tc" in f]
     if not tc or not all(att[f][0] for f in tc):
         fail(f"attention tensor-core kernels missing or without HGMMA: {att}")
+    tf32 = [f for f in att if "tf32" in f]
+    if len(tf32) != 4 or not all(att[f][2] for f in tf32):
+        fail(f"the fp32 attention kernels missing or without TF32 MMA: "
+             f"{ {f: att[f] for f in tf32} }")
     cnv = sass_counts(build, "conv")
     tc = [f for f in cnv if "_tc" in f]
     if (not any("conv_fwd_tc_kernel" in f for f in tc)
@@ -1172,6 +1205,119 @@ def check_conv_same(torch, conv, rows):
         print(f"  time K4 at the same site (the x-tapped order): {k4:.4f} ms")
     for name in errs:
         rows[name]["max_abs_err"] = errs[name]
+
+
+# K7 at k = 5 and 7 (pad (k-1)/2): the SAME route's up convs with
+# filter_size_up 5 or 7, where _gtap_better takes K7 (36 -> 16: 8 x-tap
+# passes against 4 at k = 5, 14 against 7 at k = 7; 68 -> 32: 14 against 7,
+# 27 against 13): (name, Cin, Cout, width)
+GTAP_SITES = (("up_conv s0", 36, 16, 896), ("up_conv s1", 68, 32, 448))
+
+
+def check_gtap_wide_k(torch, conv):
+    """K7 at k = 5 and 7 in bf16 (the tensor cores) and fp32 (the CUDA
+    cores) at GTAP_SITES, with and without the prologue: against its plain
+    version (an fp32 output: 1e-4 x max|plain|), twice on one input
+    bitwise, every bf16 launch on the tensor cores; timed at up_conv s0
+    against conv2d_weight. Returns {(k, dtype): row}."""
+    rtol = RTOL["float32"][0]
+    gen = torch.Generator().manual_seed(8)
+    fn = conv.conv_dw_gtap_cuda
+    n0, t0 = fn.launches, fn.tc_launches
+    bf16_calls = 0
+    out = {}
+    for name, cin, cout, hw in GTAP_SITES:
+        B = 2
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            x = torch.randn(B, cin, hw, hw, generator=gen).to("cuda", dt)
+            g = torch.randn(B, cout, hw, hw, generator=gen).to("cuda", dt)
+            sc = (0.5 + torch.rand(2, cin, generator=gen)).cuda()
+            sh = torch.randn(2, cin, generator=gen).cuda()
+            for k in (5, 7):
+                pad = (k - 1) // 2
+                errs = []
+                for pro in (False, True):
+                    a = (sc, sh, 0.2) if pro else (None, None, 1.0)
+                    tag = (f"{name} [{B},{cin},{hw},{hw}]->[{B},{cout},{hw},"
+                           f"{hw}] k={k}{' pro' if pro else ''} {dtype_name}")
+                    dw = fn(x, g, k, *a, pad)
+                    want = conv.conv_dw_gtap_plain(x, g, k, *a, pad)
+                    errs.append(compare(f"K7 {tag}", dw, want, rtol, DW_WHY))
+                    check_bitwise(torch, f"K7 {tag}", (dw,),
+                                  (fn(x, g, k, *a, pad),))
+                    bf16_calls += 2 * (dt == torch.bfloat16)
+                    del dw, want
+                if name != "up_conv s0":
+                    continue
+                w_shape = (cout, cin, k, k)
+                isz = x.element_size()
+                row = timed(
+                    lambda: fn(x, g, k, None, None, 1.0, pad),
+                    lambda: conv.conv_dw_gtap_plain(x, g, k, None, None, 1.0,
+                                                    pad),
+                    lambda: torch.nn.grad.conv2d_weight(x, w_shape, g,
+                                                        padding=pad),
+                    (x.numel() + g.numel()) * isz + cin * cout * k * k * 4,
+                    2 * B * hw * hw * cout * cin * k * k, dtype_name, "K7",
+                    f"{name} k={k}")
+                out[(k, dtype_name)] = dict(row, max_abs_err=max(errs),
+                                            shape=tag.replace(" pro", ""))
+            del x, g
+            torch.cuda.empty_cache()
+    calls = (fn.launches - n0, fn.tc_launches - t0)
+    print(f"  K7 at k = 5, 7: {calls[0]} launches, {calls[1]} on the tensor "
+          f"cores (bf16 checks {bf16_calls}; timing launches counted too)")
+    if calls[1] < bf16_calls:
+        fail(f"K7 bf16 launches off the tensor cores at k = 5, 7: {calls}")
+    return out
+
+
+def check_conv_fp32(torch, conv):
+    """fp32 K3 (forward) and K4 at the two sites the auto rule sends to
+    them (main_fp32's), on the CUDA cores: against their plain versions
+    (1e-4 x max|plain|), timed beside F.conv2d and conv2d_weight with
+    cuDNN's TF32 off (torch.backends.cudnn.allow_tf32 = False: cuDNN's
+    fp32 conv would otherwise round its inputs to TF32). Returns
+    {(kernel, site): row}."""
+    F = torch.nn.functional
+    if torch.backends.cudnn.allow_tf32:
+        fail("cuDNN's TF32 is on: the fp32 yardsticks would round to TF32")
+    print("  fp32 K3/K4 at the auto sites (cudnn.allow_tf32 = False, "
+          "matmul.allow_tf32 = False)")
+    rtol, why = RTOL["float32"]
+    gen = torch.Generator().manual_seed(9)
+    out = {}
+    for site, (cin, cout, hw) in enumerate(((36, 16, 896), (68, 32, 448))):
+        B, k = 2, 3
+        x = torch.randn(B, cin, hw, hw, generator=gen).cuda()
+        w = (0.1 * torch.randn(k, k, cin, cout, generator=gen)).cuda()
+        g = torch.randn(B, cout, hw, hw, generator=gen).cuda()
+        tag = (f"site {site} [{B},{cin},{hw},{hw}]->[{B},{cout},{hw},{hw}] "
+               f"pad 1 float32")
+        e3 = compare(f"K3 conv_valid {tag}", conv.conv_valid_cuda(x, w, 1),
+                     conv.conv_valid_plain(x, w, 1), rtol, why)
+        e4 = compare(f"K4 conv_dw {tag}", conv.conv_dw_cuda(x, g, k, 1),
+                     conv.conv_dw_plain(F.pad(x, (1, 1, 1, 1)), g, k), rtol,
+                     DW_WHY)
+        flops = 2 * B * hw * hw * cout * cin * k * k
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        out[("conv_valid", site)] = dict(timed(
+            lambda: conv.conv_valid_cuda(x, w, 1),
+            lambda: conv.conv_valid_plain(x, w, 1),
+            lambda: F.conv2d(x, w_oihw, padding=1),
+            (x.numel() + g.numel() + w.numel()) * 4, flops, "float32",
+            "K3 fp32", tag), max_abs_err=e3, shape=f"fwd {tag}")
+        out[("conv_dw", site)] = dict(timed(
+            lambda: conv.conv_dw_cuda(x, g, k, 1),
+            lambda: conv.conv_dw_plain(F.pad(x, (1, 1, 1, 1)), g, k),
+            lambda: torch.nn.grad.conv2d_weight(x, w_oihw.shape, g,
+                                                padding=1),
+            (x.numel() + g.numel() + w.numel()) * 4, flops, "float32",
+            "K4 fp32", tag), max_abs_err=e4, shape=tag)
+        del x, g
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_same_edge_cases(torch, conv):
@@ -1974,7 +2120,7 @@ def regular_rows(torch, cfg, pairs, n: int, seed: int):
     return packed_rows(cfg, pairs, 5, torch.Generator().manual_seed(seed), n)
 
 
-def profile_steps(torch, program, cfg, n: int = 3) -> None:
+def profile_steps(torch, program, cfg, n: int = 3, kernel_ms=None) -> float:
     """Per regular step, through `program` (its regular graph captured
     first if this route has none): the host-clock wall of a chunk of
     replays as long as the path's longest (its draws, its copy and its one
@@ -1982,8 +2128,9 @@ def profile_steps(torch, program, cfg, n: int = 3) -> None:
     steps
     (SpliceTrainer.step, which the parent ran); the device's span over
     the chunk by CUDA events; then torch.profiler over a chunk of n
-    replays: kernel time by name inside the graphs, and graph launches.
-    Returns the replays' wall ms per step."""
+    replays: kernel time by name inside the graphs (also into the dict
+    kernel_ms where one is given: ms per step by kernel name), and graph
+    launches. Returns the replays' wall ms per step."""
     from torch.profiler import ProfilerActivity, profile
     trainer = program.trainer
     program.run(regular_rows(torch, cfg, pairs_of(trainer), 1, 0), False)
@@ -2028,6 +2175,9 @@ def profile_steps(torch, program, cfg, n: int = 3) -> None:
     graph_launches = sum(e.count for e in events
                          if e.key == "cudaGraphLaunch") / n
     busy = sum(t for t, _ in rows_k)
+    if kernel_ms is not None:
+        for t, k in rows_k:
+            kernel_ms[k] = kernel_ms.get(k, 0.0) + t
     print(f"  per regular step: graph replays {wall_ms:.2f} ms wall "
           f"({1e3 / wall_ms:.3f} steps/s; chunks of {n_wall}, median of 3: "
           + ", ".join(f"{w:.2f}" for w in walls) + f"), eager step "
@@ -2140,27 +2290,34 @@ def zero_counts(kernels) -> None:
             fn.tc_launches = 0
 
 
-def check_tc_launches(launches, tc, name):
+def check_tc_launches(launches, tc, name, fp32_conv=False):
     """Every launch of the path's attention kernels (K1/K2, or K5/K6 on
-    the 480 path) and of its conv kernels (K3 in each form, K4 in each
-    form, K7; every path runs a bf16 generator) on the tensor cores, the
-    graphs' replays included: fails otherwise, or when the path launched
-    no attention kernel."""
+    the 480 path; bf16 and fp32 alike) on the tensor cores, and of its
+    conv kernels (K3 in each form, K4 in each form, K7) where the
+    generator is bf16; with fp32_conv (an fp32 generator) none of the conv
+    launches, which run on the CUDA cores. The graphs' replays included;
+    fails otherwise, or when the path launched no attention kernel."""
     att = [k for k in ATTENTION if launches.get(k)]
-    names = att + [k for k in DW + K3 if launches.get(k)]
-    tcs = {k: tc[k] for k in names}
+    convs = [k for k in DW + K3 if launches.get(k)]
+    tcs = {k: tc[k] for k in att + convs}
     print(f"  tensor-core launches in the {name} path: {tcs}")
-    if not att or any(n != launches[k] for k, n in tcs.items()):
+    on = att + ([] if fp32_conv else convs)
+    off = convs if fp32_conv else []
+    if (not att or any(tc[k] != launches[k] for k in on)
+            or any(tc[k] for k in off)):
         fail(f"{name} path: attention or conv launches off the tensor "
-             f"cores: {tcs} of {launches}")
+             f"cores{' (or fp32 conv launches on them)' if off else ''}: "
+             f"{tcs} of {launches}")
 
 
-def run_path(torch, name, cfg, n_steps, kernels, need, same=False, **kw):
+def run_path(torch, name, cfg, n_steps, kernels, need, same=False,
+             fp32_conv=False, **kw):
     """train_pair (with the SAME route if `same`) with every launch count
     set to 0 just before and read just after; fails on a non-finite loss or
     output, or when a kernel in `need` was launched no time inside the
-    path's graphs. Prints each chunk and the peak memory, the graphs'
-    pools included. Returns (result, launches)."""
+    path's graphs, or off the tensor cores (check_tc_launches). Prints
+    each chunk and the peak memory, the graphs' pools included. Returns
+    (result, launches)."""
     from splice_tpu_torch.trainer import train_pair
     zero_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
@@ -2168,7 +2325,7 @@ def run_path(torch, name, cfg, n_steps, kernels, need, same=False, **kw):
         res = train_pair(cfg, n_steps=n_steps, **kw)
     launches, tc = read_launches(torch, kernels, name, need,
                                  [res["program"]])
-    check_tc_launches(launches, tc, name)
+    check_tc_launches(launches, tc, name, fp32_conv)
     print(f"  chunks {res['chunks']}; {res['steps_per_sec']:.3f} steps/s "
           f"over the run (captures included); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the "
@@ -2523,8 +2680,9 @@ def run_dinov2(torch, kernels, base, pair):
     canvas, 224 loss resolution, bf16, seeded weights) through the
     program, with run_path's gates (every K1/K2 launch on the tensor cores,
     K1/K2 and the main convs launched inside the graphs, finite losses and
-    output); the graphs against eager steps (phase 4b's gate); a profile of
-    replays. Returns each path's launches and replayed ms."""
+    output); the graphs against eager steps (phase 4b's gate, the spread
+    over five eager runs); a profile of replays. Returns each path's
+    launches and replayed ms."""
     from splice_tpu_torch.config import load_config
     from splice_tpu_torch.models.vit import get_vit_config
     out = {}
@@ -2545,8 +2703,11 @@ def run_dinov2(torch, kernels, base, pair):
         ms = profile_steps(torch, res["program"], cfg)
         del res
         torch.cuda.empty_cache()
+        # the spread of five eager runs, as phases 3 and 12 take it (C4):
+        # one run's distance varied 0.086-0.364 over calls on vitb14_reg
+        # and once fell below a quarter of the graphs' (C8)
         program = check_replay(torch, name, cfg, one_pair(cfg, pair, ext),
-                               pair)
+                               pair, spread_runs=5)
         del program, ext
         torch.cuda.empty_cache()
         out[name] = (launches, ms)
@@ -2833,7 +2994,8 @@ def lpips_weights(seed):
 
 def profile_inversion(torch, program, n: int = 3):
     """Kernel ms per replayed inversion step (torch.profiler over n
-    replays): every device kernel, and the port's own."""
+    replays): every device kernel, the port's own, and its attention
+    kernels'."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     rows = np.full((n, 1), 0.5, np.float32)
@@ -2843,7 +3005,7 @@ def profile_inversion(torch, program, n: int = 3):
                              ProfilerActivity.CUDA]) as prof:
         program.run(rows, False)
         torch.cuda.synchronize()
-    total = ours = 0.0
+    total = ours = att = 0.0
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -2851,7 +3013,8 @@ def profile_inversion(torch, program, n: int = 3):
         total += t
         if any(k in e.key for k in OUR_KERNELS):
             ours += t
-    return total / n / 1e3, ours / n / 1e3
+        att += t * ("attn_" in e.key)
+    return total / n / 1e3, ours / n / 1e3, att / n / 1e3
 
 
 # eager runs whose largest distance from the first measures the
@@ -3035,7 +3198,7 @@ def run_inversion(torch, conv, kernels, inv_rows):
         t0 = time.perf_counter()
         program.run(rows, False)
         ms = (time.perf_counter() - t0) / INV_LOG * 1e3
-        dev_ms, our_ms = profile_inversion(torch, program)
+        dev_ms, our_ms, _ = profile_inversion(torch, program)
         print(f"  {label}: {1e3 / ms:.2f} iterations/s replayed ({ms:.3f} "
               f"ms a step, a chunk of {INV_LOG} with its one read), "
               f"{INV_ITERS / res['wall_time']:.2f} iterations/s sustained "
@@ -3077,8 +3240,10 @@ def run_inversion(torch, conv, kernels, inv_rows):
 
 def run_inversion_fp32(torch, kernels):
     """invert at compute_dtype float32 (generator and ViT), nhwc, three
-    steps: K1/K2 launched inside the graph on the CUDA cores (fp32 keeps
-    the port's fp32 kernels; no tc launch). Returns the launches."""
+    steps: K1/K2 launched inside the graph, on the tensor cores (the
+    split-TF32 kernels). Prints the replayed step, its kernel
+    ms and its attention kernels' ms (torch.profiler). Returns (launches,
+    step ms, attention ms a step)."""
     import tempfile
     import numpy as np
     from splice_tpu_torch.tools import inversion as inv
@@ -3094,12 +3259,49 @@ def run_inversion_fp32(torch, kernels):
     for _ in range(5):
         res["program"].run(rows, False)
     ms = (time.perf_counter() - t0) / 10 * 1e3
+    dev_ms, _, att_ms = profile_inversion(torch, res["program"], 2)
+    att = {k: (launches[k], tc[k]) for k in ATTENTION}
     print(f"  final loss {res['loss']:.6f}; {1e3 / ms:.2f} iterations/s "
-          f"replayed ({ms:.3f} ms a step, chunks of 2); tensor-core "
-          f"launches { {k: tc[k] for k in ATTENTION} }")
-    if not math.isfinite(res["loss"]) or any(tc[k] for k in ATTENTION):
-        fail("fp32 inversion: non-finite loss or bf16 attention launches")
-    return launches
+          f"replayed ({ms:.3f} ms a step, chunks of 2); kernels "
+          f"{dev_ms:.3f} ms a step, the attention kernels {att_ms:.3f} ms; "
+          f"attention launches (all, tensor-core) {att}")
+    if not math.isfinite(res["loss"]):
+        fail("fp32 inversion: non-finite loss")
+    if any(n != t for n, t in att.values()):
+        fail(f"fp32 inversion: attention launches off the tensor cores: "
+             f"{att}")
+    return launches, ms, att_ms
+
+
+MAIN_FP32_STEPS = 6   # step 0 entire-A, step 1 eager, 2-5 replays
+
+
+def run_main_fp32(torch, kernels, base, pair):
+    """main_fp32: the main path's settings (cows, 896 canvas, 224 loss
+    resolution, generator_conv auto, entire_A_every 10) with
+    vit_compute_dtype and generator_compute_dtype float32, MAIN_FP32_STEPS
+    steps through train_pair's program: phase 4's gates, every K1/K2
+    launch on the tensor cores (split TF32) and every conv launch (K3 and
+    K4 at the two auto sites, fp32) on the CUDA cores; a profile of
+    replays. Returns (launches, replayed step ms, attention ms a step)."""
+    from splice_tpu_torch.config import load_config
+    cfg = load_config(None, dict(base, vit_compute_dtype="float32",
+                                 generator_compute_dtype="float32"))
+    res, launches = run_path(
+        torch, "main_fp32", cfg, MAIN_FP32_STEPS, kernels,
+        ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid", "conv_dw"),
+        fp32_conv=True, pair=pair)
+    by_name = {}
+    ms = profile_steps(torch, res["program"], cfg, kernel_ms=by_name)
+    att = sum(t for k, t in by_name.items() if "attn_" in k)
+    conv_ms = sum(t for k, t in by_name.items()
+                  if "conv_fwd" in k or "conv_dw_" in k)
+    print(f"  main_fp32: replayed regular step {ms:.2f} ms; per step the "
+          f"fp32 attention kernels {att:.3f} ms, the fp32 conv kernels "
+          f"{conv_ms:.3f} ms")
+    del res
+    torch.cuda.empty_cache()
+    return launches, ms, att
 
 
 MESH_STEPS = 3     # phase 13: step 0 entire-A, steps 1-2 regular
@@ -3734,6 +3936,21 @@ def mesh_across_cards(torch, attn, conv, probe, n: int) -> None:
              [f"cuda:{i}" for i in range(n)])
 
 
+def fp32_attention(torch, attn):
+    """The split-TF32 fp32 K1/K2 at FP32_QKV and K5/K6 at FP32_SPLIT
+    against their plain fp32 versions (torch.backends.cuda.matmul.
+    allow_tf32 = False: the einsums in full fp32), bitwise run to run,
+    timed beside SDPA in fp32. Returns {(kernel, shape): row}."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("matmul TF32 is on: the fp32 plain versions would round")
+    print("  fp32 attention (matmul.allow_tf32 = False for the plain "
+          "versions and SDPA)")
+    rows = check_qkv_shapes(torch, attn, FP32_QKV, "float32")
+    rows.update(check_split_shapes(torch, attn, FP32_SPLIT, "float32"))
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3789,8 +4006,8 @@ def main() -> int:
     pair_rows = check_qkv_shapes(torch, attn, PAIRS_QKV)
     mesh_rows = {**check_qkv_shapes(torch, attn, MESH_QKV),
                  **check_split_shapes(torch, attn, MESH_SPLIT)}
-    inv_qkv = {dt: check_qkv_shapes(torch, attn, INVERSION_QKV, dt)
-               for dt in ("bfloat16", "float32")}
+    inv_qkv = check_qkv_shapes(torch, attn, INVERSION_QKV)
+    fp32_rows = fp32_attention(torch, attn)
     torch.cuda.empty_cache()
     inv_rows = check_conv_inversion(torch, conv)
     for (name, k), r in sorted(inv_rows.items()):
@@ -3799,6 +4016,8 @@ def main() -> int:
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
     check_conv_same(torch, conv, rows)
+    gtap_rows = check_gtap_wide_k(torch, conv)
+    conv32_rows = check_conv_fp32(torch, conv)
     check_same_edge_cases(torch, conv)
     check_dw_tc_edge_cases(torch, conv)
     check_k3_tc_edge_cases(torch, conv)
@@ -3971,9 +4190,18 @@ def main() -> int:
           f"(dino_vitb8, seeded), {INV_ITERS} steps at log_freq {INV_LOG}, "
           f"nhwc and chw + pallas")
     launches.update(run_inversion(torch, conv, kernels, inv_rows))
-    print("  fp32 (compute_dtype float32, nhwc), 3 steps: K1/K2 on the CUDA "
-          "cores at the inversion shape")
-    launches["inversion_fp32"] = run_inversion_fp32(torch, kernels)
+    print("  fp32 (compute_dtype float32, nhwc), 3 steps: K1/K2 split TF32 "
+          "at the inversion shape")
+    launches["inversion_fp32"], inv32_ms, inv32_att = run_inversion_fp32(
+        torch, kernels)
+    mark(t_start)
+    print(f"phase 12b: main_fp32 (main with vit_compute_dtype and "
+          f"generator_compute_dtype float32), {MAIN_FP32_STEPS} steps")
+    launches["main_fp32"], m32_ms, m32_att = run_main_fp32(
+        torch, kernels, base, shared["pair"])
+    print(f"  fp32 steps: main_fp32 {m32_ms:.2f} ms replayed ({m32_att:.3f} "
+          f"ms of attention), inversion_fp32 {inv32_ms:.3f} ms "
+          f"({inv32_att:.3f} ms of attention)")
     print("  the main path with generator_layout=nhwc, 4 steps")
     ncfg = load_config(None, dict(base, generator_layout="nhwc"))
     nres, launches["main_nhwc"] = run_path(
@@ -4059,21 +4287,33 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "shape": r["shape"]})
-    for dt, path in (("bfloat16", "inversion_nhwc"),
-                     ("float32", "inversion_fp32")):
-        for (kid, tag), r in inv_qkv[dt].items():
-            name = {"K1": "attn_qkv_fwd", "K2": "attn_qkv_bwd"}[kid]
-            fn, route, source, replaces, _ = kernels[name]
-            b, by = bound_ms(r["nbytes"], r["flops"], r["dtype"])
-            line.append({"name": name, "route": route, "source": source,
-                         "cores": ("tensor core" if dt == "bfloat16"
-                                   else "CUDA core"),
-                         "replaces": replaces,
-                         "launches": launches[path][name], "path": path,
-                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                         "plain_ms": r["plain_ms"], "bound_ms": b,
-                         "bound_by": by, "library_ms": r["library_ms"],
-                         "shape": r["shape"]})
+    extra = [(kid, r, "inversion_nhwc", "tensor core")
+             for (kid, _), r in inv_qkv.items()]
+    for (kid, tag), r in fp32_rows.items():
+        path = ("inversion_fp32" if "[1,981," in tag else
+                "main_fp32" if kid in ("K1", "K2") else "none (phase 2)")
+        extra.append((kid, r, path, "tensor core (split TF32)"))
+    for (k, dt), r in gtap_rows.items():
+        extra.append(("K7", dict(r, k=k), "none (phase 2)",
+                      "tensor core" if dt == "bfloat16" else "CUDA core"))
+    for (name, site), r in conv32_rows.items():
+        extra.append(({"conv_valid": "K3", "conv_dw": "K4"}[name], r,
+                      "main_fp32", "CUDA core"))
+    ids = {"K1": "attn_qkv_fwd", "K2": "attn_qkv_bwd", "K5": "attn_fwd",
+           "K6": "attn_bwd", "K3": "conv_valid", "K4": "conv_dw",
+           "K7": "conv_dw_gtap"}
+    for kid, r, path, cores in extra:
+        name = ids[kid]
+        fn, route, source, replaces, _ = kernels[name]
+        b, by = bound_ms(r["nbytes"], r["flops"], r["dtype"])
+        line.append({"name": name, "route": route, "source": source,
+                     "cores": cores, "replaces": replaces,
+                     "launches": launches.get(path, {}).get(name, 0),
+                     "path": path, "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": b, "bound_by": by,
+                     "library_ms": r["library_ms"], "shape": r["shape"],
+                     **({"k": r["k"]} if "k" in r else {})})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)

@@ -27,7 +27,8 @@
 // about 2.5x that backward; the traffic is the inputs and outputs once
 // (under 20 MB at N = 785, about 90 MB at N = 3601), so the bound is
 // arithmetic at every N the model runs: the tensor cores' 989 TFLOP/s for
-// bf16, 67 TFLOP/s of fp32 on the CUDA cores.
+// bf16; for fp32, three TF32 products at 495 TFLOP/s (an fp32-accurate 165
+// TFLOP/s; the CUDA cores' plain fp32 is 67).
 //
 // Two sets of kernels, routed by dtype in every C entry:
 //   * bf16, both layouts (K1/K2 on the 224-px paths, K5/K6 on the 480-px
@@ -37,8 +38,11 @@
 //     the A operand of the next product. The layout is data: a 4-D tensor
 //     map per operand with the view's strides, so fused qkv is read in
 //     place, with no copy into split heads;
-//   * fp32, both layouts, runs the CUDA-core templates: fp32 multiply-adds
-//     from shared-memory tiles (the tensor cores would round fp32 to TF32).
+//   * fp32, both layouts, runs on the tensor cores too (namespace tf32):
+//     mma.sync m16n8k8 TF32 products in three terms (split TF32, close to
+//     fp32: one TF32 product alone would round the operands to 10 mantissa
+//     bits) from cp.async-staged shared-memory tiles; p and dl stay fp32
+//     and are split like the other operands.
 //
 // Design, both sets: the forward is flash-style, one block per (q tile,
 // head, batch) with an online softmax over key tiles, so any N works (the
@@ -64,8 +68,6 @@
 namespace {
 
 constexpr int DH = 64;        // head dim (the wrapper checks it)
-constexpr int LD = DH + 1;    // padded smem row: rows land in distinct banks
-constexpr int NT = 256;       // threads per block
 
 // Element strides of one [B, H, N, 64] operand view: row (b, h, n) starts
 // at b*sb + h*sh + n*sr.
@@ -75,21 +77,6 @@ struct Strides {
     return (size_t)(b * sb + h * sh + n * sr);
   }
 };
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-// Round an fp32 value to T's precision and back (x.astype(T) in the reference).
-template <typename T> __device__ __forceinline__ float round_t(float v) {
-  return to_f<T>(from_f<T>(v));
-}
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -110,325 +97,6 @@ struct Operands {
   Strides in;
   Strides os;
 };
-
-// ---------------------------------------------------------------------------
-// Forward (and the backward's statistics pass)
-// ---------------------------------------------------------------------------
-constexpr int FQ = 64;   // q rows per block
-constexpr int FK = 32;   // keys per tile
-
-// STATS=false: out[b, h, q, :] = softmax(q k^T * scale) v.
-// STATS=true: lse[b,h,q] = logsumexp of the row, delta[b,h,q] = g . o with o
-// unrounded (the backward's sum_k p*dp); out is not written.
-template <typename T, bool STATS>
-__global__ void __launch_bounds__(NT)
-attn_fwd_kernel(Operands<T> op, const T* __restrict__ g, T* __restrict__ out,
-                float* __restrict__ lse, float* __restrict__ delta, int N,
-                int H, int valid, float scale) {
-  __shared__ float Qs[FQ][LD];
-  __shared__ float Ks[FK][LD];
-  __shared__ float Vs[FK][LD];
-  __shared__ float Ps[FQ][FK + 1];
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FQ;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < FQ * DH; i += NT) {
-    const int r = i / DH, d = i % DH, q = q0 + r;
-    Qs[r][d] = q < N ? to_f<T>(op.q[op.in.at(b, h, q) + d]) : 0.f;
-  }
-
-  // Thread (r, c4): row r of the tile; key columns c4 + 4j of each key tile;
-  // output dims c4 + 4j. The four threads of a row are adjacent lanes.
-  const int r = tid >> 2, c4 = tid & 3;
-  float m = -INFINITY, l = 0.f;
-  float acc[DH / 4];
-#pragma unroll
-  for (int j = 0; j < DH / 4; ++j) acc[j] = 0.f;
-
-  const int n_kt = (valid + FK - 1) / FK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * FK;
-    __syncthreads();
-    for (int i = tid; i < FK * DH; i += NT) {
-      const int c = i / DH, d = i % DH, key = k0 + c;
-      const bool ok = key < valid;
-      const size_t row = ok ? op.in.at(b, h, key) + d : 0;
-      Ks[c][d] = ok ? to_f<T>(op.k[row]) : 0.f;
-      Vs[c][d] = ok ? to_f<T>(op.v[row]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[FK / 4];
-#pragma unroll
-    for (int j = 0; j < FK / 4; ++j) s[j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float qv = Qs[r][d];
-#pragma unroll
-      for (int j = 0; j < FK / 4; ++j) s[j] = fmaf(qv, Ks[c4 + 4 * j][d], s[j]);
-    }
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < FK / 4; ++j) {
-      s[j] = (k0 + c4 + 4 * j < valid) ? s[j] * scale : -INFINITY;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    // Every processed tile holds at least one valid key, so m_new is finite.
-    const float m_new = fmaxf(m, quad_max(tmax));
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < FK / 4; ++j) {
-      const float p = expf(s[j] - m_new);
-      psum += p;
-      Ps[r][c4 + 4 * j] = STATS ? p : round_t<T>(p);
-    }
-    l = l * alpha + quad_sum(psum);
-    m = m_new;
-    __syncwarp();   // row r of Ps is written and read by the same 4 lanes
-#pragma unroll
-    for (int j = 0; j < DH / 4; ++j) acc[j] *= alpha;
-    for (int c = 0; c < FK; ++c) {
-      const float p = Ps[r][c];
-#pragma unroll
-      for (int j = 0; j < DH / 4; ++j) acc[j] = fmaf(p, Vs[c][c4 + 4 * j], acc[j]);
-    }
-  }
-
-  const int q = q0 + r;
-  if (!STATS) {
-    if (q < N) {
-      T* o = out + op.os.at(b, h, q);
-#pragma unroll
-      for (int j = 0; j < DH / 4; ++j) o[c4 + 4 * j] = from_f<T>(acc[j] / l);
-    }
-  } else {
-    float part = 0.f;
-    if (q < N) {
-      const T* gr = g + op.os.at(b, h, q);
-#pragma unroll
-      for (int j = 0; j < DH / 4; ++j) part += to_f<T>(gr[c4 + 4 * j]) * (acc[j] / l);
-    }
-    part = quad_sum(part);   // all lanes take part in the shuffle
-    if (q < N && c4 == 0) {
-      const size_t idx = ((size_t)b * H + h) * N + q;
-      lse[idx] = m + logf(l);
-      delta[idx] = part;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward: dk, dv per key tile
-// ---------------------------------------------------------------------------
-constexpr int BT = 32;   // rows per tile in both backward kernels
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-attn_bwd_dkdv_kernel(Operands<T> op, const T* __restrict__ g,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk_out,
-                     T* __restrict__ dv_out, int N, int H, int valid,
-                     float scale) {
-  __shared__ float Ks[BT][LD];
-  __shared__ float Vs[BT][LD];
-  __shared__ float Qs[BT][LD];
-  __shared__ float Gs[BT][LD];
-  __shared__ float Ps[BT][BT + 1];
-  __shared__ float DLs[BT][BT + 1];
-  __shared__ float Ls[BT];
-  __shared__ float Ds[BT];
-
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-  const float* lse_bh = lse + ((size_t)b * H + h) * N;
-  const float* del_bh = delta + ((size_t)b * H + h) * N;
-
-  for (int i = tid; i < BT * DH; i += NT) {
-    const int c = i / DH, d = i % DH, key = k0 + c;
-    const bool ok = key < valid;
-    const size_t row = ok ? op.in.at(b, h, key) + d : 0;
-    Ks[c][d] = ok ? to_f<T>(op.k[row]) : 0.f;
-    Vs[c][d] = ok ? to_f<T>(op.v[row]) : 0.f;
-  }
-
-  // Thread (kr, c8): key row kr; q columns c8 + 8j of the score tile;
-  // output dims c8 + 8j. The 8 threads of a key row are adjacent lanes.
-  const int kr = tid >> 3, c8 = tid & 7;
-  float dk[DH / 8], dv[DH / 8];
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j) { dk[j] = 0.f; dv[j] = 0.f; }
-  const bool key_ok = (k0 + kr) < valid;
-
-  if (k0 < valid) {   // key tiles past n_valid get exactly zero dk, dv
-    for (int q0 = 0; q0 < N; q0 += BT) {
-      __syncthreads();
-      for (int i = tid; i < BT * DH; i += NT) {
-        const int r = i / DH, d = i % DH, q = q0 + r;
-        const bool ok = q < N;
-        Qs[r][d] = ok ? to_f<T>(op.q[op.in.at(b, h, q) + d]) : 0.f;
-        Gs[r][d] = ok ? to_f<T>(g[op.os.at(b, h, q) + d]) : 0.f;
-      }
-      if (tid < BT) {
-        const int q = q0 + tid;
-        Ls[tid] = q < N ? lse_bh[q] : 0.f;
-        Ds[tid] = q < N ? del_bh[q] : 0.f;
-      }
-      __syncthreads();
-
-      float s[BT / 8], dp[BT / 8];
-#pragma unroll
-      for (int j = 0; j < BT / 8; ++j) { s[j] = 0.f; dp[j] = 0.f; }
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d) {
-        const float kv = Ks[kr][d], vv = Vs[kr][d];
-#pragma unroll
-        for (int j = 0; j < BT / 8; ++j) {
-          s[j] = fmaf(kv, Qs[c8 + 8 * j][d], s[j]);
-          dp[j] = fmaf(vv, Gs[c8 + 8 * j][d], dp[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < BT / 8; ++j) {
-        const int qc = c8 + 8 * j;
-        const bool ok = key_ok && (q0 + qc) < N;
-        const float p = ok ? expf(s[j] * scale - Ls[qc]) : 0.f;
-        const float dl = p * (dp[j] - Ds[qc]);
-        Ps[kr][qc] = round_t<T>(p);
-        DLs[kr][qc] = round_t<T>(dl);
-      }
-      __syncwarp();   // row kr of Ps/DLs is written and read by 8 lanes
-      for (int qc = 0; qc < BT; ++qc) {
-        const float p = Ps[kr][qc], dl = DLs[kr][qc];
-#pragma unroll
-        for (int j = 0; j < DH / 8; ++j) {
-          dv[j] = fmaf(p, Gs[qc][c8 + 8 * j], dv[j]);
-          dk[j] = fmaf(dl, Qs[qc][c8 + 8 * j], dk[j]);
-        }
-      }
-    }
-  }
-
-  const int key = k0 + kr;
-  if (key < N) {
-    const size_t row = op.in.at(b, h, key);
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
-      dk_out[row + c8 + 8 * j] = from_f<T>(dk[j] * scale);
-      dv_out[row + c8 + 8 * j] = from_f<T>(dv[j]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward: dq per q tile
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(NT)
-attn_bwd_dq_kernel(Operands<T> op, const T* __restrict__ g,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dq_out,
-                   int N, int H, int valid, float scale) {
-  __shared__ float Qs[BT][LD];
-  __shared__ float Gs[BT][LD];
-  __shared__ float Ks[BT][LD];
-  __shared__ float Vs[BT][LD];
-  __shared__ float DLs[BT][BT + 1];
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < BT * DH; i += NT) {
-    const int r = i / DH, d = i % DH, q = q0 + r;
-    const bool ok = q < N;
-    Qs[r][d] = ok ? to_f<T>(op.q[op.in.at(b, h, q) + d]) : 0.f;
-    Gs[r][d] = ok ? to_f<T>(g[op.os.at(b, h, q) + d]) : 0.f;
-  }
-  // Thread (qr, c8): q row qr; key columns c8 + 8j; output dims c8 + 8j.
-  const int qr = tid >> 3, c8 = tid & 7;
-  const int q = q0 + qr;
-  const size_t sidx = ((size_t)b * H + h) * N + (q < N ? q : 0);
-  const float L = lse[sidx], Dl = delta[sidx];
-  float dq[DH / 8];
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j) dq[j] = 0.f;
-
-  for (int k0 = 0; k0 < valid; k0 += BT) {
-    __syncthreads();
-    for (int i = tid; i < BT * DH; i += NT) {
-      const int c = i / DH, d = i % DH, key = k0 + c;
-      const bool ok = key < valid;
-      const size_t row = ok ? op.in.at(b, h, key) + d : 0;
-      Ks[c][d] = ok ? to_f<T>(op.k[row]) : 0.f;
-      Vs[c][d] = ok ? to_f<T>(op.v[row]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[BT / 8], dp[BT / 8];
-#pragma unroll
-    for (int j = 0; j < BT / 8; ++j) { s[j] = 0.f; dp[j] = 0.f; }
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float qv = Qs[qr][d], gv = Gs[qr][d];
-#pragma unroll
-      for (int j = 0; j < BT / 8; ++j) {
-        s[j] = fmaf(qv, Ks[c8 + 8 * j][d], s[j]);
-        dp[j] = fmaf(gv, Vs[c8 + 8 * j][d], dp[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BT / 8; ++j) {
-      const int kc = c8 + 8 * j;
-      const bool ok = q < N && (k0 + kc) < valid;
-      const float p = ok ? expf(s[j] * scale - L) : 0.f;
-      DLs[qr][kc] = round_t<T>(p * (dp[j] - Dl));
-    }
-    __syncwarp();
-    for (int kc = 0; kc < BT; ++kc) {
-      const float dl = DLs[qr][kc];
-#pragma unroll
-      for (int j = 0; j < DH / 8; ++j) dq[j] = fmaf(dl, Ks[kc][c8 + 8 * j], dq[j]);
-    }
-  }
-  if (q < N) {
-    T* row = dq_out + op.in.at(b, h, q);
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j) row[c8 + 8 * j] = from_f<T>(dq[j] * scale);
-  }
-}
-
-template <typename T>
-int launch_fwd(Operands<T> op, void* out, int B, int N, int H, int valid,
-               float scale, cudaStream_t stream) {
-  dim3 grid((N + FQ - 1) / FQ, H, B);
-  attn_fwd_kernel<T, false><<<grid, NT, 0, stream>>>(
-      op, nullptr, static_cast<T*>(out), nullptr, nullptr, N, H, valid,
-      scale);
-  return (int)cudaGetLastError();
-}
-
-// dq, dk, dv share the layout of q, k, v.
-template <typename T>
-int launch_bwd(Operands<T> op, const void* g, void* dq, void* dk, void* dv,
-               float* lse, float* delta, int B, int N, int H, int valid,
-               float scale, cudaStream_t stream) {
-  const T* gg = static_cast<const T*>(g);
-  dim3 gs((N + FQ - 1) / FQ, H, B);
-  attn_fwd_kernel<T, true><<<gs, NT, 0, stream>>>(op, gg, nullptr, lse, delta,
-                                                  N, H, valid, scale);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  dim3 gt((N + BT - 1) / BT, H, B);
-  attn_bwd_dkdv_kernel<T><<<gt, NT, 0, stream>>>(
-      op, gg, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), N, H,
-      valid, scale);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  attn_bwd_dq_kernel<T><<<gt, NT, 0, stream>>>(
-      op, gg, lse, delta, static_cast<T*>(dq), N, H, valid, scale);
-  return (int)cudaGetLastError();
-}
 
 // Fused qkv [B, N, 3D]: q, k, v are the sections at column 0, D, 2D.
 template <typename T>
@@ -1120,10 +788,551 @@ int bwd(const Op& op, const void* g, void* dq, void* dk, void* dv,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// fp32 attention on the tensor cores in split TF32: K1 attn_qkv_fwd and K5
+// attn_fwd, K2 attn_qkv_bwd and K6 attn_bwd
+// ---------------------------------------------------------------------------
+// Every product is mma.sync m16n8k8 .tf32 with fp32 accumulators, in three
+// terms: an fp32 operand x splits into hi = x rounded to TF32 (as
+// cvt.rna.tf32.f32) and lo = x - hi (read as TF32: truncated), and a*b
+// accumulates as hi_a*lo_b + lo_a*hi_b + hi_a*hi_b, the small terms
+// first. One TF32 term keeps about three
+// decimal digits (errors near 1e-3 x max of the output); the split keeps
+// the fp32 plain version's 1e-4 x max with about two orders to spare
+// (tests/test_torch_tf32_split.py emulates it). The probabilities p and
+// dl are split like any other operand, never rounded further.
+//
+// What bounds it: three TF32 products at 495 TFLOP/s are an fp32-accurate
+// 165 TFLOP/s, 2.5x the CUDA cores' 67; the bytes are the inputs once.
+//
+// A block owns 64 rows (four warps of 16) of one head, 128 threads, two
+// blocks an SM. Its own rows of one or two operands are staged once; the
+// rows it loops over stream in tiles of 64 through a two-stage cp.async
+// ring (the copy of tile i + 1 in flight while tile i is multiplied).
+// Blocks of 32 rows (two warps, four an SM: a finer grid at one image's
+// 192-204 blocks) measured 4-12% slower at every shape.
+// Tiles are raw fp32 in shared memory, rows padded to LDS = 68 floats, so
+// that every fragment read below hits 32 distinct banks; each warp splits
+// the fragments it reads in registers. Fragments (PTX's m16n8k8 .tf32
+// layout, g = lane / 4, t = lane % 4):
+//   * A from rows of a tile (the block's own: q, or k and v): a0 (g, t),
+//     a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+//   * B "by row" where the contraction runs along a tile's columns (S =
+//     Q K^T over d): b0 = T[n0 + g][k0 + t], b1 = T[n0 + g][k0 + t + 4];
+//   * B "by column" where it runs along a tile's rows (O = P V over keys):
+//     the contraction index is permuted inside each block of 8 so that an
+//     accumulator C (c0, c1 at row g, columns 2t, 2t + 1; c2, c3 at row
+//     g + 8) is the next product's A fragment as it stands, {c0, c2, c1,
+//     c3}: b0 = T[j0 + 2t][n0 + g], b1 = T[j0 + 2t + 1][n0 + g].
+// The layout is data, as in the bf16 kernels: every operand is read
+// through the element strides of its view (Operands).
+namespace tf32 {
+
+constexpr int ROWS = 64;                // rows of a block and of a tile
+constexpr int LDS = DH + 4;             // padded smem row, in floats
+constexpr int TILE = ROWS * LDS;        // floats of one tile
+constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+// dynamic shared memory: the resident tiles, then two stages of two
+constexpr int FWD_SMEM = (1 + 4) * TILE * 4;    // q | (k, v) x 2: 87,040
+constexpr int BWD_SMEM = (2 + 4) * TILE * 4;    // 2 resident | 2 x 2: 104,448
+
+// x = hi + lo. hi is x rounded to TF32 as cvt.rna.tf32.f32 rounds a
+// finite value (to nearest, ties away from zero: add half a TF32 ulp to
+// the bit pattern, clear the 13 bits below), in two integer operations;
+// lo = x - hi is exact in fp32 and goes to the tensor cores as it is,
+// which read a .tf32 operand's top 19 bits (lo truncated to TF32: an
+// error of at most 2^-22 |x|). A NaN in x stays one in lo.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2,
+                                         float a3) {
+  FragA f;
+  split(a0, f.hi[0], f.lo[0]);
+  split(a1, f.hi[1], f.lo[1]);
+  split(a2, f.hi[2], f.lo[2]);
+  split(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+__device__ __forceinline__ FragB split_b(float b0, float b1) {
+  FragB f;
+  split(b0, f.hi[0], f.lo[0]);
+  split(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[j] += a b[j] for J blocks of 8 columns in split TF32, the small terms
+// first (hi*lo, lo*hi, then hi*hi): each term over every j before the
+// next, so that the products into one accumulator stand J instructions
+// apart.
+template <int J>
+__device__ __forceinline__ void mma3_cols(float (&d)[J][4], const FragA& a,
+                                          const FragB (&b)[J]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) mma(d[j], a.hi, b[j].lo);
+#pragma unroll
+  for (int j = 0; j < J; ++j) mma(d[j], a.lo, b[j].hi);
+#pragma unroll
+  for (int j = 0; j < J; ++j) mma(d[j], a.hi, b[j].hi);
+}
+
+// A fragment of rows r0.. of tile T at columns k0..k0 + 7.
+__device__ __forceinline__ FragA load_a(const float* T, int r0, int k0,
+                                        int g, int t) {
+  const float* p = T + (r0 + g) * LDS + k0 + t;
+  return split_a(p[0], p[8 * LDS], p[4], p[8 * LDS + 4]);
+}
+// B by row: contraction along the tile's columns k0.., n = rows n0...
+__device__ __forceinline__ FragB load_b_row(const float* T, int n0, int k0,
+                                            int g, int t) {
+  const float* p = T + (n0 + g) * LDS + k0 + t;
+  return split_b(p[0], p[4]);
+}
+// B by column: contraction along the tile's rows j0.. (permuted), n =
+// columns n0...
+__device__ __forceinline__ FragB load_b_col(const float* T, int j0, int n0,
+                                            int g, int t) {
+  const float* p = T + (j0 + 2 * t) * LDS + n0 + g;
+  return split_b(p[0], p[LDS]);
+}
+// The A fragment of an accumulator's 8 columns, in load_b_col's order.
+__device__ __forceinline__ FragA acc_a(const float (&c)[4]) {
+  return split_a(c[0], c[2], c[1], c[3]);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(tc::smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Returns once every group but the newest is in shared memory.
+__device__ __forceinline__ void cp_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// Rows [row0, row0 + 64) of head h of batch b of the view (p, s) into
+// tile T; rows at or past n arrive as zeros. Every thread issues its part.
+__device__ __forceinline__ void load_tile(float* T, const float* p,
+                                          const Strides& s, int b, int h,
+                                          int row0, int n) {
+  for (int i = threadIdx.x; i < ROWS * DH / 4; i += THREADS) {
+    const int r = i / (DH / 4), c = (i % (DH / 4)) * 4, row = row0 + r;
+    const bool ok = row < n;
+    cp_async16(T + r * LDS + c, p + (ok ? s.at(b, h, row) + c : 0), ok);
+  }
+}
+
+// Forward (STATS = false): out = softmax(q k^T * scale) v for 64 q rows,
+// over key tiles of 64, online softmax in the log2 domain. STATS = true
+// (the backward's first pass): lse (natural log) and delta = g . o per row
+// instead of out; g is read from global memory. out and g: strides os.
+template <bool STATS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+attn_fwd_kernel_tf32(Operands<float> op, const float* __restrict__ g,
+                     float* __restrict__ out, float* __restrict__ lse,
+                     float* __restrict__ delta, int N, int H, int valid,
+                     float scale) {
+  extern __shared__ float4 smem4[];
+  float* const qs = reinterpret_cast<float*>(smem4);
+  float* const ring = qs + TILE;           // stage s: k, then v
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ROWS;
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);
+  const int n_kt = (valid + ROWS - 1) / ROWS;
+  const float sl = scale * LOG2E;
+
+  load_tile(qs, op.q, op.in, b, h, q0, N);
+  load_tile(ring, op.k, op.in, b, h, 0, valid);
+  load_tile(ring + TILE, op.v, op.in, b, h, 0, valid);
+  cp_commit();
+
+  FragA qa[DH / 8];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) {
+      float* st = ring + ((kt + 1) & 1) * 2 * TILE;
+      load_tile(st, op.k, op.in, b, h, (kt + 1) * ROWS, valid);
+      load_tile(st + TILE, op.v, op.in, b, h, (kt + 1) * ROWS, valid);
+    }
+    cp_commit();
+    cp_wait_all_but_one();
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 8; ++kk)
+        qa[kk] = load_a(qs, r0, 8 * kk, g8, t);
+    }
+    const float* ks = ring + (kt & 1) * 2 * TILE;
+    const float* vs = ks + TILE;
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 8; ++kk) {
+      FragB kb[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) kb[j] = load_b_row(ks, 8 * j, 8 * kk, g8, t);
+      mma3_cols(s, qa[kk], kb);
+    }
+
+    // keys >= valid get -inf; every tile holds a valid key, so each
+    // row's max is finite
+    const int k0 = kt * ROWS;
+    if (k0 + ROWS > valid) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k0 + 8 * j + 2 * t + (i & 1) >= valid) s[j][i] = -INFINITY;
+    }
+    float alpha[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * e], s[j][2 * e + 1]));
+      const float mn = fmaxf(m[e], quad_max(mx) * sl);
+      alpha[e] = tc::ex2(m[e] - mn);
+      m[e] = mn;
+      l[e] *= alpha[e];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = i >> 1;
+        s[j][i] = tc::ex2(fmaf(s[j][i], sl, -m[e]));
+        l[e] += s[j][i];   // this thread's part of the row sum
+      }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      FragB vb[8];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) vb[n] = load_b_col(vs, 8 * j, 8 * n, g8, t);
+      mma3_cols(o, acc_a(s[j]), vb);
+    }
+    __syncthreads();   // the stage is free for tile kt + 2
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) l[e] = quad_sum(l[e]);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + r0 + g8 + 8 * e;
+    float part = 0.f;
+    if (row < N) {
+      if (!STATS) {
+        float* dst = out + op.os.at(b, h, row) + 2 * t;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<float2*>(dst + 8 * n) =
+              make_float2(o[n][2 * e] / l[e], o[n][2 * e + 1] / l[e]);
+      } else {
+        const float* gr = g + op.os.at(b, h, row) + 2 * t;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 gv = *reinterpret_cast<const float2*>(gr + 8 * n);
+          part += gv.x * (o[n][2 * e] / l[e]) +
+                  gv.y * (o[n][2 * e + 1] / l[e]);
+        }
+      }
+    }
+    if (STATS) {
+      part = quad_sum(part);   // all lanes take part in the shuffle
+      if (row < N && t == 0) {
+        const size_t idx = ((size_t)b * H + h) * N + row;
+        lse[idx] = (m[e] + log2f(l[e])) / LOG2E;
+        delta[idx] = part;
+      }
+    }
+  }
+}
+
+// Backward, dk and dv for 64 keys, looping over q tiles of 64: per tile
+// S^T = K Q^T and dP^T = V g^T, P^T = exp(S^T scale - lse), dL^T = P^T
+// (dP^T - delta), then dV += P^T g and dK += dL^T Q. dk and dv: strides in.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+attn_bwd_dkdv_tf32_kernel(Operands<float> op, const float* __restrict__ g,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk_out,
+                          float* __restrict__ dv_out, int N, int H,
+                          int valid, float scale) {
+  extern __shared__ float4 smem4[];
+  float* const ks = reinterpret_cast<float*>(smem4);
+  float* const vs = ks + TILE;
+  float* const ring = vs + TILE;           // stage s: q, then g
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * ROWS;
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);
+  // key tiles past n_valid: no loop, exactly zero dk and dv
+  const int n_qt = k0 < valid ? (N + ROWS - 1) / ROWS : 0;
+  const float sl = scale * LOG2E;
+  const bool key_ok[2] = {k0 + r0 + g8 < valid, k0 + r0 + g8 + 8 < valid};
+  const float* lse_bh = lse + ((size_t)b * H + h) * N;
+  const float* del_bh = delta + ((size_t)b * H + h) * N;
+
+  if (n_qt) {
+    load_tile(ks, op.k, op.in, b, h, k0, valid);
+    load_tile(vs, op.v, op.in, b, h, k0, valid);
+    load_tile(ring, op.q, op.in, b, h, 0, N);
+    load_tile(ring + TILE, g, op.os, b, h, 0, N);
+    cp_commit();
+  }
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+
+  for (int qt = 0; qt < n_qt; ++qt) {
+    if (qt + 1 < n_qt) {
+      float* st = ring + ((qt + 1) & 1) * 2 * TILE;
+      load_tile(st, op.q, op.in, b, h, (qt + 1) * ROWS, N);
+      load_tile(st + TILE, g, op.os, b, h, (qt + 1) * ROWS, N);
+    }
+    cp_commit();
+    cp_wait_all_but_one();
+    __syncthreads();
+    const float* qs = ring + (qt & 1) * 2 * TILE;
+    const float* gs = qs + TILE;
+    // the tile's 64 q columns in two halves of 32: S^T and dP^T of one
+    // half at a time keep the registers below the cap
+#pragma unroll 1
+    for (int c0 = 0; c0 < ROWS; c0 += 32) {
+      float sc[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DH / 8; ++kk) {
+        FragB qb[4], gb[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qb[j] = load_b_row(qs, c0 + 8 * j, 8 * kk, g8, t);
+          gb[j] = load_b_row(gs, c0 + 8 * j, 8 * kk, g8, t);
+        }
+        mma3_cols(sc, load_a(ks, r0, 8 * kk, g8, t), qb);
+        mma3_cols(dp, load_a(vs, r0, 8 * kk, g8, t), gb);
+      }
+      // the columns' statistics: q = qt * 64 + c0 + 8j + 2t + (i & 1)
+      const int qc = qt * ROWS + c0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int q = qc + 8 * j + (i & 1);
+          const bool ok = key_ok[i >> 1] && q < N;
+          const float pr =
+              ok ? tc::ex2(fmaf(sc[j][i], sl, -lse_bh[q] * LOG2E)) : 0.f;
+          dp[j][i] = ok ? pr * (dp[j][i] - del_bh[q]) : 0.f;
+          sc[j][i] = pr;
+        }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        FragB b[8];
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          b[n] = load_b_col(gs, c0 + 8 * j, 8 * n, g8, t);
+        mma3_cols(dv, acc_a(sc[j]), b);
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          b[n] = load_b_col(qs, c0 + 8 * j, 8 * n, g8, t);
+        mma3_cols(dk, acc_a(dp[j]), b);
+      }
+    }
+    __syncthreads();   // the stage is free for tile qt + 2
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int key = k0 + r0 + g8 + 8 * e;
+    if (key >= N) continue;
+    float* dkr = dk_out + op.in.at(b, h, key) + 2 * t;
+    float* dvr = dv_out + op.in.at(b, h, key) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<float2*>(dkr + 8 * n) =
+          make_float2(dk[n][2 * e] * scale, dk[n][2 * e + 1] * scale);
+      *reinterpret_cast<float2*>(dvr + 8 * n) =
+          make_float2(dv[n][2 * e], dv[n][2 * e + 1]);
+    }
+  }
+}
+
+// Backward, dq for 64 q rows, looping over key tiles of 64: S = Q K^T and
+// dP = g V^T, dL = P (dP - delta), dQ += dL K. A pass of its own, so no
+// atomics: K2 and K6 repeat bitwise. dq: strides in.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+attn_bwd_dq_tf32_kernel(Operands<float> op, const float* __restrict__ g,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq_out, int N, int H, int valid,
+                        float scale) {
+  extern __shared__ float4 smem4[];
+  float* const qs = reinterpret_cast<float*>(smem4);
+  float* const gs = qs + TILE;
+  float* const ring = gs + TILE;           // stage s: k, then v
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ROWS;
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);
+  const int n_kt = (valid + ROWS - 1) / ROWS;
+  const float sl = scale * LOG2E;
+  bool q_ok[2];
+  float L[2], D[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + r0 + g8 + 8 * e;
+    q_ok[e] = row < N;
+    const size_t idx = ((size_t)b * H + h) * N + (q_ok[e] ? row : 0);
+    L[e] = lse[idx] * LOG2E;
+    D[e] = delta[idx];
+  }
+
+  load_tile(qs, op.q, op.in, b, h, q0, N);
+  load_tile(gs, g, op.os, b, h, q0, N);
+  load_tile(ring, op.k, op.in, b, h, 0, valid);
+  load_tile(ring + TILE, op.v, op.in, b, h, 0, valid);
+  cp_commit();
+  float dq[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) {
+      float* st = ring + ((kt + 1) & 1) * 2 * TILE;
+      load_tile(st, op.k, op.in, b, h, (kt + 1) * ROWS, valid);
+      load_tile(st + TILE, op.v, op.in, b, h, (kt + 1) * ROWS, valid);
+    }
+    cp_commit();
+    cp_wait_all_but_one();
+    __syncthreads();
+    const float* ks = ring + (kt & 1) * 2 * TILE;
+    const float* vs = ks + TILE;
+
+    float sc[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 8; ++kk) {
+      FragB b[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = load_b_row(ks, 8 * j, 8 * kk, g8, t);
+      mma3_cols(sc, load_a(qs, r0, 8 * kk, g8, t), b);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = load_b_row(vs, 8 * j, 8 * kk, g8, t);
+      mma3_cols(dp, load_a(gs, r0, 8 * kk, g8, t), b);
+    }
+    const int kc = kt * ROWS + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = i >> 1;
+        const bool ok = q_ok[e] && kc + 8 * j + (i & 1) < valid;
+        const float pr = ok ? tc::ex2(fmaf(sc[j][i], sl, -L[e])) : 0.f;
+        dp[j][i] = ok ? pr * (dp[j][i] - D[e]) : 0.f;
+      }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      FragB b[8];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) b[n] = load_b_col(ks, 8 * j, 8 * n, g8, t);
+      mma3_cols(dq, acc_a(dp[j]), b);
+    }
+    __syncthreads();   // the stage is free for tile kt + 2
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + r0 + g8 + 8 * e;
+    if (row >= N) continue;
+    float* dst = dq_out + op.in.at(b, h, row) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(dq[n][2 * e] * scale, dq[n][2 * e + 1] * scale);
+  }
+}
+
+using Op = Operands<float>;
+
+int fwd(const Op& op, void* out, int B, int N, int H, int valid, float scale,
+        cudaStream_t stream) {
+  const dim3 grid((N + ROWS - 1) / ROWS, H, B);
+  return tc::launch(attn_fwd_kernel_tf32<false>, THREADS, FWD_SMEM, grid,
+                    stream, op, (const float*)nullptr,
+                    static_cast<float*>(out), (float*)nullptr,
+                    (float*)nullptr, N, H, valid, scale);
+}
+
+// dq, dk, dv share the layout of q, k, v (op.in); g that of the output.
+int bwd(const Op& op, const void* g, void* dq, void* dk, void* dv,
+        float* lse, float* delta, int B, int N, int H, int valid,
+        float scale, cudaStream_t stream) {
+  const float* gg = static_cast<const float*>(g);
+  const dim3 grid((N + ROWS - 1) / ROWS, H, B);
+  int err = tc::launch(attn_fwd_kernel_tf32<true>, THREADS, FWD_SMEM, grid,
+                       stream, op, gg, (float*)nullptr, lse, delta, N, H,
+                       valid, scale);
+  if (err) return err;
+  err = tc::launch(attn_bwd_dkdv_tf32_kernel, THREADS, BWD_SMEM, grid,
+                   stream, op, gg, (const float*)lse, (const float*)delta,
+                   static_cast<float*>(dk), static_cast<float*>(dv), N, H,
+                   valid, scale);
+  if (err) return err;
+  return tc::launch(attn_bwd_dq_tf32_kernel, THREADS, BWD_SMEM, grid, stream,
+                    op, gg, (const float*)lse, (const float*)delta,
+                    static_cast<float*>(dq), N, H, valid, scale);
+}
+
+}  // namespace tf32
+
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; bf16 runs on the tensor cores, fp32 on
-// the CUDA cores. n_valid in [1, N].
+// dtype: 0 = float32, 1 = bfloat16; both run on the tensor cores, bf16
+// through wgmma (tc), fp32 through split-TF32 mma.sync (tf32). n_valid in
+// [1, N]. Every tensor 16-byte aligned (TMA's and cp.async's rule).
 
 // qkv: [B, N, 3D] contiguous; out: [B, N, D].
 extern "C" int attn_qkv_fwd(const void* qkv, void* out, int B, int N, int H,
@@ -1133,8 +1342,8 @@ extern "C" int attn_qkv_fwd(const void* qkv, void* out, int B, int N, int H,
   return dtype == 1
       ? tc::fwd(fused_operands<__nv_bfloat16>(qkv, N, H), out, B, N, H,
                 n_valid, scale, s)
-      : launch_fwd(fused_operands<float>(qkv, N, H), out, B, N, H, n_valid,
-                   scale, s);
+      : tf32::fwd(fused_operands<float>(qkv, N, H), out, B, N, H, n_valid,
+                  scale, s);
 }
 
 // g: [B, N, D]; dqkv: [B, N, 3D], fully written; lse, delta: fp32 scratch
@@ -1151,8 +1360,8 @@ extern "C" int attn_qkv_bwd(const void* qkv, const void* g, void* dqkv,
                    d + 2 * D, lse, delta, B, N, H, n_valid, scale, s);
   }
   float* d = static_cast<float*>(dqkv);
-  return launch_bwd(fused_operands<float>(qkv, N, H), g, d, d + D, d + 2 * D,
-                    lse, delta, B, N, H, n_valid, scale, s);
+  return tf32::bwd(fused_operands<float>(qkv, N, H), g, d, d + D, d + 2 * D,
+                   lse, delta, B, N, H, n_valid, scale, s);
 }
 
 // q, k, v, out: [B, H, N, 64] contiguous.
@@ -1163,8 +1372,8 @@ extern "C" int attn_fwd(const void* q, const void* k, const void* v,
   return dtype == 1
       ? tc::fwd(split_operands<__nv_bfloat16>(q, k, v, N, H), out, B, N, H,
                 n_valid, scale, s)
-      : launch_fwd(split_operands<float>(q, k, v, N, H), out, B, N, H,
-                   n_valid, scale, s);
+      : tf32::fwd(split_operands<float>(q, k, v, N, H), out, B, N, H,
+                  n_valid, scale, s);
 }
 
 // q, k, v, g, dq, dk, dv: [B, H, N, 64] contiguous, the gradients fully
@@ -1178,6 +1387,6 @@ extern "C" int attn_bwd(const void* q, const void* k, const void* v,
   return dtype == 1
       ? tc::bwd(split_operands<__nv_bfloat16>(q, k, v, N, H), g, dq, dk, dv,
                 lse, delta, B, N, H, n_valid, scale, s)
-      : launch_bwd(split_operands<float>(q, k, v, N, H), g, dq, dk, dv, lse,
-                   delta, B, N, H, n_valid, scale, s);
+      : tf32::bwd(split_operands<float>(q, k, v, N, H), g, dq, dk, dv, lse,
+                  delta, B, N, H, n_valid, scale, s);
 }

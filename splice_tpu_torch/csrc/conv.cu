@@ -519,7 +519,14 @@ int launch_dw_gtap_k(const void* x, const void* g, float* partial, float* dw,
   const int chunks_per_image = (Ho + K - 1 + rows_per_chunk - 1) / rows_per_chunk;
   const int n_chunks = B * chunks_per_image;
   constexpr int GS = ((DR + K - 1) * (DW + K - 1)) | 1;
+  // at K = 7 and cob = 32: 52,912 bytes, above the default 48 KB
   const size_t smem = sizeof(float) * (cib * DR * DW + cob * GS);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        conv_dw_gtap_kernel<T, K>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   dim3 grid(n_chunks, (Cin + cib - 1) / cib, (Cout + cob - 1) / cob);
   conv_dw_gtap_kernel<T, K><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), partial, src, Cin,
@@ -540,6 +547,10 @@ int launch_dw_gtap(const void* x, const void* g, float* partial, float* dw,
     case 2: return launch_dw_gtap_k<T, 2>(x, g, partial, dw, src, B, Cout, Ho,
                                           Wo, rows_per_chunk, stream);
     case 3: return launch_dw_gtap_k<T, 3>(x, g, partial, dw, src, B, Cout, Ho,
+                                          Wo, rows_per_chunk, stream);
+    case 5: return launch_dw_gtap_k<T, 5>(x, g, partial, dw, src, B, Cout, Ho,
+                                          Wo, rows_per_chunk, stream);
+    case 7: return launch_dw_gtap_k<T, 7>(x, g, partial, dw, src, B, Cout, Ho,
                                           Wo, rows_per_chunk, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1539,7 +1550,7 @@ extern "C" int conv_fwd_tc(const void* x, const void* w, void* y,
 // conv_valid_fwd at stride 1; x and g [B,Cout,Ho,Wo] fp32; partial: fp32
 // scratch [B*ceil((Ho+k-1)/rows_per_chunk), Cin*k*k*Cout]; dw: fp32
 // [Cin, k*k*Cout] with tap t' = dy'*k + dx' holding dw's tap (k-1-dy',
-// k-1-dx') (the caller reverses). k in {2, 3}.
+// k-1-dx') (the caller reverses). k in {2, 3, 5, 7}.
 extern "C" int conv_dw_gtap(const void* x, const void* g, float* partial,
                             float* dw, const float* scale, const float* shift,
                             int B, int Cin, int H, int W, int Cout, int Ho,
@@ -1568,8 +1579,8 @@ extern "C" int conv_dw(const void* x, const void* g, float* partial,
 }
 
 // bf16 K4 (gtap = 0: dw [k,k,s*s*Cin,Cout], as conv_dw) and K7 (gtap = 1,
-// stride 1, k in {2, 3}: dw [Cin, k*k*Cout], as conv_dw_gtap) on the tensor
-// cores. x, g, scale, shift, pad, stride, groups, negslope: as conv_dw,
+// stride 1, k in {2, 3, 5, 7}: dw [Cin, k*k*Cout], as conv_dw_gtap) on the
+// tensor cores. x, g, scale, shift, pad, stride, groups, negslope: as conv_dw,
 // x and g bf16. The tiling comes from ops/conv.py dw_tc_tiling: strips of
 // rows x cols pixels of the contraction's extent (Ho x Wo for K4, (Ho+k-1)
 // x (Wo+k-1) for K7), cb channels of the tapped operand and bn in {8, 16,

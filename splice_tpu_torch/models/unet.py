@@ -36,6 +36,7 @@ from splice_tpu_torch.ops import conv as conv_ops
 from splice_tpu_torch.ops.conv import (kernel_conv_bn_act_chw,
                                         kernel_conv_chw, split_stacks,
                                         stack_sums, wide)
+from splice_tpu_torch.ops.image import reflect_pad
 from splice_tpu_torch.utils.tree import tree_map
 
 # The "auto" per-site rule: stride-1 k>=3 convs at least this wide with
@@ -133,8 +134,8 @@ def conv2d_chw(x: torch.Tensor, p: Dict[str, torch.Tensor], stride: int = 1,
     w = p["kernel"]
     to_pad = (w.shape[0] - 1) // 2
     if to_pad > 0:
-        mode = "reflect" if pad == "reflection" else "constant"
-        x = F.pad(x, (to_pad, to_pad, to_pad, to_pad), mode=mode)
+        x = (reflect_pad(x, to_pad) if pad == "reflection"
+             else F.pad(x, (to_pad,) * 4))
     out = F.conv2d(x, w.permute(3, 2, 0, 1).to(x.dtype), stride=stride)
     if "bias" in p:
         out = out + p["bias"].to(out.dtype)[:, None, None]
@@ -434,7 +435,7 @@ def conv2d(x: torch.Tensor, p: Dict[str, torch.Tensor], stride: int = 1,
     to_pad = (w.shape[0] - 1) // 2
     xc = _nchw(x)
     if pad == "reflection" and to_pad > 0:
-        xc = F.pad(xc, (to_pad,) * 4, mode="reflect")
+        xc = reflect_pad(xc, to_pad)
         to_pad = 0
     y = F.conv2d(xc, w.permute(3, 2, 0, 1).to(x.dtype), stride=stride,
                  padding=to_pad)

@@ -13,13 +13,16 @@ the reference chooses them (attention_from_qkv):
     [B, H, N, dh] q, k, v and multi_head_attention runs forward kernel K5
     and backward K6 (replacing _attn_kernel and _attn_bwd_kernel).
 
-All four kernels are in csrc/attention.cu. Each runs bf16 on the tensor
-cores, through one set of kernels for both layouts, and fp32 on the CUDA
-cores (a route by dtype, not a fallback). On CPU tensors the same functions
-run their plain PyTorch versions below, which repeat the kernels'
-arithmetic. A CUDA tensor launches the kernel or raises; there is no
-fallback: a bf16 tensor at an address that the tensor-core kernels' TMA
-copies cannot use (check_tma_operands) is refused, not copied.
+All four kernels are in csrc/attention.cu and run on the tensor cores,
+each through one set of kernels for both layouts: bf16 through wgmma,
+fp32 through mma.sync TF32 products in three terms (split TF32: hi*lo +
+lo*hi + hi*hi of each operand's two TF32 halves, close to fp32 but not
+bitwise fp32; a route by dtype, not a fallback). On CPU tensors the same
+functions run their plain PyTorch versions below, which repeat the
+kernels' arithmetic. A CUDA tensor launches the kernel or raises; there is
+no fallback: a tensor at an address that the kernels' copies (TMA for
+bf16, cp.async for fp32) cannot use (check_tma_operands) is refused, not
+copied.
 
 use_pallas=False (the config key use_pallas_attention, the reference's XLA
 ablation) takes neither kernel pair: both routes go through
@@ -138,12 +141,13 @@ def _shape(qkv: torch.Tensor, num_heads: int, n_valid: int):
 
 
 def check_tma_operands(name: str, *ts: torch.Tensor) -> None:
-    """TMA's rule for the tensors the tensor-core kernels read and write:
-    each address 16-byte aligned (a contiguous view can start anywhere in
-    its storage). Their strides need no check: the wrappers take
-    contiguous tensors only, and head dim 64 makes every stride but the
-    last a multiple of 128 bytes. Raises ValueError; the kernels never
-    copy a tensor to an address they can read."""
+    """The rule of the kernels' 16-byte copies (TMA for bf16, cp.async for
+    fp32) for the tensors they read and write: each address 16-byte
+    aligned (a contiguous view can start anywhere in its storage). Their
+    strides need no check: the wrappers take contiguous tensors only, and
+    head dim 64 makes every stride but the last a multiple of 128 bytes.
+    Raises ValueError; the kernels never copy a tensor to an address they
+    can read."""
     for t in ts:
         if t.data_ptr() % 16:
             raise ValueError(
@@ -151,23 +155,15 @@ def check_tma_operands(name: str, *ts: torch.Tensor) -> None:
                 f"tensors; got address {t.data_ptr():#x}")
 
 
-def _on_tensor_cores(name: str, dtype: int, *ts: torch.Tensor) -> bool:
-    """True for bf16 (the tensor-core route), after TMA's checks."""
-    if dtype != _build.DTYPES["bfloat16"]:
-        return False
-    check_tma_operands(name, *ts)
-    return True
-
-
 def attn_qkv_fwd_cuda(qkv: torch.Tensor, num_heads: int, scale: float,
                       n_valid: int = 0) -> torch.Tensor:
-    """K1 on the card: [B, N, 3D] -> [B, N, D]. bf16 runs the tensor-core
-    kernel (also counted in tc_launches), fp32 the CUDA-core one."""
+    """K1 on the card: [B, N, 3D] -> [B, N, D], bf16 or fp32 (split TF32),
+    on the tensor cores (also counted in tc_launches)."""
     dtype = _build.check_cuda_tensors("attn_qkv_fwd", qkv)
     B, N, valid = _shape(qkv, num_heads, n_valid)
     out = torch.empty(B, N, qkv.shape[2] // 3, dtype=qkv.dtype,
                       device=qkv.device)
-    tc = _on_tensor_cores("attn_qkv_fwd", dtype, qkv, out)
+    check_tma_operands("attn_qkv_fwd", qkv, out)
     fn = _build.library("attention").attn_qkv_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 \
@@ -176,7 +172,7 @@ def attn_qkv_fwd_cuda(qkv: torch.Tensor, num_heads: int, scale: float,
                 float(scale), dtype, _build.stream_ptr(qkv.device))
     _build.check(status, "attn_qkv_fwd")
     attn_qkv_fwd_cuda.launches += 1
-    attn_qkv_fwd_cuda.tc_launches += tc
+    attn_qkv_fwd_cuda.tc_launches += 1
     return out
 
 
@@ -187,13 +183,13 @@ attn_qkv_fwd_cuda.tc_launches = 0
 def attn_qkv_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
                       scale: float, n_valid: int = 0) -> torch.Tensor:
     """K2 on the card: (qkv [B,N,3D], g [B,N,D]) -> dqkv [B,N,3D]. Three
-    launches (row statistics, dk/dv, dq) counted as one call; bf16 on the
-    tensor cores (also counted in tc_launches), fp32 on the CUDA cores."""
+    launches (row statistics, dk/dv, dq) counted as one call; bf16 and fp32
+    (split TF32) on the tensor cores (also counted in tc_launches)."""
     g = g.to(qkv.dtype).contiguous()
     dtype = _build.check_cuda_tensors("attn_qkv_bwd", qkv, g)
     B, N, valid = _shape(qkv, num_heads, n_valid)
     dqkv = torch.empty_like(qkv)
-    tc = _on_tensor_cores("attn_qkv_bwd", dtype, qkv, g, dqkv)
+    check_tma_operands("attn_qkv_bwd", qkv, g, dqkv)
     lse = torch.empty(B, num_heads, N, dtype=torch.float32,
                       device=qkv.device)
     delta = torch.empty_like(lse)
@@ -206,7 +202,7 @@ def attn_qkv_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
                 float(scale), dtype, _build.stream_ptr(qkv.device))
     _build.check(status, "attn_qkv_bwd")
     attn_qkv_bwd_cuda.launches += 1
-    attn_qkv_bwd_cuda.tc_launches += tc
+    attn_qkv_bwd_cuda.tc_launches += 1
     return dqkv
 
 
@@ -227,13 +223,13 @@ def _split_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float, n_valid: int = 0) -> torch.Tensor:
-    """K5 on the card: [B, H, N, 64] q, k, v -> [B, H, N, 64]. bf16 runs
-    the tensor-core kernel (also counted in tc_launches), fp32 the
-    CUDA-core one (the tensor cores would round fp32 to TF32)."""
+    """K5 on the card: [B, H, N, 64] q, k, v -> [B, H, N, 64], bf16 or
+    fp32 (split TF32), on the tensor cores (also counted in
+    tc_launches)."""
     B, H, N, valid = _split_shape(q, k, v, n_valid)
     dtype = _build.check_cuda_tensors("attn_fwd", q, k, v)
     out = torch.empty_like(q)
-    tc = _on_tensor_cores("attn_fwd", dtype, q, k, v, out)
+    check_tma_operands("attn_fwd", q, k, v, out)
     fn = _build.library("attention").attn_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
@@ -242,7 +238,7 @@ def attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 N, H, valid, float(scale), dtype, _build.stream_ptr(q.device))
     _build.check(status, "attn_fwd")
     attn_fwd_cuda.launches += 1
-    attn_fwd_cuda.tc_launches += tc
+    attn_fwd_cuda.tc_launches += 1
     return out
 
 
@@ -254,8 +250,8 @@ def attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   g: torch.Tensor, scale: float, n_valid: int = 0):
     """K6 on the card: (q, k, v, g), each [B, H, N, 64] -> (dq, dk, dv) in
     the inputs' type. Three launches (row statistics, dk/dv, dq) counted as
-    one call; bf16 on the tensor cores (also counted in tc_launches), fp32
-    on the CUDA cores."""
+    one call; bf16 and fp32 (split TF32) on the tensor cores (also counted
+    in tc_launches)."""
     B, H, N, valid = _split_shape(q, k, v, n_valid)
     if g.shape != q.shape:
         raise ValueError(f"attn_bwd: cotangent {tuple(g.shape)} vs "
@@ -263,7 +259,7 @@ def attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = g.to(q.dtype).contiguous()
     dtype = _build.check_cuda_tensors("attn_bwd", q, k, v, g)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    tc = _on_tensor_cores("attn_bwd", dtype, q, k, v, g, dq, dk, dv)
+    check_tma_operands("attn_bwd", q, k, v, g, dq, dk, dv)
     lse = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     fn = _build.library("attention").attn_bwd
@@ -276,7 +272,7 @@ def attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 _build.stream_ptr(q.device))
     _build.check(status, "attn_bwd")
     attn_bwd_cuda.launches += 1
-    attn_bwd_cuda.tc_launches += tc
+    attn_bwd_cuda.tc_launches += 1
     return dq, dk, dv
 
 

@@ -63,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from splice_tpu_torch.ops import _build
+from splice_tpu_torch.ops.image import reflect_pad
 
 # fp32 K4/K7 split the rows of all images into about this many chunks
 # (pass 1), then add the chunks' partial sums in order (pass 2).
@@ -85,6 +86,9 @@ DW_TC_BLOCKS = 528
 # 3x3 and 1x1 and its stride-2 k2 = 2, the inversion net's 7x7 and 5x5
 # (splice_tpu/models/unet.py:67-75) and their k2 = 4 and 3.
 KERNEL_KS = (1, 2, 3, 4, 5, 7)
+# K7's k: the odd k > 1 that the SAME route reaches with the generators'
+# filters (3, 5, 7) and k = 2 for VALID K7 on a bordered input
+GTAP_KS = (2, 3, 5, 7)
 
 # bf16 K3 on the tensor cores (csrc/conv.cu, namespace fwdtc): a block
 # holds up to FWD_TC_MT m16 tiles of Cout (wider outputs split into evened
@@ -567,8 +571,9 @@ def _launch_dw_gtap(x, g, k, pad, scale, shift, negslope, name):
     cores."""
     x, g = x.contiguous(), g.contiguous()
     dtype = _build.check_cuda_tensors(name, x, g)
-    if k not in (2, 3):
-        raise ValueError(f"{name}: kernel is built for k in (2, 3), got {k}")
+    if k not in GTAP_KS:
+        raise ValueError(f"{name}: kernel is built for k in {GTAP_KS}, "
+                         f"got {k}")
     B, cin, h, wd = x.shape
     cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
     if g.shape[0] != B:
@@ -952,7 +957,7 @@ def _conv_any(x, w, pad: str, stride: int, scale, shift, negslope: float,
                                   want_stats)
     if to_pad and pad == "reflection":
         # reflection commutes with the per-channel prologue
-        x = F.pad(x, (to_pad, to_pad, to_pad, to_pad), mode="reflect")
+        x = reflect_pad(x, to_pad)
         to_pad = 0
     if stride == 1:
         return ConvValidPro.apply(x, w, scale, shift, to_pad, 1,

@@ -21,6 +21,7 @@ import functools
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -40,6 +41,45 @@ def _data(value, device) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value
     return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Reflection padding
+# ---------------------------------------------------------------------------
+
+def reflect_index(n: int, pad: int) -> Tuple[int, ...]:
+    """Source index of each of the n + 2 pad positions of a reflection-padded
+    axis of size n, by numpy's "reflect" rule at any pad (jnp.pad's, which
+    the reference pads with): period 2(n - 1), the edge not repeated; where
+    n = 1 every position reads the one element."""
+    if n == 1:
+        return (0,) * (1 + 2 * pad)
+    period = 2 * (n - 1)
+    return tuple(min(i % period, period - i % period)
+                 for i in range(-pad, n + pad))
+
+
+def reflect_gather(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """x [..., H, W] reflection-padded by pad on both sides of H and W at
+    any size: the gather of reflect_index, whose gradient is its adjoint
+    (index_add). The indices are constants made once per device (_const),
+    so a captured step copies nothing from the host."""
+    rows = _const(reflect_index(x.shape[-2], pad), torch.long, x.device)
+    cols = _const(reflect_index(x.shape[-1], pad), torch.long, x.device)
+    return x.index_select(-2, rows).index_select(-1, cols)
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """reflect_gather where F.pad(mode="reflect") raises (pad >= H or pad
+    >= W), else F.pad: the same values bitwise, and a gradient that sums
+    the reflected entries in F.pad's order. The gather alone reorders
+    those sums, which the inversion net's ill-conditioned gradient at
+    48 px (BatchNorm over 1-4 pixel maps) amplifies past the fp32 gate of
+    tests/test_torch_reflect_pad.py."""
+    h, w = x.shape[-2:]
+    if pad < h and pad < w:
+        return F.pad(x, (pad,) * 4, mode="reflect")
+    return reflect_gather(x, pad)
 
 
 # ---------------------------------------------------------------------------

@@ -241,6 +241,11 @@ K7_CASES = (
     (2, 0, 4, 6, 9, 39, 2, 1.0, conv.DW_TC_BLOCKS),
     (3, 1, 5, 4, 17, 70, 2, 0.2, 3),
     (3, 1, 72, 40, 4, 13, 0, 1.0, conv.DW_TC_BLOCKS),
+    # k = 5 and 7 (SAME pad 2 and 3): H < k, the prologue, two stacks
+    (5, 2, 5, 6, 11, 37, 0, 1.0, conv.DW_TC_BLOCKS),
+    (5, 2, 6, 5, 3, 21, 2, 0.2, 3),
+    (7, 3, 6, 5, 9, 39, 2, 0.2, conv.DW_TC_BLOCKS),
+    (7, 3, 36, 16, 5, 70, 0, 1.0, conv.DW_TC_BLOCKS),
 )
 
 
@@ -271,6 +276,10 @@ PATH_CALLS = (
     (7, 32, 32, 56, 71), (5, 132, 64, 56, 71), (5, 64, 64, 28, 36),
     (5, 132, 128, 28, 36), (5, 128, 128, 14, 18), (4, 128, 16, 112, 141),
     (4, 64, 32, 56, 71), (3, 128, 64, 28, 36), (3, 256, 128, 14, 18),
+    # K7 on the SAME route with filter_size_up 5 or 7, where _gtap_better
+    # takes it: up_conv s0 (36 -> 16 at 896) and s1 (68 -> 32 at 448)
+    (5, 16, 36, 900, 900), (5, 32, 68, 452, 452), (7, 16, 36, 902, 902),
+    (7, 32, 68, 454, 454),
 )
 
 
