@@ -9,8 +9,9 @@ Phases, each fatal on failure:
      must hold tensor-core instructions (cuobjdump): wgmma (HGMMA) in the
      bf16 route of K1/K2 and K5/K6 and in the probe kernel P1, TF32
      mma.sync (HMMA ... TF32) in their fp32 route (split TF32), mma.sync
-     (HMMA) in the bf16 route of K3 (every form) and of K4 and K7, and
-     neither in the fp32 conv kernels;
+     (HMMA) in the bf16 route of K3 (every form) and of K4 and K7 (PR
+     6-7's forms and the pixel-major ones), and neither in the fp32 conv
+     kernels;
   2. hold every kernel against its plain PyTorch version at the shapes the
      training paths give it (and at small edge-case shapes; the bf16
      attention kernels also at N under a tile, one past a tile, B = 1 and
@@ -128,7 +129,8 @@ Phases, each fatal on failure:
      of 7x7/5x5/3x3 filters with reflection padding, bf16), feature cls,
      61 steps at log_freq 20 (chunks 1, 20, 20, 20), with the default
      generator_layout nhwc (cuDNN) and with chw + generator_conv pallas
-     (K3/K4 at k = 7, 5 and the phase kernels' k2 = 4, 3). Gates: the
+     (K3/K4 at k = 7, 5 and the phase kernels' k2 = 4, 3: the
+     pixel-major forms, counted by (wrapper, k, form)). Gates: the
      logged steps 0, 20, 40, 60 and every loss finite; the PNG [224, 281,
      3]; the ViT's input (224, 281); K1/K2 and, on chw + pallas, K3 and K4
      at k = 4, 5 and 7 launched inside the graph, every bf16 launch on the
@@ -138,8 +140,8 @@ Phases, each fatal on failure:
      of the output on the card against the CPU, and the main path with
      generator_layout nhwc for 4 steps through the program, its replayed
      regular step profiled beside main's. Prints
-     iterations/s replayed and sustained, kernel ms per step and peak
-     memory for each layout.
+     iterations/s replayed and sustained, kernel ms per step (K3's and
+     K4's apart) and peak memory for each layout.
   12b. main_fp32: the main path with vit_compute_dtype and
      generator_compute_dtype float32, MAIN_FP32_STEPS steps through the
      program, phase 4's gates, every K1/K2 launch on the tensor cores
@@ -188,9 +190,21 @@ K1/K2 at the DINOv2 paths' shapes (DINOV2_QKV), at
 config c's batch of 16 (PAIRS_QKV; every launch on the tensor cores, in
 the JSON line as path config_c), at the inversion's [1, 981, 2304] in bf16
 (INVERSION_QKV; fp32 in FP32_QKV) and at 16 heads (QKV_EDGES), and K3
-(plain, pro, the input gradient) and K4 (plain, pro) in bf16 and fp32 at the inversion
-net's sites (INV_SITES), timed in bf16 against F.conv2d and cuDNN's
-gradients. Phase 3 runs a small fp32 DINOv2 (layer scale, registers) on
+(plain, pro, the input gradient) and K4 (plain, pro) in bf16 and fp32 at
+the inversion net's sites (tools/conv_forms.INV_SITES; bf16 K3 on the
+pixel-major form, K4 on the form conv_route names: conv_dw_tc at the two
+Cout-16 sites whose grid busies the card, conv_dw_px elsewhere),
+bitwise twice, timed in bf16 against F.conv2d and cuDNN's gradients
+(tools/conv_forms.py times the parent's forms beside these, in one
+call). Phase 2 also holds
+the filter sizes no generator default takes (ROADMAP C9; ANY_K: k = 6, 9
+and, at stride 2, 6, 9, 11) through kernel_conv_chw and
+kernel_conv_bn_act_chw, forward, input and weight gradient, bf16 and fp32,
+against the CPU's plain versions with F.conv2d refused and every launch
+counted; K7's route at k = 9 with SAME_BORDER_KERNELS on (K4, the same
+function); a generator with 9x9 up convs through skip_apply_chw pallas
+and fused against the CPU's float64; and multi_head_attention at dh 32
+and 128 (SDPA, ROADMAP C10) and 64 (K5/K6, counted) against the XLA math. Phase 3 runs a small fp32 DINOv2 (layer scale, registers) on
 the card against the CPU, two pairs' regular and entire-A steps
 (MultiPairTrainer) on the card against the CPU for generator_conv auto,
 fused and pallas (phase 3's tolerances, or 1.25 x the input's fp32
@@ -695,8 +709,9 @@ def check_tensor_cores(build):
     split-TF32 kernels, "tf32" in their names) TF32 HMMA; each library
     must have such kernels, the
     conv library a forward one (conv_fwd_tc_kernel) and a weight-gradient
-    one, and the fp32 conv kernels (K3's, K4's and K7's CUDA-core kernels)
-    hold neither; and HGMMA in each of P1's four instances (the probe
+    one, and HMMA in each of the pixel-major forms' seven instances
+    (conv_fwd_px_kernel, conv_dw_px_kernel), and the fp32 conv kernels
+    (K3's, K4's and K7's CUDA-core kernels) hold neither; and HGMMA in each of P1's four instances (the probe
     library: 64 and 128 columns, resident and streamed)."""
     att = sass_counts(build, "attention")
     tc = [f for f in att if "_tc" in f]
@@ -712,6 +727,11 @@ def check_tensor_cores(build):
             or not any("conv_dw_tc_kernel" in f for f in tc)
             or not all(cnv[f][1] for f in tc)):
         fail(f"conv tensor-core kernels missing or without HMMA: {cnv}")
+    # the pixel-major forms: K3's four m16 widths, K4's three n8 widths
+    px = [f for f in cnv if "_px_kernel" in f]
+    if len(px) != 7 or not all(cnv[f][1] for f in px):
+        fail(f"the pixel-major conv kernels missing or without HMMA: "
+             f"{ {f: cnv[f] for f in px} }")
     fp32 = [f for f in cnv if "conv_dw_partial" in f
             or "conv_dw_gtap_kernel" in f or "conv_dw_reduce" in f
             or "conv_fwd_kernel" in f]
@@ -928,19 +948,6 @@ def check_conv_s2d(torch, conv, rows):
         rows[name]["max_abs_err"] = errs[name]
 
 
-# The inversion net's K3/K4 sites on limes at resize 224 (224 x 281;
-# generator_layout chw, generator_conv pallas): (name, Cin, Cout, H, W of
-# the reflection-padded input, k, stride). Reflection padding is a copy
-# outside the kernels (F.pad), so every site is a VALID conv: stride 1 at
-# k = 7 and 5, stride 2 as the phase image's k2 = 4 and 3.
-INV_SITES = (("up_conv s0", 36, 16, 230, 287, 7, 1),
-             ("down_conv2 s0", 16, 16, 118, 147, 7, 1),
-             ("up_conv s2", 132, 64, 60, 75, 5, 1),
-             ("down_conv2 s2", 64, 64, 32, 40, 5, 1),
-             ("down_conv1 s0", 32, 16, 230, 287, 7, 2),
-             ("down_conv1 s1", 16, 32, 118, 147, 7, 2),
-             ("down_conv1 s2", 32, 64, 60, 75, 5, 2),
-             ("down_conv1 s3", 64, 128, 32, 40, 5, 2))
 # the sites whose bf16 times stand in the JSON line for (wrapper, k)
 INV_ROWS = {("conv_valid", 7): "up_conv s0", ("conv_valid", 5): "up_conv s2",
             ("conv_valid_s2d", 4): "down_conv1 s0",
@@ -952,12 +959,14 @@ INV_ROWS = {("conv_valid", 7): "up_conv s0", ("conv_valid", 5): "up_conv s2",
 
 def check_conv_inversion(torch, conv):
     """K3 (plain, pro and the input gradient) and K4 (plain and pro) at
-    the inversion net's sites (INV_SITES: k = 7, 5 and the stride-2 phase
+    the inversion net's sites (conv_forms.INV_SITES: k = 7, 5 and the
+    stride-2 phase
     kernels' k2 = 4, 3), bf16 (tensor cores) and fp32, each twice on one
     input (bitwise), and the bf16 forms timed against F.conv2d,
     conv2d_input and conv2d_weight. Returns {(wrapper, k): row} for
     INV_ROWS, max_abs_err the largest over that wrapper's sites at that
     k."""
+    from splice_tpu_torch.tools.conv_forms import INV_SITES
     F = torch.nn.functional
     gen = torch.Generator().manual_seed(12)
     rows, errs = {}, {}
@@ -995,7 +1004,7 @@ def check_conv_inversion(torch, conv):
                  lambda: conv.conv_valid_pro_plain(
                      x, wk, sc, sh, 0.2, 0, stride, (ho, wo)), rtol, why),
                 ("K3 dx", "conv_valid", lambda: conv.conv_valid_cuda(
-                    g, wk_flip, kk - 1),
+                    g, wk_flip, kk - 1, phase=stride == 2),
                  lambda: conv.conv_valid_plain(g, wk_flip, kk - 1), rtol,
                  why),
                 ("K4", dw_name, lambda: (
@@ -1009,6 +1018,25 @@ def check_conv_inversion(torch, conv):
                  lambda: conv.conv_dw_pro_plain(x, g, kk, sc, sh, 0.2, 0,
                                                 stride),
                  RTOL["float32"][0], DW_WHY))
+            if dtype_name == "bfloat16":
+                # K3 on the pixel-major form at every site; K4 on the form
+                # conv_route names from the shape (dw_px_form)
+                routes = (
+                    conv.conv_route("fwd", dt, kk, stride, wk.shape[2], cout,
+                                    1, ho, wo),
+                    conv.conv_route("fwd", dt, kk, 1, cout, wk.shape[2], 1,
+                                    ho + kk - 1, wo + kk - 1,
+                                    phase=stride == 2),
+                    conv.conv_route("dw", dt, kk, stride, wk.shape[2], cout,
+                                    1, ho, wo))
+                print(f"  routes {tag}: " + "; ".join(
+                    f"{r.kernel} {r.entry} {r.tiling}" for r in routes))
+                keep = not conv.dw_px_form(kk, stride == 2, wk.shape[2],
+                                           cout, 1, ho, wo)
+                if (routes[0].form != "px" or routes[1].form != "px"
+                        or routes[2].form != ("tc" if keep else "px")):
+                    fail(f"{tag}: not on the forms conv_route's rule names: "
+                         f"{routes}")
             for kid, wrapper, kernel, plain, tol, reason in calls:
                 got = kernel()
                 note((wrapper, kk), compare(f"{kid} {wrapper} {tag}", got,
@@ -1036,9 +1064,10 @@ def check_conv_inversion(torch, conv):
                        dtype_name, "K4", tag)
             for (wrapper, kr), site in INV_ROWS.items():
                 if site == name and kr == kk:
+                    k3 = wrapper.startswith("conv_valid")
                     rows[(wrapper, kr)] = dict(
-                        fwd if wrapper.startswith("conv_valid") else dw,
-                        shape=tag)
+                        fwd if k3 else dw, shape=tag,
+                        form=routes[0 if k3 else 2].form)
         torch.cuda.empty_cache()
     for key, row in rows.items():
         row["max_abs_err"] = errs[key]
@@ -1059,6 +1088,234 @@ def same_border(on: bool, tap_on_n: bool = True):
         yield
     finally:
         conv.SAME_BORDER_KERNELS, conv.DW_TAP_ON_N = old
+
+
+
+# Filter sizes that no generator default takes (ROADMAP C9): (k, stride),
+# each through kernel_conv_chw and kernel_conv_bn_act_chw with autograd
+ANY_K = ((6, 1), (9, 1), (6, 2), (9, 2), (11, 2))
+
+
+@contextlib.contextmanager
+def no_library_conv(torch):
+    """torch.nn.functional.conv2d fails inside the block: a conv on a
+    kernel route must never reach it."""
+    F = torch.nn.functional
+    old = F.conv2d
+
+    def refuse(*a, **kw):
+        fail("a conv on a kernel route reached F.conv2d")
+
+    F.conv2d = refuse
+    try:
+        yield
+    finally:
+        F.conv2d = old
+
+
+def conv_counts(conv):
+    """(launches, tensor-core launches) of every K3/K4/K7 wrapper."""
+    return {n: (getattr(conv, f"{n}_cuda").launches,
+                getattr(conv, f"{n}_cuda").tc_launches) for n in K3 + DW}
+
+
+def counted(conv, before):
+    """The wrappers' (launches, tensor-core launches) since `before`."""
+    return {n: (c[0] - before[n][0], c[1] - before[n][1])
+            for n, c in conv_counts(conv).items() if c != before[n]}
+
+
+def check_conv_any_k(torch, conv):
+    """ROADMAP C9 on the card: at k = 6 and 9 (stride 1) and 6, 9 and 11
+    at stride 2 (their phase kernels k2 = 3, 5, 6), in bf16 and fp32,
+    kernel_conv_chw and kernel_conv_bn_act_chw (two BatchNorm stacks)
+    forward and backward ([2, 12, 37, 45] -> 20 channels, zero padding,
+    the bias) against the same calls on the CPU (the plain versions), the
+    output, the input gradient and the weight gradient each within phase
+    2's tolerance; every conv on a kernel of the port (F.conv2d refused
+    inside), K3 at least twice (forward and input gradient) and K4 once,
+    each bf16 launch on the tensor cores. Then K7's route at k = 9 with
+    SAME_BORDER_KERNELS on (36 -> 4 channels, where _gtap_better picks K7
+    and conv_route sends it to K4, the same function): kernel_conv_chw
+    forward and backward, and conv_dw_gtap_cuda itself against K7's plain
+    version."""
+    gen = torch.Generator().manual_seed(16)
+    for k, stride in ANY_K:
+        x = torch.randn(2, 12, 37, 45, generator=gen)
+        w = 0.1 * torch.randn(k, k, 12, 20, generator=gen)
+        b = torch.randn(20, generator=gen)
+        sc = 0.5 + torch.rand(2, 12, generator=gen)
+        sh = torch.randn(2, 12, generator=gen)
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            rtol, why = RTOL[dtype_name]
+            for pro in (False, True):
+                def run(dev):
+                    xs = x.to(dev, dt).clone().requires_grad_(True)
+                    ws = w.to(dev, dt).clone().requires_grad_(True)
+                    p = {"kernel": ws, "bias": b.to(dev, dt)}
+                    if pro:
+                        out = conv.kernel_conv_bn_act_chw(
+                            xs, p, sc.to(dev), sh.to(dev), stride, "zero",
+                            0.2)
+                    else:
+                        out = conv.kernel_conv_chw(xs, p, stride)
+                    gy = torch.randn(out.shape, generator=torch.Generator()
+                                     .manual_seed(k)).to(dev, dt)
+                    out.backward(gy)
+                    return out, xs.grad, ws.grad
+                fn = "kernel_conv_bn_act_chw" if pro else "kernel_conv_chw"
+                tag = f"any k: k={k} stride {stride} {fn} {dtype_name}"
+                before = conv_counts(conv)
+                with no_library_conv(torch):
+                    got = run("cuda")
+                    torch.cuda.synchronize()
+                ran = counted(conv, before)
+                ref = run("cpu")
+                for what, gt, rf in zip(("out", "dx", "dw"), got, ref):
+                    compare(f"{tag} {what}", gt, rf.to("cuda"), rtol, why)
+                print(f"  {tag}: launches (all, tensor cores) {ran}")
+                n3 = sum(ran.get(n, (0, 0))[0] for n in K3)
+                n4 = sum(ran.get(n, (0, 0))[0] for n in DW)
+                on_tc = all(t == (n if dt == torch.bfloat16 else 0)
+                            for n, t in ran.values())
+                if n3 < 2 or n4 < 1 or not on_tc:
+                    fail(f"{tag}: K3 {n3} and K4 {n4} launches, or off the "
+                         f"tensor cores: {ran}")
+    # K7's route at k = 9 (SAME route, 36 -> 4: _gtap_better picks K7)
+    x = torch.randn(2, 36, 29, 33, generator=gen)
+    w = 0.1 * torch.randn(9, 9, 36, 4, generator=gen)
+    g = torch.randn(2, 4, 29, 33, generator=gen)
+    if not conv._gtap_better(9, 36, 4):
+        fail("k = 9, 36 -> 4: _gtap_better no longer picks K7")
+    with same_border(True):
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            rtol, why = RTOL[dtype_name]
+            route = conv.conv_route("dw", dt, 9, 1, 36, 4, 2, 29, 33,
+                                    same=True)
+            if route.kernel != "K4":
+                fail(f"K7 at k = 9 routed to {route}")
+
+            def run(dev):
+                xs = x.to(dev, dt).clone().requires_grad_(True)
+                ws = w.to(dev, dt).clone().requires_grad_(True)
+                out = conv.kernel_conv_chw(xs, {"kernel": ws}, 1, "zero")
+                out.backward(g.to(dev, dt))
+                return out, xs.grad, ws.grad
+            tag = f"K7's route at k=9, SAME on, {dtype_name}"
+            before = conv_counts(conv)
+            with no_library_conv(torch):
+                got = run("cuda")
+                direct = conv.conv_dw_gtap_cuda(x.to("cuda", dt),
+                                                g.to("cuda", dt), 9, pad=4)
+                torch.cuda.synchronize()
+            ran = counted(conv, before)
+            for what, gt, rf in zip(("out", "dx", "dw"), got, run("cpu")):
+                compare(f"{tag} {what}", gt, rf.to("cuda"), rtol, why)
+            compare(f"{tag} conv_dw_gtap_cuda", direct,
+                    conv.conv_dw_gtap_plain(x.to(dt), g.to(dt), 9,
+                                            pad=4).to("cuda"),
+                    RTOL["float32"][0], DW_WHY)
+            print(f"  {tag}: launches (all, tensor cores) {ran}; the weight "
+                  f"gradient's route {route.kernel} {route.entry}")
+            if not (ran.get("conv_same", (0, 0))[0] >= 2
+                    and ran.get("conv_dw", (0, 0))[0] >= 1
+                    and ran.get("conv_dw_gtap", (0, 0))[0] == 1):
+                fail(f"{tag}: launches {ran}")
+
+
+def check_generator_9x9(torch, conv):
+    """ROADMAP C9 through the generator: a three-scale net with 9x9 up
+    convs (SkipConfig filter_size_up = 9, two BatchNorm stacks) through
+    skip_apply_chw with generator_conv pallas and fused, fp32, on
+    [2, 64, 448, 3] (448 wide, so fused runs the prologue kernels at scale
+    0, KERNEL_MIN_WIDTH), on the card against the CPU's float64 (its plain
+    versions); F.conv2d refused on the card under pallas (fused takes it
+    at its narrow sites by the reference's auto rule). Tolerances as
+    check_small_inversion_step: the output 1e-4 x max|out|; the parameter
+    gradient of sum(out * w) max(5e-3, 2 x the CPU's fp32 distance from
+    float64) in max error over max|grad| and in relative L2 (the
+    generator's fp32 gradient is ill-conditioned in fp32 itself)."""
+    from splice_tpu_torch.models import unet
+    cfg = unet.SkipConfig(channels_down=(8, 8, 16), channels_up=(8, 8, 16),
+                          channels_skip=(2, 2, 2), filter_size_up=9)
+    tree = unet.init_skip_params(cfg, seed=9, device="cpu")
+    gen = torch.Generator().manual_seed(9)
+    x = torch.rand(2, 64, 448, 3, generator=gen)
+    wt = torch.randn(2, 64, 448, 3, generator=gen)
+
+    def run(mode, dev, dt):
+        flat, spec = unet.flatten_params(tree)
+        flat = flat.to(dev, dt).requires_grad_(True)
+        out = unet.skip_apply_chw(unet.unflatten_params(flat, spec), cfg,
+                                  x.to(dev, dt), groups=2, conv_impl=mode)
+        (grad,) = torch.autograd.grad((out * wt.to(dev, dt)).sum(), flat)
+        return out.detach().cpu().double(), grad.cpu().double()
+
+    def gaps(a, b):
+        return ((a[0] - b[0]).abs().max().item() / b[0].abs().max().item(),
+                (a[1] - b[1]).abs().max().item() / b[1].abs().max().item(),
+                ((a[1] - b[1]).norm() / b[1].norm()).item())
+
+    for mode in ("pallas", "fused"):
+        truth = run(mode, "cpu", torch.float64)
+        cpu = gaps(run(mode, "cpu", torch.float32), truth)
+        gtol, ltol = max(5e-3, 2 * cpu[1]), max(5e-3, 2 * cpu[2])
+        before = conv_counts(conv)
+        # pallas sends every conv to the kernels; fused only the prologue
+        # sites, the rest by the reference's auto rule (F.conv2d where narrow)
+        with no_library_conv(torch) if mode == "pallas" \
+                else contextlib.nullcontext():
+            card = gaps(run(mode, "cuda", torch.float32), truth)
+            torch.cuda.synchronize()
+        ran = counted(conv, before)
+        print(f"  9x9 generator ({mode}, fp32, [2,64,448,3]): the card "
+              f"against float64 out {card[0]:.2e} (tol 1e-4), grad "
+              f"{card[1]:.2e} / {card[2]:.2e} (tol {gtol:.2e} / "
+              f"{ltol:.2e}; the CPU's fp32 {cpu[1]:.2e} / {cpu[2]:.2e}); "
+              f"launches {ran}")
+        need = ("conv_valid_pro",) if mode == "fused" \
+            else ("conv_valid", "conv_dw")
+        if not (card[0] <= 1e-4 and card[1] <= gtol and card[2] <= ltol):
+            fail(f"9x9 generator ({mode}): the card disagrees")
+        if any(not ran.get(n, (0, 0))[0] for n in need):
+            fail(f"9x9 generator ({mode}): {need} not launched: {ran}")
+
+
+def check_attention_dh(torch, attn):
+    """ROADMAP C10 on the card: multi_head_attention at dh = 32 and 128
+    (library_attention, SDPA) and 64 (K5/K6), bf16 and fp32, [2, 4, 197,
+    dh] with 150 valid keys, forward and backward against the reference's
+    XLA math (xla_attention_plain, by autograd, on the card) within phase
+    2's tolerances; K5 and K6 each launched once at dh = 64 and never at
+    32 or 128."""
+    gen = torch.Generator().manual_seed(21)
+    for dh in (32, 64, 128):
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            rtol, why = RTOL[dtype_name]
+            q, k, v, g = (torch.randn(2, 4, 197, dh, generator=gen).to(
+                "cuda", dt) for _ in range(4))
+
+            def run(fn):
+                ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                out = fn(*ts, dh ** -0.5, 150)
+                out.backward(g)
+                return (out, *(t.grad for t in ts))
+            n0 = (attn.attn_fwd_cuda.launches, attn.attn_bwd_cuda.launches)
+            got = run(attn.multi_head_attention)
+            torch.cuda.synchronize()
+            n = (attn.attn_fwd_cuda.launches - n0[0],
+                 attn.attn_bwd_cuda.launches - n0[1])
+            ref = run(attn.xla_attention_plain)
+            tag = f"multi_head_attention dh={dh} {dtype_name}"
+            for what, gt, rf in zip(("out", "dq", "dk", "dv"), got, ref):
+                compare(f"{tag} {what}", gt, rf, rtol, why)
+            want = (1, 1) if dh == 64 else (0, 0)
+            print(f"  {tag}: K5/K6 launches {n} (want {want})")
+            if n != want:
+                fail(f"{tag}: K5/K6 launches {n}, want {want}")
 
 
 def check_bitwise(torch, name, first, second) -> None:
@@ -1450,9 +1707,10 @@ def check_dw_tc_edge_cases(torch, conv):
 # gradient at up_conv s0), 68 (at up_conv s1) and 128 (two output-channel
 # chunks); k = 1, 2, 3; stride 2 at odd sizes with and without the
 # prologue; two stacks (a scale of 1e-13 and a negative one); K3''' at
-# ragged sizes; the entire-A generator at B = 1 from the 900 x 1200 image:
-# widths 1200, 600, 150 and 75, heights 900 and 113, with the input
-# gradients of up_conv s0/s1.
+# ragged sizes and at k = 5 and 7 (the SAME 5x5 and 7x7, two stacks, on
+# the pixel-major form); the entire-A generator at B = 1 from the 900 x
+# 1200 image: widths 1200, 600, 150 and 75, heights 900 and 113, with the
+# input gradients of up_conv s0/s1.
 K3_EDGES = (
     ("W=37", "valid", 2, 20, 40, 9, 37, 3, 1, 1, 0),
     ("H<k", "same_pro", 2, 20, 40, 2, 37, 3, 1, 1, 2),
@@ -1467,6 +1725,8 @@ K3_EDGES = (
     ("K3''' W=37", "stats", 2, 20, 40, 9, 37, 3, 1, 1, 2),
     ("K3''' H<k", "stats", 2, 20, 16, 2, 70, 3, 1, 1, 2),
     ("K3''' Cout 128", "stats", 2, 36, 128, 11, 21, 3, 1, 1, 2),
+    ("K3''' k=5", "stats", 2, 32, 64, 28, 36, 5, 2, 1, 2),
+    ("K3''' k=7", "stats", 2, 36, 16, 40, 57, 7, 3, 1, 2),
     ("entire-A up_conv s0", "valid", 1, 36, 16, 900, 1200, 3, 1, 1, 0),
     ("entire-A up_conv s0 dx", "valid", 1, 16, 36, 900, 1200, 3, 1, 1, 0),
     ("entire-A up_conv s1", "stats", 1, 68, 32, 450, 600, 3, 1, 1, 1),
@@ -1485,7 +1745,9 @@ def tc_k3_launches(conv) -> int:
 def check_k3_tc_edge_cases(torch, conv):
     """The bf16 K3 forms at K3_EDGES against their plain versions (bf16:
     1.6e-2 x max|plain|; K3''' sums 1e-4), every launch on the tensor
-    cores; stride 2 through the k2 phase kernel."""
+    cores; stride 2 through the k2 phase kernel; K3''' also bitwise twice
+    (at k = 5 and 7 on the pixel-major form: fp32 partials and the
+    fixed-order second pass)."""
     gen = torch.Generator().manual_seed(10)
     rtol, why = RTOL["bfloat16"]
     for label, form, B, cin, cout, h, w, k, pad, stride, G in K3_EDGES:
@@ -1507,9 +1769,12 @@ def check_k3_tc_edge_cases(torch, conv):
         want = conv.conv_valid_pro_plain(x, wt, *a, pad, stride, (ho, wo))
         tc = tc_k3_launches(conv)
         if form == "stats":
-            check_stats(torch, conv, tag,
-                        conv.conv_same_pro_stats_cuda(x, wt, *a), x, wt,
-                        *a, rtol, why)
+            got = conv.conv_same_pro_stats_cuda(x, wt, *a)
+            check_stats(torch, conv, tag, got, x, wt, *a, rtol, why)
+            check_bitwise(torch, f"K3''' {tag}", got,
+                          conv.conv_same_pro_stats_cuda(x, wt, *a))
+            tc += 1
+            del got
         else:
             got = {"valid": lambda: conv.conv_valid_cuda(x, wt, pad),
                    "same": lambda: conv.conv_same_cuda(x, wt),
@@ -2111,7 +2376,11 @@ def check_sync_free(torch, program, cfg):
 
 # Kernel names (substrings) of the port's own kernels in a profile.
 OUR_KERNELS = ("attn_fwd_kernel", "attn_bwd_", "conv_fwd_kernel",
-               "conv_fwd_tc", "conv_dw_", "conv_stats_")
+               "conv_fwd_tc", "conv_fwd_px", "conv_split_sum", "conv_dw_",
+               "conv_stats_")
+# the K3 (forward and input gradient) and K4/K7 kernels among them
+K3_KERNELS = ("conv_fwd_kernel", "conv_fwd_tc", "conv_fwd_px",
+              "conv_split_sum", "conv_stats_")
 
 
 def regular_rows(torch, cfg, pairs, n: int, seed: int):
@@ -2949,29 +3218,41 @@ LIMES = "datasets/feature_visualization/limes.jpeg"
 @contextlib.contextmanager
 def k_recorder(conv):
     """Count the conv kernels' launches by (wrapper, k), split into eager
-    calls and calls recorded while a graph is captured: the wrappers count
-    calls, not k, and the inversion's gate is on k. Yields the two
-    Counters."""
+    calls and calls recorded while a graph is captured, and the recorded
+    ones also by (wrapper, k, form) as conv_route names the form: the
+    wrappers count calls, not k or forms, and the inversion's gates are on
+    them. Yields the three Counters."""
     from collections import Counter
     import torch
-    eager, captured = Counter(), Counter()
+    eager, captured, forms = Counter(), Counter(), Counter()
     fwd, dw = conv._launch_fwd, conv._launch_dw
 
-    def tally(name, k):
+    def tally(name, k, route):
         cap = torch.cuda.is_current_stream_capturing()
         (captured if cap else eager)[(name, k)] += 1
+        if cap:
+            forms[(name, k, route.form)] += 1
 
     def rec_fwd(x, w, *a, **kw):
-        tally(a[6] if len(a) > 6 else kw["name"], w.shape[0])
+        out_hw, stride = a[0], a[2]
+        phase = kw.get("phase", a[8] if len(a) > 8 else False)
+        tally(a[6] if len(a) > 6 else kw["name"], w.shape[0],
+              conv.conv_route("fwd", x.dtype, w.shape[0], stride, w.shape[2],
+                              w.shape[3], x.shape[0], *out_hw, phase=phase))
         return fwd(x, w, *a, **kw)
 
     def rec_dw(x, g, k, *a, **kw):
-        tally(a[5] if len(a) > 5 else kw["name"], k)
+        stride = a[1]
+        tally(a[5] if len(a) > 5 else kw["name"], k,
+              conv.conv_route("dw", x.dtype, k, stride,
+                              stride * stride * x.shape[1], g.shape[1],
+                              g.shape[0], g.shape[2], g.shape[3],
+                              gtap=kw.get("gtap", False)))
         return dw(x, g, k, *a, **kw)
 
     conv._launch_fwd, conv._launch_dw = rec_fwd, rec_dw
     try:
-        yield eager, captured
+        yield eager, captured, forms
     finally:
         conv._launch_fwd, conv._launch_dw = fwd, dw
 
@@ -2992,10 +3273,11 @@ def lpips_weights(seed):
     return w
 
 
-def profile_inversion(torch, program, n: int = 3):
+def profile_inversion(torch, program, n: int = 3, top: int = 0):
     """Kernel ms per replayed inversion step (torch.profiler over n
-    replays): every device kernel, the port's own, and its attention
-    kernels'."""
+    replays): every device kernel, the port's own, its attention kernels',
+    its K3 kernels' and its K4/K7 kernels'; with top, the `top` largest
+    kernels by name printed (ms and launches a step)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     rows = np.full((n, 1), 0.5, np.float32)
@@ -3005,16 +3287,22 @@ def profile_inversion(torch, program, n: int = 3):
                              ProfilerActivity.CUDA]) as prof:
         program.run(rows, False)
         torch.cuda.synchronize()
-    total = ours = att = 0.0
+    total = ours = att = k3 = k4 = 0.0
+    names = []
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         total += t
+        names.append((t / n / 1e3, e.count / n, e.key))
         if any(k in e.key for k in OUR_KERNELS):
             ours += t
         att += t * ("attn_" in e.key)
-    return total / n / 1e3, ours / n / 1e3, att / n / 1e3
+        k3 += t * any(k in e.key for k in K3_KERNELS)
+        k4 += t * ("conv_dw_" in e.key)
+    for ms, count, key in sorted(names, reverse=True)[:top]:
+        print(f"    {ms:.4f} ms, {count:.0f} launches a step: {key[:100]}")
+    return tuple(v / n / 1e3 for v in (total, ours, att, k3, k4))
 
 
 # eager runs whose largest distance from the first measures the
@@ -3148,7 +3436,7 @@ def run_inversion(torch, conv, kernels, inv_rows):
         torch.cuda.reset_peak_memory_stats()
         logs = []
         png = os.path.join(tmp, f"inv_{label}.png")
-        with k_recorder(conv) as (eager, captured):
+        with k_recorder(conv) as (eager, captured, forms):
             res = inv.invert(LIMES, png, n_iter=INV_ITERS, log_freq=INV_LOG,
                              generator_layout=layout, generator_conv=mode,
                              callback=lambda i, l, o: logs.append((i, l)))
@@ -3188,6 +3476,19 @@ def run_inversion(torch, conv, kernels, inv_rows):
                 if not k3 or not k4:
                     fail(f"chw + pallas: K3/K4 at k = {k} not launched "
                          f"inside the graph: {dict(captured)}")
+            # K3 at the 7x7 and 5x5 sites and their phase kernels (k2 =
+            # 4, 3) on the pixel-major form, the 3x3 scales on the
+            # channel-major one; K4 on both (dw_px_form keeps conv_dw_tc
+            # at the two Cout-16 sites whose grid busies the card)
+            print(f"  chw_pallas: recorded launches by (wrapper, k, form) "
+                  f"{dict(sorted(forms.items()))}")
+            wide = {(w, k, f) for (w, k, f) in forms
+                    if k >= 4 or (w.endswith("s2d") and k == 3)}
+            k3_forms = {f for (w, _, f) in wide if w.startswith("conv_valid")}
+            k4_forms = {f for (w, _, f) in wide if w.startswith("conv_dw")}
+            if k3_forms != {"px"} or k4_forms != {"px", "tc"}:
+                fail(f"chw + pallas: the 7x7/5x5 sites not on the forms "
+                     f"conv_route's rule names: {dict(forms)}")
             for key, row in inv_rows.items():
                 row["launches"] = by_k.get(key, 0)
                 if not row["launches"]:
@@ -3198,14 +3499,17 @@ def run_inversion(torch, conv, kernels, inv_rows):
         t0 = time.perf_counter()
         program.run(rows, False)
         ms = (time.perf_counter() - t0) / INV_LOG * 1e3
-        dev_ms, our_ms, _ = profile_inversion(torch, program)
+        print(f"  {label}: the largest kernels of a replayed step")
+        dev_ms, our_ms, _, k3_ms, k4_ms = profile_inversion(torch, program,
+                                                            top=16)
         print(f"  {label}: {1e3 / ms:.2f} iterations/s replayed ({ms:.3f} "
               f"ms a step, a chunk of {INV_LOG} with its one read), "
               f"{INV_ITERS / res['wall_time']:.2f} iterations/s sustained "
               f"over the run ({res['wall_time']:.2f} s: the first step "
               f"eager, the capture, {len(res['chunks'])} chunks, "
               f"{INV_ITERS // INV_LOG + 1} renders); kernels "
-              f"{dev_ms:.3f} ms a step, the port's own {our_ms:.3f} ms; "
+              f"{dev_ms:.3f} ms a step, the port's own {our_ms:.3f} ms "
+              f"(K3 {k3_ms:.3f}, K4 {k4_ms:.3f}); "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
               f" GiB")
         check_inversion_replay(torch, res["step"])
@@ -3259,7 +3563,7 @@ def run_inversion_fp32(torch, kernels):
     for _ in range(5):
         res["program"].run(rows, False)
     ms = (time.perf_counter() - t0) / 10 * 1e3
-    dev_ms, _, att_ms = profile_inversion(torch, res["program"], 2)
+    dev_ms, _, att_ms, _, _ = profile_inversion(torch, res["program"], 2)
     att = {k: (launches[k], tc[k]) for k in ATTENTION}
     print(f"  final loss {res['loss']:.6f}; {1e3 / ms:.2f} iterations/s "
           f"replayed ({ms:.3f} ms a step, chunks of 2); kernels "
@@ -4012,9 +4316,13 @@ def main() -> int:
     inv_rows = check_conv_inversion(torch, conv)
     for (name, k), r in sorted(inv_rows.items()):
         print(f"  inversion {name} k={k} {r['shape']}: kernel {r['ms']:.4f}"
-              f" ms, plain {r['plain_ms']:.4f} ms, library "
+              f" ms ({r['form']} form), plain "
+              f"{r['plain_ms']:.4f} ms, library "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
+    check_conv_any_k(torch, conv)
+    check_generator_9x9(torch, conv)
+    check_attention_dh(torch, attn)
     check_conv_same(torch, conv, rows)
     gtap_rows = check_gtap_wide_k(torch, conv)
     conv32_rows = check_conv_fp32(torch, conv)
@@ -4281,6 +4589,7 @@ def main() -> int:
         fn, route, source, replaces, _ = kernels[name]
         line.append({"name": name, "route": route, "source": source,
                      "cores": "tensor core", "replaces": replaces, "k": k,
+                     "form": r["form"],
                      "launches": r["launches"],
                      "path": "inversion_chw_pallas",
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -17,20 +17,21 @@
 //     reference's pre-image padding v = -shift/scale approximates
 //     (conv_pallas.py:959-975).
 //
-// K3 (conv_fwd_tc in bf16, conv_valid_fwd in fp32) replaces
-// _make_conv_kernel (:157, launched by
+// K3 (conv_fwd_tc or conv_fwd_px in bf16, conv_valid_fwd in fp32)
+// replaces _make_conv_kernel (:157, launched by
 // _conv_fwd_impl :276): the plain VALID form (conv_valid_chw :707), its
 // has_pro form (conv_pro_valid_chw :852) and the k2 = 2 space-to-depth
 // form of pallas_conv_chw / pallas_conv_bn_act_chw. It also computes the
 // input gradient: the wrapper passes the cotangent with an implicit border
 // and the flipped, io-swapped kernel (_conv_bwd :719-729, _convp_bwd
 // :873-896).
-// K4 (conv_dw_tc in bf16, conv_dw in fp32) replaces _make_dw_kernel
-// (:401, launched by _dw_impl :630),
+// K4 (conv_dw_tc or conv_dw_px in bf16, conv_dw in fp32) replaces
+// _make_dw_kernel (:401, launched by _dw_impl :630),
 // with and without the prologue (recomputed on the read, as the TPU kernel
-// does) and at k in {1, 2, 3, 4, 5, 7} (the training net's 3x3 and 1x1,
-// its stride-2 k2 = 2; the inversion net's 7x7 and 5x5 and their k2 = 4
-// and 3):
+// does) and at any k, as the reference's kernels take any k (the training
+// net's 3x3 and 1x1 and its stride-2 k2 = 2 on conv_dw_tc; 16 taps or more
+// and the k2 = 3 phase kernels, e.g. the inversion net's 7x7 and 5x5 and
+// their k2 = 4 and 3, on conv_dw_px):
 // dw[dy,dx,c,co] = sum over b,y,x of V[b,c,y+dy,x+dx] * g[b,co,y,x].
 //
 // The SAME-border forms (the reference's SAME_BORDER_KERNELS route) are
@@ -72,9 +73,13 @@
 // about 295, so on the tensor cores the bound is the memory traffic, on
 // the CUDA cores the arithmetic. Two routes, chosen by dtype:
 //   * bf16 runs on the tensor cores (mma.sync): K3 in every form through
-//     conv_fwd_tc (namespace fwdtc), K4 and K7 through conv_dw_tc
-//     (namespace dwtc). Both stage x through Src into the same bf16
-//     shared-memory tiles; each is described above its kernel.
+//     conv_fwd_tc (namespace fwdtc) at k <= 3 and conv_fwd_px (namespace
+//     px) at k >= 4 and the k2 = 3 phase kernels, K4 likewise through
+//     conv_dw_tc (namespace dwtc) or conv_dw_px, K7 through conv_dw_tc at
+//     k in {2, 3, 5, 7} (ops/conv.py conv_route sends it to K4 at any other
+//     k: the same function). fwdtc and dwtc stage x through Src into the
+//     same channel-major bf16 tiles, px into pixel-major ones; each is
+//     described above its kernel.
 //   * fp32 runs on the CUDA cores in full fp32 (the 1e-4 gates of the
 //     fp32 steps need it, not TF32): conv_valid_fwd, conv_dw, conv_dw_gtap.
 //
@@ -83,7 +88,8 @@
 // registers). It walks the virtual channels in chunks of 8: the input tile
 // with its (k-1) halo and the weights of the chunk go to shared memory
 // through the mapping, so any height and width work (898, 1202, ...).
-// fp32 K4 design: the TPU kernel reduced B*H*W pixels into one accumulator
+// fp32 K4 design (k in {1, 2, 3, 4, 5, 7} by templates, any other k by
+// conv_dw_partial_rt_kernel): the TPU kernel reduced B*H*W pixels into one accumulator
 // over a sequential grid. Here pass 1 splits the pixels into row chunks; a
 // block owns (row chunk, Cin chunk, Cout chunk), each thread one (c, co)
 // pair with its k*k tap sums, and writes its partial sums to an fp32
@@ -95,9 +101,12 @@
 // its co, so one value of z feeds K*K multiply-adds from shared memory.
 // It reuses K4's pass 2.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -416,6 +425,106 @@ int launch_dw_k(const void* x, const void* g, float* partial, float* dw,
   return (int)cudaGetLastError();
 }
 
+// fp32 K4 pass 1 at a run-time k (the k the templates below lack): as
+// conv_dw_partial_kernel, with each thread's taps cut into groups of RT
+// (grid.z walks the groups), their offsets in the input tile in registers.
+constexpr int RT = 16;
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+conv_dw_partial_rt_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                          float* __restrict__ partial, Src src, int Cin,
+                          int Cout, int Ho, int Wo, int k, int rows_per_chunk,
+                          int chunks_per_image, int cib, int cob, int n_cob) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int XH = DR + k - 1, XW = DW + k - 1, kk = k * k;
+  constexpr int GS = DR * DW + 1;         // padded g row: distinct banks
+  float* xs = smem;                       // [cib][XH][XW]
+  float* gs = smem + cib * XH * XW;       // [cob][GS]
+
+  const int chunk = blockIdx.x;
+  const int b = chunk / chunks_per_image;
+  const int r0 = (chunk % chunks_per_image) * rows_per_chunk;
+  const int r1 = min(r0 + rows_per_chunk, Ho);
+  const int ci0 = blockIdx.y * cib, co0 = (blockIdx.z % n_cob) * cob;
+  const int t0 = (blockIdx.z / n_cob) * RT;
+  const int col = threadIdx.x % cob, cil = threadIdx.x / cob;
+
+  int off[RT];
+  float acc[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int t = min(t0 + i, kk - 1);
+    off[i] = (t / k) * XW + t % k;
+    acc[i] = 0.f;
+  }
+  for (int ty0 = r0; ty0 < r1; ty0 += DR) {
+    for (int tx0 = 0; tx0 < Wo; tx0 += DW) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < cib * XH * XW; i += NT) {
+        const int c = i / (XH * XW), rem = i % (XH * XW);
+        xs[i] = ci0 + c < Cin
+            ? load_v(x, src, b, ci0 + c, ty0 + rem / XW, tx0 + rem % XW)
+            : 0.f;
+      }
+      for (int i = threadIdx.x; i < cob * DR * DW; i += NT) {
+        const int o = i / (DR * DW), p = i % (DR * DW);
+        const int co = co0 + o, oy = ty0 + p / DW, ox = tx0 + p % DW;
+        float v = 0.f;
+        // rows past r1 belong to the next chunk and must not count here
+        if (co < Cout && oy < r1 && ox < Wo)
+          v = to_f<T>(g[(((size_t)b * Cout + co) * Ho + oy) * Wo + ox]);
+        gs[o * GS + p] = v;
+      }
+      __syncthreads();
+      const float* xc = xs + cil * XH * XW;
+      const float* gc = gs + col * GS;
+      for (int p = 0; p < DR * DW; ++p) {
+        const float gv = gc[p];
+        const float* xp = xc + (p / DW) * XW + p % DW;
+#pragma unroll
+        for (int i = 0; i < RT; ++i) acc[i] = fmaf(xp[off[i]], gv, acc[i]);
+      }
+    }
+  }
+  const int ci = ci0 + cil, co = co0 + col;
+  if (ci < Cin && co < Cout) {
+    float* out = partial + (size_t)chunk * kk * Cin * Cout;
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+      if (t0 + i < kk) out[((size_t)(t0 + i) * Cin + ci) * Cout + co] = acc[i];
+  }
+}
+
+template <typename T>
+int launch_dw_rt(const void* x, const void* g, float* partial, float* dw,
+                 const Src& src, int B, int Cout, int Ho, int Wo, int k,
+                 int rows_per_chunk, cudaStream_t stream) {
+  const int Cin = src.stride * src.stride * src.cin;
+  const int cob = Cout <= 8 ? 8 : (Cout <= 16 ? 16 : 32);
+  const int cib = NT / cob;
+  const int chunks_per_image = (Ho + rows_per_chunk - 1) / rows_per_chunk;
+  const int n_chunks = B * chunks_per_image;
+  const int n_cob = (Cout + cob - 1) / cob;
+  const size_t smem = sizeof(float) *
+      ((size_t)cib * (DR + k - 1) * (DW + k - 1) + cob * (DR * DW + 1));
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_dw_partial_rt_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(n_chunks, (Cin + cib - 1) / cib, n_cob * ((k * k + RT - 1) / RT));
+  conv_dw_partial_rt_kernel<T><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), partial, src, Cin,
+      Cout, Ho, Wo, k, rows_per_chunk, chunks_per_image, cib, cob, n_cob);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int n_out = k * k * Cin * Cout;
+  conv_dw_reduce_kernel<<<(n_out + NT - 1) / NT, NT, 0, stream>>>(
+      partial, dw, n_out, n_chunks);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_dw(const void* x, const void* g, float* partial, float* dw,
               const Src& src, int B, int Cout, int Ho, int Wo, int k,
@@ -433,7 +542,9 @@ int launch_dw(const void* x, const void* g, float* partial, float* dw,
                                      rows_per_chunk, stream);
     case 7: return launch_dw_k<T, 7>(x, g, partial, dw, src, B, Cout, Ho, Wo,
                                      rows_per_chunk, stream);
-    default: return (int)cudaErrorInvalidValue;
+    default: return k < 1 ? (int)cudaErrorInvalidValue
+                          : launch_dw_rt<T>(x, g, partial, dw, src, B, Cout,
+                                            Ho, Wo, k, rows_per_chunk, stream);
   }
 }
 
@@ -1469,6 +1580,750 @@ int launch_k(const bf16* x, const Src& src, const bf16* w, bf16* y,
 
 }  // namespace fwdtc
 
+// ---------------------------------------------------------------------------
+// bf16 K3 and K4 at 16 taps or more (k >= 4), and at the 9-tap phase kernels
+// of 5x5 and 6x6 filters at stride 2 (k2 = 3): namespace px, the forms that
+// ops/conv.py conv_route picks there. They replace _make_conv_kernel (:157)
+// and _make_dw_kernel (:401) at the inversion net's sites (its 7x7 and 5x5
+// filters and their phase kernels k2 = 4 and 3) and take every such k at run
+// time, so any filter size the reference's kernels take runs here.
+// What bounds them: at those sites (maps of 252-62,944 output pixels, B = 1)
+// a call moves 0.1-5 MB and does 0.15-3.6 GFLOP, under 6 us of either at
+// the card's rates; the channel-major forms (fwdtc, dwtc) took 30-210 us,
+// 4-12x the library, because their grid (strips of whole 8 x 64 stages,
+// Cout on M) gave 4-42
+// blocks on 132 SMs, each block walked the whole contraction (k*k taps x
+// up to 256 channels) in series, re-staging its weights with each channel
+// chunk where they did not fit 110 KB, and read every B fragment as four
+// 16-bit loads. The design answers each:
+//   * V is staged pixel-major: pixel (r, c) of the tile holds its 16
+//     channels of a chunk in one 48-byte row (16 + 8 elements: 8 rows of an
+//     ldmatrix land in 8 distinct 16-byte bank groups). A tap shift (dy, dx)
+//     is then a row offset, so every fragment is one ldmatrix at any k:
+//     K3's B (k16 = channels, n8 = pixels) by ldmatrix.x4, K4's A (m16 =
+//     channels, k16 = pixels) by ldmatrix.x4.trans. mma.sync m16n8k16, not
+//     wgmma: K3's M is Cout (16-132; a 64-row wgmma would waste 75% at the
+//     Cout = 16 sites) and the tap shift moves B's rows by one pixel, which
+//     a wgmma descriptor (8-row core matrices) cannot address.
+//   * The contraction is split across blocks as well as pixels and Cout:
+//     K3 by groups of tap rows dy (as few as fit) and channel chunks of 16,
+//     at most 8 splits, which run as one thread-block cluster: each block
+//     leaves its fp32 tile in shared memory and the cluster adds the tiles
+//     in rank order through distributed shared memory and stores y (more
+//     splits, or the K3''' sums, write fp32 partials that
+//     conv_split_sum_kernel adds in a fixed order); K4 by channel groups
+//     of 16, tap-row groups and output-channel chunks beside pixel strips
+//     (conv_dw_sum_kernel adds the strips, as for dwtc). The grids aim at
+//     one or two blocks per SM with little partial traffic (ops/conv.py
+//     fwd_px_tiling, dw_px_tiling); a block whose split is the whole
+//     contraction stores y directly. No atomics: a seeded run repeats bit
+//     for bit.
+//   * Every global load that feeds shared memory reads a clamped, valid
+//     address and a select zeroes what lies outside (no branch between the
+//     loads): with a branch after each load, a thread's 32 loads ran one
+//     after another.
+//   * Each block stages a channel chunk's weights for its taps once (K3:
+//     [tap][c][co], co contiguous as in w, read by ldmatrix.trans), by
+//     16-byte cp.async where Cout allows, into a two-stage ring; the next
+//     unit's V is loaded into registers before the products of this one and
+//     stored into the ring's other stage after them, so the copies overlap
+//     the products. K4 walks its strip's 8 x 32 stages the same way, V and
+//     g both prefetched into registers.
+// ---------------------------------------------------------------------------
+namespace px {
+
+using dwtc::bf16;
+using dwtc::mma16816;
+using dwtc::smem_addr;
+constexpr int THREADS = 256;
+constexpr int TR = 8;        // K3: output rows of a tile (one a warp); K4: pixel rows of a stage (ops/conv.py PX_ROWS)
+constexpr int TC = 32;       // K3: output columns of a tile (4 n8 tiles a warp); K4: pixel columns of a stage (PX_COLS)
+constexpr int CS = 24;       // elements of a staged pixel: 16 channels + 8 (PX_PIXEL)
+constexpr int ITEMS = 2;     // pixels of a V tile a thread holds: tiles up to 512 pixels (PX_ITEMS)
+constexpr int GC = TC + 8;   // K4: row stride of g's tile [co][row][col]
+constexpr int GP = TR * GC + 8;   // K4: its channel stride, 41 16-byte units (odd)
+constexpr int CLUSTER = 8;   // K3: splits a cluster adds in shared memory (PX_CLUSTER)
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldsm2(uint32_t (&r)[2], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
+// Channels [c0, c0 + 16) of V at this thread's pixels p = threadIdx.x +
+// THREADS * m of a tile of ncols columns from (vy0, vx0), as bf16 pairs:
+// zero past cv, past npix and outside x; the prologue and its rounding as
+// load_v (two roundings, no fma). Every load reads a clamped, valid
+// address and a select zeroes what lies outside, so no branch separates
+// the loads and all 16 x ITEMS are in flight together; the prologue, where
+// there is one, is a second pass over the words.
+__device__ __forceinline__ void load_v16(const bf16* __restrict__ x,
+                                         const Src& s, int b, int c0, int cv,
+                                         int vy0, int vx0, int npix,
+                                         int ncols, uint32_t (&wd)[ITEMS][8]) {
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+  int ry[ITEMS], rx[ITEMS];
+#pragma unroll
+  for (int m = 0; m < ITEMS; ++m) {
+    const int p = threadIdx.x + THREADS * m, r = p / ncols;
+    ry[m] = p < npix ? s.stride * (vy0 + r) - s.pad : -(1 << 28);
+    rx[m] = s.stride * (vx0 + p - r * ncols) - s.pad;
+  }
+  uint32_t okbits = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = c0 + j;
+    int ci = c, py = 0, pxo = 0;
+    if (s.stride == 2) {
+      const int ph = c / s.cin;
+      ci = c - ph * s.cin;
+      py = ph >> 1;
+      pxo = ph & 1;
+    }
+    const bool cok = c < cv;
+    const unsigned short* plane =
+        xs + ((size_t)b * s.cin + (cok ? ci : 0)) * s.H * s.W;
+#pragma unroll
+    for (int m = 0; m < ITEMS; ++m) {
+      const int r = ry[m] + py, col = rx[m] + pxo;
+      const bool ok = cok && r >= 0 && r < s.H && col >= 0 && col < s.W;
+      const int rc = min(max(r, 0), s.H - 1), cc = min(max(col, 0), s.W - 1);
+      const uint32_t raw = __ldg(plane + (size_t)rc * s.W + cc);
+      const uint32_t v = ok ? raw : 0u;
+      okbits |= (uint32_t)ok << (j * ITEMS + m);
+      if (j & 1) wd[m][j >> 1] |= v << 16;
+      else wd[m][j >> 1] = v;
+    }
+  }
+  if (s.scale == nullptr) return;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = min(c0 + j, cv - 1);
+    const int ci = s.stride == 2 ? c - (c / s.cin) * s.cin : c;
+    const int row = (b / s.per_group) * s.cin + ci;
+    const float sc = s.scale[row], sh = s.shift[row];
+#pragma unroll
+    for (int m = 0; m < ITEMS; ++m) {
+      if (!(okbits >> (j * ITEMS + m) & 1)) continue;
+      const int sh16 = (j & 1) * 16;
+      float z = __fadd_rn(__fmul_rn(
+          __uint_as_float((wd[m][j >> 1] >> sh16 & 0xffffu) << 16), sc), sh);
+      if (s.negslope != 1.f) z = z >= 0.f ? z : z * s.negslope;
+      const uint32_t v = __bfloat16_as_ushort(__float2bfloat16(z));
+      wd[m][j >> 1] = (wd[m][j >> 1] & ~(0xffffu << sh16)) | v << sh16;
+    }
+  }
+}
+
+// load_v16's pixels into the pixel-major tile dst (CS elements a pixel).
+__device__ __forceinline__ void store_v16(bf16* dst, int npix,
+                                          const uint32_t (&wd)[ITEMS][8]) {
+#pragma unroll
+  for (int m = 0; m < ITEMS; ++m) {
+    const int p = threadIdx.x + THREADS * m;
+    if (p >= npix) continue;
+    uint4* d = reinterpret_cast<uint4*>(dst + p * CS);
+    d[0] = make_uint4(wd[m][0], wd[m][1], wd[m][2], wd[m][3]);
+    d[1] = make_uint4(wd[m][4], wd[m][5], wd[m][6], wd[m][7]);
+  }
+}
+
+// K3's weights of taps [t0, t0 + ntaps), channels [c0, c0 + 16) and output
+// channels [co0, co0 + 16 MT) into dst[tap][c][co] (row stride 16 MT + 8):
+// 16-byte cp.async where vec (Cout a multiple of 8, w 16-byte aligned),
+// else element by element; zero past cv and Cout.
+template <int MT>
+__device__ __forceinline__ void stage_w(const bf16* __restrict__ w, bf16* dst,
+                                        int t0, int ntaps, int c0, int cv,
+                                        int co0, int cout, bool vec) {
+  constexpr int MROWS = 16 * MT, WS = MROWS + 8, NV = 2 * MT;
+  const int rows = ntaps * 16;
+  if (vec) {
+    for (int it = threadIdx.x; it < rows * NV; it += THREADS) {
+      const int row = it / NV, v = it - row * NV;
+      const int c = c0 + (row & 15), co = co0 + 8 * v;
+      const bool ok = c < cv && co < cout;
+      const bf16* src =
+          ok ? w + ((size_t)(t0 + (row >> 4)) * cv + c) * cout + co : w;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                   :: "r"(smem_addr(dst + row * WS + 8 * v)), "l"(src),
+                      "r"(ok ? 16 : 0) : "memory");
+    }
+  } else {
+    for (int it = threadIdx.x; it < rows * MROWS; it += THREADS) {
+      const int row = it / MROWS, o = it - row * MROWS;
+      const int c = c0 + (row & 15), co = co0 + o;
+      dst[row * WS + o] = (c < cv && co < cout)
+          ? w[((size_t)(t0 + (row >> 4)) * cv + c) * cout + co]
+          : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// The fragments of K3's tap tl: MT m16 tiles of the weights (A, by
+// ldmatrix.trans from [tap][c][co]) and 4 n8 tiles of V (B, by ldmatrix
+// from the pixel-major tile at the tap's shift boff, in elements).
+template <int MT>
+__device__ __forceinline__ void frag_fwd(uint32_t (&a)[MT][4],
+                                         uint32_t (&bq)[2][4], uint32_t wb,
+                                         uint32_t vb, int tl, int boff) {
+  constexpr int WS = 16 * MT + 8;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) ldsm4t(a[i], wb + 2 * (tl * 16 * WS + 16 * i));
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) ldsm4(bq[jj], vb + 2 * (boff + 16 * jj * CS));
+}
+
+template <int MT>
+__device__ __forceinline__ void mma_fwd(float (&acc)[MT][4][4],
+                                        const uint32_t (&a)[MT][4],
+                                        const uint32_t (&bq)[2][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      mma16816(acc[i][2 * jj], a[i], bq[jj][0], bq[jj][1]);
+      mma16816(acc[i][2 * jj + 1], a[i], bq[jj][2], bq[jj][3]);
+    }
+}
+
+// K3: y[co, p] = sum over (t, c) of w[t, c, co] V[c, p + t] for this block's
+// 8 x 32 output tile, 16 MT output channels, tap rows [dy0, dy0 + nd) and
+// channel chunks [u0, u0 + nu) of 16. Warp w owns output row w (4 n8 tiles,
+// MT m16 tiles). Grid: (B * tiles_y * tiles_x, ceil(Cout / 16 MT), n_dyg *
+// n_cs). cluster > 1: the splits are one cluster (1, 1, n_dyg * n_cs),
+// which adds them in shared memory and stores y; else partial null: y in
+// bf16; else partial[split][b][co][oy][ox] fp32.
+template <int MT>
+__global__ void __launch_bounds__(THREADS, 2)
+conv_fwd_px_kernel(const bf16* __restrict__ x, Src src,
+                   const bf16* __restrict__ w, bf16* __restrict__ y,
+                   float* __restrict__ partial, int B, int Cv, int Cout,
+                   int Ho, int Wo, int k, int tiles_y, int tiles_x, int ndy,
+                   int cps, int n_cs, int w_vec, int vec_out, int cluster) {
+  constexpr int NB = 4, MROWS = 16 * MT, WS = MROWS + 8;
+  const int vcols = TC + k - 1;
+  const int v_el = (TR + ndy - 1) * vcols * CS, w_el = ndy * k * 16 * WS;
+  extern __shared__ float4 smem4[];
+  bf16* ring = reinterpret_cast<bf16*>(smem4);     // [V0][W0][V1][W1]
+
+  const int per_image = tiles_y * tiles_x;
+  const int b = blockIdx.x / per_image, tyx = blockIdx.x - b * per_image;
+  const int y0 = (tyx / tiles_x) * TR, x0 = (tyx % tiles_x) * TC;
+  const int co0 = blockIdx.y * MROWS;
+  const int dyg = blockIdx.z / n_cs, csi = blockIdx.z - dyg * n_cs;
+  const int dy0 = dyg * ndy, nd = min(ndy, k - dy0), ntaps = nd * k;
+  const int n_cc = (Cv + 15) >> 4, u0 = csi * cps, nu = min(cps, n_cc - u0);
+  const int npix = (TR + nd - 1) * vcols;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, q = lane & 3;
+  // ldmatrix rows: B (x4: tiles j, j + 1 x channels 0-7, 8-15) at pixel
+  // (lane & 7) + 8 (lane >> 4), channel 8 ((lane >> 3) & 1); A (x4.trans:
+  // channels 0-7, 8-15 x co 0-7, 8-15) at channel (lane & 7) + 8 (lane >>
+  // 4), co 8 ((lane >> 3) & 1)
+  const uint32_t v_lane = 2 * (((lane & 7) + ((lane >> 4) << 3)) * CS +
+                               (((lane >> 3) & 1) << 3));
+  const uint32_t w_lane = 2 * (((lane & 7) + ((lane >> 4) << 3)) * WS +
+                               (((lane >> 3) & 1) << 3));
+  const uint32_t ring_s = smem_addr(ring);
+  const bool busy = y0 + warp < Ho;       // a row past Ho has no products
+
+  float acc[MT][NB][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  uint32_t wd[ITEMS][8];
+  stage_w<MT>(w, ring + v_el, dy0 * k, ntaps, u0 * 16, Cv, co0, Cout, w_vec);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  load_v16(x, src, b, u0 * 16, Cv, y0 + dy0, x0, npix, vcols, wd);
+  store_v16(ring, npix, wd);
+  for (int u = 0; u < nu; ++u) {
+    const int cur = u & 1, nxt = cur ^ 1;
+    const bool more = u + 1 < nu;
+    if (more) {
+      stage_w<MT>(w, ring + nxt * (v_el + w_el) + v_el, dy0 * k, ntaps,
+                  (u0 + u + 1) * 16, Cv, co0, Cout, w_vec);
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 1;" ::: "memory");
+      load_v16(x, src, b, (u0 + u + 1) * 16, Cv, y0 + dy0, x0, npix, vcols,
+               wd);
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();                      // unit u's V and weights are in
+    if (busy) {
+      const uint32_t vb = ring_s + 2 * cur * (v_el + w_el) + v_lane +
+                          2 * warp * vcols * CS;
+      const uint32_t wb = ring_s + 2 * (cur * (v_el + w_el) + v_el) + w_lane;
+      // two fragment sets: tap tl + 1's shared loads are in flight while
+      // tap tl's products issue
+      uint32_t a0[MT][4], b0[2][4];
+      const auto boff = [&](int tl) { return ((tl / k) * vcols + tl % k) * CS; };
+      if constexpr (MT >= 3) {
+        // one set: two would take the registers of a second block an SM
+        for (int tl = 0; tl < ntaps; ++tl) {
+          frag_fwd<MT>(a0, b0, wb, vb, tl, boff(tl));
+          mma_fwd<MT>(acc, a0, b0);
+        }
+      } else {
+        uint32_t a1[MT][4], b1[2][4];
+        frag_fwd<MT>(a0, b0, wb, vb, 0, 0);
+        for (int tl = 0; tl < ntaps; tl += 2) {
+          if (tl + 1 < ntaps) frag_fwd<MT>(a1, b1, wb, vb, tl + 1, boff(tl + 1));
+          mma_fwd<MT>(acc, a0, b0);
+          if (tl + 1 < ntaps) {
+            if (tl + 2 < ntaps) frag_fwd<MT>(a0, b0, wb, vb, tl + 2, boff(tl + 2));
+            mma_fwd<MT>(acc, a1, b1);
+          }
+        }
+      }
+    }
+    if (more) store_v16(ring + nxt * (v_el + w_el), npix, wd);
+    __syncthreads();                      // this stage is read
+  }
+  if (cluster > 1) {
+    // the cluster's blocks are the splits of one output tile: each puts
+    // its fp32 tile [MROWS][TR x TC] in its shared memory (the ring is
+    // free: the loop ended at a barrier; co stride RS, so a float2 store's
+    // four co rows land in distinct banks), then each adds a share of the
+    // tile over the blocks' memories in rank (split) order and stores y
+    constexpr int RS = TR * TC + 8;
+    float* red = reinterpret_cast<float*>(smem4);
+    if (busy) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            *reinterpret_cast<float2*>(
+                red + (16 * i + gid + 8 * h) * RS + warp * TC + 8 * j + 2 * q) =
+                make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+    }
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
+    // each thread adds RU elements at once, so their remote loads are in
+    // flight together; each element's sum stays in rank order
+    constexpr int RU = 4;
+    const int n_el = MROWS * TR * TC, share = (n_el + cluster - 1) / cluster;
+    const int e0 = (int)cl.block_rank() * share;
+    const int e1 = min(n_el, e0 + share);
+    for (int eb = e0 + threadIdx.x; eb < e1; eb += RU * THREADS) {
+      int idx[RU];
+      size_t out[RU];
+      bool ok[RU];
+      float s[RU];
+#pragma unroll
+      for (int i = 0; i < RU; ++i) {
+        const int e = eb + i * THREADS;
+        const int co = e / (TR * TC), px = e - co * (TR * TC);
+        const int oy = y0 + px / TC, ox = x0 + px % TC;
+        ok[i] = e < e1 && co0 + co < Cout && oy < Ho && ox < Wo;
+        idx[i] = ok[i] ? co * RS + px : 0;
+        out[i] = (((size_t)b * Cout + co0 + co) * Ho + oy) * Wo + ox;
+        s[i] = 0.f;
+      }
+      for (int r = 0; r < cluster; ++r) {
+        const float* rem = cl.map_shared_rank(red, r);
+#pragma unroll
+        for (int i = 0; i < RU; ++i) s[i] += rem[idx[i]];
+      }
+#pragma unroll
+      for (int i = 0; i < RU; ++i)
+        if (ok[i]) y[out[i]] = __float2bfloat16(s[i]);
+    }
+    cl.sync();                            // the others have read this tile
+    return;
+  }
+  if (!busy) return;
+  const int oy = y0 + warp;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int co = co0 + 16 * i + gid + 8 * h;
+      if (co >= Cout) continue;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const int ox = x0 + 8 * j + 2 * q;
+        if (ox >= Wo) continue;
+        const bool ok1 = ox + 1 < Wo;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (partial != nullptr) {
+          float* p = partial + (((size_t)blockIdx.z * B + b) * Cout + co) *
+                                   ((size_t)Ho * Wo) +
+                     (size_t)oy * Wo + ox;
+          if (ok1 && !(Wo & 1)) {
+            *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+          } else {
+            p[0] = v0;
+            if (ok1) p[1] = v1;
+          }
+        } else {
+          bf16* yr = y + (((size_t)b * Cout + co) * Ho + oy) * Wo + ox;
+          const __nv_bfloat162 pr = __floats2bfloat162_rn(v0, v1);
+          if (vec_out && ok1) {
+            *reinterpret_cast<__nv_bfloat162*>(yr) = pr;
+          } else {
+            yr[0] = pr.x;
+            if (ok1) yr[1] = pr.y;
+          }
+        }
+      }
+    }
+  }
+}
+
+// K3's second pass where the contraction was split: y[b, co, p] = the
+// n_split partials added in split order, rounded to bf16; with st_part
+// (K3''') also this chunk's sums of the rounded values and their squares,
+// by a fixed tree (no atomics): st_part[(b * gridDim.x + chunk) * 2 +
+// which][co]. A thread adds PPT pixels at once, its split loop unrolled,
+// so its loads are in flight together. Grid: (ceil(HW / (THREADS * PPT)),
+// Cout, B).
+constexpr int PPT = 2;       // pixels a thread of the second pass (ops/conv.py PX_PCH = THREADS * PPT)
+
+__global__ void __launch_bounds__(THREADS)
+conv_split_sum_kernel(const float* __restrict__ partial, bf16* __restrict__ y,
+                      float* __restrict__ st_part, int n_split, int B,
+                      int Cout, int HW) {
+  __shared__ float red[2][THREADS / 32];
+  const int b = blockIdx.z, co = blockIdx.y;
+  const size_t split = (size_t)B * Cout * HW, row = ((size_t)b * Cout + co) * HW;
+  int p[PPT];
+  float a[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    p[i] = blockIdx.x * THREADS * PPT + threadIdx.x + THREADS * i;
+    a[i] = 0.f;
+  }
+  const float* src = partial + row;
+#pragma unroll 4
+  for (int s = 0; s < n_split; ++s) {
+#pragma unroll
+    for (int i = 0; i < PPT; ++i)
+      if (p[i] < HW) a[i] += src[s * split + p[i]];
+  }
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    if (p[i] >= HW) continue;
+    const bf16 v = __float2bfloat16(a[i]);
+    y[row + p[i]] = v;
+    const float f = __bfloat162float(v);
+    s1 += f;
+    s2 += f * f;
+  }
+  if (st_part == nullptr) return;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[0][warp] = s1;
+    red[1][warp] = s2;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    float t = 0.f;
+    for (int i = 0; i < THREADS / 32; ++i) t += red[threadIdx.x][i];
+    st_part[(((size_t)b * gridDim.x + blockIdx.x) * 2 + threadIdx.x) * Cout +
+            co] = t;
+  }
+}
+
+// g's pairs of the stage at (y0, x0) into registers: 8 NB channels from n0
+// x TR rows x TC columns, zero past the strip (r1, q1) and past Cu; as in
+// load_v16, clamped addresses and selects, no branch between the loads.
+template <int NB>
+__device__ __forceinline__ void load_g(const bf16* __restrict__ g, int b,
+                                       int n0, int Cu, int Hp, int Wp, int y0,
+                                       int x0, int r1, int q1,
+                                       uint32_t (&gw)[4 * NB]) {
+  const unsigned short* gs = reinterpret_cast<const unsigned short*>(g);
+#pragma unroll
+  for (int m = 0; m < 4 * NB; ++m) {
+    const int it = threadIdx.x + THREADS * m;
+    const int u = n0 + (it >> 7), yy = y0 + ((it >> 4) & 7);
+    const int xx = x0 + 2 * (it & 15);
+    const bool row = u < Cu && yy < r1;
+    const unsigned short* gr =
+        gs + (((size_t)b * Cu + min(u, Cu - 1)) * Hp + min(yy, Hp - 1)) * Wp;
+    const uint32_t lo = __ldg(gr + min(xx, Wp - 1));
+    const uint32_t hi = __ldg(gr + min(xx + 1, Wp - 1));
+    gw[m] = (row && xx < q1 ? lo : 0u) | (row && xx + 1 < q1 ? hi : 0u) << 16;
+  }
+}
+
+// load_g's pairs into g's tile dst[co][row][col] (strides GP, GC).
+template <int NB>
+__device__ __forceinline__ void store_g(bf16* dst,
+                                        const uint32_t (&gw)[4 * NB]) {
+#pragma unroll
+  for (int m = 0; m < 4 * NB; ++m) {
+    const int it = threadIdx.x + THREADS * m;
+    *reinterpret_cast<uint32_t*>(dst + (it >> 7) * GP + ((it >> 4) & 7) * GC +
+                                 2 * (it & 15)) = gw[m];
+  }
+}
+
+// K4 over this block's strip (rows x cols pixels of g's extent), channel
+// group [ch0, ch0 + 16) of V, tap rows [dy0, dy0 + nd) (all k columns) and
+// output channels [n0, n0 + 8 NB):
+//   partial[strip][(t * Cs + c) * Cu + u] = sum_p V[c, p + t] g[u, p],
+// dw_tc's layout, so conv_dw_sum_kernel adds the strips. Warp w owns the
+// block's taps w, w + 8, ... (at most 16 / NB), all NB n8 tiles; a k16
+// step is 16 pixels of one stage row. Grid: (B * strips_y * strips_x,
+// n_cg * n_dyg, ceil(Cu / 8 NB)).
+template <int NB>
+__global__ void __launch_bounds__(THREADS)
+conv_dw_px_kernel(const bf16* __restrict__ x, Src src,
+                  const bf16* __restrict__ g, float* __restrict__ partial,
+                  int Cs, int Cu, int Hp, int Wp, int k, int rows, int cols,
+                  int strips_y, int strips_x, int ndy, int n_cg) {
+  constexpr int TPW = 16 / NB;            // taps a warp
+  const int vcols = TC + k - 1;
+  const int v_el = (TR + ndy - 1) * vcols * CS, g_el = 8 * NB * GP;
+  extern __shared__ float4 smem4[];
+  bf16* ring = reinterpret_cast<bf16*>(smem4);     // [V0][G0][V1][G1]
+
+  const int per_image = strips_y * strips_x;
+  const int b = blockIdx.x / per_image, syx = blockIdx.x - b * per_image;
+  const int r0 = (syx / strips_x) * rows, r1 = min(r0 + rows, Hp);
+  const int q0 = (syx % strips_x) * cols, q1 = min(q0 + cols, Wp);
+  const int cgi = blockIdx.y % n_cg, dyg = blockIdx.y / n_cg;
+  const int ch0 = cgi * 16, dy0 = dyg * ndy, nd = min(ndy, k - dy0);
+  const int ntaps = nd * k, n0 = blockIdx.z * 8 * NB;
+  const int npix = (TR + nd - 1) * vcols;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, q = lane & 3;
+  // ldmatrix rows: A (x4.trans: pixels 0-7, 8-15 x channels 0-7, 8-15) at
+  // pixel (lane & 7) + 8 (lane >> 4), channel 8 ((lane >> 3) & 1); B (x4:
+  // co 0-7, 8-15 x pixels 0-7, 8-15) at co (lane & 7) + 8 (lane >> 4),
+  // pixel 8 ((lane >> 3) & 1)
+  const uint32_t v_lane = 2 * (((lane & 7) + ((lane >> 4) << 3)) * CS +
+                               (((lane >> 3) & 1) << 3));
+  const uint32_t g_lane = 2 * (((lane & 7) + ((lane >> 4) << 3)) * GP +
+                               (((lane >> 3) & 1) << 3));
+  const uint32_t ring_s = smem_addr(ring);
+  const int my_taps = (ntaps - warp + 7) / 8;   // taps w, w + 8, ... < ntaps
+  int toff[TPW];                          // this warp's taps in V's tile
+#pragma unroll
+  for (int i = 0; i < TPW; ++i) {
+    const int tl = min(warp + 8 * i, ntaps - 1);
+    toff[i] = ((tl / k) * vcols + tl % k) * CS;
+  }
+  float acc[TPW][NB][4];
+#pragma unroll
+  for (int i = 0; i < TPW; ++i)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int sxn = (q1 - q0 + TC - 1) / TC;
+  const int n_st = (r1 - r0 + TR - 1) / TR * sxn;
+  uint32_t wd[ITEMS][8], gw[4 * NB];
+  load_v16(x, src, b, ch0, Cs, r0 + dy0, q0, npix, vcols, wd);
+  load_g<NB>(g, b, n0, Cu, Hp, Wp, r0, q0, r1, q1, gw);
+  store_v16(ring, npix, wd);
+  store_g<NB>(ring + v_el, gw);
+  __syncthreads();
+  for (int s = 0; s < n_st; ++s) {
+    const int cur = s & 1, nxt = cur ^ 1;
+    const bool more = s + 1 < n_st;
+    if (more) {
+      const int y1 = r0 + TR * ((s + 1) / sxn), x1 = q0 + TC * ((s + 1) % sxn);
+      load_v16(x, src, b, ch0, Cs, y1 + dy0, x1, npix, vcols, wd);
+      load_g<NB>(g, b, n0, Cu, Hp, Wp, y1, x1, r1, q1, gw);
+    }
+    const int y0 = r0 + TR * (s / sxn), x0 = q0 + TC * (s % sxn);
+    const uint32_t vb = ring_s + 2 * cur * (v_el + g_el) + v_lane;
+    const uint32_t gb = ring_s + 2 * (cur * (v_el + g_el) + v_el) + g_lane;
+    for (int ry = 0; ry < TR && y0 + ry < r1; ++ry) {
+#pragma unroll
+      for (int kx = 0; kx < TC / 16; ++kx) {
+        if (x0 + 16 * kx >= q1) break;
+        uint32_t bf[NB][2];
+        if constexpr (NB == 1) {
+          ldsm2(bf[0], gb + 2 * (ry * GC + 16 * kx));
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < NB / 2; ++jj) {
+            uint32_t t4[4];
+            ldsm4(t4, gb + 2 * (16 * jj * GP + ry * GC + 16 * kx));
+            bf[2 * jj][0] = t4[0];
+            bf[2 * jj][1] = t4[1];
+            bf[2 * jj + 1][0] = t4[2];
+            bf[2 * jj + 1][1] = t4[3];
+          }
+        }
+        // tap i + 1's A fragment is in flight while tap i's products issue
+        const uint32_t vr = vb + 2 * (ry * vcols + 16 * kx) * CS;
+        uint32_t a0[4], a1[4];
+        ldsm4t(a0, vr + 2 * toff[0]);
+#pragma unroll
+        for (int i = 0; i < TPW; i += 2) {
+          if (i >= my_taps) break;
+          const bool two = i + 1 < TPW && i + 1 < my_taps;
+          if (two) ldsm4t(a1, vr + 2 * toff[i + 1 < TPW ? i + 1 : 0]);
+#pragma unroll
+          for (int j = 0; j < NB; ++j) mma16816(acc[i][j], a0, bf[j][0], bf[j][1]);
+          if (two) {
+            if (i + 2 < TPW && i + 2 < my_taps)
+              ldsm4t(a0, vr + 2 * toff[i + 2 < TPW ? i + 2 : 0]);
+#pragma unroll
+            for (int j = 0; j < NB; ++j)
+              mma16816(acc[i + 1][j], a1, bf[j][0], bf[j][1]);
+          }
+        }
+      }
+    }
+    if (more) {
+      store_v16(ring + nxt * (v_el + g_el), npix, wd);
+      store_g<NB>(ring + nxt * (v_el + g_el) + v_el, gw);
+    }
+    __syncthreads();
+  }
+  float* out = partial + (size_t)blockIdx.x * k * k * Cs * Cu;
+#pragma unroll
+  for (int i = 0; i < TPW; ++i) {
+    const int tl = warp + 8 * i;
+    if (tl >= ntaps) break;
+    const int t = dy0 * k + tl;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = ch0 + gid + 8 * h;
+      if (c >= Cs) continue;
+      float* orow = out + ((size_t)t * Cs + c) * Cu;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const int u = n0 + 8 * j + 2 * q;
+        if (u < Cu) orow[u] = acc[i][j][2 * h];
+        if (u + 1 < Cu) orow[u + 1] = acc[i][j][2 * h + 1];
+      }
+    }
+  }
+}
+
+// Shared memory of the two forms' rings, K3's of `stages` stages
+// (ops/conv.py fwd_px_smem, dw_px_smem).
+__host__ __forceinline__ size_t fwd_smem(int k, int ndy, int mt, int stages) {
+  const size_t ring = stages * sizeof(bf16) *
+      ((size_t)(TR + ndy - 1) * (TC + k - 1) * CS +
+       (size_t)ndy * k * 16 * (16 * mt + 8));
+  const size_t tile = sizeof(float) * 16 * mt * (TR * TC + 8);
+  return ring > tile ? ring : tile;
+}
+__host__ __forceinline__ size_t dw_smem(int k, int ndy, int nb) {
+  return 2 * sizeof(bf16) *
+         ((size_t)(TR + ndy - 1) * (TC + k - 1) * CS + (size_t)8 * nb * GP);
+}
+
+template <int MT>
+int launch_fwd(const bf16* x, const Src& src, const bf16* w, bf16* y,
+               float* partial, float* st_part, float* stats, int B, int Cout,
+               int Ho, int Wo, int k, int ndy, int cps, int n_cs, int n_dyg,
+               cudaStream_t st) {
+  const int Cv = src.stride * src.stride * src.cin;
+  const int n_cc = (Cv + 15) / 16;
+  const int n_split = n_dyg * n_cs;
+  const bool direct = n_split == 1 && st_part == nullptr;
+  const int cluster = !direct && n_split <= CLUSTER && st_part == nullptr
+      ? n_split : 0;
+  if (k < 1 || ndy < 1 || ndy > k || (n_dyg - 1) * ndy >= k ||
+      n_dyg * ndy < k || cps < 1 || (n_cs - 1) * cps >= n_cc ||
+      n_cs * cps < n_cc || (TR + ndy - 1) * (TC + k - 1) > ITEMS * THREADS ||
+      (!direct && !cluster && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // a block of one channel chunk (cps 1) never fills the ring's second
+  // stage
+  const size_t smem = fwd_smem(k, ndy, MT, cps > 1 ? 2 : 1);
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_fwd_px_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles_y = (Ho + TR - 1) / TR, tiles_x = (Wo + TC - 1) / TC;
+  const dim3 grid(B * tiles_y * tiles_x, (Cout + 16 * MT - 1) / (16 * MT),
+                  n_split);
+  const int w_vec = Cout % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int vec_out = Wo % 2 == 0 && reinterpret_cast<uintptr_t>(y) % 4 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cluster ? cluster : 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, conv_fwd_px_kernel<MT>, x, src, w, y,
+                         direct || cluster ? nullptr : partial, B, Cv, Cout,
+                         Ho, Wo, k, tiles_y, tiles_x, ndy, cps, n_cs, w_vec,
+                         vec_out, cluster);
+  if (e != cudaSuccess) return (int)e;
+  int err = (int)cudaGetLastError();
+  if (err || direct || cluster) return err;
+  const int HW = Ho * Wo, n_pch = (HW + THREADS * PPT - 1) / (THREADS * PPT);
+  conv_split_sum_kernel<<<dim3(n_pch, Cout, B), THREADS, 0, st>>>(
+      partial, y, st_part, n_split, B, Cout, HW);
+  err = (int)cudaGetLastError();
+  if (err || st_part == nullptr) return err;
+  const int groups = B / src.per_group;
+  conv_stats_reduce_kernel<<<groups * 2 * Cout, NT, 0, st>>>(
+      st_part, stats, src.per_group * n_pch, Cout);
+  return (int)cudaGetLastError();
+}
+
+template <int NB>
+int launch_dw(const bf16* x, const Src& src, const bf16* g, float* partial,
+              float* dw, int B, int Cu, int Hp, int Wp, int k, int rows,
+              int cols, int ndy, cudaStream_t st) {
+  const int Cs = src.stride * src.stride * src.cin;
+  if (k < 1 || ndy < 1 || ndy > k || (ndy * k + 7) / 8 > 16 / NB ||
+      (TR + ndy - 1) * (TC + k - 1) > ITEMS * THREADS || rows < TR ||
+      rows % TR || cols < TC || cols % TC)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = dw_smem(k, ndy, NB);
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_dw_px_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int strips_y = (Hp + rows - 1) / rows;
+  const int strips_x = (Wp + cols - 1) / cols;
+  const int n_cg = (Cs + 15) / 16, n_dyg = (k + ndy - 1) / ndy;
+  const dim3 grid(B * strips_y * strips_x, n_cg * n_dyg,
+                  (Cu + 8 * NB - 1) / (8 * NB));
+  conv_dw_px_kernel<NB><<<grid, THREADS, smem, st>>>(
+      x, src, g, partial, Cs, Cu, Hp, Wp, k, rows, cols, strips_y, strips_x,
+      ndy, n_cg);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int n_out = k * k * Cs * Cu;
+  const int n_slices = (int)grid.x;
+  const dim3 rblock(32, n_slices < 32 ? n_slices : 32);
+  dwtc::conv_dw_sum_kernel<false><<<(n_out + 31) / 32, rblock, 0, st>>>(
+      partial, dw, n_out, n_slices, Cu);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace px
+
 }  // namespace
 
 // The rows of K3''' scratch (one per output tile) that a [B, Cout, Ho, Wo]
@@ -1501,8 +2356,8 @@ extern "C" int conv_valid_fwd(const void* x, const void* w, void* y,
 }
 
 // bf16 K3 on the tensor cores: as conv_valid_fwd, with x, w and y bf16 and
-// k in {1, 2, 3, 4, 5, 7}. The tiling comes from ops/conv.py fwd_tc_tiling
-// (fewer m16 tiles where a k = 7 weight tile would not fit): strips
+// k in {1, 2, 3} (conv_fwd_px takes the others). The tiling comes from
+// ops/conv.py fwd_tc_tiling: strips
 // of rows x cols output pixels (rows a multiple of 8, cols of 8 *
 // fwd_tc_nb(mt)), cb (a multiple of 16) channels of V per shared-memory
 // chunk, wcb channels per tap in the weight tile (cb, or a multiple of 16
@@ -1533,15 +2388,6 @@ extern "C" int conv_fwd_tc(const void* x, const void* w, void* y,
     case 3: return fwdtc::launch_k<3>(xb, src, wb, yb, st_part, stats, B,
                                       Cout, Ho, Wo, rows, cols, cb, wcb, mt,
                                       st);
-    case 4: return fwdtc::launch_k<4>(xb, src, wb, yb, st_part, stats, B,
-                                      Cout, Ho, Wo, rows, cols, cb, wcb, mt,
-                                      st);
-    case 5: return fwdtc::launch_k<5>(xb, src, wb, yb, st_part, stats, B,
-                                      Cout, Ho, Wo, rows, cols, cb, wcb, mt,
-                                      st);
-    case 7: return fwdtc::launch_k<7>(xb, src, wb, yb, st_part, stats, B,
-                                      Cout, Ho, Wo, rows, cols, cb, wcb, mt,
-                                      st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1566,7 +2412,7 @@ extern "C" int conv_dw_gtap(const void* x, const void* g, float* partial,
 // fp32 K4 (the CUDA cores). x, scale, shift, pad, stride, groups,
 // negslope: as conv_valid_fwd, x fp32; g [B,Cout,Ho,Wo] fp32; partial: fp32
 // scratch [B*ceil(Ho/rows_per_chunk), k*k*s*s*Cin*Cout]; dw: fp32
-// [k,k,s*s*Cin,Cout]. k in {1, 2, 3, 4, 5, 7}.
+// [k,k,s*s*Cin,Cout]. Any k >= 1.
 extern "C" int conv_dw(const void* x, const void* g, float* partial,
                        float* dw, const float* scale, const float* shift,
                        int B, int Cin, int H, int W, int Cout, int Ho, int Wo,
@@ -1578,7 +2424,10 @@ extern "C" int conv_dw(const void* x, const void* g, float* partial,
                           rows_per_chunk, static_cast<cudaStream_t>(stream));
 }
 
-// bf16 K4 (gtap = 0: dw [k,k,s*s*Cin,Cout], as conv_dw) and K7 (gtap = 1,
+// bf16 K4 (gtap = 0, k in {1, 2, 3, 4, 5, 7}: dw [k,k,s*s*Cin,Cout], as
+// conv_dw; at k >= 4 only where ops/conv.py dw_px_form keeps this form,
+// Cout <= 16 on a grid that busies half the SMs; conv_dw_px takes the
+// others) and K7 (gtap = 1,
 // stride 1, k in {2, 3, 5, 7}: dw [Cin, k*k*Cout], as conv_dw_gtap) on the
 // tensor cores. x, g, scale, shift, pad, stride, groups, negslope: as conv_dw,
 // x and g bf16. The tiling comes from ops/conv.py dw_tc_tiling: strips of
@@ -1625,4 +2474,65 @@ extern "C" int conv_dw_tc(const void* x, const void* g, float* partial,
                                      Hp, Wp, rows, cols, cb, bn, wm, gtap, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// bf16 K3 at k >= 4 and the k2 = 3 phase kernels (namespace px): as
+// conv_fwd_tc, any k. The tiling comes from ops/conv.py fwd_px_tiling: mt
+// in [1, 4] m16 tiles of Cout a block, tap rows in n_dyg groups of ndy,
+// V's chunks of 16 channels in n_cs groups of cps. partial: fp32 scratch
+// [n_dyg * n_cs, B, Cout, Ho, Wo] unless n_dyg * n_cs == 1 and st_part is
+// null (then y is stored directly and partial may be null); the second
+// pass adds 512 pixels a block. st_part: [B * ceil(Ho * Wo / 512), 2,
+// Cout] (an image's chunks contiguous).
+extern "C" int conv_fwd_px(const void* x, const void* w, void* y,
+                           float* partial, const float* scale,
+                           const float* shift, int B, int Cin, int H, int W,
+                           int Cout, int Ho, int Wo, int k, int pad,
+                           int stride, int groups, float negslope,
+                           float* st_part, float* stats, int mt, int ndy,
+                           int cps, int n_cs, int n_dyg, void* stream) {
+  using px::bf16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Src src = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
+                           negslope);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  bf16* yb = static_cast<bf16*>(y);
+#define PX_FWD(m)                                                            \
+  case m:                                                                    \
+    return px::launch_fwd<m>(xb, src, wb, yb, partial, st_part, stats, B,   \
+                             Cout, Ho, Wo, k, ndy, cps, n_cs, n_dyg, st);
+  switch (mt) {
+    PX_FWD(1) PX_FWD(2) PX_FWD(3) PX_FWD(4)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PX_FWD
+}
+
+// bf16 K4 at k >= 4 and the k2 = 3 phase kernels (namespace px): as
+// conv_dw, any k. The tiling comes from ops/conv.py dw_px_tiling: strips of
+// rows x cols pixels (multiples of 8 and 32), tap rows in groups of ndy,
+// nb in {1, 2, 4} n8 tiles of Cout a block. partial: fp32 scratch
+// [B * ceil(Ho / rows) * ceil(Wo / cols), k * k * s * s * Cin * Cout].
+extern "C" int conv_dw_px(const void* x, const void* g, float* partial,
+                          float* dw, const float* scale, const float* shift,
+                          int B, int Cin, int H, int W, int Cout, int Ho,
+                          int Wo, int k, int pad, int stride, int groups,
+                          float negslope, int rows, int cols, int ndy, int nb,
+                          void* stream) {
+  using px::bf16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Src src = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
+                           negslope);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gb = static_cast<const bf16*>(g);
+#define PX_DW(n)                                                             \
+  case n:                                                                    \
+    return px::launch_dw<n>(xb, src, gb, partial, dw, B, Cout, Ho, Wo, k,   \
+                            rows, cols, ndy, st);
+  switch (nb) {
+    PX_DW(1) PX_DW(2) PX_DW(4)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PX_DW
 }

@@ -354,9 +354,19 @@ def qkv_attention_supported(qkv: torch.Tensor, num_heads: int) -> bool:
 
 def pallas_attention_supported(q: torch.Tensor) -> bool:
     """The reference's gate for its split-tensor kernels (:663-669). The
-    port routes nothing by it: K5 has no length cap (module docstring)."""
+    port routes by split_attention_supported instead: K5 has no length cap
+    (module docstring)."""
     dh, N = q.shape[3], q.shape[2]
     return dh % 64 == 0 and -(-N // 128) * 128 <= _MAX_N_PAD
+
+
+def split_attention_supported(q: torch.Tensor) -> bool:
+    """The port's gate for K5/K6, in the reference's place (:687): heads of
+    dh = 64, the width K5/K6 are built for. Every other dh takes
+    library_attention, the reference's _xla_attention route; the reference
+    takes dh = 128, 192, ... on its kernel, the port on the library (a
+    deviation, ROADMAP C)."""
+    return q.shape[3] == HEAD_DIM
 
 
 def xla_attention_plain(q, k, v, scale: float,
@@ -379,7 +389,9 @@ def library_attention(q, k, v, scale: float,
     mask = None
     N = k.shape[2]
     if 0 < n_valid < N:
-        mask = torch.arange(N, device=q.device) < n_valid
+        # [1, N]: SDPA takes a mask of at least two dims, broadcast over
+        # the queries
+        mask = (torch.arange(N, device=q.device) < n_valid)[None, :]
     return torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=scale)
 
@@ -388,8 +400,10 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float, n_valid: int = 0,
                          use_pallas: bool = True) -> torch.Tensor:
     """Softmax attention over [B, H, N, dh] tensors (differentiable): K5/K6
-    on CUDA tensors at every N; library_attention without use_pallas."""
-    if not use_pallas:
+    on CUDA tensors at every N where split_attention_supported says so;
+    library_attention without use_pallas or at another dh (the reference's
+    route, :687-690)."""
+    if not use_pallas or not split_attention_supported(q):
         return library_attention(q, k, v, scale, n_valid)
     return AttnSplit.apply(q, k, v, float(scale), int(n_valid))
 

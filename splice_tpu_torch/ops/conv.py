@@ -34,13 +34,21 @@ conv_same_chw :735-766, conv_same_pro_chw :769-813, conv_same_pro_stats_chw
     _make_dw_kernel_gtap :455), where DW_TAP_ON_N and _gtap_better say so,
     else K4 with the border.
 
-Every kernel routes by dtype. bf16 runs on the tensor cores (mma.sync):
-K3 in every form, the input gradient included, through one implicit-GEMM
-kernel (csrc/conv.cu conv_fwd_tc, tiled by fwd_tc_tiling below), K4 and
-K7 through another (conv_dw_tc, tiled by dw_tc_tiling); each wrapper
-counts its bf16 launches in tc_launches. fp32 runs on the CUDA cores
-(conv_valid_fwd, conv_dw, conv_dw_gtap) in full fp32, which the 1e-4 gates
-of the fp32 steps need.
+conv_route (below) names the kernel and form of every launch from its
+shape, before the launch; every k >= 1 has one. bf16 runs on the tensor
+cores (mma.sync): K3 in every form, the input gradient included, through
+an implicit-GEMM kernel, K4 and K7 through another, each in two forms
+(px_form picks): the channel-major forms at k <= 3 (csrc/conv.cu
+conv_fwd_tc and conv_dw_tc, tiled by fwd_tc_tiling and dw_tc_tiling), the
+pixel-major forms at 16 taps or more and at the 9-tap phase kernels of
+stride 2 (conv_fwd_px and conv_dw_px, tiled by fwd_px_tiling and
+dw_px_tiling: the contraction split across blocks, as the inversion net's
+7x7 and 5x5 sites need to fill the card), except that K4 at Cout <= 16
+keeps conv_dw_tc where its grid busies half the SMs (dw_px_form); K7
+takes its own kernel at k in GTAP_KS and K4 elsewhere. Each wrapper counts its bf16 launches in
+tc_launches. fp32 runs on the CUDA cores (conv_valid_fwd, conv_dw,
+conv_dw_gtap) in full fp32, which the 1e-4 gates of the fp32 steps
+need.
 
 On CPU tensors the same functions run their plain PyTorch versions below,
 which materialise what the kernels' input read sees (virtual_input_plain)
@@ -81,18 +89,19 @@ DW_TC_ACC = 16            # csrc ACC
 DW_TC_TILE_COLS = DW_TC_COLS + 16   # row stride of both tiles (csrc SC)
 DW_TC_S_BYTES = 96 * 1024  # shared memory for the tapped operand's tile
 DW_TC_BLOCKS = 528
+DW_TC_KS = (1, 2, 3, 4, 5, 7)   # csrc conv_dw_tc's instances
+DW_TC_NARROW = 16         # K4's Cout that may keep conv_dw_tc at k >= 4
 
-# The k of every kernel but K7 (csrc/conv.cu's cases): the training net's
-# 3x3 and 1x1 and its stride-2 k2 = 2, the inversion net's 7x7 and 5x5
-# (splice_tpu/models/unet.py:67-75) and their k2 = 4 and 3.
-KERNEL_KS = (1, 2, 3, 4, 5, 7)
-# K7's k: the odd k > 1 that the SAME route reaches with the generators'
-# filters (3, 5, 7) and k = 2 for VALID K7 on a bordered input
+# K7's k on its own kernels: the odd k > 1 that the SAME route reaches with
+# the generators' filters (3, 5, 7) and k = 2 for VALID K7 on a bordered
+# input. At any other k, conv_route sends K7's weight gradient to K4, which
+# computes the same function (every other kernel takes any k).
 GTAP_KS = (2, 3, 5, 7)
 
-# bf16 K3 on the tensor cores (csrc/conv.cu, namespace fwdtc): a block
-# holds up to FWD_TC_MT m16 tiles of Cout (wider outputs split into evened
-# chunks; fewer tiles where a k = 7 weight tile would not fit) and walks a
+# bf16 K3 on the tensor cores at k <= 3 (csrc/conv.cu, namespace fwdtc;
+# conv_route sends larger k to the pixel-major form): a block holds up to
+# FWD_TC_MT m16 tiles of Cout (wider outputs split into evened chunks;
+# fewer tiles where a wide k's weight tile would not fit) and walks a
 # strip of output pixels in stages of FWD_TC_ROWS rows
 # (one per warp) x 8 * fwd_tc_nb(mt) columns, staging V's channels in
 # chunks that fit FWD_TC_SMEM with the weights (two blocks per SM); the
@@ -101,6 +110,31 @@ FWD_TC_ROWS = 8           # csrc fwdtc::TR
 FWD_TC_MT = 5             # csrc fwdtc::launch_k's cases
 FWD_TC_SMEM = 110 * 1024
 FWD_TC_BLOCKS = 528
+
+# bf16 K3 and K4 at 16 taps or more and at the 9-tap phase kernels of
+# stride 2 (csrc/conv.cu, namespace px; px_form): K3 tiles of PX_ROWS x
+# PX_COLS output pixels, K4 stages of PX_ROWS x PX_COLS pixels; V staged
+# pixel-major, PX_PIXEL elements (16 channels of a chunk and 8 of padding)
+# a pixel, at most PX_ITEMS pixels of a tile a thread of PX_THREADS; each
+# block's two-stage ring within PX_SMEM (two blocks per SM). K4's strips
+# aim at PX_BLOCKS blocks (two on each of 132 SMs) with their partials
+# within PX_PARTIAL bytes, its contraction split further only while the
+# grid is under half of PX_WAVE (one a SM); K3 splits its
+# contraction toward PX_WAVE blocks in at most PX_CLUSTER splits, which a
+# thread-block cluster adds in shared memory (more, and the K3''' sums,
+# take fp32 partials and a second pass of PX_PCH pixels a block).
+PX_ROWS = 8               # csrc px::TR
+PX_COLS = 32              # csrc px::TC
+PX_PIXEL = 24             # csrc px::CS
+PX_ITEMS = 2              # csrc px::ITEMS
+PX_THREADS = 256          # csrc px::THREADS
+PX_G_PLANE = PX_ROWS * (PX_COLS + 8) + 8   # csrc px::GP
+PX_SMEM = 113 * 1024
+PX_BLOCKS = 264
+PX_WAVE = 132
+PX_CLUSTER = 8            # csrc px::CLUSTER
+PX_PARTIAL = 8 << 20
+PX_PCH = 512              # csrc px::THREADS * px::PPT
 
 # The reference's module constants (conv_pallas.py:41, :627), read at call
 # time through this module. SAME_BORDER_KERNELS routes stride-1 zero-border
@@ -296,54 +330,297 @@ def _prologue_args(x, scale, shift):
     return scale.data_ptr(), shift.data_ptr(), G
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name,
-                want_stats: bool = False):
-    """K3 over the virtual input of x (see csrc/conv.cu): bf16 on the
-    tensor cores (conv_fwd_tc), fp32 on the CUDA cores (conv_valid_fwd). w
-    must already be in x's type. want_stats (K3''', needs the prologue):
-    also the fp32 [G, 2, Cout] per-stack sums of y and y^2."""
+                want_stats: bool = False, phase: bool = False):
+    """K3 over the virtual input of x (see csrc/conv.cu) on the kernel that
+    conv_route names: bf16 on the tensor cores (conv_fwd_tc or
+    conv_fwd_px), fp32 on the CUDA cores (conv_valid_fwd). w must already
+    be in x's type. want_stats (K3''', needs the prologue): also the fp32
+    [G, 2, Cout] per-stack sums of y and y^2. phase: w is a stride-2 phase
+    kernel read at stride 1 (the input gradient of the s2d conv)."""
     x, w = x.contiguous(), w.contiguous()
-    dtype = _build.check_cuda_tensors(name, x, w)
+    _build.check_cuda_tensors(name, x, w)
     B, cin, h, wd = x.shape
     k, k2, wcin, cout = w.shape
     if k != k2 or wcin != stride * stride * cin or stride not in (1, 2):
         raise ValueError(f"{name}: kernel {tuple(w.shape)} vs input "
                          f"{tuple(x.shape)}, stride {stride}")
-    tc = dtype == _build.DTYPES["bfloat16"]
-    if tc and k not in KERNEL_KS:
-        raise ValueError(f"{name}: the bf16 kernel is built for k in "
-                         f"{KERNEL_KS}, got {k}")
+    if want_stats and scale is None:
+        raise ValueError(f"{name}: the statistics need the prologue")
     ho, wo = out_hw
+    route = conv_route("fwd", x.dtype, k, stride, wcin, cout, B, ho, wo,
+                       phase=phase)
+    t = route.tiling
     sp, tp, G = _prologue_args(x, scale, shift)
     y = torch.empty(B, cout, ho, wo, dtype=x.dtype, device=x.device)
-    t = fwd_tc_tiling(k, wcin, cout, B, ho, wo) if tc else None
-    st_part = stats = None
     lib = _build.library("conv")
+    st_part = stats = None
     if want_stats:
-        if scale is None:
-            raise ValueError(f"{name}: the statistics need the prologue")
-        lib.conv_stats_scratch_tiles.argtypes = [ctypes.c_int] * 6
-        tiles = lib.conv_stats_scratch_tiles(
-            B, ho, wo, dtype, *((t.rows, t.cols) if tc else (0, 0)))
+        if route.form == "px":
+            tiles = B * t.chunks
+        else:
+            lib.conv_stats_scratch_tiles.argtypes = [ctypes.c_int] * 6
+            tiles = lib.conv_stats_scratch_tiles(
+                B, ho, wo, int(route.form == "tc"),
+                *((t.rows, t.cols) if route.form == "tc" else (0, 0)))
         st_part = torch.empty(tiles, 2, cout, dtype=torch.float32,
                               device=x.device)
         stats = torch.empty(G, 2, cout, dtype=torch.float32, device=x.device)
-    args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), sp, tp, B, cin, h, wd,
-            cout, ho, wo, k, pad, stride, G, float(negslope),
-            st_part.data_ptr() if want_stats else None,
-            stats.data_ptr() if want_stats else None)
-    argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 \
-        + [ctypes.c_float] + [ctypes.c_void_p] * 2
-    if tc:
-        fn = lib.conv_fwd_tc
-        fn.argtypes = argtypes + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        args += (t.rows, t.cols, t.cb, t.wcb, t.mt)
+    tail = (B, cin, h, wd, cout, ho, wo, k, pad, stride, G, float(negslope),
+            _ptr(st_part), _ptr(stats))
+    tail_types = [ctypes.c_int] * 11 + [ctypes.c_float] \
+        + [ctypes.c_void_p] * 2
+    fn = getattr(lib, route.entry)
+    if route.form == "px":
+        partial = None
+        if want_stats or t.splits > PX_CLUSTER:
+            partial = torch.empty(t.splits * B * cout * ho * wo,
+                                  dtype=torch.float32, device=x.device)
+        fn.argtypes = [ctypes.c_void_p] * 6 + tail_types \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), _ptr(partial), sp,
+                tp, *tail, t.mt, t.ndy, t.cps, t.n_cs, t.n_dyg)
+    elif route.form == "tc":
+        fn.argtypes = [ctypes.c_void_p] * 5 + tail_types \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), sp, tp, *tail,
+                t.rows, t.cols, t.cb, t.wcb, t.mt)
     else:
-        fn = lib.conv_valid_fwd
-        fn.argtypes = argtypes + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + tail_types + [ctypes.c_void_p]
+        args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), sp, tp, *tail)
     fn.restype = ctypes.c_int
     _build.check(fn(*args, _build.stream_ptr(x.device)), name)
     return (y, stats) if want_stats else y
+
+
+class ConvRoute(NamedTuple):
+    """What conv_route picks: the kernel (K3, K4 or K7), its form ("tc":
+    the channel-major bf16 forms, "px": the pixel-major ones, "fp32": the
+    CUDA cores), the C entry in csrc/conv.cu and the tiling the wrapper
+    passes it (None for fp32)."""
+    kernel: str
+    form: str
+    entry: str
+    tiling: Optional[NamedTuple]
+
+
+def px_form(k: int, phase: bool) -> bool:
+    """K3's bf16 rule: the pixel-major form (namespace px) for a kernel of
+    16 taps or more (k >= 4), or of 9 as the stride-2 phase kernel of a
+    5x5 or 6x6 filter (phase and k == 3; its forward and input gradient);
+    the channel-major form for the rest (k <= 3: the training net's 3x3
+    and 1x1 and its k2 = 2 phase kernels, and the inversion net's 3x3
+    scales), whose grids fill the card at the 224-896 wide maps they were
+    designed for. K4 starts from the same rule (dw_px_form)."""
+    return k >= 4 or (phase and k == 3)
+
+
+def dw_tc_blocks(t: "DwTiling", cs: int, cu: int) -> int:
+    """The grid of conv_dw_tc under tiling t: strips x chunks of the
+    tapped operand's cs channels x chunks of the other's cu."""
+    return t.slices * -(-cs // t.cb) * -(-cu // t.bn)
+
+
+def dw_px_form(k: int, phase: bool, cv: int, cout: int, batch: int,
+               ho: int, wo: int) -> bool:
+    """K4's bf16 rule: px_form's, except that K4 keeps the channel-major
+    form (conv_dw_tc) where Cout <= DW_TC_NARROW, k has an instance there
+    (DW_TC_KS) and that form's grid already busies at least half the SMs
+    (DW_TC_BLOCKS // 8 blocks). At one n16 tile of Cout each V fragment
+    the pixel-major form loads feeds two products and its V and g are
+    restaged for every tap-row group, while conv_dw_tc shares one window
+    of loads among a tap row's taps; the pixel-major form's wider split
+    pays only where conv_dw_tc's grid leaves most SMs idle."""
+    if not px_form(k, phase):
+        return False
+    if cout > DW_TC_NARROW or k not in DW_TC_KS:
+        return True
+    t = dw_tc_tiling(k, cv, cout, batch, ho, wo)
+    return dw_tc_blocks(t, cv, cout) < DW_TC_BLOCKS // 8
+
+
+def conv_route(op: str, dtype: torch.dtype, k: int, stride: int, cv: int,
+               cout: int, batch: int, ho: int, wo: int, same: bool = False,
+               gtap: bool = False, phase: bool = False) -> ConvRoute:
+    """The kernel and form that run a conv on the card, decided from its
+    shape before any launch (pure Python: the CPU tests call it). op "fwd"
+    is K3 (the forward and every input gradient), "dw" the weight gradient:
+    K7 where it is wanted and built (gtap, or `same` where the reference's
+    _dw_impl picks it: DW_TAP_ON_N and _gtap_better) at k in GTAP_KS and
+    stride 1, else K4. k is the kernel the launch reads (k2 for a stride-2
+    phase kernel, which `phase` also marks at stride 1); cv the channels of
+    V (s*s*Cin; for K7 the input's); [batch, ho, wo] the output. bf16 takes
+    the tensor cores (px_form picks K3's form, dw_px_form K4's), fp32 the
+    CUDA cores; every k >= 1 has a kernel."""
+    if k < 1 or stride not in (1, 2):
+        raise ValueError(f"conv_route: k {k}, stride {stride}")
+    bf16 = dtype == torch.bfloat16
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"conv_route: dtype {dtype}")
+    phase = phase or stride == 2
+    if op == "fwd":
+        if not bf16:
+            return ConvRoute("K3", "fp32", "conv_valid_fwd", None)
+        if px_form(k, phase):
+            return ConvRoute("K3", "px", "conv_fwd_px",
+                             fwd_px_tiling(k, cv, cout, batch, ho, wo))
+        return ConvRoute("K3", "tc", "conv_fwd_tc",
+                         fwd_tc_tiling(k, cv, cout, batch, ho, wo))
+    if op != "dw":
+        raise ValueError(f"conv_route: op {op!r}")
+    gtap = gtap or (same and DW_TAP_ON_N and _gtap_better(k, cv, cout))
+    if gtap and stride == 1 and k in GTAP_KS:
+        if not bf16:
+            return ConvRoute("K7", "fp32", "conv_dw_gtap", None)
+        return ConvRoute("K7", "tc", "conv_dw_tc", dw_tc_tiling(
+            k, cout, cv, batch, ho + k - 1, wo + k - 1))
+    if not bf16:
+        return ConvRoute("K4", "fp32", "conv_dw", None)
+    if dw_px_form(k, phase, cv, cout, batch, ho, wo):
+        return ConvRoute("K4", "px", "conv_dw_px",
+                         dw_px_tiling(k, cv, cout, batch, ho, wo))
+    return ConvRoute("K4", "tc", "conv_dw_tc",
+                     dw_tc_tiling(k, cv, cout, batch, ho, wo))
+
+
+class FwdPxTiling(NamedTuple):
+    """conv_fwd_px's work split: mt m16 tiles of Cout a block; the k tap
+    rows in n_dyg groups of ndy; V's 16-channel chunks in n_cs groups of
+    cps; splits = n_dyg * n_cs (above 1, added by a cluster up to
+    PX_CLUSTER, else, and with the K3''' sums, by the second pass);
+    blocks of the grid; chunks = the second pass's blocks an image (the
+    K3''' scratch rows per image)."""
+    mt: int
+    ndy: int
+    n_dyg: int
+    cps: int
+    n_cs: int
+    splits: int
+    blocks: int
+    chunks: int
+
+
+def _px_tile_fits(k: int, ndy: int) -> bool:
+    """V's tile of ndy tap rows (PX_ROWS + ndy - 1 rows of PX_COLS + k - 1
+    pixels) in the PX_ITEMS pixels a thread holds (csrc launch checks)."""
+    return (PX_ROWS + ndy - 1) * (PX_COLS + k - 1) <= PX_ITEMS * PX_THREADS
+
+
+def fwd_px_smem(k: int, ndy: int, mt: int, stages: int = 2) -> int:
+    """Bytes of conv_fwd_px's shared memory: its ring of `stages` stages of
+    V's tile and of the weights of ndy * k taps x 16 channels x 16 mt + 8
+    (one where each block has one channel chunk), or the fp32 output tile
+    a cluster adds ([16 mt][PX_ROWS * PX_COLS + 8]) where that is larger
+    (csrc px::fwd_smem)."""
+    ring = stages * 2 * ((PX_ROWS + ndy - 1) * (PX_COLS + k - 1) * PX_PIXEL
+                         + ndy * k * 16 * (16 * mt + 8))
+    return max(ring, 4 * 16 * mt * (PX_ROWS * PX_COLS + 8))
+
+
+def dw_px_smem(k: int, ndy: int, nb: int) -> int:
+    """Bytes of conv_dw_px's ring: two stages of V's tile and g's 8 nb
+    channel planes (csrc px::dw_smem)."""
+    return 2 * 2 * ((PX_ROWS + ndy - 1) * (PX_COLS + k - 1) * PX_PIXEL
+                    + 8 * nb * PX_G_PLANE)
+
+
+def _tap_rows(k: int):
+    """The distinct group sizes of k tap rows, largest first."""
+    return sorted({-(-k // n) for n in range(1, k + 1)}, reverse=True)
+
+
+def fwd_px_tiling(k: int, cv: int, cout: int, batch: int, ho: int,
+                  wo: int) -> FwdPxTiling:
+    """How conv_fwd_px splits y[co, p] = sum_(t, c) w[t, c, co] V[c, p + t]:
+    Cout in as few evened chunks of at most 4 m16 tiles as it takes;
+    output tiles of PX_ROWS x PX_COLS; the tap rows in as few groups as let
+    the ring fit PX_SMEM (each group restages V's rows with their halo),
+    with V's 16-channel chunks in evened groups toward PX_WAVE blocks, in
+    at most PX_CLUSTER splits in all (a cluster adds them; only tap-row
+    groups beyond PX_CLUSTER take the second pass); a block of one chunk
+    needs one stage of the ring."""
+    n_co = -(-cout // 64)
+    mt = -(-(-(-cout // n_co)) // 16)
+    n_co = -(-cout // (16 * mt))
+    tiles = batch * -(-ho // PX_ROWS) * -(-wo // PX_COLS)
+    n_cc = -(-cv // 16)
+    for ndy in _tap_rows(k):
+        n_dyg = -(-k // ndy)
+        base = tiles * n_co * n_dyg
+        n_cs = max(1, min(n_cc, PX_CLUSTER // n_dyg, -(-PX_WAVE // base)))
+        cps = -(-n_cc // n_cs)
+        n_cs = -(-n_cc // cps)
+        if _px_tile_fits(k, ndy) and fwd_px_smem(
+                k, ndy, mt, 1 if cps == 1 else 2) <= PX_SMEM:
+            break
+    else:
+        raise ValueError(f"fwd_px_tiling: no tiling of k = {k} fits")
+    return FwdPxTiling(mt, ndy, n_dyg, cps, n_cs, n_dyg * n_cs, base * n_cs,
+                       -(-ho * wo // PX_PCH))
+
+
+class DwPxTiling(NamedTuple):
+    """conv_dw_px's work split: strips of rows x cols pixels (whole
+    PX_ROWS x PX_COLS stages); the k tap rows in groups of ndy; nb n8
+    tiles (8 nb channels) of the other operand a block; slices = strips,
+    the partials conv_dw_sum_kernel adds; blocks of the grid."""
+    rows: int
+    cols: int
+    ndy: int
+    nb: int
+    slices: int
+    blocks: int
+
+
+def dw_px_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
+                 wp: int) -> DwPxTiling:
+    """How conv_dw_px splits dw[t, s, u] = sum_p V[s, p + t] U[u, p] over
+    the pixels of [batch, hp, wp]: channel groups of 16 of V; chunks of nb
+    n8 tiles of U (at most 4, fewer where a tap row outnumbers the warps'
+    16 / nb taps each); the tap rows in groups whose taps the 8 warps hold
+    and whose ring fits PX_SMEM; strips of whole stages, full-width where
+    the grid still reaches PX_BLOCKS, else split along the columns, and no
+    more strips than keep their fp32 partials within PX_PARTIAL bytes
+    (conv_dw_sum_kernel reads them all). Where the grid stays under half
+    of PX_WAVE, smaller tap-row groups (each restages V and U), then
+    narrower chunks of U: the first candidate that reaches it, else the
+    largest grid."""
+    nb = 1 if cu <= 8 else 2 if cu <= 16 else 4
+    sy, sx = -(-hp // PX_ROWS), -(-wp // PX_COLS)
+    max_slices = max(1, PX_PARTIAL // (4 * k * k * cs * cu))
+    best = None
+    while nb >= 1:
+        for ndy in _tap_rows(k):
+            if (-(-ndy * k // 8) > 16 // nb or not _px_tile_fits(k, ndy)
+                    or dw_px_smem(k, ndy, nb) > PX_SMEM):
+                continue
+            base = -(-cs // 16) * -(-k // ndy) * -(-cu // (8 * nb))
+            per = max(1, PX_BLOCKS // base)
+            spb = max(1, -(-batch * sy * sx // per),
+                      -(-batch * sy * sx // max_slices))
+            while True:
+                if spb >= sx:
+                    rows, cols = PX_ROWS * (spb // sx), PX_COLS * sx
+                else:
+                    rows = PX_ROWS
+                    cols = PX_COLS * -(-sx // -(-sx // spb))
+                slices = batch * -(-hp // rows) * -(-wp // cols)
+                if slices <= max(batch, max_slices):
+                    break
+                spb += 1
+            t = DwPxTiling(rows, cols, ndy, nb, slices, slices * base)
+            if 2 * t.blocks >= PX_WAVE:
+                return t
+            if best is None or t.blocks > best.blocks:
+                best = t
+        nb //= 2
+    if best is None:
+        raise ValueError(f"dw_px_tiling: no tiling of k = {k} fits")
+    return best
 
 
 class FwdTiling(NamedTuple):
@@ -502,18 +779,15 @@ def dw_tc_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
     return DwTiling(rows, cols, cb, bn, wm, slices)
 
 
-def _launch_dw_tc(x, g, k, pad, stride, scale, shift, negslope, gtap, name):
+def _launch_dw_tc(x, g, k, pad, stride, scale, shift, negslope, gtap, t,
+                  name):
     """bf16 K4 (gtap False: fp32 [k, k, s*s*Cin, Cout]) or K7 (gtap True,
-    stride 1: fp32 [Cin, k*k*Cout], taps not yet reversed) on the tensor
-    cores."""
+    stride 1: fp32 [Cin, k*k*Cout], taps not yet reversed) on the
+    tensor-core kernel (conv_dw_tc), tiled by t (dw_tc_tiling)."""
     B, cin, h, wd = x.shape
     cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
     sp, tp, G = _prologue_args(x, scale, shift)
-    if gtap:
-        cs, cu, hp, wp = cout, cin, ho + k - 1, wo + k - 1
-    else:
-        cs, cu, hp, wp = stride * stride * cin, cout, ho, wo
-    t = dw_tc_tiling(k, cs, cu, B, hp, wp)
+    cs, cu = (cout, cin) if gtap else (stride * stride * cin, cout)
     partial = torch.empty(t.slices, k * k * cs * cu, dtype=torch.float32,
                           device=x.device)
     shape = (cin, k * k * cout) if gtap else (k, k, cs, cout)
@@ -530,75 +804,85 @@ def _launch_dw_tc(x, g, k, pad, stride, scale, shift, negslope, gtap, name):
     return dw
 
 
-def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name):
-    """K4 over the virtual input of x: fp32 [k, k, s*s*Cin, Cout]; g must
-    be in x's type. bf16 on the tensor cores, fp32 on the CUDA cores."""
-    x, g = x.contiguous(), g.contiguous()
-    dtype = _build.check_cuda_tensors(name, x, g)
-    if k not in KERNEL_KS:
-        raise ValueError(f"{name}: kernel is built for k in {KERNEL_KS}, "
-                         f"got {k}")
+def _launch_dw_px(x, g, k, pad, stride, scale, shift, negslope, t, name):
+    """bf16 K4 on the pixel-major kernel (conv_dw_px), tiled by t
+    (dw_px_tiling): fp32 [k, k, s*s*Cin, Cout]."""
     B, cin, h, wd = x.shape
     cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
-    if g.shape[0] != B or stride not in (1, 2):
-        raise ValueError(f"{name}: cotangent {tuple(g.shape)} vs input "
-                         f"{tuple(x.shape)}, stride {stride}")
-    if dtype == _build.DTYPES["bfloat16"]:
-        return _launch_dw_tc(x, g, k, pad, stride, scale, shift, negslope,
-                             False, name)
     sp, tp, G = _prologue_args(x, scale, shift)
     cv = stride * stride * cin
-    rows = -(-B * ho // _DW_CHUNKS)
-    rows = -(-rows // _DW_ROW_TILE) * _DW_ROW_TILE
-    n_chunks = B * -(-ho // rows)
-    partial = torch.empty(n_chunks, k * k * cv * cout, dtype=torch.float32,
+    partial = torch.empty(t.slices, k * k * cv * cout, dtype=torch.float32,
                           device=x.device)
     dw = torch.empty(k, k, cv, cout, dtype=torch.float32, device=x.device)
-    fn = _build.library("conv").conv_dw
+    fn = _build.library("conv").conv_dw_px
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     status = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
                 dw.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, pad,
-                stride, G, float(negslope), rows, _build.stream_ptr(x.device))
+                stride, G, float(negslope), t.rows, t.cols, t.ndy, t.nb,
+                _build.stream_ptr(x.device))
     _build.check(status, name)
     return dw
 
 
-def _launch_dw_gtap(x, g, k, pad, scale, shift, negslope, name):
-    """K7 over the virtual input of x at stride 1: fp32 [k, k, Cin, Cout];
-    g must be in x's type. bf16 on the tensor cores, fp32 on the CUDA
-    cores."""
-    x, g = x.contiguous(), g.contiguous()
-    dtype = _build.check_cuda_tensors(name, x, g)
-    if k not in GTAP_KS:
-        raise ValueError(f"{name}: kernel is built for k in {GTAP_KS}, "
-                         f"got {k}")
+def _launch_dw_cores(x, g, k, pad, stride, scale, shift, negslope, gtap,
+                     name):
+    """fp32 K4 (conv_dw: [k, k, s*s*Cin, Cout]) or K7 (conv_dw_gtap,
+    stride 1: [Cin, k*k*Cout], taps not yet reversed) on the CUDA cores:
+    the rows of all images (K7: of V) in about _DW_CHUNKS chunks."""
     B, cin, h, wd = x.shape
     cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
-    if g.shape[0] != B:
-        raise ValueError(f"{name}: cotangent {tuple(g.shape)} vs input "
-                         f"{tuple(x.shape)}")
-    if dtype == _build.DTYPES["bfloat16"]:
-        return _reverse_taps(_launch_dw_tc(x, g, k, pad, 1, scale, shift,
-                                           negslope, True, name), k)
     sp, tp, G = _prologue_args(x, scale, shift)
-    hv = ho + k - 1                       # K7 splits V's rows into chunks
-    rows = -(-B * hv // _DW_CHUNKS)
+    cv = stride * stride * cin
+    hr = ho + k - 1 if gtap else ho
+    rows = -(-B * hr // _DW_CHUNKS)
     rows = -(-rows // _DW_ROW_TILE) * _DW_ROW_TILE
-    n_chunks = B * -(-hv // rows)
-    partial = torch.empty(n_chunks, cin * k * k * cout, dtype=torch.float32,
+    n_chunks = B * -(-hr // rows)
+    partial = torch.empty(n_chunks, k * k * cv * cout, dtype=torch.float32,
                           device=x.device)
-    dwt = torch.empty(cin, k * k * cout, dtype=torch.float32, device=x.device)
-    fn = _build.library("conv").conv_dw_gtap
+    shape = (cin, k * k * cout) if gtap else (k, k, cv, cout)
+    dw = torch.empty(shape, dtype=torch.float32, device=x.device)
+    lib = _build.library("conv")
+    fn = lib.conv_dw_gtap if gtap else lib.conv_dw
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
+    n_int = 10 if gtap else 11
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    geom = (pad, G) if gtap else (pad, stride, G)
     status = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                dwt.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, pad,
-                G, float(negslope), rows, _build.stream_ptr(x.device))
+                dw.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, *geom,
+                float(negslope), rows, _build.stream_ptr(x.device))
     _build.check(status, name)
-    return _reverse_taps(dwt, k)
+    return dw
+
+
+def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name,
+               gtap: bool = False):
+    """The weight gradient over the virtual input of x on the kernel that
+    conv_route names: fp32 [k, k, s*s*Cin, Cout]; g must be in x's type.
+    K4, or with gtap (stride 1) K7 where its kernels are built for k (its
+    taps reversed here); bf16 on the tensor cores, fp32 on the CUDA
+    cores."""
+    x, g = x.contiguous(), g.contiguous()
+    _build.check_cuda_tensors(name, x, g)
+    B, cin = x.shape[:2]
+    cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
+    if g.shape[0] != B or stride not in (1, 2) or (gtap and stride != 1):
+        raise ValueError(f"{name}: cotangent {tuple(g.shape)} vs input "
+                         f"{tuple(x.shape)}, stride {stride}")
+    route = conv_route("dw", x.dtype, k, stride, stride * stride * cin, cout,
+                       B, ho, wo, gtap=gtap)
+    args = (x, g, k, pad, stride, scale, shift, negslope)
+    if route.kernel == "K7":
+        dwt = (_launch_dw_tc(*args, True, route.tiling, name)
+               if route.form == "tc" else _launch_dw_cores(*args, True, name))
+        return _reverse_taps(dwt, k)
+    if route.form == "px":
+        return _launch_dw_px(*args, route.tiling, name)
+    if route.form == "tc":
+        return _launch_dw_tc(*args, False, route.tiling, name)
+    return _launch_dw_cores(*args, False, name)
 
 
 def _same_pad(w: torch.Tensor, name: str) -> int:
@@ -665,10 +949,10 @@ def conv_dw_gtap_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
                       negslope: float = 1.0, pad: int = 0) -> torch.Tensor:
     """K7 on the card: fp32 [k, k, Cin, Cout] by tapping the cotangent; pad
     (k-1)//2 is SAME, pad 0 on a padded x VALID. g must be in x's type.
-    bf16 launches run on the tensor cores and also count in
-    tc_launches."""
-    dw = _launch_dw_gtap(x, g, k, pad, scale, shift, negslope,
-                         "conv_dw_gtap")
+    At a k outside GTAP_KS conv_route runs K4, the same function. bf16
+    launches run on the tensor cores and also count in tc_launches."""
+    dw = _launch_dw(x, g, k, pad, 1, scale, shift, negslope, "conv_dw_gtap",
+                    gtap=True)
     conv_dw_gtap_cuda.launches += 1
     conv_dw_gtap_cuda.tc_launches += x.dtype == torch.bfloat16
     return dw
@@ -678,13 +962,14 @@ conv_dw_gtap_cuda.launches = 0
 conv_dw_gtap_cuda.tc_launches = 0
 
 
-def conv_valid_cuda(x: torch.Tensor, w: torch.Tensor,
-                    pad: int = 0) -> torch.Tensor:
-    """K3 on the card: VALID stride-1 conv with an implicit zero border.
-    w must already be in x's type. bf16 launches run on the tensor cores
-    and also count in tc_launches."""
+def conv_valid_cuda(x: torch.Tensor, w: torch.Tensor, pad: int = 0,
+                    phase: bool = False) -> torch.Tensor:
+    """K3 on the card: VALID stride-1 conv with an implicit zero border
+    (phase: w is a stride-2 phase kernel, as in the s2d conv's input
+    gradient). w must already be in x's type. bf16 launches run on the
+    tensor cores and also count in tc_launches."""
     y = _launch_fwd(x, w, _out_hw(x, w.shape[0], pad), pad, 1, None, None,
-                    1.0, "conv_valid")
+                    1.0, "conv_valid", phase=phase)
     conv_valid_cuda.launches += 1
     conv_valid_cuda.tc_launches += x.dtype == torch.bfloat16
     return y
@@ -776,11 +1061,12 @@ conv_dw_s2d_cuda.tc_launches = 0
 def conv_forward(x, w, scale=None, shift=None, negslope: float = 1.0,
                  pad: int = 0, stride: int = 1,
                  out_hw: Optional[Tuple[int, int]] = None, same: bool = False,
-                 want_stats: bool = False):
+                 want_stats: bool = False, phase: bool = False):
     """K3 for a CUDA tensor, in the form the arguments ask for: with `same`
     (stride 1, pad (k-1)//2) K3'' SAME, pro when scale is given, K3''' with
     want_stats (then (out, s1, s2)); else pro when scale is given, s2d at
-    stride 2, plain. The plain version for a CPU tensor."""
+    stride 2, plain (phase: w is a phase kernel read at stride 1). The
+    plain version for a CPU tensor."""
     w = w.to(x.dtype)
     out_hw = out_hw or _out_hw(x, w.shape[0], pad)
     if not x.is_cuda:
@@ -798,23 +1084,25 @@ def conv_forward(x, w, scale=None, shift=None, negslope: float = 1.0,
                                    out_hw)
     if stride == 2:
         return conv_valid_s2d_cuda(x, w, pad, out_hw)
-    return conv_valid_cuda(x, w, pad)
+    return conv_valid_cuda(x, w, pad, phase)
 
 
 def conv_weight_grad(x, g, k: int, scale=None, shift=None,
                      negslope: float = 1.0, pad: int = 0, stride: int = 1,
                      same: bool = False):
     """K4 for a CUDA tensor, in the form of conv_forward; with `same`, K7
-    where the reference's _dw_impl (:647) routes it: DW_TAP_ON_N and
-    _gtap_better(k, Cin, Cout). The plain version for a CPU tensor. fp32
-    [k, k, s*s*Cin, Cout]."""
+    where the reference's _dw_impl (:647) routes it (DW_TAP_ON_N and
+    _gtap_better(k, Cin, Cout)) and conv_route finds it built for k. The
+    plain version for a CPU tensor. fp32 [k, k, s*s*Cin, Cout]."""
     g = g.to(x.dtype)
-    gtap = same and DW_TAP_ON_N and _gtap_better(k, x.shape[1], g.shape[1])
     if not x.is_cuda:
-        if gtap:
+        if same and DW_TAP_ON_N and _gtap_better(k, x.shape[1], g.shape[1]):
             return conv_dw_gtap_plain(x, g, k, scale, shift, negslope, pad)
         return conv_dw_pro_plain(x, g, k, scale, shift, negslope, pad, stride)
-    if gtap:
+    route = conv_route("dw", x.dtype, k, stride, stride * stride * x.shape[1],
+                       g.shape[1], g.shape[0], g.shape[2], g.shape[3],
+                       same=same)
+    if route.kernel == "K7":
         return conv_dw_gtap_cuda(x, g, k, scale, shift, negslope, pad)
     if scale is not None:
         return conv_dw_pro_cuda(x, g, k, scale, shift, negslope, pad, stride)
@@ -899,8 +1187,8 @@ class ConvValidPro(torch.autograd.Function):
                 # the (k-1-pad) border lands dz on x's own pixels
                 dz = conv_forward(g, w_flip, pad=k - 1 - pad, same=same)
             else:
-                dz = _from_phases(conv_forward(g, w_flip, pad=k - 1),
-                                  x.shape, pad)
+                dz = _from_phases(conv_forward(g, w_flip, pad=k - 1,
+                                               phase=True), x.shape, pad)
             if scale is None:
                 dx = dz
             else:

@@ -1,0 +1,167 @@
+"""bf16 K3 and K4 at the inversion net's sites, timed for one checkout.
+
+    python splice_tpu_torch/tools/conv_forms.py [--tree DIR] [--out FILE]
+        [--step]
+
+Imports splice_tpu_torch from DIR (default: the checkout this file is in),
+builds its conv library, and at each of the inversion net's sites on limes
+at 224 x 281 (INV_SITES: the 7x7 and 5x5 VALID convs at stride 1 and their
+stride-2 phase kernels k2 = 4 and 3; chip_smoke.py, tools/px_ablation.py
+and the tests read this table) times the bf16 K3 forward, the K3 input
+gradient (the flipped kernel over the cotangent, as ConvValidPro.backward
+runs it) and the K4 weight gradient, beside one PyTorch call each
+(F.conv2d, conv2d_input, conv2d_weight). Each time is the median of 5
+batches of 10 back-to-back calls (tools/mma_k_probe.device_ms: CUDA
+events, L2-warm, the stream held by a device sleep until the host has
+queued the batch). With --step it also times the inversion's chw + pallas
+step (tools.inversion.invert on limes, bf16, generator_layout chw,
+generator_conv pallas, STEP_ITERS steps): the median of 5 host-timed
+replays of a chunk of STEP_LOG steps, and the device ms a step of every
+kernel, of K3's and of K4's (torch.profiler over 3 replayed steps). It
+uses only s2d_kernel, conv_valid_cuda, conv_valid_s2d_cuda, conv_dw_cuda,
+conv_dw_s2d_cuda, device_ms and invert, which every version of the port
+that runs the inversion net has, so that two commits can be timed in
+turns in one call: unpack the other by `git archive` into a git-ignored
+directory (`_proof/parent`) and run this file with `--tree` for each, in
+turns. Prints one JSON line ({"tree", "card", "sites": {name: {"k3",
+"dx", "dw", "k3_lib", "dx_lib", "dw_lib"}}, and with --step "step": {"ms",
+"kernels_ms", "k3_ms", "k4_ms"}}, ms), appended to FILE if given.
+"""
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import pathlib
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+# The inversion net's K3/K4 sites on limes at resize 224 (224 x 281;
+# generator_layout chw, generator_conv pallas): (name, Cin, Cout, H, W of
+# the reflection-padded input, k, stride). Reflection padding is a copy
+# outside the kernels, so every site is a VALID conv: stride 1 at k = 7
+# and 5, stride 2 as the phase image's k2 = 4 and 3.
+INV_SITES = (("up_conv s0", 36, 16, 230, 287, 7, 1),
+             ("down_conv2 s0", 16, 16, 118, 147, 7, 1),
+             ("up_conv s2", 132, 64, 60, 75, 5, 1),
+             ("down_conv2 s2", 64, 64, 32, 40, 5, 1),
+             ("down_conv1 s0", 32, 16, 230, 287, 7, 2),
+             ("down_conv1 s1", 16, 32, 118, 147, 7, 2),
+             ("down_conv1 s2", 32, 64, 60, 75, 5, 2),
+             ("down_conv1 s3", 64, 128, 32, 40, 5, 2))
+STEP_ITERS, STEP_LOG = 21, 20
+LIMES = "datasets/feature_visualization/limes.jpeg"
+# K3's kernels (forward and input gradient; chip_smoke.K3_KERNELS)
+K3_KERNELS = ("conv_fwd_kernel", "conv_fwd_tc", "conv_fwd_px",
+              "conv_split_sum", "conv_stats_")
+
+
+def time_step(torch, tree: pathlib.Path) -> dict:
+    """The inversion's chw + pallas step of the imported tree: host ms of
+    a replayed step (the median over 5 chunks of STEP_LOG) and device ms a
+    step of all kernels, of K3's and of K4's (conv_dw_*)."""
+    import tempfile
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from splice_tpu_torch.tools import inversion
+    tmp = tempfile.mkdtemp(prefix="conv_forms_")
+    res = inversion.invert(str(tree / LIMES), f"{tmp}/inv.png",
+                           n_iter=STEP_ITERS, log_freq=STEP_LOG,
+                           generator_layout="chw", generator_conv="pallas")
+    program = res["program"]
+    rows = np.full((STEP_LOG, 1), 0.5, np.float32)
+    program.run(rows[:1], False)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        program.run(rows, False)
+        host.append((time.perf_counter() - t0) / STEP_LOG * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        program.run(rows[:3], False)
+        torch.cuda.synchronize()
+    total = k3 = k4 = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "device_time_total", 0) / 3e3
+        total += t
+        k3 += t * any(k in e.key for k in K3_KERNELS)
+        k4 += t * ("conv_dw_" in e.key)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"ms": statistics.median(host), "kernels_ms": total,
+            "k3_ms": k3, "k4_ms": k4}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    here = pathlib.Path(__file__).resolve().parents[2]
+    ap.add_argument("--tree", default=str(here))
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--step", action="store_true")
+    args = ap.parse_args(argv)
+    tree = pathlib.Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    import torch
+    import torch.nn.functional as F
+    from splice_tpu_torch.ops import _build, conv
+    from splice_tpu_torch.tools.mma_k_probe import device_ms
+    if not str(pathlib.Path(conv.__file__).resolve()).startswith(str(tree)):
+        raise SystemExit(f"imported {conv.__file__}, not from {tree}")
+    _build.build_all()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    phase = "phase" in inspect.signature(conv.conv_valid_cuda).parameters
+    gen = torch.Generator().manual_seed(12)
+    sites = {}
+    for name, cin, cout, H, W, k, stride in INV_SITES:
+        ho, wo = (H - k) // stride + 1, (W - k) // stride + 1
+        x = torch.randn(1, cin, H, W, generator=gen).to("cuda", torch.bfloat16)
+        w = (0.1 * torch.randn(k, k, cin, cout, generator=gen)).to(
+            "cuda", torch.bfloat16)
+        g = torch.randn(1, cout, ho, wo, generator=gen).to("cuda",
+                                                            torch.bfloat16)
+        wk = conv.s2d_kernel(w).contiguous() if stride == 2 else w
+        kk = wk.shape[0]
+        wf = torch.flip(wk, dims=(0, 1)).transpose(2, 3).contiguous()
+        woi = w.permute(3, 2, 0, 1).contiguous()
+        kw = {"phase": stride == 2} if phase else {}
+        calls = {
+            "k3": (lambda: conv.conv_valid_s2d_cuda(x, wk, 0, (ho, wo))
+                   if stride == 2 else conv.conv_valid_cuda(x, wk)),
+            "dx": lambda: conv.conv_valid_cuda(g, wf, kk - 1, **kw),
+            "dw": (lambda: conv.conv_dw_s2d_cuda(x, g, kk, 0)
+                   if stride == 2 else conv.conv_dw_cuda(x, g, kk)),
+            "k3_lib": lambda: F.conv2d(x, woi, stride=stride),
+            "dx_lib": lambda: torch.nn.grad.conv2d_input(
+                x.shape, woi, g, stride=stride),
+            "dw_lib": lambda: torch.nn.grad.conv2d_weight(
+                x, woi.shape, g, stride=stride)}
+        sites[name] = {}
+        for key, fn in calls.items():
+            fn()
+            sites[name][key] = statistics.median(
+                device_ms(fn, 10) for _ in range(5))
+        print(f"  {name}: " + ", ".join(f"{key} {v:.4f}" for key, v
+                                        in sites[name].items()),
+              file=sys.stderr)
+    result = {"tree": str(tree), "card": card, "sites": sites}
+    if args.step:
+        result["step"] = time_step(torch, tree)
+        print(f"  step: {result['step']}", file=sys.stderr)
+    line = json.dumps(result)
+    print(line)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

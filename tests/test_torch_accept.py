@@ -26,6 +26,7 @@ import torch
 from PIL import Image
 
 import golden_vit
+from child_deadline import deadline
 from splice_tpu.tools import evaluate as jeval
 from splice_tpu_torch.tools import accept
 
@@ -119,11 +120,14 @@ def checkpoint(tmp_path_factory):
 def _run(tmp_path, checkpoint, root, pairs, train_args=TRAIN_ARGS,
          extra=()):
     out = tmp_path / "accept_torch.json"
-    code = accept.main(
-        ["--checkpoint", str(checkpoint), "--model_name", "dino_vits8",
-         "--n_epochs", "2", "--pairs", *pairs, "--datasets_root", str(root),
-         "--train_args", train_args, "--out", str(out),
-         "--vit_npz", str(tmp_path / "vit.npz"), "--device", "cpu", *extra])
+    # each run trains in child processes: 10-45 s on a loaded host
+    with deadline(300):
+        code = accept.main(
+            ["--checkpoint", str(checkpoint), "--model_name", "dino_vits8",
+             "--n_epochs", "2", "--pairs", *pairs, "--datasets_root",
+             str(root), "--train_args", train_args, "--out", str(out),
+             "--vit_npz", str(tmp_path / "vit.npz"), "--device", "cpu",
+             *extra])
     return code, json.loads(out.read_text())
 
 

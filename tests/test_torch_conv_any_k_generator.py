@@ -1,0 +1,70 @@
+"""A generator with 9x9 up convs (SkipConfig filter_size_up = 9, a size no
+generator default takes): splice_tpu_torch.models.unet.skip_apply_chw
+against splice_tpu's, the convs through the kernels' routes (the plain
+versions of K3/K4 on the CPU; the reference's Pallas kernels in interpret
+mode). fp32, two BatchNorm stacks. Tolerances as
+tests/test_torch_generator_modes.py: output rtol 1e-5, atol 1e-6; flat
+gradient rtol 1e-4 with atol 1e-4 x its largest entry.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.flatten_util import ravel_pytree
+
+from splice_tpu.models import unet as junet
+from splice_tpu_torch.models import unet as tunet
+from splice_tpu_torch.utils.tree import tree_map
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's torch work: pytest-xdist runs
+    six workers, and a torch thread pool in each oversubscribes the host
+    (tests/test_torch_pairs.py's fixture)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+TINY_UNET = dict(channels_down=(8, 8, 16), channels_up=(8, 8, 16),
+                 channels_skip=(2, 2, 2), filter_size_up=9)
+
+
+@pytest.mark.parametrize("mode", ["pallas", "fused"])
+def test_generator_with_9x9_up_filters_matches_jax(mode, monkeypatch):
+    """skip_apply_chw with filter_size_up = 9 (a 9x9 up conv at every
+    scale, the deepest on a 6 x 5 map) against the reference's generator,
+    two BatchNorm stacks; both packages' FORCE_FUSED_KERNELS_ON_CPU on, so
+    fused routes every BatchNorm consumer through the prologue kernels
+    (JAX: the Pallas kernels in interpret mode)."""
+    monkeypatch.setattr(junet, "FORCE_FUSED_KERNELS_ON_CPU", True)
+    monkeypatch.setattr(tunet, "FORCE_FUSED_KERNELS_ON_CPU", True)
+    jcfg, tcfg = junet.SkipConfig(**TINY_UNET), tunet.SkipConfig(**TINY_UNET)
+    p = junet.init_skip_params(jax.random.PRNGKey(2), jcfg)
+    rng = np.random.default_rng(9)
+    p = jax.tree_util.tree_map(np.asarray, p)
+    x = rng.random((2, 1, 24, 20, 3)).astype(np.float32)
+    w = rng.standard_normal((2, 1, 24, 20, 3)).astype(np.float32)
+
+    def jf(params):
+        outs = jax.vmap(lambda xs: junet.skip_apply_chw(
+            params, jcfg, xs, conv_impl=mode))(jnp.asarray(x))
+        return jnp.sum(outs * w), outs
+
+    (_, jout), jg = jax.jit(jax.value_and_grad(jf, has_aux=True))(p)
+    jflat_g = np.asarray(ravel_pytree(jg)[0])
+
+    tflat, spec = tunet.flatten_params(tree_map(torch.from_numpy, p))
+    tflat.requires_grad_(True)
+    tout = tunet.skip_apply_chw(tunet.unflatten_params(tflat, spec), tcfg,
+                                torch.from_numpy(x.reshape(2, 24, 20, 3)),
+                                groups=2, conv_impl=mode)
+    (tout * torch.from_numpy(w.reshape(tout.shape))).sum().backward()
+    np.testing.assert_allclose(tout.detach().numpy(),
+                               np.asarray(jout).reshape(tout.shape),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tflat.grad.numpy(), jflat_g, rtol=1e-4,
+                               atol=1e-4 * np.abs(jflat_g).max())

@@ -77,7 +77,8 @@ def test_notebook_executes_end_to_end_on_cpu(tmp_path):
     for i, c in enumerate(nb.cells):
         c.id = f"cell-{i}"
 
-    client = NotebookClient(nb, timeout=600, kernel_name="python3",
+    # a cell's limit: the whole notebook takes 20-40 s on a loaded host
+    client = NotebookClient(nb, timeout=240, kernel_name="python3",
                             resources={"metadata": {"path": str(ROOT)}})
     client.execute()
 

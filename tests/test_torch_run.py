@@ -32,6 +32,7 @@ import pytest
 import torch
 from PIL import Image
 
+from child_deadline import deadline
 from splice_tpu import trainer as jtrainer
 from splice_tpu.config import Config as JConfig
 from splice_tpu.ops import image as jimg
@@ -300,7 +301,8 @@ def test_elastic_relaunch_finishes(tmp_path, capfd, monkeypatch):
     for var in ("_SPLICE_ELASTIC_CHILD", "SPLICE_RESTART_ATTEMPT"):
         monkeypatch.delenv(var, raising=False)
     ck = tmp_path / "ck"
-    with pytest.raises(SystemExit) as done:
+    # the children take about 15-35 s on a loaded host
+    with deadline(300), pytest.raises(SystemExit) as done:
         ttrain.main(["--dataroot", str(tmp_path), "--n_epochs", "6",
                      "--device", "cpu", "--dino_model_name", "dino_vits16",
                      "--dino_global_patch_size", "32", "--seed", "1",
