@@ -10,15 +10,16 @@ Phases, each fatal on failure:
      bf16 route of K1/K2 and K5/K6 and in the probe kernel P1, TF32
      mma.sync (HMMA ... TF32) in their fp32 route (split TF32), mma.sync
      (HMMA) in the bf16 route of K3 (every form) and of K4 and K7 (PR
-     6-7's forms and the pixel-major ones), and neither in the fp32 conv
-     kernels;
+     6-7's forms and the pixel-major ones), TF32 mma.sync in the fp32
+     route of K3 and K4 (split TF32: every instance of conv_fwd_tf32_kernel
+     and conv_dw_tf32_kernel), and neither in fp32 K7's CUDA-core kernels;
   2. hold every kernel against its plain PyTorch version at the shapes the
      training paths give it (and at small edge-case shapes; the bf16
      attention kernels also at N under a tile, one past a tile, B = 1 and
      2, 6 and 12 heads, masked key blocks and more seeds; the bf16 weight
-     gradients and every bf16 K3 form at W = 37, H < k, odd stride-2
-     sizes, Cin 3 and 136, Cout 3, 36, 68 and 128, k = 1, 2, 3, two
-     BatchNorm stacks with a scale of 1e-13, VALID K7, K3''' at ragged
+     gradients and every K3 form, bf16 and fp32, at W = 37, H < k, odd
+     stride-2 sizes, Cin 3 and 136, Cout 3, 36, 68 and 128, k = 1, 2, 3,
+     two BatchNorm stacks with a scale of 1e-13, VALID K7, K3''' at ragged
      sizes and the entire-A generator's B = 1 shapes from 900 x 1200; K2,
      K6, K3 in each form (the input gradient too), K4 in each form and K7
      twice on one input, bitwise equal),
@@ -144,10 +145,14 @@ Phases, each fatal on failure:
      K4's apart) and peak memory for each layout.
   12b. main_fp32: the main path with vit_compute_dtype and
      generator_compute_dtype float32, MAIN_FP32_STEPS steps through the
-     program, phase 4's gates, every K1/K2 launch on the tensor cores
-     (split TF32) and every conv launch (fp32 K3/K4 at the two auto
-     sites) on the CUDA cores; its replayed step, kernel ms, launches,
-     busy share and the fp32 attention's ms a step;
+     program, phase 4's gates, every K1/K2 launch and every conv launch
+     (fp32 K3/K4 at the two auto sites) on the tensor cores (split TF32);
+     then pallas_fp32, the same with generator_conv=pallas for
+     PALLAS_FP32_STEPS steps (every conv of the generator on fp32 K3/K4 at
+     full width: the stride-2 convs as k2 = 2 phase kernels, every site's
+     forward, input gradient and dw, each launch on the tensor cores);
+     each path's replayed step, kernel ms, launches, busy share, the fp32
+     attention's ms and the conv kernels' ms a step;
   13. the mesh (parallel.mesh, models.vit's tensor-parallel block):
      train_pairs over config c's eight pairs at dp = 2 x tp = 2 over
      [cuda:0] * 4 (two groups of four pairs, each group's ViT over two
@@ -182,8 +187,10 @@ Phases, each fatal on failure:
 Phase 2 also holds the fp32 (split-TF32) K1/K2 at FP32_QKV and K5/K6 at
 FP32_SPLIT against their plain fp32 versions (matmul TF32 off), bitwise
 run to run, every launch on the tensor cores, timed beside SDPA in fp32;
-K7 at k = 5 and 7 (GTAP_SITES, bf16 and fp32); and fp32 K3/K4 at the two
-auto sites against F.conv2d and conv2d_weight with cuDNN's TF32 off.
+K7 at k = 5 and 7 (GTAP_SITES, bf16 and fp32); and fp32 K3 (forward and
+input gradient) and K4 at the two auto sites (split TF32, bitwise twice)
+against their plain versions, timed beside F.conv2d, conv2d_input and
+conv2d_weight with cuDNN's TF32 off.
 Phase 2 also holds K1/K2 at the mesh's tp = 2 shape
 (MESH_QKV) and K5/K6 at its tp = 4 shape (MESH_SPLIT). Phase 2 also holds
 K1/K2 at the DINOv2 paths' shapes (DINOV2_QKV), at
@@ -710,9 +717,13 @@ def check_tensor_cores(build):
     must have such kernels, the
     conv library a forward one (conv_fwd_tc_kernel) and a weight-gradient
     one, and HMMA in each of the pixel-major forms' seven instances
-    (conv_fwd_px_kernel, conv_dw_px_kernel), and the fp32 conv kernels
-    (K3's, K4's and K7's CUDA-core kernels) hold neither; and HGMMA in each of P1's four instances (the probe
-    library: 64 and 128 columns, resident and streamed)."""
+    (conv_fwd_px_kernel, conv_dw_px_kernel); TF32 HMMA in each of the
+    split-TF32 fp32 forms' sixteen instances (conv_fwd_tf32_kernel and
+    conv_dw_tf32_kernel, nb = 1 to 8); no CUDA-core K3 or K4 kernel left
+    (conv_fwd_kernel, conv_dw_partial); and fp32 K7's CUDA-core kernels
+    (conv_dw_gtap_kernel, conv_dw_reduce_kernel) hold neither; and HGMMA
+    in each of P1's four instances (the probe library: 64 and 128
+    columns, resident and streamed)."""
     att = sass_counts(build, "attention")
     tc = [f for f in att if "_tc" in f]
     if not tc or not all(att[f][0] for f in tc):
@@ -732,13 +743,22 @@ def check_tensor_cores(build):
     if len(px) != 7 or not all(cnv[f][1] for f in px):
         fail(f"the pixel-major conv kernels missing or without HMMA: "
              f"{ {f: cnv[f] for f in px} }")
-    fp32 = [f for f in cnv if "conv_dw_partial" in f
-            or "conv_dw_gtap_kernel" in f or "conv_dw_reduce" in f
+    # the split-TF32 fp32 forms: K3's and K4's eight n8 widths each
+    tf = [f for f in cnv if "_tf32_kernel" in f]
+    if (len([f for f in tf if "conv_fwd_tf32_kernel" in f]) != 8
+            or len([f for f in tf if "conv_dw_tf32_kernel" in f]) != 8
+            or not all(cnv[f][2] for f in tf)):
+        fail(f"the split-TF32 conv kernels missing or without TF32 MMA: "
+             f"{ {f: cnv[f] for f in tf} }")
+    gone = [f for f in cnv if "conv_dw_partial" in f
             or "conv_fwd_kernel" in f]
-    if (not any("conv_fwd_kernel" in f for f in fp32)
-            or not any("conv_dw_partial" in f for f in fp32)
+    if gone:
+        fail(f"CUDA-core fp32 K3/K4 kernels still built: {gone}")
+    fp32 = [f for f in cnv if "conv_dw_gtap_kernel" in f
+            or "conv_dw_reduce" in f]
+    if (not any("conv_dw_gtap_kernel" in f for f in fp32)
             or any(sum(cnv[f]) for f in fp32)):
-        fail(f"fp32 conv kernels missing or on the tensor cores: "
+        fail(f"fp32 K7's kernels missing or on the tensor cores: "
              f"{ {f: cnv[f] for f in fp32} }")
     prb = sass_counts(build, "probe")
     p1 = [f for f in prb if "mma_repeat_kernel" in f]
@@ -1134,7 +1154,8 @@ def check_conv_any_k(torch, conv):
     output, the input gradient and the weight gradient each within phase
     2's tolerance; every conv on a kernel of the port (F.conv2d refused
     inside), K3 at least twice (forward and input gradient) and K4 once,
-    each bf16 launch on the tensor cores. Then K7's route at k = 9 with
+    each launch on the tensor cores (fp32 in split TF32). Then K7's route
+    at k = 9 with
     SAME_BORDER_KERNELS on (36 -> 4 channels, where _gtap_better picks K7
     and conv_route sends it to K4, the same function): kernel_conv_chw
     forward and backward, and conv_dw_gtap_cuda itself against K7's plain
@@ -1177,8 +1198,8 @@ def check_conv_any_k(torch, conv):
                 print(f"  {tag}: launches (all, tensor cores) {ran}")
                 n3 = sum(ran.get(n, (0, 0))[0] for n in K3)
                 n4 = sum(ran.get(n, (0, 0))[0] for n in DW)
-                on_tc = all(t == (n if dt == torch.bfloat16 else 0)
-                            for n, t in ran.values())
+                # every K3 and K4 launch, bf16 and fp32 (split TF32)
+                on_tc = all(t == n for n, t in ran.values())
                 if n3 < 2 or n4 < 1 or not on_tc:
                     fail(f"{tag}: K3 {n3} and K4 {n4} launches, or off the "
                          f"tensor cores: {ran}")
@@ -1531,12 +1552,16 @@ def check_gtap_wide_k(torch, conv):
 
 
 def check_conv_fp32(torch, conv):
-    """fp32 K3 (forward) and K4 at the two sites the auto rule sends to
-    them (main_fp32's), on the CUDA cores: against their plain versions
-    (1e-4 x max|plain|), timed beside F.conv2d and conv2d_weight with
-    cuDNN's TF32 off (torch.backends.cudnn.allow_tf32 = False: cuDNN's
-    fp32 conv would otherwise round its inputs to TF32). Returns
-    {(kernel, site): row}."""
+    """fp32 K3 (the forward and the input gradient: the flipped, io-swapped
+    kernel over the cotangent with a 1-pixel border, as ConvValidPro.
+    backward launches it) and K4 at the two sites the auto rule sends to
+    them (main_fp32's), on the tensor cores in split TF32: against their
+    plain versions (1e-4 x max|plain|), each twice on one input, bitwise,
+    every launch counted in tc_launches; timed beside the plain version
+    and F.conv2d, conv2d_input and conv2d_weight with cuDNN's TF32 off
+    (torch.backends.cudnn.allow_tf32 = False: cuDNN's fp32 conv would
+    otherwise round its inputs to TF32). Returns {(row, site): row},
+    row in conv_valid, conv_valid_dx, conv_dw."""
     F = torch.nn.functional
     if torch.backends.cudnn.allow_tf32:
         fail("cuDNN's TF32 is on: the fp32 yardsticks would round to TF32")
@@ -1550,28 +1575,42 @@ def check_conv_fp32(torch, conv):
         x = torch.randn(B, cin, hw, hw, generator=gen).cuda()
         w = (0.1 * torch.randn(k, k, cin, cout, generator=gen)).cuda()
         g = torch.randn(B, cout, hw, hw, generator=gen).cuda()
+        w_flip = torch.flip(w, dims=(0, 1)).transpose(2, 3).contiguous()
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
         tag = (f"site {site} [{B},{cin},{hw},{hw}]->[{B},{cout},{hw},{hw}] "
                f"pad 1 float32")
-        e3 = compare(f"K3 conv_valid {tag}", conv.conv_valid_cuda(x, w, 1),
-                     conv.conv_valid_plain(x, w, 1), rtol, why)
-        e4 = compare(f"K4 conv_dw {tag}", conv.conv_dw_cuda(x, g, k, 1),
-                     conv.conv_dw_plain(F.pad(x, (1, 1, 1, 1)), g, k), rtol,
-                     DW_WHY)
         flops = 2 * B * hw * hw * cout * cin * k * k
-        w_oihw = w.permute(3, 2, 0, 1).contiguous()
-        out[("conv_valid", site)] = dict(timed(
-            lambda: conv.conv_valid_cuda(x, w, 1),
-            lambda: conv.conv_valid_plain(x, w, 1),
-            lambda: F.conv2d(x, w_oihw, padding=1),
-            (x.numel() + g.numel() + w.numel()) * 4, flops, "float32",
-            "K3 fp32", tag), max_abs_err=e3, shape=f"fwd {tag}")
-        out[("conv_dw", site)] = dict(timed(
-            lambda: conv.conv_dw_cuda(x, g, k, 1),
-            lambda: conv.conv_dw_plain(F.pad(x, (1, 1, 1, 1)), g, k),
-            lambda: torch.nn.grad.conv2d_weight(x, w_oihw.shape, g,
-                                                padding=1),
-            (x.numel() + g.numel() + w.numel()) * 4, flops, "float32",
-            "K4 fp32", tag), max_abs_err=e4, shape=tag)
+        nbytes = (x.numel() + g.numel() + w.numel()) * 4
+        before = (tc_k3_launches(conv), tc_dw_launches(conv))
+        calls = {
+            "conv_valid": (lambda: conv.conv_valid_cuda(x, w, 1),
+                           lambda: conv.conv_valid_plain(x, w, 1),
+                           lambda: F.conv2d(x, w_oihw, padding=1),
+                           "K3 fp32", f"fwd {tag}", rtol, why),
+            "conv_valid_dx": (lambda: conv.conv_valid_cuda(g, w_flip, 1),
+                              lambda: conv.conv_valid_plain(g, w_flip, 1),
+                              lambda: torch.nn.grad.conv2d_input(
+                                  x.shape, w_oihw, g, padding=1),
+                              "K3 fp32 dx", f"dx {tag}", rtol, why),
+            "conv_dw": (lambda: conv.conv_dw_cuda(x, g, k, 1),
+                        lambda: conv.conv_dw_plain(F.pad(x, (1, 1, 1, 1)),
+                                                   g, k),
+                        lambda: torch.nn.grad.conv2d_weight(
+                            x, w_oihw.shape, g, padding=1),
+                        "K4 fp32", tag, rtol, DW_WHY)}
+        for name, (kern, plain, lib, label, shape, tol, wh) in calls.items():
+            got = kern()
+            err = compare(f"{label} {tag}", got, plain(), tol, wh)
+            check_bitwise(torch, f"{label} {tag}", (got,), (kern(),))
+            del got
+            out[(name, site)] = dict(timed(kern, plain, lib, nbytes, flops,
+                                           "float32", label, tag),
+                                     max_abs_err=err, shape=shape)
+        launched = (tc_k3_launches(conv) - before[0],
+                    tc_dw_launches(conv) - before[1])
+        # each kernel: compare, bitwise and its timed() batches
+        if min(launched) < 4:
+            fail(f"fp32 K3/K4 {tag}: tensor-core launches {launched}")
         del x, g
         torch.cuda.empty_cache()
     return out
@@ -1655,20 +1694,21 @@ def tc_dw_launches(conv) -> int:
     return sum(getattr(conv, f"{name}_cuda").tc_launches for name in DW)
 
 
-def check_dw_tc_edge_cases(torch, conv):
-    """The bf16 weight-gradient kernels at DW_EDGES against their plain
-    versions (fp32 sums: 1e-4 x max|plain|), every launch on the tensor
-    cores; stride 2 as the k2 phase-image dw, a scale of 1e-13 and a
-    negative one in the first stack."""
+def check_dw_tc_edge_cases(torch, conv, dtype_name="bfloat16"):
+    """The weight-gradient kernels at DW_EDGES against their plain
+    versions (fp32 sums: 1e-4 x max|plain|), in bf16 or fp32, every launch
+    on the tensor cores (fp32 K4 in split TF32) but fp32 K7's, which runs
+    on the CUDA cores; stride 2 as the k2 phase-image dw, a scale of 1e-13
+    and a negative one in the first stack."""
     gen = torch.Generator().manual_seed(9)
     rtol = RTOL["float32"][0]
+    dt = getattr(torch, dtype_name)
     for label, B, cin, cout, h, w, k, pad, stride, G, gtap in DW_EDGES:
-        x = torch.randn(B, cin, h, w, generator=gen).to("cuda", torch.bfloat16)
+        x = torch.randn(B, cin, h, w, generator=gen).to("cuda", dt)
         ho = (h + 2 * pad - k) // stride + 1
         wo = (w + 2 * pad - k) // stride + 1
         kk = (k + 1) // 2 if stride == 2 else k
-        g = torch.randn(B, cout, ho, wo, generator=gen).to("cuda",
-                                                           torch.bfloat16)
+        g = torch.randn(B, cout, ho, wo, generator=gen).to("cuda", dt)
         a = (None, None, 1.0)
         if G:
             sc = (0.5 + torch.rand(G, cin, generator=gen)).cuda()
@@ -1676,8 +1716,10 @@ def check_dw_tc_edge_cases(torch, conv):
             sc[0, cin - 1] = -0.7
             a = (sc, torch.randn(G, cin, generator=gen).cuda(), 0.2)
         tag = (f"{label} [{B},{cin},{h},{w}]->[{B},{cout},{ho},{wo}] k={k} "
-               f"pad={pad} stride={stride} G={G} bfloat16")
+               f"pad={pad} stride={stride} G={G} {dtype_name}")
         tc = tc_dw_launches(conv)
+        # fp32 K7 at its own kernel's k runs on the CUDA cores
+        on_tc = not (gtap and dt == torch.float32 and k in conv.GTAP_KS)
         if gtap:
             got = conv.conv_dw_gtap_cuda(x, g, k, *a, pad)
             want = conv.conv_dw_gtap_plain(x, g, k, *a, pad)
@@ -1695,8 +1737,9 @@ def check_dw_tc_edge_cases(torch, conv):
             want = conv.conv_dw_pro_plain(x, g, kk, *a, pad)
             name = "K4"
         compare(f"{name} {tag}", got, want, rtol, DW_WHY)
-        if tc_dw_launches(conv) != tc + 1:
-            fail(f"{name} {tag}: the bf16 launch was not on the tensor cores")
+        if tc_dw_launches(conv) != tc + on_tc:
+            fail(f"{name} {tag}: the launch was {'not ' if on_tc else ''}on "
+                 f"the tensor cores")
         del x, g, got, want
 
 
@@ -1742,20 +1785,21 @@ def tc_k3_launches(conv) -> int:
     return sum(getattr(conv, f"{name}_cuda").tc_launches for name in K3)
 
 
-def check_k3_tc_edge_cases(torch, conv):
-    """The bf16 K3 forms at K3_EDGES against their plain versions (bf16:
-    1.6e-2 x max|plain|; K3''' sums 1e-4), every launch on the tensor
-    cores; stride 2 through the k2 phase kernel; K3''' also bitwise twice
-    (at k = 5 and 7 on the pixel-major form: fp32 partials and the
-    fixed-order second pass)."""
+def check_k3_tc_edge_cases(torch, conv, dtype_name="bfloat16"):
+    """The K3 forms at K3_EDGES against their plain versions, in bf16
+    (1.6e-2 x max|plain|; K3''' sums 1e-4) or fp32 (1e-4; split TF32),
+    every launch on the tensor cores; stride 2 through the k2 phase
+    kernel; K3''' also bitwise twice (at k = 5 and 7 in bf16 on the
+    pixel-major form: fp32 partials and the fixed-order second pass)."""
     gen = torch.Generator().manual_seed(10)
-    rtol, why = RTOL["bfloat16"]
+    rtol, why = RTOL[dtype_name]
+    dt = getattr(torch, dtype_name)
     for label, form, B, cin, cout, h, w, k, pad, stride, G in K3_EDGES:
-        x = torch.randn(B, cin, h, w, generator=gen).to("cuda", torch.bfloat16)
+        x = torch.randn(B, cin, h, w, generator=gen).to("cuda", dt)
         wt = 0.1 * torch.randn(k, k, cin, cout, generator=gen)
         if stride == 2:
             wt = conv.s2d_kernel(wt)
-        wt = wt.contiguous().to("cuda", torch.bfloat16)
+        wt = wt.contiguous().to("cuda", dt)
         ho = (h + 2 * pad - k) // stride + 1
         wo = (w + 2 * pad - k) // stride + 1
         a = (None, None, 1.0)
@@ -1765,7 +1809,7 @@ def check_k3_tc_edge_cases(torch, conv):
             sc[G - 1, cin - 1] = -0.7
             a = (sc, torch.randn(G, cin, generator=gen).cuda(), 0.2)
         tag = (f"{label} [{B},{cin},{h},{w}]->[{B},{cout},{ho},{wo}] k={k} "
-               f"pad={pad} stride={stride} G={G} {form} bfloat16")
+               f"pad={pad} stride={stride} G={G} {form} {dtype_name}")
         want = conv.conv_valid_pro_plain(x, wt, *a, pad, stride, (ho, wo))
         tc = tc_k3_launches(conv)
         if form == "stats":
@@ -1786,7 +1830,7 @@ def check_k3_tc_edge_cases(torch, conv):
             compare(f"K3 {tag}", got, want, rtol, why)
             del got
         if tc_k3_launches(conv) != tc + 1:
-            fail(f"K3 {tag}: the bf16 launch was not on the tensor cores")
+            fail(f"K3 {tag}: the launch was not on the tensor cores")
         del x, want
 
 
@@ -2001,7 +2045,7 @@ def check_small_inversion_step(torch):
     passed in) at fp32 with the inversion net (7x7/5x5/3x3, reflection) at
     128 x 160 and a two-block ViT of width 128, on the card for
     generator_layout nhwc (cuDNN) and chw + pallas (K3/K4 at k = 7, 5, 4,
-    3 on the CUDA cores), each against the CPU's float64 evaluation (the
+    3, fp32 in split TF32), each against the CPU's float64 evaluation (the
     two layouts agree there to 1e-13). This gradient is ill-conditioned in
     fp32 itself: the CPU's fp32 evaluations lie 1.4e-3 (chw) and 3.0e-3
     (nhwc) from float64 in max error over max|grad| (3.9e-3 and 5.1e-3 at
@@ -2375,11 +2419,11 @@ def check_sync_free(torch, program, cfg):
 
 
 # Kernel names (substrings) of the port's own kernels in a profile.
-OUR_KERNELS = ("attn_fwd_kernel", "attn_bwd_", "conv_fwd_kernel",
+OUR_KERNELS = ("attn_fwd_kernel", "attn_bwd_", "conv_fwd_tf32",
                "conv_fwd_tc", "conv_fwd_px", "conv_split_sum", "conv_dw_",
                "conv_stats_")
 # the K3 (forward and input gradient) and K4/K7 kernels among them
-K3_KERNELS = ("conv_fwd_kernel", "conv_fwd_tc", "conv_fwd_px",
+K3_KERNELS = ("conv_fwd_tf32", "conv_fwd_tc", "conv_fwd_px",
               "conv_split_sum", "conv_stats_")
 
 
@@ -2561,21 +2605,22 @@ def zero_counts(kernels) -> None:
 
 def check_tc_launches(launches, tc, name, fp32_conv=False):
     """Every launch of the path's attention kernels (K1/K2, or K5/K6 on
-    the 480 path; bf16 and fp32 alike) on the tensor cores, and of its
-    conv kernels (K3 in each form, K4 in each form, K7) where the
-    generator is bf16; with fp32_conv (an fp32 generator) none of the conv
-    launches, which run on the CUDA cores. The graphs' replays included;
-    fails otherwise, or when the path launched no attention kernel."""
+    the 480 path; bf16 and fp32 alike) and of its K3 and K4 kernels (every
+    form; bf16, and fp32 in split TF32) on the tensor cores, and of K7
+    where the generator is bf16; with fp32_conv (an fp32 generator) no K7
+    launch, which runs on the CUDA cores there. The graphs' replays
+    included; fails otherwise, or when the path launched no attention
+    kernel."""
     att = [k for k in ATTENTION if launches.get(k)]
     convs = [k for k in DW + K3 if launches.get(k)]
     tcs = {k: tc[k] for k in att + convs}
     print(f"  tensor-core launches in the {name} path: {tcs}")
-    on = att + ([] if fp32_conv else convs)
-    off = convs if fp32_conv else []
+    off = [k for k in convs if fp32_conv and k == "conv_dw_gtap"]
+    on = [k for k in att + convs if k not in off]
     if (not att or any(tc[k] != launches[k] for k in on)
             or any(tc[k] for k in off)):
         fail(f"{name} path: attention or conv launches off the tensor "
-             f"cores{' (or fp32 conv launches on them)' if off else ''}: "
+             f"cores{' (or fp32 K7 launches on them)' if off else ''}: "
              f"{tcs} of {launches}")
 
 
@@ -3578,34 +3623,42 @@ def run_inversion_fp32(torch, kernels):
 
 
 MAIN_FP32_STEPS = 6   # step 0 entire-A, step 1 eager, 2-5 replays
+PALLAS_FP32_STEPS = 4
+# (name, generator_conv, steps, the wrappers each must launch in its graphs)
+FP32_PATHS = (("main_fp32", "auto", MAIN_FP32_STEPS,
+               ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid", "conv_dw")),
+              ("pallas_fp32", "pallas", PALLAS_FP32_STEPS,
+               ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid", "conv_dw",
+                "conv_valid_s2d", "conv_dw_s2d")))
 
 
-def run_main_fp32(torch, kernels, base, pair):
-    """main_fp32: the main path's settings (cows, 896 canvas, 224 loss
-    resolution, generator_conv auto, entire_A_every 10) with
-    vit_compute_dtype and generator_compute_dtype float32, MAIN_FP32_STEPS
-    steps through train_pair's program: phase 4's gates, every K1/K2
-    launch on the tensor cores (split TF32) and every conv launch (K3 and
-    K4 at the two auto sites, fp32) on the CUDA cores; a profile of
-    replays. Returns (launches, replayed step ms, attention ms a step)."""
+def run_fp32_path(torch, kernels, base, pair, name, mode, n_steps, need):
+    """main_fp32 (generator_conv auto: K3 and K4 at the two auto sites) or
+    pallas_fp32 (generator_conv pallas: every conv on K3/K4, the stride-2
+    ones as k2 = 2 phase kernels, every site's forward, input gradient and
+    dw): the main path's settings (cows, 896 canvas, 224 loss resolution,
+    entire_A_every 10) with vit_compute_dtype and generator_compute_dtype
+    float32, n_steps steps through train_pair's program: phase 4's gates,
+    every K1/K2 launch and every K3/K4 launch on the tensor cores (split
+    TF32); a profile of replays. Returns (launches, replayed step ms,
+    attention ms a step, conv kernels' ms a step)."""
     from splice_tpu_torch.config import load_config
-    cfg = load_config(None, dict(base, vit_compute_dtype="float32",
+    cfg = load_config(None, dict(base, generator_conv=mode,
+                                 vit_compute_dtype="float32",
                                  generator_compute_dtype="float32"))
-    res, launches = run_path(
-        torch, "main_fp32", cfg, MAIN_FP32_STEPS, kernels,
-        ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid", "conv_dw"),
-        fp32_conv=True, pair=pair)
+    res, launches = run_path(torch, name, cfg, n_steps, kernels, need,
+                             fp32_conv=True, pair=pair)
     by_name = {}
     ms = profile_steps(torch, res["program"], cfg, kernel_ms=by_name)
     att = sum(t for k, t in by_name.items() if "attn_" in k)
     conv_ms = sum(t for k, t in by_name.items()
                   if "conv_fwd" in k or "conv_dw_" in k)
-    print(f"  main_fp32: replayed regular step {ms:.2f} ms; per step the "
+    print(f"  {name}: replayed regular step {ms:.2f} ms; per step the "
           f"fp32 attention kernels {att:.3f} ms, the fp32 conv kernels "
           f"{conv_ms:.3f} ms")
     del res
     torch.cuda.empty_cache()
-    return launches, ms, att
+    return launches, ms, att, conv_ms
 
 
 MESH_STEPS = 3     # phase 13: step 0 entire-A, steps 1-2 regular
@@ -4327,8 +4380,9 @@ def main() -> int:
     gtap_rows = check_gtap_wide_k(torch, conv)
     conv32_rows = check_conv_fp32(torch, conv)
     check_same_edge_cases(torch, conv)
-    check_dw_tc_edge_cases(torch, conv)
-    check_k3_tc_edge_cases(torch, conv)
+    for dtype_name in ("bfloat16", "float32"):
+        check_dw_tc_edge_cases(torch, conv, dtype_name)
+        check_k3_tc_edge_cases(torch, conv, dtype_name)
     check_probe(torch, probe, rows)
     torch.cuda.empty_cache()
     for name, r in rows.items():
@@ -4502,14 +4556,20 @@ def main() -> int:
           "at the inversion shape")
     launches["inversion_fp32"], inv32_ms, inv32_att = run_inversion_fp32(
         torch, kernels)
-    mark(t_start)
-    print(f"phase 12b: main_fp32 (main with vit_compute_dtype and "
-          f"generator_compute_dtype float32), {MAIN_FP32_STEPS} steps")
-    launches["main_fp32"], m32_ms, m32_att = run_main_fp32(
-        torch, kernels, base, shared["pair"])
-    print(f"  fp32 steps: main_fp32 {m32_ms:.2f} ms replayed ({m32_att:.3f} "
-          f"ms of attention), inversion_fp32 {inv32_ms:.3f} ms "
-          f"({inv32_att:.3f} ms of attention)")
+    fp32_ms = {}
+    for name, mode, n, need32 in FP32_PATHS:
+        mark(t_start)
+        print(f"phase 12b: {name} (main with generator_conv={mode}, "
+              f"vit_compute_dtype and generator_compute_dtype float32), "
+              f"{n} steps")
+        launches[name], *fp32_ms[name] = run_fp32_path(
+            torch, kernels, base, shared["pair"], name, mode, n, need32)
+    print("  fp32 steps: " + ", ".join(
+        f"{name} {ms:.2f} ms replayed ({att:.3f} ms of attention, "
+        f"{cms:.3f} ms of conv kernels)"
+        for name, (ms, att, cms) in fp32_ms.items())
+        + f", inversion_fp32 {inv32_ms:.3f} ms ({inv32_att:.3f} ms of "
+        f"attention)")
     print("  the main path with generator_layout=nhwc, 4 steps")
     ncfg = load_config(None, dict(base, generator_layout="nhwc"))
     nres, launches["main_nhwc"] = run_path(
@@ -4606,8 +4666,9 @@ def main() -> int:
         extra.append(("K7", dict(r, k=k), "none (phase 2)",
                       "tensor core" if dt == "bfloat16" else "CUDA core"))
     for (name, site), r in conv32_rows.items():
-        extra.append(({"conv_valid": "K3", "conv_dw": "K4"}[name], r,
-                      "main_fp32", "CUDA core"))
+        extra.append(({"conv_valid": "K3", "conv_valid_dx": "K3",
+                       "conv_dw": "K4"}[name], r, "main_fp32",
+                      "tensor core (split TF32)"))
     ids = {"K1": "attn_qkv_fwd", "K2": "attn_qkv_bwd", "K5": "attn_fwd",
            "K6": "attn_bwd", "K3": "conv_valid", "K4": "conv_dw",
            "K7": "conv_dw_gtap"}

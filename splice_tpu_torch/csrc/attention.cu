@@ -793,14 +793,9 @@ int bwd(const Op& op, const void* g, void* dq, void* dk, void* dv,
 // attn_fwd, K2 attn_qkv_bwd and K6 attn_bwd
 // ---------------------------------------------------------------------------
 // Every product is mma.sync m16n8k8 .tf32 with fp32 accumulators, in three
-// terms: an fp32 operand x splits into hi = x rounded to TF32 (as
-// cvt.rna.tf32.f32) and lo = x - hi (read as TF32: truncated), and a*b
-// accumulates as hi_a*lo_b + lo_a*hi_b + hi_a*hi_b, the small terms
-// first. One TF32 term keeps about three
-// decimal digits (errors near 1e-3 x max of the output); the split keeps
-// the fp32 plain version's 1e-4 x max with about two orders to spare
-// (tests/test_torch_tf32_split.py emulates it). The probabilities p and
-// dl are split like any other operand, never rounded further.
+// terms (split TF32: tf32.cuh, which conv.cu's fp32 kernels share). The
+// probabilities p and dl are split like any other operand, never rounded
+// further.
 //
 // What bounds it: three TF32 products at 495 TFLOP/s are an fp32-accurate
 // 165 TFLOP/s, 2.5x the CUDA cores' 67; the bytes are the inputs once.
@@ -826,6 +821,8 @@ int bwd(const Op& op, const void* g, void* dq, void* dk, void* dv,
 //     c3}: b0 = T[j0 + 2t][n0 + g], b1 = T[j0 + 2t + 1][n0 + g].
 // The layout is data, as in the bf16 kernels: every operand is read
 // through the element strides of its view (Operands).
+#include "tf32.cuh"
+
 namespace tf32 {
 
 constexpr int ROWS = 64;                // rows of a block and of a tile
@@ -837,63 +834,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 // dynamic shared memory: the resident tiles, then two stages of two
 constexpr int FWD_SMEM = (1 + 4) * TILE * 4;    // q | (k, v) x 2: 87,040
 constexpr int BWD_SMEM = (2 + 4) * TILE * 4;    // 2 resident | 2 x 2: 104,448
-
-// x = hi + lo. hi is x rounded to TF32 as cvt.rna.tf32.f32 rounds a
-// finite value (to nearest, ties away from zero: add half a TF32 ulp to
-// the bit pattern, clear the 13 bits below), in two integer operations;
-// lo = x - hi is exact in fp32 and goes to the tensor cores as it is,
-// which read a .tf32 operand's top 19 bits (lo truncated to TF32: an
-// error of at most 2^-22 |x|). A NaN in x stays one in lo.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
-
-__device__ __forceinline__ FragA split_a(float a0, float a1, float a2,
-                                         float a3) {
-  FragA f;
-  split(a0, f.hi[0], f.lo[0]);
-  split(a1, f.hi[1], f.lo[1]);
-  split(a2, f.hi[2], f.lo[2]);
-  split(a3, f.hi[3], f.lo[3]);
-  return f;
-}
-__device__ __forceinline__ FragB split_b(float b0, float b1) {
-  FragB f;
-  split(b0, f.hi[0], f.lo[0]);
-  split(b1, f.hi[1], f.lo[1]);
-  return f;
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d[j] += a b[j] for J blocks of 8 columns in split TF32, the small terms
-// first (hi*lo, lo*hi, then hi*hi): each term over every j before the
-// next, so that the products into one accumulator stand J instructions
-// apart.
-template <int J>
-__device__ __forceinline__ void mma3_cols(float (&d)[J][4], const FragA& a,
-                                          const FragB (&b)[J]) {
-#pragma unroll
-  for (int j = 0; j < J; ++j) mma(d[j], a.hi, b[j].lo);
-#pragma unroll
-  for (int j = 0; j < J; ++j) mma(d[j], a.lo, b[j].hi);
-#pragma unroll
-  for (int j = 0; j < J; ++j) mma(d[j], a.hi, b[j].hi);
-}
 
 // A fragment of rows r0.. of tile T at columns k0..k0 + 7.
 __device__ __forceinline__ FragA load_a(const float* T, int r0, int k0,

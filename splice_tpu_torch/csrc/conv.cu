@@ -17,7 +17,7 @@
 //     reference's pre-image padding v = -shift/scale approximates
 //     (conv_pallas.py:959-975).
 //
-// K3 (conv_fwd_tc or conv_fwd_px in bf16, conv_valid_fwd in fp32)
+// K3 (conv_fwd_tc or conv_fwd_px in bf16, conv_fwd_tf32 in fp32)
 // replaces _make_conv_kernel (:157, launched by
 // _conv_fwd_impl :276): the plain VALID form (conv_valid_chw :707), its
 // has_pro form (conv_pro_valid_chw :852) and the k2 = 2 space-to-depth
@@ -25,7 +25,7 @@
 // input gradient: the wrapper passes the cotangent with an implicit border
 // and the flipped, io-swapped kernel (_conv_bwd :719-729, _convp_bwd
 // :873-896).
-// K4 (conv_dw_tc or conv_dw_px in bf16, conv_dw in fp32) replaces
+// K4 (conv_dw_tc or conv_dw_px in bf16, conv_dw_tf32 in fp32) replaces
 // _make_dw_kernel (:401, launched by _dw_impl :630),
 // with and without the prologue (recomputed on the read, as the TPU kernel
 // does) and at any k, as the reference's kernels take any k (the training
@@ -70,8 +70,9 @@
 // What bounds it on the H100: at the generator's sites (Cin 3-136, Cout
 // 3-128, outputs up to 896x896, bf16) a call moves 10-170 MB and does up to
 // 17 GFLOP: about 100 flop per byte, under the bf16 tensor cores' ridge of
-// about 295, so on the tensor cores the bound is the memory traffic, on
-// the CUDA cores the arithmetic. Two routes, chosen by dtype:
+// about 295, so in bf16 the bound is the memory traffic; fp32 runs three
+// TF32 products a product (split TF32), 3 x the flops at 495 TFLOP/s, and
+// its bound is the arithmetic. Two routes, chosen by dtype:
 //   * bf16 runs on the tensor cores (mma.sync): K3 in every form through
 //     conv_fwd_tc (namespace fwdtc) at k <= 3 and conv_fwd_px (namespace
 //     px) at k >= 4 and the k2 = 3 phase kernels, K4 likewise through
@@ -80,26 +81,21 @@
 //     k: the same function). fwdtc and dwtc stage x through Src into the
 //     same channel-major bf16 tiles, px into pixel-major ones; each is
 //     described above its kernel.
-//   * fp32 runs on the CUDA cores in full fp32 (the 1e-4 gates of the
-//     fp32 steps need it, not TF32): conv_valid_fwd, conv_dw, conv_dw_gtap.
+//   * fp32 K3 and K4 run on the tensor cores too, in split TF32 (three
+//     mma.sync m16n8k8 .tf32 products a product, tf32.cuh, which keep the
+//     fp32 steps' 1e-4 gates): conv_fwd_tf32 and conv_dw_tf32 (namespace
+//     tc32), every form at any k, described above their kernels. fp32 K7
+//     stays on the CUDA cores in full fp32 (conv_dw_gtap).
 //
-// fp32 K3 design: a block owns an 8 x 32 tile of output pixels (one per
-// thread) and a chunk of COB output channels (fp32 accumulators in
-// registers). It walks the virtual channels in chunks of 8: the input tile
-// with its (k-1) halo and the weights of the chunk go to shared memory
-// through the mapping, so any height and width work (898, 1202, ...).
-// fp32 K4 design (k in {1, 2, 3, 4, 5, 7} by templates, any other k by
-// conv_dw_partial_rt_kernel): the TPU kernel reduced B*H*W pixels into one accumulator
-// over a sequential grid. Here pass 1 splits the pixels into row chunks; a
-// block owns (row chunk, Cin chunk, Cout chunk), each thread one (c, co)
-// pair with its k*k tap sums, and writes its partial sums to an fp32
-// scratch [chunks, k*k*Cin*Cout]. Pass 2 adds the chunks in a fixed order:
-// no atomics, so a seeded run repeats bit for bit.
-// fp32 K7 design: as K4, but the chunks split V's rows, the input tile has
-// no halo and the cotangent tile carries it (K-1 rows above, K-1 columns to
-// the left); each thread owns one ci and the K*K (tap, co) accumulators of
-// its co, so one value of z feeds K*K multiply-adds from shared memory.
-// It reuses K4's pass 2.
+// fp32 K7 design (the CUDA cores): the TPU kernel reduced the pixels into
+// one accumulator over a sequential grid. Here pass 1 splits V's rows into
+// chunks; a block owns (row chunk, Cin chunk, Cout chunk), the input tile
+// has no halo and the cotangent tile carries it (K-1 rows above, K-1
+// columns to the left); each thread owns one ci and the K*K (tap, co)
+// accumulators of its co, so one value of z feeds K*K multiply-adds from
+// shared memory, and writes its partial sums to an fp32 scratch [chunks,
+// Cin*K*K*Cout]. Pass 2 (conv_dw_reduce_kernel) adds the chunks in a fixed
+// order: no atomics, so a seeded run repeats bit for bit.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -109,6 +105,8 @@
 namespace cg = cooperative_groups;
 
 namespace {
+
+#include "tf32.cuh"
 
 constexpr int NT = 256;
 
@@ -153,106 +151,6 @@ __device__ __forceinline__ float load_v(const T* __restrict__ x,
   return v;
 }
 
-// ---------------------------------------------------------------------------
-// fp32 K3: y[b,co,oy,ox] = sum_{c,dy,dx} V[b,c,oy+dy,ox+dx] w[dy,dx,c,co]
-// ---------------------------------------------------------------------------
-constexpr int TW = 32;   // output tile width (one warp per row)
-constexpr int TH = 8;    // output tile height
-constexpr int CB = 8;    // virtual input channels per smem chunk
-
-template <int COB>
-__global__ void __launch_bounds__(NT)
-conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                float* __restrict__ y, float* __restrict__ st_part, Src src,
-                int Cin, int Cout, int Ho, int Wo, int k, int n_co) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int kk = k * k;
-  const int IW = TW + k - 1, IH = TH + k - 1;
-  float* ws = smem;                       // [CB][kk][COB], 16-byte rows
-  float* xs = smem + CB * kk * COB;       // [CB][IH][IW]
-
-  const int b = blockIdx.z / n_co;
-  const int co0 = (blockIdx.z % n_co) * COB;
-  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
-
-  float acc[COB];
-#pragma unroll
-  for (int c = 0; c < COB; ++c) acc[c] = 0.f;
-
-  for (int c0 = 0; c0 < Cin; c0 += CB) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < CB * IH * IW; i += NT) {
-      const int c = i / (IH * IW), rem = i % (IH * IW);
-      xs[i] = c0 + c < Cin
-          ? load_v(x, src, b, c0 + c, y0 + rem / IW, x0 + rem % IW) : 0.f;
-    }
-    for (int i = threadIdx.x; i < CB * kk * COB; i += NT) {
-      const int c = i / (kk * COB), rem = i % (kk * COB);
-      const int t = rem / COB, co = co0 + rem % COB, ci = c0 + c;
-      ws[i] = (ci < Cin && co < Cout)
-          ? w[((size_t)t * Cin + ci) * Cout + co] : 0.f;
-    }
-    __syncthreads();
-    const int cmax = min(CB, Cin - c0);
-    for (int c = 0; c < cmax; ++c) {
-      for (int dy = 0; dy < k; ++dy) {
-        const float* xrow = xs + (c * IH + ty + dy) * IW + tx;
-        for (int dx = 0; dx < k; ++dx) {
-          const float xv = xrow[dx];
-          const float4* wr =
-              reinterpret_cast<const float4*>(ws + (c * kk + dy * k + dx) * COB);
-#pragma unroll
-          for (int q = 0; q < COB / 4; ++q) {
-            const float4 wv = wr[q];   // same address in every lane: broadcast
-            acc[4 * q + 0] = fmaf(xv, wv.x, acc[4 * q + 0]);
-            acc[4 * q + 1] = fmaf(xv, wv.y, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(xv, wv.z, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(xv, wv.w, acc[4 * q + 3]);
-          }
-        }
-      }
-    }
-  }
-  const int oy = y0 + ty, ox = x0 + tx;
-  const bool valid = oy < Ho && ox < Wo;
-  if (valid) {
-#pragma unroll
-    for (int c = 0; c < COB; ++c)
-      if (co0 + c < Cout)
-        y[(((size_t)b * Cout + co0 + c) * Ho + oy) * Wo + ox] = acc[c];
-  }
-  if (st_part == nullptr) return;
-  // K3''' epilogue: this tile's (sum, sum of squares) of the stored
-  // outputs, per channel: warp shuffles, then the 8 warps in order.
-  __syncthreads();                        // smem is free again
-  float* red = smem;                      // [NT/32][2][COB]
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int c = 0; c < COB; ++c) {
-    const float v = valid ? acc[c] : 0.f;
-    float s = v, q = v * v;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      q += __shfl_xor_sync(0xffffffffu, q, o);
-    }
-    if (lane == 0) {
-      red[(warp * 2 + 0) * COB + c] = s;
-      red[(warp * 2 + 1) * COB + c] = q;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < 2 * COB) {
-    const int which = threadIdx.x / COB, c = threadIdx.x % COB;
-    float t = 0.f;
-    for (int i = 0; i < NT / 32; ++i) t += red[(i * 2 + which) * COB + c];
-    const size_t tile = ((size_t)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    if (co0 + c < Cout) st_part[(tile * 2 + which) * Cout + co0 + c] = t;
-  }
-}
-
 // K3''' pass 2: stats[g][which][co] = sum of the tiles of stack g (its
 // images' tiles are contiguous in st_part), in a fixed order: each thread
 // a strided run, then a tree over the block.
@@ -275,117 +173,13 @@ conv_stats_reduce_kernel(const float* __restrict__ st_part,
   if (threadIdx.x == 0) stats[o] = red[0];
 }
 
-template <int COB>
-int launch_fwd_cob(const void* x, const void* w, void* y, float* st_part,
-                   float* stats, const Src& src, int B, int Cout, int Ho,
-                   int Wo, int k, cudaStream_t stream) {
-  const int Cin = src.stride * src.stride * src.cin;
-  const int n_co = (Cout + COB - 1) / COB;
-  const size_t smem =
-      sizeof(float) * (CB * k * k * COB + CB * (TH + k - 1) * (TW + k - 1));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        conv_fwd_kernel<COB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((Wo + TW - 1) / TW, (Ho + TH - 1) / TH, B * n_co);
-  conv_fwd_kernel<COB><<<grid, NT, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(y),
-      st_part, src, Cin, Cout, Ho, Wo, k, n_co);
-  int err = (int)cudaGetLastError();
-  if (err || st_part == nullptr) return err;
-  const int groups = B / src.per_group;
-  conv_stats_reduce_kernel<<<groups * 2 * Cout, NT, 0, stream>>>(
-      st_part, stats, src.per_group * grid.x * grid.y, Cout);
-  return (int)cudaGetLastError();
-}
-
-int launch_fwd(const void* x, const void* w, void* y, float* st_part,
-               float* stats, const Src& src, int B, int Cout, int Ho, int Wo,
-               int k, cudaStream_t stream) {
-  if (Cout <= 8)
-    return launch_fwd_cob<8>(x, w, y, st_part, stats, src, B, Cout, Ho, Wo,
-                             k, stream);
-  if (Cout <= 16)
-    return launch_fwd_cob<16>(x, w, y, st_part, stats, src, B, Cout, Ho, Wo,
-                              k, stream);
-  return launch_fwd_cob<32>(x, w, y, st_part, stats, src, B, Cout, Ho, Wo, k,
-                            stream);
-}
-
 // ---------------------------------------------------------------------------
-// K4 pass 1: partial[chunk][t][c][co] over the chunk's output rows
+// fp32 K7 (the CUDA cores): the tiles of its pass 1, and pass 2
 // ---------------------------------------------------------------------------
-constexpr int DR = 4;    // output rows per smem tile
-constexpr int DW = 32;   // output columns per smem tile
+constexpr int DR = 4;    // rows of V per smem tile
+constexpr int DW = 32;   // columns per smem tile
 
-template <typename T, int K>
-__global__ void __launch_bounds__(NT)
-conv_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                       float* __restrict__ partial, Src src, int Cin,
-                       int Cout, int Ho, int Wo, int rows_per_chunk,
-                       int chunks_per_image, int cib, int cob) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  constexpr int XH = DR + K - 1, XW = DW + K - 1;
-  constexpr int GS = DR * DW + 1;         // padded g row: distinct banks
-  float* xs = smem;                       // [cib][XH][XW]
-  float* gs = smem + cib * XH * XW;       // [cob][GS]
-
-  const int chunk = blockIdx.x;
-  const int b = chunk / chunks_per_image;
-  const int r0 = (chunk % chunks_per_image) * rows_per_chunk;
-  const int r1 = min(r0 + rows_per_chunk, Ho);
-  const int ci0 = blockIdx.y * cib, co0 = blockIdx.z * cob;
-  const int col = threadIdx.x % cob, cil = threadIdx.x / cob;
-
-  float acc[K * K];
-#pragma unroll
-  for (int t = 0; t < K * K; ++t) acc[t] = 0.f;
-
-  for (int ty0 = r0; ty0 < r1; ty0 += DR) {
-    for (int tx0 = 0; tx0 < Wo; tx0 += DW) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < cib * XH * XW; i += NT) {
-        const int c = i / (XH * XW), rem = i % (XH * XW);
-        xs[i] = ci0 + c < Cin
-            ? load_v(x, src, b, ci0 + c, ty0 + rem / XW, tx0 + rem % XW)
-            : 0.f;
-      }
-      for (int i = threadIdx.x; i < cob * DR * DW; i += NT) {
-        const int o = i / (DR * DW), p = i % (DR * DW);
-        const int co = co0 + o, oy = ty0 + p / DW, ox = tx0 + p % DW;
-        float v = 0.f;
-        // rows past r1 belong to the next chunk and must not count here
-        if (co < Cout && oy < r1 && ox < Wo)
-          v = to_f<T>(g[(((size_t)b * Cout + co) * Ho + oy) * Wo + ox]);
-        gs[o * GS + p] = v;
-      }
-      __syncthreads();
-      const float* xc = xs + cil * XH * XW;
-      const float* gc = gs + col * GS;
-      for (int p = 0; p < DR * DW; ++p) {
-        const int r = p / DW, c = p % DW;
-        const float gv = gc[p];
-#pragma unroll
-        for (int dy = 0; dy < K; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < K; ++dx)
-            acc[dy * K + dx] = fmaf(xc[(r + dy) * XW + c + dx], gv, acc[dy * K + dx]);
-      }
-    }
-  }
-  const int ci = ci0 + cil, co = co0 + col;
-  if (ci < Cin && co < Cout) {
-    float* out = partial + (size_t)chunk * K * K * Cin * Cout;
-#pragma unroll
-    for (int t = 0; t < K * K; ++t) out[((size_t)t * Cin + ci) * Cout + co] = acc[t];
-  }
-}
-
-// K4 pass 2: dw[i] = sum over chunks, in chunk order.
+// K7 pass 2: dw[i] = sum over chunks, in chunk order.
 __global__ void __launch_bounds__(NT)
 conv_dw_reduce_kernel(const float* __restrict__ partial,
                       float* __restrict__ dw, int n_out, int n_chunks) {
@@ -394,158 +188,6 @@ conv_dw_reduce_kernel(const float* __restrict__ partial,
   float s = 0.f;
   for (int c = 0; c < n_chunks; ++c) s += partial[(size_t)c * n_out + i];
   dw[i] = s;
-}
-
-template <typename T, int K>
-int launch_dw_k(const void* x, const void* g, float* partial, float* dw,
-                const Src& src, int B, int Cout, int Ho, int Wo,
-                int rows_per_chunk, cudaStream_t stream) {
-  const int Cin = src.stride * src.stride * src.cin;
-  const int cob = Cout <= 8 ? 8 : (Cout <= 16 ? 16 : 32);
-  const int cib = NT / cob;
-  const int chunks_per_image = (Ho + rows_per_chunk - 1) / rows_per_chunk;
-  const int n_chunks = B * chunks_per_image;
-  const size_t smem = sizeof(float) *
-      (cib * (DR + K - 1) * (DW + K - 1) + cob * (DR * DW + 1));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        conv_dw_partial_kernel<T, K>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(n_chunks, (Cin + cib - 1) / cib, (Cout + cob - 1) / cob);
-  conv_dw_partial_kernel<T, K><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), partial, src, Cin,
-      Cout, Ho, Wo, rows_per_chunk, chunks_per_image, cib, cob);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const int n_out = K * K * Cin * Cout;
-  conv_dw_reduce_kernel<<<(n_out + NT - 1) / NT, NT, 0, stream>>>(
-      partial, dw, n_out, n_chunks);
-  return (int)cudaGetLastError();
-}
-
-// fp32 K4 pass 1 at a run-time k (the k the templates below lack): as
-// conv_dw_partial_kernel, with each thread's taps cut into groups of RT
-// (grid.z walks the groups), their offsets in the input tile in registers.
-constexpr int RT = 16;
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-conv_dw_partial_rt_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                          float* __restrict__ partial, Src src, int Cin,
-                          int Cout, int Ho, int Wo, int k, int rows_per_chunk,
-                          int chunks_per_image, int cib, int cob, int n_cob) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int XH = DR + k - 1, XW = DW + k - 1, kk = k * k;
-  constexpr int GS = DR * DW + 1;         // padded g row: distinct banks
-  float* xs = smem;                       // [cib][XH][XW]
-  float* gs = smem + cib * XH * XW;       // [cob][GS]
-
-  const int chunk = blockIdx.x;
-  const int b = chunk / chunks_per_image;
-  const int r0 = (chunk % chunks_per_image) * rows_per_chunk;
-  const int r1 = min(r0 + rows_per_chunk, Ho);
-  const int ci0 = blockIdx.y * cib, co0 = (blockIdx.z % n_cob) * cob;
-  const int t0 = (blockIdx.z / n_cob) * RT;
-  const int col = threadIdx.x % cob, cil = threadIdx.x / cob;
-
-  int off[RT];
-  float acc[RT];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int t = min(t0 + i, kk - 1);
-    off[i] = (t / k) * XW + t % k;
-    acc[i] = 0.f;
-  }
-  for (int ty0 = r0; ty0 < r1; ty0 += DR) {
-    for (int tx0 = 0; tx0 < Wo; tx0 += DW) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < cib * XH * XW; i += NT) {
-        const int c = i / (XH * XW), rem = i % (XH * XW);
-        xs[i] = ci0 + c < Cin
-            ? load_v(x, src, b, ci0 + c, ty0 + rem / XW, tx0 + rem % XW)
-            : 0.f;
-      }
-      for (int i = threadIdx.x; i < cob * DR * DW; i += NT) {
-        const int o = i / (DR * DW), p = i % (DR * DW);
-        const int co = co0 + o, oy = ty0 + p / DW, ox = tx0 + p % DW;
-        float v = 0.f;
-        // rows past r1 belong to the next chunk and must not count here
-        if (co < Cout && oy < r1 && ox < Wo)
-          v = to_f<T>(g[(((size_t)b * Cout + co) * Ho + oy) * Wo + ox]);
-        gs[o * GS + p] = v;
-      }
-      __syncthreads();
-      const float* xc = xs + cil * XH * XW;
-      const float* gc = gs + col * GS;
-      for (int p = 0; p < DR * DW; ++p) {
-        const float gv = gc[p];
-        const float* xp = xc + (p / DW) * XW + p % DW;
-#pragma unroll
-        for (int i = 0; i < RT; ++i) acc[i] = fmaf(xp[off[i]], gv, acc[i]);
-      }
-    }
-  }
-  const int ci = ci0 + cil, co = co0 + col;
-  if (ci < Cin && co < Cout) {
-    float* out = partial + (size_t)chunk * kk * Cin * Cout;
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-      if (t0 + i < kk) out[((size_t)(t0 + i) * Cin + ci) * Cout + co] = acc[i];
-  }
-}
-
-template <typename T>
-int launch_dw_rt(const void* x, const void* g, float* partial, float* dw,
-                 const Src& src, int B, int Cout, int Ho, int Wo, int k,
-                 int rows_per_chunk, cudaStream_t stream) {
-  const int Cin = src.stride * src.stride * src.cin;
-  const int cob = Cout <= 8 ? 8 : (Cout <= 16 ? 16 : 32);
-  const int cib = NT / cob;
-  const int chunks_per_image = (Ho + rows_per_chunk - 1) / rows_per_chunk;
-  const int n_chunks = B * chunks_per_image;
-  const int n_cob = (Cout + cob - 1) / cob;
-  const size_t smem = sizeof(float) *
-      ((size_t)cib * (DR + k - 1) * (DW + k - 1) + cob * (DR * DW + 1));
-  cudaError_t e = cudaFuncSetAttribute(
-      conv_dw_partial_rt_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(n_chunks, (Cin + cib - 1) / cib, n_cob * ((k * k + RT - 1) / RT));
-  conv_dw_partial_rt_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), partial, src, Cin,
-      Cout, Ho, Wo, k, rows_per_chunk, chunks_per_image, cib, cob, n_cob);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const int n_out = k * k * Cin * Cout;
-  conv_dw_reduce_kernel<<<(n_out + NT - 1) / NT, NT, 0, stream>>>(
-      partial, dw, n_out, n_chunks);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_dw(const void* x, const void* g, float* partial, float* dw,
-              const Src& src, int B, int Cout, int Ho, int Wo, int k,
-              int rows_per_chunk, cudaStream_t stream) {
-  switch (k) {
-    case 1: return launch_dw_k<T, 1>(x, g, partial, dw, src, B, Cout, Ho, Wo,
-                                     rows_per_chunk, stream);
-    case 2: return launch_dw_k<T, 2>(x, g, partial, dw, src, B, Cout, Ho, Wo,
-                                     rows_per_chunk, stream);
-    case 3: return launch_dw_k<T, 3>(x, g, partial, dw, src, B, Cout, Ho, Wo,
-                                     rows_per_chunk, stream);
-    case 4: return launch_dw_k<T, 4>(x, g, partial, dw, src, B, Cout, Ho, Wo,
-                                     rows_per_chunk, stream);
-    case 5: return launch_dw_k<T, 5>(x, g, partial, dw, src, B, Cout, Ho, Wo,
-                                     rows_per_chunk, stream);
-    case 7: return launch_dw_k<T, 7>(x, g, partial, dw, src, B, Cout, Ho, Wo,
-                                     rows_per_chunk, stream);
-    default: return k < 1 ? (int)cudaErrorInvalidValue
-                          : launch_dw_rt<T>(x, g, partial, dw, src, B, Cout,
-                                            Ho, Wo, k, rows_per_chunk, stream);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -2324,46 +1966,848 @@ int launch_dw(const bf16* x, const Src& src, const bf16* g, float* partial,
 
 }  // namespace px
 
+// ---------------------------------------------------------------------------
+// fp32 K3 and K4 on the tensor cores in split TF32 (namespace tc32): every
+// form (VALID with a border, the prologue, stride 2 by phases, SAME, the
+// K3''' statistics, the input gradient) at any k >= 1. They replace
+// _make_conv_kernel (:157) and _make_dw_kernel (:401) in fp32, as
+// ops/conv.py conv_route sends every fp32 K3 and K4 launch here.
+// Products: mma.sync m16n8k8 .tf32 in three terms (tf32.cuh: hi*lo + lo*hi
+// + hi*hi, the small terms first; fp32 accumulators), which keep the fp32
+// plain versions' 1e-4 x max. What bounds them: at main_fp32's sites
+// ([2,36,896,896]->16 and [2,68,448,448]->32, k = 3) a call moves about 170
+// and 80 MB (0.05 and 0.025 ms at 3.35 TB/s) for 16.6 and 15.8 GFLOP, which
+// as three TF32 products at 495 TFLOP/s take 0.10 ms: the bound is the
+// operations. mma.sync reaches a part of that rate (the fp32 attention's
+// products run at about 85 TFLOP/s a term, PERF.md), so the designs keep
+// the work around the products small: each operand element is split once
+// where it is reused (K3's V once per stage, as it feeds every tap; its
+// weights once per unit, as they feed every pixel of the stage; K4's
+// cotangent once per stage, as it feeds every tap and channel), index
+// arithmetic divides by run-time values through FDiv, and in fp32 every
+// element is its own 32-bit register, so a tap shift is an address offset
+// in a shared tile: no byte permute and no ldmatrix alignment, which the
+// bf16 forms needed. The parts that remain (the products, the copies, the
+// split pass) each take 10-35% of a call, so no one part binds
+// (tools/px_ablation.py --tf32, PERF.md).
+// Staging: raw fp32 through cp.async, 16-byte vectors where the source rows
+// allow (stride 1, W % 4 == 0, x 16-byte aligned: a tile then starts up to
+// LEAD columns left of its stage, so that its first source column is a
+// multiple of 4), else 4-byte copies through Src (the phase images of
+// stride 2, other widths); both zero-fill outside x. The prologue
+// (recomputed on the read, as the TPU kernels do) and the split run in one
+// pass over the landed tile; the next unit's copies are in flight during
+// this unit's products. Accumulation: the products of a short run (K3: a
+// tap row of one m16 tile; K4: one k8 step) go into a zeroed fragment,
+// which is added to the accumulators in fp32 (tf32.cuh mma3_cols_add):
+// with one chain over the whole contraction the tensor cores' truncating
+// accumulation drifted past chip_smoke's 9x9 generator gate.
+//   * K3 (conv_fwd_tf32_kernel<NB>): y[co, p] = sum over (tap, c) of
+//     V[c, p + tap] w[tap, c, co] as one implicit GEMM with the pixels on
+//     M and Cout on N: each m16 tile is 16 output pixels of a row, each n8
+//     tile 8 output channels, each k8 step 8 channels of V at one tap
+//     (Cout on N wastes less than on M at Cout 36 and 68, the input
+//     gradients' widths). A block owns a strip of output pixels and NB n8
+//     tiles of Cout; it walks the strip in stages of TR rows (one a warp) x
+//     16 MT columns (MT m16 tiles a warp) and each stage in units of CK
+//     channels of V and a group of ndy tap rows (all of them where the tile
+//     fits: ops/conv.py fwd_tf32_tiling). A unit's V tile [CK][TR + ndy -
+//     1][rs] is split into {hi, lo} pairs (float2: one 64-bit load a
+//     fragment element, planes of 4 mod 16 pairs: conflict-free), its
+//     weights into the B fragments' order (one 128-bit load a lane). The
+//     K3''' epilogue adds each stage's outputs and their squares per
+//     channel (lanes, then the warp's own shared-memory slot), the 8 warps'
+//     slots in order into the strip's row of st_part (no atomics);
+//     conv_stats_reduce_kernel adds a stack's strips in a fixed order.
+//   * K4 (conv_dw_tf32_kernel<NB>): dw[tap, c, co] = sum over p of
+//     V[c, p + tap] g[co, p], M = the (tap, c) rows of the block's channels
+//     (tap-major, c fastest, padded to 16 once), N = Cout, the contraction
+//     over the pixels in k8 steps of 8 pixels of a row. A block owns a
+//     strip of pixels, cb channels of V and NB n8 tiles of Cout; it walks
+//     the strip in stages of DR x DC pixels, V's tile (with its k - 1 halo)
+//     raw in two buffers (an A fragment is split as it is read: V at pixel
+//     + tap, any shift free), g's tile split once into {hi, lo} pairs. The
+//     warps split M (wm groups, UPW m16 tiles each) and the stage's k8
+//     steps (8 / wm groups, added in order through shared memory at the
+//     end); each strip's block writes one fp32 partial [M, N] and
+//     conv_dw_sum_kernel adds the strips in a fixed order. No atomics in
+//     either: a seeded run repeats bit for bit.
+// ---------------------------------------------------------------------------
+namespace tc32 {
+
+constexpr int THREADS = 256, WARPS = 8;
+constexpr int CK = 8;        // K3: V's channels a unit stages, one k8 step a tap (ops/conv.py TF32_CK)
+constexpr int TR = 8;        // K3: output rows of a stage, one a warp (TF32_ROWS)
+constexpr int LEAD = 3;      // most columns a tile starts left of its stage (TF32_LEAD)
+constexpr int DR = 4;        // K4: pixel rows of a stage (TF32_DW_ROWS)
+constexpr int DC = 32;       // K4: pixel columns of a stage (TF32_DW_COLS)
+constexpr int GP = DR * DC + 4;   // K4: pairs of a split g plane, 4 mod 16 (TF32_G_PLANE)
+
+// K3's m16 tiles a warp (16 MT output columns), K4's m16 tiles a warp,
+// beside NB n8 tiles: at most 64 fp32 accumulators a thread (ops/conv.py
+// tf32_mt, tf32_upw).
+__host__ __device__ constexpr int mt_of(int nb) { return nb <= 4 ? 4 : 2; }
+__host__ __device__ constexpr int upw_of(int nb) {
+  return nb <= 2 ? 4 : (nb <= 4 ? 3 : 2);
+}
+// Row stride of a staged tile whose stage needs `cols` columns: the lead
+// and whole 16-byte vectors (ops/conv.py tf32_rs).
+__host__ __device__ constexpr int tile_rs(int cols) {
+  return (LEAD + cols + 3) & ~3;
+}
+// The least plane stride >= n that is 4 mod m (n a multiple of 4;
+// ops/conv.py tf32_plane).
+__host__ __device__ constexpr int plane4(int n, int m) {
+  return n + ((4 - n) % m + m) % m;
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(dwtc::smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(dwtc::smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// n / d for 0 <= n < 2^21 by a float reciprocal: exact there ((n + 0.5) / d
+// lies at least 0.5 / d from an integer, further than the product's
+// rounding error), in four instructions where a division by a run-time
+// integer takes about twenty (the index arithmetic of the loops below).
+struct FDiv {
+  int d;
+  float inv;
+  __host__ __device__ explicit FDiv(int d_) : d(d_), inv(1.f / d_) {}
+  __device__ __forceinline__ int div(int n) const {
+    return (int)(((float)n + 0.5f) * inv);
+  }
+};
+
+// Where V[b, c, vy, vx] lies in x (the caller adds b's offset): the
+// element's offset in its image, its source channel ci (for the prologue's
+// row); false outside x (the border, past the phase image). cin: s.cin's
+// divider.
+__device__ __forceinline__ bool v_pos(const Src& s, const FDiv& cin, int c,
+                                      int vy, int vx, int& ci, size_t& off) {
+  int py = 0, px = 0;
+  ci = c;
+  if (s.stride == 2) {
+    const int ph = cin.div(c);
+    ci = c - ph * s.cin;
+    py = ph >> 1;
+    px = ph & 1;
+  }
+  const int r = s.stride * vy + py - s.pad, col = s.stride * vx + px - s.pad;
+  off = ((size_t)ci * s.H + r) * s.W + col;
+  return r >= 0 && r < s.H && col >= 0 && col < s.W;
+}
+
+// The prologue on an element of x, as load_v computes it (two roundings,
+// no fma).
+__device__ __forceinline__ float pro(const Src& s, int b, int ci, float v) {
+  const int row = (b / s.per_group) * s.cin + ci;
+  float z = __fadd_rn(__fmul_rn(v, s.scale[row]), s.shift[row]);
+  if (s.negslope != 1.f) z = z >= 0.f ? z : z * s.negslope;
+  return z;
+}
+
+// Raw V into dst[c][row][col] (plane and row stride rs in floats): nch
+// channels from c0 (zero from cv on), nrows rows from vy0 and rs columns
+// from vx0 in V's coordinates, zero outside x. vec: 16-byte copies
+// (stride 1, W % 4 == 0, x 16-byte aligned, vx0 - pad a multiple of 4:
+// each vector lies wholly inside or outside x's columns); else 4-byte
+// copies through the mapping. The caller commits; the prologue comes
+// after the copies land.
+__device__ __forceinline__ void stage_v(const float* __restrict__ x,
+                                        const Src& s, int b, int c0, int nch,
+                                        int cv, int vy0, int nrows, int vx0,
+                                        int rs, int plane, bool vec,
+                                        float* dst) {
+  const float* xb = x + (size_t)b * s.cin * s.H * s.W;
+  const FDiv rows(nrows);
+  if (vec) {
+    const FDiv nv(rs >> 2);
+    const int items = nch * nrows * nv.d;
+    for (int it = threadIdx.x; it < items; it += THREADS) {
+      const int line = nv.div(it), v = it - line * nv.d;
+      const int c = rows.div(line), ly = line - c * nrows;
+      const int r = vy0 + ly - s.pad, col = vx0 + 4 * v - s.pad;
+      const bool ok = c0 + c < cv && r >= 0 && r < s.H && col >= 0 &&
+                      col < s.W;
+      const float* src =
+          ok ? xb + ((size_t)(c0 + c) * s.H + r) * s.W + col : x;
+      cp16(dst + c * plane + ly * rs + 4 * v, src, ok);
+    }
+  } else {
+    const FDiv cols(rs), cin(s.cin);
+    const int items = nch * nrows * rs;
+    for (int it = threadIdx.x; it < items; it += THREADS) {
+      const int line = cols.div(it), j = it - line * rs;
+      const int c = rows.div(line), ly = line - c * nrows;
+      int ci;
+      size_t off;
+      const bool ok = c0 + c < cv && v_pos(s, cin, c0 + c, vy0 + ly, vx0 + j,
+                                           ci, off);
+      cp4(dst + c * plane + ly * rs + j, ok ? xb + off : x, ok);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3
+// ---------------------------------------------------------------------------
+
+// Shared memory of conv_fwd_tf32_kernel<NB> (ops/conv.py fwd_tf32_smem):
+// the split V tile, the split weight fragments, the raw V tile, the raw
+// weights and the K3''' slots.
+struct FwdLayout {
+  int vr, rs, vplane, splane, ntap;
+  __host__ __device__ FwdLayout(int k, int ndy, int nb) {
+    vr = TR + ndy - 1;
+    rs = tile_rs(16 * mt_of(nb) + k - 1);
+    vplane = vr * rs;
+    splane = plane4(vplane, 16);
+    ntap = ndy * k;
+  }
+  __host__ __device__ size_t floats(int nb) const {
+    return (size_t)2 * CK * splane + (size_t)4 * ntap * nb * 32 +
+           (size_t)CK * vplane + (size_t)ntap * CK * 8 * nb +
+           (size_t)WARPS * 2 * 8 * nb;
+  }
+};
+
+// The raw weights of a unit, wr[tl][c][co] for its taps [t0, t0 + ntaps),
+// V's channels [c0, c0 + CK) and Cout's [n0, n0 + 8 NB): zero past Cv and
+// Cout; 16-byte copies where vec (Cout a multiple of 4, w 16-byte
+// aligned).
+template <int NB>
+__device__ __forceinline__ void stage_w(const float* __restrict__ w,
+                                        int t0, int ntaps, int c0, int cv,
+                                        int n0, int cout, bool vec,
+                                        float* wr) {
+  constexpr int NCO = 8 * NB;
+  if (vec) {
+    const int items = ntaps * CK * (NCO / 4);
+    for (int it = threadIdx.x; it < items; it += THREADS) {
+      const int row = it / (NCO / 4), v = it - row * (NCO / 4);
+      const int tl = row / CK, c = row - tl * CK, co = n0 + 4 * v;
+      const bool ok = c0 + c < cv && co < cout;
+      cp16(wr + row * NCO + 4 * v,
+           ok ? w + ((size_t)(t0 + tl) * cv + c0 + c) * cout + co : w, ok);
+    }
+  } else {
+    const int items = ntaps * CK * NCO;
+    for (int it = threadIdx.x; it < items; it += THREADS) {
+      const int row = it / NCO, o = it - row * NCO;
+      const int tl = row / CK, c = row - tl * CK, co = n0 + o;
+      const bool ok = c0 + c < cv && co < cout;
+      cp4(wr + it, ok ? w + ((size_t)(t0 + tl) * cv + c0 + c) * cout + co : w,
+          ok);
+    }
+  }
+}
+
+// A unit's products for one warp's stage row: nd rows of k taps; for each
+// tap row and each of the MT m16 tiles, the row's taps into a zeroed
+// fragment, which is then added to the tile's accumulators in fp32 (the
+// tensor cores truncate as they accumulate: tf32.cuh mma3_cols_add). A tap
+// is the B fragments of its NB n8 tiles (split weights, one 128-bit load
+// a lane), the A fragment (pixels g and g + 8, channels t and t + 4 of the
+// split V tile at the tap's shift: four 64-bit loads of {hi, lo}) and
+// three products. KS = 3: the training net's 3x3 with every tap row in
+// the unit, the loops unrolled (a tap's loads issue during the previous
+// tap's products, and a row's B fragments serve every m16 tile where the
+// registers hold them); KS = 0: nd and k at run time.
+template <int NB, int MT, int KS>
+__device__ __forceinline__ void fwd_products(float (&acc)[MT][NB][4],
+                                             const float2* vw,
+                                             const float4* wf, int splane,
+                                             int rs, int nd, int k,
+                                             int lane) {
+  const int rows = KS ? KS : nd, cols = KS ? KS : k;
+#pragma unroll
+  for (int dyl = 0; dyl < rows; ++dyl) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      float s[NB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int dx = 0; dx < cols; ++dx) {
+        const int tl = dyl * cols + dx;
+        tf32::FragB bf[NB];
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const float4 f = wf[(tl * NB + j) * 32 + lane];
+          bf[j].hi[0] = __float_as_uint(f.x);
+          bf[j].hi[1] = __float_as_uint(f.y);
+          bf[j].lo[0] = __float_as_uint(f.z);
+          bf[j].lo[1] = __float_as_uint(f.w);
+        }
+        const float2* vt = vw + dyl * rs + dx + 16 * i;
+        const float2 a0 = vt[0], a1 = vt[8];
+        const float2 a2 = vt[4 * splane], a3 = vt[4 * splane + 8];
+        tf32::FragA a;
+        a.hi[0] = __float_as_uint(a0.x);
+        a.hi[1] = __float_as_uint(a1.x);
+        a.hi[2] = __float_as_uint(a2.x);
+        a.hi[3] = __float_as_uint(a3.x);
+        a.lo[0] = __float_as_uint(a0.y);
+        a.lo[1] = __float_as_uint(a1.y);
+        a.lo[2] = __float_as_uint(a2.y);
+        a.lo[3] = __float_as_uint(a3.y);
+        tf32::mma3_cols<NB>(s, a, bf);
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += s[j][e];
+    }
+  }
+}
+
+// Grid: (B * strips_y * strips_x, ceil(Cout / 8 NB)). Warp w owns output
+// row w of each stage: MT m16 tiles (16 MT columns) x NB n8 tiles. Units
+// (stage, chunk of CK channels, group of ndy tap rows) run stage-major;
+// a stage's accumulators live through its units. vec: V by 16-byte
+// copies; w_vec: the weights likewise.
+template <int NB>
+__global__ void __launch_bounds__(THREADS, 2)
+conv_fwd_tf32_kernel(const float* __restrict__ x, Src src,
+                     const float* __restrict__ w, float* __restrict__ y,
+                     float* __restrict__ st_part, int Cv, int Cout, int Ho,
+                     int Wo, int k, int rows, int cols, int strips_y,
+                     int strips_x, int ndy, int vec, int w_vec) {
+  constexpr int MT = mt_of(NB), TCW = 16 * MT, NCO = 8 * NB;
+  const FwdLayout L(k, ndy, NB);
+  const int n_dyg = (k + ndy - 1) / ndy;
+  extern __shared__ float4 smem4[];
+  float2* vs = reinterpret_cast<float2*>(smem4);              // [CK][splane]
+  float4* wf = reinterpret_cast<float4*>(vs + CK * L.splane);  // [ntap][NB][32]
+  float* vraw = reinterpret_cast<float*>(wf + L.ntap * NB * 32);  // [CK][vplane]
+  float* wraw = vraw + CK * L.vplane;                     // [ntap][CK][NCO]
+  float* red = wraw + L.ntap * CK * NCO;                  // [WARPS][2][NCO]
+
+  const int per_image = strips_y * strips_x;
+  const int b = blockIdx.x / per_image;
+  const int sy = blockIdx.x % per_image / strips_x;
+  const int sxi = blockIdx.x % strips_x;
+  const int r0 = sy * rows, r1 = min(r0 + rows, Ho);
+  const int q0 = sxi * cols, q1 = min(q0 + cols, Wo);
+  const int n0 = blockIdx.y * NCO;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lead = src.stride == 1 ? ((-src.pad) % 4 + 4) % 4 : 0;
+  const int n_cc = (Cv + CK - 1) / CK;
+  const int sx_n = (q1 - q0 + TCW - 1) / TCW;
+  const int per_st = n_cc * n_dyg;
+  const int units = (r1 - r0 + TR - 1) / TR * sx_n * per_st;
+  const FDiv rsd(L.rs), cind(src.cin);
+
+  // unit u: stage s, V's channels [c0, c0 + CK), tap rows [dy0, dy0 + nd)
+  const auto unit = [&](int u, int& y0, int& x0, int& c0, int& dy0,
+                        int& nd) {
+    const int s = u / per_st, rem = u - s * per_st;
+    const int cc = rem / n_dyg;
+    y0 = r0 + TR * (s / sx_n);
+    x0 = q0 + TCW * (s % sx_n);
+    c0 = cc * CK;
+    dy0 = (rem - cc * n_dyg) * ndy;
+    nd = min(ndy, k - dy0);
+  };
+  const auto stage_unit = [&](int u) {
+    int y0, x0, c0, dy0, nd;
+    unit(u, y0, x0, c0, dy0, nd);
+    stage_v(x, src, b, c0, CK, Cv, y0 + dy0, L.vr, x0 - lead, L.rs,
+            L.vplane, vec, vraw);
+    stage_w<NB>(w, dy0 * k, nd * k, c0, Cv, n0, Cout, w_vec, wraw);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  if (st_part != nullptr)
+    for (int i = threadIdx.x; i < WARPS * 2 * NCO; i += THREADS) red[i] = 0.f;
+  float acc[MT][NB][4];
+  stage_unit(0);
+  for (int u = 0; u < units; ++u) {
+    int y0, x0, c0, dy0, nd;
+    unit(u, y0, x0, c0, dy0, nd);
+    const int rem = u % per_st;
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    // unit u's copies have landed; every warp is done with unit u - 1
+    __syncthreads();
+    // V: the prologue on x's own elements, then {hi, lo}, four elements
+    // of a row at a time (rs and vplane are multiples of 4)
+    for (int c = 0; c < CK; ++c) {
+      for (int r4 = 4 * threadIdx.x; r4 < L.vplane; r4 += 4 * THREADS) {
+        const float4 raw =
+            *reinterpret_cast<const float4*>(vraw + c * L.vplane + r4);
+        float e[4] = {raw.x, raw.y, raw.z, raw.w};
+        if (src.scale != nullptr && c0 + c < Cv) {
+          const int ly = rsd.div(r4), j = r4 - ly * L.rs;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            int ci;
+            size_t off;
+            if (v_pos(src, cind, c0 + c, y0 + dy0 + ly, x0 - lead + j + q,
+                      ci, off))
+              e[q] = pro(src, b, ci, e[q]);
+          }
+        }
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) tf32::split(e[q], hi[q], lo[q]);
+        float4* d = reinterpret_cast<float4*>(vs + c * L.splane + r4);
+        d[0] = make_float4(__uint_as_float(hi[0]), __uint_as_float(lo[0]),
+                           __uint_as_float(hi[1]), __uint_as_float(lo[1]));
+        d[1] = make_float4(__uint_as_float(hi[2]), __uint_as_float(lo[2]),
+                           __uint_as_float(hi[3]), __uint_as_float(lo[3]));
+      }
+    }
+    // the weights in the B fragments' order: {hi b0, hi b1, lo b0, lo b1}
+    // of lane (g, t): w[c0 + t][n] and w[c0 + t + 4][n], n = 8j + g
+    for (int i = threadIdx.x; i < nd * k * NB * 32; i += THREADS) {
+      const int tl = i / (NB * 32), j = i / 32 - tl * NB, ln = i & 31;
+      const float* p = wraw + (tl * CK + (ln & 3)) * NCO + 8 * j + (ln >> 2);
+      uint32_t h0, l0, h1, l1;
+      tf32::split(p[0], h0, l0);
+      tf32::split(p[4 * NCO], h1, l1);
+      wf[i] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                          __uint_as_float(l0), __uint_as_float(l1));
+    }
+    __syncthreads();
+    if (u + 1 < units) stage_unit(u + 1);
+    if (rem == 0) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+    const int oy = y0 + warp;
+    if (oy < r1) {                        // rows past the strip: no work
+      const float2* vw = vs + t * L.splane + warp * L.rs + lead + g;
+      if (k == 3 && nd == 3)
+        fwd_products<NB, MT, 3>(acc, vw, wf, L.splane, L.rs, nd, k, lane);
+      else
+        fwd_products<NB, MT, 0>(acc, vw, wf, L.splane, L.rs, nd, k, lane);
+    }
+    if (rem != per_st - 1 || oy >= r1) continue;
+    // the stage's last unit: y, and the K3''' sums of the stored values
+    float s1[NB][2], s2[NB][2];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) s1[j][e] = s2[j][e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ox = x0 + 16 * i + g + 8 * h;
+        if (ox >= q1) continue;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int co = n0 + 8 * j + 2 * t + e;
+            if (co >= Cout) continue;
+            const float v = acc[i][j][2 * h + e];
+            y[(((size_t)b * Cout + co) * Ho + oy) * Wo + ox] = v;
+            s1[j][e] += v;
+            s2[j][e] += v * v;
+          }
+        }
+      }
+    }
+    if (st_part == nullptr) continue;
+    // the eight lanes g of each channel, then into this warp's slot
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s1[j][e] += __shfl_xor_sync(0xffffffffu, s1[j][e], o);
+          s2[j][e] += __shfl_xor_sync(0xffffffffu, s2[j][e], o);
+        }
+        if (g == 0) {
+          red[(warp * 2 + 0) * NCO + 8 * j + 2 * t + e] += s1[j][e];
+          red[(warp * 2 + 1) * NCO + 8 * j + 2 * t + e] += s2[j][e];
+        }
+      }
+    }
+  }
+  if (st_part == nullptr) return;
+  // K3''': the strip's sums per channel, the 8 warps' slots in order
+  __syncthreads();
+  if (threadIdx.x < 2 * NCO) {
+    const int which = threadIdx.x / NCO, c = threadIdx.x % NCO;
+    float s = 0.f;
+    for (int i = 0; i < WARPS; ++i) s += red[(i * 2 + which) * NCO + c];
+    if (n0 + c < Cout)
+      st_part[((size_t)blockIdx.x * 2 + which) * Cout + n0 + c] = s;
+  }
+}
+
+template <int NB>
+int launch_fwd(const float* x, const Src& src, const float* w, float* y,
+               float* st_part, float* stats, int B, int Cout, int Ho, int Wo,
+               int k, int rows, int cols, int ndy, cudaStream_t st) {
+  constexpr int TCW = 16 * mt_of(NB);
+  const int Cv = src.stride * src.stride * src.cin;
+  if (k < 1 || ndy < 1 || ndy > k || rows < TR || rows % TR || cols < TCW ||
+      cols % TCW)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * FwdLayout(k, ndy, NB).floats(NB);
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_fwd_tf32_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int strips_y = (Ho + rows - 1) / rows;
+  const int strips_x = (Wo + cols - 1) / cols;
+  const dim3 grid(B * strips_y * strips_x, (Cout + 8 * NB - 1) / (8 * NB));
+  const int vec = src.stride == 1 && src.W % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int w_vec = Cout % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  conv_fwd_tf32_kernel<NB><<<grid, THREADS, smem, st>>>(
+      x, src, w, y, st_part, Cv, Cout, Ho, Wo, k, rows, cols, strips_y,
+      strips_x, ndy, vec, w_vec);
+  int err = (int)cudaGetLastError();
+  if (err || st_part == nullptr) return err;
+  const int groups = B / src.per_group;
+  conv_stats_reduce_kernel<<<groups * 2 * Cout, NT, 0, st>>>(
+      st_part, stats, src.per_group * strips_y * strips_x, Cout);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K4
+// ---------------------------------------------------------------------------
+
+// Shared memory of conv_dw_tf32_kernel<NB> (ops/conv.py dw_tf32_smem): two
+// raw V tiles of cb channels, g's raw and split tiles; the row groups' sums
+// at the end reuse it.
+struct DwLayout {
+  int vr, rs, vplane;
+  __host__ __device__ DwLayout(int k) {
+    vr = DR + k - 1;
+    rs = tile_rs(DC + k - 1);
+    vplane = plane4(vr * rs, 32);
+  }
+  __host__ __device__ size_t floats(int cb, int nb, int wm) const {
+    const size_t stage = (size_t)2 * cb * vplane + (size_t)8 * nb * DR * DC +
+                         (size_t)2 * 8 * nb * GP;
+    const size_t red = wm == WARPS ? 0
+        : (size_t)WARPS * upw_of(nb) * 16 * 8 * nb;
+    return stage > red ? stage : red;
+  }
+};
+
+// g's raw tile of the stage at (y0, x0): gr[co][row][col] for Cout's
+// [n0, n0 + 8 NB), DR rows, DC columns; zero past Cu and past the strip
+// (r1, q1): rows past a strip's end belong to the next. vec: 16-byte
+// copies (Wp % 4 == 0, g 16-byte aligned).
+template <int NB>
+__device__ __forceinline__ void stage_g(const float* __restrict__ g, int b,
+                                        int n0, int Cu, int Hp, int Wp,
+                                        int y0, int x0, int r1, int q1,
+                                        bool vec, float* gr) {
+  constexpr int NCO = 8 * NB;
+  if (vec) {
+    for (int it = threadIdx.x; it < NCO * DR * DC / 4; it += THREADS) {
+      const int line = it / (DC / 4), v = it - line * (DC / 4);
+      const int co = line / DR, yy = y0 + line - co * DR, xx = x0 + 4 * v;
+      const bool ok = n0 + co < Cu && yy < r1 && xx < q1;
+      cp16(gr + 4 * it,
+           ok ? g + (((size_t)b * Cu + n0 + co) * Hp + yy) * Wp + xx : g, ok);
+    }
+  } else {
+    for (int it = threadIdx.x; it < NCO * DR * DC; it += THREADS) {
+      const int line = it / DC, xx = x0 + it - line * DC;
+      const int co = line / DR, yy = y0 + line - co * DR;
+      const bool ok = n0 + co < Cu && yy < r1 && xx < q1;
+      cp4(gr + it,
+          ok ? g + (((size_t)b * Cu + n0 + co) * Hp + yy) * Wp + xx : g, ok);
+    }
+  }
+}
+
+// Grid: (B * strips_y * strips_x, ceil(Cs / cb), ceil(Cu / 8 NB)). Warp
+// group wmi = warp % wm owns the block's m16 tiles wmi, wmi + wm, ... (at
+// most UPW); row group rg = warp / wm the stage's k8 steps rg, rg + 8 /
+// wm, ... (DR * DC / 8 of them, 8 pixels of a row each).
+//   partial[strip][(tap * Cs + c) * Cu + co] = sum over the strip's pixels
+//   p of V[c, p + tap] g[co, p]
+// (dwtc's layout: conv_dw_sum_kernel adds the strips).
+template <int NB>
+__global__ void __launch_bounds__(THREADS, 2)
+conv_dw_tf32_kernel(const float* __restrict__ x, Src src,
+                    const float* __restrict__ g, float* __restrict__ partial,
+                    int Cs, int Cu, int Hp, int Wp, int k, int rows,
+                    int cols, int strips_y, int strips_x, int cb, int wm,
+                    int vec, int g_vec) {
+  constexpr int UPW = upw_of(NB), NCO = 8 * NB, STEPS = DR * DC / 8;
+  const DwLayout L(k);
+  extern __shared__ float4 smem4[];
+  float* vbuf = reinterpret_cast<float*>(smem4);            // [2][cb][vplane]
+  float* graw = vbuf + 2 * cb * L.vplane;                   // [NCO][DR * DC]
+  float2* gs = reinterpret_cast<float2*>(graw + NCO * DR * DC);  // [NCO][GP]
+
+  const int per_image = strips_y * strips_x;
+  const int b = blockIdx.x / per_image;
+  const int sy = blockIdx.x % per_image / strips_x;
+  const int sxi = blockIdx.x % strips_x;
+  const int r0 = sy * rows, r1 = min(r0 + rows, Hp);
+  const int q0 = sxi * cols, q1 = min(q0 + cols, Wp);
+  const int ch0 = blockIdx.y * cb, nch = min(cb, Cs - ch0);
+  const int n0 = blockIdx.z * NCO;
+  const int M = k * k * nch, tiles = (M + 15) / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, t = lane & 3;
+  const int wmi = warp % wm, rg = warp / wm, nrg = WARPS / wm;
+  const int lead = src.stride == 1 ? ((-src.pad) % 4 + 4) % 4 : 0;
+
+  // rows gid and gid + 8 of each of this warp's m16 tiles in a V tile:
+  // (tap, c) -> c's plane, the tap's shift (rows past M read element 0:
+  // discarded)
+  int off[UPW][2];
+#pragma unroll
+  for (int i = 0; i < UPW; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = (i * wm + wmi) * 16 + gid + 8 * h;
+      off[i][h] = 0;
+      if (m < M) {
+        const int tap = m / nch, c = m - tap * nch;
+        off[i][h] = c * L.vplane + (tap / k) * L.rs + tap % k + lead;
+      }
+    }
+  }
+  float acc[UPW][NB][4];
+#pragma unroll
+  for (int i = 0; i < UPW; ++i)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int sx_n = (q1 - q0 + DC - 1) / DC;
+  const int n_st = (r1 - r0 + DR - 1) / DR * sx_n;
+  const auto stage = [&](int s) {
+    const int y0 = r0 + DR * (s / sx_n), x0 = q0 + DC * (s % sx_n);
+    stage_v(x, src, b, ch0, nch, Cs, y0, L.vr, x0 - lead, L.rs, L.vplane,
+            vec, vbuf + (s & 1) * cb * L.vplane);
+    stage_g<NB>(g, b, n0, Cu, Hp, Wp, y0, x0, r1, q1, g_vec, graw);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  stage(0);
+  for (int s = 0; s < n_st; ++s) {
+    const int y0 = r0 + DR * (s / sx_n), x0 = q0 + DC * (s % sx_n);
+    float* vb = vbuf + (s & 1) * cb * L.vplane;
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    // stage s has landed; every warp is done with stage s - 1
+    __syncthreads();
+    if (src.scale != nullptr) {
+      // the prologue on x's own elements of V's tile, in place
+      const FDiv rsd(L.rs), vrd(L.vr), cind(src.cin);
+      for (int i = threadIdx.x; i < nch * L.vr * L.rs; i += THREADS) {
+        const int line = rsd.div(i), j = i - line * L.rs;
+        const int c = vrd.div(line), ly = line - c * L.vr;
+        int ci;
+        size_t o;
+        float* p = vb + c * L.vplane + ly * L.rs + j;
+        if (v_pos(src, cind, ch0 + c, y0 + ly, x0 - lead + j, ci, o))
+          *p = pro(src, b, ci, *p);
+      }
+    }
+    for (int i = threadIdx.x; i < NCO * DR * DC; i += THREADS) {
+      const int co = i / (DR * DC);
+      uint32_t hi, lo;
+      tf32::split(graw[i], hi, lo);
+      gs[co * GP + i - co * (DR * DC)] =
+          make_float2(__uint_as_float(hi), __uint_as_float(lo));
+    }
+    __syncthreads();
+    if (s + 1 < n_st) stage(s + 1);
+    for (int st = rg; st < STEPS; st += nrg) {
+      const int ry = st / (DC / 8), cx = 8 * (st - ry * (DC / 8));
+      if (y0 + ry >= r1 || x0 + cx >= q1) continue;   // g is zero there
+      tf32::FragB bf[NB];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const float2* p = gs + (8 * j + gid) * GP + ry * DC + cx + t;
+        const float2 b0 = p[0], b1 = p[4];
+        bf[j].hi[0] = __float_as_uint(b0.x);
+        bf[j].hi[1] = __float_as_uint(b1.x);
+        bf[j].lo[0] = __float_as_uint(b0.y);
+        bf[j].lo[1] = __float_as_uint(b1.y);
+      }
+      const float* vp = vb + ry * L.rs + cx + t;
+#pragma unroll
+      for (int i = 0; i < UPW; ++i) {
+        if (i * wm + wmi >= tiles) break;
+        const tf32::FragA a = tf32::split_a(vp[off[i][0]], vp[off[i][1]],
+                                            vp[off[i][0] + 4],
+                                            vp[off[i][1] + 4]);
+        tf32::mma3_cols_add<NB>(acc[i], a, bf);
+      }
+    }
+  }
+
+  // this strip's partial: the row groups' sums added in order (through
+  // shared memory) where there are several, else each warp's own
+  float* const out = partial + (size_t)blockIdx.x * k * k * Cs * Cu;
+  const int mr = wm * UPW * 16;           // rows of the tile the warps hold
+  float* red = reinterpret_cast<float*>(smem4);   // [nrg][mr][NCO]
+  if (nrg > 1) __syncthreads();           // the last stage is read
+#pragma unroll
+  for (int i = 0; i < UPW; ++i) {
+    const int tile = i * wm + wmi;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = tile * 16 + gid + 8 * h;
+      const int tap = m / nch, c = m - tap * nch;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int u = 8 * j + 2 * t + e;
+          if (nrg > 1)
+            red[(rg * mr + m) * NCO + u] = acc[i][j][2 * h + e];
+          else if (tile < tiles && m < M && n0 + u < Cu)
+            out[((size_t)tap * Cs + ch0 + c) * Cu + n0 + u] =
+                acc[i][j][2 * h + e];
+        }
+      }
+    }
+  }
+  if (nrg == 1) return;
+  __syncthreads();
+  const int nu = min(NCO, Cu - n0);
+  for (int idx = threadIdx.x; idx < M * nu; idx += THREADS) {
+    const int m = idx / nu, u = idx - m * nu;
+    const int tap = m / nch, c = m - tap * nch;
+    float v = 0.f;
+    for (int r = 0; r < nrg; ++r) v += red[(r * mr + m) * NCO + u];
+    out[((size_t)tap * Cs + ch0 + c) * Cu + n0 + u] = v;
+  }
+}
+
+template <int NB>
+int launch_dw(const float* x, const Src& src, const float* g, float* partial,
+              float* dw, int B, int Cu, int Hp, int Wp, int k, int rows,
+              int cols, int cb, int wm, cudaStream_t st) {
+  const int Cs = src.stride * src.stride * src.cin;
+  if (k < 1 || cb < 1 || (wm != 1 && wm != 2 && wm != 4 && wm != 8) ||
+      (k * k * (cb < Cs ? cb : Cs) + 15) / 16 > wm * upw_of(NB) ||
+      rows < DR || rows % DR || cols < DC || cols % DC)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * DwLayout(k).floats(cb, NB, wm);
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_dw_tf32_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int strips_y = (Hp + rows - 1) / rows;
+  const int strips_x = (Wp + cols - 1) / cols;
+  const dim3 grid(B * strips_y * strips_x, (Cs + cb - 1) / cb,
+                  (Cu + 8 * NB - 1) / (8 * NB));
+  const int vec = src.stride == 1 && src.W % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int g_vec = Wp % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  conv_dw_tf32_kernel<NB><<<grid, THREADS, smem, st>>>(
+      x, src, g, partial, Cs, Cu, Hp, Wp, k, rows, cols, strips_y, strips_x,
+      cb, wm, vec, g_vec);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int n_out = k * k * Cs * Cu;
+  const int n_slices = (int)grid.x;
+  const dim3 rblock(32, n_slices < 32 ? n_slices : 32);
+  dwtc::conv_dw_sum_kernel<false><<<(n_out + 31) / 32, rblock, 0, st>>>(
+      partial, dw, n_out, n_slices, Cu);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc32
+
 }  // namespace
 
-// The rows of K3''' scratch (one per output tile) that a [B, Cout, Ho, Wo]
-// output needs: dtype 0 (fp32, conv_valid_fwd) tiles of TH x TW, dtype 1
-// (bf16, conv_fwd_tc) strips of rows x cols; an image's tiles are
-// contiguous.
-extern "C" int conv_stats_scratch_tiles(int B, int Ho, int Wo, int dtype,
-                                        int rows, int cols) {
-  if (dtype == 0) rows = TH, cols = TW;
-  return B * ((Ho + rows - 1) / rows) * ((Wo + cols - 1) / cols);
-}
-
-// fp32 K3 (the CUDA cores). x [B,Cin,H,W]; scale/shift: fp32 [groups, Cin]
-// or null (no prologue); stride 1 or 2; w [k,k,s*s*Cin,Cout]; y
-// [B,Cout,Ho,Wo] with Ho + k - 1 <= (H + 2pad) / stride rounded up, and
-// likewise Wo; all fp32. st_part/stats: null, or (K3''') fp32 scratch
-// [conv_stats_scratch_tiles(B, Ho, Wo, 0, 0, 0), 2, Cout] and the output
-// [groups, 2, Cout]: per BatchNorm stack the sum and the sum of squares of
-// y.
-extern "C" int conv_valid_fwd(const void* x, const void* w, void* y,
-                              const float* scale, const float* shift, int B,
-                              int Cin, int H, int W, int Cout, int Ho, int Wo,
-                              int k, int pad, int stride, int groups,
-                              float negslope, float* st_part, float* stats,
-                              void* stream) {
+// fp32 K3 on the tensor cores (split TF32, namespace tc32), every form at
+// any k >= 1. x [B,Cin,H,W]; scale/shift: fp32 [groups, Cin] or null (no
+// prologue); stride 1 or 2; w [k,k,s*s*Cin,Cout]; y [B,Cout,Ho,Wo] with
+// Ho + k - 1 <= (H + 2pad) / stride rounded up, and likewise Wo; all fp32.
+// The tiling comes from ops/conv.py fwd_tf32_tiling: nb in [1, 8] n8 tiles
+// of Cout a block, the tap rows in groups of ndy, strips of rows x cols
+// output pixels (multiples of 8 and 16 * tf32_mt(nb)). st_part/stats:
+// null, or (K3''') fp32 scratch [B * ceil(Ho / rows) * ceil(Wo / cols), 2,
+// Cout] and the output [groups, 2, Cout]: per BatchNorm stack the sum and
+// the sum of squares of y.
+extern "C" int conv_fwd_tf32(const void* x, const void* w, void* y,
+                             const float* scale, const float* shift, int B,
+                             int Cin, int H, int W, int Cout, int Ho, int Wo,
+                             int k, int pad, int stride, int groups,
+                             float negslope, float* st_part, float* stats,
+                             int nb, int ndy, int rows, int cols,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Src src = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
                            negslope);
-  return launch_fwd(x, w, y, st_part, stats, src, B, Cout, Ho, Wo, k,
-                    static_cast<cudaStream_t>(stream));
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  float* yf = static_cast<float*>(y);
+#define TC32_FWD(n)                                                          \
+  case n:                                                                    \
+    return tc32::launch_fwd<n>(xf, src, wf, yf, st_part, stats, B, Cout, Ho, \
+                               Wo, k, rows, cols, ndy, st);
+  switch (nb) {
+    TC32_FWD(1) TC32_FWD(2) TC32_FWD(3) TC32_FWD(4)
+    TC32_FWD(5) TC32_FWD(6) TC32_FWD(7) TC32_FWD(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TC32_FWD
 }
 
-// bf16 K3 on the tensor cores: as conv_valid_fwd, with x, w and y bf16 and
+// fp32 K4 on the tensor cores (split TF32, namespace tc32), at any k >= 1,
+// stride 1 or 2, with and without the prologue. x, scale, shift, pad,
+// stride, groups, negslope: as conv_fwd_tf32; g [B,Cout,Ho,Wo] fp32; dw:
+// fp32 [k,k,s*s*Cin,Cout]. The tiling comes from ops/conv.py
+// dw_tf32_tiling: strips of rows x cols pixels (multiples of 4 and 32), cb
+// channels of V and nb in [1, 8] n8 tiles of Cout a block, wm warps along
+// M. partial: fp32 scratch [B*ceil(Ho/rows)*ceil(Wo/cols), k*k*s*s*Cin*Cout].
+extern "C" int conv_dw_tf32(const void* x, const void* g, float* partial,
+                            float* dw, const float* scale, const float* shift,
+                            int B, int Cin, int H, int W, int Cout, int Ho,
+                            int Wo, int k, int pad, int stride, int groups,
+                            float negslope, int rows, int cols, int cb,
+                            int nb, int wm, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Src src = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
+                           negslope);
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(g);
+#define TC32_DW(n)                                                           \
+  case n:                                                                    \
+    return tc32::launch_dw<n>(xf, src, gf, partial, dw, B, Cout, Ho, Wo, k, \
+                              rows, cols, cb, wm, st);
+  switch (nb) {
+    TC32_DW(1) TC32_DW(2) TC32_DW(3) TC32_DW(4)
+    TC32_DW(5) TC32_DW(6) TC32_DW(7) TC32_DW(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TC32_DW
+}
+
+// bf16 K3 on the tensor cores: as conv_fwd_tf32, with x, w and y bf16 and
 // k in {1, 2, 3} (conv_fwd_px takes the others). The tiling comes from
 // ops/conv.py fwd_tc_tiling: strips
 // of rows x cols output pixels (rows a multiple of 8, cols of 8 *
 // fwd_tc_nb(mt)), cb (a multiple of 16) channels of V per shared-memory
 // chunk, wcb channels per tap in the weight tile (cb, or a multiple of 16
 // >= s*s*Cin: all of them, staged once), mt in [1, 5] m16 tiles of Cout
-// per block. st_part:
-// [conv_stats_scratch_tiles(B, Ho, Wo, 1, rows, cols), 2, Cout].
+// per block. st_part: [B * ceil(Ho / rows) * ceil(Wo / cols), 2, Cout].
 extern "C" int conv_fwd_tc(const void* x, const void* w, void* y,
                            const float* scale, const float* shift, int B,
                            int Cin, int H, int W, int Cout, int Ho, int Wo,
@@ -2393,7 +2837,7 @@ extern "C" int conv_fwd_tc(const void* x, const void* w, void* y,
 }
 
 // fp32 K7 (the CUDA cores). x, scale, shift, pad, groups, negslope: as
-// conv_valid_fwd at stride 1; x and g [B,Cout,Ho,Wo] fp32; partial: fp32
+// conv_fwd_tf32 at stride 1; x and g [B,Cout,Ho,Wo] fp32; partial: fp32
 // scratch [B*ceil((Ho+k-1)/rows_per_chunk), Cin*k*k*Cout]; dw: fp32
 // [Cin, k*k*Cout] with tap t' = dy'*k + dx' holding dw's tap (k-1-dy',
 // k-1-dx') (the caller reverses). k in {2, 3, 5, 7}.
@@ -2409,28 +2853,13 @@ extern "C" int conv_dw_gtap(const void* x, const void* g, float* partial,
                                static_cast<cudaStream_t>(stream));
 }
 
-// fp32 K4 (the CUDA cores). x, scale, shift, pad, stride, groups,
-// negslope: as conv_valid_fwd, x fp32; g [B,Cout,Ho,Wo] fp32; partial: fp32
-// scratch [B*ceil(Ho/rows_per_chunk), k*k*s*s*Cin*Cout]; dw: fp32
-// [k,k,s*s*Cin,Cout]. Any k >= 1.
-extern "C" int conv_dw(const void* x, const void* g, float* partial,
-                       float* dw, const float* scale, const float* shift,
-                       int B, int Cin, int H, int W, int Cout, int Ho, int Wo,
-                       int k, int pad, int stride, int groups, float negslope,
-                       int rows_per_chunk, void* stream) {
-  const Src src = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
-                           negslope);
-  return launch_dw<float>(x, g, partial, dw, src, B, Cout, Ho, Wo, k,
-                          rows_per_chunk, static_cast<cudaStream_t>(stream));
-}
-
 // bf16 K4 (gtap = 0, k in {1, 2, 3, 4, 5, 7}: dw [k,k,s*s*Cin,Cout], as
-// conv_dw; at k >= 4 only where ops/conv.py dw_px_form keeps this form,
+// conv_dw_tf32; at k >= 4 only where ops/conv.py dw_px_form keeps this form,
 // Cout <= 16 on a grid that busies half the SMs; conv_dw_px takes the
 // others) and K7 (gtap = 1,
 // stride 1, k in {2, 3, 5, 7}: dw [Cin, k*k*Cout], as conv_dw_gtap) on the
-// tensor cores. x, g, scale, shift, pad, stride, groups, negslope: as conv_dw,
-// x and g bf16. The tiling comes from ops/conv.py dw_tc_tiling: strips of
+// tensor cores. x, g, scale, shift, pad, stride, groups, negslope: as
+// conv_dw_tf32, x and g bf16. The tiling comes from ops/conv.py dw_tc_tiling: strips of
 // rows x cols pixels of the contraction's extent (Ho x Wo for K4, (Ho+k-1)
 // x (Wo+k-1) for K7), cb channels of the tapped operand and bn in {8, 16,
 // ..., 64} of the other per block, wm warps along M. partial: fp32 scratch
@@ -2510,7 +2939,7 @@ extern "C" int conv_fwd_px(const void* x, const void* w, void* y,
 }
 
 // bf16 K4 at k >= 4 and the k2 = 3 phase kernels (namespace px): as
-// conv_dw, any k. The tiling comes from ops/conv.py dw_px_tiling: strips of
+// conv_dw_tf32, any k. The tiling comes from ops/conv.py dw_px_tiling: strips of
 // rows x cols pixels (multiples of 8 and 32), tap rows in groups of ndy,
 // nb in {1, 2, 4} n8 tiles of Cout a block. partial: fp32 scratch
 // [B * ceil(Ho / rows) * ceil(Wo / cols), k * k * s * s * Cin * Cout].

@@ -3,8 +3,9 @@
 Each source is compiled by nvcc for sm_90a into its own shared library with
 a plain C interface and loaded with ctypes (no PyTorch headers, so a build
 takes seconds). All sources build in parallel, once per process, into
-splice_tpu_torch/_build (git-ignored), keyed by a hash of the source and
-the flags. Nothing here runs at import time: the CPU tests import every
+splice_tpu_torch/_build (git-ignored), keyed by a hash of the source, the
+headers it includes from csrc (`#include "x.cuh"`, recursively) and the
+flags. Nothing here runs at import time: the CPU tests import every
 module of the port on machines without nvcc.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -48,10 +50,29 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: pathlib.Path, seen=None) -> list:
+    """path and every file it includes by a quoted #include, recursively,
+    each once, in the order they are first reached."""
+    seen = [] if seen is None else seen
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def _target(name: str) -> pathlib.Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of csrc/{name}.cu, named by a hash of its text, its
+    headers' and the flags: an edited header builds a new library."""
+    h = hashlib.sha256()
+    for f in _sources(CSRC_DIR / f"{name}.cu"):
+        h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, ctypes.CDLL]:

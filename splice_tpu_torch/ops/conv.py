@@ -45,10 +45,13 @@ stride 2 (conv_fwd_px and conv_dw_px, tiled by fwd_px_tiling and
 dw_px_tiling: the contraction split across blocks, as the inversion net's
 7x7 and 5x5 sites need to fill the card), except that K4 at Cout <= 16
 keeps conv_dw_tc where its grid busies half the SMs (dw_px_form); K7
-takes its own kernel at k in GTAP_KS and K4 elsewhere. Each wrapper counts its bf16 launches in
-tc_launches. fp32 runs on the CUDA cores (conv_valid_fwd, conv_dw,
-conv_dw_gtap) in full fp32, which the 1e-4 gates of the fp32 steps
-need.
+takes its own kernel at k in GTAP_KS and K4 elsewhere. fp32 K3 and K4 run
+on the tensor cores too, in split TF32 (three TF32 products a product,
+csrc/tf32.cuh, which keep the fp32 steps' 1e-4 gates), through one kernel
+each for every form at any k (conv_fwd_tf32 and conv_dw_tf32, tiled by
+fwd_tf32_tiling and dw_tf32_tiling); fp32 K7 stays on the CUDA cores
+(conv_dw_gtap) in full fp32. Each wrapper counts its tensor-core launches
+in tc_launches: every K3 and K4 launch, and K7's bf16 ones.
 
 On CPU tensors the same functions run their plain PyTorch versions below,
 which materialise what the kernels' input read sees (virtual_input_plain)
@@ -73,10 +76,11 @@ import torch.nn.functional as F
 from splice_tpu_torch.ops import _build
 from splice_tpu_torch.ops.image import reflect_pad
 
-# fp32 K4/K7 split the rows of all images into about this many chunks
-# (pass 1), then add the chunks' partial sums in order (pass 2).
+# fp32 K7 (the CUDA cores) splits the rows of all images into about this
+# many chunks (pass 1), then adds the chunks' partial sums in order (pass
+# 2).
 _DW_CHUNKS = 256
-_DW_ROW_TILE = 4          # rows per shared-memory tile in K4 (csrc DR)
+_DW_ROW_TILE = 4          # rows per shared-memory tile in K7 (csrc DR)
 
 # bf16 K4/K7 on the tensor cores (csrc/conv.cu, namespace dwtc): a block
 # walks a strip of pixels in stages of DW_TC_ROWS x DW_TC_COLS, its warps
@@ -135,6 +139,32 @@ PX_WAVE = 132
 PX_CLUSTER = 8            # csrc px::CLUSTER
 PX_PARTIAL = 8 << 20
 PX_PCH = 512              # csrc px::THREADS * px::PPT
+
+# fp32 K3 and K4 on the tensor cores in split TF32 (csrc/conv.cu, namespace
+# tc32). K3: a block owns a strip of output pixels and nb n8 tiles of Cout
+# (at most TF32_NB); it walks the strip in stages of TF32_ROWS rows (one a
+# warp) x 16 tf32_mt(nb) columns, each stage in units of TF32_CK channels
+# of V and a group of ndy tap rows, V's tile staged raw (up to TF32_LEAD
+# columns left of its stage, for 16-byte copies) and split into {hi, lo}
+# pairs. K4: a block owns a strip of pixels, cb channels of V and nb n8
+# tiles of Cout, in stages of TF32_DW_ROWS x TF32_DW_COLS pixels; wm warp
+# groups split M (the (tap, c) rows), 8 // wm split a stage's k8 steps; each
+# strip writes an fp32 partial within TF32_PARTIAL bytes in all. Both
+# grids aim at TF32_BLOCKS blocks (two waves at two blocks an SM), each
+# block within TF32_SMEM bytes of shared memory where a tiling allows it
+# (two blocks an SM), else within TF32_SMEM_MAX (one).
+TF32_CK = 8               # csrc tc32::CK
+TF32_ROWS = 8             # csrc tc32::TR
+TF32_LEAD = 3             # csrc tc32::LEAD
+TF32_DW_ROWS = 4          # csrc tc32::DR
+TF32_DW_COLS = 32         # csrc tc32::DC
+TF32_G_PLANE = TF32_DW_ROWS * TF32_DW_COLS + 4   # csrc tc32::GP
+TF32_NB = 8               # csrc conv_fwd_tf32 / conv_dw_tf32 cases
+TF32_WARPS = 8
+TF32_SMEM = 113 * 1024
+TF32_SMEM_MAX = 227 * 1024
+TF32_BLOCKS = 528
+TF32_PARTIAL = 16 << 20
 
 # The reference's module constants (conv_pallas.py:41, :627), read at call
 # time through this module. SAME_BORDER_KERNELS routes stride-1 zero-border
@@ -337,9 +367,8 @@ def _ptr(t: Optional[torch.Tensor]):
 def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name,
                 want_stats: bool = False, phase: bool = False):
     """K3 over the virtual input of x (see csrc/conv.cu) on the kernel that
-    conv_route names: bf16 on the tensor cores (conv_fwd_tc or
-    conv_fwd_px), fp32 on the CUDA cores (conv_valid_fwd). w must already
-    be in x's type. want_stats (K3''', needs the prologue): also the fp32
+    conv_route names, on the tensor cores: bf16 conv_fwd_tc or conv_fwd_px,
+    fp32 conv_fwd_tf32 (split TF32). w must already be in x's type. want_stats (K3''', needs the prologue): also the fp32
     [G, 2, Cout] per-stack sums of y and y^2. phase: w is a stride-2 phase
     kernel read at stride 1 (the input gradient of the s2d conv)."""
     x, w = x.contiguous(), w.contiguous()
@@ -360,13 +389,7 @@ def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name,
     lib = _build.library("conv")
     st_part = stats = None
     if want_stats:
-        if route.form == "px":
-            tiles = B * t.chunks
-        else:
-            lib.conv_stats_scratch_tiles.argtypes = [ctypes.c_int] * 6
-            tiles = lib.conv_stats_scratch_tiles(
-                B, ho, wo, int(route.form == "tc"),
-                *((t.rows, t.cols) if route.form == "tc" else (0, 0)))
+        tiles = B * t.chunks if route.form == "px" else t.tiles
         st_part = torch.empty(tiles, 2, cout, dtype=torch.float32,
                               device=x.device)
         stats = torch.empty(G, 2, cout, dtype=torch.float32, device=x.device)
@@ -390,8 +413,10 @@ def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name,
         args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), sp, tp, *tail,
                 t.rows, t.cols, t.cb, t.wcb, t.mt)
     else:
-        fn.argtypes = [ctypes.c_void_p] * 5 + tail_types + [ctypes.c_void_p]
-        args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), sp, tp, *tail)
+        fn.argtypes = [ctypes.c_void_p] * 5 + tail_types \
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), sp, tp, *tail,
+                t.nb, t.ndy, t.rows, t.cols)
     fn.restype = ctypes.c_int
     _build.check(fn(*args, _build.stream_ptr(x.device)), name)
     return (y, stats) if want_stats else y
@@ -399,9 +424,10 @@ def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name,
 
 class ConvRoute(NamedTuple):
     """What conv_route picks: the kernel (K3, K4 or K7), its form ("tc":
-    the channel-major bf16 forms, "px": the pixel-major ones, "fp32": the
-    CUDA cores), the C entry in csrc/conv.cu and the tiling the wrapper
-    passes it (None for fp32)."""
+    the channel-major bf16 forms, "px": the pixel-major ones, "tf32": fp32
+    in split TF32 on the tensor cores, "fp32": K7 on the CUDA cores), the C
+    entry in csrc/conv.cu and the tiling the wrapper passes it (None for
+    fp32)."""
     kernel: str
     form: str
     entry: str
@@ -454,8 +480,9 @@ def conv_route(op: str, dtype: torch.dtype, k: int, stride: int, cv: int,
     stride 1, else K4. k is the kernel the launch reads (k2 for a stride-2
     phase kernel, which `phase` also marks at stride 1); cv the channels of
     V (s*s*Cin; for K7 the input's); [batch, ho, wo] the output. bf16 takes
-    the tensor cores (px_form picks K3's form, dw_px_form K4's), fp32 the
-    CUDA cores; every k >= 1 has a kernel."""
+    the tensor cores (px_form picks K3's form, dw_px_form K4's); fp32 K3
+    and K4 take them too, in split TF32 (one form each), fp32 K7 the CUDA
+    cores; every k >= 1 has a kernel."""
     if k < 1 or stride not in (1, 2):
         raise ValueError(f"conv_route: k {k}, stride {stride}")
     bf16 = dtype == torch.bfloat16
@@ -464,7 +491,8 @@ def conv_route(op: str, dtype: torch.dtype, k: int, stride: int, cv: int,
     phase = phase or stride == 2
     if op == "fwd":
         if not bf16:
-            return ConvRoute("K3", "fp32", "conv_valid_fwd", None)
+            return ConvRoute("K3", "tf32", "conv_fwd_tf32",
+                             fwd_tf32_tiling(k, cv, cout, batch, ho, wo))
         if px_form(k, phase):
             return ConvRoute("K3", "px", "conv_fwd_px",
                              fwd_px_tiling(k, cv, cout, batch, ho, wo))
@@ -479,7 +507,8 @@ def conv_route(op: str, dtype: torch.dtype, k: int, stride: int, cv: int,
         return ConvRoute("K7", "tc", "conv_dw_tc", dw_tc_tiling(
             k, cout, cv, batch, ho + k - 1, wo + k - 1))
     if not bf16:
-        return ConvRoute("K4", "fp32", "conv_dw", None)
+        return ConvRoute("K4", "tf32", "conv_dw_tf32",
+                         dw_tf32_tiling(k, cv, cout, batch, ho, wo))
     if dw_px_form(k, phase, cv, cout, batch, ho, wo):
         return ConvRoute("K4", "px", "conv_dw_px",
                          dw_px_tiling(k, cv, cout, batch, ho, wo))
@@ -779,6 +808,186 @@ def dw_tc_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
     return DwTiling(rows, cols, cb, bn, wm, slices)
 
 
+class Tf32FwdTiling(NamedTuple):
+    """conv_fwd_tf32's work split: nb n8 tiles of Cout a block, in n_co
+    chunks of Cout; mt m16 tiles a warp (a stage of TF32_ROWS x 16 mt
+    output pixels); the k tap rows in n_dyg groups of ndy; strips of rows x
+    cols output pixels; tiles = the strips (the K3''' scratch rows); smem =
+    a block's shared memory in bytes."""
+    nb: int
+    mt: int
+    ndy: int
+    n_dyg: int
+    n_co: int
+    rows: int
+    cols: int
+    tiles: int
+    smem: int
+
+
+class Tf32DwTiling(NamedTuple):
+    """conv_dw_tf32's work split: strips of rows x cols pixels (whole
+    TF32_DW_ROWS x TF32_DW_COLS stages); cb channels of V a block (all k*k
+    taps: M = k*k*cb rows), in m_chunks chunks; nb n8 tiles of Cout a
+    block, in n_co chunks; wm warp groups along M; slices = the strips, the
+    partials conv_dw_sum_kernel adds; blocks of the grid; smem in bytes."""
+    rows: int
+    cols: int
+    cb: int
+    m_chunks: int
+    nb: int
+    n_co: int
+    wm: int
+    slices: int
+    blocks: int
+    smem: int
+
+
+def tf32_mt(nb: int) -> int:
+    """K3's m16 tiles a warp beside nb n8 tiles: at most 64 fp32
+    accumulators a thread (csrc tc32::mt_of)."""
+    return 4 if nb <= 4 else 2
+
+
+def tf32_upw(nb: int) -> int:
+    """K4's m16 tiles a warp beside nb n8 tiles (csrc tc32::upw_of)."""
+    return 4 if nb <= 2 else 3 if nb <= 4 else 2
+
+
+def tf32_rs(cols: int) -> int:
+    """Row stride of a staged tile whose stage reads `cols` columns: the
+    lead and whole 16-byte vectors (csrc tc32::tile_rs)."""
+    return (TF32_LEAD + cols + 3) // 4 * 4
+
+
+def tf32_plane(n: int, m: int) -> int:
+    """The least plane stride >= n that is 4 mod m (csrc tc32::plane4):
+    the four lane groups t of a fragment load land in distinct banks."""
+    return n + (4 - n) % m
+
+
+def fwd_tf32_smem(k: int, ndy: int, nb: int) -> int:
+    """Bytes of conv_fwd_tf32's shared memory: V's tile of TF32_CK
+    channels split into {hi, lo} pairs and raw, the unit's weights (ndy * k
+    taps) as split B fragments and raw, the K3''' slots (csrc
+    tc32::FwdLayout)."""
+    vr = TF32_ROWS + ndy - 1
+    vplane = vr * tf32_rs(16 * tf32_mt(nb) + k - 1)
+    ntap = ndy * k
+    return 4 * (2 * TF32_CK * tf32_plane(vplane, 16) + 4 * ntap * nb * 32
+                + TF32_CK * vplane + ntap * TF32_CK * 8 * nb
+                + TF32_WARPS * 2 * 8 * nb)
+
+
+def dw_tf32_vplane(k: int) -> int:
+    """Floats of one channel's plane of conv_dw_tf32's V tile: TF32_DW_ROWS
+    + k - 1 rows, 4 mod 32 (csrc tc32::DwLayout)."""
+    return tf32_plane((TF32_DW_ROWS + k - 1)
+                      * tf32_rs(TF32_DW_COLS + k - 1), 32)
+
+
+def dw_tf32_smem(k: int, cb: int, nb: int, wm: int) -> int:
+    """Bytes of conv_dw_tf32's shared memory: two raw V tiles of cb
+    channels, g's raw and split tiles, or the row groups' sums where they
+    are larger (csrc tc32::DwLayout)."""
+    stage = (2 * cb * dw_tf32_vplane(k)
+             + 8 * nb * TF32_DW_ROWS * TF32_DW_COLS
+             + 2 * 8 * nb * TF32_G_PLANE)
+    red = 0 if wm == TF32_WARPS else TF32_WARPS * tf32_upw(nb) * 16 * 8 * nb
+    return 4 * max(stage, red)
+
+
+def _n8_chunks(cout: int) -> Tuple[int, int]:
+    """Cout's n8 tiles in as few evened chunks of at most TF32_NB: (nb,
+    chunks)."""
+    n8 = -(-cout // 8)
+    n_co = -(-n8 // TF32_NB)
+    return -(-n8 // n_co), n_co
+
+
+def _strips(batch: int, hp: int, wp: int, srows: int, scols: int, per: int,
+            max_slices: int = 0) -> Tuple[int, int, int]:
+    """Strips of whole srows x scols stages over [batch, hp, wp], about
+    `per` of them (full-width where that still gives `per`, else split
+    along the columns), and no more than max_slices (if given) unless each
+    image is one strip: (rows, cols, strips)."""
+    sy, sx = -(-hp // srows), -(-wp // scols)
+    spb = max(1, -(-batch * sy * sx // per))      # stages per strip
+    while True:
+        if spb >= sx:
+            rows, cols = srows * (spb // sx), scols * sx
+        else:
+            rows = srows
+            cols = scols * -(-sx // -(-sx // spb))
+        strips = batch * -(-hp // rows) * -(-wp // cols)
+        if not max_slices or strips <= max(batch, max_slices):
+            return rows, cols, strips
+        spb += 1
+
+
+def fwd_tf32_tiling(k: int, cv: int, cout: int, batch: int, ho: int,
+                    wo: int) -> Tf32FwdTiling:
+    """How conv_fwd_tf32 splits y[co, p] = sum_(t, c) w[t, c, co] V[c, p +
+    t] over [batch, ho, wo] outputs: Cout in as few evened chunks of at most
+    TF32_NB n8 tiles as it takes; the tap rows in as few groups as let a
+    block fit TF32_SMEM (two blocks an SM), else TF32_SMEM_MAX (each group
+    restages V's rows with their halo); strips of whole stages toward
+    TF32_BLOCKS blocks."""
+    nb, n_co = _n8_chunks(cout)
+    fits = [d for d in _tap_rows(k)
+            if fwd_tf32_smem(k, d, nb) <= TF32_SMEM_MAX]
+    if not fits:
+        raise ValueError(f"fwd_tf32_tiling: no tiling of k = {k} fits")
+    ndy = next((d for d in fits if fwd_tf32_smem(k, d, nb) <= TF32_SMEM),
+               fits[0])
+    mt = tf32_mt(nb)
+    rows, cols, tiles = _strips(batch, ho, wo, TF32_ROWS, 16 * mt,
+                                max(1, TF32_BLOCKS // n_co))
+    return Tf32FwdTiling(nb, mt, ndy, -(-k // ndy), n_co, rows, cols, tiles,
+                         fwd_tf32_smem(k, ndy, nb))
+
+
+def dw_tf32_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
+                   wp: int) -> Tf32DwTiling:
+    """How conv_dw_tf32 splits dw[t, c, u] = sum_p V[c, p + t] g[u, p] over
+    the pixels of [batch, hp, wp]: Cout in as few evened chunks of at most
+    TF32_NB n8 tiles as it takes; V's channels in as few evened chunks as
+    let the warps' m16 tiles (8 x tf32_upw(nb)) hold M = k*k*cb rows and a
+    block fit TF32_SMEM (else TF32_SMEM_MAX); wm the fewest warp groups
+    along M that hold them; strips of whole stages toward TF32_BLOCKS
+    blocks, their partials within TF32_PARTIAL bytes unless each image is
+    one strip."""
+    nb, n_co = _n8_chunks(cu)
+    upw = tf32_upw(nb)
+    cb_max = min(cs, TF32_WARPS * upw * 16 // (k * k))
+    if cb_max < 1:
+        raise ValueError(f"dw_tf32_tiling: k = {k} has more taps than the "
+                         f"warps' tiles hold")
+    best = None
+    for limit in (TF32_SMEM, TF32_SMEM_MAX):
+        for m_chunks in range(-(-cs // cb_max), cs + 1):
+            cb = -(-cs // m_chunks)
+            tiles = -(-k * k * cb // 16)
+            wm = 1
+            while wm * upw < tiles:
+                wm *= 2
+            if dw_tf32_smem(k, cb, nb, wm) <= limit:
+                best = (cb, wm)
+                break
+        if best:
+            break
+    if best is None:
+        raise ValueError(f"dw_tf32_tiling: no tiling of k = {k} fits")
+    cb, wm = best
+    m_chunks = -(-cs // cb)
+    max_slices = max(1, TF32_PARTIAL // (4 * k * k * cs * cu))
+    rows, cols, slices = _strips(batch, hp, wp, TF32_DW_ROWS, TF32_DW_COLS,
+                                 max(1, TF32_BLOCKS // (m_chunks * n_co)),
+                                 max_slices)
+    return Tf32DwTiling(rows, cols, cb, m_chunks, nb, n_co, wm, slices,
+                        slices * m_chunks * n_co, dw_tf32_smem(k, cb, nb, wm))
+
+
 def _launch_dw_tc(x, g, k, pad, stride, scale, shift, negslope, gtap, t,
                   name):
     """bf16 K4 (gtap False: fp32 [k, k, s*s*Cin, Cout]) or K7 (gtap True,
@@ -826,35 +1035,60 @@ def _launch_dw_px(x, g, k, pad, stride, scale, shift, negslope, t, name):
     return dw
 
 
-def _launch_dw_cores(x, g, k, pad, stride, scale, shift, negslope, gtap,
-                     name):
-    """fp32 K4 (conv_dw: [k, k, s*s*Cin, Cout]) or K7 (conv_dw_gtap,
-    stride 1: [Cin, k*k*Cout], taps not yet reversed) on the CUDA cores:
-    the rows of all images (K7: of V) in about _DW_CHUNKS chunks."""
+def _launch_dw_tf32(x, g, k, pad, stride, scale, shift, negslope, t,
+                    name):
+    """fp32 K4 on the tensor cores in split TF32 (conv_dw_tf32), tiled by t
+    (dw_tf32_tiling): fp32 [k, k, s*s*Cin, Cout]."""
     B, cin, h, wd = x.shape
     cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
     sp, tp, G = _prologue_args(x, scale, shift)
     cv = stride * stride * cin
-    hr = ho + k - 1 if gtap else ho
+    partial = torch.empty(t.slices, k * k * cv * cout, dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty(k, k, cv, cout, dtype=torch.float32, device=x.device)
+    fn = _build.library("conv").conv_dw_tf32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
+        + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    status = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                dw.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, pad,
+                stride, G, float(negslope), t.rows, t.cols, t.cb, t.nb, t.wm,
+                _build.stream_ptr(x.device))
+    _build.check(status, name)
+    return dw
+
+
+def _launch_gtap_cores(x, g, k, pad, scale, shift, negslope, name):
+    """fp32 K7 (conv_dw_gtap, stride 1: [Cin, k*k*Cout], taps not yet
+    reversed) on the CUDA cores: the rows of all images' V in about
+    _DW_CHUNKS chunks."""
+    B, cin, h, wd = x.shape
+    cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
+    sp, tp, G = _prologue_args(x, scale, shift)
+    hr = ho + k - 1
     rows = -(-B * hr // _DW_CHUNKS)
     rows = -(-rows // _DW_ROW_TILE) * _DW_ROW_TILE
     n_chunks = B * -(-hr // rows)
-    partial = torch.empty(n_chunks, k * k * cv * cout, dtype=torch.float32,
+    partial = torch.empty(n_chunks, k * k * cin * cout, dtype=torch.float32,
                           device=x.device)
-    shape = (cin, k * k * cout) if gtap else (k, k, cv, cout)
-    dw = torch.empty(shape, dtype=torch.float32, device=x.device)
-    lib = _build.library("conv")
-    fn = lib.conv_dw_gtap if gtap else lib.conv_dw
+    dw = torch.empty(cin, k * k * cout, dtype=torch.float32, device=x.device)
+    fn = _build.library("conv").conv_dw_gtap
     fn.restype = ctypes.c_int
-    n_int = 10 if gtap else 11
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    geom = (pad, G) if gtap else (pad, stride, G)
     status = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                dw.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, *geom,
+                dw.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, pad, G,
                 float(negslope), rows, _build.stream_ptr(x.device))
     _build.check(status, name)
     return dw
+
+
+def _dw_route(x, g, k, stride, gtap: bool = False) -> ConvRoute:
+    """conv_route's choice for the weight gradient of x [B, Cin, H, W]
+    against the cotangent g."""
+    return conv_route("dw", x.dtype, k, stride, stride * stride * x.shape[1],
+                      g.shape[1], g.shape[0], g.shape[2], g.shape[3],
+                      gtap=gtap)
 
 
 def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name,
@@ -862,27 +1096,26 @@ def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name,
     """The weight gradient over the virtual input of x on the kernel that
     conv_route names: fp32 [k, k, s*s*Cin, Cout]; g must be in x's type.
     K4, or with gtap (stride 1) K7 where its kernels are built for k (its
-    taps reversed here); bf16 on the tensor cores, fp32 on the CUDA
-    cores."""
+    taps reversed here); bf16 on the tensor cores, fp32 K4 too (split
+    TF32), fp32 K7 on the CUDA cores."""
     x, g = x.contiguous(), g.contiguous()
     _build.check_cuda_tensors(name, x, g)
-    B, cin = x.shape[:2]
-    cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
-    if g.shape[0] != B or stride not in (1, 2) or (gtap and stride != 1):
+    if g.shape[0] != x.shape[0] or stride not in (1, 2) or (
+            gtap and stride != 1):
         raise ValueError(f"{name}: cotangent {tuple(g.shape)} vs input "
                          f"{tuple(x.shape)}, stride {stride}")
-    route = conv_route("dw", x.dtype, k, stride, stride * stride * cin, cout,
-                       B, ho, wo, gtap=gtap)
+    route = _dw_route(x, g, k, stride, gtap)
     args = (x, g, k, pad, stride, scale, shift, negslope)
     if route.kernel == "K7":
         dwt = (_launch_dw_tc(*args, True, route.tiling, name)
-               if route.form == "tc" else _launch_dw_cores(*args, True, name))
+               if route.form == "tc" else
+               _launch_gtap_cores(x, g, k, pad, scale, shift, negslope, name))
         return _reverse_taps(dwt, k)
     if route.form == "px":
         return _launch_dw_px(*args, route.tiling, name)
     if route.form == "tc":
         return _launch_dw_tc(*args, False, route.tiling, name)
-    return _launch_dw_cores(*args, False, name)
+    return _launch_dw_tf32(*args, route.tiling, name)
 
 
 def _same_pad(w: torch.Tensor, name: str) -> int:
@@ -895,13 +1128,14 @@ def _same_pad(w: torch.Tensor, name: str) -> int:
 
 def conv_same_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K3'' SAME on the card: the conv with the zero border (k-1)//2. w must
-    already be in x's type. bf16 launches run on the tensor cores and also
-    count in tc_launches (as in every K3 wrapper below)."""
+    already be in x's type. Every launch runs on the tensor cores (bf16,
+    and fp32 in split TF32) and also counts in tc_launches (as in every K3
+    and K4 wrapper below)."""
     pad = _same_pad(w, "conv_same")
     y = _launch_fwd(x, w, _out_hw(x, w.shape[0], pad), pad, 1, None, None,
                     1.0, "conv_same")
     conv_same_cuda.launches += 1
-    conv_same_cuda.tc_launches += x.dtype == torch.bfloat16
+    conv_same_cuda.tc_launches += 1
     return y
 
 
@@ -918,7 +1152,7 @@ def conv_same_pro_cuda(x: torch.Tensor, w: torch.Tensor,
     y = _launch_fwd(x, w, _out_hw(x, w.shape[0], pad), pad, 1, scale, shift,
                     negslope, "conv_same_pro")
     conv_same_pro_cuda.launches += 1
-    conv_same_pro_cuda.tc_launches += x.dtype == torch.bfloat16
+    conv_same_pro_cuda.tc_launches += 1
     return y
 
 
@@ -935,7 +1169,7 @@ def conv_same_pro_stats_cuda(x: torch.Tensor, w: torch.Tensor,
     y, st = _launch_fwd(x, w, _out_hw(x, w.shape[0], pad), pad, 1, scale,
                         shift, negslope, "conv_same_pro_stats", True)
     conv_same_pro_stats_cuda.launches += 1
-    conv_same_pro_stats_cuda.tc_launches += x.dtype == torch.bfloat16
+    conv_same_pro_stats_cuda.tc_launches += 1
     return y, st[:, 0], st[:, 1]
 
 
@@ -949,12 +1183,14 @@ def conv_dw_gtap_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
                       negslope: float = 1.0, pad: int = 0) -> torch.Tensor:
     """K7 on the card: fp32 [k, k, Cin, Cout] by tapping the cotangent; pad
     (k-1)//2 is SAME, pad 0 on a padded x VALID. g must be in x's type.
-    At a k outside GTAP_KS conv_route runs K4, the same function. bf16
-    launches run on the tensor cores and also count in tc_launches."""
+    At a k outside GTAP_KS conv_route runs K4, the same function. Launches
+    on the tensor cores (bf16, and fp32 where K4 runs it) also count in
+    tc_launches; fp32 K7 runs on the CUDA cores."""
     dw = _launch_dw(x, g, k, pad, 1, scale, shift, negslope, "conv_dw_gtap",
                     gtap=True)
     conv_dw_gtap_cuda.launches += 1
-    conv_dw_gtap_cuda.tc_launches += x.dtype == torch.bfloat16
+    conv_dw_gtap_cuda.tc_launches += (_dw_route(x, g, k, 1, True).form
+                                      != "fp32")
     return dw
 
 
@@ -966,12 +1202,11 @@ def conv_valid_cuda(x: torch.Tensor, w: torch.Tensor, pad: int = 0,
                     phase: bool = False) -> torch.Tensor:
     """K3 on the card: VALID stride-1 conv with an implicit zero border
     (phase: w is a stride-2 phase kernel, as in the s2d conv's input
-    gradient). w must already be in x's type. bf16 launches run on the
-    tensor cores and also count in tc_launches."""
+    gradient). w must already be in x's type."""
     y = _launch_fwd(x, w, _out_hw(x, w.shape[0], pad), pad, 1, None, None,
                     1.0, "conv_valid", phase=phase)
     conv_valid_cuda.launches += 1
-    conv_valid_cuda.tc_launches += x.dtype == torch.bfloat16
+    conv_valid_cuda.tc_launches += 1
     return y
 
 
@@ -989,7 +1224,7 @@ def conv_valid_pro_cuda(x: torch.Tensor, w: torch.Tensor,
     y = _launch_fwd(x, w, out_hw or _out_hw(x, w.shape[0], pad), pad,
                     stride, scale, shift, negslope, "conv_valid_pro")
     conv_valid_pro_cuda.launches += 1
-    conv_valid_pro_cuda.tc_launches += x.dtype == torch.bfloat16
+    conv_valid_pro_cuda.tc_launches += 1
     return y
 
 
@@ -1004,7 +1239,7 @@ def conv_valid_s2d_cuda(x: torch.Tensor, w: torch.Tensor, pad: int,
     kernel w."""
     y = _launch_fwd(x, w, out_hw, pad, 2, None, None, 1.0, "conv_valid_s2d")
     conv_valid_s2d_cuda.launches += 1
-    conv_valid_s2d_cuda.tc_launches += x.dtype == torch.bfloat16
+    conv_valid_s2d_cuda.tc_launches += 1
     return y
 
 
@@ -1014,12 +1249,10 @@ conv_valid_s2d_cuda.tc_launches = 0
 
 def conv_dw_cuda(xp: torch.Tensor, g: torch.Tensor, k: int,
                  pad: int = 0) -> torch.Tensor:
-    """K4 on the card: fp32 [k, k, Cin, Cout]; g must be in xp's type.
-    bf16 launches run on the tensor cores and also count in
-    tc_launches."""
+    """K4 on the card: fp32 [k, k, Cin, Cout]; g must be in xp's type."""
     dw = _launch_dw(xp, g, k, pad, 1, None, None, 1.0, "conv_dw")
     conv_dw_cuda.launches += 1
-    conv_dw_cuda.tc_launches += xp.dtype == torch.bfloat16
+    conv_dw_cuda.tc_launches += 1
     return dw
 
 
@@ -1032,11 +1265,11 @@ def conv_dw_pro_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
                      negslope: float = 1.0, pad: int = 0,
                      stride: int = 1) -> torch.Tensor:
     """K4' pro on the card: dw of the pro conv, the prologue recomputed on
-    the read (bf16 on the tensor cores, also counted in tc_launches)."""
+    the read."""
     dw = _launch_dw(x, g, k, pad, stride, scale, shift, negslope,
                     "conv_dw_pro")
     conv_dw_pro_cuda.launches += 1
-    conv_dw_pro_cuda.tc_launches += x.dtype == torch.bfloat16
+    conv_dw_pro_cuda.tc_launches += 1
     return dw
 
 
@@ -1046,11 +1279,10 @@ conv_dw_pro_cuda.tc_launches = 0
 
 def conv_dw_s2d_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
                      pad: int) -> torch.Tensor:
-    """K4 at k2 on the card: dw [k2, k2, 4Cin, Cout] of the s2d conv (bf16
-    on the tensor cores, also counted in tc_launches)."""
+    """K4 at k2 on the card: dw [k2, k2, 4Cin, Cout] of the s2d conv."""
     dw = _launch_dw(x, g, k, pad, 2, None, None, 1.0, "conv_dw_s2d")
     conv_dw_s2d_cuda.launches += 1
-    conv_dw_s2d_cuda.tc_launches += x.dtype == torch.bfloat16
+    conv_dw_s2d_cuda.tc_launches += 1
     return dw
 
 

@@ -1,7 +1,8 @@
-"""bf16 K3 and K4 at the inversion net's sites, timed for one checkout.
+"""bf16 K3 and K4 at the inversion net's sites, or fp32 K3 and K4 at
+main_fp32's sites, timed for one checkout.
 
     python splice_tpu_torch/tools/conv_forms.py [--tree DIR] [--out FILE]
-        [--step]
+        [--step] [--fp32]
 
 Imports splice_tpu_torch from DIR (default: the checkout this file is in),
 builds its conv library, and at each of the inversion net's sites on limes
@@ -26,6 +27,20 @@ directory (`_proof/parent`) and run this file with `--tree` for each, in
 turns. Prints one JSON line ({"tree", "card", "sites": {name: {"k3",
 "dx", "dw", "k3_lib", "dx_lib", "dw_lib"}}, and with --step "step": {"ms",
 "kernels_ms", "k3_ms", "k4_ms"}}, ms), appended to FILE if given.
+
+With --fp32 it times fp32 K3, its input gradient and K4 instead, at
+main_fp32's two auto sites (FP32_SITES: [2, Cin, S, S] -> Cout, k = 3,
+an implicit 1-pixel border), beside F.conv2d, conv2d_input and
+conv2d_weight with cuDNN's and matmul's TF32 off (fp32 products, as the
+port's fp32 kernels compute them); with --step also main_fp32's replayed
+regular step (train_pair on the cows pair at its defaults with
+vit_compute_dtype and generator_compute_dtype float32, FP32_STEP_ITERS
+steps, then 5 host-timed chunks of as many replays as its program holds
+and a profile of 3)
+and its K3 and K4 device ms. It uses only conv_valid_cuda and
+conv_dw_cuda, which every version of the port has, so the parent of the
+split-TF32 kernels (fp32 on the CUDA cores) and a later tree can be timed
+in turns the same way. The JSON line then holds "fp32": true.
 """
 from __future__ import annotations
 
@@ -54,9 +69,36 @@ INV_SITES = (("up_conv s0", 36, 16, 230, 287, 7, 1),
              ("down_conv1 s3", 64, 128, 32, 40, 5, 2))
 STEP_ITERS, STEP_LOG = 21, 20
 LIMES = "datasets/feature_visualization/limes.jpeg"
-# K3's kernels (forward and input gradient; chip_smoke.K3_KERNELS)
-K3_KERNELS = ("conv_fwd_kernel", "conv_fwd_tc", "conv_fwd_px",
-              "conv_split_sum", "conv_stats_")
+# K3's kernels (forward and input gradient; chip_smoke.K3_KERNELS), and
+# conv_fwd_kernel, the CUDA-core fp32 K3 of trees before the split-TF32
+# kernels
+K3_KERNELS = ("conv_fwd_tf32", "conv_fwd_kernel", "conv_fwd_tc",
+              "conv_fwd_px", "conv_split_sum", "conv_stats_")
+# main_fp32's K3/K4 sites (generator_conv auto on the 896 canvas, B = 2,
+# k = 3, border 1): (name, Cin, Cout, S)
+FP32_SITES = (("up_conv s0", 36, 16, 896), ("up_conv s1", 68, 32, 448))
+# entire A at 0 and 10 (entire_A_every 10): the program holds chunks of 9
+FP32_STEP_ITERS = 11
+COWS = "datasets/splicing/cows"
+
+
+def profile_ms(torch, run, n: int) -> dict:
+    """Device ms per step of every kernel, of K3's and of K4's (conv_dw_*)
+    over `run` (n steps), by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    total = k3 = k4 = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "device_time_total", 0) / (n * 1e3)
+        total += t
+        k3 += t * any(k in e.key for k in K3_KERNELS)
+        k4 += t * ("conv_dw_" in e.key)
+    return {"kernels_ms": total, "k3_ms": k3, "k4_ms": k4}
 
 
 def time_step(torch, tree: pathlib.Path) -> dict:
@@ -65,7 +107,6 @@ def time_step(torch, tree: pathlib.Path) -> dict:
     step of all kernels, of K3's and of K4's (conv_dw_*)."""
     import tempfile
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from splice_tpu_torch.tools import inversion
     tmp = tempfile.mkdtemp(prefix="conv_forms_")
     res = inversion.invert(str(tree / LIMES), f"{tmp}/inv.png",
@@ -80,21 +121,60 @@ def time_step(torch, tree: pathlib.Path) -> dict:
         t0 = time.perf_counter()
         program.run(rows, False)
         host.append((time.perf_counter() - t0) / STEP_LOG * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        program.run(rows[:3], False)
-        torch.cuda.synchronize()
-    total = k3 = k4 = 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(e, "device_time_total", 0) / 3e3
-        total += t
-        k3 += t * any(k in e.key for k in K3_KERNELS)
-        k4 += t * ("conv_dw_" in e.key)
+    prof = profile_ms(torch, lambda: program.run(rows[:3], False), 3)
     shutil.rmtree(tmp, ignore_errors=True)
-    return {"ms": statistics.median(host), "kernels_ms": total,
-            "k3_ms": k3, "k4_ms": k4}
+    return {"ms": statistics.median(host), **prof}
+
+
+def time_fp32_step(torch, tree: pathlib.Path) -> dict:
+    """main_fp32's regular step for the imported tree: train_pair on the
+    cows pair (seed 0, entire_A_every 10, fp32 ViT and generator), then
+    host ms of a replayed step (the median over 5 chunks as long as the
+    program holds) and device ms a step of all kernels, of K3's and of
+    K4's (3 replays)."""
+    import numpy as np
+    from splice_tpu_torch.config import load_config
+    from splice_tpu_torch.trainer import (lambdas_vec, pack_row,
+                                          sample_step_draws, train_pair)
+    cfg = load_config(None, dict(
+        dataroot=str(tree / COWS), seed=0, entire_A_every=10,
+        log_images_freq=1000, vit_compute_dtype="float32",
+        generator_compute_dtype="float32"))
+    res = train_pair(cfg, n_steps=FP32_STEP_ITERS)
+    program, pair = res["program"], res["trainer"].pair
+    gen = torch.Generator().manual_seed(1)
+    n = program.rows.shape[0]
+    rows = np.stack([pack_row(lambdas_vec(cfg, 5), cfg.lr,
+                              sample_step_draws(cfg, pair, gen))
+                     for _ in range(n)])
+    program.run(rows[:1], False)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        program.run(rows, False)
+        host.append((time.perf_counter() - t0) / n * 1e3)
+    prof = profile_ms(torch, lambda: program.run(rows[:3], False), 3)
+    return {"ms": statistics.median(host), **prof}
+
+
+def fp32_calls(torch, conv, cin, cout, S, gen) -> dict:
+    """fp32 K3, its input gradient and K4 at one of FP32_SITES, and the
+    library call of each: {key: call}."""
+    import torch.nn.functional as F
+    x = torch.randn(2, cin, S, S, generator=gen).cuda()
+    w = (0.1 * torch.randn(3, 3, cin, cout, generator=gen)).cuda()
+    g = torch.randn(2, cout, S, S, generator=gen).cuda()
+    wf = torch.flip(w, dims=(0, 1)).transpose(2, 3).contiguous()
+    woi = w.permute(3, 2, 0, 1).contiguous()
+    return {"k3": lambda: conv.conv_valid_cuda(x, w, 1),
+            "dx": lambda: conv.conv_valid_cuda(g, wf, 1),
+            "dw": lambda: conv.conv_dw_cuda(x, g, 3, 1),
+            "k3_lib": lambda: F.conv2d(x, woi, padding=1),
+            "dx_lib": lambda: torch.nn.grad.conv2d_input(x.shape, woi, g,
+                                                         padding=1),
+            "dw_lib": lambda: torch.nn.grad.conv2d_weight(x, woi.shape, g,
+                                                          padding=1)}
 
 
 def main(argv=None) -> int:
@@ -103,6 +183,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=str(here))
     ap.add_argument("--out", default=None)
     ap.add_argument("--step", action="store_true")
+    ap.add_argument("--fp32", action="store_true")
     args = ap.parse_args(argv)
     tree = pathlib.Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -120,7 +201,11 @@ def main(argv=None) -> int:
     phase = "phase" in inspect.signature(conv.conv_valid_cuda).parameters
     gen = torch.Generator().manual_seed(12)
     sites = {}
-    for name, cin, cout, H, W, k, stride in INV_SITES:
+    if args.fp32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for name, cin, cout, H, W, k, stride in (() if args.fp32 else
+                                             INV_SITES):
         ho, wo = (H - k) // stride + 1, (W - k) // stride + 1
         x = torch.randn(1, cin, H, W, generator=gen).to("cuda", torch.bfloat16)
         w = (0.1 * torch.randn(k, k, cin, cout, generator=gen)).to(
@@ -151,9 +236,22 @@ def main(argv=None) -> int:
         print(f"  {name}: " + ", ".join(f"{key} {v:.4f}" for key, v
                                         in sites[name].items()),
               file=sys.stderr)
+    for name, cin, cout, S in (FP32_SITES if args.fp32 else ()):
+        sites[name] = {}
+        for key, fn in fp32_calls(torch, conv, cin, cout, S, gen).items():
+            fn()
+            sites[name][key] = statistics.median(
+                device_ms(fn, 10) for _ in range(5))
+        print(f"  {name} fp32: " + ", ".join(
+            f"{key} {v:.4f}" for key, v in sites[name].items()),
+              file=sys.stderr)
+        torch.cuda.empty_cache()
     result = {"tree": str(tree), "card": card, "sites": sites}
+    if args.fp32:
+        result["fp32"] = True
     if args.step:
-        result["step"] = time_step(torch, tree)
+        result["step"] = (time_fp32_step if args.fp32 else time_step)(
+            torch, tree)
         print(f"  step: {result['step']}", file=sys.stderr)
     line = json.dumps(result)
     print(line)

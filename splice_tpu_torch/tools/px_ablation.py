@@ -1,7 +1,8 @@
 """Ablation: what binds the pixel-major bf16 conv kernels (K3 conv_fwd_px,
-K4 conv_dw_px) at the inversion net's sites?
+K4 conv_dw_px) at the inversion net's sites, or with --tf32 the
+split-TF32 fp32 ones (K3 conv_fwd_tf32, K4 conv_dw_tf32) at main_fp32's?
 
-    python -m splice_tpu_torch.tools.px_ablation
+    python -m splice_tpu_torch.tools.px_ablation [--tf32]
 
 The tool builds the conv library as it stands (ops._build) and three
 variants of csrc/conv.cu, each made by edits of its text (VARIANTS; an edit
@@ -21,6 +22,16 @@ the port's wrappers with each library swapped in, in turns (ROUNDS
 rounds, CUDA events, the median),
 then prints each variant's ptxas registers and spills for the px kernels,
 the ms of each call and one JSON line. Needs a CUDA device and nvcc.
+
+With --tf32 the variants are TF32_VARIANTS, edits of conv.cu with
+csrc/tf32.cuh written in at its #include:
+  * one_term: one mma.sync a product (hi*hi) instead of three;
+  * no_copies: the cp.async copies that stage V, the weights and the
+    cotangent removed (the shared tiles keep what they held);
+  * no_pass: the pass that splits the landed tiles (K3's V and weights,
+    K4's cotangent) removed;
+and the calls are fp32 K3, its input gradient and K4 at main_fp32's two
+sites (conv_forms.FP32_SITES), against the plain versions at 1e-4.
 """
 from __future__ import annotations
 
@@ -34,7 +45,7 @@ import torch
 
 from splice_tpu_torch.ops import _build
 from splice_tpu_torch.ops import conv
-from splice_tpu_torch.tools.conv_forms import INV_SITES
+from splice_tpu_torch.tools.conv_forms import FP32_SITES, INV_SITES
 from splice_tpu_torch.tools.mma_k_probe import device_ms
 
 _K3_MMA = """\
@@ -59,14 +70,53 @@ VARIANTS = {
     "no_stores": ((_K3_END, _K3_END + "  if (Cout > 0) return;\n"),
                   (_K4_END, "  if (Cu > 0) return;\n" + _K4_END)),
 }
+_THREE_TERMS = """\
+#pragma unroll
+  for (int j = 0; j < J; ++j) mma(d[j], a.hi, b[j].lo);
+#pragma unroll
+  for (int j = 0; j < J; ++j) mma(d[j], a.lo, b[j].hi);
+"""
+_NO_COPY = "  if (nch + ntaps >= 0) return;\n"
+TF32_VARIANTS = {
+    "one_term": ((_THREE_TERMS, ""),),
+    "no_copies": (
+        ("  const float* xb = x + (size_t)b * s.cin * s.H * s.W;\n",
+         "  const float* xb = x + (size_t)b * s.cin * s.H * s.W;\n"
+         + _NO_COPY.replace("ntaps", "nrows")),
+        ("                                        int n0, int cout, bool vec,\n"
+         "                                        float* wr) {\n",
+         "                                        int n0, int cout, bool vec,\n"
+         "                                        float* wr) {\n"
+         + _NO_COPY.replace("nch", "c0")),
+        ("                                        bool vec, float* gr) {\n",
+         "                                        bool vec, float* gr) {\n"
+         + _NO_COPY.replace("nch + ntaps", "n0 + Cu"))),
+    "no_pass": (
+        ("      for (int r4 = 4 * threadIdx.x; r4 < L.vplane; "
+         "r4 += 4 * THREADS) {\n",
+         "      for (int r4 = 4 * threadIdx.x; r4 < 0 * L.vplane; "
+         "r4 += 4 * THREADS) {\n"),
+        ("    for (int i = threadIdx.x; i < nd * k * NB * 32; i += THREADS) {\n",
+         "    for (int i = threadIdx.x; i < 0 * NB; i += THREADS) {\n"),
+        ("    for (int i = threadIdx.x; i < NCO * DR * DC; i += THREADS) {\n",
+         "    for (int i = threadIdx.x; i < 0 * DC; i += THREADS) {\n")),
+}
+_INCLUDE = '#include "tf32.cuh"\n'
 ROUNDS = 5
 ITERS = 20
 
 
-def variant_source(name: str) -> str:
-    """csrc/conv.cu with VARIANTS[name]'s edits applied."""
+def variant_source(name: str, tf32: bool = False) -> str:
+    """csrc/conv.cu with VARIANTS[name]'s edits applied (with tf32,
+    TF32_VARIANTS[name]'s, csrc/tf32.cuh written in at its #include)."""
     src = (_build.CSRC_DIR / "conv.cu").read_text()
-    for old, new in VARIANTS[name]:
+    if tf32:
+        if src.count(_INCLUDE) != 1:
+            raise RuntimeError("px_ablation: conv.cu does not include "
+                               "tf32.cuh exactly once")
+        src = src.replace(_INCLUDE,
+                          (_build.CSRC_DIR / "tf32.cuh").read_text())
+    for old, new in (TF32_VARIANTS if tf32 else VARIANTS)[name]:
         if src.count(old) != 1:
             raise RuntimeError(f"px_ablation {name}: the edit's text is not "
                                f"in conv.cu exactly once")
@@ -74,19 +124,21 @@ def variant_source(name: str) -> str:
     return src
 
 
-def build_variants() -> Dict[str, ctypes.CDLL]:
+def build_variants(tf32: bool = False) -> Dict[str, ctypes.CDLL]:
     """The full library (ops._build) and every variant, compiled together
-    into _build/ablation; ptxas's registers and spills of each px kernel
-    printed."""
+    into _build/ablation (csrc on the include path); ptxas's registers and
+    spills of each ablated kernel printed."""
     out_dir = _build.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in VARIANTS:
+    kind = "_tf32_kernel" if tf32 else "_px_kernel"
+    for name in (TF32_VARIANTS if tf32 else VARIANTS):
         src = out_dir / f"conv_{name}.cu"
-        src.write_text(variant_source(name))
+        src.write_text(variant_source(name, tf32))
         lib = out_dir / f"libconv_{name}.so"
         procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
+             "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {"full": _build.library("conv")}
     logs = {"full": (_build.BUILD_DIR / "conv.log").read_text()}
@@ -101,8 +153,8 @@ def build_variants() -> Dict[str, ctypes.CDLL]:
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 fn = line.split("'")[1]
-            elif fn and "_px_kernel" in fn and ("spill" in line
-                                                or "registers" in line):
+            elif fn and kind in fn and ("spill" in line
+                                        or "registers" in line):
                 print(f"  ptxas {name} {fn}: "
                       f"{line.split(':', 1)[-1].strip()}")
     return libs
@@ -140,23 +192,47 @@ def site_calls(name, cin, cout, H, W, k, stride):
     return calls, plain
 
 
-def main() -> int:
+def fp32_site_calls(name, cin, cout, S):
+    """fp32 K3, its input gradient and K4 at one of main_fp32's sites
+    (conv_forms.FP32_SITES: B = 2, k = 3, border 1), and their plain
+    versions."""
+    F = torch.nn.functional
+    gen = torch.Generator().manual_seed(cin)
+    x = torch.randn(2, cin, S, S, generator=gen).cuda()
+    w = (0.1 * torch.randn(3, 3, cin, cout, generator=gen)).cuda()
+    g = torch.randn(2, cout, S, S, generator=gen).cuda()
+    wf = torch.flip(w, dims=(0, 1)).transpose(2, 3).contiguous()
+    calls = {"K3": lambda: conv.conv_valid_cuda(x, w, 1),
+             "K3 dx": lambda: conv.conv_valid_cuda(g, wf, 1),
+             "K4": lambda: conv.conv_dw_cuda(x, g, 3, 1)}
+    plain = {"K3": lambda: conv.conv_valid_plain(x, w, 1),
+             "K3 dx": lambda: conv.conv_valid_plain(g, wf, 1),
+             "K4": lambda: conv.conv_dw_plain(F.pad(x, (1, 1, 1, 1)), g, 3)}
+    return calls, plain
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tf32", action="store_true")
+    tf32 = ap.parse_args(argv).tf32
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
-    libs = build_variants()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = build_variants(tf32)
     full = libs["full"]
-    result = {"card": smi, "sites": {}}
-    for site in INV_SITES:
-        calls, plain = site_calls(*site)
+    result = {"card": smi, "tf32": tf32, "sites": {}}
+    for site in (FP32_SITES if tf32 else INV_SITES):
+        calls, plain = (fp32_site_calls if tf32 else site_calls)(*site)
         _build._libs["conv"] = full
         row = {}
         for key, fn in calls.items():
             got, want = fn().float(), plain[key]().float()
             rel = ((got - want).abs().max() / want.abs().max()).item()
-            tol = 1.6e-2 if key.startswith("K3") else 1e-4
+            tol = 1.6e-2 if key.startswith("K3") and not tf32 else 1e-4
             if not rel <= tol:
                 raise RuntimeError(f"{key} {site[0]}: error {rel:.3e} x "
                                    f"max over {tol}")

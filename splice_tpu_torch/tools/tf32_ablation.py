@@ -5,9 +5,10 @@ tensor pipe or the work the warps issue around it?
 
 Each fp32 product in csrc/attention.cu (namespace tf32) is three mma.sync
 m16n8k8 .tf32 instructions (hi*lo, lo*hi, hi*hi) on fragments that every
-warp splits in registers (hi: two integer operations; lo = x - hi). The
-tool builds the library as it stands (ops._build) and three variants of
-its text, each made by one edit of the source (VARIANTS; a missing edit
+warp splits in registers (hi: two integer operations; lo = x - hi), both
+from csrc/tf32.cuh. The tool builds the library as it stands
+(ops._build) and three variants of its text, each made by one edit of
+the source with the header written into it (VARIANTS; a missing edit
 raises):
   * one_term: only hi*hi (a third of the mma.sync; lo is dead code);
   * no_split: three products of the raw fp32 bits (every mma.sync, none of
@@ -36,8 +37,8 @@ from splice_tpu_torch.ops import _build
 from splice_tpu_torch.ops import attention as attn
 from splice_tpu_torch.tools.mma_k_probe import device_ms
 
-# name: (text in csrc/attention.cu, its replacement); each edit must match
-# exactly once
+# name: (text in csrc/attention.cu with tf32.cuh written in at its
+# #include, its replacement); each edit must match exactly once
 _THREE_TERMS = """\
 #pragma unroll
   for (int j = 0; j < J; ++j) mma(d[j], a.hi, b[j].lo);
@@ -61,9 +62,18 @@ ROUNDS = 5
 ITERS = 20
 
 
+_INCLUDE = '#include "tf32.cuh"\n'
+
+
 def variant_source(name: str) -> str:
-    """csrc/attention.cu with VARIANTS[name]'s edits applied."""
+    """csrc/attention.cu with csrc/tf32.cuh written in at its #include (a
+    variant builds from one file) and VARIANTS[name]'s edits applied."""
     src = (_build.CSRC_DIR / "attention.cu").read_text()
+    if src.count(_INCLUDE) != 1:
+        raise RuntimeError("tf32_ablation: attention.cu does not include "
+                           "tf32.cuh exactly once")
+    src = src.replace(_INCLUDE,
+                      (_build.CSRC_DIR / "tf32.cuh").read_text())
     for old, new in VARIANTS[name]:
         if src.count(old) != 1:
             raise RuntimeError(f"tf32_ablation {name}: the edit's text is "
