@@ -11,8 +11,9 @@ Phases, each fatal on failure:
      mma.sync (HMMA ... TF32) in their fp32 route (split TF32), mma.sync
      (HMMA) in the bf16 route of K3 (every form) and of K4 and K7 (PR
      6-7's forms and the pixel-major ones), TF32 mma.sync in the fp32
-     route of K3 and K4 (split TF32: every instance of conv_fwd_tf32_kernel
-     and conv_dw_tf32_kernel), and neither in fp32 K7's CUDA-core kernels;
+     route of K3, K4 and K7 (split TF32: every instance of
+     conv_fwd_tf32_kernel and conv_dw_tf32_kernel, K7 its cotangent-tapped
+     ones), and no CUDA-core conv kernel left;
   2. hold every kernel against its plain PyTorch version at the shapes the
      training paths give it (and at small edge-case shapes; the bf16
      attention kernels also at N under a tile, one past a tile, B = 1 and
@@ -151,8 +152,13 @@ Phases, each fatal on failure:
      PALLAS_FP32_STEPS steps (every conv of the generator on fp32 K3/K4 at
      full width: the stride-2 convs as k2 = 2 phase kernels, every site's
      forward, input gradient and dw, each launch on the tensor cores);
+     then fused_same_fp32 and pallas_same_fp32, fused and pallas with the
+     SAME route on for SAME_FP32_STEPS steps each (fp32 K3'' SAME, K3'''
+     with its statistics, fused K3' pro and K7 at up_conv s0/s1 at full
+     width; phase 6's fused_same and pallas_same kernels launched inside
+     the graphs, every launch on the tensor cores);
      each path's replayed step, kernel ms, launches, busy share, the fp32
-     attention's ms and the conv kernels' ms a step;
+     attention's ms, the conv kernels' ms and K7's ms a step;
   13. the mesh (parallel.mesh, models.vit's tensor-parallel block):
      train_pairs over config c's eight pairs at dp = 2 x tp = 2 over
      [cuda:0] * 4 (two groups of four pairs, each group's ViT over two
@@ -187,10 +193,12 @@ Phases, each fatal on failure:
 Phase 2 also holds the fp32 (split-TF32) K1/K2 at FP32_QKV and K5/K6 at
 FP32_SPLIT against their plain fp32 versions (matmul TF32 off), bitwise
 run to run, every launch on the tensor cores, timed beside SDPA in fp32;
-K7 at k = 5 and 7 (GTAP_SITES, bf16 and fp32); and fp32 K3 (forward and
-input gradient) and K4 at the two auto sites (split TF32, bitwise twice)
-against their plain versions, timed beside F.conv2d, conv2d_input and
-conv2d_weight with cuDNN's TF32 off.
+K7 at k = 5 and 7 (GTAP_SITES, bf16 and fp32) and fp32 K7 at k = 3 at
+both SAME sites (split TF32, with and without the prologue, bitwise twice,
+timed beside conv2d_weight and K4 at the same site); and fp32 K3 (forward
+and input gradient) and K4 at the two auto sites (split TF32, bitwise
+twice) against their plain versions, timed beside F.conv2d, conv2d_input
+and conv2d_weight with cuDNN's TF32 off.
 Phase 2 also holds K1/K2 at the mesh's tp = 2 shape
 (MESH_QKV) and K5/K6 at its tp = 4 shape (MESH_SPLIT). Phase 2 also holds
 K1/K2 at the DINOv2 paths' shapes (DINOV2_QKV), at
@@ -252,8 +260,8 @@ PREVIOUS_MS = {"attn_qkv_fwd": 0.4028, "attn_qkv_bwd": 1.6666,
                "conv_same": 1.0288, "conv_same_pro": 1.1580,
                "conv_same_pro_stats": 1.1905}
 ATTENTION = ("attn_qkv_fwd", "attn_qkv_bwd", "attn_fwd", "attn_bwd")
-# the conv wrappers, bf16 on the tensor cores, fp32 not: the weight
-# gradients (K4 in each form, K7) and K3 in each form
+# the conv wrappers, on the tensor cores in bf16 and fp32 (split TF32):
+# the weight gradients (K4 in each form, K7) and K3 in each form
 DW = ("conv_dw", "conv_dw_pro", "conv_dw_s2d", "conv_dw_gtap")
 K3 = ("conv_valid", "conv_valid_pro", "conv_valid_s2d", "conv_same",
       "conv_same_pro", "conv_same_pro_stats")
@@ -264,6 +272,23 @@ PATHS = (("480", "auto", 480, 4, False), ("fused", "fused", 224, 6, False),
          ("pallas", "pallas", 224, 6, False),
          ("fused_same", "fused", 224, 6, True),
          ("pallas_same", "pallas", 224, 6, True))
+# the wrappers each of those paths must launch inside its graphs
+NEED = {"480": ("attn_fwd", "attn_bwd", "conv_valid", "conv_dw"),
+        "fused": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
+                  "conv_valid_pro", "conv_dw_pro"),
+        "pallas": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid", "conv_dw",
+                   "conv_valid_s2d", "conv_dw_s2d"),
+        # the reference's routes with SAME_BORDER_KERNELS on: K3''' at
+        # down_conv2 s0 and up_conv s0/s1, their dz by K3'' SAME, dw by K7
+        # at up_conv s0/s1 and by K4 at down_conv2 (a tie in _gtap_better)
+        "fused_same": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
+                       "conv_valid_pro", "conv_dw_pro", "conv_same",
+                       "conv_same_pro_stats", "conv_dw_gtap"),
+        "pallas_same": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
+                        "conv_dw", "conv_valid_s2d", "conv_dw_s2d",
+                        "conv_same", "conv_dw_gtap"),
+        "fused_same_skip3": ("conv_same_pro", "conv_same_pro_stats",
+                             "conv_dw_gtap")}
 SKIP3_STEPS = 3       # the fused SAME steps of the 3x3-skip generator
 # replay against eager (phases 3 and 4b): the graphs' losses and update
 # may differ from an eager run's by REPLAY_MULT x the spread of two eager
@@ -718,12 +743,11 @@ def check_tensor_cores(build):
     conv library a forward one (conv_fwd_tc_kernel) and a weight-gradient
     one, and HMMA in each of the pixel-major forms' seven instances
     (conv_fwd_px_kernel, conv_dw_px_kernel); TF32 HMMA in each of the
-    split-TF32 fp32 forms' sixteen instances (conv_fwd_tf32_kernel and
-    conv_dw_tf32_kernel, nb = 1 to 8); no CUDA-core K3 or K4 kernel left
-    (conv_fwd_kernel, conv_dw_partial); and fp32 K7's CUDA-core kernels
-    (conv_dw_gtap_kernel, conv_dw_reduce_kernel) hold neither; and HGMMA
-    in each of P1's four instances (the probe library: 64 and 128
-    columns, resident and streamed)."""
+    split-TF32 fp32 forms' 24 instances (conv_fwd_tf32_kernel, and
+    conv_dw_tf32_kernel for K4 and for K7, nb = 1 to 8 each); no CUDA-core
+    conv kernel left (conv_fwd_kernel, conv_dw_partial, conv_dw_gtap_kernel,
+    conv_dw_reduce_kernel); and HGMMA in each of P1's four instances (the
+    probe library: 64 and 128 columns, resident and streamed)."""
     att = sass_counts(build, "attention")
     tc = [f for f in att if "_tc" in f]
     if not tc or not all(att[f][0] for f in tc):
@@ -743,23 +767,21 @@ def check_tensor_cores(build):
     if len(px) != 7 or not all(cnv[f][1] for f in px):
         fail(f"the pixel-major conv kernels missing or without HMMA: "
              f"{ {f: cnv[f] for f in px} }")
-    # the split-TF32 fp32 forms: K3's and K4's eight n8 widths each
+    # the split-TF32 fp32 forms: K3's, K4's and K7's eight n8 widths each
+    # (conv_dw_tf32_kernel<NB, GTAP>: GTAP mangled as Lb0E / Lb1E)
     tf = [f for f in cnv if "_tf32_kernel" in f]
+    dw = [f for f in tf if "conv_dw_tf32_kernel" in f]
+    k7 = [f for f in dw if "Lb1E" in f or ", true>" in f]
     if (len([f for f in tf if "conv_fwd_tf32_kernel" in f]) != 8
-            or len([f for f in tf if "conv_dw_tf32_kernel" in f]) != 8
+            or len(dw) != 16 or len(k7) != 8
             or not all(cnv[f][2] for f in tf)):
         fail(f"the split-TF32 conv kernels missing or without TF32 MMA: "
              f"{ {f: cnv[f] for f in tf} }")
     gone = [f for f in cnv if "conv_dw_partial" in f
-            or "conv_fwd_kernel" in f]
-    if gone:
-        fail(f"CUDA-core fp32 K3/K4 kernels still built: {gone}")
-    fp32 = [f for f in cnv if "conv_dw_gtap_kernel" in f
+            or "conv_fwd_kernel" in f or "conv_dw_gtap_kernel" in f
             or "conv_dw_reduce" in f]
-    if (not any("conv_dw_gtap_kernel" in f for f in fp32)
-            or any(sum(cnv[f]) for f in fp32)):
-        fail(f"fp32 K7's kernels missing or on the tensor cores: "
-             f"{ {f: cnv[f] for f in fp32} }")
+    if gone:
+        fail(f"CUDA-core fp32 conv kernels still built: {gone}")
     prb = sass_counts(build, "probe")
     p1 = [f for f in prb if "mma_repeat_kernel" in f]
     if len(p1) != 4 or not all(prb[f][0] for f in p1):
@@ -1488,21 +1510,25 @@ def check_conv_same(torch, conv, rows):
 # K7 at k = 5 and 7 (pad (k-1)/2): the SAME route's up convs with
 # filter_size_up 5 or 7, where _gtap_better takes K7 (36 -> 16: 8 x-tap
 # passes against 4 at k = 5, 14 against 7 at k = 7; 68 -> 32: 14 against 7,
-# 27 against 13): (name, Cin, Cout, width)
+# 27 against 13); in fp32 also k = 3, the default generator's SAME sites
+# (fused_same_fp32, pallas_same_fp32): (name, Cin, Cout, width)
 GTAP_SITES = (("up_conv s0", 36, 16, 896), ("up_conv s1", 68, 32, 448))
 
 
 def check_gtap_wide_k(torch, conv):
-    """K7 at k = 5 and 7 in bf16 (the tensor cores) and fp32 (the CUDA
-    cores) at GTAP_SITES, with and without the prologue: against its plain
-    version (an fp32 output: 1e-4 x max|plain|), twice on one input
-    bitwise, every bf16 launch on the tensor cores; timed at up_conv s0
-    against conv2d_weight. Returns {(k, dtype): row}."""
+    """K7 at k = 5 and 7 in bf16 and fp32, and at k = 3 in fp32 (bf16 K7 at
+    k = 3: check_conv_same), at GTAP_SITES, with and without the prologue:
+    against its plain version (an fp32 output: 1e-4 x max|plain|), twice on
+    one input bitwise, every launch on the tensor cores (fp32 in split
+    TF32); timed against conv2d_weight (cuDNN's TF32 off) at up_conv s0,
+    and fp32 at k = 3 at both sites, beside K4 at the same site (k4_ms:
+    the same function contracted the other way round). Returns {(k, dtype,
+    site): row}."""
     rtol = RTOL["float32"][0]
     gen = torch.Generator().manual_seed(8)
     fn = conv.conv_dw_gtap_cuda
     n0, t0 = fn.launches, fn.tc_launches
-    bf16_calls = 0
+    checked = 0
     out = {}
     for name, cin, cout, hw in GTAP_SITES:
         B = 2
@@ -1512,7 +1538,7 @@ def check_gtap_wide_k(torch, conv):
             g = torch.randn(B, cout, hw, hw, generator=gen).to("cuda", dt)
             sc = (0.5 + torch.rand(2, cin, generator=gen)).cuda()
             sh = torch.randn(2, cin, generator=gen).cuda()
-            for k in (5, 7):
+            for k in ((3, 5, 7) if dt == torch.float32 else (5, 7)):
                 pad = (k - 1) // 2
                 errs = []
                 for pro in (False, True):
@@ -1524,9 +1550,9 @@ def check_gtap_wide_k(torch, conv):
                     errs.append(compare(f"K7 {tag}", dw, want, rtol, DW_WHY))
                     check_bitwise(torch, f"K7 {tag}", (dw,),
                                   (fn(x, g, k, *a, pad),))
-                    bf16_calls += 2 * (dt == torch.bfloat16)
+                    checked += 2
                     del dw, want
-                if name != "up_conv s0":
+                if name != "up_conv s0" and k != 3:
                     continue
                 w_shape = (cout, cin, k, k)
                 isz = x.element_size()
@@ -1539,15 +1565,20 @@ def check_gtap_wide_k(torch, conv):
                     (x.numel() + g.numel()) * isz + cin * cout * k * k * 4,
                     2 * B * hw * hw * cout * cin * k * k, dtype_name, "K7",
                     f"{name} k={k}")
-                out[(k, dtype_name)] = dict(row, max_abs_err=max(errs),
-                                            shape=tag.replace(" pro", ""))
+                if k == 3:
+                    row["k4_ms"] = time_ms(
+                        lambda: conv.conv_dw_cuda(x, g, k, pad))
+                    print(f"  time K4 at the same site (the x-tapped "
+                          f"order): {row['k4_ms']:.4f} ms")
+                out[(k, dtype_name, name)] = dict(
+                    row, max_abs_err=max(errs), shape=tag.replace(" pro", ""))
             del x, g
             torch.cuda.empty_cache()
     calls = (fn.launches - n0, fn.tc_launches - t0)
-    print(f"  K7 at k = 5, 7: {calls[0]} launches, {calls[1]} on the tensor "
-          f"cores (bf16 checks {bf16_calls}; timing launches counted too)")
-    if calls[1] < bf16_calls:
-        fail(f"K7 bf16 launches off the tensor cores at k = 5, 7: {calls}")
+    print(f"  K7 at GTAP_SITES: {calls[0]} launches, {calls[1]} on the "
+          f"tensor cores (checks {checked}; timing launches counted too)")
+    if calls[0] < checked or calls[1] != calls[0]:
+        fail(f"K7 launches off the tensor cores at GTAP_SITES: {calls}")
     return out
 
 
@@ -1697,8 +1728,8 @@ def tc_dw_launches(conv) -> int:
 def check_dw_tc_edge_cases(torch, conv, dtype_name="bfloat16"):
     """The weight-gradient kernels at DW_EDGES against their plain
     versions (fp32 sums: 1e-4 x max|plain|), in bf16 or fp32, every launch
-    on the tensor cores (fp32 K4 in split TF32) but fp32 K7's, which runs
-    on the CUDA cores; stride 2 as the k2 phase-image dw, a scale of 1e-13
+    on the tensor cores (fp32 K4 and K7 in split TF32), K7 also twice on
+    one input, bitwise; stride 2 as the k2 phase-image dw, a scale of 1e-13
     and a negative one in the first stack."""
     gen = torch.Generator().manual_seed(9)
     rtol = RTOL["float32"][0]
@@ -1718,12 +1749,12 @@ def check_dw_tc_edge_cases(torch, conv, dtype_name="bfloat16"):
         tag = (f"{label} [{B},{cin},{h},{w}]->[{B},{cout},{ho},{wo}] k={k} "
                f"pad={pad} stride={stride} G={G} {dtype_name}")
         tc = tc_dw_launches(conv)
-        # fp32 K7 at its own kernel's k runs on the CUDA cores
-        on_tc = not (gtap and dt == torch.float32 and k in conv.GTAP_KS)
         if gtap:
             got = conv.conv_dw_gtap_cuda(x, g, k, *a, pad)
             want = conv.conv_dw_gtap_plain(x, g, k, *a, pad)
             name = "K7"
+            check_bitwise(torch, f"{name} {tag}", (got,),
+                          (conv.conv_dw_gtap_cuda(x, g, k, *a, pad),))
         elif G:
             got = conv.conv_dw_pro_cuda(x, g, kk, *a, pad, stride)
             want = conv.conv_dw_pro_plain(x, g, kk, *a, pad, stride)
@@ -1737,9 +1768,8 @@ def check_dw_tc_edge_cases(torch, conv, dtype_name="bfloat16"):
             want = conv.conv_dw_pro_plain(x, g, kk, *a, pad)
             name = "K4"
         compare(f"{name} {tag}", got, want, rtol, DW_WHY)
-        if tc_dw_launches(conv) != tc + on_tc:
-            fail(f"{name} {tag}: the launch was {'not ' if on_tc else ''}on "
-                 f"the tensor cores")
+        if tc_dw_launches(conv) != tc + 1 + gtap:
+            fail(f"{name} {tag}: a launch was not on the tensor cores")
         del x, g, got, want
 
 
@@ -2603,29 +2633,22 @@ def zero_counts(kernels) -> None:
             fn.tc_launches = 0
 
 
-def check_tc_launches(launches, tc, name, fp32_conv=False):
+def check_tc_launches(launches, tc, name):
     """Every launch of the path's attention kernels (K1/K2, or K5/K6 on
-    the 480 path; bf16 and fp32 alike) and of its K3 and K4 kernels (every
-    form; bf16, and fp32 in split TF32) on the tensor cores, and of K7
-    where the generator is bf16; with fp32_conv (an fp32 generator) no K7
-    launch, which runs on the CUDA cores there. The graphs' replays
+    the 480 path) and of its conv kernels (K3 and K4 in every form, K7;
+    bf16, and fp32 in split TF32) on the tensor cores, the graphs' replays
     included; fails otherwise, or when the path launched no attention
     kernel."""
     att = [k for k in ATTENTION if launches.get(k)]
     convs = [k for k in DW + K3 if launches.get(k)]
     tcs = {k: tc[k] for k in att + convs}
     print(f"  tensor-core launches in the {name} path: {tcs}")
-    off = [k for k in convs if fp32_conv and k == "conv_dw_gtap"]
-    on = [k for k in att + convs if k not in off]
-    if (not att or any(tc[k] != launches[k] for k in on)
-            or any(tc[k] for k in off)):
+    if not att or any(tc[k] != launches[k] for k in att + convs):
         fail(f"{name} path: attention or conv launches off the tensor "
-             f"cores{' (or fp32 K7 launches on them)' if off else ''}: "
-             f"{tcs} of {launches}")
+             f"cores: {tcs} of {launches}")
 
 
-def run_path(torch, name, cfg, n_steps, kernels, need, same=False,
-             fp32_conv=False, **kw):
+def run_path(torch, name, cfg, n_steps, kernels, need, same=False, **kw):
     """train_pair (with the SAME route if `same`) with every launch count
     set to 0 just before and read just after; fails on a non-finite loss or
     output, or when a kernel in `need` was launched no time inside the
@@ -2639,7 +2662,7 @@ def run_path(torch, name, cfg, n_steps, kernels, need, same=False,
         res = train_pair(cfg, n_steps=n_steps, **kw)
     launches, tc = read_launches(torch, kernels, name, need,
                                  [res["program"]])
-    check_tc_launches(launches, tc, name, fp32_conv)
+    check_tc_launches(launches, tc, name)
     print(f"  chunks {res['chunks']}; {res['steps_per_sec']:.3f} steps/s "
           f"over the run (captures included); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the "
@@ -3624,41 +3647,57 @@ def run_inversion_fp32(torch, kernels):
 
 MAIN_FP32_STEPS = 6   # step 0 entire-A, step 1 eager, 2-5 replays
 PALLAS_FP32_STEPS = 4
-# (name, generator_conv, steps, the wrappers each must launch in its graphs)
-FP32_PATHS = (("main_fp32", "auto", MAIN_FP32_STEPS,
+SAME_FP32_STEPS = 4
+# (name, generator_conv, SAME route, steps, the wrappers each must launch
+# in its graphs: phase 6's lists but main's)
+FP32_PATHS = (("main_fp32", "auto", False, MAIN_FP32_STEPS,
                ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid", "conv_dw")),
-              ("pallas_fp32", "pallas", PALLAS_FP32_STEPS,
-               ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid", "conv_dw",
-                "conv_valid_s2d", "conv_dw_s2d")))
+              ("pallas_fp32", "pallas", False, PALLAS_FP32_STEPS,
+               NEED["pallas"]),
+              ("fused_same_fp32", "fused", True, SAME_FP32_STEPS,
+               NEED["fused_same"]),
+              ("pallas_same_fp32", "pallas", True, SAME_FP32_STEPS,
+               NEED["pallas_same"]))
 
 
-def run_fp32_path(torch, kernels, base, pair, name, mode, n_steps, need):
-    """main_fp32 (generator_conv auto: K3 and K4 at the two auto sites) or
+def run_fp32_path(torch, kernels, base, pair, name, mode, same, n_steps,
+                  need):
+    """main_fp32 (generator_conv auto: K3 and K4 at the two auto sites),
     pallas_fp32 (generator_conv pallas: every conv on K3/K4, the stride-2
     ones as k2 = 2 phase kernels, every site's forward, input gradient and
-    dw): the main path's settings (cows, 896 canvas, 224 loss resolution,
+    dw), or with `same` fused_same_fp32 and pallas_same_fp32 (the SAME
+    route: K3'' SAME, K3''' with its statistics, K7 at up_conv s0/s1): the
+    main path's settings (cows, 896 canvas, 224 loss resolution,
     entire_A_every 10) with vit_compute_dtype and generator_compute_dtype
     float32, n_steps steps through train_pair's program: phase 4's gates,
-    every K1/K2 launch and every K3/K4 launch on the tensor cores (split
+    every K1/K2 launch and every conv launch on the tensor cores (split
     TF32); a profile of replays. Returns (launches, replayed step ms,
-    attention ms a step, conv kernels' ms a step)."""
+    attention ms a step, conv kernels' ms a step, K7's ms a step)."""
     from splice_tpu_torch.config import load_config
     cfg = load_config(None, dict(base, generator_conv=mode,
                                  vit_compute_dtype="float32",
                                  generator_compute_dtype="float32"))
-    res, launches = run_path(torch, name, cfg, n_steps, kernels, need,
-                             fp32_conv=True, pair=pair)
+    res, launches = run_path(torch, name, cfg, n_steps, kernels, need, same,
+                             pair=pair)
     by_name = {}
-    ms = profile_steps(torch, res["program"], cfg, kernel_ms=by_name)
+    with same_border(same):
+        ms = profile_steps(torch, res["program"], cfg, kernel_ms=by_name)
     att = sum(t for k, t in by_name.items() if "attn_" in k)
     conv_ms = sum(t for k, t in by_name.items()
                   if "conv_fwd" in k or "conv_dw_" in k)
+    # fp32 K7: conv_dw_tf32's cotangent-tapped instances and the sum that
+    # adds and transposes their partials (only K7 launches it in fp32)
+    k7_ms = sum(t for k, t in by_name.items()
+                if ("conv_dw_tf32_kernel<" in k and ", true>" in k)
+                or "conv_dw_sum_kernel<true>" in k)
     print(f"  {name}: replayed regular step {ms:.2f} ms; per step the "
           f"fp32 attention kernels {att:.3f} ms, the fp32 conv kernels "
-          f"{conv_ms:.3f} ms")
+          f"{conv_ms:.3f} ms, of them K7 {k7_ms:.3f} ms")
+    if same and not k7_ms:
+        fail(f"{name}: the profile shows no K7 kernel")
     del res
     torch.cuda.empty_cache()
-    return launches, ms, att, conv_ms
+    return launches, ms, att, conv_ms, k7_ms
 
 
 MESH_STEPS = 3     # phase 13: step 0 entire-A, steps 1-2 regular
@@ -4466,23 +4505,6 @@ def main() -> int:
     del res
     torch.cuda.empty_cache()
 
-    need = {"480": ("attn_fwd", "attn_bwd", "conv_valid", "conv_dw"),
-            "fused": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
-                      "conv_valid_pro", "conv_dw_pro"),
-            "pallas": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
-                       "conv_dw", "conv_valid_s2d", "conv_dw_s2d"),
-            # the reference's routes with SAME_BORDER_KERNELS on: K3''' at
-            # down_conv2 s0 and up_conv s0/s1, their dz by K3'' SAME, dw by
-            # K7 at up_conv s0/s1 and by K4 at down_conv2 (a tie in
-            # _gtap_better)
-            "fused_same": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
-                           "conv_valid_pro", "conv_dw_pro", "conv_same",
-                           "conv_same_pro_stats", "conv_dw_gtap"),
-            "pallas_same": ("attn_qkv_fwd", "attn_qkv_bwd", "conv_valid",
-                            "conv_dw", "conv_valid_s2d", "conv_dw_s2d",
-                            "conv_same", "conv_dw_gtap"),
-            "fused_same_skip3": ("conv_same_pro", "conv_same_pro_stats",
-                                 "conv_dw_gtap")}
     turns = [("auto", main_trainer, cfg, False, True)]
     for i, (path, mode, res_px, n, same) in enumerate(PATHS):
         print(f"phase 6.{i + 1}: the {path} path (generator_conv={mode}"
@@ -4491,7 +4513,7 @@ def main() -> int:
         pcfg = load_config(None, dict(base, generator_conv=mode,
                                       dino_global_patch_size=res_px))
         pres, launches[path] = run_path(torch, path, pcfg, n, kernels,
-                                        need[path], same, **shared)
+                                        NEED[path], same, **shared)
         with same_border(same):
             profile_steps(torch, pres["program"], pcfg,
                           2 if res_px > 224 else 3)
@@ -4512,7 +4534,7 @@ def main() -> int:
                   f"route, 3x3 skip convs), {SKIP3_STEPS} steps")
             launches["fused_same_skip3"] = run_skip3(
                 torch, pcfg, shared["pair"], shared["extractor"], kernels,
-                need["fused_same_skip3"])
+                NEED["fused_same_skip3"])
             torch.cuda.empty_cache()
 
     mark(t_start)
@@ -4557,17 +4579,18 @@ def main() -> int:
     launches["inversion_fp32"], inv32_ms, inv32_att = run_inversion_fp32(
         torch, kernels)
     fp32_ms = {}
-    for name, mode, n, need32 in FP32_PATHS:
+    for name, mode, same, n, need32 in FP32_PATHS:
         mark(t_start)
-        print(f"phase 12b: {name} (main with generator_conv={mode}, "
-              f"vit_compute_dtype and generator_compute_dtype float32), "
-              f"{n} steps")
+        print(f"phase 12b: {name} (main with generator_conv={mode}"
+              f"{', SAME route' if same else ''}, vit_compute_dtype and "
+              f"generator_compute_dtype float32), {n} steps")
         launches[name], *fp32_ms[name] = run_fp32_path(
-            torch, kernels, base, shared["pair"], name, mode, n, need32)
+            torch, kernels, base, shared["pair"], name, mode, same, n,
+            need32)
     print("  fp32 steps: " + ", ".join(
         f"{name} {ms:.2f} ms replayed ({att:.3f} ms of attention, "
-        f"{cms:.3f} ms of conv kernels)"
-        for name, (ms, att, cms) in fp32_ms.items())
+        f"{cms:.3f} ms of conv kernels, {k7:.3f} ms of K7)"
+        for name, (ms, att, cms, k7) in fp32_ms.items())
         + f", inversion_fp32 {inv32_ms:.3f} ms ({inv32_att:.3f} ms of "
         f"attention)")
     print("  the main path with generator_layout=nhwc, 4 steps")
@@ -4662,9 +4685,12 @@ def main() -> int:
         path = ("inversion_fp32" if "[1,981," in tag else
                 "main_fp32" if kid in ("K1", "K2") else "none (phase 2)")
         extra.append((kid, r, path, "tensor core (split TF32)"))
-    for (k, dt), r in gtap_rows.items():
-        extra.append(("K7", dict(r, k=k), "none (phase 2)",
-                      "tensor core" if dt == "bfloat16" else "CUDA core"))
+    for (k, dt, site), r in gtap_rows.items():
+        fp32 = dt == "float32"
+        extra.append(("K7", dict(r, k=k),
+                      "pallas_same_fp32" if fp32 and k == 3
+                      else "none (phase 2)",
+                      "tensor core (split TF32)" if fp32 else "tensor core"))
     for (name, site), r in conv32_rows.items():
         extra.append(({"conv_valid": "K3", "conv_valid_dx": "K3",
                        "conv_dw": "K4"}[name], r, "main_fp32",

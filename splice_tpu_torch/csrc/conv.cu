@@ -47,7 +47,7 @@
 // across its sequential grid; here each block writes its tile's sums to
 // scratch and conv_stats_reduce_kernel adds the tiles of each stack in a
 // fixed order (no atomics: a seeded run repeats bit for bit).
-// K7 (conv_dw_tc in bf16, conv_dw_gtap in fp32) replaces
+// K7 (conv_dw_tc in bf16, conv_dw_tf32 with gtap in fp32) replaces
 // _make_dw_kernel_gtap (:455, launched by
 // _dw_gtap_impl :522): the same dw contracted the other way round, by
 // tapping the cotangent instead of the input,
@@ -81,21 +81,12 @@
 //     k: the same function). fwdtc and dwtc stage x through Src into the
 //     same channel-major bf16 tiles, px into pixel-major ones; each is
 //     described above its kernel.
-//   * fp32 K3 and K4 run on the tensor cores too, in split TF32 (three
-//     mma.sync m16n8k8 .tf32 products a product, tf32.cuh, which keep the
-//     fp32 steps' 1e-4 gates): conv_fwd_tf32 and conv_dw_tf32 (namespace
-//     tc32), every form at any k, described above their kernels. fp32 K7
-//     stays on the CUDA cores in full fp32 (conv_dw_gtap).
-//
-// fp32 K7 design (the CUDA cores): the TPU kernel reduced the pixels into
-// one accumulator over a sequential grid. Here pass 1 splits V's rows into
-// chunks; a block owns (row chunk, Cin chunk, Cout chunk), the input tile
-// has no halo and the cotangent tile carries it (K-1 rows above, K-1
-// columns to the left); each thread owns one ci and the K*K (tap, co)
-// accumulators of its co, so one value of z feeds K*K multiply-adds from
-// shared memory, and writes its partial sums to an fp32 scratch [chunks,
-// Cin*K*K*Cout]. Pass 2 (conv_dw_reduce_kernel) adds the chunks in a fixed
-// order: no atomics, so a seeded run repeats bit for bit.
+//   * fp32 K3, K4 and K7 run on the tensor cores too, in split TF32
+//     (three mma.sync m16n8k8 .tf32 products a product, tf32.cuh, which
+//     keep the fp32 steps' 1e-4 gates): conv_fwd_tf32 and conv_dw_tf32
+//     (namespace tc32; K7 is conv_dw_tf32's cotangent-tapped mode), every
+//     form at any k (K7 at k in {2, 3, 5, 7}), described above their
+//     kernels.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -110,11 +101,6 @@ namespace {
 
 constexpr int NT = 256;
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-
 // How the virtual input V maps onto the source tensor x.
 struct Src {
   int cin, H, W;          // source channels, height, width
@@ -125,31 +111,6 @@ struct Src {
   int per_group;          // batch items per scale/shift row
   float negslope;         // 1 = affine only
 };
-
-// V[b, c, vy, vx] for c < stride*stride*cin.
-template <typename T>
-__device__ __forceinline__ float load_v(const T* __restrict__ x,
-                                        const Src& s, int b, int c, int vy,
-                                        int vx) {
-  int ci = c, py = 0, px = 0;
-  if (s.stride == 2) {
-    const int ph = c / s.cin;
-    ci = c - ph * s.cin;
-    py = ph >> 1;
-    px = ph & 1;
-  }
-  const int r = s.stride * vy + py - s.pad, col = s.stride * vx + px - s.pad;
-  if (r < 0 || r >= s.H || col < 0 || col >= s.W) return 0.f;
-  float v = to_f<T>(x[(((size_t)b * s.cin + ci) * s.H + r) * s.W + col]);
-  if (s.scale != nullptr) {
-    const int row = (b / s.per_group) * s.cin + ci;
-    // two roundings, no fma: the plain version's x*scale + shift
-    float z = __fadd_rn(__fmul_rn(v, s.scale[row]), s.shift[row]);
-    if (s.negslope != 1.f) z = z >= 0.f ? z : z * s.negslope;
-    v = to_f<T>(from_f<T>(z));
-  }
-  return v;
-}
 
 // K3''' pass 2: stats[g][which][co] = sum of the tiles of stack g (its
 // images' tiles are contiguous in st_part), in a fixed order: each thread
@@ -171,142 +132,6 @@ conv_stats_reduce_kernel(const float* __restrict__ st_part,
     __syncthreads();
   }
   if (threadIdx.x == 0) stats[o] = red[0];
-}
-
-// ---------------------------------------------------------------------------
-// fp32 K7 (the CUDA cores): the tiles of its pass 1, and pass 2
-// ---------------------------------------------------------------------------
-constexpr int DR = 4;    // rows of V per smem tile
-constexpr int DW = 32;   // columns per smem tile
-
-// K7 pass 2: dw[i] = sum over chunks, in chunk order.
-__global__ void __launch_bounds__(NT)
-conv_dw_reduce_kernel(const float* __restrict__ partial,
-                      float* __restrict__ dw, int n_out, int n_chunks) {
-  const int i = blockIdx.x * NT + threadIdx.x;
-  if (i >= n_out) return;
-  float s = 0.f;
-  for (int c = 0; c < n_chunks; ++c) s += partial[(size_t)c * n_out + i];
-  dw[i] = s;
-}
-
-// ---------------------------------------------------------------------------
-// K7 pass 1: the cotangent-tapped weight gradient.
-// partial[chunk][ci][t'][co], t' = dy'*K + dx', over the chunk's rows r of V:
-//   sum over r, c of V[b,ci,r,c] * g[b,co, r-(K-1)+dy', c-(K-1)+dx']
-// (g zero outside [0,Ho) x [0,Wo)); term t' is dw's tap (K-1-dy', K-1-dx').
-// ---------------------------------------------------------------------------
-template <typename T, int K>
-__global__ void __launch_bounds__(NT)
-conv_dw_gtap_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                    float* __restrict__ partial, Src src, int Cin, int Cout,
-                    int Ho, int Wo, int rows_per_chunk, int chunks_per_image,
-                    int cib, int cob) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  constexpr int GH = DR + K - 1, GW = DW + K - 1;
-  constexpr int GS = (GH * GW) | 1;       // odd stride: distinct banks
-  float* zs = smem;                       // [cib][DR*DW]
-  float* gs = smem + cib * DR * DW;       // [cob][GS], rows GH x GW
-  const int Hv = Ho + K - 1, Wv = Wo + K - 1;
-
-  const int chunk = blockIdx.x;
-  const int b = chunk / chunks_per_image;
-  const int r0 = (chunk % chunks_per_image) * rows_per_chunk;
-  const int r1 = min(r0 + rows_per_chunk, Hv);
-  const int ci0 = blockIdx.y * cib, co0 = blockIdx.z * cob;
-  const int col = threadIdx.x % cob, cil = threadIdx.x / cob;
-
-  float acc[K * K];
-#pragma unroll
-  for (int t = 0; t < K * K; ++t) acc[t] = 0.f;
-
-  for (int ty0 = r0; ty0 < r1; ty0 += DR) {
-    for (int tx0 = 0; tx0 < Wv; tx0 += DW) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < cib * DR * DW; i += NT) {
-        const int c = i / (DR * DW), p = i % (DR * DW);
-        const int r = ty0 + p / DW, cc = tx0 + p % DW;
-        // rows past r1 belong to the next chunk and must not count here
-        zs[i] = (ci0 + c < Cin && r < r1 && cc < Wv)
-            ? load_v(x, src, b, ci0 + c, r, cc) : 0.f;
-      }
-      for (int i = threadIdx.x; i < cob * GH * GW; i += NT) {
-        const int o = i / (GH * GW), rem = i % (GH * GW);
-        const int co = co0 + o;
-        const int gr = ty0 - (K - 1) + rem / GW, gc = tx0 - (K - 1) + rem % GW;
-        float v = 0.f;
-        if (co < Cout && gr >= 0 && gr < Ho && gc >= 0 && gc < Wo)
-          v = to_f<T>(g[(((size_t)b * Cout + co) * Ho + gr) * Wo + gc]);
-        gs[o * GS + rem] = v;
-      }
-      __syncthreads();
-      const float* zc = zs + cil * DR * DW;
-      const float* gt = gs + col * GS;
-      for (int p = 0; p < DR * DW; ++p) {
-        const int r = p / DW, c = p % DW;
-        const float zv = zc[p];
-#pragma unroll
-        for (int dy = 0; dy < K; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < K; ++dx)
-            acc[dy * K + dx] = fmaf(zv, gt[(r + dy) * GW + c + dx], acc[dy * K + dx]);
-      }
-    }
-  }
-  const int ci = ci0 + cil, co = co0 + col;
-  if (ci < Cin && co < Cout) {
-    float* out = partial + (size_t)chunk * Cin * K * K * Cout;
-#pragma unroll
-    for (int t = 0; t < K * K; ++t) out[((size_t)ci * K * K + t) * Cout + co] = acc[t];
-  }
-}
-
-template <typename T, int K>
-int launch_dw_gtap_k(const void* x, const void* g, float* partial, float* dw,
-                     const Src& src, int B, int Cout, int Ho, int Wo,
-                     int rows_per_chunk, cudaStream_t stream) {
-  const int Cin = src.cin;
-  const int cob = Cout <= 8 ? 8 : (Cout <= 16 ? 16 : 32);
-  const int cib = NT / cob;
-  const int chunks_per_image = (Ho + K - 1 + rows_per_chunk - 1) / rows_per_chunk;
-  const int n_chunks = B * chunks_per_image;
-  constexpr int GS = ((DR + K - 1) * (DW + K - 1)) | 1;
-  // at K = 7 and cob = 32: 52,912 bytes, above the default 48 KB
-  const size_t smem = sizeof(float) * (cib * DR * DW + cob * GS);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        conv_dw_gtap_kernel<T, K>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(n_chunks, (Cin + cib - 1) / cib, (Cout + cob - 1) / cob);
-  conv_dw_gtap_kernel<T, K><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), partial, src, Cin,
-      Cout, Ho, Wo, rows_per_chunk, chunks_per_image, cib, cob);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const int n_out = K * K * Cin * Cout;
-  conv_dw_reduce_kernel<<<(n_out + NT - 1) / NT, NT, 0, stream>>>(
-      partial, dw, n_out, n_chunks);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_dw_gtap(const void* x, const void* g, float* partial, float* dw,
-                   const Src& src, int B, int Cout, int Ho, int Wo, int k,
-                   int rows_per_chunk, cudaStream_t stream) {
-  switch (k) {
-    case 2: return launch_dw_gtap_k<T, 2>(x, g, partial, dw, src, B, Cout, Ho,
-                                          Wo, rows_per_chunk, stream);
-    case 3: return launch_dw_gtap_k<T, 3>(x, g, partial, dw, src, B, Cout, Ho,
-                                          Wo, rows_per_chunk, stream);
-    case 5: return launch_dw_gtap_k<T, 5>(x, g, partial, dw, src, B, Cout, Ho,
-                                          Wo, rows_per_chunk, stream);
-    case 7: return launch_dw_gtap_k<T, 7>(x, g, partial, dw, src, B, Cout, Ho,
-                                          Wo, rows_per_chunk, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 Src make_src(const float* scale, const float* shift, int B, int Cin, int H,
@@ -402,7 +227,7 @@ __host__ __device__ constexpr int units_per_warp(int k, int nb) {
 // and row strides in elements): nch channels from c0, nrows rows from vy0,
 // ncols (<= 96) columns from vx0, in s's V coordinates; zero where s says
 // and at rows >= ylim or columns >= xlim. The prologue and its bf16
-// rounding are load_v's.
+// rounding are the plain version's (two roundings, no fma).
 template <int NROWS>
 __device__ __forceinline__ void stage(const bf16* __restrict__ x,
                                       const Src& s, int b, int c0, int nch,
@@ -1302,7 +1127,7 @@ __device__ __forceinline__ void ldsm2(uint32_t (&r)[2], uint32_t a) {
 // Channels [c0, c0 + 16) of V at this thread's pixels p = threadIdx.x +
 // THREADS * m of a tile of ncols columns from (vy0, vx0), as bf16 pairs:
 // zero past cv, past npix and outside x; the prologue and its rounding as
-// load_v (two roundings, no fma). Every load reads a clamped, valid
+// the plain version's (two roundings, no fma). Every load reads a clamped, valid
 // address and a select zeroes what lies outside, so no branch separates
 // the loads and all 16 x ITEMS are in flight together; the prologue, where
 // there is one, is a second pass over the words.
@@ -1967,11 +1792,12 @@ int launch_dw(const bf16* x, const Src& src, const bf16* g, float* partial,
 }  // namespace px
 
 // ---------------------------------------------------------------------------
-// fp32 K3 and K4 on the tensor cores in split TF32 (namespace tc32): every
-// form (VALID with a border, the prologue, stride 2 by phases, SAME, the
-// K3''' statistics, the input gradient) at any k >= 1. They replace
-// _make_conv_kernel (:157) and _make_dw_kernel (:401) in fp32, as
-// ops/conv.py conv_route sends every fp32 K3 and K4 launch here.
+// fp32 K3, K4 and K7 on the tensor cores in split TF32 (namespace tc32):
+// every form (VALID with a border, the prologue, stride 2 by phases, SAME,
+// the K3''' statistics, the input gradient) at any k >= 1. They replace
+// _make_conv_kernel (:157), _make_dw_kernel (:401) and
+// _make_dw_kernel_gtap (:455) in fp32, as ops/conv.py conv_route sends
+// every fp32 K3, K4 and K7 launch here (K7 at k in GTAP_KS, K4 elsewhere).
 // Products: mma.sync m16n8k8 .tf32 in three terms (tf32.cuh: hi*lo + lo*hi
 // + hi*hi, the small terms first; fp32 accumulators), which keep the fp32
 // plain versions' 1e-4 x max. What bounds them: at main_fp32's sites
@@ -2019,7 +1845,7 @@ int launch_dw(const bf16* x, const Src& src, const bf16* g, float* partial,
 //     channel (lanes, then the warp's own shared-memory slot), the 8 warps'
 //     slots in order into the strip's row of st_part (no atomics);
 //     conv_stats_reduce_kernel adds a stack's strips in a fixed order.
-//   * K4 (conv_dw_tf32_kernel<NB>): dw[tap, c, co] = sum over p of
+//   * K4 (conv_dw_tf32_kernel<NB, false>): dw[tap, c, co] = sum over p of
 //     V[c, p + tap] g[co, p], M = the (tap, c) rows of the block's channels
 //     (tap-major, c fastest, padded to 16 once), N = Cout, the contraction
 //     over the pixels in k8 steps of 8 pixels of a row. A block owns a
@@ -2032,6 +1858,12 @@ int launch_dw(const bf16* x, const Src& src, const bf16* g, float* partial,
 //     end); each strip's block writes one fp32 partial [M, N] and
 //     conv_dw_sum_kernel adds the strips in a fixed order. No atomics in
 //     either: a seeded run repeats bit for bit.
+//   * K7 (conv_dw_tf32_kernel<NB, true>): the same kernel with the roles
+//     swapped, as dwtc swaps them in bf16: M = the (tap', co) rows of the
+//     cotangent tapped with a border of k - 1 (its raw tile in two buffers,
+//     split as read), N = Cin, V untapped over its own extent (Ho + k - 1)
+//     x (Wo + k - 1), split once a stage with the prologue applied in that
+//     pass; conv_dw_sum_kernel<true> adds the strips and transposes.
 // ---------------------------------------------------------------------------
 namespace tc32 {
 
@@ -2104,8 +1936,8 @@ __device__ __forceinline__ bool v_pos(const Src& s, const FDiv& cin, int c,
   return r >= 0 && r < s.H && col >= 0 && col < s.W;
 }
 
-// The prologue on an element of x, as load_v computes it (two roundings,
-// no fma).
+// The prologue on an element of x, as the plain version computes it (two
+// roundings, no fma).
 __device__ __forceinline__ float pro(const Src& s, int b, int ci, float v) {
   const int row = (b / s.per_group) * s.cin + ci;
   float z = __fadd_rn(__fmul_rn(v, s.scale[row]), s.shift[row]);
@@ -2485,21 +2317,24 @@ int launch_fwd(const float* x, const Src& src, const float* w, float* y,
 }
 
 // ---------------------------------------------------------------------------
-// K4
+// K4 and K7
 // ---------------------------------------------------------------------------
 
-// Shared memory of conv_dw_tf32_kernel<NB> (ops/conv.py dw_tf32_smem): two
-// raw V tiles of cb channels, g's raw and split tiles; the row groups' sums
-// at the end reuse it.
+// Shared memory of conv_dw_tf32_kernel<NB, GTAP> (ops/conv.py
+// dw_tf32_smem): two raw tiles of the tapped operand (cb channels), the
+// untapped operand's raw tile (K4's g: DR x DC a channel; K7's V: DR rows
+// of tile_rs(DC), from up to LEAD columns left of the stage) and its split
+// planes; the row groups' sums at the end reuse it.
 struct DwLayout {
-  int vr, rs, vplane;
-  __host__ __device__ DwLayout(int k) {
+  int vr, rs, vplane, urs;
+  __host__ __device__ DwLayout(int k, bool gtap) {
     vr = DR + k - 1;
     rs = tile_rs(DC + k - 1);
     vplane = plane4(vr * rs, 32);
+    urs = gtap ? tile_rs(DC) : DC;
   }
   __host__ __device__ size_t floats(int cb, int nb, int wm) const {
-    const size_t stage = (size_t)2 * cb * vplane + (size_t)8 * nb * DR * DC +
+    const size_t stage = (size_t)2 * cb * vplane + (size_t)8 * nb * DR * urs +
                          (size_t)2 * 8 * nb * GP;
     const size_t red = wm == WARPS ? 0
         : (size_t)WARPS * upw_of(nb) * 16 * 8 * nb;
@@ -2536,26 +2371,43 @@ __device__ __forceinline__ void stage_g(const float* __restrict__ g, int b,
   }
 }
 
+// Both weight gradients as one implicit GEMM that contracts a tap-shifted
+// operand S with an unshifted one U over the pixels p of [Hp, Wp] (dwtc's
+// formulation):
+//   partial[strip][(tap * Cs + s) * Cu + u] = sum over the strip's pixels
+//   p of S[s, p + tap] U[u, p]
+// (conv_dw_sum_kernel adds the strips; for K7 it also transposes).
+//   * K4 (GTAP false): S = V (sx through ss: the border, the prologue, the
+//     phases; Cs = s*s*Cin), U = g (ux, Cu = Cout, [Hp, Wp] = [Ho, Wo]).
+//   * K7 (GTAP true): S = g (sx through ss: no prologue and a border of
+//     k - 1, so that S[co, p + t'] = g[co, p - (k-1) + t'], zero outside
+//     g; Cs = Cout), U = V (ux through us, Cu = Cin, [Hp, Wp] = V's extent
+//     [Ho + k - 1, Wo + k - 1]). U's raw tile is staged as stage_v stages
+//     S's (zero outside x and past Cu), from ulead columns left of the
+//     stage; the split pass applies the prologue to x's own elements of
+//     channels below Cu, so the border and the padded channels hold zeros
+//     (NaN * 0 would be NaN). V past the strip (r1, q1: those rows belong
+//     to the next strip) is staged but feeds no product: the k8 steps
+//     past r1 or q1 are skipped, and q1 is a multiple of 8 from the strip's
+//     start or V's edge, past which V lies outside x.
 // Grid: (B * strips_y * strips_x, ceil(Cs / cb), ceil(Cu / 8 NB)). Warp
 // group wmi = warp % wm owns the block's m16 tiles wmi, wmi + wm, ... (at
 // most UPW); row group rg = warp / wm the stage's k8 steps rg, rg + 8 /
-// wm, ... (DR * DC / 8 of them, 8 pixels of a row each).
-//   partial[strip][(tap * Cs + c) * Cu + co] = sum over the strip's pixels
-//   p of V[c, p + tap] g[co, p]
-// (dwtc's layout: conv_dw_sum_kernel adds the strips).
-template <int NB>
+// wm, ... (DR * DC / 8 of them, 8 pixels of a row each). vec: S by 16-byte
+// copies; u_vec: U likewise.
+template <int NB, bool GTAP>
 __global__ void __launch_bounds__(THREADS, 2)
-conv_dw_tf32_kernel(const float* __restrict__ x, Src src,
-                    const float* __restrict__ g, float* __restrict__ partial,
-                    int Cs, int Cu, int Hp, int Wp, int k, int rows,
-                    int cols, int strips_y, int strips_x, int cb, int wm,
-                    int vec, int g_vec) {
+conv_dw_tf32_kernel(const float* __restrict__ sx, Src ss,
+                    const float* __restrict__ ux, Src us,
+                    float* __restrict__ partial, int Cs, int Cu, int Hp,
+                    int Wp, int k, int rows, int cols, int strips_y,
+                    int strips_x, int cb, int wm, int vec, int u_vec) {
   constexpr int UPW = upw_of(NB), NCO = 8 * NB, STEPS = DR * DC / 8;
-  const DwLayout L(k);
+  const DwLayout L(k, GTAP);
   extern __shared__ float4 smem4[];
   float* vbuf = reinterpret_cast<float*>(smem4);            // [2][cb][vplane]
-  float* graw = vbuf + 2 * cb * L.vplane;                   // [NCO][DR * DC]
-  float2* gs = reinterpret_cast<float2*>(graw + NCO * DR * DC);  // [NCO][GP]
+  float* uraw = vbuf + 2 * cb * L.vplane;                   // [NCO][DR][urs]
+  float2* us2 = reinterpret_cast<float2*>(uraw + NCO * DR * L.urs);  // [NCO][GP]
 
   const int per_image = strips_y * strips_x;
   const int b = blockIdx.x / per_image;
@@ -2569,9 +2421,10 @@ conv_dw_tf32_kernel(const float* __restrict__ x, Src src,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, t = lane & 3;
   const int wmi = warp % wm, rg = warp / wm, nrg = WARPS / wm;
-  const int lead = src.stride == 1 ? ((-src.pad) % 4 + 4) % 4 : 0;
+  const int lead = ss.stride == 1 ? ((-ss.pad) % 4 + 4) % 4 : 0;
+  const int ulead = GTAP ? ((-us.pad) % 4 + 4) % 4 : 0;
 
-  // rows gid and gid + 8 of each of this warp's m16 tiles in a V tile:
+  // rows gid and gid + 8 of each of this warp's m16 tiles in an S tile:
   // (tap, c) -> c's plane, the tap's shift (rows past M read element 0:
   // discarded)
   int off[UPW][2];
@@ -2599,11 +2452,16 @@ conv_dw_tf32_kernel(const float* __restrict__ x, Src src,
   const int n_st = (r1 - r0 + DR - 1) / DR * sx_n;
   const auto stage = [&](int s) {
     const int y0 = r0 + DR * (s / sx_n), x0 = q0 + DC * (s % sx_n);
-    stage_v(x, src, b, ch0, nch, Cs, y0, L.vr, x0 - lead, L.rs, L.vplane,
+    stage_v(sx, ss, b, ch0, nch, Cs, y0, L.vr, x0 - lead, L.rs, L.vplane,
             vec, vbuf + (s & 1) * cb * L.vplane);
-    stage_g<NB>(g, b, n0, Cu, Hp, Wp, y0, x0, r1, q1, g_vec, graw);
+    if constexpr (GTAP)
+      stage_v(ux, us, b, n0, NCO, Cu, y0, DR, x0 - ulead, L.urs,
+              DR * L.urs, u_vec, uraw);
+    else
+      stage_g<NB>(ux, b, n0, Cu, Hp, Wp, y0, x0, r1, q1, u_vec, uraw);
     asm volatile("cp.async.commit_group;" ::: "memory");
   };
+  const FDiv cind(GTAP ? us.cin : ss.cin);
   stage(0);
   for (int s = 0; s < n_st; ++s) {
     const int y0 = r0 + DR * (s / sx_n), x0 = q0 + DC * (s % sx_n);
@@ -2611,35 +2469,48 @@ conv_dw_tf32_kernel(const float* __restrict__ x, Src src,
     asm volatile("cp.async.wait_group 0;" ::: "memory");
     // stage s has landed; every warp is done with stage s - 1
     __syncthreads();
-    if (src.scale != nullptr) {
-      // the prologue on x's own elements of V's tile, in place
-      const FDiv rsd(L.rs), vrd(L.vr), cind(src.cin);
+    if (!GTAP && ss.scale != nullptr) {
+      // K4: the prologue on x's own elements of V's tile, in place
+      const FDiv rsd(L.rs), vrd(L.vr);
       for (int i = threadIdx.x; i < nch * L.vr * L.rs; i += THREADS) {
         const int line = rsd.div(i), j = i - line * L.rs;
         const int c = vrd.div(line), ly = line - c * L.vr;
         int ci;
         size_t o;
         float* p = vb + c * L.vplane + ly * L.rs + j;
-        if (v_pos(src, cind, ch0 + c, y0 + ly, x0 - lead + j, ci, o))
-          *p = pro(src, b, ci, *p);
+        if (v_pos(ss, cind, ch0 + c, y0 + ly, x0 - lead + j, ci, o))
+          *p = pro(ss, b, ci, *p);
       }
     }
+    // U's split planes (K7: V with the prologue on x's own elements)
     for (int i = threadIdx.x; i < NCO * DR * DC; i += THREADS) {
       const int co = i / (DR * DC);
+      float e;
+      if constexpr (GTAP) {
+        const int p = i - co * (DR * DC), ry = p / DC, cx = p - ry * DC;
+        e = uraw[(co * DR + ry) * L.urs + ulead + cx];
+        int ci;
+        size_t o;
+        if (us.scale != nullptr && n0 + co < Cu &&
+            v_pos(us, cind, n0 + co, y0 + ry, x0 + cx, ci, o))
+          e = pro(us, b, ci, e);
+      } else {
+        e = uraw[i];
+      }
       uint32_t hi, lo;
-      tf32::split(graw[i], hi, lo);
-      gs[co * GP + i - co * (DR * DC)] =
+      tf32::split(e, hi, lo);
+      us2[co * GP + i - co * (DR * DC)] =
           make_float2(__uint_as_float(hi), __uint_as_float(lo));
     }
     __syncthreads();
     if (s + 1 < n_st) stage(s + 1);
     for (int st = rg; st < STEPS; st += nrg) {
       const int ry = st / (DC / 8), cx = 8 * (st - ry * (DC / 8));
-      if (y0 + ry >= r1 || x0 + cx >= q1) continue;   // g is zero there
+      if (y0 + ry >= r1 || x0 + cx >= q1) continue;   // U is zero there
       tf32::FragB bf[NB];
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
-        const float2* p = gs + (8 * j + gid) * GP + ry * DC + cx + t;
+        const float2* p = us2 + (8 * j + gid) * GP + ry * DC + cx + t;
         const float2 b0 = p[0], b1 = p[4];
         bf[j].hi[0] = __float_as_uint(b0.x);
         bf[j].hi[1] = __float_as_uint(b1.x);
@@ -2697,36 +2568,39 @@ conv_dw_tf32_kernel(const float* __restrict__ x, Src src,
   }
 }
 
-template <int NB>
-int launch_dw(const float* x, const Src& src, const float* g, float* partial,
-              float* dw, int B, int Cu, int Hp, int Wp, int k, int rows,
-              int cols, int cb, int wm, cudaStream_t st) {
-  const int Cs = src.stride * src.stride * src.cin;
+// K4 (GTAP false: dw [k, k, Cs, Cu]) or K7 (GTAP true: dw [Cu, k*k*Cs], the
+// reduce transposing), S = sx through ss, U = ux (through us for K7).
+template <int NB, bool GTAP>
+int launch_dw(const float* sx, const Src& ss, const float* ux, const Src& us,
+              float* partial, float* dw, int B, int Cs, int Cu, int Hp,
+              int Wp, int k, int rows, int cols, int cb, int wm,
+              cudaStream_t st) {
   if (k < 1 || cb < 1 || (wm != 1 && wm != 2 && wm != 4 && wm != 8) ||
       (k * k * (cb < Cs ? cb : Cs) + 15) / 16 > wm * upw_of(NB) ||
       rows < DR || rows % DR || cols < DC || cols % DC)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * DwLayout(k).floats(cb, NB, wm);
+  const size_t smem = sizeof(float) * DwLayout(k, GTAP).floats(cb, NB, wm);
   cudaError_t e = cudaFuncSetAttribute(
-      conv_dw_tf32_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      conv_dw_tf32_kernel<NB, GTAP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int strips_y = (Hp + rows - 1) / rows;
   const int strips_x = (Wp + cols - 1) / cols;
   const dim3 grid(B * strips_y * strips_x, (Cs + cb - 1) / cb,
                   (Cu + 8 * NB - 1) / (8 * NB));
-  const int vec = src.stride == 1 && src.W % 4 == 0 &&
-                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int g_vec = Wp % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  conv_dw_tf32_kernel<NB><<<grid, THREADS, smem, st>>>(
-      x, src, g, partial, Cs, Cu, Hp, Wp, k, rows, cols, strips_y, strips_x,
-      cb, wm, vec, g_vec);
+  const int vec = ss.stride == 1 && ss.W % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(sx) % 16 == 0;
+  const int u_vec = (GTAP ? us.stride == 1 && us.W % 4 == 0 : Wp % 4 == 0) &&
+                    reinterpret_cast<uintptr_t>(ux) % 16 == 0;
+  conv_dw_tf32_kernel<NB, GTAP><<<grid, THREADS, smem, st>>>(
+      sx, ss, ux, us, partial, Cs, Cu, Hp, Wp, k, rows, cols, strips_y,
+      strips_x, cb, wm, vec, u_vec);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const int n_out = k * k * Cs * Cu;
   const int n_slices = (int)grid.x;
   const dim3 rblock(32, n_slices < 32 ? n_slices : 32);
-  dwtc::conv_dw_sum_kernel<false><<<(n_out + 31) / 32, rblock, 0, st>>>(
+  dwtc::conv_dw_sum_kernel<GTAP><<<(n_out + 31) / 32, rblock, 0, st>>>(
       partial, dw, n_out, n_slices, Cu);
   return (int)cudaGetLastError();
 }
@@ -2770,28 +2644,41 @@ extern "C" int conv_fwd_tf32(const void* x, const void* w, void* y,
 #undef TC32_FWD
 }
 
-// fp32 K4 on the tensor cores (split TF32, namespace tc32), at any k >= 1,
-// stride 1 or 2, with and without the prologue. x, scale, shift, pad,
-// stride, groups, negslope: as conv_fwd_tf32; g [B,Cout,Ho,Wo] fp32; dw:
-// fp32 [k,k,s*s*Cin,Cout]. The tiling comes from ops/conv.py
-// dw_tf32_tiling: strips of rows x cols pixels (multiples of 4 and 32), cb
-// channels of V and nb in [1, 8] n8 tiles of Cout a block, wm warps along
-// M. partial: fp32 scratch [B*ceil(Ho/rows)*ceil(Wo/cols), k*k*s*s*Cin*Cout].
+// fp32 K4 (gtap = 0) and K7 (gtap = 1) on the tensor cores (split TF32,
+// namespace tc32). K4 at any k >= 1, stride 1 or 2, with and without the
+// prologue: x, scale, shift, pad, stride, groups, negslope as
+// conv_fwd_tf32; g [B,Cout,Ho,Wo] fp32; dw: fp32 [k,k,s*s*Cin,Cout]. K7 at
+// stride 1 and k >= 2 (ops/conv.py routes k in {2, 3, 5, 7} here): dw fp32
+// [Cin, k*k*Cout] with tap t' = dy'*k + dx' holding dw's tap (k-1-dy',
+// k-1-dx') (the caller reverses). The tiling comes from ops/conv.py
+// dw_tf32_tiling: strips of rows x cols pixels of the contraction's extent
+// (Ho x Wo for K4, (Ho+k-1) x (Wo+k-1) for K7; multiples of 4 and 32), cb
+// channels of the tapped operand (K4: V's s*s*Cin, K7: g's Cout) and nb in
+// [1, 8] n8 tiles of the other (K4: Cout, K7: Cin) a block, wm warps along
+// M. partial: fp32 scratch [strips, k*k*Cs*Cu].
 extern "C" int conv_dw_tf32(const void* x, const void* g, float* partial,
                             float* dw, const float* scale, const float* shift,
                             int B, int Cin, int H, int W, int Cout, int Ho,
                             int Wo, int k, int pad, int stride, int groups,
-                            float negslope, int rows, int cols, int cb,
-                            int nb, int wm, void* stream) {
+                            float negslope, int gtap, int rows, int cols,
+                            int cb, int nb, int wm, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Src src = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
-                           negslope);
+  const Src xs = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
+                          negslope);
+  // K7's tapped cotangent: no prologue, zero outside g, a border of k - 1
+  const Src gs = make_src(nullptr, nullptr, B, Cout, Ho, Wo, k - 1, 1, 1,
+                          1.f);
   const float* xf = static_cast<const float*>(x);
   const float* gf = static_cast<const float*>(g);
+  if (gtap && (stride != 1 || k < 2)) return (int)cudaErrorInvalidValue;
 #define TC32_DW(n)                                                           \
   case n:                                                                    \
-    return tc32::launch_dw<n>(xf, src, gf, partial, dw, B, Cout, Ho, Wo, k, \
-                              rows, cols, cb, wm, st);
+    return gtap ? tc32::launch_dw<n, true>(gf, gs, xf, xs, partial, dw, B,   \
+                                           Cout, Cin, Ho + k - 1, Wo + k - 1,\
+                                           k, rows, cols, cb, wm, st)        \
+                : tc32::launch_dw<n, false>(xf, xs, gf, gs, partial, dw, B,  \
+                                            stride * stride * Cin, Cout, Ho, \
+                                            Wo, k, rows, cols, cb, wm, st);
   switch (nb) {
     TC32_DW(1) TC32_DW(2) TC32_DW(3) TC32_DW(4)
     TC32_DW(5) TC32_DW(6) TC32_DW(7) TC32_DW(8)
@@ -2836,28 +2723,11 @@ extern "C" int conv_fwd_tc(const void* x, const void* w, void* y,
   }
 }
 
-// fp32 K7 (the CUDA cores). x, scale, shift, pad, groups, negslope: as
-// conv_fwd_tf32 at stride 1; x and g [B,Cout,Ho,Wo] fp32; partial: fp32
-// scratch [B*ceil((Ho+k-1)/rows_per_chunk), Cin*k*k*Cout]; dw: fp32
-// [Cin, k*k*Cout] with tap t' = dy'*k + dx' holding dw's tap (k-1-dy',
-// k-1-dx') (the caller reverses). k in {2, 3, 5, 7}.
-extern "C" int conv_dw_gtap(const void* x, const void* g, float* partial,
-                            float* dw, const float* scale, const float* shift,
-                            int B, int Cin, int H, int W, int Cout, int Ho,
-                            int Wo, int k, int pad, int groups, float negslope,
-                            int rows_per_chunk, void* stream) {
-  const Src src = make_src(scale, shift, B, Cin, H, W, pad, 1, groups,
-                           negslope);
-  return launch_dw_gtap<float>(x, g, partial, dw, src, B, Cout, Ho, Wo, k,
-                               rows_per_chunk,
-                               static_cast<cudaStream_t>(stream));
-}
-
 // bf16 K4 (gtap = 0, k in {1, 2, 3, 4, 5, 7}: dw [k,k,s*s*Cin,Cout], as
 // conv_dw_tf32; at k >= 4 only where ops/conv.py dw_px_form keeps this form,
 // Cout <= 16 on a grid that busies half the SMs; conv_dw_px takes the
 // others) and K7 (gtap = 1,
-// stride 1, k in {2, 3, 5, 7}: dw [Cin, k*k*Cout], as conv_dw_gtap) on the
+// stride 1, k in {2, 3, 5, 7}: dw [Cin, k*k*Cout], as conv_dw_tf32's gtap) on the
 // tensor cores. x, g, scale, shift, pad, stride, groups, negslope: as
 // conv_dw_tf32, x and g bf16. The tiling comes from ops/conv.py dw_tc_tiling: strips of
 // rows x cols pixels of the contraction's extent (Ho x Wo for K4, (Ho+k-1)

@@ -49,9 +49,9 @@ takes its own kernel at k in GTAP_KS and K4 elsewhere. fp32 K3 and K4 run
 on the tensor cores too, in split TF32 (three TF32 products a product,
 csrc/tf32.cuh, which keep the fp32 steps' 1e-4 gates), through one kernel
 each for every form at any k (conv_fwd_tf32 and conv_dw_tf32, tiled by
-fwd_tf32_tiling and dw_tf32_tiling); fp32 K7 stays on the CUDA cores
-(conv_dw_gtap) in full fp32. Each wrapper counts its tensor-core launches
-in tc_launches: every K3 and K4 launch, and K7's bf16 ones.
+fwd_tf32_tiling and dw_tf32_tiling); fp32 K7 is conv_dw_tf32's
+cotangent-tapped mode (gtap). Each wrapper counts its tensor-core launches
+in tc_launches: every K3, K4 and K7 launch.
 
 On CPU tensors the same functions run their plain PyTorch versions below,
 which materialise what the kernels' input read sees (virtual_input_plain)
@@ -75,12 +75,6 @@ import torch.nn.functional as F
 
 from splice_tpu_torch.ops import _build
 from splice_tpu_torch.ops.image import reflect_pad
-
-# fp32 K7 (the CUDA cores) splits the rows of all images into about this
-# many chunks (pass 1), then adds the chunks' partial sums in order (pass
-# 2).
-_DW_CHUNKS = 256
-_DW_ROW_TILE = 4          # rows per shared-memory tile in K7 (csrc DR)
 
 # bf16 K4/K7 on the tensor cores (csrc/conv.cu, namespace dwtc): a block
 # walks a strip of pixels in stages of DW_TC_ROWS x DW_TC_COLS, its warps
@@ -149,7 +143,10 @@ PX_PCH = 512              # csrc px::THREADS * px::PPT
 # pairs. K4: a block owns a strip of pixels, cb channels of V and nb n8
 # tiles of Cout, in stages of TF32_DW_ROWS x TF32_DW_COLS pixels; wm warp
 # groups split M (the (tap, c) rows), 8 // wm split a stage's k8 steps; each
-# strip writes an fp32 partial within TF32_PARTIAL bytes in all. Both
+# strip writes an fp32 partial within TF32_PARTIAL bytes in all. K7 is K4's
+# kernel with the roles swapped (gtap): M = the (tap', co) rows of the
+# cotangent, N = Cin, V untapped over its own extent, staged raw from up to
+# TF32_LEAD columns left of the stage and split once a stage. Both
 # grids aim at TF32_BLOCKS blocks (two waves at two blocks an SM), each
 # block within TF32_SMEM bytes of shared memory where a tiling allows it
 # (two blocks an SM), else within TF32_SMEM_MAX (one).
@@ -425,13 +422,12 @@ def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name,
 class ConvRoute(NamedTuple):
     """What conv_route picks: the kernel (K3, K4 or K7), its form ("tc":
     the channel-major bf16 forms, "px": the pixel-major ones, "tf32": fp32
-    in split TF32 on the tensor cores, "fp32": K7 on the CUDA cores), the C
-    entry in csrc/conv.cu and the tiling the wrapper passes it (None for
-    fp32)."""
+    in split TF32 on the tensor cores), the C entry in csrc/conv.cu and the
+    tiling the wrapper passes it."""
     kernel: str
     form: str
     entry: str
-    tiling: Optional[NamedTuple]
+    tiling: NamedTuple
 
 
 def px_form(k: int, phase: bool) -> bool:
@@ -480,9 +476,9 @@ def conv_route(op: str, dtype: torch.dtype, k: int, stride: int, cv: int,
     stride 1, else K4. k is the kernel the launch reads (k2 for a stride-2
     phase kernel, which `phase` also marks at stride 1); cv the channels of
     V (s*s*Cin; for K7 the input's); [batch, ho, wo] the output. bf16 takes
-    the tensor cores (px_form picks K3's form, dw_px_form K4's); fp32 K3
-    and K4 take them too, in split TF32 (one form each), fp32 K7 the CUDA
-    cores; every k >= 1 has a kernel."""
+    the tensor cores (px_form picks K3's form, dw_px_form K4's); fp32 K3,
+    K4 and K7 take them too, in split TF32 (one kernel for K4 and K7); every
+    k >= 1 has a kernel."""
     if k < 1 or stride not in (1, 2):
         raise ValueError(f"conv_route: k {k}, stride {stride}")
     bf16 = dtype == torch.bfloat16
@@ -503,7 +499,8 @@ def conv_route(op: str, dtype: torch.dtype, k: int, stride: int, cv: int,
     gtap = gtap or (same and DW_TAP_ON_N and _gtap_better(k, cv, cout))
     if gtap and stride == 1 and k in GTAP_KS:
         if not bf16:
-            return ConvRoute("K7", "fp32", "conv_dw_gtap", None)
+            return ConvRoute("K7", "tf32", "conv_dw_tf32", dw_tf32_tiling(
+                k, cout, cv, batch, ho + k - 1, wo + k - 1, gtap=True))
         return ConvRoute("K7", "tc", "conv_dw_tc", dw_tc_tiling(
             k, cout, cv, batch, ho + k - 1, wo + k - 1))
     if not bf16:
@@ -886,12 +883,16 @@ def dw_tf32_vplane(k: int) -> int:
                       * tf32_rs(TF32_DW_COLS + k - 1), 32)
 
 
-def dw_tf32_smem(k: int, cb: int, nb: int, wm: int) -> int:
-    """Bytes of conv_dw_tf32's shared memory: two raw V tiles of cb
-    channels, g's raw and split tiles, or the row groups' sums where they
-    are larger (csrc tc32::DwLayout)."""
+def dw_tf32_smem(k: int, cb: int, nb: int, wm: int,
+                 gtap: bool = False) -> int:
+    """Bytes of conv_dw_tf32's shared memory: two raw tiles of the tapped
+    operand's cb channels (K4's V, K7's g), the untapped operand's raw tile
+    (K4's g; K7's V, its rows tf32_rs(TF32_DW_COLS) long for the lead) and
+    split planes, or the row groups' sums where they are larger (csrc
+    tc32::DwLayout)."""
+    urs = tf32_rs(TF32_DW_COLS) if gtap else TF32_DW_COLS
     stage = (2 * cb * dw_tf32_vplane(k)
-             + 8 * nb * TF32_DW_ROWS * TF32_DW_COLS
+             + 8 * nb * TF32_DW_ROWS * urs
              + 2 * 8 * nb * TF32_G_PLANE)
     red = 0 if wm == TF32_WARPS else TF32_WARPS * tf32_upw(nb) * 16 * 8 * nb
     return 4 * max(stage, red)
@@ -948,15 +949,17 @@ def fwd_tf32_tiling(k: int, cv: int, cout: int, batch: int, ho: int,
 
 
 def dw_tf32_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
-                   wp: int) -> Tf32DwTiling:
-    """How conv_dw_tf32 splits dw[t, c, u] = sum_p V[c, p + t] g[u, p] over
-    the pixels of [batch, hp, wp]: Cout in as few evened chunks of at most
-    TF32_NB n8 tiles as it takes; V's channels in as few evened chunks as
-    let the warps' m16 tiles (8 x tf32_upw(nb)) hold M = k*k*cb rows and a
-    block fit TF32_SMEM (else TF32_SMEM_MAX); wm the fewest warp groups
-    along M that hold them; strips of whole stages toward TF32_BLOCKS
-    blocks, their partials within TF32_PARTIAL bytes unless each image is
-    one strip."""
+                   wp: int, gtap: bool = False) -> Tf32DwTiling:
+    """How conv_dw_tf32 splits dw[t, c, u] = sum_p S[c, p + t] U[u, p] over
+    the pixels of [batch, hp, wp] (K4: S = V, U = g, cs = s*s*Cin, cu =
+    Cout over [Ho, Wo]; with gtap K7: S = g tapped with a border of k - 1,
+    U = V, cs = Cout, cu = Cin over [Ho + k - 1, Wo + k - 1]): cu in as few
+    evened chunks of at most TF32_NB n8 tiles as it takes; S's channels in
+    as few evened chunks as let the warps' m16 tiles (8 x tf32_upw(nb))
+    hold M = k*k*cb rows and a block fit TF32_SMEM (else TF32_SMEM_MAX);
+    wm the fewest warp groups along M that hold them; strips of whole
+    stages toward TF32_BLOCKS blocks, their partials within TF32_PARTIAL
+    bytes unless each image is one strip."""
     nb, n_co = _n8_chunks(cu)
     upw = tf32_upw(nb)
     cb_max = min(cs, TF32_WARPS * upw * 16 // (k * k))
@@ -971,7 +974,7 @@ def dw_tf32_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
             wm = 1
             while wm * upw < tiles:
                 wm *= 2
-            if dw_tf32_smem(k, cb, nb, wm) <= limit:
+            if dw_tf32_smem(k, cb, nb, wm, gtap) <= limit:
                 best = (cb, wm)
                 break
         if best:
@@ -985,7 +988,8 @@ def dw_tf32_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
                                  max(1, TF32_BLOCKS // (m_chunks * n_co)),
                                  max_slices)
     return Tf32DwTiling(rows, cols, cb, m_chunks, nb, n_co, wm, slices,
-                        slices * m_chunks * n_co, dw_tf32_smem(k, cb, nb, wm))
+                        slices * m_chunks * n_co,
+                        dw_tf32_smem(k, cb, nb, wm, gtap))
 
 
 def _launch_dw_tc(x, g, k, pad, stride, scale, shift, negslope, gtap, t,
@@ -1035,50 +1039,27 @@ def _launch_dw_px(x, g, k, pad, stride, scale, shift, negslope, t, name):
     return dw
 
 
-def _launch_dw_tf32(x, g, k, pad, stride, scale, shift, negslope, t,
+def _launch_dw_tf32(x, g, k, pad, stride, scale, shift, negslope, gtap, t,
                     name):
-    """fp32 K4 on the tensor cores in split TF32 (conv_dw_tf32), tiled by t
-    (dw_tf32_tiling): fp32 [k, k, s*s*Cin, Cout]."""
+    """fp32 K4 (gtap False: fp32 [k, k, s*s*Cin, Cout]) or K7 (gtap True,
+    stride 1: fp32 [Cin, k*k*Cout], taps not yet reversed) on the tensor
+    cores in split TF32 (conv_dw_tf32), tiled by t (dw_tf32_tiling)."""
     B, cin, h, wd = x.shape
     cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
     sp, tp, G = _prologue_args(x, scale, shift)
     cv = stride * stride * cin
     partial = torch.empty(t.slices, k * k * cv * cout, dtype=torch.float32,
                           device=x.device)
-    dw = torch.empty(k, k, cv, cout, dtype=torch.float32, device=x.device)
+    shape = (cin, k * k * cout) if gtap else (k, k, cv, cout)
+    dw = torch.empty(shape, dtype=torch.float32, device=x.device)
     fn = _build.library("conv").conv_dw_tf32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
-        + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     status = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
                 dw.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, pad,
-                stride, G, float(negslope), t.rows, t.cols, t.cb, t.nb, t.wm,
-                _build.stream_ptr(x.device))
-    _build.check(status, name)
-    return dw
-
-
-def _launch_gtap_cores(x, g, k, pad, scale, shift, negslope, name):
-    """fp32 K7 (conv_dw_gtap, stride 1: [Cin, k*k*Cout], taps not yet
-    reversed) on the CUDA cores: the rows of all images' V in about
-    _DW_CHUNKS chunks."""
-    B, cin, h, wd = x.shape
-    cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
-    sp, tp, G = _prologue_args(x, scale, shift)
-    hr = ho + k - 1
-    rows = -(-B * hr // _DW_CHUNKS)
-    rows = -(-rows // _DW_ROW_TILE) * _DW_ROW_TILE
-    n_chunks = B * -(-hr // rows)
-    partial = torch.empty(n_chunks, k * k * cin * cout, dtype=torch.float32,
-                          device=x.device)
-    dw = torch.empty(cin, k * k * cout, dtype=torch.float32, device=x.device)
-    fn = _build.library("conv").conv_dw_gtap
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    status = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                dw.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, pad, G,
-                float(negslope), rows, _build.stream_ptr(x.device))
+                stride, G, float(negslope), int(gtap), t.rows, t.cols, t.cb,
+                t.nb, t.wm, _build.stream_ptr(x.device))
     _build.check(status, name)
     return dw
 
@@ -1096,8 +1077,8 @@ def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name,
     """The weight gradient over the virtual input of x on the kernel that
     conv_route names: fp32 [k, k, s*s*Cin, Cout]; g must be in x's type.
     K4, or with gtap (stride 1) K7 where its kernels are built for k (its
-    taps reversed here); bf16 on the tensor cores, fp32 K4 too (split
-    TF32), fp32 K7 on the CUDA cores."""
+    taps reversed here); bf16 on the tensor cores, fp32 too (split
+    TF32)."""
     x, g = x.contiguous(), g.contiguous()
     _build.check_cuda_tensors(name, x, g)
     if g.shape[0] != x.shape[0] or stride not in (1, 2) or (
@@ -1106,16 +1087,12 @@ def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name,
                          f"{tuple(x.shape)}, stride {stride}")
     route = _dw_route(x, g, k, stride, gtap)
     args = (x, g, k, pad, stride, scale, shift, negslope)
-    if route.kernel == "K7":
-        dwt = (_launch_dw_tc(*args, True, route.tiling, name)
-               if route.form == "tc" else
-               _launch_gtap_cores(x, g, k, pad, scale, shift, negslope, name))
-        return _reverse_taps(dwt, k)
+    gtap = route.kernel == "K7"
     if route.form == "px":
         return _launch_dw_px(*args, route.tiling, name)
-    if route.form == "tc":
-        return _launch_dw_tc(*args, False, route.tiling, name)
-    return _launch_dw_tf32(*args, route.tiling, name)
+    launch = _launch_dw_tc if route.form == "tc" else _launch_dw_tf32
+    dw = launch(*args, gtap, route.tiling, name)
+    return _reverse_taps(dw, k) if gtap else dw
 
 
 def _same_pad(w: torch.Tensor, name: str) -> int:
@@ -1183,14 +1160,13 @@ def conv_dw_gtap_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
                       negslope: float = 1.0, pad: int = 0) -> torch.Tensor:
     """K7 on the card: fp32 [k, k, Cin, Cout] by tapping the cotangent; pad
     (k-1)//2 is SAME, pad 0 on a padded x VALID. g must be in x's type.
-    At a k outside GTAP_KS conv_route runs K4, the same function. Launches
-    on the tensor cores (bf16, and fp32 where K4 runs it) also count in
-    tc_launches; fp32 K7 runs on the CUDA cores."""
+    At a k outside GTAP_KS conv_route runs K4, the same function. Every
+    launch runs on the tensor cores (bf16, and fp32 in split TF32) and also
+    counts in tc_launches."""
     dw = _launch_dw(x, g, k, pad, 1, scale, shift, negslope, "conv_dw_gtap",
                     gtap=True)
     conv_dw_gtap_cuda.launches += 1
-    conv_dw_gtap_cuda.tc_launches += (_dw_route(x, g, k, 1, True).form
-                                      != "fp32")
+    conv_dw_gtap_cuda.tc_launches += 1
     return dw
 
 

@@ -2,7 +2,7 @@
 main_fp32's sites, timed for one checkout.
 
     python splice_tpu_torch/tools/conv_forms.py [--tree DIR] [--out FILE]
-        [--step] [--fp32]
+        [--step] [--fp32] [--same]
 
 Imports splice_tpu_torch from DIR (default: the checkout this file is in),
 builds its conv library, and at each of the inversion net's sites on limes
@@ -32,15 +32,19 @@ With --fp32 it times fp32 K3, its input gradient and K4 instead, at
 main_fp32's two auto sites (FP32_SITES: [2, Cin, S, S] -> Cout, k = 3,
 an implicit 1-pixel border), beside F.conv2d, conv2d_input and
 conv2d_weight with cuDNN's and matmul's TF32 off (fp32 products, as the
-port's fp32 kernels compute them); with --step also main_fp32's replayed
-regular step (train_pair on the cows pair at its defaults with
-vit_compute_dtype and generator_compute_dtype float32, FP32_STEP_ITERS
-steps, then 5 host-timed chunks of as many replays as its program holds
-and a profile of 3)
-and its K3 and K4 device ms. It uses only conv_valid_cuda and
-conv_dw_cuda, which every version of the port has, so the parent of the
-split-TF32 kernels (fp32 on the CUDA cores) and a later tree can be timed
-in turns the same way. The JSON line then holds "fp32": true.
+port's fp32 kernels compute them), and fp32 K7 (conv_dw_gtap_cuda, the
+SAME border) at k = 3 at both sites ("k7") and at k = 5 and 7 at up_conv
+s0 ("k7_5", "k7_7", beside "dw5_lib", "dw7_lib"); with --step also
+main_fp32's replayed regular step (train_pair on the cows pair at its
+defaults with vit_compute_dtype and generator_compute_dtype float32,
+FP32_STEP_ITERS steps, then 5 host-timed chunks of as many replays as its
+program holds and a profile of 3) and its K3, K4 and K7 device ms; with
+--same that step is pallas_same_fp32's (generator_conv pallas with
+ops.conv.SAME_BORDER_KERNELS on: K3'' SAME and K7 at up_conv s0/s1). It
+uses only conv_valid_cuda, conv_dw_cuda and conv_dw_gtap_cuda, which every
+version of the port has, so the parent of a redesigned fp32 kernel and a
+later tree can be timed in turns the same way. The JSON line then holds
+"fp32": true (and "same": true).
 """
 from __future__ import annotations
 
@@ -75,22 +79,28 @@ LIMES = "datasets/feature_visualization/limes.jpeg"
 K3_KERNELS = ("conv_fwd_tf32", "conv_fwd_kernel", "conv_fwd_tc",
               "conv_fwd_px", "conv_split_sum", "conv_stats_")
 # main_fp32's K3/K4 sites (generator_conv auto on the 896 canvas, B = 2,
-# k = 3, border 1): (name, Cin, Cout, S)
+# k = 3, border 1), which are also the SAME route's K7 sites: (name, Cin,
+# Cout, S)
 FP32_SITES = (("up_conv s0", 36, 16, 896), ("up_conv s1", 68, 32, 448))
+# profiler keys of fp32 K7's kernels: the split-TF32 gtap instances and
+# their transposing sum, or the CUDA-core kernels of trees before them
+K7_KERNELS = ("conv_dw_gtap_kernel", "conv_dw_reduce_kernel",
+              "conv_dw_sum_kernel<true>")
 # entire A at 0 and 10 (entire_A_every 10): the program holds chunks of 9
 FP32_STEP_ITERS = 11
 COWS = "datasets/splicing/cows"
 
 
 def profile_ms(torch, run, n: int) -> dict:
-    """Device ms per step of every kernel, of K3's and of K4's (conv_dw_*)
-    over `run` (n steps), by torch.profiler."""
+    """Device ms per step of every kernel, of K3's, of the weight
+    gradients' (conv_dw_*: K4 and K7) and of K7's alone over `run` (n
+    steps), by torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    total = k3 = k4 = 0.0
+    total = k3 = k4 = k7 = 0.0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -98,7 +108,10 @@ def profile_ms(torch, run, n: int) -> dict:
         total += t
         k3 += t * any(k in e.key for k in K3_KERNELS)
         k4 += t * ("conv_dw_" in e.key)
-    return {"kernels_ms": total, "k3_ms": k3, "k4_ms": k4}
+        k7 += t * (any(k in e.key for k in K7_KERNELS)
+                   or ("conv_dw_tf32_kernel<" in e.key
+                       and ", true>" in e.key))
+    return {"kernels_ms": total, "k3_ms": k3, "k4_ms": k4, "k7_ms": k7}
 
 
 def time_step(torch, tree: pathlib.Path) -> dict:
@@ -126,20 +139,24 @@ def time_step(torch, tree: pathlib.Path) -> dict:
     return {"ms": statistics.median(host), **prof}
 
 
-def time_fp32_step(torch, tree: pathlib.Path) -> dict:
-    """main_fp32's regular step for the imported tree: train_pair on the
-    cows pair (seed 0, entire_A_every 10, fp32 ViT and generator), then
-    host ms of a replayed step (the median over 5 chunks as long as the
-    program holds) and device ms a step of all kernels, of K3's and of
-    K4's (3 replays)."""
+def time_fp32_step(torch, tree: pathlib.Path, same: bool = False) -> dict:
+    """main_fp32's regular step for the imported tree (with `same`
+    pallas_same_fp32's: generator_conv pallas, the SAME route on):
+    train_pair on the cows pair (seed 0, entire_A_every 10, fp32 ViT and
+    generator), then host ms of a replayed step (the median over 5 chunks
+    as long as the program holds) and device ms a step of all kernels, of
+    K3's, of the weight gradients' and of K7's (3 replays)."""
     import numpy as np
     from splice_tpu_torch.config import load_config
+    from splice_tpu_torch.ops import conv
     from splice_tpu_torch.trainer import (lambdas_vec, pack_row,
                                           sample_step_draws, train_pair)
     cfg = load_config(None, dict(
         dataroot=str(tree / COWS), seed=0, entire_A_every=10,
         log_images_freq=1000, vit_compute_dtype="float32",
-        generator_compute_dtype="float32"))
+        generator_compute_dtype="float32",
+        **({"generator_conv": "pallas"} if same else {})))
+    conv.SAME_BORDER_KERNELS = same
     res = train_pair(cfg, n_steps=FP32_STEP_ITERS)
     program, pair = res["program"], res["trainer"].pair
     gen = torch.Generator().manual_seed(1)
@@ -174,7 +191,24 @@ def fp32_calls(torch, conv, cin, cout, S, gen) -> dict:
             "dx_lib": lambda: torch.nn.grad.conv2d_input(x.shape, woi, g,
                                                          padding=1),
             "dw_lib": lambda: torch.nn.grad.conv2d_weight(x, woi.shape, g,
-                                                          padding=1)}
+                                                          padding=1),
+            "k7": lambda: conv.conv_dw_gtap_cuda(x, g, 3, None, None, 1.0,
+                                                 1)}
+
+
+def k7_calls(torch, conv, cin, cout, S, gen) -> dict:
+    """fp32 K7 at k = 5 and 7 (the SAME border) at one of FP32_SITES, and
+    conv2d_weight at each: {key: call}."""
+    x = torch.randn(2, cin, S, S, generator=gen).cuda()
+    g = torch.randn(2, cout, S, S, generator=gen).cuda()
+    out = {}
+    for k in (5, 7):
+        p = (k - 1) // 2
+        out[f"k7_{k}"] = (lambda k=k, p=p: conv.conv_dw_gtap_cuda(
+            x, g, k, None, None, 1.0, p))
+        out[f"dw{k}_lib"] = (lambda k=k, p=p: torch.nn.grad.conv2d_weight(
+            x, (cout, cin, k, k), g, padding=p))
+    return out
 
 
 def main(argv=None) -> int:
@@ -184,7 +218,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--fp32", action="store_true")
+    ap.add_argument("--same", action="store_true")
     args = ap.parse_args(argv)
+    if args.same and not args.fp32:
+        raise SystemExit("--same times pallas_same_fp32: it needs --fp32")
     tree = pathlib.Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
     import torch
@@ -238,7 +275,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
     for name, cin, cout, S in (FP32_SITES if args.fp32 else ()):
         sites[name] = {}
-        for key, fn in fp32_calls(torch, conv, cin, cout, S, gen).items():
+        calls = fp32_calls(torch, conv, cin, cout, S, gen)
+        if name == FP32_SITES[0][0]:
+            calls.update(k7_calls(torch, conv, cin, cout, S, gen))
+        for key, fn in calls.items():
             fn()
             sites[name][key] = statistics.median(
                 device_ms(fn, 10) for _ in range(5))
@@ -249,9 +289,11 @@ def main(argv=None) -> int:
     result = {"tree": str(tree), "card": card, "sites": sites}
     if args.fp32:
         result["fp32"] = True
+    if args.same:
+        result["same"] = True
     if args.step:
-        result["step"] = (time_fp32_step if args.fp32 else time_step)(
-            torch, tree)
+        result["step"] = (time_fp32_step(torch, tree, args.same)
+                          if args.fp32 else time_step(torch, tree))
         print(f"  step: {result['step']}", file=sys.stderr)
     line = json.dumps(result)
     print(line)

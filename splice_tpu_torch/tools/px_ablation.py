@@ -1,6 +1,7 @@
 """Ablation: what binds the pixel-major bf16 conv kernels (K3 conv_fwd_px,
 K4 conv_dw_px) at the inversion net's sites, or with --tf32 the
-split-TF32 fp32 ones (K3 conv_fwd_tf32, K4 conv_dw_tf32) at main_fp32's?
+split-TF32 fp32 ones (K3 conv_fwd_tf32, K4 and K7 conv_dw_tf32) at
+main_fp32's?
 
     python -m splice_tpu_torch.tools.px_ablation [--tf32]
 
@@ -29,9 +30,10 @@ csrc/tf32.cuh written in at its #include:
   * no_copies: the cp.async copies that stage V, the weights and the
     cotangent removed (the shared tiles keep what they held);
   * no_pass: the pass that splits the landed tiles (K3's V and weights,
-    K4's cotangent) removed;
-and the calls are fp32 K3, its input gradient and K4 at main_fp32's two
-sites (conv_forms.FP32_SITES), against the plain versions at 1e-4.
+    K4's cotangent, K7's V) removed;
+and the calls are fp32 K3, its input gradient, K4 and K7 (the SAME
+border, k = 3) at main_fp32's two sites (conv_forms.FP32_SITES, which are
+also the SAME route's K7 sites), against the plain versions at 1e-4.
 """
 from __future__ import annotations
 
@@ -193,7 +195,7 @@ def site_calls(name, cin, cout, H, W, k, stride):
 
 
 def fp32_site_calls(name, cin, cout, S):
-    """fp32 K3, its input gradient and K4 at one of main_fp32's sites
+    """fp32 K3, its input gradient, K4 and K7 at one of main_fp32's sites
     (conv_forms.FP32_SITES: B = 2, k = 3, border 1), and their plain
     versions."""
     F = torch.nn.functional
@@ -204,10 +206,14 @@ def fp32_site_calls(name, cin, cout, S):
     wf = torch.flip(w, dims=(0, 1)).transpose(2, 3).contiguous()
     calls = {"K3": lambda: conv.conv_valid_cuda(x, w, 1),
              "K3 dx": lambda: conv.conv_valid_cuda(g, wf, 1),
-             "K4": lambda: conv.conv_dw_cuda(x, g, 3, 1)}
+             "K4": lambda: conv.conv_dw_cuda(x, g, 3, 1),
+             "K7": lambda: conv.conv_dw_gtap_cuda(x, g, 3, None, None, 1.0,
+                                                  1)}
     plain = {"K3": lambda: conv.conv_valid_plain(x, w, 1),
              "K3 dx": lambda: conv.conv_valid_plain(g, wf, 1),
-             "K4": lambda: conv.conv_dw_plain(F.pad(x, (1, 1, 1, 1)), g, 3)}
+             "K4": lambda: conv.conv_dw_plain(F.pad(x, (1, 1, 1, 1)), g, 3),
+             "K7": lambda: conv.conv_dw_gtap_plain(x, g, 3, None, None, 1.0,
+                                                   1)}
     return calls, plain
 
 

@@ -3,8 +3,8 @@ route (conv_route, px_form, dw_px_form) and its convs at k = 6, 9 and 11 against
 splice_tpu.ops.conv_pallas, whose kernels take any k.
 
 conv_route is pure Python: every k from 1 to 13, at stride 1 and 2, SAME
-and VALID, bf16 and fp32, names a kernel of the port (fp32 K3 and K4 the
-split-TF32 forms, with a tiling that fits), and the training net's sites
+and VALID, bf16 and fp32, names a kernel of the port (fp32 K3, K4 and K7
+the split-TF32 forms, with a tiling that fits), and the training net's sites
 keep the channel-major bf16 forms. The convs run on CPU
 tensors (the
 plain versions of K3 and K4) against the reference's pallas_conv_chw and
@@ -28,7 +28,7 @@ DTYPES = (torch.bfloat16, torch.float32)
 ENTRIES = {("K3", "tc"): "conv_fwd_tc", ("K3", "px"): "conv_fwd_px",
            ("K3", "tf32"): "conv_fwd_tf32", ("K4", "tc"): "conv_dw_tc",
            ("K4", "px"): "conv_dw_px", ("K4", "tf32"): "conv_dw_tf32",
-           ("K7", "tc"): "conv_dw_tc", ("K7", "fp32"): "conv_dw_gtap"}
+           ("K7", "tc"): "conv_dw_tc", ("K7", "tf32"): "conv_dw_tf32"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -72,18 +72,20 @@ def test_route_names_a_kernel_for_every_k(k, stride, same, dtype,
     kernel; bf16 runs on the tensor cores in the channel-major forms
     exactly where
     px_form says no; K7 only at the k its kernels are built for (else K4,
-    the same function); fp32 K3 and K4 on the split-TF32 forms (a tiling
-    whose tap-row groups cover k and whose shared memory fits a block),
-    fp32 K7 on the CUDA cores (no tiling). None raises."""
+    the same function); fp32 K3, K4 and K7 on the split-TF32 forms (a
+    tiling whose tap-row groups cover k and whose shared memory fits a
+    block; K7's with its cotangent's channels tapped, Cin on N, over V's
+    extent). None raises."""
     monkeypatch.setattr(tconv, "DW_TAP_ON_N", True)
     kk, routes = _routes(k, stride, same, dtype)
     for i, r in enumerate(routes):
         assert ENTRIES[(r.kernel, r.form)] == r.entry
         if dtype == torch.float32:
             if r.kernel == "K7":
-                assert r.form == "fp32" and r.tiling is None
                 assert kk in tconv.GTAP_KS
-                continue
+                # cotangent-tapped: Cout's channels on M, Cin on N
+                assert r.tiling == tconv.dw_tf32_tiling(
+                    kk, 24, 20, 2, 37 + kk - 1, 37 + kk - 1, gtap=True)
             t = r.tiling
             assert r.form == "tf32" and 1 <= t.nb <= tconv.TF32_NB
             assert t.smem <= tconv.TF32_SMEM_MAX
@@ -92,7 +94,8 @@ def test_route_names_a_kernel_for_every_k(k, stride, same, dtype,
                 assert t.smem == tconv.fwd_tf32_smem(kk, t.ndy, t.nb)
             else:
                 assert -(-kk * kk * t.cb // 16) <= t.wm * tconv.tf32_upw(t.nb)
-                assert t.smem == tconv.dw_tf32_smem(kk, t.cb, t.nb, t.wm)
+                assert t.smem == tconv.dw_tf32_smem(kk, t.cb, t.nb, t.wm,
+                                                    r.kernel == "K7")
             continue
         phase = stride == 2
         if r.kernel == "K7":

@@ -1,7 +1,9 @@
 """CPU rehearsal of the split-TF32 fp32 conv kernels' work split.
 
 csrc/conv.cu namespace tc32 (conv_fwd_tf32: fp32 K3 in every form, its
-input gradient included; conv_dw_tf32: fp32 K4) runs only on the card.
+input gradient included; conv_dw_tf32: fp32 K4, and K7 in its
+cotangent-tapped mode, which tests/test_torch_conv_gtap_tf32.py holds) runs
+only on the card.
 This file emulates its index arithmetic in torch, block by block, as
 ops.conv.fwd_tf32_tiling and dw_tf32_tiling split the work: K3's strips,
 Cout chunks, stages of TF32_ROWS rows (one a warp) x 16 mt columns and
@@ -245,23 +247,67 @@ def emulate_fwd(x, w, out_hw, pad=0, stride=1, scale=None, shift=None,
 
 
 def emulate_dw(x, g, k, pad=0, stride=1, scale=None, shift=None,
-               negslope=1.0):
-    """conv_dw_tf32's blocks and conv_dw_sum_kernel: fp32 [k, k, Cs, Cu]."""
-    B, cin = x.shape[:2]
-    cu, hp, wp = g.shape[1:]
-    cs = stride * stride * cin
-    t = conv.dw_tf32_tiling(k, cs, cu, B, hp, wp)
+               negslope=1.0, gtap=False):
+    """conv_dw_tf32's blocks and conv_dw_sum_kernel: K4 fp32 [k, k, Cs,
+    Cu], or with gtap (stride 1) K7, the cotangent-tapped mode, after the
+    wrapper's tap reversal: fp32 [k, k, Cin, Cout]. The tapped operand S
+    (K4: V; K7: g through a border of k - 1, no prologue) is staged raw
+    with its halo and split as each A fragment is read; the untapped U
+    (K4: g, zero past Cu and the strip; K7: V staged raw, zero past Cin and
+    outside x, the prologue applied in the split pass) is split once a
+    stage."""
+    B, cin, H, W = x.shape
+    if gtap:
+        cs, cu = g.shape[1], cin
+        hp, wp = g.shape[2] + k - 1, g.shape[3] + k - 1
+        assert (hp, wp) == (H + 2 * pad, W + 2 * pad) and stride == 1
+        tapped = (g, None, None, 1.0, k - 1, 1)
+        lead, ulead = _lead(k - 1, 1), _lead(pad, 1)
+    else:
+        cu, hp, wp = g.shape[1:]
+        cs = stride * stride * cin
+        tapped = (x, scale, shift, negslope, pad, stride)
+        lead = _lead(pad, stride)
+    t = conv.dw_tf32_tiling(k, cs, cu, B, hp, wp, gtap)
     nco = 8 * t.nb
     vr, rs = DR + k - 1, conv.tf32_rs(DC + k - 1)
     vplane = conv.dw_tf32_vplane(k)
-    lead = _lead(pad, stride)
     nrg = WARPS // t.wm
-    operand = (x, scale, shift, negslope, pad, stride)
     strips = _strip_grid(B, hp, wp, t.rows, t.cols)
     assert len(strips) == t.slices
     partial = torch.full((t.slices, k * k * cs * cu), NAN)
     gf = g.float()
     p8 = torch.arange(8)
+
+    def untapped(b, n0, y0, x0, r1, q1):
+        """U's [nco, DR, DC] tile as the split pass leaves it."""
+        if not gtap:
+            graw = torch.zeros(nco, DR, DC)
+            nu = min(nco, cu - n0)
+            ys, xs = min(DR, r1 - y0), min(DC, q1 - x0)
+            graw[:nu, :ys, :xs] = gf[b, n0:n0 + nu, y0:y0 + ys, x0:x0 + xs]
+            return graw
+        # V's raw tile, written whole by stage_v (zero past Cin and outside
+        # x), from ulead columns left of the stage
+        ys = torch.arange(y0, y0 + DR)
+        xs = torch.arange(x0 - ulead, x0 - ulead + conv.tf32_rs(DC))
+        e = read_src((x, None, None, 1.0, pad, 1), b, n0, nco, cu, ys,
+                     xs)[:, :, ulead:ulead + DC]
+        if scale is None:
+            return e
+        # the prologue on x's own elements of channels below Cin
+        ch = torch.arange(n0, n0 + nco)
+        row = b // (B // scale.shape[0])
+        z = e * scale[row, ch.clamp(max=cin - 1)][:, None, None]
+        z = z + shift[row, ch.clamp(max=cin - 1)][:, None, None]
+        if negslope != 1.0:
+            z = torch.where(z >= 0, z, z * negslope)
+        r, c = ys - pad, torch.arange(x0, x0 + DC) - pad
+        inx = ((ch < cu)[:, None, None]
+               & ((r >= 0) & (r < H))[None, :, None]
+               & ((c >= 0) & (c < W))[None, None, :])
+        return torch.where(inx, z, e)
+
     for sl, (b, r0, r1, q0, q1) in enumerate(strips):
         for ch0 in range(0, cs, t.cb):
             nch = min(t.cb, cs - ch0)
@@ -275,38 +321,35 @@ def emulate_dw(x, g, k, pad=0, stride=1, scale=None, shift=None,
                 acc = torch.zeros(nrg, M, nco)
                 for y0 in range(r0, r1, DR):
                     for x0 in range(q0, q1, DC):
-                        # V's raw tile: cb planes, NaN past vr * rs and past
-                        # the block's nch channels; the prologue in place
+                        # S's raw tile: cb planes, NaN past vr * rs and past
+                        # the block's nch channels (K4: the prologue in
+                        # place)
                         vb = torch.full((t.cb, vplane), NAN)
                         vb[:nch, :vr * rs] = read_src(
-                            operand, b, ch0, nch, cs,
+                            tapped, b, ch0, nch, cs,
                             torch.arange(y0, y0 + vr),
                             torch.arange(x0 - lead, x0 - lead + rs)
                         ).reshape(nch, -1)
                         vb = vb.reshape(-1)
-                        # g's raw tile (zero past Cu and the strip), split
-                        # into planes of GP pairs, NaN past DR * DC
-                        graw = torch.zeros(nco, DR, DC)
-                        nu = min(nco, cu - n0)
-                        ys, xs = min(DR, r1 - y0), min(DC, q1 - x0)
-                        graw[:nu, :ys, :xs] = gf[b, n0:n0 + nu, y0:y0 + ys,
-                                                 x0:x0 + xs]
-                        gs = torch.full((nco, GP, 2), NAN)
-                        gh, gl = split(graw.reshape(nco, -1))
-                        gs[:, :DR * DC, 0], gs[:, :DR * DC, 1] = gh, gl
-                        gs = gs.reshape(-1, 2)
+                        # U's tile split into planes of GP pairs, NaN past
+                        # DR * DC
+                        us = torch.full((nco, GP, 2), NAN)
+                        uh, ul = split(untapped(b, n0, y0, x0, r1, q1)
+                                       .reshape(nco, -1))
+                        us[:, :DR * DC, 0], us[:, :DR * DC, 1] = uh, ul
+                        us = us.reshape(-1, 2)
                         for st in range(DR * DC // 8):
                             ry, cx = st // (DC // 8), 8 * (st % (DC // 8))
                             if y0 + ry >= r1 or x0 + cx >= q1:
-                                continue           # g is zero there
-                            # A[m, p]: V at row m's (tap, c), pixel cx + p
+                                continue           # U is zero there
+                            # A[m, p]: S at row m's (tap, c), pixel cx + p
                             a = vb[off[:, None] + ry * rs + cx + p8]
                             ah, al = split(a)
-                            # B[p, n]: g's plane n at pixel (ry, cx + p)
-                            gi = (torch.arange(nco)[None, :] * GP + ry * DC
+                            # B[p, n]: U's plane n at pixel (ry, cx + p)
+                            ui = (torch.arange(nco)[None, :] * GP + ry * DC
                                   + cx + p8[:, None])
                             acc[st % nrg] += products(
-                                ah, al, gs[gi, 0], gs[gi, 1], "mp,pn->mn")
+                                ah, al, us[ui, 0], us[ui, 1], "mp,pn->mn")
                 tot = acc[0].clone()
                 for r in range(1, nrg):             # the row groups in order
                     tot = tot + acc[r]
@@ -315,10 +358,14 @@ def emulate_dw(x, g, k, pad=0, stride=1, scale=None, shift=None,
                     + torch.arange(nu)
                 partial[sl, rows.reshape(-1)] = tot[:, :nu].reshape(-1)
     # conv_dw_sum_kernel: warp w adds slices w, w + nw, ...; then the warps
-    # in order
+    # in order (K7: output i = (tap' * Cout + co) * Cin + ci lands at
+    # [ci][tap' * Cout + co])
     nw = min(32, t.slices)
     sums = [_in_order(partial[w::nw]) for w in range(nw)]
-    return _in_order(torch.stack(sums)).reshape(k, k, cs, cu)
+    dw = _in_order(torch.stack(sums))
+    if gtap:
+        return conv._reverse_taps(dw.reshape(k * k * cs, cu).t(), k)
+    return dw.reshape(k, k, cs, cu)
 
 
 def _in_order(rows):
