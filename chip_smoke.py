@@ -193,9 +193,13 @@ Phases, each fatal on failure:
 Phase 2 also holds the fp32 (split-TF32) K1/K2 at FP32_QKV and K5/K6 at
 FP32_SPLIT against their plain fp32 versions (matmul TF32 off), bitwise
 run to run, every launch on the tensor cores, timed beside SDPA in fp32;
-K7 at k = 5 and 7 (GTAP_SITES, bf16 and fp32) and fp32 K7 at k = 3 at
-both SAME sites (split TF32, with and without the prologue, bitwise twice,
-timed beside conv2d_weight and K4 at the same site); and fp32 K3 (forward
+K7 at k = 5, 7, 9 and 11 (GTAP_SITES, bf16 and fp32; bf16 at k = 9 and 11
+on conv_dw_px's cotangent-tapped mode) and fp32 K7 at k = 3 at both SAME
+sites (split TF32, with and without the prologue, bitwise twice, timed
+beside conv2d_weight and K4 at the same site); K5/K6 at head widths 128,
+192 and 256 (WIDE_SPLIT, their chunked wide forms, bf16 and fp32,
+unmasked and with 2701 valid keys, bitwise twice, timed beside SDPA;
+WIDE_EDGES); and fp32 K3 (forward
 and input gradient) and K4 at the two auto sites (split TF32, bitwise
 twice) against their plain versions, timed beside F.conv2d, conv2d_input
 and conv2d_weight with cuDNN's TF32 off.
@@ -216,10 +220,19 @@ the filter sizes no generator default takes (ROADMAP C9; ANY_K: k = 6, 9
 and, at stride 2, 6, 9, 11) through kernel_conv_chw and
 kernel_conv_bn_act_chw, forward, input and weight gradient, bf16 and fp32,
 against the CPU's plain versions with F.conv2d refused and every launch
-counted; K7's route at k = 9 with SAME_BORDER_KERNELS on (K4, the same
-function); a generator with 9x9 up convs through skip_apply_chw pallas
-and fused against the CPU's float64; and multi_head_attention at dh 32
-and 128 (SDPA, ROADMAP C10) and 64 (K5/K6, counted) against the XLA math. Phase 3 runs a small fp32 DINOv2 (layer scale, registers) on
+counted; K7's route at k = 9 with SAME_BORDER_KERNELS on (K7 on its own
+kernels); a generator with 9x9 up convs through skip_apply_chw pallas
+and fused, with the SAME route off and on (K7 at k = 9 wherever
+_gtap_better says so), against the CPU's float64; and
+multi_head_attention at dh 32 (SDPA) and 64 and 128 (K5/K6, counted, SDPA
+refused) against the XLA math. Phase 6c runs the port's vit_forward at
+ViT-B/8's width as 6 heads of 128 (seeded; the 480 and 224 shapes, bf16
+and fp32): 12 K5 and 12 K6 launches a forward and backward, SDPA
+refused, the taps of layer 11 and the image gradient against the SDPA
+route. Phase 6d runs the default generator with 9x9 up convs on the SAME
+route at [2, 896, 896, 3] in bf16: K7 at k = 9 on conv_dw_px's
+cotangent-tapped mode at up_conv s0-s2, its gradient against K4's runs.
+Phase 3 runs a small fp32 DINOv2 (layer scale, registers) on
 the card against the CPU, two pairs' regular and entire-A steps
 (MultiPairTrainer) on the card against the CPU for generator_conv auto,
 fused and pallas (phase 3's tolerances, or 1.25 x the input's fp32
@@ -574,47 +587,54 @@ MESH_QKV = ((8, 6, 785),)
 MESH_SPLIT = ((8, 3, 785, 64),)
 
 
-def check_split_shapes(torch, attn, shapes, dtype_name="bfloat16"):
-    """K5/K6 at `shapes` against their plain versions, each twice on one
-    input (bitwise equal), timed beside the plain versions and SDPA with
-    the bound of its bytes and operations, every launch on the tensor
-    cores. Returns {(kernel, shape): times and max_abs_err}."""
+def check_split_shapes(torch, attn, shapes, dtype_name="bfloat16",
+                       n_valid=0):
+    """K5/K6 at `shapes` (keys past n_valid masked where it is given)
+    against their plain versions, each twice on one input (bitwise equal),
+    timed beside the plain versions and SDPA (with the key mask:
+    library_attention) with the bound of its bytes and operations (the
+    operations of the valid keys), every launch on the tensor cores.
+    Returns {(kernel, shape): times and max_abs_err}."""
     rtol, why = RTOL[dtype_name]
     dt, scale = getattr(torch, dtype_name), 0.125
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     fns = (attn.attn_fwd_cuda, attn.attn_bwd_cuda)
     counts = [(f.launches, f.tc_launches) for f in fns]
     out = {}
+    nv = n_valid
     for B, H, N, dh in shapes:
-        gen = torch.Generator().manual_seed(50 + N)
+        gen = torch.Generator().manual_seed(50 + N + dh - 64 + nv)
         q, k, v, g = (torch.randn(B, H, N, dh, generator=gen).to("cuda", dt)
                       for _ in range(4))
-        tag = f"[{B},{H},{N},{dh}] {dtype_name}"
-        o = attn.attn_fwd_cuda(q, k, v, scale)
-        err5 = compare(f"K5 {tag}", o, attn.attention_plain(q, k, v, scale),
-                       rtol, why)
+        tag = f"[{B},{H},{N},{dh}]{f' n_valid={nv}' if nv else ''} " \
+            f"{dtype_name}"
+        o = attn.attn_fwd_cuda(q, k, v, scale, nv)
+        err5 = compare(f"K5 {tag}", o, attn.attention_plain(q, k, v, scale,
+                                                            nv), rtol, why)
         check_bitwise(torch, f"K5 {tag}", (o,),
-                      (attn.attn_fwd_cuda(q, k, v, scale),))
+                      (attn.attn_fwd_cuda(q, k, v, scale, nv),))
         del o
-        got = attn.attn_bwd_cuda(q, k, v, g, scale)
-        want = attn.attention_bwd_plain(q, k, v, g, scale)
+        got = attn.attn_bwd_cuda(q, k, v, g, scale, nv)
+        want = attn.attention_bwd_plain(q, k, v, g, scale, nv)
         err6 = max(compare(f"K6 {part} {tag}", a, b, rtol, why)
                    for part, a, b in zip(("dq", "dk", "dv"), got, want))
         check_bitwise(torch, f"K6 {tag}", got,
-                      attn.attn_bwd_cuda(q, k, v, g, scale))
+                      attn.attn_bwd_cuda(q, k, v, g, scale, nv))
+        if nv and not all(bool((t[:, :, nv:] == 0).all()) for t in got[1:]):
+            fail(f"K6 {tag}: masked keys with nonzero dk or dv")
         del got, want
-        isz, fl = q.element_size(), 4 * B * H * N * N * dh
+        isz = q.element_size()
+        fl = 4 * B * H * N * (nv or N) * dh
         out[("K5", tag)] = dict(timed(
-            lambda: attn.attn_fwd_cuda(q, k, v, scale),
-            lambda: attn.attention_plain(q, k, v, scale),
-            lambda: sdpa(q, k, v, scale=scale),
+            lambda: attn.attn_fwd_cuda(q, k, v, scale, nv),
+            lambda: attn.attention_plain(q, k, v, scale, nv),
+            lambda: attn.library_attention(q, k, v, scale, nv),
             4 * B * H * N * dh * isz, fl, dtype_name, "K5", tag),
             max_abs_err=err5)
         qr, kr, vr = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        o = sdpa(qr, kr, vr, scale=scale)
+        o = attn.library_attention(qr, kr, vr, scale, nv)
         out[("K6", tag)] = dict(timed(
-            lambda: attn.attn_bwd_cuda(q, k, v, g, scale),
-            lambda: attn.attention_bwd_plain(q, k, v, g, scale),
+            lambda: attn.attn_bwd_cuda(q, k, v, g, scale, nv),
+            lambda: attn.attention_bwd_plain(q, k, v, g, scale, nv),
             lambda: torch.autograd.grad(o, (qr, kr, vr), g,
                                         retain_graph=True),
             7 * B * H * N * dh * isz, 2.5 * fl, dtype_name, "K6", tag),
@@ -625,6 +645,54 @@ def check_split_shapes(torch, attn, shapes, dtype_name="bfloat16"):
     if any(n != t for n, t in calls):
         fail(f"K5/K6 launches off the tensor cores at {shapes}: {calls}")
     return out
+
+
+# K5/K6 at head widths above 64 (their chunked wide forms): the 480 path's
+# two square crops in ViT-B/8's width as heads of 128 (phase 6c's
+# wide-head ViT), 192 and 256; each unmasked and with the entire A's 2701
+# valid keys
+WIDE_SPLIT = ((2, 6, 3601, 128), (2, 4, 3601, 192), (2, 3, 3601, 256))
+WIDE_VALID = 2701
+# (B, H, N, dh, n_valid, seed) of the wide forms' edge cases: N under one
+# 64-row tile, one past a tile and past two, B = 1, masked keys with key
+# tiles wholly past n_valid (zero dk, dv without a loop), dh = 320
+WIDE_EDGES = ((1, 2, 17, 128, 0, 70), (2, 2, 65, 192, 0, 71),
+              (1, 3, 129, 256, 100, 72), (1, 1, 300, 320, 211, 73))
+
+
+def check_wide_split(torch, attn):
+    """K5/K6 at WIDE_SPLIT, bf16 and fp32, unmasked and masked (through
+    check_split_shapes: gated, bitwise twice, timed beside the plain
+    versions and SDPA with the bound, every launch on the tensor cores),
+    then at WIDE_EDGES against the plain versions. Returns {(kernel,
+    shape): row}."""
+    rows = {}
+    for dtype_name in ("bfloat16", "float32"):
+        rtol, why = RTOL[dtype_name]
+        dt = getattr(torch, dtype_name)
+        for nv in (0, WIDE_VALID):
+            rows.update(check_split_shapes(torch, attn, WIDE_SPLIT,
+                                           dtype_name, nv))
+            torch.cuda.empty_cache()
+        for B, H, N, dh, nv, seed in WIDE_EDGES:
+            gen = torch.Generator().manual_seed(seed)
+            q, k, v, g = (torch.randn(B, H, N, dh, generator=gen).to(
+                "cuda", dt) for _ in range(4))
+            s = dh ** -0.5
+            tag = f"[{B},{H},{N},{dh}] n_valid={nv} seed {seed} {dtype_name}"
+            compare(f"K5 {tag}", attn.attn_fwd_cuda(q, k, v, s, nv),
+                    attn.attention_plain(q, k, v, s, nv), rtol, why)
+            got = attn.attn_bwd_cuda(q, k, v, g, s, nv)
+            for part, a, b in zip(("dq", "dk", "dv"), got,
+                                  attn.attention_bwd_plain(q, k, v, g, s,
+                                                           nv)):
+                compare(f"K6 {part} {tag}", a, b, rtol, why)
+            check_bitwise(torch, f"K6 {tag}", got,
+                          attn.attn_bwd_cuda(q, k, v, g, s, nv))
+            if nv and not all(bool((t[:, :, nv:] == 0).all())
+                              for t in got[1:]):
+                fail(f"K6 {tag}: masked keys with nonzero dk or dv")
+    return rows
 
 
 def check_qkv_edge_cases(torch, attn):
@@ -736,13 +804,15 @@ def sass_counts(build, lib):
 def check_tensor_cores(build):
     """Every tensor-core kernel (a name with "_tc") must hold its
     instructions: HGMMA (wgmma) in the attention library's (the bf16 route
-    of K1/K2 and K5/K6), HMMA (mma.sync) in the conv library's (the bf16
-    route of K3 and of K4/K7); the fp32 route of K1/K2 and K5/K6 (the four
-    split-TF32 kernels, "tf32" in their names) TF32 HMMA; each library
+    of K1/K2 and K5/K6, K5/K6's five wide forms among them), HMMA
+    (mma.sync) in the conv library's (the bf16 route of K3 and of K4/K7);
+    the fp32 route of K1/K2 and K5/K6 (the eight split-TF32 kernels, "tf32"
+    in their names, four of them wide forms) TF32 HMMA; each library
     must have such kernels, the
     conv library a forward one (conv_fwd_tc_kernel) and a weight-gradient
-    one, and HMMA in each of the pixel-major forms' seven instances
-    (conv_fwd_px_kernel, conv_dw_px_kernel); TF32 HMMA in each of the
+    one, and HMMA in each of the pixel-major forms' nine instances
+    (conv_fwd_px_kernel; conv_dw_px_kernel for K4 and, cotangent-tapped,
+    for K7); TF32 HMMA in each of the
     split-TF32 fp32 forms' 24 instances (conv_fwd_tf32_kernel, and
     conv_dw_tf32_kernel for K4 and for K7, nb = 1 to 8 each); no CUDA-core
     conv kernel left (conv_fwd_kernel, conv_dw_partial, conv_dw_gtap_kernel,
@@ -752,8 +822,13 @@ def check_tensor_cores(build):
     tc = [f for f in att if "_tc" in f]
     if not tc or not all(att[f][0] for f in tc):
         fail(f"attention tensor-core kernels missing or without HGMMA: {att}")
+    # K5/K6's wide forms: the forward and the statistics pass, dV, dK, dQ
+    wide_tc = [f for f in tc if "wide" in f]
+    if len(wide_tc) != 5:
+        fail(f"the bf16 wide attention kernels missing: {wide_tc}")
     tf32 = [f for f in att if "tf32" in f]
-    if len(tf32) != 4 or not all(att[f][2] for f in tf32):
+    if (len(tf32) != 8 or len([f for f in tf32 if "wide" in f]) != 4
+            or not all(att[f][2] for f in tf32)):
         fail(f"the fp32 attention kernels missing or without TF32 MMA: "
              f"{ {f: att[f] for f in tf32} }")
     cnv = sass_counts(build, "conv")
@@ -762,9 +837,11 @@ def check_tensor_cores(build):
             or not any("conv_dw_tc_kernel" in f for f in tc)
             or not all(cnv[f][1] for f in tc)):
         fail(f"conv tensor-core kernels missing or without HMMA: {cnv}")
-    # the pixel-major forms: K3's four m16 widths, K4's three n8 widths
+    # the pixel-major forms: K3's four m16 widths, K4's three n8 widths and
+    # K7's two (conv_dw_px_kernel<NB, GTAP>, GTAP mangled as Lb0E / Lb1E)
     px = [f for f in cnv if "_px_kernel" in f]
-    if len(px) != 7 or not all(cnv[f][1] for f in px):
+    px7 = [f for f in px if "conv_dw_px_kernel" in f and "Lb1E" in f]
+    if len(px) != 9 or len(px7) != 2 or not all(cnv[f][1] for f in px):
         fail(f"the pixel-major conv kernels missing or without HMMA: "
              f"{ {f: cnv[f] for f in px} }")
     # the split-TF32 fp32 forms: K3's, K4's and K7's eight n8 widths each
@@ -794,7 +871,10 @@ def check_tensor_cores(build):
 
 
 def print_ptxas(build):
-    """Registers, stack and spills of every kernel, from the build logs."""
+    """Registers, stack and spills of every kernel, from the build logs.
+    The instances this slice added (K5/K6's wide forms, conv_dw_px's
+    cotangent-tapped mode) must spill nothing."""
+    spilled = []
     for name in build.SOURCES:
         fn = None
         for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
@@ -802,6 +882,13 @@ def print_ptxas(build):
                 fn = line.split("'")[1]
             elif fn and ("spill" in line or "registers" in line):
                 print(f"  ptxas {name} {fn}: {line.split(':', 1)[-1].strip()}")
+                new = "wide" in fn or ("conv_dw_px_kernel" in fn
+                                       and "Lb1E" in fn)
+                if new and "spill" in line and not line.strip().endswith(
+                        "0 bytes spill stores, 0 bytes spill loads"):
+                    spilled.append((fn, line.strip()))
+    if spilled:
+        fail(f"this slice's instances spill: {spilled}")
 
 
 def check_conv(torch, conv, rows):
@@ -1178,10 +1265,11 @@ def check_conv_any_k(torch, conv):
     inside), K3 at least twice (forward and input gradient) and K4 once,
     each launch on the tensor cores (fp32 in split TF32). Then K7's route
     at k = 9 with
-    SAME_BORDER_KERNELS on (36 -> 4 channels, where _gtap_better picks K7
-    and conv_route sends it to K4, the same function): kernel_conv_chw
-    forward and backward, and conv_dw_gtap_cuda itself against K7's plain
-    version."""
+    SAME_BORDER_KERNELS on (36 -> 4 channels, where _gtap_better picks K7,
+    and conv_route runs it: bf16 on conv_dw_px's cotangent-tapped mode,
+    fp32 on conv_dw_tf32's): kernel_conv_chw forward and backward, and
+    conv_dw_gtap_cuda itself against K7's plain version; K7 launched for
+    both, K4 never."""
     gen = torch.Generator().manual_seed(16)
     for k, stride in ANY_K:
         x = torch.randn(2, 12, 37, 45, generator=gen)
@@ -1237,7 +1325,7 @@ def check_conv_any_k(torch, conv):
             rtol, why = RTOL[dtype_name]
             route = conv.conv_route("dw", dt, 9, 1, 36, 4, 2, 29, 33,
                                     same=True)
-            if route.kernel != "K4":
+            if route.kernel != "K7":
                 fail(f"K7 at k = 9 routed to {route}")
 
             def run(dev):
@@ -1263,9 +1351,45 @@ def check_conv_any_k(torch, conv):
             print(f"  {tag}: launches (all, tensor cores) {ran}; the weight "
                   f"gradient's route {route.kernel} {route.entry}")
             if not (ran.get("conv_same", (0, 0))[0] >= 2
-                    and ran.get("conv_dw", (0, 0))[0] >= 1
-                    and ran.get("conv_dw_gtap", (0, 0))[0] == 1):
+                    and "conv_dw" not in ran
+                    and ran.get("conv_dw_gtap", (0, 0))[0] == 2):
                 fail(f"{tag}: launches {ran}")
+
+
+@contextlib.contextmanager
+def dw_choices(conv):
+    """conv_route's weight-gradient choices on the SAME route inside the
+    block, as conv_weight_grad asks for them: a list of (k, Cin, Cout,
+    kernel, form)."""
+    rec, route = [], conv.conv_route
+
+    def wrapped(op, dtype, k, stride, cv, cout, *a, **kw):
+        r = route(op, dtype, k, stride, cv, cout, *a, **kw)
+        if op == "dw" and kw.get("same"):
+            rec.append((k, cv, cout, r.kernel, r.form))
+        return r
+
+    conv.conv_route = wrapped
+    try:
+        yield rec
+    finally:
+        conv.conv_route = route
+
+
+def check_k7_choices(conv, tag, rec, ran, k=9):
+    """Every SAME-route weight gradient at filter k took K7 exactly where
+    the reference's _dw_impl would (DW_TAP_ON_N and _gtap_better), K4
+    nowhere in its place, K7 at least once, and K7's wrapper launched as
+    often as the route chose it."""
+    at_k = [r for r in rec if r[0] == k]
+    wrong = [r for r in at_k
+             if (r[3] == "K7") != conv._gtap_better(k, r[1], r[2])]
+    n7 = sum(r[3] == "K7" for r in at_k)
+    print(f"  {tag}: SAME-route dw at k = {k}: {at_k}")
+    if wrong or not n7 or ran.get("conv_dw_gtap", (0, 0))[0] != n7:
+        fail(f"{tag}: K7's route at k = {k}: {wrong or at_k}; launches "
+             f"{ran}")
+    return n7
 
 
 def check_generator_9x9(torch, conv):
@@ -1273,13 +1397,16 @@ def check_generator_9x9(torch, conv):
     convs (SkipConfig filter_size_up = 9, two BatchNorm stacks) through
     skip_apply_chw with generator_conv pallas and fused, fp32, on
     [2, 64, 448, 3] (448 wide, so fused runs the prologue kernels at scale
-    0, KERNEL_MIN_WIDTH), on the card against the CPU's float64 (its plain
-    versions); F.conv2d refused on the card under pallas (fused takes it
-    at its narrow sites by the reference's auto rule). Tolerances as
-    check_small_inversion_step: the output 1e-4 x max|out|; the parameter
-    gradient of sum(out * w) max(5e-3, 2 x the CPU's fp32 distance from
-    float64) in max error over max|grad| and in relative L2 (the
-    generator's fp32 gradient is ill-conditioned in fp32 itself)."""
+    0, KERNEL_MIN_WIDTH), with the SAME route off and on, on the card
+    against the CPU's float64 (its plain versions); F.conv2d refused on the
+    card under pallas (fused takes it at its narrow sites by the
+    reference's auto rule). With the SAME route on, every up conv's weight
+    gradient takes K7 at k = 9 where _gtap_better says so (check_k7_choices:
+    K4 nowhere in its place). Tolerances as check_small_inversion_step: the
+    output 1e-4 x max|out|; the parameter gradient of sum(out * w) max(5e-3,
+    2 x the CPU's fp32 distance from float64) in max error over max|grad|
+    and in relative L2 (the generator's fp32 gradient is ill-conditioned in
+    fp32 itself). Returns K7's launches on the SAME route (fp32)."""
     from splice_tpu_torch.models import unet
     cfg = unet.SkipConfig(channels_down=(8, 8, 16), channels_up=(8, 8, 16),
                           channels_skip=(2, 2, 2), filter_size_up=9)
@@ -1301,38 +1428,148 @@ def check_generator_9x9(torch, conv):
                 (a[1] - b[1]).abs().max().item() / b[1].abs().max().item(),
                 ((a[1] - b[1]).norm() / b[1].norm()).item())
 
-    for mode in ("pallas", "fused"):
-        truth = run(mode, "cpu", torch.float64)
-        cpu = gaps(run(mode, "cpu", torch.float32), truth)
-        gtol, ltol = max(5e-3, 2 * cpu[1]), max(5e-3, 2 * cpu[2])
-        before = conv_counts(conv)
-        # pallas sends every conv to the kernels; fused only the prologue
-        # sites, the rest by the reference's auto rule (F.conv2d where narrow)
-        with no_library_conv(torch) if mode == "pallas" \
-                else contextlib.nullcontext():
-            card = gaps(run(mode, "cuda", torch.float32), truth)
+    k7 = 0
+    for same in (False, True):
+        for mode in ("pallas", "fused"):
+            label = f"{mode}{', SAME route' if same else ''}"
+            with same_border(same):
+                truth = run(mode, "cpu", torch.float64)
+                cpu = gaps(run(mode, "cpu", torch.float32), truth)
+                gtol, ltol = max(5e-3, 2 * cpu[1]), max(5e-3, 2 * cpu[2])
+                before = conv_counts(conv)
+                # pallas sends every conv to the kernels; fused only the
+                # prologue sites, the rest by the reference's auto rule
+                # (F.conv2d where narrow)
+                with no_library_conv(torch) if mode == "pallas" \
+                        else contextlib.nullcontext(), dw_choices(conv) as rec:
+                    card = gaps(run(mode, "cuda", torch.float32), truth)
+                    torch.cuda.synchronize()
+            ran = counted(conv, before)
+            print(f"  9x9 generator ({label}, fp32, [2,64,448,3]): the card "
+                  f"against float64 out {card[0]:.2e} (tol 1e-4), grad "
+                  f"{card[1]:.2e} / {card[2]:.2e} (tol {gtol:.2e} / "
+                  f"{ltol:.2e}; the CPU's fp32 {cpu[1]:.2e} / {cpu[2]:.2e}); "
+                  f"launches {ran}")
+            need = ("conv_valid_pro",) if mode == "fused" \
+                else ("conv_valid", "conv_dw")
+            if not (card[0] <= 1e-4 and card[1] <= gtol and card[2] <= ltol):
+                fail(f"9x9 generator ({label}): the card disagrees")
+            if any(not ran.get(n, (0, 0))[0] for n in need):
+                fail(f"9x9 generator ({label}): {need} not launched: {ran}")
+            if same:
+                k7 += check_k7_choices(conv, f"9x9 generator ({label})", rec,
+                                       ran)
+    return k7
+
+
+# phase 6d: K7's run against K4's may differ by GEN9_MULT x the spread of
+# two K4 runs plus the bf16 gate (RTOL's 1.6e-2 x max|K4 run's|)
+GEN9_MULT = 2.0
+
+
+def check_generator_9x9_full(torch, conv):
+    """bf16 K7 at k = 9 on a path at full width: the default-width generator
+    (SkipConfig(), 16-128 channels over five scales) with filter_size_up =
+    9 on [2, 896, 896, 3], generator_conv pallas, the SAME route on, bf16
+    compute over fp32 parameters, forward and backward of sum(out * w): K7
+    at up_conv s0-s2 (36 -> 16, 68 -> 32, 132 -> 64, where _gtap_better
+    picks it: conv_dw_px's cotangent-tapped mode), K4 at s3-s4, as
+    check_k7_choices requires. Its parameter gradient against the same run
+    with DW_TAP_ON_N off (K4 at every up conv), run twice: the bilinear
+    backward's atomics make two such runs differ by up to 1% of the
+    largest entry (bf16 rounding downstream of them), so each 9x9 kernel's
+    gradient and the flat gradient must lie within GEN9_MULT x the two K4
+    runs' distance plus the bf16 gate (1.6e-2 x max|K4 run's|) of the
+    first K4 run. Times forward + backward, both routes. Returns K7's
+    launches."""
+    from splice_tpu_torch.models import unet
+    cfg = unet.SkipConfig(filter_size_up=9)
+    tree = unet.init_skip_params(cfg, seed=19, device="cuda")
+    flat0, spec = unet.flatten_params(tree)
+    gen = torch.Generator().manual_seed(19)
+    x = torch.rand(2, 896, 896, 3, generator=gen).cuda()
+    wt = torch.randn(2, 896, 896, 3, generator=gen).cuda()
+
+    def run():
+        # fp32 parameters, bf16 compute: as SpliceTrainer runs it
+        flat = flat0.clone().requires_grad_(True)
+        out = unet.skip_apply_chw(unet.unflatten_params(flat, spec), cfg, x,
+                                  compute_dtype=torch.bfloat16,
+                                  conv_impl="pallas")
+        (grad,) = torch.autograd.grad((out.float() * wt).sum(), flat)
+        return grad.float()
+
+    res = []
+    for tap_on_n in (True, False, False):
+        with same_border(True, tap_on_n), no_library_conv(torch):
+            run()
             torch.cuda.synchronize()
+            for n in K3 + DW:           # counts from 0 for this path
+                fn = getattr(conv, f"{n}_cuda")
+                fn.launches = fn.tc_launches = 0
+            before = conv_counts(conv)
+            with dw_choices(conv) as rec:
+                t0 = time.perf_counter()
+                grad = run()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
         ran = counted(conv, before)
-        print(f"  9x9 generator ({mode}, fp32, [2,64,448,3]): the card "
-              f"against float64 out {card[0]:.2e} (tol 1e-4), grad "
-              f"{card[1]:.2e} / {card[2]:.2e} (tol {gtol:.2e} / "
-              f"{ltol:.2e}; the CPU's fp32 {cpu[1]:.2e} / {cpu[2]:.2e}); "
-              f"launches {ran}")
-        need = ("conv_valid_pro",) if mode == "fused" \
-            else ("conv_valid", "conv_dw")
-        if not (card[0] <= 1e-4 and card[1] <= gtol and card[2] <= ltol):
-            fail(f"9x9 generator ({mode}): the card disagrees")
-        if any(not ran.get(n, (0, 0))[0] for n in need):
-            fail(f"9x9 generator ({mode}): {need} not launched: {ran}")
+        res.append((grad, ms, rec, ran))
+        print(f"  9x9 generator at full width (bf16, SAME route, DW_TAP_ON_N "
+              f"{tap_on_n}): forward + backward {ms:.1f} ms; launches {ran}")
+    (grad, ms, rec, ran), (ref, ms4, _, ran4), (ref2, *_) = res
+    k7 = check_k7_choices(conv, "9x9 generator at full width", rec, ran)
+    if any(r[4] != "px" for r in rec if r[3] == "K7"):
+        fail(f"9x9 generator at full width: bf16 K7 off conv_dw_px: {rec}")
+    if ran4.get("conv_dw_gtap"):
+        fail("9x9 generator at full width: K7 with DW_TAP_ON_N off")
+    rtol = RTOL["bfloat16"][0]
+    parts = [("flat gradient", slice(None))]
+    start = 0
+    for path, shape in spec:
+        n = math.prod(shape)
+        if path[-1] == "kernel" and tuple(shape[:2]) == (9, 9):
+            parts.append((f"{'/'.join(map(str, path))} gradient",
+                          slice(start, start + n)))
+        start += n
+    for what, sl in parts:
+        err = (grad[sl] - ref[sl]).abs().max().item()
+        spread = (ref2[sl] - ref[sl]).abs().max().item()
+        tol = GEN9_MULT * spread + rtol * ref[sl].abs().max().item()
+        print(f"  9x9 generator at full width, {what}: K7 against K4 "
+              f"max_abs_err {err:.3e}, two K4 runs {spread:.3e} (tol "
+              f"{tol:.3e} = {GEN9_MULT:g} x that + {rtol:g} x max|K4|)")
+        if not err <= tol:
+            fail(f"9x9 generator at full width, {what}: K7 disagrees with K4")
+    print(f"  9x9 generator at full width: forward + backward {ms:.1f} ms "
+          f"with K7, {ms4:.1f} ms with K4")
+    return k7
+
+
+@contextlib.contextmanager
+def no_sdpa(torch):
+    """torch.nn.functional.scaled_dot_product_attention fails inside the
+    block: attention on the kernels' route must never reach it."""
+    F = torch.nn.functional
+    old = F.scaled_dot_product_attention
+
+    def refuse(*a, **kw):
+        fail("attention on the kernels' route reached SDPA")
+
+    F.scaled_dot_product_attention = refuse
+    try:
+        yield
+    finally:
+        F.scaled_dot_product_attention = old
 
 
 def check_attention_dh(torch, attn):
-    """ROADMAP C10 on the card: multi_head_attention at dh = 32 and 128
-    (library_attention, SDPA) and 64 (K5/K6), bf16 and fp32, [2, 4, 197,
-    dh] with 150 valid keys, forward and backward against the reference's
-    XLA math (xla_attention_plain, by autograd, on the card) within phase
-    2's tolerances; K5 and K6 each launched once at dh = 64 and never at
-    32 or 128."""
+    """multi_head_attention at dh = 32 (library_attention, SDPA), 64 and
+    128 (K5/K6: dh = 128 on their chunked wide forms, SDPA refused inside),
+    bf16 and fp32, [2, 4, 197, dh] with 150 valid keys, forward and
+    backward against the reference's XLA math (xla_attention_plain, by
+    autograd, on the card) within phase 2's tolerances; K5 and K6 each
+    launched once at dh = 64 and 128 and never at 32."""
     gen = torch.Generator().manual_seed(21)
     for dh in (32, 64, 128):
         for dtype_name in ("bfloat16", "float32"):
@@ -1347,18 +1584,135 @@ def check_attention_dh(torch, attn):
                 out.backward(g)
                 return (out, *(t.grad for t in ts))
             n0 = (attn.attn_fwd_cuda.launches, attn.attn_bwd_cuda.launches)
-            got = run(attn.multi_head_attention)
-            torch.cuda.synchronize()
+            with no_sdpa(torch) if dh % 64 == 0 \
+                    else contextlib.nullcontext():
+                got = run(attn.multi_head_attention)
+                torch.cuda.synchronize()
             n = (attn.attn_fwd_cuda.launches - n0[0],
                  attn.attn_bwd_cuda.launches - n0[1])
             ref = run(attn.xla_attention_plain)
             tag = f"multi_head_attention dh={dh} {dtype_name}"
             for what, gt, rf in zip(("out", "dq", "dk", "dv"), got, ref):
                 compare(f"{tag} {what}", gt, rf, rtol, why)
-            want = (1, 1) if dh == 64 else (0, 0)
+            want = (1, 1) if dh % 64 == 0 else (0, 0)
             print(f"  {tag}: K5/K6 launches {n} (want {want})")
             if n != want:
                 fail(f"{tag}: K5/K6 launches {n}, want {want}")
+
+
+# Phase 6c: ViT-B/8's width as 6 heads of 128 (a VitConfig both packages
+# run; no VIT_CONFIGS name): (label, batch, image height, width, tokens) of
+# the 480 loss resolution's two crops and entire A (900 x 1200 -> 360 x
+# 480) and the 224 resolution's (900 x 1200 -> 224 x 296). At dh = 128 the
+# fused-qkv gate fails, so every shape runs on K5/K6's wide forms.
+VIT_WIDE = dict(patch_size=8, embed_dim=768, depth=12, num_heads=6)
+VIT_WIDE_SHAPES = (("480 crops", 2, 480, 480, 3601),
+                   ("480 entire A", 1, 360, 480, 2701),
+                   ("224 crops", 2, 224, 224, 785),
+                   ("224 entire A", 1, 224, 296, 1037))
+# the bf16 route's distance from the fp32 library route may be this many
+# times the bf16 library route's distance from it, plus VIT_WIDE_FLOOR;
+# fp32 against the fp32 library route: VIT_WIDE_FP32 (taps, gradient)
+VIT_WIDE_MULT, VIT_WIDE_FLOOR = 2.0, 1e-3
+VIT_WIDE_FP32 = (1e-4, 1e-3)
+
+
+def rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def run_vit_wide(torch, attn):
+    """Phase 6c: the port's vit_forward at VIT_WIDE with seeded weights
+    (weights.init_vit_params), the qkv and block taps of layer 11 under a
+    seeded linear loss, backward to the images, at VIT_WIDE_SHAPES in bf16
+    and fp32, on the kernels (use_pallas, SDPA refused inside) and on the
+    library route (use_pallas=False: SDPA). Gates: 12 K5 launches in the
+    forward and 12 K6 in the backward, every one on the tensor cores; fp32
+    taps and image gradient within VIT_WIDE_FP32 (relative L2) of the
+    library route's; bf16 ones within VIT_WIDE_MULT x the bf16 library
+    route's distance from the fp32 library route plus VIT_WIDE_FLOOR (both
+    bf16 routes round at other places; a fault lands far outside). Prints
+    forward + backward ms of both routes. Returns {dtype: {wrapper:
+    launches}}."""
+    from splice_tpu_torch.models import vit, weights
+    cfg = vit.VitConfig(**VIT_WIDE)
+    params = weights.init_vit_params(cfg, seed=23, device="cuda")
+    fns = {"attn_fwd": attn.attn_fwd_cuda, "attn_bwd": attn.attn_bwd_cuda}
+    taps = {"qkv": [11], "block": [11]}
+    launches = {d: dict.fromkeys(fns, 0) for d in ("bfloat16", "float32")}
+    for label, B, h, w, n in VIT_WIDE_SHAPES:
+        gen = torch.Generator().manual_seed(n)
+        img = torch.randn(B, h, w, 3, generator=gen).cuda()
+        wq = torch.randn(B, n, 3 * cfg.embed_dim, generator=gen).cuda()
+        wb = torch.randn(B, n, cfg.embed_dim, generator=gen).cuda()
+
+        def run(dt, use_pallas):
+            x = img.clone().requires_grad_(True)
+            out = vit.vit_forward(params, x, cfg, taps, compute_dtype=dt,
+                                  use_pallas=use_pallas)
+            qkv, blk = out["qkv"][11].float(), out["block"][11].float()
+            if qkv.shape[1] != n:
+                fail(f"wide-head ViT {label}: {qkv.shape[1]} tokens, want {n}")
+            ((qkv * wq).sum() + (blk * wb).sum()).backward()
+            return qkv.detach(), blk.detach(), x.grad
+
+        def wall(dt, use_pallas):
+            best = math.inf
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(dt, use_pallas)
+                torch.cuda.synchronize()
+                best = min(best, (time.perf_counter() - t0) * 1e3)
+            return best
+
+        ref32 = None
+        for dtype_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype_name)
+            tag = f"wide-head ViT (dh 128) {label} [{B},{h},{w}] {dtype_name}"
+            for f in fns.values():      # counts from 0 for this path
+                f.launches = f.tc_launches = 0
+            with no_sdpa(torch):
+                got = run(dt, True)
+                torch.cuda.synchronize()
+            calls = {k: (f.launches, f.tc_launches) for k, f in fns.items()}
+            if any(c != (cfg.depth, cfg.depth) for c in calls.values()):
+                fail(f"{tag}: K5/K6 (launches, on the tensor cores) {calls}, "
+                     f"want {cfg.depth} each")
+            for k, (c, _) in calls.items():
+                launches[dtype_name][k] += c
+            lib = run(dt, False)
+            if dtype_name == "float32":
+                ref32 = lib
+            d_k = [rel_l2(a, b) for a, b in zip(got, ref32)]
+            d_l = [rel_l2(a, b) for a, b in zip(lib, ref32)]
+            d = [rel_l2(a, b) for a, b in zip(got, lib)]
+            if dtype_name == "float32":
+                tol = [VIT_WIDE_FP32[0]] * 2 + [VIT_WIDE_FP32[1]]
+            else:
+                tol = [VIT_WIDE_MULT * x + VIT_WIDE_FLOOR for x in d_l]
+            print(f"  {tag}: K5/K6 launches {calls}; relative L2 (qkv, "
+                  f"block, image grad) kernels against the library route "
+                  f"{', '.join(f'{x:.2e}' for x in d)} (tol "
+                  f"{', '.join(f'{x:.2e}' for x in tol)}); against fp32's "
+                  f"library route: kernels "
+                  f"{', '.join(f'{x:.2e}' for x in d_k)}, library "
+                  f"{', '.join(f'{x:.2e}' for x in d_l)}")
+            if not all(torch.isfinite(t).all() for t in got):
+                fail(f"{tag}: non-finite taps or gradient")
+            if any(x > t for x, t in zip(d if dtype_name == "float32"
+                                         else d_k, tol)):
+                fail(f"{tag}: the kernels' route disagrees with the library "
+                     f"route")
+            with no_sdpa(torch):
+                k_ms = wall(dt, True)
+            l_ms = wall(dt, False)
+            print(f"  {tag}: forward + backward {k_ms:.2f} ms on K5/K6, "
+                  f"{l_ms:.2f} ms on SDPA")
+            del got, lib
+        del ref32
+        torch.cuda.empty_cache()
+    return launches
 
 
 def check_bitwise(torch, name, first, second) -> None:
@@ -1516,14 +1870,15 @@ GTAP_SITES = (("up_conv s0", 36, 16, 896), ("up_conv s1", 68, 32, 448))
 
 
 def check_gtap_wide_k(torch, conv):
-    """K7 at k = 5 and 7 in bf16 and fp32, and at k = 3 in fp32 (bf16 K7 at
-    k = 3: check_conv_same), at GTAP_SITES, with and without the prologue:
-    against its plain version (an fp32 output: 1e-4 x max|plain|), twice on
-    one input bitwise, every launch on the tensor cores (fp32 in split
-    TF32); timed against conv2d_weight (cuDNN's TF32 off) at up_conv s0,
-    and fp32 at k = 3 at both sites, beside K4 at the same site (k4_ms:
-    the same function contracted the other way round). Returns {(k, dtype,
-    site): row}."""
+    """K7 at k = 5, 7, 9 and 11 in bf16 and fp32, and at k = 3 in fp32
+    (bf16 K7 at k = 3: check_conv_same), at GTAP_SITES, with and without
+    the prologue: against its plain version (an fp32 output: 1e-4 x
+    max|plain|), twice on one input bitwise, every launch on the tensor
+    cores (fp32 in split TF32; bf16 at k = 9 and 11 on conv_dw_px's
+    cotangent-tapped mode); timed against conv2d_weight (cuDNN's TF32 off)
+    at up_conv s0, and at both sites fp32 at k = 3 and both dtypes at k = 9
+    and 11, beside K4 at the same site (k4_ms: the same function contracted
+    the other way round). Returns {(k, dtype, site): row}."""
     rtol = RTOL["float32"][0]
     gen = torch.Generator().manual_seed(8)
     fn = conv.conv_dw_gtap_cuda
@@ -1538,13 +1893,17 @@ def check_gtap_wide_k(torch, conv):
             g = torch.randn(B, cout, hw, hw, generator=gen).to("cuda", dt)
             sc = (0.5 + torch.rand(2, cin, generator=gen)).cuda()
             sh = torch.randn(2, cin, generator=gen).cuda()
-            for k in ((3, 5, 7) if dt == torch.float32 else (5, 7)):
+            for k in ((3, 5, 7, 9, 11) if dt == torch.float32
+                      else (5, 7, 9, 11)):
+                form = conv.conv_route("dw", dt, k, 1, cin, cout, B, hw, hw,
+                                       gtap=True).form
                 pad = (k - 1) // 2
                 errs = []
                 for pro in (False, True):
                     a = (sc, sh, 0.2) if pro else (None, None, 1.0)
                     tag = (f"{name} [{B},{cin},{hw},{hw}]->[{B},{cout},{hw},"
-                           f"{hw}] k={k}{' pro' if pro else ''} {dtype_name}")
+                           f"{hw}] k={k}{' pro' if pro else ''} {dtype_name}"
+                           f" ({form})")
                     dw = fn(x, g, k, *a, pad)
                     want = conv.conv_dw_gtap_plain(x, g, k, *a, pad)
                     errs.append(compare(f"K7 {tag}", dw, want, rtol, DW_WHY))
@@ -1552,7 +1911,7 @@ def check_gtap_wide_k(torch, conv):
                                   (fn(x, g, k, *a, pad),))
                     checked += 2
                     del dw, want
-                if name != "up_conv s0" and k != 3:
+                if name != "up_conv s0" and k not in (3, 9, 11):
                     continue
                 w_shape = (cout, cin, k, k)
                 isz = x.element_size()
@@ -1565,7 +1924,7 @@ def check_gtap_wide_k(torch, conv):
                     (x.numel() + g.numel()) * isz + cin * cout * k * k * 4,
                     2 * B * hw * hw * cout * cin * k * k, dtype_name, "K7",
                     f"{name} k={k}")
-                if k == 3:
+                if k in (3, 9, 11):
                     row["k4_ms"] = time_ms(
                         lambda: conv.conv_dw_cuda(x, g, k, pad))
                     print(f"  time K4 at the same site (the x-tapped "
@@ -4405,6 +4764,9 @@ def main() -> int:
     inv_qkv = check_qkv_shapes(torch, attn, INVERSION_QKV)
     fp32_rows = fp32_attention(torch, attn)
     torch.cuda.empty_cache()
+    print("  K5/K6 at head widths above 64 (the chunked wide forms)")
+    wide_rows = check_wide_split(torch, attn)
+    torch.cuda.empty_cache()
     inv_rows = check_conv_inversion(torch, conv)
     for (name, k), r in sorted(inv_rows.items()):
         print(f"  inversion {name} k={k} {r['shape']}: kernel {r['ms']:.4f}"
@@ -4413,7 +4775,8 @@ def main() -> int:
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
     check_conv_any_k(torch, conv)
-    check_generator_9x9(torch, conv)
+    launches = {"generator_9x9": {
+        "conv_dw_gtap": check_generator_9x9(torch, conv)}}
     check_attention_dh(torch, attn)
     check_conv_same(torch, conv, rows)
     gtap_rows = check_gtap_wide_k(torch, conv)
@@ -4434,7 +4797,7 @@ def main() -> int:
             print_beside_previous(name, r)
 
     print("  P1's path: the probe tool (tools/mma_k_probe.py)")
-    launches = {"probe_tool": run_probe_tool(torch, probe)}
+    launches["probe_tool"] = run_probe_tool(torch, probe)
 
     mark(t_start)
     print("phase 3: small step, card against CPU")
@@ -4536,6 +4899,21 @@ def main() -> int:
                 torch, pcfg, shared["pair"], shared["extractor"], kernels,
                 NEED["fused_same_skip3"])
             torch.cuda.empty_cache()
+
+    mark(t_start)
+    print(f"phase 6c: the wide-head ViT (ViT-B/8's width as "
+          f"{VIT_WIDE['num_heads']} heads of 128, seeded), taps of layer 11 "
+          f"and the image gradient at the 480 and 224 shapes, bf16 and fp32, "
+          f"on K5/K6 against SDPA")
+    for dtype_name, n in run_vit_wide(torch, attn).items():
+        launches[f"vit_wide_{dtype_name}"] = n
+    torch.cuda.empty_cache()
+    mark(t_start)
+    print("phase 6d: the 9x9 generator at full width (bf16, SAME route, "
+          "pallas): K7 at k = 9 against K4")
+    launches["generator_9x9_full"] = {
+        "conv_dw_gtap": check_generator_9x9_full(torch, conv)}
+    torch.cuda.empty_cache()
 
     mark(t_start)
     print("phase 7: generator_conv " + ", ".join(t[0] for t in turns)
@@ -4687,9 +5065,18 @@ def main() -> int:
         extra.append((kid, r, path, "tensor core (split TF32)"))
     for (k, dt, site), r in gtap_rows.items():
         fp32 = dt == "float32"
-        extra.append(("K7", dict(r, k=k),
-                      "pallas_same_fp32" if fp32 and k == 3
-                      else "none (phase 2)",
+        path = ("pallas_same_fp32" if fp32 and k == 3 else
+                "generator_9x9" if fp32 and k == 9 else
+                "generator_9x9_full" if k == 9 else "none (phase 2)")
+        extra.append(("K7", dict(r, k=k), path,
+                      "tensor core (split TF32)" if fp32 else "tensor core"))
+    for (kid, tag), r in wide_rows.items():
+        fp32 = "float32" in tag
+        dtype_name = "float32" if fp32 else "bfloat16"
+        # phase 6c's crops: 3601 tokens in heads of 128, no key mask
+        path = (f"vit_wide_{dtype_name}"
+                if tag == f"[2,6,3601,128] {dtype_name}" else "none (phase 2)")
+        extra.append((kid, r, path,
                       "tensor core (split TF32)" if fp32 else "tensor core"))
     for (name, site), r in conv32_rows.items():
         extra.append(({"conv_valid": "K3", "conv_valid_dx": "K3",

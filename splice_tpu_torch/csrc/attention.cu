@@ -1,10 +1,12 @@
-// Multi-head softmax attention, head dim 64, in two layouts (both sets of
-// kernels read both through element strides):
-//   * fused qkv: q, k and v are column sections of one [B, N, 3D] tensor
-//     (heads contiguous inside each section); the output and the cotangent
-//     g are the head-concatenated [B, N, D];
+// Multi-head softmax attention in two layouts (both sets of kernels read
+// both through element strides):
+//   * fused qkv, head dim 64: q, k and v are column sections of one
+//     [B, N, 3D] tensor (heads contiguous inside each section); the output
+//     and the cotangent g are the head-concatenated [B, N, D];
 //   * split: q, k, v, the output, g and the three gradients are separate
-//     [B, H, N, 64] tensors.
+//     [B, H, N, dh] tensors, dh any multiple of 64 (the reference's
+//     pallas_attention_supported): dh = 64 on the kernels K1/K2 share,
+//     wider heads on chunked forms of them (fwd_wide, bwd_wide below).
 //
 // K1 attn_qkv_fwd replaces splice_tpu/ops/attention.py _attn_qkv_kernel
 // (:361, launched by _attn_qkv_fwd_impl :401). K2 attn_qkv_bwd replaces
@@ -67,7 +69,7 @@
 
 namespace {
 
-constexpr int DH = 64;        // head dim (the wrapper checks it)
+constexpr int DH = 64;        // head dim of K1/K2 and of a wide head's chunks
 
 // Element strides of one [B, H, N, 64] operand view: row (b, h, n) starts
 // at b*sb + h*sh + n*sr.
@@ -107,11 +109,11 @@ Operands<T> fused_operands(const void* qkv, int N, int H) {
           {N * D, DH, D}};
 }
 
-// Split [B, H, N, 64] tensors, all six of one layout.
+// Split [B, H, N, dh] tensors, all six of one layout.
 template <typename T>
 Operands<T> split_operands(const void* q, const void* k, const void* v,
-                           int N, int H) {
-  const Strides s{(long long)H * N * DH, (long long)N * DH, DH};
+                           int N, int H, int dh) {
+  const Strides s{(long long)H * N * dh, (long long)N * dh, dh};
   return {static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), s, s};
 }
@@ -186,15 +188,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// Rows [row, row + 64) of head h of batch b of `map` into the box at dst.
+// Rows [row, row + 64) of head h of batch b of `map`, columns [col, col +
+// 64), into the box at dst.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int row, int h,
-                                         int b) {
+                                         int b, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_addr(bar)), "r"(0), "r"(row), "r"(h), "r"(b)
+         "r"(smem_addr(bar)), "r"(col), "r"(row), "r"(h), "r"(b)
       : "memory");
 }
 
@@ -685,6 +688,403 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ Maps maps, Strides in,
   store_rows(dq, dq_out + in.at(b, h, 0), in.sr, q0, p, N, scale);
 }
 
+// ---------------------------------------------------------------------------
+// K5/K6 at head widths dh = 64 nch, nch > 1 (the reference's kernels take
+// every dh % 64 == 0). A 128-byte-swizzled box holds 64 bf16 columns at
+// most, and the dK/dV pass's two [64, dh] fp32 accumulators would outgrow
+// the registers past dh = 64, so the width is cut in chunks of 64 columns:
+// every contraction over dh (S = Q K^T, dP = g V^T) runs over the nch
+// chunks in order, one box of each operand a chunk, and a block owns one
+// chunk c of the output columns (grid.y = H * nch), recomputing S and dP
+// over the full width beside the blocks of the other chunks and writing
+// only columns [64 c, 64 c + 64) of O, dQ, dK, dV. Accumulators, softmax
+// and products are those of the dh = 64 kernels above, so any nch runs
+// with their registers. Every operand streams through a two-stage ring of
+// items (full and empty mbarriers, as produce()): per key (or q) tile, nch
+// items of the contraction's boxes at column 64 j, then one item of the
+// boxes the output product reads at column 64 c; nothing is resident, so
+// the shared memory does not grow with dh. The backward's delta = g . o
+// is summed per chunk by the statistics pass (delta [nch, B, H, N]) and
+// the chunks added in order by delta_chunk_sum_kernel before the dK/dV
+// and dQ passes; every chunk's block computes the same S in the same
+// order, and chunk 0's writes lse. Cost against a
+// kernel holding all of dh: S and dP are computed nch times.
+constexpr int WIDE_FWD_STAGE = 3 * BOX;   // Q_j, K_j of 128 keys; or V_c
+constexpr int WIDE_BWD_STAGE = 4 * BOX;   // 4 operands' chunk j; or 1-2 at c
+constexpr int WIDE_FWD_SMEM = 2 * WIDE_FWD_STAGE + 1024;
+constexpr int WIDE_BWD_SMEM = 2 * WIDE_BWD_STAGE + 1024;
+
+// The producer's side of the wide kernels' ring: waits until stage i % 2
+// is free (item i - 2 released), arms its full barrier for `bytes`,
+// returns the stage and its barrier.
+__device__ __forceinline__ uint8_t* ring_put(uint8_t* ring, int stage,
+                                             uint64_t* bars, int i,
+                                             uint32_t bytes, uint64_t** bar) {
+  const int s = i & 1;
+  if (i >= 2) mbar_wait(&bars[3 + s], ((i >> 1) - 1) & 1);
+  mbar_arrive_tx(&bars[1 + s], bytes);
+  *bar = &bars[1 + s];
+  return ring + s * stage;
+}
+// The consumers' side: item i's stage once its bytes have landed.
+__device__ __forceinline__ const uint8_t* ring_get(const uint8_t* ring,
+                                                   int stage, uint64_t* bars,
+                                                   int i) {
+  mbar_wait(&bars[1 + (i & 1)], (i >> 1) & 1);
+  return ring + (i & 1) * stage;
+}
+// Item i's stage is free (each consumer warp arrives once).
+__device__ __forceinline__ void ring_release(uint64_t* bars, int i,
+                                             int lane) {
+  if (lane == 0) mbar_arrive(&bars[3 + (i & 1)]);
+}
+
+// The wide backward's contraction over one chunk: x (+)= A0 B0^T and y
+// (+)= A1 B1^T over the stage's four boxes [A0, A1, B0, B1] (m64n64k16, all
+// K-major); `first` overwrites. Issued and committed, not waited on.
+__device__ __forceinline__ void wgmma_pair64(float (&x)[32], float (&y)[32],
+                                             const uint8_t* st, bool first) {
+  const uint64_t a0 = sw128_desc(st), a1 = sw128_desc(st + BOX);
+  const uint64_t b0 = sw128_desc(st + 2 * BOX), b1 = sw128_desc(st + 3 * BOX);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss64(x, a0 + 2 * kk, b0 + 2 * kk, !first || kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss64(y, a1 + 2 * kk, b1 + 2 * kk, !first || kk > 0);
+  wg_commit();
+}
+
+// The wide statistics pass's delta [nch, B, H, N], summed over its
+// chunks in order into chunk 0's rows (delta[i] = sum_j delta[j n + i]),
+// which the dK/dV and dQ passes then read as the dh = 64 ones do.
+__global__ void __launch_bounds__(256)
+delta_chunk_sum_kernel(float* __restrict__ delta, int nch, size_t n) {
+  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n) return;
+  float d = 0.f;
+  for (int j = 0; j < nch; ++j) d += delta[j * n + i];
+  delta[i] = d;
+}
+
+int sum_delta_chunks(float* delta, int nch, size_t n, cudaStream_t stream) {
+  delta_chunk_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      delta, nch, n);
+  return (int)cudaGetLastError();
+}
+
+// Forward at dh = 64 nch: as attn_fwd_kernel_tc, output columns of chunk c.
+// STATS: lse (chunk 0) and the chunk's part of delta, delta[c][b][h][row].
+template <bool STATS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+attn_fwd_wide_tc_kernel(const __grid_constant__ Maps maps, Strides os,
+                        const __nv_bfloat16* __restrict__ g,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ lse, float* __restrict__ delta,
+                        int N, int H, int valid, float scale, int nch) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[5];
+  uint8_t* sm = setup(smem_raw, bars);
+  const int b = blockIdx.z, h = blockIdx.y / nch, c = blockIdx.y % nch;
+  const int q0 = blockIdx.x * ROWS;
+  const int n_kt = (valid + 2 * ROWS - 1) / (2 * ROWS);
+  if (threadIdx.x / 32 == PRODUCER_WARP) {
+    if (threadIdx.x % 32 == 0) {
+      uint64_t* bar;
+      for (int kt = 0, i = 0; kt < n_kt; ++kt) {
+        const int k0 = kt * 2 * ROWS;
+        for (int j = 0; j < nch; ++j, ++i) {
+          uint8_t* st = ring_put(sm, WIDE_FWD_STAGE, bars, i, 3 * BOX, &bar);
+          tma_load(st, &maps.q, bar, q0, h, b, 64 * j);
+          tma_load(st + BOX, &maps.k, bar, k0, h, b, 64 * j);
+          tma_load(st + 2 * BOX, &maps.k, bar, k0 + ROWS, h, b, 64 * j);
+        }
+        uint8_t* st = ring_put(sm, WIDE_FWD_STAGE, bars, i++, 2 * BOX, &bar);
+        tma_load(st, &maps.v, bar, k0, h, b, 64 * c);
+        tma_load(st + BOX, &maps.v, bar, k0 + ROWS, h, b, 64 * c);
+      }
+    }
+    return;
+  }
+  const Place p = place();
+  const float sl = scale * LOG2E;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+
+  for (int kt = 0, i = 0; kt < n_kt; ++kt) {
+    float sc[64];
+    for (int j = 0; j < nch; ++j, ++i) {
+      const uint8_t* st = ring_get(sm, WIDE_FWD_STAGE, bars, i);
+      const uint64_t dq = sw128_desc(st), dk = sw128_desc(st + BOX);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss128(sc, dq + 2 * kk, dk + 2 * kk, j > 0 || kk > 0);
+      wg_commit();
+      wg_wait();
+      pin(sc);
+      ring_release(bars, i, p.lane);
+    }
+
+    const int k0 = kt * 2 * ROWS;
+    if (k0 + 2 * ROWS > valid) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e)
+        if (k0 + 8 * (e / 4) + p.c + (e & 1) >= valid) sc[e] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < 64; ++e)
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+    float alpha[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float mn = fmaxf(m[e], quad_max(mx[e]) * sl);
+      alpha[e] = ex2(m[e] - mn);
+      m[e] = mn;
+      l[e] *= alpha[e];
+    }
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {
+      const int r = (e >> 1) & 1;
+      sc[e] = ex2(fmaf(sc[e], sl, -m[r]));
+      l[r] += sc[e];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[e] *= alpha[(e >> 1) & 1];
+    uint32_t pa[8][4];
+    to_a(sc, pa);
+    const uint8_t* st = ring_get(sm, WIDE_FWD_STAGE, bars, i);
+    const uint64_t dv = sw128_desc(st);
+    pin(o);
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 8; ++t) wgmma_rs64(o, pa[t], dv + 128 * t);
+    wg_commit();
+    wg_wait();
+    pin(o);
+    ring_release(bars, i++, p.lane);
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) l[e] = quad_sum(l[e]);
+  if (!STATS) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[e] = o[e] / l[(e >> 1) & 1];
+    store_rows(o, out + os.at(b, h, 0) + 64 * c, os.sr, q0, p, N, 1.f);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + p.r + 8 * e;
+    float part = 0.f;
+    if (row < N) {
+      const __nv_bfloat162* gr = reinterpret_cast<const __nv_bfloat162*>(
+          g + os.at(b, h, row) + 64 * c + p.c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 gv = __bfloat1622float2(gr[4 * j]);
+        part += gv.x * (o[4 * j + 2 * e] / l[e]) +
+                gv.y * (o[4 * j + 2 * e + 1] / l[e]);
+      }
+    }
+    part = quad_sum(part);
+    if (row < N && (p.lane & 3) == 0) {
+      const size_t idx = ((size_t)b * H + h) * N + row;
+      if (c == 0) lse[idx] = (m[e] + log2f(l[e])) / LOG2E;
+      delta[(size_t)c * gridDim.z * H * N + idx] = part;
+    }
+  }
+}
+
+// dK or dV at dh = 64 nch: attn_bwd_dkdv_tc_kernel's products, output
+// columns of chunk c, one of the two a launch (DK). With both fp32
+// accumulators beside S^T and dP^T, one kernel holding both spilled at
+// the 168 registers that two blocks an SM allow; apart, each recomputes
+// S^T (the dV pass needs no dP^T). Per q tile: nch items of the
+// contraction's boxes at column 64 j, (K_j, Q_j) for dV, (K_j, V_j, Q_j,
+// g_j) for dK, in wgmma_pair64's stage layout; then one box at column 64
+// c, g_c for dV += P^T g_c, Q_c for dK += dL^T Q_c.
+template <bool DK>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+attn_bwd_dkdv_wide_tc_kernel(const __grid_constant__ Maps maps, Strides in,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ out, int N, int H,
+                             int valid, float scale, int nch) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[5];
+  uint8_t* sm = setup(smem_raw, bars);
+  const int b = blockIdx.z, h = blockIdx.y / nch, c = blockIdx.y % nch;
+  const int k0 = blockIdx.x * ROWS;
+  const int n_qt = k0 < valid ? (N + ROWS - 1) / ROWS : 0;
+  if (threadIdx.x / 32 == PRODUCER_WARP) {
+    if (threadIdx.x % 32 == 0) {
+      uint64_t* bar;
+      for (int qt = 0, i = 0; qt < n_qt; ++qt) {
+        const int q0 = qt * ROWS;
+        for (int j = 0; j < nch; ++j, ++i) {
+          uint8_t* st = ring_put(sm, WIDE_BWD_STAGE, bars, i,
+                                 (DK ? 4 : 2) * BOX, &bar);
+          tma_load(st, &maps.k, bar, k0, h, b, 64 * j);
+          tma_load(st + 2 * BOX, &maps.q, bar, q0, h, b, 64 * j);
+          if constexpr (DK) {
+            tma_load(st + BOX, &maps.v, bar, k0, h, b, 64 * j);
+            tma_load(st + 3 * BOX, &maps.g, bar, q0, h, b, 64 * j);
+          }
+        }
+        uint8_t* st = ring_put(sm, WIDE_BWD_STAGE, bars, i++, BOX, &bar);
+        tma_load(st, DK ? &maps.q : &maps.g, bar, q0, h, b, 64 * c);
+      }
+    }
+    return;
+  }
+  const Place p = place();
+  const float sl = scale * LOG2E;
+  const int kr = k0 + p.r;
+  const bool key_ok[2] = {kr < valid, kr + 8 < valid};
+  const float* lse_bh = lse + ((size_t)b * H + h) * N;
+  const float* del_bh = delta + ((size_t)b * H + h) * N;
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  for (int qt = 0, i = 0; qt < n_qt; ++qt) {
+    float sc[32], dp[32];
+    for (int j = 0; j < nch; ++j, ++i) {
+      const uint8_t* st = ring_get(sm, WIDE_BWD_STAGE, bars, i);
+      if constexpr (DK) {
+        wgmma_pair64(sc, dp, st, j == 0);
+      } else {
+        const uint64_t dkd = sw128_desc(st), dqd = sw128_desc(st + 2 * BOX);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss64(sc, dkd + 2 * kk, dqd + 2 * kk, j > 0 || kk > 0);
+        wg_commit();
+      }
+      wg_wait();
+      pin(sc);
+      if constexpr (DK) pin(dp);
+      ring_release(bars, i, p.lane);
+    }
+    const int qc = qt * ROWS + p.c;
+    float L[16], D[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int q = qc + 8 * (e / 2) + (e & 1);
+      L[e] = q < N ? lse_bh[q] * LOG2E : 0.f;
+      D[e] = DK && q < N ? del_bh[q] : 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int j = e / 4, x = e & 1, r = (e >> 1) & 1;
+      const bool ok = key_ok[r] && qc + 8 * j + x < N;
+      const float pr = ok ? ex2(fmaf(sc[e], sl, -L[2 * j + x])) : 0.f;
+      // DK: dL^T = P^T (dP^T - delta); else P^T
+      sc[e] = DK ? pr * (dp[e] - D[2 * j + x]) : pr;
+    }
+    uint32_t a[4][4];
+    to_a(sc, a);
+    const uint8_t* st = ring_get(sm, WIDE_BWD_STAGE, bars, i);
+    const uint64_t bd = sw128_desc(st);
+    pin(acc);
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t) wgmma_rs64(acc, a[t], bd + 128 * t);
+    wg_commit();
+    wg_wait();
+    pin(acc);
+    ring_release(bars, i++, p.lane);
+  }
+  store_rows(acc, out + in.at(b, h, 0) + 64 * c, in.sr, k0, p, N,
+             DK ? scale : 1.f);
+}
+
+// dQ at dh = 64 nch: as attn_bwd_dq_tc_kernel, output columns of chunk c.
+// Per key tile: nch items (Q_j, g_j, K_j, V_j) for S and dP, then K_c for
+// dQ += dL K_c.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+attn_bwd_dq_wide_tc_kernel(const __grid_constant__ Maps maps, Strides in,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dq_out, int N, int H,
+                           int valid, float scale, int nch) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[5];
+  uint8_t* sm = setup(smem_raw, bars);
+  const int b = blockIdx.z, h = blockIdx.y / nch, c = blockIdx.y % nch;
+  const int q0 = blockIdx.x * ROWS;
+  const int n_kt = (valid + ROWS - 1) / ROWS;
+  if (threadIdx.x / 32 == PRODUCER_WARP) {
+    if (threadIdx.x % 32 == 0) {
+      uint64_t* bar;
+      for (int kt = 0, i = 0; kt < n_kt; ++kt) {
+        const int k0 = kt * ROWS;
+        for (int j = 0; j < nch; ++j, ++i) {
+          uint8_t* st = ring_put(sm, WIDE_BWD_STAGE, bars, i, 4 * BOX, &bar);
+          tma_load(st, &maps.q, bar, q0, h, b, 64 * j);
+          tma_load(st + BOX, &maps.g, bar, q0, h, b, 64 * j);
+          tma_load(st + 2 * BOX, &maps.k, bar, k0, h, b, 64 * j);
+          tma_load(st + 3 * BOX, &maps.v, bar, k0, h, b, 64 * j);
+        }
+        uint8_t* st = ring_put(sm, WIDE_BWD_STAGE, bars, i++, BOX, &bar);
+        tma_load(st, &maps.k, bar, k0, h, b, 64 * c);
+      }
+    }
+    return;
+  }
+  const Place p = place();
+  const float sl = scale * LOG2E;
+  const int qr = q0 + p.r;
+  bool q_ok[2];
+  float L[2], D[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    q_ok[e] = qr + 8 * e < N;
+    const size_t idx = ((size_t)b * H + h) * N + (q_ok[e] ? qr + 8 * e : 0);
+    L[e] = lse[idx] * LOG2E;
+    D[e] = delta[idx];
+  }
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+
+  for (int kt = 0, i = 0; kt < n_kt; ++kt) {
+    float sc[32], dp[32];
+    for (int j = 0; j < nch; ++j, ++i) {
+      wgmma_pair64(sc, dp, ring_get(sm, WIDE_BWD_STAGE, bars, i), j == 0);
+      wg_wait();
+      pin(sc);
+      pin(dp);
+      ring_release(bars, i, p.lane);
+    }
+    const int kc = kt * ROWS + p.c;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int r = (e >> 1) & 1;
+      const bool ok = q_ok[r] && kc + 8 * (e / 4) + (e & 1) < valid;
+      const float pr = ok ? ex2(fmaf(sc[e], sl, -L[r])) : 0.f;
+      dp[e] = pr * (dp[e] - D[r]);
+    }
+    uint32_t da[4][4];
+    to_a(dp, da);
+    const uint8_t* st = ring_get(sm, WIDE_BWD_STAGE, bars, i);
+    const uint64_t dkd = sw128_desc(st);
+    pin(dq);
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t) wgmma_rs64(dq, da[t], dkd + 128 * t);
+    wg_commit();
+    wg_wait();
+    pin(dq);
+    ring_release(bars, i++, p.lane);
+  }
+  store_rows(dq, dq_out + in.at(b, h, 0) + 64 * c, in.sr, q0, p, N, scale);
+}
+
 // cuTensorMapEncodeTiled from the driver the process has loaded (no link
 // against libcuda).
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -706,14 +1106,14 @@ EncodeTiled encode_tiled() {
 }
 
 // One operand view (element strides s, base at its section) as a 4-D map
-// {64, N, H, B} of 64 x 64 boxes, 128-byte swizzled; rows past N read as
+// {dh, N, H, B} of 64 x 64 boxes, 128-byte swizzled; rows past N read as
 // zeros. TMA refuses a base that is not 16-byte aligned or a stride that
 // is not a multiple of 16 bytes: then this returns false.
 bool head_map(CUtensorMap* map, const void* base, const Strides& s, int B,
-              int H, int N) {
+              int H, int N, int dh = DH) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
-  const cuuint64_t dims[4] = {DH, (cuuint64_t)N, (cuuint64_t)H,
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)N, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)s.sr * 2, (cuuint64_t)s.sh * 2,
                                  (cuuint64_t)s.sb * 2};
@@ -731,16 +1131,16 @@ using Op = Operands<__nv_bfloat16>;
 // q, k, v through op.in; g (the backward's cotangent) through op.os. The
 // forward loads no g, and its map repeats q's.
 bool make_maps(Maps* maps, const Op& op, const void* g, int B, int H,
-               int N) {
-  if (!head_map(&maps->q, op.q, op.in, B, H, N) ||
-      !head_map(&maps->k, op.k, op.in, B, H, N) ||
-      !head_map(&maps->v, op.v, op.in, B, H, N))
+               int N, int dh = DH) {
+  if (!head_map(&maps->q, op.q, op.in, B, H, N, dh) ||
+      !head_map(&maps->k, op.k, op.in, B, H, N, dh) ||
+      !head_map(&maps->v, op.v, op.in, B, H, N, dh))
     return false;
   if (!g) {
     maps->g = maps->q;
     return true;
   }
-  return head_map(&maps->g, g, op.os, B, H, N);
+  return head_map(&maps->g, g, op.os, B, H, N, dh);
 }
 
 template <typename Kernel, typename... Args>
@@ -784,6 +1184,52 @@ int bwd(const Op& op, const void* g, void* dq, void* dk, void* dv,
   return launch(attn_bwd_dq_tc_kernel, THREADS, BWD_SMEM, grid, stream, maps,
                 op.in, (const float*)lse, (const float*)delta,
                 static_cast<__nv_bfloat16*>(dq), N, H, valid, scale);
+}
+
+// K5 and K6 at dh = 64 nch, nch > 1 (split layout only): grid.y = H * nch.
+// delta: fp32 scratch of nch * B * H * N.
+int fwd_wide(const Op& op, void* out, int B, int N, int H, int dh, int valid,
+             float scale, cudaStream_t stream) {
+  Maps maps;
+  if (!make_maps(&maps, op, nullptr, B, H, N, dh))
+    return (int)cudaErrorInvalidValue;
+  const int nch = dh / 64;
+  const dim3 grid((N + ROWS - 1) / ROWS, H * nch, B);
+  return launch(attn_fwd_wide_tc_kernel<false>, THREADS, WIDE_FWD_SMEM, grid,
+                stream, maps, op.os, (const __nv_bfloat16*)nullptr,
+                static_cast<__nv_bfloat16*>(out), (float*)nullptr,
+                (float*)nullptr, N, H, valid, scale, nch);
+}
+
+int bwd_wide(const Op& op, const void* g, void* dq, void* dk, void* dv,
+             float* lse, float* delta, int B, int N, int H, int dh,
+             int valid, float scale, cudaStream_t stream) {
+  Maps maps;
+  if (!make_maps(&maps, op, g, B, H, N, dh))
+    return (int)cudaErrorInvalidValue;
+  const int nch = dh / 64;
+  const dim3 grid((N + ROWS - 1) / ROWS, H * nch, B);
+  int err = launch(attn_fwd_wide_tc_kernel<true>, THREADS, WIDE_FWD_SMEM,
+                   grid, stream, maps, op.os,
+                   static_cast<const __nv_bfloat16*>(g),
+                   (__nv_bfloat16*)nullptr, lse, delta, N, H, valid, scale,
+                   nch);
+  if (err) return err;
+  err = sum_delta_chunks(delta, nch, (size_t)B * H * N, stream);
+  if (err) return err;
+  err = launch(attn_bwd_dkdv_wide_tc_kernel<false>, THREADS, WIDE_BWD_SMEM,
+               grid, stream, maps, op.in, (const float*)lse,
+               (const float*)delta, static_cast<__nv_bfloat16*>(dv), N, H,
+               valid, scale, nch);
+  if (err) return err;
+  err = launch(attn_bwd_dkdv_wide_tc_kernel<true>, THREADS, WIDE_BWD_SMEM,
+               grid, stream, maps, op.in, (const float*)lse,
+               (const float*)delta, static_cast<__nv_bfloat16*>(dk), N, H,
+               valid, scale, nch);
+  if (err) return err;
+  return launch(attn_bwd_dq_wide_tc_kernel, THREADS, WIDE_BWD_SMEM, grid,
+                stream, maps, op.in, (const float*)lse, (const float*)delta,
+                static_cast<__nv_bfloat16*>(dq), N, H, valid, scale, nch);
 }
 
 }  // namespace tc
@@ -873,12 +1319,14 @@ __device__ __forceinline__ void cp_wait_all_but_one() {
   asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
-// Rows [row0, row0 + 64) of head h of batch b of the view (p, s) into
-// tile T; rows at or past n arrive as zeros. Every thread issues its part.
+// Rows [row0, row0 + R) of head h of batch b of the view (p, s), 64
+// columns from p, into tile T; rows at or past n arrive as zeros. Every
+// thread issues its part.
+template <int R = ROWS>
 __device__ __forceinline__ void load_tile(float* T, const float* p,
                                           const Strides& s, int b, int h,
                                           int row0, int n) {
-  for (int i = threadIdx.x; i < ROWS * DH / 4; i += THREADS) {
+  for (int i = threadIdx.x; i < R * DH / 4; i += THREADS) {
     const int r = i / (DH / 4), c = (i % (DH / 4)) * 4, row = row0 + r;
     const bool ok = row < n;
     cp_async16(T + r * LDS + c, p + (ok ? s.at(b, h, row) + c : 0), ok);
@@ -1234,6 +1682,394 @@ attn_bwd_dq_tf32_kernel(Operands<float> op, const float* __restrict__ g,
   }
 }
 
+// K5/K6 at dh = 64 nch, nch > 1, in split TF32: the chunked design of the
+// bf16 wide kernels (tc, above) on this set's cp.async ring. A block owns
+// output columns [64 c, 64 c + 64); every contraction over dh runs over
+// the nch chunks in order, one 64-column tile of each operand an item;
+// nothing is resident. The backward's streamed operand comes in tiles of
+// QS = 32 rows, as the dh = 64 dK/dV pass splits its q tile in halves, so
+// that S^T and dP^T (or S and dP) of one tile stay within the registers.
+constexpr int QS = 32;                         // rows of a streamed bwd tile
+constexpr int WIDE_FWD_SMEM = 4 * TILE * 4;    // 2 stages of (Q_j, K_j)
+constexpr int WIDE_BWD_SMEM = 6 * TILE * 4;    // 2 stages of 2 + 2 half tiles
+
+// Forward at dh = 64 nch: as attn_fwd_kernel_tf32, output columns of chunk
+// c. STATS: lse (chunk 0) and the chunk's part of delta, delta[c][b][h][row].
+template <bool STATS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+attn_fwd_wide_tf32_kernel(Operands<float> op, const float* __restrict__ g,
+                          float* __restrict__ out, float* __restrict__ lse,
+                          float* __restrict__ delta, int N, int H, int valid,
+                          float scale, int nch) {
+  extern __shared__ float4 smem4[];
+  float* const ring = reinterpret_cast<float*>(smem4);   // stage: 2 tiles
+  const int b = blockIdx.z, h = blockIdx.y / nch, c = blockIdx.y % nch;
+  const int q0 = blockIdx.x * ROWS;
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);
+  const int per = nch + 1, n_items = (valid + ROWS - 1) / ROWS * per;
+  const float sl = scale * LOG2E;
+  // item (kt, j): Q_j and K_j of key tile kt for j < nch, then V_c
+  auto issue = [&](int i) {
+    const int kt = i / per, j = i - kt * per;
+    float* st = ring + (i & 1) * 2 * TILE;
+    if (j < nch) {
+      load_tile(st, op.q + 64 * j, op.in, b, h, q0, N);
+      load_tile(st + TILE, op.k + 64 * j, op.in, b, h, kt * ROWS, valid);
+    } else {
+      load_tile(st, op.v + 64 * c, op.in, b, h, kt * ROWS, valid);
+    }
+  };
+  issue(0);
+  cp_commit();
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[8][4], s[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = s[n][e] = 0.f;
+
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) issue(i + 1);
+    cp_commit();
+    cp_wait_all_but_one();
+    __syncthreads();
+    const int kt = i / per, j = i - kt * per;
+    const float* st = ring + (i & 1) * 2 * TILE;
+    if (j < nch) {
+      if (j == 0) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        FragB kb[8];
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          kb[n] = load_b_row(st + TILE, 8 * n, 8 * kk, g8, t);
+        mma3_cols(s, load_a(st, r0, 8 * kk, g8, t), kb);
+      }
+    } else {
+      const int k0 = kt * ROWS;
+      if (k0 + ROWS > valid) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + 8 * n + 2 * t + (e & 1) >= valid) s[n][e] = -INFINITY;
+      }
+      float alpha[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * e], s[n][2 * e + 1]));
+        const float mn = fmaxf(m[e], quad_max(mx) * sl);
+        alpha[e] = tc::ex2(m[e] - mn);
+        m[e] = mn;
+        l[e] *= alpha[e];
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = tc::ex2(fmaf(s[n][e], sl, -m[e >> 1]));
+          l[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        FragB vb[8];
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          vb[n] = load_b_col(st, 8 * jj, 8 * n, g8, t);
+        mma3_cols(o, acc_a(s[jj]), vb);
+      }
+    }
+    __syncthreads();   // the stage is free for item i + 2
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) l[e] = quad_sum(l[e]);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + r0 + g8 + 8 * e;
+    float part = 0.f;
+    if (row < N) {
+      if (!STATS) {
+        float* dst = out + op.os.at(b, h, row) + 64 * c + 2 * t;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<float2*>(dst + 8 * n) =
+              make_float2(o[n][2 * e] / l[e], o[n][2 * e + 1] / l[e]);
+      } else {
+        const float* gr = g + op.os.at(b, h, row) + 64 * c + 2 * t;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 gv = *reinterpret_cast<const float2*>(gr + 8 * n);
+          part += gv.x * (o[n][2 * e] / l[e]) +
+                  gv.y * (o[n][2 * e + 1] / l[e]);
+        }
+      }
+    }
+    if (STATS) {
+      part = quad_sum(part);
+      if (row < N && t == 0) {
+        const size_t idx = ((size_t)b * H + h) * N + row;
+        if (c == 0) lse[idx] = (m[e] + log2f(l[e])) / LOG2E;
+        delta[(size_t)c * gridDim.z * H * N + idx] = part;
+      }
+    }
+  }
+}
+
+// dK, dV at dh = 64 nch: as attn_bwd_dkdv_tf32_kernel, output columns of
+// chunk c, over q tiles of QS rows. Per q tile: nch items (K_j, V_j of the
+// block's 64 keys, Q_j, g_j of the tile) for S^T and dP^T, then (Q_c, g_c)
+// for dV += P^T g_c and dK += dL^T Q_c.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+attn_bwd_dkdv_wide_tf32_kernel(Operands<float> op, const float* __restrict__ g,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               float* __restrict__ dk_out,
+                               float* __restrict__ dv_out, int N, int H,
+                               int valid, float scale, int nch) {
+  extern __shared__ float4 smem4[];
+  float* const ring = reinterpret_cast<float*>(smem4);   // stage: 3 tiles
+  const int b = blockIdx.z, h = blockIdx.y / nch, c = blockIdx.y % nch;
+  const int k0 = blockIdx.x * ROWS;
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);
+  const int per = nch + 1;
+  const int n_items = k0 < valid ? (N + QS - 1) / QS * per : 0;
+  const float sl = scale * LOG2E;
+  const bool key_ok[2] = {k0 + r0 + g8 < valid, k0 + r0 + g8 + 8 < valid};
+  const float* lse_bh = lse + ((size_t)b * H + h) * N;
+  const float* del_bh = delta + ((size_t)b * H + h) * N;
+  // item (qt, j): K_j, V_j, then Q_j, g_j of q tile qt (QS rows each) for
+  // j < nch; then Q_c, g_c
+  auto issue = [&](int i) {
+    const int qt = i / per, j = i - qt * per;
+    float* st = ring + (i & 1) * 3 * TILE;
+    const int jc = j < nch ? j : c;
+    float* qs = j < nch ? st + 2 * TILE : st;
+    if (j < nch) {
+      load_tile(st, op.k + 64 * j, op.in, b, h, k0, valid);
+      load_tile(st + TILE, op.v + 64 * j, op.in, b, h, k0, valid);
+    }
+    load_tile<QS>(qs, op.q + 64 * jc, op.in, b, h, qt * QS, N);
+    load_tile<QS>(qs + QS * LDS, g + 64 * jc, op.os, b, h, qt * QS, N);
+  };
+  if (n_items) {
+    issue(0);
+    cp_commit();
+  }
+  float dk[8][4], dv[8][4], sc[4][4], dp[4][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) issue(i + 1);
+    cp_commit();
+    cp_wait_all_but_one();
+    __syncthreads();
+    const int qt = i / per, j = i - qt * per;
+    const float* st = ring + (i & 1) * 3 * TILE;
+    if (j < nch) {
+      if (j == 0) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      }
+      const float* qs = st + 2 * TILE;
+      const float* gs = qs + QS * LDS;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        FragB qb[4], gb[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          qb[n] = load_b_row(qs, 8 * n, 8 * kk, g8, t);
+          gb[n] = load_b_row(gs, 8 * n, 8 * kk, g8, t);
+        }
+        mma3_cols(sc, load_a(st, r0, 8 * kk, g8, t), qb);
+        mma3_cols(dp, load_a(st + TILE, r0, 8 * kk, g8, t), gb);
+      }
+    } else {
+      // the columns' statistics: q = qt * QS + 8n + 2t + (e & 1)
+      const int qc = qt * QS + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = qc + 8 * n + (e & 1);
+          const bool ok = key_ok[e >> 1] && q < N;
+          const float pr =
+              ok ? tc::ex2(fmaf(sc[n][e], sl, -lse_bh[q] * LOG2E)) : 0.f;
+          dp[n][e] = ok ? pr * (dp[n][e] - del_bh[q]) : 0.f;
+          sc[n][e] = pr;
+        }
+      const float* qs = st;
+      const float* gs = qs + QS * LDS;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        FragB bb[8];
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          bb[n] = load_b_col(gs, 8 * jj, 8 * n, g8, t);
+        mma3_cols(dv, acc_a(sc[jj]), bb);
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          bb[n] = load_b_col(qs, 8 * jj, 8 * n, g8, t);
+        mma3_cols(dk, acc_a(dp[jj]), bb);
+      }
+    }
+    __syncthreads();   // the stage is free for item i + 2
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int key = k0 + r0 + g8 + 8 * e;
+    if (key >= N) continue;
+    float* dkr = dk_out + op.in.at(b, h, key) + 64 * c + 2 * t;
+    float* dvr = dv_out + op.in.at(b, h, key) + 64 * c + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<float2*>(dkr + 8 * n) =
+          make_float2(dk[n][2 * e] * scale, dk[n][2 * e + 1] * scale);
+      *reinterpret_cast<float2*>(dvr + 8 * n) =
+          make_float2(dv[n][2 * e], dv[n][2 * e + 1]);
+    }
+  }
+}
+
+// dQ at dh = 64 nch: as attn_bwd_dq_tf32_kernel, output columns of chunk c,
+// over key tiles of QS rows. Per key tile: nch items (Q_j, g_j of the
+// block's 64 rows, K_j, V_j of the tile) for S and dP, then K_c for
+// dQ += dL K_c.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+attn_bwd_dq_wide_tf32_kernel(Operands<float> op, const float* __restrict__ g,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dq_out, int N, int H,
+                             int valid, float scale, int nch) {
+  extern __shared__ float4 smem4[];
+  float* const ring = reinterpret_cast<float*>(smem4);   // stage: 3 tiles
+  const int b = blockIdx.z, h = blockIdx.y / nch, c = blockIdx.y % nch;
+  const int q0 = blockIdx.x * ROWS;
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);
+  const int per = nch + 1, n_items = (valid + QS - 1) / QS * per;
+  const float sl = scale * LOG2E;
+  bool q_ok[2];
+  float L[2], D[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + r0 + g8 + 8 * e;
+    q_ok[e] = row < N;
+    const size_t idx = ((size_t)b * H + h) * N + (q_ok[e] ? row : 0);
+    L[e] = lse[idx] * LOG2E;
+    D[e] = delta[idx];
+  }
+  // item (kt, j): Q_j, g_j, then K_j, V_j of key tile kt (QS rows each)
+  // for j < nch; then K_c
+  auto issue = [&](int i) {
+    const int kt = i / per, j = i - kt * per;
+    float* st = ring + (i & 1) * 3 * TILE;
+    if (j < nch) {
+      load_tile(st, op.q + 64 * j, op.in, b, h, q0, N);
+      load_tile(st + TILE, g + 64 * j, op.os, b, h, q0, N);
+      load_tile<QS>(st + 2 * TILE, op.k + 64 * j, op.in, b, h, kt * QS,
+                    valid);
+      load_tile<QS>(st + 2 * TILE + QS * LDS, op.v + 64 * j, op.in, b, h,
+                    kt * QS, valid);
+    } else {
+      load_tile<QS>(st, op.k + 64 * c, op.in, b, h, kt * QS, valid);
+    }
+  };
+  issue(0);
+  cp_commit();
+  float dq[8][4], sc[4][4], dp[4][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) issue(i + 1);
+    cp_commit();
+    cp_wait_all_but_one();
+    __syncthreads();
+    const int kt = i / per, j = i - kt * per;
+    const float* st = ring + (i & 1) * 3 * TILE;
+    if (j < nch) {
+      if (j == 0) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      }
+      const float* ks = st + 2 * TILE;
+      const float* vs = ks + QS * LDS;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        FragB kb[4], vb[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          kb[n] = load_b_row(ks, 8 * n, 8 * kk, g8, t);
+          vb[n] = load_b_row(vs, 8 * n, 8 * kk, g8, t);
+        }
+        mma3_cols(sc, load_a(st, r0, 8 * kk, g8, t), kb);
+        mma3_cols(dp, load_a(st + TILE, r0, 8 * kk, g8, t), vb);
+      }
+    } else {
+      const int kc = kt * QS + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool ok = q_ok[r] && kc + 8 * n + (e & 1) < valid;
+          const float pr = ok ? tc::ex2(fmaf(sc[n][e], sl, -L[r])) : 0.f;
+          dp[n][e] = ok ? pr * (dp[n][e] - D[r]) : 0.f;
+        }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        FragB bb[8];
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          bb[n] = load_b_col(st, 8 * jj, 8 * n, g8, t);
+        mma3_cols(dq, acc_a(dp[jj]), bb);
+      }
+    }
+    __syncthreads();   // the stage is free for item i + 2
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + r0 + g8 + 8 * e;
+    if (row >= N) continue;
+    float* dst = dq_out + op.in.at(b, h, row) + 64 * c + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(dq[n][2 * e] * scale, dq[n][2 * e + 1] * scale);
+  }
+}
+
 using Op = Operands<float>;
 
 int fwd(const Op& op, void* out, int B, int N, int H, int valid, float scale,
@@ -1263,6 +2099,41 @@ int bwd(const Op& op, const void* g, void* dq, void* dk, void* dv,
   return tc::launch(attn_bwd_dq_tf32_kernel, THREADS, BWD_SMEM, grid, stream,
                     op, gg, (const float*)lse, (const float*)delta,
                     static_cast<float*>(dq), N, H, valid, scale);
+}
+
+// K5 and K6 at dh = 64 nch, nch > 1 (split layout only): grid.y = H * nch.
+// delta: fp32 scratch of nch * B * H * N.
+int fwd_wide(const Op& op, void* out, int B, int N, int H, int dh, int valid,
+             float scale, cudaStream_t stream) {
+  const int nch = dh / 64;
+  const dim3 grid((N + ROWS - 1) / ROWS, H * nch, B);
+  return tc::launch(attn_fwd_wide_tf32_kernel<false>, THREADS, WIDE_FWD_SMEM,
+                    grid, stream, op, (const float*)nullptr,
+                    static_cast<float*>(out), (float*)nullptr,
+                    (float*)nullptr, N, H, valid, scale, nch);
+}
+
+int bwd_wide(const Op& op, const void* g, void* dq, void* dk, void* dv,
+             float* lse, float* delta, int B, int N, int H, int dh,
+             int valid, float scale, cudaStream_t stream) {
+  const float* gg = static_cast<const float*>(g);
+  const int nch = dh / 64;
+  const dim3 grid((N + ROWS - 1) / ROWS, H * nch, B);
+  int err = tc::launch(attn_fwd_wide_tf32_kernel<true>, THREADS,
+                       WIDE_FWD_SMEM, grid, stream, op, gg, (float*)nullptr,
+                       lse, delta, N, H, valid, scale, nch);
+  if (err) return err;
+  err = tc::sum_delta_chunks(delta, nch, (size_t)B * H * N, stream);
+  if (err) return err;
+  err = tc::launch(attn_bwd_dkdv_wide_tf32_kernel, THREADS, WIDE_BWD_SMEM,
+                   grid, stream, op, gg, (const float*)lse,
+                   (const float*)delta, static_cast<float*>(dk),
+                   static_cast<float*>(dv), N, H, valid, scale, nch);
+  if (err) return err;
+  return tc::launch(attn_bwd_dq_wide_tf32_kernel, THREADS, WIDE_BWD_SMEM,
+                    grid, stream, op, gg, (const float*)lse,
+                    (const float*)delta, static_cast<float*>(dq), N, H,
+                    valid, scale, nch);
 }
 
 }  // namespace tf32
@@ -1304,29 +2175,44 @@ extern "C" int attn_qkv_bwd(const void* qkv, const void* g, void* dqkv,
                    lse, delta, B, N, H, n_valid, scale, s);
 }
 
-// q, k, v, out: [B, H, N, 64] contiguous.
+// q, k, v, out: [B, H, N, dh] contiguous, dh a multiple of 64: dh = 64 on
+// the kernels K1 shares, wider heads on the chunked ones (fwd_wide).
 extern "C" int attn_fwd(const void* q, const void* k, const void* v,
-                        void* out, int B, int N, int H, int n_valid,
+                        void* out, int B, int N, int H, int dh, int n_valid,
                         float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh < DH || dh % DH) return (int)cudaErrorInvalidValue;
+  if (dh > DH)
+    return dtype == 1
+        ? tc::fwd_wide(split_operands<__nv_bfloat16>(q, k, v, N, H, dh), out,
+                       B, N, H, dh, n_valid, scale, s)
+        : tf32::fwd_wide(split_operands<float>(q, k, v, N, H, dh), out, B,
+                         N, H, dh, n_valid, scale, s);
   return dtype == 1
-      ? tc::fwd(split_operands<__nv_bfloat16>(q, k, v, N, H), out, B, N, H,
-                n_valid, scale, s)
-      : tf32::fwd(split_operands<float>(q, k, v, N, H), out, B, N, H,
+      ? tc::fwd(split_operands<__nv_bfloat16>(q, k, v, N, H, DH), out, B, N,
+                H, n_valid, scale, s)
+      : tf32::fwd(split_operands<float>(q, k, v, N, H, DH), out, B, N, H,
                   n_valid, scale, s);
 }
 
-// q, k, v, g, dq, dk, dv: [B, H, N, 64] contiguous, the gradients fully
-// written; lse, delta: fp32 scratch of B*H*N each.
+// q, k, v, g, dq, dk, dv: [B, H, N, dh] contiguous, the gradients fully
+// written; lse: fp32 scratch of B*H*N, delta of dh / 64 * B*H*N.
 extern "C" int attn_bwd(const void* q, const void* k, const void* v,
                         const void* g, void* dq, void* dk, void* dv,
                         float* lse, float* delta, int B, int N, int H,
-                        int n_valid, float scale, int dtype,
+                        int dh, int n_valid, float scale, int dtype,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh < DH || dh % DH) return (int)cudaErrorInvalidValue;
+  if (dh > DH)
+    return dtype == 1
+        ? tc::bwd_wide(split_operands<__nv_bfloat16>(q, k, v, N, H, dh), g,
+                       dq, dk, dv, lse, delta, B, N, H, dh, n_valid, scale, s)
+        : tf32::bwd_wide(split_operands<float>(q, k, v, N, H, dh), g, dq, dk,
+                         dv, lse, delta, B, N, H, dh, n_valid, scale, s);
   return dtype == 1
-      ? tc::bwd(split_operands<__nv_bfloat16>(q, k, v, N, H), g, dq, dk, dv,
-                lse, delta, B, N, H, n_valid, scale, s)
-      : tf32::bwd(split_operands<float>(q, k, v, N, H), g, dq, dk, dv, lse,
-                  delta, B, N, H, n_valid, scale, s);
+      ? tc::bwd(split_operands<__nv_bfloat16>(q, k, v, N, H, DH), g, dq, dk,
+                dv, lse, delta, B, N, H, n_valid, scale, s)
+      : tf32::bwd(split_operands<float>(q, k, v, N, H, DH), g, dq, dk, dv,
+                  lse, delta, B, N, H, n_valid, scale, s);
 }

@@ -77,15 +77,15 @@
 //     conv_fwd_tc (namespace fwdtc) at k <= 3 and conv_fwd_px (namespace
 //     px) at k >= 4 and the k2 = 3 phase kernels, K4 likewise through
 //     conv_dw_tc (namespace dwtc) or conv_dw_px, K7 through conv_dw_tc at
-//     k in {2, 3, 5, 7} (ops/conv.py conv_route sends it to K4 at any other
-//     k: the same function). fwdtc and dwtc stage x through Src into the
+//     k in {2, 3, 5, 7} and through conv_dw_px's cotangent-tapped mode at
+//     every other k >= 2. fwdtc and dwtc stage x through Src into the
 //     same channel-major bf16 tiles, px into pixel-major ones; each is
 //     described above its kernel.
 //   * fp32 K3, K4 and K7 run on the tensor cores too, in split TF32
 //     (three mma.sync m16n8k8 .tf32 products a product, tf32.cuh, which
 //     keep the fp32 steps' 1e-4 gates): conv_fwd_tf32 and conv_dw_tf32
 //     (namespace tc32; K7 is conv_dw_tf32's cotangent-tapped mode), every
-//     form at any k (K7 at k in {2, 3, 5, 7}), described above their
+//     form at any k (K7 at any k >= 2), described above their
 //     kernels.
 
 #include <cooperative_groups.h>
@@ -1534,6 +1534,69 @@ __device__ __forceinline__ void load_g(const bf16* __restrict__ g, int b,
   }
 }
 
+// K7's untapped operand U = V over its own extent [Hp, Wp] (the gtap
+// mode): load_g's pairs of the stage, channels n0.. of x read through Src
+// (its border `pad`, stride 1), zero in the border, past the strip and
+// past Cu. Clamped addresses and selects as load_g. The prologue is
+// prologue_u, applied where the pairs are stored (after the stage's
+// products, so that no extra state is held across them).
+__device__ __forceinline__ bool u_ok(const Src& s, int u, int Cu, int yy,
+                                     int xx, int r1, int q1) {
+  const int sy = yy - s.pad, sx = xx - s.pad;
+  return u < Cu && yy < r1 && xx < q1 && sy >= 0 && sy < s.H && sx >= 0 &&
+         sx < s.W;
+}
+
+template <int NB>
+__device__ __forceinline__ void load_u(const bf16* __restrict__ x,
+                                       const Src& s, int b, int n0, int Cu,
+                                       int y0, int x0, int r1, int q1,
+                                       uint32_t (&gw)[4 * NB]) {
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+#pragma unroll
+  for (int m = 0; m < 4 * NB; ++m) {
+    const int it = threadIdx.x + THREADS * m;
+    const int u = n0 + (it >> 7), yy = y0 + ((it >> 4) & 7);
+    const int xx = x0 + 2 * (it & 15);
+    const int sy = yy - s.pad, sx = xx - s.pad;
+    const unsigned short* xr =
+        xs + (((size_t)b * s.cin + min(u, Cu - 1)) * s.H +
+              min(max(sy, 0), s.H - 1)) * s.W;
+    const uint32_t lo = __ldg(xr + min(max(sx, 0), s.W - 1));
+    const uint32_t hi = __ldg(xr + min(max(sx + 1, 0), s.W - 1));
+    gw[m] = (u_ok(s, u, Cu, yy, xx, r1, q1) ? lo : 0u) |
+            (u_ok(s, u, Cu, yy, xx + 1, r1, q1) ? hi : 0u) << 16;
+  }
+}
+
+// load_u's pairs of the stage at (y0, x0) through the prologue z =
+// leaky_ns(x*scale + shift) with load_v16's rounding (two roundings, no
+// fma), x's own elements only: the border and the zeros past the strip and
+// Cu stay zero, as K7's plain version's z.
+template <int NB>
+__device__ __forceinline__ void prologue_u(const Src& s, int b, int n0,
+                                           int Cu, int y0, int x0, int r1,
+                                           int q1, uint32_t (&gw)[4 * NB]) {
+  if (s.scale == nullptr) return;
+#pragma unroll
+  for (int m = 0; m < 4 * NB; ++m) {
+    const int it = threadIdx.x + THREADS * m;
+    const int u = n0 + (it >> 7), yy = y0 + ((it >> 4) & 7);
+    const int xx = x0 + 2 * (it & 15);
+    const int row = (b / s.per_group) * s.cin + min(u, Cu - 1);
+    const float sc = s.scale[row], sh = s.shift[row];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (!u_ok(s, u, Cu, yy, xx + e, r1, q1)) continue;
+      float z = __fadd_rn(__fmul_rn(
+          __uint_as_float((gw[m] >> (16 * e) & 0xffffu) << 16), sc), sh);
+      if (s.negslope != 1.f) z = z >= 0.f ? z : z * s.negslope;
+      const uint32_t v = __bfloat16_as_ushort(__float2bfloat16(z));
+      gw[m] = (gw[m] & ~(0xffffu << (16 * e))) | v << (16 * e);
+    }
+  }
+}
+
 // load_g's pairs into g's tile dst[co][row][col] (strides GP, GC).
 template <int NB>
 __device__ __forceinline__ void store_g(bf16* dst,
@@ -1554,10 +1617,19 @@ __device__ __forceinline__ void store_g(bf16* dst,
 // block's taps w, w + 8, ... (at most 16 / NB), all NB n8 tiles; a k16
 // step is 16 pixels of one stage row. Grid: (B * strips_y * strips_x,
 // n_cg * n_dyg, ceil(Cu / 8 NB)).
-template <int NB>
+// GTAP (K7, the cotangent-tapped mode, at any k >= 2; it replaces
+// _make_dw_kernel_gtap :455 where conv_dw_tc has no instance): the roles
+// swap as in dwtc and tc32's gtap modes. The tapped operand (x, src) is g
+// read through a Src with a border of k - 1 (zero outside g), Cs = Cout;
+// the untapped one (u, usrc) is V over its own extent [Hp, Wp] = [Ho + k -
+// 1, Wo + k - 1] (load_u: x through Src, the prologue on x's elements
+// only), Cu = Cin. The partial is D[(t', co), ci]; the sum transposes it
+// to [Cin, k*k*Cout] and the caller reverses the taps.
+template <int NB, bool GTAP>
 __global__ void __launch_bounds__(THREADS)
 conv_dw_px_kernel(const bf16* __restrict__ x, Src src,
-                  const bf16* __restrict__ g, float* __restrict__ partial,
+                  const bf16* __restrict__ g, Src usrc,
+                  float* __restrict__ partial,
                   int Cs, int Cu, int Hp, int Wp, int k, int rows, int cols,
                   int strips_y, int strips_x, int ndy, int n_cg) {
   constexpr int TPW = 16 / NB;            // taps a warp
@@ -1604,8 +1676,12 @@ conv_dw_px_kernel(const bf16* __restrict__ x, Src src,
   const int n_st = (r1 - r0 + TR - 1) / TR * sxn;
   uint32_t wd[ITEMS][8], gw[4 * NB];
   load_v16(x, src, b, ch0, Cs, r0 + dy0, q0, npix, vcols, wd);
-  load_g<NB>(g, b, n0, Cu, Hp, Wp, r0, q0, r1, q1, gw);
+  if constexpr (GTAP)
+    load_u<NB>(g, usrc, b, n0, Cu, r0, q0, r1, q1, gw);
+  else
+    load_g<NB>(g, b, n0, Cu, Hp, Wp, r0, q0, r1, q1, gw);
   store_v16(ring, npix, wd);
+  if constexpr (GTAP) prologue_u<NB>(usrc, b, n0, Cu, r0, q0, r1, q1, gw);
   store_g<NB>(ring + v_el, gw);
   __syncthreads();
   for (int s = 0; s < n_st; ++s) {
@@ -1614,7 +1690,10 @@ conv_dw_px_kernel(const bf16* __restrict__ x, Src src,
     if (more) {
       const int y1 = r0 + TR * ((s + 1) / sxn), x1 = q0 + TC * ((s + 1) % sxn);
       load_v16(x, src, b, ch0, Cs, y1 + dy0, x1, npix, vcols, wd);
-      load_g<NB>(g, b, n0, Cu, Hp, Wp, y1, x1, r1, q1, gw);
+      if constexpr (GTAP)
+        load_u<NB>(g, usrc, b, n0, Cu, y1, x1, r1, q1, gw);
+      else
+        load_g<NB>(g, b, n0, Cu, Hp, Wp, y1, x1, r1, q1, gw);
     }
     const int y0 = r0 + TR * (s / sxn), x0 = q0 + TC * (s % sxn);
     const uint32_t vb = ring_s + 2 * cur * (v_el + g_el) + v_lane;
@@ -1660,6 +1739,9 @@ conv_dw_px_kernel(const bf16* __restrict__ x, Src src,
     }
     if (more) {
       store_v16(ring + nxt * (v_el + g_el), npix, wd);
+      if constexpr (GTAP)
+        prologue_u<NB>(usrc, b, n0, Cu, r0 + TR * ((s + 1) / sxn),
+                       q0 + TC * ((s + 1) % sxn), r1, q1, gw);
       store_g<NB>(ring + nxt * (v_el + g_el) + v_el, gw);
     }
     __syncthreads();
@@ -1757,34 +1839,37 @@ int launch_fwd(const bf16* x, const Src& src, const bf16* w, bf16* y,
   return (int)cudaGetLastError();
 }
 
-template <int NB>
-int launch_dw(const bf16* x, const Src& src, const bf16* g, float* partial,
-              float* dw, int B, int Cu, int Hp, int Wp, int k, int rows,
-              int cols, int ndy, cudaStream_t st) {
+// K4 (GTAP false: x, src tapped; g untapped, usrc unread) or K7 (GTAP:
+// x = g through src with its border k - 1, g = the input x through usrc;
+// see conv_dw_px_kernel).
+template <int NB, bool GTAP>
+int launch_dw(const bf16* x, const Src& src, const bf16* g, const Src& usrc,
+              float* partial, float* dw, int B, int Cu, int Hp, int Wp,
+              int k, int rows, int cols, int ndy, cudaStream_t st) {
   const int Cs = src.stride * src.stride * src.cin;
   if (k < 1 || ndy < 1 || ndy > k || (ndy * k + 7) / 8 > 16 / NB ||
       (TR + ndy - 1) * (TC + k - 1) > ITEMS * THREADS || rows < TR ||
-      rows % TR || cols < TC || cols % TC)
+      rows % TR || cols < TC || cols % TC || (GTAP && k < 2))
     return (int)cudaErrorInvalidValue;
   const size_t smem = dw_smem(k, ndy, NB);
   cudaError_t e = cudaFuncSetAttribute(
-      conv_dw_px_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      conv_dw_px_kernel<NB, GTAP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int strips_y = (Hp + rows - 1) / rows;
   const int strips_x = (Wp + cols - 1) / cols;
   const int n_cg = (Cs + 15) / 16, n_dyg = (k + ndy - 1) / ndy;
   const dim3 grid(B * strips_y * strips_x, n_cg * n_dyg,
                   (Cu + 8 * NB - 1) / (8 * NB));
-  conv_dw_px_kernel<NB><<<grid, THREADS, smem, st>>>(
-      x, src, g, partial, Cs, Cu, Hp, Wp, k, rows, cols, strips_y, strips_x,
-      ndy, n_cg);
+  conv_dw_px_kernel<NB, GTAP><<<grid, THREADS, smem, st>>>(
+      x, src, g, usrc, partial, Cs, Cu, Hp, Wp, k, rows, cols, strips_y,
+      strips_x, ndy, n_cg);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const int n_out = k * k * Cs * Cu;
   const int n_slices = (int)grid.x;
   const dim3 rblock(32, n_slices < 32 ? n_slices : 32);
-  dwtc::conv_dw_sum_kernel<false><<<(n_out + 31) / 32, rblock, 0, st>>>(
+  dwtc::conv_dw_sum_kernel<GTAP><<<(n_out + 31) / 32, rblock, 0, st>>>(
       partial, dw, n_out, n_slices, Cu);
   return (int)cudaGetLastError();
 }
@@ -1797,7 +1882,7 @@ int launch_dw(const bf16* x, const Src& src, const bf16* g, float* partial,
 // the K3''' statistics, the input gradient) at any k >= 1. They replace
 // _make_conv_kernel (:157), _make_dw_kernel (:401) and
 // _make_dw_kernel_gtap (:455) in fp32, as ops/conv.py conv_route sends
-// every fp32 K3, K4 and K7 launch here (K7 at k in GTAP_KS, K4 elsewhere).
+// every fp32 K3, K4 and K7 launch here (K7 at any k >= 2).
 // Products: mma.sync m16n8k8 .tf32 in three terms (tf32.cuh: hi*lo + lo*hi
 // + hi*hi, the small terms first; fp32 accumulators), which keep the fp32
 // plain versions' 1e-4 x max. What bounds them: at main_fp32's sites
@@ -2648,7 +2733,7 @@ extern "C" int conv_fwd_tf32(const void* x, const void* w, void* y,
 // namespace tc32). K4 at any k >= 1, stride 1 or 2, with and without the
 // prologue: x, scale, shift, pad, stride, groups, negslope as
 // conv_fwd_tf32; g [B,Cout,Ho,Wo] fp32; dw: fp32 [k,k,s*s*Cin,Cout]. K7 at
-// stride 1 and k >= 2 (ops/conv.py routes k in {2, 3, 5, 7} here): dw fp32
+// stride 1 and any k >= 2: dw fp32
 // [Cin, k*k*Cout] with tap t' = dy'*k + dx' holding dw's tap (k-1-dy',
 // k-1-dx') (the caller reverses). The tiling comes from ops/conv.py
 // dw_tf32_tiling: strips of rows x cols pixels of the contraction's extent
@@ -2808,30 +2893,53 @@ extern "C" int conv_fwd_px(const void* x, const void* w, void* y,
 #undef PX_FWD
 }
 
-// bf16 K4 at k >= 4 and the k2 = 3 phase kernels (namespace px): as
-// conv_dw_tf32, any k. The tiling comes from ops/conv.py dw_px_tiling: strips of
-// rows x cols pixels (multiples of 8 and 32), tap rows in groups of ndy,
-// nb in {1, 2, 4} n8 tiles of Cout a block. partial: fp32 scratch
-// [B * ceil(Ho / rows) * ceil(Wo / cols), k * k * s * s * Cin * Cout].
+// bf16 K4 (gtap = 0) at k >= 4 and the k2 = 3 phase kernels (namespace
+// px): as conv_dw_tf32, any k; and K7 (gtap = 1, stride 1, any k >= 2:
+// dw [Cin, k*k*Cout], as conv_dw_tf32's gtap; ops/conv.py routes here the k
+// that conv_dw_tc has no K7 instance for). The tiling comes from
+// ops/conv.py dw_px_tiling: strips of rows x cols pixels of the
+// contraction's extent (Ho x Wo for K4, (Ho+k-1) x (Wo+k-1) for K7;
+// multiples of 8 and 32), tap rows in groups of ndy, nb in {1, 2, 4} (K7:
+// {1, 2}) n8 tiles of the untapped operand (K4: Cout, K7: Cin) a block.
+// partial: fp32
+// scratch [B * strips_y * strips_x, k * k * Cs * Cu].
 extern "C" int conv_dw_px(const void* x, const void* g, float* partial,
                           float* dw, const float* scale, const float* shift,
                           int B, int Cin, int H, int W, int Cout, int Ho,
                           int Wo, int k, int pad, int stride, int groups,
-                          float negslope, int rows, int cols, int ndy, int nb,
-                          void* stream) {
+                          float negslope, int gtap, int rows, int cols,
+                          int ndy, int nb, void* stream) {
   using px::bf16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Src src = make_src(scale, shift, B, Cin, H, W, pad, stride, groups,
                            negslope);
+  // K7's tapped cotangent: no prologue, zero outside g, a border of k - 1
+  const Src gs = make_src(nullptr, nullptr, B, Cout, Ho, Wo, k - 1, 1, 1,
+                          1.f);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* gb = static_cast<const bf16*>(g);
+  if (gtap && stride != 1) return (int)cudaErrorInvalidValue;
 #define PX_DW(n)                                                             \
   case n:                                                                    \
-    return px::launch_dw<n>(xb, src, gb, partial, dw, B, Cout, Ho, Wo, k,   \
-                            rows, cols, ndy, st);
+    return px::launch_dw<n, false>(xb, src, gb, gs, partial, dw, B, Cout,    \
+                                   Ho, Wo, k, rows, cols, ndy, st);
+#define PX_GTAP(n)                                                           \
+  case n:                                                                    \
+    return px::launch_dw<n, true>(gb, gs, xb, src, partial, dw, B, Cin,      \
+                                  Ho + k - 1, Wo + k - 1, k, rows, cols, ndy,\
+                                  st);
+  // K7's mode holds at most two n8 tiles of Cin (ops/conv.py PX_GTAP_NB):
+  // at four, load_u's addressing spilled
+  if (gtap) {
+    switch (nb) {
+      PX_GTAP(1) PX_GTAP(2)
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (nb) {
     PX_DW(1) PX_DW(2) PX_DW(4)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef PX_DW
+#undef PX_GTAP
 }

@@ -7,7 +7,8 @@ parameter tree moves between the two packages as numpy arrays unchanged
 (models/weights.py). The patch-embed conv and the dense layers are torch
 ops (XLA in the reference); attention is ops.attention.attention_from_qkv,
 routed as the reference routes it: kernels K1/K2 on the fused qkv up to
-2048 tokens, K5/K6 on split heads above (the 480-px loss resolution). A
+2048 tokens at head width 64, K5/K6 on split heads above (the 480-px loss
+resolution) and at every other head width that is a multiple of 64. A
 block tapped for "attn_probs" builds its fp32 probabilities explicitly and
 takes its output from them, as the reference's does, and launches no
 attention kernel.

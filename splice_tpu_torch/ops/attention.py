@@ -9,9 +9,14 @@ the reference chooses them (attention_from_qkv):
     _attn_qkv_kernel and _attn_qkv_bwd_kernel). Taken while
     qkv_attention_supported, i.e. up to the reference's _QKV_MAX_N_PAD;
   * split tensors: above that cap (the 480-px loss resolution: 3601 tokens
-    per square crop, 2701 for the entire A image) the heads are split into
-    [B, H, N, dh] q, k, v and multi_head_attention runs forward kernel K5
-    and backward K6 (replacing _attn_kernel and _attn_bwd_kernel).
+    per square crop, 2701 for the entire A image), and at head widths the
+    fused route does not take, the heads are split into [B, H, N, dh] q, k,
+    v and multi_head_attention runs forward kernel K5 and backward K6
+    (replacing _attn_kernel and _attn_bwd_kernel) at every dh % 64 == 0,
+    as the reference's pallas_attention_supported; dh = 64 on the kernels
+    K1/K2 share, wider heads on their chunked forms (csrc fwd_wide and
+    bwd_wide: 64-column chunks of the contraction, a block a chunk of the
+    output columns).
 
 All four kernels are in csrc/attention.cu and run on the tensor cores,
 each through one set of kernels for both layouts: bf16 through wgmma,
@@ -145,7 +150,8 @@ def check_tma_operands(name: str, *ts: torch.Tensor) -> None:
     fp32) for the tensors they read and write: each address 16-byte
     aligned (a contiguous view can start anywhere in its storage). Their
     strides need no check: the wrappers take contiguous tensors only, and
-    head dim 64 makes every stride but the last a multiple of 128 bytes.
+    a head width that is a multiple of 64 makes every stride but the
+    last a multiple of 128 bytes.
     Raises ValueError; the kernels never copy a tensor to an address they
     can read."""
     for t in ts:
@@ -213,29 +219,31 @@ attn_qkv_bwd_cuda.tc_launches = 0
 def _split_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  n_valid: int):
     B, H, N, dh = q.shape
-    if dh != HEAD_DIM or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"attention kernels need [B, H, N, {HEAD_DIM}] q, "
-                         f"k, v of one shape; got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if dh % HEAD_DIM or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"attention kernels need [B, H, N, dh] q, k, v of "
+                         f"one shape, dh a multiple of {HEAD_DIM}; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     valid = n_valid if 0 < n_valid <= N else N
-    return B, H, N, valid
+    return B, H, N, dh, valid
 
 
 def attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float, n_valid: int = 0) -> torch.Tensor:
-    """K5 on the card: [B, H, N, 64] q, k, v -> [B, H, N, 64], bf16 or
-    fp32 (split TF32), on the tensor cores (also counted in
-    tc_launches)."""
-    B, H, N, valid = _split_shape(q, k, v, n_valid)
+    """K5 on the card: [B, H, N, dh] q, k, v -> [B, H, N, dh] (dh a
+    multiple of 64), bf16 or fp32 (split TF32), on the tensor cores (also
+    counted in tc_launches)."""
+    B, H, N, dh, valid = _split_shape(q, k, v, n_valid)
     dtype = _build.check_cuda_tensors("attn_fwd", q, k, v)
     out = torch.empty_like(q)
     check_tma_operands("attn_fwd", q, k, v, out)
     fn = _build.library("attention").attn_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                N, H, valid, float(scale), dtype, _build.stream_ptr(q.device))
+                N, H, dh, valid, float(scale), dtype,
+                _build.stream_ptr(q.device))
     _build.check(status, "attn_fwd")
     attn_fwd_cuda.launches += 1
     attn_fwd_cuda.tc_launches += 1
@@ -248,11 +256,13 @@ attn_fwd_cuda.tc_launches = 0
 
 def attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   g: torch.Tensor, scale: float, n_valid: int = 0):
-    """K6 on the card: (q, k, v, g), each [B, H, N, 64] -> (dq, dk, dv) in
-    the inputs' type. Three launches (row statistics, dk/dv, dq) counted as
-    one call; bf16 and fp32 (split TF32) on the tensor cores (also counted
-    in tc_launches)."""
-    B, H, N, valid = _split_shape(q, k, v, n_valid)
+    """K6 on the card: (q, k, v, g), each [B, H, N, dh] (dh a multiple of
+    64) -> (dq, dk, dv) in the inputs' type. Three launches (row
+    statistics, dk/dv, dq; above dh = 64 also one that adds the
+    statistics' per-chunk delta, and in bf16 dk and dv in a launch each)
+    counted as one call; bf16 and fp32 (split TF32) on the tensor cores
+    (also counted in tc_launches)."""
+    B, H, N, dh, valid = _split_shape(q, k, v, n_valid)
     if g.shape != q.shape:
         raise ValueError(f"attn_bwd: cotangent {tuple(g.shape)} vs "
                          f"{tuple(q.shape)}")
@@ -261,14 +271,16 @@ def attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     check_tma_operands("attn_bwd", q, k, v, g, dq, dk, dv)
     lse = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    # a wide head's statistics pass sums delta per 64-column chunk
+    delta = torch.empty(dh // HEAD_DIM, B, H, N, dtype=torch.float32,
+                        device=q.device)
     fn = _build.library("attention").attn_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), B, N, H, valid, float(scale), dtype,
+                delta.data_ptr(), B, N, H, dh, valid, float(scale), dtype,
                 _build.stream_ptr(q.device))
     _build.check(status, "attn_bwd")
     attn_bwd_cuda.launches += 1
@@ -361,12 +373,12 @@ def pallas_attention_supported(q: torch.Tensor) -> bool:
 
 
 def split_attention_supported(q: torch.Tensor) -> bool:
-    """The port's gate for K5/K6, in the reference's place (:687): heads of
-    dh = 64, the width K5/K6 are built for. Every other dh takes
-    library_attention, the reference's _xla_attention route; the reference
-    takes dh = 128, 192, ... on its kernel, the port on the library (a
-    deviation, ROADMAP C)."""
-    return q.shape[3] == HEAD_DIM
+    """The port's gate for K5/K6, in the reference's place (:687): the
+    reference's pallas_attention_supported less its _MAX_N_PAD cap (K5 has
+    no length cap), i.e. every dh % 64 == 0 (64 on the kernels K1 shares,
+    128, 192, ... on their chunked forms). Every other dh takes
+    library_attention, the reference's _xla_attention route."""
+    return q.shape[3] % HEAD_DIM == 0
 
 
 def xla_attention_plain(q, k, v, scale: float,
@@ -400,9 +412,9 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float, n_valid: int = 0,
                          use_pallas: bool = True) -> torch.Tensor:
     """Softmax attention over [B, H, N, dh] tensors (differentiable): K5/K6
-    on CUDA tensors at every N where split_attention_supported says so;
-    library_attention without use_pallas or at another dh (the reference's
-    route, :687-690)."""
+    on CUDA tensors at every N and every dh that split_attention_supported
+    takes (dh % 64 == 0); library_attention without use_pallas or at
+    another dh (the reference's route, :687-690)."""
     if not use_pallas or not split_attention_supported(q):
         return library_attention(q, k, v, scale, n_valid)
     return AttnSplit.apply(q, k, v, float(scale), int(n_valid))

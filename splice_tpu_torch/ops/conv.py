@@ -45,7 +45,9 @@ stride 2 (conv_fwd_px and conv_dw_px, tiled by fwd_px_tiling and
 dw_px_tiling: the contraction split across blocks, as the inversion net's
 7x7 and 5x5 sites need to fill the card), except that K4 at Cout <= 16
 keeps conv_dw_tc where its grid busies half the SMs (dw_px_form); K7
-takes its own kernel at k in GTAP_KS and K4 elsewhere. fp32 K3 and K4 run
+takes its own kernel at every k >= 2 (conv_dw_tc's cotangent-tapped
+instances at k in DW_TC_GTAP_KS, conv_dw_px's cotangent-tapped mode at
+every other k). fp32 K3 and K4 run
 on the tensor cores too, in split TF32 (three TF32 products a product,
 csrc/tf32.cuh, which keep the fp32 steps' 1e-4 gates), through one kernel
 each for every form at any k (conv_fwd_tf32 and conv_dw_tf32, tiled by
@@ -90,11 +92,10 @@ DW_TC_BLOCKS = 528
 DW_TC_KS = (1, 2, 3, 4, 5, 7)   # csrc conv_dw_tc's instances
 DW_TC_NARROW = 16         # K4's Cout that may keep conv_dw_tc at k >= 4
 
-# K7's k on its own kernels: the odd k > 1 that the SAME route reaches with
-# the generators' filters (3, 5, 7) and k = 2 for VALID K7 on a bordered
-# input. At any other k, conv_route sends K7's weight gradient to K4, which
-# computes the same function (every other kernel takes any k).
-GTAP_KS = (2, 3, 5, 7)
+# bf16 K7's k on conv_dw_tc's cotangent-tapped instances (the generators'
+# SAME filters 3, 5, 7 and k = 2 for VALID K7 on a bordered input); every
+# other k >= 2 takes conv_dw_px's cotangent-tapped mode (a run-time k).
+DW_TC_GTAP_KS = (2, 3, 5, 7)
 
 # bf16 K3 on the tensor cores at k <= 3 (csrc/conv.cu, namespace fwdtc;
 # conv_route sends larger k to the pixel-major form): a block holds up to
@@ -133,6 +134,14 @@ PX_WAVE = 132
 PX_CLUSTER = 8            # csrc px::CLUSTER
 PX_PARTIAL = 8 << 20
 PX_PCH = 512              # csrc px::THREADS * px::PPT
+# K7 on conv_dw_px's cotangent-tapped mode: at most PX_GTAP_NB n8 tiles of
+# Cin a block (csrc conv_dw_px), strips of at most PX_GTAP_STAGES stages
+# (4096 pixels: each warp's fp32 chains over at most 256 k16 steps, as the
+# tensor cores truncate as they accumulate), their partials within
+# PX_GTAP_PARTIAL bytes
+PX_GTAP_NB = 2
+PX_GTAP_STAGES = 16
+PX_GTAP_PARTIAL = 64 << 20
 
 # fp32 K3 and K4 on the tensor cores in split TF32 (csrc/conv.cu, namespace
 # tc32). K3: a block owns a strip of output pixels and nb n8 tiles of Cout
@@ -471,9 +480,10 @@ def conv_route(op: str, dtype: torch.dtype, k: int, stride: int, cv: int,
     """The kernel and form that run a conv on the card, decided from its
     shape before any launch (pure Python: the CPU tests call it). op "fwd"
     is K3 (the forward and every input gradient), "dw" the weight gradient:
-    K7 where it is wanted and built (gtap, or `same` where the reference's
-    _dw_impl picks it: DW_TAP_ON_N and _gtap_better) at k in GTAP_KS and
-    stride 1, else K4. k is the kernel the launch reads (k2 for a stride-2
+    K7 where it is wanted (gtap, or `same` where the reference's _dw_impl
+    picks it: DW_TAP_ON_N and _gtap_better) at stride 1 and any k >= 2
+    (bf16: conv_dw_tc at k in DW_TC_GTAP_KS, conv_dw_px's cotangent-tapped
+    mode at the others), else K4. k is the kernel the launch reads (k2 for a stride-2
     phase kernel, which `phase` also marks at stride 1); cv the channels of
     V (s*s*Cin; for K7 the input's); [batch, ho, wo] the output. bf16 takes
     the tensor cores (px_form picks K3's form, dw_px_form K4's); fp32 K3,
@@ -497,12 +507,16 @@ def conv_route(op: str, dtype: torch.dtype, k: int, stride: int, cv: int,
     if op != "dw":
         raise ValueError(f"conv_route: op {op!r}")
     gtap = gtap or (same and DW_TAP_ON_N and _gtap_better(k, cv, cout))
-    if gtap and stride == 1 and k in GTAP_KS:
+    if gtap and stride == 1 and k >= 2:
+        hp, wp = ho + k - 1, wo + k - 1
         if not bf16:
             return ConvRoute("K7", "tf32", "conv_dw_tf32", dw_tf32_tiling(
-                k, cout, cv, batch, ho + k - 1, wo + k - 1, gtap=True))
-        return ConvRoute("K7", "tc", "conv_dw_tc", dw_tc_tiling(
-            k, cout, cv, batch, ho + k - 1, wo + k - 1))
+                k, cout, cv, batch, hp, wp, gtap=True))
+        if k in DW_TC_GTAP_KS:
+            return ConvRoute("K7", "tc", "conv_dw_tc", dw_tc_tiling(
+                k, cout, cv, batch, hp, wp))
+        return ConvRoute("K7", "px", "conv_dw_px",
+                         dw_px_gtap_tiling(k, cout, cv, batch, hp, wp))
     if not bf16:
         return ConvRoute("K4", "tf32", "conv_dw_tf32",
                          dw_tf32_tiling(k, cv, cout, batch, ho, wo))
@@ -603,7 +617,8 @@ class DwPxTiling(NamedTuple):
 
 
 def dw_px_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
-                 wp: int) -> DwPxTiling:
+                 wp: int, max_nb: int = 4, max_stages: int = 0,
+                 partial: int = PX_PARTIAL) -> DwPxTiling:
     """How conv_dw_px splits dw[t, s, u] = sum_p V[s, p + t] U[u, p] over
     the pixels of [batch, hp, wp]: channel groups of 16 of V; chunks of nb
     n8 tiles of U (at most 4, fewer where a tap row outnumbers the warps'
@@ -614,10 +629,12 @@ def dw_px_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
     (conv_dw_sum_kernel reads them all). Where the grid stays under half
     of PX_WAVE, smaller tap-row groups (each restages V and U), then
     narrower chunks of U: the first candidate that reaches it, else the
-    largest grid."""
-    nb = 1 if cu <= 8 else 2 if cu <= 16 else 4
+    largest grid. max_nb caps nb, max_stages (if given) a strip's stages
+    where `partial` bytes of partials allow it (K7's cotangent-tapped mode:
+    dw_px_gtap_tiling)."""
+    nb = min(max_nb, 1 if cu <= 8 else 2 if cu <= 16 else 4)
     sy, sx = -(-hp // PX_ROWS), -(-wp // PX_COLS)
-    max_slices = max(1, PX_PARTIAL // (4 * k * k * cs * cu))
+    max_slices = max(1, partial // (4 * k * k * cs * cu))
     best = None
     while nb >= 1:
         for ndy in _tap_rows(k):
@@ -626,8 +643,10 @@ def dw_px_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
                 continue
             base = -(-cs // 16) * -(-k // ndy) * -(-cu // (8 * nb))
             per = max(1, PX_BLOCKS // base)
-            spb = max(1, -(-batch * sy * sx // per),
-                      -(-batch * sy * sx // max_slices))
+            spb = max(1, -(-batch * sy * sx // per))
+            if max_stages:
+                spb = min(spb, max_stages)
+            spb = max(spb, -(-batch * sy * sx // max_slices))
             while True:
                 if spb >= sx:
                     rows, cols = PX_ROWS * (spb // sx), PX_COLS * sx
@@ -647,6 +666,18 @@ def dw_px_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
     if best is None:
         raise ValueError(f"dw_px_tiling: no tiling of k = {k} fits")
     return best
+
+
+def dw_px_gtap_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
+                      wp: int) -> DwPxTiling:
+    """conv_dw_px's cotangent-tapped mode (K7: cs = Cout tapped, cu = Cin
+    over [Ho + k - 1, Wo + k - 1]): dw_px_tiling with at most PX_GTAP_NB n8
+    tiles a block and strips of at most PX_GTAP_STAGES stages within
+    PX_GTAP_PARTIAL bytes of partials. Strips as long as dw_px_tiling's
+    (38 at up_conv s0, k = 9: 43,000 pixels) put K7 5.7e-5 x max|plain|
+    from its plain version, against 3.6e-6 for conv_dw_tc's K7 at k = 5."""
+    return dw_px_tiling(k, cs, cu, batch, hp, wp, PX_GTAP_NB, PX_GTAP_STAGES,
+                        PX_GTAP_PARTIAL)
 
 
 class FwdTiling(NamedTuple):
@@ -1017,24 +1048,27 @@ def _launch_dw_tc(x, g, k, pad, stride, scale, shift, negslope, gtap, t,
     return dw
 
 
-def _launch_dw_px(x, g, k, pad, stride, scale, shift, negslope, t, name):
-    """bf16 K4 on the pixel-major kernel (conv_dw_px), tiled by t
-    (dw_px_tiling): fp32 [k, k, s*s*Cin, Cout]."""
+def _launch_dw_px(x, g, k, pad, stride, scale, shift, negslope, gtap, t,
+                  name):
+    """bf16 K4 (gtap False: fp32 [k, k, s*s*Cin, Cout]) or K7 (gtap True,
+    stride 1: fp32 [Cin, k*k*Cout], taps not yet reversed) on the
+    pixel-major kernel (conv_dw_px), tiled by t (dw_px_tiling)."""
     B, cin, h, wd = x.shape
     cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
     sp, tp, G = _prologue_args(x, scale, shift)
     cv = stride * stride * cin
     partial = torch.empty(t.slices, k * k * cv * cout, dtype=torch.float32,
                           device=x.device)
-    dw = torch.empty(k, k, cv, cout, dtype=torch.float32, device=x.device)
+    shape = (cin, k * k * cout) if gtap else (k, k, cv, cout)
+    dw = torch.empty(shape, dtype=torch.float32, device=x.device)
     fn = _build.library("conv").conv_dw_px
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
-        + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     status = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
                 dw.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, pad,
-                stride, G, float(negslope), t.rows, t.cols, t.ndy, t.nb,
-                _build.stream_ptr(x.device))
+                stride, G, float(negslope), int(gtap), t.rows, t.cols, t.ndy,
+                t.nb, _build.stream_ptr(x.device))
     _build.check(status, name)
     return dw
 
@@ -1076,9 +1110,8 @@ def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name,
                gtap: bool = False):
     """The weight gradient over the virtual input of x on the kernel that
     conv_route names: fp32 [k, k, s*s*Cin, Cout]; g must be in x's type.
-    K4, or with gtap (stride 1) K7 where its kernels are built for k (its
-    taps reversed here); bf16 on the tensor cores, fp32 too (split
-    TF32)."""
+    K4, or with gtap (stride 1, k >= 2) K7 (its taps reversed here); bf16
+    on the tensor cores, fp32 too (split TF32)."""
     x, g = x.contiguous(), g.contiguous()
     _build.check_cuda_tensors(name, x, g)
     if g.shape[0] != x.shape[0] or stride not in (1, 2) or (
@@ -1088,9 +1121,8 @@ def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name,
     route = _dw_route(x, g, k, stride, gtap)
     args = (x, g, k, pad, stride, scale, shift, negslope)
     gtap = route.kernel == "K7"
-    if route.form == "px":
-        return _launch_dw_px(*args, route.tiling, name)
-    launch = _launch_dw_tc if route.form == "tc" else _launch_dw_tf32
+    launch = {"px": _launch_dw_px, "tc": _launch_dw_tc,
+              "tf32": _launch_dw_tf32}[route.form]
     dw = launch(*args, gtap, route.tiling, name)
     return _reverse_taps(dw, k) if gtap else dw
 
@@ -1160,7 +1192,7 @@ def conv_dw_gtap_cuda(x: torch.Tensor, g: torch.Tensor, k: int,
                       negslope: float = 1.0, pad: int = 0) -> torch.Tensor:
     """K7 on the card: fp32 [k, k, Cin, Cout] by tapping the cotangent; pad
     (k-1)//2 is SAME, pad 0 on a padded x VALID. g must be in x's type.
-    At a k outside GTAP_KS conv_route runs K4, the same function. Every
+    Any k >= 2 (at k = 1 conv_route runs K4, the same function). Every
     launch runs on the tensor cores (bf16, and fp32 in split TF32) and also
     counts in tc_launches."""
     dw = _launch_dw(x, g, k, pad, 1, scale, shift, negslope, "conv_dw_gtap",
@@ -1300,8 +1332,8 @@ def conv_weight_grad(x, g, k: int, scale=None, shift=None,
                      same: bool = False):
     """K4 for a CUDA tensor, in the form of conv_forward; with `same`, K7
     where the reference's _dw_impl (:647) routes it (DW_TAP_ON_N and
-    _gtap_better(k, Cin, Cout)) and conv_route finds it built for k. The
-    plain version for a CPU tensor. fp32 [k, k, s*s*Cin, Cout]."""
+    _gtap_better(k, Cin, Cout)), at any k. The plain version for a CPU
+    tensor. fp32 [k, k, s*s*Cin, Cout]."""
     g = g.to(x.dtype)
     if not x.is_cuda:
         if same and DW_TAP_ON_N and _gtap_better(k, x.shape[1], g.shape[1]):

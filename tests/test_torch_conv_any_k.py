@@ -28,7 +28,8 @@ DTYPES = (torch.bfloat16, torch.float32)
 ENTRIES = {("K3", "tc"): "conv_fwd_tc", ("K3", "px"): "conv_fwd_px",
            ("K3", "tf32"): "conv_fwd_tf32", ("K4", "tc"): "conv_dw_tc",
            ("K4", "px"): "conv_dw_px", ("K4", "tf32"): "conv_dw_tf32",
-           ("K7", "tc"): "conv_dw_tc", ("K7", "tf32"): "conv_dw_tf32"}
+           ("K7", "tc"): "conv_dw_tc", ("K7", "px"): "conv_dw_px",
+           ("K7", "tf32"): "conv_dw_tf32"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -71,8 +72,9 @@ def test_route_names_a_kernel_for_every_k(k, stride, same, dtype,
     """Every route names a C entry of the port and a tiling that fits its
     kernel; bf16 runs on the tensor cores in the channel-major forms
     exactly where
-    px_form says no; K7 only at the k its kernels are built for (else K4,
-    the same function); fp32 K3, K4 and K7 on the split-TF32 forms (a
+    px_form says no; K7 at every k >= 2 where it is wanted (bf16: conv_dw_tc
+    at DW_TC_GTAP_KS, conv_dw_px's cotangent-tapped mode at the other k,
+    with a tiling that fits); fp32 K3, K4 and K7 on the split-TF32 forms (a
     tiling whose tap-row groups cover k and whose shared memory fits a
     block; K7's with its cotangent's channels tapped, Cin on N, over V's
     extent). None raises."""
@@ -82,7 +84,7 @@ def test_route_names_a_kernel_for_every_k(k, stride, same, dtype,
         assert ENTRIES[(r.kernel, r.form)] == r.entry
         if dtype == torch.float32:
             if r.kernel == "K7":
-                assert kk in tconv.GTAP_KS
+                assert kk >= 2
                 # cotangent-tapped: Cout's channels on M, Cin on N
                 assert r.tiling == tconv.dw_tf32_tiling(
                     kk, 24, 20, 2, 37 + kk - 1, 37 + kk - 1, gtap=True)
@@ -99,7 +101,13 @@ def test_route_names_a_kernel_for_every_k(k, stride, same, dtype,
             continue
         phase = stride == 2
         if r.kernel == "K7":
-            assert r.form == "tc" and kk in tconv.GTAP_KS
+            # conv_dw_tc's instances at DW_TC_GTAP_KS, conv_dw_px's
+            # cotangent-tapped mode at every other k >= 2
+            assert kk >= 2
+            assert r.form == ("tc" if kk in tconv.DW_TC_GTAP_KS else "px")
+            if r.form == "px":
+                assert r.tiling == tconv.dw_px_gtap_tiling(
+                    kk, 24, 20, 2, 37 + kk - 1, 37 + kk - 1)
         else:
             # Cout 24: K4's rule is K3's (dw_px_form)
             assert r.form == ("px" if tconv.px_form(kk, phase) else "tc")
@@ -108,12 +116,13 @@ def test_route_names_a_kernel_for_every_k(k, stride, same, dtype,
             assert tconv.fwd_px_smem(kk, t.ndy, t.mt,
                                      1 if t.cps == 1 else 2) <= tconv.PX_SMEM
             assert t.n_dyg * t.ndy >= kk > (t.n_dyg - 1) * t.ndy
-        if r.form == "px" and r.kernel == "K4":
+        if r.form == "px" and r.kernel in ("K4", "K7"):
             t = r.tiling
             assert tconv.dw_px_smem(kk, t.ndy, t.nb) <= tconv.PX_SMEM
             assert -(-t.ndy * kk // 8) <= 16 // t.nb
-    if stride == 1 and kk not in tconv.GTAP_KS:
-        assert routes[3].kernel == "K4"
+    if stride == 1:
+        # K7 asked for by name: its own kernel at every k >= 2
+        assert routes[3].kernel == ("K7" if kk >= 2 else "K4")
 
 
 # The training net's bf16 K3/K4 calls (k <= 3: its 3x3 and 1x1, the k2 = 2
@@ -206,12 +215,55 @@ def test_k4_keeps_the_tc_form_only_at_narrow_cout_on_a_busy_grid(
             assert r.form == "tc"
 
 
+@pytest.mark.parametrize("k", [4, 6, 8, 9, 10, 11])
+@pytest.mark.parametrize("cin,cout,batch,hw", [(36, 16, 2, 896),
+                                               (68, 32, 2, 448),
+                                               (36, 16, 1, 900)])
+def test_px_gtap_tiling_fits_the_kernel(k, cin, cout, batch, hw):
+    """bf16 K7 outside DW_TC_GTAP_KS at the SAME route's up_conv sites (and
+    the entire A's B = 1): conv_dw_px's cotangent-tapped mode with Cout's
+    channels tapped (one 16-channel group at Cout 16, two at 32), Cin on
+    N in n8 tiles of at most PX_GTAP_NB a block (its instances), over V's
+    extent [Ho + k - 1, Wo + k - 1]; its ring within PX_SMEM,
+    the tap-row group's taps within the 8 warps' 16 / nb, V's tile within
+    the PX_ITEMS pixels a thread holds, its partials within
+    PX_GTAP_PARTIAL unless each image is one strip, strips of at most
+    PX_GTAP_STAGES stages (or one row of stages) where the partials allow
+    it, and a grid of at least half a wave."""
+    r = tconv.conv_route("dw", torch.bfloat16, k, 1, cin, cout, batch, hw,
+                         hw, gtap=True)
+    t = r.tiling
+    hp = hw + k - 1
+    assert (r.kernel, r.form, r.entry) == ("K7", "px", "conv_dw_px")
+    assert t == tconv.dw_px_gtap_tiling(k, cout, cin, batch, hp, hp)
+    assert t.nb <= tconv.PX_GTAP_NB
+    assert tconv.dw_px_smem(k, t.ndy, t.nb) <= tconv.PX_SMEM
+    assert -(-t.ndy * k // 8) <= 16 // t.nb
+    assert (tconv.PX_ROWS + t.ndy - 1) * (tconv.PX_COLS + k - 1) \
+        <= tconv.PX_ITEMS * tconv.PX_THREADS
+    assert t.rows % tconv.PX_ROWS == 0 and t.cols % tconv.PX_COLS == 0
+    assert t.slices == batch * -(-hp // t.rows) * -(-hp // t.cols)
+    slice_bytes = 4 * k * k * cin * cout
+    if t.slices > batch:
+        assert t.slices * slice_bytes <= tconv.PX_GTAP_PARTIAL
+    stages = t.rows * t.cols // (tconv.PX_ROWS * tconv.PX_COLS)
+    if stages > tconv.PX_GTAP_STAGES:
+        # longer only where the partials force it: one row of stages more
+        # would exceed PX_GTAP_PARTIAL
+        assert t.rows == tconv.PX_ROWS or batch * -(-hp // (
+            t.rows - tconv.PX_ROWS)) * slice_bytes > tconv.PX_GTAP_PARTIAL
+    assert t.blocks == t.slices * -(-cout // 16) * -(-k // t.ndy) \
+        * -(-cin // (8 * t.nb))
+    assert 2 * t.blocks >= tconv.PX_WAVE
+
+
 def test_gtap_route_follows_the_reference_rule(monkeypatch):
-    """With `same`, K7 exactly where _gtap_better and DW_TAP_ON_N say so
-    and its kernels are built for k; never with DW_TAP_ON_N off."""
-    for k in (3, 5, 7, 9):
+    """With `same`, K7 exactly where _gtap_better and DW_TAP_ON_N say so,
+    at every odd k > 1 (the reference's _dw_impl rule); never with
+    DW_TAP_ON_N off."""
+    for k in (3, 5, 7, 9, 11):
         for cin, cout in ((36, 16), (4, 64), (16, 16)):
-            want = tconv._gtap_better(k, cin, cout) and k in tconv.GTAP_KS
+            want = tconv._gtap_better(k, cin, cout)
             r = tconv.conv_route("dw", torch.bfloat16, k, 1, cin, cout, 2,
                                  40, 40, same=True)
             assert (r.kernel == "K7") == want

@@ -2,7 +2,12 @@
 generator default takes): splice_tpu_torch.models.unet.skip_apply_chw
 against splice_tpu's, the convs through the kernels' routes (the plain
 versions of K3/K4 on the CPU; the reference's Pallas kernels in interpret
-mode). fp32, two BatchNorm stacks. Tolerances as
+mode), with the SAME-border route off and on (both packages'
+SAME_BORDER_KERNELS: the 9x9 up convs' weight gradient then takes K7, the
+cotangent-tapped form, where _gtap_better says so: the reference's
+_dw_gtap_impl at k = 9, the port's conv_dw_gtap_plain on the CPU and
+conv_dw_px's cotangent-tapped mode on the card in bf16). fp32, two
+BatchNorm stacks. Tolerances as
 tests/test_torch_generator_modes.py: output rtol 1e-5, atol 1e-6; flat
 gradient rtol 1e-4 with atol 1e-4 x its largest entry.
 """
@@ -14,7 +19,9 @@ import torch
 from jax.flatten_util import ravel_pytree
 
 from splice_tpu.models import unet as junet
+from splice_tpu.ops import conv_pallas
 from splice_tpu_torch.models import unet as tunet
+from splice_tpu_torch.ops import conv as tconv
 from splice_tpu_torch.utils.tree import tree_map
 
 
@@ -40,6 +47,29 @@ def test_generator_with_9x9_up_filters_matches_jax(mode, monkeypatch):
     two BatchNorm stacks; both packages' FORCE_FUSED_KERNELS_ON_CPU on, so
     fused routes every BatchNorm consumer through the prologue kernels
     (JAX: the Pallas kernels in interpret mode)."""
+    _check_against_jax(mode, monkeypatch)
+
+
+@pytest.mark.parametrize("mode", ["pallas"])
+def test_9x9_generator_on_the_same_route_matches_jax(mode, monkeypatch):
+    """The same generator with both packages' SAME_BORDER_KERNELS on: the
+    9x9 up convs take the SAME forms, and their weight gradient K7 (the
+    cotangent-tapped form) at k = 9 wherever _gtap_better says so (every
+    up conv here), as the reference's _dw_impl routes it. pallas only:
+    fused adds the prologue to the same K7 sites and costs the reference
+    about 40 s of interpret-mode compilation."""
+    monkeypatch.setattr(conv_pallas, "SAME_BORDER_KERNELS", True)
+    monkeypatch.setattr(tconv, "SAME_BORDER_KERNELS", True)
+    gtap = []
+    plain = tconv.conv_dw_gtap_plain
+    monkeypatch.setattr(tconv, "conv_dw_gtap_plain",
+                        lambda x, g, k, *a, **kw: gtap.append(k)
+                        or plain(x, g, k, *a, **kw))
+    _check_against_jax(mode, monkeypatch)
+    assert gtap and set(gtap) == {9}
+
+
+def _check_against_jax(mode, monkeypatch):
     monkeypatch.setattr(junet, "FORCE_FUSED_KERNELS_ON_CPU", True)
     monkeypatch.setattr(tunet, "FORCE_FUSED_KERNELS_ON_CPU", True)
     jcfg, tcfg = junet.SkipConfig(**TINY_UNET), tunet.SkipConfig(**TINY_UNET)

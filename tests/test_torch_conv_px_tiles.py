@@ -193,14 +193,28 @@ def emulate_fwd_px(x, w, out_hw, pad=0, stride=1, scale=None, shift=None,
 
 
 def emulate_dw_px(x, g, k, pad=0, stride=1, scale=None, shift=None,
-                  negslope=1.0):
-    """conv_dw_px's blocks and conv_dw_sum_kernel: fp32 [k, k, Cs, Cu]."""
+                  negslope=1.0, gtap=False):
+    """conv_dw_px's blocks and conv_dw_sum_kernel: fp32 [k, k, Cs, Cu].
+    gtap (K7's cotangent-tapped mode): the tapped operand is g read with a
+    border of k - 1, the untapped one V over [Ho + k - 1, Wo + k - 1]
+    (load_u: x through Src, the prologue on x's own pixels), Cs = Cout, Cu
+    = Cin; the sum transposes to [Cin, k*k*Cout] and the taps are reversed
+    as the wrapper reverses them: fp32 [k, k, Cin, Cout]."""
     B, cin = x.shape[:2]
-    cu, hp, wp = g.shape[1:]
-    cs = stride * stride * cin
-    t = conv.dw_px_tiling(k, cs, cu, B, hp, wp)
+    if gtap:
+        ho, wo = g.shape[2:]
+        cs, cu, hp, wp = g.shape[1], cin, ho + k - 1, wo + k - 1
+        t = conv.conv_route("dw", torch.bfloat16, k, 1, cin, cs, B, ho, wo,
+                            gtap=True).tiling
+        assert t == conv.dw_px_gtap_tiling(k, cs, cu, B, hp, wp)
+        operand = (g, None, None, 1.0, k - 1, 1)
+        uop = (x, scale, shift, negslope, pad, 1)
+    else:
+        cu, hp, wp = g.shape[1:]
+        cs = stride * stride * cin
+        t = conv.dw_px_tiling(k, cs, cu, B, hp, wp)
+        operand = (x, scale, shift, negslope, pad, stride)
     nb8, vcols = 8 * t.nb, TC + k - 1
-    operand = (x, scale, shift, negslope, pad, stride)
     strips = [(b, r0, q0) for b in range(B) for r0 in range(0, hp, t.rows)
               for q0 in range(0, wp, t.cols)]
     assert len(strips) == t.slices
@@ -227,8 +241,15 @@ def emulate_dw_px(x, g, k, pad=0, stride=1, scale=None, shift=None,
                             view[:, :, :TC] = 0.0
                             us = min(nb8, cu - n0)
                             ys, xs = min(TR, r1 - y0), min(TC, q1 - x0)
-                            view[:us, :ys, :xs] = gf[b, n0:n0 + us,
-                                                     y0:y0 + ys, x0:x0 + xs]
+                            if gtap:
+                                view[:us, :ys, :xs] = read_src(
+                                    *uop, b, range(n0, n0 + us),
+                                    torch.arange(y0, y0 + ys),
+                                    torch.arange(x0, x0 + xs))
+                            else:
+                                view[:us, :ys, :xs] = gf[b, n0:n0 + us,
+                                                         y0:y0 + ys,
+                                                         x0:x0 + xs]
                             gt = gt.reshape(-1)
                             # the k16 steps run: stage rows before r1,
                             # 16-column blocks starting before q1
@@ -259,7 +280,11 @@ def emulate_dw_px(x, g, k, pad=0, stride=1, scale=None, shift=None,
     nw = min(32, t.slices)
     s = [partial[w::nw].sum(0) if len(partial[w::nw]) == 1 else
          _in_order(partial[w::nw]) for w in range(nw)]
-    return _in_order(torch.stack(s)).reshape(k, k, cs, cu)
+    d = _in_order(torch.stack(s))
+    if gtap:
+        # conv_dw_sum_kernel<true>: D[(t', co), ci] -> [Cin, k*k*Cout]
+        return conv._reverse_taps(d.reshape(-1, cu).t().contiguous(), k)
+    return d.reshape(k, k, cs, cu)
 
 
 def _in_order(rows):
@@ -339,6 +364,31 @@ def test_dw_px_matches_plain_at_the_inversion_sites(cin, cout, h, w, k,
     g = torch.from_numpy(rng.standard_normal((1, cout, ho, wo), np.float32))
     _check(emulate_dw_px(x, g, kk, 0, stride),
            conv.conv_dw_pro_plain(x, g, kk, None, None, 1.0, 0, stride))
+
+
+# K7's cotangent-tapped mode of conv_dw_px (bf16 K7 at every k outside
+# DW_TC_GTAP_KS): (k, pad, Cin, Cout, H, W, BatchNorm stacks): the SAME
+# border of k = 9 and 11 with the prologue over two stacks (a negative
+# scale), k = 4 and 6 with a border of 1 (even k: no SAME pad), Cin 3 and
+# 40 (ragged n8 chunks of the untapped V), H < k, and widths past one
+# 32-column stage
+GTAP_PX_CASES = ((9, 4, 12, 20, 13, 37, 2), (11, 5, 3, 16, 9, 21, 0),
+                 (4, 1, 40, 8, 10, 45, 2), (6, 1, 12, 24, 5, 40, 0))
+
+
+@pytest.mark.parametrize("k,pad,cin,cout,h,w,groups", GTAP_PX_CASES)
+def test_dw_px_gtap_matches_plain(k, pad, cin, cout, h, w, groups):
+    x, _, sc, sh = _inputs(k + cin, 2, cin, h, w, 1, 1, 1, groups)
+    ho, wo = h + 2 * pad - k + 1, w + 2 * pad - k + 1
+    rng = np.random.default_rng(cout + k)
+    g = torch.from_numpy(rng.standard_normal((2, cout, ho, wo), np.float32))
+    ns = 0.2 if groups else 1.0
+    route = conv.conv_route("dw", torch.bfloat16, k, 1, cin, cout, 2, ho, wo,
+                            gtap=True)
+    assert (route.kernel, route.form, route.entry) == ("K7", "px",
+                                                       "conv_dw_px")
+    _check(emulate_dw_px(x, g, k, pad, 1, sc, sh, ns, gtap=True),
+           conv.conv_dw_gtap_plain(x, g, k, sc, sh, ns, pad))
 
 
 # Edge shapes: (k, pad, stride, Cin, Cout, H, W, BatchNorm stacks,

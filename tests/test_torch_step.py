@@ -86,19 +86,43 @@ def setup():
 
 
 _JAX_STEPS = {}
+_JAX_FNS = {}
 
 
 def _jax_step(setup, draws, lam, entire):
     """Loss, gradient and the parameters after one optax.adam update, by
     the JAX package's public functions in the trainer's order (computed
-    once per step kind: the fused cases reuse them)."""
-    key = (entire, tuple(sorted(lam.items())))
+    once per step kind and draws: the fused cases reuse them)."""
+    key = (entire, tuple(sorted(lam.items())), repr(draws.crops_A),
+           repr(draws.crops_B))
     if key not in _JAX_STEPS:
-        _JAX_STEPS[key] = _jax_step_uncached(setup, draws, lam, entire)
+        _JAX_STEPS[key] = _jax_step_uncached(setup, draws, lam)
     return _JAX_STEPS[key]
 
 
-def _jax_step_uncached(setup, draws, lam, entire):
+def _jax_step_uncached(setup, draws, lam):
+    jflat = setup[3]
+    lams = {k: jnp.float32(v) for k, v in lam.items()}
+    total, grad = _jax_loss_and_grad(setup, draws)(jnp.asarray(jflat), lams)
+    tx = optax.adam(LR, b1=0.0, b2=0.99, eps=1e-8)
+    upd, _ = tx.update(grad, tx.init(jnp.asarray(jflat)), jnp.asarray(jflat))
+    new = optax.apply_updates(jnp.asarray(jflat), upd)
+    return float(total), np.asarray(grad), np.asarray(new)
+
+
+def _jax_loss_and_grad(setup, draws):
+    """The JAX composition's jitted loss and gradient for these draws, the
+    lambdas an argument: one compilation serves the regular and the entire
+    step. It always builds the entire A's terms; a regular step's lambdas
+    weight them by 0 (lambdas_for_step), which adds exact zeros to the total
+    and the gradient."""
+    key = (repr(draws.crops_A), repr(draws.crops_B))
+    if key not in _JAX_FNS:
+        _JAX_FNS[key] = jax.jit(jax.value_and_grad(_jax_loss(setup, draws)))
+    return _JAX_FNS[key]
+
+
+def _jax_loss(setup, draws):
     A, B, jvp, jflat, unravel = setup
     ext = jext.VitExtractor(params=jvp, cfg=jvit.VitConfig(**TINY_VIT))
     gcfg = junet.SkipConfig(**TINY_UNET)
@@ -114,23 +138,24 @@ def _jax_step_uncached(setup, draws, lam, entire):
     def g_apply(params, x):
         return junet.skip_apply_chw(params, gcfg, x, None, conv_impl="xla")
 
-    def loss(flat):
+    def loss(flat, lam):
         params = unravel(flat)
         cA, cB = crops(A, *draws.crops_A), crops(B, *draws.crops_B)
-        outs = jax.vmap(lambda xs: g_apply(params, xs))(jnp.stack([cA, cB]))
-        parts, aux = jlosses.splice_losses_fused(ext, tf(outs[0]), tf(cA),
-                                                 tf(outs[1]), tf(cB))
-        if entire:
-            parts.update(jlosses.entire_losses_fused(
-                ext, tf(g_apply(params, A[None])), tf(A[None]),
-                aux["cls_B"]))
+        if cA.shape == cB.shape:
+            # one vmapped pass, BatchNorm per stack (splice_tpu/trainer.py
+            # :308-316)
+            xg, yg = jax.vmap(lambda xs: g_apply(params, xs))(
+                jnp.stack([cA, cB]))
+        else:
+            # stacks of other crop counts: two passes (:317-319)
+            xg, yg = g_apply(params, cA), g_apply(params, cB)
+        parts, aux = jlosses.splice_losses_fused(ext, tf(xg), tf(cA),
+                                                 tf(yg), tf(cB))
+        parts.update(jlosses.entire_losses_fused(
+            ext, tf(g_apply(params, A[None])), tf(A[None]), aux["cls_B"]))
         return jlosses.weighted_total(parts, lam)
 
-    total, grad = jax.jit(jax.value_and_grad(loss))(jnp.asarray(jflat))
-    tx = optax.adam(LR, b1=0.0, b2=0.99, eps=1e-8)
-    upd, _ = tx.update(grad, tx.init(jnp.asarray(jflat)), jnp.asarray(jflat))
-    new = optax.apply_updates(jnp.asarray(jflat), upd)
-    return float(total), np.asarray(grad), np.asarray(new)
+    return loss
 
 
 def _port_trainer(setup, cfg):
@@ -144,25 +169,38 @@ def _port_trainer(setup, cfg):
                                   init_flat=torch.from_numpy(jflat))
 
 
-@pytest.mark.parametrize("step_idx,entire,conv", [
-    pytest.param(1, False, "auto", id="1-False"),
-    pytest.param(0, True, "auto", id="0-True"),
-    pytest.param(1, False, "fused", id="1-False-fused"),
-    pytest.param(0, True, "fused", id="0-True-fused")])
+# Crop draws by count, each inside its image (A 70 x 90 at side 67, B 80 x
+# 72 at side 72): one crop a side, and config b's multi-crop steps (A15)
+CROPS_A = {1: (67.0, [2.0], [11.0]), 2: (67.0, [2.0, 0.0], [11.0, 23.0]),
+           3: (67.0, [2.0, 0.0, 3.0], [11.0, 23.0, 5.0])}
+CROPS_B = {1: (72.0, [5.0], [0.0]), 2: (72.0, [5.0, 8.0], [0.0, 0.0]),
+           3: (72.0, [5.0, 8.0, 1.0], [0.0, 0.0, 0.0])}
+
+
+@pytest.mark.parametrize("step_idx,entire,conv,n_a,n_b", [
+    pytest.param(1, False, "auto", 1, 1, id="1-False"),
+    pytest.param(0, True, "auto", 1, 1, id="0-True"),
+    pytest.param(1, False, "fused", 1, 1, id="1-False-fused"),
+    pytest.param(0, True, "fused", 1, 1, id="0-True-fused"),
+    *(pytest.param(s, s == 0, "auto", a, b, id=f"{s}-{s == 0}-{a}x{b}")
+      for a, b in ((2, 2), (2, 3), (3, 1)) for s in (1, 0))])
 def test_one_step_matches_jax_composition(setup, step_idx, entire, conv,
-                                          monkeypatch):
+                                          n_a, n_b, monkeypatch):
     """conv "fused": generator_conv="fused" in the port, its test hook
     routing every BatchNorm consumer through the prologue kernels' plain
     versions (the routes the card takes at its wide sites), against the
     same JAX composition: deferring the BatchNorm apply changes the
     generator's function by rounding only. The fused generator itself
     meets the reference's conv_impl="fused" and its kernels in
-    tests/test_torch_generator_modes.py."""
+    tests/test_torch_generator_modes.py. n_a x n_b: config b's multi-crop
+    steps (global_{A,B}_crops_n_crops), stacks of equal crop counts through
+    one generator pass with BatchNorm per stack, unequal ones through two,
+    in both packages (splice_tpu/trainer.py:308-319)."""
     monkeypatch.setattr(tunet, "FORCE_FUSED_KERNELS_ON_CPU", True)
-    cfg = _cfg(entire_A_every=75, generator_conv=conv)
+    cfg = _cfg(entire_A_every=75, generator_conv=conv,
+               global_A_crops_n_crops=n_a, global_B_crops_n_crops=n_b)
     draws = ttrainer.StepDraws(structure=None, flip_B=False,
-                               crops_A=(67.0, [2.0], [11.0]),
-                               crops_B=(72.0, [5.0], [0.0]))
+                               crops_A=CROPS_A[n_a], crops_B=CROPS_B[n_b])
     lam = jlosses.lambdas_for_step(cfg, step_idx)
     assert jlosses.is_entire_step(cfg, step_idx) == entire
     jtotal, jgrad, jnew = _jax_step(setup, draws, lam, entire)
