@@ -197,9 +197,13 @@ K7 at k = 5, 7, 9 and 11 (GTAP_SITES, bf16 and fp32; bf16 at k = 9 and 11
 on conv_dw_px's cotangent-tapped mode) and fp32 K7 at k = 3 at both SAME
 sites (split TF32, with and without the prologue, bitwise twice, timed
 beside conv2d_weight and K4 at the same site); K5/K6 at head widths 128,
-192 and 256 (WIDE_SPLIT, their chunked wide forms, bf16 and fp32,
-unmasked and with 2701 valid keys, bitwise twice, timed beside SDPA;
-WIDE_EDGES); and fp32 K3 (forward
+192 and 256 (WIDE_SPLIT: K5's chunked form, K6's wide passes, bf16 and
+fp32, unmasked and with 2701 valid keys, bitwise twice, timed beside SDPA;
+WIDE_EDGES, dh = 320, 384 and 448 among them; K6's launches with their
+output width W, consumer warps, ring stages and blocks an SM printed, one
+column block a head required up to dh = 256 and ceil(dh / 256) above);
+and fp32
+K3 (forward
 and input gradient) and K4 at the two auto sites (split TF32, bitwise
 twice) against their plain versions, timed beside F.conv2d, conv2d_input
 and conv2d_weight with cuDNN's TF32 off.
@@ -647,17 +651,53 @@ def check_split_shapes(torch, attn, shapes, dtype_name="bfloat16",
     return out
 
 
-# K5/K6 at head widths above 64 (their chunked wide forms): the 480 path's
-# two square crops in ViT-B/8's width as heads of 128 (phase 6c's
-# wide-head ViT), 192 and 256; each unmasked and with the entire A's 2701
-# valid keys
+# K5/K6 at head widths above 64 (K5's chunked form, K6's wide passes):
+# the 480 path's two square crops in ViT-B/8's width as heads of 128
+# (phase 6c's wide-head ViT), 192 and 256; each unmasked and with the
+# entire A's 2701 valid keys (tools/attn_forms.py times the same shapes)
 WIDE_SPLIT = ((2, 6, 3601, 128), (2, 4, 3601, 192), (2, 3, 3601, 256))
 WIDE_VALID = 2701
 # (B, H, N, dh, n_valid, seed) of the wide forms' edge cases: N under one
 # 64-row tile, one past a tile and past two, B = 1, masked keys with key
-# tiles wholly past n_valid (zero dk, dv without a loop), dh = 320
+# tiles wholly past n_valid (zero dk, dv without a loop), dh = 320 (the
+# resident form's two column blocks), 384 and 448 (K6's streamed form:
+# column blocks of 192 + 192 and 256 + 192)
 WIDE_EDGES = ((1, 2, 17, 128, 0, 70), (2, 2, 65, 192, 0, 71),
-              (1, 3, 129, 256, 100, 72), (1, 1, 300, 320, 211, 73))
+              (1, 3, 129, 256, 100, 72), (1, 1, 300, 320, 211, 73),
+              (1, 2, 200, 384, 130, 74), (1, 1, 129, 448, 0, 75))
+
+
+def check_wide_plan(torch, attn):
+    """K6's wide launches at every dh of WIDE_SPLIT and WIDE_EDGES, bf16
+    and fp32 (ops.attention.wide_bwd_plan: pass, output width W and first
+    column, threads, ring stages, shared memory, blocks an SM), printed;
+    the dK/dV and dQ passes must cover the head in one column block of W =
+    dh up to 256 and in ceil(dh / 256) of at least 128 columns above it,
+    and every launch must fit an SM."""
+    dhs = sorted({s[3] for s in WIDE_SPLIT} | {e[3] for e in WIDE_EDGES})
+    for dtype_name in ("bfloat16", "float32"):
+        for dh in dhs:
+            plan = attn.wide_bwd_plan(dh, getattr(torch, dtype_name))
+            for p in plan:
+                print(f"  K6 wide plan dh {dh} {dtype_name}: {p['kind']} W "
+                      f"{p['w']} from column {p['col']}, {p['threads']} "
+                      f"threads, {p['stages']} stages, {p['smem']} bytes, "
+                      f"{p['blocks_per_sm']} blocks / SM")
+            blocks = {}
+            for p in plan:
+                if p["kind"] != "stats":
+                    blocks.setdefault(p["kind"].replace("dkdv", "dk"),
+                                      []).append(p)
+                    if p["kind"] == "dkdv":
+                        blocks.setdefault("dv", []).append(p)
+            most = -(-dh // 256)
+            if (not plan or plan[0]["kind"] != "stats"
+                    or any(p["blocks_per_sm"] < 1 for p in plan)
+                    or sorted(blocks) != ["dk", "dq", "dv"]
+                    or any(len(ps) > most or sum(p["w"] for p in ps) != dh
+                           or min(p["w"] for p in ps) < 128
+                           for ps in blocks.values())):
+                fail(f"K6's wide plan at dh {dh} {dtype_name}: {plan}")
 
 
 def check_wide_split(torch, attn):
@@ -666,6 +706,7 @@ def check_wide_split(torch, attn):
     versions and SDPA with the bound, every launch on the tensor cores),
     then at WIDE_EDGES against the plain versions. Returns {(kernel,
     shape): row}."""
+    check_wide_plan(torch, attn)
     rows = {}
     for dtype_name in ("bfloat16", "float32"):
         rtol, why = RTOL[dtype_name]
@@ -801,13 +842,43 @@ def sass_counts(build, lib):
     return counts
 
 
-def check_tensor_cores(build):
+# K6's wide plans at dh = 128 to 448 hold every template instance of its
+# wide passes: the resident form's (dh up to 320) and the streamed form's
+# (its statistics, and dV, dK, dQ at W = 192 and 256)
+WIDE_PLAN_DHS = tuple(range(128, 512, 64))
+# a wide pass's kernel (csrc attn_bwd_wide_{stats,dkdv,dq}_{tc,tf32})
+WIDE_PREFIX = {"stats": "attn_bwd_wide_stats_", "dq": "attn_bwd_wide_dq_",
+               "dkdv": "attn_bwd_wide_dkdv_", "dv": "attn_bwd_wide_dkdv_",
+               "dk": "attn_bwd_wide_dkdv_"}
+# the chunked K6 passes the wide passes replaced, and their delta sum
+WIDE_GONE = ("attn_bwd_dkdv_wide_", "attn_bwd_dq_wide_", "delta_chunk_sum")
+
+
+def wide_instances(torch, attn) -> dict:
+    """{"bf16" | "fp32": {kernel name prefix: instances}}: the attention
+    library's wide instances in each dtype, K5's chunked forward (one) and
+    the distinct kernels of K6's wide plans at WIDE_PLAN_DHS
+    (ops.attention.wide_bwd_plan) by pass."""
+    out = {}
+    for kind, dtype_name in (("bf16", "bfloat16"), ("fp32", "float32")):
+        fns = {}
+        for dh in WIDE_PLAN_DHS:
+            for p in attn.wide_bwd_plan(dh, getattr(torch, dtype_name)):
+                fns.setdefault(WIDE_PREFIX[p["kind"]], set()).add(p["kernel"])
+        out[kind] = {"attn_fwd_wide_": 1,
+                     **{name: len(f) for name, f in fns.items()}}
+    return out
+
+
+def check_tensor_cores(build, wide):
     """Every tensor-core kernel (a name with "_tc") must hold its
     instructions: HGMMA (wgmma) in the attention library's (the bf16 route
-    of K1/K2 and K5/K6, K5/K6's five wide forms among them), HMMA
-    (mma.sync) in the conv library's (the bf16 route of K3 and of K4/K7);
-    the fp32 route of K1/K2 and K5/K6 (the eight split-TF32 kernels, "tf32"
-    in their names, four of them wide forms) TF32 HMMA; each library
+    of K1/K2 and K5/K6, K5's chunked wide form and K6's wide passes among
+    them, as many of each as `wide` (wide_instances) counts), HMMA (mma.sync) in the conv library's (the bf16
+    route of K3 and of K4/K7); the fp32 route of K1/K2 and K5/K6 (the
+    split-TF32 kernels, "tf32" in their names, the same wide instances
+    among them) TF32 HMMA; the wide forms' earlier kernels gone
+    (WIDE_GONE); each library
     must have such kernels, the
     conv library a forward one (conv_fwd_tc_kernel) and a weight-gradient
     one, and HMMA in each of the pixel-major forms' nine instances
@@ -822,12 +893,16 @@ def check_tensor_cores(build):
     tc = [f for f in att if "_tc" in f]
     if not tc or not all(att[f][0] for f in tc):
         fail(f"attention tensor-core kernels missing or without HGMMA: {att}")
-    # K5/K6's wide forms: the forward and the statistics pass, dV, dK, dQ
-    wide_tc = [f for f in tc if "wide" in f]
-    if len(wide_tc) != 5:
-        fail(f"the bf16 wide attention kernels missing: {wide_tc}")
     tf32 = [f for f in att if "tf32" in f]
-    if (len(tf32) != 8 or len([f for f in tf32 if "wide" in f]) != 4
+    for kind, fns in (("bf16", tc), ("fp32", tf32)):
+        for name, n in wide[kind].items():
+            got = [f for f in fns if name in f]
+            if len(got) != n:
+                fail(f"{kind} {name}: {len(got)} instances, want {n}: {got}")
+    gone = [f for f in att if any(name in f for name in WIDE_GONE)]
+    if gone:
+        fail(f"the wide forms' earlier kernels still built: {gone}")
+    if (len(tf32) != 4 + sum(wide["fp32"].values())
             or not all(att[f][2] for f in tf32)):
         fail(f"the fp32 attention kernels missing or without TF32 MMA: "
              f"{ {f: att[f] for f in tf32} }")
@@ -872,8 +947,8 @@ def check_tensor_cores(build):
 
 def print_ptxas(build):
     """Registers, stack and spills of every kernel, from the build logs.
-    The instances this slice added (K5/K6's wide forms, conv_dw_px's
-    cotangent-tapped mode) must spill nothing."""
+    The wide attention instances (K5's chunked form, K6's wide passes) and
+    conv_dw_px's cotangent-tapped mode must spill nothing."""
     spilled = []
     for name in build.SOURCES:
         fn = None
@@ -1565,11 +1640,12 @@ def no_sdpa(torch):
 
 def check_attention_dh(torch, attn):
     """multi_head_attention at dh = 32 (library_attention, SDPA), 64 and
-    128 (K5/K6: dh = 128 on their chunked wide forms, SDPA refused inside),
-    bf16 and fp32, [2, 4, 197, dh] with 150 valid keys, forward and
-    backward against the reference's XLA math (xla_attention_plain, by
-    autograd, on the card) within phase 2's tolerances; K5 and K6 each
-    launched once at dh = 64 and 128 and never at 32."""
+    128 (K5/K6: dh = 128 on K5's chunked form and K6's wide passes, SDPA
+    refused inside), bf16 and fp32, [2, 4, 197, dh] with 150 valid keys,
+    forward and backward against the reference's XLA math
+    (xla_attention_plain, by autograd, on the card) within phase 2's
+    tolerances; K5 and K6 each launched once at dh = 64 and 128 and never
+    at 32."""
     gen = torch.Generator().manual_seed(21)
     for dh in (32, 64, 128):
         for dtype_name in ("bfloat16", "float32"):
@@ -4735,7 +4811,7 @@ def main() -> int:
     print(f"  built and loaded {', '.join(_build.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s")
     print_ptxas(_build)
-    check_tensor_cores(_build)
+    check_tensor_cores(_build, wide_instances(torch, attn))
     if cards:
         mesh_across_cards(torch, attn, conv, probe, cards)
         print(smi)
@@ -4764,7 +4840,8 @@ def main() -> int:
     inv_qkv = check_qkv_shapes(torch, attn, INVERSION_QKV)
     fp32_rows = fp32_attention(torch, attn)
     torch.cuda.empty_cache()
-    print("  K5/K6 at head widths above 64 (the chunked wide forms)")
+    print("  K5/K6 at head widths above 64 (K5's chunked form, K6's wide "
+          "passes)")
     wide_rows = check_wide_split(torch, attn)
     torch.cuda.empty_cache()
     inv_rows = check_conv_inversion(torch, conv)

@@ -5,8 +5,10 @@
 //     and the cotangent g are the head-concatenated [B, N, D];
 //   * split: q, k, v, the output, g and the three gradients are separate
 //     [B, H, N, dh] tensors, dh any multiple of 64 (the reference's
-//     pallas_attention_supported): dh = 64 on the kernels K1/K2 share,
-//     wider heads on chunked forms of them (fwd_wide, bwd_wide below).
+//     pallas_attention_supported): dh = 64 on the kernels K1/K2 share;
+//     wider heads on the forward's chunked form (fwd_wide) and on the
+//     backward's wide passes, whose blocks hold the full width (bwd_wide:
+//     the own rows resident up to dh = 320, streamed above).
 //
 // K1 attn_qkv_fwd replaces splice_tpu/ops/attention.py _attn_qkv_kernel
 // (:361, launched by _attn_qkv_fwd_impl :401). K2 attn_qkv_bwd replaces
@@ -51,9 +53,11 @@
 // TPU kernels kept a whole head's K/V in VMEM and so capped N; these have
 // no cap) and the ragged edge is masked. The TPU backward carried dk/dv in
 // scratch across a sequential q grid; GPU blocks run in no order, so the
-// backward is three launches:
+// backward is three launches (at dh > 64, one statistics pass and a
+// dK/dV and dQ pass or more a column block: bwd_wide):
 //   1. per (q tile): recompute the forward to get each row's logsumexp and
-//      delta = sum_d g*o (= sum_k p*dp), fp32 scratch [B, H, N];
+//      delta = sum_d g*o (= sum_k p*dp; the wide passes sum p*dp), fp32
+//      scratch [B, H, N];
 //   2. per (k tile): loop over all q tiles, accumulate dk and dv in
 //      registers (fp32) and write them once;
 //   3. per (q tile): loop over key tiles, accumulate dq.
@@ -66,6 +70,9 @@
 #include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -118,6 +125,86 @@ Operands<T> split_operands(const void* q, const void* k, const void* v,
           static_cast<const T*>(v), s, s};
 }
 
+// K6's wide passes (tc and tf32 below): the statistics, dQ, dK and dV
+// together, dV alone, dK alone.
+enum WidePassKind : int { PASS_STATS, PASS_DQ, PASS_DKDV, PASS_DV, PASS_DK };
+constexpr int WIDE_SMEM_CAP = 232448 - 1024;   // 227 KB, less a static part
+
+// One launch of K6's wide backward (tc::Set::pass, tf32::Set::pass): its
+// kernel, pass kind (PASS_*), output width W (0 for the statistics) and
+// first output box cb (column 64 cb), threads, ring stages, dynamic shared
+// memory, rows a block.
+template <typename Fn>
+struct WidePass {
+  Fn fn;
+  int kind, w, cb, threads, stages, smem, rows;
+};
+
+// K6's resident form at dh = 64 nk, 2 <= nk <= RESIDENT_MAX_NK, one table
+// for both dtypes (the launches in order): pass, output boxes NC (W = 64
+// NC), first output box, consumer warpgroups CW (bf16; the fp32 kernels
+// have four warps). The header of tc's wide passes says why each.
+struct WideSpec {
+  int kind, nc, cb, cw;
+};
+constexpr int RESIDENT_MAX_NK = 5;
+constexpr int RESIDENT_PASSES[RESIDENT_MAX_NK - 1] = {3, 4, 4, 6};
+constexpr WideSpec RESIDENT_PLAN[RESIDENT_MAX_NK - 1][6] = {
+    {{PASS_STATS, 0, 0, 2}, {PASS_DKDV, 2, 0, 1}, {PASS_DQ, 2, 0, 2}},
+    {{PASS_STATS, 0, 0, 2}, {PASS_DV, 3, 0, 2}, {PASS_DK, 3, 0, 2},
+     {PASS_DQ, 3, 0, 2}},
+    {{PASS_STATS, 0, 0, 1}, {PASS_DV, 4, 0, 2}, {PASS_DK, 4, 0, 1},
+     {PASS_DQ, 4, 0, 1}},
+    // column blocks of 192 (boxes 0-2) and 128 (boxes 3-4)
+    {{PASS_STATS, 0, 0, 1}, {PASS_DV, 3, 0, 1}, {PASS_DK, 3, 0, 1},
+     {PASS_DKDV, 2, 3, 1}, {PASS_DQ, 3, 0, 1}, {PASS_DQ, 2, 3, 1}}};
+
+template <typename Set, int NK, typename Emit, int... I>
+void resident_plan(Emit& emit, std::integer_sequence<int, I...>) {
+  constexpr const WideSpec* row = RESIDENT_PLAN[NK - 2];
+  (emit(Set::template pass<row[I].kind, NK, row[I].nc, row[I].cw>(
+       row[I].cb)), ...);
+}
+template <typename Set, int NK = 2, typename Emit>
+int resident(int nk, Emit& emit) {
+  if constexpr (NK > RESIDENT_MAX_NK) {
+    return 0;
+  } else {
+    if (nk != NK) return resident<Set, NK + 1>(nk, emit);
+    constexpr int n = RESIDENT_PASSES[NK - 2];
+    resident_plan<Set, NK>(emit, std::make_integer_sequence<int, n>());
+    return n;
+  }
+}
+
+// K6's launches at dh = 64 nk > 1, in order, each handed to emit (a
+// WidePass): the resident table up to RESIDENT_MAX_NK; above it the
+// streamed form (NK = 0): its statistics, then dV, dK and dQ of each of
+// ceil(nk / 4) column blocks of 3 or 4 boxes (W 192 or 256). Set::pass<
+// KIND, NK, NC, CW>(cb) makes one launch. Returns the number of launches,
+// 0 where nk < 2.
+template <typename Set, typename Emit>
+int wide_plan(int nk, Emit emit) {
+  if (nk < 2) return 0;
+  if (nk <= RESIDENT_MAX_NK) return resident<Set>(nk, emit);
+  emit(Set::template pass<PASS_STATS, 0, 0, 1>(0));
+  const int nb = (nk + 3) / 4;
+  for (int i = 0, cb = 0; i < nb; ++i) {
+    auto block = [&](auto nc) {
+      constexpr int NC = decltype(nc)::value;
+      emit(Set::template pass<PASS_DV, 0, NC, 1>(cb));
+      emit(Set::template pass<PASS_DK, 0, NC, 1>(cb));
+      emit(Set::template pass<PASS_DQ, 0, NC, 1>(cb));
+      cb += NC;
+    };
+    if (nk / nb + (i < nk % nb) == 3)
+      block(std::integral_constant<int, 3>());
+    else
+      block(std::integral_constant<int, 4>());
+  }
+  return 1 + 3 * nb;
+}
+
 // ---------------------------------------------------------------------------
 // bf16 attention on the tensor cores: K1 attn_qkv_fwd and K5 attn_fwd, K2
 // attn_qkv_bwd and K6 attn_bwd
@@ -159,6 +246,7 @@ constexpr int BWD_SMEM = 6 * BOX + 1024;
 struct Maps {
   CUtensorMap q, k, v, g;
 };
+
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -346,10 +434,11 @@ __device__ __forceinline__ Place place() {
   return {16 * (threadIdx.x >> 5) + (lane >> 2), 2 * (lane & 3), lane};
 }
 
-// Rows row0 + r and row0 + r + 8 of a 64 x 64 accumulator times mul, as
-// bf16, into the rows below n of `out` (one head's rows, `stride` elements
-// apart).
-__device__ __forceinline__ void store_rows(const float (&d)[32],
+// Rows row0 + r and row0 + r + 8 of a 64 x (m / 2) accumulator times mul,
+// as bf16, into the rows below n of `out` (one head's rows, `stride`
+// elements apart).
+template <int m>
+__device__ __forceinline__ void store_rows(const float (&d)[m],
                                            __nv_bfloat16* out,
                                            long long stride, int row0,
                                            const Place& p, int n, float mul) {
@@ -359,20 +448,21 @@ __device__ __forceinline__ void store_rows(const float (&d)[32],
     if (row >= n) continue;
     uint32_t* o = reinterpret_cast<uint32_t*>(out + row * stride + p.c);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < m / 4; ++j)
       o[4 * j] = pack_bf16(d[4 * j + 2 * h] * mul, d[4 * j + 2 * h + 1] * mul);
   }
 }
 
-// bars: resident, full[2], empty[2] (one arrival per consumer warp).
-// Returns the 1024-aligned dynamic shared memory.
-__device__ __forceinline__ uint8_t* setup(uint8_t* raw, uint64_t* bars) {
+// bars: resident, full[2], empty[2] (one arrival per consumer warp: `warps`
+// of them). Returns the 1024-aligned dynamic shared memory.
+__device__ __forceinline__ uint8_t* setup(uint8_t* raw, uint64_t* bars,
+                                          int warps = 4) {
   if (threadIdx.x == 0) {
     mbar_init(&bars[0], 1);
     mbar_init(&bars[1], 1);
     mbar_init(&bars[2], 1);
-    mbar_init(&bars[3], 4);
-    mbar_init(&bars[4], 4);
+    mbar_init(&bars[3], warps);
+    mbar_init(&bars[4], warps);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -689,39 +779,49 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ Maps maps, Strides in,
 }
 
 // ---------------------------------------------------------------------------
-// K5/K6 at head widths dh = 64 nch, nch > 1 (the reference's kernels take
+// K5 at head widths dh = 64 nch, nch > 1 (the reference's kernels take
 // every dh % 64 == 0). A 128-byte-swizzled box holds 64 bf16 columns at
-// most, and the dK/dV pass's two [64, dh] fp32 accumulators would outgrow
-// the registers past dh = 64, so the width is cut in chunks of 64 columns:
-// every contraction over dh (S = Q K^T, dP = g V^T) runs over the nch
-// chunks in order, one box of each operand a chunk, and a block owns one
-// chunk c of the output columns (grid.y = H * nch), recomputing S and dP
-// over the full width beside the blocks of the other chunks and writing
-// only columns [64 c, 64 c + 64) of O, dQ, dK, dV. Accumulators, softmax
-// and products are those of the dh = 64 kernels above, so any nch runs
-// with their registers. Every operand streams through a two-stage ring of
-// items (full and empty mbarriers, as produce()): per key (or q) tile, nch
-// items of the contraction's boxes at column 64 j, then one item of the
-// boxes the output product reads at column 64 c; nothing is resident, so
-// the shared memory does not grow with dh. The backward's delta = g . o
-// is summed per chunk by the statistics pass (delta [nch, B, H, N]) and
-// the chunks added in order by delta_chunk_sum_kernel before the dK/dV
-// and dQ passes; every chunk's block computes the same S in the same
-// order, and chunk 0's writes lse. Cost against a
-// kernel holding all of dh: S and dP are computed nch times.
+// most, so the width is cut in chunks of 64 columns: the contraction S =
+// Q K^T runs over the nch chunks in order, one box of each operand a
+// chunk, and a block owns one chunk c of the output columns (grid.y = H *
+// nch), recomputing S over the full width beside the blocks of the other
+// chunks and writing only columns [64 c, 64 c + 64) of O. Accumulators,
+// softmax and products are those of the dh = 64 forward above, so any nch
+// runs with its registers. Every operand streams through a two-stage ring
+// of items (full and empty mbarriers, as produce()): per key tile, nch
+// items of the contraction's boxes at column 64 j, then one item of V's
+// boxes at column 64 c; nothing is resident, so the shared memory does not
+// grow with dh. Cost against a kernel holding all of dh: S is computed nch
+// times (K6's wide passes below hold the full width).
 constexpr int WIDE_FWD_STAGE = 3 * BOX;   // Q_j, K_j of 128 keys; or V_c
-constexpr int WIDE_BWD_STAGE = 4 * BOX;   // 4 operands' chunk j; or 1-2 at c
 constexpr int WIDE_FWD_SMEM = 2 * WIDE_FWD_STAGE + 1024;
-constexpr int WIDE_BWD_SMEM = 2 * WIDE_BWD_STAGE + 1024;
 
-// The producer's side of the wide kernels' ring: waits until stage i % 2
-// is free (item i - 2 released), arms its full barrier for `bytes`,
-// returns the stage and its barrier.
+// The wide kernels' ring of `stages` stages (up to RING_MAX) guarded by
+// bars[1 + s] (full: the TMA bytes landed) and bars[1 + stages + s]
+// (empty: every consumer warp done); bars[0] guards the resident rows.
+constexpr int RING_MAX = 4;
+__device__ __forceinline__ uint8_t* setup_ring(uint8_t* raw, uint64_t* bars,
+                                               int warps, int stages) {
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0], 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&bars[1 + s], 1);
+      mbar_init(&bars[1 + stages + s], warps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  return raw + ((1024u - (smem_addr(raw) & 1023u)) & 1023u);
+}
+// The producer's side: waits until item i's stage (i % stages) is free
+// (item i - stages released), arms its full barrier for `bytes`, returns
+// the stage and its barrier.
 __device__ __forceinline__ uint8_t* ring_put(uint8_t* ring, int stage,
                                              uint64_t* bars, int i,
-                                             uint32_t bytes, uint64_t** bar) {
-  const int s = i & 1;
-  if (i >= 2) mbar_wait(&bars[3 + s], ((i >> 1) - 1) & 1);
+                                             uint32_t bytes, uint64_t** bar,
+                                             int stages = 2) {
+  const int s = i % stages, n = i / stages;
+  if (n > 0) mbar_wait(&bars[1 + stages + s], (n - 1) & 1);
   mbar_arrive_tx(&bars[1 + s], bytes);
   *bar = &bars[1 + s];
   return ring + s * stage;
@@ -729,60 +829,21 @@ __device__ __forceinline__ uint8_t* ring_put(uint8_t* ring, int stage,
 // The consumers' side: item i's stage once its bytes have landed.
 __device__ __forceinline__ const uint8_t* ring_get(const uint8_t* ring,
                                                    int stage, uint64_t* bars,
-                                                   int i) {
-  mbar_wait(&bars[1 + (i & 1)], (i >> 1) & 1);
-  return ring + (i & 1) * stage;
+                                                   int i, int stages = 2) {
+  mbar_wait(&bars[1 + i % stages], (i / stages) & 1);
+  return ring + (i % stages) * stage;
 }
 // Item i's stage is free (each consumer warp arrives once).
 __device__ __forceinline__ void ring_release(uint64_t* bars, int i,
-                                             int lane) {
-  if (lane == 0) mbar_arrive(&bars[3 + (i & 1)]);
-}
-
-// The wide backward's contraction over one chunk: x (+)= A0 B0^T and y
-// (+)= A1 B1^T over the stage's four boxes [A0, A1, B0, B1] (m64n64k16, all
-// K-major); `first` overwrites. Issued and committed, not waited on.
-__device__ __forceinline__ void wgmma_pair64(float (&x)[32], float (&y)[32],
-                                             const uint8_t* st, bool first) {
-  const uint64_t a0 = sw128_desc(st), a1 = sw128_desc(st + BOX);
-  const uint64_t b0 = sw128_desc(st + 2 * BOX), b1 = sw128_desc(st + 3 * BOX);
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss64(x, a0 + 2 * kk, b0 + 2 * kk, !first || kk > 0);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss64(y, a1 + 2 * kk, b1 + 2 * kk, !first || kk > 0);
-  wg_commit();
-}
-
-// The wide statistics pass's delta [nch, B, H, N], summed over its
-// chunks in order into chunk 0's rows (delta[i] = sum_j delta[j n + i]),
-// which the dK/dV and dQ passes then read as the dh = 64 ones do.
-__global__ void __launch_bounds__(256)
-delta_chunk_sum_kernel(float* __restrict__ delta, int nch, size_t n) {
-  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
-  if (i >= n) return;
-  float d = 0.f;
-  for (int j = 0; j < nch; ++j) d += delta[j * n + i];
-  delta[i] = d;
-}
-
-int sum_delta_chunks(float* delta, int nch, size_t n, cudaStream_t stream) {
-  delta_chunk_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      delta, nch, n);
-  return (int)cudaGetLastError();
+                                             int lane, int stages = 2) {
+  if (lane == 0) mbar_arrive(&bars[1 + stages + i % stages]);
 }
 
 // Forward at dh = 64 nch: as attn_fwd_kernel_tc, output columns of chunk c.
-// STATS: lse (chunk 0) and the chunk's part of delta, delta[c][b][h][row].
-template <bool STATS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 attn_fwd_wide_tc_kernel(const __grid_constant__ Maps maps, Strides os,
-                        const __nv_bfloat16* __restrict__ g,
-                        __nv_bfloat16* __restrict__ out,
-                        float* __restrict__ lse, float* __restrict__ delta,
-                        int N, int H, int valid, float scale, int nch) {
+                        __nv_bfloat16* __restrict__ out, int N, int valid,
+                        float scale, int nch) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[5];
   uint8_t* sm = setup(smem_raw, bars);
@@ -870,175 +931,612 @@ attn_fwd_wide_tc_kernel(const __grid_constant__ Maps maps, Strides os,
 
 #pragma unroll
   for (int e = 0; e < 2; ++e) l[e] = quad_sum(l[e]);
-  if (!STATS) {
 #pragma unroll
-    for (int e = 0; e < 32; ++e) o[e] = o[e] / l[(e >> 1) & 1];
-    store_rows(o, out + os.at(b, h, 0) + 64 * c, os.sr, q0, p, N, 1.f);
+  for (int e = 0; e < 32; ++e) o[e] = o[e] / l[(e >> 1) & 1];
+  store_rows(o, out + os.at(b, h, 0) + 64 * c, os.sr, q0, p, N, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// K6 at head widths dh = 64 nk, nk > 1: the three passes of the dh = 64
+// backward, each block over the full width, so S and dP are computed once
+// per (q tile, key tile) of a column block. A block of the dK/dV and dQ
+// passes owns W = 64 NC output columns (NC boxes): one column block a
+// head up to dh = 256, else ceil(nk / 4) of 128 to 256 columns (wgmma's N
+// stops at 256).
+//   1. statistics, a block per q tile over the key tiles: lse and delta =
+//      sum_k p dp (p in fp32 and dP = g V^T: the plain version's sum of
+//      p * dp) by an online softmax over the full width, [B, H, N] each;
+//      no output accumulator, so its registers do not grow with dh;
+//   2. dK and dV, a block per key tile over the q tiles: S^T = K Q^T and
+//      dP^T = V g^T, then dV += P^T g and dK += dL^T Q, each one m64nWk16
+//      product a k16 step (g and Q read MN-major across the NC boxes);
+//      both in one pass at W = 128 (two [64, 128] fp32 accumulators),
+//      apart (PASS_DV, PASS_DK) where both accumulators do not fit;
+//   3. dQ, a block per q tile over the key tiles: S and dP, then dQ +=
+//      dL K as m64nWk16.
+// Two forms, the same math (wide_plan above picks by nk):
+//   * resident (template NK = nk, up to RESIDENT_MAX_NK = 5): a block's
+//     own rows (K and V, or Q and g: NK boxes of each) are loaded once;
+//     the other operand pair's full-width tiles of 64 rows stream through
+//     a ring of `stages` (two, one where two do not fit) fed by a
+//     producer. A tile's contraction over dh (S, dP: 4 NK k16 steps each)
+//     is one commit group, waited on once. A block has CW consumer
+//     warpgroups of 64 rows each: two where the shared memory holds their
+//     resident rows and two stages and whose registers fit 240 a thread
+//     (then three warpgroups: the producer's gives its registers to the
+//     consumers by setmaxnreg, 24 and 240 a thread), else one (and a
+//     producer warp: up to 255 registers a thread); one block an SM
+//     either way. W, CW and stages by dh (RESIDENT_PLAN; chip_smoke's
+//     phase 2 prints them from attn_bwd_plan, with the blocks an SM the
+//     runtime reports):
+//       dh 128: W 128; statistics CW 2, dK+dV CW 1 (at 240 registers its
+//               two [64, 128] accumulators beside S^T and dP^T spilled),
+//               dQ CW 2; 2 stages;
+//       dh 192: W 192; statistics, dV, dK, dQ: CW 2, 2 stages;
+//       dh 256: W 256; statistics CW 1, dV CW 2, dK CW 1, dQ CW 1; 2
+//               stages;
+//       dh 320: W 192 and 128; CW 1; 1 stage (dV at W 192: 2);
+//   * streamed (template NK = 0, any nk above; the resident rows of two
+//     operands, 16 nk KB, outgrow the shared memory beside a stage from nk
+//     = 8): nothing is resident. For each tile, the head's nk 64-column
+//     boxes stream as items of (the block's own rows' box, the tile's box)
+//     of each product, then one item of the output product's operand: the
+//     tile's NC boxes of the block's columns. Each box's k16 steps of S
+//     and dP are a commit group, with one group left in flight, so the
+//     contraction waits only for its last box. CW 1, STREAM_STAGES items
+//     of 32 KB in the ring; W 192 or 256; dV and dK apart. The own rows
+//     are read once per tile (from L2), so its traffic is about twice the
+//     resident form's.
+constexpr int STREAM_ITEM = 4 * BOX;
+constexpr int STREAM_STAGES = 4;
+__host__ __device__ constexpr int wide_threads(int cw) {
+  return 128 * cw + (cw == 2 ? 128 : 32);
+}
+
+template <int n>
+__device__ __forceinline__ void regs_up() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(n));
+}
+template <int n>
+__device__ __forceinline__ void regs_down() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(n));
+}
+
+// A consumer thread's place in its warpgroup's 64-row tile (as place()).
+__device__ __forceinline__ Place wplace() {
+  const int lane = threadIdx.x & 31;
+  return {16 * (int)((threadIdx.x >> 5) & 3) + (lane >> 2), 2 * (lane & 3),
+          lane};
+}
+
+// wgmma descriptor of a B operand read MN-major across adjacent boxes
+// (the N = 64 NC columns of a tile's boxes cb..cb + NC - 1): the 128-byte
+// swizzle atom holds 64 columns, the atoms BOX bytes apart (the leading
+// byte offset), 8-row groups 1024 apart (the stride byte offset). A k16
+// step advances it by 16 rows (+128).
+__device__ __forceinline__ uint64_t mn_desc(const void* tile) {
+  return ((smem_addr(tile) & 0x3FFFFu) >> 4) |
+         ((uint64_t)(BOX >> 4) << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N], A in registers, B MN-major in shared
+// memory (descriptor b from mn_desc), N = 128, 192, 256.
+__device__ __forceinline__ void wgmma_rs128(float (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs192(float (&d)[96],
+                                          const uint32_t (&a)[4],
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs256(float (&d)[128],
+                                          const uint32_t (&a)[4],
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <int NC>
+__device__ __forceinline__ void wgmma_rsw(float (&d)[32 * NC],
+                                          const uint32_t (&a)[4],
+                                          uint64_t b) {
+  if constexpr (NC == 2) {
+    wgmma_rs128(d, a, b);
+  } else if constexpr (NC == 3) {
+    wgmma_rs192(d, a, b);
+  } else {
+    static_assert(NC == 4, "wgmma's N is at most 256");
+    wgmma_rs256(d, a, b);
+  }
+}
+
+// x (+)= A B^T over NK boxes of A from a against NK of B from b (each BOX
+// apart), both K-major, four k16 steps a box; unless acc, the first step
+// overwrites x. Issued, not committed.
+template <int NK>
+__device__ __forceinline__ void wide_ss(float (&x)[32], const uint8_t* a,
+                                        const uint8_t* b, int acc = 0) {
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    const uint64_t da = sw128_desc(a + j * BOX), db = sw128_desc(b + j * BOX);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss64(x, da + 2 * kk, db + 2 * kk, acc || j > 0 || kk > 0);
+  }
+}
+
+// Waits until at most one committed group is in flight.
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+
+// d += A B over a 64-row tile: A's four k16 slices in registers, B the NC
+// boxes from box0 read MN-major. Issued, not committed.
+template <int NC>
+__device__ __forceinline__ void wide_rs(float (&d)[32 * NC],
+                                        const uint32_t (&a)[4][4],
+                                        const uint8_t* box0) {
+  const uint64_t bd = mn_desc(box0);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) wgmma_rsw<NC>(d, a[t], bd + 128 * t);
+}
+
+// The resident form's producer (one thread): the NK boxes of the resident
+// operands ra (and rb) for each of the block's CW 64-row tiles from row
+// row0, into res in (operand, tile, box) order, once; then n tiles of 64
+// rows of the streamed operands sa and sb at full width, tile i into ring
+// stage i % stages as (sa's NK boxes, sb's NK boxes).
+template <int NK, int CW>
+__device__ __forceinline__ void produce_wide(
+    const CUtensorMap* ra, const CUtensorMap* rb, uint8_t* res, int row0,
+    const CUtensorMap* sa, const CUtensorMap* sb, uint8_t* ring, int n,
+    int stages, int h, int b, uint64_t* bars) {
+  mbar_arrive_tx(&bars[0], (rb ? 2 : 1) * CW * NK * BOX);
+  for (int w = 0; w < CW; ++w)
+    for (int j = 0; j < NK; ++j) {
+      tma_load(res + (w * NK + j) * BOX, ra, &bars[0], row0 + ROWS * w, h, b,
+               64 * j);
+      if (rb)
+        tma_load(res + ((CW + w) * NK + j) * BOX, rb, &bars[0],
+                 row0 + ROWS * w, h, b, 64 * j);
+    }
+  for (int i = 0; i < n; ++i) {
+    uint64_t* bar;
+    uint8_t* st = ring_put(ring, 2 * NK * BOX, bars, i, 2 * NK * BOX, &bar,
+                           stages);
+    for (int j = 0; j < NK; ++j) {
+      tma_load(st + j * BOX, sa, bar, i * ROWS, h, b, 64 * j);
+      tma_load(st + (NK + j) * BOX, sb, bar, i * ROWS, h, b, 64 * j);
+    }
+  }
+}
+
+// The streamed form's producer (one thread): for each of n tiles of 64 rows
+// of sa (and sb), the head's nk boxes as items of (ra's box of the block's
+// rows from row0, sa's box of the tile[, rb's, sb's]); then, where `so`,
+// an item of so's tile's nc boxes from column 64 cb.
+__device__ __forceinline__ void produce_stream(
+    const CUtensorMap* ra, const CUtensorMap* sa, const CUtensorMap* rb,
+    const CUtensorMap* sb, const CUtensorMap* so, int row0, int cb, int nc,
+    uint8_t* ring, int n, int nk, int stages, int h, int b, uint64_t* bars) {
+  uint64_t* bar;
+  for (int i = 0, it = 0; i < n; ++i) {
+    for (int j = 0; j < nk; ++j) {
+      uint8_t* st = ring_put(ring, STREAM_ITEM, bars, it++,
+                             (rb ? 4 : 2) * BOX, &bar, stages);
+      tma_load(st, ra, bar, row0, h, b, 64 * j);
+      tma_load(st + BOX, sa, bar, i * ROWS, h, b, 64 * j);
+      if (rb) {
+        tma_load(st + 2 * BOX, rb, bar, row0, h, b, 64 * j);
+        tma_load(st + 3 * BOX, sb, bar, i * ROWS, h, b, 64 * j);
+      }
+    }
+    if (!so) continue;
+    uint8_t* st = ring_put(ring, STREAM_ITEM, bars, it++, nc * BOX, &bar,
+                           stages);
+    for (int c = 0; c < nc; ++c)
+      tma_load(st + c * BOX, so, bar, i * ROWS, h, b, 64 * (cb + c));
+  }
+}
+
+// One tile's contraction over the head: x = A B^T and, where TWO, y = C
+// D^T, waited on. Resident form (NK > 0): A and C the resident boxes at ra
+// and rc, B and D the stage of item `it` (NK boxes each), one commit
+// group. Streamed form (NK = 0): nk items from `it`, each released once
+// its products are done; then, where OUT, the output item. Returns with
+// item `it` held (acquired, not released): the stage (resident), the
+// output item (OUT) or the last box's item.
+template <int NK, bool TWO, bool OUT>
+__device__ __forceinline__ const uint8_t* contract(
+    float (&x)[32], float (&y)[32], const uint8_t* ra, const uint8_t* rc,
+    const uint8_t* ring, uint64_t* bars, int& it, int nk, int stages,
+    int lane) {
+  if constexpr (NK > 0) {
+    const uint8_t* st = ring_get(ring, 2 * NK * BOX, bars, it, stages);
+    wg_fence();
+    wide_ss<NK>(x, ra, st);
+    if constexpr (TWO) wide_ss<NK>(y, rc, st + NK * BOX);
+    wg_commit();
+    wg_wait();
+    pin(x);
+    if constexpr (TWO) pin(y);
+    return st;
+  } else {
+    // the first box overwrites x and y (peeled, so that every product's
+    // accumulate flag is known to the compiler: a run-time flag made ptxas
+    // serialise the products)
+    const uint8_t* st = ring_get(ring, STREAM_ITEM, bars, it, stages);
+    wg_fence();
+    wide_ss<1>(x, st, st + BOX);
+    if constexpr (TWO) wide_ss<1>(y, st + 2 * BOX, st + 3 * BOX);
+    wg_commit();
+    for (int j = 1; j < nk; ++j) {
+      st = ring_get(ring, STREAM_ITEM, bars, ++it, stages);
+      wg_fence();
+      wide_ss<1>(x, st, st + BOX, 1);
+      if constexpr (TWO) wide_ss<1>(y, st + 2 * BOX, st + 3 * BOX, 1);
+      wg_commit();
+      wg_wait1();
+      ring_release(bars, it - 1, lane, stages);
+    }
+    wg_wait();
+    pin(x);
+    if constexpr (TWO) pin(y);
+    if constexpr (!OUT) {
+      return st;
+    } else {
+      ring_release(bars, it, lane, stages);
+      return ring_get(ring, STREAM_ITEM, bars, ++it, stages);
+    }
+  }
+}
+
+// The dK/dV pass's copy of a q tile's lse (times log2 e) and delta, per
+// consumer warpgroup and tile parity: 2 x 64 floats.
+constexpr int STAT_BYTES = 2 * ROWS * 4;
+
+// Waits until the 128 threads of consumer warpgroup wg reach it (named
+// barrier 1 + wg; barrier 0 is __syncthreads).
+__device__ __forceinline__ void wg_barrier(int wg) {
+  asm volatile("bar.sync %0, 128;" :: "r"(1 + wg) : "memory");
+}
+
+// The wide passes share one signature (launched through WidePass): out0
+// is dQ (PASS_DQ) or dK, out1 dV; cb the first output box (column 64 cb);
+// nk the head's boxes (dh / 64).
+#define WIDE_TC_ARGS                                                        \
+  const __grid_constant__ Maps maps, Strides in, float *__restrict__ lse, \
+      float *__restrict__ delta, __nv_bfloat16 *__restrict__ out0,        \
+      __nv_bfloat16 *__restrict__ out1, int N, int H, int valid,          \
+      float scale, int cb, int nk, int stages
+
+// Pass 1: lse and delta for CW 64-row q tiles (Q and g the own rows), over
+// key tiles of 64 (K and V streamed).
+template <int NK, int CW>
+__global__ void __launch_bounds__(128 * CW + (CW == 2 ? 128 : 32), 1)
+attn_bwd_wide_stats_tc(WIDE_TC_ARGS) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[1 + 2 * RING_MAX];
+  uint8_t* sm = setup_ring(smem_raw, bars, 4 * CW, stages);
+  uint8_t* ring = sm + 2 * CW * NK * BOX;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ROWS * CW;
+  const int n_kt = (valid + ROWS - 1) / ROWS;
+  if (threadIdx.x >= 128 * CW) {
+    if constexpr (CW == 2) regs_down<24>();
+    if (threadIdx.x == 128 * CW) {
+      if constexpr (NK > 0)
+        produce_wide<NK, CW>(&maps.q, &maps.g, sm, q0, &maps.k, &maps.v,
+                             ring, n_kt, stages, h, b, bars);
+      else
+        produce_stream(&maps.q, &maps.k, &maps.g, &maps.v, nullptr, q0, 0,
+                       0, ring, n_kt, nk, stages, h, b, bars);
+    }
     return;
+  }
+  if constexpr (CW == 2) regs_up<240>();
+  const int wg = threadIdx.x >> 7;
+  const Place p = wplace();
+  const float sl = scale * LOG2E;
+  const uint8_t* qres = sm + wg * NK * BOX;
+  const uint8_t* gres = sm + (CW + wg) * NK * BOX;
+  // per row: the running max (log2 domain), sum of p and sum of p dp
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, pd[2] = {0.f, 0.f};
+  if constexpr (NK > 0) mbar_wait(&bars[0], 0);
+  for (int kt = 0, it = 0; kt < n_kt; ++kt) {
+    float sc[32], dp[32];
+    // S = Q K^T, dP = g V^T
+    contract<NK, true, false>(sc, dp, qres, gres, ring, bars, it, nk, stages,
+                              p.lane);
+    ring_release(bars, it++, p.lane, stages);
+    // keys >= valid get -inf; every tile holds a valid key
+    const int k0 = kt * ROWS;
+    if (k0 + ROWS > valid) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (k0 + 8 * (i / 4) + p.c + (i & 1) >= valid) sc[i] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float mn = fmaxf(m[e], quad_max(mx[e]) * sl);
+      const float alpha = ex2(m[e] - mn);
+      m[e] = mn;
+      l[e] *= alpha;
+      pd[e] *= alpha;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int e = (i >> 1) & 1;
+      const float pr = ex2(fmaf(sc[i], sl, -m[e]));
+      l[e] += pr;
+      pd[e] += pr * dp[i];
+    }
   }
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    const int row = q0 + p.r + 8 * e;
-    float part = 0.f;
-    if (row < N) {
-      const __nv_bfloat162* gr = reinterpret_cast<const __nv_bfloat162*>(
-          g + os.at(b, h, row) + 64 * c + p.c);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 gv = __bfloat1622float2(gr[4 * j]);
-        part += gv.x * (o[4 * j + 2 * e] / l[e]) +
-                gv.y * (o[4 * j + 2 * e + 1] / l[e]);
-      }
-    }
-    part = quad_sum(part);
+    l[e] = quad_sum(l[e]);
+    pd[e] = quad_sum(pd[e]);
+    const int row = q0 + ROWS * wg + p.r + 8 * e;
     if (row < N && (p.lane & 3) == 0) {
       const size_t idx = ((size_t)b * H + h) * N + row;
-      if (c == 0) lse[idx] = (m[e] + log2f(l[e])) / LOG2E;
-      delta[(size_t)c * gridDim.z * H * N + idx] = part;
+      lse[idx] = (m[e] + log2f(l[e])) / LOG2E;
+      delta[idx] = pd[e] / l[e];
     }
   }
 }
 
-// dK or dV at dh = 64 nch: attn_bwd_dkdv_tc_kernel's products, output
-// columns of chunk c, one of the two a launch (DK). With both fp32
-// accumulators beside S^T and dP^T, one kernel holding both spilled at
-// the 168 registers that two blocks an SM allow; apart, each recomputes
-// S^T (the dV pass needs no dP^T). Per q tile: nch items of the
-// contraction's boxes at column 64 j, (K_j, Q_j) for dV, (K_j, V_j, Q_j,
-// g_j) for dK, in wgmma_pair64's stage layout; then one box at column 64
-// c, g_c for dV += P^T g_c, Q_c for dK += dL^T Q_c.
-template <bool DK>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-attn_bwd_dkdv_wide_tc_kernel(const __grid_constant__ Maps maps, Strides in,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             __nv_bfloat16* __restrict__ out, int N, int H,
-                             int valid, float scale, int nch) {
+// Pass 2: dK (out0) and/or dV (out1), columns [64 cb, 64 (cb + NC)), for
+// CW 64-row key tiles (K, and V for dK, the own rows), over q tiles of 64
+// (Q and g streamed; each warpgroup copies the tile's lse and delta into
+// shared memory). Key tiles past n_valid: no loop, exactly zero dk and dv.
+template <int MODE, int NK, int NC, int CW>
+__global__ void __launch_bounds__(128 * CW + (CW == 2 ? 128 : 32), 1)
+attn_bwd_wide_dkdv_tc(WIDE_TC_ARGS) {
+  constexpr bool DO_K = MODE != PASS_DV, DO_V = MODE != PASS_DK;
+  static_assert(NK > 0 || MODE != PASS_DKDV, "streamed: dK, dV apart");
   extern __shared__ uint8_t smem_raw[];
-  __shared__ uint64_t bars[5];
-  uint8_t* sm = setup(smem_raw, bars);
-  const int b = blockIdx.z, h = blockIdx.y / nch, c = blockIdx.y % nch;
-  const int k0 = blockIdx.x * ROWS;
+  __shared__ uint64_t bars[1 + 2 * RING_MAX];
+  uint8_t* sm = setup_ring(smem_raw, bars, 4 * CW, stages);
+  uint8_t* ring = sm + (DO_K ? 2 : 1) * CW * NK * BOX;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * ROWS * CW;
   const int n_qt = k0 < valid ? (N + ROWS - 1) / ROWS : 0;
-  if (threadIdx.x / 32 == PRODUCER_WARP) {
-    if (threadIdx.x % 32 == 0) {
-      uint64_t* bar;
-      for (int qt = 0, i = 0; qt < n_qt; ++qt) {
-        const int q0 = qt * ROWS;
-        for (int j = 0; j < nch; ++j, ++i) {
-          uint8_t* st = ring_put(sm, WIDE_BWD_STAGE, bars, i,
-                                 (DK ? 4 : 2) * BOX, &bar);
-          tma_load(st, &maps.k, bar, k0, h, b, 64 * j);
-          tma_load(st + 2 * BOX, &maps.q, bar, q0, h, b, 64 * j);
-          if constexpr (DK) {
-            tma_load(st + BOX, &maps.v, bar, k0, h, b, 64 * j);
-            tma_load(st + 3 * BOX, &maps.g, bar, q0, h, b, 64 * j);
-          }
-        }
-        uint8_t* st = ring_put(sm, WIDE_BWD_STAGE, bars, i++, BOX, &bar);
-        tma_load(st, DK ? &maps.q : &maps.g, bar, q0, h, b, 64 * c);
-      }
+  if (threadIdx.x >= 128 * CW) {
+    if constexpr (CW == 2) regs_down<24>();
+    if (threadIdx.x == 128 * CW && n_qt) {
+      if constexpr (NK > 0)
+        produce_wide<NK, CW>(&maps.k, DO_K ? &maps.v : nullptr, sm, k0,
+                             &maps.q, &maps.g, ring, n_qt, stages, h, b,
+                             bars);
+      else
+        produce_stream(&maps.k, &maps.q, DO_K ? &maps.v : nullptr, &maps.g,
+                       DO_K ? &maps.q : &maps.g, k0, cb, NC, ring, n_qt, nk,
+                       stages, h, b, bars);
     }
     return;
   }
-  const Place p = place();
+  if constexpr (CW == 2) regs_up<240>();
+  const int wg = threadIdx.x >> 7;
+  const Place p = wplace();
   const float sl = scale * LOG2E;
-  const int kr = k0 + p.r;
+  const int kr = k0 + ROWS * wg + p.r;   // this thread's keys kr, kr + 8
   const bool key_ok[2] = {kr < valid, kr + 8 < valid};
+  const uint8_t* kres = sm + wg * NK * BOX;
+  const uint8_t* vres = sm + (CW + wg) * NK * BOX;
   const float* lse_bh = lse + ((size_t)b * H + h) * N;
   const float* del_bh = delta + ((size_t)b * H + h) * N;
-  float acc[32];
+  const int ring_bytes = NK > 0 ? 2 * NK * BOX : STREAM_ITEM;
+  float* stats = reinterpret_cast<float*>(ring + stages * ring_bytes +
+                                          wg * 2 * STAT_BYTES);
+  float dk[DO_K ? 32 * NC : 1], dv[DO_V ? 32 * NC : 1];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < (DO_K ? 32 * NC : 1); ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (DO_V ? 32 * NC : 1); ++i) dv[i] = 0.f;
+  auto store = [&] {
+    if constexpr (DO_K)
+      store_rows(dk, out0 + in.at(b, h, 0) + 64 * cb, in.sr, k0 + ROWS * wg,
+                 p, N, scale);
+    if constexpr (DO_V)
+      store_rows(dv, out1 + in.at(b, h, 0) + 64 * cb, in.sr, k0 + ROWS * wg,
+                 p, N, 1.f);
+  };
+  if (!n_qt) {   // key tiles past n_valid: exactly zero dk and dv
+    store();
+    return;
+  }
+  if constexpr (NK > 0) mbar_wait(&bars[0], 0);
 
-  for (int qt = 0, i = 0; qt < n_qt; ++qt) {
+  for (int qt = 0, it = 0; qt < n_qt; ++qt) {
+    // the tile's lse (threads 0-63 of the warpgroup) and delta (64-127),
+    // loaded while the products run; a copy a tile parity, so that a
+    // thread still reading tile qt - 1's is never overwritten
+    const int t = threadIdx.x & 127, q = qt * ROWS + (t & 63);
+    const float stat = q < N ? (t < ROWS ? lse_bh[q] * LOG2E : del_bh[q])
+                             : 0.f;
     float sc[32], dp[32];
-    for (int j = 0; j < nch; ++j, ++i) {
-      const uint8_t* st = ring_get(sm, WIDE_BWD_STAGE, bars, i);
-      if constexpr (DK) {
-        wgmma_pair64(sc, dp, st, j == 0);
-      } else {
-        const uint64_t dkd = sw128_desc(st), dqd = sw128_desc(st + 2 * BOX);
-        wg_fence();
+    // S^T = K Q^T, dP^T = V g^T; the stage or the output item: Q's and
+    // g's boxes of the block's columns
+    const uint8_t* st = contract<NK, DO_K, true>(sc, dp, kres, vres, ring,
+                                                 bars, it, nk, stages, p.lane);
+    const uint8_t* qo = NK > 0 ? st + cb * BOX : st;
+    const uint8_t* go = NK > 0 ? st + (NK + cb) * BOX : st;
+    float* L = stats + (qt & 1) * 2 * ROWS;
+    const float* D = L + ROWS;
+    L[t] = stat;
+    wg_barrier(wg);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss64(sc, dkd + 2 * kk, dqd + 2 * kk, j > 0 || kk > 0);
-        wg_commit();
-      }
-      wg_wait();
-      pin(sc);
-      if constexpr (DK) pin(dp);
-      ring_release(bars, i, p.lane);
+    for (int i = 0; i < 32; ++i) {
+      const int c = 8 * (i / 4) + p.c + (i & 1), r = (i >> 1) & 1;
+      const bool ok = key_ok[r] && qt * ROWS + c < N;
+      const float pr = ok ? ex2(fmaf(sc[i], sl, -L[c])) : 0.f;
+      if constexpr (DO_K) dp[i] = pr * (dp[i] - D[c]);   // dL^T
+      sc[i] = pr;                                         // P^T
     }
-    const int qc = qt * ROWS + p.c;
-    float L[16], D[16];
-#pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      const int q = qc + 8 * (e / 2) + (e & 1);
-      L[e] = q < N ? lse_bh[q] * LOG2E : 0.f;
-      D[e] = DK && q < N ? del_bh[q] : 0.f;
+    uint32_t pa[4][4], da[4][4];
+    if constexpr (DO_V) {
+      to_a(sc, pa);
+      pin(dv);
     }
-#pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      const int j = e / 4, x = e & 1, r = (e >> 1) & 1;
-      const bool ok = key_ok[r] && qc + 8 * j + x < N;
-      const float pr = ok ? ex2(fmaf(sc[e], sl, -L[2 * j + x])) : 0.f;
-      // DK: dL^T = P^T (dP^T - delta); else P^T
-      sc[e] = DK ? pr * (dp[e] - D[2 * j + x]) : pr;
+    if constexpr (DO_K) {
+      to_a(dp, da);
+      pin(dk);
     }
-    uint32_t a[4][4];
-    to_a(sc, a);
-    const uint8_t* st = ring_get(sm, WIDE_BWD_STAGE, bars, i);
-    const uint64_t bd = sw128_desc(st);
-    pin(acc);
     wg_fence();
-#pragma unroll
-    for (int t = 0; t < 4; ++t) wgmma_rs64(acc, a[t], bd + 128 * t);
+    if constexpr (DO_V) wide_rs<NC>(dv, pa, go);   // P^T g
+    if constexpr (DO_K) wide_rs<NC>(dk, da, qo);   // dL^T Q
     wg_commit();
     wg_wait();
-    pin(acc);
-    ring_release(bars, i++, p.lane);
+    if constexpr (DO_V) pin(dv);
+    if constexpr (DO_K) pin(dk);
+    ring_release(bars, it++, p.lane, stages);
   }
-  store_rows(acc, out + in.at(b, h, 0) + 64 * c, in.sr, k0, p, N,
-             DK ? scale : 1.f);
+  store();
 }
 
-// dQ at dh = 64 nch: as attn_bwd_dq_tc_kernel, output columns of chunk c.
-// Per key tile: nch items (Q_j, g_j, K_j, V_j) for S and dP, then K_c for
-// dQ += dL K_c.
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-attn_bwd_dq_wide_tc_kernel(const __grid_constant__ Maps maps, Strides in,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dq_out, int N, int H,
-                           int valid, float scale, int nch) {
+// Pass 3: dQ (out0), columns [64 cb, 64 (cb + NC)), for CW 64-row q tiles
+// (Q and g the own rows), over key tiles of 64 (K and V streamed). A pass
+// of its own, so no atomics: K6 repeats bitwise.
+template <int NK, int NC, int CW>
+__global__ void __launch_bounds__(128 * CW + (CW == 2 ? 128 : 32), 1)
+attn_bwd_wide_dq_tc(WIDE_TC_ARGS) {
   extern __shared__ uint8_t smem_raw[];
-  __shared__ uint64_t bars[5];
-  uint8_t* sm = setup(smem_raw, bars);
-  const int b = blockIdx.z, h = blockIdx.y / nch, c = blockIdx.y % nch;
-  const int q0 = blockIdx.x * ROWS;
+  __shared__ uint64_t bars[1 + 2 * RING_MAX];
+  uint8_t* sm = setup_ring(smem_raw, bars, 4 * CW, stages);
+  uint8_t* ring = sm + 2 * CW * NK * BOX;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ROWS * CW;
   const int n_kt = (valid + ROWS - 1) / ROWS;
-  if (threadIdx.x / 32 == PRODUCER_WARP) {
-    if (threadIdx.x % 32 == 0) {
-      uint64_t* bar;
-      for (int kt = 0, i = 0; kt < n_kt; ++kt) {
-        const int k0 = kt * ROWS;
-        for (int j = 0; j < nch; ++j, ++i) {
-          uint8_t* st = ring_put(sm, WIDE_BWD_STAGE, bars, i, 4 * BOX, &bar);
-          tma_load(st, &maps.q, bar, q0, h, b, 64 * j);
-          tma_load(st + BOX, &maps.g, bar, q0, h, b, 64 * j);
-          tma_load(st + 2 * BOX, &maps.k, bar, k0, h, b, 64 * j);
-          tma_load(st + 3 * BOX, &maps.v, bar, k0, h, b, 64 * j);
-        }
-        uint8_t* st = ring_put(sm, WIDE_BWD_STAGE, bars, i++, BOX, &bar);
-        tma_load(st, &maps.k, bar, k0, h, b, 64 * c);
-      }
+  if (threadIdx.x >= 128 * CW) {
+    if constexpr (CW == 2) regs_down<24>();
+    if (threadIdx.x == 128 * CW) {
+      if constexpr (NK > 0)
+        produce_wide<NK, CW>(&maps.q, &maps.g, sm, q0, &maps.k, &maps.v,
+                             ring, n_kt, stages, h, b, bars);
+      else
+        produce_stream(&maps.q, &maps.k, &maps.g, &maps.v, &maps.k, q0, cb,
+                       NC, ring, n_kt, nk, stages, h, b, bars);
     }
     return;
   }
-  const Place p = place();
+  if constexpr (CW == 2) regs_up<240>();
+  const int wg = threadIdx.x >> 7;
+  const Place p = wplace();
   const float sl = scale * LOG2E;
-  const int qr = q0 + p.r;
+  const int qr = q0 + ROWS * wg + p.r;   // this thread's rows qr, qr + 8
   bool q_ok[2];
   float L[2], D[2];
 #pragma unroll
@@ -1048,42 +1546,41 @@ attn_bwd_dq_wide_tc_kernel(const __grid_constant__ Maps maps, Strides in,
     L[e] = lse[idx] * LOG2E;
     D[e] = delta[idx];
   }
-  float dq[32];
+  const uint8_t* qres = sm + wg * NK * BOX;
+  const uint8_t* gres = sm + (CW + wg) * NK * BOX;
+  float dq[32 * NC];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  for (int i = 0; i < 32 * NC; ++i) dq[i] = 0.f;
+  if constexpr (NK > 0) mbar_wait(&bars[0], 0);
 
-  for (int kt = 0, i = 0; kt < n_kt; ++kt) {
+  for (int kt = 0, it = 0; kt < n_kt; ++kt) {
     float sc[32], dp[32];
-    for (int j = 0; j < nch; ++j, ++i) {
-      wgmma_pair64(sc, dp, ring_get(sm, WIDE_BWD_STAGE, bars, i), j == 0);
-      wg_wait();
-      pin(sc);
-      pin(dp);
-      ring_release(bars, i, p.lane);
-    }
+    // S = Q K^T, dP = g V^T; the stage or the output item: K's boxes of
+    // the block's columns
+    const uint8_t* st = contract<NK, true, true>(sc, dp, qres, gres, ring,
+                                                 bars, it, nk, stages, p.lane);
     const int kc = kt * ROWS + p.c;
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      const int r = (e >> 1) & 1;
-      const bool ok = q_ok[r] && kc + 8 * (e / 4) + (e & 1) < valid;
-      const float pr = ok ? ex2(fmaf(sc[e], sl, -L[r])) : 0.f;
-      dp[e] = pr * (dp[e] - D[r]);
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const bool ok = q_ok[r] && kc + 8 * (i / 4) + (i & 1) < valid;
+      const float pr = ok ? ex2(fmaf(sc[i], sl, -L[r])) : 0.f;
+      dp[i] = pr * (dp[i] - D[r]);
     }
     uint32_t da[4][4];
     to_a(dp, da);
-    const uint8_t* st = ring_get(sm, WIDE_BWD_STAGE, bars, i);
-    const uint64_t dkd = sw128_desc(st);
     pin(dq);
     wg_fence();
-#pragma unroll
-    for (int t = 0; t < 4; ++t) wgmma_rs64(dq, da[t], dkd + 128 * t);
+    wide_rs<NC>(dq, da, NK > 0 ? st + cb * BOX : st);   // dL K
     wg_commit();
     wg_wait();
     pin(dq);
-    ring_release(bars, i++, p.lane);
+    ring_release(bars, it++, p.lane, stages);
   }
-  store_rows(dq, dq_out + in.at(b, h, 0) + 64 * c, in.sr, q0, p, N, scale);
+  store_rows(dq, out0 + in.at(b, h, 0) + 64 * cb, in.sr, q0 + ROWS * wg, p,
+             N, scale);
 }
+#undef WIDE_TC_ARGS
 
 // cuTensorMapEncodeTiled from the driver the process has loaded (no link
 // against libcuda).
@@ -1186,8 +1683,7 @@ int bwd(const Op& op, const void* g, void* dq, void* dk, void* dv,
                 static_cast<__nv_bfloat16*>(dq), N, H, valid, scale);
 }
 
-// K5 and K6 at dh = 64 nch, nch > 1 (split layout only): grid.y = H * nch.
-// delta: fp32 scratch of nch * B * H * N.
+// K5 at dh = 64 nch, nch > 1 (split layout only): grid.y = H * nch.
 int fwd_wide(const Op& op, void* out, int B, int N, int H, int dh, int valid,
              float scale, cudaStream_t stream) {
   Maps maps;
@@ -1195,41 +1691,61 @@ int fwd_wide(const Op& op, void* out, int B, int N, int H, int dh, int valid,
     return (int)cudaErrorInvalidValue;
   const int nch = dh / 64;
   const dim3 grid((N + ROWS - 1) / ROWS, H * nch, B);
-  return launch(attn_fwd_wide_tc_kernel<false>, THREADS, WIDE_FWD_SMEM, grid,
-                stream, maps, op.os, (const __nv_bfloat16*)nullptr,
-                static_cast<__nv_bfloat16*>(out), (float*)nullptr,
-                (float*)nullptr, N, H, valid, scale, nch);
+  return launch(attn_fwd_wide_tc_kernel, THREADS, WIDE_FWD_SMEM, grid,
+                stream, maps, op.os, static_cast<__nv_bfloat16*>(out), N,
+                valid, scale, nch);
 }
 
+using WideFn = void (*)(Maps, Strides, float*, float*, __nv_bfloat16*,
+                        __nv_bfloat16*, int, int, int, float, int, int, int);
+
+// The launches of K6's wide backward (wide_plan's Set): one pass (its
+// kernel) with its configuration, from the template arguments. Resident
+// form: the most stages (two at most) whose shared memory fits; streamed
+// (NK = 0): STREAM_STAGES items.
+struct Set {
+  template <int KIND, int NK, int NC, int CW>
+  static WidePass<WideFn> pass(int cb) {
+    constexpr int stage = NK > 0 ? 2 * NK * BOX : STREAM_ITEM;
+    constexpr int fixed = (KIND == PASS_DV ? 1 : 2) * CW * NK * BOX + 1024 +
+                          CW * 2 * STAT_BYTES;
+    static_assert(fixed + stage <= WIDE_SMEM_CAP, "no stage fits");
+    constexpr int stages = NK == 0                             ? STREAM_STAGES
+                           : fixed + 2 * stage <= WIDE_SMEM_CAP ? 2
+                                                                : 1;
+    static_assert(fixed + stages * stage <= WIDE_SMEM_CAP, "ring too big");
+    WideFn fn;
+    if constexpr (KIND == PASS_STATS)
+      fn = attn_bwd_wide_stats_tc<NK, CW>;
+    else if constexpr (KIND == PASS_DQ)
+      fn = attn_bwd_wide_dq_tc<NK, NC, CW>;
+    else
+      fn = attn_bwd_wide_dkdv_tc<KIND, NK, NC, CW>;
+    return {fn, KIND, 64 * NC, cb, wide_threads(CW), stages,
+            fixed + stages * stage, ROWS * CW};
+  }
+};
+
+// K6 at dh = 64 nk, nk > 1 (split layout only): the launches of
+// wide_plan. lse, delta: fp32 scratch of B*H*N each.
 int bwd_wide(const Op& op, const void* g, void* dq, void* dk, void* dv,
              float* lse, float* delta, int B, int N, int H, int dh,
              int valid, float scale, cudaStream_t stream) {
   Maps maps;
   if (!make_maps(&maps, op, g, B, H, N, dh))
     return (int)cudaErrorInvalidValue;
-  const int nch = dh / 64;
-  const dim3 grid((N + ROWS - 1) / ROWS, H * nch, B);
-  int err = launch(attn_fwd_wide_tc_kernel<true>, THREADS, WIDE_FWD_SMEM,
-                   grid, stream, maps, op.os,
-                   static_cast<const __nv_bfloat16*>(g),
-                   (__nv_bfloat16*)nullptr, lse, delta, N, H, valid, scale,
-                   nch);
-  if (err) return err;
-  err = sum_delta_chunks(delta, nch, (size_t)B * H * N, stream);
-  if (err) return err;
-  err = launch(attn_bwd_dkdv_wide_tc_kernel<false>, THREADS, WIDE_BWD_SMEM,
-               grid, stream, maps, op.in, (const float*)lse,
-               (const float*)delta, static_cast<__nv_bfloat16*>(dv), N, H,
-               valid, scale, nch);
-  if (err) return err;
-  err = launch(attn_bwd_dkdv_wide_tc_kernel<true>, THREADS, WIDE_BWD_SMEM,
-               grid, stream, maps, op.in, (const float*)lse,
-               (const float*)delta, static_cast<__nv_bfloat16*>(dk), N, H,
-               valid, scale, nch);
-  if (err) return err;
-  return launch(attn_bwd_dq_wide_tc_kernel, THREADS, WIDE_BWD_SMEM, grid,
-                stream, maps, op.in, (const float*)lse, (const float*)delta,
-                static_cast<__nv_bfloat16*>(dq), N, H, valid, scale, nch);
+  int err = 0;
+  const int nk = dh / 64;
+  wide_plan<Set>(nk, [&](const WidePass<WideFn>& p) {
+    if (err) return;
+    const dim3 grid((N + p.rows - 1) / p.rows, H, B);
+    err = launch(
+        p.fn, p.threads, p.smem, grid, stream, maps, op.in, lse, delta,
+        static_cast<__nv_bfloat16*>(p.kind == PASS_DQ ? dq : dk),
+        static_cast<__nv_bfloat16*>(dv), N, H, valid, scale, p.cb, nk,
+        p.stages);
+  });
+  return err;
 }
 
 }  // namespace tc
@@ -1281,24 +1797,28 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int FWD_SMEM = (1 + 4) * TILE * 4;    // q | (k, v) x 2: 87,040
 constexpr int BWD_SMEM = (2 + 4) * TILE * 4;    // 2 resident | 2 x 2: 104,448
 
-// A fragment of rows r0.. of tile T at columns k0..k0 + 7.
+// A fragment of rows r0.. of tile T (rows LD floats apart) at columns
+// k0..k0 + 7.
+template <int LD = LDS>
 __device__ __forceinline__ FragA load_a(const float* T, int r0, int k0,
                                         int g, int t) {
-  const float* p = T + (r0 + g) * LDS + k0 + t;
-  return split_a(p[0], p[8 * LDS], p[4], p[8 * LDS + 4]);
+  const float* p = T + (r0 + g) * LD + k0 + t;
+  return split_a(p[0], p[8 * LD], p[4], p[8 * LD + 4]);
 }
 // B by row: contraction along the tile's columns k0.., n = rows n0...
+template <int LD = LDS>
 __device__ __forceinline__ FragB load_b_row(const float* T, int n0, int k0,
                                             int g, int t) {
-  const float* p = T + (n0 + g) * LDS + k0 + t;
+  const float* p = T + (n0 + g) * LD + k0 + t;
   return split_b(p[0], p[4]);
 }
 // B by column: contraction along the tile's rows j0.. (permuted), n =
 // columns n0...
+template <int LD = LDS>
 __device__ __forceinline__ FragB load_b_col(const float* T, int j0, int n0,
                                             int g, int t) {
-  const float* p = T + (j0 + 2 * t) * LDS + n0 + g;
-  return split_b(p[0], p[LDS]);
+  const float* p = T + (j0 + 2 * t) * LD + n0 + g;
+  return split_b(p[0], p[LD]);
 }
 // The A fragment of an accumulator's 8 columns, in load_b_col's order.
 __device__ __forceinline__ FragA acc_a(const float (&c)[4]) {
@@ -1317,6 +1837,9 @@ __device__ __forceinline__ void cp_commit() {
 // Returns once every group but the newest is in shared memory.
 __device__ __forceinline__ void cp_wait_all_but_one() {
   asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 // Rows [row0, row0 + R) of head h of batch b of the view (p, s), 64
@@ -1682,25 +2205,18 @@ attn_bwd_dq_tf32_kernel(Operands<float> op, const float* __restrict__ g,
   }
 }
 
-// K5/K6 at dh = 64 nch, nch > 1, in split TF32: the chunked design of the
-// bf16 wide kernels (tc, above) on this set's cp.async ring. A block owns
-// output columns [64 c, 64 c + 64); every contraction over dh runs over
+// K5 at dh = 64 nch, nch > 1, in split TF32: the chunked design of the
+// bf16 wide forward (tc, above) on this set's cp.async ring. A block owns
+// output columns [64 c, 64 c + 64); the contraction S = Q K^T runs over
 // the nch chunks in order, one 64-column tile of each operand an item;
-// nothing is resident. The backward's streamed operand comes in tiles of
-// QS = 32 rows, as the dh = 64 dK/dV pass splits its q tile in halves, so
-// that S^T and dP^T (or S and dP) of one tile stay within the registers.
-constexpr int QS = 32;                         // rows of a streamed bwd tile
+// nothing is resident.
 constexpr int WIDE_FWD_SMEM = 4 * TILE * 4;    // 2 stages of (Q_j, K_j)
-constexpr int WIDE_BWD_SMEM = 6 * TILE * 4;    // 2 stages of 2 + 2 half tiles
 
-// Forward at dh = 64 nch: as attn_fwd_kernel_tf32, output columns of chunk
-// c. STATS: lse (chunk 0) and the chunk's part of delta, delta[c][b][h][row].
-template <bool STATS>
+// Forward at dh = 64 nch: as attn_fwd_kernel_tf32, output columns of
+// chunk c.
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-attn_fwd_wide_tf32_kernel(Operands<float> op, const float* __restrict__ g,
-                          float* __restrict__ out, float* __restrict__ lse,
-                          float* __restrict__ delta, int N, int H, int valid,
-                          float scale, int nch) {
+attn_fwd_wide_tf32_kernel(Operands<float> op, float* __restrict__ out,
+                          int N, int valid, float scale, int nch) {
   extern __shared__ float4 smem4[];
   float* const ring = reinterpret_cast<float*>(smem4);   // stage: 2 tiles
   const int b = blockIdx.z, h = blockIdx.y / nch, c = blockIdx.y % nch;
@@ -1799,177 +2315,424 @@ attn_fwd_wide_tf32_kernel(Operands<float> op, const float* __restrict__ g,
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int row = q0 + r0 + g8 + 8 * e;
-    float part = 0.f;
-    if (row < N) {
-      if (!STATS) {
-        float* dst = out + op.os.at(b, h, row) + 64 * c + 2 * t;
+    if (row >= N) continue;
+    float* dst = out + op.os.at(b, h, row) + 64 * c + 2 * t;
 #pragma unroll
-        for (int n = 0; n < 8; ++n)
-          *reinterpret_cast<float2*>(dst + 8 * n) =
-              make_float2(o[n][2 * e] / l[e], o[n][2 * e + 1] / l[e]);
-      } else {
-        const float* gr = g + op.os.at(b, h, row) + 64 * c + 2 * t;
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(o[n][2 * e] / l[e], o[n][2 * e + 1] / l[e]);
+  }
+}
+
+// K6 at dh = 64 nk, nk > 1, in split TF32: tc's three wide passes
+// (statistics by sum p dp, dK/dV, dQ; the same forms, column blocks and
+// split of dK and dV: wide_plan) on this set's fragments and cp.async
+// ring. A block owns 64 rows (four warps of 16) and W = 64 NC output
+// columns: a warp's accumulators cover [16, W], W / 8 fragments of four.
+// Per tile, S and dP ([16, WQS] a warp) are each one chain over dh; the
+// output product over the tile's rows goes into a fresh fragment of four
+// n8 blocks at a time, added to the accumulator in fp32 (mma3_cols_add's
+// rule: the tensor cores truncate as they accumulate, and a chain over
+// every tile would drift).
+//   * resident (NK = nk): the own rows (K and V, or Q and g) are staged
+//     once at full width, raw, rows padded to LD = dh + 4 floats (every
+//     fragment read hits 32 banks, as LDS); the other operand pair streams
+//     in tiles of WQS<NK> rows at full width through a cp.async ring of
+//     `stages` (two: tile i + 1 in flight while tile i is read; one where
+//     two do not fit). W, WQS, stages and blocks per SM (attn_bwd_plan;
+//     chip_smoke's phase 2 prints them; at most 255 registers a thread):
+//       dh 128: W 128, WQS 16, 2 stages, 101 KB: two blocks an SM;
+//       dh 192: W 192, WQS 32, 2 stages, 200 KB (dV 150 KB): one;
+//       dh 256: W 256, WQS 32, 1 stage (dV 2), 200 KB: one;
+//       dh 320: W 192 and 128, WQS 16, 1 stage (dV 2): one.
+//     WQS 32 at dh = 128 (one block an SM) measured 10.39 ms against 8.80
+//     for K6 at [2, 6, 3601, 128]; at dh = 192 and 256 it took 10.3 and
+//     12.1 ms against 11.4 and 13.8, the resident rows' fragments split
+//     half as often (tools/attn_forms.py on an H100 80GB HBM3 at 700 W).
+//   * streamed (NK = 0, any nk above RESIDENT_MAX_NK: the own rows at full
+//     width, 33 nk KB, leave no room for a stage from nk = 6): per tile of
+//     32 streamed rows, the head's nk 64-column boxes come through a
+//     two-stage ring as items of (the own rows' 64-row boxes, the tile's
+//     boxes), each a chain over its 64 columns into S and dP, then one
+//     item of the output product's operand (the tile's W columns of the
+//     block); W 192 or 256, dV and dK apart, 102 KB.
+template <int NK>
+constexpr int WQS = NK == 0 || NK == 3 || NK == 4 ? 32 : 16;
+// floats of a streamed-form stage: the box item or the output item
+template <int NC>
+constexpr int STREAM_ST = 2 * (ROWS + WQS<0>) * LDS > WQS<0> * (64 * NC + 4)
+                              ? 2 * (ROWS + WQS<0>) * LDS
+                              : WQS<0> * (64 * NC + 4);
+
+// Rows [row0, row0 + R) of head h of batch b of the view (p, s), 64 NK
+// columns from p, into T (rows 64 NK + 4 floats apart); rows at or past n
+// arrive as zeros. Every thread issues its part.
+template <int NK, int R>
+__device__ __forceinline__ void load_rows(float* T, const float* p,
+                                          const Strides& s, int b, int h,
+                                          int row0, int n) {
+  constexpr int LD = 64 * NK + 4, C = 16 * NK;   // 16-byte pieces a row
+  for (int i = threadIdx.x; i < R * C; i += THREADS) {
+    const int r = i / C, c = (i % C) * 4, row = row0 + r;
+    const bool ok = row < n;
+    cp_async16(T + r * LD + c, p + (ok ? s.at(b, h, row) + c : 0), ok);
+  }
+}
+
+// The wide passes' ring at item i (after the resident rows and, with two
+// stages, item 0 were issued and committed): issue item i + 1 (two
+// stages) or item i (one), then wait until item i and the resident rows
+// are in shared memory. Returns item i's stage index.
+template <typename Issue>
+__device__ __forceinline__ int ring_step(int i, int n, int stages,
+                                         Issue issue) {
+  if (stages == 2) {
+    if (i + 1 < n) issue(i + 1);
+    cp_commit();
+    cp_wait_all_but_one();
+  } else {
+    issue(i);
+    cp_commit();
+    cp_wait_all();
+  }
+  __syncthreads();
+  return stages == 2 ? i & 1 : 0;
+}
+
+// s (+)= A B^T and, where TWO, d (+)= C D^T for a warp's 16 rows from r0
+// of A and C (rows LDA floats apart) against QJ n8 blocks of the streamed
+// rows of B and D (LDB apart), over KK k8 steps.
+template <int QJ, int KK, int LDA, int LDB, bool TWO>
+__device__ __forceinline__ void wide_chain(float (&s)[QJ][4],
+                                           float (&d)[QJ][4], const float* A,
+                                           const float* B, const float* C,
+                                           const float* D, int r0, int g8,
+                                           int t) {
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const float2 gv = *reinterpret_cast<const float2*>(gr + 8 * n);
-          part += gv.x * (o[n][2 * e] / l[e]) +
-                  gv.y * (o[n][2 * e + 1] / l[e]);
-        }
-      }
+  for (int kk = 0; kk < KK; ++kk) {
+    FragB bb[QJ], db[QJ];
+#pragma unroll
+    for (int n = 0; n < QJ; ++n) {
+      bb[n] = load_b_row<LDB>(B, 8 * n, 8 * kk, g8, t);
+      if constexpr (TWO) db[n] = load_b_row<LDB>(D, 8 * n, 8 * kk, g8, t);
     }
-    if (STATS) {
-      part = quad_sum(part);
-      if (row < N && t == 0) {
-        const size_t idx = ((size_t)b * H + h) * N + row;
-        if (c == 0) lse[idx] = (m[e] + log2f(l[e])) / LOG2E;
-        delta[(size_t)c * gridDim.z * H * N + idx] = part;
+    mma3_cols(s, load_a<LDA>(A, r0, 8 * kk, g8, t), bb);
+    if constexpr (TWO) mma3_cols(d, load_a<LDA>(C, r0, 8 * kk, g8, t), db);
+  }
+}
+
+// d[c .. c + 3] += A B over a streamed tile's QS rows into a fresh
+// fragment: A the tile's QJ k8 slices (accumulator fragments of its
+// columns), B by column from T at output column n0 + 8 c.
+template <int LD, int QJ, int NB>
+__device__ __forceinline__ void wide_out(float (&d)[NB][4],
+                                         const float (&a)[QJ][4],
+                                         const float* T, int n0, int c,
+                                         int g8, int t) {
+  float s[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < QJ; ++jj) {
+    FragB bb[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      bb[n] = load_b_col<LD>(T, 8 * jj, n0 + 8 * (c + n), g8, t);
+    mma3_cols(s, acc_a(a[jj]), bb);
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[c + n][e] += s[n][e];
+}
+
+// One tile's contraction (as tc's contract), s = A B^T and, where TWO, d =
+// C D^T, A and C the own rows. Resident (NK > 0): item `it` is the tile;
+// its stage against the own rows res_a and res_c (rows LD apart; the
+// stage holds B, then D). Streamed: the head's nk box items from `it`
+// (each [A, C: 64 rows][B, D: WQS rows], LDS apart), each freed once read;
+// then, where OUT, the output item. Returns the stage of the item left
+// held (the tile's, the output item's, or the last box's), which the
+// caller frees by __syncthreads.
+template <int NK, bool TWO, bool OUT, int QJ, typename Issue>
+__device__ __forceinline__ const float* wide_contract(
+    float (&s)[QJ][4], float (&d)[QJ][4], const float* res_a,
+    const float* res_c, const float* ring, int st_floats, int& it,
+    int n_items, int nk, int stages, Issue issue, int r0, int g8, int t) {
+#pragma unroll
+  for (int n = 0; n < QJ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = d[n][e] = 0.f;
+  if constexpr (NK > 0) {
+    constexpr int LD = 64 * NK + 4;
+    const float* st = ring + ring_step(it, n_items, stages, issue) * st_floats;
+    wide_chain<QJ, 8 * NK, LD, LD, TWO>(s, d, res_a, st, res_c,
+                                        st + 8 * QJ * LD, r0, g8, t);
+    return st;
+  } else {
+    const float* st = nullptr;
+    for (int j = 0; j < nk; ++j) {
+      if (j > 0) {
+        __syncthreads();   // the previous box's stage is free
+        ++it;
       }
+      st = ring + ring_step(it, n_items, 2, issue) * st_floats;
+      wide_chain<QJ, 8, LDS, LDS, TWO>(s, d, st, st + 2 * ROWS * LDS,
+                                       st + ROWS * LDS,
+                                       st + (2 * ROWS + 8 * QJ) * LDS, r0,
+                                       g8, t);
+    }
+    if constexpr (OUT) {
+      __syncthreads();
+      st = ring + ring_step(++it, n_items, 2, issue) * st_floats;
+    }
+    return st;
+  }
+}
+
+// The wide passes share one signature (launched through WidePass): out0
+// is dQ (PASS_DQ) or dK, out1 dV; cb the first output box (column 64 cb);
+// nk the head's boxes (dh / 64).
+#define WIDE_TF32_ARGS                                                      \
+  Operands<float> op, const float *__restrict__ g, float *__restrict__ lse, \
+      float *__restrict__ delta, float *__restrict__ out0,                  \
+      float *__restrict__ out1, int N, int H, int valid, float scale,       \
+      int cb, int nk, int stages
+
+// The streamed form's box item j, into st: the own rows' boxes of a and c
+// (row0.., zeros at or past na), the tile's of b and d (row1.., past nb);
+// each operand through its strides.
+__device__ __forceinline__ void load_box_item(
+    float* st, int j, int b, int h, const float* a, const Strides& sa,
+    const float* c, const Strides& sc, int row0, int na, const float* bp,
+    const Strides& sb, const float* d, const Strides& sd, int row1, int nb) {
+  load_rows<1, ROWS>(st, a + 64 * j, sa, b, h, row0, na);
+  if (c) load_rows<1, ROWS>(st + ROWS * LDS, c + 64 * j, sc, b, h, row0, na);
+  load_rows<1, WQS<0>>(st + 2 * ROWS * LDS, bp + 64 * j, sb, b, h, row1, nb);
+  if (d)
+    load_rows<1, WQS<0>>(st + (2 * ROWS + WQS<0>) * LDS, d + 64 * j, sd, b, h,
+                         row1, nb);
+}
+
+// Pass 1: lse and delta for 64 q rows (Q and g the own rows), over key
+// tiles of QS (K and V streamed).
+template <int NK>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bwd_wide_stats_tf32(WIDE_TF32_ARGS) {
+  constexpr int QS = WQS<NK>, QJ = QS / 8;   // streamed rows, n8 blocks
+  constexpr int LD = 64 * NK + 4;
+  constexpr int ST = NK > 0 ? 2 * QS * LD : STREAM_ST<0>;
+  extern __shared__ float4 smem4[];
+  float* const qs = reinterpret_cast<float*>(smem4);
+  float* const gs = qs + ROWS * LD;
+  float* const ring = NK > 0 ? gs + ROWS * LD : qs;   // stage: K, then V
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ROWS;
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);
+  const int n_kt = (valid + QS - 1) / QS;
+  const int per = NK > 0 ? 1 : nk, n_items = n_kt * per;
+  const float sl = scale * LOG2E;
+  auto issue = [&](int it) {
+    float* st = ring + (stages == 2 ? it & 1 : 0) * ST;
+    const int i = it / per;
+    if constexpr (NK > 0) {
+      load_rows<NK, QS>(st, op.k, op.in, b, h, i * QS, valid);
+      load_rows<NK, QS>(st + QS * LD, op.v, op.in, b, h, i * QS, valid);
+    } else {
+      load_box_item(st, it % per, b, h, op.q, op.in, g, op.os, q0, N, op.k,
+                    op.in, op.v, op.in, i * QS, valid);
+    }
+  };
+  if constexpr (NK > 0) {
+    load_rows<NK, ROWS>(qs, op.q, op.in, b, h, q0, N);
+    load_rows<NK, ROWS>(gs, g, op.os, b, h, q0, N);
+    if (stages == 2) issue(0);
+  } else {
+    issue(0);
+  }
+  cp_commit();
+  // per row: the running max (log2 domain), sum of p and sum of p dp
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, pd[2] = {0.f, 0.f};
+
+  for (int kt = 0, it = 0; kt < n_kt; ++kt, ++it) {
+    float s[QJ][4], dp[QJ][4];
+    // S = Q K^T, dP = g V^T
+    wide_contract<NK, true, false>(s, dp, qs, gs, ring, ST, it, n_items, nk,
+                                   stages, issue, r0, g8, t);
+    __syncthreads();   // the stage is free
+    // keys >= valid get -inf; every tile holds a valid key
+    const int k0 = kt * QS;
+    if (k0 + QS > valid) {
+#pragma unroll
+      for (int n = 0; n < QJ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * n + 2 * t + (e & 1) >= valid) s[n][e] = -INFINITY;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < QJ; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * e], s[n][2 * e + 1]));
+      const float mn = fmaxf(m[e], quad_max(mx) * sl);
+      const float alpha = tc::ex2(m[e] - mn);
+      m[e] = mn;
+      l[e] *= alpha;
+      pd[e] *= alpha;
+    }
+#pragma unroll
+    for (int n = 0; n < QJ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = tc::ex2(fmaf(s[n][e], sl, -m[e >> 1]));
+        l[e >> 1] += pr;
+        pd[e >> 1] += pr * dp[n][e];
+      }
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l[e] = quad_sum(l[e]);
+    pd[e] = quad_sum(pd[e]);
+    const int row = q0 + r0 + g8 + 8 * e;
+    if (row < N && t == 0) {
+      const size_t idx = ((size_t)b * H + h) * N + row;
+      lse[idx] = (m[e] + log2f(l[e])) / LOG2E;
+      delta[idx] = pd[e] / l[e];
     }
   }
 }
 
-// dK, dV at dh = 64 nch: as attn_bwd_dkdv_tf32_kernel, output columns of
-// chunk c, over q tiles of QS rows. Per q tile: nch items (K_j, V_j of the
-// block's 64 keys, Q_j, g_j of the tile) for S^T and dP^T, then (Q_c, g_c)
-// for dV += P^T g_c and dK += dL^T Q_c.
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-attn_bwd_dkdv_wide_tf32_kernel(Operands<float> op, const float* __restrict__ g,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ delta,
-                               float* __restrict__ dk_out,
-                               float* __restrict__ dv_out, int N, int H,
-                               int valid, float scale, int nch) {
+// Pass 2: dK (out0) and/or dV (out1), columns [64 cb, 64 (cb + NC)), for
+// 64 keys (K, and V for dK, the own rows), over q tiles of QS (Q and g
+// streamed). Key tiles past n_valid: no loop, exactly zero dk and dv.
+template <int MODE, int NK, int NC>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bwd_wide_dkdv_tf32(WIDE_TF32_ARGS) {
+  constexpr bool DO_K = MODE != PASS_DV, DO_V = MODE != PASS_DK;
+  static_assert(NK > 0 || MODE != PASS_DKDV, "streamed: dK, dV apart");
+  constexpr int QS = WQS<NK>, QJ = QS / 8;   // streamed rows, n8 blocks
+  constexpr int LD = 64 * NK + 4, NB = 8 * NC;
+  // the output product's B: the stage's columns from 64 cb, or the item
+  constexpr int LDO = NK > 0 ? LD : 64 * NC + 4;
+  constexpr int ST = NK > 0 ? 2 * QS * LD : STREAM_ST<NC>;
   extern __shared__ float4 smem4[];
-  float* const ring = reinterpret_cast<float*>(smem4);   // stage: 3 tiles
-  const int b = blockIdx.z, h = blockIdx.y / nch, c = blockIdx.y % nch;
-  const int k0 = blockIdx.x * ROWS;
+  float* const ks = reinterpret_cast<float*>(smem4);
+  float* const vs = ks + ROWS * LD;                     // dK only
+  // stage: Q, then g
+  float* const ring = NK > 0 ? ks + (DO_K ? 2 : 1) * ROWS * LD : ks;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * ROWS;
   const int lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
   const int r0 = 16 * (threadIdx.x >> 5);
-  const int per = nch + 1;
-  const int n_items = k0 < valid ? (N + QS - 1) / QS * per : 0;
+  const int n_qt = k0 < valid ? (N + QS - 1) / QS : 0;
+  const int per = NK > 0 ? 1 : nk + 1, n_items = n_qt * per;
   const float sl = scale * LOG2E;
   const bool key_ok[2] = {k0 + r0 + g8 < valid, k0 + r0 + g8 + 8 < valid};
   const float* lse_bh = lse + ((size_t)b * H + h) * N;
   const float* del_bh = delta + ((size_t)b * H + h) * N;
-  // item (qt, j): K_j, V_j, then Q_j, g_j of q tile qt (QS rows each) for
-  // j < nch; then Q_c, g_c
-  auto issue = [&](int i) {
-    const int qt = i / per, j = i - qt * per;
-    float* st = ring + (i & 1) * 3 * TILE;
-    const int jc = j < nch ? j : c;
-    float* qs = j < nch ? st + 2 * TILE : st;
-    if (j < nch) {
-      load_tile(st, op.k + 64 * j, op.in, b, h, k0, valid);
-      load_tile(st + TILE, op.v + 64 * j, op.in, b, h, k0, valid);
+  auto issue = [&](int it) {
+    float* st = ring + (stages == 2 ? it & 1 : 0) * ST;
+    const int i = it / per, j = it % per;
+    if constexpr (NK > 0) {
+      load_rows<NK, QS>(st, op.q, op.in, b, h, i * QS, N);
+      load_rows<NK, QS>(st + QS * LD, g, op.os, b, h, i * QS, N);
+    } else if (j < nk) {
+      load_box_item(st, j, b, h, op.k, op.in, DO_K ? op.v : nullptr, op.in,
+                    k0, valid, op.q, op.in, DO_K ? g : nullptr, op.os, i * QS,
+                    N);
+    } else if constexpr (DO_K) {
+      load_rows<NC, QS>(st, op.q + 64 * cb, op.in, b, h, i * QS, N);
+    } else {
+      load_rows<NC, QS>(st, g + 64 * cb, op.os, b, h, i * QS, N);
     }
-    load_tile<QS>(qs, op.q + 64 * jc, op.in, b, h, qt * QS, N);
-    load_tile<QS>(qs + QS * LDS, g + 64 * jc, op.os, b, h, qt * QS, N);
   };
-  if (n_items) {
-    issue(0);
+  if (n_qt) {
+    if constexpr (NK > 0) {
+      load_rows<NK, ROWS>(ks, op.k, op.in, b, h, k0, valid);
+      if constexpr (DO_K)
+        load_rows<NK, ROWS>(vs, op.v, op.in, b, h, k0, valid);
+      if (stages == 2) issue(0);
+    } else {
+      issue(0);
+    }
     cp_commit();
   }
-  float dk[8][4], dv[8][4], sc[4][4], dp[4][4];
+  float dk[DO_K ? NB : 1][4], dv[DO_V ? NB : 1][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < (DO_K ? NB : 1); ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[n][e] = 0.f;
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < (DO_V ? NB : 1); ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dv[n][e] = 0.f;
 
-  for (int i = 0; i < n_items; ++i) {
-    if (i + 1 < n_items) issue(i + 1);
-    cp_commit();
-    cp_wait_all_but_one();
-    __syncthreads();
-    const int qt = i / per, j = i - qt * per;
-    const float* st = ring + (i & 1) * 3 * TILE;
-    if (j < nch) {
-      if (j == 0) {
+  for (int qt = 0, it = 0; qt < n_qt; ++qt, ++it) {
+    float sc[QJ][4], dp[QJ][4];
+    // S^T = K Q^T, dP^T = V g^T; B of the output products: Q's and g's
+    // columns of the block
+    const float* st = wide_contract<NK, DO_K, true>(
+        sc, dp, ks, vs, ring, ST, it, n_items, nk, stages, issue, r0, g8, t);
+    const float* qo = st;
+    const float* go = NK > 0 ? st + QS * LD : st;
+    const int n0 = NK > 0 ? 64 * cb : 0;
+    // the columns' statistics: q = qt * QS + 8n + 2t + (e & 1)
+    const int qc = qt * QS + 2 * t;
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < QJ; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int q = qc + 8 * n + (e & 1);
+        const bool ok = key_ok[e >> 1] && q < N;
+        const float pr =
+            ok ? tc::ex2(fmaf(sc[n][e], sl, -lse_bh[q] * LOG2E)) : 0.f;
+        if constexpr (DO_K) dp[n][e] = ok ? pr * (dp[n][e] - del_bh[q]) : 0.f;
+        sc[n][e] = pr;
       }
-      const float* qs = st + 2 * TILE;
-      const float* gs = qs + QS * LDS;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        FragB qb[4], gb[4];
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          qb[n] = load_b_row(qs, 8 * n, 8 * kk, g8, t);
-          gb[n] = load_b_row(gs, 8 * n, 8 * kk, g8, t);
-        }
-        mma3_cols(sc, load_a(st, r0, 8 * kk, g8, t), qb);
-        mma3_cols(dp, load_a(st + TILE, r0, 8 * kk, g8, t), gb);
-      }
-    } else {
-      // the columns' statistics: q = qt * QS + 8n + 2t + (e & 1)
-      const int qc = qt * QS + 2 * t;
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int q = qc + 8 * n + (e & 1);
-          const bool ok = key_ok[e >> 1] && q < N;
-          const float pr =
-              ok ? tc::ex2(fmaf(sc[n][e], sl, -lse_bh[q] * LOG2E)) : 0.f;
-          dp[n][e] = ok ? pr * (dp[n][e] - del_bh[q]) : 0.f;
-          sc[n][e] = pr;
-        }
-      const float* qs = st;
-      const float* gs = qs + QS * LDS;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        FragB bb[8];
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          bb[n] = load_b_col(gs, 8 * jj, 8 * n, g8, t);
-        mma3_cols(dv, acc_a(sc[jj]), bb);
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          bb[n] = load_b_col(qs, 8 * jj, 8 * n, g8, t);
-        mma3_cols(dk, acc_a(dp[jj]), bb);
-      }
+    for (int c = 0; c < NB; c += 4) {
+      if constexpr (DO_V) wide_out<LDO>(dv, sc, go, n0, c, g8, t);
+      if constexpr (DO_K) wide_out<LDO>(dk, dp, qo, n0, c, g8, t);
     }
-    __syncthreads();   // the stage is free for item i + 2
+    __syncthreads();   // the stage is free
   }
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int key = k0 + r0 + g8 + 8 * e;
     if (key >= N) continue;
-    float* dkr = dk_out + op.in.at(b, h, key) + 64 * c + 2 * t;
-    float* dvr = dv_out + op.in.at(b, h, key) + 64 * c + 2 * t;
+    const size_t at = op.in.at(b, h, key) + 64 * cb + 2 * t;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<float2*>(dkr + 8 * n) =
-          make_float2(dk[n][2 * e] * scale, dk[n][2 * e + 1] * scale);
-      *reinterpret_cast<float2*>(dvr + 8 * n) =
-          make_float2(dv[n][2 * e], dv[n][2 * e + 1]);
+    for (int n = 0; n < NB; ++n) {
+      if constexpr (DO_K)
+        *reinterpret_cast<float2*>(out0 + at + 8 * n) =
+            make_float2(dk[n][2 * e] * scale, dk[n][2 * e + 1] * scale);
+      if constexpr (DO_V)
+        *reinterpret_cast<float2*>(out1 + at + 8 * n) =
+            make_float2(dv[n][2 * e], dv[n][2 * e + 1]);
     }
   }
 }
 
-// dQ at dh = 64 nch: as attn_bwd_dq_tf32_kernel, output columns of chunk c,
-// over key tiles of QS rows. Per key tile: nch items (Q_j, g_j of the
-// block's 64 rows, K_j, V_j of the tile) for S and dP, then K_c for
-// dQ += dL K_c.
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-attn_bwd_dq_wide_tf32_kernel(Operands<float> op, const float* __restrict__ g,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             float* __restrict__ dq_out, int N, int H,
-                             int valid, float scale, int nch) {
+// Pass 3: dQ (out0), columns [64 cb, 64 (cb + NC)), for 64 q rows (Q and
+// g the own rows), over key tiles of QS (K and V streamed).
+template <int NK, int NC>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bwd_wide_dq_tf32(WIDE_TF32_ARGS) {
+  constexpr int QS = WQS<NK>, QJ = QS / 8;   // streamed rows, n8 blocks
+  constexpr int LD = 64 * NK + 4, NB = 8 * NC;
+  constexpr int LDO = NK > 0 ? LD : 64 * NC + 4;
+  constexpr int ST = NK > 0 ? 2 * QS * LD : STREAM_ST<NC>;
   extern __shared__ float4 smem4[];
-  float* const ring = reinterpret_cast<float*>(smem4);   // stage: 3 tiles
-  const int b = blockIdx.z, h = blockIdx.y / nch, c = blockIdx.y % nch;
-  const int q0 = blockIdx.x * ROWS;
+  float* const qs = reinterpret_cast<float*>(smem4);
+  float* const gs = qs + ROWS * LD;
+  float* const ring = NK > 0 ? gs + ROWS * LD : qs;   // stage: K, then V
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ROWS;
   const int lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
   const int r0 = 16 * (threadIdx.x >> 5);
-  const int per = nch + 1, n_items = (valid + QS - 1) / QS * per;
+  const int n_kt = (valid + QS - 1) / QS;
+  const int per = NK > 0 ? 1 : nk + 1, n_items = n_kt * per;
   const float sl = scale * LOG2E;
   bool q_ok[2];
   float L[2], D[2];
@@ -1981,94 +2744,66 @@ attn_bwd_dq_wide_tf32_kernel(Operands<float> op, const float* __restrict__ g,
     L[e] = lse[idx] * LOG2E;
     D[e] = delta[idx];
   }
-  // item (kt, j): Q_j, g_j, then K_j, V_j of key tile kt (QS rows each)
-  // for j < nch; then K_c
-  auto issue = [&](int i) {
-    const int kt = i / per, j = i - kt * per;
-    float* st = ring + (i & 1) * 3 * TILE;
-    if (j < nch) {
-      load_tile(st, op.q + 64 * j, op.in, b, h, q0, N);
-      load_tile(st + TILE, g + 64 * j, op.os, b, h, q0, N);
-      load_tile<QS>(st + 2 * TILE, op.k + 64 * j, op.in, b, h, kt * QS,
-                    valid);
-      load_tile<QS>(st + 2 * TILE + QS * LDS, op.v + 64 * j, op.in, b, h,
-                    kt * QS, valid);
+  auto issue = [&](int it) {
+    float* st = ring + (stages == 2 ? it & 1 : 0) * ST;
+    const int i = it / per, j = it % per;
+    if constexpr (NK > 0) {
+      load_rows<NK, QS>(st, op.k, op.in, b, h, i * QS, valid);
+      load_rows<NK, QS>(st + QS * LD, op.v, op.in, b, h, i * QS, valid);
+    } else if (j < nk) {
+      load_box_item(st, j, b, h, op.q, op.in, g, op.os, q0, N, op.k, op.in,
+                    op.v, op.in, i * QS, valid);
     } else {
-      load_tile<QS>(st, op.k + 64 * c, op.in, b, h, kt * QS, valid);
+      load_rows<NC, QS>(st, op.k + 64 * cb, op.in, b, h, i * QS, valid);
     }
   };
-  issue(0);
+  if constexpr (NK > 0) {
+    load_rows<NK, ROWS>(qs, op.q, op.in, b, h, q0, N);
+    load_rows<NK, ROWS>(gs, g, op.os, b, h, q0, N);
+    if (stages == 2) issue(0);
+  } else {
+    issue(0);
+  }
   cp_commit();
-  float dq[8][4], sc[4][4], dp[4][4];
+  float dq[NB][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NB; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
 
-  for (int i = 0; i < n_items; ++i) {
-    if (i + 1 < n_items) issue(i + 1);
-    cp_commit();
-    cp_wait_all_but_one();
-    __syncthreads();
-    const int kt = i / per, j = i - kt * per;
-    const float* st = ring + (i & 1) * 3 * TILE;
-    if (j < nch) {
-      if (j == 0) {
+  for (int kt = 0, it = 0; kt < n_kt; ++kt, ++it) {
+    float sc[QJ][4], dp[QJ][4];
+    // S = Q K^T, dP = g V^T; B of the output product: K's columns of the
+    // block
+    const float* ko = wide_contract<NK, true, true>(
+        sc, dp, qs, gs, ring, ST, it, n_items, nk, stages, issue, r0, g8, t);
+    const int kc = kt * QS + 2 * t;
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < QJ; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool ok = q_ok[r] && kc + 8 * n + (e & 1) < valid;
+        const float pr = ok ? tc::ex2(fmaf(sc[n][e], sl, -L[r])) : 0.f;
+        dp[n][e] = ok ? pr * (dp[n][e] - D[r]) : 0.f;   // dL
       }
-      const float* ks = st + 2 * TILE;
-      const float* vs = ks + QS * LDS;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        FragB kb[4], vb[4];
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          kb[n] = load_b_row(ks, 8 * n, 8 * kk, g8, t);
-          vb[n] = load_b_row(vs, 8 * n, 8 * kk, g8, t);
-        }
-        mma3_cols(sc, load_a(st, r0, 8 * kk, g8, t), kb);
-        mma3_cols(dp, load_a(st + TILE, r0, 8 * kk, g8, t), vb);
-      }
-    } else {
-      const int kc = kt * QS + 2 * t;
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const bool ok = q_ok[r] && kc + 8 * n + (e & 1) < valid;
-          const float pr = ok ? tc::ex2(fmaf(sc[n][e], sl, -L[r])) : 0.f;
-          dp[n][e] = ok ? pr * (dp[n][e] - D[r]) : 0.f;
-        }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        FragB bb[8];
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          bb[n] = load_b_col(st, 8 * jj, 8 * n, g8, t);
-        mma3_cols(dq, acc_a(dp[jj]), bb);
-      }
-    }
-    __syncthreads();   // the stage is free for item i + 2
+    for (int c = 0; c < NB; c += 4)
+      wide_out<LDO>(dq, dp, ko, NK > 0 ? 64 * cb : 0, c, g8, t);   // dL K
+    __syncthreads();   // the stage is free
   }
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int row = q0 + r0 + g8 + 8 * e;
     if (row >= N) continue;
-    float* dst = dq_out + op.in.at(b, h, row) + 64 * c + 2 * t;
+    float* dst = out0 + op.in.at(b, h, row) + 64 * cb + 2 * t;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NB; ++n)
       *reinterpret_cast<float2*>(dst + 8 * n) =
           make_float2(dq[n][2 * e] * scale, dq[n][2 * e + 1] * scale);
   }
 }
+#undef WIDE_TF32_ARGS
 
 using Op = Operands<float>;
 
@@ -2101,39 +2836,61 @@ int bwd(const Op& op, const void* g, void* dq, void* dk, void* dv,
                     static_cast<float*>(dq), N, H, valid, scale);
 }
 
-// K5 and K6 at dh = 64 nch, nch > 1 (split layout only): grid.y = H * nch.
-// delta: fp32 scratch of nch * B * H * N.
+// K5 at dh = 64 nch, nch > 1 (split layout only): grid.y = H * nch.
 int fwd_wide(const Op& op, void* out, int B, int N, int H, int dh, int valid,
              float scale, cudaStream_t stream) {
   const int nch = dh / 64;
   const dim3 grid((N + ROWS - 1) / ROWS, H * nch, B);
-  return tc::launch(attn_fwd_wide_tf32_kernel<false>, THREADS, WIDE_FWD_SMEM,
-                    grid, stream, op, (const float*)nullptr,
-                    static_cast<float*>(out), (float*)nullptr,
-                    (float*)nullptr, N, H, valid, scale, nch);
+  return tc::launch(attn_fwd_wide_tf32_kernel, THREADS, WIDE_FWD_SMEM, grid,
+                    stream, op, static_cast<float*>(out), N, valid, scale,
+                    nch);
 }
 
+using WideFn = void (*)(Operands<float>, const float*, float*, float*,
+                        float*, float*, int, int, int, float, int, int, int);
+
+// The launches of K6's wide backward in split TF32 (as tc::Set; CW is
+// bf16's alone). Streamed (NK = 0): two stages.
+struct Set {
+  template <int KIND, int NK, int NC, int CW>
+  static WidePass<WideFn> pass(int cb) {
+    constexpr int LD = 64 * NK + 4;
+    constexpr int fixed =
+        NK > 0 ? (KIND == PASS_DV ? 1 : 2) * ROWS * LD * 4 : 0;
+    constexpr int stage = (NK > 0 ? 2 * WQS<NK> * LD : STREAM_ST<NC>) * 4;
+    static_assert(fixed + stage <= WIDE_SMEM_CAP, "no stage fits");
+    constexpr int stages =
+        NK == 0 || fixed + 2 * stage <= WIDE_SMEM_CAP ? 2 : 1;
+    static_assert(fixed + stages * stage <= WIDE_SMEM_CAP, "ring too big");
+    WideFn fn;
+    if constexpr (KIND == PASS_STATS)
+      fn = attn_bwd_wide_stats_tf32<NK>;
+    else if constexpr (KIND == PASS_DQ)
+      fn = attn_bwd_wide_dq_tf32<NK, NC>;
+    else
+      fn = attn_bwd_wide_dkdv_tf32<KIND, NK, NC>;
+    return {fn, KIND, 64 * NC, cb, THREADS, stages, fixed + stages * stage,
+            ROWS};
+  }
+};
+
+// K6 at dh = 64 nk, nk > 1 (split layout only): the launches of
+// wide_plan. lse, delta: fp32 scratch of B*H*N each.
 int bwd_wide(const Op& op, const void* g, void* dq, void* dk, void* dv,
              float* lse, float* delta, int B, int N, int H, int dh,
              int valid, float scale, cudaStream_t stream) {
-  const float* gg = static_cast<const float*>(g);
-  const int nch = dh / 64;
-  const dim3 grid((N + ROWS - 1) / ROWS, H * nch, B);
-  int err = tc::launch(attn_fwd_wide_tf32_kernel<true>, THREADS,
-                       WIDE_FWD_SMEM, grid, stream, op, gg, (float*)nullptr,
-                       lse, delta, N, H, valid, scale, nch);
-  if (err) return err;
-  err = tc::sum_delta_chunks(delta, nch, (size_t)B * H * N, stream);
-  if (err) return err;
-  err = tc::launch(attn_bwd_dkdv_wide_tf32_kernel, THREADS, WIDE_BWD_SMEM,
-                   grid, stream, op, gg, (const float*)lse,
-                   (const float*)delta, static_cast<float*>(dk),
-                   static_cast<float*>(dv), N, H, valid, scale, nch);
-  if (err) return err;
-  return tc::launch(attn_bwd_dq_wide_tf32_kernel, THREADS, WIDE_BWD_SMEM,
-                    grid, stream, op, gg, (const float*)lse,
-                    (const float*)delta, static_cast<float*>(dq), N, H,
-                    valid, scale, nch);
+  int err = 0;
+  const int nk = dh / 64;
+  wide_plan<Set>(nk, [&](const WidePass<WideFn>& p) {
+    if (err) return;
+    const dim3 grid((N + p.rows - 1) / p.rows, H, B);
+    err = tc::launch(p.fn, p.threads, p.smem, grid, stream, op,
+                     static_cast<const float*>(g), lse, delta,
+                     static_cast<float*>(p.kind == PASS_DQ ? dq : dk),
+                     static_cast<float*>(dv), N, H, valid, scale, p.cb, nk,
+                     p.stages);
+  });
+  return err;
 }
 
 }  // namespace tf32
@@ -2195,8 +2952,10 @@ extern "C" int attn_fwd(const void* q, const void* k, const void* v,
                   n_valid, scale, s);
 }
 
-// q, k, v, g, dq, dk, dv: [B, H, N, dh] contiguous, the gradients fully
-// written; lse: fp32 scratch of B*H*N, delta of dh / 64 * B*H*N.
+// q, k, v, g, dq, dk, dv: [B, H, N, dh] contiguous, dh a multiple of 64
+// (dh = 64 on the kernels K2 shares, wider heads on the wide passes:
+// bwd_wide), the gradients fully written; lse, delta: fp32 scratch of
+// B*H*N each.
 extern "C" int attn_bwd(const void* q, const void* k, const void* v,
                         const void* g, void* dq, void* dk, void* dv,
                         float* lse, float* delta, int B, int N, int H,
@@ -2215,4 +2974,41 @@ extern "C" int attn_bwd(const void* q, const void* k, const void* v,
                 dv, lse, delta, B, N, H, n_valid, scale, s)
       : tf32::bwd(split_operands<float>(q, k, v, N, H, DH), g, dq, dk, dv,
                   lse, delta, B, N, H, n_valid, scale, s);
+}
+
+// K6's launches at head width dh in dtype (bwd_wide's plan), 8 values a
+// launch into rows, for the first `cap` launches: pass kind (PASS_*),
+// output width W, first output column, threads, ring stages, dynamic
+// shared memory in bytes, the blocks an SM the runtime reports for that
+// kernel and shared memory, and the kernel's address (one per template
+// instance). Returns the number of launches (0 where dh is not a wide
+// head), or minus a CUDA error.
+template <typename Set>
+int plan_rows(int nk, long long* rows, int cap) {
+  int i = 0, err = 0;
+  const int n = wide_plan<Set>(nk, [&](const auto& p) {
+    if (err || i >= cap) {
+      ++i;
+      return;
+    }
+    int blocks = 0;
+    cudaError_t e = cudaFuncSetAttribute(
+        p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, p.fn,
+                                                        p.threads, p.smem);
+    err = (int)e;
+    const long long row[8] = {p.kind,    p.w,      64 * p.cb,
+                              p.threads, p.stages, p.smem,
+                              blocks,    (long long)(uintptr_t)p.fn};
+    for (int j = 0; j < 8; ++j) rows[8 * i + j] = row[j];
+    ++i;
+  });
+  return err ? -err : n;
+}
+
+extern "C" int attn_bwd_plan(int dh, int dtype, long long* rows, int cap) {
+  if (dh % DH) return 0;
+  return dtype == 1 ? plan_rows<tc::Set>(dh / DH, rows, cap)
+                    : plan_rows<tf32::Set>(dh / DH, rows, cap);
 }

@@ -14,9 +14,11 @@ the reference chooses them (attention_from_qkv):
     v and multi_head_attention runs forward kernel K5 and backward K6
     (replacing _attn_kernel and _attn_bwd_kernel) at every dh % 64 == 0,
     as the reference's pallas_attention_supported; dh = 64 on the kernels
-    K1/K2 share, wider heads on their chunked forms (csrc fwd_wide and
-    bwd_wide: 64-column chunks of the contraction, a block a chunk of the
-    output columns).
+    K1/K2 share; wider heads on K5's chunked form (csrc fwd_wide:
+    64-column chunks of the contraction, a block a chunk of the output
+    columns) and on K6's wide passes (csrc bwd_wide: a block over the full
+    width, so S and dP are computed once per tile; its own rows resident
+    up to dh = 320, streamed by 64-column boxes above).
 
 All four kernels are in csrc/attention.cu and run on the tensor cores,
 each through one set of kernels for both layouts: bf16 through wgmma,
@@ -51,6 +53,8 @@ import torch
 from splice_tpu_torch.ops import _build
 
 HEAD_DIM = 64
+# K6's wide passes by the kind code of csrc attn_bwd_plan (PASS_*)
+WIDE_PASSES = ("stats", "dq", "dkdv", "dv", "dk")
 # The reference's routing constants (splice_tpu/ops/attention.py:45,607).
 _QKV_MAX_N_PAD = 2048
 _MAX_N_PAD = 4096
@@ -258,10 +262,10 @@ def attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   g: torch.Tensor, scale: float, n_valid: int = 0):
     """K6 on the card: (q, k, v, g), each [B, H, N, dh] (dh a multiple of
     64) -> (dq, dk, dv) in the inputs' type. Three launches (row
-    statistics, dk/dv, dq; above dh = 64 also one that adds the
-    statistics' per-chunk delta, and in bf16 dk and dv in a launch each)
-    counted as one call; bf16 and fp32 (split TF32) on the tensor cores
-    (also counted in tc_launches)."""
+    statistics, dk/dv, dq; above dh = 64 the wide passes of wide_bwd_plan:
+    dk and dv apart from dh = 192, a column block of 128 to 256 columns
+    each from dh = 320) counted as one call; bf16 and fp32 (split TF32) on
+    the tensor cores (also counted in tc_launches)."""
     B, H, N, dh, valid = _split_shape(q, k, v, n_valid)
     if g.shape != q.shape:
         raise ValueError(f"attn_bwd: cotangent {tuple(g.shape)} vs "
@@ -271,9 +275,7 @@ def attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     check_tma_operands("attn_bwd", q, k, v, g, dq, dk, dv)
     lse = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
-    # a wide head's statistics pass sums delta per 64-column chunk
-    delta = torch.empty(dh // HEAD_DIM, B, H, N, dtype=torch.float32,
-                        device=q.device)
+    delta = torch.empty_like(lse)
     fn = _build.library("attention").attn_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
@@ -290,6 +292,31 @@ def attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 attn_bwd_cuda.launches = 0
 attn_bwd_cuda.tc_launches = 0
+
+
+def wide_bwd_plan(dh: int, dtype: torch.dtype) -> list:
+    """K6's launches at head width dh > 64 in `dtype` on the card (csrc
+    attn_bwd_plan), in order: each a dict of the pass ("stats", "dq",
+    "dkdv", "dv", "dk"), its output width W (0 for the statistics) and
+    first output column, its threads, ring stages, dynamic shared memory
+    in bytes, the blocks an SM the runtime reports, and its kernel's
+    address (one per template instance). Empty where dh is not a wide
+    head."""
+    code = _build.DTYPES[str(dtype).removeprefix("torch.")]
+    fn = _build.library("attention").attn_bwd_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    n = fn(dh, code, None, 0)
+    rows = (ctypes.c_longlong * (8 * max(n, 0)))()
+    if n > 0:
+        n = fn(dh, code, ctypes.addressof(rows), n)
+    if n < 0:
+        _build.check(-n, "attn_bwd_plan")
+    keys = ("w", "col", "threads", "stages", "smem", "blocks_per_sm",
+            "kernel")
+    return [dict(kind=WIDE_PASSES[rows[8 * i]],
+                 **dict(zip(keys, rows[8 * i + 1:8 * i + 8])))
+            for i in range(n)]
 
 
 def attn_qkv_fwd(qkv, num_heads: int, scale: float, n_valid: int = 0):
@@ -376,8 +403,8 @@ def split_attention_supported(q: torch.Tensor) -> bool:
     """The port's gate for K5/K6, in the reference's place (:687): the
     reference's pallas_attention_supported less its _MAX_N_PAD cap (K5 has
     no length cap), i.e. every dh % 64 == 0 (64 on the kernels K1 shares,
-    128, 192, ... on their chunked forms). Every other dh takes
-    library_attention, the reference's _xla_attention route."""
+    128, 192, ... on K5's chunked form and K6's wide passes). Every other
+    dh takes library_attention, the reference's _xla_attention route."""
     return q.shape[3] % HEAD_DIM == 0
 
 

@@ -64,24 +64,32 @@ def test_split_attention_value_and_grads_match_pallas(N, n_valid):
         assert np.all(tv.grad.numpy()[:, :, n_valid:] == 0.0)
 
 
-@pytest.mark.parametrize("N,n_valid", [(64, 40), (200, 0)])
-def test_split_attention_bf16_matches_pallas(N, n_valid):
+@pytest.mark.parametrize("N,n_valid,dh", [
+    pytest.param(64, 40, 64, id="64-40"), pytest.param(200, 0, 64, id="200-0"),
+    # the wide heads (K6's wide passes on the card: resident to dh = 320,
+    # streamed above), masked and unmasked
+    (64, 50, 128), (70, 0, 128), (64, 50, 256), (70, 0, 256),
+    (64, 50, 384), (70, 0, 384)])
+def test_split_attention_bf16_matches_pallas(N, n_valid, dh):
     """bf16, the type the card's tensor-core K5/K6 take: the plain versions
     round where the reference's kernels round (p before the PV product, dl
-    before the dq and dk products). Tolerances: 8e-3 x max|ref| for the
-    output, 4e-3 x max|ref| for the gradients (two and one bf16 ulps at the
-    largest value: both sides round fp32 sums taken in another order)."""
-    rng = np.random.default_rng(N + n_valid + 1)
-    q, k, v, g = (rng.standard_normal((2, 2, N, 64)).astype(np.float32)
+    before the dq and dk products), at dh = 64 and at the wide heads the
+    card runs on K5's chunked form and K6's wide passes. Tolerances: 8e-3 x
+    max|ref| for the output, 4e-3 x max|ref| for the gradients (two and one
+    bf16 ulps at the largest value: both sides round fp32 sums taken in
+    another order)."""
+    rng = np.random.default_rng(N + n_valid + 1 + (dh != 64) * dh)
+    scale = dh ** -0.5
+    q, k, v, g = (rng.standard_normal((2, 2, N, dh)).astype(np.float32)
                   for _ in range(4))
     jq, jk, jv, jg = (jnp.asarray(t, dtype=jnp.bfloat16) for t in (q, k, v, g))
     out, vjp = jax.vjp(lambda a, b, c: jattn._pallas_attention(
-        a, b, c, SCALE, n_valid), jq, jk, jv)
+        a, b, c, scale, n_valid), jq, jk, jv)
     jgrads = vjp(jg)
 
     tq, tk, tv = (torch.from_numpy(t).to(torch.bfloat16).requires_grad_(True)
                   for t in (q, k, v))
-    tout = tattn.multi_head_attention(tq, tk, tv, SCALE, n_valid)
+    tout = tattn.multi_head_attention(tq, tk, tv, scale, n_valid)
     tout.backward(torch.from_numpy(g).to(torch.bfloat16))
     pairs = [("out", tout.detach(), out, 8e-3)] + [
         (f"d{name}", t.grad, j, 4e-3) for name, t, j in zip("qkv", (tq, tk, tv),
@@ -195,3 +203,4 @@ def test_cuda_wrappers_refuse_other_shapes(shape, wrong):
         return
     with pytest.raises(ValueError, match="cotangent"):
         tattn.attn_bwd_cuda(q, q, q, kv, SCALE)
+
