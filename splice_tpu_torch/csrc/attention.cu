@@ -6,9 +6,9 @@
 //   * split: q, k, v, the output, g and the three gradients are separate
 //     [B, H, N, dh] tensors, dh any multiple of 64 (the reference's
 //     pallas_attention_supported): dh = 64 on the kernels K1/K2 share;
-//     wider heads on the forward's chunked form (fwd_wide) and on the
-//     backward's wide passes, whose blocks hold the full width (bwd_wide:
-//     the own rows resident up to dh = 320, streamed above).
+//     wider heads on the forward's and the backward's wide passes, whose
+//     blocks hold the full width (fwd_wide: the q rows resident up to dh =
+//     256; bwd_wide: the own rows resident up to dh = 320; streamed above).
 //
 // K1 attn_qkv_fwd replaces splice_tpu/ops/attention.py _attn_qkv_kernel
 // (:361, launched by _attn_qkv_fwd_impl :401). K2 attn_qkv_bwd replaces
@@ -125,19 +125,21 @@ Operands<T> split_operands(const void* q, const void* k, const void* v,
           static_cast<const T*>(v), s, s};
 }
 
-// K6's wide passes (tc and tf32 below): the statistics, dQ, dK and dV
-// together, dV alone, dK alone.
-enum WidePassKind : int { PASS_STATS, PASS_DQ, PASS_DKDV, PASS_DV, PASS_DK };
+// The wide passes (tc and tf32 below): K6's statistics, dQ, dK and dV
+// together, dV alone, dK alone; K5's forward.
+enum WidePassKind : int {
+  PASS_STATS, PASS_DQ, PASS_DKDV, PASS_DV, PASS_DK, PASS_FWD
+};
 constexpr int WIDE_SMEM_CAP = 232448 - 1024;   // 227 KB, less a static part
 
-// One launch of K6's wide backward (tc::Set::pass, tf32::Set::pass): its
-// kernel, pass kind (PASS_*), output width W (0 for the statistics) and
-// first output box cb (column 64 cb), threads, ring stages, dynamic shared
-// memory, rows a block.
+// One launch of a wide pass (tc::Set::pass, tf32::Set::pass): its kernel,
+// pass kind (PASS_*), output width W (0 for the statistics) and first
+// output box cb (column 64 cb), threads, ring stages, dynamic shared
+// memory, the own rows a block and the rows of a streamed tile.
 template <typename Fn>
 struct WidePass {
   Fn fn;
-  int kind, w, cb, threads, stages, smem, rows;
+  int kind, w, cb, threads, stages, smem, rows, keys;
 };
 
 // K6's resident form at dh = 64 nk, 2 <= nk <= RESIDENT_MAX_NK, one table
@@ -203,6 +205,36 @@ int wide_plan(int nk, Emit emit) {
       block(std::integral_constant<int, 4>());
   }
   return 1 + 3 * nb;
+}
+
+// K5's launches at dh = 64 nk, nk > 1, each handed to emit (a WidePass):
+// up to nk = 4 one launch of the resident form (NK = nk, W = dh); above it
+// the streamed form (NK = 0) in ceil(nk / 4) column blocks of 2 to 4 boxes
+// (W 128 to 256, the first nk % nb blocks one box wider), each computing S
+// over the full width. Set::pass<PASS_FWD, NK, NC, CW>(cb) makes one
+// launch (CW: bf16's consumer warpgroups). Returns the number of
+// launches, 0 where nk < 2.
+template <typename Set, typename Emit>
+int fwd_plan(int nk, Emit emit) {
+  switch (nk) {
+    case 2: emit(Set::template pass<PASS_FWD, 2, 2, 2>(0)); return 1;
+    case 3: emit(Set::template pass<PASS_FWD, 3, 3, 2>(0)); return 1;
+    case 4: emit(Set::template pass<PASS_FWD, 4, 4, 2>(0)); return 1;
+    default: break;
+  }
+  if (nk < 2) return 0;
+  const int nb = (nk + 3) / 4;
+  for (int i = 0, cb = 0; i < nb; ++i) {
+    const int nc = nk / nb + (i < nk % nb);
+    if (nc == 2)
+      emit(Set::template pass<PASS_FWD, 0, 2, 1>(cb));
+    else if (nc == 3)
+      emit(Set::template pass<PASS_FWD, 0, 3, 1>(cb));
+    else
+      emit(Set::template pass<PASS_FWD, 0, 4, 1>(cb));
+    cb += nc;
+  }
+  return nb;
 }
 
 // ---------------------------------------------------------------------------
@@ -779,23 +811,6 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ Maps maps, Strides in,
 }
 
 // ---------------------------------------------------------------------------
-// K5 at head widths dh = 64 nch, nch > 1 (the reference's kernels take
-// every dh % 64 == 0). A 128-byte-swizzled box holds 64 bf16 columns at
-// most, so the width is cut in chunks of 64 columns: the contraction S =
-// Q K^T runs over the nch chunks in order, one box of each operand a
-// chunk, and a block owns one chunk c of the output columns (grid.y = H *
-// nch), recomputing S over the full width beside the blocks of the other
-// chunks and writing only columns [64 c, 64 c + 64) of O. Accumulators,
-// softmax and products are those of the dh = 64 forward above, so any nch
-// runs with its registers. Every operand streams through a two-stage ring
-// of items (full and empty mbarriers, as produce()): per key tile, nch
-// items of the contraction's boxes at column 64 j, then one item of V's
-// boxes at column 64 c; nothing is resident, so the shared memory does not
-// grow with dh. Cost against a kernel holding all of dh: S is computed nch
-// times (K6's wide passes below hold the full width).
-constexpr int WIDE_FWD_STAGE = 3 * BOX;   // Q_j, K_j of 128 keys; or V_c
-constexpr int WIDE_FWD_SMEM = 2 * WIDE_FWD_STAGE + 1024;
-
 // The wide kernels' ring of `stages` stages (up to RING_MAX) guarded by
 // bars[1 + s] (full: the TMA bytes landed) and bars[1 + stages + s]
 // (empty: every consumer warp done); bars[0] guards the resident rows.
@@ -837,103 +852,6 @@ __device__ __forceinline__ const uint8_t* ring_get(const uint8_t* ring,
 __device__ __forceinline__ void ring_release(uint64_t* bars, int i,
                                              int lane, int stages = 2) {
   if (lane == 0) mbar_arrive(&bars[1 + stages + i % stages]);
-}
-
-// Forward at dh = 64 nch: as attn_fwd_kernel_tc, output columns of chunk c.
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-attn_fwd_wide_tc_kernel(const __grid_constant__ Maps maps, Strides os,
-                        __nv_bfloat16* __restrict__ out, int N, int valid,
-                        float scale, int nch) {
-  extern __shared__ uint8_t smem_raw[];
-  __shared__ uint64_t bars[5];
-  uint8_t* sm = setup(smem_raw, bars);
-  const int b = blockIdx.z, h = blockIdx.y / nch, c = blockIdx.y % nch;
-  const int q0 = blockIdx.x * ROWS;
-  const int n_kt = (valid + 2 * ROWS - 1) / (2 * ROWS);
-  if (threadIdx.x / 32 == PRODUCER_WARP) {
-    if (threadIdx.x % 32 == 0) {
-      uint64_t* bar;
-      for (int kt = 0, i = 0; kt < n_kt; ++kt) {
-        const int k0 = kt * 2 * ROWS;
-        for (int j = 0; j < nch; ++j, ++i) {
-          uint8_t* st = ring_put(sm, WIDE_FWD_STAGE, bars, i, 3 * BOX, &bar);
-          tma_load(st, &maps.q, bar, q0, h, b, 64 * j);
-          tma_load(st + BOX, &maps.k, bar, k0, h, b, 64 * j);
-          tma_load(st + 2 * BOX, &maps.k, bar, k0 + ROWS, h, b, 64 * j);
-        }
-        uint8_t* st = ring_put(sm, WIDE_FWD_STAGE, bars, i++, 2 * BOX, &bar);
-        tma_load(st, &maps.v, bar, k0, h, b, 64 * c);
-        tma_load(st + BOX, &maps.v, bar, k0 + ROWS, h, b, 64 * c);
-      }
-    }
-    return;
-  }
-  const Place p = place();
-  const float sl = scale * LOG2E;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
-
-  for (int kt = 0, i = 0; kt < n_kt; ++kt) {
-    float sc[64];
-    for (int j = 0; j < nch; ++j, ++i) {
-      const uint8_t* st = ring_get(sm, WIDE_FWD_STAGE, bars, i);
-      const uint64_t dq = sw128_desc(st), dk = sw128_desc(st + BOX);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss128(sc, dq + 2 * kk, dk + 2 * kk, j > 0 || kk > 0);
-      wg_commit();
-      wg_wait();
-      pin(sc);
-      ring_release(bars, i, p.lane);
-    }
-
-    const int k0 = kt * 2 * ROWS;
-    if (k0 + 2 * ROWS > valid) {
-#pragma unroll
-      for (int e = 0; e < 64; ++e)
-        if (k0 + 8 * (e / 4) + p.c + (e & 1) >= valid) sc[e] = -INFINITY;
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int e = 0; e < 64; ++e)
-      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
-    float alpha[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float mn = fmaxf(m[e], quad_max(mx[e]) * sl);
-      alpha[e] = ex2(m[e] - mn);
-      m[e] = mn;
-      l[e] *= alpha[e];
-    }
-#pragma unroll
-    for (int e = 0; e < 64; ++e) {
-      const int r = (e >> 1) & 1;
-      sc[e] = ex2(fmaf(sc[e], sl, -m[r]));
-      l[r] += sc[e];
-    }
-#pragma unroll
-    for (int e = 0; e < 32; ++e) o[e] *= alpha[(e >> 1) & 1];
-    uint32_t pa[8][4];
-    to_a(sc, pa);
-    const uint8_t* st = ring_get(sm, WIDE_FWD_STAGE, bars, i);
-    const uint64_t dv = sw128_desc(st);
-    pin(o);
-    wg_fence();
-#pragma unroll
-    for (int t = 0; t < 8; ++t) wgmma_rs64(o, pa[t], dv + 128 * t);
-    wg_commit();
-    wg_wait();
-    pin(o);
-    ring_release(bars, i++, p.lane);
-  }
-
-#pragma unroll
-  for (int e = 0; e < 2; ++e) l[e] = quad_sum(l[e]);
-#pragma unroll
-  for (int e = 0; e < 32; ++e) o[e] = o[e] / l[(e >> 1) & 1];
-  store_rows(o, out + os.at(b, h, 0) + 64 * c, os.sr, q0, p, N, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -1011,12 +929,13 @@ __device__ __forceinline__ Place wplace() {
 
 // wgmma descriptor of a B operand read MN-major across adjacent boxes
 // (the N = 64 NC columns of a tile's boxes cb..cb + NC - 1): the 128-byte
-// swizzle atom holds 64 columns, the atoms BOX bytes apart (the leading
-// byte offset), 8-row groups 1024 apart (the stride byte offset). A k16
-// step advances it by 16 rows (+128).
-__device__ __forceinline__ uint64_t mn_desc(const void* tile) {
+// swizzle atom holds 64 columns, the atoms `lbo` bytes apart (the leading
+// byte offset: one box, or R boxes where a 64-column chunk holds R boxes
+// of rows), 8-row groups 1024 apart (the stride byte offset). A k16 step
+// advances it by 16 rows (+128).
+__device__ __forceinline__ uint64_t mn_desc(const void* tile, int lbo = BOX) {
   return ((smem_addr(tile) & 0x3FFFFu) >> 4) |
-         ((uint64_t)(BOX >> 4) << 16) | (64ull << 32) | (1ull << 62);
+         ((uint64_t)(lbo >> 4) << 16) | (64ull << 32) | (1ull << 62);
 }
 
 // D[64 x N] += A[64 x 16] B[16 x N], A in registers, B MN-major in shared
@@ -1162,18 +1081,24 @@ __device__ __forceinline__ void wgmma_rsw(float (&d)[32 * NC],
   }
 }
 
-// x (+)= A B^T over NK boxes of A from a against NK of B from b (each BOX
-// apart), both K-major, four k16 steps a box; unless acc, the first step
-// overwrites x. Issued, not committed.
-template <int NK>
-__device__ __forceinline__ void wide_ss(float (&x)[32], const uint8_t* a,
+// x (+)= A B^T over NK boxes of A from a (BOX apart) against NK
+// 64-column chunks of B from b, each chunk R boxes of 64 rows (64 R rows
+// of B: x is [64, 64 R]), both K-major, four k16 steps a chunk; unless
+// acc, the first step overwrites x. Issued, not committed.
+template <int NK, int R = 1>
+__device__ __forceinline__ void wide_ss(float (&x)[32 * R], const uint8_t* a,
                                         const uint8_t* b, int acc = 0) {
 #pragma unroll
   for (int j = 0; j < NK; ++j) {
-    const uint64_t da = sw128_desc(a + j * BOX), db = sw128_desc(b + j * BOX);
+    const uint64_t da = sw128_desc(a + j * BOX);
+    const uint64_t db = sw128_desc(b + j * R * BOX);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss64(x, da + 2 * kk, db + 2 * kk, acc || j > 0 || kk > 0);
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (R == 1)
+        wgmma_ss64(x, da + 2 * kk, db + 2 * kk, acc || j > 0 || kk > 0);
+      else
+        wgmma_ss128(x, da + 2 * kk, db + 2 * kk, acc || j > 0 || kk > 0);
+    }
   }
 }
 
@@ -1195,10 +1120,11 @@ __device__ __forceinline__ void wide_rs(float (&d)[32 * NC],
 
 // The resident form's producer (one thread): the NK boxes of the resident
 // operands ra (and rb) for each of the block's CW 64-row tiles from row
-// row0, into res in (operand, tile, box) order, once; then n tiles of 64
+// row0, into res in (operand, tile, box) order, once; then n tiles of 64 R
 // rows of the streamed operands sa and sb at full width, tile i into ring
-// stage i % stages as (sa's NK boxes, sb's NK boxes).
-template <int NK, int CW>
+// stage i % stages as (sa's NK chunks, sb's NK chunks), a chunk the R
+// boxes of its 64 columns in row order.
+template <int NK, int CW, int R = 1>
 __device__ __forceinline__ void produce_wide(
     const CUtensorMap* ra, const CUtensorMap* rb, uint8_t* res, int row0,
     const CUtensorMap* sa, const CUtensorMap* sb, uint8_t* ring, int n,
@@ -1214,12 +1140,14 @@ __device__ __forceinline__ void produce_wide(
     }
   for (int i = 0; i < n; ++i) {
     uint64_t* bar;
-    uint8_t* st = ring_put(ring, 2 * NK * BOX, bars, i, 2 * NK * BOX, &bar,
-                           stages);
-    for (int j = 0; j < NK; ++j) {
-      tma_load(st + j * BOX, sa, bar, i * ROWS, h, b, 64 * j);
-      tma_load(st + (NK + j) * BOX, sb, bar, i * ROWS, h, b, 64 * j);
-    }
+    uint8_t* st = ring_put(ring, 2 * NK * R * BOX, bars, i, 2 * NK * R * BOX,
+                           &bar, stages);
+    for (int j = 0; j < NK; ++j)
+      for (int r = 0; r < R; ++r) {
+        const int row = (i * R + r) * ROWS;
+        tma_load(st + (j * R + r) * BOX, sa, bar, row, h, b, 64 * j);
+        tma_load(st + ((NK + j) * R + r) * BOX, sb, bar, row, h, b, 64 * j);
+      }
   }
 }
 
@@ -1580,6 +1508,137 @@ attn_bwd_wide_dq_tc(WIDE_TC_ARGS) {
   store_rows(dq, out0 + in.at(b, h, 0) + 64 * cb, in.sr, q0 + ROWS * wg, p,
              N, scale);
 }
+
+// ---------------------------------------------------------------------------
+// K5 at head widths dh = 64 nk, nk > 1: the dh = 64 forward with each
+// block over the full width, so S = Q K^T is computed once per (q tile,
+// key tile) up to dh = 256 (2F of work at every dh, F one N x N x dh
+// product) and once per column block above. Per key tile: S over the
+// whole head is one commit group (4 nk k16 steps), waited on once; the
+// online softmax of the dh = 64 form; then O += P V as one m64nWk16 wgmma
+// a k16 step, P from registers, V read MN-major across the block's NC
+// boxes. O is [64, W] fp32 a consumer warpgroup: W / 2 registers a thread.
+// Two forms (fwd_plan picks by nk; chip_smoke's phase 2 prints the launches
+// from attn_fwd_plan):
+//   * resident (NK = nk <= 4, W = dh): the block's q rows (NK boxes a
+//     consumer warpgroup) are loaded once by TMA; K and V tiles of the full
+//     width stream through the ring (as many stages as fit, up to
+//     RING_MAX) from the producer. Two consumer warpgroups (128 q rows;
+//     the producer's warpgroup gives its registers by setmaxnreg, 24 and
+//     240, as K6's passes). Key tiles of 128 at dh = 128 (S on m64n128k16:
+//     half the softmax steps, and 1.5 bytes of shared memory read a flop of
+//     S where 64 keys read 2; 160 registers of O, S and P; 64-key tiles
+//     measured slower) and of 64 above (S of 128 keys beside O of 96-128
+//     registers would spill, and a stage of 128 keys leaves room for only
+//     one): 3 stages at dh = 128 and 192, 2 at 256. Each tile waits on its
+//     products: issuing the next tile's S beside P V (the softmax under
+//     the products) measured slower at dh = 192 and 256;
+//   * streamed (NK = 0, nk >= 5: two warpgroups' q rows beside two
+//     full-width stages outgrow the shared memory from dh = 320, and one
+//     warpgroup's from dh = 384): ceil(nk / 4) column blocks
+//     of W = 128-256, each computing S itself; per key tile of 64, the
+//     head's nk boxes stream as items of (the block's q box, the tile's K
+//     box) as K6's streamed form (one commit group a box, one in flight),
+//     then one item of V's NC boxes of the block's columns; one consumer
+//     warpgroup, STREAM_STAGES items.
+__host__ __device__ constexpr int fwd_boxes(int nk) { return nk == 2 ? 2 : 1; }
+
+template <int NK, int NC, int CW>
+__global__ void __launch_bounds__(128 * CW + (CW == 2 ? 128 : 32), 1)
+attn_fwd_wide_tc(WIDE_TC_ARGS) {
+  static_assert(NK == 0 ? CW == 1 : NK == NC, "resident: W = dh");
+  constexpr int R = fwd_boxes(NK), KT = ROWS * R;   // keys a tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bars[1 + 2 * RING_MAX];
+  uint8_t* sm = setup_ring(smem_raw, bars, 4 * CW, stages);
+  uint8_t* ring = sm + CW * NK * BOX;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ROWS * CW;
+  const int n_kt = (valid + KT - 1) / KT;
+  if (threadIdx.x >= 128 * CW) {
+    if constexpr (CW == 2) regs_down<24>();
+    if (threadIdx.x == 128 * CW) {
+      if constexpr (NK > 0)
+        produce_wide<NK, CW, R>(&maps.q, nullptr, sm, q0, &maps.k, &maps.v,
+                                ring, n_kt, stages, h, b, bars);
+      else
+        produce_stream(&maps.q, &maps.k, nullptr, nullptr, &maps.v, q0, cb,
+                       NC, ring, n_kt, nk, stages, h, b, bars);
+    }
+    return;
+  }
+  if constexpr (CW == 2) regs_up<240>();
+  const int wg = threadIdx.x >> 7;
+  const Place p = wplace();
+  const float sl = scale * LOG2E;
+  const uint8_t* qres = sm + wg * NK * BOX;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[32 * NC];
+#pragma unroll
+  for (int i = 0; i < 32 * NC; ++i) o[i] = 0.f;
+  if constexpr (NK > 0) mbar_wait(&bars[0], 0);
+
+  for (int kt = 0, it = 0; kt < n_kt; ++kt) {
+    float sc[32 * R];
+    // S = Q K^T over the head; vt: V's boxes of the block's columns
+    const uint8_t* vt;
+    if constexpr (NK > 0) {
+      const uint8_t* st = ring_get(ring, 2 * NK * R * BOX, bars, it, stages);
+      wg_fence();
+      wide_ss<NK, R>(sc, qres, st);
+      wg_commit();
+      wg_wait();
+      pin(sc);
+      vt = st + NK * R * BOX;
+    } else {
+      vt = contract<0, false, true>(sc, sc, nullptr, nullptr, ring, bars, it,
+                                    nk, stages, p.lane);
+    }
+    // keys >= valid get -inf; every tile holds a valid key
+    const int k0 = kt * KT;
+    if (k0 + KT > valid) {
+#pragma unroll
+      for (int i = 0; i < 32 * R; ++i)
+        if (k0 + 8 * (i / 4) + p.c + (i & 1) >= valid) sc[i] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32 * R; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float mn = fmaxf(m[e], quad_max(mx[e]) * sl);
+      alpha[e] = ex2(m[e] - mn);
+      m[e] = mn;
+      l[e] *= alpha[e];
+    }
+#pragma unroll
+    for (int i = 0; i < 32 * R; ++i) {
+      const int e = (i >> 1) & 1;
+      sc[i] = ex2(fmaf(sc[i], sl, -m[e]));
+      l[e] += sc[i];   // this thread's part of the row sum, unrounded p
+    }
+#pragma unroll
+    for (int i = 0; i < 32 * NC; ++i) o[i] *= alpha[(i >> 1) & 1];
+    uint32_t pa[4 * R][4];
+    to_a(sc, pa);      // p rounded to bf16 before P V
+    const uint64_t vd = mn_desc(vt, R * BOX);
+    pin(o);
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 4 * R; ++t) wgmma_rsw<NC>(o, pa[t], vd + 128 * t);
+    wg_commit();
+    wg_wait();
+    pin(o);
+    ring_release(bars, it++, p.lane, stages);
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) l[e] = quad_sum(l[e]);
+#pragma unroll
+  for (int i = 0; i < 32 * NC; ++i) o[i] = o[i] / l[(i >> 1) & 1];
+  store_rows(o, out0 + in.at(b, h, 0) + 64 * cb, in.sr, q0 + ROWS * wg, p, N,
+             1.f);
+}
 #undef WIDE_TC_ARGS
 
 // cuTensorMapEncodeTiled from the driver the process has loaded (no link
@@ -1683,29 +1742,39 @@ int bwd(const Op& op, const void* g, void* dq, void* dk, void* dv,
                 static_cast<__nv_bfloat16*>(dq), N, H, valid, scale);
 }
 
-// K5 at dh = 64 nch, nch > 1 (split layout only): grid.y = H * nch.
-int fwd_wide(const Op& op, void* out, int B, int N, int H, int dh, int valid,
-             float scale, cudaStream_t stream) {
-  Maps maps;
-  if (!make_maps(&maps, op, nullptr, B, H, N, dh))
-    return (int)cudaErrorInvalidValue;
-  const int nch = dh / 64;
-  const dim3 grid((N + ROWS - 1) / ROWS, H * nch, B);
-  return launch(attn_fwd_wide_tc_kernel, THREADS, WIDE_FWD_SMEM, grid,
-                stream, maps, op.os, static_cast<__nv_bfloat16*>(out), N,
-                valid, scale, nch);
-}
-
 using WideFn = void (*)(Maps, Strides, float*, float*, __nv_bfloat16*,
                         __nv_bfloat16*, int, int, int, float, int, int, int);
 
-// The launches of K6's wide backward (wide_plan's Set): one pass (its
-// kernel) with its configuration, from the template arguments. Resident
-// form: the most stages (two at most) whose shared memory fits; streamed
-// (NK = 0): STREAM_STAGES items.
+// The launches of the wide passes (wide_plan's and fwd_plan's Set): one
+// pass (its kernel) with its configuration, from the template arguments.
+// Streamed forms (NK = 0): STREAM_STAGES items. K6's resident form: the
+// most stages (two at most) whose shared memory fits; K5's: the most, up
+// to RING_MAX.
 struct Set {
   template <int KIND, int NK, int NC, int CW>
   static WidePass<WideFn> pass(int cb) {
+    if constexpr (KIND == PASS_FWD)
+      return fwd<NK, NC, CW>(cb);
+    else
+      return bwd<KIND, NK, NC, CW>(cb);
+  }
+  template <int NK, int NC, int CW>
+  static WidePass<WideFn> fwd(int cb) {
+    constexpr int R = fwd_boxes(NK);
+    constexpr int stage = NK > 0 ? 2 * NK * R * BOX : STREAM_ITEM;
+    constexpr int fixed = CW * NK * BOX + 1024;
+    constexpr int fit = (WIDE_SMEM_CAP - fixed) / stage;
+    static_assert(fit >= 1, "no stage fits");
+    constexpr int stages = NK == 0         ? STREAM_STAGES
+                           : fit > RING_MAX ? RING_MAX
+                                            : fit;
+    static_assert(fixed + stages * stage <= WIDE_SMEM_CAP, "ring too big");
+    return {attn_fwd_wide_tc<NK, NC, CW>, PASS_FWD, 64 * NC, cb,
+            wide_threads(CW), stages, fixed + stages * stage, ROWS * CW,
+            ROWS * R};
+  }
+  template <int KIND, int NK, int NC, int CW>
+  static WidePass<WideFn> bwd(int cb) {
     constexpr int stage = NK > 0 ? 2 * NK * BOX : STREAM_ITEM;
     constexpr int fixed = (KIND == PASS_DV ? 1 : 2) * CW * NK * BOX + 1024 +
                           CW * 2 * STAT_BYTES;
@@ -1722,9 +1791,28 @@ struct Set {
     else
       fn = attn_bwd_wide_dkdv_tc<KIND, NK, NC, CW>;
     return {fn, KIND, 64 * NC, cb, wide_threads(CW), stages,
-            fixed + stages * stage, ROWS * CW};
+            fixed + stages * stage, ROWS * CW, ROWS};
   }
 };
+
+// K5 at dh = 64 nk, nk > 1 (split layout only): the launches of fwd_plan.
+int fwd_wide(const Op& op, void* out, int B, int N, int H, int dh, int valid,
+             float scale, cudaStream_t stream) {
+  Maps maps;
+  if (!make_maps(&maps, op, nullptr, B, H, N, dh))
+    return (int)cudaErrorInvalidValue;
+  int err = 0;
+  const int nk = dh / 64;
+  fwd_plan<Set>(nk, [&](const WidePass<WideFn>& p) {
+    if (err) return;
+    const dim3 grid((N + p.rows - 1) / p.rows, H, B);
+    err = launch(p.fn, p.threads, p.smem, grid, stream, maps, op.os,
+                 (float*)nullptr, (float*)nullptr,
+                 static_cast<__nv_bfloat16*>(out), (__nv_bfloat16*)nullptr, N,
+                 H, valid, scale, p.cb, nk, p.stages);
+  });
+  return err;
+}
 
 // K6 at dh = 64 nk, nk > 1 (split layout only): the launches of
 // wide_plan. lse, delta: fp32 scratch of B*H*N each.
@@ -2205,125 +2293,6 @@ attn_bwd_dq_tf32_kernel(Operands<float> op, const float* __restrict__ g,
   }
 }
 
-// K5 at dh = 64 nch, nch > 1, in split TF32: the chunked design of the
-// bf16 wide forward (tc, above) on this set's cp.async ring. A block owns
-// output columns [64 c, 64 c + 64); the contraction S = Q K^T runs over
-// the nch chunks in order, one 64-column tile of each operand an item;
-// nothing is resident.
-constexpr int WIDE_FWD_SMEM = 4 * TILE * 4;    // 2 stages of (Q_j, K_j)
-
-// Forward at dh = 64 nch: as attn_fwd_kernel_tf32, output columns of
-// chunk c.
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-attn_fwd_wide_tf32_kernel(Operands<float> op, float* __restrict__ out,
-                          int N, int valid, float scale, int nch) {
-  extern __shared__ float4 smem4[];
-  float* const ring = reinterpret_cast<float*>(smem4);   // stage: 2 tiles
-  const int b = blockIdx.z, h = blockIdx.y / nch, c = blockIdx.y % nch;
-  const int q0 = blockIdx.x * ROWS;
-  const int lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
-  const int r0 = 16 * (threadIdx.x >> 5);
-  const int per = nch + 1, n_items = (valid + ROWS - 1) / ROWS * per;
-  const float sl = scale * LOG2E;
-  // item (kt, j): Q_j and K_j of key tile kt for j < nch, then V_c
-  auto issue = [&](int i) {
-    const int kt = i / per, j = i - kt * per;
-    float* st = ring + (i & 1) * 2 * TILE;
-    if (j < nch) {
-      load_tile(st, op.q + 64 * j, op.in, b, h, q0, N);
-      load_tile(st + TILE, op.k + 64 * j, op.in, b, h, kt * ROWS, valid);
-    } else {
-      load_tile(st, op.v + 64 * c, op.in, b, h, kt * ROWS, valid);
-    }
-  };
-  issue(0);
-  cp_commit();
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[8][4], s[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = s[n][e] = 0.f;
-
-  for (int i = 0; i < n_items; ++i) {
-    if (i + 1 < n_items) issue(i + 1);
-    cp_commit();
-    cp_wait_all_but_one();
-    __syncthreads();
-    const int kt = i / per, j = i - kt * per;
-    const float* st = ring + (i & 1) * 2 * TILE;
-    if (j < nch) {
-      if (j == 0) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        FragB kb[8];
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          kb[n] = load_b_row(st + TILE, 8 * n, 8 * kk, g8, t);
-        mma3_cols(s, load_a(st, r0, 8 * kk, g8, t), kb);
-      }
-    } else {
-      const int k0 = kt * ROWS;
-      if (k0 + ROWS > valid) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (k0 + 8 * n + 2 * t + (e & 1) >= valid) s[n][e] = -INFINITY;
-      }
-      float alpha[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          mx = fmaxf(mx, fmaxf(s[n][2 * e], s[n][2 * e + 1]));
-        const float mn = fmaxf(m[e], quad_max(mx) * sl);
-        alpha[e] = tc::ex2(m[e] - mn);
-        m[e] = mn;
-        l[e] *= alpha[e];
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] = tc::ex2(fmaf(s[n][e], sl, -m[e >> 1]));
-          l[e >> 1] += s[n][e];
-        }
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        FragB vb[8];
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          vb[n] = load_b_col(st, 8 * jj, 8 * n, g8, t);
-        mma3_cols(o, acc_a(s[jj]), vb);
-      }
-    }
-    __syncthreads();   // the stage is free for item i + 2
-  }
-
-#pragma unroll
-  for (int e = 0; e < 2; ++e) l[e] = quad_sum(l[e]);
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int row = q0 + r0 + g8 + 8 * e;
-    if (row >= N) continue;
-    float* dst = out + op.os.at(b, h, row) + 64 * c + 2 * t;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<float2*>(dst + 8 * n) =
-          make_float2(o[n][2 * e] / l[e], o[n][2 * e + 1] / l[e]);
-  }
-}
-
 // K6 at dh = 64 nk, nk > 1, in split TF32: tc's three wide passes
 // (statistics by sum p dp, dK/dV, dQ; the same forms, column blocks and
 // split of dK and dV: wide_plan) on this set's fragments and cp.async
@@ -2502,18 +2471,19 @@ __device__ __forceinline__ const float* wide_contract(
       int cb, int nk, int stages
 
 // The streamed form's box item j, into st: the own rows' boxes of a and c
-// (row0.., zeros at or past na), the tile's of b and d (row1.., past nb);
-// each operand through its strides.
+// (row0.., zeros at or past na), the tile's QR rows of b and d (row1..,
+// past nb); each operand through its strides.
+template <int QR = WQS<0>>
 __device__ __forceinline__ void load_box_item(
     float* st, int j, int b, int h, const float* a, const Strides& sa,
     const float* c, const Strides& sc, int row0, int na, const float* bp,
     const Strides& sb, const float* d, const Strides& sd, int row1, int nb) {
   load_rows<1, ROWS>(st, a + 64 * j, sa, b, h, row0, na);
   if (c) load_rows<1, ROWS>(st + ROWS * LDS, c + 64 * j, sc, b, h, row0, na);
-  load_rows<1, WQS<0>>(st + 2 * ROWS * LDS, bp + 64 * j, sb, b, h, row1, nb);
+  load_rows<1, QR>(st + 2 * ROWS * LDS, bp + 64 * j, sb, b, h, row1, nb);
   if (d)
-    load_rows<1, WQS<0>>(st + (2 * ROWS + WQS<0>) * LDS, d + 64 * j, sd, b, h,
-                         row1, nb);
+    load_rows<1, QR>(st + (2 * ROWS + QR) * LDS, d + 64 * j, sd, b, h, row1,
+                     nb);
 }
 
 // Pass 1: lse and delta for 64 q rows (Q and g the own rows), over key
@@ -2803,6 +2773,194 @@ attn_bwd_wide_dq_tf32(WIDE_TF32_ARGS) {
           make_float2(dq[n][2 * e] * scale, dq[n][2 * e + 1] * scale);
   }
 }
+
+// K5 at dh = 64 nk, nk > 1, in split TF32: tc's full-width forward
+// (fwd_plan's forms and column blocks) on this set's fragments. A block
+// owns 64 q rows (four warps of 16) and W = 64 NC output columns, a warp's
+// O [16, W] (W / 8 fragments of four). Per key tile of QS rows, S ([16,
+// QS] a warp) is one chain of mma.sync over the whole head, issued before
+// the softmax reads it; then O += P V over the tile's rows, four n8 blocks
+// at a time into a fresh fragment added to O in fp32 (mma3_cols_add's
+// rule), P's fragments split once a tile (the streamed form splits them
+// at each use).
+//   * resident (NK = nk <= 4, W = dh): the q rows' A fragments are read
+//     from global memory and split into their TF32 halves once, into
+//     shared memory in the order each thread reads them (per k8 step a
+//     uint4 of hi halves and one of lo halves a thread: conflict-free
+//     128-bit reads, no split per tile; 512 dh bytes, as two raw copies
+//     of the rows); K and V tiles of QS rows at full width stream raw
+//     through a two-stage cp.async ring (rows padded to LD = dh + 4).
+//     QS 16 at dh = 128 and 256 (two blocks an SM at dh = 128; at 256 two
+//     stages of 32 rows do not fit beside the halves), 32 at dh = 192:
+//     97, 194 and 193 KB;
+//   * streamed (NK = 0): K6's streamed items (load_box_item: the block's
+//     raw q box and the tile's K box, a chain over their 64 columns each),
+//     then an item of V's block columns; two stages; QS 16 (tiles of 32
+//     rows were faster but spilled at W = 256).
+template <int NK>
+constexpr int FWD_QS = NK == 3 ? 32 : 16;
+
+template <int NK, int NC>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_fwd_wide_tf32(WIDE_TF32_ARGS) {
+  static_assert(NK == 0 || NK == NC, "resident: W = dh");
+  constexpr int QS = FWD_QS<NK>, QJ = QS / 8;   // streamed rows, n8 blocks
+  constexpr int LD = 64 * NK + 4, NB = 8 * NC, KS = 8 * NK;
+  // V's stride: the stage's full width, or the item's block columns
+  constexpr int LDV = NK > 0 ? LD : 64 * NC + 4;
+  constexpr int ST = NK > 0 ? 2 * QS * LD : STREAM_ST<NC>;
+  extern __shared__ float4 smem4[];
+  // the q rows' split A fragments: [k8 step][thread] hi, then lo; the ring
+  uint4* const qhi = reinterpret_cast<uint4*>(smem4);
+  uint4* const qlo = qhi + KS * THREADS;
+  float* const ring = reinterpret_cast<float*>(qlo + KS * THREADS);
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ROWS;
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);
+  const int n_kt = (valid + QS - 1) / QS;
+  const int per = NK > 0 ? 1 : nk + 1, n_items = n_kt * per;
+  const float sl = scale * LOG2E;
+  auto issue = [&](int it) {
+    float* st = ring + (stages == 2 ? it & 1 : 0) * ST;
+    const int i = it / per, j = it % per;
+    if constexpr (NK > 0) {
+      load_rows<NK, QS>(st, op.k, op.in, b, h, i * QS, valid);
+      load_rows<NK, QS>(st + QS * LD, op.v, op.in, b, h, i * QS, valid);
+    } else if (j < nk) {
+      load_box_item<QS>(st, j, b, h, op.q, op.in, nullptr, op.in, q0, N,
+                        op.k, op.in, nullptr, op.in, i * QS, valid);
+    } else {
+      load_rows<NC, QS>(st, op.v + 64 * cb, op.in, b, h, i * QS, valid);
+    }
+  };
+  if (NK == 0 || stages == 2) issue(0);
+  cp_commit();
+  if constexpr (NK > 0) {
+    // rows q0 + r0 + g8 and + 8 (clamped addresses, zeros at or past N)
+    const int row = q0 + r0 + g8;
+    const bool ok0 = row < N, ok1 = row + 8 < N;
+    const float* p0 = op.q + op.in.at(b, h, ok0 ? row : 0) + t;
+    const float* p1 = op.q + op.in.at(b, h, ok1 ? row + 8 : 0) + t;
+#pragma unroll 4
+    for (int kk = 0; kk < KS; ++kk) {
+      const float a0 = p0[8 * kk], a1 = p1[8 * kk], a2 = p0[8 * kk + 4],
+                  a3 = p1[8 * kk + 4];
+      const FragA f = split_a(ok0 ? a0 : 0.f, ok1 ? a1 : 0.f,
+                              ok0 ? a2 : 0.f, ok1 ? a3 : 0.f);
+      qhi[kk * THREADS + threadIdx.x] =
+          make_uint4(f.hi[0], f.hi[1], f.hi[2], f.hi[3]);
+      qlo[kk * THREADS + threadIdx.x] =
+          make_uint4(f.lo[0], f.lo[1], f.lo[2], f.lo[3]);
+    }
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int kt = 0, it = 0; kt < n_kt; ++kt, ++it) {
+    float s[QJ][4];
+    // S = Q K^T over the head; vt: V's rows of the tile
+    const float* vt;
+    if constexpr (NK > 0) {
+#pragma unroll
+      for (int n = 0; n < QJ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      const float* st = ring + ring_step(it, n_items, stages, issue) * ST;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        FragB kb[QJ];
+#pragma unroll
+        for (int n = 0; n < QJ; ++n)
+          kb[n] = load_b_row<LD>(st, 8 * n, 8 * kk, g8, t);
+        const uint4 hi = qhi[kk * THREADS + threadIdx.x];
+        const uint4 lo = qlo[kk * THREADS + threadIdx.x];
+        const FragA qa = {{hi.x, hi.y, hi.z, hi.w}, {lo.x, lo.y, lo.z, lo.w}};
+        mma3_cols(s, qa, kb);
+      }
+      vt = st + QS * LD;
+    } else {
+      vt = wide_contract<0, false, true>(s, s, nullptr, nullptr, ring, ST, it,
+                                         n_items, nk, 2, issue, r0, g8, t);
+    }
+    // keys >= valid get -inf; every tile holds a valid key
+    const int k0 = kt * QS;
+    if (k0 + QS > valid) {
+#pragma unroll
+      for (int n = 0; n < QJ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * n + 2 * t + (e & 1) >= valid) s[n][e] = -INFINITY;
+    }
+    float alpha[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < QJ; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * e], s[n][2 * e + 1]));
+      const float mn = fmaxf(m[e], quad_max(mx) * sl);
+      alpha[e] = tc::ex2(m[e] - mn);
+      m[e] = mn;
+      l[e] *= alpha[e];
+    }
+    // P's A fragments, split once a tile; the streamed form splits them at
+    // each use (held beside its item addresses they spilled)
+    FragA pa[NK > 0 ? QJ : 1];
+#pragma unroll
+    for (int n = 0; n < QJ; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = tc::ex2(fmaf(s[n][e], sl, -m[e >> 1]));
+        l[e >> 1] += s[n][e];   // this thread's part of the row sum
+      }
+      if constexpr (NK > 0) pa[n] = acc_a(s[n]);
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+    // O += P V, four n8 blocks at a time into a fresh fragment
+#pragma unroll
+    for (int c = 0; c < NB; c += 4) {
+      float f[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[n][e] = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < QJ; ++jj) {
+        FragB vb[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          vb[n] = load_b_col<LDV>(vt, 8 * jj, 8 * (c + n), g8, t);
+        if constexpr (NK > 0)
+          mma3_cols(f, pa[jj], vb);
+        else
+          mma3_cols(f, acc_a(s[jj]), vb);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[c + n][e] += f[n][e];
+    }
+    __syncthreads();   // the stage is free
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) l[e] = quad_sum(l[e]);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + r0 + g8 + 8 * e;
+    if (row >= N) continue;
+    float* dst = out0 + op.os.at(b, h, row) + 64 * cb + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(o[n][2 * e] / l[e], o[n][2 * e + 1] / l[e]);
+  }
+}
 #undef WIDE_TF32_ARGS
 
 using Op = Operands<float>;
@@ -2836,24 +2994,32 @@ int bwd(const Op& op, const void* g, void* dq, void* dk, void* dv,
                     static_cast<float*>(dq), N, H, valid, scale);
 }
 
-// K5 at dh = 64 nch, nch > 1 (split layout only): grid.y = H * nch.
-int fwd_wide(const Op& op, void* out, int B, int N, int H, int dh, int valid,
-             float scale, cudaStream_t stream) {
-  const int nch = dh / 64;
-  const dim3 grid((N + ROWS - 1) / ROWS, H * nch, B);
-  return tc::launch(attn_fwd_wide_tf32_kernel, THREADS, WIDE_FWD_SMEM, grid,
-                    stream, op, static_cast<float*>(out), N, valid, scale,
-                    nch);
-}
-
 using WideFn = void (*)(Operands<float>, const float*, float*, float*,
                         float*, float*, int, int, int, float, int, int, int);
 
-// The launches of K6's wide backward in split TF32 (as tc::Set; CW is
-// bf16's alone). Streamed (NK = 0): two stages.
+// The launches of the wide passes in split TF32 (as tc::Set; CW is bf16's
+// alone). Streamed (NK = 0): two stages; resident: two where they fit.
 struct Set {
   template <int KIND, int NK, int NC, int CW>
   static WidePass<WideFn> pass(int cb) {
+    if constexpr (KIND == PASS_FWD)
+      return fwd<NK, NC>(cb);
+    else
+      return bwd<KIND, NK, NC>(cb);
+  }
+  template <int NK, int NC>
+  static WidePass<WideFn> fwd(int cb) {
+    constexpr int QS = FWD_QS<NK>, LD = 64 * NK + 4;
+    constexpr int fixed = ROWS * 64 * NK * 8;   // the q rows' TF32 halves
+    constexpr int stage = (NK > 0 ? 2 * QS * LD : STREAM_ST<NC>) * 4;
+    static_assert(fixed + stage <= WIDE_SMEM_CAP, "no stage fits");
+    constexpr int stages =
+        NK == 0 || fixed + 2 * stage <= WIDE_SMEM_CAP ? 2 : 1;
+    return {attn_fwd_wide_tf32<NK, NC>, PASS_FWD, 64 * NC, cb, THREADS,
+            stages, fixed + stages * stage, ROWS, QS};
+  }
+  template <int KIND, int NK, int NC>
+  static WidePass<WideFn> bwd(int cb) {
     constexpr int LD = 64 * NK + 4;
     constexpr int fixed =
         NK > 0 ? (KIND == PASS_DV ? 1 : 2) * ROWS * LD * 4 : 0;
@@ -2870,9 +3036,25 @@ struct Set {
     else
       fn = attn_bwd_wide_dkdv_tf32<KIND, NK, NC>;
     return {fn, KIND, 64 * NC, cb, THREADS, stages, fixed + stages * stage,
-            ROWS};
+            ROWS, WQS<NK>};
   }
 };
+
+// K5 at dh = 64 nk, nk > 1 (split layout only): the launches of fwd_plan.
+int fwd_wide(const Op& op, void* out, int B, int N, int H, int dh, int valid,
+             float scale, cudaStream_t stream) {
+  int err = 0;
+  const int nk = dh / 64;
+  fwd_plan<Set>(nk, [&](const WidePass<WideFn>& p) {
+    if (err) return;
+    const dim3 grid((N + p.rows - 1) / p.rows, H, B);
+    err = tc::launch(p.fn, p.threads, p.smem, grid, stream, op,
+                     (const float*)nullptr, (float*)nullptr, (float*)nullptr,
+                     static_cast<float*>(out), (float*)nullptr, N, H, valid,
+                     scale, p.cb, nk, p.stages);
+  });
+  return err;
+}
 
 // K6 at dh = 64 nk, nk > 1 (split layout only): the launches of
 // wide_plan. lse, delta: fp32 scratch of B*H*N each.
@@ -2933,7 +3115,7 @@ extern "C" int attn_qkv_bwd(const void* qkv, const void* g, void* dqkv,
 }
 
 // q, k, v, out: [B, H, N, dh] contiguous, dh a multiple of 64: dh = 64 on
-// the kernels K1 shares, wider heads on the chunked ones (fwd_wide).
+// the kernels K1 shares, wider heads on the full-width forward (fwd_wide).
 extern "C" int attn_fwd(const void* q, const void* k, const void* v,
                         void* out, int B, int N, int H, int dh, int n_valid,
                         float scale, int dtype, void* stream) {
@@ -2976,17 +3158,20 @@ extern "C" int attn_bwd(const void* q, const void* k, const void* v,
                   lse, delta, B, N, H, n_valid, scale, s);
 }
 
-// K6's launches at head width dh in dtype (bwd_wide's plan), 8 values a
-// launch into rows, for the first `cap` launches: pass kind (PASS_*),
-// output width W, first output column, threads, ring stages, dynamic
-// shared memory in bytes, the blocks an SM the runtime reports for that
-// kernel and shared memory, and the kernel's address (one per template
-// instance). Returns the number of launches (0 where dh is not a wide
-// head), or minus a CUDA error.
+// The wide launches at head width dh in dtype (K5's fwd_plan where fwd,
+// else K6's wide_plan), 10 values a launch into rows, for the first `cap`
+// launches: pass kind (PASS_*), output width W, first output column,
+// threads, ring stages, dynamic shared memory in bytes, the blocks an SM
+// the runtime reports for that kernel and shared memory, the own rows a
+// block, the rows of a streamed tile, and the kernel's address (one per
+// template instance). Returns the number of launches (0 where dh is not a
+// wide head), or minus a CUDA error.
+constexpr int PLAN_ROW = 10;
+
 template <typename Set>
-int plan_rows(int nk, long long* rows, int cap) {
+int plan_rows(bool fwd, int nk, long long* rows, int cap) {
   int i = 0, err = 0;
-  const int n = wide_plan<Set>(nk, [&](const auto& p) {
+  auto emit = [&](const auto& p) {
     if (err || i >= cap) {
       ++i;
       return;
@@ -2998,17 +3183,24 @@ int plan_rows(int nk, long long* rows, int cap) {
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, p.fn,
                                                         p.threads, p.smem);
     err = (int)e;
-    const long long row[8] = {p.kind,    p.w,      64 * p.cb,
-                              p.threads, p.stages, p.smem,
-                              blocks,    (long long)(uintptr_t)p.fn};
-    for (int j = 0; j < 8; ++j) rows[8 * i + j] = row[j];
+    const long long row[PLAN_ROW] = {
+        p.kind, p.w,    64 * p.cb, p.threads, p.stages,
+        p.smem, blocks, p.rows,    p.keys,    (long long)(uintptr_t)p.fn};
+    for (int j = 0; j < PLAN_ROW; ++j) rows[PLAN_ROW * i + j] = row[j];
     ++i;
-  });
+  };
+  const int n = fwd ? fwd_plan<Set>(nk, emit) : wide_plan<Set>(nk, emit);
   return err ? -err : n;
 }
 
 extern "C" int attn_bwd_plan(int dh, int dtype, long long* rows, int cap) {
   if (dh % DH) return 0;
-  return dtype == 1 ? plan_rows<tc::Set>(dh / DH, rows, cap)
-                    : plan_rows<tf32::Set>(dh / DH, rows, cap);
+  return dtype == 1 ? plan_rows<tc::Set>(false, dh / DH, rows, cap)
+                    : plan_rows<tf32::Set>(false, dh / DH, rows, cap);
+}
+
+extern "C" int attn_fwd_plan(int dh, int dtype, long long* rows, int cap) {
+  if (dh % DH) return 0;
+  return dtype == 1 ? plan_rows<tc::Set>(true, dh / DH, rows, cap)
+                    : plan_rows<tf32::Set>(true, dh / DH, rows, cap);
 }

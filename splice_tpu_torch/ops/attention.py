@@ -14,11 +14,10 @@ the reference chooses them (attention_from_qkv):
     v and multi_head_attention runs forward kernel K5 and backward K6
     (replacing _attn_kernel and _attn_bwd_kernel) at every dh % 64 == 0,
     as the reference's pallas_attention_supported; dh = 64 on the kernels
-    K1/K2 share; wider heads on K5's chunked form (csrc fwd_wide:
-    64-column chunks of the contraction, a block a chunk of the output
-    columns) and on K6's wide passes (csrc bwd_wide: a block over the full
-    width, so S and dP are computed once per tile; its own rows resident
-    up to dh = 320, streamed by 64-column boxes above).
+    K1/K2 share; wider heads on K5's and K6's wide passes (csrc fwd_wide
+    and bwd_wide: a block over the full width, so S (and dP) are computed
+    once per tile; the own rows resident up to dh = 256 (K5) and 320 (K6),
+    streamed by 64-column boxes above, in column blocks of 128 to 256).
 
 All four kernels are in csrc/attention.cu and run on the tensor cores,
 each through one set of kernels for both layouts: bf16 through wgmma,
@@ -53,8 +52,12 @@ import torch
 from splice_tpu_torch.ops import _build
 
 HEAD_DIM = 64
-# K6's wide passes by the kind code of csrc attn_bwd_plan (PASS_*)
-WIDE_PASSES = ("stats", "dq", "dkdv", "dv", "dk")
+# the wide passes by the kind code of csrc attn_bwd_plan and attn_fwd_plan
+# (PASS_*): K6's, then K5's
+WIDE_PASSES = ("stats", "dq", "dkdv", "dv", "dk", "fwd")
+# the values of one launch in those plans' rows, after the kind
+PLAN_KEYS = ("w", "col", "threads", "stages", "smem", "blocks_per_sm",
+             "rows", "keys", "kernel")
 # The reference's routing constants (splice_tpu/ops/attention.py:45,607).
 _QKV_MAX_N_PAD = 2048
 _MAX_N_PAD = 4096
@@ -235,8 +238,10 @@ def _split_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float, n_valid: int = 0) -> torch.Tensor:
     """K5 on the card: [B, H, N, dh] q, k, v -> [B, H, N, dh] (dh a
-    multiple of 64), bf16 or fp32 (split TF32), on the tensor cores (also
-    counted in tc_launches)."""
+    multiple of 64; above 64 the launches of wide_fwd_plan: one, or a
+    column block of 128 to 256 columns each from dh = 320) counted as one
+    call; bf16 or fp32 (split TF32), on the tensor cores (also counted in
+    tc_launches)."""
     B, H, N, dh, valid = _split_shape(q, k, v, n_valid)
     dtype = _build.check_cuda_tensors("attn_fwd", q, k, v)
     out = torch.empty_like(q)
@@ -294,29 +299,43 @@ attn_bwd_cuda.launches = 0
 attn_bwd_cuda.tc_launches = 0
 
 
+def _plan(entry: str, dh: int, dtype: torch.dtype) -> list:
+    """The launches of csrc `entry` (attn_bwd_plan or attn_fwd_plan) at
+    head width dh in `dtype`, each a dict of its kind and PLAN_KEYS."""
+    code = _build.DTYPES[str(dtype).removeprefix("torch.")]
+    fn = getattr(_build.library("attention"), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    n = fn(dh, code, None, 0)
+    w = 1 + len(PLAN_KEYS)
+    rows = (ctypes.c_longlong * (w * max(n, 0)))()
+    if n > 0:
+        n = fn(dh, code, ctypes.addressof(rows), n)
+    if n < 0:
+        _build.check(-n, entry)
+    return [dict(kind=WIDE_PASSES[rows[w * i]],
+                 **dict(zip(PLAN_KEYS, rows[w * i + 1:w * i + w])))
+            for i in range(n)]
+
+
 def wide_bwd_plan(dh: int, dtype: torch.dtype) -> list:
     """K6's launches at head width dh > 64 in `dtype` on the card (csrc
     attn_bwd_plan), in order: each a dict of the pass ("stats", "dq",
     "dkdv", "dv", "dk"), its output width W (0 for the statistics) and
     first output column, its threads, ring stages, dynamic shared memory
-    in bytes, the blocks an SM the runtime reports, and its kernel's
-    address (one per template instance). Empty where dh is not a wide
-    head."""
-    code = _build.DTYPES[str(dtype).removeprefix("torch.")]
-    fn = _build.library("attention").attn_bwd_plan
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-    n = fn(dh, code, None, 0)
-    rows = (ctypes.c_longlong * (8 * max(n, 0)))()
-    if n > 0:
-        n = fn(dh, code, ctypes.addressof(rows), n)
-    if n < 0:
-        _build.check(-n, "attn_bwd_plan")
-    keys = ("w", "col", "threads", "stages", "smem", "blocks_per_sm",
-            "kernel")
-    return [dict(kind=WIDE_PASSES[rows[8 * i]],
-                 **dict(zip(keys, rows[8 * i + 1:8 * i + 8])))
-            for i in range(n)]
+    in bytes, the blocks an SM the runtime reports, the own rows a block
+    and the rows of a streamed tile, and its kernel's address (one per
+    template instance). Empty where dh is not a wide head."""
+    return _plan("attn_bwd_plan", dh, dtype)
+
+
+def wide_fwd_plan(dh: int, dtype: torch.dtype) -> list:
+    """K5's launches at head width dh > 64 in `dtype` on the card (csrc
+    attn_fwd_plan), in order: each a dict as wide_bwd_plan's, of kind
+    "fwd": one launch of W = dh up to dh = 256, ceil(dh / 256) column
+    blocks of 128 to 256 columns above; "rows" the q rows a block, "keys"
+    the key tile. Empty where dh is not a wide head."""
+    return _plan("attn_fwd_plan", dh, dtype)
 
 
 def attn_qkv_fwd(qkv, num_heads: int, scale: float, n_valid: int = 0):
@@ -403,7 +422,7 @@ def split_attention_supported(q: torch.Tensor) -> bool:
     """The port's gate for K5/K6, in the reference's place (:687): the
     reference's pallas_attention_supported less its _MAX_N_PAD cap (K5 has
     no length cap), i.e. every dh % 64 == 0 (64 on the kernels K1 shares,
-    128, 192, ... on K5's chunked form and K6's wide passes). Every other
+    128, 192, ... on K5's and K6's wide passes). Every other
     dh takes library_attention, the reference's _xla_attention route."""
     return q.shape[3] % HEAD_DIM == 0
 

@@ -25,9 +25,10 @@ commits can be timed in turns in one call: unpack the other by `git
 archive` into a git-ignored directory (`_proof/parent`) and run this file
 with `--tree` for each, in turns. Prints one JSON line ({"tree", "card",
 "forms": {"[B,H,N,dh] dtype n_valid=V": {"k6", "k5", "sdpa_bwd",
-"sdpa_fwd", "k6_err"}}, "plan": {"dtype dh": [launch, ...]}}, ms; "plan"
-is K6's launches as ops.attention.wide_bwd_plan gives them, where the tree
-has it), appended to FILE if given.
+"sdpa_fwd", "k6_err"}}, "plan": {"dtype dh": [launch, ...]}, "fwd_plan":
+{...}}, ms; "plan" and "fwd_plan" are K6's and K5's launches as
+ops.attention.wide_bwd_plan and wide_fwd_plan give them, where the tree
+has them), appended to FILE if given.
 """
 from __future__ import annotations
 
@@ -85,7 +86,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dtypes = (args.dtype,) if args.dtype else ("bfloat16", "float32")
-    forms, plan = {}, {}
+    forms, plan, fwd_plan = {}, {}, {}
     for dtype_name in dtypes:
         dt = getattr(torch, dtype_name)
         for B, H, N, dh in wide_split + STREAMED:
@@ -122,9 +123,13 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             if hasattr(attn, "wide_bwd_plan"):
                 plan[f"{dtype_name} {dh}"] = attn.wide_bwd_plan(dh, dt)
+            if hasattr(attn, "wide_fwd_plan"):
+                fwd_plan[f"{dtype_name} {dh}"] = attn.wide_fwd_plan(dh, dt)
     result = {"tree": str(tree), "card": card, "forms": forms}
     if plan:
         result["plan"] = plan
+    if fwd_plan:
+        result["fwd_plan"] = fwd_plan
     line = json.dumps(result)
     print(line)
     if args.out:

@@ -69,12 +69,15 @@ def test_split_attention_value_and_grads_match_pallas(N, n_valid):
     # the wide heads (K6's wide passes on the card: resident to dh = 320,
     # streamed above), masked and unmasked
     (64, 50, 128), (70, 0, 128), (64, 50, 256), (70, 0, 256),
-    (64, 50, 384), (70, 0, 384)])
+    (64, 50, 384), (70, 0, 384),
+    # where K5's plan changes form: 128-key tiles at dh = 128, 64 at 192;
+    # the streamed form's column blocks (192 + 128) at 320
+    (64, 50, 192), (64, 50, 320)])
 def test_split_attention_bf16_matches_pallas(N, n_valid, dh):
     """bf16, the type the card's tensor-core K5/K6 take: the plain versions
     round where the reference's kernels round (p before the PV product, dl
     before the dq and dk products), at dh = 64 and at the wide heads the
-    card runs on K5's chunked form and K6's wide passes. Tolerances: 8e-3 x
+    card runs on K5's and K6's wide passes. Tolerances: 8e-3 x
     max|ref| for the output, 4e-3 x max|ref| for the gradients (two and one
     bf16 ulps at the largest value: both sides round fp32 sums taken in
     another order)."""
