@@ -195,9 +195,14 @@ Phase 2 also holds the fp32 (split-TF32) K1/K2 at FP32_QKV and K5/K6 at
 FP32_SPLIT against their plain fp32 versions (matmul TF32 off), bitwise
 run to run, every launch on the tensor cores, timed beside SDPA in fp32;
 K7 at k = 5, 7, 9 and 11 (GTAP_SITES, bf16 and fp32; bf16 at k = 9 and 11
-on conv_dw_px's cotangent-tapped mode) and fp32 K7 at k = 3 at both SAME
-sites (split TF32, with and without the prologue, bitwise twice, timed
-beside conv2d_weight and K4 at the same site); K5/K6 at head widths 128,
+on conv_dw_wg, beside conv_dw_px's distance from plain) and fp32 K7 at k = 3
+at both SAME sites (split TF32, with and without the prologue, bitwise
+twice, timed beside conv2d_weight and K4 at the same site); bf16 K4 at k =
+9 and 11 at WG_SITES (GTAP_SITES and up_conv s2, k = 9 there; also K7 at
+s2) on conv_dw_wg against its plain version, with and without the prologue,
+bitwise twice, timed beside conv2d_weight, each plan printed (order,
+N, tap groups, stages, shared memory, blocks an SM, registers); K5/K6 at
+head widths 128,
 192 and 256 (WIDE_SPLIT: K5's and K6's wide passes, bf16 and fp32,
 unmasked and with 2701 valid keys, bitwise twice, timed beside SDPA;
 WIDE_EDGES, dh = 320, 384 and 448 among them; K5's and K6's launches with
@@ -236,8 +241,9 @@ ViT-B/8's width as 6 heads of 128 (seeded; the 480 and 224 shapes, bf16
 and fp32): 12 K5 and 12 K6 launches a forward and backward, SDPA
 refused, the taps of layer 11 and the image gradient against the SDPA
 route. Phase 6d runs the default generator with 9x9 up convs on the SAME
-route at [2, 896, 896, 3] in bf16: K7 at k = 9 on conv_dw_px's
-cotangent-tapped mode at up_conv s0-s2, its gradient against K4's runs.
+route at [2, 896, 896, 3] in bf16: K7 at k = 9 on conv_dw_wg at up_conv
+s0-s2, its gradient against K4's runs (K4 on conv_dw_wg there), with the
+weight-gradient kernels' device ms a pass beside the host wall.
 Phase 3 runs a small fp32 DINOv2 (layer scale, registers) on
 the card against the CPU, two pairs' regular and entire-A steps
 (MultiPairTrainer) on the card against the CPU for generator_conv auto,
@@ -906,7 +912,7 @@ def wide_instances(torch, attn) -> dict:
     return out
 
 
-def check_tensor_cores(build, wide):
+def check_tensor_cores(build, wide, n_wg):
     """Every tensor-core kernel (a name with "_tc") must hold its
     instructions: HGMMA (wgmma) in the attention library's (the bf16 route
     of K1/K2 and K5/K6, K5's and K6's wide passes among them, as many of
@@ -919,7 +925,8 @@ def check_tensor_cores(build, wide):
     conv library a forward one (conv_fwd_tc_kernel) and a weight-gradient
     one, and HMMA in each of the pixel-major forms' nine instances
     (conv_fwd_px_kernel; conv_dw_px_kernel for K4 and, cotangent-tapped,
-    for K7); TF32 HMMA in each of the
+    for K7); HGMMA in each of conv_dw_wg's instances (bf16 K4 and K7 on
+    large maps, one a width of n_wg, ops.conv.WG_NS); TF32 HMMA in each of the
     split-TF32 fp32 forms' 24 instances (conv_fwd_tf32_kernel, and
     conv_dw_tf32_kernel for K4 and for K7, nb = 1 to 8 each); no CUDA-core
     conv kernel left (conv_fwd_kernel, conv_dw_partial, conv_dw_gtap_kernel,
@@ -965,6 +972,12 @@ def check_tensor_cores(build, wide):
             or not all(cnv[f][2] for f in tf)):
         fail(f"the split-TF32 conv kernels missing or without TF32 MMA: "
              f"{ {f: cnv[f] for f in tf} }")
+    # bf16 K4 and K7 on large maps: conv_dw_wg_kernel<N>, one instance a
+    # width of ops.conv.WG_NS, each on wgmma
+    wg = [f for f in cnv if "conv_dw_wg_kernel" in f]
+    if len(wg) != len(n_wg) or not all(cnv[f][0] for f in wg):
+        fail(f"conv_dw_wg's instances missing or without HGMMA (want "
+             f"{len(n_wg)}): { {f: cnv[f] for f in wg} }")
     gone = [f for f in cnv if "conv_dw_partial" in f
             or "conv_fwd_kernel" in f or "conv_dw_gtap_kernel" in f
             or "conv_dw_reduce" in f]
@@ -983,9 +996,11 @@ def check_tensor_cores(build, wide):
 
 def print_ptxas(build):
     """Registers, stack and spills of every kernel, from the build logs.
-    The wide attention instances (K5's and K6's wide passes) and
-    conv_dw_px's cotangent-tapped mode must spill nothing."""
-    spilled = []
+    The wide attention instances (K5's and K6's wide passes),
+    conv_dw_px's cotangent-tapped mode and conv_dw_wg's instances must
+    spill nothing; ptxas's notes on conv_dw_wg's wgmma (serialised
+    pipelines, C7510-C7520) are printed."""
+    spilled, injected = [], 0
     for name in build.SOURCES:
         fn = None
         for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
@@ -993,11 +1008,17 @@ def print_ptxas(build):
                 fn = line.split("'")[1]
             elif fn and ("spill" in line or "registers" in line):
                 print(f"  ptxas {name} {fn}: {line.split(':', 1)[-1].strip()}")
-                new = "wide" in fn or ("conv_dw_px_kernel" in fn
-                                       and "Lb1E" in fn)
+                new = "wide" in fn or "conv_dw_wg_kernel" in fn or (
+                    "conv_dw_px_kernel" in fn and "Lb1E" in fn)
                 if new and "spill" in line and not line.strip().endswith(
                         "0 bytes spill stores, 0 bytes spill loads"):
                     spilled.append((fn, line.strip()))
+            elif "conv_dw_wg_kernel" in line and "(C7519)" in line:
+                injected += 1      # a wgmma fence ptxas added
+            elif "conv_dw_wg_kernel" in line and "(C75" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+    print(f"  ptxas conv: {injected} wgmma fences injected in conv_dw_wg "
+          f"(C7519)")
     if spilled:
         fail(f"this slice's instances spill: {spilled}")
 
@@ -1578,21 +1599,39 @@ def check_generator_9x9(torch, conv):
 GEN9_MULT = 2.0
 
 
+@contextlib.contextmanager
+def no_wg_form(conv):
+    """conv_route sends no weight gradient to conv_dw_wg inside the block
+    (its dw_wg_form admits no shape): bf16 K4 and K7 at k = 9 take the
+    pixel-major forms, as the route did before conv_dw_wg."""
+    form = conv.dw_wg_form
+    conv.dw_wg_form = lambda *a, **kw: False
+    try:
+        yield
+    finally:
+        conv.dw_wg_form = form
+
+
 def check_generator_9x9_full(torch, conv):
     """bf16 K7 at k = 9 on a path at full width: the default-width generator
     (SkipConfig(), 16-128 channels over five scales) with filter_size_up =
     9 on [2, 896, 896, 3], generator_conv pallas, the SAME route on, bf16
     compute over fp32 parameters, forward and backward of sum(out * w): K7
     at up_conv s0-s2 (36 -> 16, 68 -> 32, 132 -> 64, where _gtap_better
-    picks it: conv_dw_px's cotangent-tapped mode), K4 at s3-s4, as
-    check_k7_choices requires. Its parameter gradient against the same run
-    with DW_TAP_ON_N off (K4 at every up conv), run twice: the bilinear
-    backward's atomics make two such runs differ by up to 1% of the
-    largest entry (bf16 rounding downstream of them), so each 9x9 kernel's
-    gradient and the flat gradient must lie within GEN9_MULT x the two K4
-    runs' distance plus the bf16 gate (1.6e-2 x max|K4 run's|) of the
-    first K4 run. Times forward + backward, both routes. Returns K7's
-    launches."""
+    picks it), K4 at s3-s4, as check_k7_choices requires, all on
+    conv_dw_wg; then with DW_TAP_ON_N off (K4 at every up conv, on
+    conv_dw_wg). The reference is independent of conv_dw_wg: the same
+    run with DW_TAP_ON_N off on the pixel-major forms (no_wg_form), run
+    twice: the bilinear backward's atomics make two such runs differ by up
+    to 1% of the largest entry (bf16 rounding downstream of them), so each
+    9x9 kernel's gradient and the flat gradient of the conv_dw_wg runs (and
+    of K7 on the pixel-major form) must lie within GEN9_MULT x the two
+    reference runs' distance plus the bf16 gate (1.6e-2 x max|reference's|)
+    of the first reference run. Times forward + backward, every route (host
+    wall), and the device ms a pass of the weight-gradient kernels
+    (conv_dw_*: K7's and K4's kernels and their sums; torch.profiler over
+    one more pass). Returns K7's launches and, with DW_TAP_ON_N off, K4's on
+    conv_dw_wg (up_conv s0-s4)."""
     from splice_tpu_torch.models import unet
     cfg = unet.SkipConfig(filter_size_up=9)
     tree = unet.init_skip_params(cfg, seed=19, device="cuda")
@@ -1611,8 +1650,13 @@ def check_generator_9x9_full(torch, conv):
         return grad.float()
 
     res = []
-    for tap_on_n in (True, False, False):
-        with same_border(True, tap_on_n), no_library_conv(torch):
+    # (DW_TAP_ON_N, conv_dw_wg on): K7 and K4 on conv_dw_wg; K7 and twice
+    # K4 (the reference) on the pixel-major forms
+    settings = ((True, True), (False, True), (True, False), (False, False),
+                (False, False))
+    for tap_on_n, wg_on in settings:
+        forms = contextlib.nullcontext() if wg_on else no_wg_form(conv)
+        with same_border(True, tap_on_n), no_library_conv(torch), forms:
             run()
             torch.cuda.synchronize()
             for n in K3 + DW:           # counts from 0 for this path
@@ -1625,14 +1669,36 @@ def check_generator_9x9_full(torch, conv):
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
         ran = counted(conv, before)
-        res.append((grad, ms, rec, ran))
+        forms = contextlib.nullcontext() if wg_on else no_wg_form(conv)
+        with same_border(True, tap_on_n), no_library_conv(torch), forms:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+        dev = sum(e.device_time_total for e in prof.key_averages()
+                  if "conv_dw_" in e.key) / 1e3
+        res.append((grad, ms, rec, ran, dev))
         print(f"  9x9 generator at full width (bf16, SAME route, DW_TAP_ON_N "
-              f"{tap_on_n}): forward + backward {ms:.1f} ms; launches {ran}")
-    (grad, ms, rec, ran), (ref, ms4, _, ran4), (ref2, *_) = res
+              f"{tap_on_n}, {'conv_dw_wg' if wg_on else 'pixel-major forms'}"
+              f"): forward + backward {ms:.1f} ms (host wall), "
+              f"weight-gradient kernels {dev:.3f} ms of device time; "
+              f"launches {ran}")
+    (grad, ms, rec, ran, dev), (grad4, ms4, rec4, ran4, dev4) = res[:2]
+    (grad7px, ms7px, rec7px, _, dev7px) = res[2]
+    (ref, ms_px, rec_px, ran_px, dev_px), (ref2, *_) = res[3:]
     k7 = check_k7_choices(conv, "9x9 generator at full width", rec, ran)
-    if any(r[4] != "px" for r in rec if r[3] == "K7"):
-        fail(f"9x9 generator at full width: bf16 K7 off conv_dw_px: {rec}")
-    if ran4.get("conv_dw_gtap"):
+    if any(r[4] != "wg" for r in rec if r[3] == "K7"):
+        fail(f"9x9 generator at full width: bf16 K7 off conv_dw_wg: {rec}")
+    k4 = [r for r in rec4 if r[0] == 9 and r[3] == "K4"]
+    k4_wg = sum(r[4] == "wg" for r in k4)
+    if len(k4) != 5 or k4_wg != len(k4):
+        fail(f"9x9 generator at full width: with DW_TAP_ON_N off K4 at k = 9 "
+             f"must run 5 times (up_conv s0-s4), each on conv_dw_wg: {rec4}")
+    off = [r for r in rec7px + rec_px if r[0] == 9 and r[4] == "wg"]
+    if off or any(r[4] != "px" for r in rec_px if r[0] == 9):
+        fail(f"9x9 generator at full width: the reference runs reached "
+             f"conv_dw_wg or left the pixel-major forms: {rec_px} {off}")
+    if ran4.get("conv_dw_gtap") or ran_px.get("conv_dw_gtap"):
         fail("9x9 generator at full width: K7 with DW_TAP_ON_N off")
     rtol = RTOL["bfloat16"][0]
     parts = [("flat gradient", slice(None))]
@@ -1644,17 +1710,25 @@ def check_generator_9x9_full(torch, conv):
                           slice(start, start + n)))
         start += n
     for what, sl in parts:
-        err = (grad[sl] - ref[sl]).abs().max().item()
         spread = (ref2[sl] - ref[sl]).abs().max().item()
         tol = GEN9_MULT * spread + rtol * ref[sl].abs().max().item()
-        print(f"  9x9 generator at full width, {what}: K7 against K4 "
-              f"max_abs_err {err:.3e}, two K4 runs {spread:.3e} (tol "
-              f"{tol:.3e} = {GEN9_MULT:g} x that + {rtol:g} x max|K4|)")
-        if not err <= tol:
-            fail(f"9x9 generator at full width, {what}: K7 disagrees with K4")
+        for run_tag, got in (("K7 (wg)", grad), ("K4 (wg)", grad4),
+                             ("K7 (px)", grad7px)):
+            err = (got[sl] - ref[sl]).abs().max().item()
+            print(f"  9x9 generator at full width, {what}: {run_tag} against "
+                  f"K4 (px) max_abs_err {err:.3e}, two K4 (px) runs "
+                  f"{spread:.3e} (tol {tol:.3e} = {GEN9_MULT:g} x that + "
+                  f"{rtol:g} x max|K4 (px)|)")
+            if not err <= tol:
+                fail(f"9x9 generator at full width, {what}: {run_tag} "
+                     f"disagrees with K4 on the pixel-major forms")
     print(f"  9x9 generator at full width: forward + backward {ms:.1f} ms "
-          f"with K7, {ms4:.1f} ms with K4")
-    return k7
+          f"with K7, {ms4:.1f} ms with K4 on conv_dw_wg, {ms7px:.1f} / "
+          f"{ms_px:.1f} ms on the pixel-major forms (host wall); "
+          f"weight-gradient kernels {dev:.3f} / {dev4:.3f} ms on conv_dw_wg, "
+          f"{dev7px:.3f} / {dev_px:.3f} ms on the pixel-major forms, of "
+          f"device time a pass")
+    return k7, k4_wg
 
 
 @contextlib.contextmanager
@@ -1981,35 +2055,134 @@ def check_conv_same(torch, conv, rows):
 GTAP_SITES = (("up_conv s0", 36, 16, 896), ("up_conv s1", 68, 32, 448))
 
 
+# bf16 K4 and K7 at k = 9 and 11 on conv_dw_wg (the generator's up convs
+# with filter_size_up 9 or 11, phase 6d): GTAP_SITES and up_conv s2-s4 (k =
+# 9 only there; K7 runs at s0-s2 in 6d, K4 at all five)
+WG_SITES = GTAP_SITES + (("up_conv s2", 132, 64, 224),
+                         ("up_conv s3", 132, 128, 112),
+                         ("up_conv s4", 132, 128, 56))
+
+
+def print_wg_plan(conv, tag, k, t):
+    """conv_dw_wg's plan t for one launch (ops.conv.dw_wg_plan: the order
+    it contracts in, its tiling, the lead its bands start with) as the card
+    builds it (dw_wg_info); fails unless it is one block an SM without
+    local memory."""
+    info = conv.dw_wg_info(t, k)
+    order = "cotangent tapped" if t.gtap else "V tapped"
+    print(f"  plan {tag}: {order}, lead {t.lead}, N {t.n} x {t.chunks} "
+          f"chunks, {t.groups} tap groups of {t.tg}, {t.ncg} channel "
+          f"groups, m64 tiles {t.tiles} a warpgroup, 2 warpgroups, "
+          f"{info['stages']} stages, strips of "
+          f"{t.rows} rows ({t.slices} strips, {t.blocks} blocks), ring "
+          f"{t.rt} rows of {t.tw}, smem {info['smem']} B, "
+          f"{info['blocks_per_sm']} block(s) an SM, {info['registers']} "
+          f"registers, {info['local_bytes']} local bytes")
+    if info["blocks_per_sm"] < 1 or info["local_bytes"]:
+        fail(f"conv_dw_wg's plan {tag}: {info}")
+
+
+def check_wg_site(torch, conv, name, x, g, sc, sh, k, pad, rtol):
+    """bf16 K4 (conv_dw_cuda, conv_dw_pro_cuda) at one of WG_SITES, with
+    and without the prologue, against its plain version, twice bitwise,
+    beside the distance of the pixel-major form (conv_dw_px, the form
+    these sites took before conv_dw_wg) from the same plain version; both
+    modes' plans printed. conv_dw_wg's other contraction order, the one
+    the route did not pick there (forced: _launch_dw_wg), is held against
+    the same plain version at the same gate, bitwise twice, so that both
+    orders are checked wherever the route may pick either. Returns the
+    larger error."""
+    B, cin, hw = x.shape[0], x.shape[1], x.shape[2]
+    cout = g.shape[1]
+    for kind, gtap in (("K7", True), ("K4", False)):
+        route = conv.conv_route("dw", x.dtype, k, 1, cin, cout, B, hw, hw,
+                                gtap=gtap, in_w=hw)
+        if route.form != "wg":
+            fail(f"{kind} at {name} k={k}: route {route}, not conv_dw_wg")
+        print_wg_plan(conv, f"{kind} {name} k={k}", k, route.tiling)
+    if route.tiling.gtap:
+        other = conv.dw_wg_tiling(k, cin, cout, B, hw, hw)
+    else:
+        other = conv.dw_wg_tiling(k, cout, cin, B, hw + k - 1, hw + k - 1,
+                                  -pad % 8, gtap=True)
+    print_wg_plan(conv, f"K4 {name} k={k} (the other order, forced)", k,
+                  other)
+    tpx = conv.dw_px_tiling(k, cin, cout, B, hw, hw)
+    errs = []
+    for pro in (False, True):
+        a = (sc, sh, 0.2) if pro else (None, None, 1.0)
+        tag = (f"K4 {name} [{B},{cin},{hw},{hw}]->[{B},{cout},{hw},{hw}] "
+               f"k={k}{' pro' if pro else ''} bfloat16 (wg)")
+
+        def run():
+            if pro:
+                return conv.conv_dw_pro_cuda(x, g, k, sc, sh, 0.2, pad)
+            return conv.conv_dw_cuda(x, g, k, pad)
+        dw = run()
+        want = (conv.conv_dw_pro_plain(x, g, k, sc, sh, 0.2, pad, 1) if pro
+                else conv.conv_dw_plain(
+                    torch.nn.functional.pad(x, (pad,) * 4), g, k))
+        errs.append(compare(tag, dw, want, rtol, DW_WHY))
+        check_bitwise(torch, tag, (dw,), (run(),))
+        order = "cotangent tapped" if other.gtap else "V tapped"
+
+        def forced():
+            return conv._launch_dw_wg(x, g, k, pad, 1, *a, False, other,
+                                      "conv_dw_wg forced")
+        ftag = f"{tag} {order} (forced)"
+        errs.append(compare(ftag, forced(), want, rtol, DW_WHY))
+        check_bitwise(torch, ftag, (forced(),), (forced(),))
+        old = conv._launch_dw_px(x, g, k, pad, 1, *a, False, tpx, "px")
+        old_err = (old.float() - want.float()).abs().max().item()
+        print(f"  {tag}: conv_dw_wg {errs[-2]:.3e} from plain ({order} "
+              f"forced {errs[-1]:.3e}), conv_dw_px {old_err:.3e}")
+        del dw, want, old
+    return max(errs)
+
+
 def check_gtap_wide_k(torch, conv):
     """K7 at k = 5, 7, 9 and 11 in bf16 and fp32, and at k = 3 in fp32
     (bf16 K7 at k = 3: check_conv_same), at GTAP_SITES, with and without
     the prologue: against its plain version (an fp32 output: 1e-4 x
     max|plain|), twice on one input bitwise, every launch on the tensor
-    cores (fp32 in split TF32; bf16 at k = 9 and 11 on conv_dw_px's
-    cotangent-tapped mode); timed against conv2d_weight (cuDNN's TF32 off)
-    at up_conv s0, and at both sites fp32 at k = 3 and both dtypes at k = 9
-    and 11, beside K4 at the same site (k4_ms: the same function contracted
-    the other way round). Returns {(k, dtype, site): row}."""
+    cores (fp32 in split TF32; bf16 at k = 9 and 11 on conv_dw_wg, beside
+    the distance of conv_dw_px, the form these sites took before it);
+    timed against conv2d_weight (cuDNN's TF32 off) at up_conv s0, and at
+    both sites fp32 at k = 3 and both dtypes at k = 9 and 11, beside K4 at
+    the same site (k4_ms: the same function contracted the other way
+    round). bf16 K4 at k = 9 and 11 at WG_SITES (conv_dw_wg; up_conv s2-s4
+    at k = 9) and bf16 K7 at up_conv s2-s4 at k = 9, with and without the
+    prologue, against their plain versions at the same gate, bitwise
+    twice, timed beside conv2d_weight, with conv_dw_wg's plan of each
+    printed and its other contraction order forced and checked too
+    (check_wg_site). Returns ({(k, dtype, site): K7 row}, {(k, site): K4
+    row})."""
     rtol = RTOL["float32"][0]
     gen = torch.Generator().manual_seed(8)
     fn = conv.conv_dw_gtap_cuda
     n0, t0 = fn.launches, fn.tc_launches
     checked = 0
-    out = {}
-    for name, cin, cout, hw in GTAP_SITES:
+    out, out4 = {}, {}
+    for name, cin, cout, hw in WG_SITES:
         B = 2
-        for dtype_name in ("bfloat16", "float32"):
+        third = (name, cin, cout, hw) not in GTAP_SITES    # s2-s4
+        for dtype_name in (("bfloat16",) if third
+                           else ("bfloat16", "float32")):
             dt = getattr(torch, dtype_name)
             x = torch.randn(B, cin, hw, hw, generator=gen).to("cuda", dt)
             g = torch.randn(B, cout, hw, hw, generator=gen).to("cuda", dt)
             sc = (0.5 + torch.rand(2, cin, generator=gen)).cuda()
             sh = torch.randn(2, cin, generator=gen).cuda()
-            for k in ((3, 5, 7, 9, 11) if dt == torch.float32
-                      else (5, 7, 9, 11)):
+            for k in ((9,) if third else (3, 5, 7, 9, 11)
+                      if dt == torch.float32 else (5, 7, 9, 11)):
                 form = conv.conv_route("dw", dt, k, 1, cin, cout, B, hw, hw,
-                                       gtap=True).form
+                                       gtap=True, in_w=hw).form
                 pad = (k - 1) // 2
+                wg = form == "wg"
+                if dt == torch.bfloat16 and k in (9, 11) and not wg:
+                    fail(f"bf16 K7 at {name} k={k} off conv_dw_wg: {form}")
+                tpx = conv.dw_px_gtap_tiling(k, cout, cin, B, hw + k - 1,
+                                             hw + k - 1)
                 errs = []
                 for pro in (False, True):
                     a = (sc, sh, 0.2) if pro else (None, None, 1.0)
@@ -2022,35 +2195,58 @@ def check_gtap_wide_k(torch, conv):
                     check_bitwise(torch, f"K7 {tag}", (dw,),
                                   (fn(x, g, k, *a, pad),))
                     checked += 2
+                    if wg:
+                        old = conv._reverse_taps(conv._launch_dw_px(
+                            x, g, k, pad, 1, *a, True, tpx, "px"), k)
+                        old_err = (old - want.float()).abs().max().item()
+                        print(f"  K7 {tag}: conv_dw_wg {errs[-1]:.3e} from "
+                              f"plain, conv_dw_px {old_err:.3e}")
+                        del old
                     del dw, want
+                k4_err = None
+                if wg:
+                    k4_err = check_wg_site(torch, conv, name, x, g, sc, sh,
+                                           k, pad, rtol)
                 if name != "up_conv s0" and k not in (3, 9, 11):
                     continue
                 w_shape = (cout, cin, k, k)
                 isz = x.element_size()
+                nbytes = (x.numel() + g.numel()) * isz + cin * cout * k * k * 4
+                flops = 2 * B * hw * hw * cout * cin * k * k
                 row = timed(
                     lambda: fn(x, g, k, None, None, 1.0, pad),
                     lambda: conv.conv_dw_gtap_plain(x, g, k, None, None, 1.0,
                                                     pad),
                     lambda: torch.nn.grad.conv2d_weight(x, w_shape, g,
                                                         padding=pad),
-                    (x.numel() + g.numel()) * isz + cin * cout * k * k * 4,
-                    2 * B * hw * hw * cout * cin * k * k, dtype_name, "K7",
-                    f"{name} k={k}")
+                    nbytes, flops, dtype_name, "K7", f"{name} k={k}")
                 if k in (3, 9, 11):
                     row["k4_ms"] = time_ms(
                         lambda: conv.conv_dw_cuda(x, g, k, pad))
                     print(f"  time K4 at the same site (the x-tapped "
                           f"order): {row['k4_ms']:.4f} ms")
                 out[(k, dtype_name, name)] = dict(
-                    row, max_abs_err=max(errs), shape=tag.replace(" pro", ""))
+                    row, max_abs_err=max(errs), form=form,
+                    shape=tag.replace(" pro", ""))
+                if k4_err is not None:
+                    row4 = dict(timed(
+                        lambda: conv.conv_dw_cuda(x, g, k, pad),
+                        lambda: conv.conv_dw_plain(
+                            torch.nn.functional.pad(x, (pad,) * 4), g, k),
+                        lambda: torch.nn.grad.conv2d_weight(x, w_shape, g,
+                                                            padding=pad),
+                        nbytes, flops, dtype_name, "K4", f"{name} k={k}"))
+                    out4[(k, name)] = dict(
+                        row4, max_abs_err=k4_err, form="wg",
+                        shape=out[(k, dtype_name, name)]["shape"])
             del x, g
             torch.cuda.empty_cache()
     calls = (fn.launches - n0, fn.tc_launches - t0)
-    print(f"  K7 at GTAP_SITES: {calls[0]} launches, {calls[1]} on the "
+    print(f"  K7 at WG_SITES: {calls[0]} launches, {calls[1]} on the "
           f"tensor cores (checks {checked}; timing launches counted too)")
     if calls[0] < checked or calls[1] != calls[0]:
-        fail(f"K7 launches off the tensor cores at GTAP_SITES: {calls}")
-    return out
+        fail(f"K7 launches off the tensor cores at WG_SITES: {calls}")
+    return out, out4
 
 
 def check_conv_fp32(torch, conv):
@@ -4855,7 +5051,7 @@ def main() -> int:
     print(f"  built and loaded {', '.join(_build.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s")
     print_ptxas(_build)
-    check_tensor_cores(_build, wide_instances(torch, attn))
+    check_tensor_cores(_build, wide_instances(torch, attn), conv.WG_NS)
     if cards:
         mesh_across_cards(torch, attn, conv, probe, cards)
         print(smi)
@@ -4899,7 +5095,7 @@ def main() -> int:
         "conv_dw_gtap": check_generator_9x9(torch, conv)}}
     check_attention_dh(torch, attn)
     check_conv_same(torch, conv, rows)
-    gtap_rows = check_gtap_wide_k(torch, conv)
+    gtap_rows, k4_rows = check_gtap_wide_k(torch, conv)
     conv32_rows = check_conv_fp32(torch, conv)
     check_same_edge_cases(torch, conv)
     for dtype_name in ("bfloat16", "float32"):
@@ -5036,8 +5232,9 @@ def main() -> int:
     mark(t_start)
     print("phase 6d: the 9x9 generator at full width (bf16, SAME route, "
           "pallas): K7 at k = 9 against K4")
-    launches["generator_9x9_full"] = {
-        "conv_dw_gtap": check_generator_9x9_full(torch, conv)}
+    k7_full, k4_full = check_generator_9x9_full(torch, conv)
+    launches["generator_9x9_full"] = {"conv_dw_gtap": k7_full}
+    launches["generator_9x9_full_k4"] = {"conv_dw": k4_full}
     torch.cuda.empty_cache()
 
     mark(t_start)
@@ -5190,11 +5387,17 @@ def main() -> int:
         extra.append((kid, r, path, "tensor core (split TF32)"))
     for (k, dt, site), r in gtap_rows.items():
         fp32 = dt == "float32"
+        # 6d's K7 runs at up_conv s0-s2
+        full = k == 9 and site in ("up_conv s0", "up_conv s1", "up_conv s2")
         path = ("pallas_same_fp32" if fp32 and k == 3 else
                 "generator_9x9" if fp32 and k == 9 else
-                "generator_9x9_full" if k == 9 else "none (phase 2)")
+                "generator_9x9_full" if full else "none (phase 2)")
         extra.append(("K7", dict(r, k=k), path,
                       "tensor core (split TF32)" if fp32 else "tensor core"))
+    for (k, site), r in k4_rows.items():
+        # K4 at up_conv s0-s4 (all on conv_dw_wg) with DW_TAP_ON_N off (6d)
+        extra.append(("K4", dict(r, k=k), "generator_9x9_full_k4" if k == 9
+                      else "none (phase 2)", "tensor core"))
     for (kid, tag), r in wide_rows.items():
         fp32 = "float32" in tag
         dtype_name = "float32" if fp32 else "bfloat16"
@@ -5221,7 +5424,7 @@ def main() -> int:
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": b, "bound_by": by,
                      "library_ms": r["library_ms"], "shape": r["shape"],
-                     **({"k": r["k"]} if "k" in r else {})})
+                     **{key: r[key] for key in ("k", "form") if key in r}})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)

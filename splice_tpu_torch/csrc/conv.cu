@@ -25,8 +25,8 @@
 // input gradient: the wrapper passes the cotangent with an implicit border
 // and the flipped, io-swapped kernel (_conv_bwd :719-729, _convp_bwd
 // :873-896).
-// K4 (conv_dw_tc or conv_dw_px in bf16, conv_dw_tf32 in fp32) replaces
-// _make_dw_kernel (:401, launched by _dw_impl :630),
+// K4 (conv_dw_tc, conv_dw_px or conv_dw_wg in bf16, conv_dw_tf32 in fp32)
+// replaces _make_dw_kernel (:401, launched by _dw_impl :630),
 // with and without the prologue (recomputed on the read, as the TPU kernel
 // does) and at any k, as the reference's kernels take any k (the training
 // net's 3x3 and 1x1 and its stride-2 k2 = 2 on conv_dw_tc; 16 taps or more
@@ -47,8 +47,8 @@
 // across its sequential grid; here each block writes its tile's sums to
 // scratch and conv_stats_reduce_kernel adds the tiles of each stack in a
 // fixed order (no atomics: a seeded run repeats bit for bit).
-// K7 (conv_dw_tc in bf16, conv_dw_tf32 with gtap in fp32) replaces
-// _make_dw_kernel_gtap (:455, launched by
+// K7 (conv_dw_tc, conv_dw_px or conv_dw_wg in bf16, conv_dw_tf32 with gtap
+// in fp32) replaces _make_dw_kernel_gtap (:455, launched by
 // _dw_gtap_impl :522): the same dw contracted the other way round, by
 // tapping the cotangent instead of the input,
 //   dw[K-1-dy', K-1-dx', c, co] = sum over b,r,c' of V[b,c,r,c'] *
@@ -78,9 +78,10 @@
 //     px) at k >= 4 and the k2 = 3 phase kernels, K4 likewise through
 //     conv_dw_tc (namespace dwtc) or conv_dw_px, K7 through conv_dw_tc at
 //     k in {2, 3, 5, 7} and through conv_dw_px's cotangent-tapped mode at
-//     every other k >= 2. fwdtc and dwtc stage x through Src into the
-//     same channel-major bf16 tiles, px into pixel-major ones; each is
-//     described above its kernel.
+//     every other k >= 2; on large maps at k >= 8, K4 and K7 through
+//     conv_dw_wg (namespace wgdw, wgmma and TMA). fwdtc and dwtc stage x
+//     through Src into the same channel-major bf16 tiles, px into
+//     pixel-major ones; each is described above its kernel.
 //   * fp32 K3, K4 and K7 run on the tensor cores too, in split TF32
 //     (three mma.sync m16n8k8 .tf32 products a product, tf32.cuh, which
 //     keep the fp32 steps' 1e-4 gates): conv_fwd_tf32 and conv_dw_tf32
@@ -89,8 +90,10 @@
 //     kernels.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
@@ -1877,6 +1880,658 @@ int launch_dw(const bf16* x, const Src& src, const bf16* g, const Src& usrc,
 }  // namespace px
 
 // ---------------------------------------------------------------------------
+// bf16 K4 and K7 on large maps (namespace wgdw, conv_dw_wg): the weight
+// gradient of both modes,
+//   D[(t, c), u] = sum_p T[c, p + t] U[u, p],
+// T the tapped operand and U the untapped one over U's extent [Hp, Wp], as
+// dwtc and px define them (K4: T = V, x through Src, U = g; K7: T = g with a
+// border of k - 1, U = V over [Ho + k - 1, Wo + k - 1], the prologue on x's
+// own elements), on wgmma. It replaces _make_dw_kernel (:401) and
+// _make_dw_kernel_gtap (:455) where ops/conv.py conv_route sends them: bf16
+// at stride 1, k >= 8, maps of at least WG_MIN_PIXELS pixels whose rows are
+// a multiple of 8 elements (the generator's up convs with filter_size_up 9
+// or 11: 36-132 channels over 224-896 maps, B = 2). Both orders compute the
+// same weight gradient; ops/conv.py dw_wg_plan runs K4 and K7 alike in the
+// order its cost model (fitted to this kernel's times) finds cheaper: the
+// narrower operand tapped, roughly (at Cout 16, K4's order issues 3x K7's
+// products).
+// What bounds it: such a call does about 10^11 flops on 10^8 bytes, about
+// 1,000 flops a byte against the ridge of 295, so the tensor cores. px's
+// form, built for the inversion net's B = 1 maps of at most 63K pixels where
+// latency and grid fill bind, reached 41-47 TFLOP/s here (one 8-warp block
+// an SM at 228-254 registers, one ldmatrix of A for at most two m16n8k16
+// products, 2-byte loads through registers, tiles cut to 512 pixels). This
+// form answers each:
+//   * U is wgmma's B, K-major from shared memory: a row of B is pixels of
+//     one channel, contiguous in [B, C, H, W]. A TMA box of [N channels]
+//     [1 row][64 pixels], 128-byte swizzled, lands one image row of the
+//     block's 64-pixel band. TMA's zero fill outside U is K7's border of x,
+//     the columns past Wp and the channels past Cu. N is Cu rounded up to a
+//     multiple of 8 (one chunk up to 136 columns), so B is read once a
+//     product for all of Cu, and once a warpgroup, not once a warp.
+//   * T is wgmma's A, from registers: a warp's 16 rows are one tap x 16
+//     channels, read by ldmatrix.x4.trans from a pixel-major tile (a pixel's
+//     16 channels in a 48-byte row, as px) at the tap's pixel offset, which
+//     no shared-memory descriptor can address. The per-warp A layout of
+//     m64nNk16 is m16n8k16's, so px's fragment addressing feeds it
+//     unchanged. A warpgroup holds J m64 tiles (4 J taps x 16 channels,
+//     J = tiles_for(N)) and issues each tile's product as one m64nNk16 at
+//     the instance's width N. A's fragments are double buffered: a k16
+//     step's loads run beside the previous step's products.
+//   * T is staged asynchronously too, with no 2-byte loads: TMA lands each
+//     row of T raw ([16 channels][tw pixels], zero outside T at any border),
+//     and the warps turn it pixel-major 16 x 16 at a time by ldmatrix +
+//     stmatrix.trans,
+//     applying K4's prologue between the two (x's own elements only). A
+//     block walks its strip one image row a stage, and T's rows live in a
+//     ring of rt rows (the most tap rows a group spans plus STAGES - 1), so
+//     each row of T lands once per block. K7's prologue on U is one pass over
+//     the landed box by the warps (fence.proxy.async before the
+//     products read it): U's box is read by the tensor cores straight from
+//     where TMA put it, so there is no register staging to apply it in.
+//   * Warp roles: two warpgroups, each warp both producer and consumer, so
+//     that a thread may hold up to 255 registers (a ninth warp shares an SM
+//     quarter's 16K registers three ways: 168 a thread). Thread 0 keeps
+//     AHEAD stages of TMA in flight; each warp transposes its share of the
+//     stage PRODUCE ahead of the one it multiplies; STAGES image rows in
+//     the ring; one block of 256 threads an SM. Two earlier layouts built
+//     and ran right but slowly: a producer warpgroup whose registers went
+//     to the consumers by setmaxnreg (48 / 224), and one producer warp
+//     beside the consumers. ptxas held both at 168 registers a thread,
+//     spilled the consumers' accumulators and serialised their wgmma
+//     (C7512).
+//   * The work is split by taps, not pixels alone: a block owns one strip
+//     of at most 64 rows of a 64-pixel band, one 16-channel group of T, a
+//     group of at most 8 J consecutive taps (tg, evened) and one chunk of N
+//     channels of U. Every tile is issued: tiles past a group's taps
+//     compute its last tap again and are not stored (a run-time count of
+//     tiles around the products made ptxas fence each one).
+//   * Precision: a strip is at most 64 rows x 64 pixels, so each
+//     accumulator chain adds at most 4,096 pixels (CHAIN, ops/conv.py
+//     WG_CHAIN), as px's cotangent-tapped strips (the tensor cores truncate
+//     as they accumulate). Each strip writes an fp32 partial in dwtc's
+//     layout and conv_dw_sum_kernel adds the strips in a fixed order (no
+//     atomics: a seeded call repeats bit for bit; K7's sum transposes).
+// The TMA, mbarrier and wgmma helpers are copied from
+// attention.cu (a few lines each) so that attention.cu and its instances
+// stay as they are.
+// ---------------------------------------------------------------------------
+namespace wgdw {
+
+using bf16 = __nv_bfloat16;
+using dwtc::smem_addr;
+using px::ldsm4;
+using px::ldsm4t;
+constexpr int BAND = 64;        // pixel columns of a strip: one 128-byte box row (ops/conv.py WG_BAND)
+constexpr int CS = px::CS;      // elements of a staged pixel of T (WG_PIXEL)
+constexpr int STAGES = 8;       // image rows in the ring (WG_STAGES)
+constexpr int PRODUCE = 1;      // stages a warp transposes ahead of the one it multiplies
+constexpr int AHEAD = 6;        // stages whose TMA thread 0 issues ahead of it
+constexpr int WARPS = 8;        // two warpgroups, each of them producer and consumer
+constexpr int THREADS = 32 * WARPS;   // (WG_THREADS)
+static_assert(STAGES > 2 * PRODUCE && AHEAD < STAGES - PRODUCE,
+              "a stage's slot and ring rows are released before reuse");
+constexpr int CHAIN = 4096;     // pixels an accumulator chain adds (WG_CHAIN)
+constexpr int MAX_ROWS = CHAIN / BAND;
+constexpr int MAX_TW = 256;     // a TMA box's widest dimension
+
+// m64 tiles a warpgroup holds at N columns: the accumulators (N / 2
+// registers a tile) and two A fragments (8) within 168 of a thread's 255
+// registers, at most 10 (ops/conv.py wg_tiles).
+__host__ __device__ constexpr int tiles_for(int n) {
+  return 168 / (n / 2 + 8) > 10 ? 10 : 168 / (n / 2 + 8);
+}
+
+// T's staged width: up to 7 columns of lead, the band and its k - 1 halo in
+// whole 16-byte units, an odd count of them so that ldmatrix's 8 channel
+// rows of the raw tile fall in 8 distinct bank groups (ops/conv.py
+// wg_tile_width).
+__host__ __device__ constexpr int tile_width(int k) {
+  return 8 * (((7 + BAND + k - 1 + 7) / 8) | 1);
+}
+
+// The ring's rows: the most tap rows one of the groups of tg taps spans,
+// plus the stages in flight (ops/conv.py wg_ring_rows).
+inline int ring_rows(int k, int tg) {
+  int nd = 1;
+  for (int t0 = 0; t0 < k * k; t0 += tg) {
+    const int t1 = t0 + tg < k * k ? t0 + tg : k * k;
+    nd = nd > (t1 - 1) / k - t0 / k + 1 ? nd : (t1 - 1) / k - t0 / k + 1;
+  }
+  return nd + STAGES - 1;
+}
+
+// Dynamic shared memory: 1 KB to align, U's ring, T's raw and pixel-major
+// rings, the barriers (ops/conv.py wg_smem).
+inline size_t smem_bytes(int n, int k, int tg) {
+  const int tw = tile_width(k), rt = ring_rows(k, tg);
+  return 1024 + (size_t)STAGES * n * 128 + (size_t)rt * tw * (32 + 2 * CS) +
+         3 * STAGES * 8;
+}
+
+struct Maps {
+  CUtensorMap t, u;
+};
+
+struct Plan {
+  int Cs, Cu, Hp, Wp, k;
+  int tg, groups, ncg, chunks;   // taps a group, groups, T's 16-channel groups, U's N chunks
+  int rows, n_rs, n_bands;       // a strip's rows, strips down and bands across an image
+  int tw, rt;
+  int lead;                      // band 0 starts this many columns left of U's extent
+};
+
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// Returns once the phase of parity `parity` has completed; traps after
+// 2^28 polls (tens of seconds), so that a barrier that never completes
+// fails the launch instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == (1u << 28)) __trap();
+  }
+}
+// The box of `map` at coordinates (c0, c1, c2, c3), innermost first.
+__device__ __forceinline__ void tma4(void* dst, const CUtensorMap* map,
+                                     uint64_t* bar, int c0, int c1, int c2,
+                                     int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// wgmma descriptor of 128-byte rows as TMA's 128-byte swizzle leaves them
+// (8-row groups 1024 bytes apart), read K-major: a k16 step is +32 bytes
+// (+2), a row +128 bytes (+8).
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return ((smem_addr(tile) & 0x3FFFFu) >> 4) | (64ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int n>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(n) : "memory");
+}
+template <int n>
+__device__ __forceinline__ void pin(float (&d)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+__device__ __forceinline__ void stsm4t(const uint32_t (&r)[4], uint32_t a) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};"
+               :: "r"(a), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N], A in registers, B K-major in shared
+// memory (descriptor b): one wgmma of the full width N a tile and k16
+// step (split into pieces of 64, 32, ... columns, each a wgmma reading the
+// same A registers, it ran slower: a wgmma's cost has a floor that narrow
+// pieces pay in full). WG_R<g> names the 4 g accumulator
+// registers of N = 8 g, WG_O<g> their operands.
+#define WG_S0 "%0, %1, %2, %3"
+#define WG_S1 "%4, %5, %6, %7"
+#define WG_S2 "%8, %9, %10, %11"
+#define WG_S3 "%12, %13, %14, %15"
+#define WG_S4 "%16, %17, %18, %19"
+#define WG_S5 "%20, %21, %22, %23"
+#define WG_S6 "%24, %25, %26, %27"
+#define WG_S7 "%28, %29, %30, %31"
+#define WG_S8 "%32, %33, %34, %35"
+#define WG_S9 "%36, %37, %38, %39"
+#define WG_S10 "%40, %41, %42, %43"
+#define WG_S11 "%44, %45, %46, %47"
+#define WG_S12 "%48, %49, %50, %51"
+#define WG_S13 "%52, %53, %54, %55"
+#define WG_S14 "%56, %57, %58, %59"
+#define WG_S15 "%60, %61, %62, %63"
+#define WG_S16 "%64, %65, %66, %67"
+#define WG_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_R1 WG_S0
+#define WG_O1 WG_F4(0)
+#define WG_R2 WG_R1 ", " WG_S1
+#define WG_O2 WG_O1, WG_F4(4)
+#define WG_R3 WG_R2 ", " WG_S2
+#define WG_O3 WG_O2, WG_F4(8)
+#define WG_R4 WG_R3 ", " WG_S3
+#define WG_O4 WG_O3, WG_F4(12)
+#define WG_R5 WG_R4 ", " WG_S4
+#define WG_O5 WG_O4, WG_F4(16)
+#define WG_R6 WG_R5 ", " WG_S5
+#define WG_O6 WG_O5, WG_F4(20)
+#define WG_R7 WG_R6 ", " WG_S6
+#define WG_O7 WG_O6, WG_F4(24)
+#define WG_R8 WG_R7 ", " WG_S7
+#define WG_O8 WG_O7, WG_F4(28)
+#define WG_R9 WG_R8 ", " WG_S8
+#define WG_O9 WG_O8, WG_F4(32)
+#define WG_R10 WG_R9 ", " WG_S9
+#define WG_O10 WG_O9, WG_F4(36)
+#define WG_R11 WG_R10 ", " WG_S10
+#define WG_O11 WG_O10, WG_F4(40)
+#define WG_R12 WG_R11 ", " WG_S11
+#define WG_O12 WG_O11, WG_F4(44)
+#define WG_R13 WG_R12 ", " WG_S12
+#define WG_O13 WG_O12, WG_F4(48)
+#define WG_R14 WG_R13 ", " WG_S13
+#define WG_O14 WG_O13, WG_F4(52)
+#define WG_R15 WG_R14 ", " WG_S14
+#define WG_O15 WG_O14, WG_F4(56)
+#define WG_R16 WG_R15 ", " WG_S15
+#define WG_O16 WG_O15, WG_F4(60)
+#define WG_R17 WG_R16 ", " WG_S16
+#define WG_O17 WG_O16, WG_F4(64)
+#define WG_RS(G, N, A0, A1, A2, A3, B, ONE)                                  \
+  template <>                                                                \
+  __device__ __forceinline__ void wg_rs<N>(float (&d)[N / 2],                 \
+                                           const uint32_t (&a)[4],            \
+                                           uint64_t b) {                      \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #ONE ", 0;\n"           \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "  \
+                 "{" WG_R##G "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" \
+                 #B ", p, 1, 1, 0;\n}\n"                                       \
+                 : WG_O##G                                                     \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),        \
+                   "r"(1));                                                    \
+  }
+template <int N>
+__device__ __forceinline__ void wg_rs(float (&d)[N / 2],
+                                      const uint32_t (&a)[4], uint64_t b);
+// the instances' widths (WGDW_NS)
+WG_RS(2, 16, 8, 9, 10, 11, 12, 13)
+WG_RS(3, 24, 12, 13, 14, 15, 16, 17)
+WG_RS(4, 32, 16, 17, 18, 19, 20, 21)
+WG_RS(5, 40, 20, 21, 22, 23, 24, 25)
+WG_RS(6, 48, 24, 25, 26, 27, 28, 29)
+WG_RS(8, 64, 32, 33, 34, 35, 36, 37)
+WG_RS(9, 72, 36, 37, 38, 39, 40, 41)
+WG_RS(12, 96, 48, 49, 50, 51, 52, 53)
+WG_RS(17, 136, 68, 69, 70, 71, 72, 73)
+#undef WG_RS
+
+// The rows of T a stage lands: stage 0 the block's nd tap rows, each later
+// stage the one new row its last tap row reaches.
+__device__ __forceinline__ void stage_rows(int s, int r0, int dy0, int nd,
+                                           int& first, int& last) {
+  last = r0 + s + dy0 + nd - 1;
+  first = s == 0 ? r0 + dy0 : last;
+}
+
+// See above. Grid: one block per (strip, T's channel group, tap group, U's
+// chunk), the strip slowest so that the blocks of one strip run together
+// and share its rows in L2. partial[strip][(t * Cs + c) * Cu + u].
+template <int N>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_dw_wg_kernel(const __grid_constant__ Maps maps, Src ss, Src us, Plan pl,
+                  float* __restrict__ partial) {
+  constexpr int J = tiles_for(N);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* u_ring = sm;                                       // [STAGES][N][64]
+  bf16* t_raw = reinterpret_cast<bf16*>(u_ring + STAGES * N * 128);  // [rt][16][tw]
+  bf16* t_pix = t_raw + pl.rt * 16 * pl.tw;                   // [rt][tw][CS]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(t_pix + pl.rt * pl.tw * CS);
+  uint64_t* landed = bars;               // TMA's bytes of a stage
+  uint64_t* full = bars + STAGES;        // its T rows transposed (and U's prologue)
+  uint64_t* empty = bars + 2 * STAGES;   // every consumer warp done with it
+
+  const int per = pl.ncg * pl.groups * pl.chunks;
+  const int strip = blockIdx.x / per, rest = blockIdx.x - strip * per;
+  const int chunk = rest % pl.chunks;
+  const int grp = rest / pl.chunks % pl.groups;
+  const int cg = rest / (pl.chunks * pl.groups);
+  const int per_img = pl.n_rs * pl.n_bands;
+  const int b = strip / per_img, sri = strip - b * per_img;
+  const int r0 = (sri / pl.n_bands) * pl.rows;
+  // a box's first column is a multiple of 8 elements in its source (TMA
+  // raised an illegal instruction at other columns): U's by the bands'
+  // origin -lead, T's by starting its tile t_lead columns early
+  const int x0 = (sri % pl.n_bands) * BAND - pl.lead;
+  const int t_lead = ((x0 - ss.pad) % 8 + 8) % 8;
+  const int n_st = min(pl.rows, pl.Hp - r0), q1 = min(x0 + BAND, pl.Wp);
+  const int t0 = grp * pl.tg, units = min(pl.tg, pl.k * pl.k - t0);
+  const int dy0 = t0 / pl.k, nd = (t0 + units - 1) / pl.k - dy0 + 1;
+  const int n0 = chunk * N, c0 = cg * 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&landed[s], 1);
+      mbar_init(&full[s], WARPS);
+      mbar_init(&empty[s], WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const CUtensorMap* map_t = &maps.t;
+  const CUtensorMap* map_u = &maps.u;
+  // A stage's TMA (thread 0): U's box and T's new rows, once the slot (and
+  // the ring rows it overwrites, those of stage s - STAGES) is released.
+  auto issue = [&](int s) {
+    const int slot = s % STAGES;
+    if (s >= STAGES) mbar_wait(&empty[slot], (s / STAGES - 1) & 1);
+    int first, last;
+    stage_rows(s, r0, dy0, nd, first, last);
+    mbar_arrive_tx(&landed[slot], N * 128 + (last - first + 1) * 32 * pl.tw);
+    tma4(u_ring + slot * N * 128, map_u, &landed[slot], x0 - us.pad,
+         r0 + s - us.pad, n0, b);
+    for (int vy = first; vy <= last; ++vy)
+      tma4(t_raw + (vy % pl.rt) * 16 * pl.tw, map_t, &landed[slot],
+           x0 - t_lead - ss.pad, vy - ss.pad, c0, b);
+  };
+  // This warp's share of a landed stage: T's new rows pixel-major, 16
+  // pixels x 16 channels an ldmatrix.x4 + stmatrix.x4.trans (a lane's
+  // register m holds channel 8 (m & 1) + gid at pixels 2q, 2q + 1 of
+  // group gl(m)), K4's prologue between the two; then K7's prologue on
+  // U's box; every thread arrives.
+  const int tw8 = pl.tw / 8, n_ops = (tw8 + 1) / 2;
+  auto produce = [&](int s) {
+    const int slot = s % STAGES;
+    const int mi = lane >> 3, mr = lane & 7, gid = lane >> 2, q = lane & 3;
+    mbar_wait(&landed[slot], (s / STAGES) & 1);
+    int first, last;
+    stage_rows(s, r0, dy0, nd, first, last);
+    for (int op = warp; op < (last - first + 1) * n_ops; op += WARPS) {
+      const int vy = first + op / n_ops, o = op % n_ops;
+      const bf16* raw = t_raw + (vy % pl.rt) * 16 * pl.tw;
+      bf16* pix = t_pix + (vy % pl.rt) * pl.tw * CS;
+      const int sy = vy - ss.pad;
+      uint32_t v[4];
+      const int gl = min(2 * o + (mi >> 1), tw8 - 1);
+      ldsm4(v, smem_addr(raw + (8 * (mi & 1) + mr) * pl.tw + 8 * gl));
+      if (ss.scale != nullptr && sy >= 0 && sy < ss.H) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int c = c0 + 8 * (m & 1) + gid;
+          const int sx = x0 - t_lead + 8 * min(2 * o + (m >> 1), tw8 - 1) +
+                         2 * q - ss.pad;
+          if (c >= pl.Cs) continue;
+          const int row = (b / ss.per_group) * ss.cin + c;
+          v[m] = dwtc::pro_pair(v[m], ss, ss.scale[row], ss.shift[row],
+                                (sx >= 0 && sx < ss.W) |
+                                    (sx + 1 >= 0 && sx + 1 < ss.W) << 1);
+        }
+      }
+      stsm4t(v, smem_addr(pix + (8 * gl + mr) * CS + 8 * (mi & 1)));
+    }
+    const int sy = r0 + s - us.pad;
+    if (us.scale != nullptr) {
+      if (sy >= 0 && sy < us.H) {
+        uint8_t* box = u_ring + slot * N * 128;
+        for (int it = threadIdx.x; it < N * 8; it += THREADS) {
+          // row u of the box, 16-byte unit cp; the swizzle put pixels
+          // 8 (cp ^ (u & 7)) .. + 7 there
+          const int u = it >> 3, cp = it & 7, c = n0 + u;
+          if (c >= pl.Cu) continue;
+          const int sx = x0 + 8 * (cp ^ (u & 7)) - us.pad;
+          const int row = (b / us.per_group) * us.cin + c;
+          const float sc = us.scale[row], sh = us.shift[row];
+          uint32_t* p = reinterpret_cast<uint32_t*>(box + u * 128 + cp * 16);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = sx + 2 * e;
+            p[e] = dwtc::pro_pair(p[e], us, sc, sh,
+                                  (x >= 0 && x < us.W) |
+                                      (x + 1 >= 0 && x + 1 < us.W) << 1);
+          }
+        }
+      }
+      // the products read the box through the async proxy
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+    // one arrival a warp, not 256 on one barrier
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&full[slot]);
+  };
+
+  const int wg = warp >> 2, w = warp & 3;
+  const uint32_t pix_s = smem_addr(t_pix) +
+      2 * (((lane & 7) + ((lane >> 4) << 3)) * CS + (((lane >> 3) & 1) << 3));
+  const int rowb = pl.tw * CS * 2;
+  // tile j's unit in this warp: tap t0 + j * 8 + wg * 4 + w (past the
+  // group's taps its last tap, computed and never stored: every tile is
+  // issued, as a run-time count of them made ptxas fence each product),
+  // as its tap row past dy0 (high half) and its dx's byte offset (low
+  // half)
+  uint32_t toff[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int t = t0 + min(j * 8 + wg * 4 + w, units - 1);
+    const int dy = t / pl.k;
+    toff[j] = (uint32_t)(dy - dy0) << 16 | 2 * (t_lead + t - dy * pl.k) * CS;
+  }
+  float acc[J][N / 2];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[j][i] = 0.f;
+    pin(acc[j]);
+  }
+  uint32_t a[2][J][4];
+  if (threadIdx.x == 0)
+    for (int s = 0; s < AHEAD && s < n_st; ++s) issue(s);
+  __syncwarp();
+  for (int s = 0; s < PRODUCE && s < n_st; ++s) produce(s);
+  const int steps = min(BAND / 16, (q1 - x0 + 15) / 16);  // k16 steps before Wp
+  for (int s = 0; s < n_st; ++s) {
+    const int slot = s % STAGES;
+    if (threadIdx.x == 0 && s + AHEAD < n_st) issue(s + AHEAD);
+    __syncwarp();
+    if (s + PRODUCE < n_st) produce(s + PRODUCE);
+    __syncwarp();
+    mbar_wait(&landed[slot], (s / STAGES) & 1);
+    mbar_wait(&full[slot], (s / STAGES) & 1);
+    const int vb = (r0 + s + dy0) % pl.rt;
+    uint32_t off[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      int row = vb + (int)(toff[j] >> 16);
+      if (row >= pl.rt) row -= pl.rt;
+      off[j] = pix_s + row * rowb + (toff[j] & 0xffffu);
+    }
+    const uint64_t ud = sw128_desc(u_ring + slot * N * 128);
+    // a k16 step: each tile's A fragment (ldmatrix.x4.trans at its tap's
+    // row and column), then its product, one commit group; the step before
+    // the previous one is then complete, so its fragments may be reloaded.
+    // Unrolled, and drained at the stage's end, so that ptxas sees that (a
+    // group in flight across a loop's back edge, or a barrier arrive among
+    // the steps, made it serialise the products, C7513).
+#pragma unroll
+    for (int kk = 0; kk < BAND / 16; ++kk) {
+      if (kk >= steps) break;
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        ldsm4t(a[kk & 1][j], off[j] + kk * 32 * CS);
+      wg_fence();
+#pragma unroll
+      for (int j = 0; j < J; ++j) wg_rs<N>(acc[j], a[kk & 1][j], ud + 2 * kk);
+      wg_commit();
+      wg_wait<1>();
+    }
+    wg_wait<0>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) pin(acc[j]);
+
+  float* out = partial + (size_t)strip * pl.k * pl.k * pl.Cs * pl.Cu;
+  const int gid = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int uidx = j * 8 + wg * 4 + w;
+    if (uidx >= units) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + gid + 8 * h;
+      if (c >= pl.Cs) continue;
+      float* orow = out + ((size_t)(t0 + uidx) * pl.Cs + c) * pl.Cu;
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i) {
+        const int u = n0 + 8 * i + 2 * q;
+        if (u < pl.Cu) orow[u] = acc[j][4 * i + 2 * h];
+        if (u + 1 < pl.Cu) orow[u + 1] = acc[j][4 * i + 2 * h + 1];
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the libcuda the process has loaded (no link
+// against it), as attention.cu finds it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A map of s's source tensor [B, cin, H, W] read in boxes of [box_c
+// channels][1 row][box_w columns], zero outside it (negative coordinates
+// included), 128-byte swizzled or not. TMA needs a 16-byte aligned base and
+// rows of a multiple of 8 elements: false otherwise.
+bool tensor_map(CUtensorMap* map, const bf16* base, const Src& s, int B,
+                int box_w, int box_c, bool swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode || reinterpret_cast<uintptr_t>(base) % 16 || s.W % 8)
+    return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)s.W, (cuuint64_t)s.H,
+                              (cuuint64_t)s.cin, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s.W * 2,
+                                 (cuuint64_t)s.H * s.W * 2,
+                                 (cuuint64_t)s.cin * s.H * s.W * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_w, 1, (cuuint32_t)box_c, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<bf16*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// T (tx through ss, Cs = ss.cin channels) tapped, U (ux through us, Cu =
+// us.cin) untapped over [Hp, Wp]; tg taps a group, strips of `rows` rows.
+// partial: [B * ceil(Hp / rows) * ceil((Wp + lead) / 64), k * k * Cs * Cu]
+// (lead = -us.pad mod 8); dw as conv_dw_sum_kernel<trans> leaves it.
+template <int N>
+int launch(const bf16* tx, const Src& ss, const bf16* ux, const Src& us,
+           float* partial, float* dw, int B, int Hp, int Wp, int k, int tg,
+           int rows, bool trans, cudaStream_t st) {
+  Plan pl;
+  pl.Cs = ss.cin;
+  pl.Cu = us.cin;
+  pl.Hp = Hp;
+  pl.Wp = Wp;
+  pl.k = k;
+  pl.tg = tg;
+  pl.groups = (k * k + tg - 1) / tg;
+  pl.ncg = (pl.Cs + 15) / 16;
+  pl.chunks = (pl.Cu + N - 1) / N;
+  pl.rows = rows;
+  pl.n_rs = (Hp + rows - 1) / rows;
+  pl.lead = ((-us.pad) % 8 + 8) % 8;
+  pl.n_bands = (Wp + pl.lead + BAND - 1) / BAND;
+  pl.tw = tile_width(k);
+  pl.rt = ring_rows(k, tg);
+  Maps maps;
+  if (k < 2 || tg < 1 || tg > 8 * tiles_for(N) || rows < 1 ||
+      rows > MAX_ROWS || ss.stride != 1 || us.stride != 1 ||
+      pl.tw > MAX_TW || !tensor_map(&maps.t, tx, ss, B, pl.tw, 16, false) ||
+      !tensor_map(&maps.u, ux, us, B, BAND, N, true))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(N, k, tg);
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_dw_wg_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_slices = B * pl.n_rs * pl.n_bands;
+  const long long blocks =
+      (long long)n_slices * pl.ncg * pl.groups * pl.chunks;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  conv_dw_wg_kernel<N><<<(unsigned)blocks, THREADS, smem, st>>>(
+      maps, ss, us, pl, partial);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int n_out = k * k * pl.Cs * pl.Cu;
+  const dim3 rblock(32, n_slices < 32 ? n_slices : 32);
+  if (trans)
+    dwtc::conv_dw_sum_kernel<true><<<(n_out + 31) / 32, rblock, 0, st>>>(
+        partial, dw, n_out, n_slices, pl.Cu);
+  else
+    dwtc::conv_dw_sum_kernel<false><<<(n_out + 31) / 32, rblock, 0, st>>>(
+        partial, dw, n_out, n_slices, pl.Cu);
+  return (int)cudaGetLastError();
+}
+
+// What the card makes of instance N at k, tg: out = {threads, stages,
+// shared memory bytes, blocks an SM, registers a thread at launch, local
+// bytes a thread, J}.
+template <int N>
+int info(int k, int tg, int* out) {
+  const size_t smem = smem_bytes(N, k, tg);
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_dw_wg_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, conv_dw_wg_kernel<N>, THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, conv_dw_wg_kernel<N>);
+  if (e != cudaSuccess) return (int)e;
+  const int vals[7] = {THREADS, STAGES, (int)smem, blocks, attr.numRegs,
+                       (int)attr.localSizeBytes, tiles_for(N)};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return 0;
+}
+
+// The instances' N (ops/conv.py WG_NS): every Cu up to 136 in one chunk,
+// at most a few columns of padding
+#define WGDW_NS(X) X(16) X(24) X(32) X(40) X(48) X(64) X(72) X(96) X(136)
+
+}  // namespace wgdw
+
+// ---------------------------------------------------------------------------
 // fp32 K3, K4 and K7 on the tensor cores in split TF32 (namespace tc32):
 // every form (VALID with a border, the prologue, stride 2 by phases, SAME,
 // the K3''' statistics, the input gradient) at any k >= 1. They replace
@@ -2943,3 +3598,59 @@ extern "C" int conv_dw_px(const void* x, const void* g, float* partial,
 #undef PX_DW
 #undef PX_GTAP
 }
+
+// bf16 K4 (gtap = 0: dw [k,k,Cin,Cout]) and K7 (gtap = 1: dw [Cin,
+// k*k*Cout], taps reversed by the caller) at stride 1 on wgmma (namespace
+// wgdw; ops/conv.py conv_route sends bf16 k >= 8 on large maps here). x,
+// g, scale, shift, pad, groups, negslope: as conv_dw_px at stride 1. The
+// tiling comes from ops/conv.py dw_wg_tiling: n (one of WGDW_NS) columns of
+// the untapped operand a chunk, tg taps a group, strips of `rows` (at most
+// 64) rows of a 64-pixel band of the contraction's extent (Ho x Wo for K4,
+// (Ho+k-1) x (Wo+k-1) for K7). partial: fp32 scratch [B * ceil(Hp / rows)
+// * ceil((Wp + lead) / 64), k * k * Cs * Cu], lead = -pad mod 8 for K7 and
+// 0 for K4 (the bands start at -lead). TMA reads x and g: both 16-byte
+// aligned, with rows (W, Wo) of a multiple of 8 elements, else an error.
+extern "C" int conv_dw_wg(const void* x, const void* g, float* partial,
+                          float* dw, const float* scale, const float* shift,
+                          int B, int Cin, int H, int W, int Cout, int Ho,
+                          int Wo, int k, int pad, int groups, float negslope,
+                          int gtap, int n, int tg, int rows, void* stream) {
+  using wgdw::bf16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Src xs = make_src(scale, shift, B, Cin, H, W, pad, 1, groups,
+                          negslope);
+  // g: no prologue, zero outside its extent; K7's tapped g has a border of
+  // k - 1
+  const Src gs = make_src(nullptr, nullptr, B, Cout, Ho, Wo,
+                          gtap ? k - 1 : 0, 1, 1, 1.f);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gb = static_cast<const bf16*>(g);
+  const int Hp = gtap ? Ho + k - 1 : Ho, Wp = gtap ? Wo + k - 1 : Wo;
+#define WGDW_CASE(nn)                                                        \
+  case nn:                                                                   \
+    return gtap ? wgdw::launch<nn>(gb, gs, xb, xs, partial, dw, B, Hp, Wp,   \
+                                   k, tg, rows, true, st)                    \
+                : wgdw::launch<nn>(xb, xs, gb, gs, partial, dw, B, Hp, Wp,   \
+                                   k, tg, rows, false, st);
+  switch (n) {
+    WGDW_NS(WGDW_CASE)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WGDW_CASE
+}
+
+// conv_dw_wg's instance n at k and tg taps a group as the card runs it:
+// out[7] = {threads, stages, shared memory bytes, blocks an SM, registers a
+// thread, local bytes a thread, m64 tiles a consumer warpgroup holds}.
+extern "C" int conv_dw_wg_info(int n, int k, int tg, int* out) {
+#define WGDW_INFO(nn)                                                        \
+  case nn:                                                                   \
+    return wgdw::info<nn>(k, tg, out);
+  switch (n) {
+    WGDW_NS(WGDW_INFO)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WGDW_INFO
+}
+
+

@@ -143,6 +143,30 @@ PX_GTAP_NB = 2
 PX_GTAP_STAGES = 16
 PX_GTAP_PARTIAL = 64 << 20
 
+# bf16 K4 and K7 on large maps (csrc/conv.cu, namespace wgdw: wgmma, TMA;
+# dw_wg_form): a block owns a strip of at most WG_CHAIN // WG_BAND rows of a
+# WG_BAND-pixel band (each fp32 accumulator chain adds at most WG_CHAIN
+# pixels: the tensor cores truncate as they accumulate, and px's
+# cotangent-tapped strips keep the same bound), one 16-channel group of the
+# tapped operand, a group of at most 8 * wg_tiles(n) consecutive taps and n
+# columns (an instance of WG_NS) of the untapped one; WG_STAGES image rows
+# in flight, T staged pixel-major (WG_PIXEL elements a pixel, as px); one
+# block of WG_THREADS an SM within WG_SMEM bytes; the strips shortened
+# toward WG_FILL blocks where a map gives fewer; their partials within
+# WG_PARTIAL bytes. The rule's thresholds (WG_MIN_K, WG_MIN_PIXELS) are
+# dw_wg_form's, from the card's times.
+WG_BAND = 64              # csrc wgdw::BAND
+WG_PIXEL = 24             # csrc wgdw::CS
+WG_STAGES = 8             # csrc wgdw::STAGES
+WG_THREADS = 256          # csrc wgdw::THREADS
+WG_CHAIN = 4096           # csrc wgdw::CHAIN
+WG_NS = (16, 24, 32, 40, 48, 64, 72, 96, 136)   # csrc WGDW_NS
+WG_SMEM = 227 * 1024
+WG_FILL = 264
+WG_PARTIAL = 256 << 20
+WG_MIN_K = 8
+WG_MIN_PIXELS = 2 * 56 * 56
+
 # fp32 K3 and K4 on the tensor cores in split TF32 (csrc/conv.cu, namespace
 # tc32). K3: a block owns a strip of output pixels and nb n8 tiles of Cout
 # (at most TF32_NB); it walks the strip in stages of TF32_ROWS rows (one a
@@ -430,9 +454,10 @@ def _launch_fwd(x, w, out_hw, pad, stride, scale, shift, negslope, name,
 
 class ConvRoute(NamedTuple):
     """What conv_route picks: the kernel (K3, K4 or K7), its form ("tc":
-    the channel-major bf16 forms, "px": the pixel-major ones, "tf32": fp32
-    in split TF32 on the tensor cores), the C entry in csrc/conv.cu and the
-    tiling the wrapper passes it."""
+    the channel-major bf16 forms, "px": the pixel-major ones, "wg": bf16 K4
+    and K7 on wgmma for large maps, "tf32": fp32 in split TF32 on the
+    tensor cores), the C entry in csrc/conv.cu and the tiling the wrapper
+    passes it."""
     kernel: str
     form: str
     entry: str
@@ -476,16 +501,21 @@ def dw_px_form(k: int, phase: bool, cv: int, cout: int, batch: int,
 
 def conv_route(op: str, dtype: torch.dtype, k: int, stride: int, cv: int,
                cout: int, batch: int, ho: int, wo: int, same: bool = False,
-               gtap: bool = False, phase: bool = False) -> ConvRoute:
+               gtap: bool = False, phase: bool = False,
+               in_w: Optional[int] = None) -> ConvRoute:
     """The kernel and form that run a conv on the card, decided from its
     shape before any launch (pure Python: the CPU tests call it). op "fwd"
     is K3 (the forward and every input gradient), "dw" the weight gradient:
     K7 where it is wanted (gtap, or `same` where the reference's _dw_impl
     picks it: DW_TAP_ON_N and _gtap_better) at stride 1 and any k >= 2
-    (bf16: conv_dw_tc at k in DW_TC_GTAP_KS, conv_dw_px's cotangent-tapped
-    mode at the others), else K4. k is the kernel the launch reads (k2 for a stride-2
+    (bf16: conv_dw_tc at k in DW_TC_GTAP_KS, conv_dw_wg where dw_wg_form
+    says so, conv_dw_px's cotangent-tapped mode at the others), else K4
+    (bf16: conv_dw_wg where dw_wg_form says so, else dw_px_form picks). k
+    is the kernel the launch reads (k2 for a stride-2
     phase kernel, which `phase` also marks at stride 1); cv the channels of
-    V (s*s*Cin; for K7 the input's); [batch, ho, wo] the output. bf16 takes
+    V (s*s*Cin; for K7 the input's); [batch, ho, wo] the output; in_w the
+    input's width where the caller knows it (else wo: a SAME conv's),
+    which dw_wg_form reads. bf16 takes
     the tensor cores (px_form picks K3's form, dw_px_form K4's); fp32 K3,
     K4 and K7 take them too, in split TF32 (one kernel for K4 and K7); every
     k >= 1 has a kernel."""
@@ -507,6 +537,7 @@ def conv_route(op: str, dtype: torch.dtype, k: int, stride: int, cv: int,
     if op != "dw":
         raise ValueError(f"conv_route: op {op!r}")
     gtap = gtap or (same and DW_TAP_ON_N and _gtap_better(k, cv, cout))
+    widths = (wo if in_w is None else in_w, wo)
     if gtap and stride == 1 and k >= 2:
         hp, wp = ho + k - 1, wo + k - 1
         if not bf16:
@@ -515,11 +546,17 @@ def conv_route(op: str, dtype: torch.dtype, k: int, stride: int, cv: int,
         if k in DW_TC_GTAP_KS:
             return ConvRoute("K7", "tc", "conv_dw_tc", dw_tc_tiling(
                 k, cout, cv, batch, hp, wp))
+        if dw_wg_form(k, phase, cv, cout, batch, ho, wo, widths):
+            return ConvRoute("K7", "wg", "conv_dw_wg", dw_wg_plan(
+                k, cv, cout, batch, ho, wo, widths[0]))
         return ConvRoute("K7", "px", "conv_dw_px",
                          dw_px_gtap_tiling(k, cout, cv, batch, hp, wp))
     if not bf16:
         return ConvRoute("K4", "tf32", "conv_dw_tf32",
                          dw_tf32_tiling(k, cv, cout, batch, ho, wo))
+    if dw_wg_form(k, phase, cv, cout, batch, ho, wo, widths):
+        return ConvRoute("K4", "wg", "conv_dw_wg",
+                         dw_wg_plan(k, cv, cout, batch, ho, wo, widths[0]))
     if dw_px_form(k, phase, cv, cout, batch, ho, wo):
         return ConvRoute("K4", "px", "conv_dw_px",
                          dw_px_tiling(k, cv, cout, batch, ho, wo))
@@ -678,6 +715,148 @@ def dw_px_gtap_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
     from its plain version, against 3.6e-6 for conv_dw_tc's K7 at k = 5."""
     return dw_px_tiling(k, cs, cu, batch, hp, wp, PX_GTAP_NB, PX_GTAP_STAGES,
                         PX_GTAP_PARTIAL)
+
+
+def wg_tiles(n: int) -> int:
+    """m64 tiles a warpgroup of conv_dw_wg holds at n columns: the
+    accumulators (n / 2 registers a tile) and two A fragments (8) within
+    168 of a thread's 255 registers, at most 10 (csrc wgdw::tiles_for)."""
+    return min(10, 168 // (n // 2 + 8))
+
+
+def wg_tile_width(k: int) -> int:
+    """T's staged width: up to 7 columns of lead, the band and its k - 1
+    halo in an odd count of 16-byte units (csrc wgdw::tile_width)."""
+    return 8 * (-(-(7 + WG_BAND + k - 1) // 8) | 1)
+
+
+def wg_ring_rows(k: int, tg: int) -> int:
+    """Rows of T's ring: the most tap rows a group of tg consecutive taps
+    spans, plus WG_STAGES - 1 (csrc wgdw::ring_rows)."""
+    nd = max((min(t0 + tg, k * k) - 1) // k - t0 // k + 1
+             for t0 in range(0, k * k, tg))
+    return nd + WG_STAGES - 1
+
+
+def wg_smem(n: int, k: int, tg: int) -> int:
+    """Bytes of conv_dw_wg's shared memory: 1 KB to align, U's ring of
+    WG_STAGES boxes of n x 64 bf16, T's raw [16][tw] and pixel-major
+    [tw][WG_PIXEL] rings of wg_ring_rows rows, the barriers (csrc
+    wgdw::smem_bytes)."""
+    return (1024 + WG_STAGES * n * 128
+            + wg_ring_rows(k, tg) * wg_tile_width(k) * (32 + 2 * WG_PIXEL)
+            + 3 * WG_STAGES * 8)
+
+
+class DwWgTiling(NamedTuple):
+    """conv_dw_wg's work split: n columns (an instance of WG_NS) of the
+    untapped operand in `chunks` chunks; the k*k taps in `groups` groups of
+    tg; the tapped operand's ncg groups of 16 channels; strips of `rows`
+    rows of a WG_BAND-pixel band (slices = strips, the partials
+    conv_dw_sum_kernel adds); blocks of the grid; tiles (J) a warpgroup
+    holds; T's ring rows rt and staged width tw; shared memory; gtap: the
+    order it contracts in (True: the cotangent tapped, K7's; False: V
+    tapped, K4's; dw_wg_plan picks one for either kernel); stages: the
+    image rows all its blocks walk (dw_wg_cost); lead: the columns its
+    bands start left of the extent (the kernel's own: -pad mod 8 in the
+    cotangent-tapped order, 0 V tapped)."""
+    n: int
+    chunks: int
+    tg: int
+    groups: int
+    ncg: int
+    rows: int
+    slices: int
+    blocks: int
+    tiles: int
+    rt: int
+    tw: int
+    smem: int
+    gtap: bool
+    stages: int
+    lead: int
+
+
+def dw_wg_tiling(k: int, cs: int, cu: int, batch: int, hp: int,
+                 wp: int, lead: int = 0, gtap: bool = False) -> DwWgTiling:
+    """How conv_dw_wg splits dw[(t, c), u] = sum_p T[c, p + t] U[u, p] over
+    the pixels of [batch, hp, wp] (K4: T = V, cs = Cin, U = g, cu = Cout
+    over [Ho, Wo]; K7: T = g tapped with a border of k - 1, cs = Cout, U =
+    V, cu = Cin over [Ho + k - 1, Wo + k - 1]): U's cu channels in as few
+    evened chunks of at most WG_NS[-1] as it takes, each n = the smallest
+    instance that holds it; the taps in as few evened groups as let a
+    consumer warpgroup's wg_tiles(n) m64 tiles (8 tiles' taps a block) hold
+    them; T's channels in groups of 16; strips of at most WG_CHAIN //
+    WG_BAND rows (evened) of WG_BAND-pixel bands, shortened toward WG_FILL
+    blocks where the map gives fewer. The bands start `lead` columns left
+    of the extent (K7: -pad mod 8, so that each TMA box of U starts on a
+    multiple of 8 elements of x; K4: 0)."""
+    n8 = -(-cu // 8)
+    chunks = -(-n8 // (WG_NS[-1] // 8))
+    n = next(v for v in WG_NS if v >= 8 * -(-n8 // chunks))
+    tiles = wg_tiles(n)
+    groups = -(-k * k // (8 * tiles))
+    tg = -(-k * k // groups)
+    ncg = -(-cs // 16)
+    bands = -(-(wp + lead) // WG_BAND)
+    per = ncg * groups * chunks
+    n_rs = max(-(-hp // (WG_CHAIN // WG_BAND)),
+               min(hp, -(-WG_FILL // (batch * bands * per))))
+    rows = -(-hp // n_rs)
+    slices = batch * -(-hp // rows) * bands
+    return DwWgTiling(n, chunks, tg, groups, ncg, rows, slices,
+                      slices * per, tiles, wg_ring_rows(k, tg),
+                      wg_tile_width(k), wg_smem(n, k, tg), gtap,
+                      per * batch * bands * hp, lead)
+
+
+def dw_wg_cost(t: DwWgTiling) -> float:
+    """A tiling's relative time on the card: the image rows its blocks walk
+    (each a fixed cost: barriers, TMA, the transposition), times 1 + 0.139
+    a tile + 0.0106 a tile's column (the products): a non-negative fit to
+    the 20 plans timed in both orders at up_conv s0-s4, k = 9 and 11
+    (`tools/conv_forms.py --dw9`, PERF.md section 6), which ranks 9 of the
+    10 pairs right (the tenth 3% apart)."""
+    return t.stages * (1 + 0.139 * t.tiles + 0.0106 * t.tiles * t.n)
+
+
+def dw_wg_plan(k: int, cv: int, cout: int, batch: int, ho: int,
+               wo: int, in_w: int) -> DwWgTiling:
+    """conv_dw_wg's plan for the weight gradient of a stride-1 conv (V's cv
+    channels, Cout, output [batch, ho, wo], x in_w wide): of the two
+    contraction orders, which compute the same function, the one
+    dw_wg_cost finds cheaper: V tapped (K4's: Cout on N) or the cotangent
+    tapped (K7's: Cin on N, over [ho + k - 1, wo + k - 1], its bands
+    starting -pad mod 8 columns early, pad = x's border (wo + k - 1 -
+    in_w) / 2). This plan is the one _launch_dw_wg launches. At Cout 16
+    K4's order issues 3x K7's products; at up_conv s4 (a 56 x 56 map,
+    which the lead and the k - 1 halo widen by a band) K7's takes 1.6x K4's
+    (PERF.md)."""
+    pad = (wo + k - 1 - in_w) // 2
+    x_order = dw_wg_tiling(k, cv, cout, batch, ho, wo)
+    g_order = dw_wg_tiling(k, cout, cv, batch, ho + k - 1, wo + k - 1,
+                           -pad % 8, gtap=True)
+    return min((x_order, g_order), key=dw_wg_cost)
+
+
+def dw_wg_form(k: int, phase: bool, cv: int, cout: int, batch: int, ho: int,
+               wo: int, widths: Tuple[int, int]) -> bool:
+    """The bf16 K4 / K7 rule for conv_dw_wg (namespace wgdw): stride 1
+    (no phase kernel), k >= WG_MIN_K, at least WG_MIN_PIXELS output pixels
+    [batch, ho, wo] (cv: V's channels), rows of both operands (`widths`:
+    x's and g's W) a multiple of 8 elements, as TMA reads them, and the
+    plan it launches (dw_wg_plan) within WG_SMEM and WG_PARTIAL. From the card's times at
+    the generator's up_conv sites (`tools/conv_forms.py --dw9`, PERF.md
+    section 6; NVIDIA H100 80GB HBM3, 700 W): at k = 9 and 11 the form
+    beat conv_dw_px at all five, B = 2 maps of 56-896 pixels (at s4,
+    56 x 56 = WG_MIN_PIXELS / 2: 0.145 / 0.192 ms against 0.263 / 0.465;
+    at s0 0.85 / 1.22 against 3.66 / 4.8-5.4); no smaller map was timed."""
+    if phase or k < WG_MIN_K or batch * ho * wo < WG_MIN_PIXELS or any(
+            w % 8 for w in widths):
+        return False
+    t = dw_wg_plan(k, cv, cout, batch, ho, wo, widths[0])
+    return (t.smem <= WG_SMEM
+            and 4 * t.slices * k * k * cv * cout <= WG_PARTIAL)
 
 
 class FwdTiling(NamedTuple):
@@ -1073,6 +1252,55 @@ def _launch_dw_px(x, g, k, pad, stride, scale, shift, negslope, gtap, t,
     return dw
 
 
+def _launch_dw_wg(x, g, k, pad, stride, scale, shift, negslope, gtap, t,
+                  name):
+    """bf16 K4 or K7 (the same function: fp32 [k, k, Cin, Cout]) at stride
+    1 on conv_dw_wg (wgmma; TMA reads x and g) in the order t (dw_wg_plan or
+    dw_wg_tiling) contracts in, t.gtap, whichever kernel gtap names. Raises
+    ValueError for an operand that is not 16-byte aligned (a contiguous
+    view at an odd offset), which TMA cannot read: it is never copied; and
+    for a tiling whose bands' lead is not the kernel's (-pad mod 8 in the
+    cotangent-tapped order, else 0), whose partials would not fit."""
+    B, cin, h, wd = x.shape
+    cout, ho, wo = g.shape[1], g.shape[2], g.shape[3]
+    if stride != 1 or x.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError(f"{name}: conv_dw_wg reads stride-1, 16-byte "
+                         f"aligned operands by TMA")
+    gtap = t.gtap
+    if t.lead != (-pad % 8 if gtap else 0):
+        raise ValueError(f"{name}: conv_dw_wg's tiling has lead {t.lead}, "
+                         f"the kernel's border {pad} another")
+    sp, tp, G = _prologue_args(x, scale, shift)
+    partial = torch.empty(t.slices, k * k * cin * cout, dtype=torch.float32,
+                          device=x.device)
+    shape = (cin, k * k * cout) if gtap else (k, k, cin, cout)
+    dw = torch.empty(shape, dtype=torch.float32, device=x.device)
+    fn = _build.library("conv").conv_dw_wg
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
+        + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    status = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                dw.data_ptr(), sp, tp, B, cin, h, wd, cout, ho, wo, k, pad,
+                G, float(negslope), int(gtap), t.n, t.tg, t.rows,
+                _build.stream_ptr(x.device))
+    _build.check(status, name)
+    return _reverse_taps(dw, k) if gtap else dw
+
+
+def dw_wg_info(t: DwWgTiling, k: int) -> dict:
+    """What the card makes of conv_dw_wg's instance for tiling t at k
+    (csrc conv_dw_wg_info): threads, stages, shared memory bytes, blocks an
+    SM, registers a thread, local bytes a thread, tiles a consumer
+    warpgroup holds."""
+    fn = _build.library("conv").conv_dw_wg_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 7)()
+    _build.check(fn(t.n, k, t.tg, out), "conv_dw_wg_info")
+    return dict(zip(("threads", "stages", "smem", "blocks_per_sm",
+                     "registers", "local_bytes", "tiles"), out))
+
+
 def _launch_dw_tf32(x, g, k, pad, stride, scale, shift, negslope, gtap, t,
                     name):
     """fp32 K4 (gtap False: fp32 [k, k, s*s*Cin, Cout]) or K7 (gtap True,
@@ -1103,7 +1331,7 @@ def _dw_route(x, g, k, stride, gtap: bool = False) -> ConvRoute:
     against the cotangent g."""
     return conv_route("dw", x.dtype, k, stride, stride * stride * x.shape[1],
                       g.shape[1], g.shape[0], g.shape[2], g.shape[3],
-                      gtap=gtap)
+                      gtap=gtap, in_w=x.shape[3])
 
 
 def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name,
@@ -1121,10 +1349,11 @@ def _launch_dw(x, g, k, pad, stride, scale, shift, negslope, name,
     route = _dw_route(x, g, k, stride, gtap)
     args = (x, g, k, pad, stride, scale, shift, negslope)
     gtap = route.kernel == "K7"
-    launch = {"px": _launch_dw_px, "tc": _launch_dw_tc,
+    launch = {"px": _launch_dw_px, "tc": _launch_dw_tc, "wg": _launch_dw_wg,
               "tf32": _launch_dw_tf32}[route.form]
     dw = launch(*args, gtap, route.tiling, name)
-    return _reverse_taps(dw, k) if gtap else dw
+    # conv_dw_wg returns [k, k, Cin, Cout] in either order
+    return _reverse_taps(dw, k) if gtap and route.form != "wg" else dw
 
 
 def _same_pad(w: torch.Tensor, name: str) -> int:
@@ -1341,7 +1570,7 @@ def conv_weight_grad(x, g, k: int, scale=None, shift=None,
         return conv_dw_pro_plain(x, g, k, scale, shift, negslope, pad, stride)
     route = conv_route("dw", x.dtype, k, stride, stride * stride * x.shape[1],
                        g.shape[1], g.shape[0], g.shape[2], g.shape[3],
-                       same=same)
+                       same=same, in_w=x.shape[3])
     if route.kernel == "K7":
         return conv_dw_gtap_cuda(x, g, k, scale, shift, negslope, pad)
     if scale is not None:

@@ -2,7 +2,7 @@
 main_fp32's sites, timed for one checkout.
 
     python splice_tpu_torch/tools/conv_forms.py [--tree DIR] [--out FILE]
-        [--step] [--fp32] [--same]
+        [--step] [--fp32] [--same] [--dw9]
 
 Imports splice_tpu_torch from DIR (default: the checkout this file is in),
 builds its conv library, and at each of the inversion net's sites on limes
@@ -45,6 +45,21 @@ uses only conv_valid_cuda, conv_dw_cuda and conv_dw_gtap_cuda, which every
 version of the port has, so the parent of a redesigned fp32 kernel and a
 later tree can be timed in turns the same way. The JSON line then holds
 "fp32": true (and "same": true).
+
+With --dw9 it times bf16 at the generator's up_conv sites with
+filter_size_up 9 and 11 (DW9_SITES: [2, Cin, S, S] -> Cout, the SAME
+border): K7 (conv_dw_gtap_cuda, "k7_9"), K4 (conv_dw_cuda, "k4_9") and
+conv2d_weight ("dw_lib_9"), and K3 (conv_valid_cuda, "k3_9"), its input
+gradient ("dx_9") beside F.conv2d and conv2d_input ("k3_lib_9",
+"dx_lib_9"), and likewise at k = 11. It uses only those wrappers, which
+every version of the port since K7 took k = 9 and 11 has, so that the
+parent and a later tree can be timed in turns. Where the imported tree has
+conv_dw_wg (ops.conv.dw_wg_tiling) it also times the weight gradient on
+each bf16 form the route chooses between, forced: conv_dw_px in each
+kernel's order ("k7_px_9", "k4_px_9") and conv_dw_wg in each order
+("k7_wg_9": the cotangent tapped, "k4_wg_9": V tapped), which
+ops.conv.dw_wg_form's thresholds and dw_wg_cost's fit read. The JSON line
+then holds "dw9": true.
 """
 from __future__ import annotations
 
@@ -89,6 +104,12 @@ K7_KERNELS = ("conv_dw_gtap_kernel", "conv_dw_reduce_kernel",
 # entire A at 0 and 10 (entire_A_every 10): the program holds chunks of 9
 FP32_STEP_ITERS = 11
 COWS = "datasets/splicing/cows"
+# The generator's up convs (SkipConfig's default widths on the 896 canvas,
+# B = 2): (name, Cin, Cout, S); K7 at s0-s2 and K4 at s3-s4 where
+# filter_size_up is 9 or 11 (chip_smoke phase 6d)
+DW9_SITES = (("up_conv s0", 36, 16, 896), ("up_conv s1", 68, 32, 448),
+             ("up_conv s2", 132, 64, 224), ("up_conv s3", 132, 128, 112),
+             ("up_conv s4", 132, 128, 56))
 
 
 def profile_ms(torch, run, n: int) -> dict:
@@ -211,6 +232,47 @@ def k7_calls(torch, conv, cin, cout, S, gen) -> dict:
     return out
 
 
+def dw9_calls(torch, conv, cin, cout, S, k, gen) -> dict:
+    """bf16 K7, K4, K3 and K3's input gradient at one of DW9_SITES with a
+    k x k filter (the SAME border), each beside its library call, and where
+    the tree has conv_dw_wg each weight gradient on the px and wg forms,
+    forced: {key: call}."""
+    import torch.nn.functional as F
+    pad = (k - 1) // 2
+    bf = torch.bfloat16
+    x = torch.randn(2, cin, S, S, generator=gen).to("cuda", bf)
+    g = torch.randn(2, cout, S, S, generator=gen).to("cuda", bf)
+    w = (0.1 * torch.randn(k, k, cin, cout, generator=gen)).to("cuda", bf)
+    wf = torch.flip(w, dims=(0, 1)).transpose(2, 3).contiguous()
+    woi = w.permute(3, 2, 0, 1).contiguous()
+    out = {f"k7_{k}": lambda: conv.conv_dw_gtap_cuda(x, g, k, None, None,
+                                                     1.0, pad),
+           f"k4_{k}": lambda: conv.conv_dw_cuda(x, g, k, pad),
+           f"dw_lib_{k}": lambda: torch.nn.grad.conv2d_weight(
+               x, woi.shape, g, padding=pad),
+           f"k3_{k}": lambda: conv.conv_valid_cuda(x, w, pad),
+           f"k3_lib_{k}": lambda: F.conv2d(x, woi, padding=pad),
+           f"dx_{k}": lambda: conv.conv_valid_cuda(g, wf, k - 1 - pad),
+           f"dx_lib_{k}": lambda: torch.nn.grad.conv2d_input(
+               x.shape, woi, g, padding=pad)}
+    if hasattr(conv, "dw_wg_tiling"):
+        sp = S + k - 1
+        forms = {
+            "k7_px": (conv._launch_dw_px, True, conv.dw_px_gtap_tiling(
+                k, cout, cin, 2, sp, sp)),
+            "k7_wg": (conv._launch_dw_wg, True, conv.dw_wg_tiling(
+                k, cout, cin, 2, sp, sp, -pad % 8, gtap=True)),
+            "k4_px": (conv._launch_dw_px, False, conv.dw_px_tiling(
+                k, cin, cout, 2, S, S)),
+            "k4_wg": (conv._launch_dw_wg, False, conv.dw_wg_tiling(
+                k, cin, cout, 2, S, S))}
+        for key, (launch, gtap, t) in forms.items():
+            out[f"{key}_{k}"] = (
+                lambda launch=launch, gtap=gtap, t=t, key=key: launch(
+                    x, g, k, pad, 1, None, None, 1.0, gtap, t, key))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     here = pathlib.Path(__file__).resolve().parents[2]
@@ -219,6 +281,7 @@ def main(argv=None) -> int:
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--fp32", action="store_true")
     ap.add_argument("--same", action="store_true")
+    ap.add_argument("--dw9", action="store_true")
     args = ap.parse_args(argv)
     if args.same and not args.fp32:
         raise SystemExit("--same times pallas_same_fp32: it needs --fp32")
@@ -241,8 +304,8 @@ def main(argv=None) -> int:
     if args.fp32:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    for name, cin, cout, H, W, k, stride in (() if args.fp32 else
-                                             INV_SITES):
+    for name, cin, cout, H, W, k, stride in (() if args.fp32 or args.dw9
+                                             else INV_SITES):
         ho, wo = (H - k) // stride + 1, (W - k) // stride + 1
         x = torch.randn(1, cin, H, W, generator=gen).to("cuda", torch.bfloat16)
         w = (0.1 * torch.randn(k, k, cin, cout, generator=gen)).to(
@@ -286,7 +349,21 @@ def main(argv=None) -> int:
             f"{key} {v:.4f}" for key, v in sites[name].items()),
               file=sys.stderr)
         torch.cuda.empty_cache()
+    for name, cin, cout, S in (DW9_SITES if args.dw9 else ()):
+        sites[name] = {}
+        for k in (9, 11):
+            for key, fn in dw9_calls(torch, conv, cin, cout, S, k,
+                                     gen).items():
+                fn()
+                sites[name][key] = statistics.median(
+                    device_ms(fn, 10) for _ in range(5))
+            torch.cuda.empty_cache()
+        print(f"  {name} bf16: " + ", ".join(
+            f"{key} {v:.4f}" for key, v in sites[name].items()),
+              file=sys.stderr)
     result = {"tree": str(tree), "card": card, "sites": sites}
+    if args.dw9:
+        result["dw9"] = True
     if args.fp32:
         result["fp32"] = True
     if args.same:

@@ -1,9 +1,10 @@
 """Ablation: what binds the pixel-major bf16 conv kernels (K3 conv_fwd_px,
 K4 conv_dw_px) at the inversion net's sites, or with --tf32 the
 split-TF32 fp32 ones (K3 conv_fwd_tf32, K4 and K7 conv_dw_tf32) at
-main_fp32's?
+main_fp32's, or with --wg bf16 K4/K7 on conv_dw_wg at the generator's up
+convs?
 
-    python -m splice_tpu_torch.tools.px_ablation [--tf32]
+    python -m splice_tpu_torch.tools.px_ablation [--tf32 | --wg]
 
 The tool builds the conv library as it stands (ops._build) and three
 variants of csrc/conv.cu, each made by edits of its text (VARIANTS; an edit
@@ -34,6 +35,18 @@ csrc/tf32.cuh written in at its #include:
 and the calls are fp32 K3, its input gradient, K4 and K7 (the SAME
 border, k = 3) at main_fp32's two sites (conv_forms.FP32_SITES, which are
 also the SAME route's K7 sites), against the plain versions at 1e-4.
+
+With --wg the variants are WG_VARIANTS, edits of conv_dw_wg_kernel:
+  * no_mma: its wgmma products removed (the A fragments' ldmatrix, the
+    fences, commits and waits stay);
+  * no_steps: every k16 step skipped (no fragments, no products): what is
+    left is the skeleton, the barriers, TMA, the transposition, the drains,
+    the partials and their sum;
+  * no_transpose: the transposition of T's landed rows removed (the
+    products read whatever the ring holds);
+and the calls are bf16 K7 and K4 at k = 9 (the SAME border) at the up_conv
+sites (conv_forms.DW9_SITES), through the route's plan, against the plain
+versions at 1e-4.
 """
 from __future__ import annotations
 
@@ -47,7 +60,7 @@ import torch
 
 from splice_tpu_torch.ops import _build
 from splice_tpu_torch.ops import conv
-from splice_tpu_torch.tools.conv_forms import FP32_SITES, INV_SITES
+from splice_tpu_torch.tools.conv_forms import DW9_SITES, FP32_SITES, INV_SITES
 from splice_tpu_torch.tools.mma_k_probe import device_ms
 
 _K3_MMA = """\
@@ -103,14 +116,30 @@ TF32_VARIANTS = {
         ("    for (int i = threadIdx.x; i < NCO * DR * DC; i += THREADS) {\n",
          "    for (int i = threadIdx.x; i < 0 * DC; i += THREADS) {\n")),
 }
+_WG_MMA = ("      for (int j = 0; j < J; ++j) wg_rs<N>(acc[j], a[kk & 1][j], "
+           "ud + 2 * kk);\n")
+_WG_STEPS = "      if (kk >= steps) break;\n"
+_WG_TRANSPOSE = ("    for (int op = warp; op < (last - first + 1) * n_ops; "
+                 "op += WARPS) {\n")
+WG_VARIANTS = {
+    "no_mma": ((_WG_MMA, ""),),
+    "no_steps": ((_WG_STEPS, "      if (kk >= 0) break;\n"),),
+    "no_transpose": ((_WG_TRANSPOSE, _WG_TRANSPOSE.replace(
+        "(last - first + 1) * n_ops", "0 * n_ops")),),
+}
 _INCLUDE = '#include "tf32.cuh"\n'
 ROUNDS = 5
 ITERS = 20
 
 
-def variant_source(name: str, tf32: bool = False) -> str:
+def _variants(tf32: bool, wg: bool) -> dict:
+    return TF32_VARIANTS if tf32 else WG_VARIANTS if wg else VARIANTS
+
+
+def variant_source(name: str, tf32: bool = False, wg: bool = False) -> str:
     """csrc/conv.cu with VARIANTS[name]'s edits applied (with tf32,
-    TF32_VARIANTS[name]'s, csrc/tf32.cuh written in at its #include)."""
+    TF32_VARIANTS[name]'s, csrc/tf32.cuh written in at its #include; with
+    wg, WG_VARIANTS[name]'s)."""
     src = (_build.CSRC_DIR / "conv.cu").read_text()
     if tf32:
         if src.count(_INCLUDE) != 1:
@@ -118,7 +147,7 @@ def variant_source(name: str, tf32: bool = False) -> str:
                                "tf32.cuh exactly once")
         src = src.replace(_INCLUDE,
                           (_build.CSRC_DIR / "tf32.cuh").read_text())
-    for old, new in (TF32_VARIANTS if tf32 else VARIANTS)[name]:
+    for old, new in _variants(tf32, wg)[name]:
         if src.count(old) != 1:
             raise RuntimeError(f"px_ablation {name}: the edit's text is not "
                                f"in conv.cu exactly once")
@@ -126,17 +155,19 @@ def variant_source(name: str, tf32: bool = False) -> str:
     return src
 
 
-def build_variants(tf32: bool = False) -> Dict[str, ctypes.CDLL]:
+def build_variants(tf32: bool = False,
+                   wg: bool = False) -> Dict[str, ctypes.CDLL]:
     """The full library (ops._build) and every variant, compiled together
     into _build/ablation (csrc on the include path); ptxas's registers and
     spills of each ablated kernel printed."""
     out_dir = _build.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    kind = "_tf32_kernel" if tf32 else "_px_kernel"
-    for name in (TF32_VARIANTS if tf32 else VARIANTS):
+    kind = ("_tf32_kernel" if tf32 else "conv_dw_wg_kernel" if wg
+            else "_px_kernel")
+    for name in _variants(tf32, wg):
         src = out_dir / f"conv_{name}.cu"
-        src.write_text(variant_source(name, tf32))
+        src.write_text(variant_source(name, tf32, wg))
         lib = out_dir / f"libconv_{name}.so"
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
@@ -217,22 +248,42 @@ def fp32_site_calls(name, cin, cout, S):
     return calls, plain
 
 
+def wg_site_calls(name, cin, cout, S):
+    """bf16 K7 and K4 at k = 9 (the SAME border) at one of the up_conv
+    sites (conv_forms.DW9_SITES: B = 2), through the route's conv_dw_wg
+    plan, and their plain versions."""
+    gen = torch.Generator().manual_seed(cin + cout)
+    x = torch.randn(2, cin, S, S, generator=gen).to("cuda", torch.bfloat16)
+    g = torch.randn(2, cout, S, S, generator=gen).to("cuda", torch.bfloat16)
+    calls = {"K7": lambda: conv.conv_dw_gtap_cuda(x, g, 9, None, None, 1.0,
+                                                  4),
+             "K4": lambda: conv.conv_dw_cuda(x, g, 9, 4)}
+    plain = {"K7": lambda: conv.conv_dw_gtap_plain(x, g, 9, None, None, 1.0,
+                                                   4),
+             "K4": lambda: conv.conv_dw_plain(
+                 torch.nn.functional.pad(x, (4, 4, 4, 4)), g, 9)}
+    return calls, plain
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tf32", action="store_true")
-    tf32 = ap.parse_args(argv).tf32
+    ap.add_argument("--wg", action="store_true")
+    args = ap.parse_args(argv)
+    tf32, wg = args.tf32, args.wg
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = build_variants(tf32)
+    libs = build_variants(tf32, wg)
     full = libs["full"]
-    result = {"card": smi, "tf32": tf32, "sites": {}}
-    for site in (FP32_SITES if tf32 else INV_SITES):
-        calls, plain = (fp32_site_calls if tf32 else site_calls)(*site)
+    result = {"card": smi, "tf32": tf32, "wg": wg, "sites": {}}
+    for site in (FP32_SITES if tf32 else DW9_SITES if wg else INV_SITES):
+        calls, plain = (fp32_site_calls if tf32 else wg_site_calls if wg
+                        else site_calls)(*site)
         _build._libs["conv"] = full
         row = {}
         for key, fn in calls.items():

@@ -29,7 +29,8 @@ ENTRIES = {("K3", "tc"): "conv_fwd_tc", ("K3", "px"): "conv_fwd_px",
            ("K3", "tf32"): "conv_fwd_tf32", ("K4", "tc"): "conv_dw_tc",
            ("K4", "px"): "conv_dw_px", ("K4", "tf32"): "conv_dw_tf32",
            ("K7", "tc"): "conv_dw_tc", ("K7", "px"): "conv_dw_px",
-           ("K7", "tf32"): "conv_dw_tf32"}
+           ("K7", "tf32"): "conv_dw_tf32", ("K4", "wg"): "conv_dw_wg",
+           ("K7", "wg"): "conv_dw_wg"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -207,6 +208,11 @@ def test_k4_keeps_the_tc_form_only_at_narrow_cout_on_a_busy_grid(
         busy = narrow and tconv.dw_tc_blocks(
             tconv.dw_tc_tiling(k, 36, cout, batch, hw, hw), 36,
             cout) >= tconv.DW_TC_BLOCKS // 8
+        if tconv.dw_wg_form(k, phase, 36, cout, batch, hw, hw, (hw, hw)):
+            # k >= WG_MIN_K on a large map: conv_dw_wg ahead of both
+            assert k >= tconv.WG_MIN_K and not phase and hw in (112, 224)
+            assert (r.form, r.entry) == ("wg", "conv_dw_wg"), r
+            continue
         assert r.form == ("tc" if busy else "px"), (batch, hw, r)
         assert r.entry == ("conv_dw_tc" if busy else "conv_dw_px")
         if hw == 14:
@@ -232,10 +238,16 @@ def test_px_gtap_tiling_fits_the_kernel(k, cin, cout, batch, hw):
     it, and a grid of at least half a wave."""
     r = tconv.conv_route("dw", torch.bfloat16, k, 1, cin, cout, batch, hw,
                          hw, gtap=True)
-    t = r.tiling
     hp = hw + k - 1
-    assert (r.kernel, r.form, r.entry) == ("K7", "px", "conv_dw_px")
-    assert t == tconv.dw_px_gtap_tiling(k, cout, cin, batch, hp, hp)
+    t = tconv.dw_px_gtap_tiling(k, cout, cin, batch, hp, hp)
+    if k >= tconv.WG_MIN_K and hw % 8 == 0:
+        # these maps take conv_dw_wg from k = WG_MIN_K where TMA reads their
+        # rows (tests/test_torch_conv_wg_tiles.py); the px mode's tiling
+        # still fits wherever the route sends other maps
+        assert (r.kernel, r.form, r.entry) == ("K7", "wg", "conv_dw_wg")
+    else:
+        assert (r.kernel, r.form, r.entry) == ("K7", "px", "conv_dw_px")
+        assert t == r.tiling
     assert t.nb <= tconv.PX_GTAP_NB
     assert tconv.dw_px_smem(k, t.ndy, t.nb) <= tconv.PX_SMEM
     assert -(-t.ndy * k // 8) <= 16 // t.nb
